@@ -67,3 +67,17 @@ def test_every_module_imports_with_jax_blocked_and_builds_nothing(tmp_path):
         capture_output=True, text=True, env=env, cwd=tmp_path, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["ok", str(len(MODULES))]
+
+
+def test_build_without_nvcc_fails_naming_nvcc(tmp_path, monkeypatch):
+    """On a machine without the CUDA toolkit the first launch raises a
+    clear error, and the build goes only under the build root."""
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "build_root", lambda: tmp_path / "build")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path / "no-bin"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+    assert _build.build_dir().parent == tmp_path / "build"
+    assert _build.build_dir().name.startswith("kernels-")

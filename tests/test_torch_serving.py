@@ -90,13 +90,12 @@ def test_sparse_encoder_reps_match_jax_up_to_near_ties():
 
 
 def _loop(encode=None, **policy):
-    cfg_t = SMOKE
     if encode is None:
         from repro_torch.models.transformer import init_params
 
-        cfg_t = dataclasses.replace(SMOKE, head_impl="kernel", rep_topk=8)
-        params = init_params(torch.Generator().manual_seed(0), cfg_t)
-        encode = make_config_encoder(params, cfg_t)
+        cfg = dataclasses.replace(SMOKE, head_impl="kernel", rep_topk=8)
+        params = init_params(torch.Generator().manual_seed(0), cfg)
+        encode = make_config_encoder(params, cfg)
     return ServingLoop(BatchedEncoder(encode, policy=BatchPolicy(**policy)))
 
 
@@ -155,3 +154,15 @@ def test_serve_driver_without_cuda_fails_naming_cuda():
     proc = _serve()
     assert proc.returncode != 0
     assert "CUDA" in proc.stderr
+
+
+def test_resolve_device_defaults_to_cuda_and_never_falls_back():
+    from repro_torch.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+    else:
+        for dev in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                resolve_device(dev)
