@@ -1,8 +1,8 @@
 """Drive the PyTorch port's serving path on one NVIDIA H100.
 
-    python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py            # one card, no arguments
 
-Phases, each printing one JSON line:
+Phases, run in this order, each printing one JSON line:
 
 1. device  — ``nvidia-smi`` name and power limit, compute capability
              (9, 0) required.
@@ -21,7 +21,6 @@ that last line. The script imports nothing of JAX nor of the JAX package.
 
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import sys
@@ -33,7 +32,6 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("device", "build", "kernels", "serve", "timing")
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
@@ -582,13 +580,7 @@ def phase_timing(torch, served):
 # main
 # --------------------------------------------------------------------------
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES))
-    args = ap.parse_args(argv)
-    phases = args.phases.split(",")
-
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -600,15 +592,10 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_device(torch)
-    if "build" in phases:
-        phase_build()
-    if "kernels" in phases:
-        phase_kernels(torch)
-    if "serve" in phases:
-        served = phase_serve(torch)
-        if "timing" in phases:
-            print(json.dumps({"kernels": phase_timing(torch, served)}),
-                  flush=True)
+    phase_build()
+    phase_kernels(torch)
+    served = phase_serve(torch)
+    print(json.dumps({"kernels": phase_timing(torch, served)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

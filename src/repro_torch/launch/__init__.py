@@ -1,1 +1,1 @@
-"""Command-line drivers of the port."""
+"""Command-line entry points of the port."""

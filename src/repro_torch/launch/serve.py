@@ -1,4 +1,4 @@
-"""Serving driver: ``python -m repro_torch.launch.serve``.
+"""Serving entry point: ``python -m repro_torch.launch.serve``.
 
 The frozen-index path of ``repro/launch/serve.py``, end to end:
 
@@ -14,7 +14,7 @@ It runs the config's SMOKE size with seeded random weights on
 ``--device`` (default ``cuda``; ``--device cpu`` runs the kernels' plain
 versions). ``run`` is the same pipeline for any encode fn and config;
 ``chip_smoke.py`` drives it at full width. The engine, tenants, cache
-and sharding flags of the JAX driver arrive with their slices.
+and sharding flags of the JAX entry point arrive with their slices.
 """
 
 from __future__ import annotations
@@ -29,6 +29,8 @@ import numpy as np
 import torch
 
 DOC_TOKENS = 16
+N_QUERIES = 8   # served queries that go on to retrieval
+SEED = 0        # the synthetic corpus and requests
 
 
 def index_corpus(encode: Callable, vocab_size: int, n_docs: int, *,
@@ -48,17 +50,14 @@ def index_corpus(encode: Callable, vocab_size: int, n_docs: int, *,
 
 
 def serve_requests(encode: Callable, vocab_size: int, n_requests: int, *,
-                   rng: np.random.Generator, max_queue: int = 1024):
+                   rng: np.random.Generator):
     """Push ``n_requests`` random queries through the batching loop.
     Returns ``(loop, {uid: outcome})``."""
-    from repro_torch.runtime.serving import (AdmissionPolicy, BatchedEncoder,
-                                             BatchPolicy, Request,
-                                             ServingLoop)
+    from repro_torch.runtime.serving import (BatchedEncoder, BatchPolicy,
+                                             Request, ServingLoop)
 
-    loop = ServingLoop(
-        BatchedEncoder(encode, policy=BatchPolicy(max_batch=16,
-                                                  max_wait_s=0.002)),
-        admission=AdmissionPolicy(max_queue_depth=max_queue))
+    loop = ServingLoop(BatchedEncoder(
+        encode, policy=BatchPolicy(max_batch=16, max_wait_s=0.002)))
     for uid in range(n_requests):
         n = int(rng.integers(4, 24))
         loop.submit(Request(uid=uid, tokens=rng.integers(
@@ -72,15 +71,14 @@ def serve_requests(encode: Callable, vocab_size: int, n_requests: int, *,
 
 
 def run(encode: Callable, vocab_size: int, *, corpus: int, requests: int,
-        topk: int, method: str, index_batch: int, device,
-        seed: int = 0, n_queries: int = 8) -> Dict[str, Any]:
+        topk: int, method: str, index_batch: int, device) -> Dict[str, Any]:
     """Index, serve, retrieve. Returns what each stage produced and took
     (host seconds, each stage ending in a device synchronisation)."""
     from repro_torch.retrieval.score import resolve_method, retrieve
     from repro_torch.retrieval.sparse_rep import stack_rows
     from repro_torch.runtime.serving import FailedResult, ShedResult
 
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
     index = index_corpus(encode, vocab_size, corpus, batch=index_batch,
                          rng=rng, device=device)
@@ -96,7 +94,7 @@ def run(encode: Callable, vocab_size: int, *, corpus: int, requests: int,
            "outcomes": outcomes, "serve_s": serve_s, "served": served,
            "method": resolve_method(method, index)}
     if served:
-        queries = stack_rows(served[:n_queries])
+        queries = stack_rows(served[:N_QUERIES])
         t0 = time.perf_counter()
         vals, idx = retrieve(queries, index, topk, method=method)
         if vals.is_cuda:

@@ -85,7 +85,6 @@ def _posting_percentiles(lens: np.ndarray) -> Tuple[float, ...]:
 
 
 def build_inverted_index(reps: SparseRep, vocab_size: int, *,
-                         stopword_warn_frac: float = STOPWORD_WARN_FRAC,
                          device: DeviceLike = None) -> InvertedIndex:
     """Build the index from a batched ``(N, K)`` corpus rep.
 
@@ -93,7 +92,7 @@ def build_inverted_index(reps: SparseRep, vocab_size: int, *,
     stably sorted by term so each posting list is in doc order. An empty
     corpus still yields one zero-impact posting, so the scorers' shapes
     never degenerate. Warns, with the posting-length percentiles, when
-    the longest list covers more than ``stopword_warn_frac`` of the docs.
+    the longest list covers more than ``STOPWORD_WARN_FRAC`` of the docs.
     """
     dev = resolve_device(device)
     host = device_get(reps)
@@ -122,10 +121,10 @@ def build_inverted_index(reps: SparseRep, vocab_size: int, *,
 
     pct = _posting_percentiles(lens)
     max_postings = max(int(lens.max(initial=0)), 1)
-    if n_docs and max_postings > stopword_warn_frac * n_docs:
+    if n_docs and max_postings > STOPWORD_WARN_FRAC * n_docs:
         warnings.warn(
             f"build_inverted_index: longest posting list covers "
-            f"{max_postings}/{n_docs} docs (> {stopword_warn_frac:.0%} "
+            f"{max_postings}/{n_docs} docs (> {STOPWORD_WARN_FRAC:.0%} "
             f"of the corpus) — a stopword-like term pads every query "
             f"gather to ~N. Posting-length percentiles (active terms): "
             f"p50={pct[0]:.0f} p90={pct[1]:.0f} p99={pct[2]:.0f} "

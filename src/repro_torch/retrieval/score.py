@@ -34,13 +34,13 @@ from repro_torch.retrieval.sparse_rep import SparseRep
 METHODS = ("auto", "impact", "fused")
 # the JAX package's other methods, and the ROADMAP item that ports each
 NOT_PORTED = {
-    "pruned": "ROADMAP Queue 1 item 13 (index engine, slice 4)",
-    "quantized": "ROADMAP Queue 1 item 13 and kernel K5 (slice 4)",
-    "sharded": "ROADMAP Queue 1 item 15 (multi-GPU, slice 4)",
-    "term_sharded": "ROADMAP Queue 1 item 15 (multi-GPU, slice 4)",
-    "shard2d": "ROADMAP Queue 1 item 15 (multi-GPU, slice 4)",
-    "streaming": "kernel K6 (ROADMAP Queue 2, slice 3)",
-    "dense": "ROADMAP Queue 1 item 11 (dense corpora, slice 3)",
+    "pruned": "ROADMAP Queue 1 item 8 (index engine, slice 4)",
+    "quantized": "ROADMAP Queue 1 item 8 and kernel K5 (slice 4)",
+    "sharded": "ROADMAP Queue 1 item 10 (multi-GPU, slice 4)",
+    "term_sharded": "ROADMAP Queue 1 item 10 (multi-GPU, slice 4)",
+    "shard2d": "ROADMAP Queue 1 item 10 (multi-GPU, slice 4)",
+    "streaming": "ROADMAP Queue 1 item 6 and kernel K6 (slice 3)",
+    "dense": "ROADMAP Queue 1 item 6 (dense corpora, slice 3)",
 }
 # indexed corpora at or above this many docs route "auto" to the fused
 # kernel: below it the dense (B, N) score matrix is a rounding error

@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` nor
 ``chip_smoke.py`` imports JAX or the JAX package, every port module
-imports with JAX blocked, and importing the kernel modules builds and
-loads nothing."""
+imports with JAX blocked, importing the kernel modules builds and
+loads nothing, and ``chip_smoke.py`` prints no result without CUDA."""
 
 import os
 import re
@@ -10,6 +10,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -67,6 +68,17 @@ def test_every_module_imports_with_jax_blocked_and_builds_nothing(tmp_path):
         capture_output=True, text=True, env=env, cwd=tmp_path, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["ok", str(len(MODULES))]
+
+
+def test_chip_smoke_without_cuda_fails_and_prints_no_result():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")],
+        capture_output=True, text=True, cwd=ROOT, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    assert "torch.cuda.is_available() is False" in proc.stderr
 
 
 def test_build_without_nvcc_fails_naming_nvcc(tmp_path, monkeypatch):

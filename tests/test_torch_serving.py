@@ -1,5 +1,5 @@
 """The slice as a whole: the port's config encoder, serving loop and
-serve driver against the JAX package (CPU).
+serve entry point against the JAX package (CPU).
 
 The JAX ``make_config_encoder`` and the port's run the same carried
 weights on the same tokens at f32 compute. Dense head outputs agree to
@@ -141,14 +141,14 @@ def _serve(*args):
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
 
 
-def test_serve_driver_runs_on_cpu():
+def test_serve_cli_runs_on_cpu():
     proc = _serve("--device", "cpu")
     assert proc.returncode == 0, proc.stderr
     assert "encoded 8/8 requests" in proc.stdout
     assert "retrieval[fused]" in proc.stdout
 
 
-def test_serve_driver_without_cuda_fails_naming_cuda():
+def test_serve_cli_without_cuda_fails_naming_cuda():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
     proc = _serve()
