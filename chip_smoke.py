@@ -95,7 +95,9 @@ def phase_build():
 
 K1_SHAPES = [  # (B, S, D, V): tests/test_kernels_sparton.py SHAPES, plus
     (1, 16, 8, 16), (4, 96, 64, 200), (3, 33, 24, 100),   # a D that is
-    (8, 128, 128, 256), (2, 256, 32, 512), (3, 33, 20, 100),  # not % 8
+    (8, 128, 128, 256), (2, 256, 32, 512), (3, 33, 20, 100),  # not % 8,
+    (6, 32, 64, 200), (5, 20, 48, 130),   # 4 batch rows per block (S <= 32,
+    (10, 12, 32, 150),                    # as served queries), and 8 (S <= 16)
 ]
 
 
@@ -161,15 +163,13 @@ def k4_cases(torch):
     w, d = window(2, 2, 2, 5, 1.0)
     cases.append(("k_gt_n_docs", w, d, 5, 8, 2))
     z = torch.zeros((3, 0), device="cuda")
-    cases.append(("w_empty", z, z.int(), 64, 7, 0))
+    cases.append(("w_empty", z, z.int(), 64, 7, 1))
     w, d = window(4, 8, 16, 300, 1.0)
     w[1] = 0
     w[3] = 0
     cases.append(("empty_rows", w.contiguous(), d, 300, 12, 16))
     w, d = window(2, 8, 200, 70000, 0.7)        # three doc tiles
     cases.append(("multi_tile", w, d, 70000, 100, 200))
-    d2 = torch.randint(0, 50, d.shape, generator=g, device="cuda").int()
-    cases.append(("one_segment_dup_docs", w, d2, 50, 20, 0))
     return cases
 
 
@@ -461,18 +461,14 @@ def time_k1(torch, H, E, b, mask, *, reps, plain_reps):
     from repro_torch.kernels.sparton import (sparton_forward,
                                              sparton_forward_plain)
 
-    y_k, i_k = sparton_forward(H, E, b, mask)
-    y_p, _ = sparton_forward_plain(H, E, b, mask)
-    err = float((y_k - y_p).abs().max())
-    require(err <= K1_TOL * (1 + float(y_p.abs().max())),
-            f"K1 differs from its plain version by {err} at "
-            f"{tuple(H.shape)}")
-    del y_k, i_k, y_p
+    err, mism, hard = k1_compare(torch, H, E, b, mask, None)
+    require(hard == 0, f"K1 i_max disagrees beyond near-ties at "
+                       f"{tuple(H.shape)} ({hard} positions)")
     B, S, D = H.shape
     V = E.shape[0]
     bound, by = k1_bound_ms(B, S, D, V, H.element_size())
     row = {"shape": [B, S, D, V], "dtype": str(H.dtype)[6:],
-           "max_abs_err": err,
+           "max_abs_err": err, "imax_mismatch": mism,
            "peak_mb": peak_mb(torch, lambda: sparton_forward(H, E, b, mask)),
            "library_peak_mb": peak_mb(torch, lambda: k1_library(
                torch, H, E, b, mask)),
@@ -501,12 +497,15 @@ def phase_timing(torch, served):
     E16 = E.to(torch.bfloat16)
 
     # K1 at the main path's shapes: real hidden states of an index batch
-    # (64 docs x 16 tokens) and of a full query batch (16 x 32)
+    # (64 docs x 16 tokens) and of a full query batch (16 queries of 4-24
+    # tokens, padded to 32, as the loop serves them)
     rows = {}
-    for name, (B, S) in (("index_batch", (64, 16)), ("query_batch", (16, 32))):
+    for name, (B, S, lo, hi) in (("index_batch", (64, 16, 16, 16)),
+                                 ("query_batch", (16, 32, 4, 24))):
         toks = torch.randint(1, cfg.vocab_size, (B, S), generator=g,
                              device="cuda", dtype=torch.int32)
-        mask = torch.ones((B, S), dtype=torch.int32, device="cuda")
+        lens = torch.randint(lo, hi + 1, (B, 1), generator=g, device="cuda")
+        mask = (torch.arange(S, device="cuda") < lens).int()
         with torch.no_grad():
             H = forward_hidden(params, cfg, toks, mask)
         rows[name] = time_k1(torch, H, E16, b, mask, reps=20, plain_reps=5)

@@ -17,12 +17,10 @@
 // once in a term's posting list, so within a segment no two lanes add to
 // the same doc: the shared-memory atomicAdd never contends, and each
 // doc's sum is taken in lane order, bit for bit the reference's order.
-// (With seg_len = W the whole window is one segment and lanes that share
-// a doc add in an unspecified order.) The tile is then merged into a
-// running top-k of k entries, also in shared memory: k rounds of a
-// block-wide arg-best over the union of the running entries and the
-// tile, each round taking the best remaining (value, id) and marking it
-// taken. Only the thread that owned the winner rescans its elements.
+// The tile is then merged into a running top-k of k entries, also in
+// shared memory: k rounds of a block-wide arg-best over the union of the
+// running entries and the tile, each round taking the best remaining
+// (value, id) and marking it taken. Only the thread that owned the winner rescans its elements.
 //
 // Bound on the H100: the kernel reads each posting lane once (8 bytes:
 // the f32 weight and the i32 doc id) and writes (B, k) results, so its
@@ -163,17 +161,15 @@ __global__ void __launch_bounds__(THREADS)
 }  // namespace
 
 // C entry point, bound with ctypes. w f32 and docs i32 are (B, W) row-major;
-// vals f32 and idx i32 are (B, k). seg_len is the lanes per query term
-// (<= 0: the whole row is one segment). Requires B >= 1, n_docs >= 1 and
-// 1 <= k <= MAX_K (1024, the wrapper's limit too). Returns
-// cudaGetLastError() after the launch.
+// vals f32 and idx i32 are (B, k). seg_len is the lanes per query term.
+// Requires B >= 1, seg_len >= 1, n_docs >= 1 and 1 <= k <= MAX_K (1024,
+// the wrapper's limit too). Returns cudaGetLastError() after the launch.
 extern "C" int impact_topk(const float* w, const int* docs, float* vals,
                            int* idx, int B, int W, int seg_len, int n_docs,
                            int k, void* stream) {
   constexpr int MAX_K = 1024;
-  if (B < 1 || n_docs < 1 || k < 1 || k > MAX_K)
+  if (B < 1 || seg_len < 1 || n_docs < 1 || k < 1 || k > MAX_K)
     return (int)cudaErrorInvalidValue;
-  if (seg_len <= 0 || seg_len > W) seg_len = W > 0 ? W : 1;
   const int tile = n_docs < TILE_MAX ? n_docs : TILE_MAX;
   const size_t smem = (size_t)tile * sizeof(float) +
                       (size_t)k * 4 * sizeof(float) +

@@ -96,16 +96,19 @@ def fused_impact_topk(
     *,
     n_docs: int,
     k: int,
-    term_lanes: int = 0,
+    term_lanes: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused scoring + top-k over flat posting windows.
 
     Returns ``(vals (B, k) f32, idx (B, k) i32)``: ties to the lowest doc
-    id, columns past ``n_docs`` hold ``(NEG_INF, 0)``. ``term_lanes`` is
-    the lanes per query term (the window's ``max_postings``); the kernel
-    scatters one term at a time, which fixes the order of each doc's sum
-    (0 = the whole row at once). CPU tensors take the plain version.
+    id, columns past ``n_docs`` hold ``(NEG_INF, 0)``. ``term_lanes``
+    (>= 1) is the lanes per query term (the window's ``max_postings``);
+    the kernel scatters one term at a time, which fixes the order of each
+    doc's sum. CPU tensors take the plain version.
     """
+    if term_lanes < 1:
+        raise ValueError(f"fused_impact_topk: term_lanes must be >= 1, got "
+                         f"{term_lanes}")
     if w.device.type == "cpu":
         return fused_impact_topk_plain(w, docs, n_docs=n_docs, k=k)
     return _launch(w, docs, n_docs, k, term_lanes)

@@ -79,6 +79,27 @@ def head_weights(params: Params, cfg: TransformerConfig):
     return E, params["lm_head"]["b"]
 
 
+def compute_weights(params: Params, cfg: TransformerConfig) -> Params:
+    """``params`` with the embedding, the head's ``E`` and every layer's
+    projections in the compute dtype, so that ``forward_hidden`` and the
+    head cast nothing per call. Norm scales and the head bias keep their
+    dtype; the numbers are those of a cast at each call."""
+    cdtype = dtype_of(cfg.compute_dtype)
+    layers = params["layers"]
+    out: Params = {
+        "embed": params["embed"].to(cdtype),
+        "layers": {
+            "attn": {n: w.to(cdtype) for n, w in layers["attn"].items()},
+            "mlp": {n: w.to(cdtype) for n, w in layers["mlp"].items()},
+            "ln1": layers["ln1"], "ln2": layers["ln2"]},
+        "final_norm": params["final_norm"],
+        "lm_head": {"b": params["lm_head"]["b"]},
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"]["E"] = params["lm_head"]["E"].to(cdtype)
+    return out
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float) -> torch.Tensor:
     x32 = x.float()

@@ -47,6 +47,7 @@ def make_config_encoder(params: Any, cfg: Any, *, spec: Any = None
     from repro_torch.models import transformer as tfm
 
     enc = make_encoder(spec if spec is not None else cfg.head_spec())
+    params = tfm.compute_weights(params, cfg)
     E, b = tfm.head_weights(params, cfg)
     device = E.device
 
@@ -55,7 +56,7 @@ def make_config_encoder(params: Any, cfg: Any, *, spec: Any = None
         tokens = torch.as_tensor(tokens, device=device)
         mask = torch.as_tensor(mask, device=device)
         Hs = tfm.forward_hidden(params, cfg, tokens, mask)
-        return enc(Hs, E.to(Hs.dtype), b, mask)
+        return enc(Hs, E, b, mask)
 
     return encode
 

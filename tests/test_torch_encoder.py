@@ -96,6 +96,22 @@ def test_params_from_jax_checks_the_tree():
         params_from_jax(tree, cfg_t, "cpu")
 
 
+@pytest.mark.parametrize("tie", [True, False])
+def test_compute_weights_cast_once_changes_no_number(tie):
+    """Weights cast to bf16 up front give bit-identical hidden states to
+    f32 weights cast at each call; norm scales and the bias stay f32."""
+    cfg = dataclasses.replace(SMOKE, compute_dtype="bfloat16",
+                              tie_embeddings=tie)
+    params = tfm.init_params(torch.Generator().manual_seed(5), cfg)
+    cast = tfm.compute_weights(params, cfg)
+    E, b = tfm.head_weights(cast, cfg)
+    assert E.dtype == cast["layers"]["mlp"]["w_up"].dtype == torch.bfloat16
+    assert b.dtype == cast["layers"]["ln1"].dtype == torch.float32
+    toks, mask = (torch.from_numpy(a) for a in _tokens(seed=3))
+    assert torch.equal(tfm.forward_hidden(cast, cfg, toks, mask),
+                       tfm.forward_hidden(params, cfg, toks, mask))
+
+
 def test_init_params_is_seeded_and_shaped():
     a = tfm.init_params(torch.Generator().manual_seed(3), SMOKE)
     b = tfm.init_params(torch.Generator().manual_seed(3), SMOKE)

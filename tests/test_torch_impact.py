@@ -39,7 +39,7 @@ def _jax_k4(w, docs, n_docs, k):
     return np.asarray(v), np.asarray(i)
 
 
-def _port_k4(w, docs, n_docs, k, term_lanes=0):
+def _port_k4(w, docs, n_docs, k, term_lanes):
     v, i = fused_impact_topk(torch.from_numpy(w), torch.from_numpy(docs),
                              n_docs=n_docs, k=k, term_lanes=term_lanes)
     return v.numpy(), i.numpy()
@@ -124,7 +124,7 @@ def test_duplicate_scores_tie_to_lowest_id():
 def test_k_greater_than_n_docs_pads_neg_inf_and_zero():
     w = np.asarray([[1.0, 2.0, 3.0]], np.float32)
     docs = np.asarray([[0, 1, 2]], np.int32)
-    port = _port_k4(w, docs, 3, 5)
+    port = _port_k4(w, docs, 3, 5, 1)
     _assert_same(port, _jax_k4(w, docs, 3, 5), exact=True)
     np.testing.assert_array_equal(port[1][0], [2, 1, 0, 0, 0])
     assert NEG_INF == JAX_NEG_INF and (port[0][0, 3:] == NEG_INF).all()
@@ -133,7 +133,7 @@ def test_k_greater_than_n_docs_pads_neg_inf_and_zero():
 def test_empty_window():
     w = np.zeros((2, 0), np.float32)
     docs = np.zeros((2, 0), np.int32)
-    port = _port_k4(w, docs, 9, 4)
+    port = _port_k4(w, docs, 9, 4, 1)
     _assert_same(port, _jax_k4(w, docs, 9, 4), exact=True)
     np.testing.assert_array_equal(port[1], np.tile(np.arange(4), (2, 1)))
     assert (port[0] == 0).all()
@@ -144,6 +144,14 @@ def test_empty_query_rows_score_lowest_ids_at_zero(graded):
     v, i = fused_retrieve(q, graded["index"], K)
     np.testing.assert_array_equal(i.numpy(), np.tile(np.arange(K), (2, 1)))
     assert (v.numpy() == 0).all()
+
+
+@pytest.mark.parametrize("term_lanes", [0, -1])
+def test_term_lanes_below_one_raises(term_lanes):
+    w = np.ones((1, 4), np.float32)
+    docs = np.arange(4, dtype=np.int32)[None]
+    with pytest.raises(ValueError, match="term_lanes"):
+        _port_k4(w, docs, 4, 2, term_lanes)
 
 
 def test_window_bytes():
