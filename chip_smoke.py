@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's serving path on one NVIDIA H100.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA H100.
 
     python3 chip_smoke.py            # one card, no arguments
 
@@ -7,12 +7,19 @@ Phases, run in this order, each printing one JSON line:
 1. device  — ``nvidia-smi`` name and power limit, compute capability
              (9, 0) required.
 2. build   — compile the CUDA kernels from ``src/repro_torch/csrc``.
-3. kernels — each kernel against its plain PyTorch version on the card.
+3. kernels — each kernel against its plain PyTorch version on the card
+             (K2 and K3 also bit for bit against a second launch).
 4. serve   — the full-width splade_bert serving path: index 16384 docs,
              serve 64 requests through the batching loop, retrieve with
              ``method="auto"`` (which must resolve to the fused kernel).
-5. timing  — each kernel, its plain version, a one-call PyTorch yardstick
-             and its roofline bound, with CUDA events.
+5. train   — the full-width splade_bert train step: one step's gradients
+             with the kernel head against the plain head (32 x 128), then
+             5 timed steps at the paper's Table-3 point (384 pairs x 256
+             tokens, remat on), K1, K2 and K3 launched twice a step.
+6. timing  — each kernel, its plain version, a one-call PyTorch yardstick
+             and its roofline bound, with CUDA events; for K2 and K3 also
+             the peak memory of the head's forward + backward against the
+             paper's PyTorch baseline.
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``. Any mismatch, exception or missing launch exits non-zero before
@@ -21,6 +28,7 @@ that last line. The script imports nothing of JAX nor of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -37,6 +45,9 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 K1_TOL = 1e-4     # f32 sums over D in another order (both sides f32)
+# K2/K3 against their plain versions: f32 sums over V (dH) or B (dE, db)
+# in another order, relative to the largest |value| of each output
+BWD_TOL = 1e-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -98,6 +109,12 @@ K1_SHAPES = [  # (B, S, D, V): tests/test_kernels_sparton.py SHAPES, plus
     (8, 128, 128, 256), (2, 256, 32, 512), (3, 33, 20, 100),  # not % 8,
     (6, 32, 64, 200), (5, 20, 48, 130),   # 4 batch rows per block (S <= 32,
     (10, 12, 32, 150),                    # as served queries), and 8 (S <= 16)
+]
+
+
+BWD_SHAPES = [  # K2/K3 beside K1_SHAPES: an odd D (no paired or 16-byte
+    (3, 40, 13, 77),   # loads), and an S whose 64-column dH accumulator
+    (2, 900, 40, 50),  # does not fit shared memory (32 columns a block)
 ]
 
 
@@ -223,10 +240,72 @@ def phase_kernels(torch):
     require(k4_err == 0.0 and k4_mism == 0,
             f"K4 differs from the plain version (max err {k4_err}, "
             f"{k4_mism} id mismatches)")
+    bwd = []
+    seed = 100
+    for (B, S, D, V) in K1_SHAPES + BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for softcap in (None, 5.0):
+                seed += 1
+                H, E, mask, dy, y, i_max = bwd_inputs(
+                    torch, B, S, D, V, dtype, seed, softcap)
+                case = bwd_compare(torch, H, E, mask, dy, y, i_max, softcap)
+                bwd.append({"shape": [B, S, D, V], "dtype": str(dtype)[6:],
+                            "softcap": softcap, **case})
+    bad = [c for c in bwd if not (c["within_tol"] and c["bit_identical"])]
+    require(not bad, f"K2/K3 differ from the plain versions beyond "
+                     f"{BWD_TOL} or between two launches: {bad[:2]}")
     emit("kernels", k1_max_abs_err=worst_err, k1_tol=K1_TOL,
          k1_imax_mismatch=sum(c["imax_mismatch"] for c in k1),
          k1_cases=k1, k4_max_abs_err=k4_err, k4_id_mismatch=k4_mism,
-         k4_cases=k4)
+         k4_cases=k4, bwd_tol=BWD_TOL,
+         k2_max_abs_err=max(c["dH"] for c in bwd),
+         k3_max_abs_err=max(max(c["dE"], c["db"]) for c in bwd),
+         bwd_bit_identical=all(c["bit_identical"] for c in bwd),
+         bwd_cases=bwd)
+
+
+def bwd_inputs(torch, B, S, D, V, dtype, seed, softcap):
+    """K1's inputs with one position that wins the max for many columns
+    (a shared i_max), a block of columns held at y == 0 by their bias, a
+    fully masked row; (y, i_max) from K1 and a random cotangent."""
+    from repro_torch.kernels.sparton import sparton_forward
+
+    H, E, b, mask = k1_inputs(torch, B, S, D, V, dtype, seed)
+    H[0, min(1, S - 1)] *= 20
+    b[:max(1, V // 8)] = -100.0
+    if B > 1:
+        mask[B - 1] = 0
+    y, i_max = sparton_forward(H, E, b, mask, softcap=softcap)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dy = torch.randn((B, V), generator=g, device="cuda")
+    return H, E, mask, dy, y, i_max
+
+
+def bwd_compare(torch, H, E, mask, dy, y, i_max, softcap):
+    """K2 and K3, launched twice, against their plain versions on one
+    input: max |dH|, |dE|, |db| differences, whether they are within
+    BWD_TOL of the largest |value|, whether the two launches agree bit
+    for bit, and whether fully masked rows got dH == 0."""
+    from repro_torch.kernels import sparton_bwd as kb
+
+    S = H.shape[1]
+    runs = [(kb.sparton_backward_dh(dy, y, i_max, E, S, softcap=softcap),
+             *kb.sparton_backward_de(dy, y, i_max, H, softcap=softcap))
+            for _ in range(2)]
+    plain = (kb.sparton_backward_dh_plain(dy, y, i_max, E, S, softcap),
+             *kb.sparton_backward_de_plain(dy, y, i_max, H, softcap))
+    torch.cuda.synchronize()
+    out, ok = {}, True
+    for name, got, ref in zip(("dH", "dE", "db"), runs[0], plain):
+        err = float((got - ref).abs().max())
+        out[name] = err
+        ok = ok and err <= BWD_TOL * (1 + float(ref.abs().max()))
+    out["bit_identical"] = all(bool(torch.equal(a, b))
+                               for a, b in zip(*runs))
+    dead = ~mask.bool().any(dim=1)
+    out["masked_rows_zero"] = bool((runs[0][0][dead] == 0).all())
+    out["within_tol"] = ok and out["masked_rows_zero"]
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -236,6 +315,31 @@ def phase_kernels(torch):
 SERVE = {"corpus": 16384, "requests": 64, "index_batch": 64, "topk": 10,
          "rep_topk": 64}
 SCORE_TOL = 1e-4   # fused vs impact sums: same terms, other add order
+
+
+@contextlib.contextmanager
+def plain_guard(**targets):
+    """Wrap each plain version ``name=(module, attribute)`` so that a call
+    on a CUDA tensor is recorded: the main path must never run one.
+    Yields the list of names so recorded; restores them on exit."""
+    hits = []
+    saved = [(name, mod, attr, getattr(mod, attr))
+             for name, (mod, attr) in targets.items()]
+
+    def wrap(name, fn):
+        def wrapped(x, *a, **kw):
+            if x.is_cuda:
+                hits.append(name)
+            return fn(x, *a, **kw)
+        return wrapped
+
+    for name, mod, attr, fn in saved:
+        setattr(mod, attr, wrap(name, fn))
+    try:
+        yield hits
+    finally:
+        for _, mod, attr, fn in saved:
+            setattr(mod, attr, fn)
 
 
 def phase_serve(torch):
@@ -264,28 +368,14 @@ def phase_serve(torch):
                         time.perf_counter() - t0))
         return reps
 
-    # the plain versions must never see a CUDA tensor on the main path
-    plain_on_cuda = []
-    originals = (k1.sparton_forward_plain, k4.fused_impact_topk_plain)
-
-    def guard(name, fn):
-        def wrapped(x, *a, **kw):
-            if x.is_cuda:
-                plain_on_cuda.append(name)
-            return fn(x, *a, **kw)
-        return wrapped
-
-    k1.sparton_forward_plain = guard("k1", originals[0])
-    k4.fused_impact_topk_plain = guard("k4", originals[1])
     k1.sparton_forward.launches = 0
     k4.fused_impact_topk.launches = 0
-    try:
+    with plain_guard(k1=(k1, "sparton_forward_plain"),
+                     k4=(k4, "fused_impact_topk_plain")) as plain_on_cuda:
         res = run(timed_encode, cfg.vocab_size, corpus=SERVE["corpus"],
                   requests=SERVE["requests"], topk=SERVE["topk"],
                   method="auto", index_batch=SERVE["index_batch"],
                   device=torch.device("cuda"))
-    finally:
-        k1.sparton_forward_plain, k4.fused_impact_topk_plain = originals
     launches = {"sparton_fwd": k1.sparton_forward.launches,
                 "impact_topk": k4.fused_impact_topk.launches}
 
@@ -346,7 +436,121 @@ def phase_serve(torch):
 
 
 # --------------------------------------------------------------------------
-# 5. timing
+# 5. train at full width
+# --------------------------------------------------------------------------
+
+GRAD_CHECK = (32, 128)   # pairs x tokens of the gradient check, remat off
+# kernel head vs plain head, per param: ||g_kernel - g_plain|| / ||g_plain||.
+# Both run the same bf16 trunk; the heads' f32 sums run in another order,
+# so y, dH and dE cast to bf16 land one ulp apart here and there.
+GRAD_TOL = 1e-2
+TRAIN_STEPS = 5
+
+
+def train_batches(torch, B, S, n, vocab):
+    from repro_torch.data.synthetic import lsr_pair_batches
+
+    it = lsr_pair_batches(batch=B, q_len=S, d_len=S, vocab=vocab)
+    return [{k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+            for _ in range(n)]
+
+
+def phase_train(torch):
+    import dataclasses
+
+    from repro_torch.configs.splade_bert import CONFIG, SHAPES
+    from repro_torch.kernels import sparton as k1
+    from repro_torch.kernels import sparton_bwd as kb
+    from repro_torch.launch.steps import (build_lsr_train_step, init_state,
+                                          lsr_loss, value_and_grad)
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree import tree_items
+
+    # (a) one step's gradients, kernel head against the plain head
+    cfg = dataclasses.replace(CONFIG, head_impl="kernel", remat=False)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    batch = train_batches(torch, *GRAD_CHECK, 1, cfg.vocab_size)[0]
+    loss_k, g_k = value_and_grad(lsr_loss(cfg))(params, batch)
+    loss_p, g_p = value_and_grad(lsr_loss(
+        dataclasses.replace(cfg, head_impl="sparton")))(params, batch)
+    g_k, g_p = tree_items(g_k), tree_items(g_p)
+    rel = {n: float((g_k[n].float() - g_p[n].float()).norm()
+                    / g_p[n].float().norm().clamp_min(1e-30)) for n in g_p}
+    losses = [float(loss_k), float(loss_p)]
+    require(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    require(abs(losses[0] - losses[1]) <= GRAD_TOL * abs(losses[1]),
+            f"kernel-head loss {losses[0]} vs plain head {losses[1]}")
+    require(all(torch.isfinite(g).all() for g in g_k.values()),
+            "non-finite gradient with the kernel head")
+    require(max(rel.values()) <= GRAD_TOL,
+            f"kernel-head gradients differ from the plain head's: {rel}")
+    grad_check = {"batch": list(GRAD_CHECK), "loss_kernel": losses[0],
+                  "loss_plain": losses[1], "grad_tol": GRAD_TOL,
+                  "max_grad_rel_err": max(rel.values()), "grad_rel_err": rel}
+    del params, g_k, g_p
+    torch.cuda.empty_cache()
+
+    # (b) timed steps at the paper's Table-3 point, remat on (CONFIG's)
+    shape = SHAPES["table3_384"]
+    cfg = dataclasses.replace(CONFIG, head_impl="kernel")
+    state = init_state("splade_bert",
+                       torch.Generator(device="cuda").manual_seed(0))
+    data = train_batches(torch, shape.global_batch, shape.seq_len,
+                         TRAIN_STEPS, cfg.vocab_size)
+    step = build_lsr_train_step(cfg, lr=2e-4)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.sparton_forward.launches = 0
+    kb.sparton_backward_dh.launches = 0
+    kb.sparton_backward_de.launches = 0
+    step_s, losses = [], []
+    with plain_guard(k1=(k1, "sparton_forward_plain"),
+                     k2=(kb, "sparton_backward_dh_plain"),
+                     k3=(kb, "sparton_backward_de_plain")) as plain_on_cuda:
+        for b in data:
+            t0 = time.perf_counter()
+            state, metrics = step(state, b)
+            losses.append(float(metrics["loss"]))     # synchronises
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+    launches = {"sparton_fwd": k1.sparton_forward.launches,
+                "sparton_bwd_dh": kb.sparton_backward_dh.launches,
+                "sparton_bwd_de": kb.sparton_backward_de.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    require(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
+    require(all(n == 2 * TRAIN_STEPS for n in launches.values()),
+            f"K1/K2/K3 launches {launches}, expected {2 * TRAIN_STEPS} each "
+            f"(queries and docs, {TRAIN_STEPS} steps)")
+    require(not plain_on_cuda, f"plain versions ran on CUDA tensors: "
+                               f"{sorted(set(plain_on_cuda))}")
+    require(state["step"] == TRAIN_STEPS, "the step counter did not advance")
+    later_ms = sorted(1e3 * t for t in step_s[1:])
+    median_ms = later_ms[len(later_ms) // 2]
+
+    def one_step():
+        t0 = time.perf_counter()
+        step(state, data[-1])[1]["loss"].item()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    profile = traced(torch, one_step, median_ms, 1)
+    emit("train", config=cfg.name, n_params=cfg.n_params,
+         head_impl=cfg.head_impl, grad_check=grad_check,
+         shape={"name": shape.name, "pairs": shape.global_batch,
+                "seq_len": shape.seq_len, "remat": cfg.remat},
+         losses=losses, step_ms=[1e3 * t for t in step_s],
+         median_step_ms=median_ms,
+         pairs_per_s=shape.global_batch / (median_ms / 1e3),
+         max_memory_allocated_gib=peak_gib, launches=launches,
+         step_profile=profile)
+    del state, data
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+# --------------------------------------------------------------------------
+# 6. timing
 # --------------------------------------------------------------------------
 
 WINDOWS = 5   # timed windows per measurement: median reported, spread kept
@@ -396,9 +600,6 @@ def profile_encode(torch, encode, cfg, *, batch=64, seq=16, n=5):
     trace of the same batches for the device time per batch, the
     device's busy share of the untraced wall time, and the kernels that
     take the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.retrieval.sparse_rep import split_rows
 
     g = torch.Generator().manual_seed(11)
@@ -415,6 +616,17 @@ def profile_encode(torch, encode, cfg, *, batch=64, seq=16, n=5):
 
     split_rows(encode(toks[n], mask))             # warm-up
     wall_ms = run()
+    return {"batch": [batch, seq], **traced(torch, run, wall_ms, n)}
+
+
+def traced(torch, run, wall_ms, n):
+    """``run()`` (n units of work, returning wall ms per unit) under
+    torch.profiler: device ms per unit, the device's busy share of the
+    untraced ``wall_ms``, kernels per unit, and the ten kernels that take
+    the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         traced_ms = run()
@@ -426,14 +638,13 @@ def profile_encode(torch, encode, cfg, *, batch=64, seq=16, n=5):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     if not kernels:
-        return {"batch": [batch, seq], "wall_ms": wall_ms,
-                "traced_wall_ms": traced_ms, "device_ms": "not measured"}
+        return {"wall_ms": wall_ms, "traced_wall_ms": traced_ms,
+                "device_ms": "not measured"}
     device_ms = sum(dev_us(e) for e in kernels) / 1e3 / n
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
-    return {"batch": [batch, seq], "wall_ms": wall_ms,
-            "traced_wall_ms": traced_ms, "device_ms": device_ms,
-            "device_busy_share": device_ms / wall_ms,
-            "kernels_per_batch": sum(e.count for e in kernels) / n,
+    return {"wall_ms": wall_ms, "traced_wall_ms": traced_ms,
+            "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
+            "kernels_per_unit": sum(e.count for e in kernels) / n,
             "top_device_ms": {e.key[:70]: dev_us(e) / 1e3 / n for e in top}}
 
 
@@ -484,10 +695,130 @@ def time_k1(torch, H, E, b, mask, *, reps, plain_reps):
     return row
 
 
-def phase_timing(torch, served):
+def head_library(torch, H, E, b, mask):
+    """``k1_library`` written out of place, so that autograd can take its
+    backward: the paper's PyTorch baseline as a training step runs it."""
+    z = torch.log1p(torch.relu(torch.matmul(H, E.t()) + b.to(H.dtype)))
+    return (z * mask[:, :, None].to(z.dtype)).amax(dim=1)
+
+
+def head_kernel_fwd_bwd(torch, H, E, b, mask, dy):
+    """K1 forward and K2 + K3 backward through ``ops.sparton_head``."""
+    from repro_torch.kernels.ops import sparton_head
+
+    Hk, Ek, bk = (t.detach().requires_grad_(True) for t in (H, E, b))
+    y = sparton_head(Hk, Ek, bk, mask)
+    return torch.autograd.grad(y, (Hk, Ek, bk), dy.to(y.dtype))
+
+
+def library_backward(torch, H, E, b, mask, dy, *, reps):
+    """Backward-only times of the baseline (dH alone; dE with db) and the
+    peak memory of its forward + backward. Where the batch does not fit
+    the card, that is recorded and the batch halved until it fits."""
+    oom = []
+    B = H.shape[0]
+    while B >= 1:
+        fits = True
+        try:
+            Hl, El, bl = (t.detach().requires_grad_(True)
+                          for t in (H[:B], E, b))
+            m, g = mask[:B], dy[:B].to(H.dtype)
+            peak = peak_mb(torch, lambda: torch.autograd.grad(
+                head_library(torch, Hl, El, bl, m), (Hl, El, bl), g))
+            y = head_library(torch, Hl, El, bl, m)
+            dh = timed(torch, lambda: torch.autograd.grad(
+                y, (Hl,), g, retain_graph=True), reps)
+            de = timed(torch, lambda: torch.autograd.grad(
+                y, (El, bl), g, retain_graph=True), reps)
+            del y
+        except torch.cuda.OutOfMemoryError:
+            fits = False
+        if fits:
+            return {"batch": B, "oom_at_batch": oom, "dh_ms": dh[0],
+                    "dh_ms_range": dh[1], "de_ms": de[0],
+                    "de_ms_range": de[1], "peak_mb": peak}
+        oom.append(B)
+        torch.cuda.empty_cache()
+        B //= 2
+    raise SmokeFailure("the baseline head does not fit the card at batch 1")
+
+
+def bwd_bound_ms(torch, kernel, H, E, dy, y, i_max):
+    """The least time of K2 ("dh") or K3 ("de") for these inputs, and what
+    sets it. Bytes: dy, y and i_max read once; the rows that a term with
+    g != 0 reads (rows of E for K2, the distinct (b, i_max) rows of H for
+    K3), once each; the output written once. Operations: one FMA (2 f32
+    FLOP) per term with g != 0 and column, over the f32 peak. Terms with
+    g == 0 are skipped by the kernels, so they are not counted."""
+    from repro_torch.kernels._common import bwd_factor
+
+    B, S, D = H.shape
+    V = E.shape[0]
+    nz = bwd_factor(y, dy, None) != 0
+    nnz = int(nz.sum())
+    nbytes = B * V * 12
+    if kernel == "dh":
+        nbytes += int(nz.any(dim=0).sum()) * D * E.element_size()
+        nbytes += B * S * D * 4
+    else:
+        rows = (torch.arange(B, device=H.device)[:, None] * S + i_max)[nz]
+        nbytes += int(rows.unique().numel()) * D * H.element_size()
+        nbytes += V * D * 4 + V * 4
+    t_ops, t_bytes = 2 * nnz * D / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", nnz / (B * V))
+
+
+def time_bwd(torch, H, E, b, mask, *, reps, plain_reps, seed):
+    """K2 and K3 at one shape: against their plain versions and a second
+    launch, CUDA-event times of kernel, plain version and the baseline's
+    backward, the bound, and the head's forward + backward peak memory
+    against the baseline's."""
+    from repro_torch.kernels import sparton_bwd as kb
+    from repro_torch.kernels.sparton import sparton_forward
+
+    B, S, D = H.shape
+    y, i_max = sparton_forward(H, E, b, mask)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dy = torch.randn(y.shape, generator=g, device="cuda") * 1e-2
+    case = bwd_compare(torch, H, E, mask, dy, y, i_max, None)
+    require(case["within_tol"] and case["bit_identical"],
+            f"K2/K3 at {(B, S, D)}: {case}")
+    rows = {}
+    for kernel, fn, plain, err in (
+            ("dh", lambda: kb.sparton_backward_dh(dy, y, i_max, E, S),
+             lambda: kb.sparton_backward_dh_plain(dy, y, i_max, E, S),
+             case["dH"]),
+            ("de", lambda: kb.sparton_backward_de(dy, y, i_max, H),
+             lambda: kb.sparton_backward_de_plain(dy, y, i_max, H),
+             max(case["dE"], case["db"]))):
+        bound, by, share = bwd_bound_ms(torch, kernel, H, E, dy, y, i_max)
+        row = {"shape": [B, S, D, E.shape[0]], "dtype": str(H.dtype)[6:],
+               "max_abs_err": err, "bit_identical": case["bit_identical"],
+               "g_nonzero_share": share, "bound_ms": bound, "bound_by": by}
+        row["ms"], row["ms_range"] = timed(torch, fn, reps)
+        row["plain_ms"], row["plain_ms_range"] = timed(torch, plain,
+                                                       plain_reps)
+        rows[kernel] = row
+    lib = library_backward(torch, H, E, b, mask, dy, reps=plain_reps)
+    for kernel in ("dh", "de"):
+        rows[kernel].update(library_ms=lib[f"{kernel}_ms"],
+                            library_ms_range=lib[f"{kernel}_ms_range"],
+                            library_batch=lib["batch"])
+    rows["peak_mb_fwd_bwd"] = {
+        "kernel": peak_mb(torch, lambda: head_kernel_fwd_bwd(
+            torch, H, E, b, mask, dy)),
+        "library": lib["peak_mb"], "library_batch": lib["batch"],
+        "library_oom_at_batch": lib["oom_at_batch"]}
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_timing(torch, served, trained):
     from repro_torch.kernels.impact_score import (fused_impact_topk,
                                                   fused_impact_topk_plain,
                                                   fused_window_bytes)
+    from repro_torch.configs.splade_bert import SHAPES
     from repro_torch.models.transformer import forward_hidden, head_weights
     from repro_torch.retrieval.score import _fused_windows
 
@@ -510,7 +841,6 @@ def phase_timing(torch, served):
             H = forward_hidden(params, cfg, toks, mask)
         rows[name] = time_k1(torch, H, E16, b, mask, reps=20, plain_reps=5)
     # the paper's Table-1 point (B=320, S=512), random bf16 inputs
-    from repro_torch.configs.splade_bert import SHAPES
     t1 = SHAPES["table1"]
     H = (torch.randn((t1.global_batch, t1.seq_len, cfg.d_model),
                      generator=g, device="cuda")).to(torch.bfloat16)
@@ -555,16 +885,51 @@ def phase_timing(torch, served):
     profile = profile_encode(torch, make_config_encoder(params, cfg), cfg)
     emit("timing", k1=rows, k4=k4, encode_profile=profile)
 
+    # K2 and K3 at the train step's shape (bf16 hidden states of 384 pairs'
+    # docs, padded as lsr_pair_batches pads them) and at Table-1
+    t3 = SHAPES["table3_384"]
+    B, S = t3.global_batch, t3.seq_len
+    H = torch.randn((B, S, cfg.d_model), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    lens = torch.randint(int(0.3 * S), S + 1, (B, 1), generator=g,
+                         device="cuda")
+    mask = (torch.arange(S, device="cuda") < lens).int()
+    bwd = {"train": time_bwd(torch, H, E16, b, mask, reps=5, plain_reps=1,
+                             seed=12)}
+    del H
+    H = torch.randn((t1.global_batch, t1.seq_len, cfg.d_model), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    mask = torch.ones((t1.global_batch, t1.seq_len), dtype=torch.int32,
+                      device="cuda")
+    bwd["table1"] = time_bwd(torch, H, E16, b, mask, reps=3, plain_reps=1,
+                             seed=13)
+    del H
+    torch.cuda.empty_cache()
+    emit("timing_bwd", **bwd)
+
     launches = served["launches"]
+    train_launches = trained["launches"]
     main_k1 = rows["index_batch"]
     kernels = [
         {"name": "sparton_fwd (K1)", "route": "cuda",
          "source": "src/repro_torch/csrc/sparton_fwd.cu",
          "replaces": "src/repro/kernels/sparton.py:52",
          "launches": launches["sparton_fwd"],
+         "train_launches": train_launches["sparton_fwd"],
          **{key: main_k1[key] for key in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms")}},
+        *({"name": name, "route": "cuda",
+           "source": "src/repro_torch/csrc/sparton_bwd.cu",
+           "replaces": replaces, "launches": train_launches[key],
+           **{k: bwd["train"][kernel][k] for k in (
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")}}
+          for name, kernel, key, replaces in (
+              ("sparton_bwd_dh (K2)", "dh", "sparton_bwd_dh",
+               "src/repro/kernels/sparton_bwd.py:57"),
+              ("sparton_bwd_de (K3)", "de", "sparton_bwd_de",
+               "src/repro/kernels/sparton_bwd.py:93"))),
         {"name": "impact_topk (K4)", "route": "cuda",
          "source": "src/repro_torch/csrc/impact_topk.cu",
          "replaces": "src/repro/kernels/impact_score.py:96",
@@ -594,7 +959,9 @@ def main() -> int:
     phase_build()
     phase_kernels(torch)
     served = phase_serve(torch)
-    print(json.dumps({"kernels": phase_timing(torch, served)}), flush=True)
+    trained = phase_train(torch)
+    print(json.dumps({"kernels": phase_timing(torch, served, trained)}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

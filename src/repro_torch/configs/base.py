@@ -1,7 +1,7 @@
 """Config dataclasses of the port (its own copies of ``repro/configs``).
 
-Only the transformer family of the SPLADE encoders is here: the port's
-first slice serves ``splade_bert``. Field names and defaults are the JAX
+Only the transformer family of the SPLADE encoders is here: the port
+serves and trains ``splade_bert``. Field names and defaults are the JAX
 package's, so a config reads the same in both.
 """
 
@@ -47,6 +47,13 @@ class TransformerConfig:
     # execution
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    remat: bool = True             # recompute each layer in the backward
+    # LSR objective weights (losses.contrastive.splade_loss)
+    lambda_q: float = 5e-4         # FLOPS weight on query reps
+    lambda_d: float = 3e-4         # FLOPS weight on doc reps
+    l1_weight: float = 0.0         # optional L1 on both rep sides
+    aux_weight: float = 1e-2       # MoE load-balance aux weight
+    distill_weight: float = 0.0    # MarginMSE weight (needs distill batch)
     # Head backend, resolved against the head_api registry by
     # ``head_spec()``: "jax" is the JAX package's alias for "sparton".
     head_impl: str = "jax"

@@ -33,6 +33,7 @@ SMOKE = TransformerConfig(
     vocab_size=512,
     bidirectional_encoder=True,
     tie_embeddings=True,
+    remat=False,
 )
 
 # the paper's measurement points

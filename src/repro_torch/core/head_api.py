@@ -4,8 +4,9 @@ one factory.
 * ``HeadSpec``           — frozen description of a head configuration.
 * ``register_head_impl`` — backends with one calling convention
   ``fn(H, E, b, mask, *, spec) -> (B, V)``: ``naive``, ``tiled``,
-  ``sparton`` (plain PyTorch) and ``kernel`` (the CUDA K1) ship
-  registered.
+  ``sparton`` (plain PyTorch) and ``kernel`` (the CUDA K1 forward, K2
+  and K3 backward) ship registered. Every one is differentiable in
+  ``H``, ``E`` and ``b``.
 * ``make_head(spec)``    — ``head(H, E, b=None, mask=None) -> Y``.
 * ``make_encoder(spec)`` — the head plus the spec's rep sparsifier.
 

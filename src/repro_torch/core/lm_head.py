@@ -1,15 +1,19 @@
 """The Sparton LM head ladder in plain PyTorch (``repro/core/lm_head.py``).
 
 Eq. 1 of the paper, ``Y = max_s [log(1 + ReLU(H Eᵀ + b)) · M']``, in the
-flavours of the paper's experiments, forward only in this slice:
+flavours of the paper's experiments:
 
 * ``lm_head_naive``   — Alg. 1: materializes the ``(B, S, V)`` logits,
-  applies f and the multiplicative mask, then the max over S.
+  applies f and the multiplicative mask, then the max over S; autograd
+  backward.
 * ``lm_head_tiled``   — Alg. 2 forward: the running max over vocabulary
-  tiles, masked positions at ``NEG_INF`` before the max.
-* ``lm_head_sparton`` — the same forward; what sets it apart in the JAX
-  package is its Alg. 3 backward, which arrives with the training slice,
-  so a call that needs a gradient raises.
+  tiles, masked positions at ``NEG_INF`` before the max; autograd
+  backward (which keeps every tile's logits).
+* ``lm_head_sparton`` — the same forward, saving only ``(y, i_max)``
+  beyond the inputs, with the Alg. 3 backward: per chunk of
+  ``bwd_batch_chunk`` batch rows, a scatter of ``g * E`` into ``dH`` and
+  a gather of ``H[b, i_max]`` for ``dE`` (the plain versions of K2 and
+  K3).
 
 The kernel-backed head is ``repro_torch.kernels.ops.sparton_head``. The
 masking argument of the JAX module holds here too: ``f`` is monotone
@@ -23,8 +27,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.ops import refuse_grad, with_defaults
+from repro_torch.kernels.ops import with_defaults
 from repro_torch.kernels.sparton import sparton_forward_plain
+from repro_torch.kernels.sparton_bwd import (sparton_backward_de_plain,
+                                             sparton_backward_dh_plain)
 
 
 def lm_head_naive(
@@ -63,6 +69,29 @@ def lm_head_tiled(
     return y.to(H.dtype)
 
 
+class _SpartonCore(torch.autograd.Function):
+    """Alg. 2 forward and Alg. 3 backward in plain PyTorch."""
+
+    @staticmethod
+    def forward(ctx, H, E, b, mask, vocab_tile, softcap, bwd_batch_chunk):
+        y, i_max = sparton_forward_plain(H, E, b, mask, softcap,
+                                         vocab_tile=vocab_tile)
+        ctx.save_for_backward(H, E, y, i_max)
+        ctx.softcap, ctx.chunk = softcap, bwd_batch_chunk
+        return y.to(H.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        H, E, y, i_max = ctx.saved_tensors
+        dH = sparton_backward_dh_plain(dy, y, i_max, E, H.shape[1],
+                                       ctx.softcap,
+                                       bwd_batch_chunk=ctx.chunk)
+        dE, db = sparton_backward_de_plain(dy, y, i_max, H, ctx.softcap,
+                                           bwd_batch_chunk=ctx.chunk)
+        return (dH.to(H.dtype), dE.to(E.dtype), db, None, None, None,
+                None)
+
+
 def lm_head_sparton(
     H: torch.Tensor,
     E: torch.Tensor,
@@ -71,8 +100,13 @@ def lm_head_sparton(
     *,
     vocab_tile: int = 4096,
     logit_softcap: Optional[float] = None,
+    bwd_batch_chunk: int = 8,
 ) -> torch.Tensor:
-    """Sparton head forward (Alg. 2); its Alg. 3 backward comes later."""
-    refuse_grad("lm_head_sparton", H, E, b)
-    return lm_head_tiled(H, E, b, mask, vocab_tile=vocab_tile,
-                         logit_softcap=logit_softcap)
+    """Sparton LM head (Alg. 2 + 3) in plain PyTorch, differentiable.
+
+    Saves only ``(y, i_max)`` beyond the inputs: O(B·V) backward state
+    instead of O(B·S·V).
+    """
+    b, mask = with_defaults(H, E, b, mask)
+    return _SpartonCore.apply(H, E, b, mask, vocab_tile, logit_softcap,
+                              bwd_batch_chunk)

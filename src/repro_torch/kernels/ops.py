@@ -1,10 +1,12 @@
-"""The kernel-backed Sparton head (``repro/kernels/ops.py``), forward only.
+"""The kernel-backed, differentiable Sparton head (``repro/kernels/ops.py``).
 
-``sparton_head`` runs K1 on CUDA tensors (its plain version on CPU ones)
-and casts ``y`` to ``out_dtype or H.dtype``, as the JAX wrapper does.
-The backward (the paper's Alg. 3 over the dH and dE kernels) arrives
-with the training slice; until then a call that would need a gradient
-raises instead of letting autograd differentiate something else.
+``sparton_head`` is a ``torch.autograd.Function``: its forward runs K1
+(``kernels/sparton.py``) and saves only ``(H, E, y, i_max)`` — never the
+``(B, S, V)`` logits; its backward casts ``dy`` to f32 and runs K2 and
+K3 (``kernels/sparton_bwd.py``), which compute ``g = dy * f'(y)`` and
+``db = sum_b g`` inside the kernels. Gradients come back in the inputs'
+dtypes (``db`` in f32), as in the JAX wrapper's ``_bwd``. CPU tensors
+take each kernel's plain version.
 """
 
 from __future__ import annotations
@@ -14,16 +16,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.sparton import sparton_forward
-
-def refuse_grad(where: str, *tensors: Optional[torch.Tensor]) -> None:
-    """Raise if autograd would need a backward through the head."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{where}: inputs require grad, but the Sparton head's "
-            "backward (kernels K2/K3 behind a torch.autograd.Function) "
-            "arrives with port slice 2, training; call it under "
-            "torch.no_grad() for inference")
+from repro_torch.kernels.sparton_bwd import sparton_backward
 
 
 def with_defaults(H, E, b, mask):
@@ -35,6 +28,24 @@ def with_defaults(H, E, b, mask):
     return b, mask
 
 
+class _SpartonHead(torch.autograd.Function):
+    """K1 forward, K2 + K3 backward (the paper's Alg. 2 and 3)."""
+
+    @staticmethod
+    def forward(ctx, H, E, b, mask, softcap, out_dtype):
+        y, i_max = sparton_forward(H, E, b, mask, softcap=softcap)
+        ctx.save_for_backward(H, E, y, i_max)
+        ctx.softcap = softcap
+        return y.to(out_dtype or H.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        H, E, y, i_max = ctx.saved_tensors
+        dH, dE, db = sparton_backward(dy.float().contiguous(), y, i_max, H,
+                                      E, softcap=ctx.softcap)
+        return dH.to(H.dtype), dE.to(E.dtype), db, None, None, None
+
+
 def sparton_head(
     H: torch.Tensor,
     E: torch.Tensor,
@@ -44,8 +55,7 @@ def sparton_head(
     logit_softcap: Optional[float] = None,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """Kernel-backed head with optional bias (zeros) and mask (all kept)."""
-    refuse_grad("sparton_head", H, E, b)
+    """Kernel-backed head with optional bias (zeros) and mask (all kept);
+    differentiable in ``H``, ``E`` and ``b``."""
     b, mask = with_defaults(H, E, b, mask)
-    y, _ = sparton_forward(H, E, b, mask, softcap=logit_softcap)
-    return y.to(out_dtype or H.dtype)
+    return _SpartonHead.apply(H, E, b, mask, logit_softcap, out_dtype)

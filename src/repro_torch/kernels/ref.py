@@ -1,8 +1,8 @@
-"""Plain PyTorch oracle for the Sparton forward (``repro/kernels/ref.py``).
+"""Plain PyTorch oracles for the Sparton head (``repro/kernels/ref.py``).
 
-Deliberately naive: it materializes the whole ``(B, S, V)`` f32 logit
-tensor. It is the ground truth the tiled and kernel versions are held
-against, at small shapes.
+Deliberately naive: they materialize the whole ``(B, S, V)`` f32 logit
+tensor and the one-hot routing. They are the ground truth the tiled and
+kernel versions are held against, at small shapes.
 """
 
 from __future__ import annotations
@@ -10,8 +10,9 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels._common import NEG_INF
+from repro_torch.kernels._common import NEG_INF, bwd_factor
 
 
 def sparton_forward_ref(
@@ -31,3 +32,30 @@ def sparton_forward_ref(
         logits = torch.where(mask.bool()[:, :, None], logits, NEG_INF)
     raw_max, i_max = logits.max(dim=1)
     return torch.log1p(raw_max.clamp_min(0.0)), i_max.int()
+
+
+def sparton_backward_ref(
+    g: torch.Tensor,       # (B, V), the f' factor already applied
+    i_max: torch.Tensor,   # (B, V)
+    H: torch.Tensor,       # (B, S, D)
+    E: torch.Tensor,       # (V, D)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Oracle for the backward's contractions: ``(dH, dE)`` in f32."""
+    w = F.one_hot(i_max.long(), H.shape[1]).float() * g.float()[..., None]
+    dH = torch.einsum("bvs,vd->bsd", w, E.float())
+    dE = torch.einsum("bvs,bsd->vd", w, H.float())
+    return dH, dE
+
+
+def sparton_backward_fused_ref(
+    dy: torch.Tensor,      # (B, V) raw upstream cotangent
+    y: torch.Tensor,       # (B, V) stored post-activation
+    i_max: torch.Tensor,   # (B, V)
+    H: torch.Tensor,       # (B, S, D)
+    E: torch.Tensor,       # (V, D)
+    softcap: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Oracle for the fused backward: ``(dH, dE, db)`` from ``(dy, y)``."""
+    g = bwd_factor(y.float(), dy, softcap)
+    dH, dE = sparton_backward_ref(g, i_max, H, E)
+    return dH, dE, g.sum(dim=0)

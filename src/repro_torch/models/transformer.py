@@ -5,8 +5,15 @@ Parameters are a plain dict of tensors in the JAX package's layout:
 every layer leaf is stacked with a leading ``n_layers`` axis, and weights
 are stored for ``x @ W``. So ``weights.params_from_jax`` is a copy, and
 both packages compute the same function on the same numbers. The layer
-loop is a Python loop (eager PyTorch needs no scan); MoE trunks, the
-causal LM head and ``decode_step`` wait for the slice of those families.
+loop is a Python loop (eager PyTorch needs no scan); with ``cfg.remat``
+and autograd on, each layer runs under ``torch.utils.checkpoint``
+(recomputed in the backward, as the JAX scan's ``jax.checkpoint``).
+
+Training runs from the f32 master params: every call casts the weights
+to the compute dtype inside autograd, so the gradients reach the
+masters (a tied ``E`` adds to the embedding gather's). The cast-once
+copy of ``compute_weights`` is for serving only. MoE trunks, the causal
+LM head and ``decode_step`` wait for the slice of those families.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.device import dtype_of
@@ -83,7 +91,9 @@ def compute_weights(params: Params, cfg: TransformerConfig) -> Params:
     """``params`` with the embedding, the head's ``E`` and every layer's
     projections in the compute dtype, so that ``forward_hidden`` and the
     head cast nothing per call. Norm scales and the head bias keep their
-    dtype; the numbers are those of a cast at each call."""
+    dtype; the numbers are those of a cast at each call. Serving only: a
+    copy made once goes stale at the first update and would cut the
+    gradient off from the f32 masters."""
     cdtype = dtype_of(cfg.compute_dtype)
     layers = params["layers"]
     out: Params = {
@@ -142,9 +152,15 @@ def forward_hidden(params: Params, cfg: TransformerConfig,
         mask = torch.ones((B, S), dtype=torch.int32, device=tokens.device)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = params["embed"][tokens.long()].to(dtype_of(cfg.compute_dtype))
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        x = _layer(x, params["layers"], i, cfg, positions=positions,
-                   mask=mask)
+        if remat:
+            x = checkpoint(_layer, x, params["layers"], i, cfg,
+                           positions=positions, mask=mask,
+                           use_reentrant=False)
+        else:
+            x = _layer(x, params["layers"], i, cfg, positions=positions,
+                       mask=mask)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

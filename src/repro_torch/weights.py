@@ -1,11 +1,12 @@
-"""Carry the JAX package's parameters over to the port.
+"""Carry the JAX package's parameters and train state over to the port.
 
 ``params_from_jax`` takes the JAX param pytree of a dense transformer,
 already converted to numpy arrays by the caller (stacked ``(L, ...)``
 layer leaves, weights laid out for ``x @ W``), and returns the port's
-params: the same tree of tensors on ``device``. With it both packages
-compute the same function, which is how the tests compare them. This
-module imports no JAX.
+params: the same tree of tensors on ``device``. ``state_from_jax`` does
+the same for a whole train state (params, the AdamW moments, the step).
+With them both packages compute the same function and take the same
+steps, which is how the tests compare them. This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.tree import tree_items
 
 
 def _expected_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
@@ -41,15 +43,6 @@ def _expected_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
     return shapes
 
 
-def _flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
-    if isinstance(tree, dict):
-        out: Dict[str, Any] = {}
-        for key, value in tree.items():
-            out.update(_flatten(value, f"{prefix}{key}/"))
-        return out
-    return {prefix[:-1]: tree}
-
-
 def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
                     device: DeviceLike = None) -> Dict[str, Any]:
     """The port's params from a numpy copy of the JAX pytree.
@@ -58,7 +51,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
     (an MoE tree has other leaves and is refused).
     """
     dev = resolve_device(device)
-    flat = _flatten(tree)
+    flat = tree_items(tree)
     expected = _expected_shapes(cfg)
     if set(flat) != set(expected):
         raise ValueError(
@@ -77,3 +70,16 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
             node = node.setdefault(p, {})
         node[leaf] = torch.from_numpy(np.array(arr)).to(dev)
     return out
+
+
+def state_from_jax(state: Dict[str, Any], cfg: TransformerConfig,
+                   device: DeviceLike = None) -> Dict[str, Any]:
+    """The port's train state from a numpy copy of the JAX one
+    (``{"params", "opt": {"mu", "nu"}, "step"}``, AdamW layout): the
+    moments are trees shaped like the params, the step an int."""
+    return {
+        "params": params_from_jax(state["params"], cfg, device),
+        "opt": {k: params_from_jax(state["opt"][k], cfg, device)
+                for k in ("mu", "nu")},
+        "step": int(np.asarray(state["step"])),
+    }

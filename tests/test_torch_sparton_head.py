@@ -160,10 +160,22 @@ def test_head_without_bias_or_mask_defaults():
 
 @pytest.mark.parametrize("impl", ["kernel", "sparton"])
 def test_requires_grad_raises_naming_the_training_slice(impl):
-    H, E, b, mask = _t(*_inputs(2, 16, 8, 16))
-    E.requires_grad_(True)
+    """Once a raise until the training slice; now the grads of both
+    heads against ``jax.grad`` of the JAX ``lm_head_sparton`` (f32, the
+    tolerance above), and inference under ``torch.no_grad()``."""
+    import jax
+
+    H, E, b, mask = _inputs(2, 16, 8, 16)
+    w = np.random.default_rng(9).standard_normal((2, 16)).astype(np.float32)
+    Ht, Et, bt, maskt = _t(H, E, b, mask)
+    for t in (Ht, Et, bt):
+        t.requires_grad_(True)
     head = head_api.make_head(head_api.HeadSpec(impl=impl))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        head(H, E, b, mask)
+    (head(Ht, Et, bt, maskt) * torch.from_numpy(w)).sum().backward()
+    ref = jax.grad(lambda H, E, b: (jax_sparton(H, E, b, jnp.asarray(mask))
+                                    * w).sum(), argnums=(0, 1, 2))(*_j(H, E, b))
+    for got, want in zip((Ht.grad, Et.grad, bt.grad), ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                                   atol=TOL)
     with torch.no_grad():              # inference is fine
-        assert head(H, E, b, mask).shape == (2, 16)
+        assert head(Ht, Et, bt, maskt).shape == (2, 16)
