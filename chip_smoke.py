@@ -8,14 +8,17 @@ Phases, run in this order, each printing one JSON line:
              (9, 0) required.
 2. build   — compile the CUDA kernels from ``src/repro_torch/csrc``.
 3. kernels — each kernel against its plain PyTorch version on the card
-             (K2 and K3 also bit for bit against a second launch).
+             (K2 and K3 also against the dense oracle, and bit for bit
+             against a second launch).
 4. serve   — the full-width splade_bert serving path: index 16384 docs,
              serve 64 requests through the batching loop, retrieve with
              ``method="auto"`` (which must resolve to the fused kernel).
 5. train   — the full-width splade_bert train step: one step's gradients
-             with the kernel head against the plain head (32 x 128), then
-             5 timed steps at the paper's Table-3 point (384 pairs x 256
-             tokens, remat on), K1, K2 and K3 launched twice a step.
+             with the kernel head against the plain head (32 x 128), split
+             into the backward's and the forward's share, then 5 timed
+             steps of the train entry point at the paper's Table-3 point
+             (384 pairs x 256 tokens, remat on) with the head it picks by
+             default, K1, K2 and K3 launched twice a step.
 6. timing  — each kernel, its plain version, a one-call PyTorch yardstick
              and its roofline bound, with CUDA events; for K2 and K3 also
              the peak memory of the head's forward + backward against the
@@ -248,18 +251,21 @@ def phase_kernels(torch):
                 seed += 1
                 H, E, mask, dy, y, i_max = bwd_inputs(
                     torch, B, S, D, V, dtype, seed, softcap)
-                case = bwd_compare(torch, H, E, mask, dy, y, i_max, softcap)
+                case = bwd_compare(torch, H, E, mask, dy, y, i_max, softcap,
+                                   oracle=True)
                 bwd.append({"shape": [B, S, D, V], "dtype": str(dtype)[6:],
                             "softcap": softcap, **case})
     bad = [c for c in bwd if not (c["within_tol"] and c["bit_identical"])]
-    require(not bad, f"K2/K3 differ from the plain versions beyond "
-                     f"{BWD_TOL} or between two launches: {bad[:2]}")
+    require(not bad, f"K2/K3 differ from the plain versions or the "
+                     f"oracle beyond {BWD_TOL} or between two launches: "
+                     f"{bad[:2]}")
     emit("kernels", k1_max_abs_err=worst_err, k1_tol=K1_TOL,
          k1_imax_mismatch=sum(c["imax_mismatch"] for c in k1),
          k1_cases=k1, k4_max_abs_err=k4_err, k4_id_mismatch=k4_mism,
          k4_cases=k4, bwd_tol=BWD_TOL,
          k2_max_abs_err=max(c["dH"] for c in bwd),
          k3_max_abs_err=max(max(c["dE"], c["db"]) for c in bwd),
+         k23_oracle_max_abs_err=max(c["oracle"] for c in bwd),
          bwd_bit_identical=all(c["bit_identical"] for c in bwd),
          bwd_cases=bwd)
 
@@ -281,12 +287,16 @@ def bwd_inputs(torch, B, S, D, V, dtype, seed, softcap):
     return H, E, mask, dy, y, i_max
 
 
-def bwd_compare(torch, H, E, mask, dy, y, i_max, softcap):
+def bwd_compare(torch, H, E, mask, dy, y, i_max, softcap, *, oracle=False):
     """K2 and K3, launched twice, against their plain versions on one
     input: max |dH|, |dE|, |db| differences, whether they are within
     BWD_TOL of the largest |value|, whether the two launches agree bit
-    for bit, and whether fully masked rows got dH == 0."""
+    for bit, and whether fully masked rows got dH == 0. With ``oracle``
+    (small shapes: it holds the (B, V, S) one-hot routing), also against
+    the dense oracle ``kernels.ref.sparton_backward_fused_ref``, which
+    shares no code with the plain versions."""
     from repro_torch.kernels import sparton_bwd as kb
+    from repro_torch.kernels.ref import sparton_backward_fused_ref
 
     S = H.shape[1]
     runs = [(kb.sparton_backward_dh(dy, y, i_max, E, S, softcap=softcap),
@@ -300,6 +310,14 @@ def bwd_compare(torch, H, E, mask, dy, y, i_max, softcap):
         err = float((got - ref).abs().max())
         out[name] = err
         ok = ok and err <= BWD_TOL * (1 + float(ref.abs().max()))
+    if oracle:
+        dense = sparton_backward_fused_ref(dy, y, i_max, H, E, softcap)
+        out["oracle"] = max(float((got - ref).abs().max())
+                            for got, ref in zip(runs[0], dense))
+        ok = ok and all(
+            float((got - ref).abs().max()) <= BWD_TOL * (
+                1 + float(ref.abs().max()))
+            for got, ref in zip(runs[0], dense))
     out["bit_identical"] = all(bool(torch.equal(a, b))
                                for a, b in zip(*runs))
     dead = ~mask.bool().any(dim=1)
@@ -354,8 +372,7 @@ def phase_serve(torch):
     from repro_torch.runtime.serving import (FailedResult, ShedResult,
                                              make_config_encoder)
 
-    cfg = dataclasses.replace(CONFIG, head_impl="kernel",
-                              rep_topk=SERVE["rep_topk"])
+    cfg = dataclasses.replace(CONFIG, rep_topk=SERVE["rep_topk"])
     params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
     encode = make_config_encoder(params, cfg)
     batches = []   # (B, S, seconds) of every encode call
@@ -420,7 +437,7 @@ def phase_serve(torch):
     lat = res["loop"].latencies()
     ist = index.stats()
     emit("serve", config=cfg.name, n_params=cfg.n_params,
-         head_impl=cfg.head_impl, launches=launches,
+         head_impl=cfg.head_spec().impl, launches=launches,
          encode_batches=len(batches), index_s=res["index_s"],
          n_docs=ist["n_docs"], n_postings=ist["n_postings"],
          max_postings=ist["max_postings"],
@@ -440,10 +457,18 @@ def phase_serve(torch):
 # --------------------------------------------------------------------------
 
 GRAD_CHECK = (32, 128)   # pairs x tokens of the gradient check, remat off
-# kernel head vs plain head, per param: ||g_kernel - g_plain|| / ||g_plain||.
-# Both run the same bf16 trunk; the heads' f32 sums run in another order,
-# so y, dH and dE cast to bf16 land one ulp apart here and there.
-GRAD_TOL = 1e-2
+# One step's gradients, per param ||g_x - g_plain|| / ||g_plain||, at bf16
+# compute (the main path) and at f32 compute. The kernel head is held to
+# GRAD_RATIO times the largest reading of three controls, runs of the
+# plain head that change only the order of its f32 sums: the plain head
+# again (index_add_ sums dH in another order each run), and with D
+# reversed or permuted. Any such change moves every trunk gradient by the
+# trunk's own rounding (about 7e-3 at bf16 in PERF.md's runs), so a limit
+# set from one reading would be one run's noise; the controls measure it
+# in the same run. Errors in the kernels below that size are the kernels
+# phase's to find (BWD_TOL), and the f32 check's (controls about 1e-4).
+LOSS_TOL = 1e-4
+GRAD_RATIO = 2.0
 TRAIN_STEPS = 5
 
 
@@ -455,49 +480,166 @@ def train_batches(torch, B, S, n, vocab):
             for _ in range(n)]
 
 
+def register_split_heads(torch, D):
+    """Head impls for the gradient check, each a forward and a backward
+    from the kernels or their plain versions, recording the forward's
+    i_max: "k1_plain_bwd" (K1, then the plain K2/K3), "plain_k23" (the
+    plain forward, then K2 and K3) and the controls "plain_rev_d" and
+    "plain_perm_d" (the plain head with D reversed or permuted). Returns
+    ``{impl: [i_max, ...]}``."""
+    from repro_torch.core import head_api
+    from repro_torch.kernels import sparton as k1
+    from repro_torch.kernels import sparton_bwd as kb
+
+    class Split(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, H, E, b, mask, fwd, bwd, seen):
+            y, i_max = fwd(H, E, b, mask)
+            seen.append(i_max)
+            ctx.save_for_backward(H, E, y, i_max)
+            ctx.bwd = bwd
+            return y.to(H.dtype)
+
+        @staticmethod
+        def backward(ctx, dy):
+            H, E, y, i_max = ctx.saved_tensors
+            dH, dE, db = ctx.bwd(dy.float().contiguous(), y, i_max, H, E)
+            return dH.to(H.dtype), dE.to(E.dtype), db, None, None, None, None
+
+    def plain_bwd(dy, y, i_max, H, E):
+        return (kb.sparton_backward_dh_plain(dy, y, i_max, E, H.shape[1]),
+                *kb.sparton_backward_de_plain(dy, y, i_max, H))
+
+    perm = torch.randperm(D, generator=torch.Generator().manual_seed(5))
+    perm = perm.cuda()
+    fwds = {"k1": k1.sparton_forward, "plain": k1.sparton_forward_plain,
+            "rev": lambda H, E, b, m: k1.sparton_forward_plain(
+                H.flip(-1), E.flip(-1), b, m),
+            "perm": lambda H, E, b, m: k1.sparton_forward_plain(
+                H[..., perm], E[:, perm], b, m)}
+    seen = {}
+    for impl, fwd, bwd in (("k1_plain_bwd", "k1", plain_bwd),
+                           ("plain_k23", "plain", kb.sparton_backward),
+                           ("plain_rev_d", "rev", plain_bwd),
+                           ("plain_perm_d", "perm", plain_bwd)):
+        seen[impl] = []
+
+        def head(H, E, b, mask, *, spec, fwd=fwds[fwd], bwd=bwd,
+                 log=seen[impl]):
+            require(spec.logit_softcap is None, "the split heads take no "
+                                                "softcap")
+            return Split.apply(H, E, b, mask, fwd, bwd, log)
+
+        head_api.register_head_impl(impl, head)
+    return seen
+
+
+def grad_readings(torch, cfg, params, batch, seen):
+    """One compute dtype of the gradient check: the losses, and per
+    comparison the largest relative difference, its leaf and every
+    leaf's."""
+    import dataclasses
+
+    from repro_torch.launch.steps import lsr_loss, value_and_grad
+    from repro_torch.tree import tree_items
+
+    losses, grads = {}, {}
+    for log in seen.values():
+        log.clear()
+    for impl in ("kernel", "sparton", "sparton_again", *seen):
+        loss, g = value_and_grad(lsr_loss(dataclasses.replace(
+            cfg, head_impl=impl.replace("_again", ""))))(params, batch)
+        losses[impl] = float(loss)
+        grads[impl] = tree_items(g)
+    require(all(np.isfinite(v) for v in losses.values()),
+            f"non-finite loss {losses}")
+    require(all(bool(torch.isfinite(t).all())
+                for t in grads["kernel"].values()),
+            "non-finite gradient with the kernel head")
+
+    def rel(a, b="sparton"):
+        per = {n: float((grads[a][n] - grads[b][n]).norm()
+                        / grads[b][n].norm().clamp_min(1e-30))
+               for n in grads[b]}
+        worst = max(per, key=per.get)
+        return {"max": per[worst], "leaf": worst, "per_leaf": per}
+
+    def flips(a, b="plain_k23"):   # share of (b, v) whose i_max differs
+        return [float((x != y).float().mean())
+                for x, y in zip(seen[a], seen[b])]
+
+    out = {"compute_dtype": cfg.compute_dtype, "loss": losses,
+           "kernel_vs_plain": rel("kernel"),
+           # the split: which half of the head the difference comes from
+           "kernel_vs_k1_plain_bwd": rel("kernel", "k1_plain_bwd"),
+           "k1_plain_bwd_vs_plain": rel("k1_plain_bwd"),
+           "plain_k23_vs_plain": rel("plain_k23"),
+           "controls": {"plain_again": rel("sparton_again"),
+                        "rev_d": rel("plain_rev_d"),
+                        "perm_d": rel("plain_perm_d")},
+           "imax_flip_share": {"k1": flips("k1_plain_bwd"),
+                               "rev_d": flips("plain_rev_d"),
+                               "perm_d": flips("plain_perm_d")}}
+    control = max(c["max"] for c in out["controls"].values())
+    out["limit"] = GRAD_RATIO * control
+    out["ratio"] = out["kernel_vs_plain"]["max"] / max(control, 1e-30)
+    emit("train_grad_check", **out)
+    l_k, l_p = losses["kernel"], losses["sparton"]
+    require(abs(l_k - l_p) <= LOSS_TOL * abs(l_p),
+            f"{cfg.compute_dtype}: kernel-head loss {l_k} vs plain head "
+            f"{l_p}")
+    for key in ("kernel_vs_plain", "kernel_vs_k1_plain_bwd"):
+        require(out[key]["max"] <= out["limit"],
+                f"{cfg.compute_dtype}: {key} reads {out[key]['max']} at "
+                f"{out[key]['leaf']}, above {GRAD_RATIO} x the controls' "
+                f"{control}")
+    return out
+
+
+def grad_check(torch, cfg):
+    """The gradient check at bf16 and at f32 compute (see GRAD_RATIO):
+    per dtype, the kernel head's largest reading, its limit and its ratio
+    to the controls."""
+    import dataclasses
+
+    from repro_torch.models.transformer import init_params
+
+    seen = register_split_heads(torch, cfg.d_model)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    batch = train_batches(torch, *GRAD_CHECK, 1, cfg.vocab_size)[0]
+    summary = {}
+    for dtype in ("bfloat16", "float32"):
+        out = grad_readings(torch, dataclasses.replace(
+            cfg, compute_dtype=dtype), params, batch, seen)
+        summary[dtype] = {"kernel_vs_plain": out["kernel_vs_plain"]["max"],
+                          "limit": out["limit"], "ratio": out["ratio"]}
+        del out
+        torch.cuda.empty_cache()
+    return summary
+
+
 def phase_train(torch):
     import dataclasses
 
     from repro_torch.configs.splade_bert import CONFIG, SHAPES
     from repro_torch.kernels import sparton as k1
     from repro_torch.kernels import sparton_bwd as kb
-    from repro_torch.launch.steps import (build_lsr_train_step, init_state,
-                                          lsr_loss, value_and_grad)
-    from repro_torch.models.transformer import init_params
-    from repro_torch.tree import tree_items
+    from repro_torch.launch.steps import build_lsr_train_step, init_state
+    from repro_torch.launch.train import train_steps
 
     # (a) one step's gradients, kernel head against the plain head
-    cfg = dataclasses.replace(CONFIG, head_impl="kernel", remat=False)
-    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
-    batch = train_batches(torch, *GRAD_CHECK, 1, cfg.vocab_size)[0]
-    loss_k, g_k = value_and_grad(lsr_loss(cfg))(params, batch)
-    loss_p, g_p = value_and_grad(lsr_loss(
-        dataclasses.replace(cfg, head_impl="sparton")))(params, batch)
-    g_k, g_p = tree_items(g_k), tree_items(g_p)
-    rel = {n: float((g_k[n].float() - g_p[n].float()).norm()
-                    / g_p[n].float().norm().clamp_min(1e-30)) for n in g_p}
-    losses = [float(loss_k), float(loss_p)]
-    require(all(np.isfinite(losses)), f"non-finite loss {losses}")
-    require(abs(losses[0] - losses[1]) <= GRAD_TOL * abs(losses[1]),
-            f"kernel-head loss {losses[0]} vs plain head {losses[1]}")
-    require(all(torch.isfinite(g).all() for g in g_k.values()),
-            "non-finite gradient with the kernel head")
-    require(max(rel.values()) <= GRAD_TOL,
-            f"kernel-head gradients differ from the plain head's: {rel}")
-    grad_check = {"batch": list(GRAD_CHECK), "loss_kernel": losses[0],
-                  "loss_plain": losses[1], "grad_tol": GRAD_TOL,
-                  "max_grad_rel_err": max(rel.values()), "grad_rel_err": rel}
-    del params, g_k, g_p
+    checked = grad_check(torch, dataclasses.replace(CONFIG, remat=False))
     torch.cuda.empty_cache()
 
-    # (b) timed steps at the paper's Table-3 point, remat on (CONFIG's)
+    # (b) timed steps of the train entry point at the paper's Table-3 point,
+    # with its config (remat on, the head it picks by default)
     shape = SHAPES["table3_384"]
-    cfg = dataclasses.replace(CONFIG, head_impl="kernel")
+    cfg = CONFIG
     state = init_state("splade_bert",
                        torch.Generator(device="cuda").manual_seed(0))
-    data = train_batches(torch, shape.global_batch, shape.seq_len,
-                         TRAIN_STEPS, cfg.vocab_size)
-    step = build_lsr_train_step(cfg, lr=2e-4)
+    run = train_steps(cfg, state, batch=shape.global_batch,
+                      seq_len=shape.seq_len, lr=2e-4,
+                      device=torch.device("cuda"))
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -508,12 +650,13 @@ def phase_train(torch):
     with plain_guard(k1=(k1, "sparton_forward_plain"),
                      k2=(kb, "sparton_backward_dh_plain"),
                      k3=(kb, "sparton_backward_de_plain")) as plain_on_cuda:
-        for b in data:
+        for _ in range(TRAIN_STEPS):
             t0 = time.perf_counter()
-            state, metrics = step(state, b)
-            losses.append(float(metrics["loss"]))     # synchronises
+            state, loss = next(run)                   # synchronises
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
+            losses.append(loss)
+    run.close()
     launches = {"sparton_fwd": k1.sparton_forward.launches,
                 "sparton_bwd_dh": kb.sparton_backward_dh.launches,
                 "sparton_bwd_de": kb.sparton_backward_de.launches}
@@ -528,15 +671,20 @@ def phase_train(torch):
     later_ms = sorted(1e3 * t for t in step_s[1:])
     median_ms = later_ms[len(later_ms) // 2]
 
+    step = build_lsr_train_step(cfg, lr=2e-4)
+    batch = train_batches(torch, shape.global_batch, shape.seq_len, 1,
+                          cfg.vocab_size)[0]
+
     def one_step():
         t0 = time.perf_counter()
-        step(state, data[-1])[1]["loss"].item()
+        step(state, batch)[1]["loss"].item()
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0)
 
     profile = traced(torch, one_step, median_ms, 1)
     emit("train", config=cfg.name, n_params=cfg.n_params,
-         head_impl=cfg.head_impl, grad_check=grad_check,
+         head_impl=cfg.head_spec().impl,
+         grad_check=checked,
          shape={"name": shape.name, "pairs": shape.global_batch,
                 "seq_len": shape.seq_len, "remat": cfg.remat},
          losses=losses, step_ms=[1e3 * t for t in step_s],
@@ -544,7 +692,7 @@ def phase_train(torch):
          pairs_per_s=shape.global_batch / (median_ms / 1e3),
          max_memory_allocated_gib=peak_gib, launches=launches,
          step_profile=profile)
-    del state, data
+    del state, batch
     torch.cuda.empty_cache()
     return {"launches": launches}
 

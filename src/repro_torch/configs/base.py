@@ -2,7 +2,10 @@
 
 Only the transformer family of the SPLADE encoders is here: the port
 serves and trains ``splade_bert``. Field names and defaults are the JAX
-package's, so a config reads the same in both.
+package's, so a config reads the same in both, with one exception:
+``head_impl`` defaults to ``"kernel"``, the CUDA head, so that no entry
+point serves or trains through a plain head unless it is asked to (CPU
+tensors take the kernels' plain versions inside their wrappers).
 """
 
 from __future__ import annotations
@@ -52,11 +55,10 @@ class TransformerConfig:
     lambda_q: float = 5e-4         # FLOPS weight on query reps
     lambda_d: float = 3e-4         # FLOPS weight on doc reps
     l1_weight: float = 0.0         # optional L1 on both rep sides
-    aux_weight: float = 1e-2       # MoE load-balance aux weight
-    distill_weight: float = 0.0    # MarginMSE weight (needs distill batch)
     # Head backend, resolved against the head_api registry by
-    # ``head_spec()``: "jax" is the JAX package's alias for "sparton".
-    head_impl: str = "jax"
+    # ``head_spec()``: "jax" is the JAX package's alias for the plain
+    # "sparton" head.
+    head_impl: str = "kernel"
     # TPU tiles of the JAX package's Pallas head. None = let the kernel
     # choose; the CUDA kernel picks its own tiles and refuses pins.
     head_block_b: Optional[int] = None

@@ -121,7 +121,7 @@ def main(argv=None) -> int:
                     help="retrieval path (repro_torch.retrieval.retrieve)")
     ap.add_argument("--head-impl", default=None,
                     help="override the config's head backend (naive, "
-                         "tiled, sparton or kernel)")
+                         "tiled, sparton or kernel; default kernel)")
     ap.add_argument("--index-batch", type=int, default=64,
                     help="corpus encoding batch size")
     ap.add_argument("--device", default="cuda",

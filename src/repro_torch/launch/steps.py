@@ -3,10 +3,12 @@
 ``build_lsr_train_step(cfg, ...)`` returns ``step(state, batch) ->
 (state, {"loss": ...})``: the encoder trunk and the config's Sparton head
 on the query and the document tokens, the SPLADE loss, its gradients
-(through K2 and K3 for ``head_impl="kernel"``), averaged over
+(through K2 and K3 for ``head_impl="kernel"``, the default), averaged over
 ``n_micro`` chunks, then AdamW on the f32 master params. The state is
 ``{"params", "opt": {"mu", "nu"}, "step"}``, as the JAX package's.
-The vocab-sharded step waits for the multi-GPU slice.
+The vocab-sharded step waits for the multi-GPU slice; the MarginMSE
+term waits for a distillation data source and the MoE aux loss for an
+MoE trunk.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import TransformerConfig
-from repro_torch.losses.contrastive import margin_mse_loss, splade_loss
+from repro_torch.losses.contrastive import splade_loss
 from repro_torch.models import transformer as tfm
 from repro_torch.optim.accumulation import microbatch_grads
 from repro_torch.optim.optimizers import adamw, apply_updates
@@ -46,19 +48,12 @@ def value_and_grad(loss_fn: Callable[[Any, Batch], torch.Tensor]
 
 def lsr_loss(cfg: TransformerConfig) -> Callable[[Any, Batch], torch.Tensor]:
     """``(params, batch) -> loss``: both sides encoded with the config's
-    head, then the SPLADE objective (+ MarginMSE with a distill batch)."""
+    head, then the SPLADE objective."""
     def loss_fn(params, mb):
         yq = tfm.lsr_encode(params, cfg, mb["q_tokens"], mb["q_mask"])
         yd = tfm.lsr_encode(params, cfg, mb["d_tokens"], mb["d_mask"])
-        # a dense trunk has no MoE aux loss
-        loss = splade_loss(yq, yd, lambda_q=cfg.lambda_q,
+        return splade_loss(yq, yd, lambda_q=cfg.lambda_q,
                            lambda_d=cfg.lambda_d, l1_weight=cfg.l1_weight)
-        if cfg.distill_weight and "neg_tokens" in mb:
-            yn = tfm.lsr_encode(params, cfg, mb["neg_tokens"],
-                                mb["neg_mask"])
-            loss = loss + cfg.distill_weight * margin_mse_loss(
-                yq, yd, yn, mb["teacher_margin"])
-        return loss
     return loss_fn
 
 

@@ -6,7 +6,9 @@
 Trains the arch's SMOKE config (``--full``: the full-width CONFIG) on
 the synthetic LSR pairs of ``data.synthetic.lsr_pair_batches`` with the
 step of ``launch.steps.build_lsr_train_step``, and prints the first and
-the last loss. It runs on ``cuda`` unless ``--device cpu`` is given, and
+the last loss. The head is the config's, the CUDA kernels K1, K2 and
+K3 unless ``--head-impl`` names another. It runs on ``cuda`` unless
+``--device cpu`` is given (where the kernels' plain versions run), and
 exits non-zero naming CUDA when there is none. Checkpoint/resume, the
 eval hook and the head autotuner wait for their slices.
 """
@@ -16,7 +18,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import sys
-from typing import Dict, List
+from itertools import islice
+from typing import Dict, Iterator, List, Tuple
 
 import torch
 
@@ -28,19 +31,25 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.steps import build_lsr_train_step, init_state
 
 
+def train_steps(cfg: TransformerConfig, state: Dict, *, batch: int,
+                seq_len: int, lr: float, device: torch.device
+                ) -> Iterator[Tuple[Dict, float]]:
+    """Endless train steps from ``state`` on the batches of shard 0:
+    yields ``(state, loss)`` after each step."""
+    step = build_lsr_train_step(cfg, lr=lr)
+    for b in lsr_pair_batches(batch=batch, q_len=seq_len, d_len=seq_len,
+                              vocab=cfg.vocab_size):
+        b = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        state, metrics = step(state, b)
+        yield state, float(metrics["loss"])
+
+
 def train(cfg: TransformerConfig, state: Dict, *, steps: int, batch: int,
           seq_len: int, lr: float, device: torch.device) -> List[float]:
-    """``steps`` train steps from ``state`` on the batches of shard 0;
-    returns the loss of each."""
-    step = build_lsr_train_step(cfg, lr=lr)
-    data = lsr_pair_batches(batch=batch, q_len=seq_len, d_len=seq_len,
-                            vocab=cfg.vocab_size)
-    losses = []
-    for _ in range(steps):
-        b = {k: torch.from_numpy(v).to(device) for k, v in next(data).items()}
-        state, metrics = step(state, b)
-        losses.append(float(metrics["loss"]))
-    return losses
+    """``steps`` train steps from ``state``; returns the loss of each."""
+    return [loss for _, loss in islice(
+        train_steps(cfg, state, batch=batch, seq_len=seq_len, lr=lr,
+                    device=device), steps)]
 
 
 def main(argv=None) -> int:
@@ -56,7 +65,8 @@ def main(argv=None) -> int:
                     help="peak learning rate (1000 warm-up steps, cosine)")
     ap.add_argument("--head-impl", default=None,
                     choices=("jax",) + available_impls(),
-                    help="override the config's head backend")
+                    help="override the config's head backend (default "
+                         "kernel: K1 forward, K2 and K3 backward)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions")

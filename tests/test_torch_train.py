@@ -19,10 +19,13 @@ Tolerances:
   the trunk's matmuls at other places, and Adam's first steps move a
   param by about ±lr whatever the size of its gradient, so a gradient
   that rounding leaves near zero can flip its step (10-35 % of an
-  update's norm, measured): loss rtol 2e-2, params atol 3e-3 (the most
-  two steps can move one), updates 0.5 (a wrong gradient gives ~1.4);
-* the CLI's first loss (SMOKE, bf16 compute) against the JAX CLI's on
-  the same state: rtol 2e-2.
+  update's norm, measured): loss rtol 2e-2 and updates 0.5 (a wrong
+  gradient gives ~1.4, a step that moves nothing 1.0). Params are not
+  held elementwise there: a flipped step puts a param as far from JAX's
+  as two steps can move it, so any atol that passes would pass a frozen
+  step too;
+* the CLI's first loss (SMOKE, bf16 compute, the default kernel head)
+  against the JAX CLI's on the same state: rtol 2e-2.
 """
 
 import dataclasses
@@ -186,11 +189,11 @@ def _jax_state():
     return state
 
 
-STEP_CASES = {  # name: (compute dtype, head impl, loss rtol, param atol,
-    #                      update relative norm)
+STEP_CASES = {  # name: (compute dtype, head impl, loss rtol, param atol
+    #                      or None, update relative norm)
     "f32-sparton": ("float32", "sparton", 1e-5, 1e-5, 1e-3),
     "f32-kernel": ("float32", "kernel", 1e-5, 1e-5, 1e-3),
-    "bf16-kernel": ("bfloat16", "kernel", 2e-2, 3e-3, 0.5),
+    "bf16-kernel": ("bfloat16", "kernel", 2e-2, None, 0.5),
 }
 
 
@@ -239,8 +242,9 @@ def test_train_step_matches_jax_jitted_step(two_steps, case, n_steps):
     assert len(j_leaves) == len(t_leaves) == len(p0)
     for g, r, p in zip(t_leaves, j_leaves, p0):
         assert g.dtype == torch.float32
-        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0,
-                                   atol=param_atol)
+        if param_atol is not None:
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0,
+                                       atol=param_atol)
         u_t, u_j = g.numpy() - p, np.asarray(r) - p
         assert np.linalg.norm(u_t - u_j) <= update_tol * np.linalg.norm(u_j)
 
@@ -289,11 +293,24 @@ def _cli(*extra):
 
 
 def test_train_cli_runs_on_the_cpu_when_asked():
-    proc = _cli("--device", "cpu", "--head-impl", "kernel")
+    """With no --head-impl the CLI trains through the kernel head (its
+    plain versions, on CPU tensors)."""
+    proc = _cli("--device", "cpu")
     assert proc.returncode == 0, proc.stderr
     m = re.search(r"step 3: loss ([-0-9.e]+) \(first ([-0-9.e]+)\)",
                   proc.stdout)
     assert m and all(np.isfinite(float(x)) for x in m.groups())
+    assert "(head kernel)" in proc.stdout
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_configs_default_to_the_kernel_head(full):
+    from repro_torch.configs.splade_bert import CONFIG
+
+    cfg = CONFIG if full else SMOKE
+    assert cfg.head_spec().impl == "kernel"
+    assert dataclasses.replace(cfg, head_impl="jax").head_spec().impl \
+        == "sparton"
 
 
 def test_train_cli_without_cuda_exits_non_zero_naming_it():
