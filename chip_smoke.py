@@ -13,16 +13,21 @@ Phases, run in this order, each printing one JSON line:
 4. serve   — the full-width splade_bert serving path: index 16384 docs,
              serve 64 requests through the batching loop, retrieve with
              ``method="auto"`` (which must resolve to the fused kernel).
-5. train   — the full-width splade_bert train step: one step's gradients
+   serve_dense — the same path with dense reps (``--rep-topk 0``): a
+             (16384, 30522) f32 corpus, ``auto`` resolving to the
+             streaming kernel (K6), held against the ``dense`` method and,
+             on the sparse phase's reps, against K4.
+5. timing  — each kernel, its plain version, a one-call PyTorch yardstick
+             and its roofline bound, with CUDA events; for K2 and K3 also
+             the peak memory of the head's forward + backward against the
+             paper's PyTorch baseline, for K6 the peak memory of kernel and
+             yardstick. The dense corpus is then dropped.
+6. train   — the full-width splade_bert train step: one step's gradients
              with the kernel head against the plain head (32 x 128), split
              into the backward's and the forward's share, then 5 timed
              steps of the train entry point at the paper's Table-3 point
              (384 pairs x 256 tokens, remat on) with the head it picks by
              default, K1, K2 and K3 launched twice a step.
-6. timing  — each kernel, its plain version, a one-call PyTorch yardstick
-             and its roofline bound, with CUDA events; for K2 and K3 also
-             the peak memory of the head's forward + backward against the
-             paper's PyTorch baseline.
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``. Any mismatch, exception or missing launch exits non-zero before
@@ -51,6 +56,10 @@ K1_TOL = 1e-4     # f32 sums over D in another order (both sides f32)
 # K2/K3 against their plain versions: f32 sums over V (dH) or B (dE, db)
 # in another order, relative to the largest |value| of each output
 BWD_TOL = 1e-5
+# K6 against its plain version: f32 sums over D in another order (fixed
+# chains of FMAs against cuBLAS's blocked sums), relative to 1 + |score|;
+# ids may differ only where the two candidates' scores are that close
+K6_TOL = 1e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -193,6 +202,84 @@ def k4_cases(torch):
     return cases
 
 
+K6_SHAPES = [  # (B, N, D, k): tests/test_kernels_topk.py shapes, an odd D
+    (1, 100, 16, 5), (3, 500, 32, 10), (8, 1024, 64, 100), (2, 999, 8, 7),
+    (3, 301, 13, 9),                          # (4-byte loads), k == N and
+    (3, 10, 8, 10), (3, 10, 8, 16), (3, 7, 8, 12),   # k > N (a NEG_INF tail),
+    (8, 3000, 2500, 10), (3, 1000, 1201, 7),  # D over several query chunks,
+    (5, 20000, 31, 256), (9, 70000, 24, 256),  # MAX_K over many tiles, the
+    (40, 5000, 33, 20), (40, 3000, 700, 10),   # 32-row and 64-row query
+    (70, 3000, 50, 64), (66, 2000, 20, 200),   # tiles (and the fallback to
+    (0, 50, 6, 4),                             # 32 rows for long lists),
+]                                              # and B = 0
+
+
+def k6_cases(torch):
+    """(name, q, C, k, exact): random normal inputs at K6_SHAPES, and the
+    same shapes with entries in {-3..3}, where every sum is exact whatever
+    its order and the kernel must match the plain version bit for bit;
+    then all-negative scores, duplicated candidate rows (exact ties) and a
+    corpus whose base is not 8-byte aligned."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def normal(B, N, D):
+        return (torch.randn((B, D), generator=g, device="cuda"),
+                torch.randn((N, D), generator=g, device="cuda"))
+
+    def ints(B, N, D):
+        return tuple(torch.randint(-3, 4, shape, generator=g,
+                                   device="cuda").float()
+                     for shape in ((B, D), (N, D)))
+
+    cases = []
+    for B, N, D, k in K6_SHAPES:
+        cases.append((f"normal_{B}x{N}x{D}_k{k}", *normal(B, N, D), k, False))
+        cases.append((f"ints_{B}x{N}x{D}_k{k}", *ints(B, N, D), k, True))
+    q = torch.rand((2, 16), generator=g, device="cuda") + 0.5
+    C = -(torch.rand((700, 16), generator=g, device="cuda") + 0.5)
+    cases.append(("all_negative", q, C, 9, False))
+    q, C = ints(2, 96, 8)
+    C[60:84] = C[0:24]
+    cases.append(("duplicate_rows", q, C, 12, True))
+    q, C = normal(5, 3000, 30)
+    C = torch.cat([C.new_zeros(1), C.reshape(-1)])[1:].view(C.shape)
+    cases.append(("unaligned_corpus", q, C, 10, False))
+    return cases
+
+
+def k6_compare(torch, q, C, k, exact):
+    """K6, launched twice, against its plain version on one input: max
+    |value| difference, ids that differ, ids that differ beyond a near-tie
+    (the two candidates' plain scores more than K6_TOL apart), whether the
+    values are within K6_TOL (bit for bit when ``exact``) and whether the
+    two launches agree bit for bit."""
+    from repro_torch.kernels.topk_score import topk_score, topk_score_plain
+
+    runs = [topk_score(q, C, k=k) for _ in range(2)]
+    v_p, i_p = topk_score_plain(q, C, k=k)
+    torch.cuda.synchronize()
+    v_k, i_k = runs[0]
+    out = {"bit_identical": all(bool(torch.equal(a, b))
+                                for a, b in zip(*runs))}
+    if v_k.numel() == 0:
+        return {**out, "max_abs_err": 0.0, "id_mismatch": 0, "id_hard": 0,
+                "within_tol": True}
+    err = (v_k - v_p).abs()
+    differ = i_k != i_p
+    hard = 0
+    if bool(differ.any()):
+        scores = q @ C.T
+        s_k = scores.gather(1, i_k.long())
+        s_p = scores.gather(1, i_p.long())
+        near = (s_k - s_p).abs() <= K6_TOL * (1 + s_p.abs())
+        hard = int((differ & ~near).sum())
+    ok = (bool((err == 0).all()) and not bool(differ.any()) if exact
+          else bool((err <= K6_TOL * (1 + v_p.abs())).all()))
+    return {**out, "max_abs_err": float(err.max()),
+            "id_mismatch": int(differ.sum()), "id_hard": hard,
+            "within_tol": ok and hard == 0}
+
+
 def phase_kernels(torch):
     from repro_torch.kernels.impact_score import (fused_impact_topk,
                                                   fused_impact_topk_plain)
@@ -243,6 +330,16 @@ def phase_kernels(torch):
     require(k4_err == 0.0 and k4_mism == 0,
             f"K4 differs from the plain version (max err {k4_err}, "
             f"{k4_mism} id mismatches)")
+    k6 = []
+    for name, q, C, k, exact in k6_cases(torch):
+        k6.append({"case": name, "exact": exact,
+                   **k6_compare(torch, q, C, k, exact)})
+    dup = next(c for c in k6 if c["case"] == "duplicate_rows")
+    bad = [c for c in k6 if not (c["within_tol"] and c["bit_identical"])]
+    require(not bad, f"K6 differs from the plain version beyond {K6_TOL} "
+                     f"or between two launches: {bad[:2]}")
+    require(dup["id_mismatch"] == 0, "K6 duplicate rows: ties not to the "
+                                     "lowest id")
     bwd = []
     seed = 100
     for (B, S, D, V) in K1_SHAPES + BWD_SHAPES:
@@ -262,7 +359,12 @@ def phase_kernels(torch):
     emit("kernels", k1_max_abs_err=worst_err, k1_tol=K1_TOL,
          k1_imax_mismatch=sum(c["imax_mismatch"] for c in k1),
          k1_cases=k1, k4_max_abs_err=k4_err, k4_id_mismatch=k4_mism,
-         k4_cases=k4, bwd_tol=BWD_TOL,
+         k4_cases=k4, k6_tol=K6_TOL,
+         k6_max_abs_err=max(c["max_abs_err"] for c in k6),
+         k6_id_mismatch=sum(c["id_mismatch"] for c in k6),
+         k6_id_hard=sum(c["id_hard"] for c in k6),
+         k6_bit_identical=all(c["bit_identical"] for c in k6),
+         k6_cases=k6, bwd_tol=BWD_TOL,
          k2_max_abs_err=max(c["dH"] for c in bwd),
          k3_max_abs_err=max(max(c["dE"], c["db"]) for c in bwd),
          k23_oracle_max_abs_err=max(c["oracle"] for c in bwd),
@@ -332,7 +434,9 @@ def bwd_compare(torch, H, E, mask, dy, y, i_max, softcap, *, oracle=False):
 
 SERVE = {"corpus": 16384, "requests": 64, "index_batch": 64, "topk": 10,
          "rep_topk": 64}
-SCORE_TOL = 1e-4   # fused vs impact sums: same terms, other add order
+# fused vs impact, streaming vs dense or fused: the same products summed in
+# another order, relative to 1 + |score|
+SCORE_TOL = 1e-4
 
 
 @contextlib.contextmanager
@@ -452,8 +556,126 @@ def phase_serve(torch):
     return {"params": params, "cfg": cfg, "res": res, "launches": launches}
 
 
+def index_as_dense(torch, index):
+    """The (n_docs, V) f32 matrix an inverted index holds: each posting's
+    weight at (doc, term)."""
+    terms = torch.repeat_interleave(
+        torch.arange(index.vocab_size, device=index.device),
+        index.term_lens.long())
+    n = terms.numel()
+    dense = torch.zeros((index.n_docs, index.vocab_size),
+                        dtype=torch.float32, device=index.device)
+    dense[index.postings_doc[:n].long(), terms] = index.postings_val[:n]
+    return dense
+
+
+def ids_beyond_near_ties(torch, scores, got, want):
+    """Ids of ``got`` that differ from ``want`` at a position where their
+    ``scores`` differ by more than SCORE_TOL; and how many differ at all."""
+    got, want = got.long(), want.long()
+    s_g, s_w = scores.gather(1, got), scores.gather(1, want)
+    differ = got != want
+    near = (s_g - s_w).abs() <= SCORE_TOL * (1 + s_w.abs())
+    return int((differ & ~near).sum()), int(differ.sum())
+
+
+def phase_serve_dense(torch, served):
+    """The serving path with dense reps (``--rep-topk 0``): the sparse
+    phase's weights, a (16384, V) f32 corpus, ``auto`` -> streaming (K6)."""
+    import dataclasses
+
+    from repro_torch.kernels import sparton as k1
+    from repro_torch.kernels import topk_score as k6
+    from repro_torch.launch.serve import run
+    from repro_torch.retrieval.score import impact_scores, retrieve
+    from repro_torch.runtime.serving import (FailedResult, ShedResult,
+                                             make_config_encoder)
+
+    cfg = dataclasses.replace(served["cfg"], rep_topk=None)
+    encode = make_config_encoder(served["params"], cfg)
+    batches = []
+
+    def counted_encode(tokens, mask):
+        batches.append(tokens.shape)
+        return encode(tokens, mask)
+
+    k1.sparton_forward.launches = 0
+    k6.topk_score.launches = 0
+    with plain_guard(k1=(k1, "sparton_forward_plain"),
+                     k6=(k6, "topk_score_plain")) as plain_on_cuda:
+        res = run(counted_encode, cfg.vocab_size, corpus=SERVE["corpus"],
+                  requests=SERVE["requests"], topk=SERVE["topk"],
+                  method="auto", index_batch=SERVE["index_batch"],
+                  device=torch.device("cuda"))
+    launches = {"sparton_fwd": k1.sparton_forward.launches,
+                "topk_score": k6.topk_score.launches}
+
+    corpus, st = res["index"], res["loop"].stats()
+    unserved = [r for r in res["outcomes"].values()
+                if isinstance(r, (ShedResult, FailedResult))]
+    require(not unserved, f"{len(unserved)} dense requests not served "
+                          f"({st['shed']} shed, {st['failed']} failed)")
+    require(res["method"] == "streaming",
+            f"auto resolved to {res['method']!r}, not 'streaming'")
+    require(launches["sparton_fwd"] == len(batches),
+            f"K1 launched {launches['sparton_fwd']} times for "
+            f"{len(batches)} encode batches")
+    require(launches["topk_score"] >= 1, "K6 never launched")
+    require(not plain_on_cuda, f"plain versions ran on CUDA tensors: "
+                               f"{sorted(set(plain_on_cuda))}")
+    require(tuple(corpus.shape) == (SERVE["corpus"], cfg.vocab_size)
+            and corpus.dtype == torch.float32 and corpus.is_cuda,
+            f"dense corpus {tuple(corpus.shape)} {corpus.dtype}")
+    require(bool(torch.isfinite(corpus).all() and (corpus >= 0).all()),
+            "dense corpus has negative or non-finite entries")
+    for row in res["served"]:
+        require(row.shape == (cfg.vocab_size,) and np.isfinite(row).all()
+                and (row >= 0).all(), "malformed dense query row")
+
+    # K6 (auto -> streaming) against the dense method on the same queries
+    queries = res["queries"].cuda()
+    k = res["idx"].shape[1]
+    v_d, i_d = retrieve(queries, corpus, k, method="dense")
+    scores = queries @ corpus.T
+    hard, differ = ids_beyond_near_ties(torch, scores, res["idx"], i_d)
+    require(bool(torch.isfinite(res["vals"]).all()), "non-finite scores")
+    require(hard == 0, f"streaming ids differ from dense ids beyond "
+                       f"near-ties at {hard} positions")
+    val_err = float((res["vals"] - v_d).abs().max())
+    require(val_err <= SCORE_TOL * (1 + float(v_d.abs().max())),
+            f"streaming scores differ from dense by {val_err}")
+
+    # K6 against K4 on the sparse phase's reps: the same index as a dense
+    # (N, V) corpus, the same SparseRep queries
+    sparse = served["res"]
+    sparse_docs = index_as_dense(torch, sparse["index"])
+    v_s, i_s = retrieve(sparse["queries"], sparse_docs, k, method="streaming")
+    del sparse_docs
+    torch.cuda.empty_cache()
+    exact = impact_scores(sparse["queries"], sparse["index"])
+    hard_s, differ_s = ids_beyond_near_ties(torch, exact, i_s, sparse["idx"])
+    require(hard_s == 0, f"streaming ids on the sparse reps differ from the "
+                         f"fused ids beyond near-ties at {hard_s} positions")
+    val_err_s = float((v_s - sparse["vals"]).abs().max())
+    require(val_err_s <= SCORE_TOL * (1 + float(sparse["vals"].abs().max())),
+            f"streaming scores on the sparse reps differ from fused by "
+            f"{val_err_s}")
+
+    lat = res["loop"].latencies()
+    emit("serve_dense", config=cfg.name, head_impl=cfg.head_spec().impl,
+         launches=launches, encode_batches=len(batches),
+         index_s=res["index_s"], corpus_shape=list(corpus.shape),
+         corpus_mib=corpus.nbytes / 2**20, serve_s=res["serve_s"],
+         p50_latency_ms=1e3 * float(np.percentile(lat, 50)),
+         p99_latency_ms=1e3 * float(np.percentile(lat, 99)),
+         retrieve_method=res["method"], retrieve_ms=1e3 * res["retrieve_s"],
+         ids_differ_vs_dense=differ, streaming_vs_dense_max_abs_err=val_err,
+         ids_differ_vs_fused=differ_s, streaming_vs_fused_max_abs_err=val_err_s)
+    return {"res": res, "launches": launches}
+
+
 # --------------------------------------------------------------------------
-# 5. train at full width
+# 6. train at full width
 # --------------------------------------------------------------------------
 
 GRAD_CHECK = (32, 128)   # pairs x tokens of the gradient check, remat off
@@ -698,7 +920,7 @@ def phase_train(torch):
 
 
 # --------------------------------------------------------------------------
-# 6. timing
+# 5. timing
 # --------------------------------------------------------------------------
 
 WINDOWS = 5   # timed windows per measurement: median reported, spread kept
@@ -962,7 +1184,37 @@ def time_bwd(torch, H, E, b, mask, *, reps, plain_reps, seed):
     return rows
 
 
-def phase_timing(torch, served, trained):
+def time_k6(torch, q, C, k, *, reps):
+    """K6 at one shape: against its plain version, CUDA-event times of
+    kernel, plain version and the yardstick (``torch.topk`` of the cuBLAS
+    f32 product), the bound, and the peak memory of kernel and yardstick.
+    The bound counts C and q read once, the (B, k) results written once,
+    and 2 * B * N * D f32 FLOP (the product skips no zeros). ``read_ms``
+    times ``C.sum()``: what one plain pass over the corpus takes here."""
+    from repro_torch.kernels.topk_score import topk_score, topk_score_plain
+
+    B, D = q.shape
+    N = C.shape[0]
+    case = k6_compare(torch, q, C, k, False)
+    require(case["within_tol"] and case["bit_identical"],
+            f"K6 at {(B, N, D, k)}: {case}")
+    t_ops = 2 * B * N * D / PEAK_F32_FLOPS
+    t_bytes = (N * D * 4 + B * D * 4 + B * k * 8) / PEAK_BYTES
+    row = {"shape": {"B": B, "N": N, "D": D, "k": k}, **case,
+           "bound_ms": 1e3 * max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "peak_mb": peak_mb(torch, lambda: topk_score(q, C, k=k)),
+           "library_peak_mb": peak_mb(torch, lambda: torch.topk(
+               q @ C.T, k, dim=1))}
+    for key, fn in (("ms", lambda: topk_score(q, C, k=k)),
+                    ("plain_ms", lambda: topk_score_plain(q, C, k=k)),
+                    ("library_ms", lambda: torch.topk(q @ C.T, k, dim=1)),
+                    ("read_ms", lambda: C.sum())):
+        row[key], row[key + "_range"] = timed(torch, fn, reps)
+    return row
+
+
+def phase_timing(torch, served, served_dense):
     from repro_torch.kernels.impact_score import (fused_impact_topk,
                                                   fused_impact_topk_plain,
                                                   fused_window_bytes)
@@ -1029,9 +1281,17 @@ def phase_timing(torch, served, trained):
                         w, docs, n_docs=n, k=k)),
                     ("library_ms", k4_library)):
         k4[key], k4[key + "_range"] = timed(torch, fn, 20)
+    # K6 at the dense serving shape: the served queries (8) and all 64
+    # served requests against the (16384, 30522) f32 corpus
+    dense = served_dense["res"]
+    C = dense["index"]
+    k6 = {f"B{q.shape[0]}": time_k6(torch, q, C, dense["idx"].shape[1],
+                                    reps=10)
+          for q in (dense["queries"].cuda(),
+                    torch.from_numpy(np.stack(dense["served"])).cuda())}
     from repro_torch.runtime.serving import make_config_encoder
     profile = profile_encode(torch, make_config_encoder(params, cfg), cfg)
-    emit("timing", k1=rows, k4=k4, encode_profile=profile)
+    emit("timing", k1=rows, k4=k4, k6=k6, encode_profile=profile)
 
     # K2 and K3 at the train step's shape (bf16 hidden states of 384 pairs'
     # docs, padded as lsr_pair_batches pads them) and at Table-1
@@ -1054,15 +1314,20 @@ def phase_timing(torch, served, trained):
     del H
     torch.cuda.empty_cache()
     emit("timing_bwd", **bwd)
+    return {"k1": rows["index_batch"], "bwd": bwd, "k4": k4, "k6": k6}
 
-    launches = served["launches"]
-    train_launches = trained["launches"]
-    main_k1 = rows["index_batch"]
-    kernels = [
+
+def kernel_rows(measured, launches, dense_launches, train_launches):
+    """The ``{"kernels": [...]}`` line: each kernel's launches on its path
+    and its numbers from the timing phase (K1 at an index batch, K2/K3 at
+    the train shape, K6 at the served queries)."""
+    main_k1, bwd, k4, k6 = (measured[key] for key in ("k1", "bwd", "k4", "k6"))
+    return [
         {"name": "sparton_fwd (K1)", "route": "cuda",
          "source": "src/repro_torch/csrc/sparton_fwd.cu",
          "replaces": "src/repro/kernels/sparton.py:52",
          "launches": launches["sparton_fwd"],
+         "dense_serve_launches": dense_launches["sparton_fwd"],
          "train_launches": train_launches["sparton_fwd"],
          **{key: main_k1[key] for key in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
@@ -1084,8 +1349,14 @@ def phase_timing(torch, served, trained):
          "launches": launches["impact_topk"],
          **{key: k4[key] for key in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")}},
+        {"name": "topk_score (K6)", "route": "cuda",
+         "source": "src/repro_torch/csrc/topk_score.cu",
+         "replaces": "src/repro/kernels/topk_score.py:57",
+         "launches": dense_launches["topk_score"],
+         **{key: k6["B8"][key] for key in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms")}},
     ]
-    return kernels
 
 
 # --------------------------------------------------------------------------
@@ -1107,9 +1378,15 @@ def main() -> int:
     phase_build()
     phase_kernels(torch)
     served = phase_serve(torch)
+    served_dense = phase_serve_dense(torch, served)
+    measured = phase_timing(torch, served, served_dense)
+    dense_launches = served_dense["launches"]
+    del served_dense   # its 1.9 GiB corpus is not the train phase's memory
+    torch.cuda.empty_cache()
     trained = phase_train(torch)
-    print(json.dumps({"kernels": phase_timing(torch, served, trained)}),
-          flush=True)
+    print(json.dumps({"kernels": kernel_rows(
+        measured, served["launches"], dense_launches, trained["launches"])}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

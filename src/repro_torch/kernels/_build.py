@@ -21,7 +21,7 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("sparton_fwd", "sparton_bwd", "impact_topk")
+SOURCES = ("sparton_fwd", "sparton_bwd", "impact_topk", "topk_score")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,7 +1,8 @@
-"""Plain PyTorch oracles for the Sparton head (``repro/kernels/ref.py``).
+"""Plain PyTorch oracles (``repro/kernels/ref.py``).
 
-Deliberately naive: they materialize the whole ``(B, S, V)`` f32 logit
-tensor and the one-hot routing. They are the ground truth the tiled and
+Deliberately naive: the head's oracles materialize the whole
+``(B, S, V)`` f32 logit tensor and the one-hot routing, the scorer's the
+whole ``(B, N)`` score matrix. They are the ground truth the tiled and
 kernel versions are held against, at small shapes.
 """
 
@@ -59,3 +60,19 @@ def sparton_backward_fused_ref(
     g = bwd_factor(y.float(), dy, softcap)
     dH, dE = sparton_backward_ref(g, i_max, H, E)
     return dH, dE, g.sum(dim=0)
+
+
+def topk_score_ref(
+    q: torch.Tensor,       # (D,) or (B, D)
+    C: torch.Tensor,       # (N, D) candidate matrix
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Oracle for ``kernels.topk_score``: the f32 scores and the indices of
+    the top ``k <= N`` by dot, ties to the lowest id."""
+    q2 = q if q.dim() == 2 else q[None]
+    scores = torch.einsum("bd,nd->bn", q2.float(), C.float())
+    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    vals, idx = vals[:, :k], idx[:, :k].int()
+    if q.dim() == 1:
+        return vals[0], idx[0]
+    return vals, idx

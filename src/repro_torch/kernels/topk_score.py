@@ -1,18 +1,35 @@
-"""The running top-k merge shared by every top-k in the port.
+"""Dense scoring with a streaming top-k (K6), and the running top-k merge
+shared by every top-k in the port.
 
-Only ``merge_topk``'s semantics are ported here; the dense streaming
-scorer that the JAX module also holds (its Pallas kernel) waits for a
-later slice. ``torch.topk`` promises no order among equal values, so the
-merge is a stable descending sort: equal values keep their position in
-the concatenation ``[running, new]``, and when blocks are visited in
+``topk_score`` replaces the Pallas TPU kernel
+``repro/kernels/topk_score.py:_topk_kernel`` (entry ``topk_score``):
+score queries ``(B, D)`` against candidates ``(N, D)`` as ``q @ C^T`` and
+keep only the top-k of each row, so the ``(B, N)`` score matrix never
+reaches device memory. The kernel is ``csrc/topk_score.cu``; its header
+says how it is laid out. CPU tensors go to ``topk_score_plain``, CUDA
+tensors to the kernel (or a raise); ``topk_score.launches`` counts
+kernel launches.
+
+``torch.topk`` promises no order among equal values, so ``merge_topk`` is
+a stable descending sort: equal values keep their position in the
+concatenation ``[running, new]``, and when blocks are visited in
 ascending-id order ties go to the lowest id, as with ``lax.top_k``.
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import Tuple
+
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels._common import NEG_INF
+
+# the kernel keeps two running lists of k entries per query row in shared
+# memory (the JAX module keeps k <= 256 for the same reason, in VMEM)
+MAX_K = 256
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def merge_topk(run_vals: torch.Tensor, run_idx: torch.Tensor,
@@ -34,3 +51,73 @@ def topk_rows(x: torch.Tensor, k: int):
     init_i = torch.zeros((B, k), dtype=torch.int32, device=x.device)
     ids = torch.arange(N, dtype=torch.int32, device=x.device).expand(B, N)
     return merge_topk(init_v, init_i, x.float(), ids, k)
+
+
+def topk_score_plain(q: torch.Tensor, C: torch.Tensor, *, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K6: the whole ``(B, N)`` f32 product,
+    then the merge's top-k (ties to the lowest id, ``(NEG_INF, 0)`` past
+    ``N``)."""
+    return topk_rows(q.float() @ C.float().T, k)
+
+
+def _launch(q, C, k):
+    if not 0 <= k <= MAX_K:
+        raise ValueError(f"topk_score: the kernel takes 0 <= k <= {MAX_K}, "
+                         f"got k={k}")
+    if not (q.is_cuda and C.device == q.device):
+        raise ValueError("topk_score: q and C must lie on one CUDA device")
+    if q.dim() != 2 or C.dim() != 2 or q.shape[1] != C.shape[1]:
+        raise ValueError(f"topk_score: q {tuple(q.shape)} and C "
+                         f"{tuple(C.shape)} must be (B, D) and (N, D)")
+    if q.dtype != torch.float32 or C.dtype != torch.float32:
+        raise ValueError(f"topk_score: the kernel reads f32 in place, got "
+                         f"{q.dtype} / {C.dtype}; store the corpus as f32 "
+                         "once rather than casting it per call")
+    if not (q.is_contiguous() and C.is_contiguous()):
+        raise ValueError("topk_score: q and C must be contiguous")
+    B, D = q.shape
+    N = C.shape[0]
+    vals = torch.empty((B, k), dtype=torch.float32, device=q.device)
+    idx = torch.empty((B, k), dtype=torch.int32, device=q.device)
+    if B == 0 or k == 0:
+        return vals, idx
+    ranges = _build.function("topk_score", "topk_score_ranges",
+                             [ctypes.c_int] * 3)
+    fn = _build.function("topk_score", "topk_score", _ARGTYPES)
+    with torch.cuda.device(q.device):
+        G = ranges(B, N, k)
+        if G < 0:
+            raise RuntimeError(f"topk_score: no launch plan for B={B}, "
+                               f"N={N}, k={k}")
+        # scratch for pass 1's per-range lists; freed on return, which is
+        # safe: the caching allocator hands the block only to work queued
+        # later on this stream
+        part_v = torch.empty((B, G, k), dtype=torch.float32, device=q.device)
+        part_i = torch.empty((B, G, k), dtype=torch.int32, device=q.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        topk_score.launches += 1
+        rc = fn(q.data_ptr(), C.data_ptr(), part_v.data_ptr(),
+                part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(), B, N, D,
+                k, G, stream)
+    _build.check_launch(rc, "topk_score")
+    return vals, idx
+
+
+def topk_score(q: torch.Tensor, C: torch.Tensor, *, k: int = 100
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused scoring + streaming top-k: ``(vals (B, k) f32, idx (B, k)
+    i32)`` of ``q @ C^T``, in f32.
+
+    Ties between equal scores go to the lowest candidate id. When
+    ``k > N`` the first ``N`` columns are the full descending ranking and
+    the tail holds ``(NEG_INF, 0)``. CPU tensors take the plain version;
+    on the card ``q`` and ``C`` must be contiguous f32 (the corpus is read
+    in place, never copied) and ``k <= MAX_K``.
+    """
+    if q.device.type == "cpu" and C.device.type == "cpu":
+        return topk_score_plain(q, C, k=k)
+    return _launch(q, C, k)
+
+
+topk_score.launches = 0

@@ -4,7 +4,9 @@ The frozen-index path of ``repro/launch/serve.py``, end to end:
 
 1. index    — encode a synthetic corpus (16-token docs) through the
               trunk and the Sparton head, sparsify on the device
-              (``--rep-topk``), build the inverted impact index.
+              (``--rep-topk``), build the inverted impact index; with
+              ``--rep-topk 0`` keep the dense reps as an ``(N, V)`` f32
+              corpus on the device instead.
 2. serve    — stream queries (4–24 tokens) through the deadline/size
               micro-batching loop; results are popped with ``take``.
 3. retrieve — top-k of the first served queries through
@@ -35,16 +37,28 @@ SEED = 0        # the synthetic corpus and requests
 
 def index_corpus(encode: Callable, vocab_size: int, n_docs: int, *,
                  batch: int, rng: np.random.Generator, device):
-    """Encode ``n_docs`` random docs in batches and index their reps."""
+    """Encode ``n_docs`` random docs in batches. Sparse reps are indexed
+    (an ``InvertedIndex``); dense reps are written, batch by batch, into
+    one ``(n_docs, V)`` f32 tensor on ``device``, the layout the
+    streaming kernel reads in place."""
     from repro_torch.retrieval.index import build_inverted_index
-    from repro_torch.retrieval.sparse_rep import stack_rows
+    from repro_torch.retrieval.sparse_rep import SparseRep, stack_rows
 
-    parts = []
+    parts, dense = [], None
     for lo in range(0, n_docs, batch):
         n = min(batch, n_docs - lo)
         toks = rng.integers(1, vocab_size, size=(n, DOC_TOKENS))
-        parts.append(encode(torch.from_numpy(toks.astype(np.int32)),
-                            torch.ones((n, DOC_TOKENS), dtype=torch.int32)))
+        reps = encode(torch.from_numpy(toks.astype(np.int32)),
+                      torch.ones((n, DOC_TOKENS), dtype=torch.int32))
+        if isinstance(reps, SparseRep):
+            parts.append(reps)
+            continue
+        if dense is None:
+            dense = torch.empty((n_docs, vocab_size), dtype=torch.float32,
+                                device=device)
+        dense[lo:lo + n] = reps
+    if dense is not None:
+        return dense
     return build_inverted_index(stack_rows(parts), vocab_size,
                                 device=device)
 
@@ -73,15 +87,19 @@ def serve_requests(encode: Callable, vocab_size: int, n_requests: int, *,
 def run(encode: Callable, vocab_size: int, *, corpus: int, requests: int,
         topk: int, method: str, index_batch: int, device) -> Dict[str, Any]:
     """Index, serve, retrieve. Returns what each stage produced and took
-    (host seconds, each stage ending in a device synchronisation)."""
+    (host seconds, each stage ending in a device synchronisation); its
+    ``"index"`` is the ``InvertedIndex`` or, for dense reps, the dense
+    corpus."""
     from repro_torch.retrieval.score import resolve_method, retrieve
-    from repro_torch.retrieval.sparse_rep import stack_rows
+    from repro_torch.retrieval.sparse_rep import SparseRep, stack_rows
     from repro_torch.runtime.serving import FailedResult, ShedResult
 
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
     index = index_corpus(encode, vocab_size, corpus, batch=index_batch,
                          rng=rng, device=device)
+    if isinstance(index, torch.Tensor) and index.is_cuda:
+        torch.cuda.synchronize(index.device)
     index_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -94,7 +112,10 @@ def run(encode: Callable, vocab_size: int, *, corpus: int, requests: int,
            "outcomes": outcomes, "serve_s": serve_s, "served": served,
            "method": resolve_method(method, index)}
     if served:
-        queries = stack_rows(served[:N_QUERIES])
+        if isinstance(served[0], SparseRep):
+            queries = stack_rows(served[:N_QUERIES])
+        else:
+            queries = torch.from_numpy(np.stack(served[:N_QUERIES]))
         t0 = time.perf_counter()
         vals, idx = retrieve(queries, index, topk, method=method)
         if vals.is_cuda:
@@ -107,7 +128,7 @@ def run(encode: Callable, vocab_size: int, *, corpus: int, requests: int,
 def main(argv=None) -> int:
     from repro_torch.configs import ARCHS, get_config
     from repro_torch.device import resolve_device
-    from repro_torch.retrieval.score import METHODS
+    from repro_torch.retrieval.score import INDEX_METHODS, METHODS
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="splade_bert", choices=ARCHS)
@@ -116,7 +137,8 @@ def main(argv=None) -> int:
     ap.add_argument("--topk", type=int, default=10)
     ap.add_argument("--rep-topk", type=int, default=64,
                     help="per-row term budget of the on-device rep "
-                         "sparsifier (the port serves sparse reps only)")
+                         "sparsifier; 0 = dense reps and a dense (N, V) "
+                         "corpus")
     ap.add_argument("--method", default="auto", choices=METHODS,
                     help="retrieval path (repro_torch.retrieval.retrieve)")
     ap.add_argument("--head-impl", default=None,
@@ -128,9 +150,15 @@ def main(argv=None) -> int:
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions")
     args = ap.parse_args(argv)
-    if args.rep_topk <= 0:
-        ap.error("--rep-topk must be positive: the port's retrieval "
-                 "methods need sparse reps and an inverted index")
+    # method/rep compatibility is knowable before spending minutes
+    # encoding the corpus: reject bad combinations at argparse time
+    if args.method in ("dense", "streaming") and args.rep_topk > 0:
+        ap.error(f"--method {args.method} needs the dense corpus matrix; "
+                 "pass --rep-topk 0 to keep it (or use --method "
+                 "impact/fused/auto with the sparse index)")
+    if args.method in INDEX_METHODS and args.rep_topk <= 0:
+        ap.error(f"--method {args.method} needs SparseRep queries and an "
+                 "index; pass a positive --rep-topk")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -140,7 +168,7 @@ def main(argv=None) -> int:
     from repro_torch.runtime.serving import make_config_encoder
 
     cfg = get_config(args.arch).SMOKE
-    overrides = {"rep_topk": args.rep_topk}
+    overrides = {"rep_topk": args.rep_topk if args.rep_topk > 0 else None}
     if args.head_impl:
         overrides["head_impl"] = args.head_impl
     cfg = dataclasses.replace(cfg, **overrides)
@@ -150,11 +178,18 @@ def main(argv=None) -> int:
     res = run(encode, cfg.vocab_size, corpus=args.corpus,
               requests=args.requests, topk=args.topk, method=args.method,
               index_batch=args.index_batch, device=device)
-    st = res["index"].stats()
-    print(f"indexed {st['n_docs']} docs in {res['index_s'] * 1e3:.1f} ms: "
-          f"{st['n_postings']} postings over {st['active_terms']} terms, "
-          f"{st['memory_bytes'] / 2**20:.2f} MiB (dense (N, V) would be "
-          f"{args.corpus * cfg.vocab_size * 4 / 2**20:.2f} MiB)")
+    corpus = res["index"]
+    if isinstance(corpus, torch.Tensor):
+        print(f"indexed {corpus.shape[0]} docs dense in "
+              f"{res['index_s'] * 1e3:.1f} ms "
+              f"({corpus.nbytes / 2**20:.2f} MiB)")
+    else:
+        st = corpus.stats()
+        print(f"indexed {st['n_docs']} docs in {res['index_s'] * 1e3:.1f} "
+              f"ms: {st['n_postings']} postings over {st['active_terms']} "
+              f"terms, {st['memory_bytes'] / 2**20:.2f} MiB (dense (N, V) "
+              f"would be {args.corpus * cfg.vocab_size * 4 / 2**20:.2f} "
+              f"MiB)")
     loop = res["loop"]
     ls = loop.stats()
     print(f"encoded {len(res['served'])}/{args.requests} requests in "

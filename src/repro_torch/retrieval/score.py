@@ -1,23 +1,33 @@
 """Retrieval scoring behind one ``retrieve()`` (``repro/retrieval/score.py``).
 
-Methods ported so far (queries are ``SparseRep``s, the corpus an
-``InvertedIndex``):
+Methods ported so far:
 
-    "impact"   gather the query terms' posting windows, scatter-add them
-               into dense (B, N) scores, top-k (plain PyTorch, as the JAX
-               package leaves it to XLA)
-    "fused"    the same windows through K4 (``kernels/impact_score``):
-               scoring and the running top-k in one kernel, no (B, N)
-               matrix
-    "auto"     "fused" for indexes of at least ``AUTO_FUSED_N`` docs,
-               "impact" below
+    index corpora (``InvertedIndex``; queries must be ``SparseRep``s)
+    "impact"    gather the query terms' posting windows, scatter-add them
+                into dense (B, N) scores, top-k (plain PyTorch, as the JAX
+                package leaves it to XLA)
+    "fused"     the same windows through K4 (``kernels/impact_score``):
+                scoring and the running top-k in one kernel, no (B, N)
+                matrix
 
-Both return ``(vals (B, k) f32, idx (B, k) i32)`` with ties to the
-lowest doc id, and identical ids on inputs without near-ties. The JAX
-package's other methods raise ``NotImplementedError`` naming the ROADMAP
-item that brings them. The port's methods take no tuning keyword
-arguments (the JAX ones — Pallas blocks, ``interpret`` — are TPU knobs),
-and any that is passed raises instead of being ignored.
+    dense corpora (an (N, V) tensor; ``SparseRep`` queries are densified)
+    "dense"     ``q @ C^T`` and a top-k (plain PyTorch, as the JAX package
+                leaves it to XLA)
+    "streaming" K6 (``kernels/topk_score``): the product and a running
+                top-k in one kernel, no (B, N) matrix; on the card the
+                corpus must be contiguous f32 (it is read in place)
+
+    "auto"      an index: "fused" from ``AUTO_FUSED_N`` docs, else
+                "impact"; a dense corpus: "streaming" from
+                ``AUTO_STREAMING_N`` rows, else "dense"
+
+All return ``(vals (B, k) f32, idx (B, k) i32)`` with ties to the lowest
+doc id, ``k`` clamped to the corpus size, and identical ids on inputs
+without near-ties. The JAX package's other methods raise
+``NotImplementedError`` naming the ROADMAP item that brings them. The
+port's methods take no tuning keyword arguments (the JAX ones — Pallas
+blocks, ``interpret`` — are TPU knobs), and any that is passed raises
+instead of being ignored.
 """
 
 from __future__ import annotations
@@ -27,11 +37,13 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.impact_score import fused_impact_topk, scatter_scores
-from repro_torch.kernels.topk_score import topk_rows
+from repro_torch.kernels.topk_score import topk_rows, topk_score
 from repro_torch.retrieval.index import InvertedIndex
 from repro_torch.retrieval.sparse_rep import SparseRep
 
-METHODS = ("auto", "impact", "fused")
+METHODS = ("auto", "impact", "fused", "dense", "streaming")
+# methods that need an index corpus (not a dense matrix)
+INDEX_METHODS = ("impact", "fused")
 # the JAX package's other methods, and the ROADMAP item that ports each
 NOT_PORTED = {
     "pruned": "ROADMAP Queue 1 item 8 (index engine, slice 4)",
@@ -39,11 +51,12 @@ NOT_PORTED = {
     "sharded": "ROADMAP Queue 1 item 10 (multi-GPU, slice 4)",
     "term_sharded": "ROADMAP Queue 1 item 10 (multi-GPU, slice 4)",
     "shard2d": "ROADMAP Queue 1 item 10 (multi-GPU, slice 4)",
-    "streaming": "ROADMAP Queue 1 item 6 and kernel K6 (slice 3)",
-    "dense": "ROADMAP Queue 1 item 6 (dense corpora, slice 3)",
 }
-# indexed corpora at or above this many docs route "auto" to the fused
-# kernel: below it the dense (B, N) score matrix is a rounding error
+# corpora at or above this many rows route "auto" to a kernel that keeps
+# only the top-k (the streaming scorer for dense corpora, the fused impact
+# scorer for indexes): below it the dense (B, N) score matrix is a
+# rounding error
+AUTO_STREAMING_N = 16384
 AUTO_FUSED_N = 16384
 
 
@@ -83,7 +96,16 @@ def fused_retrieve(queries: SparseRep, index: InvertedIndex, k: int = 10
                              term_lanes=index.max_postings)
 
 
-def resolve_method(method: str, corpus: InvertedIndex) -> str:
+def dense_retrieve(q: torch.Tensor, C: torch.Tensor, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of the whole ``(B, N)`` f32 product ``q @ C^T``: the
+    ``dense`` method, left to PyTorch on every device as the JAX package
+    leaves it to XLA (K6's plain version is the same sum but runs only
+    for CPU tensors)."""
+    return topk_rows(q.float() @ C.float().T, k)
+
+
+def resolve_method(method: str, corpus) -> str:
     if method in NOT_PORTED:
         raise NotImplementedError(
             f"method={method!r} is not ported yet: it arrives with "
@@ -93,7 +115,10 @@ def resolve_method(method: str, corpus: InvertedIndex) -> str:
                          f"{list(METHODS)}")
     if method != "auto":
         return method
-    return "fused" if corpus.n_docs >= AUTO_FUSED_N else "impact"
+    if isinstance(corpus, InvertedIndex):
+        return "fused" if corpus.n_docs >= AUTO_FUSED_N else "impact"
+    rows = corpus.shape[0] if hasattr(corpus, "shape") else 0
+    return "streaming" if rows >= AUTO_STREAMING_N else "dense"
 
 
 def _check_kwargs(method: str, passed: dict) -> None:
@@ -107,24 +132,41 @@ def _check_kwargs(method: str, passed: dict) -> None:
             "ignore a tuning knob")
 
 
-def retrieve(queries: SparseRep, corpus: InvertedIndex, k: int = 10, *,
-             method: str = "auto", **tuning
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k retrieval of ``SparseRep`` queries from an ``InvertedIndex``.
+def retrieve(queries, corpus, k: int = 10, *, method: str = "auto",
+             **tuning) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k retrieval of ``queries`` (``SparseRep`` or dense ``(B, V)``)
+    from ``corpus`` (an ``InvertedIndex`` or a dense ``(N, V)`` tensor).
 
-    ``k`` is clamped to the corpus size; results lie on the index's
+    ``k`` is clamped to the corpus size; results lie on the corpus's
     device. See the module docstring for the methods.
     """
-    if not isinstance(corpus, InvertedIndex):
-        raise ValueError(
-            f"method={method!r} needs an InvertedIndex corpus — build one "
-            "with retrieval.index.build_inverted_index")
     method = resolve_method(method, corpus)
     _check_kwargs(method, tuning)
-    if not isinstance(queries, SparseRep):
+    if method in INDEX_METHODS:
+        if not isinstance(queries, SparseRep):
+            raise ValueError(
+                f"method={method!r} needs SparseRep queries — sparsify "
+                "with retrieval.sparse_rep.sparsify_topk/threshold (an "
+                "explicit budget, not a silent one)")
+        if not isinstance(corpus, InvertedIndex):
+            raise ValueError(
+                f"method={method!r} needs an InvertedIndex corpus — build "
+                "one with retrieval.index.build_inverted_index")
+        if method == "fused":
+            return fused_retrieve(queries, corpus, k)
+        return topk_rows(impact_scores(queries, corpus),
+                         min(k, corpus.n_docs))
+
+    if not (isinstance(corpus, torch.Tensor) and corpus.dim() == 2):
         raise ValueError(
-            f"method={method!r} needs SparseRep queries — sparsify with "
-            "retrieval.sparse_rep.sparsify_topk/threshold")
-    if method == "fused":
-        return fused_retrieve(queries, corpus, k)
-    return topk_rows(impact_scores(queries, corpus), min(k, corpus.n_docs))
+            f"method={method!r} needs a dense (N, V) corpus matrix; got "
+            f"{type(corpus).__name__} (use an index method or 'auto')")
+    n_docs, vocab = corpus.shape
+    if isinstance(queries, SparseRep):
+        q = queries.to(corpus.device).to_dense(vocab)
+    else:
+        q = torch.as_tensor(queries, device=corpus.device).float()
+    k = min(k, n_docs)
+    if method == "dense":
+        return dense_retrieve(q, corpus, k)
+    return topk_score(q.contiguous(), corpus, k=k)

@@ -14,8 +14,9 @@ poisoned requests stand alone and fail as ``FailedResult``), an adaptive
 batch cap halved on OOM-shaped errors, the degradation ladder
 (``DegradeController``), continuous (earliest-deadline-first) batching,
 and ``stats()``. Every submitted uid completes exactly once as served,
-shed or failed, and ``take(uid)`` pops. The online corpus
-(``CorpusEngine``) arrives with the engine slice.
+shed or failed, and ``take(uid)`` pops. ``retrieve_topk`` is the JAX
+package's dense-fallback shim. The online corpus (``CorpusEngine``)
+arrives with the engine slice.
 """
 
 from __future__ import annotations
@@ -249,9 +250,13 @@ class BatchedEncoder:
     ``encode_fn(tokens (B, S), mask (B, S)) -> reps`` takes CPU int32
     tensors (the encoder moves them to its device) and returns either a
     dense ``(B, V)`` tensor or a batched ``SparseRep``; results are split
-    per request (numpy row / single-row numpy rep). Bucket padding:
-    sequences are padded to the next multiple of ``pad_to_multiple``, so
-    the kernels see few distinct shapes.
+    per request (numpy row / single-row numpy rep), as in the JAX
+    package. A dense row crosses to the host as f32 (``V * 4`` bytes,
+    122 KB at V = 30522) where a sparse one moves ``(K,)``; either copy
+    ends the batch's device work, so the loop's encode times (its
+    admission estimate) are device times. Bucket padding: sequences are
+    padded to the next multiple of ``pad_to_multiple``, so the kernels see
+    few distinct shapes.
     """
 
     def __init__(self, encode_fn: Callable[..., Any],
@@ -608,3 +613,18 @@ class ServingLoop:
         if self.degrade is not None:
             d.update(self.degrade.stats())
         return d
+
+
+def retrieve_topk(q_reps, doc_matrix: torch.Tensor, k: int = 10
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense-fallback retrieval: scores + top-k doc ids of ``q_reps``
+    (dense ``(B, V)`` or ``SparseRep``) against an ``(N, V)`` matrix.
+
+    Back-compat shim over the unified dispatcher — new code should call
+    ``repro_torch.retrieval.score.retrieve(queries, corpus, k,
+    method=...)`` directly (which also serves the index and streaming
+    kernel paths).
+    """
+    from repro_torch.retrieval.score import retrieve
+
+    return retrieve(q_reps, doc_matrix, k, method="dense")

@@ -3,7 +3,9 @@ package on the same numpy inputs (CPU).
 
 Reps, index arrays and retrieved ids are compared for equality: the
 port keeps the reference's tie rule (lowest id first), so there is no
-tolerance on ids; scores agree to 1e-6.
+tolerance on ids; index scores agree to 1e-6, and dense-corpus scores
+(``dense``, ``streaming``: the same products summed over the whole
+vocabulary in another order) to 1e-5.
 """
 
 import jax.numpy as jnp
@@ -21,6 +23,7 @@ from repro_torch.retrieval.sparse_rep import (SparseRep, sparsify_threshold,
 
 V = 128
 TOL = 1e-6
+DENSE_TOL = 1e-5
 
 
 def _sparse_mat(rng, n, nnz, vocab=V):
@@ -152,11 +155,113 @@ def test_retrieve_rejects_stray_kwargs_and_unported_methods(corpus):
     for method in ("auto", "impact", "fused"):
         with pytest.raises(ValueError, match="does not accept block_n"):
             score.retrieve(q, idx, 3, method=method, block_n=64)
+    # the dense-corpus methods take none either
+    for method in ("auto", "dense", "streaming"):
+        for knob in ("block_b", "block_n", "interpret"):
+            with pytest.raises(ValueError, match=f"does not accept {knob}"):
+                score.retrieve(q, torch.from_numpy(D), 3, method=method,
+                               **{knob: 8})
     # None-valued knobs are "not passed", as in the JAX dispatcher
     score.retrieve(q, idx, 3, method="fused", interpret=None)
+    score.retrieve(q, torch.from_numpy(D), 3, method="streaming",
+                   block_n=None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         score.retrieve(q, idx, 3, method="pruned")
     with pytest.raises(ValueError, match="unknown retrieval method"):
         score.retrieve(q, idx, 3, method="bm25")
     with pytest.raises(ValueError, match="SparseRep queries"):
         score.retrieve(torch.from_numpy(Q), idx, 3)
+
+
+def _queries(Q, sparse):
+    if sparse:
+        return sparsify_topk(torch.from_numpy(Q), 8), \
+            jr.sparsify_topk(jnp.asarray(Q), 8)
+    return torch.from_numpy(Q), jnp.asarray(Q)
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense_q", "sparse_q"])
+@pytest.mark.parametrize("method", ["dense", "streaming", "auto"])
+def test_dense_corpus_ids_equal_jax(corpus, method, sparse):
+    Q, D = corpus
+    q, jq = _queries(Q, sparse)
+    v, i = score.retrieve(q, torch.from_numpy(D), 7, method=method)
+    kw = {"interpret": True} if method == "streaming" else {}
+    jv, ji = jr.retrieve(jq, jnp.asarray(D), 7, method=method, **kw)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=DENSE_TOL,
+                               atol=DENSE_TOL)
+    assert v.dtype == torch.float32 and i.dtype == torch.int32
+    # k is clamped to the corpus size
+    assert score.retrieve(q, torch.from_numpy(D), 500,
+                          method=method)[1].shape == (5, 40)
+
+
+def test_auto_resolves_dense_corpora_at_the_jax_threshold():
+    assert score.AUTO_STREAMING_N == jscore.AUTO_STREAMING_N
+    n = score.AUTO_STREAMING_N
+    for rows, want in ((n, "streaming"), (n - 1, "dense")):
+        assert score.resolve_method("auto", torch.zeros((rows, 4))) == want
+        assert jscore._resolve_method("auto", jnp.zeros((rows, 4))) == want
+    rng = np.random.default_rng(2)
+    C = rng.standard_normal((n, 12)).astype(np.float32)
+    q = rng.standard_normal((3, 12)).astype(np.float32)
+    v, i = score.retrieve(torch.from_numpy(q), torch.from_numpy(C), 10)
+    jv, ji = jr.retrieve(jnp.asarray(q), jnp.asarray(C), 10,
+                         interpret=True)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=DENSE_TOL,
+                               atol=DENSE_TOL)
+
+
+def test_parity_impact_fused_dense_streaming(corpus):
+    """The JAX package's acceptance parity (tests/test_retrieval.py), in
+    the port: the four scoring paths give the same ids from the same
+    SparseRep / dense inputs, and the JAX package's ids."""
+    Q, D = corpus
+    q_rep = sparsify_threshold(torch.from_numpy(Q), 0.0, max_nnz=16)
+    d_rep = sparsify_threshold(torch.from_numpy(D), 0.0, max_nnz=16)
+    index = build_inverted_index(d_rep, V, device="cpu")
+    Dt = torch.from_numpy(D)
+    got = {"dense": score.retrieve(torch.from_numpy(Q), Dt, 7,
+                                   method="dense"),
+           "streaming": score.retrieve(q_rep, Dt, 7, method="streaming"),
+           "impact": score.retrieve(q_rep, index, 7, method="impact"),
+           "fused": score.retrieve(q_rep, index, 7, method="fused")}
+    jv, ji = jr.retrieve(jnp.asarray(Q), jnp.asarray(D), 7, method="dense")
+    for name, (v, i) in got.items():
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ji),
+                                      err_msg=name)
+        np.testing.assert_allclose(v.numpy(), np.asarray(jv),
+                                   rtol=DENSE_TOL, atol=DENSE_TOL,
+                                   err_msg=name)
+
+
+def _message(fn, *args, **kw):
+    with pytest.raises(ValueError) as err:
+        fn(*args, **kw)
+    return str(err.value)
+
+
+def test_mismatched_query_and_corpus_kinds_raise_as_in_jax(corpus):
+    Q, D = corpus
+    q, jq = _queries(Q, True)
+    idx = build_inverted_index(sparsify_topk(torch.from_numpy(D), 16), V,
+                               device="cpu")
+    jidx = jr.build_inverted_index(jr.sparsify_topk(jnp.asarray(D), 16), V)
+    Dt, jD = torch.from_numpy(D), jnp.asarray(D)
+    for method in ("impact", "fused"):
+        port = _message(score.retrieve, torch.from_numpy(Q), Dt, 3,
+                        method=method)
+        assert "needs SparseRep queries" in port
+        assert port == _message(jr.retrieve, jnp.asarray(Q), jD, 3,
+                                method=method)
+        assert "needs an InvertedIndex" in _message(
+            score.retrieve, q, Dt, 3, method=method)
+    assert _message(score.retrieve, q, Dt, 3, method="impact") == \
+        _message(jr.retrieve, jq, jD, 3, method="impact")
+    for method in ("dense", "streaming"):
+        port = _message(score.retrieve, q, idx, 3, method=method)
+        assert "needs a dense (N, V) corpus matrix; got InvertedIndex" in port
+        assert port == _message(jr.retrieve, jq, jidx, 3, method=method)
+    assert not {"dense", "streaming"} & set(score.NOT_PORTED)

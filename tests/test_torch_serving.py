@@ -6,7 +6,10 @@ weights on the same tokens at f32 compute. Dense head outputs agree to
 rtol = atol = 2e-4 (the trunk's f32 differences, 1e-4 at most, pass
 through the head's max and log1p). Sparse reps hold the same ids except
 where two candidates for the last slots are within that tolerance of
-each other (a near-tie the two sums may order either way).
+each other (a near-tie the two sums may order either way). Dense-corpus
+retrieval over dense reps agrees to rtol = 1e-3 (each score sums V such
+products), with the same ids except where the two candidates' scores are
+within that tolerance of each other.
 """
 
 import dataclasses
@@ -23,12 +26,16 @@ import torch
 
 from repro.configs.splade_bert import SMOKE as JAX_SMOKE
 from repro.models import transformer as jtfm
+from repro import retrieval as jr
 from repro.runtime.serving import make_config_encoder as jax_encoder
+from repro.runtime.serving import retrieve_topk as jax_retrieve_topk
 from repro_torch.configs.splade_bert import SMOKE
 from repro_torch.retrieval.sparse_rep import SparseRep
+from repro_torch.launch import serve
+from repro_torch.retrieval import score
 from repro_torch.runtime.serving import (BatchedEncoder, BatchPolicy,
                                          FailedResult, Request, ServingLoop,
-                                         make_config_encoder)
+                                         make_config_encoder, retrieve_topk)
 from repro_torch.weights import params_from_jax
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -166,3 +173,84 @@ def test_resolve_device_defaults_to_cuda_and_never_falls_back():
         for dev in (None, "cuda"):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 resolve_device(dev)
+
+
+def test_dense_slice_matches_jax_up_to_near_ties():
+    """Dense reps of docs and queries from the same weights, retrieved by
+    the streaming scorer on each side (the Pallas kernel interpreted)."""
+    cfg_j, params_j, cfg_t, params_t = _pair()
+    docs, doc_mask = _batch(seed=3, B=40, S=16)
+    qs, q_mask = _batch(seed=4, B=5)
+    enc_j = jax_encoder(params_j, cfg_j)
+    enc_t = make_config_encoder(params_t, cfg_t)
+    C_j = np.asarray(enc_j(jnp.asarray(docs), jnp.asarray(doc_mask)))
+    q_j = np.asarray(enc_j(jnp.asarray(qs), jnp.asarray(q_mask)))
+    C_t = enc_t(torch.from_numpy(docs), torch.from_numpy(doc_mask))
+    q_t = enc_t(torch.from_numpy(qs), torch.from_numpy(q_mask))
+    v_j, i_j = (np.asarray(a) for a in jr.retrieve(
+        jnp.asarray(q_j), jnp.asarray(C_j), 7, method="streaming",
+        interpret=True))
+    v_t, i_t = score.retrieve(q_t, C_t, 7, method="streaming")
+    np.testing.assert_allclose(v_t.numpy(), v_j, rtol=1e-3)
+    scores = q_j @ C_j.T
+    rows = np.arange(5)[:, None]
+    gap = np.abs(scores[rows, i_t.numpy()] - scores[rows, i_j])
+    assert (gap <= 1e-3 * np.abs(scores[rows, i_j])).all()
+
+
+def test_batched_encoder_serves_dense_rows():
+    out = torch.arange(3 * 7, dtype=torch.float32).view(3, 7)
+    enc = BatchedEncoder(lambda toks, mask: out[:toks.shape[0]])
+    rows = enc.encode_batch([Request(uid=u, tokens=np.ones(4, np.int32))
+                             for u in (5, 6, 9)])
+    for r, uid in enumerate((5, 6, 9)):
+        assert rows[uid].dtype == np.float32 and rows[uid].shape == (7,)
+        np.testing.assert_array_equal(rows[uid], out[r].numpy())
+
+
+def test_retrieve_topk_shim_matches_jax():
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((4, 30)).astype(np.float32)
+    C = rng.standard_normal((50, 30)).astype(np.float32)
+    v, i = retrieve_topk(torch.from_numpy(q), torch.from_numpy(C), 6)
+    jv, ji = jax_retrieve_topk(jnp.asarray(q), jnp.asarray(C), 6)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("method,shown", [("streaming", "streaming"),
+                                          ("auto", "dense")])
+def test_serve_cli_dense_corpus_on_cpu(method, shown, capsys):
+    """--rep-topk 0 keeps a dense (N, V) f32 corpus; auto picks dense
+    below AUTO_STREAMING_N rows, as in the JAX package."""
+    assert serve.main(["--device", "cpu", "--corpus", "64", "--requests",
+                       "8", "--rep-topk", "0", "--method", method]) == 0
+    out = capsys.readouterr().out
+    assert "indexed 64 docs dense in" in out
+    assert f"({64 * SMOKE.vocab_size * 4 / 2**20:.2f} MiB)" in out
+    assert "encoded 8/8 requests" in out
+    assert f"retrieval[{shown}]: top-10 for 8 queries" in out
+
+
+@pytest.mark.parametrize("method,rep_topk,says", [
+    ("streaming", "64", "needs the dense corpus matrix"),
+    ("dense", "64", "needs the dense corpus matrix"),
+    ("fused", "0", "needs SparseRep queries and an index"),
+    ("impact", "0", "needs SparseRep queries and an index"),
+])
+def test_serve_cli_refuses_method_and_rep_mismatch(method, rep_topk, says,
+                                                  capsys):
+    with pytest.raises(SystemExit) as exit_:
+        serve.main(["--device", "cpu", "--method", method, "--rep-topk",
+                    rep_topk])
+    assert exit_.value.code == 2
+    assert says in capsys.readouterr().err
+
+
+def test_serve_cli_dense_without_cuda_fails_naming_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    proc = _serve("--rep-topk", "0", "--method", "streaming")
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr
