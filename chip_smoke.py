@@ -17,11 +17,17 @@ Phases, run in this order, each printing one JSON line:
              (16384, 30522) f32 corpus, ``auto`` resolving to the
              streaming kernel (K6), held against the ``dense`` method and,
              on the sparse phase's reps, against K4.
+   serve_engine — the online index engine: 20480 docs grown through a
+             ``CorpusEngine(quantize=True)`` one batch of 64 at a time, 5 %
+             tombstoned and compacted away, one more batch as the delta;
+             the served queries searched with ``auto`` (the quantized base
+             resolving to K5) and ``fused`` (K5 on the base, K4 on the
+             delta), held against the ``quantized`` method.
 5. timing  — each kernel, its plain version, a one-call PyTorch yardstick
              and its roofline bound, with CUDA events; for K2 and K3 also
              the peak memory of the head's forward + backward against the
              paper's PyTorch baseline, for K6 the peak memory of kernel and
-             yardstick. The dense corpus is then dropped.
+             yardstick. The dense corpus and the engine are then dropped.
 6. train   — the full-width splade_bert train step: one step's gradients
              with the kernel head against the plain head (32 x 128), split
              into the backward's and the forward's share, then 5 timed
@@ -202,6 +208,131 @@ def k4_cases(torch):
     return cases
 
 
+def k5_index_case(torch, n_docs, postings, vocab, q_terms, q_vals, seed):
+    """K5's inputs from a quantized index built on the card: ``postings``
+    maps a term to its doc ids (random impacts); each query row holds
+    ``q_terms`` with weights ``q_vals``. Returns (windows, n_docs, quant)."""
+    from repro_torch.retrieval.engine.quantize import (_fused_q_windows,
+                                                       quantize_index)
+    from repro_torch.retrieval.index import build_inverted_index
+    from repro_torch.retrieval.sparse_rep import SparseRep
+
+    rng = np.random.default_rng(seed)
+    v = np.zeros((n_docs, len(postings)), np.float32)   # a slot per term
+    i = np.zeros((n_docs, len(postings)), np.int32)
+    for slot, (term, ds) in enumerate(sorted(postings.items())):
+        v[ds, slot] = rng.uniform(0.2, 3.0, len(ds))
+        i[ds, slot] = term
+    rep = SparseRep(v, i, (v > 0).sum(1).astype(np.int32))
+    quant = quantize_index(build_inverted_index(rep, vocab, device="cuda"))
+    q_vals = np.asarray(q_vals, np.float32)
+    q = SparseRep(q_vals, np.asarray(q_terms, np.int32),
+                  (q_vals > 0).sum(1).astype(np.int32))
+    return _fused_q_windows(q, quant), n_docs, quant
+
+
+def k5_random_index(torch, n_docs, nnz, vocab, B, Q, seed):
+    """A random corpus of ``nnz`` distinct terms a doc, quantized on the
+    card, and B queries of Q terms (one padded slot, one absent term)."""
+    from repro_torch.retrieval.engine.quantize import (_fused_q_windows,
+                                                       quantize_index)
+    from repro_torch.retrieval.index import build_inverted_index
+    from repro_torch.retrieval.sparse_rep import SparseRep
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    i = torch.rand((n_docs, vocab - 1), generator=g,
+                   device="cuda").argsort(dim=1)[:, :nnz].int()
+    v = torch.rand((n_docs, nnz), generator=g, device="cuda") * 2 + 0.1
+    quant = quantize_index(build_inverted_index(
+        SparseRep(v, i, torch.full((n_docs,), nnz, device="cuda")), vocab,
+        device="cuda"))
+    qi = torch.randint(0, vocab, (B, Q), generator=g, device="cuda").int()
+    qi[:, -1] = vocab - 1                       # a term no doc holds
+    qv = torch.rand((B, Q), generator=g, device="cuda") + 0.2
+    qv[0, 1] = 0.0                              # a padded slot
+    q = SparseRep(qv, qi, (qv > 0).sum(1).int())
+    return _fused_q_windows(q, quant), n_docs, quant
+
+
+def k5_random_windows(torch, B, Q, L, n_docs, max_gap, seed):
+    """Gathered windows as the wrapper may see them: odd and even starts,
+    garbage past each term's length, empty terms, qv <= 0 columns, code-0
+    lanes, and gaps >= 1 so no doc repeats within a term."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    lens = ints(0, L + 1, (B, Q))
+    if Q:
+        lens[0, 0] = 0
+    qv = torch.rand((B, Q), generator=g, device="cuda") * 2.5 - 0.5
+    if Q > 2:
+        qv[:, 2] = 0.0
+    return (ints(0, 256, (B, Q, L)), ints(1, max_gap + 1, (B, Q, L)),
+            ints(0, 1 << 20, (B, Q)), lens, qv,
+            torch.rand((B, Q), generator=g, device="cuda"),
+            torch.rand((B, Q), generator=g, device="cuda") / 14)
+
+
+def k5_cases(torch):
+    """(name, windows, n_docs, k): quantized indexes built on the card (u8
+    and u16 deltas, escape phantoms whose gap is an exact multiple of the
+    escape and so share a doc with the next posting, n_docs over the
+    kernel's 32768-doc tile) and random windows (several 512-lane chunks
+    per term, empty terms, qv <= 0, k > n_docs, L = 0, Q = 0)."""
+    cases = []
+    wins, n, quant = k5_index_case(
+        torch, 2000, {3: np.r_[np.arange(64), 777, 1901],
+                      5: [0, 255, 765, 1020], 6: np.arange(0, 2000, 3)},
+        16, [[3, 5, 6, 7], [5, 3, 7, 6]], [[1.0, 0.7, 0.4, 0.5],
+                                          [2.0, 0.0, 0.5, 1.0]], 1)
+    assert quant.deltas.dtype == torch.uint8 and quant.n_postings > \
+        quant.n_source_postings, "the u8 case lost its phantoms"
+    cases.append(("index_u8_phantoms", wins, n, 70))
+    wins, n, quant = k5_index_case(
+        torch, 131072 + 1, {3: [0, 65535, 131070],
+                            4: np.arange(7, 131072, 20000)},
+        8, [[3, 4]], [[1.0, 0.5]], 2)
+    assert quant.deltas.dtype == torch.uint16 and quant.n_postings > \
+        quant.n_source_postings, "the u16 case lost its phantoms"
+    cases.append(("index_u16_phantoms_multi_tile", wins, n, 5))
+    wins, n, quant = k5_random_index(torch, 3000, 16, 256, 6, 12, 3)
+    assert quant.deltas.dtype == torch.uint8
+    cases.append(("random_index_u8", wins, n, 20))
+    wins, n, quant = k5_random_index(torch, 20000, 4, 4096, 4, 8, 4)
+    assert quant.deltas.dtype == torch.uint16
+    cases.append(("random_index_u16", wins, n, 10))
+    for name, (B, Q, L, n, gap, k) in {
+            "windows_three_chunks": (6, 10, 1500, 5000, 3, 50),
+            "windows_k_gt_n_docs": (2, 3, 4, 7, 2, 12),
+            "windows_multi_tile": (2, 6, 600, 70000, 230, 100),
+            "windows_L0": (3, 4, 0, 64, 1, 7),
+            "windows_Q0": (2, 0, 5, 64, 1, 7)}.items():
+        cases.append((name, k5_random_windows(torch, B, Q, L, n, gap,
+                                              len(cases)), n, k))
+    return cases
+
+
+def k5_compare(torch, wins, n_docs, k):
+    """K5, launched twice, against its plain version on one input: whether
+    values and ids are equal (the decode and the order of the sums are the
+    same) and whether the two launches agree bit for bit."""
+    from repro_torch.kernels.impact_score import (fused_quantized_topk,
+                                                  fused_quantized_topk_plain)
+
+    runs = [fused_quantized_topk(*wins, n_docs=n_docs, k=k) for _ in range(2)]
+    v_p, i_p = fused_quantized_topk_plain(*wins, n_docs=n_docs, k=k)
+    torch.cuda.synchronize()
+    v_k, i_k = runs[0]
+    err = float((v_k - v_p).abs().max()) if v_k.numel() else 0.0
+    return {"max_abs_err": err, "id_mismatch": int((i_k != i_p).sum()),
+            "equal": bool(torch.equal(v_k, v_p) and torch.equal(i_k, i_p)),
+            "bit_identical": all(bool(torch.equal(a, b))
+                                 for a, b in zip(*runs))}
+
+
 K6_SHAPES = [  # (B, N, D, k): tests/test_kernels_topk.py shapes, an odd D
     (1, 100, 16, 5), (3, 500, 32, 10), (8, 1024, 64, 100), (2, 999, 8, 7),
     (3, 301, 13, 9),                          # (4-byte loads), k == N and
@@ -330,6 +461,12 @@ def phase_kernels(torch):
     require(k4_err == 0.0 and k4_mism == 0,
             f"K4 differs from the plain version (max err {k4_err}, "
             f"{k4_mism} id mismatches)")
+    k5 = [{"case": name, "shape": list(wins[0].shape), "n_docs": n, "k": k,
+           **k5_compare(torch, wins, n, k)}
+          for name, wins, n, k in k5_cases(torch)]
+    bad = [c for c in k5 if not (c["equal"] and c["bit_identical"])]
+    require(not bad, f"K5 differs from the plain version or between two "
+                     f"launches: {bad[:2]}")
     k6 = []
     for name, q, C, k, exact in k6_cases(torch):
         k6.append({"case": name, "exact": exact,
@@ -359,7 +496,10 @@ def phase_kernels(torch):
     emit("kernels", k1_max_abs_err=worst_err, k1_tol=K1_TOL,
          k1_imax_mismatch=sum(c["imax_mismatch"] for c in k1),
          k1_cases=k1, k4_max_abs_err=k4_err, k4_id_mismatch=k4_mism,
-         k4_cases=k4, k6_tol=K6_TOL,
+         k4_cases=k4, k5_max_abs_err=max(c["max_abs_err"] for c in k5),
+         k5_id_mismatch=sum(c["id_mismatch"] for c in k5),
+         k5_bit_identical=all(c["bit_identical"] for c in k5),
+         k5_cases=k5, k6_tol=K6_TOL,
          k6_max_abs_err=max(c["max_abs_err"] for c in k6),
          k6_id_mismatch=sum(c["id_mismatch"] for c in k6),
          k6_id_hard=sum(c["id_hard"] for c in k6),
@@ -672,6 +812,141 @@ def phase_serve_dense(torch, served):
          ids_differ_vs_dense=differ, streaming_vs_dense_max_abs_err=val_err,
          ids_differ_vs_fused=differ_s, streaming_vs_fused_max_abs_err=val_err_s)
     return {"res": res, "launches": launches}
+
+
+ENGINE = {"corpus": 20480, "batch": 64, "remove_frac": 0.05}
+
+
+def phase_serve_engine(torch, served):
+    """The online index engine at full width: the serve phase's weights and
+    queries, 20480 docs grown through ``CorpusEngine(quantize=True)`` one
+    ``add_docs`` + ``flush`` per batch of 64, 5 % tombstoned and compacted
+    away (19456 live docs in the base, above ``AUTO_FUSED_N``), one more
+    batch as the delta; then ``search`` with ``auto`` and ``fused``."""
+    from repro_torch.kernels import impact_score as k45
+    from repro_torch.kernels import sparton as k1
+    from repro_torch.launch.serve import SEED, grow_engine
+    from repro_torch.retrieval.engine.quantize import (QuantizedIndex,
+                                                       quantized_scores)
+    from repro_torch.retrieval.score import impact_scores
+    from repro_torch.runtime.serving import (BatchedEncoder, BatchPolicy,
+                                             CorpusEngine,
+                                             make_config_encoder)
+
+    cfg, res = served["cfg"], served["res"]
+    encode = make_config_encoder(served["params"], cfg)
+    batches = []
+
+    def counted_encode(tokens, mask):
+        batches.append(tokens.shape)
+        return encode(tokens, mask)
+
+    engine = CorpusEngine(
+        BatchedEncoder(counted_encode,
+                       policy=BatchPolicy(max_batch=ENGINE["batch"])),
+        cfg.vocab_size, quantize=True, device="cuda")
+    builder, queries, k = engine.builder, res["queries"], SERVE["topk"]
+    rng = np.random.default_rng(SEED)
+    n = ENGINE["corpus"]
+    counts = {}
+    k1.sparton_forward.launches = 0
+    k45.fused_impact_topk.launches = 0
+    k45.fused_quantized_topk.launches = 0
+    with plain_guard(k1=(k1, "sparton_forward_plain"),
+                     k4=(k45, "fused_impact_topk_plain"),
+                     k5=(k45, "fused_quantized_topk_plain")) as plain_on_cuda:
+        t0 = time.perf_counter()
+        grow_engine(engine, cfg.vocab_size, n, batch=ENGINE["batch"], rng=rng)
+        torch.cuda.synchronize()
+        index_s = time.perf_counter() - t0
+        grown = engine.stats()
+        dropped = rng.choice(n, size=int(ENGINE["remove_frac"] * n),
+                             replace=False).tolist()
+        require(engine.remove_docs(dropped) == len(dropped),
+                "tombstoning removed fewer docs than asked")
+        engine.flush(force_compact=True)
+        base_raw, base = builder._base_raw, builder._base
+        added = engine.add_docs([rng.integers(1, cfg.vocab_size, size=16)
+                                 .astype(np.int32)
+                                 for _ in range(ENGINE["batch"])])
+        engine.flush()
+        resolved = builder.resolved_method("auto")
+        out = {}
+        for method in ("auto", "fused", "quantized"):
+            before = (k45.fused_quantized_topk.launches,
+                      k45.fused_impact_topk.launches)
+            t0 = time.perf_counter()
+            out[method] = engine.search(queries, k, method=method)
+            out[method + "_ms"] = 1e3 * (time.perf_counter() - t0)
+            counts[method] = {
+                "impact_q_topk": k45.fused_quantized_topk.launches - before[0],
+                "impact_topk": k45.fused_impact_topk.launches - before[1]}
+    launches = {"sparton_fwd": k1.sparton_forward.launches,
+                "impact_topk": k45.fused_impact_topk.launches,
+                "impact_q_topk": k45.fused_quantized_topk.launches}
+    st = engine.stats()
+
+    require(isinstance(base, QuantizedIndex) and st["quantized_base"],
+            "the base segment is not quantized")
+    require(st["base_docs"] == n - len(dropped)
+            and st["delta_docs"] == ENGINE["batch"] and st["n_dead"] == 0,
+            f"engine segments after the compaction and the last batch: {st}")
+    require(resolved == "fused", f"auto on the base resolved to {resolved!r}")
+    require(counts["auto"] == {"impact_q_topk": 1, "impact_topk": 0},
+            f"auto search launched {counts['auto']}: K5 once on the base, "
+            f"the {ENGINE['batch']}-doc delta on the plain impact path")
+    require(counts["fused"] == {"impact_q_topk": 1, "impact_topk": 1},
+            f"fused search launched {counts['fused']}, expected K5 and K4 "
+            f"once each")
+    require(counts["quantized"] == {"impact_q_topk": 0, "impact_topk": 0},
+            f"the quantized method launched kernels: {counts['quantized']}")
+    require(launches["sparton_fwd"] == len(batches),
+            f"K1 launched {launches['sparton_fwd']} times for "
+            f"{len(batches)} encode batches")
+    require(not plain_on_cuda, f"plain versions ran on CUDA tensors: "
+                               f"{sorted(set(plain_on_cuda))}")
+
+    # every search against the quantized method's exact per-slot scores:
+    # the base's dequantized sums and the delta's impact sums
+    scores = torch.cat([quantized_scores(queries, base),
+                        impact_scores(queries, builder._delta)], dim=1)
+    slot_of = np.vectorize(lambda e: builder._slot.get(int(e), -1))
+    v_q, e_q = out["quantized"]
+    gone = set(dropped)
+    rows = {}
+    for method in ("auto", "fused", "quantized"):
+        vals, ext = out[method]
+        require(bool(np.isfinite(vals).all()) and not (ext < 0).any()
+                and not gone & set(ext.ravel().tolist()),
+                f"{method}: non-finite scores, padding or tombstoned ids")
+        slots = torch.from_numpy(slot_of(ext)).cuda()
+        require(bool((slots >= 0).all()), f"{method}: unknown external ids")
+        hard, differ = ids_beyond_near_ties(
+            torch, scores, slots, torch.from_numpy(slot_of(e_q)).cuda())
+        require(hard == 0, f"{method} ids differ from the quantized method's "
+                           f"beyond near-ties at {hard} positions")
+        err = float(np.abs(vals - v_q).max())
+        require(err <= SCORE_TOL * (1 + float(np.abs(v_q).max())),
+                f"{method} scores differ from the quantized method's by "
+                f"{err}")
+        rows[method] = {"ids_differ": differ, "max_abs_err": err,
+                        "search_ms": out[method + "_ms"],
+                        "launches": counts[method]}
+    qs = base.stats()
+    ratio = base_raw.memory_bytes() / base.memory_bytes()
+    require(ratio > 1, f"the quantized base is not smaller than its raw "
+                       f"index ({ratio:.3f}x)")
+    emit("serve_engine", config=cfg.name, launches=launches,
+         encode_batches=len(batches), index_s=index_s,
+         docs_grown=n, grown_stats=grown, removed=len(dropped),
+         added_after_compaction=len(added), stats=st,
+         n_compactions=st["n_compactions"], retrieve_method=resolved,
+         base_docs=qs["n_docs"], base_postings=qs["n_postings"],
+         phantom_frac=qs["phantom_frac"], max_postings=qs["max_postings"],
+         delta_dtype=str(base.deltas.dtype), base_memory_bytes=qs[
+             "memory_bytes"], raw_memory_bytes=base_raw.memory_bytes(),
+         compression=ratio, searches=rows)
+    return {"engine": engine, "launches": launches}
 
 
 # --------------------------------------------------------------------------
@@ -1214,7 +1489,47 @@ def time_k6(torch, q, C, k, *, reps):
     return row
 
 
-def phase_timing(torch, served, served_dense):
+def time_k5(torch, queries, base, k, *, reps):
+    """K5 at one batch on the engine's quantized base: against its plain
+    version, CUDA-event times of kernel, plain version and the yardstick
+    (the PyTorch decode, ``index_add_`` into ``(B, N)``, ``torch.topk``),
+    and the bound: the gathered windows read once
+    (``fused_window_bytes(..., "u4")``) and the ``(B, k)`` results written
+    once, over the byte rate."""
+    from repro_torch.kernels.impact_score import (decode_quantized_windows,
+                                                  fused_quantized_topk,
+                                                  fused_quantized_topk_plain,
+                                                  fused_window_bytes)
+    from repro_torch.retrieval.engine.quantize import _fused_q_windows
+
+    wins = _fused_q_windows(queries, base)
+    B, Q, L = wins[0].shape
+    n = base.n_docs
+    case = k5_compare(torch, wins, n, k)
+    require(case["equal"] and case["bit_identical"],
+            f"K5 at {(B, Q, L, n, k)}: {case}")
+    rows = torch.arange(B, device="cuda")[:, None] * n
+
+    def library():
+        w, docs = decode_quantized_windows(*wins)
+        flat = torch.zeros(B * n, device="cuda")
+        flat.index_add_(0, (rows + docs.view(B, -1)).view(-1), w.view(-1))
+        return torch.topk(flat.view(B, n), k, dim=1)
+
+    nbytes = fused_window_bytes(B, Q, L, "u4") + B * k * 8
+    row = {"shape": {"B": B, "Q": Q, "L": L, "n_docs": n, "k": k}, **case,
+           "window_bytes": nbytes, "bound_ms": 1e3 * nbytes / PEAK_BYTES,
+           "bound_by": "bytes"}
+    for key, fn in (("ms", lambda: fused_quantized_topk(*wins, n_docs=n,
+                                                         k=k)),
+                    ("plain_ms", lambda: fused_quantized_topk_plain(
+                        *wins, n_docs=n, k=k)),
+                    ("library_ms", library)):
+        row[key], row[key + "_range"] = timed(torch, fn, reps)
+    return row
+
+
+def phase_timing(torch, served, served_dense, served_engine):
     from repro_torch.kernels.impact_score import (fused_impact_topk,
                                                   fused_impact_topk_plain,
                                                   fused_window_bytes)
@@ -1289,9 +1604,16 @@ def phase_timing(torch, served, served_dense):
                                     reps=10)
           for q in (dense["queries"].cuda(),
                     torch.from_numpy(np.stack(dense["served"])).cuda())}
+    # K5 on the engine's quantized base: the served queries (8) and all 64
+    # served requests
+    from repro_torch.retrieval.sparse_rep import stack_rows
+
+    base = served_engine["engine"].builder._base
+    k5 = {f"B{q.values.shape[0]}": time_k5(torch, q, base, k, reps=20)
+          for q in (queries, stack_rows(res["served"]))}
     from repro_torch.runtime.serving import make_config_encoder
     profile = profile_encode(torch, make_config_encoder(params, cfg), cfg)
-    emit("timing", k1=rows, k4=k4, k6=k6, encode_profile=profile)
+    emit("timing", k1=rows, k4=k4, k5=k5, k6=k6, encode_profile=profile)
 
     # K2 and K3 at the train step's shape (bf16 hidden states of 384 pairs'
     # docs, padded as lsr_pair_batches pads them) and at Table-1
@@ -1314,20 +1636,24 @@ def phase_timing(torch, served, served_dense):
     del H
     torch.cuda.empty_cache()
     emit("timing_bwd", **bwd)
-    return {"k1": rows["index_batch"], "bwd": bwd, "k4": k4, "k6": k6}
+    return {"k1": rows["index_batch"], "bwd": bwd, "k4": k4, "k5": k5,
+            "k6": k6}
 
 
-def kernel_rows(measured, launches, dense_launches, train_launches):
+def kernel_rows(measured, launches, dense_launches, engine_launches,
+                train_launches):
     """The ``{"kernels": [...]}`` line: each kernel's launches on its path
     and its numbers from the timing phase (K1 at an index batch, K2/K3 at
-    the train shape, K6 at the served queries)."""
-    main_k1, bwd, k4, k6 = (measured[key] for key in ("k1", "bwd", "k4", "k6"))
+    the train shape, K5 and K6 at the served queries)."""
+    main_k1, bwd, k4, k5, k6 = (measured[key]
+                                for key in ("k1", "bwd", "k4", "k5", "k6"))
     return [
         {"name": "sparton_fwd (K1)", "route": "cuda",
          "source": "src/repro_torch/csrc/sparton_fwd.cu",
          "replaces": "src/repro/kernels/sparton.py:52",
          "launches": launches["sparton_fwd"],
          "dense_serve_launches": dense_launches["sparton_fwd"],
+         "engine_launches": engine_launches["sparton_fwd"],
          "train_launches": train_launches["sparton_fwd"],
          **{key: main_k1[key] for key in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
@@ -1347,8 +1673,16 @@ def kernel_rows(measured, launches, dense_launches, train_launches):
          "source": "src/repro_torch/csrc/impact_topk.cu",
          "replaces": "src/repro/kernels/impact_score.py:96",
          "launches": launches["impact_topk"],
+         "engine_launches": engine_launches["impact_topk"],
          **{key: k4[key] for key in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")}},
+        {"name": "impact_q_topk (K5)", "route": "cuda",
+         "source": "src/repro_torch/csrc/impact_topk.cu",
+         "replaces": "src/repro/kernels/impact_score.py:120",
+         "launches": engine_launches["impact_q_topk"],
+         **{key: k5["B8"][key] for key in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms")}},
         {"name": "topk_score (K6)", "route": "cuda",
          "source": "src/repro_torch/csrc/topk_score.cu",
          "replaces": "src/repro/kernels/topk_score.py:57",
@@ -1379,14 +1713,18 @@ def main() -> int:
     phase_kernels(torch)
     served = phase_serve(torch)
     served_dense = phase_serve_dense(torch, served)
-    measured = phase_timing(torch, served, served_dense)
+    served_engine = phase_serve_engine(torch, served)
+    measured = phase_timing(torch, served, served_dense, served_engine)
     dense_launches = served_dense["launches"]
-    del served_dense   # its 1.9 GiB corpus is not the train phase's memory
+    engine_launches = served_engine["launches"]
+    # the 1.9 GiB dense corpus and the engine are not the train phase's
+    # memory
+    del served_dense, served_engine
     torch.cuda.empty_cache()
     trained = phase_train(torch)
     print(json.dumps({"kernels": kernel_rows(
-        measured, served["launches"], dense_launches, trained["launches"])}),
-        flush=True)
+        measured, served["launches"], dense_launches, engine_launches,
+        trained["launches"])}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

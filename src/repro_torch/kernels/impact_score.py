@@ -1,22 +1,32 @@
-"""K4 — fused impact scoring with a streaming top-k, a CUDA kernel.
+"""K4 and K5 — fused impact scoring with a streaming top-k, CUDA kernels.
 
-Replaces the Pallas TPU kernel ``repro/kernels/impact_score.py:
+K4 replaces the Pallas TPU kernel ``repro/kernels/impact_score.py:
 _impact_kernel`` (entry ``fused_impact_topk``): per query row, score the
 flat posting lanes ``(w = q·impact, doc id)`` into doc tiles visited in
 ascending order and keep a running top-k, so the ``(B, N)`` score matrix
-never reaches device memory. The kernel is ``csrc/impact_topk.cu``; its
-header says how it is laid out.
+never reaches device memory.
 
-Bound on the H100: each lane is read once (4 bytes of weight, 4 of doc
-id), so the floor is ``fused_window_bytes`` over 3.35 TB/s. The design
-keeps a tile of up to 32768 scores in shared memory (the whole corpus at
-the serving shape, so the window is read once) and scatters one query
-term at a time, which makes the sums deterministic in the reference's
-lane order. One block per query leaves most SMs idle at small batches.
+K5 replaces ``_impact_q_kernel`` (entry ``fused_quantized_topk``): the same
+scoring over the u4+delta windows of a ``QuantizedIndex``, decoded inside
+the kernel. For each query term t and lane l below its length (and only
+where ``qv > 0``) the code is the high nibble of ``byte_win`` when the
+absolute posting position ``starts + l`` is odd, else the low one; the
+doc id is the running sum of the term's gaps; the weight is
+``(lo + (code - 1) * step) * qv``, and code 0 (an escape phantom) weighs
+exactly 0 but still advances the running sum.
 
-``fused_impact_topk`` dispatches on the tensors' device: CPU tensors go
-to ``fused_impact_topk_plain``, CUDA tensors to the kernel (or a raise).
-``fused_impact_topk.launches`` counts kernel launches.
+Both kernels live in ``csrc/impact_topk.cu``; its header says how they
+are laid out. Bound on the H100: each lane is read once (8 bytes: weight
+and doc id for K4, packed byte and gap for K5), so the floor is
+``fused_window_bytes`` over 3.35 TB/s. The design keeps a tile of up to
+32768 scores in shared memory and scatters one query term at a time, which
+makes the sums deterministic in the reference's lane order. One block per
+query leaves most SMs idle at small batches.
+
+``fused_impact_topk`` and ``fused_quantized_topk`` dispatch on the
+tensors' device: CPU tensors go to their ``*_plain`` version, CUDA tensors
+to the kernel (or a raise). Each wrapper's ``.launches`` counts its kernel
+launches.
 """
 
 from __future__ import annotations
@@ -29,8 +39,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.topk_score import topk_rows
 
-MAX_K = 1024  # the kernel keeps k running entries twice in shared memory
+MAX_K = 1024  # the kernels keep k running entries twice in shared memory
+# u4 codes 1..15 span 14 steps between a term's lo and hi (engine/quantize)
+U4_LEVELS = 14
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_Q_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def scatter_scores(w: torch.Tensor, docs: torch.Tensor,
@@ -117,8 +130,123 @@ def fused_impact_topk(
 fused_impact_topk.launches = 0
 
 
-def fused_window_bytes(B: int, Q: int, L: int) -> int:
-    """Device bytes of the gathered ``(B, Q, L)`` posting windows one
-    fused call reads: f32 weights + i32 doc ids. (The JAX function's
-    ``"u4"`` variant belongs to the quantized kernel, not ported yet.)"""
-    return B * Q * L * (4 + 4)
+def decode_quantized_windows(byte_win: torch.Tensor, gap_win: torch.Tensor,
+                             starts: torch.Tensor, lens: torch.Tensor,
+                             qv: torch.Tensor, lo: torch.Tensor,
+                             step: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The u4+delta decode of ``(B, Q, L)`` windows: ``(w f32, docs i32)``
+    per lane, in the JAX kernel's arithmetic (two roundings, no fused
+    multiply-add). Invalid lanes (past ``lens``, or ``qv <= 0``) and
+    phantoms weigh 0; invalid lanes keep the last valid doc id."""
+    L = byte_win.shape[2]
+    lane = torch.arange(L, dtype=torch.int32, device=byte_win.device)
+    valid = (lane < lens[:, :, None]) & (qv > 0)[:, :, None]
+    odd = ((starts[:, :, None] + lane) & 1) == 1
+    code = torch.where(odd, byte_win >> 4, byte_win & 0xF)
+    code = torch.where(valid, code, 0)
+    docs = torch.cumsum(torch.where(valid, gap_win, 0), dim=2,
+                        dtype=torch.int32)
+    val = lo[:, :, None] + (code - 1).float() * step[:, :, None]
+    return torch.where(code > 0, val, 0.0) * qv[:, :, None], docs
+
+
+def fused_quantized_topk_plain(byte_win, gap_win, starts, lens, qv, lo,
+                               step, *, n_docs: int, k: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K5: the decode, then the dense scores summed
+    one query term at a time (each doc's sum in term order, the kernel's
+    order on every device), then the merge's top-k."""
+    w, docs = decode_quantized_windows(byte_win, gap_win, starts, lens, qv,
+                                       lo, step)
+    B, Q, _ = w.shape
+    rows = torch.arange(B, device=w.device).unsqueeze(1) * n_docs
+    flat = torch.zeros(B * n_docs, dtype=torch.float32, device=w.device)
+    for t in range(Q):
+        d = docs[:, t].long()
+        ok = (d >= 0) & (d < n_docs)
+        flat.index_add_(0, torch.where(ok, rows + d, 0).view(-1),
+                        torch.where(ok, w[:, t], 0.0).view(-1))
+    return topk_rows(flat.view(B, n_docs), k)
+
+
+def _launch_q(byte_win, gap_win, starts, lens, qv, lo, step, n_docs, k):
+    wins, metas = (byte_win, gap_win), (starts, lens, qv, lo, step)
+    dev = byte_win.device
+    if not all(t.is_cuda and t.device == dev for t in wins + metas):
+        raise ValueError("fused_quantized_topk: every input must lie on one "
+                         "CUDA device")
+    if byte_win.dim() != 3 or gap_win.shape != byte_win.shape:
+        raise ValueError(f"fused_quantized_topk: byte_win "
+                         f"{tuple(byte_win.shape)} and gap_win "
+                         f"{tuple(gap_win.shape)} must both be (B, Q, L)")
+    B, Q, L = byte_win.shape
+    if any(t.shape != (B, Q) for t in metas):
+        raise ValueError(f"fused_quantized_topk: starts, lens, qv, lo and "
+                         f"step must be (B, Q) = {(B, Q)}, got "
+                         f"{[tuple(t.shape) for t in metas]}")
+    if (any(t.dtype != torch.int32 for t in (byte_win, gap_win, starts, lens))
+            or any(t.dtype != torch.float32 for t in (qv, lo, step))):
+        raise ValueError("fused_quantized_topk: the kernel takes i32 "
+                         "byte_win, gap_win, starts, lens and f32 qv, lo, "
+                         "step")
+    if not all(t.is_contiguous() for t in wins + metas):
+        raise ValueError("fused_quantized_topk: inputs must be contiguous")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"fused_quantized_topk: the kernel takes 1 <= k <= "
+                         f"{MAX_K}, got k={k}")
+    if n_docs < 1:
+        raise ValueError(f"fused_quantized_topk: n_docs must be >= 1, got "
+                         f"{n_docs}")
+    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, k), dtype=torch.int32, device=dev)
+    if B == 0:
+        return vals, idx
+    fn = _build.function("impact_topk", "impact_q_topk", _Q_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        fused_quantized_topk.launches += 1
+        rc = fn(*(t.data_ptr() for t in wins + metas), vals.data_ptr(),
+                idx.data_ptr(), B, Q, L, n_docs, k, stream)
+    _build.check_launch(rc, "impact_q_topk")
+    return vals, idx
+
+
+def fused_quantized_topk(
+    byte_win: torch.Tensor,   # (B, Q, L) i32 — packed byte of each lane
+    gap_win: torch.Tensor,    # (B, Q, L) i32 — doc-id gap of each lane
+    starts: torch.Tensor,     # (B, Q) i32 — posting offset of each term
+    lens: torch.Tensor,       # (B, Q) i32 — expanded list length
+    qv: torch.Tensor,         # (B, Q) f32 — query term weight
+    lo: torch.Tensor,         # (B, Q) f32 — the term's affine low
+    step: torch.Tensor,       # (B, Q) f32 — the term's affine step
+    *,
+    n_docs: int,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused u4+delta decode, scoring and top-k over gathered windows.
+
+    Returns ``(vals (B, k) f32, idx (B, k) i32)``: ties to the lowest doc
+    id, columns past ``n_docs`` hold ``(NEG_INF, 0)``. Lanes at or past a
+    term's ``lens`` are ignored, so padding may hold anything. CPU tensors
+    take the plain version.
+    """
+    if byte_win.device.type == "cpu":
+        return fused_quantized_topk_plain(byte_win, gap_win, starts, lens,
+                                          qv, lo, step, n_docs=n_docs, k=k)
+    return _launch_q(byte_win, gap_win, starts, lens, qv, lo, step, n_docs,
+                     k)
+
+
+fused_quantized_topk.launches = 0
+
+
+def fused_window_bytes(B: int, Q: int, L: int, variant: str = "f32") -> int:
+    """Device bytes of the gathered ``(B, Q, L)`` posting windows one fused
+    call reads: ``"f32"`` (K4) f32 weights + i32 doc ids; ``"u4"`` (K5)
+    i32 packed bytes + i32 gaps + five per-term columns."""
+    if variant == "f32":
+        return B * Q * L * (4 + 4)
+    if variant == "u4":
+        return B * Q * L * (4 + 4) + B * Q * 5 * 4
+    raise ValueError(f"unknown fused variant {variant!r}")

@@ -1,21 +1,26 @@
 """Serving entry point: ``python -m repro_torch.launch.serve``.
 
-The frozen-index path of ``repro/launch/serve.py``, end to end:
+The pipeline of ``repro/launch/serve.py``, end to end:
 
 1. index    — encode a synthetic corpus (16-token docs) through the
               trunk and the Sparton head, sparsify on the device
-              (``--rep-topk``), build the inverted impact index; with
-              ``--rep-topk 0`` keep the dense reps as an ``(N, V)`` f32
-              corpus on the device instead.
+              (``--rep-topk``), build the inverted impact index
+              (``--method quantized`` compresses it); with ``--rep-topk
+              0`` keep the dense reps as an ``(N, V)`` f32 corpus on the
+              device instead. With ``--engine`` the corpus grows online
+              through a ``CorpusEngine``: one ``add_docs`` + ``flush`` per
+              batch, ``--remove-frac`` of it tombstoned at the end, the
+              base segment compressed with ``--quantize``.
 2. serve    — stream queries (4–24 tokens) through the deadline/size
               micro-batching loop; results are popped with ``take``.
 3. retrieve — top-k of the first served queries through
-              ``retrieve(method=--method)``.
+              ``retrieve(method=--method)``, or the engine's ``search``
+              (``auto`` on each segment).
 
 It runs the config's SMOKE size with seeded random weights on
 ``--device`` (default ``cuda``; ``--device cpu`` runs the kernels' plain
 versions). ``run`` is the same pipeline for any encode fn and config;
-``chip_smoke.py`` drives it at full width. The engine, tenants, cache
+``chip_smoke.py`` drives it at full width. The pruning, tenants, cache
 and sharding flags of the JAX entry point arrive with their slices.
 """
 
@@ -63,6 +68,24 @@ def index_corpus(encode: Callable, vocab_size: int, n_docs: int, *,
                                 device=device)
 
 
+def grow_engine(engine, vocab_size: int, n_docs: int, *, batch: int,
+                rng: np.random.Generator, remove_frac: float = 0.0) -> None:
+    """Grow ``engine``'s corpus online by ``n_docs`` random docs, one
+    ``add_docs`` + ``flush`` per batch (each batch is searchable as it
+    arrives); then tombstone ``remove_frac`` of the first ``n_docs``
+    external ids and flush."""
+    for lo in range(0, n_docs, batch):
+        n = min(batch, n_docs - lo)
+        engine.add_docs([rng.integers(1, vocab_size, size=DOC_TOKENS)
+                         .astype(np.int32) for _ in range(n)])
+        engine.flush()
+    if remove_frac > 0:
+        drop = rng.choice(n_docs, size=int(remove_frac * n_docs),
+                          replace=False)
+        engine.remove_docs(drop.tolist())
+        engine.flush()
+
+
 def serve_requests(encode: Callable, vocab_size: int, n_requests: int, *,
                    rng: np.random.Generator):
     """Push ``n_requests`` random queries through the batching loop.
@@ -85,21 +108,35 @@ def serve_requests(encode: Callable, vocab_size: int, n_requests: int, *,
 
 
 def run(encode: Callable, vocab_size: int, *, corpus: int, requests: int,
-        topk: int, method: str, index_batch: int, device) -> Dict[str, Any]:
+        topk: int, method: str, index_batch: int, device, engine=None,
+        remove_frac: float = 0.0) -> Dict[str, Any]:
     """Index, serve, retrieve. Returns what each stage produced and took
     (host seconds, each stage ending in a device synchronisation); its
-    ``"index"`` is the ``InvertedIndex`` or, for dense reps, the dense
-    corpus."""
+    ``"index"`` is the ``InvertedIndex`` (a ``QuantizedIndex`` for
+    ``method="quantized"``, the raw one then in ``"raw_index"``), for
+    dense reps the dense corpus, and with an ``engine`` (a
+    ``CorpusEngine``, grown here by ``grow_engine``) the engine, searched
+    with ``method``."""
+    from repro_torch.retrieval.engine.quantize import quantize_index
     from repro_torch.retrieval.score import resolve_method, retrieve
     from repro_torch.retrieval.sparse_rep import SparseRep, stack_rows
     from repro_torch.runtime.serving import FailedResult, ShedResult
 
     rng = np.random.default_rng(SEED)
+    out = {}
     t0 = time.perf_counter()
-    index = index_corpus(encode, vocab_size, corpus, batch=index_batch,
-                         rng=rng, device=device)
-    if isinstance(index, torch.Tensor) and index.is_cuda:
-        torch.cuda.synchronize(index.device)
+    if engine is not None:
+        grow_engine(engine, vocab_size, corpus, batch=index_batch, rng=rng,
+                    remove_frac=remove_frac)
+        index = engine
+    else:
+        index = index_corpus(encode, vocab_size, corpus, batch=index_batch,
+                             rng=rng, device=device)
+        if method == "quantized":
+            out["raw_index"] = index
+            index = quantize_index(index)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
     index_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -108,18 +145,23 @@ def run(encode: Callable, vocab_size: int, *, corpus: int, requests: int,
     served = [r for r in outcomes.values()
               if not isinstance(r, (ShedResult, FailedResult))]
 
-    out = {"index": index, "index_s": index_s, "loop": loop,
-           "outcomes": outcomes, "serve_s": serve_s, "served": served,
-           "method": resolve_method(method, index)}
+    out.update(index=index, index_s=index_s, loop=loop, outcomes=outcomes,
+               serve_s=serve_s, served=served,
+               method=(engine.builder.resolved_method(method)
+                       if engine is not None else resolve_method(method,
+                                                                 index)))
     if served:
         if isinstance(served[0], SparseRep):
             queries = stack_rows(served[:N_QUERIES])
         else:
             queries = torch.from_numpy(np.stack(served[:N_QUERIES]))
         t0 = time.perf_counter()
-        vals, idx = retrieve(queries, index, topk, method=method)
-        if vals.is_cuda:
-            torch.cuda.synchronize(vals.device)
+        if engine is not None:
+            vals, idx = engine.search(queries, topk, method=method)
+        else:
+            vals, idx = retrieve(queries, index, topk, method=method)
+            if vals.is_cuda:
+                torch.cuda.synchronize(vals.device)
         out.update(queries=queries, vals=vals, idx=idx,
                    retrieve_s=time.perf_counter() - t0)
     return out
@@ -149,6 +191,16 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions")
+    ap.add_argument("--engine", action="store_true",
+                    help="grow the corpus online through the incremental "
+                         "IndexBuilder instead of one frozen build")
+    ap.add_argument("--quantize", action="store_true",
+                    help="engine mode: serve the base segment as a "
+                         "compressed QuantizedIndex")
+    ap.add_argument("--remove-frac", type=float, default=0.0,
+                    help="engine mode: tombstone this fraction of the "
+                         "corpus after it has grown (exercises remove + "
+                         "compaction)")
     args = ap.parse_args(argv)
     # method/rep compatibility is knowable before spending minutes
     # encoding the corpus: reject bad combinations at argparse time
@@ -159,6 +211,14 @@ def main(argv=None) -> int:
     if args.method in INDEX_METHODS and args.rep_topk <= 0:
         ap.error(f"--method {args.method} needs SparseRep queries and an "
                  "index; pass a positive --rep-topk")
+    if (args.quantize or args.remove_frac) and not args.engine:
+        ap.error("--quantize/--remove-frac need --engine")
+    if args.engine and args.rep_topk <= 0:
+        ap.error("--engine needs sparse reps; pass a positive --rep-topk")
+    if args.engine and args.method != "auto":
+        ap.error("--engine picks its retrieval path from --quantize; drop "
+                 "--method (the builder's segments are searched via "
+                 "'auto')")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -175,21 +235,42 @@ def main(argv=None) -> int:
     params = init_params(torch.Generator(device=device).manual_seed(0), cfg)
     encode = make_config_encoder(params, cfg)
 
+    engine = None
+    if args.engine:
+        from repro_torch.runtime.serving import (BatchedEncoder, BatchPolicy,
+                                                 CorpusEngine)
+
+        engine = CorpusEngine(
+            BatchedEncoder(encode,
+                           policy=BatchPolicy(max_batch=args.index_batch)),
+            cfg.vocab_size, quantize=args.quantize, device=device)
     res = run(encode, cfg.vocab_size, corpus=args.corpus,
               requests=args.requests, topk=args.topk, method=args.method,
-              index_batch=args.index_batch, device=device)
+              index_batch=args.index_batch, device=device, engine=engine,
+              remove_frac=args.remove_frac)
     corpus = res["index"]
-    if isinstance(corpus, torch.Tensor):
+    if engine is not None:
+        st = engine.stats()
+        print(f"engine-indexed {st['n_alive']} live docs ({st['n_dead']} "
+              f"tombstoned, {st['n_compactions']} compactions, quantized "
+              f"base: {st['quantized_base']}) in "
+              f"{res['index_s'] * 1e3:.1f} ms")
+    elif isinstance(corpus, torch.Tensor):
         print(f"indexed {corpus.shape[0]} docs dense in "
               f"{res['index_s'] * 1e3:.1f} ms "
               f"({corpus.nbytes / 2**20:.2f} MiB)")
     else:
-        st = corpus.stats()
+        raw = res.get("raw_index", corpus)
+        st = raw.stats()
         print(f"indexed {st['n_docs']} docs in {res['index_s'] * 1e3:.1f} "
               f"ms: {st['n_postings']} postings over {st['active_terms']} "
               f"terms, {st['memory_bytes'] / 2**20:.2f} MiB (dense (N, V) "
               f"would be {args.corpus * cfg.vocab_size * 4 / 2**20:.2f} "
               f"MiB)")
+        if raw is not corpus:
+            print(f"quantized index: {corpus.memory_bytes() / 2**20:.2f} "
+                  f"MiB (1/{raw.memory_bytes() / corpus.memory_bytes():.2f} "
+                  f"of raw)")
     loop = res["loop"]
     ls = loop.stats()
     print(f"encoded {len(res['served'])}/{args.requests} requests in "

@@ -11,7 +11,8 @@ plus ``n_docs``, ``vocab_size`` and ``max_postings`` (the longest list:
 the static gather width of the scorers). The build is host-side numpy,
 as in the JAX package, and the arrays are then moved to the device. The
 engine extensions of the JAX index (per-term upper bounds, forward rows,
-vocab-range shards) arrive with the engine slice.
+vocab-range shards) arrive with pruning and multi-GPU (ROADMAP Queue 1
+items 8 and 10).
 """
 
 from __future__ import annotations
@@ -85,6 +86,7 @@ def _posting_percentiles(lens: np.ndarray) -> Tuple[float, ...]:
 
 
 def build_inverted_index(reps: SparseRep, vocab_size: int, *,
+                         keep_forward: bool = False,
                          device: DeviceLike = None) -> InvertedIndex:
     """Build the index from a batched ``(N, K)`` corpus rep.
 
@@ -93,7 +95,13 @@ def build_inverted_index(reps: SparseRep, vocab_size: int, *,
     corpus still yields one zero-impact posting, so the scorers' shapes
     never degenerate. Warns, with the posting-length percentiles, when
     the longest list covers more than ``STOPWORD_WARN_FRAC`` of the docs.
+    ``keep_forward=True`` (the forward rows the pruned scorer rescores
+    from) is not ported yet and raises.
     """
+    if keep_forward:
+        raise NotImplementedError(
+            "keep_forward=True is not ported yet: the forward rows arrive "
+            "with pruning, ROADMAP Queue 1 item 8")
     dev = resolve_device(device)
     host = device_get(reps)
     k = host.width

@@ -2,13 +2,16 @@
 
 Methods ported so far:
 
-    index corpora (``InvertedIndex``; queries must be ``SparseRep``s)
-    "impact"    gather the query terms' posting windows, scatter-add them
-                into dense (B, N) scores, top-k (plain PyTorch, as the JAX
-                package leaves it to XLA)
-    "fused"     the same windows through K4 (``kernels/impact_score``):
-                scoring and the running top-k in one kernel, no (B, N)
-                matrix
+    index corpora (queries must be ``SparseRep``s)
+    "impact"    ``InvertedIndex``: gather the query terms' posting windows,
+                scatter-add them into dense (B, N) scores, top-k (plain
+                PyTorch, as the JAX package leaves it to XLA)
+    "quantized" ``QuantizedIndex`` (``engine/quantize``): the same over the
+                u4+delta windows, decoded on the fly (plain PyTorch)
+    "fused"     the same windows through a kernel that scores and keeps
+                the running top-k, no (B, N) matrix: K4 for an
+                ``InvertedIndex``, K5 (decoding in the kernel) for a
+                ``QuantizedIndex`` (``kernels/impact_score``)
 
     dense corpora (an (N, V) tensor; ``SparseRep`` queries are densified)
     "dense"     ``q @ C^T`` and a top-k (plain PyTorch, as the JAX package
@@ -18,7 +21,8 @@ Methods ported so far:
                 corpus must be contiguous f32 (it is read in place)
 
     "auto"      an index: "fused" from ``AUTO_FUSED_N`` docs, else
-                "impact"; a dense corpus: "streaming" from
+                "impact" (``InvertedIndex``) or "quantized"
+                (``QuantizedIndex``); a dense corpus: "streaming" from
                 ``AUTO_STREAMING_N`` rows, else "dense"
 
 All return ``(vals (B, k) f32, idx (B, k) i32)`` with ties to the lowest
@@ -27,7 +31,8 @@ without near-ties. The JAX package's other methods raise
 ``NotImplementedError`` naming the ROADMAP item that brings them. The
 port's methods take no tuning keyword arguments (the JAX ones — Pallas
 blocks, ``interpret`` — are TPU knobs), and any that is passed raises
-instead of being ignored.
+instead of being ignored (``METHOD_KWARGS``, the accepted kwargs of each
+method, is empty for every one).
 """
 
 from __future__ import annotations
@@ -38,16 +43,22 @@ import torch
 
 from repro_torch.kernels.impact_score import fused_impact_topk, scatter_scores
 from repro_torch.kernels.topk_score import topk_rows, topk_score
+from repro_torch.retrieval.engine.quantize import (QuantizedIndex,
+                                                   fused_quantized_retrieve,
+                                                   quantized_retrieve)
 from repro_torch.retrieval.index import InvertedIndex
 from repro_torch.retrieval.sparse_rep import SparseRep
 
-METHODS = ("auto", "impact", "fused", "dense", "streaming")
+METHODS = ("auto", "impact", "quantized", "fused", "dense", "streaming")
 # methods that need an index corpus (not a dense matrix)
-INDEX_METHODS = ("impact", "fused")
+INDEX_METHODS = ("impact", "quantized", "fused")
+# the tuning kwargs each method accepts: none (the JAX ones, Pallas blocks
+# and ``interpret``, are TPU knobs)
+METHOD_KWARGS = {m: frozenset() for m in METHODS if m != "auto"}
 # the JAX package's other methods, and the ROADMAP item that ports each
 NOT_PORTED = {
-    "pruned": "ROADMAP Queue 1 item 8 (index engine, slice 4)",
-    "quantized": "ROADMAP Queue 1 item 8 and kernel K5 (slice 4)",
+    "pruned": "ROADMAP Queue 1 item 8 (pruning, with the index's term_ubs "
+              "and forward rows)",
     "sharded": "ROADMAP Queue 1 item 10 (multi-GPU, slice 4)",
     "term_sharded": "ROADMAP Queue 1 item 10 (multi-GPU, slice 4)",
     "shard2d": "ROADMAP Queue 1 item 10 (multi-GPU, slice 4)",
@@ -115,6 +126,8 @@ def resolve_method(method: str, corpus) -> str:
                          f"{list(METHODS)}")
     if method != "auto":
         return method
+    if isinstance(corpus, QuantizedIndex):
+        return "fused" if corpus.n_docs >= AUTO_FUSED_N else "quantized"
     if isinstance(corpus, InvertedIndex):
         return "fused" if corpus.n_docs >= AUTO_FUSED_N else "impact"
     rows = corpus.shape[0] if hasattr(corpus, "shape") else 0
@@ -122,9 +135,10 @@ def resolve_method(method: str, corpus) -> str:
 
 
 def _check_kwargs(method: str, passed: dict) -> None:
-    """Raise on tuning kwargs: no ported method honors any."""
+    """Raise on tuning kwargs the method does not take (``METHOD_KWARGS``:
+    no ported method takes any)."""
     stray = sorted(name for name, value in passed.items()
-                   if value is not None)
+                   if value is not None and name not in METHOD_KWARGS[method])
     if stray:
         raise ValueError(
             f"method={method!r} does not accept {', '.join(stray)} (the "
@@ -135,7 +149,8 @@ def _check_kwargs(method: str, passed: dict) -> None:
 def retrieve(queries, corpus, k: int = 10, *, method: str = "auto",
              **tuning) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k retrieval of ``queries`` (``SparseRep`` or dense ``(B, V)``)
-    from ``corpus`` (an ``InvertedIndex`` or a dense ``(N, V)`` tensor).
+    from ``corpus`` (an ``InvertedIndex``, a ``QuantizedIndex`` or a dense
+    ``(N, V)`` tensor).
 
     ``k`` is clamped to the corpus size; results lie on the corpus's
     device. See the module docstring for the methods.
@@ -148,12 +163,26 @@ def retrieve(queries, corpus, k: int = 10, *, method: str = "auto",
                 f"method={method!r} needs SparseRep queries — sparsify "
                 "with retrieval.sparse_rep.sparsify_topk/threshold (an "
                 "explicit budget, not a silent one)")
+        if method == "fused" and isinstance(corpus, QuantizedIndex):
+            return fused_quantized_retrieve(queries, corpus, k)
+        if method == "quantized":
+            if not isinstance(corpus, QuantizedIndex):
+                raise ValueError(
+                    "method='quantized' needs a QuantizedIndex corpus — "
+                    "compress one with engine.quantize.quantize_index")
+            return quantized_retrieve(queries, corpus, k)
+        if method == "fused":
+            if not isinstance(corpus, InvertedIndex):
+                raise ValueError(
+                    "method='fused' needs an InvertedIndex or "
+                    "QuantizedIndex corpus — build one with "
+                    "retrieval.index.build_inverted_index or "
+                    "engine.quantize.quantize_index")
+            return fused_retrieve(queries, corpus, k)
         if not isinstance(corpus, InvertedIndex):
             raise ValueError(
                 f"method={method!r} needs an InvertedIndex corpus — build "
                 "one with retrieval.index.build_inverted_index")
-        if method == "fused":
-            return fused_retrieve(queries, corpus, k)
         return topk_rows(impact_scores(queries, corpus),
                          min(k, corpus.n_docs))
 

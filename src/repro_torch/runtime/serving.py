@@ -14,9 +14,10 @@ poisoned requests stand alone and fail as ``FailedResult``), an adaptive
 batch cap halved on OOM-shaped errors, the degradation ladder
 (``DegradeController``), continuous (earliest-deadline-first) batching,
 and ``stats()``. Every submitted uid completes exactly once as served,
-shed or failed, and ``take(uid)`` pops. ``retrieve_topk`` is the JAX
-package's dense-fallback shim. The online corpus (``CorpusEngine``)
-arrives with the engine slice.
+shed or failed, and ``take(uid)`` pops. ``CorpusEngine`` grows and
+shrinks an indexed corpus while serving (the encoder plus an
+``engine.IndexBuilder``). ``retrieve_topk`` is the JAX package's
+dense-fallback shim.
 """
 
 from __future__ import annotations
@@ -613,6 +614,92 @@ class ServingLoop:
         if self.degrade is not None:
             d.update(self.degrade.stats())
         return d
+
+
+class CorpusEngine:
+    """Online corpus for the serving loop: encode + index + search.
+
+    Couples a ``BatchedEncoder`` (documents go through the same batched
+    encode path as queries) with an ``engine.IndexBuilder``, so the corpus
+    grows and shrinks while serving::
+
+        eng = CorpusEngine(encoder, vocab_size, quantize=True)
+        ids = eng.add_docs(token_arrays)       # encode + buffer
+        eng.remove_docs(ids[:3])               # tombstone
+        vals, ext_ids = eng.search(q_rep, k)   # flushes, then scores
+
+    ``search`` returns stable external doc ids (those ``add_docs`` handed
+    out), across compactions. With ``quantize=True`` the base segment is
+    served compressed (K5 under ``"fused"``, and under ``"auto"`` from
+    ``AUTO_FUSED_N`` base docs). The segments live on ``device`` (default
+    ``cuda``). ``shard_axis="doc"`` leaves the base one index, as in the
+    JAX package; a term-sharded or planned base (``shard_axis="term"``,
+    ``plan``) and ``keep_forward`` are not ported yet and raise.
+    """
+
+    def __init__(self, encoder: BatchedEncoder, vocab_size: int, *,
+                 quantize: bool = False, keep_forward: bool = False,
+                 merge_frac: float = 0.25, compact_dead_frac: float = 0.25,
+                 shard_axis: str = "doc", n_shards: int = 1, plan=None,
+                 device=None):
+        from repro_torch.retrieval.engine import IndexBuilder
+
+        if shard_axis not in ("doc", "term"):
+            raise ValueError(f"shard_axis must be 'doc' or 'term', got "
+                             f"{shard_axis!r}")
+        self.encoder = encoder
+        self.builder = IndexBuilder(
+            vocab_size, quantize=quantize, keep_forward=keep_forward,
+            merge_frac=merge_frac, compact_dead_frac=compact_dead_frac,
+            term_shards=n_shards if shard_axis == "term" else 0, plan=plan,
+            device=device)
+        self._next_uid = 0
+
+    def add_docs(self, docs: Sequence[np.ndarray],
+                 ids: Optional[Sequence[int]] = None) -> np.ndarray:
+        """Encode token arrays through the batched encoder and buffer them
+        into the index; returns their external doc ids.
+
+        Documents are encoded in chunks of the encoder's
+        ``policy.max_batch``. The first chunk's rows are type-checked
+        before the next chunk is encoded, so a dense encoder fails fast.
+        """
+        from repro_torch.retrieval.sparse_rep import stack_rows
+
+        rows = []
+        chunk = max(1, self.encoder.policy.max_batch)
+        docs = list(docs)
+        for lo in range(0, len(docs), chunk):
+            reqs = []
+            for tokens in docs[lo:lo + chunk]:
+                reqs.append(Request(uid=self._next_uid,
+                                    tokens=np.asarray(tokens, np.int32)))
+                self._next_uid += 1
+            by_uid = self.encoder.encode_batch(reqs)
+            chunk_rows = [by_uid[r.uid] for r in reqs]
+            if not all(isinstance(r, SparseRep) for r in chunk_rows):
+                raise ValueError(
+                    "CorpusEngine needs a sparse encoder — set the config's "
+                    "rep_topk/rep_threshold knobs so encode emits SparseReps")
+            rows.extend(chunk_rows)
+        if not rows:
+            return np.zeros(0, np.int64)
+        return self.builder.add(stack_rows(rows), ids=ids)
+
+    def remove_docs(self, ids: Sequence[int]) -> int:
+        return self.builder.remove(ids)
+
+    def flush(self, **kw) -> None:
+        self.builder.flush(**kw)
+
+    def search(self, queries, k: int = 10, *, method: str = "auto",
+               **kw) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-k with external ids (``IndexBuilder.search``; ``q_width``
+        is the one keyword it takes)."""
+        return self.builder.search(queries, k, method=method, **kw)
+
+    def stats(self) -> Dict[str, float]:
+        return self.builder.stats()
 
 
 def retrieve_topk(q_reps, doc_matrix: torch.Tensor, k: int = 10
