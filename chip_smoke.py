@@ -19,10 +19,12 @@ Phases, run in this order, each printing one JSON line:
              on the sparse phase's reps, against K4.
    serve_engine — the online index engine: 20480 docs grown through a
              ``CorpusEngine(quantize=True)`` one batch of 64 at a time, 5 %
-             tombstoned and compacted away, one more batch as the delta;
-             the served queries searched with ``auto`` (the quantized base
-             resolving to K5) and ``fused`` (K5 on the base, K4 on the
-             delta), held against the ``quantized`` method.
+             tombstoned (searched once zeroed in place), then compacted
+             away, one more batch as the delta; the served queries
+             searched with ``auto`` (the quantized base resolving to K5)
+             and ``fused`` (K5 on the base, K4 on the delta), held against
+             the ``quantized`` method; and the JAX package's acceptance
+             corpus quantized on the card, at least 4x smaller.
 5. timing  — each kernel, its plain version, a one-call PyTorch yardstick
              and its roofline bound, with CUDA events; for K2 and K3 also
              the peak memory of the head's forward + backward against the
@@ -817,18 +819,124 @@ def phase_serve_dense(torch, served):
 ENGINE = {"corpus": 20480, "batch": 64, "remove_frac": 0.05}
 
 
+def searched(torch, engine, queries, k):
+    """``engine.search`` with auto, fused and quantized: each one's host
+    results and ms, the per-slot scores the quantized method sums (the
+    base's dequantized sums, the delta's impact sums) and the ids' slots,
+    taken before the next mutation renumbers them, and the K4/K5 launches
+    of each search."""
+    from repro_torch.kernels import impact_score as k45
+    from repro_torch.retrieval.engine.quantize import quantized_scores
+    from repro_torch.retrieval.score import impact_scores
+
+    builder = engine.builder
+    out = {"launches": {}}
+    for method in ("auto", "fused", "quantized"):
+        before = (k45.fused_quantized_topk.launches,
+                  k45.fused_impact_topk.launches)
+        t0 = time.perf_counter()
+        out[method] = engine.search(queries, k, method=method)
+        out[method + "_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["launches"][method] = {
+            "impact_q_topk": k45.fused_quantized_topk.launches - before[0],
+            "impact_topk": k45.fused_impact_topk.launches - before[1]}
+    parts = [quantized_scores(queries, builder._base)]
+    if builder._delta is not None:
+        parts.append(impact_scores(queries, builder._delta))
+    out["scores"] = torch.cat(parts, dim=1)
+    slot_of = np.vectorize(lambda e: builder._slot.get(int(e), -1),
+                           otypes=[np.int64])
+    out["slots"] = {m: slot_of(out[m][1])
+                    for m in ("auto", "fused", "quantized")}
+    return out
+
+
+def held_to_quantized(torch, out, gone, tag):
+    """Each search of ``searched`` against the quantized method's: finite
+    scores, no padding, no tombstoned id (``gone``), ids equal beyond
+    near-ties and scores within ``SCORE_TOL``. Returns a row per method."""
+    v_q = out["quantized"][0]
+    want = torch.from_numpy(out["slots"]["quantized"]).cuda()
+    rows = {}
+    for method in ("auto", "fused", "quantized"):
+        vals, ext = out[method]
+        require(bool(np.isfinite(vals).all()) and not (ext < 0).any()
+                and not gone & set(ext.ravel().tolist()),
+                f"{tag}{method}: non-finite scores, padding or tombstoned "
+                f"ids")
+        slots = torch.from_numpy(out["slots"][method]).cuda()
+        require(bool((slots >= 0).all()),
+                f"{tag}{method}: unknown external ids")
+        hard, differ = ids_beyond_near_ties(torch, out["scores"], slots,
+                                            want)
+        require(hard == 0, f"{tag}{method} ids differ from the quantized "
+                           f"method's beyond near-ties at {hard} positions")
+        err = float(np.abs(vals - v_q).max())
+        require(err <= SCORE_TOL * (1 + float(np.abs(v_q).max())),
+                f"{tag}{method} scores differ from the quantized method's "
+                f"by {err}")
+        rows[method] = {"ids_differ": differ, "max_abs_err": err,
+                        "search_ms": out[method + "_ms"],
+                        "launches": out["launches"][method]}
+    return rows
+
+
+# The JAX package's compression acceptance corpus (tests/test_engine.py,
+# BENCH): graded docs whose top-10 ids are the same under every method.
+ACCEPT = {"n_docs": 1536, "vocab": 1536, "doc_nnz": 32, "n_queries": 8,
+          "q_nnz": 28, "k": 10}
+
+
+def acceptance_corpus(torch):
+    """The reference's acceptance corpus indexed and quantized on the
+    card: at least 4x smaller than its raw index, the quantized and fused
+    (K5) ids equal to the exact impact ids, and K5 equal to its plain
+    version on its windows."""
+    from repro_torch.data.synthetic import lsr_impact_corpus
+    from repro_torch.retrieval.engine.quantize import (_fused_q_windows,
+                                                       quantize_index)
+    from repro_torch.retrieval.index import build_inverted_index
+    from repro_torch.retrieval.score import retrieve
+    from repro_torch.retrieval.sparse_rep import sparsify_topk
+
+    a, k = ACCEPT, ACCEPT["k"]
+    data = lsr_impact_corpus(**{key: a[key] for key in (
+        "n_docs", "vocab", "doc_nnz", "n_queries", "q_nnz")})
+    raw = build_inverted_index(sparsify_topk(
+        torch.from_numpy(data["docs"]).cuda(), a["doc_nnz"]), a["vocab"],
+        device="cuda")
+    quant = quantize_index(raw)
+    q = sparsify_topk(torch.from_numpy(data["queries"]).cuda(), a["q_nnz"])
+    ids = {m: retrieve(q, raw if m == "impact" else quant, k, method=m)[1]
+           for m in ("impact", "quantized", "fused")}
+    ratio = raw.memory_bytes() / quant.memory_bytes()
+    require(ratio >= 4.0, f"the acceptance corpus is {ratio:.3f}x smaller "
+                          f"quantized, below 4x")
+    for m in ("quantized", "fused"):
+        require(bool(torch.equal(ids[m], ids["impact"])),
+                f"acceptance corpus: {m} ids differ from the impact ids")
+    case = k5_compare(torch, _fused_q_windows(q, quant), quant.n_docs, k)
+    require(case["equal"] and case["bit_identical"],
+            f"K5 on the acceptance corpus: {case}")
+    return {"compression": ratio, "raw_memory_bytes": raw.memory_bytes(),
+            "quantized_memory_bytes": quant.memory_bytes(),
+            "delta_dtype": str(quant.deltas.dtype),
+            "phantom_frac": quant.stats()["phantom_frac"],
+            "ids_equal_impact": True, "k5": case}
+
+
 def phase_serve_engine(torch, served):
     """The online index engine at full width: the serve phase's weights and
     queries, 20480 docs grown through ``CorpusEngine(quantize=True)`` one
-    ``add_docs`` + ``flush`` per batch of 64, 5 % tombstoned and compacted
-    away (19456 live docs in the base, above ``AUTO_FUSED_N``), one more
-    batch as the delta; then ``search`` with ``auto`` and ``fused``."""
+    ``add_docs`` + ``flush`` per batch of 64, 5 % tombstoned, searched
+    once with their postings zeroed in place by a plain ``flush``, then
+    compacted away (19456 live docs in the base, above ``AUTO_FUSED_N``),
+    one more batch as the delta; each time ``search`` with ``auto``,
+    ``fused`` and ``quantized``. Then the acceptance corpus."""
     from repro_torch.kernels import impact_score as k45
     from repro_torch.kernels import sparton as k1
     from repro_torch.launch.serve import SEED, grow_engine
-    from repro_torch.retrieval.engine.quantize import (QuantizedIndex,
-                                                       quantized_scores)
-    from repro_torch.retrieval.score import impact_scores
+    from repro_torch.retrieval.engine.quantize import QuantizedIndex
     from repro_torch.runtime.serving import (BatchedEncoder, BatchPolicy,
                                              CorpusEngine,
                                              make_config_encoder)
@@ -848,7 +956,6 @@ def phase_serve_engine(torch, served):
     builder, queries, k = engine.builder, res["queries"], SERVE["topk"]
     rng = np.random.default_rng(SEED)
     n = ENGINE["corpus"]
-    counts = {}
     k1.sparton_forward.launches = 0
     k45.fused_impact_topk.launches = 0
     k45.fused_quantized_topk.launches = 0
@@ -864,6 +971,12 @@ def phase_serve_engine(torch, served):
                              replace=False).tolist()
         require(engine.remove_docs(dropped) == len(dropped),
                 "tombstoning removed fewer docs than asked")
+        # the in-place path first: the tombstones' postings zeroed and the
+        # base quantized again (what serve --engine --remove-frac runs)
+        engine.flush()
+        in_place = {"stats": engine.stats(),
+                    "resolved": builder.resolved_method("auto"),
+                    **searched(torch, engine, queries, k)}
         engine.flush(force_compact=True)
         base_raw, base = builder._base_raw, builder._base
         added = engine.add_docs([rng.integers(1, cfg.vocab_size, size=16)
@@ -871,16 +984,7 @@ def phase_serve_engine(torch, served):
                                  for _ in range(ENGINE["batch"])])
         engine.flush()
         resolved = builder.resolved_method("auto")
-        out = {}
-        for method in ("auto", "fused", "quantized"):
-            before = (k45.fused_quantized_topk.launches,
-                      k45.fused_impact_topk.launches)
-            t0 = time.perf_counter()
-            out[method] = engine.search(queries, k, method=method)
-            out[method + "_ms"] = 1e3 * (time.perf_counter() - t0)
-            counts[method] = {
-                "impact_q_topk": k45.fused_quantized_topk.launches - before[0],
-                "impact_topk": k45.fused_impact_topk.launches - before[1]}
+        out = searched(torch, engine, queries, k)
     launches = {"sparton_fwd": k1.sparton_forward.launches,
                 "impact_topk": k45.fused_impact_topk.launches,
                 "impact_q_topk": k45.fused_quantized_topk.launches}
@@ -892,6 +996,7 @@ def phase_serve_engine(torch, served):
             and st["delta_docs"] == ENGINE["batch"] and st["n_dead"] == 0,
             f"engine segments after the compaction and the last batch: {st}")
     require(resolved == "fused", f"auto on the base resolved to {resolved!r}")
+    counts = out["launches"]
     require(counts["auto"] == {"impact_q_topk": 1, "impact_topk": 0},
             f"auto search launched {counts['auto']}: K5 once on the base, "
             f"the {ENGINE['batch']}-doc delta on the plain impact path")
@@ -900,38 +1005,29 @@ def phase_serve_engine(torch, served):
             f"once each")
     require(counts["quantized"] == {"impact_q_topk": 0, "impact_topk": 0},
             f"the quantized method launched kernels: {counts['quantized']}")
+    st_in = in_place["stats"]
+    require(st_in["quantized_base"] and st_in["n_dead"] == len(dropped)
+            and st_in["n_compactions"] == grown["n_compactions"],
+            f"the tombstones were not zeroed in place: {st_in}")
+    want = {"impact_q_topk": int(in_place["resolved"] == "fused"),
+            "impact_topk": 0}
+    require(in_place["launches"]["auto"] == want,
+            f"auto search on the zeroed base (resolved to "
+            f"{in_place['resolved']!r}) launched "
+            f"{in_place['launches']['auto']}, expected {want}")
+    require(in_place["launches"]["fused"]["impact_q_topk"] == 1,
+            f"fused search on the zeroed base launched "
+            f"{in_place['launches']['fused']}, expected K5 once")
     require(launches["sparton_fwd"] == len(batches),
             f"K1 launched {launches['sparton_fwd']} times for "
             f"{len(batches)} encode batches")
     require(not plain_on_cuda, f"plain versions ran on CUDA tensors: "
                                f"{sorted(set(plain_on_cuda))}")
 
-    # every search against the quantized method's exact per-slot scores:
-    # the base's dequantized sums and the delta's impact sums
-    scores = torch.cat([quantized_scores(queries, base),
-                        impact_scores(queries, builder._delta)], dim=1)
-    slot_of = np.vectorize(lambda e: builder._slot.get(int(e), -1))
-    v_q, e_q = out["quantized"]
     gone = set(dropped)
-    rows = {}
-    for method in ("auto", "fused", "quantized"):
-        vals, ext = out[method]
-        require(bool(np.isfinite(vals).all()) and not (ext < 0).any()
-                and not gone & set(ext.ravel().tolist()),
-                f"{method}: non-finite scores, padding or tombstoned ids")
-        slots = torch.from_numpy(slot_of(ext)).cuda()
-        require(bool((slots >= 0).all()), f"{method}: unknown external ids")
-        hard, differ = ids_beyond_near_ties(
-            torch, scores, slots, torch.from_numpy(slot_of(e_q)).cuda())
-        require(hard == 0, f"{method} ids differ from the quantized method's "
-                           f"beyond near-ties at {hard} positions")
-        err = float(np.abs(vals - v_q).max())
-        require(err <= SCORE_TOL * (1 + float(np.abs(v_q).max())),
-                f"{method} scores differ from the quantized method's by "
-                f"{err}")
-        rows[method] = {"ids_differ": differ, "max_abs_err": err,
-                        "search_ms": out[method + "_ms"],
-                        "launches": counts[method]}
+    rows_in_place = held_to_quantized(torch, in_place, gone, "in place: ")
+    rows = held_to_quantized(torch, out, gone, "")
+    accept = acceptance_corpus(torch)
     qs = base.stats()
     ratio = base_raw.memory_bytes() / base.memory_bytes()
     require(ratio > 1, f"the quantized base is not smaller than its raw "
@@ -945,7 +1041,10 @@ def phase_serve_engine(torch, served):
          phantom_frac=qs["phantom_frac"], max_postings=qs["max_postings"],
          delta_dtype=str(base.deltas.dtype), base_memory_bytes=qs[
              "memory_bytes"], raw_memory_bytes=base_raw.memory_bytes(),
-         compression=ratio, searches=rows)
+         compression=ratio, searches=rows,
+         in_place={"resolved": in_place["resolved"], "stats": st_in,
+                   "searches": rows_in_place},
+         acceptance=accept)
     return {"engine": engine, "launches": launches}
 
 
@@ -1493,9 +1592,13 @@ def time_k5(torch, queries, base, k, *, reps):
     """K5 at one batch on the engine's quantized base: against its plain
     version, CUDA-event times of kernel, plain version and the yardstick
     (the PyTorch decode, ``index_add_`` into ``(B, N)``, ``torch.topk``),
-    and the bound: the gathered windows read once
-    (``fused_window_bytes(..., "u4")``) and the ``(B, k)`` results written
-    once, over the byte rate."""
+    and the bound over the byte rate: what the kernel must read of this
+    run's windows, once (``qv`` and ``lens`` of every term; ``starts``,
+    ``lo`` and ``step`` of the terms with ``qv > 0`` and a posting; the
+    byte and gap lanes below ``min(lens, L)`` of those terms, since the
+    padding is never read), and the ``(B, k)`` results written once. The
+    padded window (``fused_window_bytes(..., "u4")``) is printed beside
+    it."""
     from repro_torch.kernels.impact_score import (decode_quantized_windows,
                                                   fused_quantized_topk,
                                                   fused_quantized_topk_plain,
@@ -1516,10 +1619,15 @@ def time_k5(torch, queries, base, k, *, reps):
         flat.index_add_(0, (rows + docs.view(B, -1)).view(-1), w.view(-1))
         return torch.topk(flat.view(B, n), k, dim=1)
 
-    nbytes = fused_window_bytes(B, Q, L, "u4") + B * k * 8
+    _, _, _, lens, qv = wins[:5]
+    read = torch.where(qv > 0, lens.clamp(0, L), 0)
+    lanes, terms = int(read.sum()), int((read > 0).sum())
+    nbytes = 8 * B * Q + 12 * terms + 8 * lanes + 8 * B * k
     row = {"shape": {"B": B, "Q": Q, "L": L, "n_docs": n, "k": k}, **case,
-           "window_bytes": nbytes, "bound_ms": 1e3 * nbytes / PEAK_BYTES,
-           "bound_by": "bytes"}
+           "lanes_read": lanes, "lanes_padded": B * Q * L,
+           "terms_read": terms, "bytes": nbytes,
+           "padded_window_bytes": fused_window_bytes(B, Q, L, "u4"),
+           "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes"}
     for key, fn in (("ms", lambda: fused_quantized_topk(*wins, n_docs=n,
                                                          k=k)),
                     ("plain_ms", lambda: fused_quantized_topk_plain(

@@ -1,9 +1,10 @@
-"""Deterministic synthetic LSR pairs (the port's copy of
-``repro/data/synthetic.py:_rng``, ``_zipf_ids`` and
-``lsr_pair_batches``).
+"""Deterministic synthetic LSR data (the port's copy of
+``repro/data/synthetic.py:_rng``, ``_zipf_ids``, ``lsr_pair_batches`` and
+``lsr_impact_corpus``).
 
-Host-side numpy, seeded per ``(seed, shard, step)``: for the same
-arguments the stream is the JAX package's, batch for batch.
+Host-side numpy: ``lsr_pair_batches`` is seeded per ``(seed, shard,
+step)``, ``lsr_impact_corpus`` by ``seed``; for the same arguments each
+gives the JAX package's arrays, bit for bit.
 """
 
 from __future__ import annotations
@@ -53,3 +54,71 @@ def lsr_pair_batches(
             "d_tokens": d_tok * d_mask, "d_mask": d_mask,
         }
         step += 1
+
+
+def lsr_impact_corpus(
+    *,
+    n_docs: int,
+    vocab: int,
+    doc_nnz: int,
+    n_queries: int = 0,
+    q_nnz: int = 16,
+    graded: int = 12,
+    seed: int = 0,
+    term_jitter: float = 0.04,
+) -> Dict[str, np.ndarray]:
+    """Synthetic LSR impact matrices with graded relevance, the retrieval
+    engine's acceptance corpus.
+
+    Term t gets a center ``c_t ~ U(0.5, 2.0)`` and each posting draws
+    ``c_t * U(1 - term_jitter, 1 + term_jitter)``, so per-term affine
+    quantization sees a tight range. Docs activate ``doc_nnz`` distinct
+    uniform terms. Per query, ``graded`` planted docs share a strictly
+    shrinking prefix of its terms (``q_nnz - 2i`` for plant i, fillers
+    drawn from the non-query terms), so consecutive grades differ by two
+    whole terms and the top-``k`` ids (``k <= graded - 2``) are the same
+    under every exact or quantized method.
+
+    Returns ``{"docs": (n_docs, vocab) f32}``, plus ``"queries"``
+    ``(n_queries, vocab) f32`` and ``"qrels"`` ``(n_queries * graded, 3)
+    f32`` ``(query, doc, grade)`` triples when ``n_queries`` > 0.
+    """
+    if n_queries and n_docs < n_queries * graded:
+        raise ValueError(f"need n_docs >= n_queries*graded = "
+                         f"{n_queries * graded}, got {n_docs}")
+    if n_queries and (doc_nnz < q_nnz or q_nnz < 2 * graded + 2):
+        raise ValueError("planted docs need doc_nnz >= q_nnz and "
+                         "q_nnz >= 2*graded + 2")
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(0.5, 2.0, size=vocab).astype(np.float32)
+
+    def impacts(cols):
+        jit = rng.uniform(1 - term_jitter, 1 + term_jitter,
+                          size=cols.shape[0]).astype(np.float32)
+        return centers[cols] * jit
+
+    docs = np.zeros((n_docs, vocab), np.float32)
+    rows = np.repeat(np.arange(n_docs), doc_nnz)
+    cols = np.stack([rng.choice(vocab, size=doc_nnz, replace=False)
+                     for _ in range(n_docs)]).ravel()
+    docs[rows, cols] = impacts(cols)
+    out = {"docs": docs}
+    if n_queries:
+        queries = np.zeros((n_queries, vocab), np.float32)
+        triples = []
+        for b in range(n_queries):
+            q_terms = rng.choice(vocab, size=q_nnz, replace=False)
+            queries[b, q_terms] = impacts(q_terms)
+            pool = np.setdiff1d(np.arange(vocab), q_terms)
+            for i in range(graded):
+                d = b * graded + i
+                shared = q_terms[:q_nnz - 2 * i]
+                docs[d] = 0.0
+                docs[d, shared] = impacts(shared)
+                cols = rng.choice(pool, size=doc_nnz - shared.shape[0],
+                                  replace=False)
+                docs[d, cols] = impacts(cols)
+                triples.append((b, d, graded - i))
+        out["queries"] = queries
+        out["qrels"] = np.asarray(triples, np.float32)
+    return out

@@ -316,26 +316,15 @@ class IndexBuilder:
         return "impact"
 
     def _check_search_kwargs(self, method: str, kw: dict) -> str:
-        """Strict kwarg parity with ``retrieve()``: names no method takes,
-        and names the resolved method does not take, raise ``TypeError``.
-        Returns the resolved method."""
+        """No ported method takes a tuning kwarg (``score.METHOD_KWARGS``),
+        so any keyword but ``q_width`` raises ``TypeError`` naming the
+        resolved method. Returns the resolved method."""
         resolved = self.resolved_method(method)
-        every = frozenset().union(*score.METHOD_KWARGS.values())
-        allowed = score.METHOD_KWARGS.get(resolved, frozenset())
-        unknown = sorted(n for n in kw if n not in every)
-        stray = sorted(n for n, v in kw.items()
-                       if n in every and v is not None and n not in allowed)
-        if unknown or stray:
-            what = []
-            if unknown:
-                what.append(f"unknown kwargs {', '.join(unknown)}")
-            if stray:
-                what.append(f"kwargs {', '.join(stray)} that "
-                            f"method={resolved!r} does not accept")
+        if kw:
             raise TypeError(
                 f"search(method={method!r}) resolved to {resolved!r}: "
-                + "; ".join(what) + " (accepted: "
-                f"{sorted(allowed) if allowed else 'no tuning kwargs'})")
+                f"unknown kwargs {', '.join(sorted(kw))} (accepted: no "
+                "tuning kwargs)")
         return resolved
 
     def search(self, queries: SparseRep, k: int = 10, *,

@@ -135,10 +135,10 @@ def resolve_method(method: str, corpus) -> str:
 
 
 def _check_kwargs(method: str, passed: dict) -> None:
-    """Raise on tuning kwargs the method does not take (``METHOD_KWARGS``:
-    no ported method takes any)."""
+    """Raise on tuning kwargs: no ported method takes any
+    (``METHOD_KWARGS``)."""
     stray = sorted(name for name, value in passed.items()
-                   if value is not None and name not in METHOD_KWARGS[method])
+                   if value is not None)
     if stray:
         raise ValueError(
             f"method={method!r} does not accept {', '.join(stray)} (the "

@@ -24,6 +24,7 @@ from repro.retrieval import sparsify_topk as jax_sparsify
 from repro.retrieval.engine.quantize import _fused_q_windows as jax_windows
 from repro.retrieval.engine.quantize import quantized_scores as jax_scores
 from repro.retrieval.score import _resolve_method as jax_resolve
+from repro_torch.data.synthetic import lsr_impact_corpus as port_corpus
 from repro_torch.kernels.impact_score import (fused_quantized_topk,
                                               fused_window_bytes)
 from repro_torch.retrieval import score
@@ -230,6 +231,30 @@ def test_plain_k5_empty_window_and_k_past_n_docs():
     np.testing.assert_array_equal(port[1], [[0, 1, 2, 3, 0, 0]] * 2)
     assert (port[0][:, :4] == 0).all() and (port[0][:, 4:] == -1e30).all()
     assert fused_quantized_topk.launches == 0     # the CPU takes the plain
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_docs=1536, vocab=1536, doc_nnz=32, n_queries=8, q_nnz=28),
+    dict(n_docs=96, vocab=256, doc_nnz=16, seed=3),
+    dict(n_docs=40, vocab=64, doc_nnz=30, n_queries=2, q_nnz=26, graded=12,
+         seed=5, term_jitter=0.2)])
+def test_lsr_impact_corpus_identical_to_jax(kw):
+    """The port's copy of the acceptance corpus (the card's >= 4x gate
+    builds it) gives the JAX package's arrays bit for bit."""
+    want, got = lsr_impact_corpus(**kw), port_corpus(**kw)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype
+        np.testing.assert_array_equal(got[key], want[key])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_docs=10, vocab=64, doc_nnz=30, n_queries=1, q_nnz=26),
+    dict(n_docs=40, vocab=64, doc_nnz=20, n_queries=2, q_nnz=26)])
+def test_lsr_impact_corpus_refuses_as_jax(kw):
+    for make in (lsr_impact_corpus, port_corpus):
+        with pytest.raises(ValueError, match="need n_docs|planted docs"):
+            make(**kw)
 
 
 def test_compression_at_least_4x():
