@@ -9,24 +9,32 @@ Phases, run in this order, each printing one JSON line:
 2. build   — compile the CUDA kernels from ``src/repro_torch/csrc``.
 3. kernels — each kernel against its plain PyTorch version on the card
              (K2 and K3 also against the dense oracle, and bit for bit
-             against a second launch).
+             against a second launch), K6 also past its old k limit of
+             256, and past the old limits of the head: K2 at S = 1729 and
+             2048 (its S ranges giving the bits of one range), K1, K2 and
+             K3 at B = 65536.
 4. serve   — the full-width splade_bert serving path: index 16384 docs,
              serve 64 requests through the batching loop, retrieve with
              ``method="auto"`` (which must resolve to the fused kernel).
    serve_dense — the same path with dense reps (``--rep-topk 0``): a
              (16384, 30522) f32 corpus, ``auto`` resolving to the
              streaming kernel (K6), held against the ``dense`` method and,
-             on the sparse phase's reps, against K4.
+             on the sparse phase's reps, against K4; then K6 at k = 257
+             and 300, and on a bf16 and a non-contiguous corpus, against
+             the ``dense`` method.
    serve_engine — the online index engine: 20480 docs grown through a
              ``CorpusEngine(quantize=True)`` one batch of 64 at a time, 5 %
              tombstoned (searched once zeroed in place), then compacted
              away, one more batch as the delta; the served queries
              searched with ``auto`` (the quantized base resolving to K5)
              and ``fused`` (K5 on the base, K4 on the delta), held against
-             the ``quantized`` method; and the JAX package's acceptance
-             corpus quantized on the card, at least 4x smaller.
+             the ``quantized`` method; the JAX package's acceptance
+             corpus quantized on the card, at least 4x smaller; then K4
+             and K5 at k = 1025, 1100 and n_docs on the base, against the
+             ``impact`` and ``quantized`` methods.
 5. timing  — each kernel, its plain version, a one-call PyTorch yardstick
-             and its roofline bound, with CUDA events; for K2 and K3 also
+             and its roofline bound, with CUDA events (K1 also at the
+             train step's 384 x 256, K6 at B 8 and B 64); for K2 and K3 also
              the peak memory of the head's forward + backward against the
              paper's PyTorch baseline, for K6 the peak memory of kernel and
              yardstick. The dense corpus and the engine are then dropped.
@@ -59,6 +67,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 K1_TOL = 1e-4     # f32 sums over D in another order (both sides f32)
 # K2/K3 against their plain versions: f32 sums over V (dH) or B (dE, db)
@@ -68,6 +77,7 @@ BWD_TOL = 1e-5
 # chains of FMAs against cuBLAS's blocked sums), relative to 1 + |score|;
 # ids may differ only where the two candidates' scores are that close
 K6_TOL = 1e-4
+K6_STREAM_B = 8   # K6 batches up to this take f32 FMAs, larger ones 3xTF32
 
 
 def emit(phase: str, **fields) -> None:
@@ -340,11 +350,17 @@ K6_SHAPES = [  # (B, N, D, k): tests/test_kernels_topk.py shapes, an odd D
     (3, 301, 13, 9),                          # (4-byte loads), k == N and
     (3, 10, 8, 10), (3, 10, 8, 16), (3, 7, 8, 12),   # k > N (a NEG_INF tail),
     (8, 3000, 2500, 10), (3, 1000, 1201, 7),  # D over several query chunks,
-    (5, 20000, 31, 256), (9, 70000, 24, 256),  # MAX_K over many tiles, the
-    (40, 5000, 33, 20), (40, 3000, 700, 10),   # 32-row and 64-row query
-    (70, 3000, 50, 64), (66, 2000, 20, 200),   # tiles (and the fallback to
-    (0, 50, 6, 4),                             # 32 rows for long lists),
-]                                              # and B = 0
+    (5, 20000, 31, 256), (9, 70000, 24, 256),  # k = 256 over many tiles, the
+    (40, 5000, 33, 20), (40, 3000, 700, 10),   # 16-, 32- and 64-row query
+    (70, 3000, 50, 64), (66, 2000, 20, 200),   # tiles of the tensor-core
+    (12, 4000, 300, 10), (16, 2500, 77, 33),   # path (B > 8, an odd D too),
+    (0, 50, 6, 4),                             # B = 0, and past the old
+    (5, 20000, 31, 257), (40, 5000, 33, 300),  # limit of 256: lists merged
+    (20, 100, 8, 300), (70, 3000, 50, 1000),   # in passes, k > N, pass 1's
+    (9, 200000, 8, 2000),                      # lists in the workspace
+    (10, 20000, 4, 20000),                     # (B > 8), pass 2's (k = N),
+    (2, 1000000, 4, 3000),                     # and stream_kernel's (B <= 8)
+]
 
 
 def k6_cases(torch):
@@ -411,6 +427,64 @@ def k6_compare(torch, q, C, k, exact):
     return {**out, "max_abs_err": float(err.max()),
             "id_mismatch": int(differ.sum()), "id_hard": hard,
             "within_tol": ok and hard == 0}
+
+
+# Past the port's old limits, each at the limit + 1 (and the limit itself):
+# K2 at S = 1729 and 2048, its accumulator cut into S ranges (B 2, D 768,
+# V 30522, bf16 as the train step runs it); K1, K2 and K3 at B = 65536,
+# launched in chunks of 65535 rows, on a narrow head.
+LONG_S = [(2, 1728, 768, 30522), (2, 1729, 768, 30522),
+          (2, 2048, 768, 30522)]
+WIDE_B = (65536, 8, 8, 64)
+# K2 launched with a longer seq_len than i_max reaches: its rows below S
+# must be the bits of the shorter launch (one range against two), the rest
+# zero
+TILED_S = 3500
+
+
+def limit_cases(torch):
+    """K2 past one accumulator and K1/K2/K3 past 65535 batch rows, each
+    against its plain version (K2/K3 within BWD_TOL and bit for bit across
+    two launches; at B = 65536 also against the dense oracle); K2's S
+    ranges give the bits of one range."""
+    from repro_torch.kernels import sparton_bwd as kb
+
+    rows = []
+    for (B, S, D, V) in LONG_S:
+        H, E, mask, dy, y, i_max = bwd_inputs(torch, B, S, D, V,
+                                              torch.bfloat16, S, None,
+                                              last_wins=True)
+        case = bwd_compare(torch, H, E, mask, dy, y, i_max, None)
+        dh = kb.sparton_backward_dh(dy, y, i_max, E, S)
+        tiled = kb.sparton_backward_dh(dy, y, i_max, E, TILED_S)
+        torch.cuda.synchronize()
+        case["tiled_bits_equal"] = bool(
+            torch.equal(tiled[:, :S], dh) and (tiled[:, S:] == 0).all())
+        case["imax_max"] = int(i_max.max())
+        rows.append({"kernel": "K2/K3", "shape": [B, S, D, V], **case})
+        del H, E, dy, y, i_max, dh, tiled
+    B, S, D, V = WIDE_B
+    for dtype in (torch.float32, torch.bfloat16):
+        H, E, b, mask = k1_inputs(torch, B, S, D, V, dtype, 65)
+        err, mism, hard = k1_compare(torch, H, E, b, mask, None)
+        rows.append({"kernel": "K1", "shape": [B, S, D, V],
+                     "dtype": str(dtype)[6:], "max_abs_err": err,
+                     "imax_mismatch": mism, "imax_hard": hard,
+                     "within_tol": hard == 0})
+        H, E, mask, dy, y, i_max = bwd_inputs(torch, B, S, D, V, dtype, 66,
+                                              None)
+        rows.append({"kernel": "K2/K3", "shape": [B, S, D, V],
+                     "dtype": str(dtype)[6:],
+                     **bwd_compare(torch, H, E, mask, dy, y, i_max, None,
+                                   oracle=True)})
+    torch.cuda.empty_cache()
+    bad = [r for r in rows if not (r["within_tol"]
+                                   and r.get("bit_identical", True)
+                                   and r.get("tiled_bits_equal", True))]
+    require(not bad, f"past the old limits: {bad[:2]}")
+    require(all(r["imax_max"] == r["shape"][1] - 1 for r in rows
+                if "imax_max" in r), "no term routed to the last row")
+    return rows
 
 
 def phase_kernels(torch):
@@ -495,6 +569,7 @@ def phase_kernels(torch):
     require(not bad, f"K2/K3 differ from the plain versions or the "
                      f"oracle beyond {BWD_TOL} or between two launches: "
                      f"{bad[:2]}")
+    limits = limit_cases(torch)
     emit("kernels", k1_max_abs_err=worst_err, k1_tol=K1_TOL,
          k1_imax_mismatch=sum(c["imax_mismatch"] for c in k1),
          k1_cases=k1, k4_max_abs_err=k4_err, k4_id_mismatch=k4_mism,
@@ -511,17 +586,22 @@ def phase_kernels(torch):
          k3_max_abs_err=max(max(c["dE"], c["db"]) for c in bwd),
          k23_oracle_max_abs_err=max(c["oracle"] for c in bwd),
          bwd_bit_identical=all(c["bit_identical"] for c in bwd),
-         bwd_cases=bwd)
+         bwd_cases=bwd, limit_cases=limits)
 
 
-def bwd_inputs(torch, B, S, D, V, dtype, seed, softcap):
+def bwd_inputs(torch, B, S, D, V, dtype, seed, softcap, *, last_wins=False):
     """K1's inputs with one position that wins the max for many columns
-    (a shared i_max), a block of columns held at y == 0 by their bias, a
-    fully masked row; (y, i_max) from K1 and a random cotangent."""
+    (a shared i_max; with ``last_wins`` also the last position, so that
+    terms route to the end of a long sequence), a block of columns held at
+    y == 0 by their bias, a fully masked row; (y, i_max) from K1 and a
+    random cotangent."""
     from repro_torch.kernels.sparton import sparton_forward
 
     H, E, b, mask = k1_inputs(torch, B, S, D, V, dtype, seed)
     H[0, min(1, S - 1)] *= 20
+    if last_wins:
+        H[0, S - 1] *= 20
+        mask[0, S - 1] = 1
     b[:max(1, V // 8)] = -100.0
     if B > 1:
         mask[B - 1] = 0
@@ -803,6 +883,7 @@ def phase_serve_dense(torch, served):
             f"streaming scores on the sparse reps differ from fused by "
             f"{val_err_s}")
 
+    past = dense_past_limits(torch, res, corpus)
     lat = res["loop"].latencies()
     emit("serve_dense", config=cfg.name, head_impl=cfg.head_spec().impl,
          launches=launches, encode_batches=len(batches),
@@ -812,8 +893,48 @@ def phase_serve_dense(torch, served):
          p99_latency_ms=1e3 * float(np.percentile(lat, 99)),
          retrieve_method=res["method"], retrieve_ms=1e3 * res["retrieve_s"],
          ids_differ_vs_dense=differ, streaming_vs_dense_max_abs_err=val_err,
-         ids_differ_vs_fused=differ_s, streaming_vs_fused_max_abs_err=val_err_s)
+         ids_differ_vs_fused=differ_s, streaming_vs_fused_max_abs_err=val_err_s,
+         past_limits=past)
     return {"res": res, "launches": launches}
+
+
+def dense_past_limits(torch, res, corpus):
+    """K6 on the dense-serve corpus past its old limits, for the 8 served
+    queries (stream_kernel) and all 64 served requests (the tensor-core
+    path): k = 257 and 300, and k = 10 on a bf16 copy of the corpus and on
+    a non-contiguous view of it (every other row), which the wrapper casts
+    or copies once as the reference casts. Ids equal the ``dense``
+    method's on the same corpus up to near-ties, scores within
+    SCORE_TOL."""
+    from repro_torch.retrieval.score import retrieve
+
+    rows = []
+    batches = {"B8": res["queries"].cuda(),
+               "B64": torch.from_numpy(np.stack(res["served"])).cuda()}
+    variants = [("k257", corpus, 257), ("k300", corpus, 300),
+                ("bf16", None, SERVE["topk"]),
+                ("strided", corpus[::2], SERVE["topk"])]
+    for name, C, k in variants:
+        if C is None:
+            C = corpus.to(torch.bfloat16)
+        for tag, q in batches.items():
+            v_s, i_s = retrieve(q, C, k, method="streaming")
+            v_d, i_d = retrieve(q, C, k, method="dense")
+            scores = q @ C.float().T
+            hard, differ = ids_beyond_near_ties(torch, scores, i_s, i_d)
+            err = float((v_s - v_d).abs().max())
+            rows.append({"case": f"{name}_{tag}", "k": k,
+                         "corpus": [list(C.shape), str(C.dtype)[6:],
+                                    C.is_contiguous()],
+                         "ids_differ": differ, "ids_hard": hard,
+                         "max_abs_err": err})
+            require(tuple(i_s.shape) == (q.shape[0], k) and hard == 0
+                    and err <= SCORE_TOL * (1 + float(v_d.abs().max())),
+                    f"K6 past its old limits ({name}, {tag}): {rows[-1]}")
+            del scores
+        del C
+    torch.cuda.empty_cache()
+    return rows
 
 
 ENGINE = {"corpus": 20480, "batch": 64, "remove_frac": 0.05}
@@ -925,6 +1046,39 @@ def acceptance_corpus(torch):
             "ids_equal_impact": True, "k5": case}
 
 
+def index_past_limits(torch, queries, raw, quant):
+    """K4 on the engine's base as a raw index and K5 on the quantized base,
+    past their old limit of 1024: k = 1025, 1100 and n_docs through
+    ``retrieve(method="fused")``, whose ids must equal the exact method's
+    (``impact``, ``quantized``) up to near-ties, scores within SCORE_TOL."""
+    from repro_torch.kernels import impact_score as k45
+    from repro_torch.retrieval.engine.quantize import quantized_scores
+    from repro_torch.retrieval.score import impact_scores, retrieve
+
+    rows = []
+    for name, index, exact, scores_of, counter in (
+            ("K4", raw, "impact", impact_scores, k45.fused_impact_topk),
+            ("K5", quant, "quantized", quantized_scores,
+             k45.fused_quantized_topk)):
+        scores = scores_of(queries, index)
+        for k in (1025, 1100, index.n_docs):
+            before = counter.launches
+            v_f, i_f = retrieve(queries, index, k, method="fused")
+            v_e, i_e = retrieve(queries, index, k, method=exact)
+            hard, differ = ids_beyond_near_ties(torch, scores, i_f, i_e)
+            err = float((v_f - v_e).abs().max())
+            rows.append({"kernel": name, "k": k, "n_docs": index.n_docs,
+                         "launches": counter.launches - before,
+                         "ids_differ": differ, "ids_hard": hard,
+                         "max_abs_err": err})
+            require(rows[-1]["launches"] == 1 and
+                    tuple(i_f.shape) == (queries.values.shape[0], k)
+                    and hard == 0
+                    and err <= SCORE_TOL * (1 + float(v_e.abs().max())),
+                    f"{name} past its old limit: {rows[-1]}")
+    return rows
+
+
 def phase_serve_engine(torch, served):
     """The online index engine at full width: the serve phase's weights and
     queries, 20480 docs grown through ``CorpusEngine(quantize=True)`` one
@@ -1028,6 +1182,7 @@ def phase_serve_engine(torch, served):
     rows_in_place = held_to_quantized(torch, in_place, gone, "in place: ")
     rows = held_to_quantized(torch, out, gone, "")
     accept = acceptance_corpus(torch)
+    past = index_past_limits(torch, queries, base_raw, base)
     qs = base.stats()
     ratio = base_raw.memory_bytes() / base.memory_bytes()
     require(ratio > 1, f"the quantized base is not smaller than its raw "
@@ -1044,7 +1199,7 @@ def phase_serve_engine(torch, served):
          compression=ratio, searches=rows,
          in_place={"resolved": in_place["resolved"], "stats": st_in,
                    "searches": rows_in_place},
-         acceptance=accept)
+         acceptance=accept, past_limits=past)
     return {"engine": engine, "launches": launches}
 
 
@@ -1563,8 +1718,11 @@ def time_k6(torch, q, C, k, *, reps):
     kernel, plain version and the yardstick (``torch.topk`` of the cuBLAS
     f32 product), the bound, and the peak memory of kernel and yardstick.
     The bound counts C and q read once, the (B, k) results written once,
-    and 2 * B * N * D f32 FLOP (the product skips no zeros). ``read_ms``
-    times ``C.sum()``: what one plain pass over the corpus takes here."""
+    and the arithmetic the kernel does (the product skips no zeros): for
+    B <= 8 (stream_kernel) 2 * B * N * D f32 FMA FLOP at the f32 peak, else
+    three TF32 products (3xTF32) of 2 * B * N * D FLOP each at the TF32
+    tensor-core peak. ``read_ms`` times ``C.sum()``: what one plain pass
+    over the corpus takes here."""
     from repro_torch.kernels.topk_score import topk_score, topk_score_plain
 
     B, D = q.shape
@@ -1572,7 +1730,8 @@ def time_k6(torch, q, C, k, *, reps):
     case = k6_compare(torch, q, C, k, False)
     require(case["within_tol"] and case["bit_identical"],
             f"K6 at {(B, N, D, k)}: {case}")
-    t_ops = 2 * B * N * D / PEAK_F32_FLOPS
+    t_ops = (2 * B * N * D / PEAK_F32_FLOPS if B <= K6_STREAM_B
+             else 3 * 2 * B * N * D / PEAK_TF32_FLOPS)
     t_bytes = (N * D * 4 + B * D * 4 + B * k * 8) / PEAK_BYTES
     row = {"shape": {"B": B, "N": N, "D": D, "k": k}, **case,
            "bound_ms": 1e3 * max(t_ops, t_bytes),
@@ -1672,6 +1831,18 @@ def phase_timing(torch, served, served_dense, served_engine):
     rows["table1"] = time_k1(torch, H, E16, b, mask, reps=3, plain_reps=1)
     del H
     torch.cuda.empty_cache()
+    # the train step's shape (384 pairs' docs x 256 tokens, bf16, padded
+    # as lsr_pair_batches pads them), where K1 runs twice a step
+    t3 = SHAPES["table3_384"]
+    g1 = torch.Generator(device="cuda").manual_seed(17)
+    H = torch.randn((t3.global_batch, t3.seq_len, cfg.d_model), generator=g1,
+                    device="cuda").to(torch.bfloat16)
+    lens = torch.randint(int(0.3 * t3.seq_len), t3.seq_len + 1,
+                         (t3.global_batch, 1), generator=g1, device="cuda")
+    mask = (torch.arange(t3.seq_len, device="cuda") < lens).int()
+    rows["train"] = time_k1(torch, H, E16, b, mask, reps=3, plain_reps=1)
+    del H
+    torch.cuda.empty_cache()
 
     # K4 at the serving shape: the served queries' windows on the index
     queries, index = res["queries"], res["index"]
@@ -1725,7 +1896,6 @@ def phase_timing(torch, served, served_dense, served_engine):
 
     # K2 and K3 at the train step's shape (bf16 hidden states of 384 pairs'
     # docs, padded as lsr_pair_batches pads them) and at Table-1
-    t3 = SHAPES["table3_384"]
     B, S = t3.global_batch, t3.seq_len
     H = torch.randn((B, S, cfg.d_model), generator=g,
                     device="cuda").to(torch.bfloat16)
@@ -1744,17 +1914,20 @@ def phase_timing(torch, served, served_dense, served_engine):
     del H
     torch.cuda.empty_cache()
     emit("timing_bwd", **bwd)
-    return {"k1": rows["index_batch"], "bwd": bwd, "k4": k4, "k5": k5,
-            "k6": k6}
+    return {"k1": rows["index_batch"], "k1_train": rows["train"], "bwd": bwd,
+            "k4": k4, "k5": k5, "k6": k6}
 
 
 def kernel_rows(measured, launches, dense_launches, engine_launches,
                 train_launches):
     """The ``{"kernels": [...]}`` line: each kernel's launches on its path
     and its numbers from the timing phase (K1 at an index batch, K2/K3 at
-    the train shape, K5 and K6 at the served queries)."""
+    the train shape, K5 and K6 at the served queries; K1 also at the train
+    shape and K6 also at all 64 served requests)."""
     main_k1, bwd, k4, k5, k6 = (measured[key]
                                 for key in ("k1", "bwd", "k4", "k5", "k6"))
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     return [
         {"name": "sparton_fwd (K1)", "route": "cuda",
          "source": "src/repro_torch/csrc/sparton_fwd.cu",
@@ -1763,9 +1936,8 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
          "dense_serve_launches": dense_launches["sparton_fwd"],
          "engine_launches": engine_launches["sparton_fwd"],
          "train_launches": train_launches["sparton_fwd"],
-         **{key: main_k1[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "library_ms")}},
+         **{key: main_k1[key] for key in keys},
+         "at_train_shape": {key: measured["k1_train"][key] for key in keys}},
         *({"name": name, "route": "cuda",
            "source": "src/repro_torch/csrc/sparton_bwd.cu",
            "replaces": replaces, "launches": train_launches[key],
@@ -1795,9 +1967,8 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
          "source": "src/repro_torch/csrc/topk_score.cu",
          "replaces": "src/repro/kernels/topk_score.py:57",
          "launches": dense_launches["topk_score"],
-         **{key: k6["B8"][key] for key in ("max_abs_err", "ms", "plain_ms",
-                                           "bound_ms", "bound_by",
-                                           "library_ms")}},
+         **{key: k6["B8"][key] for key in keys},
+         "at_B64": {key: k6["B64"][key] for key in keys}},
     ]
 
 

@@ -41,11 +41,14 @@
 // earlier chunks gives every lane its doc id. When n_docs > TILE_MAX the
 // decode runs again for each tile.
 //
-// The tile is then merged into a running top-k of k entries, also in
-// shared memory: k rounds of a block-wide arg-best over the union of the
-// running entries and the tile, each round taking the best remaining
-// (value, id) and marking it taken. Only the thread that owned the winner
-// rescans its elements.
+// The tile is then merged into a running top-k of k entries: k rounds of a
+// block-wide arg-best over the union of the running entries and the tile,
+// each round taking the best remaining (value, id) and marking it taken.
+// Only the thread that owned the winner rescans its elements. The two
+// k-entry lists sit in shared memory beside the tile while they fit (k up
+// to about 6000 beside a full tile of 32768 docs); for a larger k they sit in a slice of
+// a device-memory workspace that only the query's block touches, so any k
+// is taken and the tile keeps its size.
 //
 // Bound on the H100: each lane is read once (8 bytes: K4's f32 weight and
 // i32 doc id, K5's i32 packed byte and i32 gap) plus K5's five per-term
@@ -65,7 +68,8 @@ constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
 constexpr float NEG_INF = -1e30f;
 constexpr int TILE_MAX = 32768;  // docs scored per pass: 128 KB of f32
-constexpr int MAX_K = 1024;      // the wrappers' limit too
+// dynamic shared memory a block may use, beside K5's static 128 bytes
+constexpr size_t SMEM_MAX = 232448 - 1024;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
@@ -110,22 +114,29 @@ struct Tile {
   int* winner;
 };
 
-__host__ __device__ inline size_t tile_bytes(int tile, int k) {
-  return (size_t)tile * sizeof(float) + (size_t)k * 4 * sizeof(float) +
-         (size_t)WARPS * 3 * sizeof(int) + sizeof(int);
+inline size_t lists_bytes(int k) { return (size_t)k * 4 * sizeof(float); }
+
+// the tile's scores and the arg-best scratch
+inline size_t tile_bytes(int tile) {
+  return (size_t)tile * sizeof(float) + (size_t)WARPS * 3 * sizeof(int) +
+         sizeof(int);
 }
 
-__device__ inline Tile carve(unsigned char* smem, int tile, int k) {
+// The shared memory of a block, and its lists: in shared memory after the
+// arg-best scratch when `lists` is null, else at lists + block * 4 * k.
+__device__ inline Tile carve(unsigned char* smem, int tile, int k,
+                             float* lists) {
   Tile s;
   s.scores = reinterpret_cast<float*>(smem);
-  s.run_val = s.scores + tile;
-  s.run_id = reinterpret_cast<int*>(s.run_val + k);
-  s.new_val = reinterpret_cast<float*>(s.run_id + k);
-  s.new_id = reinterpret_cast<int*>(s.new_val + k);
-  s.warp_val = reinterpret_cast<float*>(s.new_id + k);
+  s.warp_val = s.scores + tile;
   s.warp_id = reinterpret_cast<int*>(s.warp_val + WARPS);
   s.warp_u = s.warp_id + WARPS;
   s.winner = s.warp_u + WARPS;
+  s.run_val = lists ? lists + (size_t)blockIdx.x * 4 * k
+                    : reinterpret_cast<float*>(s.winner + 1);
+  s.run_id = reinterpret_cast<int*>(s.run_val + k);
+  s.new_val = reinterpret_cast<float*>(s.run_id + k);
+  s.new_id = reinterpret_cast<int*>(s.new_val + k);
   return s;
 }
 
@@ -210,10 +221,10 @@ __device__ inline void write_out(const Tile& s, float* vals, int* idx,
 __global__ void __launch_bounds__(THREADS)
     impact_topk_kernel(const float* __restrict__ w,
                        const int* __restrict__ docs, float* __restrict__ vals,
-                       int* __restrict__ idx, int W, int seg_len, int n_docs,
-                       int k, int tile) {
+                       int* __restrict__ idx, float* lists, int W,
+                       int seg_len, int n_docs, int k, int tile) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Tile s = carve(smem, tile, k);
+  const Tile s = carve(smem, tile, k, lists);
   const int tid = threadIdx.x;
   const float* wrow = w + (size_t)blockIdx.x * W;
   const int* drow = docs + (size_t)blockIdx.x * W;
@@ -246,11 +257,12 @@ __global__ void __launch_bounds__(THREADS)
                          const float* __restrict__ lo_w,
                          const float* __restrict__ step,
                          float* __restrict__ vals, int* __restrict__ idx,
-                         int Q, int L, int n_docs, int k, int tile) {
+                         float* lists, int Q, int L, int n_docs, int k,
+                         int tile) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int warp_total[WARPS];   // each warp's sum of the chunk's gaps
   __shared__ int warp_prefix[WARPS];  // inclusive prefix of warp_total
-  const Tile s = carve(smem, tile, k);
+  const Tile s = carve(smem, tile, k, lists);
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
@@ -306,32 +318,59 @@ __global__ void __launch_bounds__(THREADS)
   write_out(s, vals, idx, k);
 }
 
-template <typename Kernel>
-int prepare(Kernel kernel, int n_docs, int k, int* tile, size_t* smem) {
+// The tile (every doc up to TILE_MAX) and, when they fit beside it, the
+// lists in shared memory; `in_ws`: the lists go to the workspace.
+void plan(int n_docs, int k, int* tile, size_t* smem, bool* in_ws) {
   *tile = n_docs < TILE_MAX ? n_docs : TILE_MAX;
-  *smem = tile_bytes(*tile, k);
+  *in_ws = tile_bytes(*tile) + lists_bytes(k) > SMEM_MAX;
+  *smem = tile_bytes(*tile) + (*in_ws ? 0 : lists_bytes(k));
+}
+
+// ws: the workspace, used when the lists do not fit in shared memory
+template <typename Kernel>
+int prepare(Kernel kernel, int n_docs, int k, void* ws, int* tile,
+            size_t* smem, float** lists) {
+  bool in_ws;
+  plan(n_docs, k, tile, smem, &in_ws);
+  *lists = in_ws ? static_cast<float*>(ws) : nullptr;
+  if (in_ws && ws == nullptr) return (int)cudaErrorInvalidValue;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
 }
 
 }  // namespace
 
+// The device workspace both entry points need for B query rows, in bytes:
+// 0 when the running lists fit in shared memory beside the doc tile, else
+// B * 4 * k floats. -1 for arguments they do not take.
+extern "C" long long impact_topk_workspace(int B, int n_docs, int k) {
+  if (B < 1 || n_docs < 1 || k < 1) return -1;
+  int tile;
+  size_t smem;
+  bool in_ws;
+  plan(n_docs, k, &tile, &smem, &in_ws);
+  return in_ws ? (long long)B * (long long)lists_bytes(k) : 0;
+}
+
 // C entry points, bound with ctypes. Each returns cudaGetLastError() after
-// the launch. Both require B >= 1, n_docs >= 1 and 1 <= k <= MAX_K.
+// the launch. Both require B >= 1, n_docs >= 1 and k >= 1, and a workspace
+// ws of impact_topk_workspace(B, n_docs, k) bytes (null when that is 0).
 //
 // K4: w f32 and docs i32 are (B, W) row-major; vals f32 and idx i32 are
 // (B, k). seg_len (>= 1) is the lanes per query term.
 extern "C" int impact_topk(const float* w, const int* docs, float* vals,
-                           int* idx, int B, int W, int seg_len, int n_docs,
-                           int k, void* stream) {
-  if (B < 1 || seg_len < 1 || n_docs < 1 || k < 1 || k > MAX_K)
+                           int* idx, void* ws, int B, int W, int seg_len,
+                           int n_docs, int k, void* stream) {
+  if (B < 1 || seg_len < 1 || n_docs < 1 || k < 1)
     return (int)cudaErrorInvalidValue;
   int tile;
   size_t smem;
-  const int err = prepare(impact_topk_kernel, n_docs, k, &tile, &smem);
+  float* lists;
+  const int err =
+      prepare(impact_topk_kernel, n_docs, k, ws, &tile, &smem, &lists);
   if (err != (int)cudaSuccess) return err;
   impact_topk_kernel<<<B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      w, docs, vals, idx, W, seg_len, n_docs, k, tile);
+      w, docs, vals, idx, lists, W, seg_len, n_docs, k, tile);
   return (int)cudaGetLastError();
 }
 
@@ -341,17 +380,20 @@ extern "C" int impact_topk(const float* w, const int* docs, float* vals,
 extern "C" int impact_q_topk(const int* byte_win, const int* gap_win,
                              const int* starts, const int* lens,
                              const float* qv, const float* lo,
-                             const float* step, float* vals, int* idx, int B,
-                             int Q, int L, int n_docs, int k, void* stream) {
-  if (B < 1 || Q < 0 || L < 0 || n_docs < 1 || k < 1 || k > MAX_K)
+                             const float* step, float* vals, int* idx,
+                             void* ws, int B, int Q, int L, int n_docs, int k,
+                             void* stream) {
+  if (B < 1 || Q < 0 || L < 0 || n_docs < 1 || k < 1)
     return (int)cudaErrorInvalidValue;
   int tile;
   size_t smem;
-  const int err = prepare(impact_q_topk_kernel, n_docs, k, &tile, &smem);
+  float* lists;
+  const int err =
+      prepare(impact_q_topk_kernel, n_docs, k, ws, &tile, &smem, &lists);
   if (err != (int)cudaSuccess) return err;
   impact_q_topk_kernel<<<B, THREADS, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      byte_win, gap_win, starts, lens, qv, lo, step, vals, idx, Q, L, n_docs,
-      k, tile);
+      byte_win, gap_win, starts, lens, qv, lo, step, vals, idx, lists, Q, L,
+      n_docs, k, tile);
   return (int)cudaGetLastError();
 }

@@ -21,17 +21,22 @@
 // or the row is fully masked) are skipped, and H and E are read only where
 // g != 0.
 //
-// K2 design. One block owns (batch row b, a slice of DS = 64 columns of D;
-// 32 for sequences too long for that) and keeps dH[b, :, slice] as an f32
-// accumulator in shared memory (S * DS * 4 bytes: 128 KB at S = 512). Its
-// 8 warps each own the rows s with s % 8 == warp, and each lane DS / 32
-// neighbouring columns of them. The block walks v in ascending order in
-// rounds of 1024: all threads compute g and the routed row for the round
-// into shared memory (coalesced, once per block), then every warp scans
-// the round 32 entries at a time, takes the ballot of the non-zero entries
-// routed to its rows, loads the E values of up to 16 of them at once and
-// adds g * E[v, col] into their rows in ascending v. An accumulator
-// element is thus touched by one lane only, in ascending v.
+// K2 design. One block owns (batch row b, a range of at most S_TILE rows of
+// S, a slice of DS = 64 columns of D; 32 where 64 columns of the whole S do
+// not fit) and keeps dH[b, range, slice] as an f32 accumulator in shared
+// memory (rows * DS * 4 bytes: 128 KB for 512 rows). Its 8 warps each own
+// the rows s with s % 8 == warp, and each lane DS / 32 neighbouring columns
+// of them. The block walks v in ascending order in rounds of 1024: all
+// threads compute g and the routed row for the round into shared memory
+// (coalesced, once per block; an entry routed outside the block's range is
+// dropped there), then every warp scans the round 32 entries at a time,
+// takes the ballot of the non-zero entries routed to its rows, loads the E
+// values of up to 16 of them at once and adds g * E[v, col] into their rows
+// in ascending v. An accumulator element is thus touched by one lane only,
+// in ascending v, whatever the tiling: a sequence longer than one
+// accumulator (S > 1728) is cut into ranges that each re-read g and i_max
+// (B * V * 8 bytes a range) and give the same bits as one block would.
+// Batches are launched in chunks of at most 65535 rows (grid.y).
 //
 // K3 design. One block owns (32 vocab rows, 64 columns); each thread owns
 // one vocab row and 8 consecutive columns, with the sums in registers. The
@@ -89,6 +94,7 @@ struct Rows {            // (B, V) f32 / i32 rows of the backward's inputs
   int B, S, D, V;
   int has_cap;
   float cap;
+  int s_tile;            // K2: rows of S a block accumulates
 };
 
 // ---------------------------------------------------------------------------
@@ -128,17 +134,19 @@ template <typename T, int CPL, bool VEC>
 __global__ void __launch_bounds__(THREADS)
     dh_kernel(const T* __restrict__ E, float* __restrict__ dH, Rows r) {
   constexpr int DS = 32 * CPL;    // columns per block
-  extern __shared__ float acc[];  // (S, DS)
+  extern __shared__ float acc[];  // (rows, DS)
   __shared__ float g_round[ROUND];
   __shared__ int s_round[ROUND];  // the row a term adds into, or -1
   const int b = blockIdx.y;
+  const int s_lo = blockIdx.z * r.s_tile;
+  const int rows = min(r.s_tile, r.S - s_lo);
   const int d0 = blockIdx.x * DS;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int c = lane * CPL;           // this lane's first column
   const int n = min(CPL, r.D - d0 - c);  // its live columns (<= 0: none)
 
-  for (int i = threadIdx.x; i < r.S * DS; i += THREADS) acc[i] = 0.0f;
+  for (int i = threadIdx.x; i < rows * DS; i += THREADS) acc[i] = 0.0f;
 
   const size_t row = (size_t)b * r.V;
   const T* e_col = E + d0 + c;
@@ -153,8 +161,11 @@ __global__ void __launch_bounds__(THREADS)
         g = bwd_factor(r.y[row + v], r.dy[row + v], r.has_cap, r.cap);
         const int si = r.imax[row + v];
         // an i_max outside [0, S) routes nowhere, as in the reference's
-        // segment sum (and never touches memory outside the accumulator)
-        if (g != 0.0f && (unsigned)si < (unsigned)r.S) s = si;
+        // segment sum (and never touches memory outside the accumulator);
+        // one outside this block's range is another block's
+        if (g != 0.0f && (unsigned)si < (unsigned)r.S &&
+            (unsigned)(si - s_lo) < (unsigned)rows)
+          s = si;
       }
       g_round[k] = g;
       s_round[k] = s;
@@ -187,7 +198,7 @@ __global__ void __launch_bounds__(THREADS)
         if (js[u] < 0) break;
         if (n <= 0) continue;
         const float g = g_round[js[u]];
-        float* a = acc_col + s_round[js[u]] * DS;
+        float* a = acc_col + (s_round[js[u]] - s_lo) * DS;
         if (CPL == 2 && n == 2) {
           float2 cur = *reinterpret_cast<float2*>(a);
           cur.x += g * e[u][0];
@@ -203,8 +214,8 @@ __global__ void __launch_bounds__(THREADS)
   }
   __syncthreads();
 
-  float* out = dH + (size_t)b * r.S * r.D + d0;
-  for (int i = threadIdx.x; i < r.S * DS; i += THREADS) {
+  float* out = dH + ((size_t)b * r.S + s_lo) * r.D + d0;
+  for (int i = threadIdx.x; i < rows * DS; i += THREADS) {
     const int sl = i / DS;
     const int col = i % DS;
     if (d0 + col < r.D) out[(size_t)sl * r.D + col] = acc[i];
@@ -328,22 +339,45 @@ __global__ void __launch_bounds__(THREADS)
 // the largest shared-memory accumulator a K2 block may take (of 227 KB,
 // beside its 8 KB round of g and rows)
 constexpr size_t DH_SMEM_MAX = 216 * 1024;
+constexpr int MAX_GRID_Y = 65535;  // batch rows a K2 launch takes
 
+// S cut into the fewest ranges of at most `fit` rows, all of one size
+int s_tile(int S, int fit) {
+  const int n = (S + fit - 1) / fit;
+  return (S + n - 1) / n;
+}
+
+// One launch per chunk of at most MAX_GRID_Y batch rows; the blocks of a
+// chunk cover its rows, the D slices and the S ranges.
 template <typename T, int CPL, bool VEC>
 int launch_dh_cols(const T* E, float* dH, Rows r, cudaStream_t stream) {
-  const size_t smem = (size_t)r.S * 32 * CPL * sizeof(float);
-  if (smem > DH_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  constexpr int DS = 32 * CPL;
+  r.s_tile = s_tile(r.S, (int)(DH_SMEM_MAX / (DS * sizeof(float))));
+  const size_t smem = (size_t)r.s_tile * DS * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       dh_kernel<T, CPL, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((r.D + 32 * CPL - 1) / (32 * CPL), r.B);
-  dh_kernel<T, CPL, VEC><<<grid, THREADS, smem, stream>>>(E, dH, r);
-  return (int)cudaGetLastError();
+  const int B = r.B;
+  for (int b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
+    Rows c = r;
+    const size_t off = (size_t)b0 * r.V;
+    c.dy = r.dy + off;
+    c.y = r.y + off;
+    c.imax = r.imax + off;
+    c.B = B - b0 < MAX_GRID_Y ? B - b0 : MAX_GRID_Y;
+    dim3 grid((r.D + DS - 1) / DS, c.B, (r.S + r.s_tile - 1) / r.s_tile);
+    dh_kernel<T, CPL, VEC><<<grid, THREADS, smem, stream>>>(
+        E, dH + (size_t)b0 * r.S * r.D, c);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 // 64 columns a block (two a lane, paired loads where vec) where the
-// accumulator fits, else 32
+// accumulator of the whole S fits, else 32 (in as many S ranges as it
+// takes)
 template <typename T>
 int launch_dh(const void* E, float* dH, Rows r, int vec, cudaStream_t stream) {
   const T* e = static_cast<const T*>(E);
@@ -375,11 +409,12 @@ Rows make_rows(const float* dy, const float* y, const int* imax, int B, int S,
   r.V = V;
   r.has_cap = softcap > 0.0f;
   r.cap = softcap;
+  r.s_tile = S;
   return r;
 }
 
 bool bad_shape(int B, int S, int D, int V) {
-  return B < 1 || S < 1 || D < 1 || V < 1 || B > 65535;
+  return B < 1 || S < 1 || D < 1 || V < 1;
 }
 
 }  // namespace

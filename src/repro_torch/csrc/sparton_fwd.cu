@@ -325,6 +325,10 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+constexpr int MAX_CHUNK = 65535;  // batch rows a launch takes (grid.y)
+
+// One launch per chunk of at most MAX_CHUNK batch rows: the output rows are
+// independent, so the chunks give the bits of a single launch.
 template <typename T>
 int launch(const void* H, const void* E, Problem p, cudaStream_t stream) {
   const size_t smem = smem_bytes(sizeof(T) == 2);
@@ -332,22 +336,34 @@ int launch(const void* H, const void* E, Problem p, cudaStream_t stream) {
       sparton_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((p.V + BN - 1) / BN, (p.B + p.bb - 1) / p.bb);
-  sparton_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(H), static_cast<const T*>(E), p);
-  return (int)cudaGetLastError();
+  const int B = p.B;
+  const Problem whole = p;
+  for (int b0 = 0; b0 < B; b0 += MAX_CHUNK) {
+    p.B = B - b0 < MAX_CHUNK ? B - b0 : MAX_CHUNK;
+    p.mask = whole.mask + (size_t)b0 * p.S;
+    p.y = whole.y + (size_t)b0 * p.V;
+    p.imax = whole.imax + (size_t)b0 * p.V;
+    dim3 grid((p.V + BN - 1) / BN, (p.B + p.bb - 1) / p.bb);
+    sparton_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
+        static_cast<const T*>(H) + (size_t)b0 * p.S * p.D,
+        static_cast<const T*>(E), p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16 (H and
 // E alike); bias is f32 (V,), mask i32 (B, S); y f32 and i_max i32 (B, V).
-// softcap <= 0 means no cap. Returns cudaGetLastError() after the launch.
+// softcap <= 0 means no cap. Any B >= 1 (launched in chunks of 65535 rows).
+// Returns the first CUDA error of the launches.
 extern "C" int sparton_fwd(const void* H, const void* E, const float* bias,
                            const int* mask, float* y, int* imax, int B, int S,
                            int D, int V, int dtype, float softcap, int vec,
                            void* stream) {
-  if (B < 1 || S < 1 || D < 1 || V < 1 || B > 65535) {
+  if (B < 1 || S < 1 || D < 1 || V < 1) {
     return (int)cudaErrorInvalidValue;
   }
   Problem p;

@@ -89,17 +89,18 @@ def build_all() -> Path:
     return out
 
 
-def function(lib: str, name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+def function(lib: str, name: str, argtypes: Sequence,
+             restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """The C function ``name`` of ``lib<lib>.so``, built on first use,
-    with its argument types declared and an ``int`` return (the CUDA
-    error code of the launch)."""
+    with its argument types declared and, by default, an ``int`` return
+    (the CUDA error code of the launch)."""
     key = f"{lib}.{name}"
     with _LOCK:
         if key not in _FUNCS:
             handle = ctypes.CDLL(str(build_all() / f"lib{lib}.so"))
             fn = getattr(handle, name)
             fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+            fn.restype = restype
             _FUNCS[key] = fn
         return _FUNCS[key]
 

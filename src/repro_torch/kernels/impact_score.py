@@ -21,7 +21,9 @@ and doc id for K4, packed byte and gap for K5), so the floor is
 ``fused_window_bytes`` over 3.35 TB/s. The design keeps a tile of up to
 32768 scores in shared memory and scatters one query term at a time, which
 makes the sums deterministic in the reference's lane order. One block per
-query leaves most SMs idle at small batches.
+query leaves most SMs idle at small batches. Any ``k >= 1``: the two
+running lists of k entries sit beside the tile in shared memory while
+they fit, else in a device workspace the wrapper allocates.
 
 ``fused_impact_topk`` and ``fused_quantized_topk`` dispatch on the
 tensors' device: CPU tensors go to their ``*_plain`` version, CUDA tensors
@@ -39,11 +41,26 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.topk_score import topk_rows
 
-MAX_K = 1024  # the kernels keep k running entries twice in shared memory
 # u4 codes 1..15 span 14 steps between a term's lo and hi (engine/quantize)
 U4_LEVELS = 14
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_Q_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_Q_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def _workspace(B: int, n_docs: int, k: int, device) -> torch.Tensor:
+    """The device workspace K4 and K5 need for B query rows: empty while
+    the running lists fit in shared memory, else ``B * 4 * k`` floats."""
+    fn = _build.function("impact_topk", "impact_topk_workspace",
+                         [ctypes.c_int] * 3, ctypes.c_longlong)
+    nbytes = fn(B, n_docs, k)
+    if nbytes < 0:
+        raise RuntimeError(f"impact_topk: no plan for B={B}, "
+                           f"n_docs={n_docs}, k={k}")
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr() if t.numel() else 0
 
 
 def scatter_scores(w: torch.Tensor, docs: torch.Tensor,
@@ -71,9 +88,6 @@ def fused_impact_topk_plain(w: torch.Tensor, docs: torch.Tensor, *,
 
 
 def _launch(w, docs, n_docs, k, term_lanes):
-    if not (w.is_cuda and docs.device == w.device):
-        raise ValueError("fused_impact_topk: w and docs must lie on one "
-                         "CUDA device")
     if w.dim() != 2 or docs.shape != w.shape:
         raise ValueError(f"fused_impact_topk: w {tuple(w.shape)} and docs "
                          f"{tuple(docs.shape)} must both be (B, W)")
@@ -82,12 +96,15 @@ def _launch(w, docs, n_docs, k, term_lanes):
                          f"and i32 doc ids, got {w.dtype} / {docs.dtype}")
     if not (w.is_contiguous() and docs.is_contiguous()):
         raise ValueError("fused_impact_topk: w and docs must be contiguous")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"fused_impact_topk: the kernel takes 1 <= k <= "
-                         f"{MAX_K}, got k={k}")
+    if k < 1:
+        raise ValueError(f"fused_impact_topk: k must be >= 1, got k={k}")
     if n_docs < 1:
         raise ValueError(f"fused_impact_topk: n_docs must be >= 1, got "
                          f"{n_docs}")
+    # the device last, so that the checks above run on meta tensors too
+    if not (w.is_cuda and docs.device == w.device):
+        raise ValueError("fused_impact_topk: w and docs must lie on one "
+                         "CUDA device")
     B, W = w.shape
     vals = torch.empty((B, k), dtype=torch.float32, device=w.device)
     idx = torch.empty((B, k), dtype=torch.int32, device=w.device)
@@ -95,10 +112,12 @@ def _launch(w, docs, n_docs, k, term_lanes):
         return vals, idx
     fn = _build.function("impact_topk", "impact_topk", _ARGTYPES)
     with torch.cuda.device(w.device):
+        ws = _workspace(B, n_docs, k, w.device)
         stream = torch.cuda.current_stream().cuda_stream
         fused_impact_topk.launches += 1
         rc = fn(w.data_ptr(), docs.data_ptr(), vals.data_ptr(),
-                idx.data_ptr(), B, W, term_lanes, n_docs, k, stream)
+                idx.data_ptr(), _ptr(ws), B, W, term_lanes, n_docs, k,
+                stream)
     _build.check_launch(rc, "impact_topk")
     return vals, idx
 
@@ -173,9 +192,6 @@ def fused_quantized_topk_plain(byte_win, gap_win, starts, lens, qv, lo,
 def _launch_q(byte_win, gap_win, starts, lens, qv, lo, step, n_docs, k):
     wins, metas = (byte_win, gap_win), (starts, lens, qv, lo, step)
     dev = byte_win.device
-    if not all(t.is_cuda and t.device == dev for t in wins + metas):
-        raise ValueError("fused_quantized_topk: every input must lie on one "
-                         "CUDA device")
     if byte_win.dim() != 3 or gap_win.shape != byte_win.shape:
         raise ValueError(f"fused_quantized_topk: byte_win "
                          f"{tuple(byte_win.shape)} and gap_win "
@@ -192,22 +208,26 @@ def _launch_q(byte_win, gap_win, starts, lens, qv, lo, step, n_docs, k):
                          "step")
     if not all(t.is_contiguous() for t in wins + metas):
         raise ValueError("fused_quantized_topk: inputs must be contiguous")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"fused_quantized_topk: the kernel takes 1 <= k <= "
-                         f"{MAX_K}, got k={k}")
+    if k < 1:
+        raise ValueError(f"fused_quantized_topk: k must be >= 1, got k={k}")
     if n_docs < 1:
         raise ValueError(f"fused_quantized_topk: n_docs must be >= 1, got "
                          f"{n_docs}")
+    # the device last, so that the checks above run on meta tensors too
+    if not all(t.is_cuda and t.device == dev for t in wins + metas):
+        raise ValueError("fused_quantized_topk: every input must lie on one "
+                         "CUDA device")
     vals = torch.empty((B, k), dtype=torch.float32, device=dev)
     idx = torch.empty((B, k), dtype=torch.int32, device=dev)
     if B == 0:
         return vals, idx
     fn = _build.function("impact_topk", "impact_q_topk", _Q_ARGTYPES)
     with torch.cuda.device(dev):
+        ws = _workspace(B, n_docs, k, dev)
         stream = torch.cuda.current_stream().cuda_stream
         fused_quantized_topk.launches += 1
         rc = fn(*(t.data_ptr() for t in wins + metas), vals.data_ptr(),
-                idx.data_ptr(), B, Q, L, n_docs, k, stream)
+                idx.data_ptr(), _ptr(ws), B, Q, L, n_docs, k, stream)
     _build.check_launch(rc, "impact_q_topk")
     return vals, idx
 

@@ -4,7 +4,8 @@ Replaces the Pallas TPU kernel ``repro/kernels/sparton.py:_fwd_kernel``
 (entry ``sparton_forward``): ``y = log1p(relu(max_s(mask(softcap(H·Eᵀ +
 b)))))`` with the first-occurrence argmax ``i_max`` over S, without the
 ``(B, S, V)`` logits ever reaching device memory. The kernel is
-``csrc/sparton_fwd.cu``; its header says how it is tiled.
+``csrc/sparton_fwd.cu``; its header says how it is tiled. It takes any
+batch, launched in chunks of 65535 rows.
 
 Bound on the H100: at the paper's Table-1 shape (B=320, S=512, D=768,
 V=30522) the contraction is 2·B·S·V·D ≈ 7.68 TFLOP against ≈0.38 GB of
@@ -32,7 +33,6 @@ from repro_torch.kernels._common import NEG_INF
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_BATCH = 65535  # the kernel's grid.y limit
 
 
 def sparton_forward_plain(
@@ -69,10 +69,8 @@ def sparton_forward_plain(
 
 
 def _check(H, E, b, mask, softcap):
-    if not (H.is_cuda and E.device == H.device and b.device == H.device
-            and mask.device == H.device):
-        raise ValueError("sparton_forward: H, E, b and mask must lie on one "
-                         "CUDA device")
+    """The kernel's argument checks; the device comes last, so that the
+    shape checks run on meta tensors too."""
     if H.dim() != 3 or E.dim() != 2 or H.shape[2] != E.shape[1]:
         raise ValueError(f"sparton_forward: H {tuple(H.shape)} and E "
                          f"{tuple(E.shape)} are not (B, S, D) and (V, D)")
@@ -88,13 +86,16 @@ def _check(H, E, b, mask, softcap):
                          f"{E.dtype}")
     if not (H.is_contiguous() and E.is_contiguous()):
         raise ValueError("sparton_forward: H and E must be contiguous")
-    if min(B, S, D, V) < 1 or B > MAX_BATCH:
+    if min(B, S, D, V) < 1:
         raise ValueError(f"sparton_forward: shape (B={B}, S={S}, D={D}, "
-                         f"V={V}) outside the kernel's range (all >= 1, "
-                         f"B <= {MAX_BATCH})")
+                         f"V={V}) outside the kernel's range (all >= 1)")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"sparton_forward: softcap must be > 0, got "
                          f"{softcap}")
+    if not (H.is_cuda and E.device == H.device and b.device == H.device
+            and mask.device == H.device):
+        raise ValueError("sparton_forward: H, E, b and mask must lie on one "
+                         "CUDA device")
 
 
 def _launch(H, E, b, mask, softcap):

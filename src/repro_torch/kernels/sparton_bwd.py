@@ -10,7 +10,8 @@ the upstream cotangent ``dy``, with ``g = bwd_factor(y, dy, softcap)``:
   ``db[v] = sum_b g[b, v]``.
 
 The kernels are ``csrc/sparton_bwd.cu``; its header says how they are
-tiled. They use no atomics: each output element is summed by one thread
+tiled. They take any B and S (K2 cuts a long sequence into ranges of S
+and launches batches in chunks of 65535 rows). They use no atomics: each output element is summed by one thread
 in a fixed order, so two launches give the same bits. Bound on the H100:
 ``2 * nnz(g) * D`` f32 FLOP against the bytes of ``dy, y, i_max``, the
 rows they read and the output, both about 0.2 ms at the paper's Table-1
@@ -40,8 +41,6 @@ _DH_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
 _DE_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_BATCH = 65535      # K2's grid.y limit
-MAX_SEQ = 216 * 1024 // (32 * 4)  # K2's shared-memory accumulator, 32 columns
 BWD_BATCH_CHUNK = 8    # batch rows per step of the plain versions
 
 
@@ -105,10 +104,8 @@ def sparton_backward_de_plain(
 
 
 def _check(what, dy, y, i_max, X, S):
-    if not (dy.is_cuda and y.device == dy.device
-            and i_max.device == dy.device and X.device == dy.device):
-        raise ValueError(f"{what}: dy, y, i_max and the weights must lie "
-                         "on one CUDA device")
+    """The kernels' argument checks; the device comes last, so that the
+    shape checks run on meta tensors too."""
     if dy.dim() != 2 or y.shape != dy.shape or i_max.shape != dy.shape:
         raise ValueError(f"{what}: dy {tuple(dy.shape)}, y "
                          f"{tuple(y.shape)} and i_max {tuple(i_max.shape)} "
@@ -125,10 +122,13 @@ def _check(what, dy, y, i_max, X, S):
             and i_max.is_contiguous() and X.is_contiguous()):
         raise ValueError(f"{what}: every input must be contiguous")
     B, V = dy.shape
-    if min(B, V, S, X.shape[-1]) < 1 or B > MAX_BATCH:
+    if min(B, V, S, X.shape[-1]) < 1:
         raise ValueError(f"{what}: shape (B={B}, S={S}, D={X.shape[-1]}, "
-                         f"V={V}) outside the kernel's range (all >= 1, "
-                         f"B <= {MAX_BATCH})")
+                         f"V={V}) outside the kernel's range (all >= 1)")
+    if not (dy.is_cuda and y.device == dy.device
+            and i_max.device == dy.device and X.device == dy.device):
+        raise ValueError(f"{what}: dy, y, i_max and the weights must lie "
+                         "on one CUDA device")
 
 
 def _cap(softcap: Optional[float]) -> float:
@@ -141,10 +141,6 @@ def _cap(softcap: Optional[float]) -> float:
 
 def _launch_dh(dy, y, i_max, E, seq_len, softcap):
     _check("sparton_backward_dh", dy, y, i_max, E, seq_len)
-    if seq_len > MAX_SEQ:
-        raise ValueError(f"sparton_backward_dh: S={seq_len} exceeds the "
-                         f"kernel's shared-memory accumulator (S <= "
-                         f"{MAX_SEQ})")
     B, V = dy.shape
     if E.dim() != 2 or E.shape[0] != V:
         raise ValueError(f"sparton_backward_dh: E {tuple(E.shape)} is not "

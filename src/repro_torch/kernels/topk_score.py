@@ -26,10 +26,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import NEG_INF
 
-# the kernel keeps two running lists of k entries per query row in shared
-# memory (the JAX module keeps k <= 256 for the same reason, in VMEM)
-MAX_K = 256
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def merge_topk(run_vals: torch.Tensor, run_idx: torch.Tensor,
@@ -62,44 +60,41 @@ def topk_score_plain(q: torch.Tensor, C: torch.Tensor, *, k: int
 
 
 def _launch(q, C, k):
-    if not 0 <= k <= MAX_K:
-        raise ValueError(f"topk_score: the kernel takes 0 <= k <= {MAX_K}, "
-                         f"got k={k}")
-    if not (q.is_cuda and C.device == q.device):
-        raise ValueError("topk_score: q and C must lie on one CUDA device")
+    if k < 0:
+        raise ValueError(f"topk_score: k must be >= 0, got k={k}")
     if q.dim() != 2 or C.dim() != 2 or q.shape[1] != C.shape[1]:
         raise ValueError(f"topk_score: q {tuple(q.shape)} and C "
                          f"{tuple(C.shape)} must be (B, D) and (N, D)")
-    if q.dtype != torch.float32 or C.dtype != torch.float32:
-        raise ValueError(f"topk_score: the kernel reads f32 in place, got "
-                         f"{q.dtype} / {C.dtype}; store the corpus as f32 "
-                         "once rather than casting it per call")
-    if not (q.is_contiguous() and C.is_contiguous()):
-        raise ValueError("topk_score: q and C must be contiguous")
+    # the device last, so that the checks above run on meta tensors too
+    if not (q.is_cuda and C.device == q.device):
+        raise ValueError("topk_score: q and C must lie on one CUDA device")
+    # the reference casts to f32; a corpus kept f32 and contiguous (as the
+    # serve path keeps it) is read in place, anything else is copied once
+    q = q.float().contiguous()
+    C = C.float().contiguous()
     B, D = q.shape
     N = C.shape[0]
     vals = torch.empty((B, k), dtype=torch.float32, device=q.device)
     idx = torch.empty((B, k), dtype=torch.int32, device=q.device)
     if B == 0 or k == 0:
         return vals, idx
-    ranges = _build.function("topk_score", "topk_score_ranges",
-                             [ctypes.c_int] * 3)
+    workspace = _build.function("topk_score", "topk_score_workspace",
+                                [ctypes.c_int] * 4, ctypes.c_longlong)
     fn = _build.function("topk_score", "topk_score", _ARGTYPES)
     with torch.cuda.device(q.device):
-        G = ranges(B, N, k)
-        if G < 0:
+        nbytes = workspace(B, N, D, k)
+        if nbytes < 0:
             raise RuntimeError(f"topk_score: no launch plan for B={B}, "
-                               f"N={N}, k={k}")
-        # scratch for pass 1's per-range lists; freed on return, which is
-        # safe: the caching allocator hands the block only to work queued
-        # later on this stream
-        part_v = torch.empty((B, G, k), dtype=torch.float32, device=q.device)
-        part_i = torch.empty((B, G, k), dtype=torch.int32, device=q.device)
+                               f"N={N}, D={D}, k={k}")
+        # the padded queries, pass 1's partial lists and, for a large k,
+        # the running lists; freed on return, which is safe: the caching
+        # allocator hands the block only to work queued later on this
+        # stream
+        ws = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=q.device)
         stream = torch.cuda.current_stream().cuda_stream
         topk_score.launches += 1
-        rc = fn(q.data_ptr(), C.data_ptr(), part_v.data_ptr(),
-                part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(), B, N, D,
-                k, G, stream)
+        rc = fn(q.data_ptr(), C.data_ptr(), ws.data_ptr(), nbytes,
+                vals.data_ptr(), idx.data_ptr(), B, N, D, k, stream)
     _build.check_launch(rc, "topk_score")
     return vals, idx
 
@@ -111,9 +106,10 @@ def topk_score(q: torch.Tensor, C: torch.Tensor, *, k: int = 100
 
     Ties between equal scores go to the lowest candidate id. When
     ``k > N`` the first ``N`` columns are the full descending ranking and
-    the tail holds ``(NEG_INF, 0)``. CPU tensors take the plain version;
-    on the card ``q`` and ``C`` must be contiguous f32 (the corpus is read
-    in place, never copied) and ``k <= MAX_K``.
+    the tail holds ``(NEG_INF, 0)``. Any ``k >= 0``. CPU tensors take the
+    plain version. On the card a contiguous f32 corpus is read in place;
+    another dtype or layout is cast to contiguous f32 once per call, as
+    the reference casts it.
     """
     if q.device.type == "cpu" and C.device.type == "cpu":
         return topk_score_plain(q, C, k=k)

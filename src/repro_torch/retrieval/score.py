@@ -17,8 +17,9 @@ Methods ported so far:
     "dense"     ``q @ C^T`` and a top-k (plain PyTorch, as the JAX package
                 leaves it to XLA)
     "streaming" K6 (``kernels/topk_score``): the product and a running
-                top-k in one kernel, no (B, N) matrix; on the card the
-                corpus must be contiguous f32 (it is read in place)
+                top-k in one kernel, no (B, N) matrix; on the card a
+                contiguous f32 corpus is read in place, another one cast
+                to it once per call (as the reference casts)
 
     "auto"      an index: "fused" from ``AUTO_FUSED_N`` docs, else
                 "impact" (``InvertedIndex``) or "quantized"

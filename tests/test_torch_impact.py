@@ -25,7 +25,8 @@ from repro_torch.kernels._common import NEG_INF
 from repro_torch.kernels.impact_score import (fused_impact_topk,
                                               fused_window_bytes)
 from repro_torch.retrieval.index import build_inverted_index
-from repro_torch.retrieval.score import _fused_windows, fused_retrieve
+from repro_torch.retrieval.score import (_fused_windows, fused_retrieve,
+                                         retrieve)
 from repro_torch.retrieval.sparse_rep import sparsify_topk
 
 K = 10
@@ -83,6 +84,33 @@ def test_fused_retrieve_matches_jax_paths(graded, method):
     ref = jax_retrieve(graded["q_j"], graded["raw"], K, method=method,
                        **({"interpret": True} if method == "fused" else {}))
     v, i = fused_retrieve(graded["q_t"], graded["index"], K)
+    _assert_same((v.numpy(), i.numpy()), tuple(np.asarray(a) for a in ref))
+
+
+@pytest.fixture(scope="module")
+def graded_2000():
+    """The graded corpus at 2000 docs, for a k past K4's old limit of
+    1024: a third of the docs score 0 for a query, so the ids past the
+    matches are the lowest-id ties of the reference's rule."""
+    data = lsr_impact_corpus(n_docs=2000, vocab=512, doc_nnz=32,
+                             n_queries=3, q_nnz=28)
+    raw_j = jax_build(jax_sparsify(jnp.asarray(data["docs"]), 32), 512)
+    index = build_inverted_index(
+        sparsify_topk(torch.from_numpy(data["docs"]), 32), 512, device="cpu")
+    return {"q_j": jax_sparsify(jnp.asarray(data["queries"]), 28),
+            "q_t": sparsify_topk(torch.from_numpy(data["queries"]), 28),
+            "raw_j": raw_j, "index": index}
+
+
+@pytest.mark.parametrize("method", ["fused", "auto"])
+def test_retrieve_past_k1024_equals_jax(graded_2000, method):
+    g = graded_2000
+    ref = jax_retrieve(g["q_j"], g["raw_j"], 1100, method=method,
+                       **({"interpret": True} if method == "fused" else {}))
+    _, want = jax_retrieve(g["q_j"], g["raw_j"], 1100, method="impact")
+    v, i = retrieve(g["q_t"], g["index"], 1100, method=method)
+    assert i.shape == (3, 1100)
+    np.testing.assert_array_equal(np.asarray(ref[1]), np.asarray(want))
     _assert_same((v.numpy(), i.numpy()), tuple(np.asarray(a) for a in ref))
 
 
@@ -144,6 +172,19 @@ def test_empty_query_rows_score_lowest_ids_at_zero(graded):
     v, i = fused_retrieve(q, graded["index"], K)
     np.testing.assert_array_equal(i.numpy(), np.tile(np.arange(K), (2, 1)))
     assert (v.numpy() == 0).all()
+
+
+def test_kernel_arguments_checked_without_a_card():
+    """Tensors that are not on the CPU go to the kernel's wrapper: any
+    k >= 1 (past the old limit of 1024 too) passes its checks and reaches
+    the device check, which meta tensors fail."""
+    w = torch.empty((2, 40), device="meta")
+    docs = torch.empty((2, 40), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="k must be >= 1"):
+        fused_impact_topk(w, docs, n_docs=2000, k=0, term_lanes=4)
+    for k in (1024, 1025, 1100, 2000, 50000):
+        with pytest.raises(ValueError, match="one CUDA device"):
+            fused_impact_topk(w, docs, n_docs=2000, k=k, term_lanes=4)
 
 
 @pytest.mark.parametrize("term_lanes", [0, -1])

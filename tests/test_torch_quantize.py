@@ -310,6 +310,46 @@ def test_fused_ids_equal_quantized_ids_on_graded():
                  tuple(np.asarray(a) for a in ref))
 
 
+@pytest.mark.parametrize("method", ["fused", "auto"])
+def test_retrieve_past_k1024_on_a_quantized_index_equals_jax(method):
+    """k = 1100 on a 2000-doc QuantizedIndex (K5 on the card, past its old
+    limit of 1024): the reference's quantized and fused ids, and values."""
+    data = lsr_impact_corpus(n_docs=2000, vocab=512, doc_nnz=32,
+                             n_queries=3, q_nnz=28)
+    q = sparsify_topk(torch.from_numpy(data["queries"]), 28)
+    quant = quantize_index(build_inverted_index(
+        sparsify_topk(torch.from_numpy(data["docs"]), 32), 512,
+        device="cpu"))
+    q_j = jax_sparsify(jnp.asarray(data["queries"]), 28)
+    quant_j = jax_quantize(jax_build(jax_sparsify(jnp.asarray(data["docs"]),
+                                                  32), 512))
+    ref = jax_retrieve(q_j, quant_j, 1100, method=method,
+                       **({"interpret": True} if method == "fused" else {}))
+    _, want = jax_retrieve(q_j, quant_j, 1100, method="quantized")
+    v, i = score.retrieve(q, quant, 1100, method=method)
+    assert i.shape == (3, 1100)
+    np.testing.assert_array_equal(np.asarray(ref[1]), np.asarray(want))
+    _assert_same((v.numpy(), i.numpy()), tuple(np.asarray(a) for a in ref))
+
+
+def test_k5_arguments_checked_without_a_card():
+    """Tensors that are not on the CPU go to K5's wrapper: any k >= 1
+    (past the old limit of 1024 too) passes its checks and reaches the
+    device check, which meta tensors fail."""
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    wins = (meta((2, 3, 5), torch.int32), meta((2, 3, 5), torch.int32),
+            *(meta((2, 3), t) for t in (torch.int32, torch.int32,
+                                        torch.float32, torch.float32,
+                                        torch.float32)))
+    with pytest.raises(ValueError, match="k must be >= 1"):
+        fused_quantized_topk(*wins, n_docs=2000, k=0)
+    for k in (1024, 1025, 1100, 2000, 50000):
+        with pytest.raises(ValueError, match="one CUDA device"):
+            fused_quantized_topk(*wins, n_docs=2000, k=k)
+
+
 def test_quantized_method_checks_its_corpus_and_kwargs():
     d_t, _, vocab = _graded()
     raw = build_inverted_index(d_t, vocab, device="cpu")

@@ -214,6 +214,41 @@ def test_auto_resolves_dense_corpora_at_the_jax_threshold():
                                atol=DENSE_TOL)
 
 
+@pytest.mark.parametrize("method", ["auto", "streaming"])
+def test_retrieve_past_k256_on_a_dense_corpus_equals_jax_auto(method):
+    """k = 300 on a corpus at the streaming threshold: the reference's
+    ``auto`` returns (2, 300); the port's streaming path (K6 on the card,
+    past its old limit of 256) gives its ids and values."""
+    rng = np.random.default_rng(5)
+    C = rng.standard_normal((score.AUTO_STREAMING_N, 16)).astype(np.float32)
+    q = rng.standard_normal((2, 16)).astype(np.float32)
+    assert score.resolve_method(method, torch.from_numpy(C)) == "streaming"
+    v, i = score.retrieve(torch.from_numpy(q), torch.from_numpy(C), 300,
+                          method=method)
+    jv, ji = jr.retrieve(jnp.asarray(q), jnp.asarray(C), 300, method="auto")
+    assert i.shape == np.asarray(ji).shape == (2, 300)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=DENSE_TOL,
+                               atol=DENSE_TOL)
+
+
+@pytest.mark.parametrize("method", ["dense", "streaming"])
+def test_retrieve_on_a_bf16_dense_corpus_equals_jax(method):
+    """A bf16 corpus is scored as the reference scores it, cast to f32."""
+    rng = np.random.default_rng(6)
+    C = torch.from_numpy(rng.standard_normal((300, 24)).astype(
+        np.float32)).to(torch.bfloat16)
+    q = rng.standard_normal((3, 24)).astype(np.float32)
+    v, i = score.retrieve(torch.from_numpy(q), C, 12, method=method)
+    kw = {"interpret": True} if method == "streaming" else {}
+    jv, ji = jr.retrieve(jnp.asarray(q), jnp.asarray(C.float().numpy(),
+                                                     dtype=jnp.bfloat16),
+                         12, method=method, **kw)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=DENSE_TOL,
+                               atol=DENSE_TOL)
+
+
 def test_parity_impact_fused_dense_streaming(corpus):
     """The JAX package's acceptance parity (tests/test_retrieval.py), in
     the port: the four scoring paths give the same ids from the same

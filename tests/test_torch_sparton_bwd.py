@@ -117,6 +117,31 @@ def test_plain_k2_k3_match_fused_oracle(shape, softcap, dtype):
 
 
 @pytest.mark.parametrize("softcap", CAPS)
+@pytest.mark.parametrize("S", [1729, 2048])
+def test_plain_k2_past_one_accumulator_matches_jax_oracle(S, softcap):
+    """Sequences longer than one K2 accumulator (S > 1728, which the card
+    tiles into S ranges): the plain K2 and K3 against the JAX oracle, at
+    the tolerance above."""
+    H, E, b, mask, dy = _inputs(3, S, 8, 64, seed=S)
+    H[1, S - 1] *= 20.0                  # the last row wins many columns
+    mask[1, S - 1] = 1
+    y, i_max = jax_fwd_ref(*(jnp.asarray(a) for a in (H, E, b, mask)),
+                           softcap)
+    y, i_max = np.asarray(y), np.asarray(i_max)
+    assert (i_max[1] == S - 1).sum() > 8
+    dH_j, dE_j, db_j = jax_fused_ref(*(jnp.asarray(a) for a in (
+        dy, y, i_max, H, E)), softcap)
+    dyt, yt, it = _torch(dy), _torch(y), _torch(i_max)
+    dH = sparton_bwd.sparton_backward_dh(dyt, yt, it, _torch(E), S,
+                                         softcap=softcap)
+    dE, db = sparton_bwd.sparton_backward_de(dyt, yt, it, _torch(H),
+                                             softcap=softcap)
+    _close(dH.numpy(), dH_j)
+    _close(dE.numpy(), dE_j)
+    _close(db.numpy(), db_j)
+
+
+@pytest.mark.parametrize("softcap", CAPS)
 def test_port_oracle_matches_jax_oracle(softcap):
     H, E, b, mask, dy = _inputs(3, 33, 24, 100, seed=2)
     y, i_max = jax_fwd_ref(*(jnp.asarray(a) for a in (H, E, b, mask)),
@@ -235,3 +260,20 @@ def test_non_cpu_non_cuda_tensors_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="CUDA device"):
         sparton_bwd.sparton_backward_de(dy, dy, i_max,
                                         torch.zeros((2, 4, 8), device="meta"))
+
+
+@pytest.mark.parametrize("B,S", [(2, 2048), (65536, 4), (65536, 2048)])
+def test_kernel_arguments_checked_without_a_card(B, S):
+    """K2 and K3 take any S (K2 tiles it) and any B (launched in chunks of
+    65535 rows): those shapes pass the wrappers' checks and reach the
+    device check, which meta tensors fail; an empty one does not."""
+    dy = torch.empty((B, 16), device="meta")
+    i_max = torch.empty((B, 16), dtype=torch.int32, device="meta")
+    E = torch.empty((16, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        sparton_bwd.sparton_backward_dh(dy, dy, i_max, E, S)
+    with pytest.raises(ValueError, match="CUDA device"):
+        sparton_bwd.sparton_backward_de(
+            dy, dy, i_max, torch.empty((B, S, 8), device="meta"))
+    with pytest.raises(ValueError, match="outside the kernel's range"):
+        sparton_bwd.sparton_backward_dh(dy, dy, i_max, E, 0)

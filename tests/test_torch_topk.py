@@ -19,7 +19,7 @@ from repro.kernels.ref import topk_score_ref as jax_ref
 from repro.kernels.topk_score import topk_score as jax_topk
 from repro_torch.kernels._common import NEG_INF
 from repro_torch.kernels.ref import topk_score_ref
-from repro_torch.kernels.topk_score import MAX_K, topk_score
+from repro_torch.kernels.topk_score import topk_score
 
 TOL = 1e-5
 
@@ -149,19 +149,54 @@ def _meta(B, N, D):
 
 def test_kernel_arguments_checked_without_a_card():
     """Tensors that are not on the CPU go to the kernel's wrapper, never to
-    the plain version; its checks raise before anything is built."""
+    the plain version; its checks raise before anything is built. The
+    kernel takes any k >= 0 (past the old limit of 256 too) and a bf16 or
+    non-contiguous corpus (cast to f32 as the reference casts it): those
+    pass the checks and reach the device check, which meta tensors fail."""
     q, C = _meta(4, 100, 8)
-    with pytest.raises(ValueError, match=f"k <= {MAX_K}"):
-        topk_score(q, C, k=MAX_K + 1)
-    with pytest.raises(ValueError, match="one CUDA device"):
-        topk_score(q, C, k=MAX_K)
+    with pytest.raises(ValueError, match="k must be >= 0"):
+        topk_score(q, C, k=-1)
+    with pytest.raises(ValueError, match=r"must be \(B, D\) and \(N, D\)"):
+        topk_score(q, torch.empty((100, 9), device="meta"), k=3)
+    for k in (0, 256, 257, 300, 5000):
+        with pytest.raises(ValueError, match="one CUDA device"):
+            topk_score(q, C, k=k)
+    strided = torch.empty((8, 100), device="meta").T
+    for corpus in (C.to(torch.bfloat16), strided):
+        with pytest.raises(ValueError, match="one CUDA device"):
+            topk_score(q, corpus, k=300)
     with pytest.raises(ValueError, match="one CUDA device"):
         topk_score(torch.zeros((4, 8)), C, k=3)
 
 
 def test_plain_version_takes_any_k_on_the_cpu():
     q, C = _qc(2, 400, 4, seed=7)
-    v, i = _port(q, C, MAX_K + 44)
-    rv, ri = topk_score_ref(torch.from_numpy(q), torch.from_numpy(C),
-                            MAX_K + 44)
+    v, i = _port(q, C, 300)
+    rv, ri = topk_score_ref(torch.from_numpy(q), torch.from_numpy(C), 300)
     _assert_same((v, i), (rv.numpy(), ri.numpy()))
+
+
+@pytest.mark.parametrize("k", [257, 300, 999])
+def test_plain_k6_past_256_matches_pallas_kernel(k):
+    """Lists longer than the old kernel limit, merged over many candidate
+    blocks: the ids of the Pallas kernel (which keeps them in its output
+    block) and its values."""
+    q, C = _qc(3, 1000, 12, seed=k)
+    _assert_same(_port(q, C, k), _pallas(q, C, k, 128))
+
+
+@pytest.mark.parametrize("layout", ["bf16", "strided", "strided_bf16"])
+def test_plain_k6_casts_the_corpus_as_jax(layout):
+    """A bf16 corpus is cast to f32 (the reference's ``astype``); a
+    non-contiguous one is read as its values: both give the reference's
+    ids and values on the same numbers."""
+    q, C = _qc(4, 700, 24, seed=11)
+    Ct = torch.from_numpy(C)
+    if "bf16" in layout:
+        Ct = Ct.to(torch.bfloat16)
+    if "strided" in layout:
+        Ct = Ct.T.contiguous().T
+        assert not Ct.is_contiguous()
+    v, i = topk_score(torch.from_numpy(q), Ct, k=20)
+    ref = _pallas(q, Ct.float().numpy(), 20, 128)
+    _assert_same((v.numpy(), i.numpy()), ref)
