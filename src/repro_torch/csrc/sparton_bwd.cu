@@ -36,6 +36,8 @@
 // in ascending v, whatever the tiling: a sequence longer than one
 // accumulator (S > 1728) is cut into ranges that each re-read g and i_max
 // (B * V * 8 bytes a range) and give the same bits as one block would.
+// Only such launches take the tiled form (its range test and offsets); a
+// sequence that fits one accumulator runs the untiled one.
 // Batches are launched in chunks of at most 65535 rows (grid.y).
 //
 // K3 design. One block owns (32 vocab rows, 64 columns); each thread owns
@@ -130,7 +132,9 @@ __device__ __forceinline__ void load_e(const __nv_bfloat16* p, int n,
   }
 }
 
-template <typename T, int CPL, bool VEC>
+// TILED: the launch cuts S into ranges (blockIdx.z); a launch with one
+// range takes the untiled form, which skips the range test and offsets.
+template <typename T, int CPL, bool VEC, bool TILED>
 __global__ void __launch_bounds__(THREADS)
     dh_kernel(const T* __restrict__ E, float* __restrict__ dH, Rows r) {
   constexpr int DS = 32 * CPL;    // columns per block
@@ -138,8 +142,8 @@ __global__ void __launch_bounds__(THREADS)
   __shared__ float g_round[ROUND];
   __shared__ int s_round[ROUND];  // the row a term adds into, or -1
   const int b = blockIdx.y;
-  const int s_lo = blockIdx.z * r.s_tile;
-  const int rows = min(r.s_tile, r.S - s_lo);
+  const int s_lo = TILED ? blockIdx.z * r.s_tile : 0;
+  const int rows = TILED ? min(r.s_tile, r.S - s_lo) : r.S;
   const int d0 = blockIdx.x * DS;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -164,7 +168,7 @@ __global__ void __launch_bounds__(THREADS)
         // segment sum (and never touches memory outside the accumulator);
         // one outside this block's range is another block's
         if (g != 0.0f && (unsigned)si < (unsigned)r.S &&
-            (unsigned)(si - s_lo) < (unsigned)rows)
+            (!TILED || (unsigned)(si - s_lo) < (unsigned)rows))
           s = si;
       }
       g_round[k] = g;
@@ -348,15 +352,16 @@ int s_tile(int S, int fit) {
 }
 
 // One launch per chunk of at most MAX_GRID_Y batch rows; the blocks of a
-// chunk cover its rows, the D slices and the S ranges.
-template <typename T, int CPL, bool VEC>
+// chunk cover its rows, the D slices and (TILED) the S ranges.
+template <typename T, int CPL, bool VEC, bool TILED>
 int launch_dh_cols(const T* E, float* dH, Rows r, cudaStream_t stream) {
   constexpr int DS = 32 * CPL;
-  r.s_tile = s_tile(r.S, (int)(DH_SMEM_MAX / (DS * sizeof(float))));
+  r.s_tile = TILED ? s_tile(r.S, (int)(DH_SMEM_MAX / (DS * sizeof(float))))
+                   : r.S;
   const size_t smem = (size_t)r.s_tile * DS * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      dh_kernel<T, CPL, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      dh_kernel<T, CPL, VEC, TILED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int B = r.B;
   for (int b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
@@ -367,7 +372,7 @@ int launch_dh_cols(const T* E, float* dH, Rows r, cudaStream_t stream) {
     c.imax = r.imax + off;
     c.B = B - b0 < MAX_GRID_Y ? B - b0 : MAX_GRID_Y;
     dim3 grid((r.D + DS - 1) / DS, c.B, (r.S + r.s_tile - 1) / r.s_tile);
-    dh_kernel<T, CPL, VEC><<<grid, THREADS, smem, stream>>>(
+    dh_kernel<T, CPL, VEC, TILED><<<grid, THREADS, smem, stream>>>(
         E, dH + (size_t)b0 * r.S * r.D, c);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -382,10 +387,12 @@ template <typename T>
 int launch_dh(const void* E, float* dH, Rows r, int vec, cudaStream_t stream) {
   const T* e = static_cast<const T*>(E);
   if (r.D > 32 && (size_t)r.S * 64 * sizeof(float) <= DH_SMEM_MAX) {
-    return vec ? launch_dh_cols<T, 2, true>(e, dH, r, stream)
-               : launch_dh_cols<T, 2, false>(e, dH, r, stream);
+    return vec ? launch_dh_cols<T, 2, true, false>(e, dH, r, stream)
+               : launch_dh_cols<T, 2, false, false>(e, dH, r, stream);
   }
-  return launch_dh_cols<T, 1, false>(e, dH, r, stream);
+  if ((size_t)r.S * 32 * sizeof(float) <= DH_SMEM_MAX)
+    return launch_dh_cols<T, 1, false, false>(e, dH, r, stream);
+  return launch_dh_cols<T, 1, false, true>(e, dH, r, stream);
 }
 
 template <typename T, bool VEC>

@@ -23,19 +23,22 @@
 //
 // Pass 1 has two forms.
 //
-// Small batches (B <= 8, the serving path) take stream_kernel: bytes bound
-// it (C is read once, 2.0 GB at N = 16384, D = 30522: 0.60 ms at 3.35 TB/s,
-// against 0.12 ms of f32 FMAs). Each warp reads 4 candidate rows straight
-// from device memory, 64 contiguous floats of a row per load, with 4 such
-// loads of every row issued before their FMAs so that enough bytes are in
-// flight; the queries are staged through shared memory. Scores are f32
-// FMAs, one chain per lane in ascending d, the lanes added in a fixed
-// butterfly.
+// Small batches (B <= 8, what the dense serve path sends) take
+// stream_kernel: bytes bound it (C is read once, 2.0 GB at N = 16384,
+// D = 30522: 0.60 ms at 3.35 TB/s, against 0.12 ms of f32 FMAs). Each warp
+// reads 4 candidate rows straight from device memory, 64 contiguous floats
+// of a row per load, with 4 such loads of every row issued before their
+// FMAs so that enough bytes are in flight; the queries are staged through
+// shared memory. Scores are f32 FMAs, one chain per lane in ascending d,
+// the lanes added in a fixed butterfly.
 //
-// Larger batches (the serve loop's batches of up to 16, and 64) take
-// wg_kernel. At B = 64 the f32 FMAs alone need 0.96 ms at the 67 TFLOP/s
-// f32 peak, which a SIMT GEMM reaches only in part (the 8 x 4 register
-// tile this replaced ran at a third of it, slower than cuBLAS + topk).
+// Larger batches take wg_kernel. No entry point of the port sends K6 more
+// than 8 queries yet (the serve CLI retrieves for 8 served queries; its
+// batches of up to 16 are encode batches, which run K1): only a direct
+// caller of retrieve/topk_score with B > 8 reaches it. At B = 64 the f32
+// FMAs alone need 0.96 ms at the 67 TFLOP/s f32 peak, which a SIMT GEMM
+// reaches only in part (the 8 x 4 register tile this replaced ran at a
+// third of it, slower than cuBLAS + topk).
 // Plain TF32 tensor cores round the inputs to 10 mantissa bits and move
 // ids, so wg_kernel takes split f32 (3xTF32) on wgmma: three TF32 products
 // per f32 one, about f32's rounding in all (see wg_kernel's note), 0.39 ms
@@ -893,6 +896,10 @@ cudaError_t launch_score(const Plan& p, const float* q, const float* C,
 // The workspace topk_score needs for this problem on the current device,
 // in bytes, or -1 for arguments it does not take (B >= 1, N >= 0, D >= 0,
 // k >= 1).
+// The largest batch that stream_kernel (f32 FMAs) takes; larger ones take
+// wg_kernel (3xTF32).
+extern "C" int topk_score_stream_rows() { return SB; }
+
 extern "C" long long topk_score_workspace(int B, int N, int D, int k) {
   Plan p;
   return make_plan(B, N, D, k, &p) == cudaSuccess ? (long long)p.bytes : -1;

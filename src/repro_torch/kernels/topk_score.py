@@ -99,6 +99,13 @@ def _launch(q, C, k):
     return vals, idx
 
 
+def stream_rows() -> int:
+    """The largest batch the kernel scores with f32 FMAs; larger batches
+    take split f32 (3xTF32) on the tensor cores. Read from the built
+    kernel, which defines it."""
+    return _build.function("topk_score", "topk_score_stream_rows", [])()
+
+
 def topk_score(q: torch.Tensor, C: torch.Tensor, *, k: int = 100
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused scoring + streaming top-k: ``(vals (B, k) f32, idx (B, k)

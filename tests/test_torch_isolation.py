@@ -1,7 +1,8 @@
-"""The port stands alone: no module of ``src/repro_torch`` nor
-``chip_smoke.py`` imports JAX or the JAX package, every port module
-imports with JAX blocked, importing the kernel modules builds and
-loads nothing, and ``chip_smoke.py`` prints no result without CUDA."""
+"""The port stands alone: no module of ``src/repro_torch``, no script
+under ``tools/`` and not ``chip_smoke.py`` imports JAX or the JAX
+package, every port module imports with JAX blocked, importing the
+kernel modules builds and loads nothing, and ``chip_smoke.py`` prints no
+result without CUDA."""
 
 import os
 import re
@@ -14,7 +15,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(PKG.rglob("*.py")) + sorted((ROOT / "tools").glob("*.py"))
+           + [ROOT / "chip_smoke.py"])
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
     .removesuffix(".__init__") for p in PKG.rglob("*.py"))
