@@ -124,7 +124,9 @@ def phase_build():
         log = (_build.build_dir() / f"{name}.log")
         lines = log.read_text().splitlines() if log.exists() else []
         reports[name] = [ln.strip() for ln in lines
-                         if "registers" in ln or "spill" in ln]
+                         if any(word in ln for word in (
+                             "Compiling entry", "registers", "spill",
+                             "arning"))]
     emit("build", seconds=seconds, dir=str(_build.build_dir()),
          ptxas=reports)
 
@@ -157,16 +159,51 @@ def k1_inputs(torch, B, S, D, V, dtype, seed, *, mask_p=0.2):
     return H, E, b, mask
 
 
-def k1_compare(torch, H, E, b, mask, softcap):
-    """Kernel vs plain on one input: (max |dy|, i_max mismatches beyond a
-    near-tie). A mismatch is excused only where the two positions' logits
-    differ by at most K1_TOL (the sums run in another order)."""
-    from repro_torch.kernels.sparton import (sparton_forward,
-                                             sparton_forward_plain)
+def k1_expected_path(torch, H, E):
+    """The K1 path the rule in ``kernels/sparton._plan`` must give, stated
+    here on its own: TMA needs bf16, D % 8 == 0 and 16-byte aligned
+    bases."""
+    if H.dtype == torch.float32:
+        return "f32"
+    aligned = H.data_ptr() % 16 == 0 and E.data_ptr() % 16 == 0
+    return "tma" if H.shape[2] % 8 == 0 and aligned else "wmma"
 
-    y_k, i_k = sparton_forward(H, E, b, mask, softcap=softcap)
-    y_p, i_p = sparton_forward_plain(H, E, b, mask, softcap)
+
+def reset_k1(k1):
+    k1.sparton_forward.launches = 0
+    k1.sparton_forward.path_launches = dict.fromkeys(k1.PATHS, 0)
+
+
+def k1_on_tma(k1, where):
+    """The K1 launches by path since ``reset_k1``; every one must have
+    taken the "tma" path."""
+    paths = dict(k1.sparton_forward.path_launches)
+    require(k1.sparton_forward.launches > 0
+            and paths["tma"] == k1.sparton_forward.launches,
+            f"{where}: K1 launches by path {paths}, every one must take "
+            f"'tma'")
+    return paths
+
+
+def k1_compare(torch, H, E, b, mask, softcap, *, exact_imax=False):
+    """Kernel (launched twice) vs plain on one input: max |dy|, i_max
+    mismatches and those beyond a near-tie (the two positions' logits
+    differ by more than K1_TOL: the sums run in another order), the path
+    taken (which must be the one ``k1_expected_path`` gives) and whether
+    the two launches gave the same bits. ``exact_imax`` requires every
+    i_max to equal the plain version's."""
+    from repro_torch.kernels import sparton as k1
+
+    before = dict(k1.sparton_forward.path_launches)
+    y_k, i_k = k1.sparton_forward(H, E, b, mask, softcap=softcap)
+    y_2, i_2 = k1.sparton_forward(H, E, b, mask, softcap=softcap)
+    y_p, i_p = k1.sparton_forward_plain(H, E, b, mask, softcap)
     torch.cuda.synchronize()
+    taken = [path for path, n in k1.sparton_forward.path_launches.items()
+             if n != before[path]]
+    want = k1_expected_path(torch, H, E)
+    require(taken == [want], f"K1 at {tuple(H.shape)} {H.dtype} took "
+                             f"{taken}, expected {want!r}")
     err = (y_k - y_p).abs()
     require(bool((err <= K1_TOL + K1_TOL * y_p.abs()).all()),
             f"K1 y differs from the plain version by {err.max().item()}")
@@ -182,7 +219,12 @@ def k1_compare(torch, H, E, b, mask, softcap):
 
         gap = (logit(i_k[bb, vv]) - logit(i_p[bb, vv])).abs()
         hard = int((gap > K1_TOL * (1 + logit(i_p[bb, vv]).abs())).sum())
-    return float(err.max()), int(bad.shape[0]), hard
+    if exact_imax:
+        hard = int(bad.shape[0])
+    return {"path": want, "max_abs_err": float(err.max()),
+            "imax_mismatch": int(bad.shape[0]), "imax_hard": hard,
+            "bit_identical": bool(torch.equal(y_k, y_2)
+                                  and torch.equal(i_k, i_2))}
 
 
 def k4_cases(torch):
@@ -465,11 +507,10 @@ def limit_cases(torch):
     B, S, D, V = WIDE_B
     for dtype in (torch.float32, torch.bfloat16):
         H, E, b, mask = k1_inputs(torch, B, S, D, V, dtype, 65)
-        err, mism, hard = k1_compare(torch, H, E, b, mask, None)
+        case = k1_compare(torch, H, E, b, mask, None)
         rows.append({"kernel": "K1", "shape": [B, S, D, V],
-                     "dtype": str(dtype)[6:], "max_abs_err": err,
-                     "imax_mismatch": mism, "imax_hard": hard,
-                     "within_tol": hard == 0})
+                     "dtype": str(dtype)[6:], **case,
+                     "within_tol": case["imax_hard"] == 0})
         H, E, mask, dy, y, i_max = bwd_inputs(torch, B, S, D, V, dtype, 66,
                                               None)
         rows.append({"kernel": "K2/K3", "shape": [B, S, D, V],
@@ -486,13 +527,50 @@ def limit_cases(torch):
     return rows
 
 
-def phase_kernels(torch):
-    from repro_torch.kernels.impact_score import (fused_impact_topk,
-                                                  fused_impact_topk_plain)
+# K1 at full width (D 768, V 30522 with its 58-column tail, bf16, so the
+# "tma" path): chunks that end inside the TMA box (S 48, 900, 1729), B x S
+# not a multiple of 128, 8 batch rows to a tile with B = 5, each with and
+# without the softcap and with a fully masked row. (B, S, softcap)
+K1_FULL = [(3, 48, None), (3, 48, 5.0), (2, 900, None), (2, 900, 5.0),
+           (2, 1729, None), (5, 16, 5.0)]
+# K1 on exact ties at full width: every row of H a copy of one of a few
+# distinct rows, placed at random (so first copies fall in any warp,
+# warpgroup or chunk), and small-integer H, E and bias, so that every
+# logit is exact in f32 whatever the order of the sums: i_max must equal
+# the plain version's everywhere. (B, S, distinct rows, softcap)
+K1_TIES = [(4, 300, 24, None), (4, 300, 24, 5.0), (5, 40, 6, None),
+           (9, 12, 4, 5.0)]
+
+
+def k1_tie_inputs(torch, B, S, distinct, seed):
+    D, V = 768, 30522
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def ternary(shape, density):
+        keep = torch.rand(shape, generator=g, device="cuda") < density
+        sign = torch.randint(0, 2, shape, generator=g, device="cuda") * 2 - 1
+        return (keep * sign).to(torch.bfloat16)
+
+    rows = ternary((B, distinct, D), 0.1)
+    pick = torch.randint(0, distinct, (B, S), generator=g, device="cuda")
+    H = torch.gather(rows, 1, pick[:, :, None].expand(B, S, D)).contiguous()
+    E = ternary((V, D), 0.1)
+    b = torch.randint(-4, 5, (V,), generator=g, device="cuda") / 4.0
+    mask = (torch.rand((B, S), generator=g, device="cuda") > 0.2).int()
+    mask[:, 0] = 1
+    mask[B - 1] = 0
+    return H, E, b, mask
+
+
+def k1_gates(torch):
+    """K1 against its plain version, each case launched twice (the same
+    bits) on the path the rule gives: K1_SHAPES in f32 and bf16 with and
+    without the softcap, a bf16 H whose base is not 16-byte aligned
+    ("wmma"), K1_FULL and the exact ties of K1_TIES ("tma"), and a fully
+    masked row giving (0, 0)."""
     from repro_torch.kernels.sparton import sparton_forward
 
-    k1 = []
-    worst_err, worst_hard = 0.0, 0
+    cases = []
     seed = 0
     for (B, S, D, V) in K1_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -501,27 +579,49 @@ def phase_kernels(torch):
                 H, E, b, mask = k1_inputs(torch, B, S, D, V, dtype, seed)
                 if B > 1:
                     mask[B - 1] = 0          # one fully masked row
-                err, mism, hard = k1_compare(torch, H, E, b, mask, softcap)
-                k1.append({"shape": [B, S, D, V], "dtype": str(dtype)[6:],
-                           "softcap": softcap, "max_abs_err": err,
-                           "imax_mismatch": mism, "imax_hard": hard})
-                worst_err, worst_hard = max(worst_err, err), worst_hard + hard
-    require(worst_hard == 0, f"K1 i_max disagrees beyond near-ties "
-                             f"({worst_hard} positions)")
-    # a bf16 H whose base is not 16-byte aligned takes the synchronous
-    # loads (no cp.async)
+                cases.append({"shape": [B, S, D, V],
+                              "dtype": str(dtype)[6:], "softcap": softcap,
+                              **k1_compare(torch, H, E, b, mask, softcap)})
+    # a bf16 H whose base is not 16-byte aligned: the "wmma" path, with
+    # element copies (no cp.async)
     H, E, b, mask = k1_inputs(torch, 4, 96, 64, 200, torch.bfloat16, 98)
     H = torch.cat([H.new_zeros(1), H.reshape(-1)])[1:].view(H.shape)
-    err, _, hard = k1_compare(torch, H, E, b, mask, None)
-    worst_err, worst_hard = max(worst_err, err), worst_hard + hard
-    require(hard == 0, "K1 i_max disagrees on an unaligned H")
+    cases.append({"shape": [4, 96, 64, 200], "dtype": "bfloat16",
+                  "softcap": None, "unaligned": True,
+                  **k1_compare(torch, H, E, b, mask, None)})
+    for i, (B, S, softcap) in enumerate(K1_FULL):
+        H, E, b, mask = k1_inputs(torch, B, S, 768, 30522, torch.bfloat16,
+                                  200 + i)
+        mask[B - 1] = 0
+        cases.append({"shape": [B, S, 768, 30522], "dtype": "bfloat16",
+                      "softcap": softcap,
+                      **k1_compare(torch, H, E, b, mask, softcap)})
+        del H, E
+    for i, (B, S, distinct, softcap) in enumerate(K1_TIES):
+        H, E, b, mask = k1_tie_inputs(torch, B, S, distinct, 300 + i)
+        cases.append({"shape": [B, S, 768, 30522], "dtype": "bfloat16",
+                      "softcap": softcap, "exact_ties": distinct,
+                      **k1_compare(torch, H, E, b, mask, softcap,
+                                   exact_imax=True)})
+        del H, E
+    torch.cuda.empty_cache()
+    bad = [c for c in cases if c["imax_hard"] or not c["bit_identical"]]
+    require(not bad, f"K1 i_max disagrees beyond near-ties (exactly, on "
+                     f"the ties) or two launches differ: {bad[:2]}")
     # a fully masked row gives y = 0, i_max = 0 on both sides
     H, E, b, mask = k1_inputs(torch, 3, 33, 24, 100, torch.bfloat16, 99)
     mask[1] = 0
     y, i = sparton_forward(H, E, b, mask)
     require(bool((y[1] == 0).all() and (i[1] == 0).all()),
             "K1 fully masked row is not (0, 0)")
+    return cases
 
+
+def phase_kernels(torch):
+    from repro_torch.kernels.impact_score import (fused_impact_topk,
+                                                  fused_impact_topk_plain)
+
+    k1 = k1_gates(torch)
     k4 = []
     k4_err, k4_mism = 0.0, 0
     for name, w, d, n_docs, k, lanes in k4_cases(torch):
@@ -569,8 +669,12 @@ def phase_kernels(torch):
                      f"oracle beyond {BWD_TOL} or between two launches: "
                      f"{bad[:2]}")
     limits = limit_cases(torch)
-    emit("kernels", k1_max_abs_err=worst_err, k1_tol=K1_TOL,
+    emit("kernels", k1_max_abs_err=max(c["max_abs_err"] for c in k1),
+         k1_tol=K1_TOL,
          k1_imax_mismatch=sum(c["imax_mismatch"] for c in k1),
+         k1_paths={path: sum(c["path"] == path for c in k1)
+                   for path in ("tma", "wmma", "f32")},
+         k1_bit_identical=all(c["bit_identical"] for c in k1),
          k1_cases=k1, k4_max_abs_err=k4_err, k4_id_mismatch=k4_mism,
          k4_cases=k4, k5_max_abs_err=max(c["max_abs_err"] for c in k5),
          k5_id_mismatch=sum(c["id_mismatch"] for c in k5),
@@ -710,7 +814,7 @@ def phase_serve(torch):
                         time.perf_counter() - t0))
         return reps
 
-    k1.sparton_forward.launches = 0
+    reset_k1(k1)
     k4.fused_impact_topk.launches = 0
     with plain_guard(k1=(k1, "sparton_forward_plain"),
                      k4=(k4, "fused_impact_topk_plain")) as plain_on_cuda:
@@ -720,6 +824,7 @@ def phase_serve(torch):
                   device=torch.device("cuda"))
     launches = {"sparton_fwd": k1.sparton_forward.launches,
                 "impact_topk": k4.fused_impact_topk.launches}
+    k1_paths = k1_on_tma(k1, "serve")
 
     st = res["loop"].stats()
     unserved = [r for r in res["outcomes"].values()
@@ -763,6 +868,7 @@ def phase_serve(torch):
     ist = index.stats()
     emit("serve", config=cfg.name, n_params=cfg.n_params,
          head_impl=cfg.head_spec().impl, launches=launches,
+         k1_paths=k1_paths,
          encode_batches=len(batches), index_s=res["index_s"],
          n_docs=ist["n_docs"], n_postings=ist["n_postings"],
          max_postings=ist["max_postings"],
@@ -774,7 +880,8 @@ def phase_serve(torch):
          retrieve_method=res["method"], retrieve_ms=1e3 * res["retrieve_s"],
          ids_differ=int(differ.sum()), near_ties=int((differ & near).sum()),
          fused_vs_impact_max_abs_err=val_err)
-    return {"params": params, "cfg": cfg, "res": res, "launches": launches}
+    return {"params": params, "cfg": cfg, "res": res, "launches": launches,
+            "k1_paths": k1_paths}
 
 
 def index_as_dense(torch, index):
@@ -820,7 +927,7 @@ def phase_serve_dense(torch, served):
         batches.append(tokens.shape)
         return encode(tokens, mask)
 
-    k1.sparton_forward.launches = 0
+    reset_k1(k1)
     k6.topk_score.launches = 0
     with plain_guard(k1=(k1, "sparton_forward_plain"),
                      k6=(k6, "topk_score_plain")) as plain_on_cuda:
@@ -830,6 +937,7 @@ def phase_serve_dense(torch, served):
                   device=torch.device("cuda"))
     launches = {"sparton_fwd": k1.sparton_forward.launches,
                 "topk_score": k6.topk_score.launches}
+    k1_paths = k1_on_tma(k1, "serve_dense")
 
     corpus, st = res["index"], res["loop"].stats()
     unserved = [r for r in res["outcomes"].values()
@@ -893,8 +1001,8 @@ def phase_serve_dense(torch, served):
          retrieve_method=res["method"], retrieve_ms=1e3 * res["retrieve_s"],
          ids_differ_vs_dense=differ, streaming_vs_dense_max_abs_err=val_err,
          ids_differ_vs_fused=differ_s, streaming_vs_fused_max_abs_err=val_err_s,
-         past_limits=past)
-    return {"res": res, "launches": launches}
+         past_limits=past, k1_paths=k1_paths)
+    return {"res": res, "launches": launches, "k1_paths": k1_paths}
 
 
 def dense_past_limits(torch, res, corpus):
@@ -1109,7 +1217,7 @@ def phase_serve_engine(torch, served):
     builder, queries, k = engine.builder, res["queries"], SERVE["topk"]
     rng = np.random.default_rng(SEED)
     n = ENGINE["corpus"]
-    k1.sparton_forward.launches = 0
+    reset_k1(k1)
     k45.fused_impact_topk.launches = 0
     k45.fused_quantized_topk.launches = 0
     with plain_guard(k1=(k1, "sparton_forward_plain"),
@@ -1141,6 +1249,7 @@ def phase_serve_engine(torch, served):
     launches = {"sparton_fwd": k1.sparton_forward.launches,
                 "impact_topk": k45.fused_impact_topk.launches,
                 "impact_q_topk": k45.fused_quantized_topk.launches}
+    k1_paths = k1_on_tma(k1, "serve_engine")
     st = engine.stats()
 
     require(isinstance(base, QuantizedIndex) and st["quantized_base"],
@@ -1187,6 +1296,7 @@ def phase_serve_engine(torch, served):
     require(ratio > 1, f"the quantized base is not smaller than its raw "
                        f"index ({ratio:.3f}x)")
     emit("serve_engine", config=cfg.name, launches=launches,
+         k1_paths=k1_paths,
          encode_batches=len(batches), index_s=index_s,
          docs_grown=n, grown_stats=grown, removed=len(dropped),
          added_after_compaction=len(added), stats=st,
@@ -1199,7 +1309,7 @@ def phase_serve_engine(torch, served):
          in_place={"resolved": in_place["resolved"], "stats": st_in,
                    "searches": rows_in_place},
          acceptance=accept, past_limits=past)
-    return {"engine": engine, "launches": launches}
+    return {"engine": engine, "launches": launches, "k1_paths": k1_paths}
 
 
 # --------------------------------------------------------------------------
@@ -1393,7 +1503,7 @@ def phase_train(torch):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k1.sparton_forward.launches = 0
+    reset_k1(k1)
     kb.sparton_backward_dh.launches = 0
     kb.sparton_backward_de.launches = 0
     step_s, losses = [], []
@@ -1410,6 +1520,7 @@ def phase_train(torch):
     launches = {"sparton_fwd": k1.sparton_forward.launches,
                 "sparton_bwd_dh": kb.sparton_backward_dh.launches,
                 "sparton_bwd_de": kb.sparton_backward_de.launches}
+    k1_paths = k1_on_tma(k1, "train")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     require(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
     require(all(n == 2 * TRAIN_STEPS for n in launches.values()),
@@ -1441,10 +1552,10 @@ def phase_train(torch):
          median_step_ms=median_ms,
          pairs_per_s=shape.global_batch / (median_ms / 1e3),
          max_memory_allocated_gib=peak_gib, launches=launches,
-         step_profile=profile)
+         k1_paths=k1_paths, step_profile=profile)
     del state, batch
     torch.cuda.empty_cache()
-    return {"launches": launches}
+    return {"launches": launches, "k1_paths": k1_paths}
 
 
 # --------------------------------------------------------------------------
@@ -1566,29 +1677,74 @@ def k1_library(torch, H, E, b, mask):
     return z.amax(dim=1)
 
 
-def time_k1(torch, H, E, b, mask, *, reps, plain_reps):
-    from repro_torch.kernels.sparton import (sparton_forward,
-                                             sparton_forward_plain)
+def in_turns(torch, fns, reps):
+    """Time two functions in turns (a, b, b, a) with ``cuda_ms``: for
+    each, the median ms of its windows and their [min, max]."""
+    (a, fa), (b, fb) = fns.items()
+    windows = {a: [], b: []}
+    for key, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        cuda_ms(torch, fn, reps)
+        windows[key] += cuda_ms.windows
+    return {key: (sorted(w)[len(w) // 2], [min(w), max(w)])
+            for key, w in windows.items()}
 
-    err, mism, hard = k1_compare(torch, H, E, b, mask, None)
-    require(hard == 0, f"K1 i_max disagrees beyond near-ties at "
-                       f"{tuple(H.shape)} ({hard} positions)")
+
+def host_us(torch, fn, n=20):
+    """Host microseconds a call takes to enqueue (no synchronise inside
+    the window): the wrapper, its allocations and, for "tma", encoding
+    the tensor maps."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * seconds / n
+
+
+def time_k1(torch, H, E, b, mask, *, reps, plain_reps):
+    """K1 on the "tma" path beside the earlier WMMA design forced on the
+    same inputs (``ms_pr11``; the two in turns), the plain version, the
+    paper's PyTorch baseline (``library_ms``) and the bound."""
+    from repro_torch.kernels import sparton as k1
+
+    case = k1_compare(torch, H, E, b, mask, None)
+    require(case["path"] == "tma" and case["imax_hard"] == 0
+            and case["bit_identical"],
+            f"K1 at {tuple(H.shape)}: {case}")
     B, S, D = H.shape
     V = E.shape[0]
     bound, by = k1_bound_ms(B, S, D, V, H.element_size())
+
+    def tma():
+        return k1.sparton_forward(H, E, b, mask)
+
+    def pr11():
+        return k1._launch(H, E, b, mask, None, _path="wmma")
+
     row = {"shape": [B, S, D, V], "dtype": str(H.dtype)[6:],
-           "max_abs_err": err, "imax_mismatch": mism,
-           "peak_mb": peak_mb(torch, lambda: sparton_forward(H, E, b, mask)),
+           "max_abs_err": case["max_abs_err"],
+           "imax_mismatch": case["imax_mismatch"],
+           "peak_mb": peak_mb(torch, tma),
            "library_peak_mb": peak_mb(torch, lambda: k1_library(
                torch, H, E, b, mask)),
            "bound_ms": bound, "bound_by": by}
+    y_t, i_t = tma()
+    y_w, i_w = pr11()
+    row["pr11_vs_tma_max_abs_err"] = float((y_t - y_w).abs().max())
+    del y_t, i_t, y_w, i_w
+    for key, (ms, spread) in in_turns(
+            torch, {"ms_pr11": pr11, "ms": tma}, reps).items():
+        row[key], row[key + "_range"] = ms, spread
     for key, fn, reps_ in (
-            ("ms", lambda: sparton_forward(H, E, b, mask), reps),
-            ("plain_ms", lambda: sparton_forward_plain(H, E, b, mask),
+            ("plain_ms", lambda: k1.sparton_forward_plain(H, E, b, mask),
              plain_reps),
             ("library_ms", lambda: k1_library(torch, H, E, b, mask),
              plain_reps)):
         row[key], row[key + "_range"] = timed(torch, fn, reps_)
+    row["bound_share"] = bound / row["ms"]
+    row["host_us"] = host_us(torch, tma)
+    row["host_us_pr11"] = host_us(torch, pr11)
     torch.cuda.empty_cache()
     return row
 
@@ -1918,12 +2074,12 @@ def phase_timing(torch, served, served_dense, served_engine):
     del H
     torch.cuda.empty_cache()
     emit("timing_bwd", **bwd)
-    return {"k1": rows["index_batch"], "k1_train": rows["train"], "bwd": bwd,
+    return {"k1": rows["index_batch"], "k1_rows": rows, "bwd": bwd,
             "k4": k4, "k5": k5, "k6": k6}
 
 
 def kernel_rows(measured, launches, dense_launches, engine_launches,
-                train_launches):
+                train_launches, k1_paths):
     """The ``{"kernels": [...]}`` line: each kernel's launches on its path
     and its numbers from the timing phase (K1 at an index batch, K2/K3 at
     the train shape, K5 and K6 at the served queries; K1 also at the train
@@ -1932,6 +2088,7 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
                                 for key in ("k1", "bwd", "k4", "k5", "k6"))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    k1_keys = keys + ("ms_pr11",)
     k6_keys = keys + ("ms_over_library",)
     return [
         {"name": "sparton_fwd (K1)", "route": "cuda",
@@ -1941,8 +2098,11 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
          "dense_serve_launches": dense_launches["sparton_fwd"],
          "engine_launches": engine_launches["sparton_fwd"],
          "train_launches": train_launches["sparton_fwd"],
-         **{key: main_k1[key] for key in keys},
-         "at_train_shape": {key: measured["k1_train"][key] for key in keys}},
+         "path_launches": k1_paths,
+         **{key: main_k1[key] for key in k1_keys},
+         **{f"at_{name}": {key: measured["k1_rows"][name][key]
+                           for key in k1_keys}
+            for name in ("query_batch", "train", "table1")}},
         *({"name": name, "route": "cuda",
            "source": "src/repro_torch/csrc/sparton_bwd.cu",
            "replaces": replaces, "launches": train_launches[key],
@@ -2001,14 +2161,18 @@ def main() -> int:
     measured = phase_timing(torch, served, served_dense, served_engine)
     dense_launches = served_dense["launches"]
     engine_launches = served_engine["launches"]
+    k1_paths = {"serve": served["k1_paths"],
+                "dense_serve": served_dense["k1_paths"],
+                "engine": served_engine["k1_paths"]}
     # the 1.9 GiB dense corpus and the engine are not the train phase's
     # memory
     del served_dense, served_engine
     torch.cuda.empty_cache()
     trained = phase_train(torch)
+    k1_paths["train"] = trained["k1_paths"]
     print(json.dumps({"kernels": kernel_rows(
         measured, served["launches"], dense_launches, engine_launches,
-        trained["launches"])}), flush=True)
+        trained["launches"], k1_paths)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

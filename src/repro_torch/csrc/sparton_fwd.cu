@@ -9,34 +9,80 @@
 //
 // without ever writing the (B, S, V) logits to device memory.
 //
-// Design. One block owns a (bb batch rows x BN vocab columns) output tile
-// and walks the sequence in chunks of bs positions, bb * bs = BM = 128
-// rows of the flattened (b, s) axis per chunk. Each chunk's (BM x BN)
-// logit tile is a GEMM over D, staged through shared memory in BK-wide
-// slices: for bf16 inputs a 4-deep ring of cp.async copies feeds the
-// tensor cores (WMMA 16x16x16, bf16 in, f32 accumulate); f32 inputs take
-// a synchronous slice and an 8x8 register tile of FMAs per thread. The
-// accumulators go to shared memory once per chunk; the epilogue adds the
-// bias, applies the softcap and the mask, and folds the chunk into a
-// running max/argmax that each thread keeps in registers for the columns
-// it owns. Positions are visited in ascending s and only a strictly
-// greater value replaces the running one, so ties go to the first s,
-// as in the reference. y and i_max are stored once, at the end; nothing
-// carries over between blocks.
-//
 // Bound on the H100: at the paper's Table-1 shape (B=320, S=512, D=768,
 // V=30522) the GEMM is 7.68 TFLOP against 0.38 GB of compulsory traffic,
 // so the kernel is compute-bound (about 7.8 ms at 989 TFLOP/s bf16).
-// This version hides load latency with the cp.async ring but issues
-// mma.sync-class WMMA; wgmma, TMA and warp specialisation are the road
-// to that bound.
+//
+// Three paths, chosen by the caller (kernels/sparton.py:_plan) and passed
+// in as `path`; none gives way to another.
+//
+// "tma" (bf16, D % 8 == 0, 16-byte aligned bases: every launch of the
+// serving and training paths). A persistent, warp-specialised wgmma
+// kernel, one block of 384 threads per SM:
+//   * A block owns an output tile of (bb batch rows x 256 vocab columns)
+//     and walks S in chunks of 128 flattened (b, s) rows: bs positions of
+//     bb = 128 / bs batch rows, bs the smallest power of two >= min(S,
+//     128), at least 16. So each warp's 16 rows of a wgmma fragment lie in
+//     one batch row.
+//   * Warpgroup 0 is the producer: one thread issues TMA loads of 64-wide
+//     D slices (128 bytes, 128-byte swizzle) of H (a 3-D map over (D, S,
+//     B), box (64, bs, bb), zeros past S and B) and E (a 2-D map over (D,
+//     V), box (64, 256), zeros past V) into a 4-stage ring (48 KB a stage)
+//     guarded by full/empty mbarriers. It runs straight across chunk and
+//     tile boundaries, so the ring never drains. setmaxnreg moves its
+//     registers (down to 40) to the consumers (232).
+//   * Warpgroups 1 and 2 each take 128 of the tile's 256 columns for all
+//     128 rows of a chunk: two wgmma.m64n128k16 (bf16 in, f32 accumulate,
+//     both operands in shared memory) per k16 step. A stage goes back to
+//     the producer once wgmma.wait_group shows its reads done.
+//   * Epilogue in registers: each accumulator gets bias[v], the softcap
+//     and mask[b, s] before any max (the softcap is a template parameter,
+//     so the main path's kernel carries no tanh code). When bs == 128 a
+//     thread's four rows are positions of one batch row: it folds them in
+//     ascending s into a running (max, s) of its 32 columns, kept in
+//     registers across chunks, with no shuffle until the tile's end. With
+//     smaller bs its two fragments are two batch rows: each folds its two
+//     rows and the 8 lanes sharing a column reduce-scatter (shfl.xor 16,
+//     8, 4) so that a lane keeps 4 columns a fragment. At the tile's end
+//     the warps of one batch row merge through shared memory and y, i_max
+//     are stored once. Every merge keeps the larger value, then the
+//     smaller s, so ties go to the first s, as in the reference. The two
+//     consumer warpgroups share nothing but the ring (a named barrier
+//     each), so one's epilogue may run beside the other's products.
+//   * The grid is one block per SM walking tiles in bands of `group` row
+//     groups, row group fastest: the blocks in flight share E tiles, and
+//     a band's rows of H stay in L2 while it sweeps the vocabulary.
+//   * What bounds it (tools/k1_breakdown.py; PERF.md has the numbers):
+//     the TMA loads alone, from L2 into shared memory, take most of the
+//     kernel's time; the products hide under them, the epilogue does not
+//     all. The next lever is a 2-block cluster sharing each E slice by TMA
+//     multicast, which cuts the bytes from L2 by a third.
+//
+// "wmma" (the other bf16 inputs: D % 8 != 0 or a base that is not 16-byte
+// aligned; also forced on aligned inputs to time the earlier design) and
+// "f32". One block per (bb batch rows x 128 vocab) tile, launched in
+// chunks of 65535 batch rows. Each chunk's logit tile is a GEMM over D in
+// 32-wide slices: bf16 on the tensor cores (WMMA 16x16x16) fed by a
+// 4-deep cp.async ring where rows may be copied 16 bytes at a time,
+// element by element otherwise; f32 as an 8x8 register tile of FMAs per
+// thread. The accumulators go through shared memory once per chunk into a
+// running max/argmax per (batch row, column) in registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
-namespace {
+#include "hopper.cuh"
+
+// Measurement only (tools/k1_breakdown.py; the build never sets it): bit 1
+// drops the "tma" path's products, bit 2 its epilogue, so that a run can
+// time the loads alone and each part beside them. Results are then wrong.
+#ifndef K1_DROP
+#define K1_DROP 0
+#endif
+
+namespace wmma_ring {
 
 constexpr int BM = 128;       // rows of the flattened (b, s) tile
 constexpr int BN = 128;       // vocab columns per block
@@ -353,20 +399,451 @@ int launch(const void* H, const void* E, Problem p, cudaStream_t stream) {
   return (int)cudaSuccess;
 }
 
-}  // namespace
+}  // namespace wmma_ring
 
-// C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16 (H and
-// E alike); bias is f32 (V,), mask i32 (B, S); y f32 and i_max i32 (B, V).
-// softcap <= 0 means no cap. Any B >= 1 (launched in chunks of 65535 rows).
-// Returns the first CUDA error of the launches.
+// ===========================================================================
+// The "tma" path
+// ===========================================================================
+
+namespace tma {
+
+using namespace hopper;
+
+constexpr int ROWS = 128;               // flattened (b, s) rows per chunk
+constexpr int BN = 256;                 // vocab columns per tile
+constexpr int WG_COLS = 128;            // of them per consumer warpgroup
+constexpr int BK = 64;                  // D slice per stage: 128 bytes
+constexpr int STAGES = 4;
+constexpr int THREADS = 384;            // producer + two consumer warpgroups
+constexpr int PRODUCERS = 128;
+constexpr int CONSUMER_WARPS = 8;
+constexpr int A_BYTES = ROWS * BK * 2;  // H rows of one stage: 16 KB
+constexpr int B_BYTES = BN * BK * 2;    // E rows of one stage: 32 KB
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr float NEG_INF = -1e30f;
+constexpr int ENCODE_FAILED = 10000;    // + the CUresult of the encoding
+
+// byte offsets from the 1024-aligned base of dynamic shared memory: the
+// ring, then the tile-end merge buffer of 8 row blocks x BN columns
+// (value, s), the tile's bias, and the full/empty barriers
+constexpr uint32_t OFF_A = 0;
+constexpr uint32_t OFF_B = OFF_A + STAGES * A_BYTES;
+constexpr uint32_t OFF_MVAL = OFF_B + STAGES * B_BYTES;
+constexpr uint32_t OFF_MARG = OFF_MVAL + CONSUMER_WARPS * BN * 4;
+constexpr uint32_t OFF_BIAS = OFF_MARG + CONSUMER_WARPS * BN * 4;
+constexpr uint32_t OFF_BARS = OFF_BIAS + BN * 4;
+constexpr uint32_t SMEM = OFF_BARS + 2 * STAGES * 8 + 1024;
+
+struct Problem {
+  const float* bias;
+  const int* mask;
+  float* y;
+  int* imax;
+  int B, S, D, V;
+  int bs, bb;      // positions per chunk, batch rows per tile
+  int n_rg, n_vt;  // row groups (bb batch rows each) and vocab tiles
+  int group;       // row groups per band of the tile order
+  long long n_tiles;
+  int has_cap;
+  float cap;
+};
+
+// Tile t of the persistent walk -> (row group, vocab tile): bands of
+// `group` row groups, the row group fastest within a band. Mirrored by
+// kernels/sparton.py:tile_coords, which the CPU tests hold to covering
+// every tile once.
+__device__ __forceinline__ void tile_coords(long long t, const Problem& p,
+                                            int& rg, int& vt) {
+  const long long band_tiles = (long long)p.group * p.n_vt;
+  const long long band = t / band_tiles;
+  const long long local = t - band * band_tiles;
+  const long long left = p.n_rg - band * p.group;
+  const int rows = (int)(left < p.group ? left : p.group);
+  vt = (int)(local / rows);
+  rg = (int)(band * p.group + local % rows);
+}
+
+// Keep the larger value, then the smaller s: associative, so partial
+// states over disjoint positions may meet in any order.
+__device__ __forceinline__ void merge(float& bv, int& bs, float v, int s) {
+  if (v > bv || (v == bv && s < bs)) {
+    bv = v;
+    bs = s;
+  }
+}
+
+// One reduce-scatter step between the lanes that differ in `bit`: the
+// entries [0, N) become [0, N / 2), the upper half on the lane with the
+// bit set, each merged with the partner's copy.
+template <int N>
+__device__ __forceinline__ void scatter(float* v, int* s, int bit,
+                                        bool upper) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float send_v = upper ? v[i] : v[N / 2 + i];
+    const int send_s = upper ? s[i] : s[N / 2 + i];
+    float keep_v = upper ? v[N / 2 + i] : v[i];
+    int keep_s = upper ? s[N / 2 + i] : s[i];
+    const float other_v = __shfl_xor_sync(0xffffffffu, send_v, bit);
+    const int other_s = __shfl_xor_sync(0xffffffffu, send_s, bit);
+    merge(keep_v, keep_s, other_v, other_s);
+    v[i] = keep_v;
+    s[i] = keep_s;
+  }
+}
+
+// The logit of one accumulator: bias, softcap, then the mask.
+template <bool CAP>
+__device__ __forceinline__ float logit(float acc, float bias, bool keep,
+                                       float cap) {
+  float x = acc + bias;
+  if constexpr (CAP) x = cap * tanhf(x / cap);
+  return keep ? x : NEG_INF;
+}
+
+// One fragment's two rows (positions s_0 < s_1 of one batch row) when a
+// chunk holds several batch rows: 8 column groups at a time, fold the two
+// rows (the earlier keeps a tie), merge over the 8 lanes that share a
+// column, each lane keeping 2 of the 16 entries (lane l: columns 64 g +
+// 8 (l / 4) + 2 (l % 4) + i), then into the fragment's running state
+// run[2 g + i] (a later chunk: strictly greater).
+template <bool CAP>
+__device__ __forceinline__ void fold_fragment(const float (&acc)[64],
+                                              const float* bias, bool k0,
+                                              bool k1, int s_0, int s_1,
+                                              int lane, float cap,
+                                              float* run_v, int* run_s) {
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    float v[16];
+    int s[16];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int j = 8 * g + jj;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float b = bias[8 * j + 2 * (lane % 4) + e];
+        const float x0 = logit<CAP>(acc[4 * j + e], b, k0, cap);
+        const float x1 = logit<CAP>(acc[4 * j + 2 + e], b, k1, cap);
+        const bool second = x1 > x0;
+        v[2 * jj + e] = second ? x1 : x0;
+        s[2 * jj + e] = second ? s_1 : s_0;
+      }
+    }
+    scatter<16>(v, s, 16, lane & 16);
+    scatter<8>(v, s, 8, lane & 8);
+    scatter<4>(v, s, 4, lane & 4);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (v[i] > run_v[2 * g + i]) {
+        run_v[2 * g + i] = v[i];
+        run_s[2 * g + i] = s[i];
+      }
+    }
+  }
+}
+
+// FULL: bs == 128, so a chunk's 128 rows are positions of one batch row.
+// CAP: a softcap is applied.
+template <bool FULL, bool CAP>
+__global__ void __launch_bounds__(THREADS, 1)
+    tma_kernel(const __grid_constant__ CUtensorMap hmap,
+               const __grid_constant__ CUtensorMap emap, const Problem p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_addr(smem);
+  float* mval = reinterpret_cast<float*>(smem + OFF_MVAL);
+  int* marg = reinterpret_cast<int*>(smem + OFF_MARG);
+  float* sbias = reinterpret_cast<float*>(smem + OFF_BIAS);
+  const uint32_t full0 = base + OFF_BARS;  // stage i: full0 + 8 i
+  const uint32_t empty0 = full0 + 8 * STAGES;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int n_k = (p.D + BK - 1) / BK;
+
+  if (threadIdx.x < PRODUCERS) {
+    // ---- producer warpgroup: one thread keeps the ring full ----
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      tma_prefetch(&hmap);
+      tma_prefetch(&emap);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (long long t = blockIdx.x; t < p.n_tiles; t += gridDim.x) {
+        int rg, vt;
+        tile_coords(t, p, rg, vt);
+        for (int s0 = 0; s0 < p.S; s0 += p.bs) {
+          for (int k = 0; k < n_k; ++k) {
+            mbar_wait(empty0 + 8 * stage, phase ^ 1);
+            const uint32_t full = full0 + 8 * stage;
+            mbar_expect_tx(full, STAGE_BYTES);
+            tma_load_3d(base + OFF_A + stage * A_BYTES, &hmap, full, k * BK,
+                        s0, rg * p.bb);
+            tma_load_2d(base + OFF_B + stage * B_BYTES, &emap, full, k * BK,
+                        vt * BN);
+            if (++stage == STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: all 128 rows of a chunk by 128 columns ----
+    setmaxnreg_inc<232>();
+    const int wg = (threadIdx.x - PRODUCERS) / 128;  // columns 128 wg + ..
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    // rows ra, ra + 8 (the low fragment) and ra + 64, ra + 72 (the high)
+    const int ra = 16 * warp + lane / 4;
+    const int bl_lo = ra / p.bs;
+    const int bl_hi = (ra + 64) / p.bs;  // == bl_lo when FULL
+    const int sl_lo = ra % p.bs;
+    const int sl_hi = (ra + 64) % p.bs;
+    const uint32_t b_off = (uint32_t)wg * WG_COLS * BK * 2;
+    const int col0 = WG_COLS * wg;  // this warpgroup's first tile column
+    float acc_lo[64], acc_hi[64];
+    // running (max, s): FULL, per thread for its 32 columns; otherwise per
+    // fragment, 4 columns a lane after the chunk's reduce-scatter
+    constexpr int KEEP = FULL ? 32 : 8;
+    float run_v[KEEP];
+    int run_s[KEEP];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (long long t = blockIdx.x; t < p.n_tiles; t += gridDim.x) {
+      int rg, vt;
+      tile_coords(t, p, rg, vt);
+      const int b0 = rg * p.bb;
+      const int v0 = vt * BN;
+      sbias[col0 + tid] =
+          v0 + col0 + tid < p.V ? p.bias[v0 + col0 + tid] : 0.0f;
+      // the bias is in place, and the last tile's merge buffer read out
+      named_sync(1 + wg, 128);
+      const int b_lo = b0 + bl_lo;
+      const int b_hi = b0 + bl_hi;
+      const int* m_lo = p.mask + (size_t)(b_lo < p.B ? b_lo : 0) * p.S;
+      const int* m_hi = p.mask + (size_t)(b_hi < p.B ? b_hi : 0) * p.S;
+#pragma unroll
+      for (int i = 0; i < KEEP; ++i) {
+        run_v[i] = NEG_INF;
+        run_s[i] = 0;
+      }
+      for (int s0 = 0; s0 < p.S; s0 += p.bs) {
+        const int sa = s0 + sl_lo, sb = sa + 8;
+        const int sc = s0 + sl_hi, sd = sc + 8;
+        const bool ka = b_lo < p.B && sa < p.S && __ldg(m_lo + sa) != 0;
+        const bool kb = b_lo < p.B && sb < p.S && __ldg(m_lo + sb) != 0;
+        const bool kc = b_hi < p.B && sc < p.S && __ldg(m_hi + sc) != 0;
+        const bool kd = b_hi < p.B && sd < p.S && __ldg(m_hi + sd) != 0;
+        int prev = 0;
+        for (int k = 0; k < n_k; ++k) {
+          mbar_wait(full0 + 8 * stage, phase);
+          const uint64_t da = smem_desc(base + OFF_A + stage * A_BYTES);
+          const uint64_t db =
+              smem_desc(base + OFF_B + stage * B_BYTES + b_off);
+#if (K1_DROP & 1) == 0
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) {
+            // rows 64 .. 127 start 8 KB (512 descriptor units) further
+            Wgmma<128>::mma(acc_lo, da + 2 * kk, db + 2 * kk, (k | kk) != 0);
+            Wgmma<128>::mma(acc_hi, da + 512 + 2 * kk, db + 2 * kk,
+                            (k | kk) != 0);
+          }
+          wgmma_commit();
+#endif
+          if (k > 0) {  // the previous slice's products are done with it
+            wgmma_wait<1>();
+            if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+          }
+          prev = stage;
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          reg_fence(acc_lo[i]);
+          reg_fence(acc_hi[i]);
+        }
+
+#if (K1_DROP & 2) == 0
+        // Thread columns: 8 j + 2 (lane % 4) + e of the warpgroup's 128;
+        // acc[4 j + e] on the first row of a fragment, acc[4 j + 2 + e]
+        // 8 rows below.
+        if constexpr (FULL) {
+          // fold the four rows in ascending s (the earliest keeps a tie),
+          // then into the running state (a later chunk: strictly greater)
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float bias = sbias[col0 + 8 * j + 2 * (lane % 4) + e];
+              float best = logit<CAP>(acc_lo[4 * j + e], bias, ka, p.cap);
+              int at = sa;
+              const float xb =
+                  logit<CAP>(acc_lo[4 * j + 2 + e], bias, kb, p.cap);
+              const float xc = logit<CAP>(acc_hi[4 * j + e], bias, kc, p.cap);
+              const float xd =
+                  logit<CAP>(acc_hi[4 * j + 2 + e], bias, kd, p.cap);
+              if (xb > best) { best = xb; at = sb; }
+              if (xc > best) { best = xc; at = sc; }
+              if (xd > best) { best = xd; at = sd; }
+              if (best > run_v[2 * j + e]) {
+                run_v[2 * j + e] = best;
+                run_s[2 * j + e] = at;
+              }
+            }
+          }
+        } else {
+          fold_fragment<CAP>(acc_lo, sbias + col0, ka, kb, sa, sb, lane,
+                             p.cap, run_v, run_s);
+          fold_fragment<CAP>(acc_hi, sbias + col0, kc, kd, sc, sd, lane,
+                             p.cap, run_v + 4, run_s + 4);
+        }
+#else
+        run_v[0] = fmaxf(run_v[0], acc_lo[0] + acc_hi[63]);
+#endif
+      }
+
+      // Tile end: each warp's running state into the merge buffer, row
+      // block rb covering rows 16 rb .. 16 rb + 15 of a chunk; then the
+      // warpgroup merges the row blocks of each batch row for its columns
+      // and stores y and i_max once.
+      if constexpr (FULL) {
+        // merge over the 8 lanes that share a column: lane l keeps the
+        // entries q = 4 (l / 4) + i, column 8 (q / 2) + 2 (l % 4) + q % 2
+        scatter<32>(run_v, run_s, 16, lane & 16);
+        scatter<16>(run_v, run_s, 8, lane & 8);
+        scatter<8>(run_v, run_s, 4, lane & 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int q = 4 * (lane / 4) + i;
+          const int col = col0 + 8 * (q / 2) + 2 * (lane % 4) + q % 2;
+          mval[warp * BN + col] = run_v[i];
+          marg[warp * BN + col] = run_s[i];
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int rb = 4 * (r / 4) + warp;  // high fragment: 4 + warp
+          const int col = col0 + 64 * ((r / 2) % 2) + 8 * (lane / 4) +
+                          2 * (lane % 4) + r % 2;
+          mval[rb * BN + col] = run_v[r];
+          marg[rb * BN + col] = run_s[r];
+        }
+      }
+      named_sync(1 + wg, 128);
+      // the row blocks of batch row ob: FULL, the 4 warps' merged states;
+      // otherwise blocks ob * bs / 16 .. (ob + 1) * bs / 16 - 1
+      const int per_row = FULL ? 4 : p.bs / 16;
+      for (int o = tid; o < p.bb * WG_COLS; o += 128) {
+        const int ob = o / WG_COLS;
+        const int col = col0 + o % WG_COLS;
+        const int r0 = ob * per_row;
+        float best_v = mval[r0 * BN + col];
+        int best_s = marg[r0 * BN + col];
+        for (int rb = r0 + 1; rb < r0 + per_row; ++rb)
+          merge(best_v, best_s, mval[rb * BN + col], marg[rb * BN + col]);
+        const int bo = b0 + ob;
+        const int vo = v0 + col;
+        if (bo < p.B && vo < p.V) {
+          p.y[(size_t)bo * p.V + vo] = log1pf(fmaxf(best_v, 0.0f));
+          p.imax[(size_t)bo * p.V + vo] = best_s;
+        }
+      }
+    }
+  }
+}
+
+// Encode H's and E's tensor maps for this call and launch `grid` blocks.
+template <bool FULL, bool CAP>
+int launch(const void* H, const void* E, Problem p, int grid,
+           cudaStream_t stream) {
+  CUtensorMap hmap, emap;
+  const cuuint64_t h_sizes[3] = {(cuuint64_t)p.D, (cuuint64_t)p.S,
+                                 (cuuint64_t)p.B};
+  const cuuint64_t h_strides[2] = {(cuuint64_t)p.D * 2,
+                                   (cuuint64_t)p.S * p.D * 2};
+  const cuuint32_t h_box[3] = {BK, (cuuint32_t)p.bs, (cuuint32_t)p.bb};
+  int rc = encode_bf16(&hmap, H, 3, h_sizes, h_strides, h_box);
+  if (rc != 0) return ENCODE_FAILED + rc;
+  const cuuint64_t e_sizes[2] = {(cuuint64_t)p.D, (cuuint64_t)p.V};
+  const cuuint64_t e_strides[1] = {(cuuint64_t)p.D * 2};
+  const cuuint32_t e_box[2] = {BK, BN};
+  rc = encode_bf16(&emap, E, 2, e_sizes, e_strides, e_box);
+  if (rc != 0) return ENCODE_FAILED + rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      tma_kernel<FULL, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM);
+  if (err != cudaSuccess) return (int)err;
+  tma_kernel<FULL, CAP><<<grid, THREADS, SMEM, stream>>>(hmap, emap, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tma
+
+// C entry point, bound with ctypes. path: 0 = "f32" (H and E float32),
+// 1 = "wmma", 2 = "tma" (H and E bfloat16; "tma" needs D % 8 == 0 and
+// 16-byte aligned bases). bias is f32 (V,), mask i32 (B, S); y f32 and
+// i_max i32 (B, V). softcap <= 0 means no cap. "tma" takes the tile
+// order's band `group` and the persistent grid; the others ignore them.
+// Any B >= 1. Returns the first CUDA error, or 10000 + the CUresult when a
+// tensor map cannot be encoded.
 extern "C" int sparton_fwd(const void* H, const void* E, const float* bias,
                            const int* mask, float* y, int* imax, int B, int S,
-                           int D, int V, int dtype, float softcap, int vec,
-                           void* stream) {
+                           int D, int V, int path, float softcap, int group,
+                           int grid, void* stream) {
   if (B < 1 || S < 1 || D < 1 || V < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  Problem p;
+  int bs = 16;
+  while (bs < S && bs < 128) bs *= 2;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool aligned = D % 8 == 0 && (uintptr_t)H % 16 == 0 &&
+                       (uintptr_t)E % 16 == 0;
+  if (path == 2) {
+    if (!aligned || group < 1 || grid < 1) {
+      return (int)cudaErrorInvalidValue;
+    }
+    tma::Problem p;
+    p.bias = bias;
+    p.mask = mask;
+    p.y = y;
+    p.imax = imax;
+    p.B = B;
+    p.S = S;
+    p.D = D;
+    p.V = V;
+    p.bs = bs;
+    p.bb = tma::ROWS / bs;
+    p.n_rg = (B + p.bb - 1) / p.bb;
+    p.n_vt = (V + tma::BN - 1) / tma::BN;
+    p.group = group;
+    p.n_tiles = (long long)p.n_rg * p.n_vt;
+    p.has_cap = softcap > 0.0f;
+    p.cap = softcap;
+    if (bs == tma::ROWS) {
+      return p.has_cap ? tma::launch<true, true>(H, E, p, grid, st)
+                       : tma::launch<true, false>(H, E, p, grid, st);
+    }
+    return p.has_cap ? tma::launch<false, true>(H, E, p, grid, st)
+                     : tma::launch<false, false>(H, E, p, grid, st);
+  }
+  wmma_ring::Problem p;
   p.bias = bias;
   p.mask = mask;
   p.y = y;
@@ -375,15 +852,12 @@ extern "C" int sparton_fwd(const void* H, const void* E, const float* bias,
   p.S = S;
   p.D = D;
   p.V = V;
-  int bs = 16;
-  while (bs < S && bs < BM) bs *= 2;
   p.bs = bs;
-  p.bb = BM / bs;
-  p.vec = vec;
+  p.bb = wmma_ring::BM / bs;
+  p.vec = path == 1 && aligned;
   p.has_cap = softcap > 0.0f;
   p.cap = softcap;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch<__nv_bfloat16>(H, E, p, st);
-  if (dtype == 0) return launch<float>(H, E, p, st);
+  if (path == 1) return wmma_ring::launch<__nv_bfloat16>(H, E, p, st);
+  if (path == 0) return wmma_ring::launch<float>(H, E, p, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,10 +3,14 @@
 Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` process, all
 started together, into a shared library with a plain C interface
 (``build/kernels-<hash>/lib<name>.so`` at the root of the checkout), and
-loaded with ``ctypes``. The directory is keyed by a hash of the sources
-and the flags, so an edited source is rebuilt and an unchanged one is
-reused. Importing this module compiles and loads nothing: the CPU tests
-import every kernel module on machines with no ``nvcc``.
+loaded with ``ctypes``. The sources may include the headers beside them
+(``csrc/*.cuh``). The directory is keyed by a hash of the sources, the
+headers and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused. The kernels link only the CUDA runtime: a
+driver-API function (TMA's ``cuTensorMapEncodeTiled``) is looked up at
+run time through the runtime's driver entry point
+(``csrc/hopper.cuh``). Importing this module compiles and loads nothing:
+the CPU tests import every kernel module on machines with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("sparton_fwd", "sparton_bwd", "impact_topk", "topk_score")
@@ -48,10 +52,16 @@ def _nvcc() -> str:
     return found
 
 
+def headers() -> List[Path]:
+    """The headers the sources may include, in a fixed order."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def build_dir() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        digest.update((CSRC / f"{name}.cu").read_bytes())
+    for path in [CSRC / f"{name}.cu" for name in SOURCES] + headers():
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
     return build_root() / f"kernels-{digest.hexdigest()[:16]}"
 
 

@@ -4,35 +4,62 @@ Replaces the Pallas TPU kernel ``repro/kernels/sparton.py:_fwd_kernel``
 (entry ``sparton_forward``): ``y = log1p(relu(max_s(mask(softcap(H·Eᵀ +
 b)))))`` with the first-occurrence argmax ``i_max`` over S, without the
 ``(B, S, V)`` logits ever reaching device memory. The kernel is
-``csrc/sparton_fwd.cu``; its header says how it is tiled. It takes any
-batch, launched in chunks of 65535 rows.
+``csrc/sparton_fwd.cu``; its header says how each path is tiled.
 
 Bound on the H100: at the paper's Table-1 shape (B=320, S=512, D=768,
 V=30522) the contraction is 2·B·S·V·D ≈ 7.68 TFLOP against ≈0.38 GB of
 compulsory traffic, so the kernel is compute-bound (≈7.8 ms at 989
-TFLOP/s bf16). The design keeps the logits in registers and shared
-memory (the paper's point) and runs the contraction on the tensor cores
-for bf16 inputs, fed by a ring of asynchronous copies; it does not yet
-use TMA or wgmma.
+TFLOP/s bf16).
+
+Three paths, chosen by the plain rule ``_plan`` and counted apart in
+``sparton_forward.path_launches`` (beside the total ``launches``):
+
+* ``"tma"`` — bf16 H and E with ``D % 8 == 0`` and 16-byte aligned bases
+  (TMA's rule for strides and bases): every launch of the serving and
+  training paths. A persistent, warp-specialised kernel: a producer
+  warpgroup keeps a ring of TMA loads in flight, two consumer warpgroups
+  each run ``wgmma`` on 128 of a tile's 256 vocab columns and fold bias,
+  softcap, mask and the running max/argmax in registers. Its launch
+  geometry (``tma_geometry``, ``tile_coords``) is computed here, where
+  the CPU tests reach it. On an NVIDIA H100 80GB HBM3 at 700 W it takes
+  about 7 ms at the train step's 384 × 256 (bound 4.66 ms) against 32 ms
+  for the WMMA design below (``PERF.md`` has the runs).
+* ``"wmma"`` — the other bf16 inputs: WMMA fed by a ``cp.async`` ring
+  (16-byte copies where the rows allow, element copies otherwise).
+* ``"f32"`` — f32 inputs: a register tile of FMAs.
+
+A ``"tma"`` launch that cannot encode its tensor maps or launch raises;
+it never gives way to another path or to the plain version.
 
 ``sparton_forward`` dispatches on the tensors' device: CPU tensors go to
 ``sparton_forward_plain``, CUDA tensors to the kernel (or a raise — there
-is no fallback). ``sparton_forward.launches`` counts kernel launches.
+is no fallback).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import NEG_INF
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float]
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_DTYPES = (torch.float32, torch.bfloat16)
+PATHS = ("f32", "wmma", "tma")    # the C entry's path codes, in this order
+# the C entry's code for a tensor map it could not encode: 10000 + CUresult
+_ENCODE_FAILED = 10000
+
+CHUNK_ROWS = 128      # flattened (b, s) rows per chunk (bb * bs)
+TMA_BK = 64           # D slice per TMA box: 128 bytes of bf16
+TMA_BN = 256          # vocab columns per output tile (128 per consumer)
+# rows of H that one band of the tile order keeps in L2 (of its 50 MB)
+# while it sweeps all of E
+L2_BAND_BYTES = 12 << 20
 
 
 def sparton_forward_plain(
@@ -68,9 +95,65 @@ def sparton_forward_plain(
     return torch.log1p(raw.clamp_min(0.0)), torch.cat(args, dim=1).int()
 
 
-def _check(H, E, b, mask, softcap):
+def _plan(H: torch.Tensor, E: torch.Tensor) -> str:
+    """The kernel path for H and E: ``"tma"`` for bf16 with ``D % 8 ==
+    0`` and both bases 16-byte aligned, ``"wmma"`` for the other bf16
+    inputs, ``"f32"`` for f32. Reads only dtypes, shapes and addresses,
+    so it runs on CPU and meta tensors too."""
+    if H.dtype == torch.float32:
+        return "f32"
+    if (H.shape[-1] % 8 == 0 and H.data_ptr() % 16 == 0
+            and E.data_ptr() % 16 == 0):
+        return "tma"
+    return "wmma"
+
+
+def chunk_positions(S: int) -> int:
+    """bs: positions of one batch row in a chunk — the smallest power of
+    two >= min(S, 128), at least 16 (so a warp's 16 rows of a wgmma
+    fragment lie in one batch row)."""
+    bs = 16
+    while bs < S and bs < CHUNK_ROWS:
+        bs *= 2
+    return bs
+
+
+def tma_geometry(B: int, S: int, D: int, V: int,
+                 n_sm: int) -> Dict[str, object]:
+    """The ``"tma"`` launch: chunk shape, tile counts, TMA boxes, the
+    tile order's band and the persistent grid (one block per SM, never
+    more than there are tiles)."""
+    bs = chunk_positions(S)
+    bb = CHUNK_ROWS // bs
+    n_rg = -(-B // bb)
+    n_vt = -(-V // TMA_BN)
+    rg_bytes = bb * S * D * 2
+    return {"bs": bs, "bb": bb, "n_rg": n_rg, "n_vt": n_vt,
+            "n_tiles": n_rg * n_vt,
+            "h_box": (TMA_BK, bs, bb), "e_box": (TMA_BK, TMA_BN),
+            "group": max(1, min(n_rg, L2_BAND_BYTES // rg_bytes)),
+            "grid": min(n_sm, n_rg * n_vt)}
+
+
+def tile_coords(t: int, n_rg: int, n_vt: int, group: int) -> Tuple[int, int]:
+    """Tile ``t`` of the persistent walk -> (row group, vocab tile), as
+    the kernel computes it: bands of ``group`` row groups, the row group
+    varying fastest within a band, so the blocks in flight share E tiles
+    and a band's rows of H stay in L2 while it sweeps the vocabulary."""
+    band, local = divmod(t, group * n_vt)
+    rows = min(group, n_rg - band * group)
+    return band * group + local % rows, local // rows
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check(H, E, b, mask, softcap, force=None):
     """The kernel's argument checks; the device comes last, so that the
-    shape checks run on meta tensors too."""
+    shape checks run on meta tensors too. ``force`` is ``_launch``'s
+    ``_path``: only ``"wmma"``, and only for bf16 inputs."""
     if H.dim() != 3 or E.dim() != 2 or H.shape[2] != E.shape[1]:
         raise ValueError(f"sparton_forward: H {tuple(H.shape)} and E "
                          f"{tuple(E.shape)} are not (B, S, D) and (V, D)")
@@ -80,7 +163,7 @@ def _check(H, E, b, mask, softcap):
         raise ValueError(f"sparton_forward: b {tuple(b.shape)} / mask "
                          f"{tuple(mask.shape)} do not match (V,)=({V},) / "
                          f"(B, S)=({B}, {S})")
-    if H.dtype not in _DTYPE_CODE or E.dtype != H.dtype:
+    if H.dtype not in _DTYPES or E.dtype != H.dtype:
         raise ValueError(f"sparton_forward: the kernel takes H and E both "
                          f"float32 or both bfloat16, got {H.dtype} and "
                          f"{E.dtype}")
@@ -92,32 +175,46 @@ def _check(H, E, b, mask, softcap):
     if softcap is not None and not softcap > 0:
         raise ValueError(f"sparton_forward: softcap must be > 0, got "
                          f"{softcap}")
+    if force is not None and (force != "wmma" or H.dtype != torch.bfloat16):
+        raise ValueError(f"sparton_forward: only bf16 inputs may be sent "
+                         f"to 'wmma', not {H.dtype} ones to {force!r}")
     if not (H.is_cuda and E.device == H.device and b.device == H.device
             and mask.device == H.device):
         raise ValueError("sparton_forward: H, E, b and mask must lie on one "
                          "CUDA device")
 
 
-def _launch(H, E, b, mask, softcap):
-    _check(H, E, b, mask, softcap)
+def _launch(H, E, b, mask, softcap, *, _path=None):
+    """Launch the kernel on the path ``_plan`` gives. ``_path="wmma"``
+    forces the WMMA path on bf16 inputs that ``"tma"`` would take, to time
+    the two designs on the same inputs; nothing on the main path sets
+    it."""
+    _check(H, E, b, mask, softcap, _path)
     B, S, D = H.shape
     V = E.shape[0]
+    path = _path or _plan(H, E)
     b = b.to(torch.float32).contiguous()
     mask = mask.to(torch.int32).contiguous()
     y = torch.empty((B, V), dtype=torch.float32, device=H.device)
     i_max = torch.empty((B, V), dtype=torch.int32, device=H.device)
-    # 16-byte async copies of bf16 rows need D % 8 == 0 and aligned bases
-    vec = int(H.dtype == torch.bfloat16 and D % 8 == 0
-              and H.data_ptr() % 16 == 0 and E.data_ptr() % 16 == 0)
+    group = grid = 0
+    if path == "tma":
+        geo = tma_geometry(B, S, D, V, _sm_count(H.device.index))
+        group, grid = geo["group"], geo["grid"]
     fn = _build.function("sparton_fwd", "sparton_fwd", _ARGTYPES)
     with torch.cuda.device(H.device):
         stream = torch.cuda.current_stream().cuda_stream
         sparton_forward.launches += 1
+        sparton_forward.path_launches[path] += 1
         rc = fn(H.data_ptr(), E.data_ptr(), b.data_ptr(), mask.data_ptr(),
                 y.data_ptr(), i_max.data_ptr(), B, S, D, V,
-                _DTYPE_CODE[H.dtype],
-                float(softcap) if softcap is not None else 0.0, vec, stream)
-    _build.check_launch(rc, "sparton_fwd")
+                PATHS.index(path),
+                float(softcap) if softcap is not None else 0.0, group,
+                grid, stream)
+    if rc >= _ENCODE_FAILED:
+        raise RuntimeError(f"sparton_fwd: encoding the TMA tensor maps "
+                           f"failed (CUresult {rc - _ENCODE_FAILED})")
+    _build.check_launch(rc, f"sparton_fwd ({path})")
     return y, i_max
 
 
@@ -131,8 +228,9 @@ def sparton_forward(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused forward. Returns ``(y (B, V) f32, i_max (B, V) i32)``.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which takes H and E both f32 or both bf16 and contiguous.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    on the path ``_plan`` gives, which takes H and E both f32 or both
+    bf16 and contiguous.
     """
     if H.device.type == "cpu":
         return sparton_forward_plain(H, E, b, mask, softcap)
@@ -140,3 +238,4 @@ def sparton_forward(
 
 
 sparton_forward.launches = 0
+sparton_forward.path_launches = dict.fromkeys(PATHS, 0)
