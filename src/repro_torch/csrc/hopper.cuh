@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks for the port's kernels: mbarriers, TMA
-// tensor loads and their host-side tensor maps, wgmma on bf16 operands in
-// shared memory, register reallocation between warpgroups, and named
-// barriers. Header-only; each kernel source that uses it includes it.
+// Hopper (sm_90a) building blocks for the port's kernels: mbarriers (also
+// across a cluster), TMA tensor loads (also multicast to a cluster) and
+// their host-side tensor maps, wgmma on bf16 operands in shared memory,
+// register reallocation between warpgroups, and named barriers.
+// Header-only; each kernel source that uses it includes it.
 //
 // Shared-memory tiles here are K-major with the 128-byte swizzle: each
 // tile row holds 64 bf16 (128 bytes) of the contraction axis, rows are
@@ -48,6 +49,21 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                : "memory");
 }
 
+// One arrival on the barrier at the same offset in block `cta` of the
+// cluster (this block included). The default (CTA-scope) release is
+// enough to say "done reading"; a cluster-scope release made each arrival
+// so slow that a 2-block K1 ran at half speed.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
 // Spin until the phase of parity `parity` has completed. A fresh barrier
 // is in phase 0, so waiting on parity 1 passes at once. A wait that spins
 // 2^26 times (far beyond any load or epilogue: seconds) traps, so a fault
@@ -86,6 +102,23 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// tma_load_2d, the box landing at the same offset in every block of the
+// cluster named in `mask` (bit i: block i), each block's barrier at
+// `bar`'s offset counting its bytes.
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst,
+                                                      const CUtensorMap* map,
+                                                      uint32_t bar, int c0,
+                                                      int c1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "h"(mask)
       : "memory");
 }
 
@@ -218,6 +251,23 @@ struct Wgmma<128> {
   }
 };
 
+
+// ---- clusters ---------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  return rank;
+}
+
+// Every thread of every block of the cluster; orders the barriers' init
+// before any block touches another's shared memory.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
 
 // ---- warpgroup registers and named barriers ------------------------------
 

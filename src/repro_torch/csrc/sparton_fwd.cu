@@ -18,45 +18,51 @@
 //
 // "tma" (bf16, D % 8 == 0, 16-byte aligned bases: every launch of the
 // serving and training paths). A persistent, warp-specialised wgmma
-// kernel, one block of 384 threads per SM:
+// kernel, one block of 384 threads per SM, blocks paired in clusters:
 //   * A block owns an output tile of (bb batch rows x 256 vocab columns)
 //     and walks S in chunks of 128 flattened (b, s) rows: bs positions of
 //     bb = 128 / bs batch rows, bs the smallest power of two >= min(S,
 //     128), at least 16. So each warp's 16 rows of a wgmma fragment lie in
 //     one batch row.
+//   * The two blocks of a cluster take two row groups on the same vocab
+//     tile. Each loads its own H slice and half of the E slice, the half
+//     multicast by TMA into both blocks, so the bytes read from L2 fall by
+//     a third; a stage is refilled once the consumers of both blocks have
+//     released it.
 //   * Warpgroup 0 is the producer: one thread issues TMA loads of 64-wide
 //     D slices (128 bytes, 128-byte swizzle) of H (a 3-D map over (D, S,
 //     B), box (64, bs, bb), zeros past S and B) and E (a 2-D map over (D,
-//     V), box (64, 256), zeros past V) into a 4-stage ring (48 KB a stage)
+//     V), box (64, 128), zeros past V) into a 4-stage ring (48 KB a stage)
 //     guarded by full/empty mbarriers. It runs straight across chunk and
 //     tile boundaries, so the ring never drains. setmaxnreg moves its
 //     registers (down to 40) to the consumers (232).
 //   * Warpgroups 1 and 2 each take 128 of the tile's 256 columns for all
 //     128 rows of a chunk: two wgmma.m64n128k16 (bf16 in, f32 accumulate,
-//     both operands in shared memory) per k16 step. A stage goes back to
-//     the producer once wgmma.wait_group shows its reads done.
+//     both operands in shared memory) per k16 step. A stage is released
+//     once wgmma.wait_group shows its reads done.
 //   * Epilogue in registers: each accumulator gets bias[v], the softcap
 //     and mask[b, s] before any max (the softcap is a template parameter,
 //     so the main path's kernel carries no tanh code). When bs == 128 a
 //     thread's four rows are positions of one batch row: it folds them in
 //     ascending s into a running (max, s) of its 32 columns, kept in
-//     registers across chunks, with no shuffle until the tile's end. With
-//     smaller bs its two fragments are two batch rows: each folds its two
-//     rows and the 8 lanes sharing a column reduce-scatter (shfl.xor 16,
-//     8, 4) so that a lane keeps 4 columns a fragment. At the tile's end
-//     the warps of one batch row merge through shared memory and y, i_max
-//     are stored once. Every merge keeps the larger value, then the
-//     smaller s, so ties go to the first s, as in the reference. The two
-//     consumer warpgroups share nothing but the ring (a named barrier
-//     each), so one's epilogue may run beside the other's products.
-//   * The grid is one block per SM walking tiles in bands of `group` row
-//     groups, row group fastest: the blocks in flight share E tiles, and
-//     a band's rows of H stay in L2 while it sweeps the vocabulary.
+//     registers across chunks, with no shuffle until the tile's end; a
+//     chunk whose four rows are all masked is skipped. With smaller bs its
+//     two fragments are two batch rows: each folds its two rows and the 8
+//     lanes sharing a column reduce-scatter (shfl.xor 16, 8, 4) so that a
+//     lane keeps 4 columns a fragment. At the tile's end the warps of one
+//     batch row merge through shared memory and y, i_max are stored once.
+//     Every merge keeps the larger value, then the smaller s, so ties go
+//     to the first s, as in the reference. The two consumer warpgroups
+//     share nothing but the ring (a named barrier each), so one's
+//     epilogue may run beside the other's products.
+//   * The grid is one block per SM walking cluster tiles in bands of
+//     `group` row-group pairs, pair fastest: the clusters in flight share
+//     E tiles, and a band's rows of H stay in L2 while it sweeps the
+//     vocabulary.
 //   * What bounds it (tools/k1_breakdown.py; PERF.md has the numbers):
-//     the TMA loads alone, from L2 into shared memory, take most of the
-//     kernel's time; the products hide under them, the epilogue does not
-//     all. The next lever is a 2-block cluster sharing each E slice by TMA
-//     multicast, which cuts the bytes from L2 by a third.
+//     the products. Without the cluster the TMA loads alone, from L2 into
+//     shared memory, took most of the kernel's time; with it they take
+//     less than the products, and the epilogue hides mostly behind them.
 //
 // "wmma" (the other bf16 inputs: D % 8 != 0 or a base that is not 16-byte
 // aligned; also forced on aligned inputs to time the earlier design) and
@@ -414,11 +420,13 @@ constexpr int BN = 256;                 // vocab columns per tile
 constexpr int WG_COLS = 128;            // of them per consumer warpgroup
 constexpr int BK = 64;                  // D slice per stage: 128 bytes
 constexpr int STAGES = 4;
+constexpr int CLUSTER = 2;              // blocks sharing each E slice
 constexpr int THREADS = 384;            // producer + two consumer warpgroups
 constexpr int PRODUCERS = 128;
 constexpr int CONSUMER_WARPS = 8;
 constexpr int A_BYTES = ROWS * BK * 2;  // H rows of one stage: 16 KB
 constexpr int B_BYTES = BN * BK * 2;    // E rows of one stage: 32 KB
+constexpr int E_PART = B_BYTES / CLUSTER;  // the E rows each block loads
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr float NEG_INF = -1e30f;
 constexpr int ENCODE_FAILED = 10000;    // + the CUresult of the encoding
@@ -442,25 +450,26 @@ struct Problem {
   int B, S, D, V;
   int bs, bb;      // positions per chunk, batch rows per tile
   int n_rg, n_vt;  // row groups (bb batch rows each) and vocab tiles
-  int group;       // row groups per band of the tile order
-  long long n_tiles;
+  int n_rp;        // pairs of row groups, one pair to a cluster tile
+  int group;       // pairs per band of the tile order
+  long long n_tiles;  // n_rp * n_vt cluster tiles
   int has_cap;
   float cap;
 };
 
-// Tile t of the persistent walk -> (row group, vocab tile): bands of
-// `group` row groups, the row group fastest within a band. Mirrored by
+// Cluster tile t of the persistent walk -> (row-group pair, vocab tile):
+// bands of `group` pairs, the pair fastest within a band. Mirrored by
 // kernels/sparton.py:tile_coords, which the CPU tests hold to covering
 // every tile once.
 __device__ __forceinline__ void tile_coords(long long t, const Problem& p,
-                                            int& rg, int& vt) {
+                                            int& rp, int& vt) {
   const long long band_tiles = (long long)p.group * p.n_vt;
   const long long band = t / band_tiles;
   const long long local = t - band * band_tiles;
-  const long long left = p.n_rg - band * p.group;
+  const long long left = p.n_rp - band * p.group;
   const int rows = (int)(left < p.group ? left : p.group);
   vt = (int)(local / rows);
-  rg = (int)(band * p.group + local % rows);
+  rp = (int)(band * p.group + local % rows);
 }
 
 // Keep the larger value, then the smaller s: associative, so partial
@@ -543,6 +552,51 @@ __device__ __forceinline__ void fold_fragment(const float (&acc)[64],
   }
 }
 
+// FULL's epilogue for one chunk: for each of the thread's 32 columns, fold
+// its four rows (positions at[0] < .. < at[3] of one batch row, the
+// earliest keeping a tie) and fold that into the running state (a later
+// chunk: strictly greater). MASKED: some of the four rows are masked.
+template <bool CAP, bool MASKED>
+__device__ __forceinline__ void fold_rows(const float (&lo)[64],
+                                          const float (&hi)[64],
+                                          const float* bias, int lane,
+                                          float cap, bool ka, bool kb,
+                                          bool kc, bool kd, const int (&at)[4],
+                                          float* run_v, int* run_s) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float b = bias[8 * j + 2 * (lane % 4) + e];
+      const float x[4] = {
+          logit<CAP>(lo[4 * j + e], b, !MASKED || ka, cap),
+          logit<CAP>(lo[4 * j + 2 + e], b, !MASKED || kb, cap),
+          logit<CAP>(hi[4 * j + e], b, !MASKED || kc, cap),
+          logit<CAP>(hi[4 * j + 2 + e], b, !MASKED || kd, cap)};
+      float best = x[0];
+      int s = at[0];
+#pragma unroll
+      for (int r = 1; r < 4; ++r) {
+        if (x[r] > best) {
+          best = x[r];
+          s = at[r];
+        }
+      }
+      if (best > run_v[2 * j + e]) {
+        run_v[2 * j + e] = best;
+        run_s[2 * j + e] = s;
+      }
+    }
+  }
+}
+
+// A consumer warp is done with a stage: one arrival on the stage's empty
+// barrier in each block of the cluster.
+__device__ __forceinline__ void release(uint32_t empty) {
+#pragma unroll
+  for (int cta = 0; cta < CLUSTER; ++cta) mbar_arrive_cluster(empty, cta);
+}
+
 // FULL: bs == 128, so a chunk's 128 rows are positions of one batch row.
 // CAP: a softcap is applied.
 template <bool FULL, bool CAP>
@@ -559,15 +613,22 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t full0 = base + OFF_BARS;  // stage i: full0 + 8 i
   const uint32_t empty0 = full0 + 8 * STAGES;
 
+  // A stage of block r holds its own H rows and both halves of the E
+  // slice: half r from its own multicast, the other from its partner's.
+  // So its full barrier waits for all STAGE_BYTES, and its empty barrier
+  // for the consumer warps of both blocks (the partner writes into it).
+  const uint32_t rank = cluster_rank();
   if (threadIdx.x == 0) {
     for (int i = 0; i < STAGES; ++i) {
       mbar_init(full0 + 8 * i, 1);
-      mbar_init(empty0 + 8 * i, CONSUMER_WARPS);
+      mbar_init(empty0 + 8 * i, CLUSTER * CONSUMER_WARPS);
     }
     mbar_fence_init();
   }
-  __syncthreads();
+  cluster_sync();  // both blocks' barriers exist before either is touched
   const int n_k = (p.D + BK - 1) / BK;
+  const long long cluster = blockIdx.x / CLUSTER;
+  const long long n_clusters = gridDim.x / CLUSTER;
 
   if (threadIdx.x < PRODUCERS) {
     // ---- producer warpgroup: one thread keeps the ring full ----
@@ -577,9 +638,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       tma_prefetch(&emap);
       int stage = 0;
       uint32_t phase = 0;
-      for (long long t = blockIdx.x; t < p.n_tiles; t += gridDim.x) {
-        int rg, vt;
-        tile_coords(t, p, rg, vt);
+      for (long long t = cluster; t < p.n_tiles; t += n_clusters) {
+        int rp, vt;
+        tile_coords(t, p, rp, vt);
+        const int rg = min(CLUSTER * rp + (int)rank, p.n_rg - 1);
         for (int s0 = 0; s0 < p.S; s0 += p.bs) {
           for (int k = 0; k < n_k; ++k) {
             mbar_wait(empty0 + 8 * stage, phase ^ 1);
@@ -587,13 +649,25 @@ __global__ void __launch_bounds__(THREADS, 1)
             mbar_expect_tx(full, STAGE_BYTES);
             tma_load_3d(base + OFF_A + stage * A_BYTES, &hmap, full, k * BK,
                         s0, rg * p.bb);
-            tma_load_2d(base + OFF_B + stage * B_BYTES, &emap, full, k * BK,
-                        vt * BN);
+            tma_load_2d_multicast(
+                base + OFF_B + stage * B_BYTES + rank * E_PART, &emap, full,
+                k * BK, vt * BN + (int)rank * (BN / CLUSTER),
+                (uint16_t)((1u << CLUSTER) - 1));
             if (++stage == STAGES) {
               stage = 0;
               phase ^= 1;
             }
           }
+        }
+      }
+      // Wait for both blocks' consumers to release the last uses of every
+      // stage: no arrival from the partner reaches this block after it
+      // has exited.
+      for (int i = 0; i < STAGES; ++i) {
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
         }
       }
     }
@@ -620,10 +694,13 @@ __global__ void __launch_bounds__(THREADS, 1)
     int run_s[KEEP];
     int stage = 0;
     uint32_t phase = 0;
-    for (long long t = blockIdx.x; t < p.n_tiles; t += gridDim.x) {
-      int rg, vt;
-      tile_coords(t, p, rg, vt);
-      const int b0 = rg * p.bb;
+    for (long long t = cluster; t < p.n_tiles; t += n_clusters) {
+      int rp, vt;
+      tile_coords(t, p, rp, vt);
+      // an odd last row group: block 1 repeats block 0's rows (their E
+      // slices are shared) and stores nothing
+      const bool owned = CLUSTER * rp + (int)rank < p.n_rg;
+      const int b0 = min(CLUSTER * rp + (int)rank, p.n_rg - 1) * p.bb;
       const int v0 = vt * BN;
       sbias[col0 + tid] =
           v0 + col0 + tid < p.V ? p.bias[v0 + col0 + tid] : 0.0f;
@@ -664,7 +741,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #endif
           if (k > 0) {  // the previous slice's products are done with it
             wgmma_wait<1>();
-            if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+            if (lane == 0) release(empty0 + 8 * prev);
           }
           prev = stage;
           if (++stage == STAGES) {
@@ -673,7 +750,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           }
         }
         wgmma_wait<0>();
-        if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+        if (lane == 0) release(empty0 + 8 * prev);
 #pragma unroll
         for (int i = 0; i < 64; ++i) {
           reg_fence(acc_lo[i]);
@@ -685,34 +762,25 @@ __global__ void __launch_bounds__(THREADS, 1)
         // acc[4 j + e] on the first row of a fragment, acc[4 j + 2 + e]
         // 8 rows below.
         if constexpr (FULL) {
-          // fold the four rows in ascending s (the earliest keeps a tie),
-          // then into the running state (a later chunk: strictly greater)
-#pragma unroll
-          for (int j = 0; j < 16; ++j) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float bias = sbias[col0 + 8 * j + 2 * (lane % 4) + e];
-              float best = logit<CAP>(acc_lo[4 * j + e], bias, ka, p.cap);
-              int at = sa;
-              const float xb =
-                  logit<CAP>(acc_lo[4 * j + 2 + e], bias, kb, p.cap);
-              const float xc = logit<CAP>(acc_hi[4 * j + e], bias, kc, p.cap);
-              const float xd =
-                  logit<CAP>(acc_hi[4 * j + 2 + e], bias, kd, p.cap);
-              if (xb > best) { best = xb; at = sb; }
-              if (xc > best) { best = xc; at = sc; }
-              if (xd > best) { best = xd; at = sd; }
-              if (best > run_v[2 * j + e]) {
-                run_v[2 * j + e] = best;
-                run_s[2 * j + e] = at;
-              }
-            }
+          // Masked logits never replace the running state, so four masked
+          // rows are skipped and four kept ones need no mask test.
+          const int at[4] = {sa, sb, sc, sd};
+          if (ka && kb && kc && kd) {
+            fold_rows<CAP, false>(acc_lo, acc_hi, sbias + col0, lane, p.cap,
+                                  ka, kb, kc, kd, at, run_v, run_s);
+          } else if (ka || kb || kc || kd) {
+            fold_rows<CAP, true>(acc_lo, acc_hi, sbias + col0, lane, p.cap,
+                                 ka, kb, kc, kd, at, run_v, run_s);
           }
         } else {
-          fold_fragment<CAP>(acc_lo, sbias + col0, ka, kb, sa, sb, lane,
-                             p.cap, run_v, run_s);
-          fold_fragment<CAP>(acc_hi, sbias + col0, kc, kd, sc, sd, lane,
-                             p.cap, run_v + 4, run_s + 4);
+          // a fragment masked on every lane of the warp changes nothing
+          // (the test is warp-wide: the fold shuffles across lanes)
+          if (__any_sync(0xffffffffu, ka || kb))
+            fold_fragment<CAP>(acc_lo, sbias + col0, ka, kb, sa, sb, lane,
+                               p.cap, run_v, run_s);
+          if (__any_sync(0xffffffffu, kc || kd))
+            fold_fragment<CAP>(acc_hi, sbias + col0, kc, kd, sc, sd, lane,
+                               p.cap, run_v + 4, run_s + 4);
         }
 #else
         run_v[0] = fmaxf(run_v[0], acc_lo[0] + acc_hi[63]);
@@ -760,7 +828,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           merge(best_v, best_s, mval[rb * BN + col], marg[rb * BN + col]);
         const int bo = b0 + ob;
         const int vo = v0 + col;
-        if (bo < p.B && vo < p.V) {
+        if (owned && bo < p.B && vo < p.V) {
           p.y[(size_t)bo * p.V + vo] = log1pf(fmaxf(best_v, 0.0f));
           p.imax[(size_t)bo * p.V + vo] = best_s;
         }
@@ -783,14 +851,41 @@ int launch(const void* H, const void* E, Problem p, int grid,
   if (rc != 0) return ENCODE_FAILED + rc;
   const cuuint64_t e_sizes[2] = {(cuuint64_t)p.D, (cuuint64_t)p.V};
   const cuuint64_t e_strides[1] = {(cuuint64_t)p.D * 2};
-  const cuuint32_t e_box[2] = {BK, BN};
+  const cuuint32_t e_box[2] = {BK, BN / CLUSTER};
   rc = encode_bf16(&emap, E, 2, e_sizes, e_strides, e_box);
   if (rc != 0) return ENCODE_FAILED + rc;
   cudaError_t err = cudaFuncSetAttribute(
       tma_kernel<FULL, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)SMEM);
   if (err != cudaSuccess) return (int)err;
-  tma_kernel<FULL, CAP><<<grid, THREADS, SMEM, stream>>>(hmap, emap, p);
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = CLUSTER;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  // a persistent grid must be resident at once: no more clusters than
+  // the card can hold together (asked once per device)
+  static int resident[64] = {0};
+  int device = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device < 64 && resident[device] == 0) {
+    err = cudaOccupancyMaxActiveClusters(&resident[device],
+                                         tma_kernel<FULL, CAP>, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (resident[device] < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  const int most = device < 64 ? CLUSTER * resident[device] : grid;
+  cfg.gridDim = dim3(grid < most ? grid : most);
+  err = cudaLaunchKernelEx(&cfg, tma_kernel<FULL, CAP>, hmap, emap, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -816,7 +911,8 @@ extern "C" int sparton_fwd(const void* H, const void* E, const float* bias,
   const bool aligned = D % 8 == 0 && (uintptr_t)H % 16 == 0 &&
                        (uintptr_t)E % 16 == 0;
   if (path == 2) {
-    if (!aligned || group < 1 || grid < 1) {
+    if (!aligned || group < 1 || grid < tma::CLUSTER ||
+        grid % tma::CLUSTER != 0) {
       return (int)cudaErrorInvalidValue;
     }
     tma::Problem p;
@@ -832,8 +928,9 @@ extern "C" int sparton_fwd(const void* H, const void* E, const float* bias,
     p.bb = tma::ROWS / bs;
     p.n_rg = (B + p.bb - 1) / p.bb;
     p.n_vt = (V + tma::BN - 1) / tma::BN;
+    p.n_rp = (p.n_rg + tma::CLUSTER - 1) / tma::CLUSTER;
     p.group = group;
-    p.n_tiles = (long long)p.n_rg * p.n_vt;
+    p.n_tiles = (long long)p.n_rp * p.n_vt;
     p.has_cap = softcap > 0.0f;
     p.cap = softcap;
     if (bs == tma::ROWS) {

@@ -17,9 +17,10 @@ Three paths, chosen by the plain rule ``_plan`` and counted apart in
 * ``"tma"`` — bf16 H and E with ``D % 8 == 0`` and 16-byte aligned bases
   (TMA's rule for strides and bases): every launch of the serving and
   training paths. A persistent, warp-specialised kernel: a producer
-  warpgroup keeps a ring of TMA loads in flight, two consumer warpgroups
-  each run ``wgmma`` on 128 of a tile's 256 vocab columns and fold bias,
-  softcap, mask and the running max/argmax in registers. Its launch
+  warpgroup keeps a ring of TMA loads in flight (two blocks of a cluster
+  share each E slice by multicast), two consumer warpgroups each run
+  ``wgmma`` on 128 of a tile's 256 vocab columns and fold bias, softcap,
+  mask and the running max/argmax in registers. Its launch
   geometry (``tma_geometry``, ``tile_coords``) is computed here, where
   the CPU tests reach it. On an NVIDIA H100 80GB HBM3 at 700 W it takes
   about 7 ms at the train step's 384 × 256 (bound 4.66 ms) against 32 ms
@@ -57,6 +58,7 @@ _ENCODE_FAILED = 10000
 CHUNK_ROWS = 128      # flattened (b, s) rows per chunk (bb * bs)
 TMA_BK = 64           # D slice per TMA box: 128 bytes of bf16
 TMA_BN = 256          # vocab columns per output tile (128 per consumer)
+CLUSTER = 2           # blocks (row groups) that share each E slice
 # rows of H that one band of the tile order keeps in L2 (of its 50 MB)
 # while it sweeps all of E
 L2_BAND_BYTES = 12 << 20
@@ -120,28 +122,34 @@ def chunk_positions(S: int) -> int:
 
 def tma_geometry(B: int, S: int, D: int, V: int,
                  n_sm: int) -> Dict[str, object]:
-    """The ``"tma"`` launch: chunk shape, tile counts, TMA boxes, the
-    tile order's band and the persistent grid (one block per SM, never
-    more than there are tiles)."""
+    """The ``"tma"`` launch: chunk shape, row groups and their pairs (one
+    pair to a 2-block cluster, which shares each E slice), vocab tiles,
+    cluster tiles, TMA boxes (each block loads half of an E slice), the
+    tile order's band (in pairs) and the persistent grid: one block per
+    SM in whole clusters, never more clusters than tiles. (The kernel
+    also caps it at the clusters the card holds at once.)"""
     bs = chunk_positions(S)
     bb = CHUNK_ROWS // bs
     n_rg = -(-B // bb)
+    n_rp = -(-n_rg // CLUSTER)
     n_vt = -(-V // TMA_BN)
-    rg_bytes = bb * S * D * 2
-    return {"bs": bs, "bb": bb, "n_rg": n_rg, "n_vt": n_vt,
-            "n_tiles": n_rg * n_vt,
-            "h_box": (TMA_BK, bs, bb), "e_box": (TMA_BK, TMA_BN),
-            "group": max(1, min(n_rg, L2_BAND_BYTES // rg_bytes)),
-            "grid": min(n_sm, n_rg * n_vt)}
+    pair_bytes = CLUSTER * bb * S * D * 2
+    return {"bs": bs, "bb": bb, "n_rg": n_rg, "n_rp": n_rp, "n_vt": n_vt,
+            "n_tiles": n_rp * n_vt,
+            "h_box": (TMA_BK, bs, bb), "e_box": (TMA_BK, TMA_BN // CLUSTER),
+            "group": max(1, min(n_rp, L2_BAND_BYTES // pair_bytes)),
+            "grid": CLUSTER * min(n_sm // CLUSTER, n_rp * n_vt)}
 
 
-def tile_coords(t: int, n_rg: int, n_vt: int, group: int) -> Tuple[int, int]:
-    """Tile ``t`` of the persistent walk -> (row group, vocab tile), as
-    the kernel computes it: bands of ``group`` row groups, the row group
-    varying fastest within a band, so the blocks in flight share E tiles
-    and a band's rows of H stay in L2 while it sweeps the vocabulary."""
+def tile_coords(t: int, n_rp: int, n_vt: int, group: int) -> Tuple[int, int]:
+    """Cluster tile ``t`` of the persistent walk -> (row-group pair, vocab
+    tile), as the kernel computes it: bands of ``group`` pairs, the pair
+    varying fastest within a band, so the clusters in flight share E
+    tiles and a band's rows of H stay in L2 while it sweeps the
+    vocabulary. Block r of a cluster takes row group ``CLUSTER * pair +
+    r`` (the last one again, storing nothing, past ``n_rg``)."""
     band, local = divmod(t, group * n_vt)
-    rows = min(group, n_rg - band * group)
+    rows = min(group, n_rp - band * group)
     return band * group + local % rows, local // rows
 
 

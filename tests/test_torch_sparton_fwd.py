@@ -113,52 +113,76 @@ def test_chunk_positions_is_the_smallest_power_of_two_that_fits(S):
     (64, 16, D, V), (16, 32, D, V), (384, 256, D, V), (320, 512, D, V),
     (3, 48, D, V), (2, 1729, D, V), (65536, 8, 8, 64), (5, 12, 24, 100),
     (1, 16, 8, 16)])
-@pytest.mark.parametrize("n_sm", [132, 7])
+@pytest.mark.parametrize("n_sm", [132, 8])
 def test_tma_geometry_matches_its_definition(B, S, d, v, n_sm):
     geo = k1.tma_geometry(B, S, d, v, n_sm)
-    bn = k1.TMA_BN
+    bn, cl = k1.TMA_BN, k1.CLUSTER
     bs, bb = geo["bs"], geo["bb"]
     assert bs == k1.chunk_positions(S) and bs * bb == k1.CHUNK_ROWS
-    # H: a box of 64 D, bs positions, bb batch rows (16 KB of bf16);
-    # E: 64 D by bn vocab rows; each TMA box dimension at most 256
+    # H: a box of 64 D, bs positions, bb batch rows (16 KB of bf16); E:
+    # 64 D by the half of a tile's bn vocab rows that each block of a
+    # cluster loads; each TMA box dimension at most 256
     assert geo["h_box"] == (k1.TMA_BK, bs, bb)
-    assert geo["e_box"] == (k1.TMA_BK, bn)
+    assert geo["e_box"] == (k1.TMA_BK, bn // cl) and bn % cl == 0
     assert np.prod(geo["h_box"]) * 2 == 16384
     assert max(geo["h_box"] + geo["e_box"]) <= 256
     assert k1.TMA_BK * 2 == 128         # one 128-byte swizzle span
     assert (geo["n_rg"] - 1) * bb < B <= geo["n_rg"] * bb
+    assert (geo["n_rp"] - 1) * cl < geo["n_rg"] <= geo["n_rp"] * cl
     assert (geo["n_vt"] - 1) * bn < v <= geo["n_vt"] * bn
-    assert geo["n_tiles"] == geo["n_rg"] * geo["n_vt"]
-    assert geo["grid"] == min(n_sm, geo["n_tiles"])
+    assert geo["n_tiles"] == geo["n_rp"] * geo["n_vt"]
+    # whole clusters, one block per SM at most, no cluster without a tile
+    assert geo["grid"] % cl == 0 and 0 < geo["grid"] <= n_sm
+    assert geo["grid"] == cl * min(n_sm // cl, geo["n_tiles"])
     group = geo["group"]
-    assert 1 <= group <= geo["n_rg"]
-    band_bytes = group * bb * S * d * 2
+    assert 1 <= group <= geo["n_rp"]
+    band_bytes = group * cl * bb * S * d * 2
     assert band_bytes <= k1.L2_BAND_BYTES or group == 1
-    assert (group == geo["n_rg"]
-            or band_bytes + bb * S * d * 2 > k1.L2_BAND_BYTES)
+    assert (group == geo["n_rp"]
+            or band_bytes + cl * bb * S * d * 2 > k1.L2_BAND_BYTES)
 
 
-@pytest.mark.parametrize("n_rg,n_vt,group", [
-    (1, 1, 1), (8, 239, 8), (384, 239, 32), (320, 239, 16), (7, 5, 3),
+@pytest.mark.parametrize("n_rp,n_vt,group", [
+    (1, 1, 1), (4, 120, 4), (192, 120, 16), (160, 120, 8), (7, 5, 3),
     (10, 4, 4), (5, 9, 5), (13, 1, 2), (1, 17, 1)])
-def test_tile_order_covers_every_tile_once_row_group_fastest(n_rg, n_vt,
-                                                            group):
-    n_tiles = n_rg * n_vt
-    coords = [k1.tile_coords(t, n_rg, n_vt, group) for t in range(n_tiles)]
-    assert sorted(coords) == list(itertools.product(range(n_rg),
+def test_tile_order_covers_every_tile_once_pair_fastest(n_rp, n_vt, group):
+    n_tiles = n_rp * n_vt
+    coords = [k1.tile_coords(t, n_rp, n_vt, group) for t in range(n_tiles)]
+    assert sorted(coords) == list(itertools.product(range(n_rp),
                                                     range(n_vt)))
-    for t, (rg, vt) in enumerate(coords):
+    for t, (rp, vt) in enumerate(coords):
         band = t // (group * n_vt)
-        assert band * group <= rg < (band + 1) * group   # its band's rows
+        assert band * group <= rp < (band + 1) * group   # its band's pairs
         if t + 1 < n_tiles and (t + 1) // (group * n_vt) == band:
-            rg2, vt2 = coords[t + 1]   # the row group varies fastest
-            assert (vt2, rg2) == (vt, rg + 1) or (vt2 == vt + 1
-                                                  and rg2 == band * group)
-    # the persistent grid: block i takes tiles i, i + grid, ...; together
-    # every tile once
-    grid = min(132, n_tiles)
-    walked = [t for i in range(grid) for t in range(i, n_tiles, grid)]
+            rp2, vt2 = coords[t + 1]   # the pair varies fastest
+            assert (vt2, rp2) == (vt, rp + 1) or (vt2 == vt + 1
+                                                  and rp2 == band * group)
+    # the persistent grid: cluster c takes tiles c, c + clusters, ...;
+    # together every tile once
+    clusters = min(66, n_tiles)
+    walked = [t for c in range(clusters)
+              for t in range(c, n_tiles, clusters)]
     assert sorted(walked) == list(range(n_tiles))
+
+
+@pytest.mark.parametrize("B,S", MAIN_SHAPES + [(1, 16), (3, 48), (5, 12),
+                                               (65536, 8)])
+def test_cluster_blocks_cover_every_row_group_once(B, S):
+    """Block r of the cluster on pair p takes row group CLUSTER p + r; past
+    the last row group it repeats it and stores nothing. Over all cluster
+    tiles, each (row group, vocab tile) is stored exactly once."""
+    geo = k1.tma_geometry(B, S, D, V if B < 65536 else 64, 132)
+    stored = []
+    for t in range(min(geo["n_tiles"], 4000)):
+        rp, vt = k1.tile_coords(t, geo["n_rp"], geo["n_vt"], geo["group"])
+        for r in range(k1.CLUSTER):
+            rg = k1.CLUSTER * rp + r
+            if rg < geo["n_rg"]:
+                stored.append((rg, vt))
+    assert len(stored) == len(set(stored))
+    if geo["n_tiles"] <= 4000:
+        assert sorted(stored) == list(itertools.product(
+            range(geo["n_rg"]), range(geo["n_vt"])))
 
 
 def _tie_inputs(B, S, distinct, seed):
