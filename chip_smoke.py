@@ -12,7 +12,10 @@ Phases, run in this order, each printing one JSON line:
              against a second launch), K6 also past its old k limit of
              256, and past the old limits of the head: K2 at S = 1729 and
              2048 (its S ranges giving the bits of one range), K1, K2 and
-             K3 at B = 65536.
+             K3 at B = 65536. Each K1 case runs twice (the same bits) on
+             the path its rule gives ("tma", "wmma" or "f32"), also at
+             full width (D 768, V 30522: S 48, 900, 1729) and on exact
+             ties, where i_max must equal the plain version's everywhere.
 4. serve   — the full-width splade_bert serving path: index 16384 docs,
              serve 64 requests through the batching loop, retrieve with
              ``method="auto"`` (which must resolve to the fused kernel).
@@ -34,7 +37,9 @@ Phases, run in this order, each printing one JSON line:
              ``impact`` and ``quantized`` methods.
 5. timing  — each kernel, its plain version, a one-call PyTorch yardstick
              and its roofline bound, with CUDA events (K1 also at the
-             train step's 384 x 256, K6 at B 8 and B 64); for K2 and K3 also
+             train step's 384 x 256 and Table-1, each beside its earlier
+             WMMA design forced on the same inputs, ``ms_wmma``; K6 at B 8
+             and B 64); for K2 and K3 also
              the peak memory of the head's forward + backward against the
              paper's PyTorch baseline, for K6 the peak memory of kernel and
              yardstick. The dense corpus and the engine are then dropped.
@@ -45,9 +50,11 @@ Phases, run in this order, each printing one JSON line:
              (384 pairs x 256 tokens, remat on) with the head it picks by
              default, K1, K2 and K3 launched twice a step.
 
-Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
-...}``. Any mismatch, exception or missing launch exits non-zero before
-that last line. The script imports nothing of JAX nor of the JAX package.
+Every K1 launch of the serve, dense-serve, engine and train phases must
+take the "tma" path. Then a ``{"kernels": [...]}`` line and, last,
+``{"ok": true, "device": ...}``. Any mismatch, exception or missing
+launch exits non-zero before that last line. The script imports nothing
+of JAX nor of the JAX package.
 """
 
 from __future__ import annotations
@@ -1704,7 +1711,7 @@ def host_us(torch, fn, n=20):
 
 def time_k1(torch, H, E, b, mask, *, reps, plain_reps):
     """K1 on the "tma" path beside the earlier WMMA design forced on the
-    same inputs (``ms_pr11``; the two in turns), the plain version, the
+    same inputs (``ms_wmma``; the two in turns), the plain version, the
     paper's PyTorch baseline (``library_ms``) and the bound."""
     from repro_torch.kernels import sparton as k1
 
@@ -1719,7 +1726,7 @@ def time_k1(torch, H, E, b, mask, *, reps, plain_reps):
     def tma():
         return k1.sparton_forward(H, E, b, mask)
 
-    def pr11():
+    def wmma():
         return k1._launch(H, E, b, mask, None, _path="wmma")
 
     row = {"shape": [B, S, D, V], "dtype": str(H.dtype)[6:],
@@ -1730,11 +1737,11 @@ def time_k1(torch, H, E, b, mask, *, reps, plain_reps):
                torch, H, E, b, mask)),
            "bound_ms": bound, "bound_by": by}
     y_t, i_t = tma()
-    y_w, i_w = pr11()
-    row["pr11_vs_tma_max_abs_err"] = float((y_t - y_w).abs().max())
+    y_w, i_w = wmma()
+    row["wmma_vs_tma_max_abs_err"] = float((y_t - y_w).abs().max())
     del y_t, i_t, y_w, i_w
     for key, (ms, spread) in in_turns(
-            torch, {"ms_pr11": pr11, "ms": tma}, reps).items():
+            torch, {"ms_wmma": wmma, "ms": tma}, reps).items():
         row[key], row[key + "_range"] = ms, spread
     for key, fn, reps_ in (
             ("plain_ms", lambda: k1.sparton_forward_plain(H, E, b, mask),
@@ -1744,7 +1751,7 @@ def time_k1(torch, H, E, b, mask, *, reps, plain_reps):
         row[key], row[key + "_range"] = timed(torch, fn, reps_)
     row["bound_share"] = bound / row["ms"]
     row["host_us"] = host_us(torch, tma)
-    row["host_us_pr11"] = host_us(torch, pr11)
+    row["host_us_wmma"] = host_us(torch, wmma)
     torch.cuda.empty_cache()
     return row
 
@@ -2088,7 +2095,7 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
                                 for key in ("k1", "bwd", "k4", "k5", "k6"))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    k1_keys = keys + ("ms_pr11",)
+    k1_keys = keys + ("ms_wmma",)
     k6_keys = keys + ("ms_over_library",)
     return [
         {"name": "sparton_fwd (K1)", "route": "cuda",

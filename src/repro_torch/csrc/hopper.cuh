@@ -44,15 +44,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
 // One arrival on the barrier at the same offset in block `cta` of the
 // cluster (this block included). The default (CTA-scope) release is
-// enough to say "done reading"; a cluster-scope release made each arrival
-// so slow that a 2-block K1 ran at half speed.
+// enough to say "done reading" (the reads were wgmma's, already waited
+// for); a cluster-scope release made every arrival, and so K1, far
+// slower.
 __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
                                                     uint32_t cta) {
   asm volatile(
@@ -93,21 +89,9 @@ __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
 }
 
 // Copy the box at coordinates (c0, c1) (innermost first) into shared
-// memory at `dst`; completion is counted on `bar` in bytes. Elements
-// outside the tensor arrive as zeros.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// tma_load_2d, the box landing at the same offset in every block of the
-// cluster named in `mask` (bit i: block i), each block's barrier at
-// `bar`'s offset counting its bytes.
+// memory at `dst` in every block of the cluster named in `mask` (bit i:
+// block i), at the same offset; each block's barrier at `bar`'s offset
+// counts the bytes. Elements outside the tensor arrive as zeros.
 __device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst,
                                                       const CUtensorMap* map,
                                                       uint32_t bar, int c0,
@@ -122,6 +106,7 @@ __device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst,
       : "memory");
 }
 
+// A 3-D box at (c0, c1, c2) into this block's shared memory alone.
 __device__ __forceinline__ void tma_load_3d(uint32_t dst,
                                             const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1,

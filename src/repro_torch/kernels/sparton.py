@@ -20,11 +20,11 @@ Three paths, chosen by the plain rule ``_plan`` and counted apart in
   warpgroup keeps a ring of TMA loads in flight (two blocks of a cluster
   share each E slice by multicast), two consumer warpgroups each run
   ``wgmma`` on 128 of a tile's 256 vocab columns and fold bias, softcap,
-  mask and the running max/argmax in registers. Its launch
-  geometry (``tma_geometry``, ``tile_coords``) is computed here, where
-  the CPU tests reach it. On an NVIDIA H100 80GB HBM3 at 700 W it takes
-  about 7 ms at the train step's 384 × 256 (bound 4.66 ms) against 32 ms
-  for the WMMA design below (``PERF.md`` has the runs).
+  mask and the running max/argmax in registers. Its launch geometry
+  (``tma_geometry``, ``tile_coords``) is computed here, where the CPU
+  tests reach it. On an NVIDIA H100 80GB HBM3 at 700 W it takes 6.5–7
+  ms at the train step's 384 × 256 (bound 4.66 ms), the WMMA design
+  below 32 ms (``PERF.md`` has the runs).
 * ``"wmma"`` — the other bf16 inputs: WMMA fed by a ``cp.async`` ring
   (16-byte copies where the rows allow, element copies otherwise).
 * ``"f32"`` — f32 inputs: a register tile of FMAs.

@@ -8,7 +8,7 @@ shapes, without the serving and training phases of ``chip_smoke.py``.
 Prints ``chip_smoke.py``'s device and build lines (ptxas's report
 included), one JSON line of gates, and with ``--time`` one JSON line per
 shape: the "tma" path beside the earlier WMMA design forced on the same
-inputs (``ms_pr11``), the plain version, the paper's PyTorch baseline
+inputs (``ms_wmma``), the plain version, the paper's PyTorch baseline
 and the bound. The inputs are seeded random bf16 hidden states with
 ``splade_bert``'s widths (D 768, V 30522). Exits non-zero on any failed
 gate.
