@@ -60,9 +60,11 @@
 //     E tiles, and a band's rows of H stay in L2 while it sweeps the
 //     vocabulary.
 //   * What bounds it (tools/k1_breakdown.py; PERF.md has the numbers):
-//     the products. Without the cluster the TMA loads alone, from L2 into
-//     shared memory, took most of the kernel's time; with it they take
-//     less than the products, and the epilogue hides mostly behind them.
+//     the products, at the clock the card holds under them. Without the
+//     cluster the TMA loads alone, from L2 into shared memory, took most
+//     of the kernel's time; with it they take less than the products, and
+//     the epilogue hides mostly behind them. While the products run, a
+//     700 W H100 reaches its power limit and lowers its SM clock.
 //
 // "wmma" (the other bf16 inputs: D % 8 != 0 or a base that is not 16-byte
 // aligned; also forced on aligned inputs to time the earlier design) and

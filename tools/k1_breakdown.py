@@ -7,10 +7,12 @@ For each build (``K1_DROP`` 0: the kernel as shipped; 1: no products; 2:
 no epilogue; 3: neither, the TMA loads and the barriers alone) it prints
 one JSON line per shape (384 x 256 and 320 x 512 with every position
 kept, 64 x 16) with the median ms of CUDA-event windows and their
-spread, and last the card's name, power limit, SM clock and draw. Builds
-other than 0 give wrong results by design: only their times mean
-anything. Each goes to its own build directory (the flags are part of
-its hash), so the kernels that ``chip_smoke.py`` loads are not touched.
+spread, then the SM clock (MHz) and power draw (W) that ``nvidia-smi``
+sampled every 100 ms over 1.5 s of back-to-back launches after them;
+last the card's name and power limit. Builds other than 0 give wrong
+results by design: only their times mean anything. Each goes to its own
+build directory (the flags are part of its hash), so the kernels that
+``chip_smoke.py`` loads are not touched.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -26,6 +29,39 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402  (puts src/ on sys.path)
 
 SHAPES = {"train": (384, 256), "table1": (320, 512), "index_batch": (64, 16)}
+
+
+def sampled(torch, fn, seconds=1.5):
+    """Launch ``fn`` back to back for ``seconds`` while ``nvidia-smi``
+    samples the SM clock and the power draw every 100 ms; return the
+    samples' min, median and max of each."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        lines = smi.communicate(timeout=60)[0].splitlines()
+    rows = []
+    for ln in lines:
+        try:
+            rows.append([float(x) for x in ln.split(",")])
+        except ValueError:   # a sample the card could not read ("[N/A]")
+            continue
+
+    def spread(col):
+        vals = sorted(r[col] for r in rows)
+        return ([vals[0], vals[len(vals) // 2], vals[-1]] if vals
+                else "not measured")
+
+    return {"sm_mhz": spread(0), "power_w": spread(1)}
+
+
 DROPS = {0: "as shipped", 1: "no products", 2: "no epilogue",
          3: "loads only"}
 
@@ -55,22 +91,26 @@ def main() -> int:
         for drop, what in DROPS.items():
             _build.NVCC_FLAGS = flags + (f"-DK1_DROP={drop}",)
             _build._FUNCS.clear()
+            _build.build_all()   # the compile is not in the sampled windows
             for name, (H, mask) in inputs.items():
                 B, S, D = H.shape
-                ms = chip_smoke.cuda_ms(
-                    torch, lambda: k1.sparton_forward(H, E, b, mask),
-                    20 if B * S <= 2048 else 3)
+                def launch():
+                    return k1.sparton_forward(H, E, b, mask)
+
+                ms = chip_smoke.cuda_ms(torch, launch,
+                                        20 if B * S <= 2048 else 3)
                 windows = chip_smoke.cuda_ms.windows
+                clocks = sampled(torch, launch)
                 bound, _ = chip_smoke.k1_bound_ms(B, S, D, E.shape[0], 2)
                 print(json.dumps({"drop": drop, "build": what,
                                   "shape": name, "ms": ms,
                                   "range": [min(windows), max(windows)],
-                                  "bound_ms": bound}), flush=True)
+                                  "bound_ms": bound, **clocks}), flush=True)
     finally:
         _build.NVCC_FLAGS = flags
         _build._FUNCS.clear()
     print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
+        ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip(),
         flush=True)
