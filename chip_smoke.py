@@ -14,8 +14,9 @@ Phases, run in this order, each printing one JSON line:
              2048 (its S ranges giving the bits of one range), K1, K2 and
              K3 at B = 65536. Each K1 case runs twice (the same bits) on
              the path its rule gives ("tma", "wmma" or "f32"), also at
-             full width (D 768, V 30522: S 48, 900, 1729) and on exact
-             ties, where i_max must equal the plain version's everywhere.
+             full width (D 768, V 30522: S 48, 900, 1729), on masks that
+             empty whole 128-position chunks and on exact ties, where
+             i_max must equal the plain version's everywhere.
 4. serve   — the full-width splade_bert serving path: index 16384 docs,
              serve 64 requests through the batching loop, retrieve with
              ``method="auto"`` (which must resolve to the fused kernel).
@@ -36,7 +37,8 @@ Phases, run in this order, each printing one JSON line:
              and K5 at k = 1025, 1100 and n_docs on the base, against the
              ``impact`` and ``quantized`` methods.
 5. timing  — each kernel, its plain version, a one-call PyTorch yardstick
-             and its roofline bound, with CUDA events (K1 also at the
+             and its roofline bound, with CUDA events (K1's bound counts
+             the products of its kept positions only; K1 also at the
              train step's 384 x 256 and Table-1, each beside its earlier
              WMMA design forced on the same inputs, ``ms_wmma``; K6 at B 8
              and B 64); for K2 and K3 also
@@ -547,6 +549,30 @@ K1_FULL = [(3, 48, None), (3, 48, 5.0), (2, 900, None), (2, 900, 5.0),
 # the plain version's everywhere. (B, S, distinct rows, softcap)
 K1_TIES = [(4, 300, 24, None), (4, 300, 24, 5.0), (5, 40, 6, None),
            (9, 12, 4, 5.0)]
+# K1 at full width on masks that empty whole chunks of 128 positions, as
+# padded batches do: in both row groups of a cluster's pair or in one
+# only, an odd number of row groups, and every position but the last
+# masked. {name: (B, S, lengths or None, rows whose chunk 1 is masked)}
+K1_CHUNKS = {
+    "lengths_at_chunk_edges": (4, 300, [128, 129, 256, 1], []),
+    "pair_rows_split": (4, 384, [384, 100, 40, 300], []),
+    "middle_chunk_in_some_rows": (4, 384, None, [0, 1, 2]),
+    "odd_row_groups": (3, 256, [256, 90, 30], []),
+    "only_the_last_position": (2, 300, None, []),
+}
+
+
+def k1_chunk_mask(torch, name):
+    B, S, lengths, middle = K1_CHUNKS[name]
+    pos = torch.arange(S, device="cuda")
+    if lengths is not None:
+        return (pos < torch.tensor(lengths, device="cuda")[:, None]).int()
+    mask = torch.ones((B, S), dtype=torch.int32, device="cuda")
+    mask[middle, 128:256] = 0
+    if name == "only_the_last_position":
+        mask.zero_()
+        mask[:, -1] = 1
+    return mask
 
 
 def k1_tie_inputs(torch, B, S, distinct, seed):
@@ -573,8 +599,8 @@ def k1_gates(torch):
     """K1 against its plain version, each case launched twice (the same
     bits) on the path the rule gives: K1_SHAPES in f32 and bf16 with and
     without the softcap, a bf16 H whose base is not 16-byte aligned
-    ("wmma"), K1_FULL and the exact ties of K1_TIES ("tma"), and a fully
-    masked row giving (0, 0)."""
+    ("wmma"), K1_FULL, the masks of K1_CHUNKS and the exact ties of
+    K1_TIES ("tma"), and a fully masked row giving (0, 0)."""
     from repro_torch.kernels.sparton import sparton_forward
 
     cases = []
@@ -604,6 +630,16 @@ def k1_gates(torch):
                       "softcap": softcap,
                       **k1_compare(torch, H, E, b, mask, softcap)})
         del H, E
+    for i, name in enumerate(K1_CHUNKS):
+        B, S = K1_CHUNKS[name][:2]
+        for softcap in (None, 5.0):
+            H, E, b, _ = k1_inputs(torch, B, S, 768, 30522, torch.bfloat16,
+                                   400 + i)
+            mask = k1_chunk_mask(torch, name)
+            cases.append({"shape": [B, S, 768, 30522], "dtype": "bfloat16",
+                          "softcap": softcap, "masked_chunks": name,
+                          **k1_compare(torch, H, E, b, mask, softcap)})
+            del H, E
     for i, (B, S, distinct, softcap) in enumerate(K1_TIES):
         H, E, b, mask = k1_tie_inputs(torch, B, S, distinct, 300 + i)
         cases.append({"shape": [B, S, 768, 30522], "dtype": "bfloat16",
@@ -1664,8 +1700,11 @@ def traced(torch, run, wall_ms, n):
             "top_device_ms": {e.key[:70]: dev_us(e) / 1e3 / n for e in top}}
 
 
-def k1_bound_ms(B, S, D, V, itemsize):
-    flops = 2 * B * S * V * D
+def k1_bound_ms(B, S, D, V, itemsize, kept):
+    """K1's bound: the products of the ``kept`` (unmasked) positions only,
+    since a masked logit is NEG_INF whatever H·E gives; every input read
+    and every output written once."""
+    flops = 2 * kept * V * D
     nbytes = (B * S * D + V * D) * itemsize + V * 4 + B * S * 4 + B * V * 8
     peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
@@ -1721,7 +1760,8 @@ def time_k1(torch, H, E, b, mask, *, reps, plain_reps):
             f"K1 at {tuple(H.shape)}: {case}")
     B, S, D = H.shape
     V = E.shape[0]
-    bound, by = k1_bound_ms(B, S, D, V, H.element_size())
+    kept = int(mask.bool().sum())
+    bound, by = k1_bound_ms(B, S, D, V, H.element_size(), kept)
 
     def tma():
         return k1.sparton_forward(H, E, b, mask)
@@ -1735,7 +1775,7 @@ def time_k1(torch, H, E, b, mask, *, reps, plain_reps):
            "peak_mb": peak_mb(torch, tma),
            "library_peak_mb": peak_mb(torch, lambda: k1_library(
                torch, H, E, b, mask)),
-           "bound_ms": bound, "bound_by": by}
+           "kept_positions": kept, "bound_ms": bound, "bound_by": by}
     y_t, i_t = tma()
     y_w, i_w = wmma()
     row["wmma_vs_tma_max_abs_err"] = float((y_t - y_w).abs().max())

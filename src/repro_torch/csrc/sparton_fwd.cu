@@ -58,13 +58,17 @@
 //   * The grid is one block per SM walking cluster tiles in bands of
 //     `group` row-group pairs, pair fastest: the clusters in flight share
 //     E tiles, and a band's rows of H stay in L2 while it sweeps the
-//     vocabulary.
-//   * What bounds it (tools/k1_breakdown.py; PERF.md has the numbers):
-//     the products, at the clock the card holds under them. Without the
-//     cluster the TMA loads alone, from L2 into shared memory, took most
-//     of the kernel's time; with it they take less than the products, and
-//     the epilogue hides mostly behind them. While the products run, a
-//     700 W H100 reaches its power limit and lowers its SM clock.
+//     vocabulary. The C entry works the geometry out (chunks, band,
+//     grid); nothing else does.
+//   * Every chunk is loaded and multiplied, masked or not: the mask
+//     enters only the epilogue (PERF.md says why masked chunks are not
+//     skipped).
+//   * What bounds it (PERF.md has the runs): the products, at the clock
+//     the card holds under them. Without the cluster the TMA loads from L2
+//     took most of the kernel's time; with it they take less than the
+//     products, and the epilogue hides mostly behind them. While the
+//     products run, a 700 W H100 reaches its power limit and lowers its SM
+//     clock.
 //
 // "wmma" (the other bf16 inputs: D % 8 != 0 or a base that is not 16-byte
 // aligned; also forced on aligned inputs to time the earlier design) and
@@ -82,13 +86,6 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
-
-// Measurement only (tools/k1_breakdown.py; the build never sets it): bit 1
-// drops the "tma" path's products, bit 2 its epilogue, so that a run can
-// time the loads alone and each part beside them. Results are then wrong.
-#ifndef K1_DROP
-#define K1_DROP 0
-#endif
 
 namespace wmma_ring {
 
@@ -432,6 +429,9 @@ constexpr int E_PART = B_BYTES / CLUSTER;  // the E rows each block loads
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr float NEG_INF = -1e30f;
 constexpr int ENCODE_FAILED = 10000;    // + the CUresult of the encoding
+// rows of H that one band of the tile order keeps in L2 (of its 50 MB)
+// while it sweeps all of E
+constexpr long long L2_BAND_BYTES = 12ll << 20;
 
 // byte offsets from the 1024-aligned base of dynamic shared memory: the
 // ring, then the tile-end merge buffer of 8 row blocks x BN columns
@@ -460,9 +460,9 @@ struct Problem {
 };
 
 // Cluster tile t of the persistent walk -> (row-group pair, vocab tile):
-// bands of `group` pairs, the pair fastest within a band. Mirrored by
-// kernels/sparton.py:tile_coords, which the CPU tests hold to covering
-// every tile once.
+// bands of `group` pairs, the pair fastest within a band. Block r of a
+// cluster takes row group CLUSTER * pair + r (the last one again, storing
+// nothing, past n_rg).
 __device__ __forceinline__ void tile_coords(long long t, const Problem& p,
                                             int& rp, int& vt) {
   const long long band_tiles = (long long)p.group * p.n_vt;
@@ -730,7 +730,6 @@ __global__ void __launch_bounds__(THREADS, 1)
           const uint64_t da = smem_desc(base + OFF_A + stage * A_BYTES);
           const uint64_t db =
               smem_desc(base + OFF_B + stage * B_BYTES + b_off);
-#if (K1_DROP & 1) == 0
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < BK / 16; ++kk) {
@@ -740,7 +739,6 @@ __global__ void __launch_bounds__(THREADS, 1)
                             (k | kk) != 0);
           }
           wgmma_commit();
-#endif
           if (k > 0) {  // the previous slice's products are done with it
             wgmma_wait<1>();
             if (lane == 0) release(empty0 + 8 * prev);
@@ -759,7 +757,6 @@ __global__ void __launch_bounds__(THREADS, 1)
           reg_fence(acc_hi[i]);
         }
 
-#if (K1_DROP & 2) == 0
         // Thread columns: 8 j + 2 (lane % 4) + e of the warpgroup's 128;
         // acc[4 j + e] on the first row of a fragment, acc[4 j + 2 + e]
         // 8 rows below.
@@ -784,9 +781,6 @@ __global__ void __launch_bounds__(THREADS, 1)
             fold_fragment<CAP>(acc_hi, sbias + col0, kc, kd, sc, sd, lane,
                                p.cap, run_v + 4, run_s + 4);
         }
-#else
-        run_v[0] = fmaxf(run_v[0], acc_lo[0] + acc_hi[63]);
-#endif
       }
 
       // Tile end: each warp's running state into the merge buffer, row
@@ -839,10 +833,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// Encode H's and E's tensor maps for this call and launch `grid` blocks.
+// Encode H's and E's tensor maps for this call and launch the persistent
+// grid: as many clusters as the card holds at once, never more than tiles.
 template <bool FULL, bool CAP>
-int launch(const void* H, const void* E, Problem p, int grid,
-           cudaStream_t stream) {
+int launch(const void* H, const void* E, Problem p, cudaStream_t stream) {
   CUtensorMap hmap, emap;
   const cuuint64_t h_sizes[3] = {(cuuint64_t)p.D, (cuuint64_t)p.S,
                                  (cuuint64_t)p.B};
@@ -866,26 +860,29 @@ int launch(const void* H, const void* E, Problem p, int grid,
   cluster.val.clusterDim.y = 1;
   cluster.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
+  cfg.gridDim = dim3(CLUSTER);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = SMEM;
   cfg.stream = stream;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  // a persistent grid must be resident at once: no more clusters than
-  // the card can hold together (asked once per device)
+  // the clusters the card holds at once (asked once per device and
+  // kernel): a persistent grid must be resident all together
   static int resident[64] = {0};
-  int device = 0;
+  int device = 0, clusters = 0;
   err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
-  if (device < 64 && resident[device] == 0) {
-    err = cudaOccupancyMaxActiveClusters(&resident[device],
-                                         tma_kernel<FULL, CAP>, &cfg);
+  if (device >= 64 || resident[device] == 0) {
+    err = cudaOccupancyMaxActiveClusters(&clusters, tma_kernel<FULL, CAP>,
+                                         &cfg);
     if (err != cudaSuccess) return (int)err;
-    if (resident[device] < 1) return (int)cudaErrorInvalidConfiguration;
+    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+    if (device < 64) resident[device] = clusters;
+  } else {
+    clusters = resident[device];
   }
-  const int most = device < 64 ? CLUSTER * resident[device] : grid;
-  cfg.gridDim = dim3(grid < most ? grid : most);
+  cfg.gridDim = dim3(CLUSTER * (int)(p.n_tiles < clusters ? p.n_tiles
+                                                          : clusters));
   err = cudaLaunchKernelEx(&cfg, tma_kernel<FULL, CAP>, hmap, emap, p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -896,14 +893,13 @@ int launch(const void* H, const void* E, Problem p, int grid,
 // C entry point, bound with ctypes. path: 0 = "f32" (H and E float32),
 // 1 = "wmma", 2 = "tma" (H and E bfloat16; "tma" needs D % 8 == 0 and
 // 16-byte aligned bases). bias is f32 (V,), mask i32 (B, S); y f32 and
-// i_max i32 (B, V). softcap <= 0 means no cap. "tma" takes the tile
-// order's band `group` and the persistent grid; the others ignore them.
-// Any B >= 1. Returns the first CUDA error, or 10000 + the CUresult when a
-// tensor map cannot be encoded.
+// i_max i32 (B, V). softcap <= 0 means no cap. Any B >= 1. Each path
+// works out its own launch geometry here. Returns the first CUDA error,
+// or 10000 + the CUresult when a tensor map cannot be encoded.
 extern "C" int sparton_fwd(const void* H, const void* E, const float* bias,
                            const int* mask, float* y, int* imax, int B, int S,
-                           int D, int V, int path, float softcap, int group,
-                           int grid, void* stream) {
+                           int D, int V, int path, float softcap,
+                           void* stream) {
   if (B < 1 || S < 1 || D < 1 || V < 1) {
     return (int)cudaErrorInvalidValue;
   }
@@ -913,10 +909,7 @@ extern "C" int sparton_fwd(const void* H, const void* E, const float* bias,
   const bool aligned = D % 8 == 0 && (uintptr_t)H % 16 == 0 &&
                        (uintptr_t)E % 16 == 0;
   if (path == 2) {
-    if (!aligned || group < 1 || grid < tma::CLUSTER ||
-        grid % tma::CLUSTER != 0) {
-      return (int)cudaErrorInvalidValue;
-    }
+    if (!aligned) return (int)cudaErrorInvalidValue;
     tma::Problem p;
     p.bias = bias;
     p.mask = mask;
@@ -931,16 +924,20 @@ extern "C" int sparton_fwd(const void* H, const void* E, const float* bias,
     p.n_rg = (B + p.bb - 1) / p.bb;
     p.n_vt = (V + tma::BN - 1) / tma::BN;
     p.n_rp = (p.n_rg + tma::CLUSTER - 1) / tma::CLUSTER;
-    p.group = group;
+    // as many pairs to a band as keep their rows of H within
+    // L2_BAND_BYTES, at least one
+    const long long pair_bytes = (long long)tma::CLUSTER * p.bb * S * D * 2;
+    const long long fit = tma::L2_BAND_BYTES / pair_bytes;
+    p.group = (int)(fit < 1 ? 1 : fit < p.n_rp ? fit : p.n_rp);
     p.n_tiles = (long long)p.n_rp * p.n_vt;
     p.has_cap = softcap > 0.0f;
     p.cap = softcap;
     if (bs == tma::ROWS) {
-      return p.has_cap ? tma::launch<true, true>(H, E, p, grid, st)
-                       : tma::launch<true, false>(H, E, p, grid, st);
+      return p.has_cap ? tma::launch<true, true>(H, E, p, st)
+                       : tma::launch<true, false>(H, E, p, st);
     }
-    return p.has_cap ? tma::launch<false, true>(H, E, p, grid, st)
-                     : tma::launch<false, false>(H, E, p, grid, st);
+    return p.has_cap ? tma::launch<false, true>(H, E, p, st)
+                     : tma::launch<false, false>(H, E, p, st);
   }
   wmma_ring::Problem p;
   p.bias = bias;

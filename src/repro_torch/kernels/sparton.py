@@ -20,11 +20,10 @@ Three paths, chosen by the plain rule ``_plan`` and counted apart in
   warpgroup keeps a ring of TMA loads in flight (two blocks of a cluster
   share each E slice by multicast), two consumer warpgroups each run
   ``wgmma`` on 128 of a tile's 256 vocab columns and fold bias, softcap,
-  mask and the running max/argmax in registers. Its launch geometry
-  (``tma_geometry``, ``tile_coords``) is computed here, where the CPU
-  tests reach it. On an NVIDIA H100 80GB HBM3 at 700 W it takes 6.5–7
-  ms at the train step's 384 × 256 (bound 4.66 ms), the WMMA design
-  below 32 ms (``PERF.md`` has the runs).
+  mask and the running max/argmax in registers. The C entry works out
+  its launch geometry. On an NVIDIA H100 80GB HBM3 at 700 W it takes
+  about 7 ms at the train step's padded 384 × 256, the WMMA design 32 ms
+  (``PERF.md`` has the runs, each beside its bound).
 * ``"wmma"`` — the other bf16 inputs: WMMA fed by a ``cp.async`` ring
   (16-byte copies where the rows allow, element copies otherwise).
 * ``"f32"`` — f32 inputs: a register tile of FMAs.
@@ -40,8 +39,7 @@ is no fallback).
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -49,19 +47,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._common import NEG_INF
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float]
-             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+             + [ctypes.c_void_p])
 _DTYPES = (torch.float32, torch.bfloat16)
 PATHS = ("f32", "wmma", "tma")    # the C entry's path codes, in this order
 # the C entry's code for a tensor map it could not encode: 10000 + CUresult
 _ENCODE_FAILED = 10000
-
-CHUNK_ROWS = 128      # flattened (b, s) rows per chunk (bb * bs)
-TMA_BK = 64           # D slice per TMA box: 128 bytes of bf16
-TMA_BN = 256          # vocab columns per output tile (128 per consumer)
-CLUSTER = 2           # blocks (row groups) that share each E slice
-# rows of H that one band of the tile order keeps in L2 (of its 50 MB)
-# while it sweeps all of E
-L2_BAND_BYTES = 12 << 20
 
 
 def sparton_forward_plain(
@@ -108,54 +98,6 @@ def _plan(H: torch.Tensor, E: torch.Tensor) -> str:
             and E.data_ptr() % 16 == 0):
         return "tma"
     return "wmma"
-
-
-def chunk_positions(S: int) -> int:
-    """bs: positions of one batch row in a chunk — the smallest power of
-    two >= min(S, 128), at least 16 (so a warp's 16 rows of a wgmma
-    fragment lie in one batch row)."""
-    bs = 16
-    while bs < S and bs < CHUNK_ROWS:
-        bs *= 2
-    return bs
-
-
-def tma_geometry(B: int, S: int, D: int, V: int,
-                 n_sm: int) -> Dict[str, object]:
-    """The ``"tma"`` launch: chunk shape, row groups and their pairs (one
-    pair to a 2-block cluster, which shares each E slice), vocab tiles,
-    cluster tiles, TMA boxes (each block loads half of an E slice), the
-    tile order's band (in pairs) and the persistent grid: one block per
-    SM in whole clusters, never more clusters than tiles. (The kernel
-    also caps it at the clusters the card holds at once.)"""
-    bs = chunk_positions(S)
-    bb = CHUNK_ROWS // bs
-    n_rg = -(-B // bb)
-    n_rp = -(-n_rg // CLUSTER)
-    n_vt = -(-V // TMA_BN)
-    pair_bytes = CLUSTER * bb * S * D * 2
-    return {"bs": bs, "bb": bb, "n_rg": n_rg, "n_rp": n_rp, "n_vt": n_vt,
-            "n_tiles": n_rp * n_vt,
-            "h_box": (TMA_BK, bs, bb), "e_box": (TMA_BK, TMA_BN // CLUSTER),
-            "group": max(1, min(n_rp, L2_BAND_BYTES // pair_bytes)),
-            "grid": CLUSTER * min(n_sm // CLUSTER, n_rp * n_vt)}
-
-
-def tile_coords(t: int, n_rp: int, n_vt: int, group: int) -> Tuple[int, int]:
-    """Cluster tile ``t`` of the persistent walk -> (row-group pair, vocab
-    tile), as the kernel computes it: bands of ``group`` pairs, the pair
-    varying fastest within a band, so the clusters in flight share E
-    tiles and a band's rows of H stay in L2 while it sweeps the
-    vocabulary. Block r of a cluster takes row group ``CLUSTER * pair +
-    r`` (the last one again, storing nothing, past ``n_rg``)."""
-    band, local = divmod(t, group * n_vt)
-    rows = min(group, n_rp - band * group)
-    return band * group + local % rows, local // rows
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(H, E, b, mask, softcap, force=None):
@@ -205,10 +147,6 @@ def _launch(H, E, b, mask, softcap, *, _path=None):
     mask = mask.to(torch.int32).contiguous()
     y = torch.empty((B, V), dtype=torch.float32, device=H.device)
     i_max = torch.empty((B, V), dtype=torch.int32, device=H.device)
-    group = grid = 0
-    if path == "tma":
-        geo = tma_geometry(B, S, D, V, _sm_count(H.device.index))
-        group, grid = geo["group"], geo["grid"]
     fn = _build.function("sparton_fwd", "sparton_fwd", _ARGTYPES)
     with torch.cuda.device(H.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -217,8 +155,7 @@ def _launch(H, E, b, mask, softcap, *, _path=None):
         rc = fn(H.data_ptr(), E.data_ptr(), b.data_ptr(), mask.data_ptr(),
                 y.data_ptr(), i_max.data_ptr(), B, S, D, V,
                 PATHS.index(path),
-                float(softcap) if softcap is not None else 0.0, group,
-                grid, stream)
+                float(softcap) if softcap is not None else 0.0, stream)
     if rc >= _ENCODE_FAILED:
         raise RuntimeError(f"sparton_fwd: encoding the TMA tensor maps "
                            f"failed (CUresult {rc - _ENCODE_FAILED})")

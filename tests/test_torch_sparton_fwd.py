@@ -1,19 +1,17 @@
-"""K1's path rule and the "tma" path's launch geometry, on the CPU.
+"""K1's path rule and the semantics its "tma" path relies on, on the CPU.
 
 The kernel itself runs only on the card (``chip_smoke.py`` holds every
-path against the plain version there). What is decided in Python is held
-here: ``_plan`` sends every bf16 input with ``D % 8 == 0`` and 16-byte
-aligned bases to "tma" (the main path's shapes among them) and only the
-others to "wmma"; the wrapper's checks run before the device check;
-``tma_geometry`` and ``tile_coords`` give the chunks, boxes, band and
-grid the kernel is launched with, and the persistent walk covers every
-(row group, vocab tile) exactly once. Beside them, the plain version
-against the JAX oracle on exact ties: small-integer inputs whose logits
-are exact in f32, with rows of H copied to later positions, so that the
-first copy must win.
+path against the plain version there; the C entry works out the launch
+geometry). What is decided in Python is held here: ``_plan`` sends every
+bf16 input with ``D % 8 == 0`` and 16-byte aligned bases to "tma" (the
+main path's shapes among them) and only the others to "wmma"; the
+wrapper's checks run before the device check. Beside them, the plain
+version against the JAX oracle on exact ties (small-integer inputs whose
+logits are exact in f32, with rows of H copied to later positions, so
+that the first copy must win), and on masks that empty whole 128-row
+chunks, as padded batches do: a masked position never changes ``(y,
+i_max)``, so K1's bound counts only the kept ones.
 """
-
-import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -100,91 +98,6 @@ def test_argument_checks_run_before_the_device_check():
                    _path="wmma")
 
 
-@pytest.mark.parametrize("S", [1, 12, 16, 17, 32, 33, 48, 64, 100, 128,
-                               129, 256, 900, 1729])
-def test_chunk_positions_is_the_smallest_power_of_two_that_fits(S):
-    bs = k1.chunk_positions(S)
-    assert bs & (bs - 1) == 0 and 16 <= bs <= k1.CHUNK_ROWS
-    assert bs >= min(S, k1.CHUNK_ROWS)
-    assert bs == 16 or bs // 2 < min(S, k1.CHUNK_ROWS)
-
-
-@pytest.mark.parametrize("B,S,d,v", [
-    (64, 16, D, V), (16, 32, D, V), (384, 256, D, V), (320, 512, D, V),
-    (3, 48, D, V), (2, 1729, D, V), (65536, 8, 8, 64), (5, 12, 24, 100),
-    (1, 16, 8, 16)])
-@pytest.mark.parametrize("n_sm", [132, 8])
-def test_tma_geometry_matches_its_definition(B, S, d, v, n_sm):
-    geo = k1.tma_geometry(B, S, d, v, n_sm)
-    bn, cl = k1.TMA_BN, k1.CLUSTER
-    bs, bb = geo["bs"], geo["bb"]
-    assert bs == k1.chunk_positions(S) and bs * bb == k1.CHUNK_ROWS
-    # H: a box of 64 D, bs positions, bb batch rows (16 KB of bf16); E:
-    # 64 D by the half of a tile's bn vocab rows that each block of a
-    # cluster loads; each TMA box dimension at most 256
-    assert geo["h_box"] == (k1.TMA_BK, bs, bb)
-    assert geo["e_box"] == (k1.TMA_BK, bn // cl) and bn % cl == 0
-    assert np.prod(geo["h_box"]) * 2 == 16384
-    assert max(geo["h_box"] + geo["e_box"]) <= 256
-    assert k1.TMA_BK * 2 == 128         # one 128-byte swizzle span
-    assert (geo["n_rg"] - 1) * bb < B <= geo["n_rg"] * bb
-    assert (geo["n_rp"] - 1) * cl < geo["n_rg"] <= geo["n_rp"] * cl
-    assert (geo["n_vt"] - 1) * bn < v <= geo["n_vt"] * bn
-    assert geo["n_tiles"] == geo["n_rp"] * geo["n_vt"]
-    # whole clusters, one block per SM at most, no cluster without a tile
-    assert geo["grid"] % cl == 0 and 0 < geo["grid"] <= n_sm
-    assert geo["grid"] == cl * min(n_sm // cl, geo["n_tiles"])
-    group = geo["group"]
-    assert 1 <= group <= geo["n_rp"]
-    band_bytes = group * cl * bb * S * d * 2
-    assert band_bytes <= k1.L2_BAND_BYTES or group == 1
-    assert (group == geo["n_rp"]
-            or band_bytes + cl * bb * S * d * 2 > k1.L2_BAND_BYTES)
-
-
-@pytest.mark.parametrize("n_rp,n_vt,group", [
-    (1, 1, 1), (4, 120, 4), (192, 120, 16), (160, 120, 8), (7, 5, 3),
-    (10, 4, 4), (5, 9, 5), (13, 1, 2), (1, 17, 1)])
-def test_tile_order_covers_every_tile_once_pair_fastest(n_rp, n_vt, group):
-    n_tiles = n_rp * n_vt
-    coords = [k1.tile_coords(t, n_rp, n_vt, group) for t in range(n_tiles)]
-    assert sorted(coords) == list(itertools.product(range(n_rp),
-                                                    range(n_vt)))
-    for t, (rp, vt) in enumerate(coords):
-        band = t // (group * n_vt)
-        assert band * group <= rp < (band + 1) * group   # its band's pairs
-        if t + 1 < n_tiles and (t + 1) // (group * n_vt) == band:
-            rp2, vt2 = coords[t + 1]   # the pair varies fastest
-            assert (vt2, rp2) == (vt, rp + 1) or (vt2 == vt + 1
-                                                  and rp2 == band * group)
-    # the persistent grid: cluster c takes tiles c, c + clusters, ...;
-    # together every tile once
-    clusters = min(66, n_tiles)
-    walked = [t for c in range(clusters)
-              for t in range(c, n_tiles, clusters)]
-    assert sorted(walked) == list(range(n_tiles))
-
-
-@pytest.mark.parametrize("B,S", MAIN_SHAPES + [(1, 16), (3, 48), (5, 12),
-                                               (65536, 8)])
-def test_cluster_blocks_cover_every_row_group_once(B, S):
-    """Block r of the cluster on pair p takes row group CLUSTER p + r; past
-    the last row group it repeats it and stores nothing. Over all cluster
-    tiles, each (row group, vocab tile) is stored exactly once."""
-    geo = k1.tma_geometry(B, S, D, V if B < 65536 else 64, 132)
-    stored = []
-    for t in range(min(geo["n_tiles"], 4000)):
-        rp, vt = k1.tile_coords(t, geo["n_rp"], geo["n_vt"], geo["group"])
-        for r in range(k1.CLUSTER):
-            rg = k1.CLUSTER * rp + r
-            if rg < geo["n_rg"]:
-                stored.append((rg, vt))
-    assert len(stored) == len(set(stored))
-    if geo["n_tiles"] <= 4000:
-        assert sorted(stored) == list(itertools.product(
-            range(geo["n_rg"]), range(geo["n_vt"])))
-
-
 def _tie_inputs(B, S, distinct, seed):
     """Small-integer H (every row a copy of one of ``distinct`` rows,
     placed at random), E and bias: every logit exact in f32."""
@@ -222,3 +135,47 @@ def test_plain_k1_gives_the_first_copy_on_exact_ties(B, S, distinct,
         np.testing.assert_allclose(y.numpy(), np.asarray(y_ref),
                                    rtol=1e-6, atol=1e-6)
         assert (i_max[-1] == 0).all() and (y[-1] == 0).all()
+
+
+# Masks over (4, 300) that empty whole chunks of 128 positions (the "tma"
+# kernel's chunks at S >= 128): lengths ending at and just past a chunk's
+# edge, a middle chunk masked in some rows only, rows of one cluster pair
+# of different lengths, and all but the last position masked.
+def _chunk_masks():
+    S = 300
+    pos = np.arange(S)
+    lengths = np.array([128, 129, 256, 1])[:, None]
+    middle = np.ones((4, S), np.int32)
+    middle[[0, 2], 128:256] = 0
+    last = np.zeros((4, S), np.int32)
+    last[:, -1] = 1
+    split = (pos < np.array([300, 100, 40, 300])[:, None])
+    return {"lengths_at_chunk_edges": (pos < lengths).astype(np.int32),
+            "middle_chunk_in_some_rows": middle,
+            "only_the_last_position": last,
+            "pair_rows_split": split.astype(np.int32)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("softcap", [None, 5.0])
+@pytest.mark.parametrize("name", sorted(_chunk_masks()))
+def test_plain_k1_ignores_masked_chunks(name, softcap, dtype):
+    """Against the JAX oracle, i_max exactly (exact logits); and the same
+    bits when every masked row of H is replaced by large values."""
+    mask = _chunk_masks()[name]
+    B, S = mask.shape
+    H, E, b, _ = _tie_inputs(B, S, 12, seed=S + len(name))
+    y_ref, i_ref = jax_ref(*(jnp.asarray(a) for a in (H, E, b, mask)),
+                           softcap)
+    noisy = np.where(mask[:, :, None] != 0, H,
+                     np.random.default_rng(1).integers(
+                         20, 40, H.shape).astype(np.float32))
+    outs = [k1.sparton_forward(torch.from_numpy(h).to(dtype),
+                               torch.from_numpy(E).to(dtype),
+                               torch.from_numpy(b), torch.from_numpy(mask),
+                               softcap=softcap) for h in (H, noisy)]
+    (y, i_max), (y_n, i_n) = outs
+    np.testing.assert_array_equal(i_max.numpy(), np.asarray(i_ref))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), rtol=1e-6,
+                               atol=1e-6)
+    assert torch.equal(y, y_n) and torch.equal(i_max, i_n)
