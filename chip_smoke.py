@@ -1870,18 +1870,71 @@ def bwd_bound_ms(torch, kernel, H, E, dy, y, i_max):
             "operations" if t_ops >= t_bytes else "bytes", nnz / (B * V))
 
 
-def time_bwd(torch, H, E, b, mask, *, reps, plain_reps, seed):
-    """K2 and K3 at one shape: against their plain versions and a second
-    launch, CUDA-event times of kernel, plain version and the baseline's
-    backward, the bound, and the head's forward + backward peak memory
-    against the baseline's."""
-    from repro_torch.kernels import sparton_bwd as kb
+# K2/K3 timing rows: the train step's shape (384 x 256, padded as
+# lsr_pair_batches pads it), Table-1 (320 x 512, unpadded), and two inputs
+# at 384 x 256 that a trained model gives: "sparse" keeps each row's 256
+# largest y (a trained SPLADE document rep keeps a few hundred terms) and
+# "skewed" routes a random half of each row's terms to position 0 (a few
+# positions collect many vocab rows). tools/ab_bwd.py times the same rows.
+BWD_ROWS = ("train", "table1", "sparse", "skewed")
+SPARSE_KEEP = 256
+
+
+def bwd_timing_inputs(torch, E, b, name):
+    """(H, mask, dy, y, i_max) of one K2/K3 timing row, from seed 12: bf16
+    hidden states, (y, i_max) from K1 and a cotangent of scale 1e-2."""
+    from repro_torch.configs.splade_bert import SHAPES
     from repro_torch.kernels.sparton import sparton_forward
 
-    B, S, D = H.shape
+    spec = SHAPES["table1" if name == "table1" else "table3_384"]
+    B, S = spec.global_batch, spec.seq_len
+    g = torch.Generator(device="cuda").manual_seed(12)
+    H = torch.randn((B, S, E.shape[1]), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    if name == "table1":
+        mask = torch.ones((B, S), dtype=torch.int32, device="cuda")
+    else:
+        lens = torch.randint(int(0.3 * S), S + 1, (B, 1), generator=g,
+                             device="cuda")
+        mask = (torch.arange(S, device="cuda") < lens).int()
     y, i_max = sparton_forward(H, E, b, mask)
-    g = torch.Generator(device="cuda").manual_seed(seed)
     dy = torch.randn(y.shape, generator=g, device="cuda") * 1e-2
+    if name == "sparse":
+        top = y.topk(SPARSE_KEEP, dim=1).indices
+        y = torch.zeros_like(y).scatter_(1, top, y.gather(1, top))
+    elif name == "skewed":
+        half = torch.rand(y.shape, generator=g, device="cuda") < 0.5
+        i_max = torch.where(half, 0, i_max).int()
+    return H, mask, dy, y, i_max
+
+
+def sparse_product(torch, dy, y, i_max, S):
+    """K2's and K3's function as one sparse matrix G (B * S, V): G[b * S +
+    i_max[b, v], v] = g[b, v] where g != 0 (f32, coalesced), the
+    yardstick ``torch.sparse.mm`` multiplies: dH = G @ E, dE = G^T @ H."""
+    from repro_torch.kernels._common import bwd_factor
+
+    g = bwd_factor(y, dy, None)
+    nz = g != 0
+    B, V = g.shape
+    rows = (torch.arange(B, device=g.device)[:, None] * S + i_max)[nz]
+    cols = torch.arange(V, device=g.device).expand(B, V)[nz]
+    return torch.sparse_coo_tensor(torch.stack([rows, cols]), g[nz],
+                                   (B * S, V)).coalesce()
+
+
+def time_bwd(torch, H, E, b, mask, dy, y, i_max, *, reps, plain_reps,
+             library):
+    """K2 and K3 on one input: against their plain versions and a second
+    launch, CUDA-event times of kernel and plain version, the bound, and a
+    one-call yardstick: with ``library`` "head", the paper's baseline
+    head's backward (dH alone; dE with db) and the head's forward +
+    backward peak memory against the baseline's; with "sparse", the
+    product of the routing as a sparse matrix (``torch.sparse.mm``), for
+    inputs that no baseline head gives."""
+    from repro_torch.kernels import sparton_bwd as kb
+
+    B, S, D = H.shape
     case = bwd_compare(torch, H, E, mask, dy, y, i_max, None)
     require(case["within_tol"] and case["bit_identical"],
             f"K2/K3 at {(B, S, D)}: {case}")
@@ -1898,9 +1951,22 @@ def time_bwd(torch, H, E, b, mask, *, reps, plain_reps, seed):
                "max_abs_err": err, "bit_identical": case["bit_identical"],
                "g_nonzero_share": share, "bound_ms": bound, "bound_by": by}
         row["ms"], row["ms_range"] = timed(torch, fn, reps)
+        row["bound_share"] = bound / row["ms"]
         row["plain_ms"], row["plain_ms_range"] = timed(torch, plain,
                                                        plain_reps)
         rows[kernel] = row
+    if library == "sparse":
+        G = sparse_product(torch, dy, y, i_max, S)
+        E32, H2 = E.float(), H.float().view(B * S, D)
+        Gt = G.t().coalesce()
+        for kernel, fn in (("dh", lambda: torch.sparse.mm(G, E32)),
+                           ("de", lambda: torch.sparse.mm(Gt, H2))):
+            ms, spread = timed(torch, fn, plain_reps)
+            rows[kernel].update(library_ms=ms, library_ms_range=spread,
+                                library="torch.sparse.mm")
+        del G, Gt, E32, H2
+        torch.cuda.empty_cache()
+        return rows
     lib = library_backward(torch, H, E, b, mask, dy, reps=plain_reps)
     for kernel in ("dh", "de"):
         rows[kernel].update(library_ms=lib[f"{kernel}_ms"],
@@ -2101,25 +2167,16 @@ def phase_timing(torch, served, served_dense, served_engine):
     profile = profile_encode(torch, make_config_encoder(params, cfg), cfg)
     emit("timing", k1=rows, k4=k4, k5=k5, k6=k6, encode_profile=profile)
 
-    # K2 and K3 at the train step's shape (bf16 hidden states of 384 pairs'
-    # docs, padded as lsr_pair_batches pads them) and at Table-1
-    B, S = t3.global_batch, t3.seq_len
-    H = torch.randn((B, S, cfg.d_model), generator=g,
-                    device="cuda").to(torch.bfloat16)
-    lens = torch.randint(int(0.3 * S), S + 1, (B, 1), generator=g,
-                         device="cuda")
-    mask = (torch.arange(S, device="cuda") < lens).int()
-    bwd = {"train": time_bwd(torch, H, E16, b, mask, reps=5, plain_reps=1,
-                             seed=12)}
-    del H
-    H = torch.randn((t1.global_batch, t1.seq_len, cfg.d_model), generator=g,
-                    device="cuda").to(torch.bfloat16)
-    mask = torch.ones((t1.global_batch, t1.seq_len), dtype=torch.int32,
-                      device="cuda")
-    bwd["table1"] = time_bwd(torch, H, E16, b, mask, reps=3, plain_reps=1,
-                             seed=13)
-    del H
-    torch.cuda.empty_cache()
+    # K2 and K3 on the four timing rows (BWD_ROWS)
+    bwd = {}
+    for name in BWD_ROWS:
+        H, mask, dy, y, i_max = bwd_timing_inputs(torch, E16, b, name)
+        bwd[name] = time_bwd(
+            torch, H, E16, b, mask, dy, y, i_max,
+            reps=3 if name == "table1" else 5, plain_reps=1,
+            library="head" if name in ("train", "table1") else "sparse")
+        del H, mask, dy, y, i_max
+        torch.cuda.empty_cache()
     emit("timing_bwd", **bwd)
     return {"k1": rows["index_batch"], "k1_rows": rows, "bwd": bwd,
             "k4": k4, "k5": k5, "k6": k6}
