@@ -152,10 +152,14 @@ K1_SHAPES = [  # (B, S, D, V): tests/test_kernels_sparton.py SHAPES, plus
 ]
 
 
-BWD_SHAPES = [  # K2/K3 beside K1_SHAPES: an odd D (no paired or 16-byte
-    (3, 40, 13, 77),   # loads), and an S whose 64-column dH accumulator
-    (2, 900, 40, 50),  # does not fit shared memory (32 columns a block)
+BWD_SHAPES = [  # K2/K3 beside K1_SHAPES: an odd D (no 16-byte loads) and
+    (3, 40, 13, 77),   # a long sequence
+    (2, 900, 40, 50),
 ]
+# K2/K3 on the routings of ``reroute`` (a trained model's, and the extremes
+# of K2's buckets), at full width (D 768, V 30522) and at an odd D
+BWD_ROUTINGS = ("sparse", "skewed", "one_position", "empty_buckets")
+BWD_ROUTING_SHAPES = [(6, 64, 768, 30522), (3, 40, 13, 77)]
 
 
 def k1_inputs(torch, B, S, D, V, dtype, seed, *, mask_p=0.2):
@@ -707,6 +711,17 @@ def phase_kernels(torch):
                                    oracle=True)
                 bwd.append({"shape": [B, S, D, V], "dtype": str(dtype)[6:],
                             "softcap": softcap, **case})
+    for (B, S, D, V) in BWD_ROUTING_SHAPES:
+        for kind in BWD_ROUTINGS:
+            seed += 1
+            H, E, mask, dy, y, i_max = bwd_inputs(
+                torch, B, S, D, V, torch.bfloat16, seed, None)
+            y, i_max = reroute(torch, y, i_max, S, kind,
+                               torch.Generator(device="cuda").manual_seed(seed))
+            case = bwd_compare(torch, H, E, mask, dy, y, i_max, None,
+                               oracle=True)
+            bwd.append({"shape": [B, S, D, V], "dtype": "bfloat16",
+                        "routing": kind, **case})
     bad = [c for c in bwd if not (c["within_tol"] and c["bit_identical"])]
     require(not bad, f"K2/K3 differ from the plain versions or the "
                      f"oracle beyond {BWD_TOL} or between two launches: "
@@ -1899,13 +1914,27 @@ def bwd_timing_inputs(torch, E, b, name):
         mask = (torch.arange(S, device="cuda") < lens).int()
     y, i_max = sparton_forward(H, E, b, mask)
     dy = torch.randn(y.shape, generator=g, device="cuda") * 1e-2
-    if name == "sparse":
-        top = y.topk(SPARSE_KEEP, dim=1).indices
-        y = torch.zeros_like(y).scatter_(1, top, y.gather(1, top))
-    elif name == "skewed":
-        half = torch.rand(y.shape, generator=g, device="cuda") < 0.5
-        i_max = torch.where(half, 0, i_max).int()
+    y, i_max = reroute(torch, y, i_max, S, name, g)
     return H, mask, dy, y, i_max
+
+
+def reroute(torch, y, i_max, S, kind, g):
+    """(y, i_max) of a routing case: "sparse" keeps each row's SPARSE_KEEP
+    largest y (zeroing the rest, so g == 0 there), "skewed" routes a random
+    half of each row's terms to position 0, "one_position" every term to
+    position S // 2, "empty_buckets" every term to an even position (the
+    odd ones get none); other kinds leave them as they are."""
+    if kind == "sparse":
+        top = y.topk(min(SPARSE_KEEP, y.shape[1]), dim=1).indices
+        y = torch.zeros_like(y).scatter_(1, top, y.gather(1, top))
+    elif kind == "skewed":
+        half = torch.rand(y.shape, generator=g, device=y.device) < 0.5
+        i_max = torch.where(half, 0, i_max).int()
+    elif kind == "one_position":
+        i_max = torch.full_like(i_max, S // 2)
+    elif kind == "empty_buckets":
+        i_max = i_max // 2 * 2
+    return y, i_max
 
 
 def sparse_product(torch, dy, y, i_max, S):

@@ -14,48 +14,56 @@
 //
 // The TPU kernels turn the scatter and the gather into one-hot matmuls
 // because the TPU has no atomics. Here both are done directly, and still
-// without atomics: every output element is owned by one thread, which sums
-// its terms in a fixed order (ascending v for dH, ascending b for dE and
-// db) and writes the element once. Two launches on the same inputs give
-// the same bits. Terms with g == 0 (y == 0: the SPLADE rep is zero there,
-// or the row is fully masked) are skipped, and H and E are read only where
-// g != 0.
+// without atomics: every output element is owned by one lane, which sums
+// its terms as a chain of FMAs from 0 in a fixed order (ascending v for dH,
+// ascending b for dE and db) and writes the element once. Two launches on
+// the same inputs give the same bits, and the bits of the first CUDA
+// version of these kernels, which summed in the same order. Terms with
+// g == 0 (y == 0: the SPLADE rep is zero there, or the row is fully
+// masked) or an i_max outside [0, S) are skipped (db still sums their g),
+// so E and H are read only where a term needs them: the work scales with
+// the terms where g != 0.
 //
-// K2 design. One block owns (batch row b, a range of at most S_TILE rows of
-// S, a slice of DS = 64 columns of D; 32 where 64 columns of the whole S do
-// not fit) and keeps dH[b, range, slice] as an f32 accumulator in shared
-// memory (rows * DS * 4 bytes: 128 KB for 512 rows). Its 8 warps each own
-// the rows s with s % 8 == warp, and each lane DS / 32 neighbouring columns
-// of them. The block walks v in ascending order in rounds of 1024: all
-// threads compute g and the routed row for the round into shared memory
-// (coalesced, once per block; an entry routed outside the block's range is
-// dropped there), then every warp scans the round 32 entries at a time,
-// takes the ballot of the non-zero entries routed to its rows, loads the E
-// values of up to 16 of them at once and adds g * E[v, col] into their rows
-// in ascending v. An accumulator element is thus touched by one lane only,
-// in ascending v, whatever the tiling: a sequence longer than one
-// accumulator (S > 1728) is cut into ranges that each re-read g and i_max
-// (B * V * 8 bytes a range) and give the same bits as one block would.
-// Only such launches take the tiled form (its range test and offsets); a
-// sequence that fits one accumulator runs the untiled one.
-// Batches are launched in chunks of at most 65535 rows (grid.y).
+// What bounds them on the H100. Each term is one FMA per column (2 f32 FLOP)
+// and needs one row of E (K2) or of H (K3), 1.5 KB in bf16 at D 768. At
+// random init nearly every term has g != 0, so at the train shape (B 384,
+// S 256, V 30522) both read 18 GB of rows against a bound of 0.27 ms (the
+// f32 FMAs). A row cannot be shared between the owners a block holds (an
+// owner needs its whole D in registers, and the ~85 owners an SM holds see
+// different rows), so the rows come from L2, and the design is about
+// keeping them there and reading each (b, v) input once.
 //
-// K3 design. One block owns (32 vocab rows, 64 columns); each thread owns
-// one vocab row and 8 consecutive columns, with the sums in registers. The
-// block walks b in ascending order in rounds of 32 rows: all threads stage
-// g and i_max of the round in shared memory (coalesced), then each thread
-// gathers the H rows of 8 batch rows at once (16-byte loads where D and
-// the base allow) and adds them in b order. The threads of column group 0
-// in the blocks of the first column tile also sum db[v].
+// K2 design: two kernels.
+//  * route_kernel, one block per batch row b: g and the routed row s of
+//    every term, then a stable counting sort of the terms with g != 0 and
+//    s in [0, S) by s: ofs[b, s] .. ofs[b, s + 1] index bucket s of the
+//    row's list, entries (v, g) in ascending v. Each warp sorts a
+//    contiguous range of v (its per-row counts in shared memory; lanes that
+//    share an s find each other with __match_any_sync), so a bucket holds
+//    the warps' ranges in order. dy, y and i_max are read twice (count,
+//    then place) and g computed once per read: 0.05-0.1 ms at the train
+//    shape. Where (W + 1) * S counts do not fit shared memory, one warp
+//    per row counts in place in ofs.
+//  * dh_kernel, one warp per (bucket s of row b, 256 columns): its lanes
+//    own 8 columns each and walk the bucket in ascending v, 8 rows of E in
+//    flight (16-byte loads, with an L2 evict-last hint so that E, 47 MB in
+//    bf16, stays in the 50 MB L2 while dH streams past), and store the sums
+//    once (streaming stores). Warps run in (s, b) order: every row's bucket
+//    0 (where a trained model's [CLS] collects many terms) starts first, so
+//    a heavy bucket runs beside the others instead of after them.
 //
-// Bound on the H100: both kernels do 2 * nnz(g) * D FLOP in f32 (about 15
-// GFLOP at the paper's Table-1 shape, 0.2 ms at 67 TFLOP/s) and must move
-// dy, y, i_max (B * V * 12 bytes), E or H, and dH (B * S * D * 4 bytes) or
-// dE: about 0.2 ms at 3.35 TB/s. They are bound by their gathers instead:
-// K2 reads a row of E for every term (B * nnz * D * 2 bytes, 13 GB at the
-// train shape, mostly from L2) and K3 a row of H for every term. Tiling
-// several batch rows per K2 block (sharing each E row) and reusing H rows
-// across the vocab rows that route to them are the road to the bound.
+// K3 design: one warp per (vocab row v, 256 columns); a block holds VT
+// vocab rows and the column warps of each (at most three; a wider D takes
+// several column passes). The block walks b in ascending order in rounds of
+// BROUND batch rows: its threads stage g and the routed row of the round's
+// (b, v) in shared memory (coalesced along v), loading the next round's
+// dy, y and i_max while the warps sum the current one. Each warp gathers
+// its H-row pieces 8 batch rows at a time (16-byte loads) and adds them in
+// b order; the column-0 warp of each vocab row also sums db. H (151 MB at
+// the train shape) does not fit L2, so the blocks are launched in waves of
+// as many as the card holds at once: the blocks of a wave start together
+// and walk b together, and the rows of H they gather, a few batch rows'
+// worth, stay in L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,20 +71,24 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int CPL = 8;        // columns a lane owns
+constexpr int CB = 32 * CPL;  // columns a warp owns
+constexpr int UNROLL = 8;     // row loads in flight before their FMAs
+
+// K2's routing pass
+constexpr int ROUTE_WARPS = 16;              // warps of a row's block, at most
+constexpr size_t ROUTE_SMEM = 200 * 1024;    // its counts' shared memory
+constexpr int AHEAD = 8;                     // chunks of 32 terms loaded at once
 
 // K2
-constexpr int ROUND = 1024;  // v staged per round
-constexpr int AHEAD = 16;    // E loads in flight before their adds
+constexpr int DH_WARPS = 8;
 
 // K3
-constexpr int VT = 32;                  // vocab rows per block
-constexpr int CPT = 8;                  // columns per thread
-constexpr int DT = THREADS / VT * CPT;  // 64 columns per block
-constexpr int BROUND = 32;              // batch rows staged per round
-constexpr int UNROLL = 8;               // gathers in flight before their adds
+constexpr int VT = 8;          // vocab rows a block owns
+constexpr int BROUND = 64;     // batch rows staged per round
+constexpr int DE_CW = 3;       // column warps per vocab row, at most
+constexpr int STAGE = 2;       // staged entries a thread loads, at most
 
 // repro/kernels/_common.py:bwd_factor, in f32 and in the same order
 __device__ __forceinline__ float bwd_factor(float y, float dy, int has_cap,
@@ -89,220 +101,355 @@ __device__ __forceinline__ float bwd_factor(float y, float dy, int has_cap,
   return y > 0.0f ? g : 0.0f;
 }
 
-struct Rows {            // (B, V) f32 / i32 rows of the backward's inputs
+struct Rows {  // (B, V) f32 / i32 rows of the backward's inputs
   const float* dy;
   const float* y;
   const int* imax;
   int B, S, D, V;
   int has_cap;
   float cap;
-  int s_tile;            // K2: rows of S a block accumulates
 };
+
+// The routed row of a term: its i_max where g != 0 and i_max is in [0, S)
+// (an i_max outside routes nowhere, as in the reference's segment sum),
+// else -1.
+__device__ __forceinline__ int routed(float g, int si, int S) {
+  return g != 0.0f && (unsigned)si < (unsigned)S ? si : -1;
+}
+
+// ---------------------------------------------------------------------------
+// Row loads and stores: the CPL columns of a lane at column c of a row
+// (VEC: c .. c + CPL - 1, D % 8 == 0 and a 16-byte aligned base; else
+// c, c + 32, ..., each checked against D).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint64_t evict_last() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint4 ld_hint(const void* p, uint64_t pol) {
+  uint4 q;
+  asm("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=r"(q.x), "=r"(q.y), "=r"(q.z), "=r"(q.w)
+      : "l"(p), "l"(pol));
+  return q;
+}
+
+__device__ __forceinline__ void bf16x8(uint4 q, float* out) {
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h2[j]);
+    out[2 * j] = f.x;
+    out[2 * j + 1] = f.y;
+  }
+}
+
+// KEEP: with the evict-last hint (K2's E); else a plain read-only load
+template <bool VEC, bool KEEP>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* row, int c,
+                                         int D, uint64_t pol, float* out) {
+  if (VEC) {
+    if (c < D) {
+      const void* p = row + c;
+      bf16x8(KEEP ? ld_hint(p, pol) : __ldg(static_cast<const uint4*>(p)),
+             out);
+    } else {
+#pragma unroll
+      for (int k = 0; k < CPL; ++k) out[k] = 0.0f;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < CPL; ++k)
+      out[k] = c + 32 * k < D ? __bfloat162float(row[c + 32 * k]) : 0.0f;
+  }
+}
+
+template <bool VEC, bool KEEP>
+__device__ __forceinline__ void load_row(const float* row, int c, int D,
+                                         uint64_t pol, float* out) {
+  if (VEC) {
+    if (c < D) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const void* p = row + c + 4 * h;
+        const uint4 q =
+            KEEP ? ld_hint(p, pol) : __ldg(static_cast<const uint4*>(p));
+        out[4 * h] = __uint_as_float(q.x);
+        out[4 * h + 1] = __uint_as_float(q.y);
+        out[4 * h + 2] = __uint_as_float(q.z);
+        out[4 * h + 3] = __uint_as_float(q.w);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < CPL; ++k) out[k] = 0.0f;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < CPL; ++k)
+      out[k] = c + 32 * k < D ? row[c + 32 * k] : 0.0f;
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store_row(float* row, int c, int D,
+                                          const float* acc) {
+  if (VEC) {
+    if (c < D) {
+      __stcs(reinterpret_cast<float4*>(row + c),
+             make_float4(acc[0], acc[1], acc[2], acc[3]));
+      __stcs(reinterpret_cast<float4*>(row + c + 4),
+             make_float4(acc[4], acc[5], acc[6], acc[7]));
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < CPL; ++k)
+      if (c + 32 * k < D) __stcs(row + c + 32 * k, acc[k]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2, routing pass
+// ---------------------------------------------------------------------------
+
+// a[0 .. n) replaced by its exclusive prefix sums, by the whole block
+// (blockDim.x a multiple of 32); a may lie in shared or global memory
+__device__ void block_exclusive_scan(int* a, int n) {
+  __shared__ int warp_sum[32];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int seg = (n + blockDim.x - 1) / blockDim.x;
+  const int lo = min(n, (int)threadIdx.x * seg);
+  const int hi = min(n, lo + seg);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += a[i];
+  int x = sum;  // inclusive prefix over the warp's lanes
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(FULL, x, o);
+    if (lane >= o) x += t;
+  }
+  if (lane == 31) warp_sum[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < (int)blockDim.x / 32 ? warp_sum[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(FULL, w, o);
+      if (lane >= o) w += t;
+    }
+    warp_sum[lane] = w;
+  }
+  __syncthreads();
+  int run = x - sum + (warp > 0 ? warp_sum[warp - 1] : 0);
+  for (int i = lo; i < hi; ++i) {
+    const int c = a[i];
+    a[i] = run;
+    run += c;
+  }
+  __syncthreads();
+}
+
+// One block of W warps per batch row. SMEM: the (W, S) counts (and, for
+// W > 1, the S row totals) in shared memory; else W == 1 and the counts
+// live in ofs[b, 1 ..] itself.
+template <bool SMEM>
+__global__ void route_kernel(Rows r, int* __restrict__ ofs,
+                             int2* __restrict__ list) {
+  extern __shared__ int smem[];
+  const int W = blockDim.x / 32;
+  const int b = blockIdx.x;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  int* ofs_row = ofs + (size_t)b * (r.S + 1);
+  int* table = SMEM ? smem : ofs_row + 1;                // (W, S)
+  int* tot = SMEM && W > 1 ? smem + (size_t)W * r.S : table;  // (S,)
+  for (int i = threadIdx.x; i < W * r.S; i += blockDim.x) table[i] = 0;
+  __syncthreads();
+
+  const size_t row = (size_t)b * r.V;
+  const int per = ((r.V + W - 1) / W + 31) / 32 * 32;
+  const int v_lo = min(r.V, warp * per);
+  const int v_hi = min(r.V, v_lo + per);
+  int* mine = table + (size_t)warp * r.S;
+  const unsigned lower = (1u << lane) - 1;
+
+  // pass 0 counts each routed row's terms in this warp's range; pass 1
+  // places them (ascending v: the warp's chunks in order, and within a
+  // chunk the lanes in order)
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int v0 = v_lo; v0 < v_hi; v0 += 32 * AHEAD) {
+      float g[AHEAD];
+      int s[AHEAD];
+#pragma unroll
+      for (int u = 0; u < AHEAD; ++u) {
+        const int v = v0 + 32 * u + lane;
+        g[u] = 0.0f;
+        s[u] = -1;
+        if (v < v_hi) {
+          g[u] = bwd_factor(r.y[row + v], r.dy[row + v], r.has_cap, r.cap);
+          s[u] = routed(g[u], r.imax[row + v], r.S);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < AHEAD; ++u) {
+        const unsigned peers = __match_any_sync(FULL, s[u]);
+        const bool lead = s[u] >= 0 && lane == __ffs(peers) - 1;
+        if (pass == 1 && s[u] >= 0) {
+          const int pos = mine[s[u]] + __popc(peers & lower);
+          list[row + pos] = make_int2(v0 + 32 * u + lane, __float_as_int(g[u]));
+        }
+        __syncwarp();
+        if (lead) mine[s[u]] += __popc(peers);
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+    if (pass == 1) break;
+    // counts -> where each warp's share of each bucket starts
+    if (W > 1) {
+      for (int s = threadIdx.x; s < r.S; s += blockDim.x) {
+        int run = 0;
+        for (int w = 0; w < W; ++w) {
+          const int c = table[w * r.S + s];
+          table[w * r.S + s] = run;
+          run += c;
+        }
+        tot[s] = run;
+      }
+      __syncthreads();
+    }
+    block_exclusive_scan(tot, r.S);
+    if (W > 1) {
+      for (int i = threadIdx.x; i < W * r.S; i += blockDim.x)
+        table[i] += tot[i % r.S];
+      __syncthreads();
+    }
+  }
+  // the last warp's cursors now stand at each bucket's end
+  if (SMEM) {
+    const int* last = table + (size_t)(W - 1) * r.S;
+    for (int s = threadIdx.x; s < r.S; s += blockDim.x)
+      ofs_row[s + 1] = last[s];
+  }
+  if (threadIdx.x == 0) ofs_row[0] = 0;
+}
 
 // ---------------------------------------------------------------------------
 // K2: dH
 // ---------------------------------------------------------------------------
 
-// CPL consecutive values of E's row at p (n of them live, n <= CPL) into out;
-// VEC: n == CPL and p is aligned to CPL elements
-template <int CPL, bool VEC>
-__device__ __forceinline__ void load_e(const float* p, int n, float* out) {
-  if (VEC && CPL == 2) {
-    const float2 q = *reinterpret_cast<const float2*>(p);
-    out[0] = q.x;
-    out[CPL - 1] = q.y;
-  } else {
-#pragma unroll
-    for (int k = 0; k < CPL; ++k) out[k] = k < n ? p[k] : 0.0f;
-  }
-}
-
-template <int CPL, bool VEC>
-__device__ __forceinline__ void load_e(const __nv_bfloat16* p, int n,
-                                       float* out) {
-  if (VEC && CPL == 2) {
-    const float2 q =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    out[0] = q.x;
-    out[CPL - 1] = q.y;
-  } else {
-#pragma unroll
-    for (int k = 0; k < CPL; ++k)
-      out[k] = k < n ? __bfloat162float(p[k]) : 0.0f;
-  }
-}
-
-// TILED: the launch cuts S into ranges (blockIdx.z); a launch with one
-// range takes the untiled form, which skips the range test and offsets.
-template <typename T, int CPL, bool VEC, bool TILED>
-__global__ void __launch_bounds__(THREADS)
-    dh_kernel(const T* __restrict__ E, float* __restrict__ dH, Rows r) {
-  constexpr int DS = 32 * CPL;    // columns per block
-  extern __shared__ float acc[];  // (rows, DS)
-  __shared__ float g_round[ROUND];
-  __shared__ int s_round[ROUND];  // the row a term adds into, or -1
-  const int b = blockIdx.y;
-  const int s_lo = TILED ? blockIdx.z * r.s_tile : 0;
-  const int rows = TILED ? min(r.s_tile, r.S - s_lo) : r.S;
-  const int d0 = blockIdx.x * DS;
-  const int warp = threadIdx.x / 32;
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(DH_WARPS * 32)
+    dh_kernel(const T* __restrict__ E, float* __restrict__ dH,
+              const int* __restrict__ ofs, const int2* __restrict__ list,
+              Rows r, int nc) {
   const int lane = threadIdx.x % 32;
-  const int c = lane * CPL;           // this lane's first column
-  const int n = min(CPL, r.D - d0 - c);  // its live columns (<= 0: none)
+  const long long item =
+      (long long)blockIdx.x * DH_WARPS + threadIdx.x / 32;
+  if (item >= (long long)r.S * r.B * nc) return;
+  const int c = (int)(item % nc);  // (s, b, c) order
+  const long long sb = item / nc;
+  const int b = (int)(sb % r.B);
+  const int s = (int)(sb / r.B);
+  const int lo = ofs[(size_t)b * (r.S + 1) + s];
+  const int hi = ofs[(size_t)b * (r.S + 1) + s + 1];
+  const int col = c * CB + (VEC ? lane * CPL : lane);
+  const int2* bucket = list + (size_t)b * r.V;
+  const uint64_t pol = evict_last();
 
-  for (int i = threadIdx.x; i < rows * DS; i += THREADS) acc[i] = 0.0f;
-
-  const size_t row = (size_t)b * r.V;
-  const T* e_col = E + d0 + c;
-  float* acc_col = acc + c;
-  for (int v0 = 0; v0 < r.V; v0 += ROUND) {
-    __syncthreads();  // the last round is consumed (and acc zeroed)
-    for (int k = threadIdx.x; k < ROUND; k += THREADS) {
-      const int v = v0 + k;
-      float g = 0.0f;
-      int s = -1;
-      if (v < r.V) {
-        g = bwd_factor(r.y[row + v], r.dy[row + v], r.has_cap, r.cap);
-        const int si = r.imax[row + v];
-        // an i_max outside [0, S) routes nowhere, as in the reference's
-        // segment sum (and never touches memory outside the accumulator);
-        // one outside this block's range is another block's
-        if (g != 0.0f && (unsigned)si < (unsigned)r.S &&
-            (!TILED || (unsigned)(si - s_lo) < (unsigned)rows))
-          s = si;
-      }
-      g_round[k] = g;
-      s_round[k] = s;
-    }
-    __syncthreads();
-
-    int word = 0;
-    unsigned hits = 0;
-    while (true) {  // warp-uniform: every lane sees the same ballots
-      int js[AHEAD];
+  float acc[CPL];
 #pragma unroll
-      for (int u = 0; u < AHEAD; ++u) {
-        while (hits == 0 && word < ROUND / 32) {
-          const int s = s_round[word * 32 + lane];
-          hits = __ballot_sync(FULL, s >= 0 && (s & (WARPS - 1)) == warp);
-          ++word;
-        }
-        js[u] = hits ? (word - 1) * 32 + __ffs(hits) - 1 : -1;  // ascending v
-        hits &= hits - 1;
-      }
-      if (js[0] < 0) break;
-      float e[AHEAD][CPL];
+  for (int k = 0; k < CPL; ++k) acc[k] = 0.0f;
+  for (int j0 = lo; j0 < hi; j0 += 32) {
+    const int n = min(32, hi - j0);
+    const int2 term = lane < n ? bucket[j0 + lane] : make_int2(0, 0);
+    for (int t = 0; t < n; t += UNROLL) {  // warp-uniform
+      float e[UNROLL][CPL];
+      float g[UNROLL];
 #pragma unroll
-      for (int u = 0; u < AHEAD; ++u) {
-        if (js[u] >= 0 && n > 0)
-          load_e<CPL, VEC>(e_col + (size_t)(v0 + js[u]) * r.D, n, e[u]);
+      for (int u = 0; u < UNROLL; ++u) {
+        const int v = __shfl_sync(FULL, term.x, t + u);
+        g[u] = __int_as_float(__shfl_sync(FULL, term.y, t + u));
+        if (t + u < n)
+          load_row<VEC, true>(E + (size_t)v * r.D, col, r.D, pol, e[u]);
       }
 #pragma unroll
-      for (int u = 0; u < AHEAD; ++u) {
-        if (js[u] < 0) break;
-        if (n <= 0) continue;
-        const float g = g_round[js[u]];
-        float* a = acc_col + (s_round[js[u]] - s_lo) * DS;
-        if (CPL == 2 && n == 2) {
-          float2 cur = *reinterpret_cast<float2*>(a);
-          cur.x += g * e[u][0];
-          cur.y += g * e[u][CPL - 1];
-          *reinterpret_cast<float2*>(a) = cur;
-        } else {
+      for (int u = 0; u < UNROLL; ++u) {  // ascending v
+        if (t + u < n) {
 #pragma unroll
-          for (int k = 0; k < CPL; ++k)
-            if (k < n) a[k] += g * e[u][k];
+          for (int k = 0; k < CPL; ++k) acc[k] += g[u] * e[u][k];
         }
       }
     }
   }
-  __syncthreads();
-
-  float* out = dH + ((size_t)b * r.S + s_lo) * r.D + d0;
-  for (int i = threadIdx.x; i < rows * DS; i += THREADS) {
-    const int sl = i / DS;
-    const int col = i % DS;
-    if (d0 + col < r.D) out[(size_t)sl * r.D + col] = acc[i];
-  }
+  store_row<VEC>(dH + ((size_t)b * r.S + s) * r.D, col, r.D, acc);
 }
 
 // ---------------------------------------------------------------------------
 // K3: dE and db
 // ---------------------------------------------------------------------------
 
-// CPT values of p[0 .. n) into out (zeros past n); VEC: n == CPT and p is
-// 16-byte aligned
-template <bool VEC>
-__device__ __forceinline__ void load_cols(const float* p, int n, float* out) {
-  if (VEC) {
-#pragma unroll
-    for (int k = 0; k < CPT; k += 4) {
-      const float4 q = *reinterpret_cast<const float4*>(p + k);
-      out[k] = q.x;
-      out[k + 1] = q.y;
-      out[k + 2] = q.z;
-      out[k + 3] = q.w;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < CPT; ++k) out[k] = k < n ? p[k] : 0.0f;
-  }
-}
-
-template <bool VEC>
-__device__ __forceinline__ void load_cols(const __nv_bfloat16* p, int n,
-                                          float* out) {
-  if (VEC) {
-    const uint4 q = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&q);
-#pragma unroll
-    for (int j = 0; j < CPT / 2; ++j) {
-      const float2 f = __bfloat1622float2(h2[j]);
-      out[2 * j] = f.x;
-      out[2 * j + 1] = f.y;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < CPT; ++k) out[k] = k < n ? __bfloat162float(p[k]) : 0.0f;
-  }
-}
-
+// A block of VT * cw warps: warp w owns vocab row v0 + w / cw and column
+// block blockIdx.y * cw + w % cw; the wave's first tile is tile0.
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(VT * DE_CW * 32)
     de_kernel(const T* __restrict__ H, float* __restrict__ dE,
-              float* __restrict__ db, Rows r) {
+              float* __restrict__ db, Rows r, int tile0, int cw) {
   __shared__ float g_round[BROUND][VT];
-  __shared__ int s_round[BROUND][VT];  // i_max, or -1 where nothing gathers
-  const int v0 = blockIdx.x * VT;
-  const int vl = threadIdx.x / (DT / CPT);
-  const int cg = threadIdx.x % (DT / CPT);
+  __shared__ int s_round[BROUND][VT];  // the routed row, or -1
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int v0 = (tile0 + blockIdx.x) * VT;
+  const int vl = warp / cw;
   const int v = v0 + vl;
-  const int c0 = blockIdx.y * DT + cg * CPT;
-  const int n = min(CPT, r.D - c0);  // columns of this thread (may be <= 0)
+  const int cwarp = blockIdx.y * cw + warp % cw;
+  const int col = cwarp * CB + (VEC ? lane * CPL : lane);
+  const bool sums_db = cwarp == 0;
 
-  float acc[CPT];
+  // this thread's staged entries of the next round: (dy, y, i_max)
+  float n_dy[STAGE], n_y[STAGE];
+  int n_im[STAGE];
+  auto fetch = [&](int b0) {
 #pragma unroll
-  for (int k = 0; k < CPT; ++k) acc[k] = 0.0f;
-  float db_sum = 0.0f;
-
-  for (int b0 = 0; b0 < r.B; b0 += BROUND) {
-    __syncthreads();  // the last round is consumed
-    for (int k = threadIdx.x; k < BROUND * VT; k += THREADS) {
+    for (int j = 0; j < STAGE; ++j) {
+      const int k = threadIdx.x + j * blockDim.x;
       const int bi = k / VT;
       const int vv = k % VT;
-      float g = 0.0f;
-      int s = -1;
-      if (b0 + bi < r.B && v0 + vv < r.V) {
+      n_dy[j] = 0.0f;
+      n_y[j] = 0.0f;
+      n_im[j] = -1;
+      if (k < BROUND * VT && b0 + bi < r.B && v0 + vv < r.V) {
         const size_t bv = (size_t)(b0 + bi) * r.V + v0 + vv;
-        g = bwd_factor(r.y[bv], r.dy[bv], r.has_cap, r.cap);
-        const int si = r.imax[bv];
-        // an i_max outside [0, S) gathers nothing (never reads outside H)
-        if (g != 0.0f && (unsigned)si < (unsigned)r.S) s = si;
+        n_dy[j] = __ldcs(r.dy + bv);
+        n_y[j] = __ldcs(r.y + bv);
+        n_im[j] = __ldcs(r.imax + bv);
       }
-      g_round[bi][vv] = g;
-      s_round[bi][vv] = s;
+    }
+  };
+
+  float acc[CPL];
+#pragma unroll
+  for (int k = 0; k < CPL; ++k) acc[k] = 0.0f;
+  float db_sum = 0.0f;
+  const uint64_t pol = 0;  // unused: H is read without a hint
+  fetch(0);
+  for (int b0 = 0; b0 < r.B; b0 += BROUND) {
+    __syncthreads();  // the last round is consumed
+#pragma unroll
+    for (int j = 0; j < STAGE; ++j) {
+      const int k = threadIdx.x + j * blockDim.x;
+      if (k < BROUND * VT) {
+        // outside B or V: y == 0, so g == 0 and the term routes nowhere
+        const float g = bwd_factor(n_y[j], n_dy[j], r.has_cap, r.cap);
+        g_round[k / VT][k % VT] = g;
+        s_round[k / VT][k % VT] = routed(g, n_im[j], r.S);
+      }
     }
     __syncthreads();
+    if (b0 + BROUND < r.B) fetch(b0 + BROUND);
 
     const int nb = min(BROUND, r.B - b0);
     for (int bi = 0; bi < nb; bi += UNROLL) {
@@ -314,94 +461,99 @@ __global__ void __launch_bounds__(THREADS)
         g[u] = in ? g_round[bi + u][vl] : 0.0f;
         s[u] = in ? s_round[bi + u][vl] : -1;
       }
-      float h[UNROLL][CPT];
+      float h[UNROLL][CPL];
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
-        if (s[u] >= 0 && n > 0)
-          load_cols<VEC>(H + ((size_t)(b0 + bi + u) * r.S + s[u]) * r.D + c0,
-                         n, h[u]);
+        if (s[u] >= 0)
+          load_row<VEC, false>(H + ((size_t)(b0 + bi + u) * r.S + s[u]) * r.D,
+                               col, r.D, pol, h[u]);
       }
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {  // ascending b
         db_sum += g[u];
-        if (s[u] >= 0 && n > 0) {
+        if (s[u] >= 0) {
 #pragma unroll
-          for (int k = 0; k < CPT; ++k) acc[k] += g[u] * h[u][k];
+          for (int k = 0; k < CPL; ++k) acc[k] += g[u] * h[u][k];
         }
       }
     }
   }
 
   if (v >= r.V) return;
-  float* out = dE + (size_t)v * r.D + c0;
-#pragma unroll
-  for (int k = 0; k < CPT; ++k)
-    if (k < n) out[k] = acc[k];
-  if (blockIdx.y == 0 && cg == 0) db[v] = db_sum;
+  store_row<VEC>(dE + (size_t)v * r.D, col, r.D, acc);
+  if (sums_db && lane == 0) db[v] = db_sum;
 }
 
-// the largest shared-memory accumulator a K2 block may take (of 227 KB,
-// beside its 8 KB round of g and rows)
-constexpr size_t DH_SMEM_MAX = 216 * 1024;
-constexpr int MAX_GRID_Y = 65535;  // batch rows a K2 launch takes
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
 
-// S cut into the fewest ranges of at most `fit` rows, all of one size
-int s_tile(int S, int fit) {
-  const int n = (S + fit - 1) / fit;
-  return (S + n - 1) / n;
+// The routing pass's warps per row: the most (up to ROUTE_WARPS) whose
+// counts fit ROUTE_SMEM; 0 where even one warp's do not (then the counts
+// live in ofs).
+int route_warps(int S) {
+  for (int w = ROUTE_WARPS; w > 1; w /= 2)
+    if ((size_t)(w + 1) * S * sizeof(int) <= ROUTE_SMEM) return w;
+  return (size_t)S * sizeof(int) <= ROUTE_SMEM ? 1 : 0;
 }
 
-// One launch per chunk of at most MAX_GRID_Y batch rows; the blocks of a
-// chunk cover its rows, the D slices and (TILED) the S ranges.
-template <typename T, int CPL, bool VEC, bool TILED>
-int launch_dh_cols(const T* E, float* dH, Rows r, cudaStream_t stream) {
-  constexpr int DS = 32 * CPL;
-  r.s_tile = TILED ? s_tile(r.S, (int)(DH_SMEM_MAX / (DS * sizeof(float))))
-                   : r.S;
-  const size_t smem = (size_t)r.s_tile * DS * sizeof(float);
+int launch_route(Rows r, int* ofs, int2* list, cudaStream_t stream) {
+  const int w = route_warps(r.S);
+  if (w == 0) {
+    route_kernel<false><<<r.B, 32, 0, stream>>>(r, ofs, list);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = (size_t)(w + (w > 1)) * r.S * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
-      dh_kernel<T, CPL, VEC, TILED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      route_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int B = r.B;
-  for (int b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
-    Rows c = r;
-    const size_t off = (size_t)b0 * r.V;
-    c.dy = r.dy + off;
-    c.y = r.y + off;
-    c.imax = r.imax + off;
-    c.B = B - b0 < MAX_GRID_Y ? B - b0 : MAX_GRID_Y;
-    dim3 grid((r.D + DS - 1) / DS, c.B, (r.S + r.s_tile - 1) / r.s_tile);
-    dh_kernel<T, CPL, VEC, TILED><<<grid, THREADS, smem, stream>>>(
-        E, dH + (size_t)b0 * r.S * r.D, c);
+  route_kernel<true><<<r.B, w * 32, smem, stream>>>(r, ofs, list);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool VEC>
+int launch_dh(const void* E, float* dH, int* ofs, int2* list, Rows r,
+              cudaStream_t stream) {
+  const int err = launch_route(r, ofs, list, stream);
+  if (err != (int)cudaSuccess) return err;
+  const int nc = (r.D + CB - 1) / CB;
+  const long long warps = (long long)r.S * r.B * nc;
+  const long long blocks = (warps + DH_WARPS - 1) / DH_WARPS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  dh_kernel<T, VEC><<<(unsigned)blocks, DH_WARPS * 32, 0, stream>>>(
+      static_cast<const T*>(E), dH, ofs, list, r, nc);
+  return (int)cudaGetLastError();
+}
+
+// Waves of the blocks the card holds at once; each wave's blocks cover
+// the column passes (grid.y) of consecutive vocab tiles.
+template <typename T, bool VEC>
+int launch_de(const void* H, float* dE, float* db, Rows r,
+              cudaStream_t stream) {
+  const int nc = (r.D + CB - 1) / CB;
+  const int cw = nc < DE_CW ? nc : DE_CW;
+  const int passes = (nc + cw - 1) / cw;
+  const int threads = VT * cw * 32;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, de_kernel<T, VEC>, threads, 0);
+  if (err != cudaSuccess) return (int)err;
+  if (passes > 65535) return (int)cudaErrorInvalidValue;
+  const int wave = per_sm * sms / passes > 0 ? per_sm * sms / passes : 1;
+  const int tiles = (r.V + VT - 1) / VT;
+  for (int t0 = 0; t0 < tiles; t0 += wave) {
+    dim3 grid(tiles - t0 < wave ? tiles - t0 : wave, passes);
+    de_kernel<T, VEC><<<grid, threads, 0, stream>>>(
+        static_cast<const T*>(H), dE, db, r, t0, cw);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
-}
-
-// 64 columns a block (two a lane, paired loads where vec) where the
-// accumulator of the whole S fits, else 32 (in as many S ranges as it
-// takes)
-template <typename T>
-int launch_dh(const void* E, float* dH, Rows r, int vec, cudaStream_t stream) {
-  const T* e = static_cast<const T*>(E);
-  if (r.D > 32 && (size_t)r.S * 64 * sizeof(float) <= DH_SMEM_MAX) {
-    return vec ? launch_dh_cols<T, 2, true, false>(e, dH, r, stream)
-               : launch_dh_cols<T, 2, false, false>(e, dH, r, stream);
-  }
-  if ((size_t)r.S * 32 * sizeof(float) <= DH_SMEM_MAX)
-    return launch_dh_cols<T, 1, false, false>(e, dH, r, stream);
-  return launch_dh_cols<T, 1, false, true>(e, dH, r, stream);
-}
-
-template <typename T, bool VEC>
-int launch_de(const void* H, float* dE, float* db, Rows r,
-              cudaStream_t stream) {
-  dim3 grid((r.V + VT - 1) / VT, (r.D + DT - 1) / DT);
-  de_kernel<T, VEC><<<grid, THREADS, 0, stream>>>(static_cast<const T*>(H),
-                                                  dE, db, r);
-  return (int)cudaGetLastError();
 }
 
 Rows make_rows(const float* dy, const float* y, const int* imax, int B, int S,
@@ -416,7 +568,6 @@ Rows make_rows(const float* dy, const float* y, const int* imax, int B, int S,
   r.V = V;
   r.has_cap = softcap > 0.0f;
   r.cap = softcap;
-  r.s_tile = S;
   return r;
 }
 
@@ -426,26 +577,34 @@ bool bad_shape(int B, int S, int D, int V) {
 
 }  // namespace
 
-// C entry points, bound with ctypes. dy, y f32 (B, V); imax i32 (B, V), every
-// entry in [0, S); dtype: 0 = float32, 1 = bfloat16 (of E, resp. H).
-// softcap <= 0 means no cap. Each returns cudaGetLastError() after its launch.
+// C entry points, bound with ctypes. dy, y f32 (B, V); imax i32 (B, V);
+// dtype: 0 = float32, 1 = bfloat16 (of E, resp. H). softcap <= 0 means no
+// cap. vec: 16-byte loads of 8-column pieces (the wrapper sets it when D is
+// a multiple of 8 and the weights' base is 16-byte aligned). Each returns
+// the first CUDA error of its launches.
 
-// K2: dH f32 (B, S, D). vec: paired loads of E (the wrapper sets it when D
-// is even and E is 8-byte aligned).
+// K2: dH f32 (B, S, D). ofs i32 (B, S + 1) and list (B, V) of (i32 v, f32
+// g) pairs are the routing pass's scratch, which the wrapper allocates.
 extern "C" int sparton_bwd_dh(const float* dy, const float* y, const int* imax,
-                              const void* E, float* dH, int B, int S, int D,
-                              int V, int dtype, float softcap, int vec,
-                              void* stream) {
+                              const void* E, float* dH, int* ofs, void* list,
+                              int B, int S, int D, int V, int dtype,
+                              float softcap, int vec, void* stream) {
   if (bad_shape(B, S, D, V)) return (int)cudaErrorInvalidValue;
   const Rows r = make_rows(dy, y, imax, B, S, D, V, softcap);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_dh<__nv_bfloat16>(E, dH, r, vec, st);
-  if (dtype == 0) return launch_dh<float>(E, dH, r, vec, st);
+  int2* l = static_cast<int2*>(list);
+  if (dtype == 1) {
+    return vec ? launch_dh<__nv_bfloat16, true>(E, dH, ofs, l, r, st)
+               : launch_dh<__nv_bfloat16, false>(E, dH, ofs, l, r, st);
+  }
+  if (dtype == 0) {
+    return vec ? launch_dh<float, true>(E, dH, ofs, l, r, st)
+               : launch_dh<float, false>(E, dH, ofs, l, r, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
-// K3: dE f32 (V, D), db f32 (V,). vec: 16-byte loads of H rows (the wrapper
-// sets it when D is a multiple of 8 and H is 16-byte aligned).
+// K3: dE f32 (V, D), db f32 (V,).
 extern "C" int sparton_bwd_de(const float* dy, const float* y, const int* imax,
                               const void* H, float* dE, float* db, int B,
                               int S, int D, int V, int dtype, float softcap,

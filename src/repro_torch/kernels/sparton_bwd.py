@@ -9,14 +9,23 @@ the upstream cotangent ``dy``, with ``g = bwd_factor(y, dy, softcap)``:
 * K3: ``dE[v, :] = sum_b g[b, v] * H[b, i_max[b, v], :]`` and the fused
   ``db[v] = sum_b g[b, v]``.
 
-The kernels are ``csrc/sparton_bwd.cu``; its header says how they are
-tiled. They take any B and S (K2 cuts a long sequence into ranges of S
-and launches batches in chunks of 65535 rows). They use no atomics: each output element is summed by one thread
-in a fixed order, so two launches give the same bits. Bound on the H100:
-``2 * nnz(g) * D`` f32 FLOP against the bytes of ``dy, y, i_max``, the
-rows they read and the output, both about 0.2 ms at the paper's Table-1
-shape; these versions are bound by their gathers instead (a row of E or
-H for every term with ``g != 0``, mostly from L2).
+The kernels are ``csrc/sparton_bwd.cu``; its header gives their design.
+K2 is two launches: a routing pass that computes ``g`` once per term and
+sorts each batch row's terms with ``g != 0`` by ``i_max`` (stably, so
+ascending ``v`` within a position), into scratch the wrapper allocates
+(``dh_scratch``: bucket offsets ``(B, S + 1)`` and ``(v, g)`` lists
+``(B, V)``); then one warp per (position, 256 columns) sums its bucket's
+rows of E in registers. K3 gives one warp to each (vocab row, 256
+columns), summing over ascending ``b`` in registers, in waves of blocks
+that walk ``b`` together so that the rows of H they gather stay in L2.
+Both take any B, S and D. They use no atomics: each output element is
+summed by one lane as a chain of FMAs in a fixed order (ascending ``v``
+for dH, ascending ``b`` for dE and db), so two launches give the same
+bits. Bound on the H100: ``2 * nnz(g) * D`` f32 FLOP against the bytes
+of ``dy, y, i_max``, the rows the terms need and the output, about 0.27
+ms at the train step's shape at random init (nearly every ``g != 0``);
+the kernels are bound instead by the rows they gather from L2, one row of
+E or H per term with ``g != 0`` (18 GB at that shape).
 
 Each entry dispatches on the tensors' device: CPU tensors go to the
 plain version (Alg. 3 of the paper as ``repro/core/lm_head.py`` writes
@@ -36,7 +45,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import bwd_factor
 
-_DH_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+_DH_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _DE_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -131,6 +140,14 @@ def _check(what, dy, y, i_max, X, S):
                          "on one CUDA device")
 
 
+def dh_scratch(B: int, S: int, V: int, device) -> Tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """K2's routing scratch: each batch row's bucket offsets ``(B, S + 1)``
+    i32 and its ``(v, g)`` entries ``(B, V, 2)`` (i32 v, f32 g as bits)."""
+    return (torch.empty((B, S + 1), dtype=torch.int32, device=device),
+            torch.empty((B, V, 2), dtype=torch.int32, device=device))
+
+
 def _cap(softcap: Optional[float]) -> float:
     if softcap is None:
         return 0.0
@@ -147,15 +164,16 @@ def _launch_dh(dy, y, i_max, E, seq_len, softcap):
                          f"(V={V}, D)")
     D = E.shape[1]
     dH = torch.empty((B, seq_len, D), dtype=torch.float32, device=dy.device)
-    # paired loads of two neighbouring columns need D even, E 8-byte aligned
-    vec = int(D % 2 == 0 and E.data_ptr() % 8 == 0)
+    ofs, lists = dh_scratch(B, seq_len, V, dy.device)
+    # 16-byte loads of 8-column pieces need D % 8 == 0 and an aligned base
+    vec = int(D % 8 == 0 and E.data_ptr() % 16 == 0)
     fn = _build.function("sparton_bwd", "sparton_bwd_dh", _DH_ARGTYPES)
     with torch.cuda.device(dy.device):
         stream = torch.cuda.current_stream().cuda_stream
         sparton_backward_dh.launches += 1
         rc = fn(dy.data_ptr(), y.data_ptr(), i_max.data_ptr(), E.data_ptr(),
-                dH.data_ptr(), B, seq_len, D, V, _DTYPE_CODE[E.dtype],
-                _cap(softcap), vec, stream)
+                dH.data_ptr(), ofs.data_ptr(), lists.data_ptr(), B, seq_len,
+                D, V, _DTYPE_CODE[E.dtype], _cap(softcap), vec, stream)
     _build.check_launch(rc, "sparton_bwd_dh")
     return dH
 

@@ -141,6 +141,61 @@ def test_plain_k2_past_one_accumulator_matches_jax_oracle(S, softcap):
     _close(db.numpy(), db_j)
 
 
+ROUTINGS = ["sparse", "skewed", "one_position", "empty_buckets"]
+ROUTING_SHAPES = [(3, 40, 24, 600), (2, 33, 13, 300)]
+SPARSE_KEEP = 256
+
+
+def _reroute(y, i_max, S, kind, seed):
+    """The routings the card's kernels are gated on: "sparse" keeps each
+    row's SPARSE_KEEP largest y (a trained SPLADE rep), "skewed" routes a
+    random half of each row's terms to position 0, "one_position" every
+    term to S // 2, "empty_buckets" every term to an even position."""
+    y, i_max = y.copy(), i_max.copy()
+    if kind == "sparse":
+        drop = np.argsort(-y, axis=1, kind="stable")[:, SPARSE_KEEP:]
+        np.put_along_axis(y, drop, 0.0, axis=1)
+    elif kind == "skewed":
+        half = np.random.default_rng(seed).random(y.shape) < 0.5
+        i_max[half] = 0
+    elif kind == "one_position":
+        i_max[:] = S // 2
+    elif kind == "empty_buckets":
+        i_max = i_max // 2 * 2
+    return y, i_max
+
+
+@pytest.mark.parametrize("softcap", CAPS)
+@pytest.mark.parametrize("kind", ROUTINGS)
+@pytest.mark.parametrize("shape", ROUTING_SHAPES, ids=str)
+def test_plain_k2_k3_match_fused_oracle_on_routings(shape, kind, softcap):
+    """The plain K2/K3 against the JAX oracle where the routing is far from
+    uniform: 256 nonzero terms a row, half of a row's terms at one
+    position, every term at one position, positions that get no term. The
+    tolerance of the module docstring."""
+    H, E, b, mask, dy = _inputs(*shape, seed=11)
+    y, i_max = jax_fwd_ref(*(jnp.asarray(a) for a in (H, E, b, mask)),
+                           softcap)
+    y, i_max = _reroute(np.asarray(y), np.asarray(i_max), shape[1], kind,
+                        seed=12)
+    if kind == "sparse":
+        assert ((y > 0).sum(axis=1) <= SPARSE_KEEP).all()
+    dH_j, dE_j, db_j = jax_fused_ref(*(jnp.asarray(a) for a in (
+        dy, y, i_max, H, E)), softcap)
+    dyt, yt, it = _torch(dy), _torch(y), _torch(i_max)
+    dH = sparton_bwd.sparton_backward_dh(dyt, yt, it, _torch(E), shape[1],
+                                         softcap=softcap)
+    dE, db = sparton_bwd.sparton_backward_de(dyt, yt, it, _torch(H),
+                                             softcap=softcap)
+    _close(dH.numpy(), dH_j)
+    _close(dE.numpy(), dE_j)
+    _close(db.numpy(), db_j)
+    if kind == "empty_buckets":
+        assert (dH[:, 1::2] == 0).all()
+    if kind == "one_position":
+        assert (np.delete(dH.numpy(), shape[1] // 2, axis=1) == 0).all()
+
+
 @pytest.mark.parametrize("softcap", CAPS)
 def test_port_oracle_matches_jax_oracle(softcap):
     H, E, b, mask, dy = _inputs(3, 33, 24, 100, seed=2)
@@ -262,11 +317,12 @@ def test_non_cpu_non_cuda_tensors_raise_instead_of_falling_back():
                                         torch.zeros((2, 4, 8), device="meta"))
 
 
-@pytest.mark.parametrize("B,S", [(2, 2048), (65536, 4), (65536, 2048)])
+@pytest.mark.parametrize("B,S", [(2, 2048), (65536, 4), (65536, 2048),
+                                 (384, 256), (1, 70000)])
 def test_kernel_arguments_checked_without_a_card(B, S):
-    """K2 and K3 take any S (K2 tiles it) and any B (launched in chunks of
-    65535 rows): those shapes pass the wrappers' checks and reach the
-    device check, which meta tensors fail; an empty one does not."""
+    """K2 and K3 take any S and any B: those shapes pass the wrappers'
+    checks and reach the device check, which meta tensors fail; an empty
+    one does not."""
     dy = torch.empty((B, 16), device="meta")
     i_max = torch.empty((B, 16), dtype=torch.int32, device="meta")
     E = torch.empty((16, 8), device="meta")
@@ -277,3 +333,15 @@ def test_kernel_arguments_checked_without_a_card(B, S):
             dy, dy, i_max, torch.empty((B, S, 8), device="meta"))
     with pytest.raises(ValueError, match="outside the kernel's range"):
         sparton_bwd.sparton_backward_dh(dy, dy, i_max, E, 0)
+
+
+@pytest.mark.parametrize("B,S,V", [(384, 256, 30522), (1, 1, 1),
+                                   (65536, 8, 64)])
+def test_dh_scratch_is_one_offset_row_and_one_entry_list_per_batch_row(
+        B, S, V):
+    """K2's routing scratch: bucket offsets (B, S + 1) and (v, g) entries
+    (B, V, 2), both i32, on the device asked for (meta here)."""
+    ofs, lists = sparton_bwd.dh_scratch(B, S, V, torch.device("meta"))
+    assert ofs.shape == (B, S + 1) and lists.shape == (B, V, 2)
+    assert ofs.dtype == lists.dtype == torch.int32
+    assert ofs.device.type == lists.device.type == "meta"
