@@ -74,7 +74,7 @@ namespace {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int CPL = 8;        // columns a lane owns
 constexpr int CB = 32 * CPL;  // columns a warp owns
-constexpr int UNROLL = 8;     // row loads in flight before their FMAs
+constexpr int RING_BYTES = 256;  // a lane's ring of row pieces in flight
 
 // K2's routing pass
 constexpr int ROUTE_WARPS = 16;              // warps of a row's block, at most
@@ -86,9 +86,8 @@ constexpr int DH_WARPS = 8;
 
 // K3
 constexpr int VT = 8;          // vocab rows a block owns
-constexpr int BROUND = 64;     // batch rows staged per round
+constexpr int BROUND = 512;    // batch rows staged per round
 constexpr int DE_CW = 3;       // column warps per vocab row, at most
-constexpr int STAGE = 2;       // staged entries a thread loads, at most
 
 // repro/kernels/_common.py:bwd_factor, in f32 and in the same order
 __device__ __forceinline__ float bwd_factor(float y, float dy, int has_cap,
@@ -118,10 +117,18 @@ __device__ __forceinline__ int routed(float g, int si, int S) {
 }
 
 // ---------------------------------------------------------------------------
-// Row loads and stores: the CPL columns of a lane at column c of a row
-// (VEC: c .. c + CPL - 1, D % 8 == 0 and a 16-byte aligned base; else
-// c, c + 32, ..., each checked against D).
+// A lane's row pieces: the CPL columns at column c of a row (VEC: c .. c +
+// CPL - 1, where D % 8 == 0 and the base is 16-byte aligned; else c, c +
+// 32, ..., each checked against D). Each lane keeps a ring of RING_BYTES
+// in shared memory for its pieces in flight, slot j % Slot::ring for the
+// warp's term j: 16 bytes a term for a bf16 VEC piece, else 32 (f32).
 // ---------------------------------------------------------------------------
+
+template <typename T, bool VEC>
+struct Slot {
+  static constexpr int words = VEC && sizeof(T) == 2 ? 1 : 2;  // 16-byte
+  static constexpr int ring = RING_BYTES / 16 / words;  // slots a lane has
+};
 
 __device__ __forceinline__ uint64_t evict_last() {
   uint64_t p;
@@ -129,12 +136,37 @@ __device__ __forceinline__ uint64_t evict_last() {
   return p;
 }
 
-__device__ __forceinline__ uint4 ld_hint(const void* p, uint64_t pol) {
-  uint4 q;
-  asm("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
-      : "=r"(q.x), "=r"(q.y), "=r"(q.z), "=r"(q.w)
-      : "l"(p), "l"(pol));
-  return q;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, in flight until a cp_wait; KEEP: with the
+// L2 evict-last policy pol
+template <bool KEEP>
+__device__ __forceinline__ void cp16(void* dst, const void* src,
+                                     uint64_t pol) {
+  if (KEEP) {
+    asm volatile(
+        "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n" ::"r"(
+            smem_u32(dst)),
+        "l"(src), "l"(pol)
+        : "memory");
+  } else {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every group but the newest N of this thread has landed
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void bf16x8(uint4 q, float* out) {
@@ -147,49 +179,50 @@ __device__ __forceinline__ void bf16x8(uint4 q, float* out) {
   }
 }
 
-// KEEP: with the evict-last hint (K2's E); else a plain read-only load
-template <bool VEC, bool KEEP>
-__device__ __forceinline__ void load_row(const __nv_bfloat16* row, int c,
-                                         int D, uint64_t pol, float* out) {
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// The lane's piece of `row` into its slot (words slot[0], slot[32]): VEC
+// by cp.async, else loaded and stored as f32 at once.
+template <typename T, bool VEC, bool KEEP>
+__device__ __forceinline__ void to_slot(uint4* slot, const T* row, int c,
+                                        int D, uint64_t pol) {
   if (VEC) {
     if (c < D) {
-      const void* p = row + c;
-      bf16x8(KEEP ? ld_hint(p, pol) : __ldg(static_cast<const uint4*>(p)),
-             out);
-    } else {
 #pragma unroll
-      for (int k = 0; k < CPL; ++k) out[k] = 0.0f;
+      for (int q = 0; q < Slot<T, VEC>::words; ++q)
+        cp16<KEEP>(slot + 32 * q,
+                   reinterpret_cast<const char*>(row + c) + 16 * q, pol);
     }
   } else {
+    float x[CPL];
 #pragma unroll
     for (int k = 0; k < CPL; ++k)
-      out[k] = c + 32 * k < D ? __bfloat162float(row[c + 32 * k]) : 0.0f;
+      x[k] = c + 32 * k < D ? to_f32(row[c + 32 * k]) : 0.0f;
+    slot[0] = make_uint4(__float_as_uint(x[0]), __float_as_uint(x[1]),
+                         __float_as_uint(x[2]), __float_as_uint(x[3]));
+    slot[32] = make_uint4(__float_as_uint(x[4]), __float_as_uint(x[5]),
+                          __float_as_uint(x[6]), __float_as_uint(x[7]));
   }
 }
 
-template <bool VEC, bool KEEP>
-__device__ __forceinline__ void load_row(const float* row, int c, int D,
-                                         uint64_t pol, float* out) {
-  if (VEC) {
-    if (c < D) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const void* p = row + c + 4 * h;
-        const uint4 q =
-            KEEP ? ld_hint(p, pol) : __ldg(static_cast<const uint4*>(p));
-        out[4 * h] = __uint_as_float(q.x);
-        out[4 * h + 1] = __uint_as_float(q.y);
-        out[4 * h + 2] = __uint_as_float(q.z);
-        out[4 * h + 3] = __uint_as_float(q.w);
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < CPL; ++k) out[k] = 0.0f;
-    }
+template <typename T, bool VEC>
+__device__ __forceinline__ void from_slot(const uint4* slot, float* out) {
+  if (Slot<T, VEC>::words == 1) {
+    bf16x8(slot[0], out);
   } else {
-#pragma unroll
-    for (int k = 0; k < CPL; ++k)
-      out[k] = c + 32 * k < D ? row[c + 32 * k] : 0.0f;
+    const uint4 a = slot[0];
+    const uint4 b = slot[32];
+    out[0] = __uint_as_float(a.x);
+    out[1] = __uint_as_float(a.y);
+    out[2] = __uint_as_float(a.z);
+    out[3] = __uint_as_float(a.w);
+    out[4] = __uint_as_float(b.x);
+    out[5] = __uint_as_float(b.y);
+    out[6] = __uint_as_float(b.z);
+    out[7] = __uint_as_float(b.w);
   }
 }
 
@@ -346,45 +379,67 @@ __global__ void __launch_bounds__(DH_WARPS * 32)
     dh_kernel(const T* __restrict__ E, float* __restrict__ dH,
               const int* __restrict__ ofs, const int2* __restrict__ list,
               Rows r, int nc) {
+  constexpr int R = Slot<T, VEC>::ring;
+  constexpr int SW = Slot<T, VEC>::words;
+  extern __shared__ uint4 rings[];  // (DH_WARPS, R, SW, 32)
+  const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const long long item =
-      (long long)blockIdx.x * DH_WARPS + threadIdx.x / 32;
+  const long long item = (long long)blockIdx.x * DH_WARPS + warp;
   if (item >= (long long)r.S * r.B * nc) return;
   const int c = (int)(item % nc);  // (s, b, c) order
   const long long sb = item / nc;
   const int b = (int)(sb % r.B);
   const int s = (int)(sb / r.B);
   const int lo = ofs[(size_t)b * (r.S + 1) + s];
-  const int hi = ofs[(size_t)b * (r.S + 1) + s + 1];
+  const int n = ofs[(size_t)b * (r.S + 1) + s + 1] - lo;
   const int col = c * CB + (VEC ? lane * CPL : lane);
-  const int2* bucket = list + (size_t)b * r.V;
+  const bool live = col < r.D;
+  const int2* terms = list + (size_t)b * r.V + lo;
+  uint4* slots = rings + (size_t)warp * R * SW * 32 + lane;
   const uint64_t pol = evict_last();
+
+  // the bucket's entries [base, base + 96), a window of three registers
+  // (lane l holds entries base + l, base + 32 + l, base + 64 + l); the
+  // third is loaded 32 terms before it is needed
+  int base = 0;
+  int2 w0 = lane < n ? terms[lane] : make_int2(0, 0);
+  int2 w1 = 32 + lane < n ? terms[32 + lane] : make_int2(0, 0);
+  int2 w2 = 64 + lane < n ? terms[64 + lane] : make_int2(0, 0);
+  auto entry = [&](int j, bool want_g) {  // warp-uniform j
+    const int d = j - base;
+    const int2 w = d < 32 ? w0 : d < 64 ? w1 : w2;
+    return __shfl_sync(FULL, want_g ? w.y : w.x, d & 31);
+  };
+  auto issue = [&](int j) {  // term j's piece of its row of E
+    const int v = entry(j, false);
+    if (j < n && live)
+      to_slot<T, VEC, true>(slots + (j % R) * SW * 32,
+                            E + (size_t)v * r.D, col, r.D, pol);
+    cp_commit();
+  };
 
   float acc[CPL];
 #pragma unroll
   for (int k = 0; k < CPL; ++k) acc[k] = 0.0f;
-  for (int j0 = lo; j0 < hi; j0 += 32) {
-    const int n = min(32, hi - j0);
-    const int2 term = lane < n ? bucket[j0 + lane] : make_int2(0, 0);
-    for (int t = 0; t < n; t += UNROLL) {  // warp-uniform
-      float e[UNROLL][CPL];
-      float g[UNROLL];
+  for (int j = 0; j < R - 1; ++j) issue(j);
+  for (int j = 0; j < n; ++j) {  // ascending v
+    if (j + R - 1 - base >= 96) {
+      base += 32;
+      w0 = w1;
+      w1 = w2;
+      w2 = base + 64 + lane < n ? terms[base + 64 + lane] : make_int2(0, 0);
+    }
+    issue(j + R - 1);
+    cp_wait<R - 1>();  // this lane's piece of term j has landed
+    const float g = __int_as_float(entry(j, true));
+    if (live) {
+      float e[CPL];
+      from_slot<T, VEC>(slots + (j % R) * SW * 32, e);
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int v = __shfl_sync(FULL, term.x, t + u);
-        g[u] = __int_as_float(__shfl_sync(FULL, term.y, t + u));
-        if (t + u < n)
-          load_row<VEC, true>(E + (size_t)v * r.D, col, r.D, pol, e[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {  // ascending v
-        if (t + u < n) {
-#pragma unroll
-          for (int k = 0; k < CPL; ++k) acc[k] += g[u] * e[u][k];
-        }
-      }
+      for (int k = 0; k < CPL; ++k) acc[k] += g * e[k];
     }
   }
+  cp_wait<0>();
   store_row<VEC>(dH + ((size_t)b * r.S + s) * r.D, col, r.D, acc);
 }
 
@@ -398,8 +453,11 @@ template <typename T, bool VEC>
 __global__ void __launch_bounds__(VT * DE_CW * 32)
     de_kernel(const T* __restrict__ H, float* __restrict__ dE,
               float* __restrict__ db, Rows r, int tile0, int cw) {
+  constexpr int R = Slot<T, VEC>::ring;
+  constexpr int SW = Slot<T, VEC>::words;
   __shared__ float g_round[BROUND][VT];
   __shared__ int s_round[BROUND][VT];  // the routed row, or -1
+  extern __shared__ uint4 rings[];     // (VT * cw, R, SW, 32)
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int v0 = (tile0 + blockIdx.x) * VT;
@@ -407,81 +465,61 @@ __global__ void __launch_bounds__(VT * DE_CW * 32)
   const int v = v0 + vl;
   const int cwarp = blockIdx.y * cw + warp % cw;
   const int col = cwarp * CB + (VEC ? lane * CPL : lane);
-  const bool sums_db = cwarp == 0;
-
-  // this thread's staged entries of the next round: (dy, y, i_max)
-  float n_dy[STAGE], n_y[STAGE];
-  int n_im[STAGE];
-  auto fetch = [&](int b0) {
-#pragma unroll
-    for (int j = 0; j < STAGE; ++j) {
-      const int k = threadIdx.x + j * blockDim.x;
-      const int bi = k / VT;
-      const int vv = k % VT;
-      n_dy[j] = 0.0f;
-      n_y[j] = 0.0f;
-      n_im[j] = -1;
-      if (k < BROUND * VT && b0 + bi < r.B && v0 + vv < r.V) {
-        const size_t bv = (size_t)(b0 + bi) * r.V + v0 + vv;
-        n_dy[j] = __ldcs(r.dy + bv);
-        n_y[j] = __ldcs(r.y + bv);
-        n_im[j] = __ldcs(r.imax + bv);
-      }
-    }
-  };
+  const bool live = col < r.D;
+  uint4* slots = rings + (size_t)warp * R * SW * 32 + lane;
 
   float acc[CPL];
 #pragma unroll
   for (int k = 0; k < CPL; ++k) acc[k] = 0.0f;
   float db_sum = 0.0f;
-  const uint64_t pol = 0;  // unused: H is read without a hint
-  fetch(0);
   for (int b0 = 0; b0 < r.B; b0 += BROUND) {
+    const int nb = min(BROUND, r.B - b0);
     __syncthreads();  // the last round is consumed
-#pragma unroll
-    for (int j = 0; j < STAGE; ++j) {
-      const int k = threadIdx.x + j * blockDim.x;
-      if (k < BROUND * VT) {
-        // outside B or V: y == 0, so g == 0 and the term routes nowhere
-        const float g = bwd_factor(n_y[j], n_dy[j], r.has_cap, r.cap);
-        g_round[k / VT][k % VT] = g;
-        s_round[k / VT][k % VT] = routed(g, n_im[j], r.S);
+    for (int k = threadIdx.x; k < nb * VT; k += blockDim.x) {
+      const int bi = k / VT;
+      const int vv = k % VT;
+      float g = 0.0f;
+      int si = -1;
+      if (v0 + vv < r.V) {
+        const size_t bv = (size_t)(b0 + bi) * r.V + v0 + vv;
+        g = bwd_factor(__ldcs(r.y + bv), __ldcs(r.dy + bv), r.has_cap,
+                       r.cap);
+        si = __ldcs(r.imax + bv);
       }
+      g_round[bi][vv] = g;
+      s_round[bi][vv] = routed(g, si, r.S);
     }
     __syncthreads();
-    if (b0 + BROUND < r.B) fetch(b0 + BROUND);
 
-    const int nb = min(BROUND, r.B - b0);
-    for (int bi = 0; bi < nb; bi += UNROLL) {
-      float g[UNROLL];
-      int s[UNROLL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const bool in = bi + u < nb;
-        g[u] = in ? g_round[bi + u][vl] : 0.0f;
-        s[u] = in ? s_round[bi + u][vl] : -1;
+    auto issue = [&](int bi) {  // batch row b0 + bi's piece of H
+      if (bi < nb && live) {
+        const int si = s_round[bi][vl];
+        if (si >= 0)
+          to_slot<T, VEC, false>(slots + (bi % R) * SW * 32,
+                                 H + ((size_t)(b0 + bi) * r.S + si) * r.D,
+                                 col, r.D, 0);
       }
-      float h[UNROLL][CPL];
+      cp_commit();
+    };
+    for (int bi = 0; bi < R - 1; ++bi) issue(bi);
+    for (int bi = 0; bi < nb; ++bi) {  // ascending b
+      issue(bi + R - 1);
+      cp_wait<R - 1>();  // this lane's piece of row bi has landed
+      const float g = g_round[bi][vl];
+      db_sum += g;
+      if (live && s_round[bi][vl] >= 0) {
+        float h[CPL];
+        from_slot<T, VEC>(slots + (bi % R) * SW * 32, h);
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        if (s[u] >= 0)
-          load_row<VEC, false>(H + ((size_t)(b0 + bi + u) * r.S + s[u]) * r.D,
-                               col, r.D, pol, h[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {  // ascending b
-        db_sum += g[u];
-        if (s[u] >= 0) {
-#pragma unroll
-          for (int k = 0; k < CPL; ++k) acc[k] += g[u] * h[u][k];
-        }
+        for (int k = 0; k < CPL; ++k) acc[k] += g * h[k];
       }
     }
+    cp_wait<0>();
   }
 
   if (v >= r.V) return;
   store_row<VEC>(dE + (size_t)v * r.D, col, r.D, acc);
-  if (sums_db && lane == 0) db[v] = db_sum;
+  if (cwarp == 0 && lane == 0) db[v] = db_sum;
 }
 
 // ---------------------------------------------------------------------------
@@ -512,16 +550,26 @@ int launch_route(Rows r, int* ofs, int2* list, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// a block's rings: RING_BYTES for each of its lanes
+constexpr size_t ring_smem(int warps) {
+  return (size_t)warps * 32 * RING_BYTES;
+}
+
 template <typename T, bool VEC>
 int launch_dh(const void* E, float* dH, int* ofs, int2* list, Rows r,
               cudaStream_t stream) {
-  const int err = launch_route(r, ofs, list, stream);
-  if (err != (int)cudaSuccess) return err;
+  cudaError_t err = (cudaError_t)launch_route(r, ofs, list, stream);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = ring_smem(DH_WARPS);
+  err = cudaFuncSetAttribute(dh_kernel<T, VEC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
   const int nc = (r.D + CB - 1) / CB;
   const long long warps = (long long)r.S * r.B * nc;
   const long long blocks = (warps + DH_WARPS - 1) / DH_WARPS;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  dh_kernel<T, VEC><<<(unsigned)blocks, DH_WARPS * 32, 0, stream>>>(
+  dh_kernel<T, VEC><<<(unsigned)blocks, DH_WARPS * 32, smem, stream>>>(
       static_cast<const T*>(E), dH, ofs, list, r, nc);
   return (int)cudaGetLastError();
 }
@@ -535,20 +583,24 @@ int launch_de(const void* H, float* dE, float* db, Rows r,
   const int cw = nc < DE_CW ? nc : DE_CW;
   const int passes = (nc + cw - 1) / cw;
   const int threads = VT * cw * 32;
+  const size_t smem = ring_smem(VT * cw);
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = cudaFuncSetAttribute(
+      de_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, de_kernel<T, VEC>, threads, 0);
+        &per_sm, de_kernel<T, VEC>, threads, smem);
   if (err != cudaSuccess) return (int)err;
   if (passes > 65535) return (int)cudaErrorInvalidValue;
   const int wave = per_sm * sms / passes > 0 ? per_sm * sms / passes : 1;
   const int tiles = (r.V + VT - 1) / VT;
   for (int t0 = 0; t0 < tiles; t0 += wave) {
     dim3 grid(tiles - t0 < wave ? tiles - t0 : wave, passes);
-    de_kernel<T, VEC><<<grid, threads, 0, stream>>>(
+    de_kernel<T, VEC><<<grid, threads, smem, stream>>>(
         static_cast<const T*>(H), dE, db, r, t0, cw);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
