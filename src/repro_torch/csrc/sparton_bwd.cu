@@ -72,9 +72,9 @@
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int CPL = 8;        // columns a lane owns
-constexpr int CB = 32 * CPL;  // columns a warp owns
-constexpr int RING_BYTES = 256;  // a lane's ring of row pieces in flight
+constexpr int CPL = 8;           // columns of a lane's piece of a row
+constexpr int PW = 32 * CPL;     // columns of a warp's piece: 256
+constexpr int RING_BYTES = 384;  // a lane's ring of pieces in flight
 
 // K2's routing pass
 constexpr int ROUTE_WARPS = 16;              // warps of a row's block, at most
@@ -85,9 +85,8 @@ constexpr int AHEAD = 8;                     // chunks of 32 terms loaded at onc
 constexpr int DH_WARPS = 8;
 
 // K3
-constexpr int VT = 8;          // vocab rows a block owns
-constexpr int BROUND = 512;    // batch rows staged per round
-constexpr int DE_CW = 3;       // column warps per vocab row, at most
+constexpr int VT = 16;         // vocab rows a block owns, a warp each
+constexpr int BROUND = 256;    // batch rows staged per round
 
 // repro/kernels/_common.py:bwd_factor, in f32 and in the same order
 __device__ __forceinline__ float bwd_factor(float y, float dy, int has_cap,
@@ -124,10 +123,10 @@ __device__ __forceinline__ int routed(float g, int si, int S) {
 // warp's term j: 16 bytes a term for a bf16 VEC piece, else 32 (f32).
 // ---------------------------------------------------------------------------
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, int P>
 struct Slot {
-  static constexpr int words = VEC && sizeof(T) == 2 ? 1 : 2;  // 16-byte
-  static constexpr int ring = RING_BYTES / 16 / words;  // slots a lane has
+  static constexpr int words = VEC && sizeof(T) == 2 ? 1 : 2;  // a piece's
+  static constexpr int ring = RING_BYTES / 16 / (P * words);  // slots
 };
 
 __device__ __forceinline__ uint64_t evict_last() {
@@ -192,7 +191,7 @@ __device__ __forceinline__ void to_slot(uint4* slot, const T* row, int c,
   if (VEC) {
     if (c < D) {
 #pragma unroll
-      for (int q = 0; q < Slot<T, VEC>::words; ++q)
+      for (int q = 0; q < Slot<T, VEC, 1>::words; ++q)
         cp16<KEEP>(slot + 32 * q,
                    reinterpret_cast<const char*>(row + c) + 16 * q, pol);
     }
@@ -210,7 +209,7 @@ __device__ __forceinline__ void to_slot(uint4* slot, const T* row, int c,
 
 template <typename T, bool VEC>
 __device__ __forceinline__ void from_slot(const uint4* slot, float* out) {
-  if (Slot<T, VEC>::words == 1) {
+  if (Slot<T, VEC, 1>::words == 1) {
     bf16x8(slot[0], out);
   } else {
     const uint4 a = slot[0];
@@ -374,14 +373,22 @@ __global__ void route_kernel(Rows r, int* __restrict__ ofs,
 // K2: dH
 // ---------------------------------------------------------------------------
 
-template <typename T, bool VEC>
+// A warp's share of a row: P pieces of PW columns, piece p at column
+// c0 + p * PW; its lane's columns start at piece_col(...) (VEC: 8 in a
+// row; else every 32nd). Slot layout: (slot, piece, word, lane).
+template <bool VEC>
+__device__ __forceinline__ int piece_col(int c0, int p, int lane) {
+  return c0 + p * PW + (VEC ? lane * CPL : lane);
+}
+
+template <typename T, bool VEC, int P>
 __global__ void __launch_bounds__(DH_WARPS * 32)
     dh_kernel(const T* __restrict__ E, float* __restrict__ dH,
               const int* __restrict__ ofs, const int2* __restrict__ list,
               Rows r, int nc) {
-  constexpr int R = Slot<T, VEC>::ring;
-  constexpr int SW = Slot<T, VEC>::words;
-  extern __shared__ uint4 rings[];  // (DH_WARPS, R, SW, 32)
+  constexpr int R = Slot<T, VEC, P>::ring;
+  constexpr int SW = Slot<T, VEC, P>::words;
+  extern __shared__ uint4 rings[];  // (DH_WARPS, R, P, SW, 32)
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const long long item = (long long)blockIdx.x * DH_WARPS + warp;
@@ -392,10 +399,10 @@ __global__ void __launch_bounds__(DH_WARPS * 32)
   const int s = (int)(sb / r.B);
   const int lo = ofs[(size_t)b * (r.S + 1) + s];
   const int n = ofs[(size_t)b * (r.S + 1) + s + 1] - lo;
-  const int col = c * CB + (VEC ? lane * CPL : lane);
-  const bool live = col < r.D;
+  const int c0 = c * P * PW;
+  const bool live = piece_col<VEC>(c0, 0, lane) < r.D;
   const int2* terms = list + (size_t)b * r.V + lo;
-  uint4* slots = rings + (size_t)warp * R * SW * 32 + lane;
+  uint4* slots = rings + (size_t)warp * R * P * SW * 32 + lane;
   const uint64_t pol = evict_last();
 
   // the bucket's entries [base, base + 96), a window of three registers
@@ -410,17 +417,23 @@ __global__ void __launch_bounds__(DH_WARPS * 32)
     const int2 w = d < 32 ? w0 : d < 64 ? w1 : w2;
     return __shfl_sync(FULL, want_g ? w.y : w.x, d & 31);
   };
-  auto issue = [&](int j) {  // term j's piece of its row of E
+  auto issue = [&](int j) {  // term j's pieces of its row of E
     const int v = entry(j, false);
-    if (j < n && live)
-      to_slot<T, VEC, true>(slots + (j % R) * SW * 32,
-                            E + (size_t)v * r.D, col, r.D, pol);
+    if (j < n && live) {
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        to_slot<T, VEC, true>(slots + ((j % R) * P + p) * SW * 32,
+                              E + (size_t)v * r.D,
+                              piece_col<VEC>(c0, p, lane), r.D, pol);
+    }
     cp_commit();
   };
 
-  float acc[CPL];
+  float acc[P][CPL];
 #pragma unroll
-  for (int k = 0; k < CPL; ++k) acc[k] = 0.0f;
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) acc[p][k] = 0.0f;
   for (int j = 0; j < R - 1; ++j) issue(j);
   for (int j = 0; j < n; ++j) {  // ascending v
     if (j + R - 1 - base >= 96) {
@@ -430,51 +443,58 @@ __global__ void __launch_bounds__(DH_WARPS * 32)
       w2 = base + 64 + lane < n ? terms[base + 64 + lane] : make_int2(0, 0);
     }
     issue(j + R - 1);
-    cp_wait<R - 1>();  // this lane's piece of term j has landed
+    cp_wait<R - 1>();  // this lane's pieces of term j have landed
     const float g = __int_as_float(entry(j, true));
     if (live) {
-      float e[CPL];
-      from_slot<T, VEC>(slots + (j % R) * SW * 32, e);
 #pragma unroll
-      for (int k = 0; k < CPL; ++k) acc[k] += g * e[k];
+      for (int p = 0; p < P; ++p) {
+        float e[CPL];
+        from_slot<T, VEC>(slots + ((j % R) * P + p) * SW * 32, e);
+#pragma unroll
+        for (int k = 0; k < CPL; ++k) acc[p][k] += g * e[k];
+      }
     }
   }
   cp_wait<0>();
-  store_row<VEC>(dH + ((size_t)b * r.S + s) * r.D, col, r.D, acc);
+  float* out = dH + ((size_t)b * r.S + s) * r.D;
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    store_row<VEC>(out, piece_col<VEC>(c0, p, lane), r.D, acc[p]);
 }
 
 // ---------------------------------------------------------------------------
 // K3: dE and db
 // ---------------------------------------------------------------------------
 
-// A block of VT * cw warps: warp w owns vocab row v0 + w / cw and column
-// block blockIdx.y * cw + w % cw; the wave's first tile is tile0.
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(VT * DE_CW * 32)
+// A block of VT warps, warp w owning vocab row tile * VT + w and the
+// columns of column block blockIdx.y; the wave's first tile is tile0.
+template <typename T, bool VEC, int P>
+__global__ void __launch_bounds__(VT * 32)
     de_kernel(const T* __restrict__ H, float* __restrict__ dE,
-              float* __restrict__ db, Rows r, int tile0, int cw) {
-  constexpr int R = Slot<T, VEC>::ring;
-  constexpr int SW = Slot<T, VEC>::words;
+              float* __restrict__ db, Rows r, int tile0) {
+  constexpr int R = Slot<T, VEC, P>::ring;
+  constexpr int SW = Slot<T, VEC, P>::words;
   __shared__ float g_round[BROUND][VT];
   __shared__ int s_round[BROUND][VT];  // the routed row, or -1
-  extern __shared__ uint4 rings[];     // (VT * cw, R, SW, 32)
-  const int warp = threadIdx.x / 32;
+  extern __shared__ uint4 rings[];     // (VT, R, P, SW, 32)
+  const int vl = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int v0 = (tile0 + blockIdx.x) * VT;
-  const int vl = warp / cw;
   const int v = v0 + vl;
-  const int cwarp = blockIdx.y * cw + warp % cw;
-  const int col = cwarp * CB + (VEC ? lane * CPL : lane);
-  const bool live = col < r.D;
-  uint4* slots = rings + (size_t)warp * R * SW * 32 + lane;
+  const int c0 = blockIdx.y * P * PW;
+  const bool live = piece_col<VEC>(c0, 0, lane) < r.D;
+  uint4* slots = rings + (size_t)vl * R * P * SW * 32 + lane;
 
-  float acc[CPL];
+  float acc[P][CPL];
 #pragma unroll
-  for (int k = 0; k < CPL; ++k) acc[k] = 0.0f;
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) acc[p][k] = 0.0f;
   float db_sum = 0.0f;
   for (int b0 = 0; b0 < r.B; b0 += BROUND) {
     const int nb = min(BROUND, r.B - b0);
     __syncthreads();  // the last round is consumed
+#pragma unroll 4
     for (int k = threadIdx.x; k < nb * VT; k += blockDim.x) {
       const int bi = k / VT;
       const int vv = k % VT;
@@ -491,35 +511,44 @@ __global__ void __launch_bounds__(VT * DE_CW * 32)
     }
     __syncthreads();
 
-    auto issue = [&](int bi) {  // batch row b0 + bi's piece of H
+    auto issue = [&](int bi) {  // batch row b0 + bi's pieces of H
       if (bi < nb && live) {
         const int si = s_round[bi][vl];
-        if (si >= 0)
-          to_slot<T, VEC, false>(slots + (bi % R) * SW * 32,
-                                 H + ((size_t)(b0 + bi) * r.S + si) * r.D,
-                                 col, r.D, 0);
+        if (si >= 0) {
+          const T* row = H + ((size_t)(b0 + bi) * r.S + si) * r.D;
+#pragma unroll
+          for (int p = 0; p < P; ++p)
+            to_slot<T, VEC, false>(slots + ((bi % R) * P + p) * SW * 32,
+                                   row, piece_col<VEC>(c0, p, lane), r.D, 0);
+        }
       }
       cp_commit();
     };
     for (int bi = 0; bi < R - 1; ++bi) issue(bi);
     for (int bi = 0; bi < nb; ++bi) {  // ascending b
       issue(bi + R - 1);
-      cp_wait<R - 1>();  // this lane's piece of row bi has landed
       const float g = g_round[bi][vl];
       db_sum += g;
       if (live && s_round[bi][vl] >= 0) {
-        float h[CPL];
-        from_slot<T, VEC>(slots + (bi % R) * SW * 32, h);
+        cp_wait<R - 1>();  // this lane's pieces of row bi have landed
 #pragma unroll
-        for (int k = 0; k < CPL; ++k) acc[k] += g * h[k];
+        for (int p = 0; p < P; ++p) {
+          float h[CPL];
+          from_slot<T, VEC>(slots + ((bi % R) * P + p) * SW * 32, h);
+#pragma unroll
+          for (int k = 0; k < CPL; ++k) acc[p][k] += g * h[k];
+        }
       }
     }
     cp_wait<0>();
   }
 
   if (v >= r.V) return;
-  store_row<VEC>(dE + (size_t)v * r.D, col, r.D, acc);
-  if (cwarp == 0 && lane == 0) db[v] = db_sum;
+  float* out = dE + (size_t)v * r.D;
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    store_row<VEC>(out, piece_col<VEC>(c0, p, lane), r.D, acc[p]);
+  if (blockIdx.y == 0 && lane == 0) db[v] = db_sum;
 }
 
 // ---------------------------------------------------------------------------
@@ -555,57 +584,72 @@ constexpr size_t ring_smem(int warps) {
   return (size_t)warps * 32 * RING_BYTES;
 }
 
-template <typename T, bool VEC>
+// Pieces a lane takes of a row: three (768 columns a warp, D 768 in one
+// warp) where D is past one piece, else one.
+int pieces(int D) { return D > PW ? 3 : 1; }
+
+template <typename T, bool VEC, int P>
 int launch_dh(const void* E, float* dH, int* ofs, int2* list, Rows r,
               cudaStream_t stream) {
   cudaError_t err = (cudaError_t)launch_route(r, ofs, list, stream);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = ring_smem(DH_WARPS);
-  err = cudaFuncSetAttribute(dh_kernel<T, VEC>,
+  err = cudaFuncSetAttribute(dh_kernel<T, VEC, P>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int nc = (r.D + CB - 1) / CB;
+  const int nc = (r.D + P * PW - 1) / (P * PW);
   const long long warps = (long long)r.S * r.B * nc;
   const long long blocks = (warps + DH_WARPS - 1) / DH_WARPS;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  dh_kernel<T, VEC><<<(unsigned)blocks, DH_WARPS * 32, smem, stream>>>(
+  dh_kernel<T, VEC, P><<<(unsigned)blocks, DH_WARPS * 32, smem, stream>>>(
       static_cast<const T*>(E), dH, ofs, list, r, nc);
   return (int)cudaGetLastError();
 }
 
 // Waves of the blocks the card holds at once; each wave's blocks cover
-// the column passes (grid.y) of consecutive vocab tiles.
-template <typename T, bool VEC>
+// the column blocks (grid.y) of consecutive vocab tiles.
+template <typename T, bool VEC, int P>
 int launch_de(const void* H, float* dE, float* db, Rows r,
               cudaStream_t stream) {
-  const int nc = (r.D + CB - 1) / CB;
-  const int cw = nc < DE_CW ? nc : DE_CW;
-  const int passes = (nc + cw - 1) / cw;
-  const int threads = VT * cw * 32;
-  const size_t smem = ring_smem(VT * cw);
+  const int nc = (r.D + P * PW - 1) / (P * PW);
+  const size_t smem = ring_smem(VT);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaFuncSetAttribute(
-      de_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      de_kernel<T, VEC, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, de_kernel<T, VEC>, threads, smem);
+        &per_sm, de_kernel<T, VEC, P>, VT * 32, smem);
   if (err != cudaSuccess) return (int)err;
-  if (passes > 65535) return (int)cudaErrorInvalidValue;
-  const int wave = per_sm * sms / passes > 0 ? per_sm * sms / passes : 1;
+  if (nc > 65535) return (int)cudaErrorInvalidValue;
+  const int wave = per_sm * sms / nc > 0 ? per_sm * sms / nc : 1;
   const int tiles = (r.V + VT - 1) / VT;
   for (int t0 = 0; t0 < tiles; t0 += wave) {
-    dim3 grid(tiles - t0 < wave ? tiles - t0 : wave, passes);
-    de_kernel<T, VEC><<<grid, threads, smem, stream>>>(
-        static_cast<const T*>(H), dE, db, r, t0, cw);
+    dim3 grid(tiles - t0 < wave ? tiles - t0 : wave, nc);
+    de_kernel<T, VEC, P><<<grid, VT * 32, smem, stream>>>(
+        static_cast<const T*>(H), dE, db, r, t0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
+}
+
+template <typename T, bool VEC>
+int launch_dh(const void* E, float* dH, int* ofs, int2* list, Rows r,
+              cudaStream_t stream) {
+  return pieces(r.D) == 3 ? launch_dh<T, VEC, 3>(E, dH, ofs, list, r, stream)
+                          : launch_dh<T, VEC, 1>(E, dH, ofs, list, r, stream);
+}
+
+template <typename T, bool VEC>
+int launch_de(const void* H, float* dE, float* db, Rows r,
+              cudaStream_t stream) {
+  return pieces(r.D) == 3 ? launch_de<T, VEC, 3>(H, dE, db, r, stream)
+                          : launch_de<T, VEC, 1>(H, dE, db, r, stream);
 }
 
 Rows make_rows(const float* dy, const float* y, const int* imax, int B, int S,

@@ -1,13 +1,14 @@
 """Where K2 and K3 of a checkout spend their time: its
-``csrc/sparton_bwd.cu`` rebuilt with parts compiled out, on the same
-inputs.
+``csrc/sparton_bwd.cu`` rebuilt with parts compiled out or with another
+geometry, on the same inputs.
 
-    python3 tools/bwd_breakdown.py ROOT
+    python3 tools/bwd_breakdown.py ROOT               # the row-per-block design
+    python3 tools/bwd_breakdown.py --redesign ROOT    # the routed design
 
-ROOT is a checkout of the port whose K2/K3 are the row-per-block design
-(``dh_kernel``, ``de_kernel``); its K1 makes the inputs. The builds, each
-a copy of ROOT's source with lines replaced (the replacement must match
-once, or the tool stops):
+ROOT is a checkout of the port; its K1 makes the inputs. Each build is a
+copy of ROOT's source with lines replaced (a replacement must match once,
+or the tool stops). For the row-per-block design (``dh_kernel`` and
+``de_kernel`` of one block per (row, column slice)):
 
 * ``shipped``: the source as it is;
 * ``no_gathers``: the loads of E (K2) and H (K3) rows replaced by a
@@ -19,8 +20,20 @@ once, or the tool stops):
 * ``staging_only``: only the staging of g and i_max (K2: no scan of the
   round; K3: no batch row of the round is walked).
 
+With ``--redesign`` (the routing pass and the warps that sum in
+registers from a ``cp.async`` ring), every build gives the same bits,
+which the tool checks (a SHA-256 of each output beside each time):
+
+* ``shipped``: the source as it is (three pieces of 256 columns a lane
+  at D 768: one warp a row);
+* ``one_piece``: one piece a lane (three warps a row of D 768), K2's
+  warps in (s, b, column) order;
+* ``one_piece_columns_first``: the same, K2's warps in (column, s, b)
+  order, so that the warps in flight read one 256-column slice of E
+  (15.6 MB at the train shape).
+
 It prints one JSON line per build, kernel and row (``chip_smoke.py``'s
-"train" and "table1" K2/K3 rows) with the median ms of CUDA-event
+"train" and "table1" K2/K3 rows; with ``--redesign`` all four) with the median ms of CUDA-event
 windows and their spread, the SM clock (MHz) and the power draw (W) that
 ``nvidia-smi`` sampled every 100 ms over 1 s of back-to-back launches,
 then the card's name and power limit. Builds other than ``shipped`` give
@@ -88,6 +101,21 @@ BUILDS = {
 }
 ROWS = ("train", "table1")
 
+# the routed design
+ONE_PIECE = ("int pieces(int D) { return D > PW ? 3 : 1; }",
+             "int pieces(int D) { return 1; }")
+COLUMNS_FIRST = ("""  const int c = (int)(item % nc);  // (s, b, c) order
+  const long long sb = item / nc;
+""", """  const long long per_c = (long long)r.S * r.B;
+  const int c = (int)(item / per_c);
+  const long long sb = item % per_c;
+""")
+REDESIGN = {
+    "shipped": [],
+    "one_piece": [ONE_PIECE],
+    "one_piece_columns_first": [ONE_PIECE, COLUMNS_FIRST],
+}
+
 
 def patched(src: str, edits) -> str:
     for old, new in edits:
@@ -103,13 +131,13 @@ def patched(src: str, edits) -> str:
     return src
 
 
-def build(root: Path, out: Path) -> dict:
+def build(root: Path, out: Path, builds: dict) -> dict:
     """Every build's library, compiled in parallel with the port's flags."""
     from repro_torch.kernels import _build
 
     src = (root / "src/repro_torch/csrc/sparton_bwd.cu").read_text()
     jobs = {}
-    for name, edits in BUILDS.items():
+    for name, edits in builds.items():
         d = out / name
         d.mkdir(parents=True, exist_ok=True)
         (d / "sparton_bwd.cu").write_text(patched(src, edits))
@@ -157,10 +185,13 @@ def sampled(torch, fn, seconds=1.0):
 
 
 def main() -> int:
-    if len(sys.argv) != 2:
+    args = sys.argv[1:]
+    redesign = "--redesign" in args
+    args = [a for a in args if a != "--redesign"]
+    if len(args) != 1:
         print(__doc__, file=sys.stderr)
         return 2
-    root = Path(sys.argv[1]).resolve()
+    root = Path(args[0]).resolve()
     sys.path.insert(0, str(root / "src"))
     import torch
 
@@ -175,46 +206,54 @@ def main() -> int:
     from repro_torch.models.transformer import head_weights, init_params
 
     sys.path.insert(1, str(TOOL_ROOT))
+    sys.path.insert(2, str(TOOL_ROOT / "tools"))
     import chip_smoke
+    from ab_bwd import digest
 
-    libs = build(root, _build.build_root() / "bwd_breakdown")
+    libs = build(root, _build.build_root() / "bwd_breakdown",
+                 REDESIGN if redesign else BUILDS)
     params = init_params(torch.Generator(device="cuda").manual_seed(0),
                          CONFIG)
     E, b = head_weights(params, CONFIG)
     E = E.to(torch.bfloat16)
     del params
     stream = torch.cuda.current_stream().cuda_stream
-    for row in ROWS:
+    for row in chip_smoke.BWD_ROWS if redesign else ROWS:
         H, _, dy, y, i_max = chip_smoke.bwd_timing_inputs(torch, E, b, row)
         B, S, D = H.shape
         V = E.shape[0]
         dH = torch.empty((B, S, D), device="cuda")
         dE = torch.empty((V, D), device="cuda")
         db = torch.empty((V,), device="cuda")
+        scratch = ([t.data_ptr() for t in kb.dh_scratch(B, S, V, "cuda")]
+                   if redesign else [])
         for name, lib in libs.items():
             fh = lib.sparton_bwd_dh
             fh.argtypes = kb._DH_ARGTYPES
             fe = lib.sparton_bwd_de
             fe.argtypes = kb._DE_ARGTYPES
             runs = {
-                "dh": lambda: fh(dy.data_ptr(), y.data_ptr(),
-                                 i_max.data_ptr(), E.data_ptr(),
-                                 dH.data_ptr(), B, S, D, V, 1, 0.0, 1,
-                                 stream),
-                "de": lambda: fe(dy.data_ptr(), y.data_ptr(),
-                                 i_max.data_ptr(), H.data_ptr(),
-                                 dE.data_ptr(), db.data_ptr(), B, S, D, V,
-                                 1, 0.0, 1, stream)}
-            for kernel, fn in runs.items():
+                "dh": (lambda: fh(dy.data_ptr(), y.data_ptr(),
+                                  i_max.data_ptr(), E.data_ptr(),
+                                  dH.data_ptr(), *scratch, B, S, D, V, 1,
+                                  0.0, 1, stream), (dH,)),
+                "de": (lambda: fe(dy.data_ptr(), y.data_ptr(),
+                                  i_max.data_ptr(), H.data_ptr(),
+                                  dE.data_ptr(), db.data_ptr(), B, S, D, V,
+                                  1, 0.0, 1, stream), (dE, db))}
+            for kernel, (fn, outs) in runs.items():
                 if fn() != 0:
                     raise SystemExit(f"bwd_breakdown: {name} {kernel} "
                                      "failed to launch")
+                torch.cuda.synchronize()
+                sha = digest(*outs)
                 ms = chip_smoke.cuda_ms(torch, fn, 5)
                 windows = chip_smoke.cuda_ms.windows
                 print(json.dumps({"build": name, "kernel": kernel,
                                   "row": row, "ms": ms,
                                   "range": [min(windows), max(windows)],
-                                  **sampled(torch, fn)}), flush=True)
+                                  "sha256": sha, **sampled(torch, fn)}),
+                      flush=True)
         del H, dy, y, i_max, dH, dE, db
         torch.cuda.empty_cache()
     print(subprocess.run(
