@@ -21,8 +21,8 @@ or the tool stops). For the row-per-block design (``dh_kernel`` and
   round; K3: no batch row of the round is walked).
 
 With ``--redesign`` (the routing pass and the warps that sum in
-registers from a ``cp.async`` ring), every build gives the same bits,
-which the tool checks (a SHA-256 of each output beside each time):
+registers from a ``cp.async`` ring), the builds (a SHA-256 of each
+output beside each time; all but the last give the same bits):
 
 * ``shipped``: the source as it is (three pieces of 256 columns a lane
   at D 768: one warp a row);
@@ -31,6 +31,15 @@ which the tool checks (a SHA-256 of each output beside each time):
 * ``one_piece_columns_first``: the same, K2's warps in (column, s, b)
   order, so that the warps in flight read one 256-column slice of E
   (15.6 MB at the train shape).
+
+* ``e_rows_in_l2``: K2 reading E row ``v % 4096`` for term v (6 MB of E
+  in all, so from L2; wrong sums, and another digest, by design);
+* ``route_only``: K2's routing pass alone (its dH is not written);
+* ``ring_192``: rings of 192 bytes a lane (4 slots at D 768, not 8), so
+  twice the warps fit an SM (K2 32, K3 blocks of 32 vocab rows staging
+  128 batch rows a round);
+* ``k3_every_b``: K3 walking every b of a round, not only those with
+  g != 0.
 
 It prints one JSON line per build, kernel and row (``chip_smoke.py``'s
 "train" and "table1" K2/K3 rows; with ``--redesign`` all four) with the median ms of CUDA-event
@@ -110,8 +119,39 @@ COLUMNS_FIRST = ("""  const int c = (int)(item % nc);  // (s, b, c) order
   const int c = (int)(item / per_c);
   const long long sb = item % per_c;
 """)
+E_IN_L2 = ("""                              E + (size_t)v * r.D,""",
+           """                              E + (size_t)(v & 4095) * r.D,""")
+ROUTE_ONLY = ("""  const size_t smem = ring_smem(DH_WARPS);
+""", """  return (int)cudaSuccess;
+  const size_t smem = ring_smem(DH_WARPS);
+""")
+RING_192 = [("constexpr int RING_BYTES = 384;", "constexpr int RING_BYTES = 192;"),
+            ("constexpr int VT = 16;", "constexpr int VT = 32;"),
+            ("constexpr int BROUND = 256;", "constexpr int BROUND = 128;")]
+K3_CURSORS = ("""    int ic = -32, cc = -32;""", None)   # see patched()
+K3_EVERY_B = """    for (int t = 0; t < R - 1; ++t) issue(t < nb ? t : -1, t);
+    for (int bi = 0; bi < nb; ++bi) {  // ascending b
+      issue(bi + R - 1 < nb ? bi + R - 1 : -1, (bi + R - 1) % R);
+      const float g = g_mine[bi];
+      db_sum += g;
+      if (live && s_mine[bi] >= 0) {
+        cp_wait<R - 1>();
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          float h[CPL];
+          from_slot<T, VEC>(slots + ((bi % R) * P + p) * SW * 32, h);
+#pragma unroll
+          for (int k = 0; k < CPL; ++k) acc[p][k] += g * h[k];
+        }
+      }
+    }
+"""
 REDESIGN = {
     "shipped": [],
+    "e_rows_in_l2": [E_IN_L2],
+    "route_only": [ROUTE_ONLY],
+    "ring_192": RING_192,
+    "k3_every_b": [K3_CURSORS],
     "one_piece": [ONE_PIECE],
     "one_piece_columns_first": [ONE_PIECE, COLUMNS_FIRST],
 }
@@ -119,6 +159,11 @@ REDESIGN = {
 
 def patched(src: str, edits) -> str:
     for old, new in edits:
+        if new is None and old == K3_CURSORS[0]:   # K3's walk, every b
+            i = src.index(old)
+            j = src.index("    cp_wait<0>();\n  }\n", i)
+            src = src[:i] + K3_EVERY_B + src[j:]
+            continue
         if new is None:   # the K2 accumulation block, start to end
             i = src.index(K2_ACC_START)
             j = src.index(K2_ACC_END, i) + len(K2_ACC_END)
