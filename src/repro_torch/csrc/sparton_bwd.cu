@@ -74,7 +74,7 @@ namespace {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int CPL = 8;           // columns of a lane's piece of a row
 constexpr int PW = 32 * CPL;     // columns of a warp's piece: 256
-constexpr int RING_BYTES = 384;  // a lane's ring of pieces in flight
+constexpr int RING_BYTES = 192;  // a lane's ring of pieces in flight
 
 // K2's routing pass
 constexpr int ROUTE_WARPS = 16;              // warps of a row's block, at most
@@ -83,10 +83,11 @@ constexpr int AHEAD = 8;                     // chunks of 32 terms loaded at onc
 
 // K2
 constexpr int DH_WARPS = 8;
+constexpr int SPW = 4;         // consecutive positions a warp owns
 
 // K3
-constexpr int VT = 16;         // vocab rows a block owns, a warp each
-constexpr int BROUND = 256;    // batch rows staged per round
+constexpr int VT = 32;         // vocab rows a block owns, a warp each
+constexpr int BROUND = 128;    // batch rows staged per round
 
 // repro/kernels/_common.py:bwd_factor, in f32 and in the same order
 __device__ __forceinline__ float bwd_factor(float y, float dy, int has_cap,
@@ -310,7 +311,8 @@ __global__ void route_kernel(Rows r, int* __restrict__ ofs,
 
   // pass 0 counts each routed row's terms in this warp's range; pass 1
   // places them (ascending v: the warp's chunks in order, and within a
-  // chunk the lanes in order)
+  // chunk the lanes in order, ranked among the lanes of their row with
+  // __match_any_sync)
   for (int pass = 0; pass < 2; ++pass) {
     for (int v0 = v_lo; v0 < v_hi; v0 += 32 * AHEAD) {
       float g[AHEAD];
@@ -327,14 +329,17 @@ __global__ void route_kernel(Rows r, int* __restrict__ ofs,
       }
 #pragma unroll
       for (int u = 0; u < AHEAD; ++u) {
+        if (pass == 0) {  // counts: the order of the additions is free
+          if (s[u] >= 0) atomicAdd(mine + s[u], 1);
+          continue;
+        }
         const unsigned peers = __match_any_sync(FULL, s[u]);
-        const bool lead = s[u] >= 0 && lane == __ffs(peers) - 1;
-        if (pass == 1 && s[u] >= 0) {
+        if (s[u] >= 0) {
           const int pos = mine[s[u]] + __popc(peers & lower);
           list[row + pos] = make_int2(v0 + 32 * u + lane, __float_as_int(g[u]));
         }
         __syncwarp();
-        if (lead) mine[s[u]] += __popc(peers);
+        if (s[u] >= 0 && lane == __ffs(peers) - 1) mine[s[u]] += __popc(peers);
         __syncwarp();
       }
     }
@@ -392,20 +397,26 @@ __global__ void __launch_bounds__(DH_WARPS * 32)
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const long long item = (long long)blockIdx.x * DH_WARPS + warp;
-  if (item >= (long long)r.S * r.B * nc) return;
-  const int c = (int)(item % nc);  // (s, b, c) order
-  const long long sb = item / nc;
-  const int b = (int)(sb % r.B);
-  const int s = (int)(sb / r.B);
-  const int lo = ofs[(size_t)b * (r.S + 1) + s];
-  const int n = ofs[(size_t)b * (r.S + 1) + s + 1] - lo;
+  const int groups = (r.S + SPW - 1) / SPW;
+  if (item >= (long long)groups * r.B * nc) return;
+  // (group, b, c) order: every row's first positions start first
+  const int c = (int)(item % nc);
+  const long long gb = item / nc;
+  const int b = (int)(gb % r.B);
+  const int s0 = (int)(gb / r.B) * SPW;
+  const int ns = min(SPW, r.S - s0);
+  // lane i <= ns: where bucket s0 + i starts in the row's list (i == ns:
+  // where the last one ends); the warp's buckets are one run of it
+  const int bound = lane <= ns ? ofs[(size_t)b * (r.S + 1) + s0 + lane] : 0;
+  const int lo = __shfl_sync(FULL, bound, 0);
+  const int n = __shfl_sync(FULL, bound, ns) - lo;
   const int c0 = c * P * PW;
   const bool live = piece_col<VEC>(c0, 0, lane) < r.D;
   const int2* terms = list + (size_t)b * r.V + lo;
   uint4* slots = rings + (size_t)warp * R * P * SW * 32 + lane;
   const uint64_t pol = evict_last();
 
-  // the bucket's entries [base, base + 96), a window of three registers
+  // the run's entries [base, base + 96), a window of three registers
   // (lane l holds entries base + l, base + 32 + l, base + 64 + l); the
   // third is loaded 32 terms before it is needed
   int base = 0;
@@ -434,8 +445,26 @@ __global__ void __launch_bounds__(DH_WARPS * 32)
   for (int p = 0; p < P; ++p)
 #pragma unroll
     for (int k = 0; k < CPL; ++k) acc[p][k] = 0.0f;
+  // the bucket being summed (q), and where it ends in the run
+  int q = 0;
+  int end = __shfl_sync(FULL, bound, 1) - lo;
+  float* out = dH + ((size_t)b * r.S + s0) * r.D;
+  auto flush = [&]() {  // bucket q is summed: store it, start the next
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      store_row<VEC>(out + (size_t)q * r.D, piece_col<VEC>(c0, p, lane),
+                     r.D, acc[p]);
+#pragma unroll
+      for (int k = 0; k < CPL; ++k) acc[p][k] = 0.0f;
+    }
+    ++q;
+    const int e = __shfl_sync(FULL, bound, min(q + 1, 31)) - lo;
+    end = q < ns ? e : n + 1;
+  };
+
   for (int j = 0; j < R - 1; ++j) issue(j);
-  for (int j = 0; j < n; ++j) {  // ascending v
+  for (int j = 0; j < n; ++j) {  // ascending v in each bucket
+    while (j == end) flush();    // (empty buckets too)
     if (j + R - 1 - base >= 96) {
       base += 32;
       w0 = w1;
@@ -455,11 +484,8 @@ __global__ void __launch_bounds__(DH_WARPS * 32)
       }
     }
   }
+  while (q < ns) flush();
   cp_wait<0>();
-  float* out = dH + ((size_t)b * r.S + s) * r.D;
-#pragma unroll
-  for (int p = 0; p < P; ++p)
-    store_row<VEC>(out, piece_col<VEC>(c0, p, lane), r.D, acc[p]);
 }
 
 // ---------------------------------------------------------------------------
@@ -474,9 +500,10 @@ __global__ void __launch_bounds__(VT * 32)
               float* __restrict__ db, Rows r, int tile0) {
   constexpr int R = Slot<T, VEC, P>::ring;
   constexpr int SW = Slot<T, VEC, P>::words;
-  __shared__ float g_round[BROUND][VT];
-  __shared__ int s_round[BROUND][VT];  // the routed row, or -1
-  extern __shared__ uint4 rings[];     // (VT, R, P, SW, 32)
+  // the round's g and routed row (or -1) of each vocab row, b fastest
+  __shared__ float g_round[VT][BROUND];
+  __shared__ int s_round[VT][BROUND];
+  extern __shared__ uint4 rings[];  // (VT, R, P, SW, 32)
   const int vl = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int v0 = (tile0 + blockIdx.x) * VT;
@@ -484,6 +511,8 @@ __global__ void __launch_bounds__(VT * 32)
   const int c0 = blockIdx.y * P * PW;
   const bool live = piece_col<VEC>(c0, 0, lane) < r.D;
   uint4* slots = rings + (size_t)vl * R * P * SW * 32 + lane;
+  const float* g_mine = g_round[vl];
+  const int* s_mine = s_round[vl];
 
   float acc[P][CPL];
 #pragma unroll
@@ -496,7 +525,7 @@ __global__ void __launch_bounds__(VT * 32)
     __syncthreads();  // the last round is consumed
 #pragma unroll 4
     for (int k = threadIdx.x; k < nb * VT; k += blockDim.x) {
-      const int bi = k / VT;
+      const int bi = k / VT;  // coalesced along v
       const int vv = k % VT;
       float g = 0.0f;
       int si = -1;
@@ -506,35 +535,50 @@ __global__ void __launch_bounds__(VT * 32)
                        r.cap);
         si = __ldcs(r.imax + bv);
       }
-      g_round[bi][vv] = g;
-      s_round[bi][vv] = routed(g, si, r.S);
+      g_round[vv][bi] = g;
+      s_round[vv][bi] = routed(g, si, r.S);
     }
     __syncthreads();
 
-    auto issue = [&](int bi) {  // batch row b0 + bi's pieces of H
-      if (bi < nb && live) {
-        const int si = s_round[bi][vl];
-        if (si >= 0) {
-          const T* row = H + ((size_t)(b0 + bi) * r.S + si) * r.D;
+    // The round's terms with g != 0 (the others add nothing, to dE or to
+    // db), in ascending b: a cursor is (first row of its chunk of 32, the
+    // chunk's rows not taken yet).
+    auto next = [&](int& chunk, unsigned& left) {  // -1 past the round
+      while (left == 0) {
+        chunk += 32;
+        if (chunk >= nb) return -1;
+        left = __ballot_sync(FULL, chunk + lane < nb &&
+                                       g_mine[chunk + lane] != 0.0f);
+      }
+      const int bi = chunk + __ffs(left) - 1;
+      left &= left - 1;
+      return bi;
+    };
+    auto issue = [&](int bi, int slot) {  // row b0 + bi's pieces of H
+      if (bi >= 0 && live && s_mine[bi] >= 0) {
+        const T* row = H + ((size_t)(b0 + bi) * r.S + s_mine[bi]) * r.D;
 #pragma unroll
-          for (int p = 0; p < P; ++p)
-            to_slot<T, VEC, false>(slots + ((bi % R) * P + p) * SW * 32,
-                                   row, piece_col<VEC>(c0, p, lane), r.D, 0);
-        }
+        for (int p = 0; p < P; ++p)
+          to_slot<T, VEC, false>(slots + (slot * P + p) * SW * 32, row,
+                                 piece_col<VEC>(c0, p, lane), r.D, 0);
       }
       cp_commit();
     };
-    for (int bi = 0; bi < R - 1; ++bi) issue(bi);
-    for (int bi = 0; bi < nb; ++bi) {  // ascending b
-      issue(bi + R - 1);
-      const float g = g_round[bi][vl];
+    int ic = -32, cc = -32;  // the issuing and the summing cursor
+    unsigned il = 0, cl = 0;
+    for (int t = 0; t < R - 1; ++t) issue(next(ic, il), t);
+    for (int t = 0;; ++t) {  // ascending b
+      const int bi = next(cc, cl);
+      if (bi < 0) break;
+      issue(next(ic, il), (t + R - 1) % R);
+      const float g = g_mine[bi];
       db_sum += g;
-      if (live && s_round[bi][vl] >= 0) {
+      if (live && s_mine[bi] >= 0) {
         cp_wait<R - 1>();  // this lane's pieces of row bi have landed
 #pragma unroll
         for (int p = 0; p < P; ++p) {
           float h[CPL];
-          from_slot<T, VEC>(slots + ((bi % R) * P + p) * SW * 32, h);
+          from_slot<T, VEC>(slots + ((t % R) * P + p) * SW * 32, h);
 #pragma unroll
           for (int k = 0; k < CPL; ++k) acc[p][k] += g * h[k];
         }
@@ -599,7 +643,7 @@ int launch_dh(const void* E, float* dH, int* ofs, int2* list, Rows r,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int nc = (r.D + P * PW - 1) / (P * PW);
-  const long long warps = (long long)r.S * r.B * nc;
+  const long long warps = (long long)((r.S + SPW - 1) / SPW) * r.B * nc;
   const long long blocks = (warps + DH_WARPS - 1) / DH_WARPS;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   dh_kernel<T, VEC, P><<<(unsigned)blocks, DH_WARPS * 32, smem, stream>>>(
