@@ -4,6 +4,108 @@ geometry, on the same inputs.
 
     python3 tools/bwd_breakdown.py ROOT               # the row-per-block design
     python3 tools/bwd_breakdown.py --redesign ROOT    # the routed design
+
+ROOT is a checkout of the port; its K1 makes the inputs. Each build is a
+copy of ROOT's source with lines replaced (a replacement must match once,
+or the tool stops). For the row-per-block design (``dh_kernel`` and
+``de_kernel`` of one block per (row, column slice)):
+
+* ``shipped``: the source as it is;
+* ``no_gathers``: the loads of E (K2) and H (K3) rows replaced by a
+  value already in registers;
+* ``no_accumulation``: K2's read-modify-write of its shared-memory
+  accumulator replaced by a sum in a register; K3's FMAs into its
+  register sums replaced by an XOR of the loaded words (volatile loads,
+  all of a step issued before the XORs, so that they stay);
+* ``staging_only``: only the staging of g and i_max (K2: no scan of the
+  round; K3: no batch row of the round is walked).
+
+With ``--redesign`` (the routing pass and the warps that sum in
+registers from a ``cp.async`` ring), the builds (a SHA-256 of each
+output beside each time; all give the same bits but ``route_only``'s dH):
+
+* ``shipped``: the source as it is (three pieces of 256 columns a lane
+  at D 768, one warp a row; rings of 192 bytes a lane; a K2 warp owns 4
+  consecutive positions);
+* ``route_only``: K2's routing pass alone (its dH is not written);
+* ``spw_1``: a K2 warp owns one position (one bucket), not a run of 4;
+* ``ring_384``: rings of 384 bytes a lane (8 slots at D 768, not 4), so
+  half the warps fit an SM (K2 16, K3 blocks of 16 vocab rows staging
+  256 batch rows a round);
+* ``k3_every_b``: K3 walking every b of a round, not only those with
+  g != 0;
+* ``one_piece``: one 256-column piece a lane (three warps a row of D 768).
+
+It prints one JSON line per build, kernel and row (``chip_smoke.py``'s
+"train" and "table1" K2/K3 rows; with ``--redesign`` all four) with the median ms of CUDA-event
+windows and their spread, the SM clock (MHz) and the power draw (W) that
+``nvidia-smi`` sampled every 100 ms over 1 s of back-to-back launches,
+then the card's name and power limit. Builds other than ``shipped`` give
+wrong results by design: only their times mean anything.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+TOOL_ROOT = Path(__file__).resolve().parents[1]
+
+# K2: the E loads of one unrolled step
+K2_GATHER = """          load_e<CPL, VEC>(e_col + (size_t)(v0 + js[u]) * r.D, n, e[u]);"""
+K2_NO_GATHER = """          for (int k = 0; k < CPL; ++k) e[u][k] = (float)js[u];"""
+# K2: the accumulation of one term into the shared-memory accumulator
+K2_ACC_START = "        const float g = g_round[js[u]];\n"
+K2_ACC_END = """          for (int k = 0; k < CPL; ++k)
+            if (k < n) a[k] += g * e[u][k];
+        }
+"""
+K2_NO_ACC = "        sink += e[u][0] + e[u][CPL - 1];\n"
+K2_LOOP = "  for (int v0 = 0; v0 < r.V; v0 += ROUND) {\n"
+K2_SINK = "  float sink = 0.0f;\n" + K2_LOOP
+K2_STORE = "  float* out = dH + ((size_t)b * r.S + s_lo) * r.D + d0;\n"
+K2_SINK_OUT = ("  if (sink == 1.2345e-30f) acc[threadIdx.x] = sink;\n"
+               + K2_STORE)
+K2_SCAN = "    int word = 0;\n"
+K2_NO_SCAN = "    int word = ROUND / 32;\n"
+# K3
+K3_GATHER = """          load_cols<VEC>(H + ((size_t)(b0 + bi + u) * r.S + s[u]) * r.D + c0,
+                         n, h[u]);"""
+K3_NO_GATHER = """          for (int k = 0; k < CPT; ++k) h[u][k] = g[u];"""
+K3_FMA = "          for (int k = 0; k < CPT; ++k) acc[k] += g[u] * h[u][k];\n"
+K3_NO_FMA = ("          for (int k = 0; k < 1; ++k)\n"
+             "            sink ^= wv[u][0] ^ wv[u][1] ^ wv[u][2] ^ wv[u][3];\n")
+K3_H = "      float h[UNROLL][CPT];\n"
+K3_WV = "      unsigned wv[UNROLL][4] = {};\n"
+K3_NO_FMA_LOAD = """          asm volatile("ld.global.v4.u32 {%0, %1, %2, %3}, [%4];"
+                       : "=r"(wv[u][0]), "=r"(wv[u][1]), "=r"(wv[u][2]),
+                         "=r"(wv[u][3])
+                       : "l"(H + ((size_t)(b0 + bi + u) * r.S + s[u])
+                                 * r.D + c0));"""
+K3_OUT = "  if (v >= r.V) return;\n"
+K3_SINK_OUT = "  acc[0] += (float)(sink & 1u);\n" + K3_OUT
+K3_ACC_DECL = "  float db_sum = 0.0f;\n"
+K3_SINK = K3_ACC_DECL + "  unsigned sink = 0;\n"
+K3_WALK = "    const int nb = min(BROUND, r.B - b0);\n"
+K3_NO_WALK = "    const int nb = 0;\n"
+
+BUILDS = {
+    "shipped": [],
+    "no_gathers": [(K2_GATHER, K2_NO_GATHER), (K3_GATHER, K3_NO_GATHER)],
+    "no_accumulation": [(K2_LOOP, K2_SINK), (K2_STORE, K2_SINK_OUT),
+                        ("acc", None),
+                        (K3_ACC_DECL, K3_SINK), (K3_H, K3_WV),
+                        (K3_GATHER, K3_NO_FMA_LOAD), (K3_FMA, K3_NO_FMA),
+                        (K3_OUT, K3_SINK_OUT)],
+    "staging_only": [(K2_SCAN, K2_NO_SCAN), (K3_WALK, K3_NO_WALK)],
+}
+ROWS = ("train", "table1")
+
+# the routed design
 ONE_PIECE = ("int pieces(int D) { return D > PW ? 3 : 1; }",
              "int pieces(int D) { return 1; }")
 ROUTE_ONLY = ("""  const size_t smem = ring_smem(DH_WARPS);
