@@ -9,10 +9,12 @@ Phases, run in this order, each printing one JSON line:
 2. build   — compile the CUDA kernels from ``src/repro_torch/csrc``.
 3. kernels — each kernel against its plain PyTorch version on the card
              (K2 and K3 also against the dense oracle, and bit for bit
-             against a second launch), K6 also past its old k limit of
-             256, and past the old limits of the head: K2 at S = 1729 and
-             2048 (its S ranges giving the bits of one range), K1, K2 and
-             K3 at B = 65536. Each K1 case runs twice (the same bits) on
+             against a second launch, also on sparse, skewed,
+             one-position and empty-bucket routings), K6 also past its
+             old k limit of 256, and past the old limits of the head: K2
+             at S = 1729 and 2048 (and launched for a longer sequence
+             than i_max reaches: the same bits, zeros past it), K1, K2
+             and K3 at B = 65536. Each K1 case runs twice (the same bits) on
              the path its rule gives ("tma", "wmma" or "f32"), also at
              full width (D 768, V 30522: S 48, 900, 1729), on masks that
              empty whole 128-position chunks and on exact ties, where
@@ -484,23 +486,24 @@ def k6_compare(torch, q, C, k, exact):
 
 
 # Past the port's old limits, each at the limit + 1 (and the limit itself):
-# K2 at S = 1729 and 2048, its accumulator cut into S ranges (B 2, D 768,
-# V 30522, bf16 as the train step runs it); K1, K2 and K3 at B = 65536,
-# launched in chunks of 65535 rows, on a narrow head.
+# K2 at S = 1729 and 2048, past the 1728 rows that its first design's
+# shared-memory accumulator held (B 2, D 768, V 30522, bf16 as the train
+# step runs it); K1, K2 and K3 at B = 65536, past the 65535 rows of a
+# grid's y dimension, on a narrow head.
 LONG_S = [(2, 1728, 768, 30522), (2, 1729, 768, 30522),
           (2, 2048, 768, 30522)]
 WIDE_B = (65536, 8, 8, 64)
 # K2 launched with a longer seq_len than i_max reaches: its rows below S
-# must be the bits of the shorter launch (one range against two), the rest
-# zero
+# must be the bits of the shorter launch, the rest zero
 TILED_S = 3500
 
 
 def limit_cases(torch):
-    """K2 past one accumulator and K1/K2/K3 past 65535 batch rows, each
+    """K2 past 1728 positions and K1/K2/K3 past 65535 batch rows, each
     against its plain version (K2/K3 within BWD_TOL and bit for bit across
-    two launches; at B = 65536 also against the dense oracle); K2's S
-    ranges give the bits of one range."""
+    two launches; at B = 65536 also against the dense oracle); K2 launched
+    for TILED_S positions gives the bits of the S-position launch below S
+    and zeros above."""
     from repro_torch.kernels import sparton_bwd as kb
 
     rows = []

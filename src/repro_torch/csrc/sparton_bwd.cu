@@ -247,6 +247,26 @@ __device__ __forceinline__ void store_row(float* row, int c, int D,
 // K2, routing pass
 // ---------------------------------------------------------------------------
 
+// the row of a term that routes nowhere, above every row (keys are
+// row << 5 | lane)
+constexpr int NOWHERE = 0x7fffffff;
+
+// The 32 keys of a warp in ascending order (bitonic sort over shuffles):
+// lane i returns the i-th smallest.
+__device__ __forceinline__ unsigned long long sort32(unsigned long long key,
+                                                     int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const unsigned long long other = __shfl_xor_sync(FULL, key, j);
+      const bool keep_min = ((lane & j) == 0) == ((lane & k) == 0);
+      key = keep_min == (other < key) ? other : key;
+    }
+  }
+  return key;
+}
+
 // a[0 .. n) replaced by its exclusive prefix sums, by the whole block
 // (blockDim.x a multiple of 32); a may lie in shared or global memory
 __device__ void block_exclusive_scan(int* a, int n) {
@@ -307,12 +327,11 @@ __global__ void route_kernel(Rows r, int* __restrict__ ofs,
   const int v_lo = min(r.V, warp * per);
   const int v_hi = min(r.V, v_lo + per);
   int* mine = table + (size_t)warp * r.S;
-  const unsigned lower = (1u << lane) - 1;
 
   // pass 0 counts each routed row's terms in this warp's range; pass 1
   // places them (ascending v: the warp's chunks in order, and within a
-  // chunk the lanes in order, ranked among the lanes of their row with
-  // __match_any_sync)
+  // chunk the lanes in order, ranked among the lanes of their row by a
+  // sort of the chunk)
   for (int pass = 0; pass < 2; ++pass) {
     for (int v0 = v_lo; v0 < v_hi; v0 += 32 * AHEAD) {
       float g[AHEAD];
@@ -333,13 +352,25 @@ __global__ void route_kernel(Rows r, int* __restrict__ ofs,
           if (s[u] >= 0) atomicAdd(mine + s[u], 1);
           continue;
         }
-        const unsigned peers = __match_any_sync(FULL, s[u]);
-        if (s[u] >= 0) {
-          const int pos = mine[s[u]] + __popc(peers & lower);
-          list[row + pos] = make_int2(v0 + 32 * u + lane, __float_as_int(g[u]));
+        // the chunk's terms sorted by (row, lane): lane i holds the i-th,
+        // which is the rank-th of its row's (rows that route nowhere last)
+        const unsigned long long key = sort32(
+            (unsigned long long)(s[u] < 0 ? NOWHERE : s[u]) << 5 | lane,
+            lane);
+        const int si = (int)(key >> 5);
+        const int src = (int)(key & 31);
+        const int prev = __shfl_up_sync(FULL, si, 1);
+        const int next = __shfl_down_sync(FULL, si, 1);
+        const unsigned heads = __ballot_sync(FULL, lane == 0 || prev != si);
+        const unsigned upto = lane == 31 ? FULL : (2u << lane) - 1;
+        const int rank = lane - (31 - __clz(heads & upto));
+        const float gs = __shfl_sync(FULL, g[u], src);
+        if (si != NOWHERE) {
+          list[row + mine[si] + rank] =
+              make_int2(v0 + 32 * u + src, __float_as_int(gs));
         }
         __syncwarp();
-        if (s[u] >= 0 && lane == __ffs(peers) - 1) mine[s[u]] += __popc(peers);
+        if (si != NOWHERE && (lane == 31 || next != si)) mine[si] += rank + 1;
         __syncwarp();
       }
     }

@@ -275,6 +275,8 @@ def main() -> int:
                                   dE.data_ptr(), db.data_ptr(), B, S, D, V,
                                   1, 0.0, 1, stream), (dE, db))}
             for kernel, (fn, outs) in runs.items():
+                for t in outs:   # no digest of an earlier build's output
+                    t.zero_()
                 if fn() != 0:
                     raise SystemExit(f"bwd_breakdown: {name} {kernel} "
                                      "failed to launch")
