@@ -83,7 +83,6 @@ constexpr int AHEAD = 8;                     // chunks of 32 terms loaded at onc
 
 // K2
 constexpr int DH_WARPS = 8;
-constexpr int SPW = 4;         // consecutive positions a warp owns
 
 // K3
 constexpr int VT = 32;         // vocab rows a block owns, a warp each
@@ -247,26 +246,6 @@ __device__ __forceinline__ void store_row(float* row, int c, int D,
 // K2, routing pass
 // ---------------------------------------------------------------------------
 
-// the row of a term that routes nowhere, above every row (keys are
-// row << 5 | lane)
-constexpr int NOWHERE = 0x7fffffff;
-
-// The 32 keys of a warp in ascending order (bitonic sort over shuffles):
-// lane i returns the i-th smallest.
-__device__ __forceinline__ unsigned long long sort32(unsigned long long key,
-                                                     int lane) {
-#pragma unroll
-  for (int k = 2; k <= 32; k <<= 1) {
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      const unsigned long long other = __shfl_xor_sync(FULL, key, j);
-      const bool keep_min = ((lane & j) == 0) == ((lane & k) == 0);
-      key = keep_min == (other < key) ? other : key;
-    }
-  }
-  return key;
-}
-
 // a[0 .. n) replaced by its exclusive prefix sums, by the whole block
 // (blockDim.x a multiple of 32); a may lie in shared or global memory
 __device__ void block_exclusive_scan(int* a, int n) {
@@ -327,11 +306,12 @@ __global__ void route_kernel(Rows r, int* __restrict__ ofs,
   const int v_lo = min(r.V, warp * per);
   const int v_hi = min(r.V, v_lo + per);
   int* mine = table + (size_t)warp * r.S;
+  const unsigned lower = (1u << lane) - 1;
 
   // pass 0 counts each routed row's terms in this warp's range; pass 1
   // places them (ascending v: the warp's chunks in order, and within a
-  // chunk the lanes in order, ranked among the lanes of their row by a
-  // sort of the chunk)
+  // chunk the lanes in order, ranked among the lanes of their row with
+  // __match_any_sync)
   for (int pass = 0; pass < 2; ++pass) {
     for (int v0 = v_lo; v0 < v_hi; v0 += 32 * AHEAD) {
       float g[AHEAD];
@@ -352,25 +332,13 @@ __global__ void route_kernel(Rows r, int* __restrict__ ofs,
           if (s[u] >= 0) atomicAdd(mine + s[u], 1);
           continue;
         }
-        // the chunk's terms sorted by (row, lane): lane i holds the i-th,
-        // which is the rank-th of its row's (rows that route nowhere last)
-        const unsigned long long key = sort32(
-            (unsigned long long)(s[u] < 0 ? NOWHERE : s[u]) << 5 | lane,
-            lane);
-        const int si = (int)(key >> 5);
-        const int src = (int)(key & 31);
-        const int prev = __shfl_up_sync(FULL, si, 1);
-        const int next = __shfl_down_sync(FULL, si, 1);
-        const unsigned heads = __ballot_sync(FULL, lane == 0 || prev != si);
-        const unsigned upto = lane == 31 ? FULL : (2u << lane) - 1;
-        const int rank = lane - (31 - __clz(heads & upto));
-        const float gs = __shfl_sync(FULL, g[u], src);
-        if (si != NOWHERE) {
-          list[row + mine[si] + rank] =
-              make_int2(v0 + 32 * u + src, __float_as_int(gs));
+        const unsigned peers = __match_any_sync(FULL, s[u]);
+        if (s[u] >= 0) {
+          const int pos = mine[s[u]] + __popc(peers & lower);
+          list[row + pos] = make_int2(v0 + 32 * u + lane, __float_as_int(g[u]));
         }
         __syncwarp();
-        if (si != NOWHERE && (lane == 31 || next != si)) mine[si] += rank + 1;
+        if (s[u] >= 0 && lane == __ffs(peers) - 1) mine[s[u]] += __popc(peers);
         __syncwarp();
       }
     }
@@ -428,26 +396,20 @@ __global__ void __launch_bounds__(DH_WARPS * 32)
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const long long item = (long long)blockIdx.x * DH_WARPS + warp;
-  const int groups = (r.S + SPW - 1) / SPW;
-  if (item >= (long long)groups * r.B * nc) return;
-  // (group, b, c) order: every row's first positions start first
-  const int c = (int)(item % nc);
-  const long long gb = item / nc;
-  const int b = (int)(gb % r.B);
-  const int s0 = (int)(gb / r.B) * SPW;
-  const int ns = min(SPW, r.S - s0);
-  // lane i <= ns: where bucket s0 + i starts in the row's list (i == ns:
-  // where the last one ends); the warp's buckets are one run of it
-  const int bound = lane <= ns ? ofs[(size_t)b * (r.S + 1) + s0 + lane] : 0;
-  const int lo = __shfl_sync(FULL, bound, 0);
-  const int n = __shfl_sync(FULL, bound, ns) - lo;
+  if (item >= (long long)r.S * r.B * nc) return;
+  const int c = (int)(item % nc);  // (s, b, c) order
+  const long long sb = item / nc;
+  const int b = (int)(sb % r.B);
+  const int s = (int)(sb / r.B);
+  const int lo = ofs[(size_t)b * (r.S + 1) + s];
+  const int n = ofs[(size_t)b * (r.S + 1) + s + 1] - lo;
   const int c0 = c * P * PW;
   const bool live = piece_col<VEC>(c0, 0, lane) < r.D;
   const int2* terms = list + (size_t)b * r.V + lo;
   uint4* slots = rings + (size_t)warp * R * P * SW * 32 + lane;
   const uint64_t pol = evict_last();
 
-  // the run's entries [base, base + 96), a window of three registers
+  // the bucket's entries [base, base + 96), a window of three registers
   // (lane l holds entries base + l, base + 32 + l, base + 64 + l); the
   // third is loaded 32 terms before it is needed
   int base = 0;
@@ -476,26 +438,8 @@ __global__ void __launch_bounds__(DH_WARPS * 32)
   for (int p = 0; p < P; ++p)
 #pragma unroll
     for (int k = 0; k < CPL; ++k) acc[p][k] = 0.0f;
-  // the bucket being summed (q), and where it ends in the run
-  int q = 0;
-  int end = __shfl_sync(FULL, bound, 1) - lo;
-  float* out = dH + ((size_t)b * r.S + s0) * r.D;
-  auto flush = [&]() {  // bucket q is summed: store it, start the next
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      store_row<VEC>(out + (size_t)q * r.D, piece_col<VEC>(c0, p, lane),
-                     r.D, acc[p]);
-#pragma unroll
-      for (int k = 0; k < CPL; ++k) acc[p][k] = 0.0f;
-    }
-    ++q;
-    const int e = __shfl_sync(FULL, bound, min(q + 1, 31)) - lo;
-    end = q < ns ? e : n + 1;
-  };
-
   for (int j = 0; j < R - 1; ++j) issue(j);
-  for (int j = 0; j < n; ++j) {  // ascending v in each bucket
-    while (j == end) flush();    // (empty buckets too)
+  for (int j = 0; j < n; ++j) {  // ascending v
     if (j + R - 1 - base >= 96) {
       base += 32;
       w0 = w1;
@@ -515,8 +459,11 @@ __global__ void __launch_bounds__(DH_WARPS * 32)
       }
     }
   }
-  while (q < ns) flush();
   cp_wait<0>();
+  float* out = dH + ((size_t)b * r.S + s) * r.D;
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    store_row<VEC>(out, piece_col<VEC>(c0, p, lane), r.D, acc[p]);
 }
 
 // ---------------------------------------------------------------------------
@@ -674,7 +621,7 @@ int launch_dh(const void* E, float* dH, int* ofs, int2* list, Rows r,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int nc = (r.D + P * PW - 1) / (P * PW);
-  const long long warps = (long long)((r.S + SPW - 1) / SPW) * r.B * nc;
+  const long long warps = (long long)r.S * r.B * nc;
   const long long blocks = (warps + DH_WARPS - 1) / DH_WARPS;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   dh_kernel<T, VEC, P><<<(unsigned)blocks, DH_WARPS * 32, smem, stream>>>(
