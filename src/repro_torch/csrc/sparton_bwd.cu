@@ -27,43 +27,51 @@
 // What bounds them on the H100. Each term is one FMA per column (2 f32 FLOP)
 // and needs one row of E (K2) or of H (K3), 1.5 KB in bf16 at D 768. At
 // random init nearly every term has g != 0, so at the train shape (B 384,
-// S 256, V 30522) both read 18 GB of rows against a bound of 0.27 ms (the
-// f32 FMAs). A row cannot be shared between the owners a block holds (an
-// owner needs its whole D in registers, and the ~85 owners an SM holds see
-// different rows), so the rows come from L2, and the design is about
-// keeping them there and reading each (b, v) input once.
+// S 256, V 30522) each kernel gathers 18 GB of rows against a bound of
+// 0.27 ms (the f32 FMAs). A row cannot be shared between the owners an SM
+// holds (an owner keeps its whole D in registers, and the ~64 owners of an
+// SM want different rows), so the rows come from L2 at best, and the
+// design is about keeping enough of them in flight, and keeping them in
+// L2, while each (b, v) input is read once.
+//
+// Both kernels sum from a ring in shared memory. A lane owns 8 columns of
+// a piece of 256 (three pieces at D 768, so one warp owns a whole row;
+// one piece where D <= 256) and copies its 16 bytes of each term's row
+// with cp.async into a ring of RING_BYTES that only it reads: it issues
+// the copies of the next terms while it sums the current one, with no
+// register held by a copy in flight and no barrier between lanes. Rings
+// of 192 bytes let 32 warps share an SM; 384 bytes (16 warps) was slower.
 //
 // K2 design: two kernels.
 //  * route_kernel, one block per batch row b: g and the routed row s of
 //    every term, then a stable counting sort of the terms with g != 0 and
 //    s in [0, S) by s: ofs[b, s] .. ofs[b, s + 1] index bucket s of the
 //    row's list, entries (v, g) in ascending v. Each warp sorts a
-//    contiguous range of v (its per-row counts in shared memory; lanes that
-//    share an s find each other with __match_any_sync), so a bucket holds
-//    the warps' ranges in order. dy, y and i_max are read twice (count,
-//    then place) and g computed once per read: 0.05-0.1 ms at the train
-//    shape. Where (W + 1) * S counts do not fit shared memory, one warp
-//    per row counts in place in ofs.
-//  * dh_kernel, one warp per (bucket s of row b, 256 columns): its lanes
-//    own 8 columns each and walk the bucket in ascending v, 8 rows of E in
-//    flight (16-byte loads, with an L2 evict-last hint so that E, 47 MB in
-//    bf16, stays in the 50 MB L2 while dH streams past), and store the sums
-//    once (streaming stores). Warps run in (s, b) order: every row's bucket
-//    0 (where a trained model's [CLS] collects many terms) starts first, so
-//    a heavy bucket runs beside the others instead of after them.
+//    contiguous range of v: it counts (shared-memory atomics), the block
+//    turns the counts into each warp's start in each bucket, and the warp
+//    places its terms in order (the lanes of a chunk that share an s find
+//    each other with __match_any_sync, and the first of them takes their
+//    places from the row's cursor with one atomic). dy, y and i_max are
+//    read twice (count, then place). Where (W + 1) * S counts do not fit shared
+//    memory, one warp per row counts in place in ofs.
+//  * dh_kernel, one warp per (bucket s of row b, column block): it walks
+//    its bucket in ascending v through its ring (E copied with an L2
+//    evict-last hint) and stores the sums once (streaming stores). Warps
+//    run in (s, b) order, so every row's bucket 0 (where a trained
+//    model's [CLS] collects many terms) starts first and a heavy bucket
+//    runs beside the others, not after them.
 //
-// K3 design: one warp per (vocab row v, 256 columns); a block holds VT
-// vocab rows and the column warps of each (at most three; a wider D takes
-// several column passes). The block walks b in ascending order in rounds of
-// BROUND batch rows: its threads stage g and the routed row of the round's
-// (b, v) in shared memory (coalesced along v), loading the next round's
-// dy, y and i_max while the warps sum the current one. Each warp gathers
-// its H-row pieces 8 batch rows at a time (16-byte loads) and adds them in
-// b order; the column-0 warp of each vocab row also sums db. H (151 MB at
-// the train shape) does not fit L2, so the blocks are launched in waves of
-// as many as the card holds at once: the blocks of a wave start together
-// and walk b together, and the rows of H they gather, a few batch rows'
-// worth, stay in L2.
+// K3 design: one warp per (vocab row v, column block); a block holds VT
+// vocab rows. The block walks b in ascending order in rounds of BROUND
+// batch rows: its threads stage g and the routed row of the round's
+// (b, v) in shared memory (read coalesced along v, stored b-fastest),
+// then each warp walks the round's terms with g != 0 (ballots over 32
+// rows at a time; the others add nothing to dE or db) through its ring,
+// adding H-row pieces in b order; the column-0 warp of each vocab row also
+// sums db. H (151 MB at the train shape) does not fit L2, so the blocks
+// are launched in waves of as many as the card holds at once: the blocks
+// of a wave start together and walk b together, and the rows of H they
+// gather, a few batch rows' worth, stay in L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -332,14 +340,19 @@ __global__ void route_kernel(Rows r, int* __restrict__ ofs,
           if (s[u] >= 0) atomicAdd(mine + s[u], 1);
           continue;
         }
+        // the lanes of each row: the first takes their places from the
+        // row's cursor (an atomic, so that no barrier orders the cursor's
+        // reads and writes across chunks) and passes its start on
         const unsigned peers = __match_any_sync(FULL, s[u]);
+        const int first = __ffs(peers) - 1;
+        int start = 0;
+        if (s[u] >= 0 && lane == first)
+          start = atomicAdd(mine + s[u], __popc(peers));
+        start = __shfl_sync(FULL, start, first);
         if (s[u] >= 0) {
-          const int pos = mine[s[u]] + __popc(peers & lower);
-          list[row + pos] = make_int2(v0 + 32 * u + lane, __float_as_int(g[u]));
+          list[row + start + __popc(peers & lower)] =
+              make_int2(v0 + 32 * u + lane, __float_as_int(g[u]));
         }
-        __syncwarp();
-        if (s[u] >= 0 && lane == __ffs(peers) - 1) mine[s[u]] += __popc(peers);
-        __syncwarp();
       }
     }
     __syncthreads();

@@ -28,8 +28,8 @@ output beside each time; all give the same bits but ``route_only``'s dH):
   at D 768, one warp a row; rings of 192 bytes a lane);
 * ``route_only``: K2's routing pass alone (its dH is not written, so
   zero);
-* ``route_only_w8``, ``route_only_w32``: the same with 8 or 32 warps a
-  row, not 16;
+* ``route_only_w32``: the same with 32 warps a row, not 16;
+* ``route_w32``: K2 whole with 32 routing warps a row;
 * ``ring_384``: rings of 384 bytes a lane (8 slots at D 768, not 4), so
   half the warps fit an SM (K2 16, K3 blocks of 16 vocab rows staging
   256 batch rows a round);
@@ -113,7 +113,6 @@ ROUTE_ONLY = ("""  const size_t smem = ring_smem(DH_WARPS);
 """, """  return (int)cudaSuccess;
   const size_t smem = ring_smem(DH_WARPS);
 """)
-ROUTE_W8 = ("constexpr int ROUTE_WARPS = 16;", "constexpr int ROUTE_WARPS = 8;")
 ROUTE_W32 = ("constexpr int ROUTE_WARPS = 16;",
              "constexpr int ROUTE_WARPS = 32;")
 RING_384 = [("constexpr int RING_BYTES = 192;",
@@ -141,8 +140,8 @@ K3_EVERY_B = """    for (int t = 0; t < R - 1; ++t) issue(t < nb ? t : -1, t);
 REDESIGN = {
     "shipped": [],
     "route_only": [ROUTE_ONLY],
-    "route_only_w8": [ROUTE_ONLY, ROUTE_W8],
     "route_only_w32": [ROUTE_ONLY, ROUTE_W32],
+    "route_w32": [ROUTE_W32],
     "ring_384": RING_384,
     "k3_every_b": [K3_CURSORS],
     "one_piece": [ONE_PIECE],
