@@ -85,12 +85,14 @@ constexpr int PW = 32 * CPL;     // columns of a warp's piece: 256
 constexpr int RING_BYTES = 192;  // a lane's ring of pieces in flight
 
 // K2's routing pass
-constexpr int ROUTE_WARPS = 16;              // warps of a row's block, at most
+constexpr int ROUTE_WARPS = 32;              // warps of a row's block, at most
 constexpr size_t ROUTE_SMEM = 200 * 1024;    // its counts' shared memory
 constexpr int AHEAD = 8;                     // chunks of 32 terms loaded at once
 
 // K2
 constexpr int DH_WARPS = 8;
+constexpr int HEAVY = 1024;    // terms of a bucket the helper warps take
+constexpr int HELP_RING = 32;  // a helper lane's slots (4 bytes each)
 
 // K3
 constexpr int VT = 32;         // vocab rows a block owns, a warp each
@@ -164,6 +166,16 @@ __device__ __forceinline__ void cp16(void* dst, const void* src,
                  "l"(src)
                  : "memory");
   }
+}
+
+// 4 bytes global -> shared with the L2 evict-last policy pol
+__device__ __forceinline__ void cp4(void* dst, const void* src,
+                                    uint64_t pol) {
+  asm volatile(
+      "cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, %2;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "l"(pol)
+      : "memory");
 }
 
 __device__ __forceinline__ void cp_commit() {
@@ -297,7 +309,7 @@ __device__ void block_exclusive_scan(int* a, int n) {
 // live in ofs[b, 1 ..] itself.
 template <bool SMEM>
 __global__ void route_kernel(Rows r, int* __restrict__ ofs,
-                             int2* __restrict__ list) {
+                             int2* __restrict__ list, int* __restrict__ heavy) {
   extern __shared__ int smem[];
   const int W = blockDim.x / 32;
   const int b = blockIdx.x;
@@ -370,6 +382,12 @@ __global__ void route_kernel(Rows r, int* __restrict__ ofs,
       }
       __syncthreads();
     }
+    // buckets past HEAVY terms go to the helper warps: appended to
+    // heavy[1 ..] as (b, s), in no fixed order (each one's sums have one)
+    for (int s = threadIdx.x; s < r.S; s += blockDim.x)
+      if (tot[s] > HEAVY)
+        reinterpret_cast<int2*>(heavy + 2)[atomicAdd(heavy, 1)] =
+            make_int2(b, s);
     block_exclusive_scan(tot, r.S);
     if (W > 1) {
       for (int i = threadIdx.x; i < W * r.S; i += blockDim.x)
@@ -398,33 +416,15 @@ __device__ __forceinline__ int piece_col(int c0, int p, int lane) {
   return c0 + p * PW + (VEC ? lane * CPL : lane);
 }
 
-template <typename T, bool VEC, int P>
-__global__ void __launch_bounds__(DH_WARPS * 32)
-    dh_kernel(const T* __restrict__ E, float* __restrict__ dH,
-              const int* __restrict__ ofs, const int2* __restrict__ list,
-              Rows r, int nc) {
-  constexpr int R = Slot<T, VEC, P>::ring;
-  constexpr int SW = Slot<T, VEC, P>::words;
-  extern __shared__ uint4 rings[];  // (DH_WARPS, R, P, SW, 32)
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const long long item = (long long)blockIdx.x * DH_WARPS + warp;
-  if (item >= (long long)r.S * r.B * nc) return;
-  const int c = (int)(item % nc);  // (s, b, c) order
-  const long long sb = item / nc;
-  const int b = (int)(sb % r.B);
-  const int s = (int)(sb / r.B);
-  const int lo = ofs[(size_t)b * (r.S + 1) + s];
-  const int n = ofs[(size_t)b * (r.S + 1) + s + 1] - lo;
-  const int c0 = c * P * PW;
-  const bool live = piece_col<VEC>(c0, 0, lane) < r.D;
-  const int2* terms = list + (size_t)b * r.V + lo;
-  uint4* slots = rings + (size_t)warp * R * P * SW * 32 + lane;
-  const uint64_t pol = evict_last();
-
-  // the bucket's entries [base, base + 96), a window of three registers
-  // (lane l holds entries base + l, base + 32 + l, base + 64 + l); the
-  // third is loaded 32 terms before it is needed
+// One warp's walk of a bucket's n terms (entries (v, g) in ascending v)
+// through a ring of R slots: issue(v, slot) starts the copies of a term's
+// row into a slot, sum(g, slot) adds a landed slot times g.
+template <int R, class Issue, class Sum>
+__device__ __forceinline__ void walk(const int2* __restrict__ terms, int n,
+                                     int lane, Issue issue, Sum sum) {
+  // entries [base, base + 96), a window of three registers (lane l holds
+  // entries base + l, base + 32 + l, base + 64 + l); the third is loaded
+  // 32 terms before it is needed
   int base = 0;
   int2 w0 = lane < n ? terms[lane] : make_int2(0, 0);
   int2 w1 = 32 + lane < n ? terms[32 + lane] : make_int2(0, 0);
@@ -434,24 +434,12 @@ __global__ void __launch_bounds__(DH_WARPS * 32)
     const int2 w = d < 32 ? w0 : d < 64 ? w1 : w2;
     return __shfl_sync(FULL, want_g ? w.y : w.x, d & 31);
   };
-  auto issue = [&](int j) {  // term j's pieces of its row of E
+  auto start = [&](int j) {
     const int v = entry(j, false);
-    if (j < n && live) {
-#pragma unroll
-      for (int p = 0; p < P; ++p)
-        to_slot<T, VEC, true>(slots + ((j % R) * P + p) * SW * 32,
-                              E + (size_t)v * r.D,
-                              piece_col<VEC>(c0, p, lane), r.D, pol);
-    }
+    if (j < n) issue(v, j % R);
     cp_commit();
   };
-
-  float acc[P][CPL];
-#pragma unroll
-  for (int p = 0; p < P; ++p)
-#pragma unroll
-    for (int k = 0; k < CPL; ++k) acc[p][k] = 0.0f;
-  for (int j = 0; j < R - 1; ++j) issue(j);
+  for (int j = 0; j < R - 1; ++j) start(j);
   for (int j = 0; j < n; ++j) {  // ascending v
     if (j + R - 1 - base >= 96) {
       base += 32;
@@ -459,20 +447,116 @@ __global__ void __launch_bounds__(DH_WARPS * 32)
       w1 = w2;
       w2 = base + 64 + lane < n ? terms[base + 64 + lane] : make_int2(0, 0);
     }
-    issue(j + R - 1);
-    cp_wait<R - 1>();  // this lane's pieces of term j have landed
-    const float g = __int_as_float(entry(j, true));
-    if (live) {
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        float e[CPL];
-        from_slot<T, VEC>(slots + ((j % R) * P + p) * SW * 32, e);
-#pragma unroll
-        for (int k = 0; k < CPL; ++k) acc[p][k] += g * e[k];
-      }
-    }
+    start(j + R - 1);
+    cp_wait<R - 1>();  // this lane's copies of term j have landed
+    sum(__int_as_float(entry(j, true)), j % R);
   }
   cp_wait<0>();
+}
+
+// The first helper_blocks blocks are helpers: their warps sum the heavy
+// buckets (more than HEAVY terms, listed by the routing pass), each cut
+// into column pieces of 4 bytes a lane (64 columns in bf16, 32 in f32) so
+// that a dozen warps share one; the other warps sum one bucket each, in
+// (s, b, column block) order, and leave the heavy ones (VEC only: without
+// VEC there are no helpers and no bucket is left).
+template <typename T, bool VEC, int P>
+__global__ void __launch_bounds__(DH_WARPS * 32)
+    dh_kernel(const T* __restrict__ E, float* __restrict__ dH,
+              const int* __restrict__ ofs, const int2* __restrict__ list,
+              const int* __restrict__ heavy, Rows r, int nc,
+              int helper_blocks) {
+  constexpr int R = Slot<T, VEC, P>::ring;
+  constexpr int SW = Slot<T, VEC, P>::words;
+  extern __shared__ uint4 rings[];  // (DH_WARPS, RING_BYTES / 16, 32)
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  uint4* slots = rings + (size_t)warp * (RING_BYTES / 16) * 32 + lane;
+  const uint64_t pol = evict_last();
+
+  if (VEC && (int)blockIdx.x < helper_blocks) {
+    constexpr int HC = 4 / sizeof(T);  // columns of a lane's piece
+    const int pieces = (r.D + 32 * HC - 1) / (32 * HC);
+    const long long items = (long long)heavy[0] * pieces;
+    const int2* buckets = reinterpret_cast<const int2*>(heavy + 2);
+    uint32_t* hslots = reinterpret_cast<uint32_t*>(slots - lane) + lane;
+    for (long long it = (long long)blockIdx.x * DH_WARPS + warp; it < items;
+         it += (long long)helper_blocks * DH_WARPS) {
+      const int2 bs = buckets[it / pieces];
+      const int col = (int)(it % pieces) * 32 * HC + lane * HC;
+      const bool live = col < r.D;
+      const int lo = ofs[(size_t)bs.x * (r.S + 1) + bs.y];
+      const int n = ofs[(size_t)bs.x * (r.S + 1) + bs.y + 1] - lo;
+      float acc[HC];
+#pragma unroll
+      for (int k = 0; k < HC; ++k) acc[k] = 0.0f;
+      walk<HELP_RING>(
+          list + (size_t)bs.x * r.V + lo, n, lane,
+          [&](int v, int slot) {
+            if (live) cp4(hslots + slot * 32, E + (size_t)v * r.D + col, pol);
+          },
+          [&](float g, int slot) {
+            if (!live) return;
+            const uint32_t w = hslots[slot * 32];
+            if (HC == 2) {
+              const float2 f = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(&w));
+              acc[0] += g * f.x;
+              acc[HC - 1] += g * f.y;
+            } else {
+              acc[0] += g * __uint_as_float(w);
+            }
+          });
+      if (live) {
+        float* out = dH + ((size_t)bs.x * r.S + bs.y) * r.D + col;
+        if (HC == 2)
+          __stcs(reinterpret_cast<float2*>(out),
+                 make_float2(acc[0], acc[HC - 1]));
+        else
+          __stcs(out, acc[0]);
+      }
+    }
+    return;
+  }
+
+  const long long item =
+      (long long)(blockIdx.x - helper_blocks) * DH_WARPS + warp;
+  if (item >= (long long)r.S * r.B * nc) return;
+  const int c = (int)(item % nc);  // (s, b, c) order
+  const long long sb = item / nc;
+  const int b = (int)(sb % r.B);
+  const int s = (int)(sb / r.B);
+  const int lo = ofs[(size_t)b * (r.S + 1) + s];
+  const int n = ofs[(size_t)b * (r.S + 1) + s + 1] - lo;
+  if (VEC && n > HEAVY) return;  // a helpers' bucket
+  const int c0 = c * P * PW;
+  const bool live = piece_col<VEC>(c0, 0, lane) < r.D;
+
+  float acc[P][CPL];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) acc[p][k] = 0.0f;
+  walk<R>(
+      list + (size_t)b * r.V + lo, n, lane,
+      [&](int v, int slot) {  // the term's pieces of its row of E
+        if (!live) return;
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          to_slot<T, VEC, true>(slots + (slot * P + p) * SW * 32,
+                                E + (size_t)v * r.D,
+                                piece_col<VEC>(c0, p, lane), r.D, pol);
+      },
+      [&](float g, int slot) {
+        if (!live) return;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          float e[CPL];
+          from_slot<T, VEC>(slots + (slot * P + p) * SW * 32, e);
+#pragma unroll
+          for (int k = 0; k < CPL; ++k) acc[p][k] += g * e[k];
+        }
+      });
   float* out = dH + ((size_t)b * r.S + s) * r.D;
 #pragma unroll
   for (int p = 0; p < P; ++p)
@@ -599,18 +683,21 @@ int route_warps(int S) {
   return (size_t)S * sizeof(int) <= ROUTE_SMEM ? 1 : 0;
 }
 
-int launch_route(Rows r, int* ofs, int2* list, cudaStream_t stream) {
+int launch_route(Rows r, int* ofs, int2* list, int* heavy,
+                 cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(heavy, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
   const int w = route_warps(r.S);
   if (w == 0) {
-    route_kernel<false><<<r.B, 32, 0, stream>>>(r, ofs, list);
+    route_kernel<false><<<r.B, 32, 0, stream>>>(r, ofs, list, heavy);
     return (int)cudaGetLastError();
   }
   const size_t smem = (size_t)(w + (w > 1)) * r.S * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      route_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  err = cudaFuncSetAttribute(route_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (err != cudaSuccess) return (int)err;
-  route_kernel<true><<<r.B, w * 32, smem, stream>>>(r, ofs, list);
+  route_kernel<true><<<r.B, w * 32, smem, stream>>>(r, ofs, list, heavy);
   return (int)cudaGetLastError();
 }
 
@@ -624,21 +711,26 @@ constexpr size_t ring_smem(int warps) {
 int pieces(int D) { return D > PW ? 3 : 1; }
 
 template <typename T, bool VEC, int P>
-int launch_dh(const void* E, float* dH, int* ofs, int2* list, Rows r,
-              cudaStream_t stream) {
-  cudaError_t err = (cudaError_t)launch_route(r, ofs, list, stream);
+int launch_dh(const void* E, float* dH, int* ofs, int2* list, int* heavy,
+              Rows r, cudaStream_t stream) {
+  cudaError_t err = (cudaError_t)launch_route(r, ofs, list, heavy, stream);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = ring_smem(DH_WARPS);
   err = cudaFuncSetAttribute(dh_kernel<T, VEC, P>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
+  int dev = 0, helper_blocks = 0;  // one block of helpers an SM
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && VEC)
+    err = cudaDeviceGetAttribute(&helper_blocks,
+                                 cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const int nc = (r.D + P * PW - 1) / (P * PW);
   const long long warps = (long long)r.S * r.B * nc;
-  const long long blocks = (warps + DH_WARPS - 1) / DH_WARPS;
+  const long long blocks = (warps + DH_WARPS - 1) / DH_WARPS + helper_blocks;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   dh_kernel<T, VEC, P><<<(unsigned)blocks, DH_WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(E), dH, ofs, list, r, nc);
+      static_cast<const T*>(E), dH, ofs, list, heavy, r, nc, helper_blocks);
   return (int)cudaGetLastError();
 }
 
@@ -674,10 +766,11 @@ int launch_de(const void* H, float* dE, float* db, Rows r,
 }
 
 template <typename T, bool VEC>
-int launch_dh(const void* E, float* dH, int* ofs, int2* list, Rows r,
-              cudaStream_t stream) {
-  return pieces(r.D) == 3 ? launch_dh<T, VEC, 3>(E, dH, ofs, list, r, stream)
-                          : launch_dh<T, VEC, 1>(E, dH, ofs, list, r, stream);
+int launch_dh(const void* E, float* dH, int* ofs, int2* list, int* heavy,
+              Rows r, cudaStream_t stream) {
+  return pieces(r.D) == 3
+             ? launch_dh<T, VEC, 3>(E, dH, ofs, list, heavy, r, stream)
+             : launch_dh<T, VEC, 1>(E, dH, ofs, list, heavy, r, stream);
 }
 
 template <typename T, bool VEC>
@@ -714,23 +807,25 @@ bool bad_shape(int B, int S, int D, int V) {
 // a multiple of 8 and the weights' base is 16-byte aligned). Each returns
 // the first CUDA error of its launches.
 
-// K2: dH f32 (B, S, D). ofs i32 (B, S + 1) and list (B, V) of (i32 v, f32
-// g) pairs are the routing pass's scratch, which the wrapper allocates.
+// K2: dH f32 (B, S, D). ofs i32 (B, S + 1), list (B, V) of (i32 v, f32 g)
+// pairs and heavy i32 (2 + 2 * B * min(S, V): a count, then (b, s) pairs)
+// are the routing pass's scratch, which the wrapper allocates.
 extern "C" int sparton_bwd_dh(const float* dy, const float* y, const int* imax,
                               const void* E, float* dH, int* ofs, void* list,
-                              int B, int S, int D, int V, int dtype,
-                              float softcap, int vec, void* stream) {
+                              int* heavy, int B, int S, int D, int V,
+                              int dtype, float softcap, int vec,
+                              void* stream) {
   if (bad_shape(B, S, D, V)) return (int)cudaErrorInvalidValue;
   const Rows r = make_rows(dy, y, imax, B, S, D, V, softcap);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int2* l = static_cast<int2*>(list);
   if (dtype == 1) {
-    return vec ? launch_dh<__nv_bfloat16, true>(E, dH, ofs, l, r, st)
-               : launch_dh<__nv_bfloat16, false>(E, dH, ofs, l, r, st);
+    return vec ? launch_dh<__nv_bfloat16, true>(E, dH, ofs, l, heavy, r, st)
+               : launch_dh<__nv_bfloat16, false>(E, dH, ofs, l, heavy, r, st);
   }
   if (dtype == 0) {
-    return vec ? launch_dh<float, true>(E, dH, ofs, l, r, st)
-               : launch_dh<float, false>(E, dH, ofs, l, r, st);
+    return vec ? launch_dh<float, true>(E, dH, ofs, l, heavy, r, st)
+               : launch_dh<float, false>(E, dH, ofs, l, heavy, r, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -339,9 +339,13 @@ def test_kernel_arguments_checked_without_a_card(B, S):
                                    (65536, 8, 64)])
 def test_dh_scratch_is_one_offset_row_and_one_entry_list_per_batch_row(
         B, S, V):
-    """K2's routing scratch: bucket offsets (B, S + 1) and (v, g) entries
-    (B, V, 2), both i32, on the device asked for (meta here)."""
-    ofs, lists = sparton_bwd.dh_scratch(B, S, V, torch.device("meta"))
+    """K2's routing scratch: bucket offsets (B, S + 1), (v, g) entries
+    (B, V, 2) and room for a count, a pad and a (b, s) pair for every
+    bucket that can hold a term (B * min(S, V)), all i32, on the device
+    asked for (meta here)."""
+    ofs, lists, heavy = sparton_bwd.dh_scratch(B, S, V,
+                                               torch.device("meta"))
     assert ofs.shape == (B, S + 1) and lists.shape == (B, V, 2)
-    assert ofs.dtype == lists.dtype == torch.int32
-    assert ofs.device.type == lists.device.type == "meta"
+    assert heavy.shape == (2 + 2 * B * min(S, V),)
+    assert ofs.dtype == lists.dtype == heavy.dtype == torch.int32
+    assert {t.device.type for t in (ofs, lists, heavy)} == {"meta"}

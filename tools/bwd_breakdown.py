@@ -28,13 +28,9 @@ output beside each time; all give the same bits but ``route_only``'s dH):
   at D 768, one warp a row; rings of 192 bytes a lane);
 * ``route_only``: K2's routing pass alone (its dH is not written, so
   zero);
-* ``route_only_w32``: the same with 32 warps a row, not 16;
-* ``route_w32``: K2 whole with 32 routing warps a row;
-* ``ring_384``: rings of 384 bytes a lane (8 slots at D 768, not 4), so
-  half the warps fit an SM (K2 16, K3 blocks of 16 vocab rows staging
-  256 batch rows a round);
-* ``k3_every_b``: K3 walking every b of a round, not only those with
-  g != 0;
+* ``route_only_w16``: the same with 16 warps a row, not 32;
+* ``no_helpers``: K2 without its helper warps (every bucket, however
+  heavy, summed by one warp a column block);
 * ``one_piece``: one 256-column piece a lane (three warps a row of D 768).
 
 It prints one JSON line per build, kernel and row (``chip_smoke.py``'s
@@ -113,8 +109,11 @@ ROUTE_ONLY = ("""  const size_t smem = ring_smem(DH_WARPS);
 """, """  return (int)cudaSuccess;
   const size_t smem = ring_smem(DH_WARPS);
 """)
-ROUTE_W32 = ("constexpr int ROUTE_WARPS = 16;",
-             "constexpr int ROUTE_WARPS = 32;")
+ROUTE_W16 = ("constexpr int ROUTE_WARPS = 32;",
+             "constexpr int ROUTE_WARPS = 16;")
+NO_HELPERS = ("    err = cudaDeviceGetAttribute(&helper_blocks,",
+              "    err = cudaDeviceGetAttribute(&dev,")
+NO_SKIP = ("  if (VEC && n > HEAVY) return;  // a helpers' bucket\n", "")
 RING_384 = [("constexpr int RING_BYTES = 192;",
              "constexpr int RING_BYTES = 384;"),
             ("constexpr int VT = 32;", "constexpr int VT = 16;"),
@@ -140,10 +139,8 @@ K3_EVERY_B = """    for (int t = 0; t < R - 1; ++t) issue(t < nb ? t : -1, t);
 REDESIGN = {
     "shipped": [],
     "route_only": [ROUTE_ONLY],
-    "route_only_w32": [ROUTE_ONLY, ROUTE_W32],
-    "route_w32": [ROUTE_W32],
-    "ring_384": RING_384,
-    "k3_every_b": [K3_CURSORS],
+    "route_only_w16": [ROUTE_ONLY, ROUTE_W16],
+    "no_helpers": [NO_HELPERS, NO_SKIP],
     "one_piece": [ONE_PIECE],
 }
 
