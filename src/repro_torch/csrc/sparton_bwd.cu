@@ -91,8 +91,7 @@ constexpr int AHEAD = 8;                     // chunks of 32 terms loaded at onc
 
 // K2
 constexpr int DH_WARPS = 8;
-constexpr int HEAVY = 1024;    // terms of a bucket the helper warps take
-constexpr int HELP_RING = 32;  // a helper lane's slots (4 bytes each)
+constexpr int HEAVY = 1024;    // terms past which a bucket goes to helpers
 
 // K3
 constexpr int VT = 32;         // vocab rows a block owns, a warp each
@@ -166,16 +165,6 @@ __device__ __forceinline__ void cp16(void* dst, const void* src,
                  "l"(src)
                  : "memory");
   }
-}
-
-// 4 bytes global -> shared with the L2 evict-last policy pol
-__device__ __forceinline__ void cp4(void* dst, const void* src,
-                                    uint64_t pol) {
-  asm volatile(
-      "cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, %2;\n" ::"r"(
-          smem_u32(dst)),
-      "l"(src), "l"(pol)
-      : "memory");
 }
 
 __device__ __forceinline__ void cp_commit() {
@@ -454,84 +443,19 @@ __device__ __forceinline__ void walk(const int2* __restrict__ terms, int n,
   cp_wait<0>();
 }
 
-// The first helper_blocks blocks are helpers: their warps sum the heavy
-// buckets (more than HEAVY terms, listed by the routing pass), each cut
-// into column pieces of 4 bytes a lane (64 columns in bf16, 32 in f32) so
-// that a dozen warps share one; the other warps sum one bucket each, in
-// (s, b, column block) order, and leave the heavy ones (VEC only: without
-// VEC there are no helpers and no bucket is left).
+// One warp sums bucket s of row b for its column block c (P pieces of PW
+// columns a lane) through its ring, and stores the sums.
 template <typename T, bool VEC, int P>
-__global__ void __launch_bounds__(DH_WARPS * 32)
-    dh_kernel(const T* __restrict__ E, float* __restrict__ dH,
-              const int* __restrict__ ofs, const int2* __restrict__ list,
-              const int* __restrict__ heavy, Rows r, int nc,
-              int helper_blocks) {
+__device__ __forceinline__ void sum_bucket(const T* __restrict__ E,
+                                           float* __restrict__ dH,
+                                           const int2* __restrict__ list,
+                                           const Rows& r, int b, int s, int c,
+                                           int lo, int n, int lane,
+                                           uint4* slots, uint64_t pol) {
   constexpr int R = Slot<T, VEC, P>::ring;
   constexpr int SW = Slot<T, VEC, P>::words;
-  extern __shared__ uint4 rings[];  // (DH_WARPS, RING_BYTES / 16, 32)
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  uint4* slots = rings + (size_t)warp * (RING_BYTES / 16) * 32 + lane;
-  const uint64_t pol = evict_last();
-
-  if (VEC && (int)blockIdx.x < helper_blocks) {
-    constexpr int HC = 4 / sizeof(T);  // columns of a lane's piece
-    const int pieces = (r.D + 32 * HC - 1) / (32 * HC);
-    const long long items = (long long)heavy[0] * pieces;
-    const int2* buckets = reinterpret_cast<const int2*>(heavy + 2);
-    uint32_t* hslots = reinterpret_cast<uint32_t*>(slots - lane) + lane;
-    for (long long it = (long long)blockIdx.x * DH_WARPS + warp; it < items;
-         it += (long long)helper_blocks * DH_WARPS) {
-      const int2 bs = buckets[it / pieces];
-      const int col = (int)(it % pieces) * 32 * HC + lane * HC;
-      const bool live = col < r.D;
-      const int lo = ofs[(size_t)bs.x * (r.S + 1) + bs.y];
-      const int n = ofs[(size_t)bs.x * (r.S + 1) + bs.y + 1] - lo;
-      float acc[HC];
-#pragma unroll
-      for (int k = 0; k < HC; ++k) acc[k] = 0.0f;
-      walk<HELP_RING>(
-          list + (size_t)bs.x * r.V + lo, n, lane,
-          [&](int v, int slot) {
-            if (live) cp4(hslots + slot * 32, E + (size_t)v * r.D + col, pol);
-          },
-          [&](float g, int slot) {
-            if (!live) return;
-            const uint32_t w = hslots[slot * 32];
-            if (HC == 2) {
-              const float2 f = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(&w));
-              acc[0] += g * f.x;
-              acc[HC - 1] += g * f.y;
-            } else {
-              acc[0] += g * __uint_as_float(w);
-            }
-          });
-      if (live) {
-        float* out = dH + ((size_t)bs.x * r.S + bs.y) * r.D + col;
-        if (HC == 2)
-          __stcs(reinterpret_cast<float2*>(out),
-                 make_float2(acc[0], acc[HC - 1]));
-        else
-          __stcs(out, acc[0]);
-      }
-    }
-    return;
-  }
-
-  const long long item =
-      (long long)(blockIdx.x - helper_blocks) * DH_WARPS + warp;
-  if (item >= (long long)r.S * r.B * nc) return;
-  const int c = (int)(item % nc);  // (s, b, c) order
-  const long long sb = item / nc;
-  const int b = (int)(sb % r.B);
-  const int s = (int)(sb / r.B);
-  const int lo = ofs[(size_t)b * (r.S + 1) + s];
-  const int n = ofs[(size_t)b * (r.S + 1) + s + 1] - lo;
-  if (VEC && n > HEAVY) return;  // a helpers' bucket
   const int c0 = c * P * PW;
   const bool live = piece_col<VEC>(c0, 0, lane) < r.D;
-
   float acc[P][CPL];
 #pragma unroll
   for (int p = 0; p < P; ++p)
@@ -561,6 +485,51 @@ __global__ void __launch_bounds__(DH_WARPS * 32)
 #pragma unroll
   for (int p = 0; p < P; ++p)
     store_row<VEC>(out, piece_col<VEC>(c0, p, lane), r.D, acc[p]);
+}
+
+// The first helper_blocks blocks are helpers: their warps sum the heavy
+// buckets (more than HEAVY terms, listed by the routing pass) a piece of
+// 256 columns each, so that three warps (at D 768) share one. The other
+// warps sum one bucket each for P pieces, in (s, b, column block) order,
+// and leave the heavy ones to the helpers.
+template <typename T, bool VEC, int P>
+__global__ void __launch_bounds__(DH_WARPS * 32)
+    dh_kernel(const T* __restrict__ E, float* __restrict__ dH,
+              const int* __restrict__ ofs, const int2* __restrict__ list,
+              const int* __restrict__ heavy, Rows r, int nc,
+              int helper_blocks) {
+  extern __shared__ uint4 rings[];  // (DH_WARPS, RING_BYTES / 16, 32)
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  uint4* slots = rings + (size_t)warp * (RING_BYTES / 16) * 32 + lane;
+  const uint64_t pol = evict_last();
+
+  if ((int)blockIdx.x < helper_blocks) {
+    const int pieces = (r.D + PW - 1) / PW;
+    const long long items = (long long)heavy[0] * pieces;
+    const int2* buckets = reinterpret_cast<const int2*>(heavy + 2);
+    for (long long it = (long long)blockIdx.x * DH_WARPS + warp; it < items;
+         it += (long long)helper_blocks * DH_WARPS) {
+      const int2 bs = buckets[it / pieces];
+      const int lo = ofs[(size_t)bs.x * (r.S + 1) + bs.y];
+      const int n = ofs[(size_t)bs.x * (r.S + 1) + bs.y + 1] - lo;
+      sum_bucket<T, VEC, 1>(E, dH, list, r, bs.x, bs.y, (int)(it % pieces),
+                            lo, n, lane, slots, pol);
+    }
+    return;
+  }
+
+  const long long item =
+      (long long)(blockIdx.x - helper_blocks) * DH_WARPS + warp;
+  if (item >= (long long)r.S * r.B * nc) return;
+  const int c = (int)(item % nc);  // (s, b, c) order
+  const long long sb = item / nc;
+  const int b = (int)(sb % r.B);
+  const int s = (int)(sb / r.B);
+  const int lo = ofs[(size_t)b * (r.S + 1) + s];
+  const int n = ofs[(size_t)b * (r.S + 1) + s + 1] - lo;
+  if (helper_blocks > 0 && n > HEAVY) return;  // a helpers' bucket
+  sum_bucket<T, VEC, P>(E, dH, list, r, b, s, c, lo, n, lane, slots, pol);
 }
 
 // ---------------------------------------------------------------------------
@@ -721,7 +690,7 @@ int launch_dh(const void* E, float* dH, int* ofs, int2* list, int* heavy,
                              (int)smem);
   int dev = 0, helper_blocks = 0;  // one block of helpers an SM
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess && VEC)
+  if (err == cudaSuccess && P > 1)
     err = cudaDeviceGetAttribute(&helper_blocks,
                                  cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;

@@ -113,7 +113,8 @@ ROUTE_W16 = ("constexpr int ROUTE_WARPS = 32;",
              "constexpr int ROUTE_WARPS = 16;")
 NO_HELPERS = ("    err = cudaDeviceGetAttribute(&helper_blocks,",
               "    err = cudaDeviceGetAttribute(&dev,")
-NO_SKIP = ("  if (VEC && n > HEAVY) return;  // a helpers' bucket\n", "")
+NO_SKIP = ("  if (helper_blocks > 0 && n > HEAVY) return;  // a helpers' bucket\n",
+           "")
 RING_384 = [("constexpr int RING_BYTES = 192;",
              "constexpr int RING_BYTES = 384;"),
             ("constexpr int VT = 32;", "constexpr int VT = 16;"),
