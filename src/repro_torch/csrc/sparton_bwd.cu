@@ -44,16 +44,18 @@
 //
 // K2 design: two kernels.
 //  * route_kernel, one block per batch row b: g and the routed row s of
-//    every term, then a stable counting sort of the terms with g != 0 and
-//    s in [0, S) by s: ofs[b, s] .. ofs[b, s + 1] index bucket s of the
-//    row's list, entries (v, g) in ascending v. Each warp sorts a
-//    contiguous range of v: it counts (shared-memory atomics), the block
-//    turns the counts into each warp's start in each bucket, and the warp
-//    places its terms in order (the lanes of a chunk that share an s find
+//    every term (g stored dense, gs[b, v]), then a stable counting sort
+//    of the terms with g != 0 and s in [0, S) by s: ofs[b, s] ..
+//    ofs[b, s + 1] index bucket s of the row's list of v, ascending.
+//    Each warp sorts a contiguous range of v: it counts (shared-memory
+//    atomics), the block turns the counts into each warp's start in each
+//    bucket, and the warp places its terms in order (the lanes of a chunk that share an s find
 //    each other with __match_any_sync, and the first of them takes their
-//    places from the row's cursor with one atomic). dy, y and i_max are
-//    read twice (count, then place). Where (W + 1) * S counts do not fit shared
-//    memory, one warp per row counts in place in ofs.
+//    places from the row's cursor with one atomic), into shared memory
+//    where the row's list fits beside the counts, then copied out whole.
+//    dy, y and i_max are read twice (count, then place). Where (W + 1) *
+//    S counts do not fit shared memory, one warp per row counts in place
+//    in ofs.
 //  * dh_kernel, one warp per (bucket s of row b, column block): it walks
 //    its bucket in ascending v through its ring (E copied with an L2
 //    evict-last hint) and stores the sums once (streaming stores). Warps
@@ -86,7 +88,7 @@ constexpr int RING_BYTES = 192;  // a lane's ring of pieces in flight
 
 // K2's routing pass
 constexpr int ROUTE_WARPS = 32;              // warps of a row's block, at most
-constexpr size_t ROUTE_SMEM = 200 * 1024;    // its counts' shared memory
+constexpr size_t ROUTE_SMEM = 220 * 1024;    // its counts' and list's
 constexpr int AHEAD = 8;                     // chunks of 32 terms loaded at once
 
 // K2
@@ -296,21 +298,26 @@ __device__ void block_exclusive_scan(int* a, int n) {
 // One block of W warps per batch row. SMEM: the (W, S) counts (and, for
 // W > 1, the S row totals) in shared memory; else W == 1 and the counts
 // live in ofs[b, 1 ..] itself.
-template <bool SMEM>
-__global__ void route_kernel(Rows r, int* __restrict__ ofs,
-                             int2* __restrict__ list, int* __restrict__ heavy) {
+template <bool SMEM, bool STAGE>
+__global__ void __launch_bounds__(ROUTE_WARPS * 32) route_kernel(Rows r, int* __restrict__ ofs,
+                             int* __restrict__ vlist, float* __restrict__ gs,
+                             int* __restrict__ heavy) {
   extern __shared__ int smem[];
   const int W = blockDim.x / 32;
   const int b = blockIdx.x;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const size_t row = (size_t)b * r.V;
   int* ofs_row = ofs + (size_t)b * (r.S + 1);
   int* table = SMEM ? smem : ofs_row + 1;                // (W, S)
   int* tot = SMEM && W > 1 ? smem + (size_t)W * r.S : table;  // (S,)
+  // STAGE: the row's list is placed in shared memory, then copied out
+  // whole (placed straight into vlist, its scattered 4-byte stores cost
+  // more than the rest of the pass)
+  int* place = STAGE ? smem + (size_t)(W + (W > 1)) * r.S : vlist + row;
   for (int i = threadIdx.x; i < W * r.S; i += blockDim.x) table[i] = 0;
   __syncthreads();
 
-  const size_t row = (size_t)b * r.V;
   const int per = ((r.V + W - 1) / W + 31) / 32 * 32;
   const int v_lo = min(r.V, warp * per);
   const int v_hi = min(r.V, v_lo + per);
@@ -333,6 +340,7 @@ __global__ void route_kernel(Rows r, int* __restrict__ ofs,
         if (v < v_hi) {
           g[u] = bwd_factor(r.y[row + v], r.dy[row + v], r.has_cap, r.cap);
           s[u] = routed(g[u], r.imax[row + v], r.S);
+          if (pass == 0) gs[row + v] = g[u];
         }
       }
 #pragma unroll
@@ -350,10 +358,8 @@ __global__ void route_kernel(Rows r, int* __restrict__ ofs,
         if (s[u] >= 0 && lane == first)
           start = atomicAdd(mine + s[u], __popc(peers));
         start = __shfl_sync(FULL, start, first);
-        if (s[u] >= 0) {
-          list[row + start + __popc(peers & lower)] =
-              make_int2(v0 + 32 * u + lane, __float_as_int(g[u]));
-        }
+        if (s[u] >= 0)
+          place[start + __popc(peers & lower)] = v0 + 32 * u + lane;
       }
     }
     __syncthreads();
@@ -372,7 +378,8 @@ __global__ void route_kernel(Rows r, int* __restrict__ ofs,
       __syncthreads();
     }
     // buckets past HEAVY terms go to the helper warps: appended to
-    // heavy[1 ..] as (b, s), in no fixed order (each one's sums have one)
+    // heavy[2 ..] as (b, s) pairs, heavy[0] counting them, in no fixed
+    // order (each one's sums have one)
     for (int s = threadIdx.x; s < r.S; s += blockDim.x)
       if (tot[s] > HEAVY)
         reinterpret_cast<int2*>(heavy + 2)[atomicAdd(heavy, 1)] =
@@ -385,12 +392,17 @@ __global__ void route_kernel(Rows r, int* __restrict__ ofs,
     }
   }
   // the last warp's cursors now stand at each bucket's end
+  const int* last = table + (size_t)(W - 1) * r.S;
   if (SMEM) {
-    const int* last = table + (size_t)(W - 1) * r.S;
     for (int s = threadIdx.x; s < r.S; s += blockDim.x)
       ofs_row[s + 1] = last[s];
   }
   if (threadIdx.x == 0) ofs_row[0] = 0;
+  if (STAGE) {
+    const int n = last[r.S - 1];
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      vlist[row + i] = place[i];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -405,19 +417,26 @@ __device__ __forceinline__ int piece_col(int c0, int p, int lane) {
   return c0 + p * PW + (VEC ? lane * CPL : lane);
 }
 
-// One warp's walk of a bucket's n terms (entries (v, g) in ascending v)
-// through a ring of R slots: issue(v, slot) starts the copies of a term's
-// row into a slot, sum(g, slot) adds a landed slot times g.
+// One warp's walk of a bucket's n terms (vs: their v, ascending; grow:
+// the row's g) through a ring of R slots: issue(v, slot) starts the
+// copies of a term's row into a slot, sum(g, slot) adds a landed slot
+// times g.
 template <int R, class Issue, class Sum>
-__device__ __forceinline__ void walk(const int2* __restrict__ terms, int n,
+__device__ __forceinline__ void walk(const int* __restrict__ vs,
+                                     const float* __restrict__ grow, int n,
                                      int lane, Issue issue, Sum sum) {
   // entries [base, base + 96), a window of three registers (lane l holds
-  // entries base + l, base + 32 + l, base + 64 + l); the third is loaded
-  // 32 terms before it is needed
+  // entries base + l, base + 32 + l, base + 64 + l, as (v, g)); the third
+  // is loaded 32 terms before it is needed
+  auto load = [&](int k) {
+    if (k >= n) return make_int2(0, 0);
+    const int v = vs[k];
+    return make_int2(v, __float_as_int(grow[v]));
+  };
   int base = 0;
-  int2 w0 = lane < n ? terms[lane] : make_int2(0, 0);
-  int2 w1 = 32 + lane < n ? terms[32 + lane] : make_int2(0, 0);
-  int2 w2 = 64 + lane < n ? terms[64 + lane] : make_int2(0, 0);
+  int2 w0 = load(lane);
+  int2 w1 = load(32 + lane);
+  int2 w2 = load(64 + lane);
   auto entry = [&](int j, bool want_g) {  // warp-uniform j
     const int d = j - base;
     const int2 w = d < 32 ? w0 : d < 64 ? w1 : w2;
@@ -434,7 +453,7 @@ __device__ __forceinline__ void walk(const int2* __restrict__ terms, int n,
       base += 32;
       w0 = w1;
       w1 = w2;
-      w2 = base + 64 + lane < n ? terms[base + 64 + lane] : make_int2(0, 0);
+      w2 = load(base + 64 + lane);
     }
     start(j + R - 1);
     cp_wait<R - 1>();  // this lane's copies of term j have landed
@@ -448,7 +467,8 @@ __device__ __forceinline__ void walk(const int2* __restrict__ terms, int n,
 template <typename T, bool VEC, int P>
 __device__ __forceinline__ void sum_bucket(const T* __restrict__ E,
                                            float* __restrict__ dH,
-                                           const int2* __restrict__ list,
+                                           const int* __restrict__ vlist,
+                                           const float* __restrict__ gs,
                                            const Rows& r, int b, int s, int c,
                                            int lo, int n, int lane,
                                            uint4* slots, uint64_t pol) {
@@ -462,7 +482,7 @@ __device__ __forceinline__ void sum_bucket(const T* __restrict__ E,
 #pragma unroll
     for (int k = 0; k < CPL; ++k) acc[p][k] = 0.0f;
   walk<R>(
-      list + (size_t)b * r.V + lo, n, lane,
+      vlist + (size_t)b * r.V + lo, gs + (size_t)b * r.V, n, lane,
       [&](int v, int slot) {  // the term's pieces of its row of E
         if (!live) return;
 #pragma unroll
@@ -495,7 +515,8 @@ __device__ __forceinline__ void sum_bucket(const T* __restrict__ E,
 template <typename T, bool VEC, int P>
 __global__ void __launch_bounds__(DH_WARPS * 32)
     dh_kernel(const T* __restrict__ E, float* __restrict__ dH,
-              const int* __restrict__ ofs, const int2* __restrict__ list,
+              const int* __restrict__ ofs, const int* __restrict__ vlist,
+              const float* __restrict__ gs,
               const int* __restrict__ heavy, Rows r, int nc,
               int helper_blocks) {
   extern __shared__ uint4 rings[];  // (DH_WARPS, RING_BYTES / 16, 32)
@@ -513,8 +534,8 @@ __global__ void __launch_bounds__(DH_WARPS * 32)
       const int2 bs = buckets[it / pieces];
       const int lo = ofs[(size_t)bs.x * (r.S + 1) + bs.y];
       const int n = ofs[(size_t)bs.x * (r.S + 1) + bs.y + 1] - lo;
-      sum_bucket<T, VEC, 1>(E, dH, list, r, bs.x, bs.y, (int)(it % pieces),
-                            lo, n, lane, slots, pol);
+      sum_bucket<T, VEC, 1>(E, dH, vlist, gs, r, bs.x, bs.y,
+                            (int)(it % pieces), lo, n, lane, slots, pol);
     }
     return;
   }
@@ -529,7 +550,8 @@ __global__ void __launch_bounds__(DH_WARPS * 32)
   const int lo = ofs[(size_t)b * (r.S + 1) + s];
   const int n = ofs[(size_t)b * (r.S + 1) + s + 1] - lo;
   if (helper_blocks > 0 && n > HEAVY) return;  // a helpers' bucket
-  sum_bucket<T, VEC, P>(E, dH, list, r, b, s, c, lo, n, lane, slots, pol);
+  sum_bucket<T, VEC, P>(E, dH, vlist, gs, r, b, s, c, lo, n, lane, slots,
+                        pol);
 }
 
 // ---------------------------------------------------------------------------
@@ -643,31 +665,50 @@ __global__ void __launch_bounds__(VT * 32)
 // launches
 // ---------------------------------------------------------------------------
 
-// The routing pass's warps per row: the most (up to ROUTE_WARPS) whose
-// counts fit ROUTE_SMEM; 0 where even one warp's do not (then the counts
-// live in ofs).
-int route_warps(int S) {
-  for (int w = ROUTE_WARPS; w > 1; w /= 2)
-    if ((size_t)(w + 1) * S * sizeof(int) <= ROUTE_SMEM) return w;
-  return (size_t)S * sizeof(int) <= ROUTE_SMEM ? 1 : 0;
+// The routing pass's shape: its warps per row (the most, up to
+// ROUTE_WARPS, whose counts fit), and whether its counts (smem) and the
+// row's list (stage) are kept in shared memory: the list too where it
+// fits beside one warp's counts, else the counts alone, else neither (one
+// warp a row then counts in ofs).
+struct RoutePlan {
+  int warps;
+  bool smem, stage;
+  size_t bytes;
+};
+
+RoutePlan route_plan(int S, int V) {
+  for (int stage = 1; stage >= 0; --stage) {
+    const size_t list = stage ? (size_t)V * sizeof(int) : 0;
+    for (int w = ROUTE_WARPS; w >= 1 && list <= ROUTE_SMEM; w /= 2) {
+      const size_t bytes = list + (size_t)(w + (w > 1)) * S * sizeof(int);
+      if (bytes <= ROUTE_SMEM) return {w, true, stage == 1, bytes};
+    }
+  }
+  return {1, false, false, 0};
 }
 
-int launch_route(Rows r, int* ofs, int2* list, int* heavy,
+template <bool SMEM, bool STAGE>
+int launch_route_as(const RoutePlan& p, Rows r, int* ofs, int* vlist,
+                    float* gs, int* heavy, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      route_kernel<SMEM, STAGE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)p.bytes);
+  if (err != cudaSuccess) return (int)err;
+  route_kernel<SMEM, STAGE><<<r.B, p.warps * 32, p.bytes, stream>>>(
+      r, ofs, vlist, gs, heavy);
+  return (int)cudaGetLastError();
+}
+
+int launch_route(Rows r, int* ofs, int* vlist, float* gs, int* heavy,
                  cudaStream_t stream) {
   cudaError_t err = cudaMemsetAsync(heavy, 0, sizeof(int), stream);
   if (err != cudaSuccess) return (int)err;
-  const int w = route_warps(r.S);
-  if (w == 0) {
-    route_kernel<false><<<r.B, 32, 0, stream>>>(r, ofs, list, heavy);
-    return (int)cudaGetLastError();
-  }
-  const size_t smem = (size_t)(w + (w > 1)) * r.S * sizeof(int);
-  err = cudaFuncSetAttribute(route_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  route_kernel<true><<<r.B, w * 32, smem, stream>>>(r, ofs, list, heavy);
-  return (int)cudaGetLastError();
+  const RoutePlan p = route_plan(r.S, r.V);
+  if (!p.smem)
+    return launch_route_as<false, false>(p, r, ofs, vlist, gs, heavy, stream);
+  if (!p.stage)
+    return launch_route_as<true, false>(p, r, ofs, vlist, gs, heavy, stream);
+  return launch_route_as<true, true>(p, r, ofs, vlist, gs, heavy, stream);
 }
 
 // a block's rings: RING_BYTES for each of its lanes
@@ -680,26 +721,33 @@ constexpr size_t ring_smem(int warps) {
 int pieces(int D) { return D > PW ? 3 : 1; }
 
 template <typename T, bool VEC, int P>
-int launch_dh(const void* E, float* dH, int* ofs, int2* list, int* heavy,
-              Rows r, cudaStream_t stream) {
-  cudaError_t err = (cudaError_t)launch_route(r, ofs, list, heavy, stream);
+int launch_dh(const void* E, float* dH, int* ofs, int* vlist, float* gs,
+              int* heavy, Rows r, cudaStream_t stream) {
+  cudaError_t err =
+      (cudaError_t)launch_route(r, ofs, vlist, gs, heavy, stream);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = ring_smem(DH_WARPS);
   err = cudaFuncSetAttribute(dh_kernel<T, VEC, P>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
-  int dev = 0, helper_blocks = 0;  // one block of helpers an SM
+  // helpers: the whole first wave of blocks, so that every heavy bucket's
+  // warps start at once (blocks with no heavy piece to take end at once)
+  int dev = 0, sms = 0, per_sm = 0, helper_blocks = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess && P > 1)
-    err = cudaDeviceGetAttribute(&helper_blocks,
-                                 cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, dh_kernel<T, VEC, P>, DH_WARPS * 32, smem);
   if (err != cudaSuccess) return (int)err;
+  if (P > 1) helper_blocks = per_sm * sms;
   const int nc = (r.D + P * PW - 1) / (P * PW);
   const long long warps = (long long)r.S * r.B * nc;
   const long long blocks = (warps + DH_WARPS - 1) / DH_WARPS + helper_blocks;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   dh_kernel<T, VEC, P><<<(unsigned)blocks, DH_WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(E), dH, ofs, list, heavy, r, nc, helper_blocks);
+      static_cast<const T*>(E), dH, ofs, vlist, gs, heavy, r, nc,
+      helper_blocks);
   return (int)cudaGetLastError();
 }
 
@@ -735,11 +783,11 @@ int launch_de(const void* H, float* dE, float* db, Rows r,
 }
 
 template <typename T, bool VEC>
-int launch_dh(const void* E, float* dH, int* ofs, int2* list, int* heavy,
-              Rows r, cudaStream_t stream) {
+int launch_dh(const void* E, float* dH, int* ofs, int* vlist, float* gs,
+              int* heavy, Rows r, cudaStream_t stream) {
   return pieces(r.D) == 3
-             ? launch_dh<T, VEC, 3>(E, dH, ofs, list, heavy, r, stream)
-             : launch_dh<T, VEC, 1>(E, dH, ofs, list, heavy, r, stream);
+             ? launch_dh<T, VEC, 3>(E, dH, ofs, vlist, gs, heavy, r, stream)
+             : launch_dh<T, VEC, 1>(E, dH, ofs, vlist, gs, heavy, r, stream);
 }
 
 template <typename T, bool VEC>
@@ -776,25 +824,26 @@ bool bad_shape(int B, int S, int D, int V) {
 // a multiple of 8 and the weights' base is 16-byte aligned). Each returns
 // the first CUDA error of its launches.
 
-// K2: dH f32 (B, S, D). ofs i32 (B, S + 1), list (B, V) of (i32 v, f32 g)
-// pairs and heavy i32 (2 + 2 * B * min(S, V): a count, then (b, s) pairs)
-// are the routing pass's scratch, which the wrapper allocates.
+// K2: dH f32 (B, S, D). ofs i32 (B, S + 1), vlist i32 (B, V), gs f32
+// (B, V) and heavy i32 (2 + 2 * B * min(S, V): a count, a pad, then (b, s)
+// pairs) are the routing pass's scratch, which the wrapper allocates.
 extern "C" int sparton_bwd_dh(const float* dy, const float* y, const int* imax,
-                              const void* E, float* dH, int* ofs, void* list,
-                              int* heavy, int B, int S, int D, int V,
-                              int dtype, float softcap, int vec,
+                              const void* E, float* dH, int* ofs, int* vlist,
+                              float* gs, int* heavy, int B, int S, int D,
+                              int V, int dtype, float softcap, int vec,
                               void* stream) {
   if (bad_shape(B, S, D, V)) return (int)cudaErrorInvalidValue;
   const Rows r = make_rows(dy, y, imax, B, S, D, V, softcap);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int2* l = static_cast<int2*>(list);
   if (dtype == 1) {
-    return vec ? launch_dh<__nv_bfloat16, true>(E, dH, ofs, l, heavy, r, st)
-               : launch_dh<__nv_bfloat16, false>(E, dH, ofs, l, heavy, r, st);
+    return vec ? launch_dh<__nv_bfloat16, true>(E, dH, ofs, vlist, gs, heavy,
+                                                r, st)
+               : launch_dh<__nv_bfloat16, false>(E, dH, ofs, vlist, gs,
+                                                 heavy, r, st);
   }
   if (dtype == 0) {
-    return vec ? launch_dh<float, true>(E, dH, ofs, l, heavy, r, st)
-               : launch_dh<float, false>(E, dH, ofs, l, heavy, r, st);
+    return vec ? launch_dh<float, true>(E, dH, ofs, vlist, gs, heavy, r, st)
+               : launch_dh<float, false>(E, dH, ofs, vlist, gs, heavy, r, st);
   }
   return (int)cudaErrorInvalidValue;
 }

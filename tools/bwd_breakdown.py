@@ -26,6 +26,8 @@ output beside each time; all give the same bits but ``route_only``'s dH):
 
 * ``shipped``: the source as it is (three pieces of 256 columns a lane
   at D 768, one warp a row; rings of 192 bytes a lane);
+* ``no_stage``: K2's routing pass placing its list straight into device
+  memory (scattered 4-byte stores), not into shared memory first;
 * ``route_only``: K2's routing pass alone (its dH is not written, so
   zero);
 * ``route_only_w16``: the same with 16 warps a row, not 32;
@@ -111,8 +113,7 @@ ROUTE_ONLY = ("""  const size_t smem = ring_smem(DH_WARPS);
 """)
 ROUTE_W16 = ("constexpr int ROUTE_WARPS = 32;",
              "constexpr int ROUTE_WARPS = 16;")
-NO_HELPERS = ("    err = cudaDeviceGetAttribute(&helper_blocks,",
-              "    err = cudaDeviceGetAttribute(&dev,")
+NO_HELPERS = ("  if (P > 1) helper_blocks = per_sm * sms;", "")
 NO_SKIP = ("  if (helper_blocks > 0 && n > HEAVY) return;  // a helpers' bucket\n",
            "")
 RING_384 = [("constexpr int RING_BYTES = 192;",
@@ -137,8 +138,11 @@ K3_EVERY_B = """    for (int t = 0; t < R - 1; ++t) issue(t < nb ? t : -1, t);
       }
     }
 """
+NO_STAGE = ("  for (int stage = 1; stage >= 0; --stage) {",
+            "  for (int stage = 0; stage >= 0; --stage) {")
 REDESIGN = {
     "shipped": [],
+    "no_stage": [NO_STAGE],
     "route_only": [ROUTE_ONLY],
     "route_only_w16": [ROUTE_ONLY, ROUTE_W16],
     "no_helpers": [NO_HELPERS, NO_SKIP],
