@@ -44,15 +44,18 @@
 //
 // K2 design: two kernels.
 //  * route_kernel, one block per batch row b: g and the routed row s of
-//    every term (g stored dense, gs[b, v]), then a stable counting sort
-//    of the terms with g != 0 and s in [0, S) by s: ofs[b, s] ..
-//    ofs[b, s + 1] index bucket s of the row's list of v, ascending.
+//    every term, then a stable counting sort of the terms with g != 0 and
+//    s in [0, S) by s: ofs[b, s] .. ofs[b, s + 1] index bucket s of the
+//    row's list, entries (v, g) in ascending v.
 //    Each warp sorts a contiguous range of v: it counts (shared-memory
 //    atomics), the block turns the counts into each warp's start in each
 //    bucket, and the warp places its terms in order (the lanes of a chunk that share an s find
 //    each other with __match_any_sync, and the first of them takes their
-//    places from the row's cursor with one atomic), into shared memory
-//    where the row's list fits beside the counts, then copied out whole.
+//    places from the row's cursor with one atomic). Where the row's v fit
+//    beside the counts in shared memory, they are placed there and copied
+//    out whole beside their g (kept dense in gs[b, v] meanwhile); placed
+//    straight into the list, the scattered 8-byte stores cost more than
+//    the rest of the pass.
 //    dy, y and i_max are read twice (count, then place). Where (W + 1) *
 //    S counts do not fit shared memory, one warp per row counts in place
 //    in ofs.
@@ -300,7 +303,7 @@ __device__ void block_exclusive_scan(int* a, int n) {
 // live in ofs[b, 1 ..] itself.
 template <bool SMEM, bool STAGE>
 __global__ void __launch_bounds__(ROUTE_WARPS * 32) route_kernel(Rows r, int* __restrict__ ofs,
-                             int* __restrict__ vlist, float* __restrict__ gs,
+                             int2* __restrict__ list, float* __restrict__ gs,
                              int* __restrict__ heavy) {
   extern __shared__ int smem[];
   const int W = blockDim.x / 32;
@@ -311,10 +314,10 @@ __global__ void __launch_bounds__(ROUTE_WARPS * 32) route_kernel(Rows r, int* __
   int* ofs_row = ofs + (size_t)b * (r.S + 1);
   int* table = SMEM ? smem : ofs_row + 1;                // (W, S)
   int* tot = SMEM && W > 1 ? smem + (size_t)W * r.S : table;  // (S,)
-  // STAGE: the row's list is placed in shared memory, then copied out
-  // whole (placed straight into vlist, its scattered 4-byte stores cost
-  // more than the rest of the pass)
-  int* place = STAGE ? smem + (size_t)(W + (W > 1)) * r.S : vlist + row;
+  // STAGE: the v of the row's list are placed in shared memory, then
+  // copied out whole beside their g (placed straight into the list, the
+  // scattered 8-byte stores cost more than the rest of the pass)
+  int* place = STAGE ? smem + (size_t)(W + (W > 1)) * r.S : nullptr;
   for (int i = threadIdx.x; i < W * r.S; i += blockDim.x) table[i] = 0;
   __syncthreads();
 
@@ -340,7 +343,7 @@ __global__ void __launch_bounds__(ROUTE_WARPS * 32) route_kernel(Rows r, int* __
         if (v < v_hi) {
           g[u] = bwd_factor(r.y[row + v], r.dy[row + v], r.has_cap, r.cap);
           s[u] = routed(g[u], r.imax[row + v], r.S);
-          if (pass == 0) gs[row + v] = g[u];
+          if (STAGE && pass == 0) gs[row + v] = g[u];
         }
       }
 #pragma unroll
@@ -358,8 +361,14 @@ __global__ void __launch_bounds__(ROUTE_WARPS * 32) route_kernel(Rows r, int* __
         if (s[u] >= 0 && lane == first)
           start = atomicAdd(mine + s[u], __popc(peers));
         start = __shfl_sync(FULL, start, first);
-        if (s[u] >= 0)
-          place[start + __popc(peers & lower)] = v0 + 32 * u + lane;
+        const int at = start + __popc(peers & lower);
+        const int v = v0 + 32 * u + lane;
+        if (s[u] >= 0) {
+          if (STAGE)
+            place[at] = v;
+          else
+            list[row + at] = make_int2(v, __float_as_int(g[u]));
+        }
       }
     }
     __syncthreads();
@@ -400,8 +409,10 @@ __global__ void __launch_bounds__(ROUTE_WARPS * 32) route_kernel(Rows r, int* __
   if (threadIdx.x == 0) ofs_row[0] = 0;
   if (STAGE) {
     const int n = last[r.S - 1];
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      vlist[row + i] = place[i];
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int v = place[i];
+      list[row + i] = make_int2(v, __float_as_int(gs[row + v]));
+    }
   }
 }
 
@@ -417,22 +428,16 @@ __device__ __forceinline__ int piece_col(int c0, int p, int lane) {
   return c0 + p * PW + (VEC ? lane * CPL : lane);
 }
 
-// One warp's walk of a bucket's n terms (vs: their v, ascending; grow:
-// the row's g) through a ring of R slots: issue(v, slot) starts the
-// copies of a term's row into a slot, sum(g, slot) adds a landed slot
-// times g.
+// One warp's walk of a bucket's n terms (entries (v, g) in ascending v)
+// through a ring of R slots: issue(v, slot) starts the copies of a term's
+// row into a slot, sum(g, slot) adds a landed slot times g.
 template <int R, class Issue, class Sum>
-__device__ __forceinline__ void walk(const int* __restrict__ vs,
-                                     const float* __restrict__ grow, int n,
+__device__ __forceinline__ void walk(const int2* __restrict__ terms, int n,
                                      int lane, Issue issue, Sum sum) {
   // entries [base, base + 96), a window of three registers (lane l holds
-  // entries base + l, base + 32 + l, base + 64 + l, as (v, g)); the third
-  // is loaded 32 terms before it is needed
-  auto load = [&](int k) {
-    if (k >= n) return make_int2(0, 0);
-    const int v = vs[k];
-    return make_int2(v, __float_as_int(grow[v]));
-  };
+  // entries base + l, base + 32 + l, base + 64 + l); the third is loaded
+  // 32 terms before it is needed
+  auto load = [&](int k) { return k < n ? terms[k] : make_int2(0, 0); };
   int base = 0;
   int2 w0 = load(lane);
   int2 w1 = load(32 + lane);
@@ -467,8 +472,7 @@ __device__ __forceinline__ void walk(const int* __restrict__ vs,
 template <typename T, bool VEC, int P>
 __device__ __forceinline__ void sum_bucket(const T* __restrict__ E,
                                            float* __restrict__ dH,
-                                           const int* __restrict__ vlist,
-                                           const float* __restrict__ gs,
+                                           const int2* __restrict__ list,
                                            const Rows& r, int b, int s, int c,
                                            int lo, int n, int lane,
                                            uint4* slots, uint64_t pol) {
@@ -482,7 +486,7 @@ __device__ __forceinline__ void sum_bucket(const T* __restrict__ E,
 #pragma unroll
     for (int k = 0; k < CPL; ++k) acc[p][k] = 0.0f;
   walk<R>(
-      vlist + (size_t)b * r.V + lo, gs + (size_t)b * r.V, n, lane,
+      list + (size_t)b * r.V + lo, n, lane,
       [&](int v, int slot) {  // the term's pieces of its row of E
         if (!live) return;
 #pragma unroll
@@ -515,8 +519,7 @@ __device__ __forceinline__ void sum_bucket(const T* __restrict__ E,
 template <typename T, bool VEC, int P>
 __global__ void __launch_bounds__(DH_WARPS * 32)
     dh_kernel(const T* __restrict__ E, float* __restrict__ dH,
-              const int* __restrict__ ofs, const int* __restrict__ vlist,
-              const float* __restrict__ gs,
+              const int* __restrict__ ofs, const int2* __restrict__ list,
               const int* __restrict__ heavy, Rows r, int nc,
               int helper_blocks) {
   extern __shared__ uint4 rings[];  // (DH_WARPS, RING_BYTES / 16, 32)
@@ -534,7 +537,7 @@ __global__ void __launch_bounds__(DH_WARPS * 32)
       const int2 bs = buckets[it / pieces];
       const int lo = ofs[(size_t)bs.x * (r.S + 1) + bs.y];
       const int n = ofs[(size_t)bs.x * (r.S + 1) + bs.y + 1] - lo;
-      sum_bucket<T, VEC, 1>(E, dH, vlist, gs, r, bs.x, bs.y,
+      sum_bucket<T, VEC, 1>(E, dH, list, r, bs.x, bs.y,
                             (int)(it % pieces), lo, n, lane, slots, pol);
     }
     return;
@@ -550,8 +553,7 @@ __global__ void __launch_bounds__(DH_WARPS * 32)
   const int lo = ofs[(size_t)b * (r.S + 1) + s];
   const int n = ofs[(size_t)b * (r.S + 1) + s + 1] - lo;
   if (helper_blocks > 0 && n > HEAVY) return;  // a helpers' bucket
-  sum_bucket<T, VEC, P>(E, dH, vlist, gs, r, b, s, c, lo, n, lane, slots,
-                        pol);
+  sum_bucket<T, VEC, P>(E, dH, list, r, b, s, c, lo, n, lane, slots, pol);
 }
 
 // ---------------------------------------------------------------------------
@@ -688,27 +690,27 @@ RoutePlan route_plan(int S, int V) {
 }
 
 template <bool SMEM, bool STAGE>
-int launch_route_as(const RoutePlan& p, Rows r, int* ofs, int* vlist,
+int launch_route_as(const RoutePlan& p, Rows r, int* ofs, int2* list,
                     float* gs, int* heavy, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       route_kernel<SMEM, STAGE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)p.bytes);
   if (err != cudaSuccess) return (int)err;
   route_kernel<SMEM, STAGE><<<r.B, p.warps * 32, p.bytes, stream>>>(
-      r, ofs, vlist, gs, heavy);
+      r, ofs, list, gs, heavy);
   return (int)cudaGetLastError();
 }
 
-int launch_route(Rows r, int* ofs, int* vlist, float* gs, int* heavy,
+int launch_route(Rows r, int* ofs, int2* list, float* gs, int* heavy,
                  cudaStream_t stream) {
   cudaError_t err = cudaMemsetAsync(heavy, 0, sizeof(int), stream);
   if (err != cudaSuccess) return (int)err;
   const RoutePlan p = route_plan(r.S, r.V);
   if (!p.smem)
-    return launch_route_as<false, false>(p, r, ofs, vlist, gs, heavy, stream);
+    return launch_route_as<false, false>(p, r, ofs, list, gs, heavy, stream);
   if (!p.stage)
-    return launch_route_as<true, false>(p, r, ofs, vlist, gs, heavy, stream);
-  return launch_route_as<true, true>(p, r, ofs, vlist, gs, heavy, stream);
+    return launch_route_as<true, false>(p, r, ofs, list, gs, heavy, stream);
+  return launch_route_as<true, true>(p, r, ofs, list, gs, heavy, stream);
 }
 
 // a block's rings: RING_BYTES for each of its lanes
@@ -721,10 +723,9 @@ constexpr size_t ring_smem(int warps) {
 int pieces(int D) { return D > PW ? 3 : 1; }
 
 template <typename T, bool VEC, int P>
-int launch_dh(const void* E, float* dH, int* ofs, int* vlist, float* gs,
+int launch_dh(const void* E, float* dH, int* ofs, int2* list, float* gs,
               int* heavy, Rows r, cudaStream_t stream) {
-  cudaError_t err =
-      (cudaError_t)launch_route(r, ofs, vlist, gs, heavy, stream);
+  cudaError_t err = (cudaError_t)launch_route(r, ofs, list, gs, heavy, stream);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = ring_smem(DH_WARPS);
   err = cudaFuncSetAttribute(dh_kernel<T, VEC, P>,
@@ -746,8 +747,7 @@ int launch_dh(const void* E, float* dH, int* ofs, int* vlist, float* gs,
   const long long blocks = (warps + DH_WARPS - 1) / DH_WARPS + helper_blocks;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   dh_kernel<T, VEC, P><<<(unsigned)blocks, DH_WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(E), dH, ofs, vlist, gs, heavy, r, nc,
-      helper_blocks);
+      static_cast<const T*>(E), dH, ofs, list, heavy, r, nc, helper_blocks);
   return (int)cudaGetLastError();
 }
 
@@ -783,11 +783,11 @@ int launch_de(const void* H, float* dE, float* db, Rows r,
 }
 
 template <typename T, bool VEC>
-int launch_dh(const void* E, float* dH, int* ofs, int* vlist, float* gs,
+int launch_dh(const void* E, float* dH, int* ofs, int2* list, float* gs,
               int* heavy, Rows r, cudaStream_t stream) {
   return pieces(r.D) == 3
-             ? launch_dh<T, VEC, 3>(E, dH, ofs, vlist, gs, heavy, r, stream)
-             : launch_dh<T, VEC, 1>(E, dH, ofs, vlist, gs, heavy, r, stream);
+             ? launch_dh<T, VEC, 3>(E, dH, ofs, list, gs, heavy, r, stream)
+             : launch_dh<T, VEC, 1>(E, dH, ofs, list, gs, heavy, r, stream);
 }
 
 template <typename T, bool VEC>
@@ -824,26 +824,28 @@ bool bad_shape(int B, int S, int D, int V) {
 // a multiple of 8 and the weights' base is 16-byte aligned). Each returns
 // the first CUDA error of its launches.
 
-// K2: dH f32 (B, S, D). ofs i32 (B, S + 1), vlist i32 (B, V), gs f32
-// (B, V) and heavy i32 (2 + 2 * B * min(S, V): a count, a pad, then (b, s)
-// pairs) are the routing pass's scratch, which the wrapper allocates.
+// K2: dH f32 (B, S, D). ofs i32 (B, S + 1), list (B, V) of (i32 v, f32 g)
+// pairs, gs f32 (B, V) and heavy i32 (2 + 2 * B * min(S, V): a count, a
+// pad, then (b, s) pairs) are the routing pass's scratch, which the
+// wrapper allocates.
 extern "C" int sparton_bwd_dh(const float* dy, const float* y, const int* imax,
-                              const void* E, float* dH, int* ofs, int* vlist,
+                              const void* E, float* dH, int* ofs, void* list,
                               float* gs, int* heavy, int B, int S, int D,
                               int V, int dtype, float softcap, int vec,
                               void* stream) {
   if (bad_shape(B, S, D, V)) return (int)cudaErrorInvalidValue;
   const Rows r = make_rows(dy, y, imax, B, S, D, V, softcap);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int2* l = static_cast<int2*>(list);
   if (dtype == 1) {
-    return vec ? launch_dh<__nv_bfloat16, true>(E, dH, ofs, vlist, gs, heavy,
-                                                r, st)
-               : launch_dh<__nv_bfloat16, false>(E, dH, ofs, vlist, gs,
-                                                 heavy, r, st);
+    return vec ? launch_dh<__nv_bfloat16, true>(E, dH, ofs, l, gs, heavy, r,
+                                                st)
+               : launch_dh<__nv_bfloat16, false>(E, dH, ofs, l, gs, heavy, r,
+                                                 st);
   }
   if (dtype == 0) {
-    return vec ? launch_dh<float, true>(E, dH, ofs, vlist, gs, heavy, r, st)
-               : launch_dh<float, false>(E, dH, ofs, vlist, gs, heavy, r, st);
+    return vec ? launch_dh<float, true>(E, dH, ofs, l, gs, heavy, r, st)
+               : launch_dh<float, false>(E, dH, ofs, l, gs, heavy, r, st);
   }
   return (int)cudaErrorInvalidValue;
 }

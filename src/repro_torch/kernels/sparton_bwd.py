@@ -13,7 +13,7 @@ The kernels are ``csrc/sparton_bwd.cu``; its header gives their design.
 K2 is two launches: a routing pass that computes ``g`` once per term and
 sorts each batch row's terms with ``g != 0`` by ``i_max`` (stably, so
 ascending ``v`` within a position), into scratch the wrapper allocates
-(``dh_scratch``: bucket offsets, sorted lists of ``v``, ``g`` and a
+(``dh_scratch``: bucket offsets, sorted ``(v, g)`` lists, ``g`` and a
 list of the heavy buckets); then one warp per (position, up to 768 columns) sums its
 bucket's rows of E in registers, while helper warps split the heavy
 buckets (past 1024 terms) into 64-column pieces. K3 gives one warp to
@@ -145,11 +145,11 @@ def _check(what, dy, y, i_max, X, S):
 
 def dh_scratch(B: int, S: int, V: int, device) -> Tuple[torch.Tensor, ...]:
     """K2's routing scratch: each batch row's bucket offsets ``(B, S + 1)``
-    and sorted list of ``v`` ``(B, V)`` (i32), its ``g`` ``(B, V)`` (f32),
-    and the heavy buckets' list (i32: a count, a pad, then up to
-    ``B * min(S, V)`` pairs ``(b, s)``)."""
+    (i32), its sorted ``(v, g)`` entries ``(B, V, 2)`` (i32, g as f32
+    bits), its ``g`` ``(B, V)`` (f32), and the heavy buckets' list (i32: a
+    count, a pad, then up to ``B * min(S, V)`` pairs ``(b, s)``)."""
     return (torch.empty((B, S + 1), dtype=torch.int32, device=device),
-            torch.empty((B, V), dtype=torch.int32, device=device),
+            torch.empty((B, V, 2), dtype=torch.int32, device=device),
             torch.empty((B, V), dtype=torch.float32, device=device),
             torch.empty((2 + 2 * B * min(S, V),), dtype=torch.int32,
                         device=device))
@@ -171,7 +171,7 @@ def _launch_dh(dy, y, i_max, E, seq_len, softcap):
                          f"(V={V}, D)")
     D = E.shape[1]
     dH = torch.empty((B, seq_len, D), dtype=torch.float32, device=dy.device)
-    ofs, vlist, gs, heavy = dh_scratch(B, seq_len, V, dy.device)
+    ofs, lists, gs, heavy = dh_scratch(B, seq_len, V, dy.device)
     # 16-byte loads of 8-column pieces need D % 8 == 0 and an aligned base
     vec = int(D % 8 == 0 and E.data_ptr() % 16 == 0)
     fn = _build.function("sparton_bwd", "sparton_bwd_dh", _DH_ARGTYPES)
@@ -179,7 +179,7 @@ def _launch_dh(dy, y, i_max, E, seq_len, softcap):
         stream = torch.cuda.current_stream().cuda_stream
         sparton_backward_dh.launches += 1
         rc = fn(dy.data_ptr(), y.data_ptr(), i_max.data_ptr(), E.data_ptr(),
-                dH.data_ptr(), ofs.data_ptr(), vlist.data_ptr(),
+                dH.data_ptr(), ofs.data_ptr(), lists.data_ptr(),
                 gs.data_ptr(), heavy.data_ptr(), B, seq_len, D, V,
                 _DTYPE_CODE[E.dtype],
                 _cap(softcap), vec, stream)

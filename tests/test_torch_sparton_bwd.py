@@ -339,14 +339,15 @@ def test_kernel_arguments_checked_without_a_card(B, S):
                                    (65536, 8, 64)])
 def test_dh_scratch_is_one_offset_row_and_one_entry_list_per_batch_row(
         B, S, V):
-    """K2's routing scratch: bucket offsets (B, S + 1) and lists of v
-    (B, V), i32; g (B, V), f32; room for a count, a pad and a (b, s) pair
-    for every bucket that can hold a term (B * min(S, V)), i32; all on the
-    device asked for (meta here)."""
-    ofs, vlist, gs, heavy = sparton_bwd.dh_scratch(B, S, V,
+    """K2's routing scratch: bucket offsets (B, S + 1) and (v, g) entries
+    (B, V, 2), i32; g (B, V), f32; room for a count, a pad and a (b, s)
+    pair for every bucket that can hold a term (B * min(S, V)), i32; all
+    on the device asked for (meta here)."""
+    ofs, lists, gs, heavy = sparton_bwd.dh_scratch(B, S, V,
                                                    torch.device("meta"))
-    assert ofs.shape == (B, S + 1) and vlist.shape == gs.shape == (B, V)
+    assert ofs.shape == (B, S + 1) and lists.shape == (B, V, 2)
+    assert gs.shape == (B, V)
     assert heavy.shape == (2 + 2 * B * min(S, V),)
-    assert ofs.dtype == vlist.dtype == heavy.dtype == torch.int32
+    assert ofs.dtype == lists.dtype == heavy.dtype == torch.int32
     assert gs.dtype == torch.float32
-    assert {t.device.type for t in (ofs, vlist, gs, heavy)} == {"meta"}
+    assert {t.device.type for t in (ofs, lists, gs, heavy)} == {"meta"}
