@@ -46,25 +46,28 @@
 //  * route_kernel, one block per batch row b: g and the routed row s of
 //    every term, then a stable counting sort of the terms with g != 0 and
 //    s in [0, S) by s: ofs[b, s] .. ofs[b, s + 1] index bucket s of the
-//    row's list, entries (v, g) in ascending v.
-//    Each warp sorts a contiguous range of v: it counts (shared-memory
-//    atomics), the block turns the counts into each warp's start in each
-//    bucket, and the warp places its terms in order (the lanes of a chunk that share an s find
+//    row's list, entries (v, g) in ascending v. Each warp sorts a
+//    contiguous range of v: it counts (shared-memory atomics), the block
+//    turns the counts into each warp's start in each bucket, and the warp
+//    places its terms in order (the lanes of a chunk that share an s find
 //    each other with __match_any_sync, and the first of them takes their
 //    places from the row's cursor with one atomic). Where the row's v fit
 //    beside the counts in shared memory, they are placed there and copied
-//    out whole beside their g (kept dense in gs[b, v] meanwhile); placed
+//    out whole beside their g (kept in gs[b, v] meanwhile); placed
 //    straight into the list, the scattered 8-byte stores cost more than
-//    the rest of the pass.
-//    dy, y and i_max are read twice (count, then place). Where (W + 1) *
-//    S counts do not fit shared memory, one warp per row counts in place
-//    in ofs.
+//    the rest of the pass. dy, y and i_max are read twice (count, then
+//    place). Where (W + 1) * S counts do not fit shared memory, one warp
+//    per row counts in place in ofs.
 //  * dh_kernel, one warp per (bucket s of row b, column block): it walks
 //    its bucket in ascending v through its ring (E copied with an L2
-//    evict-last hint) and stores the sums once (streaming stores). Warps
-//    run in (s, b) order, so every row's bucket 0 (where a trained
-//    model's [CLS] collects many terms) starts first and a heavy bucket
-//    runs beside the others, not after them.
+//    evict-last hint) and stores the sums once (streaming stores). One
+//    warp moves about 4.5 KB at a time, so a bucket of 15k terms (a
+//    trained model's [CLS] collects such) would take it milliseconds
+//    alone: the routing pass lists the buckets past HEAVY terms, and the
+//    first wave of blocks are helpers whose warps take them a 256-column
+//    piece each (three warps a bucket at D 768, all started at once); the
+//    other warps leave them. The column split keeps each element's order
+//    of sums, so the bits do not depend on it.
 //
 // K3 design: one warp per (vocab row v, column block); a block holds VT
 // vocab rows. The block walks b in ascending order in rounds of BROUND
@@ -343,7 +346,6 @@ __global__ void __launch_bounds__(ROUTE_WARPS * 32) route_kernel(Rows r, int* __
         if (v < v_hi) {
           g[u] = bwd_factor(r.y[row + v], r.dy[row + v], r.has_cap, r.cap);
           s[u] = routed(g[u], r.imax[row + v], r.S);
-          if (STAGE && pass == 0) gs[row + v] = g[u];
         }
       }
 #pragma unroll
@@ -364,10 +366,12 @@ __global__ void __launch_bounds__(ROUTE_WARPS * 32) route_kernel(Rows r, int* __
         const int at = start + __popc(peers & lower);
         const int v = v0 + 32 * u + lane;
         if (s[u] >= 0) {
-          if (STAGE)
+          if (STAGE) {
             place[at] = v;
-          else
+            gs[row + v] = g[u];
+          } else {
             list[row + at] = make_int2(v, __float_as_int(g[u]));
+          }
         }
       }
     }
