@@ -43,10 +43,12 @@ Phases, run in this order, each printing one JSON line:
              the products of its kept positions only; K1 also at the
              train step's 384 x 256 and Table-1, each beside its earlier
              WMMA design forced on the same inputs, ``ms_wmma``; K6 at B 8
-             and B 64); for K2 and K3 also
-             the peak memory of the head's forward + backward against the
-             paper's PyTorch baseline, for K6 the peak memory of kernel and
-             yardstick. The dense corpus and the engine are then dropped.
+             and B 64; K2 and K3 on four rows, ``BWD_ROWS``: the train
+             step's 384 x 256, Table-1, and "sparse" and "skewed"
+             routings at 384 x 256 beside ``torch.sparse.mm``); for K2
+             and K3 also the peak memory of the head's forward + backward
+             against the paper's PyTorch baseline, for K6 the peak memory
+             of kernel and yardstick. The dense corpus and the engine are then dropped.
 6. train   — the full-width splade_bert train step: one step's gradients
              with the kernel head against the plain head (32 x 128), split
              into the backward's and the forward's share, then 5 timed

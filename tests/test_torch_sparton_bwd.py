@@ -119,9 +119,9 @@ def test_plain_k2_k3_match_fused_oracle(shape, softcap, dtype):
 @pytest.mark.parametrize("softcap", CAPS)
 @pytest.mark.parametrize("S", [1729, 2048])
 def test_plain_k2_past_one_accumulator_matches_jax_oracle(S, softcap):
-    """Sequences longer than one K2 accumulator (S > 1728, which the card
-    tiles into S ranges): the plain K2 and K3 against the JAX oracle, at
-    the tolerance above."""
+    """Sequences longer than the 1728 positions that the first K2 design's
+    accumulator held (the card's gates run K2 there too): the plain K2 and
+    K3 against the JAX oracle, at the tolerance above."""
     H, E, b, mask, dy = _inputs(3, S, 8, 64, seed=S)
     H[1, S - 1] *= 20.0                  # the last row wins many columns
     mask[1, S - 1] = 1
