@@ -156,14 +156,19 @@ K1_SHAPES = [  # (B, S, D, V): tests/test_kernels_sparton.py SHAPES, plus
 ]
 
 
-BWD_SHAPES = [  # K2/K3 beside K1_SHAPES: an odd D (no 16-byte loads) and
-    (3, 40, 13, 77),   # a long sequence
-    (2, 900, 40, 50),
+BWD_SHAPES = [  # K2/K3 beside K1_SHAPES: an odd D (no 16-byte loads), a
+    (3, 40, 13, 77),    # long sequence, a D whose last 256-column piece
+    (2, 900, 40, 50),   # is partial, and one past a warp's 768 columns
+    (3, 20, 300, 77),   # (two column blocks)
+    (2, 33, 1000, 300),
 ]
 # K2/K3 on the routings of ``reroute`` (a trained model's, and the extremes
-# of K2's buckets), at full width (D 768, V 30522) and at an odd D
+# of K2's buckets), at full width (D 768, V 30522), at an odd D, and at D
+# 1000 (two column blocks; one_position's buckets go to K2's helpers in
+# four pieces, the last partial)
 BWD_ROUTINGS = ("sparse", "skewed", "one_position", "empty_buckets")
-BWD_ROUTING_SHAPES = [(6, 64, 768, 30522), (3, 40, 13, 77)]
+BWD_ROUTING_SHAPES = [(6, 64, 768, 30522), (3, 40, 13, 77),
+                      (2, 24, 1000, 2100)]
 
 
 def k1_inputs(torch, B, S, D, V, dtype, seed, *, mask_p=0.2):
