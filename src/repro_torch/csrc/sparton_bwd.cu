@@ -586,48 +586,31 @@ __global__ void __launch_bounds__(VT * 32)
   const float* g_mine = g_round[vl];
   const int* s_mine = s_round[vl];
 
-  // this thread's entries of a round, k = threadIdx.x + j * blockDim.x
-  // (coalesced along v): the next round's dy, y and i_max are loaded
-  // while the warps walk the current one
-  constexpr int PER = BROUND / 32;
-  float n_dy[PER], n_y[PER];
-  int n_im[PER];
-  auto fetch = [&](int b0) {
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int k = threadIdx.x + j * VT * 32;
-      const int vv = k % VT;
-      n_dy[j] = 0.0f;
-      n_y[j] = 0.0f;  // outside B or V: y == 0, so the term routes nowhere
-      n_im[j] = -1;
-      if (b0 + k / VT < r.B && v0 + vv < r.V) {
-        const size_t bv = (size_t)(b0 + k / VT) * r.V + v0 + vv;
-        n_dy[j] = __ldcs(r.dy + bv);
-        n_y[j] = __ldcs(r.y + bv);
-        n_im[j] = __ldcs(r.imax + bv);
-      }
-    }
-  };
-
   float acc[P][CPL];
 #pragma unroll
   for (int p = 0; p < P; ++p)
 #pragma unroll
     for (int k = 0; k < CPL; ++k) acc[p][k] = 0.0f;
   float db_sum = 0.0f;
-  fetch(0);
   for (int b0 = 0; b0 < r.B; b0 += BROUND) {
     const int nb = min(BROUND, r.B - b0);
     __syncthreads();  // the last round is consumed
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int k = threadIdx.x + j * VT * 32;
-      const float g = bwd_factor(n_y[j], n_dy[j], r.has_cap, r.cap);
-      g_round[k % VT][k / VT] = g;
-      s_round[k % VT][k / VT] = routed(g, n_im[j], r.S);
+#pragma unroll 4
+    for (int k = threadIdx.x; k < nb * VT; k += blockDim.x) {
+      const int bi = k / VT;  // coalesced along v
+      const int vv = k % VT;
+      float g = 0.0f;
+      int si = -1;
+      if (v0 + vv < r.V) {
+        const size_t bv = (size_t)(b0 + bi) * r.V + v0 + vv;
+        g = bwd_factor(__ldcs(r.y + bv), __ldcs(r.dy + bv), r.has_cap,
+                       r.cap);
+        si = __ldcs(r.imax + bv);
+      }
+      g_round[vv][bi] = g;
+      s_round[vv][bi] = routed(g, si, r.S);
     }
     __syncthreads();
-    if (b0 + BROUND < r.B) fetch(b0 + BROUND);
 
     // The round's terms with g != 0 (the others add nothing, to dE or to
     // db), in ascending b: a cursor is (first row of its chunk of 32, the
