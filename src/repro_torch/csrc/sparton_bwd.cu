@@ -473,14 +473,14 @@ __device__ __forceinline__ void walk(const int2* __restrict__ terms, int n,
 
 // One warp sums bucket s of row b for its column block c (P pieces of PW
 // columns a lane) through its ring, and stores the sums.
-template <typename T, bool VEC, int P, int RM = 1>
+template <typename T, bool VEC, int P>
 __device__ __forceinline__ void sum_bucket(const T* __restrict__ E,
                                            float* __restrict__ dH,
                                            const int2* __restrict__ list,
                                            const Rows& r, int b, int s, int c,
                                            int lo, int n, int lane,
                                            uint4* slots, uint64_t pol) {
-  constexpr int R = RM * Slot<T, VEC, P>::ring;
+  constexpr int R = Slot<T, VEC, P>::ring;
   constexpr int SW = Slot<T, VEC, P>::words;
   const int c0 = c * P * PW;
   const bool live = piece_col<VEC>(c0, 0, lane) < r.D;
@@ -533,17 +533,16 @@ __global__ void __launch_bounds__(DH_WARPS * 32)
   const uint64_t pol = evict_last();
 
   if ((int)blockIdx.x < helper_blocks) {
-    if (warp % 2) return;  // its ring is its neighbour's second half
     const int pieces = (r.D + PW - 1) / PW;
     const long long items = (long long)heavy[0] * pieces;
     const int2* buckets = reinterpret_cast<const int2*>(heavy + 2);
-    for (long long it = ((long long)blockIdx.x * DH_WARPS + warp) / 2;
-         it < items; it += (long long)helper_blocks * DH_WARPS / 2) {
+    for (long long it = (long long)blockIdx.x * DH_WARPS + warp; it < items;
+         it += (long long)helper_blocks * DH_WARPS) {
       const int2 bs = buckets[it / pieces];
       const int lo = ofs[(size_t)bs.x * (r.S + 1) + bs.y];
       const int n = ofs[(size_t)bs.x * (r.S + 1) + bs.y + 1] - lo;
-      sum_bucket<T, VEC, 1, 2>(E, dH, list, r, bs.x, bs.y,
-                               (int)(it % pieces), lo, n, lane, slots, pol);
+      sum_bucket<T, VEC, 1>(E, dH, list, r, bs.x, bs.y,
+                            (int)(it % pieces), lo, n, lane, slots, pol);
     }
     return;
   }
