@@ -503,14 +503,18 @@ WIDE_B = (65536, 8, 8, 64)
 # K2 launched with a longer seq_len than i_max reaches: its rows below S
 # must be the bits of the shorter launch, the rest zero
 TILED_S = 3500
+# K2's routing pass where a row's list no longer fits shared memory beside
+# its counts (V 60000: placed straight into device memory), and where its
+# counts do not fit either (S 60000: counted in device memory)
+ROUTE_SPILL = [(2, 16, 8, 60000), (1, 60000, 8, 64)]
 
 
 def limit_cases(torch):
     """K2 past 1728 positions and K1/K2/K3 past 65535 batch rows, each
     against its plain version (K2/K3 within BWD_TOL and bit for bit across
-    two launches; at B = 65536 also against the dense oracle); K2 launched
-    for TILED_S positions gives the bits of the S-position launch below S
-    and zeros above."""
+    two launches; at B = 65536 and ROUTE_SPILL also against the dense
+    oracle); K2 launched for TILED_S positions gives the bits of the
+    S-position launch below S and zeros above."""
     from repro_torch.kernels import sparton_bwd as kb
 
     rows = []
@@ -527,6 +531,12 @@ def limit_cases(torch):
         case["imax_max"] = int(i_max.max())
         rows.append({"kernel": "K2/K3", "shape": [B, S, D, V], **case})
         del H, E, dy, y, i_max, dh, tiled
+    for (B, S, D, V) in ROUTE_SPILL:
+        H, E, mask, dy, y, i_max = bwd_inputs(torch, B, S, D, V,
+                                              torch.bfloat16, 67, None)
+        rows.append({"kernel": "K2/K3", "shape": [B, S, D, V],
+                     **bwd_compare(torch, H, E, mask, dy, y, i_max, None,
+                                   oracle=True)})
     B, S, D, V = WIDE_B
     for dtype in (torch.float32, torch.bfloat16):
         H, E, b, mask = k1_inputs(torch, B, S, D, V, dtype, 65)
