@@ -6,7 +6,7 @@ process of its own.
 
 Each ROOT is a checkout whose ``src/`` holds ``repro_torch``; a root may
 be named more than once, so that ``A B B A`` interleaves two versions
-within one session on one card. Every process builds its checkout's
+within one run on one card. Every process builds its checkout's
 kernels and times ``sparton_backward_dh`` and ``sparton_backward_de``
 with CUDA events (``chip_smoke.cuda_ms``: its WINDOWS windows of REPS
 launches after a warm-up; the median window is reported beside the
