@@ -8,8 +8,10 @@ Phases, run in this order, each printing one JSON line:
              (9, 0) required.
 2. build   — compile the CUDA kernels from ``src/repro_torch/csrc``.
 3. kernels — each kernel against its plain PyTorch version on the card
-             (K2 and K3 also against the dense oracle, and bit for bit
-             against a second launch, also on sparse, skewed,
+             (K4 and K5 through both entries, on windows and reading an
+             index in place, bit for bit, across two launches and against
+             each other; K2 and K3 also against the dense oracle, and bit
+             for bit against a second launch, also on sparse, skewed,
              one-position and empty-bucket routings), K6 also past its
              old k limit of 256, and past the old limits of the head: K2
              at S = 1729 and 2048 (and launched for a longer sequence
@@ -21,7 +23,8 @@ Phases, run in this order, each printing one JSON line:
              i_max must equal the plain version's everywhere.
 4. serve   — the full-width splade_bert serving path: index 16384 docs,
              serve 64 requests through the batching loop, retrieve with
-             ``method="auto"`` (which must resolve to the fused kernel).
+             ``method="auto"`` (which must resolve to the fused kernel, K4
+             reading the index in place).
    serve_dense — the same path with dense reps (``--rep-topk 0``): a
              (16384, 30522) f32 corpus, ``auto`` resolving to the
              streaming kernel (K6), held against the ``dense`` method and,
@@ -33,13 +36,17 @@ Phases, run in this order, each printing one JSON line:
              tombstoned (searched once zeroed in place), then compacted
              away, one more batch as the delta; the served queries
              searched with ``auto`` (the quantized base resolving to K5)
-             and ``fused`` (K5 on the base, K4 on the delta), held against
+             and ``fused`` (K5 on the base, K4 on the delta, both reading
+             their segment in place), held against
              the ``quantized`` method; the JAX package's acceptance
              corpus quantized on the card, at least 4x smaller; then K4
              and K5 at k = 1025, 1100 and n_docs on the base, against the
              ``impact`` and ``quantized`` methods.
 5. timing  — each kernel, its plain version, a one-call PyTorch yardstick
-             and its roofline bound, with CUDA events (K1's bound counts
+             and its roofline bound, with CUDA events (K4 and K5, whose
+             calls take less device time than their enqueue, from CUDA
+             graph replays, at the served 8 queries and all 64, both
+             entries, with digests of their results; K1's bound counts
              the products of its kept positions only; K1 also at the
              train step's 384 x 256 and Table-1, each beside its earlier
              WMMA design forced on the same inputs, ``ms_wmma``; K6 at B 8
@@ -66,10 +73,12 @@ of JAX nor of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -286,7 +295,8 @@ def k4_cases(torch):
 def k5_index_case(torch, n_docs, postings, vocab, q_terms, q_vals, seed):
     """K5's inputs from a quantized index built on the card: ``postings``
     maps a term to its doc ids (random impacts); each query row holds
-    ``q_terms`` with weights ``q_vals``. Returns (windows, n_docs, quant)."""
+    ``q_terms`` with weights ``q_vals``. Returns (windows, n_docs, quant,
+    queries)."""
     from repro_torch.retrieval.engine.quantize import (_fused_q_windows,
                                                        quantize_index)
     from repro_torch.retrieval.index import build_inverted_index
@@ -303,7 +313,7 @@ def k5_index_case(torch, n_docs, postings, vocab, q_terms, q_vals, seed):
     q_vals = np.asarray(q_vals, np.float32)
     q = SparseRep(q_vals, np.asarray(q_terms, np.int32),
                   (q_vals > 0).sum(1).astype(np.int32))
-    return _fused_q_windows(q, quant), n_docs, quant
+    return _fused_q_windows(q, quant), n_docs, quant, q
 
 
 def k5_random_index(torch, n_docs, nnz, vocab, B, Q, seed):
@@ -326,7 +336,7 @@ def k5_random_index(torch, n_docs, nnz, vocab, B, Q, seed):
     qv = torch.rand((B, Q), generator=g, device="cuda") + 0.2
     qv[0, 1] = 0.0                              # a padded slot
     q = SparseRep(qv, qi, (qv > 0).sum(1).int())
-    return _fused_q_windows(q, quant), n_docs, quant
+    return _fused_q_windows(q, quant), n_docs, quant, q
 
 
 def k5_random_windows(torch, B, Q, L, n_docs, max_gap, seed):
@@ -352,33 +362,40 @@ def k5_random_windows(torch, B, Q, L, n_docs, max_gap, seed):
 
 
 def k5_cases(torch):
-    """(name, windows, n_docs, k): quantized indexes built on the card (u8
-    and u16 deltas, escape phantoms whose gap is an exact multiple of the
-    escape and so share a doc with the next posting, n_docs over the
-    kernel's 32768-doc tile) and random windows (several 512-lane chunks
-    per term, empty terms, qv <= 0, k > n_docs, L = 0, Q = 0)."""
+    """(name, windows, n_docs, k, index): quantized indexes built on the
+    card (u8 and u16 deltas, escape phantoms whose gap is an exact multiple
+    of the escape and so share a doc with the next posting, n_docs over
+    the old kernel's 32768-doc tile; ``index`` = (queries, quant) for the
+    in-place entry) and random windows (several 512-lane chunks per term,
+    empty terms, qv <= 0, k > n_docs, L = 0, Q = 0; ``index`` None)."""
     cases = []
-    wins, n, quant = k5_index_case(
+    wins, n, quant, q = k5_index_case(
         torch, 2000, {3: np.r_[np.arange(64), 777, 1901],
                       5: [0, 255, 765, 1020], 6: np.arange(0, 2000, 3)},
         16, [[3, 5, 6, 7], [5, 3, 7, 6]], [[1.0, 0.7, 0.4, 0.5],
                                           [2.0, 0.0, 0.5, 1.0]], 1)
     assert quant.deltas.dtype == torch.uint8 and quant.n_postings > \
         quant.n_source_postings, "the u8 case lost its phantoms"
-    cases.append(("index_u8_phantoms", wins, n, 70))
-    wins, n, quant = k5_index_case(
+    cases.append(("index_u8_phantoms", wins, n, 70, (q, quant)))
+    wins, n, quant, q = k5_index_case(
         torch, 131072 + 1, {3: [0, 65535, 131070],
                             4: np.arange(7, 131072, 20000)},
         8, [[3, 4]], [[1.0, 0.5]], 2)
     assert quant.deltas.dtype == torch.uint16 and quant.n_postings > \
         quant.n_source_postings, "the u16 case lost its phantoms"
-    cases.append(("index_u16_phantoms_multi_tile", wins, n, 5))
-    wins, n, quant = k5_random_index(torch, 3000, 16, 256, 6, 12, 3)
+    cases.append(("index_u16_phantoms_multi_tile", wins, n, 5, (q, quant)))
+    wins, n, quant, q = k5_random_index(torch, 3000, 16, 256, 6, 12, 3)
     assert quant.deltas.dtype == torch.uint8
-    cases.append(("random_index_u8", wins, n, 20))
-    wins, n, quant = k5_random_index(torch, 20000, 4, 4096, 4, 8, 4)
+    cases.append(("random_index_u8", wins, n, 20, (q, quant)))
+    wins, n, quant, q = k5_random_index(torch, 20000, 4, 4096, 4, 8, 4)
     assert quant.deltas.dtype == torch.uint16
-    cases.append(("random_index_u16", wins, n, 10))
+    cases.append(("random_index_u16", wins, n, 10, (q, quant)))
+    # i32 term_lens (a list of 2**16 or more postings), k past 1024
+    wins, n, quant, q = k5_index_case(
+        torch, 70000, {2: np.arange(0, 70000, 1), 9: np.arange(5, 70000, 7)},
+        12, [[2, 9, 11], [9, 2, 0]], [[0.5, 1.5, 1.0], [1.0, 0.0, 2.0]], 5)
+    assert quant.term_lens.dtype == torch.int32
+    cases.append(("index_i32_lens_k1100", wins, n, 1100, (q, quant)))
     for name, (B, Q, L, n, gap, k) in {
             "windows_three_chunks": (6, 10, 1500, 5000, 3, 50),
             "windows_k_gt_n_docs": (2, 3, 4, 7, 2, 12),
@@ -386,26 +403,123 @@ def k5_cases(torch):
             "windows_L0": (3, 4, 0, 64, 1, 7),
             "windows_Q0": (2, 0, 5, 64, 1, 7)}.items():
         cases.append((name, k5_random_windows(torch, B, Q, L, n, gap,
-                                              len(cases)), n, k))
+                                              len(cases)), n, k, None))
     return cases
 
 
-def k5_compare(torch, wins, n_docs, k):
-    """K5, launched twice, against its plain version on one input: whether
-    values and ids are equal (the decode and the order of the sums are the
-    same) and whether the two launches agree bit for bit."""
-    from repro_torch.kernels.impact_score import (fused_quantized_topk,
-                                                  fused_quantized_topk_plain)
-
-    runs = [fused_quantized_topk(*wins, n_docs=n_docs, k=k) for _ in range(2)]
-    v_p, i_p = fused_quantized_topk_plain(*wins, n_docs=n_docs, k=k)
+def runs_vs_plain(torch, run, plain):
+    """A kernel entry, launched twice, against its plain version: whether
+    values and ids are equal and whether the two launches agree bit for
+    bit. Returns the comparison and the first launch's result."""
+    runs = [run() for _ in range(2)]
+    v_p, i_p = plain()
     torch.cuda.synchronize()
     v_k, i_k = runs[0]
     err = float((v_k - v_p).abs().max()) if v_k.numel() else 0.0
     return {"max_abs_err": err, "id_mismatch": int((i_k != i_p).sum()),
             "equal": bool(torch.equal(v_k, v_p) and torch.equal(i_k, i_p)),
             "bit_identical": all(bool(torch.equal(a, b))
-                                 for a, b in zip(*runs))}
+                                 for a, b in zip(*runs))}, runs[0]
+
+
+def k5_index_args(quant, queries):
+    """K5's in-place arguments: the queries' (B, Q) columns and the
+    quantized index's arrays as stored."""
+    from repro_torch.retrieval.sparse_rep import query_columns
+
+    return (*query_columns(queries, quant.device), quant.term_starts,
+            quant.term_lens, quant.packed_vals, quant.deltas, quant.term_lo,
+            quant.term_hi)
+
+
+def k5_index_compare(torch, queries, quant, k, window_result=None):
+    """K5 reading ``quant`` in place, launched twice, against its plain
+    version, and (``window_result``) equal to the window entry's result on
+    the same queries' windows."""
+    from repro_torch.kernels import impact_score as k45
+
+    args = k5_index_args(quant, queries)
+    kw = dict(n_docs=quant.n_docs, k=k, max_postings=quant.max_postings)
+    case, got = runs_vs_plain(
+        torch, lambda: k45.fused_quantized_index_topk(*args, **kw),
+        lambda: k45.fused_quantized_index_topk_plain(*args, **kw))
+    if window_result is not None:
+        case["equal_window"] = all(bool(torch.equal(a, b))
+                                   for a, b in zip(got, window_result))
+    return case
+
+
+def k5_compare(torch, wins, n_docs, k):
+    """K5 on windows, launched twice, against its plain version on one
+    input: whether values and ids are equal (the decode and the order of
+    the sums are the same) and whether the two launches agree bit for
+    bit; and the first launch's result."""
+    from repro_torch.kernels.impact_score import (fused_quantized_topk,
+                                                  fused_quantized_topk_plain)
+
+    return runs_vs_plain(
+        torch, lambda: fused_quantized_topk(*wins, n_docs=n_docs, k=k),
+        lambda: fused_quantized_topk_plain(*wins, n_docs=n_docs, k=k))
+
+
+def k4_index_cases(torch):
+    """(name, queries, index, k): inverted indexes built on the card from
+    random reps (``nnz`` distinct terms a doc), queries with a padded slot,
+    a term no doc holds, a row of weights <= 0 and an empty row; k from 1
+    past n_docs, n_docs from 5 to 70000 (one slice to many)."""
+    from repro_torch.retrieval.index import build_inverted_index
+    from repro_torch.retrieval.sparse_rep import SparseRep
+
+    cases = []
+    for name, (n_docs, nnz, vocab, B, Q, k) in {
+            "tiny_k_gt_n_docs": (5, 2, 8, 3, 2, 8),
+            "one_slice": (300, 8, 100, 2, 5, 1),
+            "random": (3000, 16, 256, 6, 12, 20),
+            "serve_width": (16384, 64, 30522, 8, 64, 10),
+            "serve_width_B64": (16384, 64, 30522, 64, 64, 10),
+            "k1100": (2000, 32, 512, 3, 28, 1100),
+            "many_slices": (70000, 8, 2000, 2, 6, 100),
+            "long_lists": (20000, 6, 40, 4, 8, 50)}.items():
+        g = torch.Generator(device="cuda").manual_seed(n_docs + B)
+        i = torch.rand((n_docs, vocab - 1), generator=g,
+                       device="cuda").argsort(dim=1)[:, :nnz].int()
+        v = torch.rand((n_docs, nnz), generator=g, device="cuda") * 2 + 0.1
+        rep = SparseRep(v, i, torch.full((n_docs,), nnz, device="cuda"))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # the stopword-like lists
+            index = build_inverted_index(rep, vocab, device="cuda")
+        qi = torch.randint(0, vocab, (B, Q), generator=g, device="cuda").int()
+        qi[:, -1] = vocab - 1                   # a term no doc holds
+        qv = torch.rand((B, Q), generator=g, device="cuda") + 0.2
+        qv[0, min(1, Q - 1)] = 0.0              # a padded slot
+        if B > 2:
+            qv[1] = -qv[1]                      # weights <= 0: skipped
+            qv[2] = 0.0                         # an empty row
+        cases.append((name, SparseRep(qv, qi, (qv > 0).sum(1).int()),
+                      index, k))
+    return cases
+
+
+def k4_index_compare(torch, queries, index, k):
+    """K4 reading ``index`` in place, launched twice, against its plain
+    version, and equal to the window entry on the same queries' windows
+    (a window batch read as an index)."""
+    from repro_torch.kernels import impact_score as k45
+    from repro_torch.retrieval.score import _fused_windows
+    from repro_torch.retrieval.sparse_rep import query_columns
+
+    args = (*query_columns(queries, index.device), index.term_starts,
+            index.term_lens, index.postings_doc, index.postings_val)
+    kw = dict(n_docs=index.n_docs, k=k, max_postings=index.max_postings)
+    case, got = runs_vs_plain(
+        torch, lambda: k45.fused_impact_index_topk(*args, **kw),
+        lambda: k45.fused_impact_index_topk_plain(*args, **kw))
+    w, docs = _fused_windows(queries, index)
+    window = k45.fused_impact_topk(w, docs, n_docs=index.n_docs, k=k,
+                                   term_lanes=index.max_postings)
+    case["equal_window"] = all(bool(torch.equal(a, b))
+                               for a, b in zip(got, window))
+    return case
 
 
 K6_SHAPES = [  # (B, N, D, k): tests/test_kernels_topk.py shapes, an odd D
@@ -690,25 +804,35 @@ def phase_kernels(torch):
 
     k1 = k1_gates(torch)
     k4 = []
-    k4_err, k4_mism = 0.0, 0
     for name, w, d, n_docs, k, lanes in k4_cases(torch):
-        v_k, i_k = fused_impact_topk(w, d, n_docs=n_docs, k=k,
-                                     term_lanes=lanes)
-        v_p, i_p = fused_impact_topk_plain(w, d, n_docs=n_docs, k=k)
-        torch.cuda.synchronize()
-        err = float((v_k - v_p).abs().max()) if v_k.numel() else 0.0
-        mism = int((i_k != i_p).sum())
-        k4.append({"case": name, "max_abs_err": err, "id_mismatch": mism})
-        k4_err, k4_mism = max(k4_err, err), k4_mism + mism
-    require(k4_err == 0.0 and k4_mism == 0,
-            f"K4 differs from the plain version (max err {k4_err}, "
-            f"{k4_mism} id mismatches)")
-    k5 = [{"case": name, "shape": list(wins[0].shape), "n_docs": n, "k": k,
-           **k5_compare(torch, wins, n, k)}
-          for name, wins, n, k in k5_cases(torch)]
-    bad = [c for c in k5 if not (c["equal"] and c["bit_identical"])]
-    require(not bad, f"K5 differs from the plain version or between two "
-                     f"launches: {bad[:2]}")
+        case, _ = runs_vs_plain(
+            torch, lambda: fused_impact_topk(w, d, n_docs=n_docs, k=k,
+                                             term_lanes=lanes),
+            lambda: fused_impact_topk_plain(w, d, n_docs=n_docs, k=k,
+                                            term_lanes=lanes))
+        k4.append({"case": name, "entry": "window", **case})
+    for name, q, index, k in k4_index_cases(torch):
+        k4.append({"case": name, "entry": "index", "n_docs": index.n_docs,
+                   "k": k, **k4_index_compare(torch, q, index, k)})
+    bad = [c for c in k4 if not (c["equal"] and c["bit_identical"]
+                                 and c.get("equal_window", True))]
+    require(not bad, f"K4 differs from its plain version, between two "
+                     f"launches or between its entries: {bad[:2]}")
+    k5 = []
+    for name, wins, n, k, index in k5_cases(torch):
+        case, got = k5_compare(torch, wins, n, k)
+        k5.append({"case": name, "entry": "window",
+                   "shape": list(wins[0].shape), "n_docs": n, "k": k,
+                   **case})
+        if index is not None:
+            k5.append({"case": name, "entry": "index", "n_docs": n, "k": k,
+                       "delta_dtype": str(index[1].deltas.dtype)[6:],
+                       "lens_dtype": str(index[1].term_lens.dtype)[6:],
+                       **k5_index_compare(torch, *index, k, got)})
+    bad = [c for c in k5 if not (c["equal"] and c["bit_identical"]
+                                 and c.get("equal_window", True))]
+    require(not bad, f"K5 differs from its plain version, between two "
+                     f"launches or between its entries: {bad[:2]}")
     k6 = []
     for name, q, C, k, exact in k6_cases(torch):
         k6.append({"case": name, "exact": exact,
@@ -753,7 +877,9 @@ def phase_kernels(torch):
          k1_paths={path: sum(c["path"] == path for c in k1)
                    for path in ("tma", "wmma", "f32")},
          k1_bit_identical=all(c["bit_identical"] for c in k1),
-         k1_cases=k1, k4_max_abs_err=k4_err, k4_id_mismatch=k4_mism,
+         k1_cases=k1, k4_max_abs_err=max(c["max_abs_err"] for c in k4),
+         k4_id_mismatch=sum(c["id_mismatch"] for c in k4),
+         k4_bit_identical=all(c["bit_identical"] for c in k4),
          k4_cases=k4, k5_max_abs_err=max(c["max_abs_err"] for c in k5),
          k5_id_mismatch=sum(c["id_mismatch"] for c in k5),
          k5_bit_identical=all(c["bit_identical"] for c in k5),
@@ -867,6 +993,37 @@ def plain_guard(**targets):
             setattr(mod, attr, fn)
 
 
+K45_ENTRIES = {  # launch counter: (kernel, entry)
+    "impact_topk": ("K4", "fused_impact_topk"),
+    "impact_index_topk": ("K4", "fused_impact_index_topk"),
+    "impact_q_topk": ("K5", "fused_quantized_topk"),
+    "impact_q_index_topk": ("K5", "fused_quantized_index_topk"),
+}
+
+
+def reset_k45(k45):
+    for _, entry in K45_ENTRIES.values():
+        getattr(k45, entry).launches = 0
+
+
+def k45_launches(k45):
+    """K4's and K5's calls on the card since ``reset_k45``: each kernel's
+    total over its window and index entries ("impact_topk",
+    "impact_q_topk"), and the index entries' own counts."""
+    n = {key: getattr(k45, entry).launches
+         for key, (_, entry) in K45_ENTRIES.items()}
+    return {"impact_topk": n["impact_topk"] + n["impact_index_topk"],
+            "impact_index_topk": n["impact_index_topk"],
+            "impact_q_topk": n["impact_q_topk"] + n["impact_q_index_topk"],
+            "impact_q_index_topk": n["impact_q_index_topk"]}
+
+
+def k45_plains(k45):
+    """plain_guard targets: the plain version of every K4/K5 entry."""
+    return {f"{entry}_plain": (k45, f"{entry}_plain")
+            for _, entry in K45_ENTRIES.values()}
+
+
 def phase_serve(torch):
     import dataclasses
 
@@ -893,15 +1050,15 @@ def phase_serve(torch):
         return reps
 
     reset_k1(k1)
-    k4.fused_impact_topk.launches = 0
+    reset_k45(k4)
     with plain_guard(k1=(k1, "sparton_forward_plain"),
-                     k4=(k4, "fused_impact_topk_plain")) as plain_on_cuda:
+                     **k45_plains(k4)) as plain_on_cuda:
         res = run(timed_encode, cfg.vocab_size, corpus=SERVE["corpus"],
                   requests=SERVE["requests"], topk=SERVE["topk"],
                   method="auto", index_batch=SERVE["index_batch"],
                   device=torch.device("cuda"))
     launches = {"sparton_fwd": k1.sparton_forward.launches,
-                "impact_topk": k4.fused_impact_topk.launches}
+                **k45_launches(k4)}
     k1_paths = k1_on_tma(k1, "serve")
 
     st = res["loop"].stats()
@@ -915,7 +1072,10 @@ def phase_serve(torch):
     require(launches["sparton_fwd"] == len(batches),
             f"K1 launched {launches['sparton_fwd']} times for "
             f"{len(batches)} encode batches")
-    require(launches["impact_topk"] >= 1, "K4 never launched")
+    require(launches["impact_topk"] >= 1
+            and launches["impact_topk"] == launches["impact_index_topk"],
+            f"K4 launched {launches}: the fused retrieve reads the index "
+            f"in place")
     require(not plain_on_cuda, f"plain versions ran on CUDA tensors: "
                                f"{sorted(set(plain_on_cuda))}")
     for rep in res["served"]:
@@ -1138,14 +1298,11 @@ def searched(torch, engine, queries, k):
     builder = engine.builder
     out = {"launches": {}}
     for method in ("auto", "fused", "quantized"):
-        before = (k45.fused_quantized_topk.launches,
-                  k45.fused_impact_topk.launches)
+        reset_k45(k45)
         t0 = time.perf_counter()
         out[method] = engine.search(queries, k, method=method)
         out[method + "_ms"] = 1e3 * (time.perf_counter() - t0)
-        out["launches"][method] = {
-            "impact_q_topk": k45.fused_quantized_topk.launches - before[0],
-            "impact_topk": k45.fused_impact_topk.launches - before[1]}
+        out["launches"][method] = k45_launches(k45)
     parts = [quantized_scores(queries, builder._base)]
     if builder._delta is not None:
         parts.append(impact_scores(queries, builder._delta))
@@ -1221,14 +1378,17 @@ def acceptance_corpus(torch):
     for m in ("quantized", "fused"):
         require(bool(torch.equal(ids[m], ids["impact"])),
                 f"acceptance corpus: {m} ids differ from the impact ids")
-    case = k5_compare(torch, _fused_q_windows(q, quant), quant.n_docs, k)
-    require(case["equal"] and case["bit_identical"],
-            f"K5 on the acceptance corpus: {case}")
+    case, got = k5_compare(torch, _fused_q_windows(q, quant), quant.n_docs,
+                           k)
+    in_place = k5_index_compare(torch, q, quant, k, got)
+    require(case["equal"] and case["bit_identical"] and in_place["equal"]
+            and in_place["bit_identical"] and in_place["equal_window"],
+            f"K5 on the acceptance corpus: {case}, in place {in_place}")
     return {"compression": ratio, "raw_memory_bytes": raw.memory_bytes(),
             "quantized_memory_bytes": quant.memory_bytes(),
             "delta_dtype": str(quant.deltas.dtype),
             "phantom_frac": quant.stats()["phantom_frac"],
-            "ids_equal_impact": True, "k5": case}
+            "ids_equal_impact": True, "k5": case, "k5_index": in_place}
 
 
 def index_past_limits(torch, queries, raw, quant):
@@ -1241,19 +1401,19 @@ def index_past_limits(torch, queries, raw, quant):
     from repro_torch.retrieval.score import impact_scores, retrieve
 
     rows = []
-    for name, index, exact, scores_of, counter in (
-            ("K4", raw, "impact", impact_scores, k45.fused_impact_topk),
-            ("K5", quant, "quantized", quantized_scores,
-             k45.fused_quantized_topk)):
+    for name, index, exact, scores_of, key in (
+            ("K4", raw, "impact", impact_scores, "impact_topk"),
+            ("K5", quant, "quantized", quantized_scores, "impact_q_topk")):
         scores = scores_of(queries, index)
         for k in (1025, 1100, index.n_docs):
-            before = counter.launches
+            reset_k45(k45)
             v_f, i_f = retrieve(queries, index, k, method="fused")
+            launched = k45_launches(k45)[key]
             v_e, i_e = retrieve(queries, index, k, method=exact)
             hard, differ = ids_beyond_near_ties(torch, scores, i_f, i_e)
             err = float((v_f - v_e).abs().max())
             rows.append({"kernel": name, "k": k, "n_docs": index.n_docs,
-                         "launches": counter.launches - before,
+                         "launches": launched,
                          "ids_differ": differ, "ids_hard": hard,
                          "max_abs_err": err})
             require(rows[-1]["launches"] == 1 and
@@ -1296,14 +1456,14 @@ def phase_serve_engine(torch, served):
     rng = np.random.default_rng(SEED)
     n = ENGINE["corpus"]
     reset_k1(k1)
-    k45.fused_impact_topk.launches = 0
-    k45.fused_quantized_topk.launches = 0
+    reset_k45(k45)
+    engine_launches = {}
     with plain_guard(k1=(k1, "sparton_forward_plain"),
-                     k4=(k45, "fused_impact_topk_plain"),
-                     k5=(k45, "fused_quantized_topk_plain")) as plain_on_cuda:
+                     **k45_plains(k45)) as plain_on_cuda:
         t0 = time.perf_counter()
         grow_engine(engine, cfg.vocab_size, n, batch=ENGINE["batch"], rng=rng)
         torch.cuda.synchronize()
+        engine_launches["grow"] = k45_launches(k45)
         index_s = time.perf_counter() - t0
         grown = engine.stats()
         dropped = rng.choice(n, size=int(ENGINE["remove_frac"] * n),
@@ -1324,9 +1484,12 @@ def phase_serve_engine(torch, served):
         engine.flush()
         resolved = builder.resolved_method("auto")
         out = searched(torch, engine, queries, k)
+    # the searches' launches: searched() counts each search from 0
     launches = {"sparton_fwd": k1.sparton_forward.launches,
-                "impact_topk": k45.fused_impact_topk.launches,
-                "impact_q_topk": k45.fused_quantized_topk.launches}
+                **{key: sum(row[method][key] for row in (
+                    in_place["launches"], out["launches"])
+                    for method in ("auto", "fused", "quantized"))
+                   for key in ("impact_topk", "impact_q_topk")}}
     k1_paths = k1_on_tma(k1, "serve_engine")
     st = engine.stats()
 
@@ -1336,7 +1499,8 @@ def phase_serve_engine(torch, served):
             and st["delta_docs"] == ENGINE["batch"] and st["n_dead"] == 0,
             f"engine segments after the compaction and the last batch: {st}")
     require(resolved == "fused", f"auto on the base resolved to {resolved!r}")
-    counts = out["launches"]
+    counts = {m: {key: c[key] for key in ("impact_q_topk", "impact_topk")}
+              for m, c in out["launches"].items()}
     require(counts["auto"] == {"impact_q_topk": 1, "impact_topk": 0},
             f"auto search launched {counts['auto']}: K5 once on the base, "
             f"the {ENGINE['batch']}-doc delta on the plain impact path")
@@ -1351,7 +1515,8 @@ def phase_serve_engine(torch, served):
             f"the tombstones were not zeroed in place: {st_in}")
     want = {"impact_q_topk": int(in_place["resolved"] == "fused"),
             "impact_topk": 0}
-    require(in_place["launches"]["auto"] == want,
+    got = {key: in_place["launches"]["auto"][key] for key in want}
+    require(got == want,
             f"auto search on the zeroed base (resolved to "
             f"{in_place['resolved']!r}) launched "
             f"{in_place['launches']['auto']}, expected {want}")
@@ -1363,6 +1528,15 @@ def phase_serve_engine(torch, served):
             f"{len(batches)} encode batches")
     require(not plain_on_cuda, f"plain versions ran on CUDA tensors: "
                                f"{sorted(set(plain_on_cuda))}")
+    require(engine_launches["grow"]["impact_topk"] == 0
+            and engine_launches["grow"]["impact_q_topk"] == 0,
+            f"growing the engine launched K4/K5: {engine_launches['grow']}")
+    searches = [row[m] for row in (in_place["launches"], out["launches"])
+                for m in ("auto", "fused", "quantized")]
+    require(all(c["impact_topk"] == c["impact_index_topk"]
+                and c["impact_q_topk"] == c["impact_q_index_topk"]
+                for c in searches),
+            f"the engine's searches used the window entries: {searches}")
 
     gone = set(dropped)
     rows_in_place = held_to_quantized(torch, in_place, gone, "in place: ")
@@ -2069,62 +2243,149 @@ def time_k6(torch, q, C, k, *, reps):
     return row
 
 
-def time_k5(torch, queries, base, k, *, reps):
-    """K5 at one batch on the engine's quantized base: against its plain
-    version, CUDA-event times of kernel, plain version and the yardstick
-    (the PyTorch decode, ``index_add_`` into ``(B, N)``, ``torch.topk``),
-    and the bound over the byte rate: what the kernel must read of this
-    run's windows, once (``qv`` and ``lens`` of every term; ``starts``,
-    ``lo`` and ``step`` of the terms with ``qv > 0`` and a posting; the
-    byte and gap lanes below ``min(lens, L)`` of those terms, since the
-    padding is never read), and the ``(B, k)`` results written once. The
-    padded window (``fused_window_bytes(..., "u4")``) is printed beside
-    it."""
-    from repro_torch.kernels.impact_score import (decode_quantized_windows,
-                                                  fused_quantized_topk,
-                                                  fused_quantized_topk_plain,
-                                                  fused_window_bytes)
-    from repro_torch.retrieval.engine.quantize import _fused_q_windows
+def graph_ms(torch, fn, reps):
+    """Device ms per call of ``fn``: ``reps`` back-to-back calls captured
+    in a CUDA graph, replayed in WINDOWS windows timed with CUDA events, so
+    that no host work sits between the launches (K4's and K5's calls take
+    less device time than the host takes to enqueue them). Returns (median
+    ms, [min ms, max ms])."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(WINDOWS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return sorted(times)[WINDOWS // 2], [min(times), max(times)]
 
-    wins = _fused_q_windows(queries, base)
-    B, Q, L = wins[0].shape
-    n = base.n_docs
-    case = k5_compare(torch, wins, n, k)
-    require(case["equal"] and case["bit_identical"],
-            f"K5 at {(B, Q, L, n, k)}: {case}")
-    rows = torch.arange(B, device="cuda")[:, None] * n
+
+def digest(*tensors) -> str:
+    """SHA-256 of the tensors' bytes (16 hex digits)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def index_read_bytes(torch, qi, qv, index, k):
+    """What a K4/K5 in-place call must move, each byte once: the query
+    rep's (B, Q) ids and weights, the per-term columns of the distinct
+    live query terms (K4: starts, lens; K5: starts, lens, lo, hi), their
+    postings (K4 8 bytes each; K5 the delta bytes and the packed bytes
+    the list spans) and the (B, k) results. Returns (bytes, postings,
+    terms)."""
+    B, Q = qi.shape
+    terms = torch.unique(qi[qv > 0].long())
+    starts = index.term_starts[terms].long()
+    if index.term_lens.dtype == torch.uint16:
+        lens = index.term_lens.view(torch.int16)[terms].long() & 0xFFFF
+    else:
+        lens = index.term_lens[terms].long()
+    postings = int(lens.sum())
+    nbytes = B * Q * 8 + B * k * 8
+    if hasattr(index, "postings_doc"):
+        nbytes += terms.numel() * 8 + postings * 8
+    else:
+        live = lens > 0
+        packed = ((starts + lens - 1) >> 1) - (starts >> 1) + 1
+        nbytes += (terms.numel() * (4 + index.term_lens.element_size() + 4)
+                   + postings * index.deltas.element_size()
+                   + int(packed[live].sum()))
+    return nbytes, postings, terms.numel()
+
+
+def time_impact(torch, queries, index, k, *, reps):
+    """K4 (an ``InvertedIndex``) or K5 (a ``QuantizedIndex``) at one batch,
+    both entries: each against its plain version and each other (equal
+    digests of (vals, idx)); device ms of the in-place entry (``ms``) and
+    of the window entry on the gathered windows (``window_ms``) from
+    ``graph_ms``; the in-place entry's host enqueue time (``host_us``) and
+    eager back-to-back CUDA-event time (``eager_ms``); CUDA-event times of
+    the plain version and of the yardstick (``library_ms``: the window
+    gather from the query and the index, then ``index_add_`` into (B, N)
+    and ``torch.topk``: the same function from the same inputs; K5 also
+    decodes); the bound over the byte rate from ``index_read_bytes``, the
+    padded windows' bytes printed beside it."""
+    from repro_torch.kernels import impact_score as k45
+    from repro_torch.retrieval.sparse_rep import query_columns
+
+    quant = not hasattr(index, "postings_doc")
+    qi, qv = query_columns(queries, index.device)
+    n, L = index.n_docs, index.max_postings
+    B, Q = qi.shape
+    if quant:
+        args = (qi, qv, index.term_starts, index.term_lens, index.packed_vals,
+                index.deltas, index.term_lo, index.term_hi)
+        entry = k45.fused_quantized_index_topk
+        plain = k45.fused_quantized_index_topk_plain
+        wins = k45.quantized_index_windows(*args, L)
+        window = lambda: k45.fused_quantized_topk(*wins, n_docs=n, k=k)
+    else:
+        args = (qi, qv, index.term_starts, index.term_lens,
+                index.postings_doc, index.postings_val)
+        entry = k45.fused_impact_index_topk
+        plain = k45.fused_impact_index_topk_plain
+        wins = k45.index_windows(*args, L)
+        window = lambda: k45.fused_impact_topk(*wins, n_docs=n, k=k,
+                                               term_lanes=L)
+    kw = dict(n_docs=n, k=k, max_postings=L)
+    case, got = runs_vs_plain(torch, lambda: entry(*args, **kw),
+                              lambda: plain(*args, **kw))
+    win = window()
+    rows = torch.arange(B, device=index.device)[:, None] * n
 
     def library():
-        w, docs = decode_quantized_windows(*wins)
-        flat = torch.zeros(B * n, device="cuda")
+        if quant:
+            w, docs = k45.decode_quantized_windows(
+                *k45.quantized_index_windows(*args, L))
+        else:
+            w, docs = k45.index_windows(*args, L)
+        flat = torch.zeros(B * n, device=index.device)
         flat.index_add_(0, (rows + docs.view(B, -1)).view(-1), w.view(-1))
         return torch.topk(flat.view(B, n), k, dim=1)
 
-    _, _, _, lens, qv = wins[:5]
-    read = torch.where(qv > 0, lens.clamp(0, L), 0)
-    lanes, terms = int(read.sum()), int((read > 0).sum())
-    nbytes = 8 * B * Q + 12 * terms + 8 * lanes + 8 * B * k
+    nbytes, postings, terms = index_read_bytes(torch, qi, qv, index, k)
     row = {"shape": {"B": B, "Q": Q, "L": L, "n_docs": n, "k": k}, **case,
-           "lanes_read": lanes, "lanes_padded": B * Q * L,
-           "terms_read": terms, "bytes": nbytes,
-           "padded_window_bytes": fused_window_bytes(B, Q, L, "u4"),
+           "equal_window": all(bool(torch.equal(a, b))
+                               for a, b in zip(got, win)),
+           "digest": digest(*got), "digest_window": digest(*win),
+           "postings_read": postings, "terms_read": terms,
+           "lanes_padded": B * Q * L, "bytes": nbytes,
+           "padded_window_bytes": k45.fused_window_bytes(
+               B, Q, L, "u4" if quant else "f32"),
            "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes"}
-    for key, fn in (("ms", lambda: fused_quantized_topk(*wins, n_docs=n,
-                                                         k=k)),
-                    ("plain_ms", lambda: fused_quantized_topk_plain(
-                        *wins, n_docs=n, k=k)),
+    require(case["equal"] and case["bit_identical"] and row["equal_window"],
+            f"{'K5' if quant else 'K4'} at {row['shape']}: {row}")
+    row["ms"], row["ms_range"] = graph_ms(torch, lambda: entry(*args, **kw),
+                                          reps)
+    row["window_ms"], row["window_ms_range"] = graph_ms(torch, window, reps)
+    row["eager_ms"] = cuda_ms(torch, lambda: entry(*args, **kw), reps)
+    row["host_us"] = host_us(torch, lambda: entry(*args, **kw))
+    for key, fn in (("plain_ms", lambda: plain(*args, **kw)),
                     ("library_ms", library)):
         row[key], row[key + "_range"] = timed(torch, fn, reps)
     return row
 
 
 def phase_timing(torch, served, served_dense, served_engine):
-    from repro_torch.kernels.impact_score import (fused_impact_topk,
-                                                  fused_impact_topk_plain,
-                                                  fused_window_bytes)
     from repro_torch.configs.splade_bert import SHAPES
     from repro_torch.models.transformer import forward_hidden, head_weights
-    from repro_torch.retrieval.score import _fused_windows
 
     cfg, params, res = served["cfg"], served["params"], served["res"]
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -2166,37 +2427,14 @@ def phase_timing(torch, served, served_dense, served_engine):
     del H
     torch.cuda.empty_cache()
 
-    # K4 at the serving shape: the served queries' windows on the index
+    # K4 at the serving shape: the served queries (8) and all 64 served
+    # requests on the sparse phase's index
+    from repro_torch.retrieval.sparse_rep import stack_rows
+
     queries, index = res["queries"], res["index"]
-    w, docs = _fused_windows(queries, index)
     k = res["idx"].shape[1]
-    n = index.n_docs
-
-    def k4_kernel():
-        return fused_impact_topk(w, docs, n_docs=n, k=k,
-                                 term_lanes=index.max_postings)
-
-    flat_ids = (torch.arange(w.shape[0], device="cuda")[:, None] * n
-                + docs.long()).view(-1)
-
-    def k4_library():   # index_add_ into (B, N), then torch.topk
-        flat = torch.zeros(w.shape[0] * n, device="cuda")
-        flat.index_add_(0, flat_ids, w.view(-1))
-        return torch.topk(flat.view(w.shape[0], n), k, dim=1)
-
-    v_k, i_k = k4_kernel()
-    v_p, i_p = fused_impact_topk_plain(w, docs, n_docs=n, k=k)
-    k4_err = float((v_k - v_p).abs().max())
-    B4, Q, L = w.shape[0], queries.width, index.max_postings
-    k4_bytes = fused_window_bytes(B4, Q, L) + B4 * k * 8
-    k4 = {"shape": {"B": B4, "Q": Q, "L": L, "n_docs": n, "k": k},
-          "max_abs_err": k4_err,
-          "bound_ms": 1e3 * k4_bytes / PEAK_BYTES, "bound_by": "bytes"}
-    for key, fn in (("ms", k4_kernel),
-                    ("plain_ms", lambda: fused_impact_topk_plain(
-                        w, docs, n_docs=n, k=k)),
-                    ("library_ms", k4_library)):
-        k4[key], k4[key + "_range"] = timed(torch, fn, 20)
+    k4 = {f"B{q.values.shape[0]}": time_impact(torch, q, index, k, reps=20)
+          for q in (queries, stack_rows(res["served"]))}
     # K6 at the dense serving shape: the served queries (8) and all 64
     # served requests against the (16384, 30522) f32 corpus
     dense = served_dense["res"]
@@ -2207,10 +2445,8 @@ def phase_timing(torch, served, served_dense, served_engine):
                     torch.from_numpy(np.stack(dense["served"])).cuda())}
     # K5 on the engine's quantized base: the served queries (8) and all 64
     # served requests
-    from repro_torch.retrieval.sparse_rep import stack_rows
-
     base = served_engine["engine"].builder._base
-    k5 = {f"B{q.values.shape[0]}": time_k5(torch, q, base, k, reps=20)
+    k5 = {f"B{q.values.shape[0]}": time_impact(torch, q, base, k, reps=20)
           for q in (queries, stack_rows(res["served"]))}
     from repro_torch.runtime.serving import make_config_encoder
     profile = profile_encode(torch, make_config_encoder(params, cfg), cfg)
@@ -2235,14 +2471,17 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
                 train_launches, k1_paths):
     """The ``{"kernels": [...]}`` line: each kernel's launches on its path
     and its numbers from the timing phase (K1 at an index batch, K2/K3 at
-    the train shape, K5 and K6 at the served queries; K1 also at the train
-    shape and K6 also at all 64 served requests)."""
+    the train shape, K4, K5 and K6 at the served queries; K1 also at the
+    train shape and K4, K5 and K6 also at all 64 served requests; K4's and
+    K5's ``ms`` are their index entries', ``window_ms`` their window
+    entries')."""
     main_k1, bwd, k4, k5, k6 = (measured[key]
                                 for key in ("k1", "bwd", "k4", "k5", "k6"))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     k1_keys = keys + ("ms_wmma",)
     k6_keys = keys + ("ms_over_library",)
+    k45_keys = keys + ("window_ms", "digest")
     return [
         {"name": "sparton_fwd (K1)", "route": "cuda",
          "source": "src/repro_torch/csrc/sparton_fwd.cu",
@@ -2271,16 +2510,16 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
          "source": "src/repro_torch/csrc/impact_topk.cu",
          "replaces": "src/repro/kernels/impact_score.py:96",
          "launches": launches["impact_topk"],
+         "index_launches": launches["impact_index_topk"],
          "engine_launches": engine_launches["impact_topk"],
-         **{key: k4[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms")}},
+         **{key: k4["B8"][key] for key in k45_keys},
+         "at_B64": {key: k4["B64"][key] for key in k45_keys}},
         {"name": "impact_q_topk (K5)", "route": "cuda",
          "source": "src/repro_torch/csrc/impact_topk.cu",
          "replaces": "src/repro/kernels/impact_score.py:120",
          "launches": engine_launches["impact_q_topk"],
-         **{key: k5["B8"][key] for key in ("max_abs_err", "ms", "plain_ms",
-                                           "bound_ms", "bound_by",
-                                           "library_ms")}},
+         **{key: k5["B8"][key] for key in k45_keys},
+         "at_B64": {key: k5["B64"][key] for key in k45_keys}},
         {"name": "topk_score (K6)", "route": "cuda",
          "source": "src/repro_torch/csrc/topk_score.cu",
          "replaces": "src/repro/kernels/topk_score.py:57",

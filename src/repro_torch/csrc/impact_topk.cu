@@ -1,94 +1,125 @@
 // Fused impact scoring with a streaming top-k for Hopper (sm_90a): K4 and
-// K5, two entry points over one shared-memory tile and one top-k merge.
+// K5, one slice kernel over four kinds of input and one merge kernel.
 //
 // K4 replaces the Pallas TPU kernel src/repro/kernels/impact_score.py:
-// _impact_kernel (entry fused_impact_topk). Per query row q it computes
+// _impact_kernel (entry fused_impact_topk). Per query row b it computes
 //
-//     score[d] = sum over lanes l with docs[q, l] == d of w[q, l]
+//     score[d] = sum over query terms t, lanes l < len[t] with doc(t, l) == d
+//                of w(t, l)
+//
+// and returns the k best docs (value descending, doc id ascending), never
+// writing the (B, n_docs) score matrix to device memory. When k > n_docs
+// the tail holds (NEG_INF, 0), as in the reference.
 //
 // K5 replaces _impact_q_kernel (entry fused_quantized_topk) in the same
-// file: the lanes are u4+delta windows of a quantized index, decoded in the
-// kernel. For query row q, term t and lane l < min(lens[q, t], L), and only
-// where qv[q, t] > 0:
+// file: the lanes are u4+delta postings of a quantized index, decoded in
+// the kernel. For term t (only where qv[t] > 0) and lane l < len[t]:
 //
-//     code = (starts[q, t] + l) odd ? byte_win[q, t, l] >> 4
-//                                   : byte_win[q, t, l] & 0xF
-//     doc  = gap_win[q, t, 0] + ... + gap_win[q, t, l]
-//     w    = (lo[q, t] + (code - 1) * step[q, t]) * qv[q, t]   (code > 0)
+//     code = (par[t] + l) odd ? byte(t, l) >> 4 : byte(t, l) & 0xF
+//     doc  = gap(t, 0) + ... + gap(t, l)
+//     w    = (lo[t] + (code - 1) * step[t]) * qv[t]   (code > 0)
 //
 // Code 0 is an escape phantom: it weighs exactly 0, but its gap still
 // advances the running sum. The nibble parity comes from the absolute
-// posting position, not from the lane. The products and the sum are
-// rounded separately (__fmul_rn, __fadd_rn), never contracted into an FMA,
-// so a weight is bit for bit the plain PyTorch version's.
+// posting position (par = the term's first posting), not from the lane.
+// The products and the sum are rounded separately (__fmul_rn, __fadd_rn),
+// never contracted into an FMA, so a weight is bit for bit the plain
+// PyTorch version's. K4's weight is __fmul_rn(val, qv), the single
+// rounding of the plain version's `where(valid, val, 0) * qv`.
 //
-// Both return the k best docs of each row (value descending, doc id
-// ascending) without writing the (B, n_docs) score matrix to device
-// memory. When k > n_docs the tail holds (NEG_INF, 0), as in the reference.
+// Four sources feed the one slice kernel (`Src` below), each a list of
+// query terms with a posting range and two element streams:
+//   K4Index  the query rep and an InvertedIndex read in place: term
+//            (b, t) is vocab id q_idx[b, t], its postings
+//            postings_doc / postings_val[term_starts[id] + l];
+//   K4Window the gathered (B, W) windows: term (b, t) starts at
+//            b * W + t * seg_len, and qv = 1 (an exact product);
+//   K5Index  the query rep and a QuantizedIndex read in place: deltas (u8
+//            or u16), packed_vals (two codes a byte), term_lens (u16 or
+//            i32), term_lo / term_hi (f16; step = (hi - lo) * STEP_SCALE,
+//            the f32 reciprocal of 14, as the plain version computes it);
+//   K5Window the gathered (B, Q, L) i32 byte and gap windows: term (b, t)
+//            starts at (b * Q + t) * L, its parity base is starts[b, t].
+// A window batch is thus an index whose term (b, t) starts at a computed
+// offset: the window entries run the same kernel as the in-place ones.
 //
-// Design. One block per query row. It walks the doc range in tiles of up
-// to TILE_MAX docs (one tile at the serving shape); a tile's scores live
-// in shared memory. The lanes are scattered into the tile one query term
-// at a time (K4: one segment of seg_len lanes), with a barrier between
-// terms. A doc occurs at most once in a term's posting list, so within a
-// term no two lanes add a non-zero weight to the same doc (K5's phantoms
-// may share a doc with the posting that follows them, but weigh 0 and are
-// skipped, as K4 skips zero lanes; adding +0.0 would not change the sum):
-// the shared-memory atomicAdd never contends, and each doc's sum is taken
-// in term order, bit for bit the plain version's. K5 decodes each term in
-// chunks of THREADS lanes: a block-wide prefix sum of the gaps (warp
-// shuffles, then one warp over the warp totals) plus the carry of the
-// earlier chunks gives every lane its doc id. When n_docs > TILE_MAX the
-// decode runs again for each tile.
+// Design. The grid is (query row, doc slice): B * S blocks, S chosen from
+// B, n_docs and the SM count so that B * S fills the card once (B 8: 16
+// slices of 1024-1216 docs on 132 SMs; B 64: 2), each slice at most
+// NS_MAX docs whose scores live in shared memory. A block walks its
+// query's terms in chunks of QC and each chunk's postings in rounds of up
+// to RL lanes:
+//   1. stage: every warp issues cp.async copies of its terms' postings
+//      (16-byte pieces of both streams, each range rounded out to 16
+//      bytes, the array's end zero-filled) before any is used, so the
+//      round pays one device-memory latency, not one per term;
+//   2. decode: one warp a term, 128 lanes a step (4 a lane), from shared
+//      memory. K5 prefix-sums the gaps: each lane its 4, a warp scan of
+//      the lanes' sums, the carry of the earlier steps (and rounds). Lanes whose doc lies in the slice
+//      and whose weight is not 0 are kept (K4 reads every lane of the
+//      query too: the postings of a term ascend by doc, but the window's
+//      padding does not, and one load wave beats a binary search's chain);
+//   3. route: each kept lane goes to the warp that owns its doc (doc & 15)
+//      in term order: counts per (owner, term), one block scan, placement;
+//   4. fold: each warp adds its docs' lanes into the scores, 32 at a time;
+//      lanes of one doc in a group of 32 (__match_any_sync) are summed by
+//      the lowest lane in lane order. A doc occurs at most once per term,
+//      so every doc's sum is taken in term order, 0 + w(t0) + w(t1) + ...:
+//      bit for bit the plain version's, whatever S is.
+// The slice's own top-k (min(k, its docs), value descending then id
+// ascending, as one 64-bit key each) needs no rounds: for k <= 32 a warp
+// bitonic sort of the threads' own best keys gives the k-th best of
+// those, T; only docs at or above T can be in the top k, and each of
+// those few is placed by counting the keys above it. The merge kernel
+// places every entry of a row's S sorted lists by counting the entries
+// above it. With S = 1 the slice kernel writes (B, k) itself. The lists
+// live in a device workspace the wrapper allocates
+// (impact_topk_workspace); the merge is a programmatic dependent launch,
+// so its launch overlaps the slices.
 //
-// The tile is then merged into a running top-k of k entries: k rounds of a
-// block-wide arg-best over the union of the running entries and the tile,
-// each round taking the best remaining (value, id) and marking it taken.
-// Only the thread that owned the winner rescans its elements. The two
-// k-entry lists sit in shared memory beside the tile while they fit (k up
-// to about 6000 beside a full tile of 32768 docs); for a larger k they sit in a slice of
-// a device-memory workspace that only the query's block touches, so any k
-// is taken and the tile keeps its size.
-//
-// Bound on the H100: each lane is read once (8 bytes: K4's f32 weight and
-// i32 doc id, K5's i32 packed byte and i32 gap) plus K5's five per-term
-// values, and (B, k) results are written, so the floor is
-// fused_window_bytes over 3.35 TB/s. At the serving shape only B blocks
-// run, one per query, far from filling the 132 SMs: splitting a query's
-// doc range across blocks is the next step, and for K5 reading the packed
-// index in place (1.5-2.5 bytes a posting instead of 8).
+// Bound on the H100: the bytes. An in-place call reads the query rep
+// (8 bytes a term), two or four columns of each live term, the postings
+// of the distinct query terms once (K4 8 bytes a posting; K5 1.5 or 2.5
+// bytes) and writes (B, k) results: at the serving shapes a few hundred
+// KB, well under a microsecond at 3.35 TB/s. So the time is latency:
+// launches, the dependent loads (query rep, then the term columns, then
+// the staged postings), and the block's barriers.
 
-#include <climits>
-#include <cmath>
+#include <algorithm>
+#include <cstdint>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 512;
-constexpr int WARPS = THREADS / 32;
+constexpr int THREADS = 512;          // slice kernel
+constexpr int WARPS = THREADS / 32;   // doc owners: doc & (WARPS - 1)
+constexpr int MERGE_THREADS = 256;
+constexpr int QC = 64;                // query terms a chunk
+constexpr int RL = 4096;              // posting lanes staged a round
+constexpr int CW = 2 * RL + 16 * QC;  // staging words: 2 streams + slack
+constexpr int NS_MIN = 128;           // docs a slice, at least ...
+constexpr int NS_MAX = 8192;          // ... and at most (scores in smem)
+constexpr int MERGE_STAGE_MAX = 96 * 1024;  // lists staged in smem, bytes
+constexpr int SMALL_K = 32;           // slice top-k by threshold up to here
 constexpr float NEG_INF = -1e30f;
-constexpr int TILE_MAX = 32768;  // docs scored per pass: 128 KB of f32
-// dynamic shared memory a block may use, beside K5's static 128 bytes
-constexpr size_t SMEM_MAX = 232448 - 1024;
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
-  return av > bv || (av == bv && ai < bi);
+static_assert(WARPS * QC == 2 * THREADS, "the route scan takes 2 a thread");
+static_assert(WARPS * SMALL_K * 2 + SMALL_K * (NS_MAX / THREADS) * 2 <= CW,
+              "the threshold top-k's pool and candidates fit the staging");
+
+// ------------------------------------------------------------------ keys
+
+// An unsigned key that orders floats as floats (NaN aside); 0 is below
+// every float but the all-ones NaN, and marks "nothing".
+__device__ __forceinline__ unsigned fkey(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// Warp-wide arg-best of (value, id, owner slot); lane 0 ends with it.
-__device__ __forceinline__ void warp_best(float& v, int& id, int& u) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(FULL, v, off);
-    const int oi = __shfl_down_sync(FULL, id, off);
-    const int ou = __shfl_down_sync(FULL, u, off);
-    if (better(ov, oi, v, id)) {
-      v = ov;
-      id = oi;
-      u = ou;
-    }
-  }
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
 // Warp-wide inclusive prefix sum.
@@ -101,299 +132,836 @@ __device__ __forceinline__ int warp_scan(int x, int lane) {
   return x;
 }
 
-// The dynamic shared memory of both kernels.
-struct Tile {
-  float* scores;   // (tile,) the current doc tile's scores
-  float* run_val;  // (k,) running top-k
-  int* run_id;
-  float* new_val;  // (k,) the next running top-k
-  int* new_id;
-  float* warp_val;  // (WARPS,) per-warp arg-best
-  int* warp_id;
-  int* warp_u;
-  int* winner;
-};
-
-inline size_t lists_bytes(int k) { return (size_t)k * 4 * sizeof(float); }
-
-// the tile's scores and the arg-best scratch
-inline size_t tile_bytes(int tile) {
-  return (size_t)tile * sizeof(float) + (size_t)WARPS * 3 * sizeof(int) +
-         sizeof(int);
+// A (value, id) pair as one key: larger is better (value descending,
+// then id ascending); 0 is below every pair.
+__device__ __forceinline__ unsigned long long make_key(float v, int id) {
+  return ((unsigned long long)fkey(v) << 32) | (unsigned)~id;
 }
 
-// The shared memory of a block, and its lists: in shared memory after the
-// arg-best scratch when `lists` is null, else at lists + block * 4 * k.
-__device__ inline Tile carve(unsigned char* smem, int tile, int k,
-                             float* lists) {
-  Tile s;
-  s.scores = reinterpret_cast<float*>(smem);
-  s.warp_val = s.scores + tile;
-  s.warp_id = reinterpret_cast<int*>(s.warp_val + WARPS);
-  s.warp_u = s.warp_id + WARPS;
-  s.winner = s.warp_u + WARPS;
-  s.run_val = lists ? lists + (size_t)blockIdx.x * 4 * k
-                    : reinterpret_cast<float*>(s.winner + 1);
-  s.run_id = reinterpret_cast<int*>(s.run_val + k);
-  s.new_val = reinterpret_cast<float*>(s.run_id + k);
-  s.new_id = reinterpret_cast<int*>(s.new_val + k);
+__device__ __forceinline__ void put_key(unsigned long long x, float* v,
+                                        int* id) {
+  *v = key_value((unsigned)(x >> 32));
+  *id = (int)~(unsigned)x;
+}
+
+// Sort the warp's 32 keys descending (bitonic, one a lane): lane r ends
+// with the r-th largest.
+__device__ __forceinline__ unsigned long long warp_sort_desc(
+    unsigned long long x) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      const unsigned long long y = __shfl_xor_sync(FULL, x, j);
+      const bool keep_max = ((lane & j) == 0) == ((lane & size) == 0);
+      x = keep_max ? (x > y ? x : y) : (x < y ? x : y);
+    }
+  return x;
+}
+
+// ------------------------------------------------------------- cp.async
+
+// Copy 16 bytes (the first src_bytes of them; the rest zero-filled).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------- terms
+
+// One query term of a chunk: its postings (pos .. pos + len - 1 in the
+// stream arrays), its weights, and this round's share of its lanes.
+struct Term {
+  long long pos;   // first element of the term in the streams
+  long long w1;    // first staged 16-byte quad of stream 1 (from its base)
+  long long w2;    // ... of stream 2
+  int len;         // lanes (0: skipped)
+  int off;         // flat lane offset in the chunk
+  int par;         // K5: parity base of the nibbles
+  float qv, lo, step;
+  int a, b;        // this round's lanes a .. b - 1
+  int tl;          // their first slot in the entry buffer
+  int sb1, sb2;    // shared byte of lane a in stream 1 / stream 2
+  int ws1, ws2;    // first staging quad of stream 1 / 2
+  int n1, n2;      // staged quads of stream 1 / 2
+  int kept;        // kept lanes this round
+  int carry;       // K5: the term's gap sum before lane a
+};
+
+// A stream of fixed-size elements, or (es == 0) of nibbles two a byte.
+// `base` is 16-byte aligned (the array's pointer rounded down, within the
+// same 16 bytes); element e lies at byte off0 + e * es (nibbles: off0 +
+// e / 2); nbytes = off0 + the array's bytes, past which nothing is read.
+struct Stream {
+  const unsigned char* base;
+  long long off0, nbytes;
+};
+
+__host__ __device__ inline Stream make_stream(const void* p, long long n) {
+  const uintptr_t u = reinterpret_cast<uintptr_t>(p);
+  Stream s;
+  s.base = reinterpret_cast<const unsigned char*>(u & ~uintptr_t(15));
+  s.off0 = (long long)(u & 15);
+  s.nbytes = s.off0 + n;
   return s;
 }
 
-__device__ inline void init_running(const Tile& s, int k) {
-  for (int i = threadIdx.x; i < k; i += THREADS) {
-    s.run_val[i] = NEG_INF;
-    s.run_id[i] = 0;
-  }
-}
+// ------------------------------------------------------------- sources
 
-__device__ inline void zero_tile(const Tile& s, int n) {
-  for (int i = threadIdx.x; i < n; i += THREADS) s.scores[i] = 0.0f;
-}
-
-// Fold the tile's n scores (docs lo .. lo + n - 1) into the running top-k.
-// Call after a barrier that ends the scatter; ends with a barrier.
-__device__ void merge_tile(const Tile& s, int n, int lo, int k) {
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  // Element u of the union: u < k is running entry u, else doc lo + u - k.
-  const int total = k + n;
-  float best_v;
-  int best_id, best_u;
-  auto rescan = [&]() {
-    best_v = -INFINITY;  // below NEG_INF: marks "nothing left"
-    best_id = INT_MAX;
-    best_u = -1;
-    for (int u = tid; u < total; u += THREADS) {
-      const float v = u < k ? s.run_val[u] : s.scores[u - k];
-      const int id = u < k ? s.run_id[u] : lo + u - k;
-      if (better(v, id, best_v, best_id)) {
-        best_v = v;
-        best_id = id;
-        best_u = u;
-      }
+struct K4Index {
+  static constexpr bool kQuant = false;
+  static constexpr int ES1 = 4, ES2 = 4;  // doc i32, val f32
+  const int* q_idx;
+  const float* q_val;
+  const int* starts;
+  const int* lens;
+  Stream s1, s2;
+  int Q, V;
+  __device__ void meta(int b, int t, Term& m) const {
+    const size_t j = (size_t)b * Q + t;
+    const int id = q_idx[j];
+    m.qv = q_val[j];
+    if (m.qv > 0.0f && id >= 0 && id < V) {
+      m.pos = starts[id];
+      m.len = max(lens[id], 0);
     }
-  };
-  rescan();
-  for (int r = 0; r < k; ++r) {
-    float v = best_v;
-    int id = best_id, u = best_u;
-    warp_best(v, id, u);
-    if (lane == 0) {
-      s.warp_val[warp] = v;
-      s.warp_id[warp] = id;
-      s.warp_u[warp] = u;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      v = lane < WARPS ? s.warp_val[lane] : -INFINITY;
-      id = lane < WARPS ? s.warp_id[lane] : INT_MAX;
-      u = lane < WARPS ? s.warp_u[lane] : -1;
-      warp_best(v, id, u);
-      if (lane == 0) {
-        s.new_val[r] = v;
-        s.new_id[r] = id;
-        *s.winner = u;
-        if (u >= 0 && u < k) s.run_val[u] = -INFINITY;  // taken
-        if (u >= k) s.scores[u - k] = -INFINITY;
-      }
-    }
-    __syncthreads();
-    const int taken = *s.winner;
-    if (taken >= 0 && taken % THREADS == tid) rescan();
   }
-  for (int i = tid; i < k; i += THREADS) {
-    s.run_val[i] = s.new_val[i];
-    s.run_id[i] = s.new_id[i];
+};
+
+struct K4Window {
+  static constexpr bool kQuant = false;
+  static constexpr int ES1 = 4, ES2 = 4;  // doc i32, w f32
+  Stream s1, s2;
+  long long W;
+  int seg, Q;
+  __device__ void meta(int b, int t, Term& m) const {
+    m.qv = 1.0f;
+    m.pos = (long long)b * W + (long long)t * seg;
+    m.len = (int)min((long long)seg, W - (long long)t * seg);
   }
-  __syncthreads();
+};
+
+template <typename LensT, typename DeltaT>
+struct K5Index {
+  static constexpr bool kQuant = true;
+  static constexpr int ES1 = (int)sizeof(DeltaT), ES2 = 0;  // gaps, nibbles
+  const int* q_idx;
+  const float* q_val;
+  const int* starts;
+  const LensT* lens;
+  const __half* lo;
+  const __half* hi;
+  Stream s1, s2;
+  float step_scale;
+  int Q, V;
+  __device__ void meta(int b, int t, Term& m) const {
+    const size_t j = (size_t)b * Q + t;
+    const int id = q_idx[j];
+    m.qv = q_val[j];
+    if (m.qv > 0.0f && id >= 0 && id < V) {
+      m.pos = starts[id];
+      m.len = max((int)lens[id], 0);
+      m.par = (int)(m.pos & 1);
+      m.lo = __half2float(lo[id]);
+      m.step = __fmul_rn(__fsub_rn(__half2float(hi[id]), m.lo), step_scale);
+    }
+  }
+};
+
+struct K5Window {
+  static constexpr bool kQuant = true;
+  static constexpr int ES1 = 4, ES2 = 4;  // gap i32, packed byte i32
+  const int* starts;
+  const int* lens;
+  const float* qv;
+  const float* lo;
+  const float* step;
+  Stream s1, s2;
+  int Q, L;
+  __device__ void meta(int b, int t, Term& m) const {
+    const size_t j = (size_t)b * Q + t;
+    m.qv = qv[j];
+    if (m.qv > 0.0f) {
+      m.len = min(max(lens[j], 0), L);
+      m.pos = (long long)j * L;
+      m.par = starts[j];
+      m.lo = lo[j];
+      m.step = step[j];
+    }
+  }
+};
+
+// First and one-past-last byte of lanes a .. b - 1 of a stream.
+template <int ES>
+__device__ __forceinline__ void lane_bytes(const Stream& s, long long pos,
+                                           int a, int b, long long* b0,
+                                           long long* b1) {
+  if (ES > 0) {
+    *b0 = s.off0 + (pos + a) * ES;
+    *b1 = s.off0 + (pos + b) * ES;
+  } else {
+    *b0 = s.off0 + ((pos + a) >> 1);
+    *b1 = s.off0 + ((pos + b - 1) >> 1) + 1;
+  }
 }
 
-__device__ inline void write_out(const Tile& s, float* vals, int* idx,
-                                 int k) {
-  for (int i = threadIdx.x; i < k; i += THREADS) {
-    vals[(size_t)blockIdx.x * k + i] = s.run_val[i];
-    idx[(size_t)blockIdx.x * k + i] = s.run_id[i];
-  }
+// ------------------------------------------------------------ the slice
+
+struct Smem {
+  float* scores;     // (NS,) this slice's scores
+  unsigned* stage;   // (CW,) staged words; then the routed lanes
+  int* edoc;         // (RL,) kept lanes, in each term's slots
+  float* ew;
+  int* cnt;          // (WARPS, QC) kept lanes a (owner, term)
+};
+
+inline size_t slice_fixed_bytes() {
+  return (size_t)(CW + 2 * RL + WARPS * QC) * 4;
 }
 
-__global__ void __launch_bounds__(THREADS)
-    impact_topk_kernel(const float* __restrict__ w,
-                       const int* __restrict__ docs, float* __restrict__ vals,
-                       int* __restrict__ idx, float* lists, int W,
-                       int seg_len, int n_docs, int k, int tile) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Tile s = carve(smem, tile, k, lists);
-  const int tid = threadIdx.x;
-  const float* wrow = w + (size_t)blockIdx.x * W;
-  const int* drow = docs + (size_t)blockIdx.x * W;
+__host__ __device__ inline size_t pad4(size_t n) {
+  return (n + 3) & ~size_t(3);
+}
 
-  init_running(s, k);
-  for (int lo = 0; lo < n_docs; lo += tile) {
-    const int n = min(tile, n_docs - lo);
-    zero_tile(s, n);
-    __syncthreads();
-    for (int s0 = 0; s0 < W; s0 += seg_len) {
-      const int s1 = min(W, s0 + seg_len);
-      for (int l = s0 + tid; l < s1; l += THREADS) {
-        const float x = wrow[l];
-        const int d = drow[l] - lo;
-        if (x != 0.0f && d >= 0 && d < n) atomicAdd(s.scores + d, x);
-      }
-      __syncthreads();
+
+// Round [r0, r1) of the chunk's flat lanes: each term's share a .. b - 1,
+// its staged 16-byte quads and their shared-memory offsets, its entry
+// slots.
+// Warp 0 only (QC = 64 terms, two a lane); a barrier must follow.
+template <class Src>
+__device__ void plan_round(const Src& src, Term* tm, int r0, int r1) {
+  const int lane = threadIdx.x % 32;
+  int nl[2], nq[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    Term& m = tm[2 * lane + j];
+    m.a = min(max(r0 - m.off, 0), m.len);
+    m.b = min(max(r1 - m.off, 0), m.len);
+    m.n1 = m.n2 = 0;
+    m.sb1 = m.sb2 = 0;
+    m.kept = 0;
+    if (m.b > m.a) {
+      long long b0, b1;
+      lane_bytes<Src::ES1>(src.s1, m.pos, m.a, m.b, &b0, &b1);
+      m.w1 = b0 >> 4;
+      m.n1 = (int)(((b1 + 15) >> 4) - m.w1);
+      m.sb1 = (int)(b0 - 16 * m.w1);
+      lane_bytes<Src::ES2>(src.s2, m.pos, m.a, m.b, &b0, &b1);
+      m.w2 = b0 >> 4;
+      m.n2 = (int)(((b1 + 15) >> 4) - m.w2);
+      // nibbles: lane l's byte is sb2 + ((pos & 1) + l) / 2
+      m.sb2 = (int)(b0 - 16 * m.w2) -
+              (Src::ES2 > 0 ? 0 : ((int)(m.pos & 1) + m.a) >> 1);
     }
-    merge_tile(s, n, lo, k);
+    nl[j] = m.b - m.a;
+    nq[j] = m.n1 + m.n2;
   }
-  write_out(s, vals, idx, k);
+  const int lanes = nl[0] + nl[1], quads = nq[0] + nq[1];
+  const int lane_ex = warp_scan(lanes, lane) - lanes;
+  const int quad_ex = warp_scan(quads, lane) - quads;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    Term& m = tm[2 * lane + j];
+    m.tl = lane_ex + (j ? nl[0] : 0);
+    m.ws1 = quad_ex + (j ? nq[0] : 0);
+    m.ws2 = m.ws1 + m.n1;
+    m.sb1 += 16 * m.ws1;
+    m.sb2 += 16 * m.ws2;
+  }
 }
 
-__global__ void __launch_bounds__(THREADS)
-    impact_q_topk_kernel(const int* __restrict__ byte_win,
-                         const int* __restrict__ gap_win,
-                         const int* __restrict__ starts,
-                         const int* __restrict__ lens,
-                         const float* __restrict__ qv,
-                         const float* __restrict__ lo_w,
-                         const float* __restrict__ step,
-                         float* __restrict__ vals, int* __restrict__ idx,
-                         float* lists, int Q, int L, int n_docs, int k,
-                         int tile) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int warp_total[WARPS];   // each warp's sum of the chunk's gaps
-  __shared__ int warp_prefix[WARPS];  // inclusive prefix of warp_total
-  const Tile s = carve(smem, tile, k, lists);
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
+// Copy this round's quads of every term into shared memory (cp.async; the
+// caller waits). Warp w takes terms w, w + WARPS, ...
+template <class Src>
+__device__ void stage_round(const Src& src, const Term* tm,
+                            unsigned* stage) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  for (int t = warp; t < QC; t += WARPS) {
+    const Term& m = tm[t];
+    if (m.b <= m.a) continue;
+    for (int i = lane; i < m.n1; i += 32) {
+      const long long g = 16 * (m.w1 + i);
+      cp_async16(stage + 4 * (m.ws1 + i), src.s1.base + g,
+                 (int)min(16LL, src.s1.nbytes - g));
+    }
+    for (int i = lane; i < m.n2; i += 32) {
+      const long long g = 16 * (m.w2 + i);
+      cp_async16(stage + 4 * (m.ws2 + i), src.s2.base + g,
+                 (int)min(16LL, src.s2.nbytes - g));
+    }
+  }
+}
 
-  init_running(s, k);
-  for (int lo = 0; lo < n_docs; lo += tile) {
-    const int n = min(tile, n_docs - lo);
-    zero_tile(s, n);
-    __syncthreads();
-    for (int t = 0; t < Q; ++t) {
-      const size_t m = (size_t)blockIdx.x * Q + t;
-      const float q = qv[m];
-      const int len = min(lens[m], L);
-      // the same for every thread of the block, so no barrier is skipped
-      // by some threads only
-      if (!(q > 0.0f) || len <= 0) continue;
-      const int start = starts[m];
-      const float a = lo_w[m];
-      const float st = step[m];
-      const int* bytes = byte_win + m * L;
-      const int* gaps = gap_win + m * L;
-      int carry = 0;  // the sum of this term's gaps before the chunk
-      for (int c0 = 0; c0 < len; c0 += THREADS) {
-        const int l = c0 + tid;
-        const bool valid = l < len;
-        const int x = warp_scan(valid ? gaps[l] : 0, lane);
-        if (lane == 31) warp_total[warp] = x;
-        __syncthreads();
-        if (warp == 0) {
-          const int y = warp_scan(lane < WARPS ? warp_total[lane] : 0, lane);
-          if (lane < WARPS) warp_prefix[lane] = y;
+// Keep lane (doc - d0, w) in term t's entry slots, in lane order, and
+// count it for its owner warp. Returns the term's kept lanes so far.
+__device__ __forceinline__ int keep_lane(const Smem& sm, bool keep,
+                                         unsigned dl, float w, int t, int at,
+                                         int kept) {
+  const int lane = threadIdx.x % 32;
+  const unsigned bal = __ballot_sync(FULL, keep);
+  if (keep) {
+    const int p = at + kept + __popc(bal & ((1u << lane) - 1u));
+    sm.edoc[p] = (int)dl;
+    sm.ew[p] = w;
+    atomicAdd(sm.cnt + (dl & (WARPS - 1)) * QC + t, 1);
+  }
+  return kept + __popc(bal);
+}
+
+// Decode this round's staged lanes: one warp a term, each lane taking DV
+// consecutive lanes a step (K5: a serial prefix of its DV gaps, then one
+// warp scan of the lanes' totals and the carry of the earlier steps).
+constexpr int DV = 4;
+
+template <class Src>
+__device__ void decode_round(Term* tm, const Smem& sm, int d0, int ns) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const unsigned char* sb = reinterpret_cast<const unsigned char*>(sm.stage);
+  for (int t = warp; t < QC; t += WARPS) {
+    const Term m = tm[t];
+    if (m.b <= m.a) continue;
+    int kept = 0, carry = m.carry;
+    for (int c0 = m.a; c0 < m.b; c0 += 32 * DV) {
+      const int l0 = c0 + DV * lane;
+      bool keep[DV];
+      float w[DV];
+      unsigned dl[DV];
+      if (!Src::kQuant) {
+#pragma unroll
+        for (int v = 0; v < DV; ++v) {
+          const int i = l0 + v - m.a;
+          keep[v] = false;
+          w[v] = 0.0f;
+          dl[v] = 0;
+          if (l0 + v < m.b) {
+            const int doc =
+                *reinterpret_cast<const int*>(sb + m.sb1 + 4 * i);
+            const float x =
+                *reinterpret_cast<const float*>(sb + m.sb2 + 4 * i);
+            w[v] = __fmul_rn(x, m.qv);
+            dl[v] = (unsigned)doc - (unsigned)d0;
+            keep[v] = w[v] != 0.0f && dl[v] < (unsigned)ns;
+          }
         }
-        // The barrier also orders this term's adds after the last term's:
-        // every thread passes it only after finishing the earlier chunk.
-        __syncthreads();
-        const int doc = carry + (warp > 0 ? warp_prefix[warp - 1] : 0) + x;
-        carry += warp_prefix[WARPS - 1];
-        if (valid) {
-          const int b = bytes[l];
-          const int code = ((start + l) & 1) ? (b >> 4) : (b & 0xF);
-          if (code > 0) {
-            const float wt = __fmul_rn(
-                __fadd_rn(a, __fmul_rn((float)(code - 1), st)), q);
-            const int d = doc - lo;
-            if (wt != 0.0f && d >= 0 && d < n) atomicAdd(s.scores + d, wt);
+      } else {
+        int gap[DV], code[DV];
+#pragma unroll
+        for (int v = 0; v < DV; ++v) {
+          const int l = l0 + v, i = l - m.a;
+          gap[v] = code[v] = 0;
+          if (l < m.b) {
+            if (Src::ES1 == 1)
+              gap[v] = sb[m.sb1 + i];
+            else if (Src::ES1 == 2)
+              gap[v] = *reinterpret_cast<const uint16_t*>(sb + m.sb1 + 2 * i);
+            else
+              gap[v] = *reinterpret_cast<const int*>(sb + m.sb1 + 4 * i);
+            const int byte =
+                Src::ES2 == 0
+                    ? (int)sb[m.sb2 + (((int)(m.pos & 1) + l) >> 1)]
+                    : *reinterpret_cast<const int*>(sb + m.sb2 + 4 * i);
+            code[v] = ((m.par + l) & 1) ? (byte >> 4) : (byte & 0xF);
+          }
+        }
+#pragma unroll
+        for (int v = 1; v < DV; ++v) gap[v] += gap[v - 1];
+        const int incl = warp_scan(gap[DV - 1], lane);
+        const int base = carry + incl - gap[DV - 1];
+        carry += __shfl_sync(FULL, incl, 31);
+#pragma unroll
+        for (int v = 0; v < DV; ++v) {
+          keep[v] = false;
+          w[v] = 0.0f;
+          dl[v] = 0;
+          if (code[v] > 0) {  // 0 past the round's lanes too
+            w[v] = __fmul_rn(
+                __fadd_rn(m.lo, __fmul_rn((float)(code[v] - 1), m.step)),
+                m.qv);
+            dl[v] = (unsigned)(base + gap[v]) - (unsigned)d0;
+            keep[v] = w[v] != 0.0f && dl[v] < (unsigned)ns;
           }
         }
       }
+#pragma unroll
+      for (int v = 0; v < DV; ++v)
+        kept = keep_lane(sm, keep[v], dl[v], w[v], t, m.tl, kept);
+    }
+    if (lane == 0) {
+      tm[t].kept = kept;
+      tm[t].carry = carry;
+    }
+  }
+}
+
+// Turn the (owner, term) counts into offsets, owner-major (an exclusive
+// block scan, two counts a thread); ostart[o] is owner o's first lane.
+__device__ void route_offsets(int* cnt, int* ostart, int* wsum) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int i0 = 2 * tid;
+  const int c0 = cnt[i0], c1 = cnt[i0 + 1], x = c0 + c1;
+  const int inc = warp_scan(x, lane);
+  if (lane == 31) wsum[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const int y = warp_scan(lane < WARPS ? wsum[lane] : 0, lane);
+    if (lane < WARPS) wsum[WARPS + lane] = y;
+  }
+  __syncthreads();
+  const int base = (warp > 0 ? wsum[WARPS + warp - 1] : 0) + inc - x;
+  cnt[i0] = base;
+  cnt[i0 + 1] = base + c0;
+  if (i0 % QC == 0) ostart[i0 / QC] = base;
+  if (tid == THREADS - 1) ostart[WARPS] = base + x;
+}
+
+// Move each kept lane to its owner's list, terms in order.
+__device__ void route_round(const Term* tm, const Smem& sm) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int* rdoc = reinterpret_cast<int*>(sm.stage);
+  float* rw = reinterpret_cast<float*>(sm.stage + RL);
+  for (int t = warp; t < QC; t += WARPS) {
+    const int kept = tm[t].kept, at = tm[t].tl;
+    for (int i = lane; i < kept; i += 32) {
+      const int dl = sm.edoc[at + i];
+      const int p = atomicAdd(sm.cnt + (dl & (WARPS - 1)) * QC + t, 1);
+      rdoc[p] = dl;
+      rw[p] = sm.ew[at + i];
+    }
+  }
+}
+
+// Warp w adds its lanes into the scores of the docs it owns, in list
+// (= term) order: the lowest lane of a doc's group sums the group.
+__device__ void fold_round(const Smem& sm, const int* ostart) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int* rdoc = reinterpret_cast<const int*>(sm.stage);
+  const float* rw = reinterpret_cast<const float*>(sm.stage + RL);
+  const int e1 = ostart[warp + 1];
+  for (int c = ostart[warp]; c < e1; c += 32) {
+    const int i = c + lane;
+    const bool act = i < e1;
+    const int d = act ? rdoc[i] : -1 - lane;
+    const unsigned peers = __match_any_sync(FULL, d);
+    if (act && lane == __ffs(peers) - 1) {
+      float s = sm.scores[d];
+      for (unsigned m = peers; m; m &= m - 1u)
+        s = __fadd_rn(s, rw[c + __ffs(m) - 1]);
+      sm.scores[d] = s;
+    }
+    __syncwarp();
+  }
+}
+
+// The slice's top ks (<= its ns docs, d0 the first) into out_v / out_i,
+// value descending then id ascending. ks <= SMALL_K: every doc in the top
+// ks has a key at least the ks-th largest of the threads' own best keys
+// (T), so T comes from the warps' sorted bests and the top ks from the
+// few docs at or above it, each placed by counting the keys above its
+// own. Larger ks: every doc is placed by counting. `work` holds the
+// pool and the candidates (the staging words).
+__device__ void slice_topk(const float* scores, int ns, int d0, int ks,
+                           float* out_v, int* out_i, unsigned* work,
+                           unsigned long long* s_t, int* s_nc) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  if (ks > SMALL_K) {
+    for (int i = tid; i < ns; i += THREADS) {
+      const unsigned long long x = make_key(scores[i], d0 + i);
+      int r = 0;
+#pragma unroll 8
+      for (int q = 0; q < ns; ++q) r += make_key(scores[q], d0 + q) > x;
+      if (r < ks) put_key(x, out_v + r, out_i + r);
+    }
+    return;
+  }
+  unsigned long long* pool = reinterpret_cast<unsigned long long*>(work);
+  unsigned long long* cand = pool + WARPS * SMALL_K;
+  unsigned long long best = 0ull;
+  for (int i = tid; i < ns; i += THREADS) {
+    const unsigned long long x = make_key(scores[i], d0 + i);
+    best = x > best ? x : best;
+  }
+  best = warp_sort_desc(best);
+  if (lane < ks) pool[warp * ks + lane] = best;
+  if (tid == 0) *s_nc = 0;
+  __syncthreads();
+  const int np = WARPS * ks;
+  if (tid < np) {
+    const unsigned long long x = pool[tid];
+    int r = 0;
+#pragma unroll 8
+    for (int q = 0; q < np; ++q) r += pool[q] > x;
+    if (r == ks - 1) *s_t = x;  // one real key: >= ks real keys in pool
+  }
+  __syncthreads();
+  const unsigned long long t = *s_t;
+  for (int i = tid; i < ns; i += THREADS) {
+    const unsigned long long x = make_key(scores[i], d0 + i);
+    if (x >= t) cand[atomicAdd(s_nc, 1)] = x;
+  }
+  __syncthreads();
+  const int nc = *s_nc;
+  for (int c = tid; c < nc; c += THREADS) {
+    const unsigned long long x = cand[c];
+    int r = 0;
+#pragma unroll 8
+    for (int q = 0; q < nc; ++q) r += cand[q] > x;
+    if (r < ks) put_key(x, out_v + r, out_i + r);
+  }
+}
+
+// One block per (query row, doc slice): score the slice's docs from every
+// query term's postings, then write its top min(k, slice) (S > 1: to the
+// row's list KS-strided in the workspace; S == 1: the row's k results,
+// tail included).
+template <class Src>
+__global__ void __launch_bounds__(THREADS)
+    slice_kernel(const Src src, int n_docs, int k, int S, int NS, int KS,
+                 float* __restrict__ out_v, int* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Term tm[QC];
+  __shared__ int ostart[WARPS + 1];
+  __shared__ int wsum[2 * WARPS];
+  __shared__ unsigned long long s_t;
+  __shared__ int s_total, s_nc;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int b = blockIdx.x / S, s = blockIdx.x % S;
+  const int d0 = s * NS, ns = min(NS, n_docs - d0);
+  Smem sm;
+  sm.scores = reinterpret_cast<float*>(smem);
+  sm.stage = reinterpret_cast<unsigned*>(sm.scores + pad4(NS));
+  sm.edoc = reinterpret_cast<int*>(sm.stage + CW);
+  sm.ew = reinterpret_cast<float*>(sm.edoc + RL);
+  sm.cnt = reinterpret_cast<int*>(sm.ew + RL);
+
+  // let the merge kernel's blocks launch once every slice block runs
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  for (int i = tid; i < ns; i += THREADS) sm.scores[i] = 0.0f;
+  for (int t0 = 0; t0 < src.Q; t0 += QC) {
+    if (tid < QC) {
+      Term m;
+      m.pos = 0;
+      m.len = 0;
+      m.par = 0;
+      m.qv = m.lo = m.step = 0.0f;
+      m.carry = 0;
+      if (t0 + tid < src.Q) src.meta(b, t0 + tid, m);
+      tm[tid] = m;
     }
     __syncthreads();
-    merge_tile(s, n, lo, k);
+    if (warp == 0) {
+      const int l0 = tm[2 * lane].len, l1 = tm[2 * lane + 1].len;
+      const int inc = warp_scan(l0 + l1, lane);
+      tm[2 * lane].off = inc - l0 - l1;
+      tm[2 * lane + 1].off = inc - l1;
+      if (lane == 31) s_total = inc;
+    }
+    __syncthreads();
+    const int total = s_total;
+    for (int r0 = 0; r0 < total; r0 += RL) {
+      if (warp == 0) plan_round(src, tm, r0, min(total, r0 + RL));
+      for (int i = tid; i < WARPS * QC; i += THREADS) sm.cnt[i] = 0;
+      __syncthreads();
+      stage_round(src, tm, sm.stage);
+      cp_async_wait_all();
+      __syncthreads();
+      decode_round<Src>(tm, sm, d0, ns);
+      __syncthreads();
+      route_offsets(sm.cnt, ostart, wsum);
+      __syncthreads();
+      route_round(tm, sm);
+      __syncthreads();
+      fold_round(sm, ostart);
+      __syncthreads();
+    }
   }
-  write_out(s, vals, idx, k);
+
+  const int ks = min(k, ns);
+  const size_t o = S == 1 ? (size_t)b * k : ((size_t)b * S + s) * KS;
+  slice_topk(sm.scores, ns, d0, ks, out_v + o, out_i + o, sm.stage, &s_t,
+             &s_nc);
+  if (S == 1)
+    for (int i = ks + tid; i < k; i += THREADS) {
+      out_v[o + i] = NEG_INF;
+      out_i[o + i] = 0;
+    }
 }
 
-// The tile (every doc up to TILE_MAX) and, when they fit beside it, the
-// lists in shared memory; `in_ws`: the lists go to the workspace.
-void plan(int n_docs, int k, int* tile, size_t* smem, bool* in_ws) {
-  *tile = n_docs < TILE_MAX ? n_docs : TILE_MAX;
-  *in_ws = tile_bytes(*tile) + lists_bytes(k) > SMEM_MAX;
-  *smem = tile_bytes(*tile) + (*in_ws ? 0 : lists_bytes(k));
+// One block per query row: merge the row's S slice lists (sorted, slice s
+// holding min(k, its docs) entries at stride KS) into its k results. Each
+// entry's place is the count of the row's entries above it (the keys are
+// distinct); the tail past n_docs is (NEG_INF, 0). `staged`: the lists as
+// keys in shared memory (0 past each list's end), counted linearly while
+// short, else each list binary-searched in device memory. Launched as a
+// programmatic dependent of the slice kernel: it waits for its lists.
+__global__ void __launch_bounds__(MERGE_THREADS)
+    merge_kernel(const float* __restrict__ lv, const int* __restrict__ li,
+                 float* __restrict__ vals, int* __restrict__ idx, int S,
+                 int NS, int KS, int n_docs, int k, int staged) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int tid = threadIdx.x, b = blockIdx.x;
+  const int n = S * KS;
+  const float* gv = lv + (size_t)b * n;
+  const int* gi = li + (size_t)b * n;
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem);
+  auto len = [&](int s) { return min(KS, n_docs - s * NS); };
+  if (staged) {
+    for (int j = tid; j < n; j += MERGE_THREADS)
+      keys[j] = j % KS < len(j / KS) ? make_key(gv[j], gi[j]) : 0ull;
+    __syncthreads();
+  }
+  const int total = min(k, n_docs);
+  float* out_v = vals + (size_t)b * k;
+  int* out_i = idx + (size_t)b * k;
+  for (int j = tid; j < n; j += MERGE_THREADS) {
+    if (j % KS >= len(j / KS)) continue;
+    const unsigned long long x =
+        staged ? keys[j] : make_key(gv[j], gi[j]);
+    int r = 0;
+    if (staged && n <= 4096) {
+#pragma unroll 8
+      for (int q = 0; q < n; ++q) r += keys[q] > x;
+    } else {
+      for (int s = 0; s < S; ++s) {  // entries of list s above x
+        int lo = 0, hi = len(s);
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          const size_t q = (size_t)s * KS + mid;
+          const unsigned long long y =
+              staged ? keys[q] : make_key(gv[q], gi[q]);
+          if (y > x)
+            lo = mid + 1;
+          else
+            hi = mid;
+        }
+        r += lo;
+      }
+    }
+    if (r < total) put_key(x, out_v + r, out_i + r);
+  }
+  for (int i = total + tid; i < k; i += MERGE_THREADS) {
+    out_v[i] = NEG_INF;
+    out_i[i] = 0;
+  }
 }
 
-// ws: the workspace, used when the lists do not fit in shared memory
-template <typename Kernel>
-int prepare(Kernel kernel, int n_docs, int k, void* ws, int* tile,
-            size_t* smem, float** lists) {
-  bool in_ws;
-  plan(n_docs, k, tile, smem, &in_ws);
-  *lists = in_ws ? static_cast<float*>(ws) : nullptr;
-  if (in_ws && ws == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+// ------------------------------------------------------------- the plan
+
+struct Plan {
+  int S, NS, KS, staged;
+  size_t slice_smem, merge_smem;
+  long long ws;  // workspace bytes: the slice lists (0 when S == 1)
+};
+
+long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
+
+// The slices of a row: enough to fill `sms` SMs with B rows, each between
+// NS_MIN and NS_MAX docs. False for arguments the kernels do not take.
+bool make_plan(int B, int n_docs, int k, int sms, Plan* p) {
+  if (B < 1 || n_docs < 1 || k < 1) return false;
+  const long long s_min = ceil_div(n_docs, NS_MAX);
+  const long long s_max = ceil_div(n_docs, NS_MIN);
+  long long S = std::max(s_min, std::min<long long>(std::max(sms / B, 1),
+                                                    s_max));
+  const long long NS = ceil_div(n_docs, S);
+  S = ceil_div(n_docs, NS);
+  if ((long long)B * S > 0x7fffffffLL) return false;
+  p->S = (int)S;
+  p->NS = (int)NS;
+  p->KS = (int)std::min<long long>(k, NS);
+  p->slice_smem = pad4(NS) * 4 + slice_fixed_bytes();
+  const long long n = S * p->KS;
+  p->staged = n * 8 <= MERGE_STAGE_MAX;
+  p->merge_smem = p->staged ? (size_t)n * 8 : 0;
+  p->ws = S > 1 ? (long long)B * n * 8 : 0;
+  return true;
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// The current device and its SM count (cached).
+int current_sms(int* dev) {
+  static int sms[MAX_DEVICES];
+  if (cudaGetDevice(dev) != cudaSuccess) return 1;
+  if (*dev < 0 || *dev >= MAX_DEVICES) return 1;
+  if (sms[*dev] == 0) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, *dev);
+    sms[*dev] = n > 0 ? n : 1;
+  }
+  return sms[*dev];
+}
+
+// Allow `kernel` `bytes` of dynamic shared memory on `dev` (cached: the
+// allowance only grows).
+template <auto kernel>
+cudaError_t allow_smem(int dev, size_t bytes) {
+  static size_t allowed[MAX_DEVICES];
+  if (dev >= 0 && dev < MAX_DEVICES && allowed[dev] >= bytes)
+    return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess && dev >= 0 && dev < MAX_DEVICES) allowed[dev] = bytes;
+  return e;
+}
+
+template <class Src>
+int run(const Src& src, float* vals, int* idx, void* ws, int B, int n_docs,
+        int k, void* stream) {
+  Plan p;
+  int dev = 0;
+  if (!make_plan(B, n_docs, k, current_sms(&dev), &p))
+    return (int)cudaErrorInvalidValue;
+  if (p.S > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = allow_smem<slice_kernel<Src>>(dev, p.slice_smem);
+  if (e != cudaSuccess) return (int)e;
+  float* lv = p.S == 1 ? vals : static_cast<float*>(ws);
+  int* li = p.S == 1 ? idx
+                     : reinterpret_cast<int*>(lv + (size_t)B * p.S * p.KS);
+  slice_kernel<Src><<<B * p.S, THREADS, p.slice_smem, st>>>(
+      src, n_docs, k, p.S, p.NS, p.KS, lv, li);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || p.S == 1) return (int)e;
+  e = allow_smem<merge_kernel>(dev, p.merge_smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B);
+  cfg.blockDim = dim3(MERGE_THREADS);
+  cfg.dynamicSmemBytes = p.merge_smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, merge_kernel, (const float*)lv,
+                         (const int*)li, vals, idx, p.S, p.NS, p.KS, n_docs,
+                         k, p.staged);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The device workspace both entry points need for B query rows, in bytes:
-// 0 when the running lists fit in shared memory beside the doc tile, else
-// B * 4 * k floats. -1 for arguments they do not take.
+// The device workspace every entry needs for B query rows on the current
+// device, in bytes: the slices' sorted lists (0 when one slice covers the
+// docs). -1 for arguments the kernels do not take.
 extern "C" long long impact_topk_workspace(int B, int n_docs, int k) {
-  if (B < 1 || n_docs < 1 || k < 1) return -1;
-  int tile;
-  size_t smem;
-  bool in_ws;
-  plan(n_docs, k, &tile, &smem, &in_ws);
-  return in_ws ? (long long)B * (long long)lists_bytes(k) : 0;
+  Plan p;
+  int dev = 0;
+  if (!make_plan(B, n_docs, k, current_sms(&dev), &p)) return -1;
+  return p.ws;
 }
 
-// C entry points, bound with ctypes. Each returns cudaGetLastError() after
-// the launch. Both require B >= 1, n_docs >= 1 and k >= 1, and a workspace
-// ws of impact_topk_workspace(B, n_docs, k) bytes (null when that is 0).
+// C entry points, bound with ctypes. Each launches the slice kernel (and,
+// with more than one slice a row, the merge kernel) on `stream` and
+// returns cudaGetLastError(). All require B >= 1, n_docs >= 1 and k >= 1,
+// and a workspace ws of impact_topk_workspace(B, n_docs, k) bytes (null
+// when that is 0). vals f32 and idx i32 are (B, k).
 //
-// K4: w f32 and docs i32 are (B, W) row-major; vals f32 and idx i32 are
-// (B, k). seg_len (>= 1) is the lanes per query term.
+// K4 on windows: w f32 and docs i32 are (B, W) row-major; seg_len (>= 1)
+// is the lanes per query term.
 extern "C" int impact_topk(const float* w, const int* docs, float* vals,
                            int* idx, void* ws, int B, int W, int seg_len,
                            int n_docs, int k, void* stream) {
-  if (B < 1 || seg_len < 1 || n_docs < 1 || k < 1)
-    return (int)cudaErrorInvalidValue;
-  int tile;
-  size_t smem;
-  float* lists;
-  const int err =
-      prepare(impact_topk_kernel, n_docs, k, ws, &tile, &smem, &lists);
-  if (err != (int)cudaSuccess) return err;
-  impact_topk_kernel<<<B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      w, docs, vals, idx, lists, W, seg_len, n_docs, k, tile);
-  return (int)cudaGetLastError();
+  if (B < 1 || W < 0 || seg_len < 1) return (int)cudaErrorInvalidValue;
+  K4Window src;
+  src.s1 = make_stream(docs, 4LL * B * W);
+  src.s2 = make_stream(w, 4LL * B * W);
+  src.W = W;
+  src.seg = seg_len;
+  src.Q = (int)ceil_div(W, seg_len);
+  return run(src, vals, idx, ws, B, n_docs, k, stream);
 }
 
-// K5: byte_win and gap_win i32 are (B, Q, L) row-major; starts, lens i32 and
-// qv, lo, step f32 are (B, Q); vals f32 and idx i32 are (B, k). Q and L may
-// be 0.
+// K4 in place: q_idx i32 and q_val f32 are (B, Q) (vocab ids, weights);
+// term_starts, term_lens i32 (V,); postings_doc i32, postings_val f32
+// (P,). Terms with q_val <= 0 or an id outside [0, V) score nothing.
+extern "C" int impact_index_topk(const int* q_idx, const float* q_val,
+                                 const int* term_starts, const int* term_lens,
+                                 const int* postings_doc,
+                                 const float* postings_val, float* vals,
+                                 int* idx, void* ws, int B, int Q, int V,
+                                 long long P, int n_docs, int k,
+                                 void* stream) {
+  if (B < 1 || Q < 0 || V < 0 || P < 0) return (int)cudaErrorInvalidValue;
+  K4Index src;
+  src.q_idx = q_idx;
+  src.q_val = q_val;
+  src.starts = term_starts;
+  src.lens = term_lens;
+  src.s1 = make_stream(postings_doc, 4 * P);
+  src.s2 = make_stream(postings_val, 4 * P);
+  src.Q = Q;
+  src.V = V;
+  return run(src, vals, idx, ws, B, n_docs, k, stream);
+}
+
+// K5 on windows: byte_win and gap_win i32 are (B, Q, L) row-major;
+// starts, lens i32 and qv, lo, step f32 are (B, Q). Q and L may be 0.
 extern "C" int impact_q_topk(const int* byte_win, const int* gap_win,
                              const int* starts, const int* lens,
                              const float* qv, const float* lo,
                              const float* step, float* vals, int* idx,
                              void* ws, int B, int Q, int L, int n_docs, int k,
                              void* stream) {
-  if (B < 1 || Q < 0 || L < 0 || n_docs < 1 || k < 1)
+  if (B < 1 || Q < 0 || L < 0) return (int)cudaErrorInvalidValue;
+  K5Window src;
+  src.starts = starts;
+  src.lens = lens;
+  src.qv = qv;
+  src.lo = lo;
+  src.step = step;
+  src.s1 = make_stream(gap_win, 4LL * B * Q * L);
+  src.s2 = make_stream(byte_win, 4LL * B * Q * L);
+  src.Q = Q;
+  src.L = L;
+  return run(src, vals, idx, ws, B, n_docs, k, stream);
+}
+
+// K5 in place: q_idx i32 and q_val f32 are (B, Q); term_starts i32,
+// term_lens (u16 when lens_u16, else i32), term_lo and term_hi f16 are
+// (V,); deltas (P,) of delta_bytes (1: u8, 2: u16) each; packed_vals u8
+// (n_packed,), two codes a byte, the even posting in the low nibble. The
+// step is (hi - lo) * step_scale.
+extern "C" int impact_q_index_topk(
+    const int* q_idx, const float* q_val, const int* term_starts,
+    const void* term_lens, const unsigned char* packed_vals,
+    const void* deltas, const void* term_lo, const void* term_hi,
+    float* vals, int* idx, void* ws, int B, int Q, int V, long long P,
+    long long n_packed, int lens_u16, int delta_bytes, float step_scale,
+    int n_docs, int k, void* stream) {
+  if (B < 1 || Q < 0 || V < 0 || P < 0 || n_packed < 0 ||
+      (delta_bytes != 1 && delta_bytes != 2))
     return (int)cudaErrorInvalidValue;
-  int tile;
-  size_t smem;
-  float* lists;
-  const int err =
-      prepare(impact_q_topk_kernel, n_docs, k, ws, &tile, &smem, &lists);
-  if (err != (int)cudaSuccess) return err;
-  impact_q_topk_kernel<<<B, THREADS, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      byte_win, gap_win, starts, lens, qv, lo, step, vals, idx, lists, Q, L,
-      n_docs, k, tile);
-  return (int)cudaGetLastError();
+  auto go = [&](auto lens_t, auto delta_t) {
+    using LensT = decltype(lens_t);
+    using DeltaT = decltype(delta_t);
+    K5Index<LensT, DeltaT> src;
+    src.q_idx = q_idx;
+    src.q_val = q_val;
+    src.starts = term_starts;
+    src.lens = static_cast<const LensT*>(term_lens);
+    src.lo = static_cast<const __half*>(term_lo);
+    src.hi = static_cast<const __half*>(term_hi);
+    src.s1 = make_stream(deltas, (long long)sizeof(DeltaT) * P);
+    src.s2 = make_stream(packed_vals, n_packed);
+    src.step_scale = step_scale;
+    src.Q = Q;
+    src.V = V;
+    return run(src, vals, idx, ws, B, n_docs, k, stream);
+  };
+  if (lens_u16)
+    return delta_bytes == 1 ? go(uint16_t(), uint8_t())
+                            : go(uint16_t(), uint16_t());
+  return delta_bytes == 1 ? go(int32_t(), uint8_t())
+                          : go(int32_t(), uint16_t());
 }

@@ -2,40 +2,56 @@
 
 K4 replaces the Pallas TPU kernel ``repro/kernels/impact_score.py:
 _impact_kernel`` (entry ``fused_impact_topk``): per query row, score the
-flat posting lanes ``(w = q·impact, doc id)`` into doc tiles visited in
-ascending order and keep a running top-k, so the ``(B, N)`` score matrix
-never reaches device memory.
+posting lanes ``(w = q·impact, doc id)`` of every query term and keep the
+top-k, so the ``(B, N)`` score matrix never reaches device memory.
 
 K5 replaces ``_impact_q_kernel`` (entry ``fused_quantized_topk``): the same
-scoring over the u4+delta windows of a ``QuantizedIndex``, decoded inside
+scoring over the u4+delta postings of a ``QuantizedIndex``, decoded inside
 the kernel. For each query term t and lane l below its length (and only
-where ``qv > 0``) the code is the high nibble of ``byte_win`` when the
+where ``qv > 0``) the code is the high nibble of the packed byte when the
 absolute posting position ``starts + l`` is odd, else the low one; the
 doc id is the running sum of the term's gaps; the weight is
 ``(lo + (code - 1) * step) * qv``, and code 0 (an escape phantom) weighs
 exactly 0 but still advances the running sum.
 
-Both kernels live in ``csrc/impact_topk.cu``; its header says how they
-are laid out. Bound on the H100: each lane is read once (8 bytes: weight
-and doc id for K4, packed byte and gap for K5), so the floor is
-``fused_window_bytes`` over 3.35 TB/s. The design keeps a tile of up to
-32768 scores in shared memory and scatters one query term at a time, which
-makes the sums deterministic in the reference's lane order. One block per
-query leaves most SMs idle at small batches. Any ``k >= 1``: the two
-running lists of k entries sit beside the tile in shared memory while
-they fit, else in a device workspace the wrapper allocates.
+Two entries each:
 
-``fused_impact_topk`` and ``fused_quantized_topk`` dispatch on the
-tensors' device: CPU tensors go to their ``*_plain`` version, CUDA tensors
-to the kernel (or a raise). Each wrapper's ``.launches`` counts its kernel
-launches.
+* the window entries ``fused_impact_topk`` and ``fused_quantized_topk``
+  take the gathered, padded posting windows (the counterparts of the JAX
+  entries, held against the Pallas kernels by the CPU tests);
+* the index entries ``fused_impact_index_topk`` and
+  ``fused_quantized_index_topk`` take the query rep's ``(B, Q)`` ids and
+  weights and the index's arrays as they are stored (u8/u16 deltas and
+  nibble-packed codes, u16 or i32 lengths, f16 bounds: no widening copy),
+  and read each query term's postings in place. Their plain version is
+  the gather of the windows (``index_windows``,
+  ``quantized_index_windows``) followed by the window entry's.
+
+All four run one kernel (``csrc/impact_topk.cu``; its header says how it is
+laid out): a grid of (query row, doc slice) blocks that fills the card,
+each staging its query's postings in shared memory with ``cp.async`` and
+summing every doc's lanes in query-term order, then a merge of the
+slices' top-k lists. A window batch is read as an index whose term
+``(b, t)`` starts at a computed offset. Bound on the H100: the bytes the
+in-place read needs (the query's postings once, the per-term columns, the
+``(B, k)`` results), far below a microsecond at the serving shapes; the
+time is the launches' and the dependent loads' latency. Any ``k >= 1``:
+the slices' lists sit in a device workspace the wrapper allocates.
+
+Each entry dispatches on the tensors' device: CPU tensors go to its
+``*_plain`` version, CUDA tensors to the kernel (or a raise). Each
+wrapper's ``.launches`` counts its calls on the card: one a call, though a
+call with more than one doc slice a row runs two CUDA kernels (slices,
+then merge).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -43,83 +59,131 @@ from repro_torch.kernels.topk_score import topk_rows
 
 # u4 codes 1..15 span 14 steps between a term's lo and hi (engine/quantize)
 U4_LEVELS = 14
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_Q_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# The scorers' step is (hi - lo) times the f32 reciprocal of U4_LEVELS: the
+# JAX package divides by the constant under jit, which XLA computes as that
+# product (it differs from a true division by one ulp in about half the
+# terms). The quantizer's build divides, as the reference's numpy build does.
+STEP_SCALE = float(np.float32(1.0 / U4_LEVELS))
+_VP, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_float)
+_ARGTYPES = [_VP] * 5 + [_I] * 5 + [_VP]
+_Q_ARGTYPES = [_VP] * 10 + [_I] * 5 + [_VP]
+_INDEX_ARGTYPES = [_VP] * 9 + [_I] * 3 + [_LL] + [_I] * 2 + [_VP]
+_Q_INDEX_ARGTYPES = ([_VP] * 11 + [_I] * 3 + [_LL] * 2 + [_I] * 2 + [_F]
+                     + [_I] * 2 + [_VP])
 
 
-def _workspace(B: int, n_docs: int, k: int, device) -> torch.Tensor:
-    """The device workspace K4 and K5 need for B query rows: empty while
-    the running lists fit in shared memory, else ``B * 4 * k`` floats."""
+@functools.lru_cache(maxsize=1024)
+def _workspace_bytes(device_index: int, B: int, n_docs: int, k: int) -> int:
+    """The device workspace bytes K4 and K5 need for B query rows on the
+    current device (``device_index``): the doc slices' top-k lists (0 when
+    one slice covers the docs)."""
     fn = _build.function("impact_topk", "impact_topk_workspace",
                          [ctypes.c_int] * 3, ctypes.c_longlong)
     nbytes = fn(B, n_docs, k)
     if nbytes < 0:
         raise RuntimeError(f"impact_topk: no plan for B={B}, "
                            f"n_docs={n_docs}, k={k}")
-    return torch.empty(nbytes, dtype=torch.uint8, device=device)
+    return nbytes
+
+
+def _run(entry, cname, argtypes, dev, B, n_docs, k, ptrs, ints):
+    """Allocate ``(vals, idx)`` and the workspace on ``dev`` and launch the
+    C entry ``cname`` as ``cname(*ptrs, vals, idx, ws, *ints, stream)``,
+    counting the call on ``entry.launches``."""
+    if B and dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _run(entry, cname, argtypes, dev, B, n_docs, k, ptrs,
+                        ints)
+    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, k), dtype=torch.int32, device=dev)
+    if B == 0:
+        return vals, idx
+    fn = _build.function("impact_topk", cname, argtypes)
+    nbytes = _workspace_bytes(dev.index, B, n_docs, k)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
+    entry.launches += 1
+    rc = fn(*ptrs, vals.data_ptr(), idx.data_ptr(),
+            ws.data_ptr() if ws is not None else 0, *ints,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(rc, cname)
+    return vals, idx
 
 
 def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr() if t.numel() else 0
 
 
-def scatter_scores(w: torch.Tensor, docs: torch.Tensor,
-                   n_docs: int) -> torch.Tensor:
+def _check_k(name: str, n_docs: int, k: int) -> None:
+    if k < 1:
+        raise ValueError(f"{name}: k must be >= 1, got k={k}")
+    if n_docs < 1:
+        raise ValueError(f"{name}: n_docs must be >= 1, got {n_docs}")
+
+
+def _check_cuda(name: str, tensors) -> torch.device:
+    """The one CUDA device every tensor lies on, else a raise (checked
+    last, so that the other checks run on meta tensors too)."""
+    dev = tensors[0].device
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError(f"{name}: every input must lie on one CUDA device")
+    return dev
+
+
+def _gather_i32(a: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``a[pos]`` widened to int32 (uint16 through its int16 view: PyTorch
+    implements few operators for uint16 on the card)."""
+    if a.dtype == torch.uint16:
+        return a.view(torch.int16)[pos].int() & 0xFFFF
+    return a[pos].int()
+
+
+def scatter_scores(w: torch.Tensor, docs: torch.Tensor, n_docs: int,
+                   term_lanes: Optional[int] = None) -> torch.Tensor:
     """Dense ``(B, n_docs)`` scores: each lane's weight added to its doc.
 
-    Lanes whose doc id lies outside ``[0, n_docs)`` score nothing. On the
-    CPU the adds run in lane order.
+    Lanes whose doc id lies outside ``[0, n_docs)`` score nothing. With
+    ``term_lanes`` the lanes are added one query term (``term_lanes``
+    lanes) at a time, so each doc's sum is taken in term order on every
+    device; without it in one pass, in lane order on the CPU.
     """
     B, W = w.shape
-    docs = docs.long()
-    ok = (docs >= 0) & (docs < n_docs)
+    seg = term_lanes or max(W, 1)
     rows = torch.arange(B, device=w.device).unsqueeze(1) * n_docs
     flat = torch.zeros(B * n_docs, dtype=torch.float32, device=w.device)
-    flat.index_add_(0, (rows + docs)[ok], w.float()[ok])
+    for s0 in range(0, W, seg):
+        d = docs[:, s0:s0 + seg].long()
+        ok = (d >= 0) & (d < n_docs)
+        flat.index_add_(0, (rows + d)[ok], w[:, s0:s0 + seg].float()[ok])
     return flat.view(B, n_docs)
 
 
 def fused_impact_topk_plain(w: torch.Tensor, docs: torch.Tensor, *,
-                            n_docs: int, k: int
+                            n_docs: int, k: int,
+                            term_lanes: Optional[int] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K4: the dense scores, then the merge's
-    top-k (ties to the lowest doc id, ``(NEG_INF, 0)`` past ``n_docs``)."""
-    return topk_rows(scatter_scores(w, docs, n_docs), k)
+    """Plain PyTorch version of K4: the dense scores (summed one term at a
+    time with ``term_lanes``: the kernel's order on every device), then the
+    merge's top-k (ties to the lowest doc id, ``(NEG_INF, 0)`` past
+    ``n_docs``)."""
+    return topk_rows(scatter_scores(w, docs, n_docs, term_lanes), k)
 
 
 def _launch(w, docs, n_docs, k, term_lanes):
+    name = "fused_impact_topk"
     if w.dim() != 2 or docs.shape != w.shape:
-        raise ValueError(f"fused_impact_topk: w {tuple(w.shape)} and docs "
+        raise ValueError(f"{name}: w {tuple(w.shape)} and docs "
                          f"{tuple(docs.shape)} must both be (B, W)")
     if w.dtype != torch.float32 or docs.dtype != torch.int32:
-        raise ValueError(f"fused_impact_topk: the kernel takes f32 weights "
+        raise ValueError(f"{name}: the kernel takes f32 weights "
                          f"and i32 doc ids, got {w.dtype} / {docs.dtype}")
     if not (w.is_contiguous() and docs.is_contiguous()):
-        raise ValueError("fused_impact_topk: w and docs must be contiguous")
-    if k < 1:
-        raise ValueError(f"fused_impact_topk: k must be >= 1, got k={k}")
-    if n_docs < 1:
-        raise ValueError(f"fused_impact_topk: n_docs must be >= 1, got "
-                         f"{n_docs}")
-    # the device last, so that the checks above run on meta tensors too
-    if not (w.is_cuda and docs.device == w.device):
-        raise ValueError("fused_impact_topk: w and docs must lie on one "
-                         "CUDA device")
+        raise ValueError(f"{name}: w and docs must be contiguous")
+    _check_k(name, n_docs, k)
+    dev = _check_cuda(name, (w, docs))
     B, W = w.shape
-    vals = torch.empty((B, k), dtype=torch.float32, device=w.device)
-    idx = torch.empty((B, k), dtype=torch.int32, device=w.device)
-    if B == 0:
-        return vals, idx
-    fn = _build.function("impact_topk", "impact_topk", _ARGTYPES)
-    with torch.cuda.device(w.device):
-        ws = _workspace(B, n_docs, k, w.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        fused_impact_topk.launches += 1
-        rc = fn(w.data_ptr(), docs.data_ptr(), vals.data_ptr(),
-                idx.data_ptr(), _ptr(ws), B, W, term_lanes, n_docs, k,
-                stream)
-    _build.check_launch(rc, "impact_topk")
-    return vals, idx
+    return _run(fused_impact_topk, "impact_topk", _ARGTYPES, dev, B, n_docs,
+                k, (_ptr(w), _ptr(docs)), (B, W, term_lanes, n_docs, k))
 
 
 def fused_impact_topk(
@@ -135,8 +199,8 @@ def fused_impact_topk(
     Returns ``(vals (B, k) f32, idx (B, k) i32)``: ties to the lowest doc
     id, columns past ``n_docs`` hold ``(NEG_INF, 0)``. ``term_lanes``
     (>= 1) is the lanes per query term (the window's ``max_postings``);
-    the kernel scatters one term at a time, which fixes the order of each
-    doc's sum. CPU tensors take the plain version.
+    each doc's lanes are summed in term order, and a doc may occur at
+    most once within a term's lanes. CPU tensors take the plain version.
     """
     if term_lanes < 1:
         raise ValueError(f"fused_impact_topk: term_lanes must be >= 1, got "
@@ -147,6 +211,103 @@ def fused_impact_topk(
 
 
 fused_impact_topk.launches = 0
+
+
+def index_windows(q_idx: torch.Tensor, q_val: torch.Tensor,
+                  term_starts: torch.Tensor, term_lens: torch.Tensor,
+                  postings_doc: torch.Tensor, postings_val: torch.Tensor,
+                  max_postings: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat ``(B, Q * max_postings)`` weight/doc windows of an inverted
+    index: each query term's posting list padded to ``max_postings``
+    lanes, invalid lanes (past the list, or ``q_val <= 0``) at weight
+    exactly 0 and doc 0."""
+    dev = postings_doc.device
+    lane = torch.arange(max_postings, dtype=torch.int32, device=dev)
+    qv = q_val.float()
+    qi = q_idx.long()
+    starts = term_starts[qi]                                # (B, Q)
+    lens = term_lens[qi]
+    pos = starts[:, :, None] + lane                         # (B, Q, L)
+    valid = (lane < lens[:, :, None]) & (qv > 0)[:, :, None]
+    pos = pos.clamp(0, postings_doc.shape[0] - 1).long()
+    docs = torch.where(valid, postings_doc[pos], 0)
+    w = torch.where(valid, postings_val[pos], 0.0) * qv[:, :, None]
+    b = w.shape[0]
+    return w.reshape(b, -1).contiguous(), docs.reshape(b, -1).contiguous()
+
+
+def fused_impact_index_topk_plain(q_idx, q_val, term_starts, term_lens,
+                                  postings_doc, postings_val, *,
+                                  n_docs: int, k: int, max_postings: int
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K4 in place: the windows' gather, then the
+    window entry's plain version, one term at a time."""
+    w, docs = index_windows(q_idx, q_val, term_starts, term_lens,
+                            postings_doc, postings_val, max_postings)
+    return fused_impact_topk_plain(w, docs, n_docs=n_docs, k=k,
+                                   term_lanes=max_postings)
+
+
+def _launch_index(q_idx, q_val, term_starts, term_lens, postings_doc,
+                  postings_val, n_docs, k):
+    name = "fused_impact_index_topk"
+    query, cols = (q_idx, q_val), (term_starts, term_lens)
+    posts = (postings_doc, postings_val)
+    if q_idx.dim() != 2 or q_val.shape != q_idx.shape:
+        raise ValueError(f"{name}: q_idx {tuple(q_idx.shape)} and q_val "
+                         f"{tuple(q_val.shape)} must both be (B, Q)")
+    if (any(t.dim() != 1 for t in cols + posts)
+            or term_lens.shape != term_starts.shape
+            or postings_val.shape != postings_doc.shape):
+        raise ValueError(f"{name}: term_starts/term_lens must be (V,) and "
+                         f"postings_doc/postings_val (P,)")
+    if (any(t.dtype != torch.int32 for t in (q_idx,) + cols + posts[:1])
+            or q_val.dtype != torch.float32
+            or postings_val.dtype != torch.float32):
+        raise ValueError(f"{name}: the kernel takes i32 q_idx, term_starts, "
+                         f"term_lens, postings_doc and f32 q_val, "
+                         f"postings_val")
+    if not all(t.is_contiguous() for t in query + cols + posts):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    _check_k(name, n_docs, k)
+    dev = _check_cuda(name, query + cols + posts)
+    B, Q = q_idx.shape
+    return _run(fused_impact_index_topk, "impact_index_topk",
+                _INDEX_ARGTYPES, dev, B, n_docs, k,
+                tuple(_ptr(t) for t in query + cols + posts),
+                (B, Q, term_starts.shape[0], postings_doc.shape[0], n_docs,
+                 k))
+
+
+def fused_impact_index_topk(
+    q_idx: torch.Tensor,         # (B, Q) i32 — vocab id of each query term
+    q_val: torch.Tensor,         # (B, Q) f32 — its weight (<= 0: skipped)
+    term_starts: torch.Tensor,   # (V,) i32 — the index's arrays, as stored
+    term_lens: torch.Tensor,     # (V,) i32
+    postings_doc: torch.Tensor,  # (P,) i32
+    postings_val: torch.Tensor,  # (P,) f32
+    *,
+    n_docs: int,
+    k: int,
+    max_postings: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 reading an ``InvertedIndex`` in place: the same result as
+    ``fused_impact_topk`` on the query's windows (``index_windows``), with
+    no window built on the card. ``max_postings`` (>= 1, the longest
+    list) is the plain version's window width. CPU tensors take the plain
+    version."""
+    if max_postings < 1:
+        raise ValueError(f"fused_impact_index_topk: max_postings must be "
+                         f">= 1, got {max_postings}")
+    if postings_doc.device.type == "cpu":
+        return fused_impact_index_topk_plain(
+            q_idx, q_val, term_starts, term_lens, postings_doc, postings_val,
+            n_docs=n_docs, k=k, max_postings=max_postings)
+    return _launch_index(q_idx, q_val, term_starts, term_lens, postings_doc,
+                         postings_val, n_docs, k)
+
+
+fused_impact_index_topk.launches = 0
 
 
 def decode_quantized_windows(byte_win: torch.Tensor, gap_win: torch.Tensor,
@@ -190,46 +351,29 @@ def fused_quantized_topk_plain(byte_win, gap_win, starts, lens, qv, lo,
 
 
 def _launch_q(byte_win, gap_win, starts, lens, qv, lo, step, n_docs, k):
+    name = "fused_quantized_topk"
     wins, metas = (byte_win, gap_win), (starts, lens, qv, lo, step)
-    dev = byte_win.device
     if byte_win.dim() != 3 or gap_win.shape != byte_win.shape:
-        raise ValueError(f"fused_quantized_topk: byte_win "
+        raise ValueError(f"{name}: byte_win "
                          f"{tuple(byte_win.shape)} and gap_win "
                          f"{tuple(gap_win.shape)} must both be (B, Q, L)")
     B, Q, L = byte_win.shape
     if any(t.shape != (B, Q) for t in metas):
-        raise ValueError(f"fused_quantized_topk: starts, lens, qv, lo and "
+        raise ValueError(f"{name}: starts, lens, qv, lo and "
                          f"step must be (B, Q) = {(B, Q)}, got "
                          f"{[tuple(t.shape) for t in metas]}")
     if (any(t.dtype != torch.int32 for t in (byte_win, gap_win, starts, lens))
             or any(t.dtype != torch.float32 for t in (qv, lo, step))):
-        raise ValueError("fused_quantized_topk: the kernel takes i32 "
+        raise ValueError(f"{name}: the kernel takes i32 "
                          "byte_win, gap_win, starts, lens and f32 qv, lo, "
                          "step")
     if not all(t.is_contiguous() for t in wins + metas):
-        raise ValueError("fused_quantized_topk: inputs must be contiguous")
-    if k < 1:
-        raise ValueError(f"fused_quantized_topk: k must be >= 1, got k={k}")
-    if n_docs < 1:
-        raise ValueError(f"fused_quantized_topk: n_docs must be >= 1, got "
-                         f"{n_docs}")
-    # the device last, so that the checks above run on meta tensors too
-    if not all(t.is_cuda and t.device == dev for t in wins + metas):
-        raise ValueError("fused_quantized_topk: every input must lie on one "
-                         "CUDA device")
-    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((B, k), dtype=torch.int32, device=dev)
-    if B == 0:
-        return vals, idx
-    fn = _build.function("impact_topk", "impact_q_topk", _Q_ARGTYPES)
-    with torch.cuda.device(dev):
-        ws = _workspace(B, n_docs, k, dev)
-        stream = torch.cuda.current_stream().cuda_stream
-        fused_quantized_topk.launches += 1
-        rc = fn(*(t.data_ptr() for t in wins + metas), vals.data_ptr(),
-                idx.data_ptr(), _ptr(ws), B, Q, L, n_docs, k, stream)
-    _build.check_launch(rc, "impact_q_topk")
-    return vals, idx
+        raise ValueError(f"{name}: inputs must be contiguous")
+    _check_k(name, n_docs, k)
+    dev = _check_cuda(name, wins + metas)
+    return _run(fused_quantized_topk, "impact_q_topk", _Q_ARGTYPES, dev, B,
+                n_docs, k, tuple(_ptr(t) for t in wins + metas),
+                (B, Q, L, n_docs, k))
 
 
 def fused_quantized_topk(
@@ -261,10 +405,122 @@ def fused_quantized_topk(
 fused_quantized_topk.launches = 0
 
 
+def quantized_index_windows(q_idx: torch.Tensor, q_val: torch.Tensor,
+                            term_starts: torch.Tensor,
+                            term_lens: torch.Tensor,
+                            packed_vals: torch.Tensor, deltas: torch.Tensor,
+                            term_lo: torch.Tensor, term_hi: torch.Tensor,
+                            max_postings: int) -> Tuple[torch.Tensor, ...]:
+    """The packed ``(B, Q, max_postings)`` windows and per-term columns
+    K5's window entry takes: ``(byte_win, gap_win, starts, lens, qv, lo,
+    step)``. Nothing is decoded here; ``step`` is computed once per term
+    (``STEP_SCALE``)."""
+    dev = deltas.device
+    lane = torch.arange(max_postings, dtype=torch.int32, device=dev)
+    qv = q_val.float()
+    qi = q_idx.long()
+    starts = term_starts[qi]                               # (B, Q)
+    lens = _gather_i32(term_lens, qi)                      # (B, Q)
+    pos = (starts[:, :, None] + lane).clamp(0, deltas.shape[0] - 1).long()
+    byte_win = packed_vals[pos >> 1].int()
+    gap_win = _gather_i32(deltas, pos)
+    lo = term_lo[qi].float()
+    step = (term_hi[qi].float() - lo) * STEP_SCALE
+    return (byte_win.contiguous(), gap_win.contiguous(), starts.contiguous(),
+            lens.contiguous(), qv.contiguous(), lo.contiguous(),
+            step.contiguous())
+
+
+def fused_quantized_index_topk_plain(q_idx, q_val, term_starts, term_lens,
+                                     packed_vals, deltas, term_lo, term_hi,
+                                     *, n_docs: int, k: int,
+                                     max_postings: int
+                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K5 in place: the windows' gather, then the
+    window entry's plain version."""
+    return fused_quantized_topk_plain(
+        *quantized_index_windows(q_idx, q_val, term_starts, term_lens,
+                                 packed_vals, deltas, term_lo, term_hi,
+                                 max_postings), n_docs=n_docs, k=k)
+
+
+def _launch_q_index(q_idx, q_val, term_starts, term_lens, packed_vals,
+                    deltas, term_lo, term_hi, n_docs, k):
+    name = "fused_quantized_index_topk"
+    query = (q_idx, q_val)
+    cols = (term_starts, term_lens, term_lo, term_hi)
+    posts = (packed_vals, deltas)
+    if q_idx.dim() != 2 or q_val.shape != q_idx.shape:
+        raise ValueError(f"{name}: q_idx {tuple(q_idx.shape)} and q_val "
+                         f"{tuple(q_val.shape)} must both be (B, Q)")
+    if (any(t.dim() != 1 for t in cols + posts)
+            or any(t.shape != term_starts.shape for t in cols)
+            or 2 * packed_vals.shape[0] < deltas.shape[0]):
+        raise ValueError(f"{name}: term_starts/term_lens/term_lo/term_hi "
+                         f"must be (V,), deltas (P,) and packed_vals "
+                         f"(>= P / 2,)")
+    if (q_idx.dtype != torch.int32 or q_val.dtype != torch.float32
+            or term_starts.dtype != torch.int32
+            or term_lens.dtype not in (torch.uint16, torch.int32)
+            or term_lo.dtype != torch.float16
+            or term_hi.dtype != torch.float16
+            or packed_vals.dtype != torch.uint8
+            or deltas.dtype not in (torch.uint8, torch.uint16)):
+        raise ValueError(f"{name}: the kernel takes i32 q_idx, term_starts; "
+                         f"f32 q_val; u16 or i32 term_lens; f16 term_lo, "
+                         f"term_hi; u8 packed_vals; u8 or u16 deltas")
+    if not all(t.is_contiguous() for t in query + cols + posts):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    _check_k(name, n_docs, k)
+    dev = _check_cuda(name, query + cols + posts)
+    B, Q = q_idx.shape
+    return _run(fused_quantized_index_topk, "impact_q_index_topk",
+                _Q_INDEX_ARGTYPES, dev, B, n_docs, k,
+                tuple(_ptr(t) for t in (q_idx, q_val, term_starts, term_lens,
+                                        packed_vals, deltas, term_lo,
+                                        term_hi)),
+                (B, Q, term_starts.shape[0], deltas.shape[0],
+                 packed_vals.shape[0], int(term_lens.dtype == torch.uint16),
+                 deltas.element_size(), STEP_SCALE, n_docs, k))
+
+
+def fused_quantized_index_topk(
+    q_idx: torch.Tensor,         # (B, Q) i32 — vocab id of each query term
+    q_val: torch.Tensor,         # (B, Q) f32 — its weight (<= 0: skipped)
+    term_starts: torch.Tensor,   # (V,) i32 — the QuantizedIndex's arrays,
+    term_lens: torch.Tensor,     # (V,) u16 or i32      as stored
+    packed_vals: torch.Tensor,   # (ceil(P / 2),) u8 — two u4 codes a byte
+    deltas: torch.Tensor,        # (P,) u8 or u16 — doc-id gaps
+    term_lo: torch.Tensor,       # (V,) f16
+    term_hi: torch.Tensor,       # (V,) f16
+    *,
+    n_docs: int,
+    k: int,
+    max_postings: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5 reading a ``QuantizedIndex`` in place (1.5 or 2.5 bytes a
+    posting): the same result as ``fused_quantized_topk`` on the query's
+    windows (``quantized_index_windows``), with no window built on the
+    card. ``max_postings`` (>= 1) is the plain version's window width.
+    CPU tensors take the plain version."""
+    if max_postings < 1:
+        raise ValueError(f"fused_quantized_index_topk: max_postings must "
+                         f"be >= 1, got {max_postings}")
+    if deltas.device.type == "cpu":
+        return fused_quantized_index_topk_plain(
+            q_idx, q_val, term_starts, term_lens, packed_vals, deltas,
+            term_lo, term_hi, n_docs=n_docs, k=k, max_postings=max_postings)
+    return _launch_q_index(q_idx, q_val, term_starts, term_lens, packed_vals,
+                           deltas, term_lo, term_hi, n_docs, k)
+
+
+fused_quantized_index_topk.launches = 0
+
+
 def fused_window_bytes(B: int, Q: int, L: int, variant: str = "f32") -> int:
-    """Device bytes of the gathered ``(B, Q, L)`` posting windows one fused
-    call reads: ``"f32"`` (K4) f32 weights + i32 doc ids; ``"u4"`` (K5)
-    i32 packed bytes + i32 gaps + five per-term columns."""
+    """Device bytes of the gathered ``(B, Q, L)`` posting windows one
+    window-entry call reads: ``"f32"`` (K4) f32 weights + i32 doc ids;
+    ``"u4"`` (K5) i32 packed bytes + i32 gaps + five per-term columns."""
     if variant == "f32":
         return B * Q * L * (4 + 4)
     if variant == "u4":

@@ -25,9 +25,11 @@ int16 view (PyTorch implements few operators for uint16 on the card).
 Scoring: ``quantized_retrieve`` (the ``"quantized"`` method) decodes the
 windows in plain PyTorch and scatters them into dense ``(B, N)`` scores on
 every device, as the JAX package leaves it to XLA; ``fused_quantized_
-retrieve`` gathers the packed windows and hands them to K5
-(``kernels/impact_score.fused_quantized_topk``), which decodes, scores and
-keeps the top-k without the ``(B, N)`` matrix.
+retrieve`` hands the query and the index's arrays as stored to K5
+(``kernels/impact_score.fused_quantized_index_topk``), which reads each
+query term's packed postings in place, decodes, scores and keeps the
+top-k without windows or the ``(B, N)`` matrix (on the CPU its plain
+version: the windows, the decode and a dense scatter).
 """
 
 from __future__ import annotations
@@ -40,18 +42,17 @@ import torch
 
 from repro_torch.kernels.impact_score import (U4_LEVELS,
                                               decode_quantized_windows,
-                                              fused_quantized_topk,
+                                              fused_quantized_index_topk,
+                                              quantized_index_windows,
                                               scatter_scores)
 from repro_torch.kernels.topk_score import topk_rows
 from repro_torch.retrieval.index import InvertedIndex
-from repro_torch.retrieval.sparse_rep import SparseRep
+from repro_torch.retrieval.sparse_rep import SparseRep, query_columns
 
 _DELTA_DTYPES = ((np.uint8, 255), (np.uint16, 65535))  # (dtype, escape)
-# The scorers' step is (hi - lo) times the f32 reciprocal of U4_LEVELS: the
-# JAX package divides by the constant under jit, which XLA computes as that
-# product (it differs from a true division by one ulp in about half the
-# terms). The build divides, as the reference's numpy build does.
-STEP_SCALE = float(np.float32(1.0 / U4_LEVELS))
+# The scorers' step is (hi - lo) * STEP_SCALE (kernels/impact_score: the
+# f32 reciprocal of U4_LEVELS, as XLA computes the reference's division);
+# the build divides, as the reference's numpy build does.
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,13 +107,6 @@ def _put(a: np.ndarray, device) -> torch.Tensor:
         return torch.from_numpy(a.view(np.int16)).to(device).view(
             torch.uint16)
     return torch.from_numpy(a).to(device)
-
-
-def _gather_i32(a: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """``a[pos]`` widened to int32 (uint16 through its int16 view)."""
-    if a.dtype == torch.uint16:
-        return a.view(torch.int16)[pos].int() & 0xFFFF
-    return a[pos].int()
 
 
 def quantize_index(index: InvertedIndex) -> QuantizedIndex:
@@ -207,24 +201,18 @@ def quantize_index(index: InvertedIndex) -> QuantizedIndex:
 def _fused_q_windows(queries: SparseRep, index: QuantizedIndex
                      ) -> Tuple[torch.Tensor, ...]:
     """The packed ``(B, Q, max_postings)`` windows and per-term columns
-    K5 takes: ``(byte_win, gap_win, starts, lens, qv, lo, step)``. Nothing
-    is decoded here; ``step`` is computed once per term (``STEP_SCALE``).
+    K5's window entry takes: ``(byte_win, gap_win, starts, lens, qv, lo,
+    step)``. Nothing is decoded here; ``step`` is computed once per term
+    (``STEP_SCALE``).
     """
-    q = queries.to(index.device)
-    lane = torch.arange(index.max_postings, dtype=torch.int32,
-                        device=index.device)
-    qv = q.values.reshape(-1, queries.width).float()
-    qi = q.indices.reshape(-1, queries.width).long()
-    starts = index.term_starts[qi]                         # (B, Q)
-    lens = _gather_i32(index.term_lens, qi)                # (B, Q)
-    pos = (starts[:, :, None] + lane).clamp(0, index.n_postings - 1).long()
-    byte_win = index.packed_vals[pos >> 1].int()
-    gap_win = _gather_i32(index.deltas, pos)
-    lo = index.term_lo[qi].float()
-    step = (index.term_hi[qi].float() - lo) * STEP_SCALE
-    return (byte_win.contiguous(), gap_win.contiguous(), starts.contiguous(),
-            lens.contiguous(), qv.contiguous(), lo.contiguous(),
-            step.contiguous())
+    return quantized_index_windows(*query_columns(queries, index.device),
+                                   *_index_arrays(index),
+                                   index.max_postings)
+
+
+def _index_arrays(index: QuantizedIndex) -> Tuple[torch.Tensor, ...]:
+    return (index.term_starts, index.term_lens, index.packed_vals,
+            index.deltas, index.term_lo, index.term_hi)
 
 
 def quantized_scores(queries: SparseRep, index: QuantizedIndex
@@ -250,6 +238,7 @@ def fused_quantized_retrieve(queries: SparseRep, index: QuantizedIndex,
     """Top-k through K5 (its plain version on CPU): the same ids as
     ``quantized_retrieve`` (the decode is exact against the same
     f16-rounded bounds)."""
-    return fused_quantized_topk(*_fused_q_windows(queries, index),
-                                n_docs=index.n_docs,
-                                k=min(k, index.n_docs))
+    return fused_quantized_index_topk(
+        *query_columns(queries, index.device), *_index_arrays(index),
+        n_docs=index.n_docs, k=min(k, index.n_docs),
+        max_postings=index.max_postings)

@@ -8,10 +8,12 @@ Methods ported so far:
                 PyTorch, as the JAX package leaves it to XLA)
     "quantized" ``QuantizedIndex`` (``engine/quantize``): the same over the
                 u4+delta windows, decoded on the fly (plain PyTorch)
-    "fused"     the same windows through a kernel that scores and keeps
-                the running top-k, no (B, N) matrix: K4 for an
-                ``InvertedIndex``, K5 (decoding in the kernel) for a
-                ``QuantizedIndex`` (``kernels/impact_score``)
+    "fused"     a kernel that reads the query terms' postings in place,
+                scores them and keeps the top-k, no windows and no (B, N)
+                matrix on the card: K4 for an ``InvertedIndex``, K5
+                (decoding in the kernel) for a ``QuantizedIndex``
+                (``kernels/impact_score``'s index entries; on the CPU
+                their plain version, the windows and a dense scatter)
 
     dense corpora (an (N, V) tensor; ``SparseRep`` queries are densified)
     "dense"     ``q @ C^T`` and a top-k (plain PyTorch, as the JAX package
@@ -42,13 +44,14 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.impact_score import fused_impact_topk, scatter_scores
+from repro_torch.kernels.impact_score import (fused_impact_index_topk,
+                                              index_windows, scatter_scores)
 from repro_torch.kernels.topk_score import topk_rows, topk_score
 from repro_torch.retrieval.engine.quantize import (QuantizedIndex,
                                                    fused_quantized_retrieve,
                                                    quantized_retrieve)
 from repro_torch.retrieval.index import InvertedIndex
-from repro_torch.retrieval.sparse_rep import SparseRep
+from repro_torch.retrieval.sparse_rep import SparseRep, query_columns
 
 METHODS = ("auto", "impact", "quantized", "fused", "dense", "streaming")
 # methods that need an index corpus (not a dense matrix)
@@ -77,20 +80,10 @@ def _fused_windows(queries: SparseRep, index: InvertedIndex
     """Flat ``(B, Q * max_postings)`` weight/doc windows: each query
     term's posting list padded to ``max_postings`` lanes, invalid lanes
     at weight exactly 0 (doc 0)."""
-    q = queries.to(index.device)
-    l_max = index.max_postings
-    lane = torch.arange(l_max, dtype=torch.int32, device=index.device)
-    qv = q.values.reshape(-1, queries.width).float()
-    qi = q.indices.reshape(-1, queries.width).long()
-    starts = index.term_starts[qi]                          # (B, Q)
-    lens = index.term_lens[qi]
-    pos = starts[:, :, None] + lane                         # (B, Q, L)
-    valid = (lane < lens[:, :, None]) & (qv > 0)[:, :, None]
-    pos = pos.clamp(0, index.n_postings - 1).long()
-    docs = torch.where(valid, index.postings_doc[pos], 0)
-    w = torch.where(valid, index.postings_val[pos], 0.0) * qv[:, :, None]
-    b = w.shape[0]
-    return w.reshape(b, -1).contiguous(), docs.reshape(b, -1).contiguous()
+    qi, qv = query_columns(queries, index.device)
+    return index_windows(qi, qv, index.term_starts, index.term_lens,
+                         index.postings_doc, index.postings_val,
+                         index.max_postings)
 
 
 def impact_scores(queries: SparseRep, index: InvertedIndex) -> torch.Tensor:
@@ -101,11 +94,13 @@ def impact_scores(queries: SparseRep, index: InvertedIndex) -> torch.Tensor:
 
 def fused_retrieve(queries: SparseRep, index: InvertedIndex, k: int = 10
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k through the fused kernel K4 (its plain version on CPU)."""
-    w, docs = _fused_windows(queries, index)
-    return fused_impact_topk(w, docs, n_docs=index.n_docs,
-                             k=min(k, index.n_docs),
-                             term_lanes=index.max_postings)
+    """Top-k through K4 reading the index in place (its plain version, the
+    windows and a dense scatter, on CPU)."""
+    qi, qv = query_columns(queries, index.device)
+    return fused_impact_index_topk(
+        qi, qv, index.term_starts, index.term_lens, index.postings_doc,
+        index.postings_val, n_docs=index.n_docs, k=min(k, index.n_docs),
+        max_postings=index.max_postings)
 
 
 def dense_retrieve(q: torch.Tensor, C: torch.Tensor, k: int

@@ -59,6 +59,16 @@ class SparseRep:
         return out.reshape(*self.batch_shape, vocab_size)
 
 
+def query_columns(queries: SparseRep, device
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rows' ``(B, K)`` i32 vocab ids and f32 weights, contiguous on
+    ``device``: what the fused scorers' index entries take."""
+    q = queries.to(device)
+    width = queries.width
+    return (q.indices.reshape(-1, width).int().contiguous(),
+            q.values.reshape(-1, width).float().contiguous())
+
+
 def _finalize(vals: torch.Tensor, idx: torch.Tensor,
               threshold: float) -> SparseRep:
     # non-positive entries are absent; winners are value-descending, so
