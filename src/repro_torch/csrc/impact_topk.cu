@@ -45,7 +45,7 @@
 //
 // Design. The grid is (query row, doc slice): B * S blocks, S chosen from
 // B, n_docs and the SM count so that B * S fills the card once (B 8: 16
-// slices of 1024-1216 docs on 132 SMs; B 64: 2), each slice at most
+// slices of 1024-1216 docs on 132 SMs; B 64: 2 or 3), each slice at most
 // NS_MAX docs whose scores live in shared memory. A block walks its
 // query's terms in chunks of QC and each chunk's postings in rounds of up
 // to RL lanes:
@@ -59,7 +59,7 @@
 //      and whose weight is not 0 are kept (K4 reads every lane of the
 //      query too: the postings of a term ascend by doc, but the window's
 //      padding does not, and one load wave beats a binary search's chain);
-//   3. route: each kept lane goes to the warp that owns its doc (doc & 15)
+//   3. route: each kept lane goes to the warp that owns its doc (doc % 16)
 //      in term order: counts per (owner, term), one block scan, placement;
 //   4. fold: each warp adds its docs' lanes into the scores, 32 at a time;
 //      lanes of one doc in a group of 32 (__match_any_sync) are summed by
@@ -69,8 +69,9 @@
 // The slice's own top-k (min(k, its docs), value descending then id
 // ascending, as one 64-bit key each) needs no rounds: for k <= 32 a warp
 // bitonic sort of the threads' own best keys gives the k-th best of
-// those, T; only docs at or above T can be in the top k, and each of
-// those few is placed by counting the keys above it. The merge kernel
+// those, T (ceil(docs / 256) warps select, at most 8 docs a thread, at a
+// named barrier of their own); only docs at or above T can be in the top
+// k, and each of those few is placed by counting the keys above it. The merge kernel
 // places every entry of a row's S sorted lists by counting the entries
 // above it. With S = 1 the slice kernel writes (B, k) itself. The lists
 // live in a device workspace the wrapper allocates
@@ -80,10 +81,12 @@
 // Bound on the H100: the bytes. An in-place call reads the query rep
 // (8 bytes a term), two or four columns of each live term, the postings
 // of the distinct query terms once (K4 8 bytes a posting; K5 1.5 or 2.5
-// bytes) and writes (B, k) results: at the serving shapes a few hundred
-// KB, well under a microsecond at 3.35 TB/s. So the time is latency:
-// launches, the dependent loads (query rep, then the term columns, then
-// the staged postings), and the block's barriers.
+// bytes) and writes (B, k) results: at the serving shapes 0.08-1.4 MB,
+// under half a microsecond at 3.35 TB/s, against 13-17 us measured at B 8
+// (PERF.md). So the time is a chain of dependent steps: the launches, the
+// term columns' loads, the staged postings' one wave, then the decode
+// (every slice decodes its whole query: K5's gap sums need every lane),
+// the routing, the fold and the top-k, each behind a barrier.
 
 #include <algorithm>
 #include <cstdint>
@@ -330,11 +333,9 @@ __host__ __device__ inline size_t pad4(size_t n) {
   return (n + 3) & ~size_t(3);
 }
 
-
 // Round [r0, r1) of the chunk's flat lanes: each term's share a .. b - 1,
 // its staged 16-byte quads and their shared-memory offsets, its entry
-// slots.
-// Warp 0 only (QC = 64 terms, two a lane); a barrier must follow.
+// slots. Warp 0 only (QC = 64 terms, two a lane); a barrier must follow.
 template <class Src>
 __device__ void plan_round(const Src& src, Term* tm, int r0, int r1) {
   const int lane = threadIdx.x % 32;
@@ -416,9 +417,80 @@ __device__ __forceinline__ int keep_lane(const Smem& sm, bool keep,
 }
 
 // Decode this round's staged lanes: one warp a term, each lane taking DV
-// consecutive lanes a step (K5: a serial prefix of its DV gaps, then one
-// warp scan of the lanes' totals and the carry of the earlier steps).
+// lanes a step (K4: 32 apart; K5: consecutive, a serial prefix of its DV
+// gaps, then one warp scan of the lanes' totals and the carry of the
+// earlier steps).
 constexpr int DV = 4;
+
+// Lanes c0 .. c0 + 32 * DV - 1 of term t (those below m.b): keep the ones
+// in the slice with a weight, advancing the term's kept count and carry.
+template <class Src>
+__device__ __forceinline__ void decode_step(const Term& m, int t, int c0,
+                                            const unsigned char* sb,
+                                            const Smem& sm, int d0, int ns,
+                                            int* kept, int* carry) {
+  const int lane = threadIdx.x % 32;
+  bool keep[DV];
+  float w[DV];
+  unsigned dl[DV];
+  if (!Src::kQuant) {  // lanes c0 + lane + 32 v: no bank conflicts
+#pragma unroll
+    for (int v = 0; v < DV; ++v) {
+      const int l = c0 + lane + 32 * v, i = l - m.a;
+      keep[v] = false;
+      w[v] = 0.0f;
+      dl[v] = 0;
+      if (l < m.b) {
+        const int doc = *reinterpret_cast<const int*>(sb + m.sb1 + 4 * i);
+        const float x = *reinterpret_cast<const float*>(sb + m.sb2 + 4 * i);
+        w[v] = __fmul_rn(x, m.qv);
+        dl[v] = (unsigned)doc - (unsigned)d0;
+        keep[v] = w[v] != 0.0f && dl[v] < (unsigned)ns;
+      }
+    }
+  } else {
+    const int l0 = c0 + DV * lane;
+    int gap[DV], code[DV];
+#pragma unroll
+    for (int v = 0; v < DV; ++v) {
+      const int l = l0 + v, i = l - m.a;
+      gap[v] = code[v] = 0;
+      if (l < m.b) {
+        if (Src::ES1 == 1)
+          gap[v] = sb[m.sb1 + i];
+        else if (Src::ES1 == 2)
+          gap[v] = *reinterpret_cast<const uint16_t*>(sb + m.sb1 + 2 * i);
+        else
+          gap[v] = *reinterpret_cast<const int*>(sb + m.sb1 + 4 * i);
+        const int byte =
+            Src::ES2 == 0
+                ? (int)sb[m.sb2 + (((int)(m.pos & 1) + l) >> 1)]
+                : *reinterpret_cast<const int*>(sb + m.sb2 + 4 * i);
+        code[v] = ((m.par + l) & 1) ? (byte >> 4) : (byte & 0xF);
+      }
+    }
+#pragma unroll
+    for (int v = 1; v < DV; ++v) gap[v] += gap[v - 1];
+    const int incl = warp_scan(gap[DV - 1], lane);
+    const int base = *carry + incl - gap[DV - 1];
+    *carry += __shfl_sync(FULL, incl, 31);
+#pragma unroll
+    for (int v = 0; v < DV; ++v) {
+      keep[v] = false;
+      w[v] = 0.0f;
+      dl[v] = 0;
+      if (code[v] > 0) {  // 0 past the term's lanes too
+        w[v] = __fmul_rn(
+            __fadd_rn(m.lo, __fmul_rn((float)(code[v] - 1), m.step)), m.qv);
+        dl[v] = (unsigned)(base + gap[v]) - (unsigned)d0;
+        keep[v] = w[v] != 0.0f && dl[v] < (unsigned)ns;
+      }
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < DV; ++v)
+    *kept = keep_lane(sm, keep[v], dl[v], w[v], t, m.tl, *kept);
+}
 
 template <class Src>
 __device__ void decode_round(Term* tm, const Smem& sm, int d0, int ns) {
@@ -428,71 +500,8 @@ __device__ void decode_round(Term* tm, const Smem& sm, int d0, int ns) {
     const Term m = tm[t];
     if (m.b <= m.a) continue;
     int kept = 0, carry = m.carry;
-    for (int c0 = m.a; c0 < m.b; c0 += 32 * DV) {
-      const int l0 = c0 + DV * lane;
-      bool keep[DV];
-      float w[DV];
-      unsigned dl[DV];
-      if (!Src::kQuant) {
-#pragma unroll
-        for (int v = 0; v < DV; ++v) {
-          const int i = l0 + v - m.a;
-          keep[v] = false;
-          w[v] = 0.0f;
-          dl[v] = 0;
-          if (l0 + v < m.b) {
-            const int doc =
-                *reinterpret_cast<const int*>(sb + m.sb1 + 4 * i);
-            const float x =
-                *reinterpret_cast<const float*>(sb + m.sb2 + 4 * i);
-            w[v] = __fmul_rn(x, m.qv);
-            dl[v] = (unsigned)doc - (unsigned)d0;
-            keep[v] = w[v] != 0.0f && dl[v] < (unsigned)ns;
-          }
-        }
-      } else {
-        int gap[DV], code[DV];
-#pragma unroll
-        for (int v = 0; v < DV; ++v) {
-          const int l = l0 + v, i = l - m.a;
-          gap[v] = code[v] = 0;
-          if (l < m.b) {
-            if (Src::ES1 == 1)
-              gap[v] = sb[m.sb1 + i];
-            else if (Src::ES1 == 2)
-              gap[v] = *reinterpret_cast<const uint16_t*>(sb + m.sb1 + 2 * i);
-            else
-              gap[v] = *reinterpret_cast<const int*>(sb + m.sb1 + 4 * i);
-            const int byte =
-                Src::ES2 == 0
-                    ? (int)sb[m.sb2 + (((int)(m.pos & 1) + l) >> 1)]
-                    : *reinterpret_cast<const int*>(sb + m.sb2 + 4 * i);
-            code[v] = ((m.par + l) & 1) ? (byte >> 4) : (byte & 0xF);
-          }
-        }
-#pragma unroll
-        for (int v = 1; v < DV; ++v) gap[v] += gap[v - 1];
-        const int incl = warp_scan(gap[DV - 1], lane);
-        const int base = carry + incl - gap[DV - 1];
-        carry += __shfl_sync(FULL, incl, 31);
-#pragma unroll
-        for (int v = 0; v < DV; ++v) {
-          keep[v] = false;
-          w[v] = 0.0f;
-          dl[v] = 0;
-          if (code[v] > 0) {  // 0 past the round's lanes too
-            w[v] = __fmul_rn(
-                __fadd_rn(m.lo, __fmul_rn((float)(code[v] - 1), m.step)),
-                m.qv);
-            dl[v] = (unsigned)(base + gap[v]) - (unsigned)d0;
-            keep[v] = w[v] != 0.0f && dl[v] < (unsigned)ns;
-          }
-        }
-      }
-#pragma unroll
-      for (int v = 0; v < DV; ++v)
-        kept = keep_lane(sm, keep[v], dl[v], w[v], t, m.tl, kept);
-    }
+    for (int c0 = m.a; c0 < m.b; c0 += 32 * DV)
+      decode_step<Src>(m, t, c0, sb, sm, d0, ns, &kept, &carry);
     if (lane == 0) {
       tm[t].kept = kept;
       tm[t].carry = carry;
@@ -560,12 +569,22 @@ __device__ void fold_round(const Smem& sm, const int* ostart) {
 }
 
 // The slice's top ks (<= its ns docs, d0 the first) into out_v / out_i,
-// value descending then id ascending. ks <= SMALL_K: every doc in the top
-// ks has a key at least the ks-th largest of the threads' own best keys
-// (T), so T comes from the warps' sorted bests and the top ks from the
-// few docs at or above it, each placed by counting the keys above its
-// own. Larger ks: every doc is placed by counting. `work` holds the
-// pool and the candidates (the staging words).
+// value descending then id ascending. ks <= SMALL_K: the first
+// ceil(ns / SEL_DOCS) warps select (at most 8 docs a thread while that is
+// under 16 warps), the others leave. Every doc in the top ks has a key at
+// least the ks-th largest of the selecting threads' own best keys (T): T
+// comes from each warp's sorted bests (with one warp directly; else from
+// a pool of their top ks, each placed by counting), and the top ks from
+// the few docs at or above T, each placed by counting the keys above its
+// own. The selecting warps meet at named barrier 1. Larger ks: every doc
+// is placed by counting. `work` holds the pool and the candidates (the
+// staging words).
+constexpr int SEL_DOCS = 256;
+
+__device__ __forceinline__ void sel_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+}
+
 __device__ void slice_topk(const float* scores, int ns, int d0, int ks,
                            float* out_v, int* out_i, unsigned* work,
                            unsigned long long* s_t, int* s_nc) {
@@ -580,34 +599,46 @@ __device__ void slice_topk(const float* scores, int ns, int d0, int ks,
     }
     return;
   }
+  const int sel = min(WARPS, (ns + SEL_DOCS - 1) / SEL_DOCS);
+  if (warp >= sel) return;
+  const int nthr = 32 * sel;
   unsigned long long* pool = reinterpret_cast<unsigned long long*>(work);
   unsigned long long* cand = pool + WARPS * SMALL_K;
   unsigned long long best = 0ull;
-  for (int i = tid; i < ns; i += THREADS) {
+  for (int i = tid; i < ns; i += nthr) {
     const unsigned long long x = make_key(scores[i], d0 + i);
     best = x > best ? x : best;
   }
   best = warp_sort_desc(best);
-  if (lane < ks) pool[warp * ks + lane] = best;
   if (tid == 0) *s_nc = 0;
-  __syncthreads();
-  const int np = WARPS * ks;
-  if (tid < np) {
-    const unsigned long long x = pool[tid];
-    int r = 0;
+  unsigned long long t;
+  if (sel == 1) {
+    t = __shfl_sync(FULL, best, ks - 1);  // >= ks lanes hold a doc
+    __syncwarp();
+  } else {
+    if (lane < ks) pool[warp * ks + lane] = best;
+    sel_sync(nthr);
+    const int np = sel * ks;
+    if (tid < np) {
+      const unsigned long long x = pool[tid];
+      int r = 0;
 #pragma unroll 8
-    for (int q = 0; q < np; ++q) r += pool[q] > x;
-    if (r == ks - 1) *s_t = x;  // one real key: >= ks real keys in pool
+      for (int q = 0; q < np; ++q) r += pool[q] > x;
+      if (r == ks - 1) *s_t = x;  // one real key: >= ks real keys in pool
+    }
+    sel_sync(nthr);
+    t = *s_t;
   }
-  __syncthreads();
-  const unsigned long long t = *s_t;
-  for (int i = tid; i < ns; i += THREADS) {
+  for (int i = tid; i < ns; i += nthr) {
     const unsigned long long x = make_key(scores[i], d0 + i);
     if (x >= t) cand[atomicAdd(s_nc, 1)] = x;
   }
-  __syncthreads();
+  if (sel == 1)
+    __syncwarp();
+  else
+    sel_sync(nthr);
   const int nc = *s_nc;
-  for (int c = tid; c < nc; c += THREADS) {
+  for (int c = tid; c < nc; c += nthr) {
     const unsigned long long x = cand[c];
     int r = 0;
 #pragma unroll 8
