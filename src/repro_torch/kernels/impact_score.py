@@ -159,13 +159,12 @@ def scatter_scores(w: torch.Tensor, docs: torch.Tensor, n_docs: int,
 
 
 def fused_impact_topk_plain(w: torch.Tensor, docs: torch.Tensor, *,
-                            n_docs: int, k: int,
-                            term_lanes: Optional[int] = None
+                            n_docs: int, k: int, term_lanes: int
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K4: the dense scores (summed one term at a
-    time with ``term_lanes``: the kernel's order on every device), then the
-    merge's top-k (ties to the lowest doc id, ``(NEG_INF, 0)`` past
-    ``n_docs``)."""
+    """Plain PyTorch version of K4: the dense scores summed one term
+    (``term_lanes`` lanes) at a time, the kernel's order on every device,
+    then the merge's top-k (ties to the lowest doc id, ``(NEG_INF, 0)``
+    past ``n_docs``)."""
     return topk_rows(scatter_scores(w, docs, n_docs, term_lanes), k)
 
 
@@ -206,7 +205,8 @@ def fused_impact_topk(
         raise ValueError(f"fused_impact_topk: term_lanes must be >= 1, got "
                          f"{term_lanes}")
     if w.device.type == "cpu":
-        return fused_impact_topk_plain(w, docs, n_docs=n_docs, k=k)
+        return fused_impact_topk_plain(w, docs, n_docs=n_docs, k=k,
+                                       term_lanes=term_lanes)
     return _launch(w, docs, n_docs, k, term_lanes)
 
 

@@ -50,9 +50,6 @@ from repro_torch.retrieval.index import InvertedIndex
 from repro_torch.retrieval.sparse_rep import SparseRep, query_columns
 
 _DELTA_DTYPES = ((np.uint8, 255), (np.uint16, 65535))  # (dtype, escape)
-# The scorers' step is (hi - lo) * STEP_SCALE (kernels/impact_score: the
-# f32 reciprocal of U4_LEVELS, as XLA computes the reference's division);
-# the build divides, as the reference's numpy build does.
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +129,9 @@ def quantize_index(index: InvertedIndex) -> QuantizedIndex:
     lo16 = lo.astype(np.float16)
     hi16 = hi.astype(np.float16)
     lo_r = lo16.astype(np.float32)
+    # the build divides, as the reference's numpy build does; the scorers
+    # multiply by kernels/impact_score.STEP_SCALE, as XLA computes the
+    # reference's division under jit
     step = (hi16.astype(np.float32) - lo_r) / U4_LEVELS
 
     # u4 codes (1..15) for real postings
