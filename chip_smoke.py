@@ -366,8 +366,12 @@ def k5_cases(torch):
     card (u8 and u16 deltas, escape phantoms whose gap is an exact multiple
     of the escape and so share a doc with the next posting, n_docs over
     the old kernel's 32768-doc tile; ``index`` = (queries, quant) for the
-    in-place entry) and random windows (several 512-lane chunks per term,
-    empty terms, qv <= 0, k > n_docs, L = 0, Q = 0; ``index`` None)."""
+    in-place entry), a query of 130 terms (``long_query_case``) and random
+    windows (several 512-lane chunks per term, empty terms, qv <= 0,
+    k > n_docs, L = 0, Q = 0; ``index`` None)."""
+    from repro_torch.retrieval.engine.quantize import (_fused_q_windows,
+                                                       quantize_index)
+
     cases = []
     wins, n, quant, q = k5_index_case(
         torch, 2000, {3: np.r_[np.arange(64), 777, 1901],
@@ -396,6 +400,10 @@ def k5_cases(torch):
         12, [[2, 9, 11], [9, 2, 0]], [[0.5, 1.5, 1.0], [1.0, 0.0, 2.0]], 5)
     assert quant.term_lens.dtype == torch.int32
     cases.append(("index_i32_lens_k1100", wins, n, 1100, (q, quant)))
+    q, index = long_query_case(torch, 43)
+    quant = quantize_index(index)
+    cases.append(("index_long_query_three_chunks",
+                  _fused_q_windows(q, quant), index.n_docs, 100, (q, quant)))
     for name, (B, Q, L, n, gap, k) in {
             "windows_three_chunks": (6, 10, 1500, 5000, 3, 50),
             "windows_k_gt_n_docs": (2, 3, 4, 7, 2, 12),
@@ -439,7 +447,7 @@ def k5_index_compare(torch, queries, quant, k, window_result=None):
     from repro_torch.kernels import impact_score as k45
 
     args = k5_index_args(quant, queries)
-    kw = dict(n_docs=quant.n_docs, k=k, max_postings=quant.max_postings)
+    kw = dict(n_docs=quant.n_docs, k=k)
     case, got = runs_vs_plain(
         torch, lambda: k45.fused_quantized_index_topk(*args, **kw),
         lambda: k45.fused_quantized_index_topk_plain(*args, **kw))
@@ -466,7 +474,8 @@ def k4_index_cases(torch):
     """(name, queries, index, k): inverted indexes built on the card from
     random reps (``nnz`` distinct terms a doc), queries with a padded slot,
     a term no doc holds, a row of weights <= 0 and an empty row; k from 1
-    past n_docs, n_docs from 5 to 70000 (one slice to many)."""
+    past n_docs, n_docs from 5 to 70000 (one slice to many); and a query
+    of 130 terms (``long_query_case``)."""
     from repro_torch.retrieval.index import build_inverted_index
     from repro_torch.retrieval.sparse_rep import SparseRep
 
@@ -497,7 +506,39 @@ def k4_index_cases(torch):
             qv[2] = 0.0                         # an empty row
         cases.append((name, SparseRep(qv, qi, (qv > 0).sum(1).int()),
                       index, k))
+    cases.append(("long_query_three_chunks", *long_query_case(torch, 41),
+                  20))
     return cases
+
+
+def long_query_case(torch, seed, n_docs=20000, nnz=16, vocab=400, B=4,
+                    Q=130):
+    """(queries, index): every doc holds term 0 (a list of n_docs
+    postings, several of the kernel's staging rounds) and nnz - 1 other
+    distinct terms; each query row holds Q distinct terms, past two of the
+    kernel's 64-term chunks (the third partly filled), term 0 at slot 70
+    (in the second chunk), a padded slot, and row 1's first 64 weights
+    <= 0. The inverted index is built on the card."""
+    from repro_torch.retrieval.index import build_inverted_index
+    from repro_torch.retrieval.sparse_rep import SparseRep
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rest = torch.rand((n_docs, vocab - 1), generator=g,
+                      device="cuda").argsort(dim=1)[:, :nnz - 1] + 1
+    i = torch.cat([torch.zeros((n_docs, 1), dtype=rest.dtype,
+                               device="cuda"), rest], 1).int()
+    v = torch.rand((n_docs, nnz), generator=g, device="cuda") * 2 + 0.1
+    rep = SparseRep(v, i, torch.full((n_docs,), nnz, device="cuda"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # term 0 is in every doc
+        index = build_inverted_index(rep, vocab, device="cuda")
+    qi = (torch.rand((B, vocab - 1), generator=g,
+                     device="cuda").argsort(dim=1)[:, :Q] + 1).int()
+    qi[:, 70] = 0
+    qv = torch.rand((B, Q), generator=g, device="cuda") + 0.2
+    qv[0, 3] = 0.0                              # a padded slot
+    qv[1, :64] = -qv[1, :64]                    # a chunk of skipped terms
+    return SparseRep(qv, qi, (qv > 0).sum(1).int()), index
 
 
 def k4_index_compare(torch, queries, index, k):
@@ -510,7 +551,7 @@ def k4_index_compare(torch, queries, index, k):
 
     args = (*query_columns(queries, index.device), index.term_starts,
             index.term_lens, index.postings_doc, index.postings_val)
-    kw = dict(n_docs=index.n_docs, k=k, max_postings=index.max_postings)
+    kw = dict(n_docs=index.n_docs, k=k)
     case, got = runs_vs_plain(
         torch, lambda: k45.fused_impact_index_topk(*args, **kw),
         lambda: k45.fused_impact_index_topk_plain(*args, **kw))
@@ -993,16 +1034,16 @@ def plain_guard(**targets):
             setattr(mod, attr, fn)
 
 
-K45_ENTRIES = {  # launch counter: (kernel, entry)
-    "impact_topk": ("K4", "fused_impact_topk"),
-    "impact_index_topk": ("K4", "fused_impact_index_topk"),
-    "impact_q_topk": ("K5", "fused_quantized_topk"),
-    "impact_q_index_topk": ("K5", "fused_quantized_index_topk"),
+K45_ENTRIES = {  # launch counter: entry
+    "impact_topk": "fused_impact_topk",
+    "impact_index_topk": "fused_impact_index_topk",
+    "impact_q_topk": "fused_quantized_topk",
+    "impact_q_index_topk": "fused_quantized_index_topk",
 }
 
 
 def reset_k45(k45):
-    for _, entry in K45_ENTRIES.values():
+    for entry in K45_ENTRIES.values():
         getattr(k45, entry).launches = 0
 
 
@@ -1011,7 +1052,7 @@ def k45_launches(k45):
     total over its window and index entries ("impact_topk",
     "impact_q_topk"), and the index entries' own counts."""
     n = {key: getattr(k45, entry).launches
-         for key, (_, entry) in K45_ENTRIES.items()}
+         for key, entry in K45_ENTRIES.items()}
     return {"impact_topk": n["impact_topk"] + n["impact_index_topk"],
             "impact_index_topk": n["impact_index_topk"],
             "impact_q_topk": n["impact_q_topk"] + n["impact_q_index_topk"],
@@ -1021,7 +1062,7 @@ def k45_launches(k45):
 def k45_plains(k45):
     """plain_guard targets: the plain version of every K4/K5 entry."""
     return {f"{entry}_plain": (k45, f"{entry}_plain")
-            for _, entry in K45_ENTRIES.values()}
+            for entry in K45_ENTRIES.values()}
 
 
 def phase_serve(torch):
@@ -2344,7 +2385,7 @@ def time_impact(torch, queries, index, k, *, reps):
         wins = k45.index_windows(*args, L)
         window = lambda: k45.fused_impact_topk(*wins, n_docs=n, k=k,
                                                term_lanes=L)
-    kw = dict(n_docs=n, k=k, max_postings=L)
+    kw = dict(n_docs=n, k=k)
     case, got = runs_vs_plain(torch, lambda: entry(*args, **kw),
                               lambda: plain(*args, **kw))
     win = window()

@@ -71,9 +71,9 @@
 // bitonic sort of the threads' own best keys gives the k-th best of
 // those, T (ceil(docs / 256) warps select, at most 8 docs a thread, at a
 // named barrier of their own); only docs at or above T can be in the top
-// k, and each of those few is placed by counting the keys above it. The merge kernel
-// places every entry of a row's S sorted lists by counting the entries
-// above it. With S = 1 the slice kernel writes (B, k) itself. The lists
+// k, and each of those few is placed by counting the keys above it. The
+// merge kernel places every entry of a row's S sorted lists by counting
+// the entries above it, a binary search in each list. With S = 1 the slice kernel writes (B, k) itself. The lists
 // live in a device workspace the wrapper allocates
 // (impact_topk_workspace); the merge is a programmatic dependent launch,
 // so its launch overlaps the slices.
@@ -727,9 +727,9 @@ __global__ void __launch_bounds__(THREADS)
 // One block per query row: merge the row's S slice lists (sorted, slice s
 // holding min(k, its docs) entries at stride KS) into its k results. Each
 // entry's place is the count of the row's entries above it (the keys are
-// distinct); the tail past n_docs is (NEG_INF, 0). `staged`: the lists as
-// keys in shared memory (0 past each list's end), counted linearly while
-// short, else each list binary-searched in device memory. Launched as a
+// distinct), found by a binary search of each list: in shared memory,
+// where the lists are staged as keys when they fit (`staged`), else in
+// device memory. The tail past n_docs is (NEG_INF, 0). Launched as a
 // programmatic dependent of the slice kernel: it waits for its lists.
 __global__ void __launch_bounds__(MERGE_THREADS)
     merge_kernel(const float* __restrict__ lv, const int* __restrict__ li,
@@ -756,24 +756,19 @@ __global__ void __launch_bounds__(MERGE_THREADS)
     const unsigned long long x =
         staged ? keys[j] : make_key(gv[j], gi[j]);
     int r = 0;
-    if (staged && n <= 4096) {
-#pragma unroll 8
-      for (int q = 0; q < n; ++q) r += keys[q] > x;
-    } else {
-      for (int s = 0; s < S; ++s) {  // entries of list s above x
-        int lo = 0, hi = len(s);
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          const size_t q = (size_t)s * KS + mid;
-          const unsigned long long y =
-              staged ? keys[q] : make_key(gv[q], gi[q]);
-          if (y > x)
-            lo = mid + 1;
-          else
-            hi = mid;
-        }
-        r += lo;
+    for (int s = 0; s < S; ++s) {  // entries of list s above x
+      int lo = 0, hi = len(s);
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        const size_t q = (size_t)s * KS + mid;
+        const unsigned long long y =
+            staged ? keys[q] : make_key(gv[q], gi[q]);
+        if (y > x)
+          lo = mid + 1;
+        else
+          hi = mid;
       }
+      r += lo;
     }
     if (r < total) put_key(x, out_v + r, out_i + r);
   }

@@ -236,16 +236,27 @@ def index_windows(q_idx: torch.Tensor, q_val: torch.Tensor,
     return w.reshape(b, -1).contiguous(), docs.reshape(b, -1).contiguous()
 
 
+def query_lanes(q_idx: torch.Tensor, term_lens: torch.Tensor) -> int:
+    """The longest posting list among the query's terms (>= 1): the
+    window width at which the plain versions gather every posting (any
+    wider window gives the same result)."""
+    if q_idx.numel() == 0:
+        return 1
+    return max(1, int(_gather_i32(term_lens, q_idx.long()).max()))
+
+
 def fused_impact_index_topk_plain(q_idx, q_val, term_starts, term_lens,
                                   postings_doc, postings_val, *,
-                                  n_docs: int, k: int, max_postings: int
+                                  n_docs: int, k: int
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K4 in place: the windows' gather, then the
-    window entry's plain version, one term at a time."""
+    """Plain PyTorch version of K4 in place: the windows' gather (as wide
+    as the query's longest list), then the window entry's plain version,
+    one term at a time."""
+    L = query_lanes(q_idx, term_lens)
     w, docs = index_windows(q_idx, q_val, term_starts, term_lens,
-                            postings_doc, postings_val, max_postings)
+                            postings_doc, postings_val, L)
     return fused_impact_topk_plain(w, docs, n_docs=n_docs, k=k,
-                                   term_lanes=max_postings)
+                                   term_lanes=L)
 
 
 def _launch_index(q_idx, q_val, term_starts, term_lens, postings_doc,
@@ -289,20 +300,14 @@ def fused_impact_index_topk(
     *,
     n_docs: int,
     k: int,
-    max_postings: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4 reading an ``InvertedIndex`` in place: the same result as
     ``fused_impact_topk`` on the query's windows (``index_windows``), with
-    no window built on the card. ``max_postings`` (>= 1, the longest
-    list) is the plain version's window width. CPU tensors take the plain
-    version."""
-    if max_postings < 1:
-        raise ValueError(f"fused_impact_index_topk: max_postings must be "
-                         f">= 1, got {max_postings}")
+    no window built on the card. CPU tensors take the plain version."""
     if postings_doc.device.type == "cpu":
         return fused_impact_index_topk_plain(
             q_idx, q_val, term_starts, term_lens, postings_doc, postings_val,
-            n_docs=n_docs, k=k, max_postings=max_postings)
+            n_docs=n_docs, k=k)
     return _launch_index(q_idx, q_val, term_starts, term_lens, postings_doc,
                          postings_val, n_docs, k)
 
@@ -433,15 +438,16 @@ def quantized_index_windows(q_idx: torch.Tensor, q_val: torch.Tensor,
 
 def fused_quantized_index_topk_plain(q_idx, q_val, term_starts, term_lens,
                                      packed_vals, deltas, term_lo, term_hi,
-                                     *, n_docs: int, k: int,
-                                     max_postings: int
+                                     *, n_docs: int, k: int
                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K5 in place: the windows' gather, then the
-    window entry's plain version."""
+    """Plain PyTorch version of K5 in place: the windows' gather (as wide
+    as the query's longest list), then the window entry's plain
+    version."""
     return fused_quantized_topk_plain(
         *quantized_index_windows(q_idx, q_val, term_starts, term_lens,
                                  packed_vals, deltas, term_lo, term_hi,
-                                 max_postings), n_docs=n_docs, k=k)
+                                 query_lanes(q_idx, term_lens)),
+        n_docs=n_docs, k=k)
 
 
 def _launch_q_index(q_idx, q_val, term_starts, term_lens, packed_vals,
@@ -496,20 +502,15 @@ def fused_quantized_index_topk(
     *,
     n_docs: int,
     k: int,
-    max_postings: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5 reading a ``QuantizedIndex`` in place (1.5 or 2.5 bytes a
     posting): the same result as ``fused_quantized_topk`` on the query's
     windows (``quantized_index_windows``), with no window built on the
-    card. ``max_postings`` (>= 1) is the plain version's window width.
-    CPU tensors take the plain version."""
-    if max_postings < 1:
-        raise ValueError(f"fused_quantized_index_topk: max_postings must "
-                         f"be >= 1, got {max_postings}")
+    card. CPU tensors take the plain version."""
     if deltas.device.type == "cpu":
         return fused_quantized_index_topk_plain(
             q_idx, q_val, term_starts, term_lens, packed_vals, deltas,
-            term_lo, term_hi, n_docs=n_docs, k=k, max_postings=max_postings)
+            term_lo, term_hi, n_docs=n_docs, k=k)
     return _launch_q_index(q_idx, q_val, term_starts, term_lens, packed_vals,
                            deltas, term_lo, term_hi, n_docs, k)
 

@@ -240,5 +240,4 @@ def fused_quantized_retrieve(queries: SparseRep, index: QuantizedIndex,
     f16-rounded bounds)."""
     return fused_quantized_index_topk(
         *query_columns(queries, index.device), *_index_arrays(index),
-        n_docs=index.n_docs, k=min(k, index.n_docs),
-        max_postings=index.max_postings)
+        n_docs=index.n_docs, k=min(k, index.n_docs))

@@ -99,8 +99,7 @@ def fused_retrieve(queries: SparseRep, index: InvertedIndex, k: int = 10
     qi, qv = query_columns(queries, index.device)
     return fused_impact_index_topk(
         qi, qv, index.term_starts, index.term_lens, index.postings_doc,
-        index.postings_val, n_docs=index.n_docs, k=min(k, index.n_docs),
-        max_postings=index.max_postings)
+        index.postings_val, n_docs=index.n_docs, k=min(k, index.n_docs))
 
 
 def dense_retrieve(q: torch.Tensor, C: torch.Tensor, k: int

@@ -145,7 +145,7 @@ def test_k4_index_entry_matches_jax_fused(built):
     raw = built["raw"]
     k = min(K, raw.n_docs)
     got = k45.fused_impact_index_topk(*_k4_args(q_t, raw), n_docs=raw.n_docs,
-                                      k=k, max_postings=raw.max_postings)
+                                      k=k)
     _assert_same(_numpy(got), _jax_fused(q_j, built["raw_j"], k,
                                          quantized=False), TOL_K4)
 
@@ -155,8 +155,7 @@ def test_k5_index_entry_matches_jax_fused(built):
     quant = built["quant"]
     k = min(K, quant.n_docs)
     got = k45.fused_quantized_index_topk(
-        *_k5_args(q_t, quant), n_docs=quant.n_docs, k=k,
-        max_postings=quant.max_postings)
+        *_k5_args(q_t, quant), n_docs=quant.n_docs, k=k)
     _assert_same(_numpy(got), _jax_fused(q_j, built["quant_j"], k,
                                          quantized=True), TOL_K5)
 
@@ -168,18 +167,42 @@ def test_index_entries_equal_window_entries(built):
     raw, quant = built["raw"], built["quant"]
     k = min(K, raw.n_docs)
     a4 = _k4_args(q_t, raw)
-    got = k45.fused_impact_index_topk(*a4, n_docs=raw.n_docs, k=k,
-                                      max_postings=raw.max_postings)
+    got = k45.fused_impact_index_topk(*a4, n_docs=raw.n_docs, k=k)
     w, docs = k45.index_windows(*a4, raw.max_postings)
     want = k45.fused_impact_topk(w, docs, n_docs=raw.n_docs, k=k,
                                  term_lanes=raw.max_postings)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
     a5 = _k5_args(q_t, quant)
-    got = k45.fused_quantized_index_topk(*a5, n_docs=quant.n_docs, k=k,
-                                         max_postings=quant.max_postings)
+    got = k45.fused_quantized_index_topk(*a5, n_docs=quant.n_docs, k=k)
     want = k45.fused_quantized_topk(
         *k45.quantized_index_windows(*a5, quant.max_postings),
         n_docs=quant.n_docs, k=k)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("kind", ["k4", "k5"])
+def test_plain_width_is_the_querys_longest_list(built, kind):
+    """The index entries' plain versions gather windows as wide as the
+    query's longest list: wider windows (past the index's longest list)
+    give the same bits, and an empty query takes a width of 1."""
+    q_t, _ = _queries(built, np.random.default_rng(8))
+    idx = built["raw"] if kind == "k4" else built["quant"]
+    args = (_k4_args if kind == "k4" else _k5_args)(q_t, idx)
+    lens = idx.term_lens.int()[args[0].long()]   # expanded lists for K5
+    assert k45.query_lanes(args[0], idx.term_lens) == max(1, int(lens.max()))
+    assert k45.query_lanes(args[0][:, :0], idx.term_lens) == 1
+    k = min(K, idx.n_docs)
+    wide = idx.max_postings + 9
+    if kind == "k4":
+        got = k45.fused_impact_index_topk(*args, n_docs=idx.n_docs, k=k)
+        want = k45.fused_impact_topk(*k45.index_windows(*args, wide),
+                                     n_docs=idx.n_docs, k=k,
+                                     term_lanes=wide)
+    else:
+        got = k45.fused_quantized_index_topk(*args, n_docs=idx.n_docs, k=k)
+        want = k45.fused_quantized_topk(
+            *k45.quantized_index_windows(*args, wide), n_docs=idx.n_docs,
+            k=k)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
@@ -202,8 +225,8 @@ def test_k5_index_entry_takes_i32_term_lens(built):
     q_t, _ = _queries(built, np.random.default_rng(5))
     k = min(K, quant.n_docs)
     got = [k45.fused_quantized_index_topk(
-        *_k5_args(q_t, idx), n_docs=idx.n_docs, k=k,
-        max_postings=idx.max_postings) for idx in (quant, wide)]
+        *_k5_args(q_t, idx), n_docs=idx.n_docs, k=k)
+        for idx in (quant, wide)]
     assert all(torch.equal(x, y) for x, y in zip(*got))
 
 
@@ -226,8 +249,7 @@ def test_escape_phantom_docs_surface_in_place():
     q_t, q_j = _rep_pair(np.ones((1, 1), np.float32),
                          np.full((1, 1), 3, np.int32))
     got = _numpy(k45.fused_quantized_index_topk(
-        *_k5_args(q_t, quant), n_docs=2000, k=70,
-        max_postings=quant.max_postings))
+        *_k5_args(q_t, quant), n_docs=2000, k=70))
     wins = [jnp.asarray(a) for a in jax_q_windows(q_j, quant_j)]
     ref = _numpy(jax_k5(*wins, n_docs=2000, k=70, block_n=512, block_w=128,
                         interpret=True))
@@ -248,8 +270,7 @@ def test_index_entries_past_k1024_and_n_docs(kind):
     for n_docs, k in ((2000, 1100), (2000, 2003)):
         if kind == "k4":
             got = k45.fused_impact_index_topk(
-                *_k4_args(q_t, raw), n_docs=n_docs, k=k,
-                max_postings=raw.max_postings)
+                *_k4_args(q_t, raw), n_docs=n_docs, k=k)
             w, docs = jax_windows(q_j, raw_j)
             ref = jax_k4(w, docs, n_docs=n_docs, k=k, block_n=512,
                          block_w=128, interpret=True)
@@ -257,8 +278,7 @@ def test_index_entries_past_k1024_and_n_docs(kind):
         else:
             quant = quantize_index(raw)
             got = k45.fused_quantized_index_topk(
-                *_k5_args(q_t, quant), n_docs=n_docs, k=k,
-                max_postings=quant.max_postings)
+                *_k5_args(q_t, quant), n_docs=n_docs, k=k)
             wins = jax_q_windows(q_j, jax_quantize(raw_j))
             ref = jax_k5(*wins, n_docs=n_docs, k=k, block_n=512,
                          block_w=128, interpret=True)
@@ -286,7 +306,7 @@ def test_window_batch_read_as_an_index_gives_the_window_result():
         torch.from_numpy(term.reshape(B, Q)), torch.ones((B, Q)),
         torch.from_numpy(term * L), torch.full((B * Q,), L,
                                                dtype=torch.int32),
-        d_t.view(-1), w_t.view(-1), n_docs=n_docs, k=12, max_postings=L)
+        d_t.view(-1), w_t.view(-1), n_docs=n_docs, k=12)
     want = k45.fused_impact_topk(w_t, d_t, n_docs=n_docs, k=12, term_lanes=L)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
 
@@ -348,17 +368,15 @@ def _meta_k5(**dtypes):
 def test_index_entry_arguments_checked_without_a_card(entry, make):
     """Tensors that are not on the CPU go to the kernel's wrapper: any
     k >= 1 passes its checks and reaches the device check, which meta
-    tensors fail; bad k, n_docs and max_postings raise first."""
+    tensors fail; bad k and n_docs raise first."""
     args = make()
     with pytest.raises(ValueError, match="k must be >= 1"):
-        entry(*args, n_docs=2000, k=0, max_postings=8)
+        entry(*args, n_docs=2000, k=0)
     with pytest.raises(ValueError, match="n_docs must be >= 1"):
-        entry(*args, n_docs=0, k=5, max_postings=8)
-    with pytest.raises(ValueError, match="max_postings must be >= 1"):
-        entry(*args, n_docs=2000, k=5, max_postings=0)
+        entry(*args, n_docs=0, k=5)
     for k in (1, 1024, 1025, 2000, 50000):
         with pytest.raises(ValueError, match="one CUDA device"):
-            entry(*args, n_docs=2000, k=k, max_postings=8)
+            entry(*args, n_docs=2000, k=k)
     assert entry.launches == 0
 
 
@@ -373,16 +391,15 @@ def test_index_entries_refuse_other_dtypes(entry, make, dtypes):
     """The kernel reads the arrays as stored: another dtype raises rather
     than being widened by a copy."""
     with pytest.raises(ValueError, match="the kernel takes"):
-        entry(*make(**dtypes), n_docs=2000, k=5, max_postings=8)
+        entry(*make(**dtypes), n_docs=2000, k=5)
 
 
 def test_index_entries_check_shapes_without_a_card():
     args = list(_meta_k4())
     args[1] = _meta((2, 5), torch.float32)
     with pytest.raises(ValueError, match="must both be"):
-        k45.fused_impact_index_topk(*args, n_docs=10, k=3, max_postings=4)
+        k45.fused_impact_index_topk(*args, n_docs=10, k=3)
     args = list(_meta_k5())
     args[4] = _meta((100,), torch.uint8)       # too few packed bytes
     with pytest.raises(ValueError, match="packed_vals"):
-        k45.fused_quantized_index_topk(*args, n_docs=10, k=3,
-                                       max_postings=4)
+        k45.fused_quantized_index_topk(*args, n_docs=10, k=3)

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import inspect
 import json
 import subprocess
 import sys
@@ -105,14 +106,19 @@ def child(root: Path) -> None:
         if hasattr(k45, "fused_impact_index_topk"):
             from repro_torch.retrieval.sparse_rep import query_columns
             qi, qv = query_columns(queries, index.device)
+            # older index entries also take the plain version's width
+            takes_width = "max_postings" in inspect.signature(
+                k45.fused_impact_index_topk).parameters
+            w4 = {"max_postings": index.max_postings} if takes_width else {}
+            w5 = {"max_postings": base.max_postings} if takes_width else {}
             runs["k4_index"] = lambda: k45.fused_impact_index_topk(
                 qi, qv, index.term_starts, index.term_lens,
                 index.postings_doc, index.postings_val, n_docs=index.n_docs,
-                k=10, max_postings=index.max_postings)
+                k=10, **w4)
             runs["k5_index"] = lambda: k45.fused_quantized_index_topk(
                 qi, qv, base.term_starts, base.term_lens, base.packed_vals,
                 base.deltas, base.term_lo, base.term_hi, n_docs=base.n_docs,
-                k=10, max_postings=base.max_postings)
+                k=10, **w5)
         for key, run in runs.items():
             out = run()
             torch.cuda.synchronize()
