@@ -55,10 +55,11 @@
 //      round pays one device-memory latency, not one per term;
 //   2. decode: one warp a term, 128 lanes a step (4 a lane), from shared
 //      memory. K5 prefix-sums the gaps: each lane its 4, a warp scan of
-//      the lanes' sums, the carry of the earlier steps (and rounds). Lanes whose doc lies in the slice
-//      and whose weight is not 0 are kept (K4 reads every lane of the
-//      query too: the postings of a term ascend by doc, but the window's
-//      padding does not, and one load wave beats a binary search's chain);
+//      the lanes' sums, the carry of the earlier steps (and rounds).
+//      Lanes whose doc lies in the slice and whose weight is not 0 are
+//      kept (K4 reads every lane of the query too: the postings of a term
+//      ascend by doc, but the window's padding does not, and one load
+//      wave beats a binary search's chain);
 //   3. route: each kept lane goes to the warp that owns its doc (doc % 16)
 //      in term order: counts per (owner, term), one block scan, placement;
 //   4. fold: each warp adds its docs' lanes into the scores, 32 at a time;
@@ -73,8 +74,8 @@
 // named barrier of their own); only docs at or above T can be in the top
 // k, and each of those few is placed by counting the keys above it. The
 // merge kernel places every entry of a row's S sorted lists by counting
-// the entries above it, a binary search in each list. With S = 1 the slice kernel writes (B, k) itself. The lists
-// live in a device workspace the wrapper allocates
+// the entries above it. With S = 1 the slice kernel writes (B, k)
+// itself. The lists live in a device workspace the wrapper allocates
 // (impact_topk_workspace); the merge is a programmatic dependent launch,
 // so its launch overlaps the slices.
 //
@@ -103,7 +104,7 @@ constexpr int RL = 4096;              // posting lanes staged a round
 constexpr int CW = 2 * RL + 16 * QC;  // staging words: 2 streams + slack
 constexpr int NS_MIN = 128;           // docs a slice, at least ...
 constexpr int NS_MAX = 8192;          // ... and at most (scores in smem)
-constexpr int MERGE_STAGE_MAX = 96 * 1024;  // lists staged in smem, bytes
+constexpr int MERGE_STAGE_KEYS = 4096;  // merge entries staged in smem
 constexpr int SMALL_K = 32;           // slice top-k by threshold up to here
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -727,10 +728,12 @@ __global__ void __launch_bounds__(THREADS)
 // One block per query row: merge the row's S slice lists (sorted, slice s
 // holding min(k, its docs) entries at stride KS) into its k results. Each
 // entry's place is the count of the row's entries above it (the keys are
-// distinct), found by a binary search of each list: in shared memory,
-// where the lists are staged as keys when they fit (`staged`), else in
-// device memory. The tail past n_docs is (NEG_INF, 0). Launched as a
-// programmatic dependent of the slice kernel: it waits for its lists.
+// distinct). `staged` (at most MERGE_STAGE_KEYS entries, as on the main
+// path): the lists as keys in shared memory (0 past each list's end),
+// counted linearly (at B 8, S 16 x KS 10, 2.5 us faster than searching
+// them, PERF.md); else each list binary-searched in device memory. The
+// tail past n_docs is (NEG_INF, 0). Launched as a programmatic dependent
+// of the slice kernel: it waits for its lists.
 __global__ void __launch_bounds__(MERGE_THREADS)
     merge_kernel(const float* __restrict__ lv, const int* __restrict__ li,
                  float* __restrict__ vals, int* __restrict__ idx, int S,
@@ -756,19 +759,22 @@ __global__ void __launch_bounds__(MERGE_THREADS)
     const unsigned long long x =
         staged ? keys[j] : make_key(gv[j], gi[j]);
     int r = 0;
-    for (int s = 0; s < S; ++s) {  // entries of list s above x
-      int lo = 0, hi = len(s);
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        const size_t q = (size_t)s * KS + mid;
-        const unsigned long long y =
-            staged ? keys[q] : make_key(gv[q], gi[q]);
-        if (y > x)
-          lo = mid + 1;
-        else
-          hi = mid;
+    if (staged) {
+#pragma unroll 8
+      for (int q = 0; q < n; ++q) r += keys[q] > x;
+    } else {
+      for (int s = 0; s < S; ++s) {  // entries of list s above x
+        int lo = 0, hi = len(s);
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          const size_t q = (size_t)s * KS + mid;
+          if (make_key(gv[q], gi[q]) > x)
+            lo = mid + 1;
+          else
+            hi = mid;
+        }
+        r += lo;
       }
-      r += lo;
     }
     if (r < total) put_key(x, out_v + r, out_i + r);
   }
@@ -804,7 +810,7 @@ bool make_plan(int B, int n_docs, int k, int sms, Plan* p) {
   p->KS = (int)std::min<long long>(k, NS);
   p->slice_smem = pad4(NS) * 4 + slice_fixed_bytes();
   const long long n = S * p->KS;
-  p->staged = n * 8 <= MERGE_STAGE_MAX;
+  p->staged = n <= MERGE_STAGE_KEYS;
   p->merge_smem = p->staged ? (size_t)n * 8 : 0;
   p->ws = S > 1 ? (long long)B * n * 8 : 0;
   return true;

@@ -106,7 +106,8 @@ def child(root: Path) -> None:
         if hasattr(k45, "fused_impact_index_topk"):
             from repro_torch.retrieval.sparse_rep import query_columns
             qi, qv = query_columns(queries, index.device)
-            # older index entries also take the plain version's width
+            # an older checkout's index entries also take the plain
+            # version's window width
             takes_width = "max_postings" in inspect.signature(
                 k45.fused_impact_index_topk).parameters
             w4 = {"max_postings": index.max_postings} if takes_width else {}
