@@ -20,11 +20,15 @@ Phases, run in this order, each printing one JSON line:
              the path its rule gives ("tma", "wmma" or "f32"), also at
              full width (D 768, V 30522: S 48, 900, 1729), on masks that
              empty whole 128-position chunks and on exact ties, where
-             i_max must equal the plain version's everywhere.
+             i_max must equal the plain version's everywhere. K4 and K5
+             also on queries whose ids lie outside [0, V), read by the
+             reference's gather rule (a negative id plus V, then clamped
+             to [0, V - 1]) in the kernels and their plain versions.
 4. serve   — the full-width splade_bert serving path: index 16384 docs,
              serve 64 requests through the batching loop, retrieve with
              ``method="auto"`` (which must resolve to the fused kernel, K4
-             reading the index in place).
+             reading the index in place); two ``impact`` retrievals give
+             the same bits.
    serve_dense — the same path with dense reps (``--rep-topk 0``): a
              (16384, 30522) f32 corpus, ``auto`` resolving to the
              streaming kernel (K6), held against the ``dense`` method and,
@@ -41,7 +45,8 @@ Phases, run in this order, each printing one JSON line:
              the ``quantized`` method; the JAX package's acceptance
              corpus quantized on the card, at least 4x smaller; then K4
              and K5 at k = 1025, 1100 and n_docs on the base, against the
-             ``impact`` and ``quantized`` methods.
+             ``impact`` and ``quantized`` methods; two ``quantized``
+             searches give the same bits; each search method's host ms.
 5. timing  — each kernel, its plain version, a one-call PyTorch yardstick
              and its roofline bound, with CUDA events (K4 and K5, whose
              calls take less device time than their enqueue, from CUDA
@@ -62,9 +67,19 @@ Phases, run in this order, each printing one JSON line:
              steps of the train entry point at the paper's Table-3 point
              (384 pairs x 256 tokens, remat on) with the head it picks by
              default, K1, K2 and K3 launched twice a step.
+7. xlmr    — splade_xlmr (|V| 250002) at full width: the serve phase's
+             path (16384 docs, 64 requests, ``auto`` resolving to K4 in
+             place); K1 (with its 146-column last tile), K2 and K3 (every
+             routing list in device memory) at its V against their plain
+             versions; the gradient check at 8 x 128; 5 timed steps of the
+             train entry point at train_420 (420 pairs x 256 tokens, remat
+             on) and 3 at train_16 with the kernel head and 3 with the
+             paper's PyTorch baseline head (``naive``), each with its peak
+             memory; then K1, K2 and K3 timed at train_420 (K2 and K3 on
+             the random-init routing and on each row's 256 largest y).
 
-Every K1 launch of the serve, dense-serve, engine and train phases must
-take the "tma" path. Then a ``{"kernels": [...]}`` line and, last,
+Every K1 launch of the serve, dense-serve, engine, train and xlmr phases
+must take the "tma" path. Then a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": ...}``. Any mismatch, exception or missing
 launch exits non-zero before that last line. The script imports nothing
 of JAX nor of the JAX package.
@@ -404,6 +419,10 @@ def k5_cases(torch):
     quant = quantize_index(index)
     cases.append(("index_long_query_three_chunks",
                   _fused_q_windows(q, quant), index.n_docs, 100, (q, quant)))
+    q, index = ids_outside_vocab_case(torch, 46)
+    quant = quantize_index(index)
+    cases.append(("index_ids_outside_vocab", _fused_q_windows(q, quant),
+                  index.n_docs, 15, (q, quant)))
     for name, (B, Q, L, n, gap, k) in {
             "windows_three_chunks": (6, 10, 1500, 5000, 3, 50),
             "windows_k_gt_n_docs": (2, 3, 4, 7, 2, 12),
@@ -508,7 +527,36 @@ def k4_index_cases(torch):
                       index, k))
     cases.append(("long_query_three_chunks", *long_query_case(torch, 41),
                   20))
+    cases.append(("ids_outside_vocab", *ids_outside_vocab_case(torch, 45),
+                  15))
     return cases
+
+
+def ids_outside_vocab_case(torch, seed, n_docs=3000, nnz=16, vocab=256,
+                           B=6, Q=12):
+    """(queries, index): a random index built on the card and queries
+    whose ids lie at and past V and below 0 (down to -2V), which the
+    kernels and their plain versions read by the reference's gather rule
+    (a negative id plus V, then clamped to [0, V - 1]), beside ordinary
+    ids and a padded slot."""
+    from repro_torch.retrieval.index import build_inverted_index
+    from repro_torch.retrieval.sparse_rep import SparseRep
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    i = torch.rand((n_docs, vocab), generator=g,
+                   device="cuda").argsort(dim=1)[:, :nnz].int()
+    v = torch.rand((n_docs, nnz), generator=g, device="cuda") * 2 + 0.1
+    rep = SparseRep(v, i, torch.full((n_docs,), nnz, device="cuda"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        index = build_inverted_index(rep, vocab, device="cuda")
+    qi = torch.randint(-2 * vocab, 2 * vocab, (B, Q), generator=g,
+                       device="cuda").int()
+    qi[:, :4] = torch.tensor([vocab, -1, -vocab, -vocab - 1],
+                             dtype=torch.int32, device="cuda")
+    qv = torch.rand((B, Q), generator=g, device="cuda") + 0.2
+    qv[0, 5] = 0.0                              # a padded slot
+    return SparseRep(qv, qi, (qv > 0).sum(1).int()), index
 
 
 def long_query_case(torch, seed, n_docs=20000, nnz=16, vocab=400, B=4,
@@ -1065,7 +1113,9 @@ def k45_plains(k45):
             for entry in K45_ENTRIES.values()}
 
 
-def phase_serve(torch):
+def phase_serve(torch, config=None, phase="serve"):
+    """The sparse serving path at full width for ``config`` (splade_bert's
+    CONFIG unless given), the kernel head with ``rep_topk`` 64."""
     import dataclasses
 
     from repro_torch.configs.splade_bert import CONFIG
@@ -1077,7 +1127,7 @@ def phase_serve(torch):
     from repro_torch.runtime.serving import (FailedResult, ShedResult,
                                              make_config_encoder)
 
-    cfg = dataclasses.replace(CONFIG, rep_topk=SERVE["rep_topk"])
+    cfg = dataclasses.replace(config or CONFIG, rep_topk=SERVE["rep_topk"])
     params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
     encode = make_config_encoder(params, cfg)
     batches = []   # (B, S, seconds) of every encode call
@@ -1100,7 +1150,7 @@ def phase_serve(torch):
                   device=torch.device("cuda"))
     launches = {"sparton_fwd": k1.sparton_forward.launches,
                 **k45_launches(k4)}
-    k1_paths = k1_on_tma(k1, "serve")
+    k1_paths = k1_on_tma(k1, phase)
 
     st = res["loop"].stats()
     unserved = [r for r in res["outcomes"].values()
@@ -1123,11 +1173,17 @@ def phase_serve(torch):
         require(rep.width == SERVE["rep_topk"] and rep.nnz > 0
                 and bool((rep.values >= 0).all()), "malformed query rep")
 
-    # fused ids against the plain impact path on the same queries
+    # fused ids against the plain impact path on the same queries; the
+    # impact path sums each doc in term order, so two runs of it on the
+    # card give the same bits
     queries, index = res["queries"], res["index"]
     k = res["idx"].shape[1]
     v_i, i_i = retrieve(queries, index, k, method="impact")
+    again = retrieve(queries, index, k, method="impact")
     scores = impact_scores(queries, index)
+    impact_bits = (torch.equal(v_i, again[0]) and torch.equal(i_i, again[1])
+                   and torch.equal(scores, impact_scores(queries, index)))
+    require(impact_bits, f"{phase}: two impact retrievals differ")
     rows = torch.arange(scores.shape[0], device="cuda")[:, None]
     s_f = scores[rows, res["idx"].long()]
     s_i = scores[rows, i_i.long()]
@@ -1145,12 +1201,14 @@ def phase_serve(torch):
     query_ms = [1e3 * t for _, _, t in batches[-n_query:]]
     lat = res["loop"].latencies()
     ist = index.stats()
-    emit("serve", config=cfg.name, n_params=cfg.n_params,
+    emit(phase, config=cfg.name, n_params=cfg.n_params,
          head_impl=cfg.head_spec().impl, launches=launches,
          k1_paths=k1_paths,
          encode_batches=len(batches), index_s=res["index_s"],
+         index_build_s=res["index_s"] - sum(doc_ms) / 1e3,
+         index_memory_bytes=ist["memory_bytes"],
          n_docs=ist["n_docs"], n_postings=ist["n_postings"],
-         max_postings=ist["max_postings"],
+         active_terms=ist["active_terms"], max_postings=ist["max_postings"],
          doc_batch_ms_median=doc_ms[len(doc_ms) // 2],
          query_batch_ms=query_ms, query_batches=list(res["loop"].batch_sizes),
          serve_s=res["serve_s"],
@@ -1158,7 +1216,8 @@ def phase_serve(torch):
          p99_latency_ms=1e3 * float(np.percentile(lat, 99)),
          retrieve_method=res["method"], retrieve_ms=1e3 * res["retrieve_s"],
          ids_differ=int(differ.sum()), near_ties=int((differ & near).sum()),
-         fused_vs_impact_max_abs_err=val_err)
+         fused_vs_impact_max_abs_err=val_err,
+         impact_bit_identical=impact_bits)
     return {"params": params, "cfg": cfg, "res": res, "launches": launches,
             "k1_paths": k1_paths}
 
@@ -1476,7 +1535,9 @@ def phase_serve_engine(torch, served):
     from repro_torch.kernels import impact_score as k45
     from repro_torch.kernels import sparton as k1
     from repro_torch.launch.serve import SEED, grow_engine
-    from repro_torch.retrieval.engine.quantize import QuantizedIndex
+    from repro_torch.retrieval.engine.quantize import (QuantizedIndex,
+                                                       quantized_scores)
+    from repro_torch.retrieval.score import retrieve
     from repro_torch.runtime.serving import (BatchedEncoder, BatchPolicy,
                                              CorpusEngine,
                                              make_config_encoder)
@@ -1525,6 +1586,18 @@ def phase_serve_engine(torch, served):
         engine.flush()
         resolved = builder.resolved_method("auto")
         out = searched(torch, engine, queries, k)
+    # the quantized method sums each doc in term order: two searches of
+    # the base give the same bits; then each search's host time
+    first, again = (retrieve(queries, base, k, method="quantized")
+                    for _ in range(2))
+    quantized_bits = (
+        all(bool(torch.equal(a, b)) for a, b in zip(first, again))
+        and torch.equal(quantized_scores(queries, base),
+                        quantized_scores(queries, base)))
+    require(quantized_bits, "two quantized searches differ")
+    search_ms = {m: host_ms(torch, lambda: engine.search(queries, k,
+                                                         method=m))
+                 for m in ("auto", "fused", "quantized")}
     # the searches' launches: searched() counts each search from 0
     launches = {"sparton_fwd": k1.sparton_forward.launches,
                 **{key: sum(row[method][key] for row in (
@@ -1598,7 +1671,8 @@ def phase_serve_engine(torch, served):
          phantom_frac=qs["phantom_frac"], max_postings=qs["max_postings"],
          delta_dtype=str(base.deltas.dtype), base_memory_bytes=qs[
              "memory_bytes"], raw_memory_bytes=base_raw.memory_bytes(),
-         compression=ratio, searches=rows,
+         compression=ratio, searches=rows, search_ms=search_ms,
+         quantized_bit_identical=quantized_bits,
          in_place={"resolved": in_place["resolved"], "stats": st_in,
                    "searches": rows_in_place},
          acceptance=accept, past_limits=past)
@@ -1749,17 +1823,17 @@ def grad_readings(torch, cfg, params, batch, seen):
     return out
 
 
-def grad_check(torch, cfg):
-    """The gradient check at bf16 and at f32 compute (see GRAD_RATIO):
-    per dtype, the kernel head's largest reading, its limit and its ratio
-    to the controls."""
+def grad_check(torch, cfg, shape=GRAD_CHECK):
+    """The gradient check at bf16 and at f32 compute (see GRAD_RATIO) on
+    ``shape`` (pairs, tokens): per dtype, the kernel head's largest
+    reading, its limit and its ratio to the controls."""
     import dataclasses
 
     from repro_torch.models.transformer import init_params
 
     seen = register_split_heads(torch, cfg.d_model)
     params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
-    batch = train_batches(torch, *GRAD_CHECK, 1, cfg.vocab_size)[0]
+    batch = train_batches(torch, *shape, 1, cfg.vocab_size)[0]
     summary = {}
     for dtype in ("bfloat16", "float32"):
         out = grad_readings(torch, dataclasses.replace(
@@ -1771,29 +1845,22 @@ def grad_check(torch, cfg):
     return summary
 
 
-def phase_train(torch):
-    import dataclasses
-
-    from repro_torch.configs.splade_bert import CONFIG, SHAPES
+def timed_train(torch, arch, cfg, shape, steps):
+    """``steps`` timed steps of the train entry point (``train_steps``)
+    for ``arch`` with ``cfg`` at ``shape``, from a seeded fresh state: the
+    losses, each step's ms, the median of steps 2 on, pairs/s, the peak
+    device memory, the head kernels' launches (each 2 a step for the
+    kernel head, none for another), K1's paths, and a torch.profiler
+    trace of one more step."""
     from repro_torch.kernels import sparton as k1
     from repro_torch.kernels import sparton_bwd as kb
     from repro_torch.launch.steps import build_lsr_train_step, init_state
     from repro_torch.launch.train import train_steps
 
-    # (a) one step's gradients, kernel head against the plain head
-    checked = grad_check(torch, dataclasses.replace(CONFIG, remat=False))
-    torch.cuda.empty_cache()
-
-    # (b) timed steps of the train entry point at the paper's Table-3 point,
-    # with its config (remat on, the head it picks by default)
-    shape = SHAPES["table3_384"]
-    cfg = CONFIG
-    state = init_state("splade_bert",
-                       torch.Generator(device="cuda").manual_seed(0))
+    state = init_state(arch, torch.Generator(device="cuda").manual_seed(0))
     run = train_steps(cfg, state, batch=shape.global_batch,
                       seq_len=shape.seq_len, lr=2e-4,
                       device=torch.device("cuda"))
-
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_k1(k1)
@@ -1803,7 +1870,7 @@ def phase_train(torch):
     with plain_guard(k1=(k1, "sparton_forward_plain"),
                      k2=(kb, "sparton_backward_dh_plain"),
                      k3=(kb, "sparton_backward_de_plain")) as plain_on_cuda:
-        for _ in range(TRAIN_STEPS):
+        for _ in range(steps):
             t0 = time.perf_counter()
             state, loss = next(run)                   # synchronises
             torch.cuda.synchronize()
@@ -1813,18 +1880,28 @@ def phase_train(torch):
     launches = {"sparton_fwd": k1.sparton_forward.launches,
                 "sparton_bwd_dh": kb.sparton_backward_dh.launches,
                 "sparton_bwd_de": kb.sparton_backward_de.launches}
-    k1_paths = k1_on_tma(k1, "train")
+    impl = cfg.head_spec().impl
+    want = 2 * steps if impl == "kernel" else 0
+    k1_paths = (k1_on_tma(k1, f"train {cfg.name} {shape.name}")
+                if want else dict(k1.sparton_forward.path_launches))
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     require(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
-    require(all(n == 2 * TRAIN_STEPS for n in launches.values()),
-            f"K1/K2/K3 launches {launches}, expected {2 * TRAIN_STEPS} each "
-            f"(queries and docs, {TRAIN_STEPS} steps)")
+    require(all(n == want for n in launches.values()),
+            f"{cfg.name} {shape.name} ({impl} head): K1/K2/K3 launches "
+            f"{launches}, expected {want} each")
     require(not plain_on_cuda, f"plain versions ran on CUDA tensors: "
                                f"{sorted(set(plain_on_cuda))}")
-    require(state["step"] == TRAIN_STEPS, "the step counter did not advance")
+    require(state["step"] == steps, "the step counter did not advance")
     later_ms = sorted(1e3 * t for t in step_s[1:])
     median_ms = later_ms[len(later_ms) // 2]
-
+    out = {"config": cfg.name, "n_params": cfg.n_params, "head_impl": impl,
+           "shape": {"name": shape.name, "pairs": shape.global_batch,
+                     "seq_len": shape.seq_len, "remat": cfg.remat},
+           "losses": losses, "step_ms": [1e3 * t for t in step_s],
+           "median_step_ms": median_ms,
+           "pairs_per_s": shape.global_batch / (median_ms / 1e3),
+           "max_memory_allocated_gib": peak_gib, "launches": launches,
+           "k1_paths": k1_paths}
     step = build_lsr_train_step(cfg, lr=2e-4)
     batch = train_batches(torch, shape.global_batch, shape.seq_len, 1,
                           cfg.vocab_size)[0]
@@ -1835,20 +1912,27 @@ def phase_train(torch):
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0)
 
-    profile = traced(torch, one_step, median_ms, 1)
-    emit("train", config=cfg.name, n_params=cfg.n_params,
-         head_impl=cfg.head_spec().impl,
-         grad_check=checked,
-         shape={"name": shape.name, "pairs": shape.global_batch,
-                "seq_len": shape.seq_len, "remat": cfg.remat},
-         losses=losses, step_ms=[1e3 * t for t in step_s],
-         median_step_ms=median_ms,
-         pairs_per_s=shape.global_batch / (median_ms / 1e3),
-         max_memory_allocated_gib=peak_gib, launches=launches,
-         k1_paths=k1_paths, step_profile=profile)
+    out["step_profile"] = traced(torch, one_step, median_ms, 1)
     del state, batch
     torch.cuda.empty_cache()
-    return {"launches": launches, "k1_paths": k1_paths}
+    return out
+
+
+def phase_train(torch):
+    import dataclasses
+
+    from repro_torch.configs.splade_bert import CONFIG, SHAPES
+
+    # (a) one step's gradients, kernel head against the plain head
+    checked = grad_check(torch, dataclasses.replace(CONFIG, remat=False))
+    torch.cuda.empty_cache()
+
+    # (b) timed steps of the train entry point at the paper's Table-3 point,
+    # with its config (remat on, the head it picks by default)
+    out = timed_train(torch, "splade_bert", CONFIG, SHAPES["table3_384"],
+                      TRAIN_STEPS)
+    emit("train", grad_check=checked, **out)
+    return {"launches": out["launches"], "k1_paths": out["k1_paths"]}
 
 
 # --------------------------------------------------------------------------
@@ -1943,11 +2027,14 @@ def traced(torch, run, wall_ms, n):
         return {"wall_ms": wall_ms, "traced_wall_ms": traced_ms,
                 "device_ms": "not measured"}
     device_ms = sum(dev_us(e) for e in kernels) / 1e3 / n
-    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    by_name = {}   # kernels whose names share the first 70 characters
+    for e in kernels:
+        by_name[e.key[:70]] = by_name.get(e.key[:70], 0) + dev_us(e) / 1e3 / n
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:10]
     return {"wall_ms": wall_ms, "traced_wall_ms": traced_ms,
             "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
             "kernels_per_unit": sum(e.count for e in kernels) / n,
-            "top_device_ms": {e.key[:70]: dev_us(e) / 1e3 / n for e in top}}
+            "top_device_ms": dict(top)}
 
 
 def k1_bound_ms(B, S, D, V, itemsize, kept):
@@ -1983,6 +2070,21 @@ def in_turns(torch, fns, reps):
         windows[key] += cuda_ms.windows
     return {key: (sorted(w)[len(w) // 2], [min(w), max(w)])
             for key, w in windows.items()}
+
+
+def host_ms(torch, fn, n=30):
+    """Median host ms of ``fn()`` followed by a synchronise (after one
+    call that is not timed), and the [min, max] range."""
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    times.sort()
+    return times[len(times) // 2], [times[0], times[-1]]
 
 
 def host_us(torch, fn, n=20):
@@ -2508,19 +2610,150 @@ def phase_timing(torch, served, served_dense, served_engine):
             "k4": k4, "k5": k5, "k6": k6}
 
 
+# --------------------------------------------------------------------------
+# 7. splade_xlmr at full width
+# --------------------------------------------------------------------------
+
+# the gradient check's pairs x tokens at |V| 250002: the plain head's f32
+# logits of a side, 8 x 128 x 250002, take 1 GB
+XLMR_GRAD_CHECK = (8, 128)
+XLMR_STEPS = {"train_420": 5, "train_16": 3}
+# K1 against its plain version at V 250002 (977 tiles of 256 vocab
+# columns, the last one 146 wide), with and without the softcap, a fully
+# masked row: (B, S, softcap)
+XLMR_K1 = [(2, 64, None), (3, 40, 5.0)]
+# K2/K3 at D 768 and V 250002, where every row's routing list goes to
+# device memory (V * 4 bytes past the routing pass's shared memory)
+XLMR_BWD = (3, 256)
+
+
+def xlmr_kernel_gates(torch, cfg):
+    """K1, K2 and K3 at xlmr's D and V against their plain versions, each
+    launched twice (the same bits)."""
+    D, V = cfg.d_model, cfg.vocab_size
+    cases = []
+    for i, (B, S, softcap) in enumerate(XLMR_K1):
+        H, E, b, mask = k1_inputs(torch, B, S, D, V, torch.bfloat16, 500 + i)
+        mask[B - 1] = 0
+        case = k1_compare(torch, H, E, b, mask, softcap)
+        cases.append({"kernel": "K1", "shape": [B, S, D, V],
+                      "softcap": softcap, **case,
+                      "within_tol": case["imax_hard"] == 0})
+        del H, E
+    B, S = XLMR_BWD
+    H, E, mask, dy, y, i_max = bwd_inputs(torch, B, S, D, V, torch.bfloat16,
+                                          510, None)
+    cases.append({"kernel": "K2/K3", "shape": [B, S, D, V],
+                  **bwd_compare(torch, H, E, mask, dy, y, i_max, None)})
+    del H, E, dy, y, i_max
+    torch.cuda.empty_cache()
+    bad = [c for c in cases if not (c["within_tol"] and c["bit_identical"])]
+    require(not bad, f"xlmr: the head's kernels differ from their plain "
+                     f"versions or between two launches: {bad[:2]}")
+    return cases
+
+
+def xlmr_timing(torch, E, b, shape):
+    """K1, K2 and K3 at ``shape`` (train_420: 420 x 256, padded as
+    lsr_pair_batches pads) on xlmr's head weights, random bf16 hidden
+    states from seed 21 and a cotangent of scale 1e-2: K1 as ``time_k1``
+    times it (its baseline's 53.8 GB of bf16 logits fit the card); K2 and
+    K3 on the routing K1 gives at random init ("dense": nearly every g !=
+    0) and on each row's SPARSE_KEEP largest y ("sparse"), beside
+    torch.sparse.mm."""
+    from repro_torch.kernels.sparton import sparton_forward
+
+    B, S = shape.global_batch, shape.seq_len
+    g = torch.Generator(device="cuda").manual_seed(21)
+    H = torch.randn((B, S, E.shape[1]), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    lens = torch.randint(int(0.3 * S), S + 1, (B, 1), generator=g,
+                         device="cuda")
+    mask = (torch.arange(S, device="cuda") < lens).int()
+    k1_row = time_k1(torch, H, E, b, mask, reps=3, plain_reps=1)
+    y, i_max = sparton_forward(H, E, b, mask)
+    dy = torch.randn(y.shape, generator=g, device="cuda") * 1e-2
+    bwd = {}
+    for routing in ("dense", "sparse"):
+        y_r, i_r = reroute(torch, y, i_max, S, routing, g)
+        bwd[routing] = time_bwd(torch, H, E, b, mask, dy, y_r, i_r, reps=3,
+                                plain_reps=1, library="sparse")
+        del y_r, i_r
+        torch.cuda.empty_cache()
+    del H, y, i_max, dy
+    torch.cuda.empty_cache()
+    return {"k1": k1_row, "bwd": bwd}
+
+
+def phase_xlmr(torch):
+    """splade_xlmr (|V| 250002) at full width: the sparse serving path,
+    the head's kernels at its V against their plain versions, the
+    gradient check, the train entry point at train_420 (kernel head) and
+    at train_16 (kernel and baseline heads), then K1, K2 and K3 timed at
+    train_420."""
+    import dataclasses
+
+    from repro_torch.configs.splade_xlmr import CONFIG, SHAPES
+    from repro_torch.models.transformer import head_weights
+
+    served = phase_serve(torch, CONFIG, "xlmr_serve")
+    E, b = head_weights(served["params"], served["cfg"])
+    E16, b = E.to(torch.bfloat16), b.clone()
+    serve_launches, serve_paths = served["launches"], served["k1_paths"]
+    del served, E
+    torch.cuda.empty_cache()
+
+    gates = xlmr_kernel_gates(torch, CONFIG)
+    checked = grad_check(torch, dataclasses.replace(CONFIG, remat=False),
+                         XLMR_GRAD_CHECK)
+    torch.cuda.empty_cache()
+    emit("xlmr_kernels", cases=gates, grad_check=checked)
+
+    trained = timed_train(torch, "splade_xlmr", CONFIG, SHAPES["train_420"],
+                          XLMR_STEPS["train_420"])
+    emit("xlmr_train", **trained)
+    small = {impl: timed_train(
+        torch, "splade_xlmr", dataclasses.replace(CONFIG, head_impl=impl),
+        SHAPES["train_16"], XLMR_STEPS["train_16"])
+        for impl in ("kernel", "naive")}
+    emit("xlmr_train_16", **small)
+
+    timing = xlmr_timing(torch, E16, b, SHAPES["train_420"])
+    emit("xlmr_timing", **timing)
+    del E16, b
+    torch.cuda.empty_cache()
+    return {"timing": timing, "serve_launches": serve_launches,
+            "train_launches": trained["launches"],
+            "k1_paths": {"serve": serve_paths,
+                         "train": trained["k1_paths"]}}
+
+
 def kernel_rows(measured, launches, dense_launches, engine_launches,
-                train_launches, k1_paths):
+                train_launches, k1_paths, xlmr):
     """The ``{"kernels": [...]}`` line: each kernel's launches on its path
     and its numbers from the timing phase (K1 at an index batch, K2/K3 at
     the train shape, K4, K5 and K6 at the served queries; K1 also at the
     train shape and K4, K5 and K6 also at all 64 served requests; K4's and
     K5's ``ms`` are their index entries', ``window_ms`` their window
-    entries')."""
+    entries'); K1, K2 and K3 also ``at_xlmr``, at train_420 with xlmr's
+    V (K2 and K3 on the "dense" and "sparse" routings), with their
+    launches in the xlmr phase's serve and train_420 runs."""
     main_k1, bwd, k4, k5, k6 = (measured[key]
                                 for key in ("k1", "bwd", "k4", "k5", "k6"))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     k1_keys = keys + ("ms_wmma",)
+    x_launch = {"serve": xlmr["serve_launches"],
+                "train_420": xlmr["train_launches"]}
+    x_k1 = {**{key: xlmr["timing"]["k1"][key] for key in k1_keys},
+            "launches": {where: n["sparton_fwd"]
+                         for where, n in x_launch.items()}}
+
+    def x_bwd(kernel, key):
+        return {"launches": x_launch["train_420"][key],
+                **{routing: {k: row[kernel][k] for k in keys}
+                   for routing, row in xlmr["timing"]["bwd"].items()}}
+
     k6_keys = keys + ("ms_over_library",)
     k45_keys = keys + ("window_ms", "digest")
     return [
@@ -2535,13 +2768,13 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
          **{key: main_k1[key] for key in k1_keys},
          **{f"at_{name}": {key: measured["k1_rows"][name][key]
                            for key in k1_keys}
-            for name in ("query_batch", "train", "table1")}},
+            for name in ("query_batch", "train", "table1")},
+         "at_xlmr": x_k1},
         *({"name": name, "route": "cuda",
            "source": "src/repro_torch/csrc/sparton_bwd.cu",
            "replaces": replaces, "launches": train_launches[key],
-           **{k: bwd["train"][kernel][k] for k in (
-               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-               "library_ms")}}
+           **{k: bwd["train"][kernel][k] for k in keys},
+           "at_xlmr": x_bwd(kernel, key)}
           for name, kernel, key, replaces in (
               ("sparton_bwd_dh (K2)", "dh", "sparton_bwd_dh",
                "src/repro/kernels/sparton_bwd.py:57"),
@@ -2553,6 +2786,7 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
          "launches": launches["impact_topk"],
          "index_launches": launches["impact_index_topk"],
          "engine_launches": engine_launches["impact_topk"],
+         "xlmr_serve_launches": xlmr["serve_launches"]["impact_topk"],
          **{key: k4["B8"][key] for key in k45_keys},
          "at_B64": {key: k4["B64"][key] for key in k45_keys}},
         {"name": "impact_q_topk (K5)", "route": "cuda",
@@ -2603,9 +2837,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     trained = phase_train(torch)
     k1_paths["train"] = trained["k1_paths"]
+    params = served.pop("params")
+    del params
+    torch.cuda.empty_cache()
+    xlmr = phase_xlmr(torch)
+    k1_paths.update({f"xlmr_{where}": paths
+                     for where, paths in xlmr["k1_paths"].items()})
     print(json.dumps({"kernels": kernel_rows(
         measured, served["launches"], dense_launches, engine_launches,
-        trained["launches"], k1_paths)}), flush=True)
+        trained["launches"], k1_paths, xlmr)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

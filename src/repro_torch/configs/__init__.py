@@ -1,10 +1,11 @@
-"""Config registry of the port: ``get_config("splade_bert")``."""
+"""Config registry of the port: ``get_config("splade_bert")``,
+``get_config("splade_xlmr")``."""
 
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ("splade_bert",)
+ARCHS = ("splade_bert", "splade_xlmr")
 
 
 def get_config(arch_id: str):

@@ -1,8 +1,9 @@
 """Config dataclasses of the port (its own copies of ``repro/configs``).
 
 Only the transformer family of the SPLADE encoders is here: the port
-serves and trains ``splade_bert``. Field names and defaults are the JAX
-package's, so a config reads the same in both, with one exception:
+serves and trains ``splade_bert`` and ``splade_xlmr``. Field names and
+defaults are the JAX package's, so a config reads the same in both, with
+one exception:
 ``head_impl`` defaults to ``"kernel"``, the CUDA head, so that no entry
 point serves or trains through a plain head unless it is asked to (CPU
 tensors take the kernels' plain versions inside their wrappers).

@@ -219,6 +219,15 @@ __host__ __device__ inline Stream make_stream(const void* p, long long n) {
 
 // ------------------------------------------------------------- sources
 
+// The vocab row a query id reads, by the reference's rule for a gather
+// (JAX's, src/repro/retrieval/score.py `index.term_starts[qi]`): a
+// negative id plus V, then clamped to [0, V - 1]. The plain versions
+// apply the same rule (kernels/impact_score.py `term_rows`).
+__device__ __forceinline__ int vocab_row(int id, int V) {
+  if (id < 0) id += V;
+  return min(max(id, 0), V - 1);
+}
+
 struct K4Index {
   static constexpr bool kQuant = false;
   static constexpr int ES1 = 4, ES2 = 4;  // doc i32, val f32
@@ -230,9 +239,9 @@ struct K4Index {
   int Q, V;
   __device__ void meta(int b, int t, Term& m) const {
     const size_t j = (size_t)b * Q + t;
-    const int id = q_idx[j];
+    const int id = vocab_row(q_idx[j], V);
     m.qv = q_val[j];
-    if (m.qv > 0.0f && id >= 0 && id < V) {
+    if (m.qv > 0.0f && V > 0) {
       m.pos = starts[id];
       m.len = max(lens[id], 0);
     }
@@ -267,9 +276,9 @@ struct K5Index {
   int Q, V;
   __device__ void meta(int b, int t, Term& m) const {
     const size_t j = (size_t)b * Q + t;
-    const int id = q_idx[j];
+    const int id = vocab_row(q_idx[j], V);
     m.qv = q_val[j];
-    if (m.qv > 0.0f && id >= 0 && id < V) {
+    if (m.qv > 0.0f && V > 0) {
       m.pos = starts[id];
       m.len = max((int)lens[id], 0);
       m.par = (int)(m.pos & 1);
@@ -916,7 +925,9 @@ extern "C" int impact_topk(const float* w, const int* docs, float* vals,
 
 // K4 in place: q_idx i32 and q_val f32 are (B, Q) (vocab ids, weights);
 // term_starts, term_lens i32 (V,); postings_doc i32, postings_val f32
-// (P,). Terms with q_val <= 0 or an id outside [0, V) score nothing.
+// (P,). Terms with q_val <= 0 score nothing; an id outside [0, V) reads
+// the row vocab_row gives (a negative id plus V, then clamped to [0, V -
+// 1]), as the reference's gather does.
 extern "C" int impact_index_topk(const int* q_idx, const float* q_val,
                                  const int* term_starts, const int* term_lens,
                                  const int* postings_doc,

@@ -49,10 +49,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.topk_score import topk_rows
@@ -130,6 +131,15 @@ def _check_cuda(name: str, tensors) -> torch.device:
     return dev
 
 
+def term_rows(q_idx: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The vocab rows that query ids ``q_idx`` read (int64), by the
+    reference's rule for a gather (JAX's): a negative id plus ``vocab``,
+    then clamped to ``[0, vocab - 1]``. The kernels apply the same rule
+    to each id they read."""
+    qi = q_idx.long()
+    return torch.where(qi < 0, qi + vocab, qi).clamp(0, max(vocab - 1, 0))
+
+
 def _gather_i32(a: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """``a[pos]`` widened to int32 (uint16 through its int16 view: PyTorch
     implements few operators for uint16 on the card)."""
@@ -139,23 +149,37 @@ def _gather_i32(a: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 
 
 def scatter_scores(w: torch.Tensor, docs: torch.Tensor, n_docs: int,
-                   term_lanes: Optional[int] = None) -> torch.Tensor:
-    """Dense ``(B, n_docs)`` scores: each lane's weight added to its doc.
+                   term_lanes: int) -> torch.Tensor:
+    """Dense ``(B, n_docs)`` scores: each lane's weight added to its doc,
+    one query term (``term_lanes`` lanes) at a time, one ``index_add_`` a
+    term.
 
-    Lanes whose doc id lies outside ``[0, n_docs)`` score nothing. With
-    ``term_lanes`` the lanes are added one query term (``term_lanes``
-    lanes) at a time, so each doc's sum is taken in term order on every
-    device; without it in one pass, in lane order on the CPU.
+    Lanes whose doc id lies outside ``[0, n_docs)`` score nothing. A doc
+    occurs at most once a term, so no two adds of an ``index_add_`` meet,
+    and each doc's sum is taken in term order, ``0 + w(t0) + w(t1) +
+    ...``, on every device: the kernels' order, and the same bits on
+    every run on the card (one ``index_add_`` over all the lanes would
+    add them there in no fixed order).
     """
     B, W = w.shape
-    seg = term_lanes or max(W, 1)
+    n_seg = -(-W // term_lanes)
+    d = docs.long()
+    ok = (d >= 0) & (d < n_docs)
     rows = torch.arange(B, device=w.device).unsqueeze(1) * n_docs
-    flat = torch.zeros(B * n_docs, dtype=torch.float32, device=w.device)
-    for s0 in range(0, W, seg):
-        d = docs[:, s0:s0 + seg].long()
-        ok = (d >= 0) & (d < n_docs)
-        flat.index_add_(0, (rows + d)[ok], w[:, s0:s0 + seg].float()[ok])
-    return flat.view(B, n_docs)
+    # lanes that score nothing add 0 to a slot past the scores
+    pos = torch.where(ok, rows + d, B * n_docs)
+    val = torch.where(ok, w.float(), 0.0)
+    if n_seg * term_lanes != W:
+        pos = F.pad(pos, (0, n_seg * term_lanes - W), value=B * n_docs)
+        val = F.pad(val, (0, n_seg * term_lanes - W))
+    # term-major, so that each term's lanes are one contiguous row
+    shape = (n_seg, B * term_lanes)
+    pos = pos.view(B, n_seg, term_lanes).transpose(0, 1).reshape(shape)
+    val = val.view(B, n_seg, term_lanes).transpose(0, 1).reshape(shape)
+    flat = torch.zeros(B * n_docs + 1, dtype=torch.float32, device=w.device)
+    for p, v in zip(pos.unbind(0), val.unbind(0)):
+        flat.index_add_(0, p, v)
+    return flat[:-1].view(B, n_docs)
 
 
 def fused_impact_topk_plain(w: torch.Tensor, docs: torch.Tensor, *,
@@ -224,7 +248,7 @@ def index_windows(q_idx: torch.Tensor, q_val: torch.Tensor,
     dev = postings_doc.device
     lane = torch.arange(max_postings, dtype=torch.int32, device=dev)
     qv = q_val.float()
-    qi = q_idx.long()
+    qi = term_rows(q_idx, term_starts.shape[0])
     starts = term_starts[qi]                                # (B, Q)
     lens = term_lens[qi]
     pos = starts[:, :, None] + lane                         # (B, Q, L)
@@ -242,7 +266,8 @@ def query_lanes(q_idx: torch.Tensor, term_lens: torch.Tensor) -> int:
     wider window gives the same result)."""
     if q_idx.numel() == 0:
         return 1
-    return max(1, int(_gather_i32(term_lens, q_idx.long()).max()))
+    return max(1, int(_gather_i32(
+        term_lens, term_rows(q_idx, term_lens.shape[0])).max()))
 
 
 def fused_impact_index_topk_plain(q_idx, q_val, term_starts, term_lens,
@@ -340,19 +365,13 @@ def fused_quantized_topk_plain(byte_win, gap_win, starts, lens, qv, lo,
                                step, *, n_docs: int, k: int
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K5: the decode, then the dense scores summed
-    one query term at a time (each doc's sum in term order, the kernel's
-    order on every device), then the merge's top-k."""
+    one query term at a time (``scatter_scores``: each doc's sum in term
+    order, the kernel's order on every device), then the merge's top-k."""
     w, docs = decode_quantized_windows(byte_win, gap_win, starts, lens, qv,
                                        lo, step)
-    B, Q, _ = w.shape
-    rows = torch.arange(B, device=w.device).unsqueeze(1) * n_docs
-    flat = torch.zeros(B * n_docs, dtype=torch.float32, device=w.device)
-    for t in range(Q):
-        d = docs[:, t].long()
-        ok = (d >= 0) & (d < n_docs)
-        flat.index_add_(0, torch.where(ok, rows + d, 0).view(-1),
-                        torch.where(ok, w[:, t], 0.0).view(-1))
-    return topk_rows(flat.view(B, n_docs), k)
+    B, Q, L = w.shape
+    return topk_rows(scatter_scores(w.reshape(B, -1), docs.reshape(B, -1),
+                                    n_docs, max(L, 1)), k)
 
 
 def _launch_q(byte_win, gap_win, starts, lens, qv, lo, step, n_docs, k):
@@ -423,7 +442,7 @@ def quantized_index_windows(q_idx: torch.Tensor, q_val: torch.Tensor,
     dev = deltas.device
     lane = torch.arange(max_postings, dtype=torch.int32, device=dev)
     qv = q_val.float()
-    qi = q_idx.long()
+    qi = term_rows(q_idx, term_starts.shape[0])
     starts = term_starts[qi]                               # (B, Q)
     lens = _gather_i32(term_lens, qi)                      # (B, Q)
     pos = (starts[:, :, None] + lane).clamp(0, deltas.shape[0] - 1).long()

@@ -2,15 +2,27 @@
 
     python -m repro_torch.launch.train --arch splade_bert --steps 3 \\
         --batch 2 --seq-len 16 --device cpu
+    python -m repro_torch.launch.train --arch splade_xlmr --full \\
+        --batch 16 --seq-len 256
 
 Trains the arch's SMOKE config (``--full``: the full-width CONFIG) on
-the synthetic LSR pairs of ``data.synthetic.lsr_pair_batches`` with the
-step of ``launch.steps.build_lsr_train_step``, and prints the first and
-the last loss. The head is the config's, the CUDA kernels K1, K2 and
-K3 unless ``--head-impl`` names another. It runs on ``cuda`` unless
-``--device cpu`` is given (where the kernels' plain versions run), and
-exits non-zero naming CUDA when there is none. Checkpoint/resume, the
-eval hook and the head autotuner wait for their slices.
+the synthetic LSR pairs of ``data.synthetic.lsr_pair_batches``, fed
+through ``data.loader.HostShardedLoader`` (a prefetch thread; on the card
+the batches sit in pinned host memory and are copied with
+``non_blocking=True``), with the step of
+``launch.steps.build_lsr_train_step``, and prints the first and the last
+loss. The head is the config's, the CUDA kernels K1, K2 and K3 unless
+``--head-impl`` names another; ``--lambda-q``, ``--lambda-d`` and
+``--l1-weight`` replace the config's regularizer weights when given, as
+in the JAX CLI. It runs on ``cuda`` unless ``--device cpu`` is given
+(where the kernels' plain versions run), and exits non-zero naming CUDA
+when there is none.
+
+The JAX CLI's other flags: ``--eval-every`` and ``--eval-queries``
+arrive with evaluation (ROADMAP Queue 1 item 7), ``--ckpt-dir``,
+``--ckpt-every`` and ``--resume`` with checkpoint and resume (item 11),
+``--autotune-head`` with block selection (item 2). ``--overlap`` has no
+CUDA counterpart: it sets XLA's TPU scheduler flags.
 """
 
 from __future__ import annotations
@@ -26,22 +38,33 @@ import torch
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.core.head_api import available_impls
+from repro_torch.data.loader import HostShardedLoader
 from repro_torch.data.synthetic import lsr_pair_batches
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import build_lsr_train_step, init_state
 
 
+REGULARIZERS = ("lambda_q", "lambda_d", "l1_weight")
+
+
 def train_steps(cfg: TransformerConfig, state: Dict, *, batch: int,
                 seq_len: int, lr: float, device: torch.device
                 ) -> Iterator[Tuple[Dict, float]]:
-    """Endless train steps from ``state`` on the batches of shard 0:
-    yields ``(state, loss)`` after each step."""
+    """Endless train steps from ``state`` on the batches of shard 0, fed
+    through a ``HostShardedLoader``: yields ``(state, loss)`` after each
+    step. Closing the generator closes the loader."""
     step = build_lsr_train_step(cfg, lr=lr)
-    for b in lsr_pair_batches(batch=batch, q_len=seq_len, d_len=seq_len,
-                              vocab=cfg.vocab_size):
-        b = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
-        state, metrics = step(state, b)
-        yield state, float(metrics["loss"])
+
+    def make_iter(shard, n_shards):
+        return lsr_pair_batches(batch=batch, q_len=seq_len, d_len=seq_len,
+                                vocab=cfg.vocab_size, shard=shard)
+
+    with HostShardedLoader(make_iter,
+                           pin_memory=device.type == "cuda") as loader:
+        for b in loader:
+            b = {k: v.to(device, non_blocking=True) for k, v in b.items()}
+            state, metrics = step(state, b)
+            yield state, float(metrics["loss"])
 
 
 def train(cfg: TransformerConfig, state: Dict, *, steps: int, batch: int,
@@ -52,7 +75,7 @@ def train(cfg: TransformerConfig, state: Dict, *, steps: int, batch: int,
                     device=device), steps)]
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True, choices=ARCHS)
     ap.add_argument("--steps", type=int, default=50)
@@ -63,6 +86,15 @@ def main(argv=None) -> int:
                     help="the full (published-width) config, not SMOKE")
     ap.add_argument("--lr", type=float, default=2e-4,
                     help="peak learning rate (1000 warm-up steps, cosine)")
+    ap.add_argument("--lambda-q", type=float, default=None,
+                    help="FLOPS regularizer weight on query reps "
+                         "(default: config's lambda_q)")
+    ap.add_argument("--lambda-d", type=float, default=None,
+                    help="FLOPS regularizer weight on doc reps "
+                         "(default: config's lambda_d)")
+    ap.add_argument("--l1-weight", type=float, default=None,
+                    help="L1 rep regularizer weight "
+                         "(default: config's l1_weight)")
     ap.add_argument("--head-impl", default=None,
                     choices=("jax",) + available_impls(),
                     help="override the config's head backend (default "
@@ -70,16 +102,32 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions")
+    return ap
+
+
+def config_from_args(args: argparse.Namespace) -> TransformerConfig:
+    """The arch's SMOKE or CONFIG with the flags that override its fields
+    (each only when given)."""
+    mod = get_config(args.arch)
+    cfg = mod.CONFIG if args.full else mod.SMOKE
+    reg = {name: getattr(args, name) for name in REGULARIZERS
+           if getattr(args, name) is not None}
+    if reg:
+        cfg = dataclasses.replace(cfg, **reg)
+    if args.head_impl:
+        cfg = dataclasses.replace(cfg, head_impl=args.head_impl)
+    return cfg
+
+
+def main(argv=None) -> int:
+    ap = parser()
     args = ap.parse_args(argv)
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         ap.error(str(e))
 
-    mod = get_config(args.arch)
-    cfg = mod.CONFIG if args.full else mod.SMOKE
-    if args.head_impl:
-        cfg = dataclasses.replace(cfg, head_impl=args.head_impl)
+    cfg = config_from_args(args)
     state = init_state(args.arch,
                        torch.Generator(device=device).manual_seed(0),
                        smoke=not args.full)

@@ -218,11 +218,12 @@ def _index_arrays(index: QuantizedIndex) -> Tuple[torch.Tensor, ...]:
 def quantized_scores(queries: SparseRep, index: QuantizedIndex
                      ) -> torch.Tensor:
     """Dense ``(B, n_docs)`` scores, decoding the windows on the fly (the
-    ``"quantized"`` method's scores)."""
+    ``"quantized"`` method's scores), summed one query term at a time, as
+    K5's plain version sums them (the same bits on every run)."""
     w, docs = decode_quantized_windows(*_fused_q_windows(queries, index))
-    B = w.shape[0]
+    B, _, L = w.shape
     return scatter_scores(w.reshape(B, -1), docs.reshape(B, -1),
-                          index.n_docs)
+                          index.n_docs, L)
 
 
 def quantized_retrieve(queries: SparseRep, index: QuantizedIndex,

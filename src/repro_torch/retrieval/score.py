@@ -4,7 +4,8 @@ Methods ported so far:
 
     index corpora (queries must be ``SparseRep``s)
     "impact"    ``InvertedIndex``: gather the query terms' posting windows,
-                scatter-add them into dense (B, N) scores, top-k (plain
+                scatter-add them into dense (B, N) scores one term at a
+                time (so in a fixed order on the card too), top-k (plain
                 PyTorch, as the JAX package leaves it to XLA)
     "quantized" ``QuantizedIndex`` (``engine/quantize``): the same over the
                 u4+delta windows, decoded on the fly (plain PyTorch)
@@ -30,12 +31,14 @@ Methods ported so far:
 
 All return ``(vals (B, k) f32, idx (B, k) i32)`` with ties to the lowest
 doc id, ``k`` clamped to the corpus size, and identical ids on inputs
-without near-ties. The JAX package's other methods raise
-``NotImplementedError`` naming the ROADMAP item that brings them. The
-port's methods take no tuning keyword arguments (the JAX ones — Pallas
-blocks, ``interpret`` — are TPU knobs), and any that is passed raises
-instead of being ignored (``METHOD_KWARGS``, the accepted kwargs of each
-method, is empty for every one).
+without near-ties. A query id outside ``[0, V)`` reads the term the
+reference's gather reads (a negative id plus V, then clamped to ``[0, V -
+1]``; ``kernels/impact_score.term_rows``). The JAX package's other
+methods raise ``NotImplementedError`` naming the ROADMAP item that brings
+them. The port's methods take no tuning keyword arguments (the JAX ones —
+Pallas blocks, ``interpret`` — are TPU knobs), and any that is passed
+raises instead of being ignored (``METHOD_KWARGS``, the accepted kwargs
+of each method, is empty for every one).
 """
 
 from __future__ import annotations
@@ -87,9 +90,11 @@ def _fused_windows(queries: SparseRep, index: InvertedIndex
 
 
 def impact_scores(queries: SparseRep, index: InvertedIndex) -> torch.Tensor:
-    """Dense ``(B, n_docs)`` impact scores from the posting windows."""
+    """Dense ``(B, n_docs)`` impact scores from the posting windows, summed
+    one query term at a time (each doc's sum in term order, the same bits
+    on every run and as the fused plain version's scores)."""
     w, docs = _fused_windows(queries, index)
-    return scatter_scores(w, docs, index.n_docs)
+    return scatter_scores(w, docs, index.n_docs, index.max_postings)
 
 
 def fused_retrieve(queries: SparseRep, index: InvertedIndex, k: int = 10

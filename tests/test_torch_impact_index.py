@@ -315,7 +315,7 @@ def test_term_order_scatter_equals_one_pass_on_the_cpu():
     rng = np.random.default_rng(11)
     w = torch.from_numpy(rng.uniform(0, 1, (4, 30)).astype(np.float32))
     d = torch.from_numpy(rng.integers(-2, 25, (4, 30)).astype(np.int32))
-    assert torch.equal(k45.scatter_scores(w, d, 20),
+    assert torch.equal(k45.scatter_scores(w, d, 20, term_lanes=30),
                        k45.scatter_scores(w, d, 20, term_lanes=6))
 
 

@@ -22,8 +22,9 @@ served request):
   the device ms per call (``chip_smoke.graph_ms``: CUDA-graph replays of
   back-to-back calls, median of its windows, and their range);
 * the host ms of the serve path's ``retrieve(queries, index, 10,
-  method="fused")`` and of the engine's ``search(queries, 10,
-  method=...)`` for ``auto`` and ``fused``: the median of REPS calls that
+  method=...)`` for ``fused`` and ``impact`` and of the engine's
+  ``search(queries, 10, method=...)`` for ``auto``, ``fused`` and
+  ``quantized`` (``chip_smoke.host_ms``): the median of REPS calls that
   each end in a synchronise, and their range;
 
 then the card's name and power limit.
@@ -37,7 +38,6 @@ import inspect
 import json
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 TOOL_ROOT = Path(__file__).resolve().parents[1]
@@ -61,21 +61,6 @@ def make_inputs() -> None:
     res = served["res"]
     torch.save({"queries": res["queries"], "served": stack_rows(res["served"]),
                 "index": res["index"], "builder": engine.builder}, INPUTS)
-
-
-def host_ms(torch, fn, n=REPS):
-    """Median host ms of ``fn()`` followed by a synchronise, and the
-    range."""
-    fn()
-    times = []
-    for _ in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    times.sort()
-    return times[len(times) // 2], [times[0], times[-1]]
 
 
 def child(root: Path) -> None:
@@ -127,11 +112,13 @@ def child(root: Path) -> None:
             row[f"{key}_{name}"] = {"digest": chip_smoke.digest(*out),
                                     "ms": ms, "ms_range": spread}
     queries = data["queries"]
-    row["retrieve_ms"] = host_ms(torch, lambda: retrieve(
-        queries, index, 10, method="fused"))
-    for method in ("auto", "fused"):
-        row[f"search_{method}_ms"] = host_ms(
-            torch, lambda: builder.search(queries, 10, method=method))
+    for method in ("fused", "impact"):
+        row[f"retrieve_{method}_ms"] = chip_smoke.host_ms(
+            torch, lambda: retrieve(queries, index, 10, method=method),
+            REPS)
+    for method in ("auto", "fused", "quantized"):
+        row[f"search_{method}_ms"] = chip_smoke.host_ms(
+            torch, lambda: builder.search(queries, 10, method=method), REPS)
     print(json.dumps(row), flush=True)
 
 
