@@ -67,7 +67,25 @@ Phases, run in this order, each printing one JSON line:
              steps of the train entry point at the paper's Table-3 point
              (384 pairs x 256 tokens, remat on) with the head it picks by
              default, K1, K2 and K3 launched twice a step.
-7. xlmr    — splade_xlmr (|V| 250002) at full width: the serve phase's
+7. eval    — the quality loop (``repro_torch.eval``): (a) the method
+             matrix on ``benchmarks/bench_quality.py``'s graded corpus (512
+             docs, 16 queries): ``exact`` must read nDCG@10 = MRR@10 = 1.0,
+             and ``quantized``, ``fused`` (K4 in place) and
+             ``quantized_fused`` (K5 in place) sit within 1e-3 of it on
+             every metric; (b) the train CLI driven through its own
+             ``run`` at full width, ``--full --steps 10 --batch 32
+             --seq-len 32 --eval-every 10 --eval-queries 16384``: two
+             evaluations, each encoding 32768 rows through K1 and searching
+             a 16384-doc index with ``exact`` (``auto`` resolving to K4 in
+             place), with their wall seconds split into encode, index build
+             and search; the final reps also searched with ``impact`` (ids
+             equal to exact's but at near-ties) and ``quantized`` (K5);
+             (c) the bench's trained-vs-init recipe on SMOKE splade_bert,
+             from one init with the kernel head and with the paper's
+             PyTorch baseline head (``naive``): at step 1000 each must beat
+             its init by 0.01 on MRR@10 and nDCG@10 with a falling loss;
+             the gap between the heads is printed.
+8. xlmr    — splade_xlmr (|V| 250002) at full width: the serve phase's
              path (16384 docs, 64 requests, ``auto`` resolving to K4 in
              place); K1 (with its 146-column last tile), K2 and K3 (every
              routing list in device memory) at its V against their plain
@@ -78,8 +96,8 @@ Phases, run in this order, each printing one JSON line:
              memory; then K1, K2 and K3 timed at train_420 (K2 and K3 on
              the random-init routing and on each row's 256 largest y).
 
-Every K1 launch of the serve, dense-serve, engine, train and xlmr phases
-must take the "tma" path. Then a ``{"kernels": [...]}`` line and, last,
+Every K1 launch of the serve, dense-serve, engine, train, eval (b) and
+xlmr phases must take the "tma" path. Then a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": ...}``. Any mismatch, exception or missing
 launch exits non-zero before that last line. The script imports nothing
 of JAX nor of the JAX package.
@@ -2611,7 +2629,383 @@ def phase_timing(torch, served, served_dense, served_engine):
 
 
 # --------------------------------------------------------------------------
-# 7. splade_xlmr at full width
+# 7. eval: the quality loop
+# --------------------------------------------------------------------------
+
+# (a) benchmarks/bench_quality.py's graded corpus at its FULL size: seed 3
+# puts every planted grade in exact score order, so exact retrieval reads
+# nDCG@10 = 1.0
+EVAL_CORPUS = dict(vocab=1024, doc_nnz=32, q_nnz=26, graded=12, seed=3,
+                   n_docs=512, n_queries=16)
+EVAL_METHODS = (  # name, engine kwargs, search kwargs
+    ("exact", {}, {}),
+    ("quantized", {"quantize": True}, {}),
+    ("fused", {}, {"method": "fused"}),                       # K4 in place
+    ("quantized_fused", {"quantize": True}, {"method": "fused"}),   # K5
+)
+# benchmarks/check.py: a lossless method sits within QUALITY_TOL of exact
+# on every metric; training beats its init by MIN_TRAIN_DELTA on MRR@10
+# and nDCG@10
+QUALITY_TOL = 1e-3
+MIN_TRAIN_DELTA = 0.01
+# (b) the train CLI at full width: evaluations at init and at step 10, each
+# of 16384 held-out pairs (32768 rows encoded through K1, an index of 16384
+# docs, where `exact`'s method="auto" resolves to K4 in place)
+EVAL_CLI = ["--arch", "splade_bert", "--full", "--steps", "10", "--batch",
+            "32", "--seq-len", "32", "--eval-every", "10", "--eval-queries",
+            "16384"]
+# posting lanes per chunk of queries in (b)'s impact search: its windows
+# and scatter take about 40 bytes a lane
+IMPACT_LANES = 2**27
+# (c) bench_quality.py's trained_vs_init recipe (TRAIN), run to step 1000,
+# where the schedule's warm-up ends, and evaluated at its FULL size's 250
+# steps (printed) and at 1000 (gated): at 250 the JAX package's own run of
+# the recipe does not gain MRR@10 on this tree (0.3545 -> 0.3368 on the CPU;
+# 0.4815 at 1000)
+EVAL_TRAIN = dict(batch=16, q_len=8, d_len=32, n_micro=2, lr=3e-4,
+                  steps=1000, eval_at=(250, 1000), eval_queries=32)
+
+
+@contextlib.contextmanager
+def timed_calls(torch, **targets):
+    """Wrap each callable ``name=(owner, attribute)`` so that every call is
+    timed on the host clock between two synchronises. Yields ``{name:
+    [(seconds, args, result), ...]}``; restores them on exit."""
+    log = {name: [] for name in targets}
+    saved = [(name, owner, attr, getattr(owner, attr))
+             for name, (owner, attr) in targets.items()]
+
+    def wrap(name, fn):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            log[name].append((time.perf_counter() - t0, a, out))
+            return out
+        return wrapped
+
+    for name, owner, attr, fn in saved:
+        setattr(owner, attr, wrap(name, fn))
+    try:
+        yield log
+    finally:
+        for _, owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def head_and_impact_modules():
+    from repro_torch.kernels import impact_score as k4
+    from repro_torch.kernels import sparton as k1
+    from repro_torch.kernels import sparton_bwd as kb
+
+    return k1, kb, k4
+
+
+def reset_launches():
+    k1, kb, k4 = head_and_impact_modules()
+    reset_k1(k1)
+    kb.sparton_backward_dh.launches = 0
+    kb.sparton_backward_de.launches = 0
+    reset_k45(k4)
+
+
+def read_launches():
+    """K1-K5's launches since ``reset_launches`` (K4's and K5's as
+    ``k45_launches`` counts them)."""
+    k1, kb, k4 = head_and_impact_modules()
+    return {"sparton_fwd": k1.sparton_forward.launches,
+            "sparton_bwd_dh": kb.sparton_backward_dh.launches,
+            "sparton_bwd_de": kb.sparton_backward_de.launches,
+            **k45_launches(k4)}
+
+
+def eval_plains():
+    """plain_guard targets: K1-K5's plain versions."""
+    k1, kb, k4 = head_and_impact_modules()
+    return {"k1": (k1, "sparton_forward_plain"),
+            "k2": (kb, "sparton_backward_dh_plain"),
+            "k3": (kb, "sparton_backward_de_plain"), **k45_plains(k4)}
+
+
+def eval_graded(torch):
+    """(a) The method matrix on the graded corpus: exact, quantized, and
+    the fused kernels reading the raw (K4) and the quantized (K5) index in
+    place, each held to exact."""
+    from repro_torch.data.synthetic import lsr_impact_corpus
+    from repro_torch.eval import MethodSpec, Qrels, evaluate_retrieval
+
+    corpus = lsr_impact_corpus(**EVAL_CORPUS)
+    qrels = Qrels.from_triples(corpus["qrels"])
+    methods = [MethodSpec(name, engine=engine, search=search)
+               for name, engine, search in EVAL_METHODS]
+    reset_launches()
+    with plain_guard(**eval_plains()) as plain_on_cuda:
+        res = evaluate_retrieval(None, corpus, qrels, methods=methods,
+                                 ks=(10,), device="cuda")
+    launches = read_launches()
+    require(not plain_on_cuda, f"eval graded: plain versions ran on CUDA "
+                               f"tensors: {sorted(set(plain_on_cuda))}")
+    exact = res["exact"]
+    # the same gains summed for dcg and idcg: the ratio is 1.0 up to f32
+    # rounding of the mean
+    require(abs(exact["ndcg@10"] - 1.0) <= 1e-6
+            and abs(exact["mrr@10"] - 1.0) <= 1e-6,
+            f"eval graded: exact reads {exact}, not 1.0: the planted corpus "
+            f"must be recovered exactly")
+    gaps = {name: max(abs(m[key] - exact[key]) for key in exact)
+            for name, m in res.items()}
+    require(max(gaps.values()) <= QUALITY_TOL,
+            f"eval graded: a method differs from exact by more than "
+            f"{QUALITY_TOL}: {gaps}")
+    require(launches["impact_index_topk"] >= 1
+            and launches["impact_q_index_topk"] >= 1
+            and launches["impact_topk"] == launches["impact_index_topk"]
+            and launches["impact_q_topk"] == launches["impact_q_index_topk"],
+            f"eval graded: K4 and K5 must each read their index in place: "
+            f"{launches}")
+    return {"corpus": EVAL_CORPUS, "metrics": res, "max_gap_to_exact": gaps,
+            "launches": launches}
+
+
+def eval_full_width(torch):
+    """(b) The train CLI at full width with --eval-every (EVAL_CLI), driven
+    through its own ``run``: each evaluation's wall seconds split into
+    encode, index build and search, rows encoded per second; then the final
+    reps searched with ``impact`` (exact's ids must equal its ids but at
+    near-ties) and ``quantized`` (K5 in place: printed, not gated)."""
+    import io
+
+    from repro_torch.eval import MethodSpec, Qrels, compute_metrics, harness
+    from repro_torch.launch import train as cli
+    from repro_torch.retrieval.engine.builder import IndexBuilder
+    from repro_torch.retrieval.index import build_inverted_index
+    from repro_torch.retrieval.score import impact_scores
+    from repro_torch.retrieval.sparse_rep import SparseRep, sparsify_topk
+    from repro_torch.runtime.serving import make_config_encoder
+
+    k1 = head_and_impact_modules()[0]
+    args = cli.parser().parse_args(EVAL_CLI)
+    n = args.eval_queries
+    printed = io.StringIO()
+    reset_launches()
+    with plain_guard(**eval_plains()) as plain_on_cuda, \
+            timed_calls(torch, evaluate=(cli, "evaluate_retrieval"),
+                        encode=(harness, "encode_reps"),
+                        build=(IndexBuilder, "flush"),
+                        search=(IndexBuilder, "search")) as calls, \
+            contextlib.redirect_stdout(printed):
+        t0 = time.perf_counter()
+        res = cli.run(args, torch.device("cuda"))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    launches = read_launches()
+    k1_paths = k1_on_tma(k1, "eval full width")
+    lines = printed.getvalue().splitlines()
+    require(not plain_on_cuda, f"eval: plain versions ran on CUDA tensors: "
+                               f"{sorted(set(plain_on_cuda))}")
+    for head in ("eval @ init: ", f"eval @ step {args.steps}: ",
+                 "eval improvement over init: "):
+        require(sum(line.startswith(head) for line in lines) == 1,
+                f"eval: the CLI printed no single {head!r} line: {lines}")
+    n_evals = 1 + len(res["evals"])
+    chunks = 2 * -(-n // min(32, n))                 # docs and queries
+    # K1 once a side of each step and once an encode chunk; K2 and K3 once
+    # a side of each step
+    want = {"sparton_fwd": 2 * args.steps + n_evals * chunks,
+            "sparton_bwd_dh": 2 * args.steps,
+            "sparton_bwd_de": 2 * args.steps,
+            "impact_topk": n_evals, "impact_index_topk": n_evals,
+            "impact_q_topk": 0, "impact_q_index_topk": 0}
+    require(launches == want, f"eval: launches {launches}, expected {want} "
+                              f"(exact resolving to K4 in place)")
+    resolved = [a[0].resolved_method("auto") for _, a, _ in calls["search"]]
+    require(resolved == ["fused"] * n_evals,
+            f"eval: exact's auto resolved to {resolved}")
+
+    # the device's share of an encode chunk's wall time, on the final params
+    cfg = cli.config_from_args(args)
+    encode = make_config_encoder(res["state"]["params"], cfg,
+                                 spec=cfg.head_spec(rep_topk=None))
+    encode_profile = profile_encode(
+        torch, lambda t, m: sparsify_topk(encode(t, m), 64), cfg, batch=32,
+        seq=args.seq_len, n=8)
+    del encode
+
+    evals = []
+    for i, (step, metrics) in enumerate([(0, res["init"])] + res["evals"]):
+        encode_s = calls["encode"][2 * i][0] + calls["encode"][2 * i + 1][0]
+        evals.append({
+            "step": step, "metrics": metrics,
+            "wall_s": calls["evaluate"][i][0], "encode_s": encode_s,
+            "index_build_s": calls["build"][i][0],
+            "search_ms": 1e3 * calls["search"][i][0],
+            "rows_per_s": 2 * n / encode_s})
+    require(all(0.0 <= v <= 1.0 for e in evals for v in e["metrics"].values()),
+            f"eval: metrics out of [0, 1]: {evals}")
+
+    # the final evaluation's reps searched by two more methods: quantized
+    # (K5 in place) at once, impact in chunks of queries, since its (B, Q,
+    # max_postings) windows would not fit the card at B 16384
+    doc_reps, q_reps = (calls["encode"][-2][2], calls["encode"][-1][2])
+    exact_ids = torch.as_tensor(calls["search"][-1][2][1], device="cuda")
+    qrels = Qrels.paired(n)
+    vocab = cfg.vocab_size
+    reset_launches()
+    with plain_guard(**eval_plains()) as plain_on_cuda, \
+            timed_calls(torch, build=(IndexBuilder, "flush"),
+                        search=(IndexBuilder, "search")) as more:
+        quantized = harness._search_one(
+            MethodSpec("quantized", engine={"quantize": True}), doc_reps,
+            q_reps, vocab, 10, np.arange(n), device="cuda")
+        builder = IndexBuilder(vocab, device="cuda")
+        builder.add(doc_reps)
+        builder.flush()
+        index = build_inverted_index(doc_reps, vocab, device="cuda")
+        chunk = max(1, IMPACT_LANES // (q_reps.width * index.max_postings))
+        impact, hard, differ = [], 0, 0
+        for lo in range(0, n, chunk):
+            rows = slice(lo, lo + chunk)
+            q = SparseRep(q_reps.values[rows], q_reps.indices[rows],
+                          q_reps.nnz[rows])
+            ids = builder.search(q, 10, method="impact")[1]
+            impact.append(ids)
+            ids = torch.as_tensor(ids, device="cuda")
+            require(bool((exact_ids[rows] >= 0).all() and (ids >= 0).all()),
+                    "eval: a query's top 10 holds padding")
+            h, d = ids_beyond_near_ties(torch, impact_scores(q, index),
+                                        exact_ids[rows], ids)
+            hard, differ = hard + h, differ + d
+    more_launches = read_launches()
+    require(not plain_on_cuda, f"eval: plain versions ran on CUDA tensors: "
+                               f"{sorted(set(plain_on_cuda))}")
+    require(more_launches["impact_q_index_topk"] == 1
+            and more_launches["impact_q_topk"] == 1
+            and more_launches["impact_topk"] == 0,
+            f"eval: impact and quantized searches launched {more_launches}")
+    require(hard == 0, f"eval: exact's ids differ from impact's at {hard} "
+                       f"positions beyond near-ties")
+    others = {
+        "quantized": {"metrics": compute_metrics(
+            quantized, qrels, ks=(10,), metrics=("mrr", "ndcg")),
+            "index_build_s": more["build"][0][0],
+            "search_ms": 1e3 * more["search"][0][0]},
+        "impact": {"metrics": compute_metrics(
+            np.concatenate(impact), qrels, ks=(10,), metrics=("mrr", "ndcg")),
+            "index_build_s": more["build"][1][0],
+            "search_ms": 1e3 * sum(t for t, _, _ in more["search"][1:]),
+            "query_chunk": chunk, "max_postings": index.max_postings}}
+    del index, builder, exact_ids, res
+    torch.cuda.empty_cache()
+    for key, n_more in more_launches.items():
+        launches[key] += n_more
+    return {"cli": " ".join(EVAL_CLI), "printed": lines, "run_s": run_s,
+            "evaluations": evals, "encode_profile": encode_profile,
+            "final_reps": others,
+            "exact_ids_differ_from_impact": differ,
+            "exact_ids_differ_beyond_near_ties": hard, "launches": launches,
+            "k1_paths": k1_paths}
+
+
+def eval_trained_vs_init(torch):
+    """(c) EVAL_TRAIN's steps of SMOKE splade_bert from one init state on
+    one data stream, once with the kernel head and once with the paper's
+    PyTorch baseline head (``naive``), each evaluated at init and at each
+    of ``eval_at`` by the train CLI's ``evaluator`` on its held-out pairs;
+    the last is gated."""
+    import dataclasses
+
+    from repro_torch.configs.splade_bert import SMOKE
+    from repro_torch.data.synthetic import lsr_pair_batches
+    from repro_torch.launch import train as cli
+    from repro_torch.launch.steps import build_lsr_train_step, init_state
+    from repro_torch.tree import tree_map
+
+    t = EVAL_TRAIN
+    # drawn on the CPU: the same init on any machine
+    init = init_state("splade_bert", torch.Generator().manual_seed(0),
+                      smoke=True)
+    it = lsr_pair_batches(batch=t["batch"], q_len=t["q_len"],
+                          d_len=t["d_len"], vocab=SMOKE.vocab_size, seed=0)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+               for _ in range(t["steps"])]
+    corpus, qrels = cli.held_out(SMOKE, t["eval_queries"], q_len=t["q_len"],
+                                 d_len=t["d_len"])
+    heads = {}
+    for impl in ("kernel", "naive"):
+        cfg = dataclasses.replace(SMOKE, head_impl=impl)
+        evaluate = cli.evaluator(cfg, corpus, qrels,
+                                 device=torch.device("cuda"))
+        step = build_lsr_train_step(cfg, n_micro=t["n_micro"], lr=t["lr"])
+        state = {"params": tree_map(lambda x: x.cuda(), init["params"]),
+                 "opt": tree_map(lambda x: x.cuda(), init["opt"]),
+                 "step": init["step"]}
+        reset_launches()
+        train_s = 0.0
+        with plain_guard(**eval_plains()) as plain_on_cuda:
+            evals = {0: evaluate(state)}
+            losses = []
+            for lo, hi in zip((0,) + t["eval_at"], t["eval_at"]):
+                t0 = time.perf_counter()
+                for b in batches[lo:hi]:
+                    state, m = step(state, b)
+                    losses.append(m["loss"])
+                torch.cuda.synchronize()
+                train_s += time.perf_counter() - t0
+                evals[hi] = evaluate(state)
+        losses = [float(x) for x in losses]
+        launches = read_launches()
+        require(not plain_on_cuda, f"eval {impl}: plain versions ran on CUDA "
+                                   f"tensors: {sorted(set(plain_on_cuda))}")
+        n_side = 2 * t["n_micro"] * t["steps"]   # a head call a side
+        want = ({"sparton_fwd": n_side + 2 * len(evals),
+                 "sparton_bwd_dh": n_side, "sparton_bwd_de": n_side}
+                if impl == "kernel" else dict.fromkeys(
+                    ("sparton_fwd", "sparton_bwd_dh", "sparton_bwd_de"), 0))
+        require({k: launches[k] for k in want} == want,
+                f"eval {impl}: launches {launches}, expected {want}")
+        delta = {at: {k: m[k] - evals[0][k] for k in m}
+                 for at, m in evals.items() if at}
+        head = 25
+        heads[impl] = {
+            "metrics": evals, "trained_minus_init": delta,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "loss_mean_first_25": float(np.mean(losses[:head])),
+            "loss_mean_last_25": float(np.mean(losses[-head:])),
+            "train_s": train_s, "steps_per_s": t["steps"] / train_s,
+            "launches": launches}
+        require(all(np.isfinite(losses)), f"eval {impl}: non-finite loss")
+        require(np.mean(losses[-head:]) < np.mean(losses[:head]),
+                f"eval {impl}: the loss did not fall: "
+                f"{heads[impl]['loss_mean_first_25']} -> "
+                f"{heads[impl]['loss_mean_last_25']}")
+        gated = delta[t["steps"]]
+        require(all(gated[k] >= MIN_TRAIN_DELTA
+                    for k in ("mrr@10", "ndcg@10")),
+                f"eval {impl}: trained minus init at step {t['steps']}: "
+                f"{gated}, below {MIN_TRAIN_DELTA}")
+        del state, step
+    gap = {at: {k: v - heads["naive"]["metrics"][at][k] for k, v in m.items()}
+           for at, m in heads["kernel"]["metrics"].items()}
+    return {"recipe": t, "heads": heads, "kernel_minus_naive": gap}
+
+
+def phase_eval(torch):
+    """The quality loop on the card: (a) the method matrix on the graded
+    corpus, (b) the train CLI's --eval-every at full width, (c) trained
+    against init with the kernel head and with the baseline head."""
+    graded = eval_graded(torch)
+    full = eval_full_width(torch)
+    trained = eval_trained_vs_init(torch)
+    emit("eval", graded=graded, full_width=full, trained_vs_init=trained)
+    return {"launches": {
+        "graded": graded["launches"], "full_width": full["launches"],
+        "trained_vs_init": trained["heads"]["kernel"]["launches"]},
+        "k1_paths": full["k1_paths"]}
+
+
+# --------------------------------------------------------------------------
+# 8. splade_xlmr at full width
 # --------------------------------------------------------------------------
 
 # the gradient check's pairs x tokens at |V| 250002: the plain head's f32
@@ -2729,7 +3123,7 @@ def phase_xlmr(torch):
 
 
 def kernel_rows(measured, launches, dense_launches, engine_launches,
-                train_launches, k1_paths, xlmr):
+                train_launches, k1_paths, xlmr, eval_launches):
     """The ``{"kernels": [...]}`` line: each kernel's launches on its path
     and its numbers from the timing phase (K1 at an index batch, K2/K3 at
     the train shape, K4, K5 and K6 at the served queries; K1 also at the
@@ -2737,7 +3131,8 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
     K5's ``ms`` are their index entries', ``window_ms`` their window
     entries'); K1, K2 and K3 also ``at_xlmr``, at train_420 with xlmr's
     V (K2 and K3 on the "dense" and "sparse" routings), with their
-    launches in the xlmr phase's serve and train_420 runs."""
+    launches in the xlmr phase's serve and train_420 runs; K1-K5 also
+    ``eval_launches``, in each part of the eval phase."""
     main_k1, bwd, k4, k5, k6 = (measured[key]
                                 for key in ("k1", "bwd", "k4", "k5", "k6"))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2756,6 +3151,10 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
 
     k6_keys = keys + ("ms_over_library",)
     k45_keys = keys + ("window_ms", "digest")
+
+    def in_eval(key):
+        return {part: n[key] for part, n in eval_launches.items()}
+
     return [
         {"name": "sparton_fwd (K1)", "route": "cuda",
          "source": "src/repro_torch/csrc/sparton_fwd.cu",
@@ -2765,6 +3164,7 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
          "engine_launches": engine_launches["sparton_fwd"],
          "train_launches": train_launches["sparton_fwd"],
          "path_launches": k1_paths,
+         "eval_launches": in_eval("sparton_fwd"),
          **{key: main_k1[key] for key in k1_keys},
          **{f"at_{name}": {key: measured["k1_rows"][name][key]
                            for key in k1_keys}
@@ -2773,6 +3173,7 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
         *({"name": name, "route": "cuda",
            "source": "src/repro_torch/csrc/sparton_bwd.cu",
            "replaces": replaces, "launches": train_launches[key],
+           "eval_launches": in_eval(key),
            **{k: bwd["train"][kernel][k] for k in keys},
            "at_xlmr": x_bwd(kernel, key)}
           for name, kernel, key, replaces in (
@@ -2787,12 +3188,14 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
          "index_launches": launches["impact_index_topk"],
          "engine_launches": engine_launches["impact_topk"],
          "xlmr_serve_launches": xlmr["serve_launches"]["impact_topk"],
+         "eval_launches": in_eval("impact_topk"),
          **{key: k4["B8"][key] for key in k45_keys},
          "at_B64": {key: k4["B64"][key] for key in k45_keys}},
         {"name": "impact_q_topk (K5)", "route": "cuda",
          "source": "src/repro_torch/csrc/impact_topk.cu",
          "replaces": "src/repro/kernels/impact_score.py:120",
          "launches": engine_launches["impact_q_topk"],
+         "eval_launches": in_eval("impact_q_topk"),
          **{key: k5["B8"][key] for key in k45_keys},
          "at_B64": {key: k5["B64"][key] for key in k45_keys}},
         {"name": "topk_score (K6)", "route": "cuda",
@@ -2840,12 +3243,15 @@ def main() -> int:
     params = served.pop("params")
     del params
     torch.cuda.empty_cache()
+    evaluated = phase_eval(torch)
+    k1_paths["eval"] = evaluated["k1_paths"]
     xlmr = phase_xlmr(torch)
     k1_paths.update({f"xlmr_{where}": paths
                      for where, paths in xlmr["k1_paths"].items()})
     print(json.dumps({"kernels": kernel_rows(
         measured, served["launches"], dense_launches, engine_launches,
-        trained["launches"], k1_paths, xlmr)}), flush=True)
+        trained["launches"], k1_paths, xlmr, evaluated["launches"])}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

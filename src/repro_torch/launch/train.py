@@ -2,6 +2,8 @@
 
     python -m repro_torch.launch.train --arch splade_bert --steps 3 \\
         --batch 2 --seq-len 16 --device cpu
+    python -m repro_torch.launch.train --arch splade_bert --steps 2 \\
+        --batch 2 --seq-len 16 --eval-every 1 --eval-queries 8 --device cpu
     python -m repro_torch.launch.train --arch splade_xlmr --full \\
         --batch 16 --seq-len 256
 
@@ -18,11 +20,19 @@ in the JAX CLI. It runs on ``cuda`` unless ``--device cpu`` is given
 (where the kernels' plain versions run), and exits non-zero naming CUDA
 when there is none.
 
-The JAX CLI's other flags: ``--eval-every`` and ``--eval-queries``
-arrive with evaluation (ROADMAP Queue 1 item 7), ``--ckpt-dir``,
-``--ckpt-every`` and ``--resume`` with checkpoint and resume (item 11),
-``--autotune-head`` with block selection (item 2). ``--overlap`` has no
-CUDA counterpart: it sets XLA's TPU scheduler flags.
+``--eval-every N`` scores retrieval on ``--eval-queries`` held-out
+(query, positive doc) pairs (``lsr_pair_batches`` with seed 9173, which
+no training shard draws) at init, every N steps and at the last step:
+the params' dense head output, sparsified to 64 terms a row, indexed
+and searched with the ``exact`` method (``eval.evaluate_retrieval``;
+``auto`` reaches the fused kernel K4 from 16384 docs), MRR@10 and
+nDCG@10, printed as the JAX CLI prints them (``eval @ init: ...``,
+``eval @ step N: ...``, ``eval improvement over init: ...``).
+
+The JAX CLI's other flags: ``--ckpt-dir``, ``--ckpt-every`` and
+``--resume`` arrive with checkpoint and resume (ROADMAP Queue 1 item
+11), ``--autotune-head`` with block selection (item 2). ``--overlap``
+has no CUDA counterpart: it sets XLA's TPU scheduler flags.
 """
 
 from __future__ import annotations
@@ -31,7 +41,7 @@ import argparse
 import dataclasses
 import sys
 from itertools import islice
-from typing import Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Tuple
 
 import torch
 
@@ -41,10 +51,13 @@ from repro_torch.core.head_api import available_impls
 from repro_torch.data.loader import HostShardedLoader
 from repro_torch.data.synthetic import lsr_pair_batches
 from repro_torch.device import resolve_device
+from repro_torch.eval import MethodSpec, Qrels, evaluate_retrieval
 from repro_torch.launch.steps import build_lsr_train_step, init_state
+from repro_torch.runtime.serving import make_config_encoder
 
 
 REGULARIZERS = ("lambda_q", "lambda_d", "l1_weight")
+EVAL_SEED = 9173      # held-out pairs: a seed no training shard draws
 
 
 def train_steps(cfg: TransformerConfig, state: Dict, *, batch: int,
@@ -75,6 +88,42 @@ def train(cfg: TransformerConfig, state: Dict, *, steps: int, batch: int,
                     device=device), steps)]
 
 
+def held_out(cfg: TransformerConfig, n: int, *, q_len: int, d_len: int
+             ) -> Tuple[Dict, Qrels]:
+    """``n`` held-out (query, positive doc) pairs as a token corpus for
+    ``eval.evaluate_retrieval``, and their judgments (query i's sole
+    relevant doc is doc i)."""
+    pairs = next(lsr_pair_batches(batch=n, q_len=q_len, d_len=d_len,
+                                  vocab=cfg.vocab_size, seed=EVAL_SEED))
+    corpus = {"doc_tokens": pairs["d_tokens"], "doc_mask": pairs["d_mask"],
+              "q_tokens": pairs["q_tokens"], "q_mask": pairs["q_mask"],
+              "vocab_size": cfg.vocab_size}
+    return corpus, Qrels.paired(n)
+
+
+def evaluator(cfg: TransformerConfig, corpus: Dict, qrels: Qrels, *,
+              device: torch.device) -> Callable[[Dict], Dict[str, float]]:
+    """``state -> {"mrr@10": ..., "ndcg@10": ...}``: the ``exact`` method
+    over ``corpus``, encoded without autograd by the config's head on the
+    state's current params (the dense ``(B, V)`` output, sparsified to 64
+    terms a row), in chunks of ``min(32, n_queries)`` rows."""
+    batch = min(32, len(qrels))
+    spec = cfg.head_spec(rep_topk=None, rep_threshold=None)
+
+    def run_eval(state: Dict) -> Dict[str, float]:
+        encode = make_config_encoder(state["params"], cfg, spec=spec)
+        res = evaluate_retrieval(
+            encode, corpus, qrels, methods=(MethodSpec("exact"),),
+            ks=(10,), metrics=("mrr", "ndcg"), batch=batch, device=device)
+        return res["exact"]
+
+    return run_eval
+
+
+def _metrics_line(metrics: Dict[str, float]) -> str:
+    return " ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True, choices=ARCHS)
@@ -95,6 +144,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--l1-weight", type=float, default=None,
                     help="L1 rep regularizer weight "
                          "(default: config's l1_weight)")
+    ap.add_argument("--eval-every", type=int, default=0,
+                    help="every N steps, run retrieval eval (MRR@10/"
+                         "nDCG@10 on a held-out paired batch) and log "
+                         "it; also evals the untrained init and prints "
+                         "the improvement at the end. 0 = off")
+    ap.add_argument("--eval-queries", type=int, default=32,
+                    help="held-out (query, positive-doc) pairs scored "
+                         "by --eval-every")
     ap.add_argument("--head-impl", default=None,
                     choices=("jax",) + available_impls(),
                     help="override the config's head backend (default "
@@ -119,6 +176,47 @@ def config_from_args(args: argparse.Namespace) -> TransformerConfig:
     return cfg
 
 
+def run(args: argparse.Namespace, device: torch.device) -> Dict:
+    """The CLI's run from parsed ``args``: trains, evaluates as
+    ``--eval-every`` asks and prints the JAX CLI's lines. Returns
+    ``{"losses", "init": metrics or None, "evals": [(step, metrics),
+    ...], "state": the final state}``."""
+    cfg = config_from_args(args)
+    state = init_state(args.arch,
+                       torch.Generator(device=device).manual_seed(0),
+                       smoke=not args.full)
+    run_eval = None
+    init_metrics = None
+    if args.eval_every:
+        run_eval = evaluator(cfg, *held_out(
+            cfg, args.eval_queries, q_len=args.seq_len,
+            d_len=args.seq_len), device=device)
+        init_metrics = run_eval(state)
+        print("eval @ init: " + _metrics_line(init_metrics))
+    losses: List[float] = []
+    evals: List[Tuple[int, Dict[str, float]]] = []
+    steps = train_steps(cfg, state, batch=args.batch, seq_len=args.seq_len,
+                        lr=args.lr, device=device)
+    for done, (state, loss) in enumerate(islice(steps, args.steps), 1):
+        losses.append(loss)
+        if run_eval and (done % args.eval_every == 0 or done == args.steps):
+            evals.append((done, run_eval(state)))
+            print(f"eval @ step {done}: " + _metrics_line(evals[-1][1]))
+    steps.close()
+    if losses:
+        print(f"step {len(losses)}: loss {losses[-1]:.4f} "
+              f"(first {losses[0]:.4f})")
+    if init_metrics and evals:
+        final = evals[-1][1]
+        print("eval improvement over init: " + " ".join(
+            f"{k} {init_metrics[k]:.4f}->{final[k]:.4f}"
+            f"({final[k] - init_metrics[k]:+.4f})" for k in final))
+    print(f"done: {args.steps} steps of {cfg.name} "
+          f"(head {cfg.head_spec().impl}) on {device}")
+    return {"losses": losses, "init": init_metrics, "evals": evals,
+            "state": state}
+
+
 def main(argv=None) -> int:
     ap = parser()
     args = ap.parse_args(argv)
@@ -126,18 +224,7 @@ def main(argv=None) -> int:
         device = resolve_device(args.device)
     except RuntimeError as e:
         ap.error(str(e))
-
-    cfg = config_from_args(args)
-    state = init_state(args.arch,
-                       torch.Generator(device=device).manual_seed(0),
-                       smoke=not args.full)
-    losses = train(cfg, state, steps=args.steps, batch=args.batch,
-                   seq_len=args.seq_len, lr=args.lr, device=device)
-    if losses:
-        print(f"step {len(losses)}: loss {losses[-1]:.4f} "
-              f"(first {losses[0]:.4f})")
-    print(f"done: {args.steps} steps of {cfg.name} "
-          f"(head {cfg.head_spec().impl}) on {device}")
+    run(args, device)
     return 0
 
 
