@@ -95,9 +95,23 @@ Phases, run in this order, each printing one JSON line:
              paper's PyTorch baseline head (``naive``), each with its peak
              memory; then K1, K2 and K3 timed at train_420 (K2 and K3 on
              the random-init routing and on each row's 256 largest y).
+9. ckpt    — checkpoint and resume, splade_xlmr at full width through the
+             train CLI's own ``run`` at train_16 (16 pairs x 256): (a) 4
+             steps with ``--ckpt-every 2`` (checkpoints at steps 2 and 4,
+             3.67 GB of state each), K1, K2 and K3 twice a step; (b) the
+             checkpoint loaded back onto the card, bit for bit the state
+             of step 4; (c) ``--resume --steps 6``; (d) its state against
+             the same 2 steps run on in memory from step 4: bit for bit,
+             or, if the trunk is not run-to-run reproducible, within a
+             second in-memory run's own difference; (e) no step skipped;
+             (f) the device-to-host copy, write and load seconds, the
+             bytes on disk, the free disk before, and the step ms with and
+             without a write in flight; (g) the example
+             ``repro_torch.examples.train_splade``: 200 SMOKE steps, the
+             loss falling, its in-batch acc@1.
 
-Every K1 launch of the serve, dense-serve, engine, train, eval (b) and
-xlmr phases must take the "tma" path. Then a ``{"kernels": [...]}`` line and, last,
+Every K1 launch of the serve, dense-serve, engine, train, eval (b), xlmr
+and ckpt phases must take the "tma" path. Then a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": ...}``. Any mismatch, exception or missing
 launch exits non-zero before that last line. The script imports nothing
 of JAX nor of the JAX package.
@@ -1076,13 +1090,26 @@ SCORE_TOL = 1e-4
 
 
 @contextlib.contextmanager
+def patched(wrap, **targets):
+    """Replace each callable ``name=(owner, attribute)`` by ``wrap(name,
+    callable)`` for the block; restores them on exit."""
+    saved = [(owner, attr, getattr(owner, attr))
+             for owner, attr in targets.values()]
+    for name, (owner, attr, fn) in zip(targets, saved):
+        setattr(owner, attr, wrap(name, fn))
+    try:
+        yield
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+@contextlib.contextmanager
 def plain_guard(**targets):
     """Wrap each plain version ``name=(module, attribute)`` so that a call
     on a CUDA tensor is recorded: the main path must never run one.
     Yields the list of names so recorded; restores them on exit."""
     hits = []
-    saved = [(name, mod, attr, getattr(mod, attr))
-             for name, (mod, attr) in targets.items()]
 
     def wrap(name, fn):
         def wrapped(x, *a, **kw):
@@ -1091,13 +1118,8 @@ def plain_guard(**targets):
             return fn(x, *a, **kw)
         return wrapped
 
-    for name, mod, attr, fn in saved:
-        setattr(mod, attr, wrap(name, fn))
-    try:
+    with patched(wrap, **targets):
         yield hits
-    finally:
-        for _, mod, attr, fn in saved:
-            setattr(mod, attr, fn)
 
 
 K45_ENTRIES = {  # launch counter: entry
@@ -2672,8 +2694,6 @@ def timed_calls(torch, **targets):
     timed on the host clock between two synchronises. Yields ``{name:
     [(seconds, args, result), ...]}``; restores them on exit."""
     log = {name: [] for name in targets}
-    saved = [(name, owner, attr, getattr(owner, attr))
-             for name, (owner, attr) in targets.items()]
 
     def wrap(name, fn):
         def wrapped(*a, **kw):
@@ -2685,13 +2705,8 @@ def timed_calls(torch, **targets):
             return out
         return wrapped
 
-    for name, owner, attr, fn in saved:
-        setattr(owner, attr, wrap(name, fn))
-    try:
+    with patched(wrap, **targets):
         yield log
-    finally:
-        for _, owner, attr, fn in saved:
-            setattr(owner, attr, fn)
 
 
 def head_and_impact_modules():
@@ -2703,21 +2718,26 @@ def head_and_impact_modules():
 
 
 def reset_launches():
+    from repro_torch.kernels import topk_score as k6
+
     k1, kb, k4 = head_and_impact_modules()
     reset_k1(k1)
     kb.sparton_backward_dh.launches = 0
     kb.sparton_backward_de.launches = 0
     reset_k45(k4)
+    k6.topk_score.launches = 0
 
 
 def read_launches():
-    """K1-K5's launches since ``reset_launches`` (K4's and K5's as
+    """K1-K6's launches since ``reset_launches`` (K4's and K5's as
     ``k45_launches`` counts them)."""
+    from repro_torch.kernels import topk_score as k6
+
     k1, kb, k4 = head_and_impact_modules()
     return {"sparton_fwd": k1.sparton_forward.launches,
             "sparton_bwd_dh": kb.sparton_backward_dh.launches,
             "sparton_bwd_de": kb.sparton_backward_de.launches,
-            **k45_launches(k4)}
+            **k45_launches(k4), "topk_score": k6.topk_score.launches}
 
 
 def eval_plains():
@@ -2775,6 +2795,8 @@ def eval_full_width(torch):
     reps searched with ``impact`` (exact's ids must equal its ids but at
     near-ties) and ``quantized`` (K5 in place: printed, not gated)."""
     import io
+    import shutil
+    import tempfile
 
     from repro_torch.eval import MethodSpec, Qrels, compute_metrics, harness
     from repro_torch.launch import train as cli
@@ -2785,20 +2807,25 @@ def eval_full_width(torch):
     from repro_torch.runtime.serving import make_config_encoder
 
     k1 = head_and_impact_modules()[0]
-    args = cli.parser().parse_args(EVAL_CLI)
+    # the CLI checkpoints at the end: into a directory of this run's own
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_eval_ckpt_")
+    args = cli.parser().parse_args(EVAL_CLI + ["--ckpt-dir", ckpt_dir])
     n = args.eval_queries
     printed = io.StringIO()
     reset_launches()
-    with plain_guard(**eval_plains()) as plain_on_cuda, \
-            timed_calls(torch, evaluate=(cli, "evaluate_retrieval"),
-                        encode=(harness, "encode_reps"),
-                        build=(IndexBuilder, "flush"),
-                        search=(IndexBuilder, "search")) as calls, \
-            contextlib.redirect_stdout(printed):
-        t0 = time.perf_counter()
-        res = cli.run(args, torch.device("cuda"))
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
+    try:
+        with plain_guard(**eval_plains()) as plain_on_cuda, \
+                timed_calls(torch, evaluate=(cli, "evaluate_retrieval"),
+                            encode=(harness, "encode_reps"),
+                            build=(IndexBuilder, "flush"),
+                            search=(IndexBuilder, "search")) as calls, \
+                contextlib.redirect_stdout(printed):
+            t0 = time.perf_counter()
+            res = cli.run(args, torch.device("cuda"))
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     launches = read_launches()
     k1_paths = k1_on_tma(k1, "eval full width")
     lines = printed.getvalue().splitlines()
@@ -2816,7 +2843,7 @@ def eval_full_width(torch):
             "sparton_bwd_dh": 2 * args.steps,
             "sparton_bwd_de": 2 * args.steps,
             "impact_topk": n_evals, "impact_index_topk": n_evals,
-            "impact_q_topk": 0, "impact_q_index_topk": 0}
+            "impact_q_topk": 0, "impact_q_index_topk": 0, "topk_score": 0}
     require(launches == want, f"eval: launches {launches}, expected {want} "
                               f"(exact resolving to K4 in place)")
     resolved = [a[0].resolved_method("auto") for _, a, _ in calls["search"]]
@@ -3122,8 +3149,282 @@ def phase_xlmr(torch):
                          "train": trained["k1_paths"]}}
 
 
+# --------------------------------------------------------------------------
+# 9. checkpoint and resume at full width (splade_xlmr)
+# --------------------------------------------------------------------------
+
+# (a) the train CLI at xlmr's train_16 shape, checkpointing at steps 2 and
+# 4 (and once more at the end, as the runner does); (c) the same flags
+# with --resume to step 6
+CKPT_CLI = ["--arch", "splade_xlmr", "--full", "--batch", "16", "--seq-len",
+            "256", "--ckpt-every", "2"]
+CKPT_STEPS = (4, 6)
+KEEP_CKPTS = 3   # RunnerConfig's default keep_ckpts
+
+
+@contextlib.contextmanager
+def spans(**targets):
+    """Wrap each callable ``name=(owner, attribute)`` so that every call's
+    host-clock span (``time.monotonic``, no synchronise: the writer runs
+    on a thread of its own) is recorded. Yields ``{name: [(t0, t1),
+    ...]}``; restores them on exit."""
+    log = {name: [] for name in targets}
+
+    def wrap(name, fn):
+        def wrapped(*a, **kw):
+            t0 = time.monotonic()
+            out = fn(*a, **kw)
+            log[name].append((t0, time.monotonic()))
+            return out
+        return wrapped
+
+    with patched(wrap, **targets):
+        yield log
+
+
+def timed_steps(cli, log):
+    """Patch the CLI's step builder so that each step call's host span,
+    up to the device finishing it, lands in ``log``. Returns the undo."""
+    from repro_torch.runtime.fault_tolerance import block_until_ready
+
+    build = cli.build_lsr_train_step
+
+    def build_timed(cfg, **kw):
+        step = build(cfg, **kw)
+
+        def timed_step(state, batch):
+            t0 = time.monotonic()
+            out = step(state, batch)
+            block_until_ready(out[0])
+            log.append((t0, time.monotonic()))
+            return out
+        return timed_step
+
+    cli.build_lsr_train_step = build_timed
+    return lambda: setattr(cli, "build_lsr_train_step", build)
+
+
+def tensor_leaves(state):
+    from repro_torch.tree import tree_leaves
+
+    return tree_leaves({"params": state["params"], "opt": state["opt"]})
+
+
+def max_abs_diff(torch, a, b):
+    return max(float((x - y).abs().max()) for x, y in
+               zip(tensor_leaves(a), tensor_leaves(b), strict=True))
+
+
+def ckpt_cli_run(torch, cli, argv, where):
+    """The train CLI's ``run`` on ``argv``, the kernels counted from 0 and
+    no plain version allowed on a CUDA tensor: the result, its printed
+    lines, the launches and K1's paths."""
+    import io
+
+    k1 = head_and_impact_modules()[0]
+    printed = io.StringIO()
+    reset_launches()
+    with plain_guard(**eval_plains()) as plain_on_cuda, \
+            contextlib.redirect_stdout(printed):
+        res = cli.run(cli.parser().parse_args(argv), torch.device("cuda"))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    require(not plain_on_cuda, f"ckpt {where}: plain versions ran on CUDA "
+                               f"tensors: {sorted(set(plain_on_cuda))}")
+    require(res["skipped"] == [],
+            f"ckpt {where}: the runner skipped steps {res['skipped']}")
+    return res, printed.getvalue().splitlines(), launches, k1_on_tma(
+        k1, f"ckpt {where}")
+
+
+def phase_ckpt(torch):
+    """Checkpoint and resume splade_xlmr at full width through the train
+    CLI's own ``run``: (a) 4 steps at 16 x 256, checkpoints at steps 2
+    and 4; (b) the checkpoint reloaded onto the card, bit for bit the
+    state; (c) ``--resume`` to step 6; (d) against the same 2 steps run
+    on in memory; (e) no step skipped; (f) the save, write and load
+    seconds, the bytes on disk and the step ms with and without a write
+    in flight; (g) the example's 200 SMOKE steps."""
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import store
+    from repro_torch.examples import train_splade
+    from repro_torch.launch import train as cli
+    from repro_torch.runtime import fault_tolerance as ft
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        first, resumed = CKPT_STEPS
+        argv = CKPT_CLI + ["--ckpt-dir", ckpt_dir]
+        cfg = cli.config_from_args(cli.parser().parse_args(argv))
+        # f32 params, mu and nu: the kept checkpoints and one being written
+        need = (KEEP_CKPTS + 1) * 12 * cfg.n_params
+        free = shutil.disk_usage(ckpt_dir).free
+        require(free >= need, f"ckpt: {free} bytes free where {ckpt_dir} "
+                              f"lies, the checkpoints need {need}")
+
+        # (a) and (c), each call's span logged
+        step_spans = []
+        undo = timed_steps(cli, step_spans)
+        try:
+            with spans(d2h=(store, "host_state"),
+                       write=(store, "save_checkpoint"),
+                       load=(ft, "load_checkpoint")) as io_spans:
+                t0 = time.perf_counter()
+                res_a, printed_a, launches_a, paths_a = ckpt_cli_run(
+                    torch, cli, argv + ["--steps", str(first)], "first run")
+                run_a_s = time.perf_counter() - t0
+                steps_a = len(step_spans)
+                on_disk = sorted(p.name for p in Path(ckpt_dir).iterdir())
+                ckpt_bytes = sum(f.stat().st_size for f in (
+                    Path(ckpt_dir) / f"step_{first:09d}").iterdir())
+
+                # (b) the checkpoint of step 4, loaded onto the card
+                s4 = res_a["state"]
+                state_bytes = sum(x.numel() * x.element_size()
+                                  for x in tensor_leaves(s4))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loaded, step = store.load_checkpoint(ckpt_dir, s4)
+                torch.cuda.synchronize()
+                load_s = time.perf_counter() - t0
+                require(step == first and loaded["step"] == first,
+                        f"ckpt: the latest checkpoint is step {step}")
+                require(all(x.is_cuda for x in tensor_leaves(loaded)),
+                        "ckpt: a loaded leaf is not on the card")
+                bit_identical = all(torch.equal(x, y) for x, y in zip(
+                    tensor_leaves(loaded), tensor_leaves(s4), strict=True))
+                require(bit_identical, "ckpt: the loaded state differs from "
+                                       "the one saved")
+                del loaded
+                torch.cuda.empty_cache()
+
+                t0 = time.perf_counter()
+                res_c, printed_c, launches_c, paths_c = ckpt_cli_run(
+                    torch, cli, argv + ["--steps", str(resumed), "--resume"],
+                    "resumed run")
+                run_c_s = time.perf_counter() - t0
+        finally:
+            undo()
+        require(on_disk == [f"step_{s:09d}" for s in (2, first)],
+                f"ckpt: after the first run {ckpt_dir} holds {on_disk}")
+        require(f"resumed from step {first}" in printed_c,
+                f"ckpt: the resumed run printed {printed_c}")
+        require(res_c["start_step"] == first
+                and res_c["state"]["step"] == resumed
+                and len(res_c["losses"]) == resumed - first,
+                f"ckpt: resumed at {res_c['start_step']}, ended at step "
+                f"{res_c['state']['step']}")
+        want = {first: 2 * first, resumed: 2 * (resumed - first)}
+        for n_steps, launches in ((first, launches_a),
+                                  (resumed, launches_c)):
+            got = {k: launches[k] for k in ("sparton_fwd", "sparton_bwd_dh",
+                                            "sparton_bwd_de")}
+            require(all(v == want[n_steps] for v in got.values()),
+                    f"ckpt: K1-K3 launches {got}, expected "
+                    f"{want[n_steps]} each")
+
+        # (d) the same two steps on in memory from S4: a fresh shard-0
+        # stream, as the resumed run's
+        def continue_s4():
+            run = cli.train_steps(cfg, s4, batch=16, seq_len=256,
+                                  lr=cli.parser().get_default("lr"),
+                                  device=torch.device("cuda"))
+            out = [next(run) for _ in range(resumed - first)]
+            run.close()
+            return out[-1][0], [loss for _, loss in out]
+
+        with plain_guard(**eval_plains()) as plain_on_cuda:
+            s6_mem, losses_mem = continue_s4()
+            s6 = res_c["state"]
+            diff = max_abs_diff(torch, s6, s6_mem)
+            control = None
+            if diff:   # the trunk is not run-to-run reproducible: measure
+                s6_again, _ = continue_s4()
+                control = max_abs_diff(torch, s6_again, s6_mem)
+                del s6_again
+        require(not plain_on_cuda, f"ckpt: plain versions ran on CUDA "
+                                   f"tensors: {sorted(set(plain_on_cuda))}")
+        gate = "bit_identical" if diff == 0 else "within_control"
+        require(s6["step"] == s6_mem["step"] == resumed
+                and (diff == 0 or diff <= control),
+                f"ckpt: the resumed state differs from the in-memory "
+                f"continuation by {diff} (control {control})")
+        losses_c = res_c["losses"]
+        del s4, s6, s6_mem, res_a, res_c
+        torch.cuda.empty_cache()
+
+        # (f) the step spans against the writes in flight
+        writes = io_spans["write"]
+
+        def overlaps(span):
+            return any(w0 < span[1] and span[0] < w1 for w0, w1 in writes)
+
+        step_ms = [{"run": "first" if i < steps_a else "resumed",
+                    "ms": 1e3 * (t1 - t0),
+                    "write_in_flight": overlaps((t0, t1))}
+                   for i, (t0, t1) in enumerate(step_spans)]
+        later = [s for i, s in enumerate(step_ms) if i not in (0, steps_a)]
+        busy = sorted(s["ms"] for s in later if s["write_in_flight"])
+        idle = sorted(s["ms"] for s in later if not s["write_in_flight"])
+
+        # (g) the example's SMOKE run on the card
+        reset_launches()
+        printed = io.StringIO()
+        with plain_guard(**eval_plains()) as plain_on_cuda, \
+                contextlib.redirect_stdout(printed):
+            t0 = time.perf_counter()
+            example = train_splade.run(train_splade.parser().parse_args([]),
+                                       torch.device("cuda"))
+            example_s = time.perf_counter() - t0
+        launches_g = read_launches()
+        require(not plain_on_cuda, f"ckpt example: plain versions ran on "
+                                   f"CUDA tensors: "
+                                   f"{sorted(set(plain_on_cuda))}")
+        require(example["skipped"] == [],
+                f"ckpt example: skipped steps {example['skipped']}")
+        n_side = 2 * 2 * 200      # 2 micro-batches x 2 sides a step
+        require(launches_g["sparton_bwd_dh"] == n_side
+                and launches_g["sparton_bwd_de"] == n_side
+                and launches_g["sparton_fwd"] == n_side + 2,
+                f"ckpt example: launches {launches_g}")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def secs(log):
+        return [t1 - t0 for t0, t1 in log]
+
+    out = {
+        "cli": " ".join(CKPT_CLI), "steps": list(CKPT_STEPS),
+        "printed": {"first": printed_a, "resumed": printed_c},
+        "run_s": {"first": run_a_s, "resumed": run_c_s},
+        "files_after_first_run": on_disk, "ckpt_bytes": ckpt_bytes,
+        "state_bytes": state_bytes, "disk_free_bytes_before": free,
+        "d2h_s": secs(io_spans["d2h"]), "write_s": secs(writes),
+        "resume_load_s": secs(io_spans["load"]), "load_s": load_s,
+        "load_bit_identical": bit_identical,
+        "resumed_vs_in_memory": {"gate": gate, "max_abs_diff": diff,
+                                 "control_max_abs_diff": control,
+                                 "losses_resumed": losses_c,
+                                 "losses_in_memory": losses_mem},
+        "step_ms": step_ms,
+        "median_step_ms": {"write_in_flight": busy[len(busy) // 2]
+                           if busy else None,
+                           "no_write": idle[len(idle) // 2] if idle else None},
+        "launches": {"first": launches_a, "resumed": launches_c,
+                     "example": launches_g},
+        "k1_paths": {"first": paths_a, "resumed": paths_c},
+        "example": {**example, "s": example_s,
+                    "printed": printed.getvalue().splitlines()}}
+    emit("ckpt", **out)
+    return {"launches": out["launches"],
+            "k1_paths": {"ckpt_first": paths_a, "ckpt_resumed": paths_c}}
+
+
 def kernel_rows(measured, launches, dense_launches, engine_launches,
-                train_launches, k1_paths, xlmr, eval_launches):
+                train_launches, k1_paths, xlmr, eval_launches, ckpt_launches):
     """The ``{"kernels": [...]}`` line: each kernel's launches on its path
     and its numbers from the timing phase (K1 at an index batch, K2/K3 at
     the train shape, K4, K5 and K6 at the served queries; K1 also at the
@@ -3132,7 +3433,9 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
     entries'); K1, K2 and K3 also ``at_xlmr``, at train_420 with xlmr's
     V (K2 and K3 on the "dense" and "sparse" routings), with their
     launches in the xlmr phase's serve and train_420 runs; K1-K5 also
-    ``eval_launches``, in each part of the eval phase."""
+    ``eval_launches``, in each part of the eval phase, and every kernel
+    ``ckpt_launches``, in the ckpt phase's first and resumed CLI runs and
+    its example run."""
     main_k1, bwd, k4, k5, k6 = (measured[key]
                                 for key in ("k1", "bwd", "k4", "k5", "k6"))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3155,6 +3458,9 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
     def in_eval(key):
         return {part: n[key] for part, n in eval_launches.items()}
 
+    def in_ckpt(key):
+        return {run: n[key] for run, n in ckpt_launches.items()}
+
     return [
         {"name": "sparton_fwd (K1)", "route": "cuda",
          "source": "src/repro_torch/csrc/sparton_fwd.cu",
@@ -3165,6 +3471,7 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
          "train_launches": train_launches["sparton_fwd"],
          "path_launches": k1_paths,
          "eval_launches": in_eval("sparton_fwd"),
+         "ckpt_launches": in_ckpt("sparton_fwd"),
          **{key: main_k1[key] for key in k1_keys},
          **{f"at_{name}": {key: measured["k1_rows"][name][key]
                            for key in k1_keys}
@@ -3174,6 +3481,7 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
            "source": "src/repro_torch/csrc/sparton_bwd.cu",
            "replaces": replaces, "launches": train_launches[key],
            "eval_launches": in_eval(key),
+           "ckpt_launches": in_ckpt(key),
            **{k: bwd["train"][kernel][k] for k in keys},
            "at_xlmr": x_bwd(kernel, key)}
           for name, kernel, key, replaces in (
@@ -3189,6 +3497,7 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
          "engine_launches": engine_launches["impact_topk"],
          "xlmr_serve_launches": xlmr["serve_launches"]["impact_topk"],
          "eval_launches": in_eval("impact_topk"),
+         "ckpt_launches": in_ckpt("impact_topk"),
          **{key: k4["B8"][key] for key in k45_keys},
          "at_B64": {key: k4["B64"][key] for key in k45_keys}},
         {"name": "impact_q_topk (K5)", "route": "cuda",
@@ -3196,12 +3505,14 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
          "replaces": "src/repro/kernels/impact_score.py:120",
          "launches": engine_launches["impact_q_topk"],
          "eval_launches": in_eval("impact_q_topk"),
+         "ckpt_launches": in_ckpt("impact_q_topk"),
          **{key: k5["B8"][key] for key in k45_keys},
          "at_B64": {key: k5["B64"][key] for key in k45_keys}},
         {"name": "topk_score (K6)", "route": "cuda",
          "source": "src/repro_torch/csrc/topk_score.cu",
          "replaces": "src/repro/kernels/topk_score.py:57",
          "launches": dense_launches["topk_score"],
+         "ckpt_launches": in_ckpt("topk_score"),
          **{key: k6["B8"][key] for key in k6_keys},
          "at_B64": {key: k6["B64"][key] for key in k6_keys}},
     ]
@@ -3248,10 +3559,12 @@ def main() -> int:
     xlmr = phase_xlmr(torch)
     k1_paths.update({f"xlmr_{where}": paths
                      for where, paths in xlmr["k1_paths"].items()})
+    ckpt = phase_ckpt(torch)
+    k1_paths.update(ckpt["k1_paths"])
     print(json.dumps({"kernels": kernel_rows(
         measured, served["launches"], dense_launches, engine_launches,
-        trained["launches"], k1_paths, xlmr, evaluated["launches"])}),
-        flush=True)
+        trained["launches"], k1_paths, xlmr, evaluated["launches"],
+        ckpt["launches"])}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -62,10 +62,12 @@ def build_lsr_train_step(
     *,
     n_micro: int = 1,
     lr: float = 2e-5,
+    total_steps: int = 100_000,
 ) -> Callable[[State, Batch], Tuple[State, Dict[str, torch.Tensor]]]:
-    """The step: peak ``lr`` after 1000 warm-up steps, then a cosine over
-    the JAX step's default horizon of 100k steps."""
-    opt = adamw(linear_warmup_cosine(lr, 1000, 100_000))
+    """The step: peak ``lr`` after 1000 warm-up steps, then a cosine to
+    ``total_steps``. It returns a new state and leaves the one it was
+    given as it was, so a fault-tolerant runner can retry it."""
+    opt = adamw(linear_warmup_cosine(lr, 1000, total_steps))
     grad_fn = value_and_grad(lsr_loss(cfg))
 
     def step(state: State, batch: Batch):

@@ -4,6 +4,8 @@
         --batch 2 --seq-len 16 --device cpu
     python -m repro_torch.launch.train --arch splade_bert --steps 2 \\
         --batch 2 --seq-len 16 --eval-every 1 --eval-queries 8 --device cpu
+    python -m repro_torch.launch.train --arch splade_bert --steps 4 \\
+        --batch 2 --seq-len 16 --ckpt-dir /tmp/ck --resume --device cpu
     python -m repro_torch.launch.train --arch splade_xlmr --full \\
         --batch 16 --seq-len 256
 
@@ -29,10 +31,21 @@ and searched with the ``exact`` method (``eval.evaluate_retrieval``;
 nDCG@10, printed as the JAX CLI prints them (``eval @ init: ...``,
 ``eval @ step N: ...``, ``eval improvement over init: ...``).
 
-The JAX CLI's other flags: ``--ckpt-dir``, ``--ckpt-every`` and
-``--resume`` arrive with checkpoint and resume (ROADMAP Queue 1 item
-11), ``--autotune-head`` with block selection (item 2). ``--overlap``
-has no CUDA counterpart: it sets XLA's TPU scheduler flags.
+The run goes through ``runtime.fault_tolerance.FaultTolerantRunner``,
+as the JAX CLI's does: an async atomic checkpoint of the whole state
+(params, AdamW moments, step) into ``--ckpt-dir`` every ``--ckpt-every``
+steps and once at the end, in the JAX package's format (a checkpoint of
+either CLI resumes in the other); ``--resume`` loads the latest and
+prints ``resumed from step N``. As in the JAX runner, a resumed run
+draws its batches from the start of a fresh stream, while the schedule
+goes on from the state's step. A step past the runner's deadline is
+retried, then skipped; a step that raises is skipped by the runner too,
+and the CLI then exits non-zero naming the first such error (a kernel
+that does not build or launch must not end in ``done``).
+
+The JAX CLI's ``--autotune-head`` arrives with block selection (ROADMAP
+Queue 1 item 2). ``--overlap`` has no CUDA counterpart: it sets XLA's
+TPU scheduler flags.
 """
 
 from __future__ import annotations
@@ -41,7 +54,7 @@ import argparse
 import dataclasses
 import sys
 from itertools import islice
-from typing import Callable, Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -52,12 +65,32 @@ from repro_torch.data.loader import HostShardedLoader
 from repro_torch.data.synthetic import lsr_pair_batches
 from repro_torch.device import resolve_device
 from repro_torch.eval import MethodSpec, Qrels, evaluate_retrieval
-from repro_torch.launch.steps import build_lsr_train_step, init_state
+from repro_torch.launch.steps import (Batch, build_lsr_train_step,
+                                      init_state)
+from repro_torch.runtime.fault_tolerance import (FaultTolerantRunner,
+                                                RunnerConfig)
 from repro_torch.runtime.serving import make_config_encoder
 
 
 REGULARIZERS = ("lambda_q", "lambda_d", "l1_weight")
 EVAL_SEED = 9173      # held-out pairs: a seed no training shard draws
+
+
+def pair_loader(cfg: TransformerConfig, *, batch: int, seq_len: int,
+                device: torch.device) -> HostShardedLoader:
+    """Shard 0's synthetic (query, doc) pairs through a
+    ``HostShardedLoader``, pinned when they go to the card."""
+    def make_iter(shard, n_shards):
+        return lsr_pair_batches(batch=batch, q_len=seq_len, d_len=seq_len,
+                                vocab=cfg.vocab_size, shard=shard)
+
+    return HostShardedLoader(make_iter, pin_memory=device.type == "cuda")
+
+
+def placer(device: torch.device) -> Callable[[Batch], Batch]:
+    """A host batch -> the same tensors on ``device``."""
+    return lambda b: {k: v.to(device, non_blocking=True)
+                      for k, v in b.items()}
 
 
 def train_steps(cfg: TransformerConfig, state: Dict, *, batch: int,
@@ -67,16 +100,11 @@ def train_steps(cfg: TransformerConfig, state: Dict, *, batch: int,
     through a ``HostShardedLoader``: yields ``(state, loss)`` after each
     step. Closing the generator closes the loader."""
     step = build_lsr_train_step(cfg, lr=lr)
-
-    def make_iter(shard, n_shards):
-        return lsr_pair_batches(batch=batch, q_len=seq_len, d_len=seq_len,
-                                vocab=cfg.vocab_size, shard=shard)
-
-    with HostShardedLoader(make_iter,
-                           pin_memory=device.type == "cuda") as loader:
+    place = placer(device)
+    with pair_loader(cfg, batch=batch, seq_len=seq_len,
+                     device=device) as loader:
         for b in loader:
-            b = {k: v.to(device, non_blocking=True) for k, v in b.items()}
-            state, metrics = step(state, b)
+            state, metrics = step(state, place(b))
             yield state, float(metrics["loss"])
 
 
@@ -131,6 +159,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=8,
                     help="(query, doc) pairs per step")
     ap.add_argument("--seq-len", type=int, default=32)
+    ap.add_argument("--ckpt-dir", default="/tmp/repro_ckpt",
+                    help="where checkpoints are written and resumed from")
+    ap.add_argument("--ckpt-every", type=int, default=20,
+                    help="checkpoint every N steps (and at the end)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint in --ckpt-dir")
     ap.add_argument("--full", action="store_true",
                     help="the full (published-width) config, not SMOKE")
     ap.add_argument("--lr", type=float, default=2e-4,
@@ -176,35 +210,57 @@ def config_from_args(args: argparse.Namespace) -> TransformerConfig:
     return cfg
 
 
+class TrainStepError(RuntimeError):
+    """A train step raised: the runner skipped it, the run must fail."""
+
+
 def run(args: argparse.Namespace, device: torch.device) -> Dict:
-    """The CLI's run from parsed ``args``: trains, evaluates as
+    """The CLI's run from parsed ``args``: trains under a
+    ``FaultTolerantRunner`` (resuming as ``--resume`` asks), evaluates as
     ``--eval-every`` asks and prints the JAX CLI's lines. Returns
-    ``{"losses", "init": metrics or None, "evals": [(step, metrics),
-    ...], "state": the final state}``."""
+    ``{"losses": [loss of each step run], "init": metrics or None,
+    "evals": [(step, metrics), ...], "state": the final state,
+    "start_step", "skipped": [step, ...]}``.
+    Raises ``TrainStepError`` naming the first error when a step raised."""
     cfg = config_from_args(args)
     state = init_state(args.arch,
                        torch.Generator(device=device).manual_seed(0),
                        smoke=not args.full)
     run_eval = None
-    init_metrics = None
     if args.eval_every:
         run_eval = evaluator(cfg, *held_out(
             cfg, args.eval_queries, q_len=args.seq_len,
             d_len=args.seq_len), device=device)
-        init_metrics = run_eval(state)
-        print("eval @ init: " + _metrics_line(init_metrics))
-    losses: List[float] = []
     evals: List[Tuple[int, Dict[str, float]]] = []
-    steps = train_steps(cfg, state, batch=args.batch, seq_len=args.seq_len,
-                        lr=args.lr, device=device)
-    for done, (state, loss) in enumerate(islice(steps, args.steps), 1):
-        losses.append(loss)
-        if run_eval and (done % args.eval_every == 0 or done == args.steps):
-            evals.append((done, run_eval(state)))
-            print(f"eval @ step {done}: " + _metrics_line(evals[-1][1]))
-    steps.close()
+
+    def eval_hook(step_idx: int, state: Dict) -> Optional[Dict]:
+        done = step_idx + 1
+        if done % args.eval_every and done != args.steps:
+            return None
+        evals.append((done, run_eval(state)))
+        print(f"eval @ step {done}: " + _metrics_line(evals[-1][1]))
+        return {f"eval_{k}": v for k, v in evals[-1][1].items()}
+
+    with pair_loader(cfg, batch=args.batch, seq_len=args.seq_len,
+                     device=device) as loader:
+        runner = FaultTolerantRunner(
+            build_lsr_train_step(cfg, lr=args.lr), state, iter(loader),
+            config=RunnerConfig(ckpt_dir=args.ckpt_dir,
+                                ckpt_every=args.ckpt_every,
+                                max_steps=args.steps, log_every=1),
+            place_batch=placer(device),
+            on_step=eval_hook if run_eval else None)
+        if args.resume and runner.try_resume():
+            print(f"resumed from step {runner.start_step}")
+        # the untrained init, as the JAX CLI evaluates it, also on resume
+        init_metrics = run_eval(state) if run_eval else None
+        if init_metrics:
+            print("eval @ init: " + _metrics_line(init_metrics))
+        state = runner.run()
+    logged = [m for m in runner.metrics_log if "loss" in m]
+    losses = [float(m["loss"]) for m in logged]
     if losses:
-        print(f"step {len(losses)}: loss {losses[-1]:.4f} "
+        print(f"step {logged[-1]['step'] + 1}: loss {losses[-1]:.4f} "
               f"(first {losses[0]:.4f})")
     if init_metrics and evals:
         final = evals[-1][1]
@@ -212,9 +268,16 @@ def run(args: argparse.Namespace, device: torch.device) -> Dict:
             f"{k} {init_metrics[k]:.4f}->{final[k]:.4f}"
             f"({final[k] - init_metrics[k]:+.4f})" for k in final))
     print(f"done: {args.steps} steps of {cfg.name} "
-          f"(head {cfg.head_spec().impl}) on {device}")
+          f"(head {cfg.head_spec().impl}) on {device}, "
+          f"{len(runner.skipped_steps)} skipped, "
+          f"{len(runner.remesh_events)} re-mesh events")
+    if runner.errors:
+        step_idx, error = runner.errors[0]
+        raise TrainStepError(f"{len(runner.errors)} train step(s) raised; "
+                             f"the first, step {step_idx}: {error}")
     return {"losses": losses, "init": init_metrics, "evals": evals,
-            "state": state}
+            "state": state, "start_step": runner.start_step,
+            "skipped": runner.skipped_steps}
 
 
 def main(argv=None) -> int:
@@ -224,7 +287,11 @@ def main(argv=None) -> int:
         device = resolve_device(args.device)
     except RuntimeError as e:
         ap.error(str(e))
-    run(args, device)
+    try:
+        run(args, device)
+    except TrainStepError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
     return 0
 
 

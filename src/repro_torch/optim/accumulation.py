@@ -1,10 +1,13 @@
 """Gradient accumulation (``repro/optim/accumulation.py``): the batch
 split into ``n_micro`` chunks along its leading axis, one loss and grad
 per chunk, averaged. Activation memory is that of one chunk while the
-optimizer step keeps the whole batch."""
+optimizer step keeps the whole batch. ``GradAccumulator`` is the
+fault-tolerant runner's host-side window, normalised by the count it
+actually holds."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Tuple
 
 import torch
@@ -40,3 +43,28 @@ def microbatch_grads(
         else:
             loss, grads = loss + l_i, tree_map(torch.add, grads, g_i)
     return loss, grads
+
+
+@dataclasses.dataclass
+class GradAccumulator:
+    """Stateful accumulator for the fault-tolerant runner: lets the
+    straggler path drop a microbatch from the window (normalizes by the
+    count actually accumulated)."""
+
+    grads: Tree = None
+    count: int = 0
+
+    def add(self, grads: Tree) -> None:
+        if self.grads is None:
+            self.grads = grads
+            self.count = 1
+        else:
+            self.grads = tree_map(torch.add, self.grads, grads)
+            self.count += 1
+
+    def mean_and_reset(self) -> Tree:
+        if self.count == 0:
+            raise ValueError("no gradients accumulated")
+        out = tree_map(lambda g: g / self.count, self.grads)
+        self.grads, self.count = None, 0
+        return out

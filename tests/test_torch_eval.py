@@ -353,17 +353,18 @@ def test_harness_indexes_on_cuda_unless_asked():
 LINE = r"mrr@10 ([0-9.]+) ndcg@10 ([0-9.]+)"
 
 
-def _cli(*extra):
+def _cli(ckpt_dir, *extra):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
          "splade_bert", "--steps", "2", "--batch", "2", "--seq-len", "16",
-         "--eval-every", "1", "--eval-queries", "8", *extra],
+         "--eval-every", "1", "--eval-queries", "8", "--ckpt-dir",
+         str(ckpt_dir), *extra],
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
 
 
-def test_train_cli_eval_lines_match_evaluate_retrieval():
-    proc = _cli("--device", "cpu")
+def test_train_cli_eval_lines_match_evaluate_retrieval(tmp_path):
+    proc = _cli(tmp_path, "--device", "cpu")
     assert proc.returncode == 0, proc.stderr
     out = proc.stdout
     init = re.search(r"^eval @ init: " + LINE + "$", out, re.MULTILINE)
@@ -389,11 +390,11 @@ def test_train_cli_eval_lines_match_evaluate_retrieval():
 @pytest.mark.parametrize("steps,every,at", [(3, 2, [2, 3]), (4, 2, [2, 4]),
                                              (2, 0, [])])
 def test_train_cli_evaluates_every_n_steps_and_at_the_last(steps, every, at,
-                                                           capsys):
+                                                           capsys, tmp_path):
     args = cli.parser().parse_args([
         "--arch", "splade_bert", "--steps", str(steps), "--batch", "2",
         "--seq-len", "8", "--eval-every", str(every), "--eval-queries", "4",
-        "--device", "cpu"])
+        "--device", "cpu", "--ckpt-dir", str(tmp_path)])
     res = cli.run(args, CPU)
     assert [s for s, _ in res["evals"]] == at
     assert (res["init"] is None) == (not every)
@@ -405,9 +406,9 @@ def test_train_cli_evaluates_every_n_steps_and_at_the_last(steps, every, at,
         assert f"eval @ step {s}: mrr@10 {m['mrr@10']:.4f}" in printed
 
 
-def test_train_cli_with_eval_without_cuda_exits_non_zero_naming_it():
+def test_train_cli_with_eval_without_cuda_exits_non_zero_naming_it(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
-    proc = _cli()
+    proc = _cli(tmp_path)
     assert proc.returncode != 0
     assert "CUDA" in proc.stderr and "eval" not in proc.stdout

@@ -46,6 +46,7 @@ from repro.data import synthetic as jax_data
 from repro.launch import steps as jax_steps
 from repro.losses import contrastive as jax_losses
 from repro.optim import optimizers as jax_opt
+from repro.optim.accumulation import GradAccumulator as JaxGradAccumulator
 from repro.optim import schedules as jax_sched
 from repro_torch.configs.splade_bert import SMOKE
 from repro_torch.data import synthetic
@@ -54,6 +55,7 @@ from repro_torch.launch.train import train
 from repro_torch.losses import contrastive as losses
 from repro_torch.optim import optimizers as opt
 from repro_torch.optim import schedules as sched
+from repro_torch.optim import GradAccumulator
 from repro_torch.optim.accumulation import microbatch_grads
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.weights import state_from_jax
@@ -170,6 +172,31 @@ def test_microbatch_grads_equal_the_whole_batch():
         microbatch_grads(grad_fn, params, batch, n_micro=3)
 
 
+def test_grad_accumulator_renormalizes():
+    acc = GradAccumulator()
+    acc.add({"w": torch.tensor(2.0)})
+    acc.add({"w": torch.tensor(4.0)})
+    out = acc.mean_and_reset()
+    assert float(out["w"]) == pytest.approx(3.0)
+    assert acc.count == 0 and acc.grads is None
+    with pytest.raises(ValueError, match="no gradients"):
+        acc.mean_and_reset()
+
+
+def test_grad_accumulator_matches_jax():
+    """Three trees added, the mean taken, then two more: the same f32
+    values as the JAX accumulator's (the same sums in the same order)."""
+    trees = [_tree(s) for s in range(5)]
+    acc, ref = GradAccumulator(), JaxGradAccumulator()
+    for window in (trees[:3], trees[3:]):
+        for t in window:
+            acc.add(_to_torch(t))
+            ref.add(jax.tree.map(jnp.asarray, t))
+        assert acc.count == ref.count == len(window)
+        _assert_trees(acc.mean_and_reset(), ref.mean_and_reset(), rtol=0,
+                      atol=0)
+
+
 @pytest.mark.parametrize("seed,shard", [(0, 0), (3, 1)])
 def test_lsr_pair_batches_identical_to_jax(seed, shard):
     kw = dict(batch=3, q_len=9, d_len=14, vocab=300, seed=seed, shard=shard)
@@ -283,19 +310,21 @@ def test_train_cli_first_loss_matches_jax_cli(tmp_path, capsys):
     np.testing.assert_allclose(got[0], first, rtol=2e-2)
 
 
-def _cli(*extra):
+def _cli(ckpt_dir, *extra):
+    """The CLI in a process of its own, checkpointing into ``ckpt_dir``
+    (each test its own: the default directory is shared)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
          "splade_bert", "--steps", "3", "--batch", "2", "--seq-len", "16",
-         *extra], capture_output=True, text=True, env=env, cwd=ROOT,
-        timeout=300)
+         "--ckpt-dir", str(ckpt_dir), *extra], capture_output=True,
+        text=True, env=env, cwd=ROOT, timeout=300)
 
 
-def test_train_cli_runs_on_the_cpu_when_asked():
+def test_train_cli_runs_on_the_cpu_when_asked(tmp_path):
     """With no --head-impl the CLI trains through the kernel head (its
     plain versions, on CPU tensors)."""
-    proc = _cli("--device", "cpu")
+    proc = _cli(tmp_path, "--device", "cpu")
     assert proc.returncode == 0, proc.stderr
     m = re.search(r"step 3: loss ([-0-9.e]+) \(first ([-0-9.e]+)\)",
                   proc.stdout)
@@ -313,9 +342,9 @@ def test_configs_default_to_the_kernel_head(full):
         == "sparton"
 
 
-def test_train_cli_without_cuda_exits_non_zero_naming_it():
+def test_train_cli_without_cuda_exits_non_zero_naming_it(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
-    proc = _cli()
+    proc = _cli(tmp_path)
     assert proc.returncode != 0
     assert "CUDA" in proc.stderr and "step" not in proc.stdout

@@ -179,9 +179,10 @@ def _run(module, *extra):
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
 
 
-def test_train_cli_runs_xlmr_on_the_cpu():
+def test_train_cli_runs_xlmr_on_the_cpu(tmp_path):
     proc = _run("repro_torch.launch.train", "--steps", "2", "--batch", "2",
-                "--seq-len", "16", "--device", "cpu")
+                "--seq-len", "16", "--device", "cpu", "--ckpt-dir",
+                str(tmp_path))
     assert proc.returncode == 0, proc.stderr
     m = re.search(r"step 2: loss ([-0-9.e]+) \(first ([-0-9.e]+)\)",
                   proc.stdout)
@@ -198,10 +199,11 @@ def test_serve_cli_runs_xlmr_on_the_cpu():
 
 @pytest.mark.parametrize("module", ["repro_torch.launch.train",
                                     "repro_torch.launch.serve"])
-def test_xlmr_clis_without_cuda_exit_non_zero_naming_it(module):
+def test_xlmr_clis_without_cuda_exit_non_zero_naming_it(module, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
-    proc = _run(module, *(("--steps", "1") if "train" in module else ()))
+    proc = _run(module, *(("--steps", "1", "--ckpt-dir", str(tmp_path))
+                          if "train" in module else ()))
     assert proc.returncode != 0
     assert "CUDA" in proc.stderr
 
