@@ -1,5 +1,5 @@
 // Fused impact scoring with a streaming top-k for Hopper (sm_90a): K4 and
-// K5, one slice kernel over four kinds of input and one merge kernel.
+// K5, one slice kernel over five kinds of input and one merge kernel.
 //
 // K4 replaces the Pallas TPU kernel src/repro/kernels/impact_score.py:
 // _impact_kernel (entry fused_impact_topk). Per query row b it computes
@@ -27,8 +27,8 @@
 // PyTorch version's. K4's weight is __fmul_rn(val, qv), the single
 // rounding of the plain version's `where(valid, val, 0) * qv`.
 //
-// Four sources feed the one slice kernel (`Src` below), each a list of
-// query terms with a posting range and two element streams:
+// Five sources feed the one slice kernel (`Src` below), each a list of
+// query terms with a posting range and one or two element streams:
 //   K4Index  the query rep and an InvertedIndex read in place: term
 //            (b, t) is vocab id q_idx[b, t], its postings
 //            postings_doc / postings_val[term_starts[id] + l];
@@ -40,6 +40,11 @@
 //            the f32 reciprocal of 14, as the plain version computes it);
 //   K5Window the gathered (B, Q, L) i32 byte and gap windows: term (b, t)
 //            starts at (b * Q + t) * L, its parity base is starts[b, t].
+//   K4Ceil   the tier-1 ceilings of the two-tier pruned scorer
+//            (src/repro/retrieval/engine/pruning.py upper_bound_scores,
+//            then lax.top_k): as K4Index, but it stages postings_doc only
+//            and every lane of term t weighs c[t] = __fmul_rn(q_val,
+//            term_ubs[id]), the term's ceiling; postings_val is never read.
 // A window batch is thus an index whose term (b, t) starts at a computed
 // offset: the window entries run the same kernel as the in-place ones.
 //
@@ -72,7 +77,10 @@
 // bitonic sort of the threads' own best keys gives the k-th best of
 // those, T (ceil(docs / 256) warps select, at most 8 docs a thread, at a
 // named barrier of their own); only docs at or above T can be in the top
-// k, and each of those few is placed by counting the keys above it. The
+// k, and each of those few is placed by counting the keys above it. For
+// 32 < k <= 512 (the pruned path's budgets C + 1) T is the k-th best of
+// the block's 512 thread bests, each placed by counting the other 511; a
+// larger k places every doc by counting (O(docs^2) a slice). The
 // merge kernel places every entry of a row's S sorted lists by counting
 // the entries above it. With S = 1 the slice kernel writes (B, k)
 // itself. The lists live in a device workspace the wrapper allocates
@@ -84,10 +92,12 @@
 // of the distinct query terms once (K4 8 bytes a posting; K5 1.5 or 2.5
 // bytes) and writes (B, k) results: at the serving shapes 0.08-1.4 MB,
 // under half a microsecond at 3.35 TB/s, against 13-17 us measured at B 8
-// (PERF.md). So the time is a chain of dependent steps: the launches, the
-// term columns' loads, the staged postings' one wave, then the decode
-// (every slice decodes its whole query: K5's gap sums need every lane),
-// the routing, the fold and the top-k, each behind a barrier.
+// (PERF.md). The ceiling entry reads 4 bytes a posting (the doc id) and
+// three columns a term. So the time is a chain of dependent steps: the
+// launches, the term columns' loads, the staged postings' one wave, then
+// the decode (every slice decodes its whole query: K5's gap sums need
+// every lane), the routing, the fold and the top-k, each behind a
+// barrier.
 
 #include <algorithm>
 #include <cstdint>
@@ -98,20 +108,26 @@ namespace {
 
 constexpr int THREADS = 512;          // slice kernel
 constexpr int WARPS = THREADS / 32;   // doc owners: doc & (WARPS - 1)
-constexpr int MERGE_THREADS = 256;
+constexpr int MERGE_THREADS = 256;    // merge kernel for k <= SMALL_K,
+constexpr int MERGE_WIDE_THREADS = 1024;  // and past it
 constexpr int QC = 64;                // query terms a chunk
 constexpr int RL = 4096;              // posting lanes staged a round
 constexpr int CW = 2 * RL + 16 * QC;  // staging words: 2 streams + slack
 constexpr int NS_MIN = 128;           // docs a slice, at least ...
 constexpr int NS_MAX = 8192;          // ... and at most (scores in smem)
-constexpr int MERGE_STAGE_KEYS = 4096;  // merge entries staged in smem
-constexpr int SMALL_K = 32;           // slice top-k by threshold up to here
+constexpr int MERGE_STAGE_KEYS = 8192;  // merge entries staged in smem,
+constexpr int MERGE_LINEAR_KEYS = 4096;  // counted linearly up to here
+constexpr int SMALL_K = 32;           // slice top-k by warp threshold ...
+constexpr int MID_K = THREADS;        // ... by block threshold up to here
+constexpr int MID_CAP = (CW - 2 * THREADS) / 2;  // its candidates' room
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
 static_assert(WARPS * QC == 2 * THREADS, "the route scan takes 2 a thread");
 static_assert(WARPS * SMALL_K * 2 + SMALL_K * (NS_MAX / THREADS) * 2 <= CW,
               "the threshold top-k's pool and candidates fit the staging");
+static_assert(2 * (THREADS + MID_CAP) <= CW,
+              "the block threshold's pool and candidates fit the staging");
 
 // ------------------------------------------------------------------ keys
 
@@ -229,7 +245,7 @@ __device__ __forceinline__ int vocab_row(int id, int V) {
 }
 
 struct K4Index {
-  static constexpr bool kQuant = false;
+  static constexpr bool kQuant = false, kCeil = false;
   static constexpr int ES1 = 4, ES2 = 4;  // doc i32, val f32
   const int* q_idx;
   const float* q_val;
@@ -249,7 +265,7 @@ struct K4Index {
 };
 
 struct K4Window {
-  static constexpr bool kQuant = false;
+  static constexpr bool kQuant = false, kCeil = false;
   static constexpr int ES1 = 4, ES2 = 4;  // doc i32, w f32
   Stream s1, s2;
   long long W;
@@ -263,7 +279,7 @@ struct K4Window {
 
 template <typename LensT, typename DeltaT>
 struct K5Index {
-  static constexpr bool kQuant = true;
+  static constexpr bool kQuant = true, kCeil = false;
   static constexpr int ES1 = (int)sizeof(DeltaT), ES2 = 0;  // gaps, nibbles
   const int* q_idx;
   const float* q_val;
@@ -289,7 +305,7 @@ struct K5Index {
 };
 
 struct K5Window {
-  static constexpr bool kQuant = true;
+  static constexpr bool kQuant = true, kCeil = false;
   static constexpr int ES1 = 4, ES2 = 4;  // gap i32, packed byte i32
   const int* starts;
   const int* lens;
@@ -307,6 +323,30 @@ struct K5Window {
       m.par = starts[j];
       m.lo = lo[j];
       m.step = step[j];
+    }
+  }
+};
+
+// K4's tier-1 ceilings: one stream (the doc ids); the term's weight is its
+// ceiling c = q_val * term_ubs[id], one rounding, every lane.
+struct K4Ceil {
+  static constexpr bool kQuant = false, kCeil = true;
+  static constexpr int ES1 = 4, ES2 = 4;  // doc i32 (no stream 2)
+  const int* q_idx;
+  const float* q_val;
+  const int* starts;
+  const int* lens;
+  const float* ubs;
+  Stream s1, s2;
+  int Q, V;
+  __device__ void meta(int b, int t, Term& m) const {
+    const size_t j = (size_t)b * Q + t;
+    const int id = vocab_row(q_idx[j], V);
+    m.qv = q_val[j];
+    if (m.qv > 0.0f && V > 0) {
+      m.pos = starts[id];
+      m.len = max(lens[id], 0);
+      m.qv = __fmul_rn(m.qv, ubs[id]);
     }
   }
 };
@@ -364,12 +404,14 @@ __device__ void plan_round(const Src& src, Term* tm, int r0, int r1) {
       m.w1 = b0 >> 4;
       m.n1 = (int)(((b1 + 15) >> 4) - m.w1);
       m.sb1 = (int)(b0 - 16 * m.w1);
-      lane_bytes<Src::ES2>(src.s2, m.pos, m.a, m.b, &b0, &b1);
-      m.w2 = b0 >> 4;
-      m.n2 = (int)(((b1 + 15) >> 4) - m.w2);
-      // nibbles: lane l's byte is sb2 + ((pos & 1) + l) / 2
-      m.sb2 = (int)(b0 - 16 * m.w2) -
-              (Src::ES2 > 0 ? 0 : ((int)(m.pos & 1) + m.a) >> 1);
+      if (!Src::kCeil) {
+        lane_bytes<Src::ES2>(src.s2, m.pos, m.a, m.b, &b0, &b1);
+        m.w2 = b0 >> 4;
+        m.n2 = (int)(((b1 + 15) >> 4) - m.w2);
+        // nibbles: lane l's byte is sb2 + ((pos & 1) + l) / 2
+        m.sb2 = (int)(b0 - 16 * m.w2) -
+                (Src::ES2 > 0 ? 0 : ((int)(m.pos & 1) + m.a) >> 1);
+      }
     }
     nl[j] = m.b - m.a;
     nq[j] = m.n1 + m.n2;
@@ -452,8 +494,10 @@ __device__ __forceinline__ void decode_step(const Term& m, int t, int c0,
       dl[v] = 0;
       if (l < m.b) {
         const int doc = *reinterpret_cast<const int*>(sb + m.sb1 + 4 * i);
-        const float x = *reinterpret_cast<const float*>(sb + m.sb2 + 4 * i);
-        w[v] = __fmul_rn(x, m.qv);
+        w[v] = Src::kCeil ? m.qv
+                          : __fmul_rn(*reinterpret_cast<const float*>(
+                                          sb + m.sb2 + 4 * i),
+                                      m.qv);
         dl[v] = (unsigned)doc - (unsigned)d0;
         keep[v] = w[v] != 0.0f && dl[v] < (unsigned)ns;
       }
@@ -586,20 +630,66 @@ __device__ void fold_round(const Smem& sm, const int* ostart) {
 // comes from each warp's sorted bests (with one warp directly; else from
 // a pool of their top ks, each placed by counting), and the top ks from
 // the few docs at or above T, each placed by counting the keys above its
-// own. The selecting warps meet at named barrier 1. Larger ks: every doc
-// is placed by counting. `work` holds the pool and the candidates (the
-// staging words).
+// own. The selecting warps meet at named barrier 1. SMALL_K < ks <= MID_K
+// (the pruned path's candidate budgets C + 1): the same with the block's
+// THREADS bests as the pool, T the one best that ks - 1 others beat, the
+// docs at or above T (at most ks times the docs a thread) placed by
+// counting among themselves, unless more than MID_CAP are. Else every doc
+// is placed by counting all of them. `work` holds the pool and the
+// candidates (the staging words).
 constexpr int SEL_DOCS = 256;
 
 __device__ __forceinline__ void sel_sync(int threads) {
   asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
 }
 
+template <bool kBig>
 __device__ void slice_topk(const float* scores, int ns, int d0, int ks,
                            float* out_v, int* out_i, unsigned* work,
                            unsigned long long* s_t, int* s_nc) {
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  if (ks > SMALL_K) {
+  if (kBig && ks > SMALL_K && ks <= MID_K) {
+    unsigned long long* pool = reinterpret_cast<unsigned long long*>(work);
+    unsigned long long* cand = pool + THREADS;
+    unsigned long long best = 0ull;
+    for (int i = tid; i < ns; i += THREADS) {
+      const unsigned long long x = make_key(scores[i], d0 + i);
+      best = x > best ? x : best;
+    }
+    pool[tid] = best;
+    if (tid == 0) *s_nc = 0;
+    __syncthreads();
+    // ks <= min(ns, THREADS) threads hold a doc: one real key is beaten
+    // by exactly ks - 1 others
+    if (best != 0ull) {
+      int r = 0;
+#pragma unroll 8
+      for (int q = 0; q < THREADS; ++q) r += pool[q] > best;
+      if (r == ks - 1) *s_t = best;
+    }
+    __syncthreads();
+    const unsigned long long t = *s_t;
+    for (int i = tid; i < ns; i += THREADS) {
+      const unsigned long long x = make_key(scores[i], d0 + i);
+      if (x >= t) {
+        const int c = atomicAdd(s_nc, 1);
+        if (c < MID_CAP) cand[c] = x;
+      }
+    }
+    __syncthreads();
+    const int nc = *s_nc;
+    if (nc <= MID_CAP) {
+      for (int c = tid; c < nc; c += THREADS) {
+        const unsigned long long x = cand[c];
+        int r = 0;
+#pragma unroll 8
+        for (int q = 0; q < nc; ++q) r += cand[q] > x;
+        if (r < ks) put_key(x, out_v + r, out_i + r);
+      }
+      return;
+    }
+  }
+  if (kBig && ks > SMALL_K) {
     for (int i = tid; i < ns; i += THREADS) {
       const unsigned long long x = make_key(scores[i], d0 + i);
       int r = 0;
@@ -660,8 +750,9 @@ __device__ void slice_topk(const float* scores, int ns, int d0, int ks,
 // One block per (query row, doc slice): score the slice's docs from every
 // query term's postings, then write its top min(k, slice) (S > 1: to the
 // row's list KS-strided in the workspace; S == 1: the row's k results,
-// tail included).
-template <class Src>
+// tail included). kBig: k > SMALL_K (the paths past the warp threshold
+// are compiled in only then).
+template <class Src, bool kBig>
 __global__ void __launch_bounds__(THREADS)
     slice_kernel(const Src src, int n_docs, int k, int S, int NS, int KS,
                  float* __restrict__ out_v, int* __restrict__ out_i) {
@@ -725,7 +816,8 @@ __global__ void __launch_bounds__(THREADS)
 
   const int ks = min(k, ns);
   const size_t o = S == 1 ? (size_t)b * k : ((size_t)b * S + s) * KS;
-  slice_topk(sm.scores, ns, d0, ks, out_v + o, out_i + o, sm.stage, &s_t,
+  slice_topk<kBig>(sm.scores, ns, d0, ks, out_v + o, out_i + o, sm.stage,
+                   &s_t,
              &s_nc);
   if (S == 1)
     for (int i = ks + tid; i < k; i += THREADS) {
@@ -739,11 +831,16 @@ __global__ void __launch_bounds__(THREADS)
 // entry's place is the count of the row's entries above it (the keys are
 // distinct). `staged` (at most MERGE_STAGE_KEYS entries, as on the main
 // path): the lists as keys in shared memory (0 past each list's end),
-// counted linearly (at B 8, S 16 x KS 10, 2.5 us faster than searching
-// them, PERF.md); else each list binary-searched in device memory. The
-// tail past n_docs is (NEG_INF, 0). Launched as a programmatic dependent
-// of the slice kernel: it waits for its lists.
-__global__ void __launch_bounds__(MERGE_THREADS)
+// counted linearly for k <= SMALL_K and up to MERGE_LINEAR_KEYS a row (at
+// B 8, S 16 x KS 10, 2.5 us faster than searching them, PERF.md), else
+// binary-searched (the pruned path's KS 65-257: S log KS steps an entry,
+// not S KS, by MERGE_WIDE_THREADS threads to hide their latency); else
+// each list binary-searched in device memory. The tail past n_docs is
+// (NEG_INF, 0). Launched as a programmatic dependent of the slice kernel:
+// it waits for its lists. NT: MERGE_THREADS for k <= SMALL_K, else
+// MERGE_WIDE_THREADS.
+template <int NT>
+__global__ void __launch_bounds__(NT)
     merge_kernel(const float* __restrict__ lv, const int* __restrict__ li,
                  float* __restrict__ vals, int* __restrict__ idx, int S,
                  int NS, int KS, int n_docs, int k, int staged) {
@@ -756,21 +853,34 @@ __global__ void __launch_bounds__(MERGE_THREADS)
   unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem);
   auto len = [&](int s) { return min(KS, n_docs - s * NS); };
   if (staged) {
-    for (int j = tid; j < n; j += MERGE_THREADS)
+    for (int j = tid; j < n; j += NT)
       keys[j] = j % KS < len(j / KS) ? make_key(gv[j], gi[j]) : 0ull;
     __syncthreads();
   }
   const int total = min(k, n_docs);
   float* out_v = vals + (size_t)b * k;
   int* out_i = idx + (size_t)b * k;
-  for (int j = tid; j < n; j += MERGE_THREADS) {
+  for (int j = tid; j < n; j += NT) {
     if (j % KS >= len(j / KS)) continue;
     const unsigned long long x =
         staged ? keys[j] : make_key(gv[j], gi[j]);
     int r = 0;
-    if (staged) {
+    if (staged && NT == MERGE_THREADS && n <= MERGE_LINEAR_KEYS) {
 #pragma unroll 8
       for (int q = 0; q < n; ++q) r += keys[q] > x;
+    } else if (staged) {
+      for (int s = 0; s < S; ++s) {  // entries of list s above x
+        const unsigned long long* list = keys + (size_t)s * KS;
+        int lo = 0, hi = KS;         // 0 past the list's end: never above
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (list[mid] > x)
+            lo = mid + 1;
+          else
+            hi = mid;
+        }
+        r += lo;
+      }
     } else {
       for (int s = 0; s < S; ++s) {  // entries of list s above x
         int lo = 0, hi = len(s);
@@ -787,7 +897,7 @@ __global__ void __launch_bounds__(MERGE_THREADS)
     }
     if (r < total) put_key(x, out_v + r, out_i + r);
   }
-  for (int i = total + tid; i < k; i += MERGE_THREADS) {
+  for (int i = total + tid; i < k; i += NT) {
     out_v[i] = NEG_INF;
     out_i[i] = 0;
   }
@@ -853,6 +963,39 @@ cudaError_t allow_smem(int dev, size_t bytes) {
   return e;
 }
 
+// The slice kernel for Src at k, then (S > 1) the merge kernel with NT
+// threads.
+template <class Src, bool kBig, int NT>
+int launch(const Src& src, float* vals, int* idx, void* ws, int B,
+           int n_docs, int k, const Plan& p, int dev, cudaStream_t st) {
+  cudaError_t e = allow_smem<slice_kernel<Src, kBig>>(dev, p.slice_smem);
+  if (e != cudaSuccess) return (int)e;
+  float* lv = p.S == 1 ? vals : static_cast<float*>(ws);
+  int* li = p.S == 1 ? idx
+                     : reinterpret_cast<int*>(lv + (size_t)B * p.S * p.KS);
+  slice_kernel<Src, kBig><<<B * p.S, THREADS, p.slice_smem, st>>>(
+      src, n_docs, k, p.S, p.NS, p.KS, lv, li);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || p.S == 1) return (int)e;
+  e = allow_smem<merge_kernel<NT>>(dev, p.merge_smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = p.merge_smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, merge_kernel<NT>, (const float*)lv,
+                         (const int*)li, vals, idx, p.S, p.NS, p.KS, n_docs,
+                         k, p.staged);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <class Src>
 int run(const Src& src, float* vals, int* idx, void* ws, int B, int n_docs,
         int k, void* stream) {
@@ -862,32 +1005,11 @@ int run(const Src& src, float* vals, int* idx, void* ws, int B, int n_docs,
     return (int)cudaErrorInvalidValue;
   if (p.S > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = allow_smem<slice_kernel<Src>>(dev, p.slice_smem);
-  if (e != cudaSuccess) return (int)e;
-  float* lv = p.S == 1 ? vals : static_cast<float*>(ws);
-  int* li = p.S == 1 ? idx
-                     : reinterpret_cast<int*>(lv + (size_t)B * p.S * p.KS);
-  slice_kernel<Src><<<B * p.S, THREADS, p.slice_smem, st>>>(
-      src, n_docs, k, p.S, p.NS, p.KS, lv, li);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || p.S == 1) return (int)e;
-  e = allow_smem<merge_kernel>(dev, p.merge_smem);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B);
-  cfg.blockDim = dim3(MERGE_THREADS);
-  cfg.dynamicSmemBytes = p.merge_smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, merge_kernel, (const float*)lv,
-                         (const int*)li, vals, idx, p.S, p.NS, p.KS, n_docs,
-                         k, p.staged);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  if (k <= SMALL_K)
+    return launch<Src, false, MERGE_THREADS>(src, vals, idx, ws, B, n_docs,
+                                             k, p, dev, st);
+  return launch<Src, true, MERGE_WIDE_THREADS>(src, vals, idx, ws, B, n_docs,
+                                               k, p, dev, st);
 }
 
 }  // namespace
@@ -943,6 +1065,30 @@ extern "C" int impact_index_topk(const int* q_idx, const float* q_val,
   src.lens = term_lens;
   src.s1 = make_stream(postings_doc, 4 * P);
   src.s2 = make_stream(postings_val, 4 * P);
+  src.Q = Q;
+  src.V = V;
+  return run(src, vals, idx, ws, B, n_docs, k, stream);
+}
+
+// K4's tier-1 ceilings in place: the arguments of impact_index_topk with
+// term_ubs f32 (V,) in place of postings_val. Each doc scores the sum, in
+// term order, of c[t] = q_val[t] * term_ubs[id(t)] over the live query
+// terms whose list holds it; the k best (ties to the lowest id, docs with
+// a zero sum included) are written.
+extern "C" int impact_ceiling_index_topk(
+    const int* q_idx, const float* q_val, const int* term_starts,
+    const int* term_lens, const int* postings_doc, const float* term_ubs,
+    float* vals, int* idx, void* ws, int B, int Q, int V, long long P,
+    int n_docs, int k, void* stream) {
+  if (B < 1 || Q < 0 || V < 0 || P < 0) return (int)cudaErrorInvalidValue;
+  K4Ceil src;
+  src.q_idx = q_idx;
+  src.q_val = q_val;
+  src.starts = term_starts;
+  src.lens = term_lens;
+  src.ubs = term_ubs;
+  src.s1 = make_stream(postings_doc, 4 * P);
+  src.s2 = make_stream(postings_doc, 0);
   src.Q = Q;
   src.V = V;
   return run(src, vals, idx, ws, B, n_docs, k, stream);

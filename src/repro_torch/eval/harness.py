@@ -25,12 +25,11 @@ sweeps the method matrix on identical reps. Judgments are keyed by
 **external** doc ids (``doc_ids``, default row order), the ids the
 engine preserves across mutations — see ``qrels.py``.
 
-``DEFAULT_METHODS`` is ``("exact", "quantized")``: the JAX package's
-also holds ``pruned``, which needs the builder's forward rows
-(``IndexBuilder(keep_forward=True)`` raises until pruning is ported,
-ROADMAP Queue 1 item 8). A ``pruned`` spec raises that error, and a
-spec with ``doc_shards > 0`` raises ``NotImplementedError`` naming item
-10 (multi-GPU); neither falls back to another method.
+``DEFAULT_METHODS`` is the JAX package's: ``exact``, ``pruned`` (the
+builder's forward rows, the two-tier scorer at margin 0) and
+``quantized``. A spec with ``doc_shards > 0`` raises
+``NotImplementedError`` naming ROADMAP Queue 1 item 10 (multi-GPU); it
+does not fall back to another method.
 """
 
 from __future__ import annotations
@@ -53,9 +52,9 @@ from repro_torch.retrieval.sparse_rep import (SparseRep, sparsify_topk,
 class MethodSpec:
     """One evaluated retrieval configuration.
 
-    ``engine`` kwargs feed ``IndexBuilder`` (``quantize=True``);
-    ``search`` kwargs feed ``IndexBuilder.search`` (``method=``,
-    ``q_width=``). ``doc_shards > 0`` (a doc-range sharded index in the
+    ``engine`` kwargs feed ``IndexBuilder`` (``quantize=True``,
+    ``keep_forward=True``); ``search`` kwargs feed ``IndexBuilder.search``
+    (``method=``, ``q_width=``, ``prune_margin=``, ``candidates=``). ``doc_shards > 0`` (a doc-range sharded index in the
     JAX package) is not ported yet and raises.
     """
     name: str
@@ -66,6 +65,8 @@ class MethodSpec:
 
 DEFAULT_METHODS: Tuple[MethodSpec, ...] = (
     MethodSpec("exact"),
+    MethodSpec("pruned", engine={"keep_forward": True},
+               search={"method": "pruned", "prune_margin": 0.0}),
     MethodSpec("quantized", engine={"quantize": True}),
 )
 

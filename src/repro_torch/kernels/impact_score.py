@@ -14,6 +14,12 @@ doc id is the running sum of the term's gaps; the weight is
 ``(lo + (code - 1) * step) * qv``, and code 0 (an escape phantom) weighs
 exactly 0 but still advances the running sum.
 
+K4 has a third entry, ``fused_ceiling_index_topk``: the tier-1 ceilings of
+the two-tier pruned scorer (``repro/retrieval/engine/pruning.py``
+``upper_bound_scores`` followed by ``lax.top_k``). It reads an
+``InvertedIndex``'s doc ids in place, never its impacts: every lane of a
+query term weighs the term's ceiling ``q_val * term_ubs[id]``.
+
 Two entries each:
 
 * the window entries ``fused_impact_topk`` and ``fused_quantized_topk``
@@ -27,7 +33,7 @@ Two entries each:
   the gather of the windows (``index_windows``,
   ``quantized_index_windows``) followed by the window entry's.
 
-All four run one kernel (``csrc/impact_topk.cu``; its header says how it is
+All five run one kernel (``csrc/impact_topk.cu``; its header says how it is
 laid out): a grid of (query row, doc slice) blocks that fills the card,
 each staging its query's postings in shared memory with ``cp.async`` and
 summing every doc's lanes in query-term order, then a merge of the
@@ -260,6 +266,28 @@ def index_windows(q_idx: torch.Tensor, q_val: torch.Tensor,
     return w.reshape(b, -1).contiguous(), docs.reshape(b, -1).contiguous()
 
 
+def ceiling_windows(q_idx: torch.Tensor, q_val: torch.Tensor,
+                    term_starts: torch.Tensor, term_lens: torch.Tensor,
+                    postings_doc: torch.Tensor, term_ubs: torch.Tensor,
+                    max_postings: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``index_windows`` with each valid lane weighing its term's ceiling
+    ``c = q_val * term_ubs[id]`` (one rounding) instead of its impact: the
+    windows of the tier-1 upper-bound pass. ``postings_val`` is not
+    read."""
+    dev = postings_doc.device
+    lane = torch.arange(max_postings, dtype=torch.int32, device=dev)
+    qv = q_val.float()
+    qi = term_rows(q_idx, term_starts.shape[0])
+    c = qv * term_ubs[qi]                                   # (B, Q)
+    pos = term_starts[qi][:, :, None] + lane                # (B, Q, L)
+    valid = (lane < term_lens[qi][:, :, None]) & (qv > 0)[:, :, None]
+    pos = pos.clamp(0, postings_doc.shape[0] - 1).long()
+    docs = torch.where(valid, postings_doc[pos], 0)
+    w = torch.where(valid, c[:, :, None], 0.0)
+    b = w.shape[0]
+    return w.reshape(b, -1).contiguous(), docs.reshape(b, -1).contiguous()
+
+
 def query_lanes(q_idx: torch.Tensor, term_lens: torch.Tensor) -> int:
     """The longest posting list among the query's terms (>= 1): the
     window width at which the plain versions gather every posting (any
@@ -338,6 +366,79 @@ def fused_impact_index_topk(
 
 
 fused_impact_index_topk.launches = 0
+
+
+def fused_ceiling_index_topk_plain(q_idx, q_val, term_starts, term_lens,
+                                   postings_doc, term_ubs, *, n_docs: int,
+                                   k: int
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K4's ceiling entry: the ceiling windows (as
+    wide as the query's longest list), the dense ceilings summed one term
+    at a time (``scatter_scores``, the kernel's order), then the merge's
+    top-k (ties to the lowest doc id, zero-ceiling docs included)."""
+    L = query_lanes(q_idx, term_lens)
+    w, docs = ceiling_windows(q_idx, q_val, term_starts, term_lens,
+                              postings_doc, term_ubs, L)
+    return topk_rows(scatter_scores(w, docs, n_docs, L), k)
+
+
+def _launch_ceiling(q_idx, q_val, term_starts, term_lens, postings_doc,
+                    term_ubs, n_docs, k):
+    name = "fused_ceiling_index_topk"
+    query, cols = (q_idx, q_val), (term_starts, term_lens, term_ubs)
+    if q_idx.dim() != 2 or q_val.shape != q_idx.shape:
+        raise ValueError(f"{name}: q_idx {tuple(q_idx.shape)} and q_val "
+                         f"{tuple(q_val.shape)} must both be (B, Q)")
+    if (any(t.dim() != 1 for t in cols + (postings_doc,))
+            or any(t.shape != term_starts.shape for t in cols)):
+        raise ValueError(f"{name}: term_starts/term_lens/term_ubs must be "
+                         f"(V,) and postings_doc (P,)")
+    if (any(t.dtype != torch.int32 for t in (q_idx, term_starts, term_lens,
+                                             postings_doc))
+            or q_val.dtype != torch.float32
+            or term_ubs.dtype != torch.float32):
+        raise ValueError(f"{name}: the kernel takes i32 q_idx, term_starts, "
+                         f"term_lens, postings_doc and f32 q_val, term_ubs")
+    if not all(t.is_contiguous() for t in query + cols + (postings_doc,)):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    _check_k(name, n_docs, k)
+    dev = _check_cuda(name, query + cols + (postings_doc,))
+    B, Q = q_idx.shape
+    return _run(fused_ceiling_index_topk, "impact_ceiling_index_topk",
+                _INDEX_ARGTYPES, dev, B, n_docs, k,
+                tuple(_ptr(t) for t in (q_idx, q_val, term_starts, term_lens,
+                                        postings_doc, term_ubs)),
+                (B, Q, term_starts.shape[0], postings_doc.shape[0], n_docs,
+                 k))
+
+
+def fused_ceiling_index_topk(
+    q_idx: torch.Tensor,         # (B, Q) i32 — vocab id of each query term
+    q_val: torch.Tensor,         # (B, Q) f32 — its weight (<= 0: skipped)
+    term_starts: torch.Tensor,   # (V,) i32 — the index's arrays, as stored
+    term_lens: torch.Tensor,     # (V,) i32
+    postings_doc: torch.Tensor,  # (P,) i32
+    term_ubs: torch.Tensor,      # (V,) f32 — each term's largest impact
+    *,
+    n_docs: int,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's tier-1 ceiling entry: per query row, each doc's sum over the
+    live query terms whose list holds it of ``q_val * term_ubs[id]``, in
+    term order, and the k best ``(vals (B, k) f32, idx (B, k) i32)``: value
+    descending, ties to the lowest doc id (zero-ceiling docs fill the list
+    by id when fewer docs have a ceiling), ``(NEG_INF, 0)`` past
+    ``n_docs``. Reads ``postings_doc`` in place and never the impacts. CPU
+    tensors take the plain version."""
+    if postings_doc.device.type == "cpu":
+        return fused_ceiling_index_topk_plain(
+            q_idx, q_val, term_starts, term_lens, postings_doc, term_ubs,
+            n_docs=n_docs, k=k)
+    return _launch_ceiling(q_idx, q_val, term_starts, term_lens,
+                           postings_doc, term_ubs, n_docs, k)
+
+
+fused_ceiling_index_topk.launches = 0
 
 
 def decode_quantized_windows(byte_win: torch.Tensor, gap_win: torch.Tensor,

@@ -5,22 +5,25 @@ The pipeline of ``repro/launch/serve.py``, end to end:
 1. index    — encode a synthetic corpus (16-token docs) through the
               trunk and the Sparton head, sparsify on the device
               (``--rep-topk``), build the inverted impact index
-              (``--method quantized`` compresses it); with ``--rep-topk
-              0`` keep the dense reps as an ``(N, V)`` f32 corpus on the
-              device instead. With ``--engine`` the corpus grows online
+              (``--method quantized`` compresses it, ``--method pruned``
+              keeps its forward rows); with ``--rep-topk 0`` keep the
+              dense reps as an ``(N, V)`` f32 corpus on the device
+              instead. With ``--engine`` the corpus grows online
               through a ``CorpusEngine``: one ``add_docs`` + ``flush`` per
               batch, ``--remove-frac`` of it tombstoned at the end, the
-              base segment compressed with ``--quantize``.
+              base segment compressed with ``--quantize``, or the
+              segments' forward rows kept with ``--prune-margin``.
 2. serve    — stream queries (4–24 tokens) through the deadline/size
               micro-batching loop; results are popped with ``take``.
 3. retrieve — top-k of the first served queries through
               ``retrieve(method=--method)``, or the engine's ``search``
-              (``auto`` on each segment).
+              (``auto`` on each segment; with ``--prune-margin M`` the
+              two-tier ``pruned`` method at margin M).
 
 It runs the config's SMOKE size with seeded random weights on
 ``--device`` (default ``cuda``; ``--device cpu`` runs the kernels' plain
 versions). ``run`` is the same pipeline for any encode fn and config;
-``chip_smoke.py`` drives it at full width. The pruning, tenants, cache
+``chip_smoke.py`` drives it at full width. The tenants, cache, admission
 and sharding flags of the JAX entry point arrive with their slices.
 """
 
@@ -30,7 +33,7 @@ import argparse
 import dataclasses
 import sys
 import time
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -41,11 +44,13 @@ SEED = 0        # the synthetic corpus and requests
 
 
 def index_corpus(encode: Callable, vocab_size: int, n_docs: int, *,
-                 batch: int, rng: np.random.Generator, device):
+                 batch: int, rng: np.random.Generator, device,
+                 keep_forward: bool = False):
     """Encode ``n_docs`` random docs in batches. Sparse reps are indexed
-    (an ``InvertedIndex``); dense reps are written, batch by batch, into
-    one ``(n_docs, V)`` f32 tensor on ``device``, the layout the
-    streaming kernel reads in place."""
+    (an ``InvertedIndex``, with its forward rows when ``keep_forward``);
+    dense reps are written, batch by batch, into one ``(n_docs, V)`` f32
+    tensor on ``device``, the layout the streaming kernel reads in
+    place."""
     from repro_torch.retrieval.index import build_inverted_index
     from repro_torch.retrieval.sparse_rep import SparseRep, stack_rows
 
@@ -65,7 +70,7 @@ def index_corpus(encode: Callable, vocab_size: int, n_docs: int, *,
     if dense is not None:
         return dense
     return build_inverted_index(stack_rows(parts), vocab_size,
-                                device=device)
+                                keep_forward=keep_forward, device=device)
 
 
 def grow_engine(engine, vocab_size: int, n_docs: int, *, batch: int,
@@ -109,14 +114,16 @@ def serve_requests(encode: Callable, vocab_size: int, n_requests: int, *,
 
 def run(encode: Callable, vocab_size: int, *, corpus: int, requests: int,
         topk: int, method: str, index_batch: int, device, engine=None,
-        remove_frac: float = 0.0) -> Dict[str, Any]:
+        remove_frac: float = 0.0,
+        prune_margin: Optional[float] = None) -> Dict[str, Any]:
     """Index, serve, retrieve. Returns what each stage produced and took
     (host seconds, each stage ending in a device synchronisation); its
     ``"index"`` is the ``InvertedIndex`` (a ``QuantizedIndex`` for
-    ``method="quantized"``, the raw one then in ``"raw_index"``), for
-    dense reps the dense corpus, and with an ``engine`` (a
-    ``CorpusEngine``, grown here by ``grow_engine``) the engine, searched
-    with ``method``."""
+    ``method="quantized"``, the raw one then in ``"raw_index"``; with its
+    forward rows for ``method="pruned"``), for dense reps the dense
+    corpus, and with an ``engine`` (a ``CorpusEngine``, grown here by
+    ``grow_engine``) the engine, searched with ``method``, or with
+    ``method="pruned"`` at ``prune_margin`` when that is given."""
     from repro_torch.retrieval.engine.quantize import quantize_index
     from repro_torch.retrieval.score import resolve_method, retrieve
     from repro_torch.retrieval.sparse_rep import SparseRep, stack_rows
@@ -131,7 +138,8 @@ def run(encode: Callable, vocab_size: int, *, corpus: int, requests: int,
         index = engine
     else:
         index = index_corpus(encode, vocab_size, corpus, batch=index_batch,
-                             rng=rng, device=device)
+                             rng=rng, device=device,
+                             keep_forward=method == "pruned")
         if method == "quantized":
             out["raw_index"] = index
             index = quantize_index(index)
@@ -145,9 +153,12 @@ def run(encode: Callable, vocab_size: int, *, corpus: int, requests: int,
     served = [r for r in outcomes.values()
               if not isinstance(r, (ShedResult, FailedResult))]
 
+    search_kw = {"method": method}
+    if engine is not None and prune_margin is not None:
+        search_kw = {"method": "pruned", "prune_margin": prune_margin}
     out.update(index=index, index_s=index_s, loop=loop, outcomes=outcomes,
                serve_s=serve_s, served=served,
-               method=(engine.builder.resolved_method(method)
+               method=(engine.builder.resolved_method(search_kw["method"])
                        if engine is not None else resolve_method(method,
                                                                  index)))
     if served:
@@ -157,7 +168,7 @@ def run(encode: Callable, vocab_size: int, *, corpus: int, requests: int,
             queries = torch.from_numpy(np.stack(served[:N_QUERIES]))
         t0 = time.perf_counter()
         if engine is not None:
-            vals, idx = engine.search(queries, topk, method=method)
+            vals, idx = engine.search(queries, topk, **search_kw)
         else:
             vals, idx = retrieve(queries, index, topk, method=method)
             if vals.is_cuda:
@@ -197,6 +208,10 @@ def main(argv=None) -> int:
     ap.add_argument("--quantize", action="store_true",
                     help="engine mode: serve the base segment as a "
                          "compressed QuantizedIndex")
+    ap.add_argument("--prune-margin", type=float, default=None,
+                    metavar="M",
+                    help="engine mode: retrieve through the two-tier "
+                         "pruned scorer with this margin (0 = safe)")
     ap.add_argument("--remove-frac", type=float, default=0.0,
                     help="engine mode: tombstone this fraction of the "
                          "corpus after it has grown (exercises remove + "
@@ -211,14 +226,18 @@ def main(argv=None) -> int:
     if args.method in INDEX_METHODS and args.rep_topk <= 0:
         ap.error(f"--method {args.method} needs SparseRep queries and an "
                  "index; pass a positive --rep-topk")
-    if (args.quantize or args.remove_frac) and not args.engine:
-        ap.error("--quantize/--remove-frac need --engine")
+    if ((args.quantize or args.prune_margin is not None or args.remove_frac)
+            and not args.engine):
+        ap.error("--quantize/--prune-margin/--remove-frac need --engine")
     if args.engine and args.rep_topk <= 0:
         ap.error("--engine needs sparse reps; pass a positive --rep-topk")
+    if args.engine and args.quantize and args.prune_margin is not None:
+        ap.error("--quantize and --prune-margin are exclusive (the pruned "
+                 "rescorer reads raw forward rows)")
     if args.engine and args.method != "auto":
-        ap.error("--engine picks its retrieval path from --quantize; drop "
-                 "--method (the builder's segments are searched via "
-                 "'auto')")
+        ap.error("--engine picks its retrieval path from "
+                 "--quantize/--prune-margin; drop --method (the builder's "
+                 "segments are searched via 'auto')")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -243,11 +262,12 @@ def main(argv=None) -> int:
         engine = CorpusEngine(
             BatchedEncoder(encode,
                            policy=BatchPolicy(max_batch=args.index_batch)),
-            cfg.vocab_size, quantize=args.quantize, device=device)
+            cfg.vocab_size, quantize=args.quantize,
+            keep_forward=args.prune_margin is not None, device=device)
     res = run(encode, cfg.vocab_size, corpus=args.corpus,
               requests=args.requests, topk=args.topk, method=args.method,
               index_batch=args.index_batch, device=device, engine=engine,
-              remove_frac=args.remove_frac)
+              remove_frac=args.remove_frac, prune_margin=args.prune_margin)
     corpus = res["index"]
     if engine is not None:
         st = engine.stats()
@@ -281,7 +301,10 @@ def main(argv=None) -> int:
     if "vals" not in res:
         print("no request served; nothing to retrieve")
         return 1
-    print(f"retrieval[{res['method']}]: top-{args.topk} for "
+    tag = res["method"]
+    if engine is not None and args.prune_margin is not None:
+        tag = "engine/pruned"
+    print(f"retrieval[{tag}]: top-{args.topk} for "
           f"{res['vals'].shape[0]} queries in "
           f"{res['retrieve_s'] * 1e3:.1f} ms, best scores "
           f"{[round(float(v), 2) for v in res['vals'][:, 0]]}")

@@ -10,9 +10,12 @@
                      untouched.
 * ``remove(ids)``  — tombstone documents by external id. A tombstone in
                      the base segment is applied at flush time by zeroing
-                     the doc's postings (a mask, no re-sort) and, for a
-                     quantized base, quantizing again: the doc then scores
-                     0 and its slot is reclaimed at the next compaction.
+                     the doc's postings (a mask, no re-sort) and its
+                     forward row, and, for a quantized base, quantizing
+                     again: the doc then scores 0 and its slot is
+                     reclaimed at the next compaction. The per-term upper
+                     bounds stay as they are: zeroing only lowers impacts,
+                     so they still bound them.
 * ``flush()``      — make pending adds/removes visible to ``search``.
                      When the delta outgrows ``merge_frac`` of the base,
                      or tombstones exceed ``compact_dead_frac`` of the
@@ -27,14 +30,16 @@ base segment is a ``QuantizedIndex`` and the hot delta stays raw; under
 ``method="auto"`` each segment resolves by its own size, so a base of at
 least ``AUTO_FUSED_N`` docs is scored by K5 and a small delta by the
 plain impact path, while ``method="fused"`` sends both to their kernels
-(K5 and K4). Every mutation that can change what ``search`` returns bumps
-``generation``.
+(K5 and K4). With ``keep_forward=True`` both segments carry their forward
+rows, so ``auto`` resolves each to the two-tier ``pruned`` method (K4's
+ceiling entry); ``method="pruned"`` scores the delta with ``impact``. Every
+mutation that can change what ``search`` returns bumps ``generation``.
 
 The segments live on ``device`` (default ``cuda``); the row store and the
 builds are host numpy, as in the JAX package. Term-sharded and 2D bases
-(``term_shards``, ``plan``) and forward rows (``keep_forward``) are not
-ported yet and raise, naming the ROADMAP item that brings them. Not
-thread-safe; callers serialize, as the serving loop does.
+(``term_shards``, ``plan``) are not ported yet and raise, naming the
+ROADMAP item that brings them. Not thread-safe; callers serialize, as the
+serving loop does.
 """
 
 from __future__ import annotations
@@ -77,12 +82,9 @@ class IndexBuilder:
             raise NotImplementedError(
                 "plan= and term_shards= are not ported yet: sharded bases "
                 f"arrive with {MULTI_GPU}")
-        if keep_forward:
-            raise NotImplementedError(
-                "keep_forward=True is not ported yet: the forward rows "
-                "arrive with pruning, ROADMAP Queue 1 item 8")
         self.vocab_size = vocab_size
         self.quantize = quantize
+        self.keep_forward = keep_forward
         self.merge_frac = merge_frac
         self.compact_dead_frac = compact_dead_frac
         self.device = resolve_device(device)
@@ -141,9 +143,7 @@ class IndexBuilder:
 
     def memory_bytes(self) -> int:
         """Approximate resident bytes: the host row store plus the served
-        segments' ``memory_bytes`` (the raw index holds no per-term upper
-        bounds in the port, so a raw segment counts 4 bytes a term less
-        than the JAX package's)."""
+        segments' ``memory_bytes``."""
         total = int(self._ext_ids.nbytes + self._alive.nbytes)
         if self._values is not None:
             total += int(self._values.nbytes + self._indices.nbytes)
@@ -226,7 +226,9 @@ class IndexBuilder:
     def _pack_base(self, values: np.ndarray, indices: np.ndarray) -> None:
         rep = SparseRep(values, indices,
                         (values > 0).sum(axis=1).astype(np.int32))
-        raw = build_inverted_index(rep, self.vocab_size, device=self.device)
+        raw = build_inverted_index(rep, self.vocab_size,
+                                   keep_forward=self.keep_forward,
+                                   device=self.device)
         self._base_raw = raw
         self._base = quantize_index(raw) if self.quantize else raw
 
@@ -277,8 +279,10 @@ class IndexBuilder:
             dead = torch.as_tensor(np.asarray(self._base_removals, np.int64),
                                    device=raw.device)
             zeroed = torch.isin(raw.postings_doc.long(), dead)
-            self._base_raw = dataclasses.replace(
-                raw, postings_val=torch.where(zeroed, 0.0, raw.postings_val))
+            kw = {"postings_val": torch.where(zeroed, 0.0, raw.postings_val)}
+            if raw.doc_values is not None:
+                kw["doc_values"] = raw.doc_values.index_fill(0, dead, 0.0)
+            self._base_raw = dataclasses.replace(raw, **kw)
             self._base = (quantize_index(self._base_raw) if self.quantize
                           else self._base_raw)
             self._base_removals = []
@@ -297,9 +301,9 @@ class IndexBuilder:
 
         if self._delta_dirty:
             tail = self._tail_rep()
-            self._delta = (build_inverted_index(tail, self.vocab_size,
-                                                device=self.device)
-                           if tail.values.shape[0] else None)
+            self._delta = (build_inverted_index(
+                tail, self.vocab_size, keep_forward=self.keep_forward,
+                device=self.device) if tail.values.shape[0] else None)
             self._delta_dirty = False
 
     # -- search ----------------------------------------------------------
@@ -316,15 +320,28 @@ class IndexBuilder:
         return "impact"
 
     def _check_search_kwargs(self, method: str, kw: dict) -> str:
-        """No ported method takes a tuning kwarg (``score.METHOD_KWARGS``),
-        so any keyword but ``q_width`` raises ``TypeError`` naming the
-        resolved method. Returns the resolved method."""
+        """The dispatcher's kwarg check, as ``TypeError`` naming the
+        resolved method: names no method takes, and names the resolved
+        method does not accept (``score.METHOD_KWARGS``; a None value
+        counts as not passed). Returns the resolved method."""
         resolved = self.resolved_method(method)
-        if kw:
+        every = frozenset().union(*score.METHOD_KWARGS.values())
+        allowed = score.METHOD_KWARGS.get(resolved, frozenset())
+        unknown = sorted(n for n in kw if n not in every)
+        stray = sorted(n for n, v in kw.items()
+                       if n in every and v is not None and n not in allowed)
+        if unknown or stray:
+            what = []
+            if unknown:
+                what.append(f"unknown kwargs {', '.join(unknown)}")
+            if stray:
+                what.append(f"kwargs {', '.join(stray)} that "
+                            f"method={resolved!r} does not accept")
             raise TypeError(
                 f"search(method={method!r}) resolved to {resolved!r}: "
-                f"unknown kwargs {', '.join(sorted(kw))} (accepted: no "
-                "tuning kwargs)")
+                + "; ".join(what) + " (accepted: "
+                + (f"{sorted(allowed)}" if allowed else "no tuning kwargs")
+                + ")")
         return resolved
 
     def search(self, queries: SparseRep, k: int = 10, *,
@@ -335,8 +352,9 @@ class IndexBuilder:
         the top-k and tombstoned slots). Flushes pending mutations first.
 
         ``q_width`` truncates the queries to their ``q_width`` largest
-        terms (the serving degrade ladder's knob); any other keyword
-        raises ``TypeError`` naming the resolved method.
+        terms (the serving degrade ladder's knob); the other keywords
+        (``prune_margin``, ``candidates``) go to ``retrieve`` for the base
+        segment once ``_check_search_kwargs`` has let them through.
         """
         if q_width is not None:
             queries = truncate_width(queries, q_width)
@@ -352,11 +370,11 @@ class IndexBuilder:
         if self._base is not None:
             parts.append(score.retrieve(queries, self._base,
                                         min(k, self._base.n_docs),
-                                        method=method))
+                                        method=method, **kw))
         if self._delta is not None:
             # the delta is always a raw InvertedIndex: the base-only
-            # method falls back to exact impact scoring
-            dm = "impact" if method == "quantized" else method
+            # methods fall back to exact impact scoring
+            dm = "impact" if method in ("pruned", "quantized") else method
             dv, di = score.retrieve(queries, self._delta,
                                     min(k, self._delta.n_docs), method=dm)
             parts.append((dv, di + self._base_n))

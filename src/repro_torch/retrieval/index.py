@@ -9,17 +9,26 @@ Padded CSC over the vocabulary, flattened into four arrays::
 
 plus ``n_docs``, ``vocab_size`` and ``max_postings`` (the longest list:
 the static gather width of the scorers). The build is host-side numpy,
-as in the JAX package, and the arrays are then moved to the device. The
-engine extensions of the JAX index (per-term upper bounds, forward rows,
-vocab-range shards) arrive with pruning and multi-GPU (ROADMAP Queue 1
-items 8 and 10).
+as in the JAX package, and the arrays are then moved to the device.
+
+The engine extensions of the JAX index:
+
+* ``term_ubs`` (V,) f32 — each term's largest impact (0 for a term with
+  no postings): the ceilings of the two-tier pruned scorer
+  (``engine/pruning``). Built unless ``with_upper_bounds=False``.
+* ``doc_values`` / ``doc_indices`` (N, K) — the forward rows the index was
+  built from, kept with ``keep_forward=True``: the pruned scorer rescores
+  its candidates from them.
+
+Vocab-range (term) shards arrive with multi-GPU (ROADMAP Queue 1 item
+10) and raise until then.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +50,9 @@ class InvertedIndex:
     n_docs: int
     vocab_size: int
     max_postings: int             # longest posting list (>= 1)
+    term_ubs: Optional[torch.Tensor] = None      # (V,) f32 max impact/term
+    doc_values: Optional[torch.Tensor] = None    # (N, K) f32 forward rows
+    doc_indices: Optional[torch.Tensor] = None   # (N, K) i32
     # (p50, p90, p99, max) posting lengths over active terms
     posting_percentiles: Tuple[float, ...] = ()
 
@@ -52,11 +64,22 @@ class InvertedIndex:
     def n_postings(self) -> int:
         return self.postings_doc.shape[0]
 
+    @property
+    def has_upper_bounds(self) -> bool:
+        return self.term_ubs is not None
+
+    @property
+    def has_forward(self) -> bool:
+        return self.doc_values is not None and self.doc_indices is not None
+
     def memory_bytes(self) -> int:
-        """Index footprint (compare with ``n_docs * vocab_size * 4``)."""
-        return sum(a.numel() * a.element_size() for a in (
-            self.term_starts, self.term_lens, self.postings_doc,
-            self.postings_val))
+        """Index footprint (compare with ``n_docs * vocab_size * 4``): every
+        stored array, the upper bounds and forward rows included."""
+        arrays = [self.term_starts, self.term_lens, self.postings_doc,
+                  self.postings_val]
+        arrays += [a for a in (self.term_ubs, self.doc_values,
+                               self.doc_indices) if a is not None]
+        return sum(a.numel() * a.element_size() for a in arrays)
 
     def stats(self) -> Dict[str, float]:
         lens = self.term_lens.cpu().numpy()
@@ -87,6 +110,8 @@ def _posting_percentiles(lens: np.ndarray) -> Tuple[float, ...]:
 
 def build_inverted_index(reps: SparseRep, vocab_size: int, *,
                          keep_forward: bool = False,
+                         with_upper_bounds: bool = True,
+                         vocab_range: Optional[Tuple[int, int]] = None,
                          device: DeviceLike = None) -> InvertedIndex:
     """Build the index from a batched ``(N, K)`` corpus rep.
 
@@ -95,13 +120,15 @@ def build_inverted_index(reps: SparseRep, vocab_size: int, *,
     corpus still yields one zero-impact posting, so the scorers' shapes
     never degenerate. Warns, with the posting-length percentiles, when
     the longest list covers more than ``STOPWORD_WARN_FRAC`` of the docs.
-    ``keep_forward=True`` (the forward rows the pruned scorer rescores
-    from) is not ported yet and raises.
+    ``with_upper_bounds`` stores each term's largest impact
+    (``term_ubs``); ``keep_forward=True`` also stores the ``(N, K)``
+    forward rows, which the pruned scorer rescores from. ``vocab_range``
+    (a term shard) is not ported yet and raises.
     """
-    if keep_forward:
+    if vocab_range is not None:
         raise NotImplementedError(
-            "keep_forward=True is not ported yet: the forward rows arrive "
-            "with pruning, ROADMAP Queue 1 item 8")
+            "vocab_range is not ported yet: term shards arrive with "
+            "multi-GPU, ROADMAP Queue 1 item 10")
     dev = resolve_device(device)
     host = device_get(reps)
     k = host.width
@@ -123,6 +150,9 @@ def build_inverted_index(reps: SparseRep, vocab_size: int, *,
     lens = np.bincount(terms, minlength=vocab_size).astype(np.int32)
     starts = np.zeros(vocab_size, np.int64)
     np.cumsum(lens[:-1], out=starts[1:])
+    ubs = np.zeros(vocab_size, np.float32)
+    if terms.size:
+        np.maximum.at(ubs, terms, vals)
     if terms.size == 0:
         docs = np.zeros(1, np.int32)
         vals = np.zeros(1, np.float32)
@@ -147,4 +177,7 @@ def build_inverted_index(reps: SparseRep, vocab_size: int, *,
         postings_doc=put(docs, np.int32),
         postings_val=put(vals, np.float32),
         n_docs=n_docs, vocab_size=vocab_size, max_postings=max_postings,
+        term_ubs=put(ubs, np.float32) if with_upper_bounds else None,
+        doc_values=put(v, np.float32) if keep_forward else None,
+        doc_indices=put(i, np.int32) if keep_forward else None,
         posting_percentiles=pct)

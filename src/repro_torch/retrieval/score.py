@@ -15,6 +15,11 @@ Methods ported so far:
                 (decoding in the kernel) for a ``QuantizedIndex``
                 (``kernels/impact_score``'s index entries; on the CPU
                 their plain version, the windows and a dense scatter)
+    "pruned"    ``InvertedIndex`` with upper bounds and forward rows
+                (``engine/pruning``): two tiers, K4's ceiling entry
+                keeping the best ``C + 1`` ceilings, then an exact
+                rescoring of the candidates from the forward rows (plain
+                PyTorch); ``prune_margin`` and ``candidates`` tune it
 
     dense corpora (an (N, V) tensor; ``SparseRep`` queries are densified)
     "dense"     ``q @ C^T`` and a top-k (plain PyTorch, as the JAX package
@@ -24,10 +29,11 @@ Methods ported so far:
                 contiguous f32 corpus is read in place, another one cast
                 to it once per call (as the reference casts)
 
-    "auto"      an index: "fused" from ``AUTO_FUSED_N`` docs, else
-                "impact" (``InvertedIndex``) or "quantized"
-                (``QuantizedIndex``); a dense corpus: "streaming" from
-                ``AUTO_STREAMING_N`` rows, else "dense"
+    "auto"      an ``InvertedIndex`` with upper bounds and forward rows
+                (an engine build): "pruned"; another index: "fused" from
+                ``AUTO_FUSED_N`` docs, else "impact" (``InvertedIndex``)
+                or "quantized" (``QuantizedIndex``); a dense corpus:
+                "streaming" from ``AUTO_STREAMING_N`` rows, else "dense"
 
 All return ``(vals (B, k) f32, idx (B, k) i32)`` with ties to the lowest
 doc id, ``k`` clamped to the corpus size, and identical ids on inputs
@@ -35,10 +41,10 @@ without near-ties. A query id outside ``[0, V)`` reads the term the
 reference's gather reads (a negative id plus V, then clamped to ``[0, V -
 1]``; ``kernels/impact_score.term_rows``). The JAX package's other
 methods raise ``NotImplementedError`` naming the ROADMAP item that brings
-them. The port's methods take no tuning keyword arguments (the JAX ones —
-Pallas blocks, ``interpret`` — are TPU knobs), and any that is passed
-raises instead of being ignored (``METHOD_KWARGS``, the accepted kwargs
-of each method, is empty for every one).
+them. Only ``pruned`` takes tuning keyword arguments (``prune_margin``,
+``candidates``); the JAX package's others (Pallas blocks, ``interpret``)
+are TPU knobs. A keyword the resolved method does not accept raises
+instead of being ignored (``METHOD_KWARGS``).
 """
 
 from __future__ import annotations
@@ -50,22 +56,23 @@ import torch
 from repro_torch.kernels.impact_score import (fused_impact_index_topk,
                                               index_windows, scatter_scores)
 from repro_torch.kernels.topk_score import topk_rows, topk_score
+from repro_torch.retrieval.engine.pruning import pruned_retrieve
 from repro_torch.retrieval.engine.quantize import (QuantizedIndex,
                                                    fused_quantized_retrieve,
                                                    quantized_retrieve)
 from repro_torch.retrieval.index import InvertedIndex
 from repro_torch.retrieval.sparse_rep import SparseRep, query_columns
 
-METHODS = ("auto", "impact", "quantized", "fused", "dense", "streaming")
+METHODS = ("auto", "impact", "quantized", "fused", "pruned", "dense",
+           "streaming")
 # methods that need an index corpus (not a dense matrix)
-INDEX_METHODS = ("impact", "quantized", "fused")
-# the tuning kwargs each method accepts: none (the JAX ones, Pallas blocks
-# and ``interpret``, are TPU knobs)
+INDEX_METHODS = ("impact", "quantized", "fused", "pruned")
+# the tuning kwargs each method accepts (the JAX package's Pallas blocks
+# and ``interpret`` are TPU knobs)
 METHOD_KWARGS = {m: frozenset() for m in METHODS if m != "auto"}
+METHOD_KWARGS["pruned"] = frozenset({"prune_margin", "candidates"})
 # the JAX package's other methods, and the ROADMAP item that ports each
 NOT_PORTED = {
-    "pruned": "ROADMAP Queue 1 item 8 (pruning, with the index's term_ubs "
-              "and forward rows)",
     "sharded": "ROADMAP Queue 1 item 10 (multi-GPU, slice 4)",
     "term_sharded": "ROADMAP Queue 1 item 10 (multi-GPU, slice 4)",
     "shard2d": "ROADMAP Queue 1 item 10 (multi-GPU, slice 4)",
@@ -129,21 +136,26 @@ def resolve_method(method: str, corpus) -> str:
     if isinstance(corpus, QuantizedIndex):
         return "fused" if corpus.n_docs >= AUTO_FUSED_N else "quantized"
     if isinstance(corpus, InvertedIndex):
+        # an engine build (upper bounds + forward rows) serves the two-tier
+        # pruned path; a bare index only the exact ones
+        if corpus.has_upper_bounds and corpus.has_forward:
+            return "pruned"
         return "fused" if corpus.n_docs >= AUTO_FUSED_N else "impact"
     rows = corpus.shape[0] if hasattr(corpus, "shape") else 0
     return "streaming" if rows >= AUTO_STREAMING_N else "dense"
 
 
 def _check_kwargs(method: str, passed: dict) -> None:
-    """Raise on tuning kwargs: no ported method takes any
-    (``METHOD_KWARGS``)."""
+    """Raise on the tuning kwargs ``method`` does not accept
+    (``METHOD_KWARGS``; a None value counts as not passed)."""
+    allowed = METHOD_KWARGS[method]
     stray = sorted(name for name, value in passed.items()
-                   if value is not None)
+                   if value is not None and name not in allowed)
     if stray:
         raise ValueError(
-            f"method={method!r} does not accept {', '.join(stray)} (the "
-            "port's methods take no tuning kwargs); refusing to silently "
-            "ignore a tuning knob")
+            f"method={method!r} does not accept {', '.join(stray)} "
+            f"(accepted: {sorted(allowed) if allowed else 'no tuning kwargs'}"
+            "); refusing to silently ignore a tuning knob")
 
 
 def retrieve(queries, corpus, k: int = 10, *, method: str = "auto",
@@ -183,6 +195,12 @@ def retrieve(queries, corpus, k: int = 10, *, method: str = "auto",
             raise ValueError(
                 f"method={method!r} needs an InvertedIndex corpus — build "
                 "one with retrieval.index.build_inverted_index")
+        if method == "pruned":
+            margin = tuning.get("prune_margin")
+            return pruned_retrieve(
+                queries, corpus, k,
+                prune_margin=margin if margin is not None else 0.0,
+                candidates=tuning.get("candidates"))
         return topk_rows(impact_scores(queries, corpus),
                          min(k, corpus.n_docs))
 

@@ -130,10 +130,10 @@ class AdmissionPolicy:
 class DegradeStep:
     """One rung: retrieval kwargs plus a query-width fraction.
 
-    ``search_kwargs`` feed the engine's search (method + prune_margin;
-    the engine arrives with its slice); ``q_width_frac``
-    scales the encode-side rep width (``q_width=`` in search truncates
-    the query rep to its largest terms — fewer postings touched).
+    ``search_kwargs`` feed the engine's search (method + prune_margin);
+    ``q_width_frac`` scales the encode-side rep width (``q_width=`` in
+    search truncates the query rep to its largest terms — fewer postings
+    touched).
     """
     name: str
     search_kwargs: Dict[str, Any] = dataclasses.field(
@@ -631,10 +631,13 @@ class CorpusEngine:
     ``search`` returns stable external doc ids (those ``add_docs`` handed
     out), across compactions. With ``quantize=True`` the base segment is
     served compressed (K5 under ``"fused"``, and under ``"auto"`` from
-    ``AUTO_FUSED_N`` base docs). The segments live on ``device`` (default
+    ``AUTO_FUSED_N`` base docs); with ``keep_forward=True`` the segments
+    keep their forward rows and ``"auto"`` searches them with the two-tier
+    ``"pruned"`` method (``prune_margin=`` and ``candidates=`` pass
+    through ``search``). The segments live on ``device`` (default
     ``cuda``). ``shard_axis="doc"`` leaves the base one index, as in the
     JAX package; a term-sharded or planned base (``shard_axis="term"``,
-    ``plan``) and ``keep_forward`` are not ported yet and raise.
+    ``plan``) is not ported yet and raises.
     """
 
     def __init__(self, encoder: BatchedEncoder, vocab_size: int, *,
@@ -694,8 +697,8 @@ class CorpusEngine:
 
     def search(self, queries, k: int = 10, *, method: str = "auto",
                **kw) -> Tuple[np.ndarray, np.ndarray]:
-        """Top-k with external ids (``IndexBuilder.search``; ``q_width``
-        is the one keyword it takes)."""
+        """Top-k with external ids (``IndexBuilder.search``: ``q_width``,
+        and ``prune_margin`` / ``candidates`` for the pruned method)."""
         return self.builder.search(queries, k, method=method, **kw)
 
     def stats(self) -> Dict[str, float]:

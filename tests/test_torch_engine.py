@@ -248,24 +248,38 @@ def test_unported_builder_options_raise_naming_the_roadmap():
         IndexBuilder(64, term_shards=2, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         IndexBuilder(64, plan=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        IndexBuilder(64, keep_forward=True, device="cpu")
     rep = _reps(np.eye(4, 8, dtype=np.float32))[0]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        build_inverted_index(rep, 8, keep_forward=True, device="cpu")
-    b = IndexBuilder(8, device="cpu")
-    b.add(rep)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        b.search(rep, 2, method="pruned")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        build_inverted_index(rep, 8, vocab_range=(0, 4), device="cpu")
     enc = BatchedEncoder(lambda t, m: None)
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         CorpusEngine(enc, 8, shard_axis="term", n_shards=2, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         CorpusEngine(enc, 8, plan=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        CorpusEngine(enc, 8, keep_forward=True, device="cpu")
     with pytest.raises(ValueError, match="shard_axis"):
         CorpusEngine(enc, 8, shard_axis="rows", device="cpu")
+
+
+def test_forward_rows_build_and_search_pruned():
+    """keep_forward and method="pruned", refused before pruning was
+    ported, now build and search as the JAX package does."""
+    assert IndexBuilder(64, keep_forward=True, device="cpu").keep_forward
+    m = np.eye(4, 8, dtype=np.float32) * np.arange(1, 5, dtype=np.float32
+                                                   )[:, None]
+    rep, rep_j = _reps(m)
+    index = build_inverted_index(rep, 8, keep_forward=True, device="cpu")
+    assert index.has_forward and index.has_upper_bounds
+    np.testing.assert_array_equal(index.doc_values.numpy(),
+                                  np.asarray(rep_j.values))
+    b = Both(8, keep_forward=True)
+    b.add(m)
+    b.flush()
+    assert b.port.resolved_method() == b.ref.resolved_method() == "pruned"
+    b.search(m, 2, method="pruned")
+    b.search(m, 2, prune_margin=1.0)
+    enc = BatchedEncoder(lambda t, m: None)
+    assert CorpusEngine(enc, 8, keep_forward=True,
+                        device="cpu").builder.keep_forward
 
 
 def _counting_encoders(vocab=32, width=4):
@@ -380,14 +394,21 @@ def test_serve_cli_frozen_quantized_on_cpu(capsys):
     assert "retrieval[quantized]: top-10 for 8 queries" in out
 
 
+# the JAX CLI's messages; the ids are the cases' names from before the
+# CLI took --prune-margin (which joined the first message)
 @pytest.mark.parametrize("args,says", [
-    (["--quantize"], "--quantize/--remove-frac need --engine"),
-    (["--remove-frac", "0.1"], "--quantize/--remove-frac need --engine"),
+    (["--quantize"], "--quantize/--prune-margin/--remove-frac need --engine"),
+    (["--remove-frac", "0.1"],
+     "--quantize/--prune-margin/--remove-frac need --engine"),
     (["--engine", "--rep-topk", "0"], "--engine needs sparse reps"),
     (["--engine", "--method", "fused"], "--engine picks its retrieval path"),
     (["--method", "quantized", "--rep-topk", "0"],
      "needs SparseRep queries and an index"),
-])
+], ids=["args0---quantize/--remove-frac need --engine",
+        "args1---quantize/--remove-frac need --engine",
+        "args2---engine needs sparse reps",
+        "args3---engine picks its retrieval path",
+        "args4-needs SparseRep queries and an index"])
 def test_serve_cli_engine_flags_refuse_as_in_jax(args, says, capsys):
     with pytest.raises(SystemExit) as exit_:
         serve.main(["--device", "cpu", *args])

@@ -270,10 +270,8 @@ def test_evaluate_retrieval_token_corpus_matches_jax():
         state["params"], t, m)[0])
     want = jeval.evaluate_retrieval(
         encode, corpus, jeval.Qrels.paired(24, doc_ids=doc_ids),
-        methods=(jeval.MethodSpec("exact"),
-                 jeval.MethodSpec("quantized", engine={"quantize": True})),
-        **kw)
-    assert list(got) == ["exact", "quantized"]
+        methods=jeval.DEFAULT_METHODS, **kw)
+    assert list(got) == ["exact", "pruned", "quantized"]
     for name in got:
         assert list(got[name]) == list(want[name])
         np.testing.assert_allclose(list(got[name].values()),
@@ -305,9 +303,6 @@ def test_encode_reps_pads_every_chunk_and_drops_the_padding():
 
 @pytest.mark.parametrize("spec,match", [
     (teval.MethodSpec("doc_sharded", doc_shards=3), "item 10"),
-    (teval.MethodSpec("pruned", engine={"keep_forward": True},
-                      search={"method": "pruned", "prune_margin": 0.0}),
-     "item 8"),
 ])
 def test_specs_not_ported_yet_raise(spec, match):
     corpus = synthetic.lsr_impact_corpus(n_docs=16, vocab=64, doc_nnz=8,
@@ -318,10 +313,38 @@ def test_specs_not_ported_yet_raise(spec, match):
             methods=(teval.MethodSpec("exact"), spec), device="cpu")
 
 
+@pytest.mark.parametrize("margin", [0.0, 0.5])
+def test_pruned_spec_metrics_equal_jax(margin):
+    """The pruned spec (the engine's forward rows, the two-tier scorer) on
+    a graded corpus: each metric equal to JAX's to 1e-6, and at margin 0
+    equal to exact's."""
+    corpus = synthetic.lsr_impact_corpus(n_docs=128, vocab=256, doc_nnz=16,
+                                         n_queries=6, q_nnz=12, graded=4,
+                                         seed=3)
+    kw = dict(engine={"keep_forward": True},
+              search={"method": "pruned", "prune_margin": margin})
+    got = teval.evaluate_retrieval(
+        None, corpus, teval.Qrels.from_triples(corpus["qrels"]),
+        methods=(teval.MethodSpec("exact"), teval.MethodSpec("pruned", **kw)),
+        device="cpu")
+    want = jeval.evaluate_retrieval(
+        None, corpus, jeval.Qrels.from_triples(corpus["qrels"]),
+        methods=(jeval.MethodSpec("exact"), jeval.MethodSpec("pruned", **kw)))
+    for name in ("exact", "pruned"):
+        assert set(got[name]) == set(want[name])
+        for key, value in want[name].items():
+            assert abs(got[name][key] - value) <= 1e-6, (name, key)
+    if margin == 0.0:
+        assert got["pruned"] == got["exact"]
+
+
 def test_default_methods_are_the_ported_ones():
-    assert [m.name for m in teval.DEFAULT_METHODS] == ["exact", "quantized"]
-    assert [m.name for m in jeval.DEFAULT_METHODS] == ["exact", "pruned",
-                                                       "quantized"]
+    assert ([m.name for m in teval.DEFAULT_METHODS]
+            == [m.name for m in jeval.DEFAULT_METHODS]
+            == ["exact", "pruned", "quantized"])
+    for got, want in zip(teval.DEFAULT_METHODS, jeval.DEFAULT_METHODS):
+        assert dict(got.engine) == dict(want.engine)
+        assert dict(got.search) == dict(want.search)
 
 
 @pytest.mark.parametrize("corpus,match", [

@@ -362,9 +362,18 @@ def _meta_k5(**dtypes):
             _meta((50,), d["term_lo"]), _meta((50,), d["term_hi"]))
 
 
+def _meta_ceiling(**dtypes):
+    """K4's ceiling entry: term_ubs (V,) f32 in place of postings_val."""
+    d = {"term_ubs": torch.float32, **dtypes}
+    return _meta_k4(**{k: v for k, v in dtypes.items()
+                       if k != "term_ubs"})[:5] + (_meta((50,),
+                                                         d["term_ubs"]),)
+
+
 @pytest.mark.parametrize("entry,make", [
     (k45.fused_impact_index_topk, _meta_k4),
-    (k45.fused_quantized_index_topk, _meta_k5)])
+    (k45.fused_quantized_index_topk, _meta_k5),
+    (k45.fused_ceiling_index_topk, _meta_ceiling)])
 def test_index_entry_arguments_checked_without_a_card(entry, make):
     """Tensors that are not on the CPU go to the kernel's wrapper: any
     k >= 1 passes its checks and reaches the device check, which meta
@@ -386,7 +395,11 @@ def test_index_entry_arguments_checked_without_a_card(entry, make):
      {"postings_val": torch.float16}),
     (k45.fused_quantized_index_topk, _meta_k5, {"deltas": torch.int32}),
     (k45.fused_quantized_index_topk, _meta_k5, {"term_lo": torch.float32}),
-    (k45.fused_quantized_index_topk, _meta_k5, {"q_idx": torch.int64})])
+    (k45.fused_quantized_index_topk, _meta_k5, {"q_idx": torch.int64}),
+    (k45.fused_ceiling_index_topk, _meta_ceiling,
+     {"term_ubs": torch.float16}),
+    (k45.fused_ceiling_index_topk, _meta_ceiling,
+     {"postings_doc": torch.int64})])
 def test_index_entries_refuse_other_dtypes(entry, make, dtypes):
     """The kernel reads the arrays as stored: another dtype raises rather
     than being widened by a copy."""

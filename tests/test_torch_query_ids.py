@@ -3,10 +3,14 @@ the port against the JAX package on the same numpy inputs (CPU).
 
 * A query id at or past V, or negative, reads the term the reference's
   gather reads (JAX: a negative id plus V, then clamped to ``[0, V -
-  1]``): ``impact``, ``fused`` and ``quantized`` (and ``fused`` on a
-  quantized index) return the reference's ids, and its scores to 1e-6
-  (the reference's segment sums run in another order; 1e-5 on the
-  quantized index, as ``test_torch_quantize.py`` holds it).
+  1]``): ``impact``, ``fused``, ``quantized`` (and ``fused`` on a
+  quantized index) and ``pruned`` return the reference's ids, and its
+  scores to 1e-6 (the reference's segment sums run in another order; 1e-5
+  on the quantized index, as ``test_torch_quantize.py`` holds it).
+  ``pruned``'s tier 2 scatters the query into a dense (V,) vector as the
+  reference's ``.at[].add`` does: a negative id counts from the end and
+  an id still outside ``[0, V)`` is dropped, so such a term has a ceiling
+  in tier 1 (the gather's row) but adds nothing to the exact score.
 * ``impact`` and ``quantized`` sum each doc's lanes one query term at a
   time, in term order: their scores and top-k are bit for bit those of
   the fused scorers' plain versions, and a sum whose f32 result depends
@@ -55,8 +59,13 @@ def indexes():
     raw = build_inverted_index(sparsify_topk(torch.from_numpy(D), 8), V,
                                device="cpu")
     raw_j = jr.build_inverted_index(jr.sparsify_topk(jnp.asarray(D), 8), V)
+    fwd = build_inverted_index(sparsify_topk(torch.from_numpy(D), 8), V,
+                               keep_forward=True, device="cpu")
+    fwd_j = jr.build_inverted_index(jr.sparsify_topk(jnp.asarray(D), 8), V,
+                                    keep_forward=True)
     return {"raw": (raw, raw_j),
-            "quantized": (quantize_index(raw), jr.quantize_index(raw_j))}
+            "quantized": (quantize_index(raw), jr.quantize_index(raw_j)),
+            "forward": (fwd, fwd_j)}
 
 
 def _queries():
@@ -80,6 +89,7 @@ METHODS = {
     "fused": ("raw", "fused", "fused", TOL),
     "quantized": ("quantized", "quantized", "quantized", Q_TOL),
     "fused_on_quantized": ("quantized", "fused", "fused", Q_TOL),
+    "pruned": ("forward", "pruned", "pruned", TOL),
 }
 
 

@@ -165,8 +165,16 @@ def test_retrieve_rejects_stray_kwargs_and_unported_methods(corpus):
     score.retrieve(q, idx, 3, method="fused", interpret=None)
     score.retrieve(q, torch.from_numpy(D), 3, method="streaming",
                    block_n=None)
+    # pruned runs on an index with forward rows and equals impact there
+    # (values to 1e-5: tier 2 sums each candidate over K in another order)
+    eng = build_inverted_index(sparsify_topk(torch.from_numpy(D), 16), V,
+                               keep_forward=True, device="cpu")
+    v_p, i_p = score.retrieve(q, eng, 3, method="pruned")
+    v_i, i_i = score.retrieve(q, eng, 3, method="impact")
+    assert torch.equal(i_p, i_i)
+    torch.testing.assert_close(v_p, v_i, rtol=1e-5, atol=1e-5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        score.retrieve(q, idx, 3, method="pruned")
+        score.retrieve(q, idx, 3, method="sharded")
     with pytest.raises(ValueError, match="unknown retrieval method"):
         score.retrieve(q, idx, 3, method="bm25")
     with pytest.raises(ValueError, match="SparseRep queries"):
