@@ -65,6 +65,28 @@ Phases, run in this order, each printing one JSON line:
              ``exact_frontier`` true on every row at margin 0; then the
              ceiling entry timed at the search's budget C + 1 (B 8 and
              64) and k 257 beside K4 in place, and the searches' host ms.
+   serve_frontier — the serving frontier (``runtime/frontier``) at full
+             width: the serve CLI's ``run`` on serve_pruned's engine as it
+             stands, its loop continuous with a 5 s deadline and an
+             admission bound (every request served), the 8 retrieved
+             queries searched through a ``CachedEngine`` (64 MB, a quarter
+             of it pinned hot windows) with ``fused`` twice: pass 1 all
+             misses through K4's window entry on the hot windows, pass 2
+             all hits and no launch, both bit for bit cache-off ``fused``
+             (K4 in place); then 64 docs added and 16 of the returned
+             removed: the generation moves, the entries are invalidated,
+             the cached search equals cache-off with no removed id; and
+             ``auto`` (the hot scorer declines) equals cache-off ``auto``.
+             Then the CLI's ``run_tenants``: 3 tenants (weights 1, 2, 3,
+             4096 docs each) over the encoder wrapped by ``inject_faults``
+             (a persistent poison in t1's requests, a one-shot OOM on
+             t2's last): every uid completes once, the poison fails only
+             in t1, the OOM halves t2's cap, each tenant's cached search
+             equals its engine's; a contended window's dispatches by
+             tenant. Then the host ms of a cached hit, a cache-off
+             ``fused`` and a hot-window miss search, and K4's window entry
+             on the hot windows beside K4 in place (CUDA-graph replays),
+             each with its byte bound.
 5. timing  — each kernel, its plain version, a one-call PyTorch yardstick
              and its roofline bound, with CUDA events (K4 and K5, whose
              calls take less device time than their enqueue, from CUDA
@@ -129,11 +151,11 @@ Phases, run in this order, each printing one JSON line:
              ``repro_torch.examples.train_splade``: 200 SMOKE steps, the
              loss falling, its in-batch acc@1.
 
-Every K1 launch of the serve, dense-serve, engine, pruned, train, eval
-(b), xlmr and ckpt phases must take the "tma" path. Then a ``{"kernels": [...]}`` line and, last,
-``{"ok": true, "device": ...}``. Any mismatch, exception or missing
-launch exits non-zero before that last line. The script imports nothing
-of JAX nor of the JAX package.
+Every K1 launch of the serve, dense-serve, engine, pruned, frontier, train,
+eval (b), xlmr and ckpt phases must take the "tma" path. Then a
+``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
+Any mismatch, exception or missing launch exits non-zero before that last
+line. The script imports nothing of JAX nor of the JAX package.
 """
 
 from __future__ import annotations
@@ -2055,7 +2077,370 @@ def phase_serve_pruned(torch, served):
     require(all(frontier), f"exact_frontier false on "
                            f"{frontier.count(False)} of {len(frontier)} "
                            f"rows at margin 0")
-    return {"launches": launches, "timing": timing, "k1_paths": k1_paths}
+    return {"launches": launches, "timing": timing, "k1_paths": k1_paths,
+            "engine": engine}
+
+
+FRONTIER = {"cache_mb": 64.0, "deadline_ms": 5000.0, "max_queue": 256,
+            "add": 64, "remove": 16, "tenants": 3, "tenant_corpus": 12288,
+            "tenant_requests": 96, "contended": 256, "contended_ticks": 12}
+
+
+def launch_counts(k1, k45):
+    """K1's launches and ``k45_launches`` since their resets, with K4's
+    window entry's apart (``impact_window_topk``)."""
+    n = {"sparton_fwd": k1.sparton_forward.launches, **k45_launches(k45)}
+    n["impact_window_topk"] = n["impact_topk"] - n["impact_index_topk"]
+    return n
+
+
+@contextlib.contextmanager
+def per_search(k1, k45, log):
+    """Record, for every ``CachedEngine.search`` in the block, the
+    launches it made (``launch_counts`` after minus before) and its caches'
+    stats after it, in ``log``."""
+    from repro_torch.runtime.frontier import CachedEngine
+
+    def wrap(name, fn):
+        def wrapped(self, *a, **kw):
+            before = launch_counts(k1, k45)
+            out = fn(self, *a, **kw)
+            after = launch_counts(k1, k45)
+            log.append({"launches": {key: after[key] - before[key]
+                                     for key in after},
+                        "results": self.results.stats(),
+                        "hot": self.hot.stats() if self.hot else None})
+            return out
+        return wrapped
+
+    with patched(wrap, search=(CachedEngine, "search")):
+        yield log
+
+
+def same_bits(a, b):
+    """Host ``(vals, ids)`` pairs equal bit for bit."""
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def time_hot_window(torch, queries, index, hot, k, *, reps):
+    """K4's window entry on the hot windows of ``queries`` (``hot_windows``
+    over ``index``) beside K4 in place on the same queries: both equal bit
+    for bit (and to the window entry's plain version); device ms per call
+    from CUDA-graph replays; CUDA-event times of the plain version and of
+    the yardstick (``index_add_`` of the windows into (B, N), then
+    ``torch.topk``); each entry's byte bound (the windows read once, or
+    ``index_read_bytes``); the host ms of building the windows."""
+    from repro_torch.kernels import impact_score as k45
+    from repro_torch.retrieval.sparse_rep import query_columns
+    from repro_torch.runtime.frontier.caches import hot_windows
+
+    qi, qv = query_columns(queries, index.device)
+    n, L = index.n_docs, index.max_postings
+    w, docs = hot_windows(queries, index, hot=hot)
+    B, W = w.shape
+    kw = dict(n_docs=n, k=k, term_lanes=L)
+    args = (qi, qv, index.term_starts, index.term_lens, index.postings_doc,
+            index.postings_val)
+    case, got = runs_vs_plain(
+        torch, lambda: k45.fused_impact_topk(w, docs, **kw),
+        lambda: k45.fused_impact_topk_plain(w, docs, **kw))
+    in_place = k45.fused_impact_index_topk(*args, n_docs=n, k=k)
+    equal_in_place = all(bool(torch.equal(a, b))
+                         for a, b in zip(got, in_place))
+    require(case["equal"] and case["bit_identical"] and equal_in_place,
+            f"K4's window entry on the hot windows: {case}, equal to K4 in "
+            f"place: {equal_in_place}")
+    rows = torch.arange(B, device=index.device)[:, None] * n
+
+    def library():
+        flat = torch.zeros(B * n, device=index.device)
+        flat.index_add_(0, (rows + docs.long()).view(-1), w.view(-1))
+        return torch.topk(flat.view(B, n), k, dim=1)
+
+    nbytes = B * W * 8 + B * k * 8
+    in_place_bytes, postings, terms = index_read_bytes(torch, qi, qv, index,
+                                                       k)
+    row = {"shape": {"B": B, "Q": qi.shape[1], "L": L, "W": W,
+                     "n_docs": n, "k": k}, **case,
+           "equal_in_place": equal_in_place, "digest": digest(*got),
+           "bytes": nbytes, "bound_ms": 1e3 * nbytes / PEAK_BYTES,
+           "bound_by": "bytes", "postings_read_in_place": postings,
+           "terms_read": terms, "in_place_bytes": in_place_bytes,
+           "in_place_bound_ms": 1e3 * in_place_bytes / PEAK_BYTES}
+    row["ms"], row["ms_range"] = graph_ms(
+        torch, lambda: k45.fused_impact_topk(w, docs, **kw), reps)
+    row["in_place_ms"], row["in_place_ms_range"] = graph_ms(
+        torch, lambda: k45.fused_impact_index_topk(*args, n_docs=n, k=k),
+        reps)
+    for key, fn in (("plain_ms",
+                     lambda: k45.fused_impact_topk_plain(w, docs, **kw)),
+                    ("library_ms", library)):
+        row[key], row[key + "_range"] = timed(torch, fn, reps)
+    row["build_windows_host_ms"], _ = host_ms(
+        torch, lambda: hot_windows(queries, index, hot=hot))
+    return row
+
+
+def frontier_caches(torch, encode, cfg, engine, k1, k45):
+    """(a) and (c): the serve CLI's ``run`` on the pruned phase's engine as
+    it stands (``corpus=0``), the loop continuous with a deadline and an
+    admission bound, the 8 retrieved queries searched through its
+    ``CachedEngine`` with ``fused`` twice; then a mutation and a third
+    cached search; then ``auto``. Returns the run and its readings."""
+    from repro_torch.launch.serve import SEED, run
+    from repro_torch.runtime.serving import FailedResult, ShedResult
+
+    k = SERVE["topk"]
+    searches = []
+    with per_search(k1, k45, searches):
+        res = run(encode, cfg.vocab_size, corpus=0,
+                  requests=SERVE["requests"], topk=k, method="auto",
+                  index_batch=SERVE["index_batch"],
+                  device=torch.device("cuda"), engine=engine,
+                  continuous=True, deadline_ms=FRONTIER["deadline_ms"],
+                  max_queue=FRONTIER["max_queue"],
+                  cache_mb=FRONTIER["cache_mb"])
+        cached, queries = res["cached"], res["queries"]
+        off = engine.search(queries, k, method="fused")
+        (v1, i1, s1), (v2, i2, s2) = res["passes"]
+        hot_pass1 = dict(cached.hot.stats())
+        gen0 = engine.builder.generation
+        rng = np.random.default_rng(SEED + 25)
+        added = cached.add_docs([rng.integers(1, cfg.vocab_size,
+                                              size=16).astype(np.int32)
+                                 for _ in range(FRONTIER["add"])])
+        returned = [int(e) for e in dict.fromkeys(i1.ravel().tolist())]
+        gone = returned[:FRONTIER["remove"]]
+        require(cached.remove_docs(gone) == len(gone),
+                f"removed fewer than {len(gone)} returned docs")
+        cached.flush()
+        mutated = cached.search(queries, k, method="fused")
+        mutated_off = engine.search(queries, k, method="fused")
+        auto = cached.search(queries, k)
+        auto_off = engine.search(queries, k)
+    loop = res["loop"]
+    st = loop.stats()
+    unserved = [r for r in res["outcomes"].values()
+                if isinstance(r, (ShedResult, FailedResult))]
+    require(not unserved and st["served"] == SERVE["requests"],
+            f"frontier serve: {len(unserved)} requests not served under a "
+            f"{FRONTIER['deadline_ms']} ms deadline: {st}")
+    require(res["method"] == "fused", f"the cached search resolved to "
+                                      f"{res['method']!r}, not 'fused'")
+    first, second = searches[0], searches[1]
+    require(first["launches"]["impact_window_topk"] == 1
+            and first["hot"]["hits"] > 0,
+            f"pass 1 launched K4's window entry "
+            f"{first['launches']['impact_window_topk']} times with "
+            f"{first['hot']['hits']} hot hits")
+    require(not any(second["launches"].values())
+            and second["results"]["hits"] == len(i1),
+            f"pass 2 launched {second['launches']}, "
+            f"{second['results']['hits']} result hits for {len(i1)} rows")
+    for name, got in (("pass 1", (v1, i1)), ("pass 2", (v2, i2))):
+        require(same_bits(got, off), f"{name} differs from cache-off fused")
+    third = searches[2]
+    require(engine.builder.generation > gen0
+            and third["results"]["invalidations"] > 0
+            and third["hot"]["invalidations"] > hot_pass1["invalidations"],
+            f"after the mutation: generation {gen0} -> "
+            f"{engine.builder.generation}, {third}")
+    require(same_bits(mutated, mutated_off)
+            and not set(gone) & set(mutated[1].ravel().tolist()),
+            "after the mutation the cached search differs from cache-off "
+            "or returns a removed id")
+    require(same_bits(auto, auto_off)
+            and searches[3]["launches"]["impact_window_topk"] == 0,
+            f"auto through the cache (the scorer declines) differs from "
+            f"cache-off auto, or launched the window entry: {searches[3]}")
+    lat = loop.latencies()
+    return res, {
+        "loop": {key: st[key] for key in (
+            "submitted", "served", "shed", "shed_admission", "shed_expired",
+            "failed", "batch_cap", "continuous", "batch_occupancy")},
+        "deadline_ms": FRONTIER["deadline_ms"],
+        "max_queue": FRONTIER["max_queue"],
+        "p50_latency_ms": 1e3 * float(np.percentile(lat, 50)),
+        "p99_latency_ms": 1e3 * float(np.percentile(lat, 99)),
+        "serve_s": res["serve_s"], "searches": searches,
+        "pass_ms": [1e3 * s1, 1e3 * s2], "added": len(added),
+        "removed": len(gone), "generation": [gen0,
+                                             engine.builder.generation],
+        "stats": cached.stats()}
+
+
+def frontier_tenants(torch, encode, cfg, k1, k45):
+    """(b): ``run_tenants`` with 3 tenants (weights 1, 2, 3; 4096 docs
+    each), a shared result cache and hot caches, over the full-width
+    encoder wrapped by ``inject_faults``: a persistent poison token in a
+    ninth of t1's requests, a one-shot OOM on t2's last request (each a
+    token past V, marked by ``mark``; a token that reaches the encoder is
+    read as token 1). Then a contended window: ``contended`` requests a
+    tenant, ``contended_ticks`` forced ticks, each tenant's batches and
+    requests dispatched in it counted (stride scheduling shares requests
+    by weight; t2's halved cap makes its batches smaller). Returns the
+    readings."""
+    from repro_torch.launch.serve import SEED, run_tenants
+    from repro_torch.runtime.faults import inject_faults
+    from repro_torch.runtime.serving import (FailedResult, Request,
+                                             ShedResult)
+
+    V = cfg.vocab_size
+    poison, oom = V + 7, V + 11
+    n_req = FRONTIER["tenant_requests"]
+
+    def drill(tokens, mask):
+        return encode(torch.where(tokens >= V, 1, tokens), mask)
+
+    encode_f = inject_faults(drill, [
+        {"on": {"token": poison}},
+        {"on": {"token": oom}, "exc": "oom", "times": 1}])
+
+    def mark(uid, name, tokens):
+        if (name == "t1" and uid % 9 == 4) or uid == n_req - 1:
+            tokens = tokens.copy()
+            tokens[0] = poison if name == "t1" else oom
+        return tokens
+
+    poisoned = [u for u in range(n_req) if u % 3 == 1 and u % 9 == 4]
+    require((n_req - 1) % 3 == 2, "the OOM request must be t2's")
+    searches = []
+    with per_search(k1, k45, searches):
+        res = run_tenants(
+            encode_f, V, tenants=FRONTIER["tenants"],
+            corpus=FRONTIER["tenant_corpus"], requests=n_req,
+            topk=SERVE["topk"], index_batch=SERVE["index_batch"],
+            device=torch.device("cuda"), cache_mb=FRONTIER["cache_mb"],
+            continuous=True, deadline_ms=FRONTIER["deadline_ms"],
+            mark=mark)
+    pool, names = res["pool"], res["names"]
+    per = pool.stats()["tenants"]
+    done = [uid for uid, (_, r) in res["outcomes"].items() if r is not None]
+    require(sorted(done) == list(range(n_req))
+            and not any(pool.tenant(n).loop.completed for n in names)
+            and all(t["served"] + t["shed"] + t["failed"] == t["submitted"]
+                    for t in per.values()),
+            f"tenants: not every uid completed exactly once: {per}")
+    failed = sorted(uid for uid, (_, r) in res["outcomes"].items()
+                    if isinstance(r, FailedResult))
+    require(failed == poisoned and per["t0"]["failed"] == 0
+            and per["t2"]["failed"] == 0
+            and not any(t["shed"] for t in per.values()),
+            f"the poison failed {failed} (expected {poisoned}): {per}")
+    half = SERVE["index_batch"] // 2
+    require(per["t2"]["oom_faults"] == 1 and per["t2"]["batch_cap"] == half
+            and per["t0"]["oom_faults"] == per["t1"]["oom_faults"] == 0,
+            f"the OOM did not halve t2's cap to {half}: {per['t2']}")
+    same = {}
+    for name in names:
+        off = pool.tenant(name).engine.search(res["queries"][name],
+                                              SERVE["topk"], method="fused")
+        same[name] = all(same_bits(p, off) for p in res["searches"][name])
+    require(all(same.values()) and len(same) == FRONTIER["tenants"],
+            f"cached tenant searches differ from their engines': {same}")
+    window = sum(s["launches"]["impact_window_topk"] for s in searches)
+    require(window >= FRONTIER["tenants"]
+            and all(s["hot"]["hits"] > 0 for s in searches[::2]),
+            f"tenant searches launched K4's window entry {window} times: "
+            f"{searches}")
+
+    # contention: every tenant backlogged, one batch a forced tick
+    rng = np.random.default_rng(SEED + 26)
+    uid = 10_000
+    for _ in range(FRONTIER["contended"]):
+        for name in names:
+            pool.submit(name, Request(uid=uid, tokens=rng.integers(
+                1, V, size=int(rng.integers(4, 24))).astype(np.int32)))
+            uid += 1
+    contended = [pool.tick(force=True)
+                 for _ in range(FRONTIER["contended_ticks"])]
+    pool.drain()
+    left = [pool.take(names[(u - 10_000) % len(names)], u)
+            for u in range(10_000, uid)]
+    require(not any(isinstance(r, (ShedResult, FailedResult)) for r in left),
+            "the contended window shed or failed requests")
+    by_tenant = {n: sum(1 for t, _ in contended if t == n) for n in names}
+    requests_by = {n: sum(b for t, b in contended if t == n) for n in names}
+    stats = pool.stats()
+    return {"per_tenant": {n: {key: per[n][key] for key in (
+                "weight", "live_docs", "served", "shed", "failed", "faults",
+                "oom_faults", "batch_cap", "memory_bytes", "cache")}
+                for n in names},
+            "poisoned": poisoned, "fault_log": len(encode_f.log),
+            "dispatches": len(res["dispatches"]),
+            "contended_dispatch": contended,
+            "contended_batches_by_tenant": by_tenant,
+            "contended_requests_by_tenant": requests_by,
+            "vpass": {n: stats["tenants"][n]["vpass"] for n in names},
+            "result_cache": stats["result_cache"],
+            "memory_bytes": stats["memory_bytes"],
+            "provision_s": res["provision_s"], "serve_s": res["serve_s"],
+            "search_s": res["search_s"], "searches": searches,
+            "cached_equals_engine": same}
+
+
+def phase_serve_frontier(torch, served, pruned):
+    """The serving frontier at full width: (a) the result and hot-posting
+    caches over the pruned phase's engine through the serve CLI's ``run``
+    (pass 1 all misses through K4's window entry, pass 2 all hits and no
+    launch, both bit for bit cache-off ``fused``; then a mutation, and
+    ``auto``, where the hot scorer declines); (c) the same run's loop,
+    continuous with a deadline and an admission bound; (b) a tenant pool
+    under injected faults (``frontier_tenants``); then the host ms of a
+    cached hit, a cache-off ``fused`` search and a hot-window miss search,
+    and K4's window entry at the hot windows' shape beside K4 in place
+    (``time_hot_window``)."""
+    from repro_torch.kernels import impact_score as k45
+    from repro_torch.kernels import sparton as k1
+    from repro_torch.runtime.faults import FaultError, inject_faults
+    from repro_torch.runtime.frontier import CachedEngine, QueryResultCache
+    from repro_torch.runtime.serving import make_config_encoder
+
+    t_phase = time.perf_counter()
+    cfg, engine = served["cfg"], pruned["engine"]
+    encode = make_config_encoder(served["params"], cfg)
+    k = SERVE["topk"]
+    # the injector's token trigger on a tensor on the card
+    probe = inject_faults(lambda t: t, [{"on": {"token": 5}}])
+    require(probe(torch.tensor([[1, 2]], device="cuda")) is not None,
+            "the injector fired on a CUDA tensor without its token")
+    try:
+        probe(torch.tensor([[1, 5]], device="cuda"))
+        require(False, "the injector's token trigger missed a CUDA tensor")
+    except FaultError:
+        pass
+    reset_k1(k1)
+    reset_k45(k45)
+    with plain_guard(k1=(k1, "sparton_forward_plain"),
+                     **k45_plains(k45)) as plain_on_cuda:
+        res, caches = frontier_caches(torch, encode, cfg, engine, k1, k45)
+        cache_launches = launch_counts(k1, k45)
+        tenants = frontier_tenants(torch, encode, cfg, k1, k45)
+    launches = launch_counts(k1, k45)
+    k1_paths = k1_on_tma(k1, "serve_frontier")
+    require(not plain_on_cuda, f"plain versions ran on CUDA tensors: "
+                               f"{sorted(set(plain_on_cuda))}")
+
+    cached, queries = res["cached"], res["queries"]
+    hot = cached.hot
+    base = engine.builder._base
+    search_ms = {
+        "cached_hit": host_ms(torch, lambda: cached.search(
+            queries, k, method="fused")),
+        "cache_off_fused": host_ms(torch, lambda: engine.search(
+            queries, k, method="fused")),
+        "hot_window_miss": host_ms(torch, lambda: CachedEngine(
+            engine, result_cache=QueryResultCache(1 << 20),
+            hot_cache=hot).search(queries, k, method="fused")),
+    }
+    window = time_hot_window(torch, queries, base, hot, k, reps=20)
+    emit("serve_frontier", config=cfg.name, launches=launches,
+         cache_launches=cache_launches, k1_paths=k1_paths,
+         caches=caches, tenants=tenants, search_ms=search_ms,
+         hot_window=window, bytes_pinned=hot.bytes_pinned,
+         pinned_terms=hot.pinned_terms, max_postings=base.max_postings,
+         base_docs=base.n_docs, seconds=time.perf_counter() - t_phase)
+    return {"launches": launches, "window": window, "k1_paths": k1_paths}
 
 
 # --------------------------------------------------------------------------
@@ -3774,7 +4159,7 @@ def phase_ckpt(torch):
 
 def kernel_rows(measured, launches, dense_launches, engine_launches,
                 train_launches, k1_paths, xlmr, eval_launches, ckpt_launches,
-                pruned):
+                pruned, frontier):
     """The ``{"kernels": [...]}`` line: each kernel's launches on its path
     and its numbers from the timing phase (K1 at an index batch, K2/K3 at
     the train shape, K4, K5 and K6 at the served queries; K1 also at the
@@ -3789,7 +4174,11 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
     its launches in the serve_pruned phase and the eval phase, its
     numbers at the served 8 queries and the search's budget C + 1
     (``k4_ms``: K4 in place on the same queries at the same k), also at
-    all 64 served requests and at k 257."""
+    all 64 served requests and at k 257. K1's and K4's rows hold their
+    launches in the serve_frontier phase (``frontier_launches``; K4's by
+    entry), and K4's its window entry's numbers at the hot windows' shape
+    there (``hot_window``: ``in_place_ms`` K4 in place on the same
+    queries)."""
     main_k1, bwd, k4, k5, k6 = (measured[key]
                                 for key in ("k1", "bwd", "k4", "k5", "k6"))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3826,6 +4215,7 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
          "path_launches": k1_paths,
          "eval_launches": in_eval("sparton_fwd"),
          "ckpt_launches": in_ckpt("sparton_fwd"),
+         "frontier_launches": frontier["launches"]["sparton_fwd"],
          **{key: main_k1[key] for key in k1_keys},
          **{f"at_{name}": {key: measured["k1_rows"][name][key]
                            for key in k1_keys}
@@ -3854,7 +4244,13 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
          "ckpt_launches": in_ckpt("impact_topk"),
          **{key: k4["B8"][key] for key in k45_keys},
          "at_B64": {key: k4["B64"][key] for key in k45_keys},
-         "ceiling": ceiling_row(pruned, in_eval("impact_ceiling_topk"))},
+         "ceiling": ceiling_row(pruned, in_eval("impact_ceiling_topk")),
+         "frontier_launches": {
+             key: frontier["launches"][key] for key in (
+                 "impact_window_topk", "impact_index_topk")},
+         "hot_window": {key: frontier["window"][key] for key in (
+             keys + ("shape", "in_place_ms", "in_place_bound_ms",
+                     "digest"))}},
         {"name": "impact_q_topk (K5)", "route": "cuda",
          "source": "src/repro_torch/csrc/impact_topk.cu",
          "replaces": "src/repro/kernels/impact_score.py:120",
@@ -3911,13 +4307,16 @@ def main() -> int:
     served_dense = phase_serve_dense(torch, served)
     served_engine = phase_serve_engine(torch, served)
     served_pruned = phase_serve_pruned(torch, served)
+    frontier = phase_serve_frontier(torch, served, served_pruned)
+    del served_pruned["engine"]
     measured = phase_timing(torch, served, served_dense, served_engine)
     dense_launches = served_dense["launches"]
     engine_launches = served_engine["launches"]
     k1_paths = {"serve": served["k1_paths"],
                 "dense_serve": served_dense["k1_paths"],
                 "engine": served_engine["k1_paths"],
-                "pruned": served_pruned["k1_paths"]}
+                "pruned": served_pruned["k1_paths"],
+                "frontier": frontier["k1_paths"]}
     # the 1.9 GiB dense corpus and the engine are not the train phase's
     # memory
     del served_dense, served_engine
@@ -3937,7 +4336,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernel_rows(
         measured, served["launches"], dense_launches, engine_launches,
         trained["launches"], k1_paths, xlmr, evaluated["launches"],
-        ckpt["launches"], served_pruned)}), flush=True)
+        ckpt["launches"], served_pruned, frontier)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -15,16 +15,30 @@ The pipeline of ``repro/launch/serve.py``, end to end:
               segments' forward rows kept with ``--prune-margin``.
 2. serve    — stream queries (4–24 tokens) through the deadline/size
               micro-batching loop; results are popped with ``take``.
+              ``--deadline-ms`` gives every request an SLO (the loop may
+              shed; shed and failed uids are reported and left out of
+              retrieval), ``--max-queue`` bounds the admission queue and
+              ``--continuous`` batches earliest-deadline-first.
 3. retrieve — top-k of the first served queries through
               ``retrieve(method=--method)``, or the engine's ``search``
               (``auto`` on each segment; with ``--prune-margin M`` the
-              two-tier ``pruned`` method at margin M).
+              two-tier ``pruned`` method at margin M). ``--cache-mb MB``
+              fronts the engine with the serving frontier
+              (``runtime/frontier``): a result cache of MB and a
+              hot-posting cache of a quarter of it, the search forced to
+              ``fused`` (its base through K4's window entry on the hot
+              windows) and run twice, the second pass from the cache.
+
+``--tenants N`` serves N weighted tenants (weights 1..N, the corpus split
+evenly) over one encoder through a ``TenantPool`` instead, each searched
+with ``fused`` (twice when caching).
 
 It runs the config's SMOKE size with seeded random weights on
 ``--device`` (default ``cuda``; ``--device cpu`` runs the kernels' plain
-versions). ``run`` is the same pipeline for any encode fn and config;
-``chip_smoke.py`` drives it at full width. The tenants, cache, admission
-and sharding flags of the JAX entry point arrive with their slices.
+versions). ``run`` and ``run_tenants`` are the same pipelines for any
+encode fn and config; ``chip_smoke.py`` drives them at full width. The
+JAX entry point's sharding flags (``--shards``, ``--shard-axis``) arrive
+with multi-GPU (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -91,19 +105,32 @@ def grow_engine(engine, vocab_size: int, n_docs: int, *, batch: int,
         engine.flush()
 
 
-def serve_requests(encode: Callable, vocab_size: int, n_requests: int, *,
-                   rng: np.random.Generator):
-    """Push ``n_requests`` random queries through the batching loop.
-    Returns ``(loop, {uid: outcome})``."""
-    from repro_torch.runtime.serving import (BatchedEncoder, BatchPolicy,
-                                             Request, ServingLoop)
+def deadline_s(deadline_ms: Optional[float]) -> Optional[float]:
+    return deadline_ms / 1e3 if deadline_ms is not None else None
 
-    loop = ServingLoop(BatchedEncoder(
-        encode, policy=BatchPolicy(max_batch=16, max_wait_s=0.002)))
+
+def serve_requests(encode: Callable, vocab_size: int, n_requests: int, *,
+                   rng: np.random.Generator, continuous: bool = False,
+                   deadline_ms: Optional[float] = None,
+                   max_queue: int = 1024):
+    """Push ``n_requests`` random queries through the batching loop
+    (admission bounded at ``max_queue``, each request's SLO
+    ``deadline_ms``, earliest-deadline-first when ``continuous``).
+    Returns ``(loop, {uid: outcome})``."""
+    from repro_torch.runtime.serving import (AdmissionPolicy, BatchedEncoder,
+                                             BatchPolicy, Request,
+                                             ServingLoop)
+
+    loop = ServingLoop(
+        BatchedEncoder(encode,
+                       policy=BatchPolicy(max_batch=16, max_wait_s=0.002)),
+        admission=AdmissionPolicy(max_queue_depth=max_queue),
+        continuous=continuous)
     for uid in range(n_requests):
         n = int(rng.integers(4, 24))
         loop.submit(Request(uid=uid, tokens=rng.integers(
-            1, vocab_size, size=n).astype(np.int32)))
+            1, vocab_size, size=n).astype(np.int32),
+            deadline_s=deadline_s(deadline_ms)))
         loop.tick()
     loop.drain()
     outcomes = {uid: loop.take(uid) for uid in range(n_requests)}
@@ -114,16 +141,22 @@ def serve_requests(encode: Callable, vocab_size: int, n_requests: int, *,
 
 def run(encode: Callable, vocab_size: int, *, corpus: int, requests: int,
         topk: int, method: str, index_batch: int, device, engine=None,
-        remove_frac: float = 0.0,
-        prune_margin: Optional[float] = None) -> Dict[str, Any]:
+        remove_frac: float = 0.0, prune_margin: Optional[float] = None,
+        continuous: bool = False, deadline_ms: Optional[float] = None,
+        max_queue: int = 1024, cache_mb: float = 0.0) -> Dict[str, Any]:
     """Index, serve, retrieve. Returns what each stage produced and took
     (host seconds, each stage ending in a device synchronisation); its
     ``"index"`` is the ``InvertedIndex`` (a ``QuantizedIndex`` for
     ``method="quantized"``, the raw one then in ``"raw_index"``; with its
     forward rows for ``method="pruned"``), for dense reps the dense
     corpus, and with an ``engine`` (a ``CorpusEngine``, grown here by
-    ``grow_engine``) the engine, searched with ``method``, or with
-    ``method="pruned"`` at ``prune_margin`` when that is given."""
+    ``grow_engine``; ``corpus=0`` serves it as it is) the engine, searched
+    with ``method``, or with ``method="pruned"`` at ``prune_margin`` when
+    that is given. The loop takes ``continuous``, ``deadline_ms`` and
+    ``max_queue`` (``serve_requests``). With ``cache_mb > 0`` the engine is
+    searched through a ``CachedEngine`` (``"cached"``; ``fused`` unless
+    pruned) twice: ``"passes"`` holds each pass's ``(vals, ids,
+    seconds)``, ``"vals"``/``"idx"`` the second's."""
     from repro_torch.retrieval.engine.quantize import quantize_index
     from repro_torch.retrieval.score import resolve_method, retrieve
     from repro_torch.retrieval.sparse_rep import SparseRep, stack_rows
@@ -147,8 +180,23 @@ def run(encode: Callable, vocab_size: int, *, corpus: int, requests: int,
         torch.cuda.synchronize(device)
     index_s = time.perf_counter() - t0
 
+    cached = None
+    if cache_mb > 0:
+        from repro_torch.runtime.frontier import (CachedEngine,
+                                                  HotPostingCache,
+                                                  QueryResultCache)
+
+        if engine is None:
+            raise ValueError("cache_mb needs an engine")
+        cache_bytes = int(cache_mb * 2**20)
+        cached = CachedEngine(
+            engine, result_cache=QueryResultCache(cache_bytes),
+            hot_cache=HotPostingCache(cache_bytes // 4))
+
     t0 = time.perf_counter()
-    loop, outcomes = serve_requests(encode, vocab_size, requests, rng=rng)
+    loop, outcomes = serve_requests(
+        encode, vocab_size, requests, rng=rng, continuous=continuous,
+        deadline_ms=deadline_ms, max_queue=max_queue)
     serve_s = time.perf_counter() - t0
     served = [r for r in outcomes.values()
               if not isinstance(r, (ShedResult, FailedResult))]
@@ -156,8 +204,12 @@ def run(encode: Callable, vocab_size: int, *, corpus: int, requests: int,
     search_kw = {"method": method}
     if engine is not None and prune_margin is not None:
         search_kw = {"method": "pruned", "prune_margin": prune_margin}
+    elif cached is not None:
+        # auto picks impact below 16384 docs: fused engages the hot
+        # windows at any size
+        search_kw = {"method": "fused"}
     out.update(index=index, index_s=index_s, loop=loop, outcomes=outcomes,
-               serve_s=serve_s, served=served,
+               serve_s=serve_s, served=served, cached=cached,
                method=(engine.builder.resolved_method(search_kw["method"])
                        if engine is not None else resolve_method(method,
                                                                  index)))
@@ -167,7 +219,15 @@ def run(encode: Callable, vocab_size: int, *, corpus: int, requests: int,
         else:
             queries = torch.from_numpy(np.stack(served[:N_QUERIES]))
         t0 = time.perf_counter()
-        if engine is not None:
+        if cached is not None:
+            # the second pass is the cache's: every row keyed as before
+            passes = []
+            for _ in range(2):
+                t1 = time.perf_counter()
+                vals, idx = cached.search(queries, topk, **search_kw)
+                passes.append((vals, idx, time.perf_counter() - t1))
+            out["passes"] = passes
+        elif engine is not None:
             vals, idx = engine.search(queries, topk, **search_kw)
         else:
             vals, idx = retrieve(queries, index, topk, method=method)
@@ -176,6 +236,114 @@ def run(encode: Callable, vocab_size: int, *, corpus: int, requests: int,
         out.update(queries=queries, vals=vals, idx=idx,
                    retrieve_s=time.perf_counter() - t0)
     return out
+
+
+def run_tenants(encode: Callable, vocab_size: int, *, tenants: int,
+                corpus: int, requests: int, topk: int, index_batch: int,
+                device, cache_mb: float = 0.0, continuous: bool = False,
+                deadline_ms: Optional[float] = None,
+                keep_forward: bool = False,
+                mark: Optional[Callable[[int, str, np.ndarray],
+                                        np.ndarray]] = None
+                ) -> Dict[str, Any]:
+    """Provision, serve and search ``tenants`` corpora over one encoder
+    through a ``TenantPool`` (tenant ``t{i}`` at weight ``i + 1``, the
+    corpus split evenly, one ``add_docs`` each; a shared result cache of
+    ``cache_mb`` and per-tenant hot caches of a quarter of it). Request
+    ``uid`` goes to tenant ``uid % tenants`` with SLO ``deadline_ms``, one
+    ``tick`` after each submit, then ``drain``. ``mark(uid, tenant,
+    tokens)``, when given, returns the tokens submitted in place of the
+    drawn ones (the draws are unchanged): fault drills mark requests with
+    it. Each tenant's first 4 served reps are searched with ``fused``,
+    twice when caching. Returns the pool, the names, each request's
+    ``(tenant, outcome)``, the ticks' ``(tenant, n)`` dispatches, each
+    tenant's ``queries`` and ``searches`` (``(vals, ids)`` a pass) and the
+    stages' host seconds."""
+    from repro_torch.retrieval.sparse_rep import stack_rows
+    from repro_torch.runtime.frontier import TenantPool, TenantQuota
+    from repro_torch.runtime.serving import (BatchedEncoder, BatchPolicy,
+                                             FailedResult, Request,
+                                             ShedResult)
+
+    rng = np.random.default_rng(SEED)
+    cache_bytes = int(cache_mb * 2**20)
+    pool = TenantPool(
+        BatchedEncoder(encode, policy=BatchPolicy(max_batch=index_batch)),
+        cache_bytes=cache_bytes, hot_cache_bytes=cache_bytes // 4,
+        continuous=continuous)
+    names = [f"t{i}" for i in range(tenants)]
+    for i, name in enumerate(names):
+        pool.add_tenant(name, vocab_size,
+                        quota=TenantQuota(weight=float(i + 1)),
+                        keep_forward=keep_forward, device=device)
+    t0 = time.perf_counter()
+    per = max(1, corpus // tenants)
+    for name in names:
+        pool.add_docs(name, [rng.integers(1, vocab_size, size=DOC_TOKENS)
+                             .astype(np.int32) for _ in range(per)])
+    provision_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    dispatches = []
+    for uid in range(requests):
+        name = names[uid % tenants]
+        n = int(rng.integers(4, 24))
+        tokens = rng.integers(1, vocab_size, size=n).astype(np.int32)
+        if mark is not None:
+            tokens = mark(uid, name, tokens)
+        pool.submit(name, Request(uid=uid, tokens=tokens,
+                                  deadline_s=deadline_s(deadline_ms)))
+        dispatches.append(pool.tick())
+    pool.drain()
+    serve_s = time.perf_counter() - t0
+    outcomes = {uid: (names[uid % tenants],
+                      pool.take(names[uid % tenants], uid))
+                for uid in range(requests)}
+
+    t0 = time.perf_counter()
+    queries, searches = {}, {}
+    for name in names:
+        rows = [r for tenant, r in outcomes.values() if tenant == name
+                and not isinstance(r, (ShedResult, FailedResult))][:4]
+        if not rows:
+            continue
+        queries[name] = stack_rows(rows)
+        searches[name] = [pool.search(name, queries[name], topk,
+                                      method="fused")
+                          for _ in range(2 if cache_bytes else 1)]
+    return {"pool": pool, "names": names, "per_tenant_docs": per,
+            "outcomes": outcomes, "dispatches": [d for d in dispatches
+                                                 if d[1]],
+            "queries": queries, "searches": searches,
+            "provision_s": provision_s, "serve_s": serve_s,
+            "search_s": time.perf_counter() - t0}
+
+
+def print_tenants(res: Dict[str, Any]) -> None:
+    """The tenant mode's lines: the provisioning, one line a tenant, the
+    shared result cache's."""
+    pool, names = res["pool"], res["names"]
+    print(f"provisioned {len(names)} tenants x {res['per_tenant_docs']} "
+          f"docs in {res['provision_s'] * 1e3:.1f} ms "
+          f"({pool.memory_bytes() / 2**20:.2f} MiB pooled)")
+    st = pool.stats()
+    for name in names:
+        t = st["tenants"][name]
+        line = (f"tenant {name}: weight {t['weight']}, {t['live_docs']} "
+                f"docs, served {t['served']} / shed {t['shed']} / failed "
+                f"{t['failed']}")
+        if "cache" in t:
+            c = t["cache"]["results"]
+            line += f", cache hits {c['hits']}/{c['hits'] + c['misses']}"
+            if "hot" in t["cache"]:
+                line += f", {t['cache']['hot']['bytes_pinned']} B pinned"
+        print(line)
+    if "result_cache" in st:
+        rc = st["result_cache"]
+        print(f"shared result cache: hit ratio {rc['hit_rate']}, "
+              f"{rc['bytes_used']}/{rc['capacity_bytes']} B used, "
+              f"{rc['evictions']} evictions, {rc['invalidations']} "
+              f"invalidations")
 
 
 def main(argv=None) -> int:
@@ -216,6 +384,27 @@ def main(argv=None) -> int:
                     help="engine mode: tombstone this fraction of the "
                          "corpus after it has grown (exercises remove + "
                          "compaction)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    metavar="MS",
+                    help="per-request SLO: the loop sheds requests whose "
+                         "estimated or actual queue delay passes it "
+                         "(default: best-effort, never shed)")
+    ap.add_argument("--max-queue", type=int, default=1024,
+                    help="admission bound on queue depth; submits beyond "
+                         "it are shed with a ShedResult")
+    ap.add_argument("--cache-mb", type=float, default=0.0, metavar="MB",
+                    help="engine mode: search through the frontier's "
+                         "result cache (and a hot-posting-window cache "
+                         "of a quarter of it) with this byte budget; 0 = "
+                         "off")
+    ap.add_argument("--tenants", type=int, default=0, metavar="N",
+                    help="engine mode: serve N weighted tenants over one "
+                         "encoder through the TenantPool scheduler "
+                         "instead of a single corpus")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching: admit requests into the "
+                         "next batch in earliest-deadline-first order "
+                         "instead of FIFO")
     args = ap.parse_args(argv)
     # method/rep compatibility is knowable before spending minutes
     # encoding the corpus: reject bad combinations at argparse time
@@ -238,6 +427,11 @@ def main(argv=None) -> int:
         ap.error("--engine picks its retrieval path from "
                  "--quantize/--prune-margin; drop --method (the builder's "
                  "segments are searched via 'auto')")
+    if (args.cache_mb > 0 or args.tenants > 0) and not args.engine:
+        ap.error("--cache-mb/--tenants need --engine (cache keys and "
+                 "tenant corpora live on the IndexBuilder)")
+    if args.tenants < 0:
+        ap.error("--tenants must be >= 0")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -254,6 +448,17 @@ def main(argv=None) -> int:
     params = init_params(torch.Generator(device=device).manual_seed(0), cfg)
     encode = make_config_encoder(params, cfg)
 
+    if args.tenants > 0:
+        res = run_tenants(
+            encode, cfg.vocab_size, tenants=args.tenants, corpus=args.corpus,
+            requests=args.requests, topk=args.topk,
+            index_batch=args.index_batch, device=device,
+            cache_mb=args.cache_mb, continuous=args.continuous,
+            deadline_ms=args.deadline_ms,
+            keep_forward=args.prune_margin is not None)
+        print_tenants(res)
+        return 0
+
     engine = None
     if args.engine:
         from repro_torch.runtime.serving import (BatchedEncoder, BatchPolicy,
@@ -267,7 +472,9 @@ def main(argv=None) -> int:
     res = run(encode, cfg.vocab_size, corpus=args.corpus,
               requests=args.requests, topk=args.topk, method=args.method,
               index_batch=args.index_batch, device=device, engine=engine,
-              remove_frac=args.remove_frac, prune_margin=args.prune_margin)
+              remove_frac=args.remove_frac, prune_margin=args.prune_margin,
+              continuous=args.continuous, deadline_ms=args.deadline_ms,
+              max_queue=args.max_queue, cache_mb=args.cache_mb)
     corpus = res["index"]
     if engine is not None:
         st = engine.stats()
@@ -299,15 +506,32 @@ def main(argv=None) -> int:
           f"occupancy {ls['batch_occupancy']:.2f}, "
           f"p99 {ls['p99_latency_s'] * 1e3:.1f} ms")
     if "vals" not in res:
+        if args.deadline_ms is not None:
+            print("every request shed — deadline too tight for this host; "
+                  "nothing to retrieve")
+            return 0
         print("no request served; nothing to retrieve")
         return 1
     tag = res["method"]
     if engine is not None and args.prune_margin is not None:
         tag = "engine/pruned"
+    if res["cached"] is not None:
+        tag += "/cached"
     print(f"retrieval[{tag}]: top-{args.topk} for "
           f"{res['vals'].shape[0]} queries in "
           f"{res['retrieve_s'] * 1e3:.1f} ms, best scores "
           f"{[round(float(v), 2) for v in res['vals'][:, 0]]}")
+    if res["cached"] is not None:
+        cs = res["cached"].stats()
+        rc, hot = cs["results"], cs.get("hot")
+        line = (f"frontier cache: hit ratio {rc['hit_rate']}, "
+                f"{rc['bytes_used']}/{rc['capacity_bytes']} B used, "
+                f"{rc['evictions']} evictions, {rc['invalidations']} "
+                f"invalidations")
+        if hot is not None:
+            line += (f"; hot windows: {hot['pinned_terms']} terms, "
+                     f"{hot['bytes_pinned']} B pinned")
+        print(line)
     return 0
 
 

@@ -45,7 +45,7 @@ serving loop does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -346,6 +346,7 @@ class IndexBuilder:
 
     def search(self, queries: SparseRep, k: int = 10, *,
                method: str = "auto", q_width: Optional[int] = None,
+               base_scorer: Optional[Callable] = None,
                **kw) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k over base + delta; returns host ``(vals (B, k) f32, ids
         (B, k) int64)`` with **external** doc ids (-1 marks padding below
@@ -355,12 +356,17 @@ class IndexBuilder:
         terms (the serving degrade ladder's knob); the other keywords
         (``prune_margin``, ``candidates``) go to ``retrieve`` for the base
         segment once ``_check_search_kwargs`` has let them through.
+
+        ``base_scorer`` is the serving frontier's hot-window seam
+        (``runtime/frontier/caches``): called as ``base_scorer(queries,
+        base, k_base, resolved, kw)`` before ``retrieve`` on the base
+        segment; a ``None`` return declines and the normal dispatch runs.
         """
         if q_width is not None:
             queries = truncate_width(queries, q_width)
         if self.dirty:
             self.flush()
-        self._check_search_kwargs(method, kw)
+        resolved = self._check_search_kwargs(method, kw)
         if self.n_slots == 0 or (self._base is None and self._delta is None):
             b = queries.values.reshape(-1, queries.width).shape[0]
             return (np.full((b, k), -np.inf, np.float32),
@@ -368,9 +374,15 @@ class IndexBuilder:
 
         parts = []   # (vals (B, k'), internal slots (B, k'))
         if self._base is not None:
-            parts.append(score.retrieve(queries, self._base,
-                                        min(k, self._base.n_docs),
-                                        method=method, **kw))
+            k_base = min(k, self._base.n_docs)
+            out = None
+            if base_scorer is not None:
+                out = base_scorer(queries, self._base, k_base, resolved,
+                                  dict(kw))
+            if out is None:
+                out = score.retrieve(queries, self._base, k_base,
+                                     method=method, **kw)
+            parts.append(out)
         if self._delta is not None:
             # the delta is always a raw InvertedIndex: the base-only
             # methods fall back to exact impact scoring

@@ -698,7 +698,8 @@ class CorpusEngine:
     def search(self, queries, k: int = 10, *, method: str = "auto",
                **kw) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k with external ids (``IndexBuilder.search``: ``q_width``,
-        and ``prune_margin`` / ``candidates`` for the pruned method)."""
+        the frontier's ``base_scorer``, and ``prune_margin`` /
+        ``candidates`` for the pruned method)."""
         return self.builder.search(queries, k, method=method, **kw)
 
     def stats(self) -> Dict[str, float]:
