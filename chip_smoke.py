@@ -61,7 +61,9 @@ Phases, run in this order, each printing one JSON line:
              pruned segment, the delta's too), twice (the same bits),
              ``impact``, ``fused``, ``pruned`` with every doc a candidate
              and at margins 0.5 and 1.0, held to ``impact`` (all ids, or
-             the top-1 at a margin, equal beyond near-ties); the base's
+             the top-1 at a margin, equal beyond near-ties; ``auto`` on
+             the rows whose segments' ``exact_frontier`` holds, each
+             returned score its doc's exact score elsewhere); the base's
              ``exact_frontier`` true on every row at margin 0; then the
              ceiling entry timed at the search's budget C + 1 (B 8 and
              64) and k 257 beside K4 in place, and the searches' host ms.
@@ -104,9 +106,11 @@ Phases, run in this order, each printing one JSON line:
 6. train   — the full-width splade_bert train step: one step's gradients
              with the kernel head against the plain head (32 x 128), split
              into the backward's and the forward's share, then 5 timed
-             steps of the train entry point at the paper's Table-3 point
-             (384 pairs x 256 tokens, remat on) with the head it picks by
-             default, K1, K2 and K3 launched twice a step.
+             steps of the train CLI's own loop (``launch.train.make_runner``:
+             its ``FaultTolerantRunner`` and loader) at the paper's Table-3
+             point (384 pairs x 256 tokens, remat on) with the head it
+             picks by default, K1, K2 and K3 launched twice a step, no
+             step raising or skipped.
 7. eval    — the quality loop (``repro_torch.eval``): (a) the method
              matrix on ``benchmarks/bench_quality.py``'s graded corpus (512
              docs, 16 queries): ``exact`` must read nDCG@10 = MRR@10 = 1.0,
@@ -128,21 +132,36 @@ Phases, run in this order, each printing one JSON line:
              the gap between the heads is printed.
 8. xlmr    — splade_xlmr (|V| 250002) at full width: the serve phase's
              path (16384 docs, 64 requests, ``auto`` resolving to K4 in
-             place); K1 (with its 146-column last tile), K2 and K3 (every
-             routing list in device memory) at its V against their plain
-             versions; the gradient check at 8 x 128; 5 timed steps of the
-             train entry point at train_420 (420 pairs x 256 tokens, remat
-             on) and 3 at train_16 with the kernel head and 3 with the
-             paper's PyTorch baseline head (``naive``), each with its peak
-             memory; then K1, K2 and K3 timed at train_420 (K2 and K3 on
-             the random-init routing and on each row's 256 largest y).
+             place); then on its weights and queries the serve_engine,
+             serve_pruned and serve_dense phases' paths, one after the
+             other with each one's index dropped (xlmr_serve_engine: K5
+             in place on a 19456-doc quantized base; xlmr_serve_pruned: K4's
+             ceiling entry on the base and the delta, the base's
+             ``exact_frontier`` share printed, not required to be 1: the
+             reference's pruning misses a doc on rows where it fails;
+             xlmr_serve_dense: K6
+             on a (16384, 250002) f32 corpus of 16.4 GB, then K6 against K4
+             on the sparse index as a second such corpus), their gates but
+             those that do not depend on V (the acceptance corpus, K4, K5
+             and K6 past their old limits); K5 in place and K6 at B 8 timed
+             there (xlmr_serve_timing); K1 (with its 146-column last tile),
+             K2 and K3 (every routing list in device memory) at its V
+             against their plain versions; the gradient check at 8 x 128;
+             5 timed steps of the train CLI's loop at train_420 (420 pairs x
+             256 tokens, remat on) and 3 at train_16 with the kernel head
+             and 3 with the paper's PyTorch baseline head (``naive``), each
+             with its peak memory; then K1, K2 and K3 timed at train_420
+             (K2 and K3 on the random-init routing and on each row's 256
+             largest y).
 9. ckpt    — checkpoint and resume, splade_xlmr at full width through the
              train CLI's own ``run`` at train_16 (16 pairs x 256): (a) 4
              steps with ``--ckpt-every 2`` (checkpoints at steps 2 and 4,
-             3.67 GB of state each), K1, K2 and K3 twice a step; (b) the
+             3.67 GB of state each), K1, K2 and K3 twice a step call (a
+             step the runner retries past its deadline is called twice); (b) the
              checkpoint loaded back onto the card, bit for bit the state
              of step 4; (c) ``--resume --steps 6``; (d) its state against
-             the same 2 steps run on in memory from step 4: bit for bit,
+             the same 2 steps run on from step 4 in memory through the
+             CLI's loop (a runner checkpointing only at its end): bit for bit,
              or, if the trunk is not run-to-run reproducible, within a
              second in-memory run's own difference; (e) no step skipped;
              (f) the device-to-host copy, write and load seconds, the
@@ -152,7 +171,8 @@ Phases, run in this order, each printing one JSON line:
              loss falling, its in-batch acc@1.
 
 Every K1 launch of the serve, dense-serve, engine, pruned, frontier, train,
-eval (b), xlmr and ckpt phases must take the "tma" path. Then a
+eval (b), xlmr (its serving phases too) and ckpt phases must take the "tma"
+path. Then a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any mismatch, exception or missing launch exits non-zero before that last
 line. The script imports nothing of JAX nor of the JAX package.
@@ -793,7 +813,8 @@ def k6_cases(torch):
 
 def k6_compare(torch, q, C, k, exact):
     """K6, launched twice, against its plain version on one input: max
-    |value| difference, ids that differ, ids that differ beyond a near-tie
+    |value| difference (also relative to 1 + |value|, K6_TOL's measure),
+    ids that differ, ids that differ beyond a near-tie
     (the two candidates' plain scores more than K6_TOL apart), whether the
     values are within K6_TOL (bit for bit when ``exact``) and whether the
     two launches agree bit for bit."""
@@ -806,8 +827,8 @@ def k6_compare(torch, q, C, k, exact):
     out = {"bit_identical": all(bool(torch.equal(a, b))
                                 for a, b in zip(*runs))}
     if v_k.numel() == 0:
-        return {**out, "max_abs_err": 0.0, "id_mismatch": 0, "id_hard": 0,
-                "within_tol": True}
+        return {**out, "max_abs_err": 0.0, "max_rel_err": 0.0,
+                "id_mismatch": 0, "id_hard": 0, "within_tol": True}
     err = (v_k - v_p).abs()
     differ = i_k != i_p
     hard = 0
@@ -820,6 +841,7 @@ def k6_compare(torch, q, C, k, exact):
     ok = (bool((err == 0).all()) and not bool(differ.any()) if exact
           else bool((err <= K6_TOL * (1 + v_p.abs())).all()))
     return {**out, "max_abs_err": float(err.max()),
+            "max_rel_err": float((err / (1 + v_p.abs())).max()),
             "id_mismatch": int(differ.sum()), "id_hard": hard,
             "within_tol": ok and hard == 0}
 
@@ -1390,9 +1412,14 @@ def ids_beyond_near_ties(torch, scores, got, want):
     return int((differ & ~near).sum()), int(differ.sum())
 
 
-def phase_serve_dense(torch, served):
+def phase_serve_dense(torch, served, phase="serve_dense", shared_gates=True):
     """The serving path with dense reps (``--rep-topk 0``): the sparse
-    phase's weights, a (16384, V) f32 corpus, ``auto`` -> streaming (K6)."""
+    phase's weights, a (16384, V) f32 corpus, ``auto`` -> streaming (K6),
+    held against the ``dense`` method; then, the served checks passed, the
+    sparse phase's index as a second dense corpus, K6 on it against K4.
+    With ``shared_gates``, K6 past its old limits (``dense_past_limits``:
+    V does not change them, so the xlmr phase leaves them to the BERT
+    one). The phase's peak device memory is printed."""
     import dataclasses
 
     from repro_torch.kernels import sparton as k1
@@ -1402,6 +1429,7 @@ def phase_serve_dense(torch, served):
     from repro_torch.runtime.serving import (FailedResult, ShedResult,
                                              make_config_encoder)
 
+    t_phase = time.perf_counter()
     cfg = dataclasses.replace(served["cfg"], rep_topk=None)
     encode = make_config_encoder(served["params"], cfg)
     batches = []
@@ -1410,6 +1438,8 @@ def phase_serve_dense(torch, served):
         batches.append(tokens.shape)
         return encode(tokens, mask)
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_k1(k1)
     k6.topk_score.launches = 0
     with plain_guard(k1=(k1, "sparton_forward_plain"),
@@ -1420,7 +1450,7 @@ def phase_serve_dense(torch, served):
                   device=torch.device("cuda"))
     launches = {"sparton_fwd": k1.sparton_forward.launches,
                 "topk_score": k6.topk_score.launches}
-    k1_paths = k1_on_tma(k1, "serve_dense")
+    k1_paths = k1_on_tma(k1, phase)
 
     corpus, st = res["index"], res["loop"].stats()
     unserved = [r for r in res["outcomes"].values()
@@ -1473,9 +1503,10 @@ def phase_serve_dense(torch, served):
             f"streaming scores on the sparse reps differ from fused by "
             f"{val_err_s}")
 
-    past = dense_past_limits(torch, res, corpus)
+    shared = ({"past_limits": dense_past_limits(torch, res, corpus)}
+              if shared_gates else {})
     lat = res["loop"].latencies()
-    emit("serve_dense", config=cfg.name, head_impl=cfg.head_spec().impl,
+    emit(phase, config=cfg.name, head_impl=cfg.head_spec().impl,
          launches=launches, encode_batches=len(batches),
          index_s=res["index_s"], corpus_shape=list(corpus.shape),
          corpus_mib=corpus.nbytes / 2**20, serve_s=res["serve_s"],
@@ -1484,7 +1515,9 @@ def phase_serve_dense(torch, served):
          retrieve_method=res["method"], retrieve_ms=1e3 * res["retrieve_s"],
          ids_differ_vs_dense=differ, streaming_vs_dense_max_abs_err=val_err,
          ids_differ_vs_fused=differ_s, streaming_vs_fused_max_abs_err=val_err_s,
-         past_limits=past, k1_paths=k1_paths)
+         **shared, k1_paths=k1_paths,
+         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+         seconds=time.perf_counter() - t_phase)
     return {"res": res, "launches": launches, "k1_paths": k1_paths}
 
 
@@ -1669,14 +1702,17 @@ def index_past_limits(torch, queries, raw, quant):
     return rows
 
 
-def phase_serve_engine(torch, served):
+def phase_serve_engine(torch, served, phase="serve_engine",
+                       shared_gates=True):
     """The online index engine at full width: the serve phase's weights and
     queries, 20480 docs grown through ``CorpusEngine(quantize=True)`` one
     ``add_docs`` + ``flush`` per batch of 64, 5 % tombstoned, searched
     once with their postings zeroed in place by a plain ``flush``, then
     compacted away (19456 live docs in the base, above ``AUTO_FUSED_N``),
     one more batch as the delta; each time ``search`` with ``auto``,
-    ``fused`` and ``quantized``. Then the acceptance corpus."""
+    ``fused`` and ``quantized``. Then, with ``shared_gates`` (the gates
+    that do not depend on V, which the xlmr phase leaves to the BERT one),
+    the acceptance corpus and K4 and K5 past their old k limit."""
     from repro_torch.kernels import impact_score as k45
     from repro_torch.kernels import sparton as k1
     from repro_torch.launch.serve import SEED, grow_engine
@@ -1687,6 +1723,7 @@ def phase_serve_engine(torch, served):
                                              CorpusEngine,
                                              make_config_encoder)
 
+    t_phase = time.perf_counter()
     cfg, res = served["cfg"], served["res"]
     encode = make_config_encoder(served["params"], cfg)
     batches = []
@@ -1749,7 +1786,7 @@ def phase_serve_engine(torch, served):
                     in_place["launches"], out["launches"])
                     for method in ("auto", "fused", "quantized"))
                    for key in ("impact_topk", "impact_q_topk")}}
-    k1_paths = k1_on_tma(k1, "serve_engine")
+    k1_paths = k1_on_tma(k1, phase)
     st = engine.stats()
 
     require(isinstance(base, QuantizedIndex) and st["quantized_base"],
@@ -1800,13 +1837,15 @@ def phase_serve_engine(torch, served):
     gone = set(dropped)
     rows_in_place = held_to_quantized(torch, in_place, gone, "in place: ")
     rows = held_to_quantized(torch, out, gone, "")
-    accept = acceptance_corpus(torch)
-    past = index_past_limits(torch, queries, base_raw, base)
+    shared = ({"acceptance": acceptance_corpus(torch),
+               "past_limits": index_past_limits(torch, queries, base_raw,
+                                                base)}
+              if shared_gates else {})
     qs = base.stats()
     ratio = base_raw.memory_bytes() / base.memory_bytes()
     require(ratio > 1, f"the quantized base is not smaller than its raw "
                        f"index ({ratio:.3f}x)")
-    emit("serve_engine", config=cfg.name, launches=launches,
+    emit(phase, config=cfg.name, launches=launches,
          k1_paths=k1_paths,
          encode_batches=len(batches), index_s=index_s,
          docs_grown=n, grown_stats=grown, removed=len(dropped),
@@ -1814,13 +1853,15 @@ def phase_serve_engine(torch, served):
          n_compactions=st["n_compactions"], retrieve_method=resolved,
          base_docs=qs["n_docs"], base_postings=qs["n_postings"],
          phantom_frac=qs["phantom_frac"], max_postings=qs["max_postings"],
-         delta_dtype=str(base.deltas.dtype), base_memory_bytes=qs[
-             "memory_bytes"], raw_memory_bytes=base_raw.memory_bytes(),
+         delta_dtype=str(base.deltas.dtype),
+         term_lens_dtype=str(base.term_lens.dtype),
+         base_memory_bytes=qs["memory_bytes"],
+         raw_memory_bytes=base_raw.memory_bytes(),
          compression=ratio, searches=rows, search_ms=search_ms,
          quantized_bit_identical=quantized_bits,
          in_place={"resolved": in_place["resolved"], "stats": st_in,
                    "searches": rows_in_place},
-         acceptance=accept, past_limits=past)
+         **shared, seconds=time.perf_counter() - t_phase)
     return {"engine": engine, "launches": launches, "k1_paths": k1_paths}
 
 
@@ -1899,8 +1940,15 @@ def pruned_searches(torch, engine, queries, k, gone, tag):
     each one's K4 launches. Held to ``impact``: ids equal beyond
     near-ties (``ids_beyond_near_ties`` on the slots' exact scores), only
     the top-1 at a margin above 0; no padding, no tombstoned id
-    (``gone``), finite scores. The base's ``pruned_retrieve`` at margin 0
-    gives each row's ``exact_frontier``. Returns the rows."""
+    (``gone``), finite scores. ``auto`` prunes each segment at margin 0
+    with the default candidate budget, which the reference promises exact
+    only on the rows where the pruning proves it (``exact_frontier``:
+    every excluded doc's ceiling at most the k-th exact score); so its ids
+    are held to ``impact``'s on the rows whose every segment's frontier
+    holds, and on the others each returned score must be the exact score
+    of its doc (tier 2's rescoring). The base's ``exact_frontier`` (its
+    ``pruned_retrieve`` at margin 0), the delta's, and how many rows hold
+    both are returned with the rows."""
     from repro_torch.kernels import impact_score as k45
     from repro_torch.retrieval.engine.pruning import (default_candidates,
                                                       pruned_retrieve)
@@ -1935,6 +1983,13 @@ def pruned_searches(torch, engine, queries, k, gone, tag):
     require(all(np.array_equal(a, b) for a, b in zip(out["auto"][:2],
                                                      out["auto_again"][:2])),
             f"{tag}two pruned searches differ")
+    frontier = {}
+    for seg_name, seg in (("base", base), ("delta", delta)):
+        if seg is not None:
+            frontier[seg_name] = pruned_retrieve(
+                queries, seg, min(k, seg.n_docs),
+                with_diagnostics=True)[2].cpu()
+    exact_rows = torch.stack(list(frontier.values())).all(dim=0).cuda()
     scores = [impact_scores(queries, base)]
     if delta is not None:
         scores.append(impact_scores(queries, delta))
@@ -1943,28 +1998,76 @@ def pruned_searches(torch, engine, queries, k, gone, tag):
                            otypes=[np.int64])
     want = torch.from_numpy(slot_of(out["impact"][1])).cuda()
     v_want = out["impact"][0]
+    tol = SCORE_TOL * (1 + float(np.abs(v_want).max()))
     rows = {}
     for name, (vals, ext, launched) in out.items():
         got = torch.from_numpy(slot_of(ext)).cuda()
         cols = 1 if name.startswith("margin_") else k
-        hard, differ = ids_beyond_near_ties(torch, scores, got[:, :cols],
-                                            want[:, :cols])
-        err = float(np.abs(vals[:, :cols] - v_want[:, :cols]).max())
-        require(hard == 0 and err <= SCORE_TOL * (1 + float(
-            np.abs(v_want).max())),
+        held = exact_rows if name.startswith("auto") else torch.ones_like(
+            exact_rows)
+        hard, differ = ids_beyond_near_ties(torch, scores[held],
+                                            got[held, :cols],
+                                            want[held, :cols])
+        err = float(np.abs(vals[:, :cols] - v_want[:, :cols])[
+            held.cpu().numpy()].max(initial=0.0))
+        rescored = float((scores.gather(1, got).cpu()
+                          - torch.from_numpy(vals)).abs().max())
+        require(hard == 0 and err <= tol and rescored <= tol,
                 f"{tag}{name}: ids differ from impact's beyond near-ties at "
-                f"{hard} positions (of {cols} a row), scores by {err}")
+                f"{hard} positions (of {cols} a row, on {int(held.sum())} "
+                f"rows), scores by {err}; returned scores differ from "
+                f"their docs' exact scores by {rescored}")
         rows[name] = {"ids_differ": differ, "compared_columns": cols,
-                      "max_abs_err": err, "launches": launched}
-    _, idx, frontier = pruned_retrieve(queries, base, min(k, base.n_docs),
-                                       with_diagnostics=True)
-    rows["exact_frontier"] = frontier.tolist()
-    rows["frontier_share"] = float(frontier.float().mean())
+                      "compared_rows": int(held.sum()), "max_abs_err": err,
+                      "rescored_max_abs_err": rescored, "launches": launched}
+        if not bool(held.all()):
+            rows[name]["ids_differ_elsewhere"] = ids_beyond_near_ties(
+                torch, scores[~held], got[~held, :cols],
+                want[~held, :cols])[0]
+    rows["exact_frontier"] = frontier["base"].tolist()
+    rows["frontier_share"] = float(frontier["base"].float().mean())
+    rows["delta_frontier_share"] = (float(frontier["delta"].float().mean())
+                                    if "delta" in frontier else None)
+    rows["exact_rows"] = int(exact_rows.sum())
     rows["candidates"] = default_candidates(base, min(k, base.n_docs))
     return rows
 
 
-def phase_serve_pruned(torch, served):
+def pruned_split_ms(torch, queries, builder, k):
+    """Host ms (``host_ms``: median of 30, each call ending in a
+    synchronise) of the parts of an ``auto`` search on a pruned engine:
+    on the base, tier 1 (K4's ceiling entry at C + 1), the query's dense
+    (B, V + 1) scatter, tier 2 (that scatter, the gather of the
+    candidates' forward rows, the exact sums and the top-k) and the whole
+    pruned retrieve; the delta's own ``auto`` search."""
+    from repro_torch.retrieval.engine import pruning as tp
+    from repro_torch.retrieval.score import retrieve
+
+    base, delta = builder._base, builder._delta
+    k_base = min(k, base.n_docs)
+    C = tp.default_candidates(base, k_base)
+    n_top = min(C + 1, base.n_docs)
+    ub_top, cand = tp.ceiling_topk(queries, base, n_top)
+
+    def tier2():
+        return tp.select_and_rescore(
+            ub_top, cand, queries, base.doc_values, base.doc_indices,
+            base.vocab_size, base.n_docs, k_base, C, 0.0)
+
+    out = {"tier1": host_ms(torch, lambda: tp.ceiling_topk(queries, base,
+                                                           n_top)),
+           "query_scatter": host_ms(torch, lambda: tp.query_dense(
+               queries, base.vocab_size, base.device)),
+           "tier2": host_ms(torch, tier2),
+           "base": host_ms(torch, lambda: retrieve(queries, base, k_base))}
+    if delta is not None:
+        out["delta"] = host_ms(torch, lambda: retrieve(
+            queries, delta, min(k, delta.n_docs)))
+    return out
+
+
+def phase_serve_pruned(torch, served, phase="serve_pruned",
+                       frontier_everywhere=True):
     """Two-tier pruned retrieval at full width: the serve phase's weights
     and queries (the 64 served requests), 20480 docs grown through
     ``CorpusEngine(keep_forward=True)`` one ``add_docs`` + ``flush`` per
@@ -1973,7 +2076,14 @@ def phase_serve_pruned(torch, served):
     ``pruned_searches`` (``auto`` resolving to ``pruned``, K4's ceiling
     entry once a pruned segment). Then K4's ceiling entry timed on the
     base (``time_ceiling``) at the search's budget C + 1 for the served 8
-    queries and all 64, and at k 257; the searches' host ms."""
+    queries and all 64, and at k 257; the searches' host ms, an ``auto``
+    search's split into its parts (``pruned_split_ms``). With
+    ``frontier_everywhere`` the base's ``exact_frontier`` must hold on
+    every served row (as at splade_bert, where it always has); without
+    it (xlmr, where the default budget of 64 candidates leaves a top-10
+    doc out of a served row, in the reference as in the port) its share
+    is printed and the rows where it fails are held as
+    ``pruned_searches`` says."""
     from repro_torch.kernels import impact_score as k45
     from repro_torch.kernels import sparton as k1
     from repro_torch.launch.serve import SEED, grow_engine
@@ -2038,6 +2148,7 @@ def phase_serve_pruned(torch, served):
                      (queries, PRUNED["ceiling_ks"][-1]))}
     search_ms = {m: host_ms(torch, lambda: engine.search(
         queries, k, method=m)) for m in ("auto", "impact", "fused")}
+    split_ms = pruned_split_ms(torch, queries, builder, k)
     st = engine.stats()
     require(not plain_on_cuda, f"plain versions ran on CUDA tensors: "
                                f"{sorted(set(plain_on_cuda))}")
@@ -2058,10 +2169,10 @@ def phase_serve_pruned(torch, served):
                     row[m]["launches"]["impact_ceiling_topk"]
                     for row in (in_place, out) for m in row
                     if isinstance(row[m], dict) and "launches" in row[m])}
-    k1_paths = k1_on_tma(k1, "serve_pruned")
+    k1_paths = k1_on_tma(k1, phase)
     forward_bytes = (base.doc_values.numel() * 4
                      + base.doc_indices.numel() * 4)
-    emit("serve_pruned", config=cfg.name, launches=launches,
+    emit(phase, config=cfg.name, launches=launches,
          k1_paths=k1_paths, encode_batches=len(batches), index_s=index_s,
          docs_grown=n, grown_stats=grown, removed=len(dropped),
          tombstoned_forward_rows_zeroed=bool((zeroed == 0).all()),
@@ -2070,13 +2181,14 @@ def phase_serve_pruned(torch, served):
          forward_row_bytes=forward_bytes, max_postings=base.max_postings,
          posting_percentiles=list(base.posting_percentiles),
          in_place=in_place, searches=out, ceiling=timing,
-         search_ms=search_ms, seconds=time.perf_counter() - t_phase)
+         search_ms=search_ms, auto_split_ms=split_ms,
+         seconds=time.perf_counter() - t_phase)
     require(bool((zeroed == 0).all()),
             "tombstoned docs' forward rows were not zeroed in place")
     frontier = in_place["exact_frontier"] + out["exact_frontier"]
-    require(all(frontier), f"exact_frontier false on "
-                           f"{frontier.count(False)} of {len(frontier)} "
-                           f"rows at margin 0")
+    require(all(frontier) or not frontier_everywhere,
+            f"exact_frontier false on {frontier.count(False)} of "
+            f"{len(frontier)} rows at margin 0")
     return {"launches": launches, "timing": timing, "k1_paths": k1_paths,
             "engine": engine}
 
@@ -2610,49 +2722,89 @@ def grad_check(torch, cfg, shape=GRAD_CHECK):
 
 
 def timed_train(torch, arch, cfg, shape, steps):
-    """``steps`` timed steps of the train entry point (``train_steps``)
+    """``steps`` timed steps of the train CLI's own loop (``make_runner``:
+    its ``FaultTolerantRunner`` on its loader, a loss logged each step)
     for ``arch`` with ``cfg`` at ``shape``, from a seeded fresh state: the
-    losses, each step's ms, the median of steps 2 on, pairs/s, the peak
-    device memory, the head kernels' launches (each 2 a step for the
-    kernel head, none for another), K1's paths, and a torch.profiler
-    trace of one more step."""
+    losses, each step's ms (an ``on_step`` hook synchronises and reads the
+    clock, so a step spans the runner's whole iteration: the batch drawn
+    and placed, the step, its bookkeeping), the runner's own step time
+    (the step alone), the median of steps 2 on, pairs/s, the peak device
+    memory, the head kernels' launches (each 2 a step call for the kernel
+    head, none for another; the runner calls a step once more when it
+    overran its deadline, and such retries are counted), K1's paths, the
+    seconds of the checkpoint the
+    runner writes at the end (into a temporary directory, removed after),
+    and a torch.profiler trace of one more step."""
+    import shutil
+    import tempfile
+
     from repro_torch.kernels import sparton as k1
     from repro_torch.kernels import sparton_bwd as kb
     from repro_torch.launch.steps import build_lsr_train_step, init_state
-    from repro_torch.launch.train import train_steps
+    from repro_torch.launch.train import make_runner, pair_loader
 
-    state = init_state(arch, torch.Generator(device="cuda").manual_seed(0))
-    run = train_steps(cfg, state, batch=shape.global_batch,
-                      seq_len=shape.seq_len, lr=2e-4,
-                      device=torch.device("cuda"))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_k1(k1)
-    kb.sparton_backward_dh.launches = 0
-    kb.sparton_backward_de.launches = 0
-    step_s, losses = [], []
-    with plain_guard(k1=(k1, "sparton_forward_plain"),
-                     k2=(kb, "sparton_backward_dh_plain"),
-                     k3=(kb, "sparton_backward_de_plain")) as plain_on_cuda:
-        for _ in range(steps):
-            t0 = time.perf_counter()
-            state, loss = next(run)                   # synchronises
+    device = torch.device("cuda")
+    step_s, mark = [], []
+
+    def clock(step, state):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        step_s.append(now - mark[-1])
+        mark.append(now)
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        with pair_loader(cfg, batch=shape.global_batch, seq_len=shape.seq_len,
+                         device=device) as loader:
+            # the runner alone holds the state, as in the CLI's run
+            runner = make_runner(
+                cfg, init_state(arch, torch.Generator(
+                    device="cuda").manual_seed(0)),
+                iter(loader), steps=steps, lr=2e-4, device=device,
+                ckpt_dir=ckpt_dir, on_step=clock)
+            step_fn, calls = runner.step_fn, []
+
+            def counted_step(state, batch):   # a straggler's retry counts
+                calls.append(1)
+                return step_fn(state, batch)
+
+            runner.step_fn = counted_step
             torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
-            losses.append(loss)
-    run.close()
+            torch.cuda.reset_peak_memory_stats()
+            reset_k1(k1)
+            kb.sparton_backward_dh.launches = 0
+            kb.sparton_backward_de.launches = 0
+            with plain_guard(k1=(k1, "sparton_forward_plain"),
+                             k2=(kb, "sparton_backward_dh_plain"),
+                             k3=(kb, "sparton_backward_de_plain")
+                             ) as plain_on_cuda:
+                mark.append(time.perf_counter())
+                state = runner.run()
+                final_ckpt_s = time.perf_counter() - mark[-1]
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    logged = [m for m in runner.metrics_log if "loss" in m]
+    losses = [float(m["loss"]) for m in logged]
     launches = {"sparton_fwd": k1.sparton_forward.launches,
                 "sparton_bwd_dh": kb.sparton_backward_dh.launches,
                 "sparton_bwd_de": kb.sparton_backward_de.launches}
     impl = cfg.head_spec().impl
-    want = 2 * steps if impl == "kernel" else 0
+    want = 2 * len(calls) if impl == "kernel" else 0
     k1_paths = (k1_on_tma(k1, f"train {cfg.name} {shape.name}")
                 if want else dict(k1.sparton_forward.path_launches))
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    require(not runner.errors, f"{cfg.name} {shape.name}: train steps "
+                               f"raised {runner.errors}")
+    require(runner.skipped_steps == [],
+            f"{cfg.name} {shape.name}: the runner skipped steps "
+            f"{runner.skipped_steps}")
+    require(len(losses) == len(step_s) == steps,
+            f"{cfg.name} {shape.name}: {len(losses)} losses logged, "
+            f"{len(step_s)} steps clocked, for {steps} steps")
     require(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
     require(all(n == want for n in launches.values()),
             f"{cfg.name} {shape.name} ({impl} head): K1/K2/K3 launches "
-            f"{launches}, expected {want} each")
+            f"{launches} in {len(calls)} step calls, expected {want} each")
     require(not plain_on_cuda, f"plain versions ran on CUDA tensors: "
                                f"{sorted(set(plain_on_cuda))}")
     require(state["step"] == steps, "the step counter did not advance")
@@ -2662,10 +2814,12 @@ def timed_train(torch, arch, cfg, shape, steps):
            "shape": {"name": shape.name, "pairs": shape.global_batch,
                      "seq_len": shape.seq_len, "remat": cfg.remat},
            "losses": losses, "step_ms": [1e3 * t for t in step_s],
+           "runner_step_ms": [1e3 * m["step_time_s"] for m in logged],
            "median_step_ms": median_ms,
            "pairs_per_s": shape.global_batch / (median_ms / 1e3),
            "max_memory_allocated_gib": peak_gib, "launches": launches,
-           "k1_paths": k1_paths}
+           "k1_paths": k1_paths, "final_ckpt_s": final_ckpt_s,
+           "straggler_retries": len(calls) - steps}
     step = build_lsr_train_step(cfg, lr=2e-4)
     batch = train_batches(torch, shape.global_batch, shape.seq_len, 1,
                           cfg.vocab_size)[0]
@@ -2677,7 +2831,7 @@ def timed_train(torch, arch, cfg, shape, steps):
         return 1e3 * (time.perf_counter() - t0)
 
     out["step_profile"] = traced(torch, one_step, median_ms, 1)
-    del state, batch
+    del state, batch, runner
     torch.cuda.empty_cache()
     return out
 
@@ -3840,10 +3994,49 @@ def xlmr_timing(torch, E, b, shape):
     return {"k1": k1_row, "bwd": bwd}
 
 
+def xlmr_serving(torch, served):
+    """splade_xlmr's retrieval paths past the sparse serve, on the xlmr
+    serve phase's weights and queries: the engine (``auto`` -> K5 in
+    place), the pruned engine (``auto`` -> ``pruned``, K4's ceiling entry)
+    and the dense serve (``auto`` -> K6), each phase's index, engine or
+    corpus dropped before the next starts; only their V-dependent gates
+    (``shared_gates`` off). K5 in place is timed on the engine's base (the
+    served 8 queries and all 64, ``time_impact``), K6 at B 8 on the
+    (16384, 250002) corpus (``time_k6``); K4's ceiling entry by the pruned
+    phase itself."""
+    from repro_torch.retrieval.sparse_rep import stack_rows
+
+    t0 = time.perf_counter()
+    res, k = served["res"], SERVE["topk"]
+    engine = phase_serve_engine(torch, served, "xlmr_serve_engine",
+                                shared_gates=False)
+    base = engine.pop("engine").builder._base
+    k5 = {f"B{q.values.shape[0]}": time_impact(torch, q, base, k, reps=20)
+          for q in (res["queries"], stack_rows(res["served"]))}
+    del base
+    torch.cuda.empty_cache()
+    pruned = phase_serve_pruned(torch, served, "xlmr_serve_pruned",
+                                frontier_everywhere=False)
+    del pruned["engine"]
+    torch.cuda.empty_cache()
+    dense = phase_serve_dense(torch, served, "xlmr_serve_dense",
+                              shared_gates=False)
+    corpus = dense.pop("res")
+    k6 = {"B8": time_k6(torch, corpus["queries"].cuda(), corpus["index"],
+                        corpus["idx"].shape[1], reps=10)}
+    del corpus
+    torch.cuda.empty_cache()
+    emit("xlmr_serve_timing", k5=k5, k6=k6,
+         seconds=time.perf_counter() - t0)
+    return {"engine": engine, "pruned": pruned, "dense": dense,
+            "k5": k5, "k6": k6}
+
+
 def phase_xlmr(torch):
     """splade_xlmr (|V| 250002) at full width: the sparse serving path,
+    then the engine, pruned and dense serving paths (``xlmr_serving``),
     the head's kernels at its V against their plain versions, the
-    gradient check, the train entry point at train_420 (kernel head) and
+    gradient check, the train CLI's loop at train_420 (kernel head) and
     at train_16 (kernel and baseline heads), then K1, K2 and K3 timed at
     train_420."""
     import dataclasses
@@ -3852,6 +4045,7 @@ def phase_xlmr(torch):
     from repro_torch.models.transformer import head_weights
 
     served = phase_serve(torch, CONFIG, "xlmr_serve")
+    serving = xlmr_serving(torch, served)
     E, b = head_weights(served["params"], served["cfg"])
     E16, b = E.to(torch.bfloat16), b.clone()
     serve_launches, serve_paths = served["launches"], served["k1_paths"]
@@ -3878,8 +4072,10 @@ def phase_xlmr(torch):
     del E16, b
     torch.cuda.empty_cache()
     return {"timing": timing, "serve_launches": serve_launches,
-            "train_launches": trained["launches"],
+            "train_launches": trained["launches"], "serving": serving,
             "k1_paths": {"serve": serve_paths,
+                         **{f"serve_{path}": serving[path]["k1_paths"]
+                            for path in ("engine", "pruned", "dense")},
                          "train": trained["k1_paths"]}}
 
 
@@ -4051,24 +4247,41 @@ def phase_ckpt(torch):
                 and len(res_c["losses"]) == resumed - first,
                 f"ckpt: resumed at {res_c['start_step']}, ended at step "
                 f"{res_c['state']['step']}")
-        want = {first: 2 * first, resumed: 2 * (resumed - first)}
+        # K1-K3 twice a step call; the runner calls a step once more when
+        # it overran its deadline (its straggler retry, at most one a
+        # step), so the calls are counted from the spans each run logged
+        calls = {first: steps_a, resumed: len(step_spans) - steps_a}
+        retries = {first: calls[first] - first,
+                   resumed: calls[resumed] - (resumed - first)}
         for n_steps, launches in ((first, launches_a),
                                   (resumed, launches_c)):
             got = {k: launches[k] for k in ("sparton_fwd", "sparton_bwd_dh",
                                             "sparton_bwd_de")}
-            require(all(v == want[n_steps] for v in got.values()),
-                    f"ckpt: K1-K3 launches {got}, expected "
-                    f"{want[n_steps]} each")
+            ran = calls[n_steps] - retries[n_steps]
+            require(0 <= retries[n_steps] <= ran
+                    and all(v == 2 * calls[n_steps] for v in got.values()),
+                    f"ckpt: K1-K3 launches {got} in {calls[n_steps]} step "
+                    f"calls ({retries[n_steps]} retried), expected "
+                    f"{2 * calls[n_steps]} each")
 
-        # (d) the same two steps on in memory from S4: a fresh shard-0
-        # stream, as the resumed run's
+        # (d) the same two steps on in memory from S4 through the CLI's
+        # loop: a fresh shard-0 stream, as the resumed run's; its runner
+        # checkpoints only at the end, into a directory of its own
         def continue_s4():
-            run = cli.train_steps(cfg, s4, batch=16, seq_len=256,
-                                  lr=cli.parser().get_default("lr"),
-                                  device=torch.device("cuda"))
-            out = [next(run) for _ in range(resumed - first)]
-            run.close()
-            return out[-1][0], [loss for _, loss in out]
+            device = torch.device("cuda")
+            control_dir = tempfile.mkdtemp(dir=ckpt_dir, prefix="control_")
+            with cli.pair_loader(cfg, batch=16, seq_len=256,
+                                 device=device) as loader:
+                runner = cli.make_runner(
+                    cfg, s4, iter(loader), steps=resumed - first,
+                    lr=cli.parser().get_default("lr"), device=device,
+                    ckpt_dir=control_dir)
+                state = runner.run()
+            shutil.rmtree(control_dir)
+            require(not runner.errors and runner.skipped_steps == [],
+                    f"ckpt: the in-memory control's steps raised "
+                    f"{runner.errors}, skipped {runner.skipped_steps}")
+            return state, [float(m["loss"]) for m in runner.metrics_log]
 
         with plain_guard(**eval_plains()) as plain_on_cuda:
             s6_mem, losses_mem = continue_s4()
@@ -4144,6 +4357,8 @@ def phase_ckpt(torch):
                                  "losses_resumed": losses_c,
                                  "losses_in_memory": losses_mem},
         "step_ms": step_ms,
+        "straggler_retries": {"first": retries[first],
+                              "resumed": retries[resumed]},
         "median_step_ms": {"write_in_flight": busy[len(busy) // 2]
                            if busy else None,
                            "no_write": idle[len(idle) // 2] if idle else None},
@@ -4167,7 +4382,13 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
     K5's ``ms`` are their index entries', ``window_ms`` their window
     entries'); K1, K2 and K3 also ``at_xlmr``, at train_420 with xlmr's
     V (K2 and K3 on the "dense" and "sparse" routings), with their
-    launches in the xlmr phase's serve and train_420 runs; K1-K5 also
+    launches in the xlmr phase's serve, serving and train_420 runs; K4
+    ``at_xlmr`` its launches in the xlmr serve and engine phases and its
+    ceiling entry's in xlmr_serve_pruned with that phase's numbers, K5
+    ``at_xlmr`` its launches in xlmr_serve_engine and its numbers on that
+    engine's base (8 and 64 queries), K6 ``at_xlmr`` its launches in
+    xlmr_serve_dense and its numbers at B 8 on that (16384, 250002)
+    corpus; K1-K5 also
     ``eval_launches``, in each part of the eval phase, and every kernel
     ``ckpt_launches``, in the ckpt phase's first and resumed CLI runs and
     its example run. K4's row also holds its ceiling entry (``ceiling``):
@@ -4184,7 +4405,10 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     k1_keys = keys + ("ms_wmma",)
+    serving = xlmr["serving"]
     x_launch = {"serve": xlmr["serve_launches"],
+                **{f"serve_{path}": serving[path]["launches"]
+                   for path in ("engine", "pruned", "dense")},
                 "train_420": xlmr["train_launches"]}
     x_k1 = {**{key: xlmr["timing"]["k1"][key] for key in k1_keys},
             "launches": {where: n["sparton_fwd"]
@@ -4239,18 +4463,22 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
          "launches": launches["impact_topk"],
          "index_launches": launches["impact_index_topk"],
          "engine_launches": engine_launches["impact_topk"],
-         "xlmr_serve_launches": xlmr["serve_launches"]["impact_topk"],
          "eval_launches": in_eval("impact_topk"),
          "ckpt_launches": in_ckpt("impact_topk"),
          **{key: k4["B8"][key] for key in k45_keys},
          "at_B64": {key: k4["B64"][key] for key in k45_keys},
-         "ceiling": ceiling_row(pruned, in_eval("impact_ceiling_topk")),
+         "ceiling": {**ceiling_row(pruned),
+                     "eval_launches": in_eval("impact_ceiling_topk")},
          "frontier_launches": {
              key: frontier["launches"][key] for key in (
                  "impact_window_topk", "impact_index_topk")},
          "hot_window": {key: frontier["window"][key] for key in (
              keys + ("shape", "in_place_ms", "in_place_bound_ms",
-                     "digest"))}},
+                     "digest"))},
+         "at_xlmr": {"launches": {
+             where: x_launch[where]["impact_topk"]
+             for where in ("serve", "serve_engine")},
+             "ceiling": ceiling_row(serving["pruned"])}},
         {"name": "impact_q_topk (K5)", "route": "cuda",
          "source": "src/repro_torch/csrc/impact_topk.cu",
          "replaces": "src/repro/kernels/impact_score.py:120",
@@ -4258,19 +4486,28 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
          "eval_launches": in_eval("impact_q_topk"),
          "ckpt_launches": in_ckpt("impact_q_topk"),
          **{key: k5["B8"][key] for key in k45_keys},
-         "at_B64": {key: k5["B64"][key] for key in k45_keys}},
+         "at_B64": {key: k5["B64"][key] for key in k45_keys},
+         "at_xlmr": {
+             "launches": x_launch["serve_engine"]["impact_q_topk"],
+             **{key: serving["k5"]["B8"][key] for key in k45_keys},
+             "at_B64": {key: serving["k5"]["B64"][key]
+                        for key in k45_keys}}},
         {"name": "topk_score (K6)", "route": "cuda",
          "source": "src/repro_torch/csrc/topk_score.cu",
          "replaces": "src/repro/kernels/topk_score.py:57",
          "launches": dense_launches["topk_score"],
          "ckpt_launches": in_ckpt("topk_score"),
          **{key: k6["B8"][key] for key in k6_keys},
-         "at_B64": {key: k6["B64"][key] for key in k6_keys}},
+         "at_B64": {key: k6["B64"][key] for key in k6_keys},
+         "at_xlmr": {"launches": x_launch["serve_dense"]["topk_score"],
+                     **{key: serving["k6"]["B8"][key]
+                        for key in k6_keys}}},
     ]
 
 
-def ceiling_row(pruned, eval_launches):
-    """K4's ceiling entry in the kernels line (``kernel_rows``)."""
+def ceiling_row(pruned):
+    """K4's ceiling entry in the kernels line (``kernel_rows``): its
+    launches in a pruned phase and that phase's numbers."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "k4_ms", "k4_ms_topk", "digest")
     (first, row), *rest = pruned["timing"].items()
@@ -4279,7 +4516,7 @@ def ceiling_row(pruned, eval_launches):
             "replaces": "src/repro/retrieval/engine/pruning.py:72 "
                         "(upper_bound_scores + lax.top_k)",
             "launches": pruned["launches"]["impact_ceiling_topk"],
-            "eval_launches": eval_launches, "at": first,
+            "at": first,
             **{key: row[key] for key in keys},
             **{f"at_{name}": {key: r[key] for key in keys}
                for name, r in rest}}

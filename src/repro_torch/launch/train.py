@@ -53,7 +53,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import sys
-from itertools import islice
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
@@ -93,27 +92,21 @@ def placer(device: torch.device) -> Callable[[Batch], Batch]:
                       for k, v in b.items()}
 
 
-def train_steps(cfg: TransformerConfig, state: Dict, *, batch: int,
-                seq_len: int, lr: float, device: torch.device
-                ) -> Iterator[Tuple[Dict, float]]:
-    """Endless train steps from ``state`` on the batches of shard 0, fed
-    through a ``HostShardedLoader``: yields ``(state, loss)`` after each
-    step. Closing the generator closes the loader."""
-    step = build_lsr_train_step(cfg, lr=lr)
-    place = placer(device)
-    with pair_loader(cfg, batch=batch, seq_len=seq_len,
-                     device=device) as loader:
-        for b in loader:
-            state, metrics = step(state, place(b))
-            yield state, float(metrics["loss"])
-
-
-def train(cfg: TransformerConfig, state: Dict, *, steps: int, batch: int,
-          seq_len: int, lr: float, device: torch.device) -> List[float]:
-    """``steps`` train steps from ``state``; returns the loss of each."""
-    return [loss for _, loss in islice(
-        train_steps(cfg, state, batch=batch, seq_len=seq_len, lr=lr,
-                    device=device), steps)]
+def make_runner(cfg: TransformerConfig, state: Dict, batches: Iterator, *,
+                steps: int, lr: float, device: torch.device, ckpt_dir: str,
+                ckpt_every: int = 0,
+                on_step: Optional[Callable[[int, Dict], Optional[Dict]]]
+                = None) -> FaultTolerantRunner:
+    """The CLI's training loop: a ``FaultTolerantRunner`` over
+    ``build_lsr_train_step(cfg, lr=lr)`` from ``state`` up to step
+    ``steps``, on host ``batches`` placed on ``device``, each step's
+    metrics logged. It checkpoints into ``ckpt_dir`` every ``ckpt_every``
+    steps (0: never) and, as the JAX runner does, once at the end."""
+    return FaultTolerantRunner(
+        build_lsr_train_step(cfg, lr=lr), state, batches,
+        config=RunnerConfig(ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+                            max_steps=steps, log_every=1),
+        place_batch=placer(device), on_step=on_step)
 
 
 def held_out(cfg: TransformerConfig, n: int, *, q_len: int, d_len: int
@@ -243,12 +236,10 @@ def run(args: argparse.Namespace, device: torch.device) -> Dict:
 
     with pair_loader(cfg, batch=args.batch, seq_len=args.seq_len,
                      device=device) as loader:
-        runner = FaultTolerantRunner(
-            build_lsr_train_step(cfg, lr=args.lr), state, iter(loader),
-            config=RunnerConfig(ckpt_dir=args.ckpt_dir,
-                                ckpt_every=args.ckpt_every,
-                                max_steps=args.steps, log_every=1),
-            place_batch=placer(device),
+        runner = make_runner(
+            cfg, state, iter(loader), steps=args.steps, lr=args.lr,
+            device=device, ckpt_dir=args.ckpt_dir,
+            ckpt_every=args.ckpt_every,
             on_step=eval_hook if run_eval else None)
         if args.resume and runner.try_resume():
             print(f"resumed from step {runner.start_step}")
@@ -256,6 +247,7 @@ def run(args: argparse.Namespace, device: torch.device) -> Dict:
         init_metrics = run_eval(state) if run_eval else None
         if init_metrics:
             print("eval @ init: " + _metrics_line(init_metrics))
+        del state   # the runner holds the state it trains: no copy beside it
         state = runner.run()
     logged = [m for m in runner.metrics_log if "loss" in m]
     losses = [float(m["loss"]) for m in logged]

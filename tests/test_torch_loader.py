@@ -26,7 +26,8 @@ from repro.launch import steps as jax_steps
 from repro_torch.configs.splade_bert import SMOKE
 from repro_torch.data import synthetic
 from repro_torch.data.loader import HostShardedLoader, length_bucket
-from repro_torch.launch.train import config_from_args, parser, train
+from repro_torch.launch.train import (config_from_args, make_runner,
+                                     pair_loader, parser)
 from repro_torch.weights import state_from_jax
 
 
@@ -130,13 +131,20 @@ def _jax_first_loss(flags, tmp_path, capsys):
                            capsys.readouterr().out).group(1))
 
 
-def _port_first_loss(flags):
+def _port_first_loss(flags, ckpt_dir):
+    """The CLI's loop (its runner, on its loader) from the JAX CLI's
+    SMOKE state at ``flags``: the first step's loss."""
     state, _ = jax_steps.init_state("splade_bert", jax.random.PRNGKey(0),
                                     smoke=True)
     cfg = config_from_args(parser().parse_args(CLI + flags))
     state = state_from_jax(jax.tree.map(np.asarray, state), cfg, "cpu")
-    return train(cfg, state, steps=1, batch=2, seq_len=16, lr=2e-4,
-                 device=torch.device("cpu"))[0]
+    cpu = torch.device("cpu")
+    with pair_loader(cfg, batch=2, seq_len=16, device=cpu) as loader:
+        runner = make_runner(cfg, state, iter(loader), steps=1, lr=2e-4,
+                             device=cpu, ckpt_dir=str(ckpt_dir))
+        runner.run()
+    assert runner.errors == [] and runner.skipped_steps == []
+    return float(runner.metrics_log[0]["loss"])
 
 
 @pytest.mark.parametrize("flag", sorted(FLAGS))
@@ -145,5 +153,6 @@ def test_regularizer_flags_move_the_loss_as_the_jax_cli(flag, tmp_path,
     base = _jax_first_loss([], tmp_path / "base", capsys)
     want = _jax_first_loss(FLAGS[flag], tmp_path / "flag", capsys)
     assert abs(want - base) > 10 * 2e-2 * abs(want)
-    np.testing.assert_allclose(_port_first_loss(FLAGS[flag]), want,
+    np.testing.assert_allclose(_port_first_loss(FLAGS[flag],
+                                                tmp_path / "port"), want,
                                rtol=2e-2)

@@ -51,7 +51,7 @@ from repro.optim import schedules as jax_sched
 from repro_torch.configs.splade_bert import SMOKE
 from repro_torch.data import synthetic
 from repro_torch.launch import steps
-from repro_torch.launch.train import train
+from repro_torch.launch.train import make_runner, pair_loader
 from repro_torch.losses import contrastive as losses
 from repro_torch.optim import optimizers as opt
 from repro_torch.optim import schedules as sched
@@ -304,8 +304,13 @@ def test_train_cli_first_loss_matches_jax_cli(tmp_path, capsys):
                             capsys.readouterr().out).group(1))
     state = state_from_jax(jax.tree.map(np.asarray, _jax_state()), SMOKE,
                            "cpu")
-    got = train(SMOKE, state, steps=3, batch=2, seq_len=16, lr=2e-4,
-                device=torch.device("cpu"))
+    cpu = torch.device("cpu")
+    with pair_loader(SMOKE, batch=2, seq_len=16, device=cpu) as loader:
+        runner = make_runner(SMOKE, state, iter(loader), steps=3, lr=2e-4,
+                             device=cpu, ckpt_dir=str(tmp_path / "port"))
+        runner.run()
+    assert runner.errors == [] and runner.skipped_steps == []
+    got = [float(m["loss"]) for m in runner.metrics_log]
     assert len(got) == 3 and all(np.isfinite(got))
     np.testing.assert_allclose(got[0], first, rtol=2e-2)
 

@@ -14,7 +14,10 @@ Tolerances, those the BERT tests state:
 The full width runs only on the card (``chip_smoke.py``); here the K1,
 K2 and K3 wrappers take its shapes (V 250002, B 420, S 256) on meta
 tensors: every check passes up to the device check, and the scratch K2
-allocates there (its (v, g) lists, 840 MB) is sized exactly.
+allocates there (its (v, g) lists, 840 MB) is sized exactly. So do the
+serving kernels at its shapes: K6 on the dense serve's (16384, 250002)
+corpus, K5 reading the engine's quantized base in place and K4's
+ceiling entry on the pruned engine's base.
 """
 
 import dataclasses
@@ -36,7 +39,8 @@ from repro.launch import steps as jax_steps
 from repro.models import transformer as jtfm
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs import splade_xlmr as xlmr
-from repro_torch.kernels import sparton, sparton_bwd
+from repro_torch.kernels import impact_score, sparton, sparton_bwd
+from repro_torch.kernels import topk_score
 from repro_torch.launch import steps
 from repro_torch.models import transformer as tfm
 from repro_torch.tree import tree_leaves
@@ -244,3 +248,61 @@ def test_dh_scratch_at_train_420_has_no_overflow():
     assert heavy.numel() == 2 + 2 * B * S
     # B * S * V, the logits the kernels never write, passes 2**31
     assert B * S * V > 2**31
+
+
+# the xlmr serving phases' shapes: 8 served queries of 64 terms, the
+# engine's 19456-doc base of 64 terms a doc, the dense serve's corpus
+SERVE_B, SERVE_Q, BASE_DOCS, DENSE_DOCS = 8, 64, 19456, 16384
+
+
+def test_k6_takes_the_xlmr_dense_corpus_without_a_card():
+    """K6's wrapper at (8, 16384, 250002) passes its argument checks and
+    stops at the device check; a corpus of the wrong width stops at the
+    shape check. The corpus holds more than 2**31 elements (16.4 GB of
+    f32), which the kernel addresses with size_t row offsets."""
+    q = _meta((SERVE_B, FULL_V))
+    C = _meta((DENSE_DOCS, FULL_V))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        topk_score.topk_score(q, C, k=10)
+    with pytest.raises(ValueError, match=r"must be \(B, D\) and \(N, D\)"):
+        topk_score.topk_score(q, _meta((DENSE_DOCS, FULL_V - 1)), k=10)
+    assert C.numel() == 4_096_032_768 > 2**31
+    assert C.numel() * C.element_size() == 16_384_131_072
+
+
+def _queries():
+    return (_meta((SERVE_B, SERVE_Q), torch.int32),
+            _meta((SERVE_B, SERVE_Q)))
+
+
+def test_k5_takes_the_xlmr_quantized_base_without_a_card():
+    """K5 reading a quantized base in place at V 250002 (u16 lengths and
+    deltas, as the engine builds it there) passes its argument checks and
+    stops at the device check."""
+    P = BASE_DOCS * 64
+    base = (_meta((FULL_V,), torch.int32), _meta((FULL_V,), torch.uint16),
+            _meta(((P + 1) // 2,), torch.uint8), _meta((P,), torch.uint16),
+            _meta((FULL_V,), torch.float16), _meta((FULL_V,), torch.float16))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        impact_score.fused_quantized_index_topk(*_queries(), *base,
+                                                n_docs=BASE_DOCS, k=10)
+    short = base[:4] + (_meta((FULL_V - 1,), torch.float16),) + base[5:]
+    with pytest.raises(ValueError, match=r"must be \(V,\)"):
+        impact_score.fused_quantized_index_topk(*_queries(), *short,
+                                                n_docs=BASE_DOCS, k=10)
+
+
+@pytest.mark.parametrize("k", [65, 129, 257])
+def test_k4_ceiling_entry_takes_the_xlmr_base_without_a_card(k):
+    """K4's ceiling entry (tier 1 of ``pruned``) at V 250002 and the
+    pruned phase's k (C + 1 for C 64 and 128, and 257) passes its argument
+    checks and stops at the device check."""
+    P = BASE_DOCS * 64
+    base = (_meta((FULL_V,), torch.int32), _meta((FULL_V,), torch.int32),
+            _meta((P,), torch.int32), _meta((FULL_V,)))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        impact_score.fused_ceiling_index_topk(*_queries(), *base,
+                                              n_docs=BASE_DOCS, k=k)
+    with pytest.raises(ValueError, match="k must be >= 1"):
+        impact_score.fused_ceiling_index_topk(*_queries(), *base,
+                                              n_docs=BASE_DOCS, k=0)
