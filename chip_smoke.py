@@ -170,9 +170,30 @@ Phases, run in this order, each printing one JSON line:
              ``repro_torch.examples.train_splade``: 200 SMOKE steps, the
              loss falling, its in-batch acc@1.
 
+10. example_serve — ``repro_torch.examples.serve_retrieval`` (SMOKE
+             splade_bert, 512 docs, 24 queries, top 5) once for each of its
+             flag sets (none; --engine --quantize; --engine --prune-margin
+             0.0; --engine --cache-mb 4), every plain version guarded: its
+             own checks, K1 on every encode, K6 in its part 3b, K4's
+             ceiling entry under --prune-margin; the wall s, launches,
+             self-retrieval rate, served/shed/failed, cache stats and
+             whether every id check held without the near-tie rule.
+    example_quickstart — ``repro_torch.examples.quickstart`` (B 4, S 64,
+             D 128, V 30522, f32: K1's "f32" path), then
+             ``sparton_forward_with_indices`` against K1 and K1 against
+             its plain version on its inputs.
+    streaming — ``launch.steps.streaming_topk`` (tile 65536) against K6
+             (through ``retrieve``, ``auto`` -> streaming) at the JAX
+             package's retrieval_cand shape, C (1000448, 128) f32, k 100,
+             B 1, 8 and 64 (K6's FMA and 3xTF32 paths): values within
+             K6_TOL, ids equal but at near ties; K6 timed with its plain
+             version, ``torch.topk(q @ C.T)`` and its bound, beside
+             ``streaming_topk``'s ms, with the peak MB of all three, and
+             a torch.profiler trace of ``streaming_topk``.
+
 Every K1 launch of the serve, dense-serve, engine, pruned, frontier, train,
-eval (b), xlmr (its serving phases too) and ckpt phases must take the "tma"
-path. Then a
+eval (b), xlmr (its serving phases too), ckpt and example_serve phases must
+take the "tma" path. Then a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any mismatch, exception or missing launch exits non-zero before that last
 line. The script imports nothing of JAX nor of the JAX package.
@@ -4372,9 +4393,217 @@ def phase_ckpt(torch):
             "k1_paths": {"ckpt_first": paths_a, "ckpt_resumed": paths_c}}
 
 
+# --------------------------------------------------------------------------
+# 10. the paper path's examples, and streaming_topk at full width
+# --------------------------------------------------------------------------
+
+# the four flag sets of repro_torch.examples.serve_retrieval's docstring
+EXAMPLE_SERVE = {
+    "frozen": [],
+    "engine_quantize": ["--engine", "--quantize"],
+    "engine_prune": ["--engine", "--prune-margin", "0.0"],
+    "engine_cache": ["--engine", "--cache-mb", "4"],
+}
+# the JAX package's retrieval_cand shape (build_retrieval_step): 1,000,000
+# candidates padded to 1,000,448 (configs/base.py:254-255,
+# configs/specs.py:206-211), embed_dim 128 (DLRM MLPerf,
+# configs/dlrm_mlperf.py:24), k 100, at batches 1, 8 (K6's f32 FMA path)
+# and 64 (its 3xTF32 wgmma path)
+STREAMING = {"N": 1000448, "D": 128, "k": 100, "B": (1, 8, 64),
+             "tile": 65536, "reps": 20}
+
+
+def phase_example_serve(torch):
+    """``repro_torch.examples.serve_retrieval.run`` on the card, once for
+    each flag set of its docstring, every plain version guarded: its own
+    checks (exact ids, or on the card ids that differ only at near ties,
+    printed), K1 on every encode ("tma"), K6 once (part 3b), K4's ceiling
+    entry under ``--prune-margin``; K4 and K5 are counted, not required
+    (``auto`` takes the plain ``impact``/``quantized`` methods at 480
+    docs, and the hot scorer declines them)."""
+    import io
+
+    from repro_torch.examples import serve_retrieval
+    from repro_torch.kernels import topk_score as k6
+
+    k1, _, _ = head_and_impact_modules()
+    out = {}
+    for name, flags in EXAMPLE_SERVE.items():
+        reset_launches()
+        printed = io.StringIO()
+        with plain_guard(**eval_plains(), k6=(k6, "topk_score_plain")
+                         ) as plain_on_cuda, \
+                contextlib.redirect_stdout(printed):
+            t0 = time.perf_counter()
+            res = serve_retrieval.run(
+                serve_retrieval.parser().parse_args(flags),
+                torch.device("cuda"))
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        launches = read_launches()
+        k1_paths = k1_on_tma(k1, f"example_serve {name}")
+        require(not plain_on_cuda, f"example_serve {name}: plain versions "
+                                   f"ran on CUDA tensors: "
+                                   f"{sorted(set(plain_on_cuda))}")
+        require(launches["topk_score"] == 1,
+                f"example_serve {name}: K6 launched "
+                f"{launches['topk_score']} times, expected 1 (part 3b)")
+        if "--prune-margin" in flags:
+            require(launches["impact_ceiling_topk"] >= 1,
+                    f"example_serve {name}: K4's ceiling entry never "
+                    f"launched under --prune-margin")
+        st = res["serving"]
+        row = {"flags": " ".join(flags), "wall_s": wall_s,
+               "launches": launches, "k1_paths": k1_paths,
+               "self_retrieval": res["hits"],
+               "served": st["served"], "shed": st["shed"],
+               "failed": st["failed"],
+               "exact_ids": res["exact_ids"],
+               "exact_without_near_tie_rule": all(res["exact_ids"].values()),
+               "printed": printed.getvalue().splitlines()}
+        if "engine" in res:
+            row["engine_stats"] = res["engine"]["stats"]
+            if "cache_stats" in res["engine"]:
+                cs = res["engine"]["cache_stats"]
+                row["cache"] = {"results": cs["results"],
+                                "hot": cs["hot"]}
+        emit("example_serve", name=name, **row)
+        out[name] = row
+    return {"launches": {name: row["launches"] for name, row in out.items()},
+            "k1_paths": {name: row["k1_paths"] for name, row in out.items()}}
+
+
+def phase_example_quickstart(torch):
+    """``repro_torch.examples.quickstart.run`` on the card (f32 inputs: K1's
+    "f32" path, for the kernel head and ``sparton_forward_with_indices``),
+    at least one K1 launch; then ``sparton_forward_with_indices`` on its
+    inputs against K1 launched directly (the same bits) and K1 against its
+    plain version by ``k1_compare``'s rule."""
+    import io
+
+    from repro_torch.core.lm_head import sparton_forward_with_indices
+    from repro_torch.examples import quickstart
+
+    k1, _, _ = head_and_impact_modules()
+    reset_launches()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        t0 = time.perf_counter()
+        res = quickstart.run(quickstart.parser().parse_args([]),
+                             torch.device("cuda"))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    paths = dict(k1.sparton_forward.path_launches)
+    require(launches["sparton_fwd"] >= 1, "example_quickstart: K1 never "
+                                          "launched")
+    require(res["grads_finite"], "example_quickstart: non-finite gradients")
+    H, E, b, mask = res.pop("inputs")
+    y_w, i_w = sparton_forward_with_indices(H, E, b, mask)
+    y_k, i_k = k1.sparton_forward(H, E, b, mask)
+    same = bool(torch.equal(y_w, y_k.to(H.dtype)) and torch.equal(i_w, i_k))
+    require(same, "example_quickstart: sparton_forward_with_indices differs "
+                  "from K1 on the same inputs")
+    case = k1_compare(torch, H, E, b, mask, None)
+    require(case["imax_hard"] == 0 and case["bit_identical"],
+            f"example_quickstart: K1 against its plain version: {case}")
+    emit("example_quickstart", wall_s=wall_s, launches=launches,
+         k1_paths=paths, **res, with_indices_equals_k1=same,
+         with_indices_vs_plain=case,
+         printed=printed.getvalue().splitlines())
+    return {"launches": launches, "k1_paths": paths}
+
+
+def stream_compare(torch, q, C, got, want):
+    """``streaming_topk``'s result against K6's by ``k6_compare``'s rule:
+    values within K6_TOL of 1 + |value|, and no id differing beyond a near
+    tie (``ids_beyond_near_ties``: SCORE_TOL is K6_TOL's 1e-4)."""
+    (v_s, i_s), (v_k, i_k) = got, want
+    err = (v_s - v_k).abs()
+    hard, differ = ids_beyond_near_ties(torch, q @ C.T, i_s, i_k)
+    return {"max_abs_err": float(err.max()),
+            "max_rel_err": float((err / (1 + v_k.abs())).max()),
+            "id_mismatch": differ, "id_hard": hard,
+            "within_tol": bool((err <= K6_TOL * (1 + v_k.abs())).all())
+            and hard == 0}
+
+
+def per_call_ms(torch, fn, n):
+    """A ``run`` for ``traced``: ``n`` calls of ``fn``, then a
+    synchronise; returns the host ms a call."""
+    def run():
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+    return run
+
+
+def phase_streaming(torch):
+    """``launch.steps.streaming_topk`` and K6 at the JAX package's
+    retrieval_cand shape (``STREAMING``): C (1000448, 128) f32 from a
+    seeded generator, k 100, B 1, 8 and 64. K6 is driven through
+    ``retrieve`` (``auto`` resolving to ``streaming`` on the dense
+    corpus), once for each B, its launches counted; ``streaming_topk``
+    (tile 65536) is held against that result by ``k6_compare``'s rule;
+    then ``time_k6`` (K6, its plain version, ``torch.topk(q @ C.T)``, the
+    bound, the peak MB of kernel and library) and ``streaming_topk``'s
+    CUDA-event ms and peak MB; then 5 calls of ``streaming_topk`` under
+    torch.profiler (``traced``: device ms by kernel, busy share against
+    its CUDA-event ms). One line for each B."""
+    from repro_torch.kernels import topk_score as k6
+    from repro_torch.launch.steps import streaming_topk
+    from repro_torch.retrieval.score import resolve_method, retrieve
+
+    N, D, k, tile, reps = (STREAMING[key]
+                           for key in ("N", "D", "k", "tile", "reps"))
+    g = torch.Generator(device="cuda").manual_seed(27)
+    C = torch.randn((N, D), generator=g, device="cuda")
+    queries = {B: torch.randn((B, D), generator=g, device="cuda")
+               for B in STREAMING["B"]}
+    require(resolve_method("auto", C) == "streaming",
+            "retrieval_cand: auto does not resolve to streaming")
+    reset_launches()
+    with plain_guard(k6=(k6, "topk_score_plain")) as plain_on_cuda:
+        results = {B: retrieve(q, C, k) for B, q in queries.items()}
+    launches = read_launches()
+    require(not plain_on_cuda, "streaming: K6's plain version ran on a "
+                               "CUDA tensor")
+    require(launches["topk_score"] == len(queries),
+            f"streaming: K6 launched {launches['topk_score']} times for "
+            f"{len(queries)} retrieves")
+    rows = {}
+    for B, q in queries.items():
+        got = streaming_topk(q, C, k=k, tile=tile)
+        case = stream_compare(torch, q, C, got, results[B])
+        require(case["within_tol"], f"streaming at B {B}: streaming_topk "
+                                    f"against K6: {case}")
+        del got
+        row = time_k6(torch, q, C, k, reps=reps)
+        row["k6_path"] = ("stream_kernel" if B <= k6.stream_rows()
+                          else "wg_kernel")
+        row["stream_vs_k6"] = case
+        row["stream_ms"], row["stream_ms_range"] = timed(
+            torch, lambda: streaming_topk(q, C, k=k, tile=tile), reps)
+        row["stream_peak_mb"] = peak_mb(
+            torch, lambda: streaming_topk(q, C, k=k, tile=tile))
+        # K6 is left out: torch.profiler records no kernel launched
+        # through the ctypes libraries (its trace reads "not measured")
+        row["stream_trace"] = traced(
+            torch, per_call_ms(torch, lambda: streaming_topk(
+                q, C, k=k, tile=tile), 5), row["stream_ms"], 5)
+        row["c_mb"] = C.nbytes / 2**20
+        emit("streaming", B=B, tile=tile, launches=launches, **row)
+        rows[f"B{B}"] = row
+    del C, queries, results
+    torch.cuda.empty_cache()
+    return {"launches": launches, "rows": rows}
+
+
 def kernel_rows(measured, launches, dense_launches, engine_launches,
                 train_launches, k1_paths, xlmr, eval_launches, ckpt_launches,
-                pruned, frontier):
+                pruned, frontier, examples):
     """The ``{"kernels": [...]}`` line: each kernel's launches on its path
     and its numbers from the timing phase (K1 at an index batch, K2/K3 at
     the train shape, K4, K5 and K6 at the served queries; K1 also at the
@@ -4399,7 +4628,12 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
     launches in the serve_frontier phase (``frontier_launches``; K4's by
     entry), and K4's its window entry's numbers at the hot windows' shape
     there (``hot_window``: ``in_place_ms`` K4 in place on the same
-    queries)."""
+    queries). Every row also holds its launches in the example_serve
+    phase (a count for each flag set; K4's ceiling entry apart),
+    the example_quickstart phase and the streaming phase
+    (``examples``), and K6's row its numbers at the retrieval_cand shape
+    for B 1, 8 and 64 (``at_retrieval_cand``, ``stream_ms`` that of
+    ``launch.steps.streaming_topk``)."""
     main_k1, bwd, k4, k5, k6 = (measured[key]
                                 for key in ("k1", "bwd", "k4", "k5", "k6"))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -4428,7 +4662,7 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
     def in_ckpt(key):
         return {run: n[key] for run, n in ckpt_launches.items()}
 
-    return [
+    rows = [
         {"name": "sparton_fwd (K1)", "route": "cuda",
          "source": "src/repro_torch/csrc/sparton_fwd.cu",
          "replaces": "src/repro/kernels/sparton.py:52",
@@ -4503,6 +4737,22 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
                      **{key: serving["k6"]["B8"][key]
                         for key in k6_keys}}},
     ]
+    counters = ("sparton_fwd", "sparton_bwd_dh", "sparton_bwd_de",
+                "impact_topk", "impact_q_topk", "topk_score")
+    for row, key in zip(rows, counters, strict=True):
+        row["example_serve_launches"] = {
+            name: n[key] for name, n in examples["serve"].items()}
+        row["example_quickstart_launches"] = examples["quickstart"][key]
+        row["streaming_launches"] = examples["streaming"]["launches"][key]
+    rows[3]["ceiling"]["example_serve_launches"] = {
+        name: n["impact_ceiling_topk"]
+        for name, n in examples["serve"].items()}
+    rows[5]["at_retrieval_cand"] = {
+        name: {key: r[key] for key in k6_keys + (
+            "shape", "k6_path", "peak_mb", "library_peak_mb", "stream_ms",
+            "stream_peak_mb")}
+        for name, r in examples["streaming"]["rows"].items()}
+    return rows
 
 
 def ceiling_row(pruned):
@@ -4570,10 +4820,18 @@ def main() -> int:
                      for where, paths in xlmr["k1_paths"].items()})
     ckpt = phase_ckpt(torch)
     k1_paths.update(ckpt["k1_paths"])
+    example_serve = phase_example_serve(torch)
+    k1_paths.update({f"example_serve_{name}": paths for name, paths
+                     in example_serve["k1_paths"].items()})
+    quick = phase_example_quickstart(torch)
+    k1_paths["example_quickstart"] = quick["k1_paths"]
+    examples = {"serve": example_serve["launches"],
+                "quickstart": quick["launches"],
+                "streaming": phase_streaming(torch)}
     print(json.dumps({"kernels": kernel_rows(
         measured, served["launches"], dense_launches, engine_launches,
         trained["launches"], k1_paths, xlmr, evaluated["launches"],
-        ckpt["launches"], served_pruned, frontier)}), flush=True)
+        ckpt["launches"], served_pruned, frontier, examples)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -9,6 +9,8 @@ one factory.
   ``H``, ``E`` and ``b``.
 * ``make_head(spec)``    — ``head(H, E, b=None, mask=None) -> Y``.
 * ``make_encoder(spec)`` — the head plus the spec's rep sparsifier.
+* ``normalize_softcap_kwarg`` — folds the deprecated ``softcap=`` into
+  ``logit_softcap``.
 
 The JAX factory's ``mesh=`` (the vocab-sharded head) waits for the
 multi-GPU slice.
@@ -17,6 +19,7 @@ multi-GPU slice.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -83,6 +86,27 @@ def get_head_impl(name: str) -> HeadFn:
         raise ValueError(
             f"unknown head impl {name!r}; one of {list(available_impls())}"
         ) from None
+
+
+def normalize_softcap_kwarg(
+    logit_softcap: Optional[float],
+    softcap: Optional[float],
+    where: str,
+) -> Optional[float]:
+    """Fold the deprecated ``softcap=`` spelling into ``logit_softcap``:
+    a ``DeprecationWarning`` when it is given, a ``ValueError`` when both
+    are given and differ."""
+    if softcap is None:
+        return logit_softcap
+    warnings.warn(
+        f"{where}: the 'softcap' kwarg is deprecated; use "
+        "'logit_softcap' (one normalized name across every head "
+        "surface)", DeprecationWarning, stacklevel=3)
+    if logit_softcap is not None and logit_softcap != softcap:
+        raise ValueError(
+            f"{where}: conflicting logit_softcap={logit_softcap!r} and "
+            f"deprecated softcap={softcap!r}")
+    return softcap
 
 
 def _out_dtype(H: torch.Tensor, spec: HeadSpec) -> torch.dtype:

@@ -15,10 +15,14 @@ flavours of the paper's experiments:
   a gather of ``H[b, i_max]`` for ``dE`` (the plain versions of K2 and
   K3).
 
-The kernel-backed head is ``repro_torch.kernels.ops.sparton_head``. The
-masking argument of the JAX module holds here too: ``f`` is monotone
-with ``f(0) = 0``, so excluding masked positions before the max equals
-Eq. 1's multiplicative mask.
+``sparton_forward_with_indices`` is the inference forward that also
+returns the argmax positions (K1 on the card). ``lm_head(..., impl=)``
+dispatches through the head API's registry (``core/head_api``), so
+``impl="kernel"`` reaches the kernel-backed head,
+``repro_torch.kernels.ops.sparton_head``; ``IMPLEMENTATIONS`` is the
+JAX package's table of the plain rungs. The masking argument of the JAX
+module holds here too: ``f`` is monotone with ``f(0) = 0``, so excluding
+masked positions before the max equals Eq. 1's multiplicative mask.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.ops import with_defaults
-from repro_torch.kernels.sparton import sparton_forward_plain
+from repro_torch.kernels.sparton import (sparton_forward,
+                                         sparton_forward_plain)
 from repro_torch.kernels.sparton_bwd import (sparton_backward_de_plain,
                                              sparton_backward_dh_plain)
 
@@ -110,3 +115,54 @@ def lm_head_sparton(
     b, mask = with_defaults(H, E, b, mask)
     return _SpartonCore.apply(H, E, b, mask, vocab_tile, logit_softcap,
                               bwd_batch_chunk)
+
+
+def sparton_forward_with_indices(
+    H: torch.Tensor,
+    E: torch.Tensor,
+    b: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None,
+    *,
+    vocab_tile: int = 4096,
+    logit_softcap: Optional[float] = None,
+):
+    """Inference forward that also returns the argmax positions: ``(y
+    (B, V) in H's dtype, i_max (B, V) i32)``, ``i_max[b, v]`` the first
+    position whose logit is the max (which token activated each vocab
+    dimension). On the card it runs K1 (``kernels/sparton``: H and E
+    both f32 or both bf16, contiguous); CPU tensors take its plain
+    version over vocab tiles of ``vocab_tile``."""
+    b, mask = with_defaults(H, E, b, mask)
+    if H.device.type == "cpu":
+        y, i_max = sparton_forward_plain(H, E, b, mask, logit_softcap,
+                                         vocab_tile=vocab_tile)
+    else:
+        y, i_max = sparton_forward(H, E, b, mask, softcap=logit_softcap)
+    return y.to(H.dtype), i_max
+
+
+# The JAX package's table of the plain rungs. The registry of every
+# backend, ``kernel`` and any registered at run time included, is
+# ``repro_torch.core.head_api.available_impls()``.
+IMPLEMENTATIONS = {
+    "naive": lm_head_naive,
+    "tiled": lm_head_tiled,
+    "sparton": lm_head_sparton,
+}
+
+
+def lm_head(H, E, b=None, mask=None, *, impl="sparton", softcap=None, **kw):
+    """The head by registry name, as the JAX package's ``lm_head`` shim:
+    ``impl="kernel"`` (and any backend registered at run time) works too,
+    an unknown name lists the registry. Keyword arguments are
+    ``HeadSpec`` fields; ``softcap=`` is the deprecated spelling of
+    ``logit_softcap``. New code calls ``make_head(HeadSpec(...))``."""
+    from repro_torch.core.head_api import (HeadSpec, get_head_impl,
+                                           normalize_softcap_kwarg)
+
+    kw["logit_softcap"] = normalize_softcap_kwarg(
+        kw.get("logit_softcap"), softcap, "lm_head")
+    spec = HeadSpec(impl=impl, **kw)
+    fn = get_head_impl(impl)
+    b, mask = with_defaults(H, E, b, mask)
+    return fn(H, E, b, mask, spec=spec)

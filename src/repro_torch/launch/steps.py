@@ -1,4 +1,5 @@
-"""The LSR train step (``repro/launch/steps.py``, unsharded).
+"""The LSR train step and the streaming top-k (``repro/launch/steps.py``,
+unsharded).
 
 ``build_lsr_train_step(cfg, ...)`` returns ``step(state, batch) ->
 (state, {"loss": ...})``: the encoder trunk and the config's Sparton head
@@ -6,19 +7,26 @@ on the query and the document tokens, the SPLADE loss, its gradients
 (through K2 and K3 for ``head_impl="kernel"``, the default), averaged over
 ``n_micro`` chunks, then AdamW on the f32 master params. The state is
 ``{"params", "opt": {"mu", "nu"}, "step"}``, as the JAX package's.
-The vocab-sharded step waits for the multi-GPU slice; the MarginMSE
-term waits for a distillation data source and the MoE aux loss for an
-MoE trunk.
+``streaming_topk`` is the JAX package's tile-by-tile top-k over a dense
+candidate matrix, the counterpart of K6 built from plain PyTorch.
+
+Still to come: the vocab-sharded step and ``streaming_topk``'s
+``vary_axes`` (multi-GPU, ROADMAP Queue 1 item 10), the recsys train and
+serve steps with ``build_retrieval_step`` and the prefill and decode
+steps (models this port does not hold yet); the MarginMSE term waits for
+a distillation data source and the MoE aux loss for an MoE trunk.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import TransformerConfig
+from repro_torch.kernels._common import NEG_INF
+from repro_torch.kernels.topk_score import merge_topk
 from repro_torch.losses.contrastive import splade_loss
 from repro_torch.models import transformer as tfm
 from repro_torch.optim.accumulation import microbatch_grads
@@ -91,3 +99,41 @@ def init_state(arch_id: str, generator: torch.Generator, *,
     cfg = mod.SMOKE if smoke else mod.CONFIG
     params = tfm.init_params(generator, cfg)
     return {"params": params, "opt": adamw(1e-4).init(params), "step": 0}
+
+
+def streaming_topk(q: torch.Tensor, C: torch.Tensor, *, k: int,
+                   tile: int = 65536,
+                   vary_axes: Optional[Tuple[str, ...]] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of ``q @ C^T`` one candidate tile at a time: ``(vals (B, k)
+    f32, idx (B, k) i32)``, never the whole ``(B, N)`` score matrix.
+
+    Each ``(B, tile)`` slice of scores is folded into the running top-k
+    with ``merge_topk``, tiles in ascending order, so ties go to the
+    lowest id; when ``k > N`` the tail holds ``(NEG_INF, 0)``, the initial
+    carry. C is read in place: the last tile is short rather than padded,
+    and only the tile in hand is cast to f32 (bf16 inputs give f32
+    results). The products are f32 under the caller's matmul precision
+    (on the card, cuBLAS f32 only while TF32 is off). It runs on the
+    device of ``q`` and ``C``. ``vary_axes`` marks the carry of a
+    ``shard_map`` over sharded candidates in the JAX package; sharded
+    candidates arrive with multi-GPU and it raises until then.
+    """
+    if vary_axes is not None:
+        raise NotImplementedError(
+            "streaming_topk: vary_axes (a shard_map over sharded "
+            "candidates) is not ported yet: it arrives with multi-GPU, "
+            "ROADMAP Queue 1 item 10")
+    if tile < 1:
+        raise ValueError(f"streaming_topk: tile must be >= 1, got {tile}")
+    B = q.shape[0]
+    N = C.shape[0]
+    vals = torch.full((B, k), NEG_INF, dtype=torch.float32, device=q.device)
+    idx = torch.zeros((B, k), dtype=torch.int32, device=q.device)
+    qf = q.float()
+    lanes = torch.arange(tile, dtype=torch.int32, device=q.device)
+    for lo in range(0, N, tile):
+        c = C[lo:lo + tile].float()
+        ids = (lanes[:c.shape[0]] + lo).expand(B, -1)
+        vals, idx = merge_topk(vals, idx, qf @ c.T, ids, k)
+    return vals, idx
