@@ -191,9 +191,30 @@ Phases, run in this order, each printing one JSON line:
              ``streaming_topk``'s ms, with the peak MB of all three, and
              a torch.profiler trace of ``streaming_topk``.
 
+11. decoder — the dense decoders' serving paths at full width, bf16,
+             seeded random weights, the kernel head: llama3.2-3b (28
+             layers, D 3072, V 128256) through the serve phase's path
+             (16384 docs, 64 requests, ``auto`` -> K4 in place), the LSR
+             prefill (``launch.steps.build_lsr_prefill_step``) at B 1 x
+             32768 with K1 held against its plain version on the trunk's
+             H, KV-cache decode (B 4, 64 positions) against
+             ``causal_lm_logits`` at f32 compute (DECODE_TOL; the bf16
+             difference printed) and one decode step timed at the
+             decode_32k cache (B 4 x 32768, 15.0 GB); then gemma2-27b at
+             full width and 4 layers (D 4608, V 256000, window 4096 on
+             the even layers, softcaps 50 and 30): the prefill at B 2 x
+             8192 (K1 with softcap 30.0 against its plain version) and
+             decode from position 0 to 4159 against ``causal_lm_logits``
+             at 4096-4159, where the window cuts (f32 only). Then K1 timed at the
+             serve batch (64 x 16), llama's (1, 32768) and (2, 32768) and
+             gemma2's (2, 8192), each beside its bound, its plain version,
+             the one-call yardstick and the paper's baseline head
+             (``naive``, where three f32 copies of its logits fit), with
+             peak memory.
+
 Every K1 launch of the serve, dense-serve, engine, pruned, frontier, train,
-eval (b), xlmr (its serving phases too), ckpt and example_serve phases must
-take the "tma" path. Then a
+eval (b), xlmr (its serving phases too), ckpt, example_serve and decoder
+phases must take the "tma" path. Then a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any mismatch, exception or missing launch exits non-zero before that last
 line. The script imports nothing of JAX nor of the JAX package.
@@ -2988,11 +3009,14 @@ def k1_bound_ms(B, S, D, V, itemsize, kept):
                                        else "bytes")
 
 
-def k1_library(torch, H, E, b, mask):
-    """The paper's PyTorch baseline: matmul, +b, relu, log1p, mask,
-    amax over S (in place where it can be, to fit the Table-1 logits)."""
+def k1_library(torch, H, E, b, mask, softcap=None):
+    """The paper's PyTorch baseline: matmul, +b, the softcap if any, relu,
+    log1p, mask, amax over S (in place where it can be, to fit the
+    Table-1 logits)."""
     z = torch.matmul(H, E.t())
     z += b.to(z.dtype)
+    if softcap is not None:
+        z.div_(softcap).tanh_().mul_(softcap)
     z.relu_()
     z.log1p_()
     z *= mask[:, :, None].to(z.dtype)
@@ -4601,9 +4625,357 @@ def phase_streaming(torch):
     return {"launches": launches, "rows": rows}
 
 
+# --------------------------------------------------------------------------
+# 11. decoder: the dense decoders' serving paths at full width
+# --------------------------------------------------------------------------
+
+# (B, S) of build_lsr_prefill_step: llama at the JAX prefill_32k length,
+# its batch of 32 cut to one card's share; gemma2 past its 4096 window
+DECODER_PREFILL = {"llama": (1, 32768), "gemma2": (2, 8192)}
+# gemma2-27b at full width, its depth cut to two local/global periods (the
+# published 46 layers would hold 55.1 GB of bf16 weights)
+GEMMA2_LAYERS = 4
+# decode against causal_lm_logits: (B, positions decoded, the first
+# compared, compute dtypes); llama at every position of a 64-token prompt
+# at f32 (gated) and bf16 (printed), gemma2 from position 0 to 4159 at
+# f32, compared where the local layers' window cuts (its 4160 host-bound
+# steps at bf16 would add ~40 s to the phase)
+DECODE_VS_FULL = {"llama": (4, 64, 0, ("float32", "bfloat16")),
+                  "gemma2": (1, 4160, 4096, ("float32",))}
+# one decode_step timed at the decode_32k cache: llama, B 4 x 32768
+DECODE_32K = (4, 32768)
+# Decode against the full forward, both at f32 compute on the same bf16
+# weights up-cast once (TF32 off): the same function, its f32 sums over
+# D 3072-4608 and d_ff 8192-36864 in another order (the decode step's
+# matmuls have B rows, the full forward's B x S; the full forward walks
+# the keys in chunks of 2048 with an online softmax, decode takes one
+# softmax), through 28 layers. Each such sum carries a relative error of
+# ~1e-6; 28 layers of 7 matmuls give ~2e-4 of a logit of magnitude ~1-5,
+# and 1e-3 (absolute and relative) leaves 5x room, while a key written at
+# the wrong position or a window off by one moves logits by O(0.1-1).
+# The JAX package's test holds the same comparison to 1e-5 at f32 on its
+# 2-layer SMOKE configs. The bf16 difference is printed, not gated.
+DECODE_TOL = 1e-3
+# K1 timed at llama's serve batch (the index batch: 64 docs x 16 tokens)
+# and prefill lengths, and at gemma2's prefill: (name, config, B, S)
+DECODER_K1_TIMING = [("serve_batch", "llama", 64, 16),
+                     ("llama_1x32768", "llama", 1, 32768),
+                     ("llama_2x32768", "llama", 2, 32768),
+                     ("gemma2_2x8192", "gemma2", 2, 8192)]
+
+
+def once(torch, fn):
+    """One call: its device ms (CUDA events), the device memory it
+    allocates at its peak above what was live, in MB, and its result."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return (start.elapsed_time(end),
+            (torch.cuda.max_memory_allocated() - base) / 2**20, out)
+
+
+def decoder_prefill(torch, cfg, params, where):
+    """``build_lsr_prefill_step`` at ``DECODER_PREFILL[where]`` on seeded
+    tokens, every position valid: one call, its host ms (synchronised),
+    K1's launches in it (one, on "tma", no plain version on the card),
+    then K1 held against its plain version on the trunk's H captured from
+    that call (``k1_compare``: y within K1_TOL, i_max equal but at near
+    ties, two launches the same bits), and the prefill's y (in H's dtype,
+    bf16, as the head returns it) equal to a K1 launch on that H cast to
+    it, bit for bit."""
+    from repro_torch.kernels import sparton as k1
+    from repro_torch.launch.steps import build_lsr_prefill_step
+    from repro_torch.models import transformer as tfm
+
+    B, S = DECODER_PREFILL[where]
+    g = torch.Generator(device="cuda").manual_seed(31)
+    tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=g,
+                           device="cuda", dtype=torch.int32)
+    mask = torch.ones((B, S), dtype=torch.int32, device="cuda")
+    step = build_lsr_prefill_step(cfg, None, n_batch=B)
+    hidden = []
+
+    def keep(name, fn):
+        def wrapped(*a, **kw):
+            hidden.append(fn(*a, **kw))
+            return hidden[-1]
+        return wrapped
+
+    reset_launches()
+    with plain_guard(k1=(k1, "sparton_forward_plain")) as plain_on_cuda, \
+            patched(keep, forward_hidden=(tfm, "forward_hidden")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = step(params, {"tokens": tokens, "mask": mask})
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = read_launches()
+    paths = k1_on_tma(k1, f"decoder_prefill_{where}")
+    require(launches["sparton_fwd"] == 1 and not plain_on_cuda,
+            f"{where} prefill: K1 launches {launches}, plain versions on "
+            f"the card {plain_on_cuda}")
+    require(y.shape == (B, cfg.vocab_size) and y.dtype == torch.bfloat16
+            and bool(torch.isfinite(y).all()) and bool((y >= 0).all()),
+            f"{where} prefill: y {tuple(y.shape)} {y.dtype}, not finite "
+            f"and >= 0")
+    (H,) = hidden
+    require(H.shape == (B, S, cfg.d_model) and H.dtype == torch.bfloat16,
+            f"{where} prefill: H {tuple(H.shape)} {H.dtype}")
+    E, b = tfm.head_weights(params, cfg)
+    E = E.to(H.dtype)
+    cap = cfg.final_logit_softcap
+    case = k1_compare(torch, H, E, b, mask, cap)
+    require(case["path"] == "tma" and case["imax_hard"] == 0
+            and case["bit_identical"],
+            f"{where} prefill: K1 against its plain version at "
+            f"{tuple(H.shape)}, softcap {cap}: {case}")
+    same = torch.equal(
+        y, k1.sparton_forward(H, E, b, mask, softcap=cap)[0].to(y.dtype))
+    require(same, f"{where} prefill: its y differs from K1 on its H")
+    out = {"shape": [B, S, cfg.d_model, cfg.vocab_size], "softcap": cap,
+           "ms": 1e3 * seconds, "launches": launches, "k1_paths": paths,
+           "k1_vs_plain": case, "y_equals_k1_on_h": same,
+           "y_nonzero_per_row": (y > 0).sum(dim=1).tolist()}
+    del H, hidden, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_vs_full(torch, cfg, params, where):
+    """``build_decode_step`` from an empty cache over ``DECODE_VS_FULL
+    [where]`` positions of seeded tokens against ``causal_lm_logits`` on
+    the same tokens, at f32 compute (weights up-cast once by
+    ``compute_weights``; gated at DECODE_TOL), then, where listed, at the
+    config's bf16 (printed). Each step's host ms; no custom kernel is on this path (the
+    decoder's LM head is a plain matmul, as in the JAX package)."""
+    import dataclasses
+
+    from repro_torch.launch.steps import build_decode_step
+    from repro_torch.models import transformer as tfm
+
+    B, S, first, dtypes = DECODE_VS_FULL[where]
+    g = torch.Generator(device="cuda").manual_seed(37)
+    tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=g,
+                           device="cuda", dtype=torch.int32)
+    out = {"batch": B, "positions": S, "compared_from": first}
+    reset_launches()
+    for dtype in dtypes:
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        weights = tfm.compute_weights(params, c)
+        with torch.no_grad():
+            full = tfm.causal_lm_logits(weights, c, tokens)[:, first:].clone()
+        torch.cuda.empty_cache()
+        cache = tfm.init_kv_cache(c, B, S, device="cuda")
+        step = build_decode_step(c)
+        worst = torch.zeros((), device="cuda")     # |d| - tol * (1 + |ref|)
+        max_abs = torch.zeros((), device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(S):
+            logits, _, _ = step(weights, {
+                "tokens": tokens[:, s:s + 1],
+                "positions": torch.full((B,), s, dtype=torch.int32,
+                                        device="cuda"),
+                "cache_k": cache["k"], "cache_v": cache["v"]})
+            if s >= first:
+                ref = full[:, s - first]
+                d = (logits - ref).abs()
+                max_abs = torch.maximum(max_abs, d.max())
+                worst = torch.maximum(worst, (
+                    d - DECODE_TOL * (1 + ref.abs())).max())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        out[dtype] = {"max_abs_diff": float(max_abs),
+                      "step_ms_mean": 1e3 * seconds / S,
+                      "logit_abs_max": float(full.abs().max())}
+        if dtype == "float32":
+            out[dtype]["within_tol"] = (float(worst) <= 0 and bool(
+                torch.isfinite(logits).all()))
+        del weights, full, cache, logits
+        torch.cuda.empty_cache()
+    out["launches"] = read_launches()
+    require(out["float32"]["within_tol"],
+            f"{where}: decode differs from causal_lm_logits at f32 by "
+            f"{out['float32']['max_abs_diff']} (tolerance {DECODE_TOL} "
+            f"x (1 + |logit|))")
+    require(all(n == 0 for n in out["launches"].values()),
+            f"{where}: decode launched {out['launches']}")
+    return out
+
+
+def decode_32k_step(torch, cfg, params):
+    """One ``build_decode_step`` call at the decode_32k cache (llama,
+    ``DECODE_32K``: the stacked bf16 cache written in place, every row at
+    its last position): CUDA-event ms, the cache's bytes, and the bound:
+    the cache and the weights read once over the card's memory rate."""
+    from repro_torch.launch.steps import build_decode_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_leaves
+
+    B, S = DECODE_32K
+    cache = tfm.init_kv_cache(cfg, B, S, device="cuda")
+    step = build_decode_step(cfg)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (B, 1),
+                                     device="cuda", dtype=torch.int32),
+             "positions": torch.full((B,), S - 1, dtype=torch.int32,
+                                     device="cuda"),
+             "cache_k": cache["k"], "cache_v": cache["v"]}
+    cache_bytes = cache["k"].nbytes + cache["v"].nbytes
+    weight_bytes = sum(t.nbytes for t in tree_leaves(params))
+    ms, spread = timed(torch, lambda: step(params, batch), 3)
+    logits = step(params, batch)[0]
+    require(logits.shape == (B, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()),
+            "decode_32k: logits not finite")
+    written = bool(cache["k"][:, :, S - 1].abs().sum(dim=(2, 3)).gt(0).all())
+    require(written, "decode_32k: the step did not write the cache's last "
+                     "position")
+    bound = 1e3 * (cache_bytes + weight_bytes) / PEAK_BYTES
+    del cache, batch, logits
+    torch.cuda.empty_cache()
+    return {"shape": [B, S], "ms": ms, "ms_range": spread,
+            "cache_bytes": cache_bytes, "weight_bytes": weight_bytes,
+            "bound_ms": bound, "bound_by": "bytes",
+            "bound_share": bound / ms}
+
+
+def time_k1_decoder(torch, E, b, B, S, softcap):
+    """K1 at (B, S) on a decoder's head weights, random bf16 H from seed
+    41 (K1's products do not depend on the data), every position kept:
+    its CUDA-event ms and peak MB, its bound (operations at 989 TFLOP/s
+    bf16), one call each of its plain version (y within K1_TOL of K1's),
+    of the one-call yardstick ``k1_library`` and of the paper's PyTorch
+    baseline head (``naive``: its (B, S, V) logits in f32) with their
+    peak MB; the baseline only where three f32 copies of its logits fit
+    in the free memory, else "does not fit" with the bytes it needs."""
+    from repro_torch.core.lm_head import lm_head_naive
+    from repro_torch.kernels import sparton as k1
+
+    V, D = E.shape
+    g = torch.Generator(device="cuda").manual_seed(41)
+    H = torch.randn((B, S, D), generator=g, device="cuda").to(torch.bfloat16)
+    mask = torch.ones((B, S), dtype=torch.int32, device="cuda")
+    bound, by = k1_bound_ms(B, S, D, V, H.element_size(), B * S)
+
+    def kernel():
+        return k1.sparton_forward(H, E, b, mask, softcap=softcap)
+
+    ms, spread = timed(torch, kernel, 3)
+    row = {"shape": [B, S, D, V], "softcap": softcap, "ms": ms,
+           "ms_range": spread, "peak_mb": peak_mb(torch, kernel),
+           "bound_ms": bound, "bound_by": by, "bound_share": bound / ms}
+    y_k, i_k = kernel()
+    row["plain_ms"], row["plain_peak_mb"], (y_p, i_p) = once(
+        torch, lambda: k1.sparton_forward_plain(H, E, b, mask, softcap))
+    err = (y_k - y_p).abs()
+    row["max_abs_err"] = float(err.max())
+    row["imax_mismatch"] = int((i_k != i_p).sum())
+    row["y_max"], row["y_nonzero"] = float(y_k.max()), int((y_k > 0).sum())
+    row["y_differ"] = int((y_k != y_p).sum())
+    require(bool((err <= K1_TOL + K1_TOL * y_p.abs()).all()),
+            f"K1 at {row['shape']}: y differs from the plain version by "
+            f"{row['max_abs_err']}")
+    del y_k, i_k, y_p, i_p, err
+    row["library_ms"], row["library_peak_mb"], _ = once(
+        torch, lambda: k1_library(torch, H, E, b, mask, softcap))
+    torch.cuda.empty_cache()
+    need = 3 * B * S * V * 4
+    free = torch.cuda.mem_get_info()[0]
+    if need <= free:
+        row["naive_ms"], row["naive_peak_mb"], _ = once(
+            torch, lambda: lm_head_naive(H, E, b, mask,
+                                         logit_softcap=softcap))
+        torch.cuda.empty_cache()
+    else:
+        row["naive_ms"] = row["naive_peak_mb"] = "does not fit"
+    row["naive_needs_bytes"], row["free_bytes"] = need, free
+    del H, mask
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_decoder(torch):
+    """The dense decoders' serving paths at full width, seeded random
+    weights, bf16, the kernel head. llama3.2-3b (28 layers, D 3072, V
+    128256): the serve phase's path (``phase_serve``: 16384 docs, 64
+    requests, ``auto`` -> K4 in place, every K1 launch on "tma"; K4 then
+    timed on its V 128256 index at the served 8 queries and all 64,
+    ``time_impact``), the LSR
+    prefill at B 1 x 32768 (``decoder_prefill``), decode against the full
+    forward (``decode_vs_full``) and one decode step at the decode_32k
+    cache; then gemma2-27b at full width, ``GEMMA2_LAYERS`` deep (D 4608,
+    V 256000, window 4096 on the even layers, softcaps 50 and 30): the
+    prefill at B 2 x 8192 (K1 with softcap 30.0) and decode past the
+    window. Then K1 timed at ``DECODER_K1_TIMING``. Lines
+    ``decoder_serve``, ``decoder_llama``, ``decoder_gemma2`` and
+    ``decoder``."""
+    import dataclasses
+
+    from repro_torch.configs.gemma2_27b import CONFIG as GEMMA2
+    from repro_torch.configs.llama3_2_3b import CONFIG as LLAMA
+    from repro_torch.models.transformer import head_weights, init_params
+    from repro_torch.retrieval.sparse_rep import stack_rows
+
+    t0 = time.perf_counter()
+    reset_launches()
+    served = phase_serve(torch, LLAMA, "decoder_serve")
+    serve_launches = read_launches()
+    params = served.pop("params")
+    res = served.pop("res")
+    k4 = {f"B{q.values.shape[0]}": time_impact(
+        torch, q, res["index"], SERVE["topk"], reps=20)
+        for q in (res["queries"], stack_rows(res["served"]))}
+    emit("decoder_serve_timing", k4=k4)
+    del res
+    torch.cuda.empty_cache()
+    llama = {"prefill": decoder_prefill(torch, LLAMA, params, "llama"),
+             "decode": decode_vs_full(torch, LLAMA, params, "llama"),
+             "decode_32k": decode_32k_step(torch, LLAMA, params)}
+    emit("decoder_llama", config=LLAMA.name, n_params=LLAMA.n_params,
+         **llama)
+    timing = {}
+    E, b = head_weights(params, LLAMA)
+    for name, which, B, S in DECODER_K1_TIMING:
+        if which == "llama":
+            timing[name] = time_k1_decoder(torch, E, b, B, S, None)
+    del params, E, b
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(GEMMA2, n_layers=GEMMA2_LAYERS)
+    params = init_params(torch.Generator(device="cuda").manual_seed(1), cfg)
+    gemma2 = {"prefill": decoder_prefill(torch, cfg, params, "gemma2"),
+              "decode": decode_vs_full(torch, cfg, params, "gemma2")}
+    emit("decoder_gemma2", config=cfg.name, n_layers=cfg.n_layers,
+         published_layers=GEMMA2.n_layers, n_params=cfg.n_params, **gemma2)
+    E, b = head_weights(params, cfg)
+    for name, which, B, S in DECODER_K1_TIMING:
+        if which == "gemma2":
+            timing[name] = time_k1_decoder(torch, E, b, B, S,
+                                           cfg.final_logit_softcap)
+    del params, E, b
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    emit("decoder", k1_timing=timing, seconds=seconds)
+    return {"k1_paths": {"serve": served["k1_paths"],
+                         "llama_prefill": llama["prefill"]["k1_paths"],
+                         "gemma2_prefill": gemma2["prefill"]["k1_paths"]},
+            "launches": {"serve": serve_launches,
+                         "llama_prefill": llama["prefill"]["launches"],
+                         "llama_decode": llama["decode"]["launches"],
+                         "gemma2_prefill": gemma2["prefill"]["launches"],
+                         "gemma2_decode": gemma2["decode"]["launches"]},
+            "timing": timing, "k4": k4, "seconds": seconds}
+
+
 def kernel_rows(measured, launches, dense_launches, engine_launches,
                 train_launches, k1_paths, xlmr, eval_launches, ckpt_launches,
-                pruned, frontier, examples):
+                pruned, frontier, examples, decoder):
     """The ``{"kernels": [...]}`` line: each kernel's launches on its path
     and its numbers from the timing phase (K1 at an index batch, K2/K3 at
     the train shape, K4, K5 and K6 at the served queries; K1 also at the
@@ -4633,7 +5005,13 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
     the example_quickstart phase and the streaming phase
     (``examples``), and K6's row its numbers at the retrieval_cand shape
     for B 1, 8 and 64 (``at_retrieval_cand``, ``stream_ms`` that of
-    ``launch.steps.streaming_topk``)."""
+    ``launch.steps.streaming_topk``). Every row holds its launches in
+    the decoder phase's runs (``decoder_launches``: the llama serve, each
+    prefill and each decode comparison), and K1's row its numbers at the
+    decoder shapes (``at_decoder``: the serve batch, llama's prefill at B
+    1 and 2 x 32768, gemma2's at 2 x 8192 with softcap 30, each with the
+    paper's baseline head's ``naive_ms``), and K4's its numbers on the
+    llama serve's V 128256 index at the served 8 queries and all 64."""
     main_k1, bwd, k4, k5, k6 = (measured[key]
                                 for key in ("k1", "bwd", "k4", "k5", "k6"))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -4744,6 +5122,16 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
             name: n[key] for name, n in examples["serve"].items()}
         row["example_quickstart_launches"] = examples["quickstart"][key]
         row["streaming_launches"] = examples["streaming"]["launches"][key]
+        row["decoder_launches"] = {
+            where: n[key] for where, n in decoder["launches"].items()}
+    rows[0]["at_decoder"] = {
+        name: {key: r[key] for key in keys + (
+            "shape", "softcap", "peak_mb", "plain_peak_mb",
+            "library_peak_mb", "naive_ms", "naive_peak_mb",
+            "naive_needs_bytes", "imax_mismatch")}
+        for name, r in decoder["timing"].items()}
+    rows[3]["at_decoder"] = {name: {key: r[key] for key in k45_keys}
+                             for name, r in decoder["k4"].items()}
     rows[3]["ceiling"]["example_serve_launches"] = {
         name: n["impact_ceiling_topk"]
         for name, n in examples["serve"].items()}
@@ -4828,10 +5216,14 @@ def main() -> int:
     examples = {"serve": example_serve["launches"],
                 "quickstart": quick["launches"],
                 "streaming": phase_streaming(torch)}
+    decoder = phase_decoder(torch)
+    k1_paths.update({f"decoder_{where}": paths
+                     for where, paths in decoder["k1_paths"].items()})
     print(json.dumps({"kernels": kernel_rows(
         measured, served["launches"], dense_launches, engine_launches,
         trained["launches"], k1_paths, xlmr, evaluated["launches"],
-        ckpt["launches"], served_pruned, frontier, examples)}), flush=True)
+        ckpt["launches"], served_pruned, frontier, examples, decoder)}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,8 @@
 """Config dataclasses of the port (its own copies of ``repro/configs``).
 
-Only the transformer family of the SPLADE encoders is here: the port
-serves and trains ``splade_bert`` and ``splade_xlmr``. Field names and
+Only the transformer family is here: the port serves and trains the
+SPLADE encoders (``splade_bert``, ``splade_xlmr``) and serves the dense
+decoders (``llama3_2_3b``, ``gemma2_27b``, ``phi3_mini``). Field names and
 defaults are the JAX package's, so a config reads the same in both, with
 one exception:
 ``head_impl`` defaults to ``"kernel"``, the CUDA head, so that no entry
@@ -12,7 +13,7 @@ tensors take the kernels' plain versions inside their wrappers).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,6 +24,8 @@ class ShapeSpec:
     kind: str  # train | prefill | decode | serve
     seq_len: int = 0
     global_batch: int = 0
+    skip: bool = False
+    skip_reason: str = ""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,8 +42,9 @@ class TransformerConfig:
     # MoE
     n_experts: int = 0
     top_k: int = 0
-    # gemma-2 features (the port runs full attention only)
-    sliding_window: Optional[int] = None
+    # gemma-2 features
+    sliding_window: Optional[int] = None   # local attention window
+    local_global_alternating: bool = False  # even layers local, odd global
     attn_logit_softcap: Optional[float] = None
     final_logit_softcap: Optional[float] = None
     # common
@@ -71,6 +75,7 @@ class TransformerConfig:
     rep_topk: Optional[int] = None
     rep_threshold: Optional[float] = None
     rep_max_nnz: int = 256         # threshold-only slot budget
+    attn_chunk: int = 512          # KV chunk size (online softmax)
 
     def head_spec(self, **overrides):
         """The config's head as a ``HeadSpec`` for ``make_head``."""
@@ -105,3 +110,19 @@ class TransformerConfig:
             + d * self.n_kv_heads * self.d_head * 2
         trunk = L * (attn + 3 * d * f + 2 * d)
         return trunk + V * d * (1 if self.tie_embeddings else 2)
+
+
+def shapes_lm(long_ok: bool, long_skip_reason: str = "") -> Dict[str, ShapeSpec]:
+    """The LM families' four shapes (the JAX package's ``shapes_lm``)."""
+    return {
+        "train_4k": ShapeSpec("train_4k", "train", seq_len=4096,
+                              global_batch=256),
+        "prefill_32k": ShapeSpec("prefill_32k", "prefill", seq_len=32768,
+                                 global_batch=32),
+        "decode_32k": ShapeSpec("decode_32k", "decode", seq_len=32768,
+                                global_batch=128),
+        "long_500k": ShapeSpec(
+            "long_500k", "decode", seq_len=524288, global_batch=1,
+            skip=not long_ok, skip_reason=long_skip_reason,
+        ),
+    }

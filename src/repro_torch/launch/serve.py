@@ -33,6 +33,11 @@ The pipeline of ``repro/launch/serve.py``, end to end:
 evenly) over one encoder through a ``TenantPool`` instead, each searched
 with ``fused`` (twice when caching).
 
+``--arch`` takes the SPLADE encoders and the dense decoders
+(``llama3_2_3b``, ``gemma2_27b``, ``phi3_mini``, or the JAX aliases such
+as ``llama3.2-3b``): a decoder's reps come from its causal trunk and the
+same head.
+
 It runs the config's SMOKE size with seeded random weights on
 ``--device`` (default ``cuda``; ``--device cpu`` runs the kernels' plain
 versions). ``run`` and ``run_tenants`` are the same pipelines for any
@@ -347,12 +352,15 @@ def print_tenants(res: Dict[str, Any]) -> None:
 
 
 def main(argv=None) -> int:
-    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.configs import ALIASES, ARCHS, get_config
     from repro_torch.device import resolve_device
     from repro_torch.retrieval.score import INDEX_METHODS, METHODS
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="splade_bert", choices=ARCHS)
+    ap.add_argument("--arch", default="splade_bert",
+                    help=f"one of {', '.join(ARCHS)} or a JAX alias "
+                         f"({', '.join(ALIASES)}); a decoder serves "
+                         f"through its causal trunk")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--corpus", type=int, default=1000)
     ap.add_argument("--topk", type=int, default=10)
@@ -433,6 +441,10 @@ def main(argv=None) -> int:
     if args.tenants < 0:
         ap.error("--tenants must be >= 0")
     try:
+        arch = get_config(args.arch)
+    except (ValueError, NotImplementedError) as e:
+        ap.error(str(e))
+    try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         ap.error(str(e))
@@ -440,7 +452,7 @@ def main(argv=None) -> int:
     from repro_torch.models.transformer import init_params
     from repro_torch.runtime.serving import make_config_encoder
 
-    cfg = get_config(args.arch).SMOKE
+    cfg = arch.SMOKE
     overrides = {"rep_topk": args.rep_topk if args.rep_topk > 0 else None}
     if args.head_impl:
         overrides["head_impl"] = args.head_impl

@@ -1,5 +1,5 @@
-"""The LSR train step and the streaming top-k (``repro/launch/steps.py``,
-unsharded).
+"""The LSR train step, the LSR prefill and decode steps and the streaming
+top-k (``repro/launch/steps.py``, unsharded).
 
 ``build_lsr_train_step(cfg, ...)`` returns ``step(state, batch) ->
 (state, {"loss": ...})``: the encoder trunk and the config's Sparton head
@@ -7,14 +7,20 @@ on the query and the document tokens, the SPLADE loss, its gradients
 (through K2 and K3 for ``head_impl="kernel"``, the default), averaged over
 ``n_micro`` chunks, then AdamW on the f32 master params. The state is
 ``{"params", "opt": {"mu", "nu"}, "step"}``, as the JAX package's.
-``streaming_topk`` is the JAX package's tile-by-tile top-k over a dense
-candidate matrix, the counterpart of K6 built from plain PyTorch.
+``build_lsr_prefill_step`` encodes ``{"tokens", "mask"}`` through the
+trunk (causal for a decoder) and the config's head: the paper's head on a
+decoder backbone, K1 for ``head_impl="kernel"``. ``build_decode_step``
+takes one KV-cache step on ``{"tokens", "positions", "cache_k",
+"cache_v"}``. ``streaming_topk`` is the JAX package's tile-by-tile top-k
+over a dense candidate matrix, the counterpart of K6 built from plain
+PyTorch.
 
-Still to come: the vocab-sharded step and ``streaming_topk``'s
-``vary_axes`` (multi-GPU, ROADMAP Queue 1 item 10), the recsys train and
-serve steps with ``build_retrieval_step`` and the prefill and decode
-steps (models this port does not hold yet); the MarginMSE term waits for
-a distillation data source and the MoE aux loss for an MoE trunk.
+Still to come: every ``mesh`` (the vocab-sharded step and
+``streaming_topk``'s ``vary_axes``: multi-GPU, ROADMAP Queue 1 item 10),
+the recsys train and serve steps with ``build_retrieval_step`` and the GNN
+step (models this port does not hold yet); the MarginMSE term waits for a
+distillation data source and the MoE aux loss for an MoE trunk (item
+12b).
 """
 
 from __future__ import annotations
@@ -88,6 +94,63 @@ def build_lsr_train_step(
                  "step": state["step"] + 1}, {"loss": loss})
 
     return step
+
+
+def _no_mesh(mesh: Any, what: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what}: a mesh (the vocab-sharded head, the sharded cache) is "
+            "not ported yet: it arrives with multi-GPU, ROADMAP Queue 1 "
+            "item 10")
+
+
+def _encode_fn(cfg: TransformerConfig, mesh: Any, n_batch: int,
+               unroll: bool = False
+               ) -> Callable[[Any, torch.Tensor, torch.Tensor], torch.Tensor]:
+    """``(params, tokens, mask) -> y (B, V)``: the trunk and the config's
+    head (``head_api.make_head``). ``n_batch`` and ``unroll`` shape the JAX
+    function's sharding and layer scan; eager PyTorch has neither. (The
+    JAX function also returns the MoE aux loss.)"""
+    from repro_torch.core.head_api import make_head
+
+    _no_mesh(mesh, "_encode_fn")
+    head = make_head(cfg.head_spec())
+
+    def encode(params, tokens, mask):
+        Hs = tfm.forward_hidden(params, cfg, tokens, mask)
+        E, b = tfm.head_weights(params, cfg)
+        return head(Hs, E.to(Hs.dtype), b, mask)
+    return encode
+
+
+def build_lsr_prefill_step(cfg: TransformerConfig, mesh: Any = None,
+                           n_batch: int = 1, unroll: bool = False
+                           ) -> Callable[[Any, Batch], torch.Tensor]:
+    """``serve(params, {"tokens", "mask"}) -> y (B, V)``, without
+    autograd."""
+    encode = _encode_fn(cfg, mesh, n_batch, unroll)
+
+    @torch.no_grad()
+    def serve(params, batch: Batch) -> torch.Tensor:
+        return encode(params, batch["tokens"], batch["mask"])
+    return serve
+
+
+def build_decode_step(cfg: TransformerConfig, mesh: Any = None
+                      ) -> Callable[[Any, Batch], Tuple[torch.Tensor, ...]]:
+    """``serve(params, {"tokens" (B, 1), "positions" (B,), "cache_k",
+    "cache_v"}) -> (logits (B, V), cache_k, cache_v)``, without autograd:
+    ``models.transformer.decode_step``, which writes the caches in
+    place."""
+    _no_mesh(mesh, "build_decode_step")
+
+    @torch.no_grad()
+    def serve(params, batch: Batch):
+        cache = {"k": batch["cache_k"], "v": batch["cache_v"]}
+        logits, cache = tfm.decode_step(params, cfg, cache, batch["tokens"],
+                                        batch["positions"])
+        return logits, cache["k"], cache["v"]
+    return serve
 
 
 def init_state(arch_id: str, generator: torch.Generator, *,

@@ -57,7 +57,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs import TRAIN_ARCHS, get_config, resolve_arch
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.core.head_api import available_impls
 from repro_torch.data.loader import HostShardedLoader
@@ -147,7 +147,9 @@ def _metrics_line(metrics: Dict[str, float]) -> str:
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", required=True, choices=ARCHS)
+    ap.add_argument("--arch", required=True,
+                    help=f"one of {', '.join(TRAIN_ARCHS)} (or its JAX "
+                         f"alias); the decoders serve only")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8,
                     help="(query, doc) pairs per step")
@@ -275,6 +277,14 @@ def run(args: argparse.Namespace, device: torch.device) -> Dict:
 def main(argv=None) -> int:
     ap = parser()
     args = ap.parse_args(argv)
+    try:
+        arch = resolve_arch(args.arch)
+    except (ValueError, NotImplementedError) as e:
+        ap.error(str(e))
+    if arch not in TRAIN_ARCHS:
+        ap.error(f"--arch {args.arch}: the port trains {list(TRAIN_ARCHS)}; "
+                 "decoder training (K2/K3 at D 3072 and 4608) arrives with "
+                 "ROADMAP Queue 1 item 12b")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:

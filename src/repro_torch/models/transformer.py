@@ -1,5 +1,7 @@
-"""The dense transformer trunk of the SPLADE encoders
-(``repro/models/transformer.py``).
+"""The dense transformer trunks (``repro/models/transformer.py``): the
+bidirectional SPLADE encoders and the causal decoders (llama3.2-3b,
+phi3-mini; gemma2-27b with its sliding window on the even layers and its
+logit softcaps).
 
 Parameters are a plain dict of tensors in the JAX package's layout:
 every layer leaf is stacked with a leading ``n_layers`` axis, and weights
@@ -12,13 +14,18 @@ and autograd on, each layer runs under ``torch.utils.checkpoint``
 Training runs from the f32 master params: every call casts the weights
 to the compute dtype inside autograd, so the gradients reach the
 masters (a tied ``E`` adds to the embedding gather's). The cast-once
-copy of ``compute_weights`` is for serving only. MoE trunks, the causal
-LM head and ``decode_step`` wait for the slice of those families.
+copy of ``compute_weights`` is for serving only.
+
+Heads: ``lsr_encode`` (the trunk and the Sparton head, Eq. 1) and
+``causal_lm_logits`` / ``decode_step`` (next-token logits, a plain
+matmul as in the JAX package, which computes them outside any Pallas
+kernel). ``decode_step`` writes each layer's key and value into one
+stacked cache in place. MoE trunks wait for ROADMAP Queue 1 item 12b.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,17 +33,25 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.device import dtype_of
-from repro_torch.models.attention import apply_rope, bidirectional_attention
+from repro_torch.models.attention import (apply_rope, chunked_attention,
+                                          decode_attention)
 
 Params = Dict[str, Any]
 
 
 def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.is_moe or cfg.sliding_window or not cfg.bidirectional_encoder:
+    if cfg.is_moe:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense bidirectional encoder "
-            "only; MoE, sliding-window and causal trunks arrive with the "
-            "slice of those model families")
+            f"{cfg.name}: the port runs dense trunks only; the MoE trunk "
+            "(models/moe.py) arrives with ROADMAP Queue 1 item 12b")
+
+
+def layer_window(cfg: TransformerConfig, i: int) -> Optional[int]:
+    """Layer ``i``'s attention window: with ``local_global_alternating``
+    the even layers are local (``sliding_window``) and the odd global."""
+    if cfg.local_global_alternating and cfg.sliding_window:
+        return cfg.sliding_window if i % 2 == 0 else None
+    return cfg.sliding_window
 
 
 def init_params(generator: torch.Generator,
@@ -118,49 +133,65 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 def _layer(x: torch.Tensor, lp: Params, i: int, cfg: TransformerConfig, *,
-           positions: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Layer ``i`` of the stacked params ``lp`` on ``x`` (B, S, D)."""
+           positions: torch.Tensor, mask: torch.Tensor,
+           causal: bool) -> torch.Tensor:
+    """Layer ``i`` of the stacked params ``lp`` on ``x`` (B, S, D);
+    ``positions`` (S,)."""
     B, S, _ = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     cdtype = x.dtype
-    attn, mlp = lp["attn"], lp["mlp"]
+    attn = lp["attn"]
 
     h = rms_norm(x, lp["ln1"][i], cfg.norm_eps)
     q = (h @ attn["wq"][i].to(cdtype)).reshape(B, S, H, dh)
     k = (h @ attn["wk"][i].to(cdtype)).reshape(B, S, KV, dh)
     v = (h @ attn["wv"][i].to(cdtype)).reshape(B, S, KV, dh)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    out = bidirectional_attention(q, k, v, kv_mask=mask,
-                                  logit_softcap=cfg.attn_logit_softcap)
+    pos2d = positions.expand(B, S)
+    q = apply_rope(q, pos2d, cfg.rope_theta)
+    k = apply_rope(k, pos2d, cfg.rope_theta)
+    out = chunked_attention(
+        q, k, v, q_positions=positions, k_positions=positions, kv_mask=mask,
+        causal=causal, window=layer_window(cfg, i),
+        logit_softcap=cfg.attn_logit_softcap, chunk_size=cfg.attn_chunk)
     x = x + out.reshape(B, S, H * dh) @ attn["wo"][i].to(cdtype)
+    return x + _mlp(x, lp, i, cfg)
 
+
+def _mlp(x: torch.Tensor, lp: Params, i: int,
+         cfg: TransformerConfig) -> torch.Tensor:
+    cdtype = x.dtype
+    mlp = lp["mlp"]
     h = rms_norm(x, lp["ln2"][i], cfg.norm_eps)
     g = h @ mlp["w_gate"][i].to(cdtype)
     u = h @ mlp["w_up"][i].to(cdtype)
-    return x + (F.silu(g) * u) @ mlp["w_down"][i].to(cdtype)
+    return (F.silu(g) * u) @ mlp["w_down"][i].to(cdtype)
 
 
 def forward_hidden(params: Params, cfg: TransformerConfig,
                    tokens: torch.Tensor,
-                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Final hidden states ``H`` (B, S, D) in the compute dtype. (The JAX
-    function also returns the MoE aux loss, always 0 for a dense trunk.)"""
+                   mask: Optional[torch.Tensor] = None, *,
+                   causal: Optional[bool] = None) -> torch.Tensor:
+    """Final hidden states ``H`` (B, S, D) in the compute dtype, causal
+    unless the config is a bidirectional encoder (or ``causal`` says
+    otherwise). (The JAX function also returns the MoE aux loss, always 0
+    for a dense trunk.)"""
     _dense_only(cfg)
     B, S = tokens.shape
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.int32, device=tokens.device)
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    if causal is None:
+        causal = not cfg.bidirectional_encoder
+    positions = torch.arange(S, device=tokens.device)
     x = params["embed"][tokens.long()].to(dtype_of(cfg.compute_dtype))
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         if remat:
             x = checkpoint(_layer, x, params["layers"], i, cfg,
-                           positions=positions, mask=mask,
+                           positions=positions, mask=mask, causal=causal,
                            use_reentrant=False)
         else:
             x = _layer(x, params["layers"], i, cfg, positions=positions,
-                       mask=mask)
+                       mask=mask, causal=causal)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -175,3 +206,80 @@ def lsr_encode(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
     Hs = forward_hidden(params, cfg, tokens, mask)
     E, b = head_weights(params, cfg)
     return make_head(spec)(Hs, E.to(Hs.dtype), b, mask)
+
+
+def _next_token_logits(x: torch.Tensor, params: Params,
+                       cfg: TransformerConfig) -> torch.Tensor:
+    """The LM head on hidden states ``x`` (..., D): ``x @ E^T + b`` (the
+    product in the compute dtype, the sum with the f32 bias in f32), then
+    the final softcap."""
+    E, b = head_weights(params, cfg)
+    logits = torch.matmul(x, E.to(x.dtype).t()) + b
+    if cfg.final_logit_softcap is not None:
+        cap = cfg.final_logit_softcap
+        logits = cap * torch.tanh(logits / cap)
+    return logits
+
+
+def causal_lm_logits(params: Params, cfg: TransformerConfig,
+                     tokens: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, S, V) next-token logits of the causal trunk, softcap applied.
+    (The JAX function also returns the MoE aux loss.)"""
+    return _next_token_logits(
+        forward_hidden(params, cfg, tokens, mask, causal=True), params, cfg)
+
+
+def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
+                  dtype: Optional[torch.dtype] = None,
+                  device=None) -> Dict[str, torch.Tensor]:
+    """Zeroed ``{"k", "v"}``, each (L, B, max_len, KV, d_head) in the
+    compute dtype unless ``dtype`` is given, on ``device`` (``cuda``
+    unless the caller passes the CPU)."""
+    from repro_torch.device import resolve_device
+
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    kw = {"dtype": dtype or dtype_of(cfg.compute_dtype),
+          "device": resolve_device(device)}
+    return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+
+
+def decode_step(params: Params, cfg: TransformerConfig,
+                cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One autoregressive step: ``tokens`` (B, 1), the newest token of
+    each row, at ``positions`` (B,). Returns ``((B, V) logits, cache)``.
+
+    Each layer writes its key and value at ``positions`` into the stacked
+    ``cache`` in place (one ``index_put_`` on the (L, B, S_max, KV, dh)
+    tensor, never a copy of it), then attends over the cache with the
+    layer's window. The returned cache is the one given, updated; the
+    JAX function returns an updated copy.
+    """
+    _dense_only(cfg)
+    B = tokens.shape[0]
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    cdtype = dtype_of(cfg.compute_dtype)
+    layers = params["layers"]
+    attn = layers["attn"]
+    x = params["embed"][tokens[:, 0].long()].to(cdtype)[:, None, :]
+    k_all, v_all = cache["k"], cache["v"]
+    rows = torch.arange(B, device=tokens.device)
+    pos = positions.long()
+    for i in range(cfg.n_layers):
+        h = rms_norm(x, layers["ln1"][i], cfg.norm_eps)
+        q = (h @ attn["wq"][i].to(cdtype)).reshape(B, 1, H, dh)
+        k = (h @ attn["wk"][i].to(cdtype)).reshape(B, 1, KV, dh)
+        v = (h @ attn["wv"][i].to(cdtype)).reshape(B, 1, KV, dh)
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = apply_rope(k, pos[:, None], cfg.rope_theta)
+        k_all[i].index_put_((rows, pos), k[:, 0].to(k_all.dtype))
+        v_all[i].index_put_((rows, pos), v[:, 0].to(v_all.dtype))
+        out = decode_attention(q, k_all[i], v_all[i], positions=pos,
+                               window=layer_window(cfg, i),
+                               logit_softcap=cfg.attn_logit_softcap)
+        x = x + out.reshape(B, 1, H * dh) @ attn["wo"][i].to(cdtype)
+        x = x + _mlp(x, layers, i, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _next_token_logits(x[:, 0], params, cfg), cache
