@@ -212,9 +212,32 @@ Phases, run in this order, each printing one JSON line:
              (``naive``, where three f32 copies of its logits fit), with
              peak memory.
 
+12. moe     — the MoE decoders' serving paths at full width, bf16, seeded
+             random weights, the kernel head: moonshot-v1-16b-a3b at full
+             width and depth (48 layers, D 2048, 64 experts top-6, V
+             163840 tied: 55.4 GB of weights) through the serve phase's
+             path (16384 docs, 64 requests, ``auto`` -> K4 in place; K4
+             then timed on its index at B 8 and 64; three encode batches
+             traced with torch.profiler), the LSR prefill at B 2
+             x 8192 (16384 routed tokens) with K1 held against its plain
+             version on the trunk's H and a second prefill giving the same
+             bits, KV-cache decode (B 4, 64 positions) against
+             ``causal_lm_logits`` at f32 on views of its first 4 layers at
+             a capacity that drops nothing (``capacity_factor`` =
+             n_experts, DECODE_TOL; at the config's 1.25 printed), one
+             decode step timed (and traced) at a B 4 x 4096 cache beside
+             its byte bound (the cache and every expert's weights) and one
+             layer's ``moe_ffn`` alone at T 16384 beside its operations
+             bound;
+             then phi3.5-moe at full width and 8 of its 32 layers (D 4096,
+             16 experts top-2, GQA 32/8, V 32064 untied): the same prefill,
+             decode comparison and ``moe_ffn`` timing. Then K1 timed at
+             moonshot's 64 x 16 and 2 x 8192 and phi3.5-moe's 2 x 8192, as
+             in the decoder phase.
+
 Every K1 launch of the serve, dense-serve, engine, pruned, frontier, train,
-eval (b), xlmr (its serving phases too), ckpt, example_serve and decoder
-phases must take the "tma" path. Then a
+eval (b), xlmr (its serving phases too), ckpt, example_serve, decoder and
+moe phases must take the "tma" path. Then a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any mismatch, exception or missing launch exits non-zero before that last
 line. The script imports nothing of JAX nor of the JAX package.
@@ -4680,20 +4703,22 @@ def once(torch, fn):
             (torch.cuda.max_memory_allocated() - base) / 2**20, out)
 
 
-def decoder_prefill(torch, cfg, params, where):
-    """``build_lsr_prefill_step`` at ``DECODER_PREFILL[where]`` on seeded
-    tokens, every position valid: one call, its host ms (synchronised),
-    K1's launches in it (one, on "tma", no plain version on the card),
-    then K1 held against its plain version on the trunk's H captured from
-    that call (``k1_compare``: y within K1_TOL, i_max equal but at near
-    ties, two launches the same bits), and the prefill's y (in H's dtype,
-    bf16, as the head returns it) equal to a K1 launch on that H cast to
-    it, bit for bit."""
+def decoder_prefill(torch, cfg, params, where, shape=None, twice=False):
+    """``build_lsr_prefill_step`` at ``shape`` (``DECODER_PREFILL[where]``
+    unless given) on seeded tokens, every position valid: one call, its
+    host ms (synchronised), K1's launches in it (one, on "tma", no plain
+    version on the card), then K1 held against its plain version on the
+    trunk's H captured from that call (``k1_compare``: y within K1_TOL,
+    i_max equal but at near ties, two launches the same bits), and the
+    prefill's y (in H's dtype, bf16, as the head returns it) equal to a
+    K1 launch on that H cast to it, bit for bit. With ``twice`` a second
+    call on the same tokens must give the same y bits (an MoE trunk's
+    dispatch and combine use no atomics)."""
     from repro_torch.kernels import sparton as k1
     from repro_torch.launch.steps import build_lsr_prefill_step
     from repro_torch.models import transformer as tfm
 
-    B, S = DECODER_PREFILL[where]
+    B, S = shape or DECODER_PREFILL[where]
     g = torch.Generator(device="cuda").manual_seed(31)
     tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=g,
                            device="cuda", dtype=torch.int32)
@@ -4742,7 +4767,65 @@ def decoder_prefill(torch, cfg, params, where):
            "ms": 1e3 * seconds, "launches": launches, "k1_paths": paths,
            "k1_vs_plain": case, "y_equals_k1_on_h": same,
            "y_nonzero_per_row": (y > 0).sum(dim=1).tolist()}
-    del H, hidden, y
+    del H, hidden
+    torch.cuda.empty_cache()
+    if twice:
+        again = step(params, {"tokens": tokens, "mask": mask})
+        out["second_call_bit_identical"] = torch.equal(y, again)
+        require(out["second_call_bit_identical"],
+                f"{where} prefill: a second call gave other y bits")
+        del again
+    del y
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_tokens(torch, cfg, B, S):
+    """Seeded tokens of the decode comparisons."""
+    g = torch.Generator(device="cuda").manual_seed(37)
+    return torch.randint(1, cfg.vocab_size, (B, S), generator=g,
+                         device="cuda", dtype=torch.int32)
+
+
+def decode_against_full(torch, c, weights, tokens, first):
+    """``build_decode_step`` from an empty cache over every position of
+    ``tokens`` (B, S) against ``causal_lm_logits`` on them, compared from
+    position ``first`` on: the max |difference|, the mean host ms a step,
+    the largest |logit| and whether every difference lies within
+    DECODE_TOL x (1 + |logit|) with finite logits (``within_tol``)."""
+    from repro_torch.launch.steps import build_decode_step
+    from repro_torch.models import transformer as tfm
+
+    B, S = tokens.shape
+    with torch.no_grad():
+        full = tfm.causal_lm_logits(weights, c, tokens)[:, first:].clone()
+    torch.cuda.empty_cache()
+    cache = tfm.init_kv_cache(c, B, S, device="cuda")
+    step = build_decode_step(c)
+    worst = torch.zeros((), device="cuda")     # |d| - tol * (1 + |ref|)
+    max_abs = torch.zeros((), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(S):
+        logits, _, _ = step(weights, {
+            "tokens": tokens[:, s:s + 1],
+            "positions": torch.full((B,), s, dtype=torch.int32,
+                                    device="cuda"),
+            "cache_k": cache["k"], "cache_v": cache["v"]})
+        if s >= first:
+            ref = full[:, s - first]
+            d = (logits - ref).abs()
+            max_abs = torch.maximum(max_abs, d.max())
+            worst = torch.maximum(worst, (
+                d - DECODE_TOL * (1 + ref.abs())).max())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = {"max_abs_diff": float(max_abs),
+           "step_ms_mean": 1e3 * seconds / S,
+           "logit_abs_max": float(full.abs().max()),
+           "within_tol": (float(worst) <= 0
+                          and bool(torch.isfinite(logits).all()))}
+    del full, cache, logits
     torch.cuda.empty_cache()
     return out
 
@@ -4756,48 +4839,19 @@ def decode_vs_full(torch, cfg, params, where):
     decoder's LM head is a plain matmul, as in the JAX package)."""
     import dataclasses
 
-    from repro_torch.launch.steps import build_decode_step
     from repro_torch.models import transformer as tfm
 
     B, S, first, dtypes = DECODE_VS_FULL[where]
-    g = torch.Generator(device="cuda").manual_seed(37)
-    tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=g,
-                           device="cuda", dtype=torch.int32)
+    tokens = decode_tokens(torch, cfg, B, S)
     out = {"batch": B, "positions": S, "compared_from": first}
     reset_launches()
     for dtype in dtypes:
         c = dataclasses.replace(cfg, compute_dtype=dtype)
         weights = tfm.compute_weights(params, c)
-        with torch.no_grad():
-            full = tfm.causal_lm_logits(weights, c, tokens)[:, first:].clone()
-        torch.cuda.empty_cache()
-        cache = tfm.init_kv_cache(c, B, S, device="cuda")
-        step = build_decode_step(c)
-        worst = torch.zeros((), device="cuda")     # |d| - tol * (1 + |ref|)
-        max_abs = torch.zeros((), device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for s in range(S):
-            logits, _, _ = step(weights, {
-                "tokens": tokens[:, s:s + 1],
-                "positions": torch.full((B,), s, dtype=torch.int32,
-                                        device="cuda"),
-                "cache_k": cache["k"], "cache_v": cache["v"]})
-            if s >= first:
-                ref = full[:, s - first]
-                d = (logits - ref).abs()
-                max_abs = torch.maximum(max_abs, d.max())
-                worst = torch.maximum(worst, (
-                    d - DECODE_TOL * (1 + ref.abs())).max())
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        out[dtype] = {"max_abs_diff": float(max_abs),
-                      "step_ms_mean": 1e3 * seconds / S,
-                      "logit_abs_max": float(full.abs().max())}
-        if dtype == "float32":
-            out[dtype]["within_tol"] = (float(worst) <= 0 and bool(
-                torch.isfinite(logits).all()))
-        del weights, full, cache, logits
+        out[dtype] = decode_against_full(torch, c, weights, tokens, first)
+        if dtype != "float32":
+            del out[dtype]["within_tol"]
+        del weights
         torch.cuda.empty_cache()
     out["launches"] = read_launches()
     require(out["float32"]["within_tol"],
@@ -4809,16 +4863,19 @@ def decode_vs_full(torch, cfg, params, where):
     return out
 
 
-def decode_32k_step(torch, cfg, params):
-    """One ``build_decode_step`` call at the decode_32k cache (llama,
-    ``DECODE_32K``: the stacked bf16 cache written in place, every row at
-    its last position): CUDA-event ms, the cache's bytes, and the bound:
-    the cache and the weights read once over the card's memory rate."""
+def decode_32k_step(torch, cfg, params, shape=DECODE_32K, trace=False):
+    """One ``build_decode_step`` call at a (B, S) cache (llama's at
+    ``DECODE_32K``, the decode_32k cache: the stacked bf16 cache written in
+    place, every row at its last position): CUDA-event ms, the cache's
+    bytes, and the bound: the cache and the weights (an MoE trunk's every
+    expert: its dispatch runs each expert's product) read once over the
+    card's memory rate. With ``trace``, two more steps under
+    torch.profiler (``traced``): device ms, busy share, top kernels."""
     from repro_torch.launch.steps import build_decode_step
     from repro_torch.models import transformer as tfm
     from repro_torch.tree import tree_leaves
 
-    B, S = DECODE_32K
+    B, S = shape
     cache = tfm.init_kv_cache(cfg, B, S, device="cuda")
     step = build_decode_step(cfg)
     batch = {"tokens": torch.randint(1, cfg.vocab_size, (B, 1),
@@ -4832,17 +4889,27 @@ def decode_32k_step(torch, cfg, params):
     logits = step(params, batch)[0]
     require(logits.shape == (B, cfg.vocab_size)
             and bool(torch.isfinite(logits).all()),
-            "decode_32k: logits not finite")
+            f"decode step at a {B} x {S} cache: logits not finite")
     written = bool(cache["k"][:, :, S - 1].abs().sum(dim=(2, 3)).gt(0).all())
-    require(written, "decode_32k: the step did not write the cache's last "
-                     "position")
+    require(written, f"decode step at a {B} x {S} cache: the step did not "
+                     f"write the cache's last position")
     bound = 1e3 * (cache_bytes + weight_bytes) / PEAK_BYTES
+    out = {"shape": [B, S], "ms": ms, "ms_range": spread,
+           "cache_bytes": cache_bytes, "weight_bytes": weight_bytes,
+           "bound_ms": bound, "bound_by": "bytes",
+           "bound_share": bound / ms, "last_position_written": written}
+    if trace:
+        def run(n=2):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step(params, batch)
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0) / n
+
+        out["trace"] = traced(torch, run, run(), 2)
     del cache, batch, logits
     torch.cuda.empty_cache()
-    return {"shape": [B, S], "ms": ms, "ms_range": spread,
-            "cache_bytes": cache_bytes, "weight_bytes": weight_bytes,
-            "bound_ms": bound, "bound_by": "bytes",
-            "bound_share": bound / ms}
+    return out
 
 
 def time_k1_decoder(torch, E, b, B, S, softcap):
@@ -4973,9 +5040,232 @@ def phase_decoder(torch):
             "timing": timing, "k4": k4, "seconds": seconds}
 
 
+# --------------------------------------------------------------------------
+# 12. moe: the MoE decoders' serving paths at full width
+# --------------------------------------------------------------------------
+
+# (B, S) of build_lsr_prefill_step: gemma2's prefill shape, 16384 routed
+# tokens (moonshot's capacity C 1920 an expert, phi3.5-moe's 2560)
+MOE_PREFILL = (2, 8192)
+# phi3.5-moe at full width, 8 of its 32 layers: the 32 hold 83.7 GB of
+# bf16 weights, past one card; moonshot's 48 hold 55.4 GB and run whole
+PHI35_LAYERS = 8
+# decode against causal_lm_logits at f32 on views of the first layers (a
+# 48-layer f32 copy of moonshot would take 111 GB): B 4 at positions
+# 0-63, as llama's in the decoder phase
+MOE_DECODE_LAYERS = 4
+MOE_DECODE_VS_FULL = (4, 64)
+# one decode step timed at a B 4 x 4096 cache (6.4 GB for moonshot:
+# decode_32k's 4 x 32768 would need 51.5 GB beside 55.4 GB of weights)
+MOE_DECODE_CACHE = (4, 4096)
+# K1 timed at moonshot's serve batch (64 docs x 16 tokens) and prefill,
+# and at phi3.5-moe's prefill: (name, config, B, S)
+MOE_K1_TIMING = [("moonshot_serve_batch", "moonshot", 64, 16),
+                 ("moonshot_2x8192", "moonshot", 2, 8192),
+                 ("phi35_2x8192", "phi35", 2, 8192)]
+
+
+def first_layers(cfg, params, n):
+    """``cfg`` cut to its first ``n`` layers and ``params`` whose layer
+    leaves are views of the first ``n`` of the stacked ones (no copy)."""
+    import dataclasses
+
+    from repro_torch.tree import tree_map
+
+    return (dataclasses.replace(cfg, n_layers=n),
+            {**params, "layers": tree_map(lambda t: t[:n],
+                                          params["layers"])})
+
+
+def moe_decode_vs_full(torch, cfg, params, where):
+    """Decode against the full forward (``decode_against_full``) at f32
+    compute, B 4 at positions 0-63, on the first ``MOE_DECODE_LAYERS``
+    layers (views of the stacked params, up-cast once by
+    ``compute_weights``; the router stays bf16 and is up-cast at each
+    call): at ``capacity_factor`` = n_experts, where no call drops an
+    assignment (gated at DECODE_TOL), and at the config's 1.25, where the
+    decode step's capacity (that of B tokens) and the full forward's (B x
+    S tokens) drop other assignments (printed)."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.moe import capacity
+
+    B, S = MOE_DECODE_VS_FULL
+    cut, view = first_layers(cfg, params, MOE_DECODE_LAYERS)
+    c32 = dataclasses.replace(cut, compute_dtype="float32")
+    tokens = decode_tokens(torch, cfg, B, S)
+    out = {"batch": B, "positions": S, "n_layers": cut.n_layers}
+    reset_launches()
+    weights = tfm.compute_weights(view, c32)
+    for name, cf in (("drop_free", float(cfg.n_experts)),
+                     ("config_capacity", cfg.capacity_factor)):
+        c = dataclasses.replace(c32, capacity_factor=cf)
+        out[name] = {
+            "capacity_factor": cf,
+            "capacity": {"decode": capacity(B, cfg.n_experts, cfg.top_k, cf),
+                         "full": capacity(B * S, cfg.n_experts, cfg.top_k,
+                                          cf)},
+            **decode_against_full(torch, c, weights, tokens, 0)}
+    del weights
+    torch.cuda.empty_cache()
+    out["launches"] = read_launches()
+    require(out["drop_free"]["within_tol"],
+            f"{where}: decode differs from causal_lm_logits at f32 by "
+            f"{out['drop_free']['max_abs_diff']} at a drop-free capacity "
+            f"(tolerance {DECODE_TOL} x (1 + |logit|))")
+    require(all(n == 0 for n in out["launches"].values()),
+            f"{where}: decode launched {out['launches']}")
+    return out
+
+
+def time_moe_ffn(torch, cfg, params, T):
+    """Layer 0's ``moe_ffn`` alone on T seeded bf16 tokens: its CUDA-event
+    ms and peak MB, its bound (the three expert products over every
+    expert's C rows, ``3 * 2 * E * C * D * F`` operations at 989 TFLOP/s
+    bf16, against its bytes: the tokens in and out, the router and every
+    expert's weights once), and the three batched products alone on an
+    (E, C, D) buffer (``products_ms``): the rest is routing, the sort,
+    the scatter, the gather and the combine."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.moe import capacity, moe_ffn
+
+    mlp = params["layers"]["mlp"]
+    E, D, Fd, k = cfg.n_experts, cfg.d_model, cfg.d_ff, cfg.top_k
+    g = torch.Generator(device="cuda").manual_seed(43)
+    x = torch.randn((T, D), generator=g, device="cuda").to(torch.bfloat16)
+    w = [mlp[name][0] for name in ("router", "w_gate", "w_up", "w_down")]
+
+    def run():
+        return moe_ffn(x, *w, top_k=k, capacity_factor=cfg.capacity_factor)
+
+    C = capacity(T, E, k, cfg.capacity_factor)
+    ms, spread = timed(torch, run, 3)
+    flops = 3 * 2 * E * C * D * Fd
+    nbytes = 2 * T * D * x.element_size() + sum(
+        t.numel() * t.element_size() for t in w)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    buf = torch.randn((E, C, D), generator=g,
+                      device="cuda").to(torch.bfloat16)
+
+    def products():
+        h = F.silu(torch.bmm(buf, w[1])) * torch.bmm(buf, w[2])
+        return torch.bmm(h, w[3])
+
+    products_ms, products_spread = timed(torch, products, 3)
+    out, aux = run()
+    require(out.shape == (T, D) and bool(torch.isfinite(out.float()).all())
+            and bool(torch.isfinite(aux)),
+            f"moe_ffn at T {T}: output not finite")
+    row = {"tokens": T, "capacity": C, "ms": ms, "ms_range": spread,
+           "peak_mb": peak_mb(torch, run),
+           "bound_ms": 1e3 * max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "products_ms": products_ms, "products_ms_range": products_spread}
+    row["bound_share"] = row["bound_ms"] / ms
+    del x, buf, out, aux
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_trunk(torch, cfg, params, where, *, decode_cache):
+    """One MoE config's prefill (twice, the same bits), its decode
+    comparison, a decode step at ``MOE_DECODE_CACHE`` when
+    ``decode_cache``, and ``moe_ffn`` timed at the prefill's T, with its
+    share of the prefill's host time over every layer."""
+    out = {"prefill": decoder_prefill(torch, cfg, params, where,
+                                      shape=MOE_PREFILL, twice=True),
+           "decode": moe_decode_vs_full(torch, cfg, params, where)}
+    if decode_cache:
+        out["decode_cache_step"] = decode_32k_step(
+            torch, cfg, params, MOE_DECODE_CACHE, trace=True)
+    ffn = time_moe_ffn(torch, cfg, params, MOE_PREFILL[0] * MOE_PREFILL[1])
+    ffn["prefill_share"] = (cfg.n_layers * ffn["ms"]
+                            / out["prefill"]["ms"])
+    out["moe_ffn"] = ffn
+    return out
+
+
+def phase_moe(torch):
+    """The MoE decoders' serving paths at full width, seeded random
+    weights, bf16, the kernel head. moonshot-v1-16b-a3b at full width and
+    depth (48 layers, D 2048, 64 experts top-6, V 163840 tied): the serve
+    phase's path (``phase_serve``: 16384 docs, 64 requests, ``auto`` -> K4
+    in place, every K1 launch on "tma"; K4 then timed on its index at the
+    served 8 queries and all 64; three encode batches traced,
+    ``profile_encode``), then ``moe_trunk``: the LSR prefill at
+    ``MOE_PREFILL``, decode against the full forward on its first 4
+    layers, one decode step at ``MOE_DECODE_CACHE`` (traced) and
+    ``moe_ffn`` alone;
+    then phi3.5-moe at full width, ``PHI35_LAYERS`` deep (D 4096, 16
+    experts top-2, V 32064 untied): ``moe_trunk`` without the cache step.
+    Then K1 timed at ``MOE_K1_TIMING``. Lines ``moe_serve``,
+    ``moe_moonshot``, ``moe_phi35`` and ``moe``."""
+    import dataclasses
+
+    from repro_torch.configs.moonshot_v1_16b import CONFIG as MOONSHOT
+    from repro_torch.configs.phi3_5_moe import CONFIG as PHI35
+    from repro_torch.models.transformer import head_weights, init_params
+    from repro_torch.retrieval.sparse_rep import stack_rows
+    from repro_torch.runtime.serving import make_config_encoder
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    reset_launches()
+    served = phase_serve(torch, MOONSHOT, "moe_serve")
+    serve_launches = read_launches()
+    params = served.pop("params")
+    res = served.pop("res")
+    k4 = {f"B{q.values.shape[0]}": time_impact(
+        torch, q, res["index"], SERVE["topk"], reps=20)
+        for q in (res["queries"], stack_rows(res["served"]))}
+    del res
+    torch.cuda.empty_cache()
+    encode_trace = profile_encode(
+        torch, make_config_encoder(params, served["cfg"]), MOONSHOT, n=3)
+    moonshot = moe_trunk(torch, MOONSHOT, params, "moonshot",
+                         decode_cache=True)
+    emit("moe_moonshot", config=MOONSHOT.name, n_params=MOONSHOT.n_params,
+         n_active_params=MOONSHOT.n_active_params,
+         weight_bytes=sum(t.nbytes for t in tree_leaves(params)),
+         encode_trace=encode_trace, **moonshot)
+    timing = {}
+    E, b = head_weights(params, MOONSHOT)
+    for name, which, B, S in MOE_K1_TIMING:
+        if which == "moonshot":
+            timing[name] = time_k1_decoder(torch, E, b, B, S, None)
+    del params, E, b
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(PHI35, n_layers=PHI35_LAYERS)
+    params = init_params(torch.Generator(device="cuda").manual_seed(2), cfg)
+    phi35 = moe_trunk(torch, cfg, params, "phi35", decode_cache=False)
+    emit("moe_phi35", config=cfg.name, n_layers=cfg.n_layers,
+         published_layers=PHI35.n_layers, n_params=cfg.n_params,
+         published_n_params=PHI35.n_params, **phi35)
+    E, b = head_weights(params, cfg)
+    for name, which, B, S in MOE_K1_TIMING:
+        if which == "phi35":
+            timing[name] = time_k1_decoder(torch, E, b, B, S, None)
+    del params, E, b
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    emit("moe", k1_timing=timing, k4=k4, seconds=seconds)
+    return {"k1_paths": {"serve": served["k1_paths"],
+                         "moonshot_prefill": moonshot["prefill"]["k1_paths"],
+                         "phi35_prefill": phi35["prefill"]["k1_paths"]},
+            "launches": {"serve": serve_launches,
+                         "moonshot_prefill": moonshot["prefill"]["launches"],
+                         "moonshot_decode": moonshot["decode"]["launches"],
+                         "phi35_prefill": phi35["prefill"]["launches"],
+                         "phi35_decode": phi35["decode"]["launches"]},
+            "timing": timing, "k4": k4, "seconds": seconds}
+
+
 def kernel_rows(measured, launches, dense_launches, engine_launches,
                 train_launches, k1_paths, xlmr, eval_launches, ckpt_launches,
-                pruned, frontier, examples, decoder):
+                pruned, frontier, examples, decoder, moe):
     """The ``{"kernels": [...]}`` line: each kernel's launches on its path
     and its numbers from the timing phase (K1 at an index batch, K2/K3 at
     the train shape, K4, K5 and K6 at the served queries; K1 also at the
@@ -5011,7 +5301,11 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
     decoder shapes (``at_decoder``: the serve batch, llama's prefill at B
     1 and 2 x 32768, gemma2's at 2 x 8192 with softcap 30, each with the
     paper's baseline head's ``naive_ms``), and K4's its numbers on the
-    llama serve's V 128256 index at the served 8 queries and all 64."""
+    llama serve's V 128256 index at the served 8 queries and all 64.
+    Likewise for the moe phase: every row's ``moe_launches`` (the
+    moonshot serve, each prefill and each decode comparison), K1's
+    ``at_moe`` (moonshot's serve batch and 2 x 8192, phi3.5-moe's 2 x
+    8192) and K4's ``at_moe`` (moonshot's V 163840 index)."""
     main_k1, bwd, k4, k5, k6 = (measured[key]
                                 for key in ("k1", "bwd", "k4", "k5", "k6"))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -5122,16 +5416,18 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
             name: n[key] for name, n in examples["serve"].items()}
         row["example_quickstart_launches"] = examples["quickstart"][key]
         row["streaming_launches"] = examples["streaming"]["launches"][key]
-        row["decoder_launches"] = {
-            where: n[key] for where, n in decoder["launches"].items()}
-    rows[0]["at_decoder"] = {
-        name: {key: r[key] for key in keys + (
-            "shape", "softcap", "peak_mb", "plain_peak_mb",
-            "library_peak_mb", "naive_ms", "naive_peak_mb",
-            "naive_needs_bytes", "imax_mismatch")}
-        for name, r in decoder["timing"].items()}
-    rows[3]["at_decoder"] = {name: {key: r[key] for key in k45_keys}
-                             for name, r in decoder["k4"].items()}
+        for phase, out in (("decoder", decoder), ("moe", moe)):
+            row[f"{phase}_launches"] = {
+                where: n[key] for where, n in out["launches"].items()}
+    for phase, out in (("decoder", decoder), ("moe", moe)):
+        rows[0][f"at_{phase}"] = {
+            name: {key: r[key] for key in keys + (
+                "shape", "softcap", "peak_mb", "plain_peak_mb",
+                "library_peak_mb", "naive_ms", "naive_peak_mb",
+                "naive_needs_bytes", "imax_mismatch")}
+            for name, r in out["timing"].items()}
+        rows[3][f"at_{phase}"] = {name: {key: r[key] for key in k45_keys}
+                                  for name, r in out["k4"].items()}
     rows[3]["ceiling"]["example_serve_launches"] = {
         name: n["impact_ceiling_topk"]
         for name, n in examples["serve"].items()}
@@ -5219,10 +5515,14 @@ def main() -> int:
     decoder = phase_decoder(torch)
     k1_paths.update({f"decoder_{where}": paths
                      for where, paths in decoder["k1_paths"].items()})
+    moe = phase_moe(torch)
+    k1_paths.update({f"moe_{where}": paths
+                     for where, paths in moe["k1_paths"].items()})
     print(json.dumps({"kernels": kernel_rows(
         measured, served["launches"], dense_launches, engine_launches,
         trained["launches"], k1_paths, xlmr, evaluated["launches"],
-        ckpt["launches"], served_pruned, frontier, examples, decoder)}),
+        ckpt["launches"], served_pruned, frontier, examples, decoder,
+        moe)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,9 @@
 
 ``ARCHS`` are the archs the port holds: the two SPLADE encoders, which it
 serves and trains (``TRAIN_ARCHS``, the train CLI's), and the three dense
-decoders, which it serves (the LSR prefill step, KV-cache decode and the
-serve CLI). ``ALIASES`` are the JAX package's external ids. The MoE
-decoders are refused until their trunk is ported (ROADMAP Queue 1 item
-12b).
+and two MoE decoders, which it serves (the LSR prefill step, KV-cache
+decode and the serve CLI). ``ALIASES`` are the JAX package's external
+ids.
 """
 
 from __future__ import annotations
@@ -14,8 +13,8 @@ from __future__ import annotations
 import importlib
 
 TRAIN_ARCHS = ("splade_bert", "splade_xlmr")
-ARCHS = TRAIN_ARCHS + ("llama3_2_3b", "gemma2_27b", "phi3_mini")
-MOE_ARCHS = ("moonshot_v1_16b", "phi3_5_moe")
+ARCHS = TRAIN_ARCHS + ("llama3_2_3b", "gemma2_27b", "phi3_mini",
+                       "moonshot_v1_16b", "phi3_5_moe")
 
 # external ids (with dots and dashes) -> module names, as in the JAX package
 ALIASES = {
@@ -31,12 +30,8 @@ ALIASES = {
 
 def resolve_arch(arch_id: str) -> str:
     """The module name of an arch id or alias. Raises ``ValueError`` for an
-    unknown id and ``NotImplementedError`` for an MoE one."""
+    unknown id."""
     name = ALIASES.get(arch_id, arch_id)
-    if name in MOE_ARCHS:
-        raise NotImplementedError(
-            f"{arch_id}: the MoE trunk (models/moe.py) is not ported yet; "
-            "it arrives with ROADMAP Queue 1 item 12b")
     if name not in ARCHS:
         raise ValueError(f"unknown arch {arch_id!r}; the port has "
                          f"{list(ARCHS)} and the aliases "

@@ -2,7 +2,8 @@
 
 Only the transformer family is here: the port serves and trains the
 SPLADE encoders (``splade_bert``, ``splade_xlmr``) and serves the dense
-decoders (``llama3_2_3b``, ``gemma2_27b``, ``phi3_mini``). Field names and
+decoders (``llama3_2_3b``, ``gemma2_27b``, ``phi3_mini``) and the MoE
+decoders (``moonshot_v1_16b``, ``phi3_5_moe``). Field names and
 defaults are the JAX package's, so a config reads the same in both, with
 one exception:
 ``head_impl`` defaults to ``"kernel"``, the CUDA head, so that no entry
@@ -31,7 +32,7 @@ class ShapeSpec:
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     name: str
-    family: str  # "dense" | "moe" (the port runs "dense" only)
+    family: str  # "dense" | "moe"
     n_layers: int
     d_model: int
     n_heads: int
@@ -42,6 +43,7 @@ class TransformerConfig:
     # MoE
     n_experts: int = 0
     top_k: int = 0
+    capacity_factor: float = 1.25
     # gemma-2 features
     sliding_window: Optional[int] = None   # local attention window
     local_global_alternating: bool = False  # even layers local, odd global
@@ -60,6 +62,7 @@ class TransformerConfig:
     lambda_q: float = 5e-4         # FLOPS weight on query reps
     lambda_d: float = 3e-4         # FLOPS weight on doc reps
     l1_weight: float = 0.0         # optional L1 on both rep sides
+    aux_weight: float = 1e-2       # MoE load-balance aux weight
     # Head backend, resolved against the head_api registry by
     # ``head_spec()``: "jax" is the JAX package's alias for the plain
     # "sparton" head.
@@ -104,12 +107,30 @@ class TransformerConfig:
 
     @property
     def n_params(self) -> int:
-        """Approximate parameter count (embeddings + trunk), dense family."""
+        """Approximate parameter count (embeddings + trunk + head)."""
         d, f, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab_size
-        attn = d * self.n_heads * self.d_head * 2 \
-            + d * self.n_kv_heads * self.d_head * 2
-        trunk = L * (attn + 3 * d * f + 2 * d)
+        if self.is_moe:
+            mlp = self.n_experts * 3 * d * f + d * self.n_experts
+        else:
+            mlp = 3 * d * f
+        trunk = L * (self._attn_params + mlp + 2 * d)
         return trunk + V * d * (1 if self.tie_embeddings else 2)
+
+    @property
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE counts top_k experts)."""
+        if not self.is_moe:
+            return self.n_params
+        d, f, L = self.d_model, self.d_ff, self.n_layers
+        mlp = self.top_k * 3 * d * f + d * self.n_experts
+        embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return L * (self._attn_params + mlp + 2 * d) + embed
+
+    @property
+    def _attn_params(self) -> int:
+        d = self.d_model
+        return d * self.n_heads * self.d_head * 2 \
+            + d * self.n_kv_heads * self.d_head * 2
 
 
 def shapes_lm(long_ok: bool, long_skip_reason: str = "") -> Dict[str, ShapeSpec]:

@@ -359,8 +359,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="splade_bert",
                     help=f"one of {', '.join(ARCHS)} or a JAX alias "
-                         f"({', '.join(ALIASES)}); a decoder serves "
-                         f"through its causal trunk")
+                         f"({', '.join(ALIASES)}); a decoder (dense or "
+                         f"MoE) serves through its causal trunk")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--corpus", type=int, default=1000)
     ap.add_argument("--topk", type=int, default=10)
@@ -442,7 +442,7 @@ def main(argv=None) -> int:
         ap.error("--tenants must be >= 0")
     try:
         arch = get_config(args.arch)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         ap.error(str(e))
     try:
         device = resolve_device(args.device)

@@ -8,19 +8,21 @@ on the query and the document tokens, the SPLADE loss, its gradients
 ``n_micro`` chunks, then AdamW on the f32 master params. The state is
 ``{"params", "opt": {"mu", "nu"}, "step"}``, as the JAX package's.
 ``build_lsr_prefill_step`` encodes ``{"tokens", "mask"}`` through the
-trunk (causal for a decoder) and the config's head: the paper's head on a
-decoder backbone, K1 for ``head_impl="kernel"``. ``build_decode_step``
-takes one KV-cache step on ``{"tokens", "positions", "cache_k",
-"cache_v"}``. ``streaming_topk`` is the JAX package's tile-by-tile top-k
+trunk (causal for a decoder, dense or MoE) and the config's head: the
+paper's head on a decoder backbone, K1 for ``head_impl="kernel"``.
+``build_decode_step`` takes one KV-cache step on ``{"tokens",
+"positions", "cache_k", "cache_v"}``. The train step raises on an MoE
+config (its objective adds the aux loss: decoder training, ROADMAP Queue
+1 item 12b). ``streaming_topk`` is the JAX package's tile-by-tile top-k
 over a dense candidate matrix, the counterpart of K6 built from plain
 PyTorch.
 
-Still to come: every ``mesh`` (the vocab-sharded step and
-``streaming_topk``'s ``vary_axes``: multi-GPU, ROADMAP Queue 1 item 10),
-the recsys train and serve steps with ``build_retrieval_step`` and the GNN
-step (models this port does not hold yet); the MarginMSE term waits for a
-distillation data source and the MoE aux loss for an MoE trunk (item
-12b).
+Still to come: every ``mesh`` (the vocab-sharded step, the
+expert-parallel MoE and ``streaming_topk``'s ``vary_axes``: multi-GPU,
+ROADMAP Queue 1 item 10), the recsys train and serve steps with
+``build_retrieval_step`` and the GNN step (models this port does not hold
+yet); the MarginMSE term waits for a distillation data source and the
+MoE aux loss term for decoder training (item 12b).
 """
 
 from __future__ import annotations
@@ -62,7 +64,13 @@ def value_and_grad(loss_fn: Callable[[Any, Batch], torch.Tensor]
 
 def lsr_loss(cfg: TransformerConfig) -> Callable[[Any, Batch], torch.Tensor]:
     """``(params, batch) -> loss``: both sides encoded with the config's
-    head, then the SPLADE objective."""
+    head, then the SPLADE objective. An MoE config raises (item 12b)."""
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: training an MoE trunk (the objective's "
+            "aux_weight * (aux_q + aux_d) term) is not ported yet: it "
+            "arrives with decoder training, ROADMAP Queue 1 item 12b")
+
     def loss_fn(params, mb):
         yq = tfm.lsr_encode(params, cfg, mb["q_tokens"], mb["q_mask"])
         yd = tfm.lsr_encode(params, cfg, mb["d_tokens"], mb["d_mask"])
@@ -80,7 +88,8 @@ def build_lsr_train_step(
 ) -> Callable[[State, Batch], Tuple[State, Dict[str, torch.Tensor]]]:
     """The step: peak ``lr`` after 1000 warm-up steps, then a cosine to
     ``total_steps``. It returns a new state and leaves the one it was
-    given as it was, so a fault-tolerant runner can retry it."""
+    given as it was, so a fault-tolerant runner can retry it. An MoE
+    config raises (item 12b, ``lsr_loss``)."""
     opt = adamw(linear_warmup_cosine(lr, 1000, total_steps))
     grad_fn = value_and_grad(lsr_loss(cfg))
 
@@ -110,7 +119,8 @@ def _encode_fn(cfg: TransformerConfig, mesh: Any, n_batch: int,
     """``(params, tokens, mask) -> y (B, V)``: the trunk and the config's
     head (``head_api.make_head``). ``n_batch`` and ``unroll`` shape the JAX
     function's sharding and layer scan; eager PyTorch has neither. (The
-    JAX function also returns the MoE aux loss.)"""
+    JAX function also returns the MoE aux loss, which only its train step
+    reads; serving drops it there too.)"""
     from repro_torch.core.head_api import make_head
 
     _no_mesh(mesh, "_encode_fn")

@@ -279,12 +279,13 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     try:
         arch = resolve_arch(args.arch)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         ap.error(str(e))
     if arch not in TRAIN_ARCHS:
         ap.error(f"--arch {args.arch}: the port trains {list(TRAIN_ARCHS)}; "
-                 "decoder training (K2/K3 at D 3072 and 4608) arrives with "
-                 "ROADMAP Queue 1 item 12b")
+                 "decoder training (dense and MoE trunks, K2/K3 at D 2048 "
+                 "to 4608, the MoE aux loss) arrives with ROADMAP Queue 1 "
+                 "item 12b")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:

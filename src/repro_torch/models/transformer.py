@@ -1,7 +1,8 @@
-"""The dense transformer trunks (``repro/models/transformer.py``): the
-bidirectional SPLADE encoders and the causal decoders (llama3.2-3b,
+"""The transformer trunks (``repro/models/transformer.py``): the
+bidirectional SPLADE encoders, the dense causal decoders (llama3.2-3b,
 phi3-mini; gemma2-27b with its sliding window on the even layers and its
-logit softcaps).
+logit softcaps) and the MoE decoders (moonshot-v1-16b-a3b, phi3.5-moe),
+whose FFN is ``models.moe.moe_ffn`` on the layer's flattened tokens.
 
 Parameters are a plain dict of tensors in the JAX package's layout:
 every layer leaf is stacked with a leading ``n_layers`` axis, and weights
@@ -20,7 +21,8 @@ Heads: ``lsr_encode`` (the trunk and the Sparton head, Eq. 1) and
 ``causal_lm_logits`` / ``decode_step`` (next-token logits, a plain
 matmul as in the JAX package, which computes them outside any Pallas
 kernel). ``decode_step`` writes each layer's key and value into one
-stacked cache in place. MoE trunks wait for ROADMAP Queue 1 item 12b.
+stacked cache in place. An MoE layer's load-balance loss is summed over
+the layers by ``forward_hidden(..., return_aux=True)``.
 """
 
 from __future__ import annotations
@@ -35,15 +37,9 @@ from repro_torch.configs.base import TransformerConfig
 from repro_torch.device import dtype_of
 from repro_torch.models.attention import (apply_rope, chunked_attention,
                                           decode_attention)
+from repro_torch.models.moe import init_moe_params, moe_ffn
 
 Params = Dict[str, Any]
-
-
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs dense trunks only; the MoE trunk "
-            "(models/moe.py) arrives with ROADMAP Queue 1 item 12b")
 
 
 def layer_window(cfg: TransformerConfig, i: int) -> Optional[int]:
@@ -60,7 +56,6 @@ def init_params(generator: torch.Generator,
     device, in the JAX package's layout. The numbers differ from
     ``jax.random``'s: tests carry weights across with
     ``weights.params_from_jax`` instead."""
-    _dense_only(cfg)
     dtype = dtype_of(cfg.param_dtype)
     dev = generator.device
     L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
@@ -68,23 +63,26 @@ def init_params(generator: torch.Generator,
 
     def normal(shape, scale):
         return torch.randn(shape, generator=generator, device=dev,
-                           dtype=dtype) * scale
+                           dtype=dtype).mul_(scale)
 
     sc_d, sc_a, sc_f = D ** -0.5, (H * dh) ** -0.5, Fd ** -0.5
+    # drawn in this order: the embedding, attention, then the FFN
+    embed = normal((V, D), sc_d)
+    attn = {"wq": normal((L, D, H * dh), sc_d),
+            "wk": normal((L, D, KV * dh), sc_d),
+            "wv": normal((L, D, KV * dh), sc_d),
+            "wo": normal((L, H * dh, D), sc_a)}
+    if cfg.is_moe:
+        mlp = init_moe_params(generator, L, D, Fd, cfg.n_experts, dtype)
+    else:
+        mlp = {"w_gate": normal((L, D, Fd), sc_d),
+               "w_up": normal((L, D, Fd), sc_d),
+               "w_down": normal((L, Fd, D), sc_f)}
     params: Params = {
-        "embed": normal((V, D), sc_d),
+        "embed": embed,
         "layers": {
-            "attn": {
-                "wq": normal((L, D, H * dh), sc_d),
-                "wk": normal((L, D, KV * dh), sc_d),
-                "wv": normal((L, D, KV * dh), sc_d),
-                "wo": normal((L, H * dh, D), sc_a),
-            },
-            "mlp": {
-                "w_gate": normal((L, D, Fd), sc_d),
-                "w_up": normal((L, D, Fd), sc_d),
-                "w_down": normal((L, Fd, D), sc_f),
-            },
+            "attn": attn,
+            "mlp": mlp,
             "ln1": torch.ones((L, D), dtype=dtype, device=dev),
             "ln2": torch.ones((L, D), dtype=dtype, device=dev),
         },
@@ -104,18 +102,20 @@ def head_weights(params: Params, cfg: TransformerConfig):
 
 def compute_weights(params: Params, cfg: TransformerConfig) -> Params:
     """``params`` with the embedding, the head's ``E`` and every layer's
-    projections in the compute dtype, so that ``forward_hidden`` and the
-    head cast nothing per call. Norm scales and the head bias keep their
-    dtype; the numbers are those of a cast at each call. Serving only: a
-    copy made once goes stale at the first update and would cut the
-    gradient off from the f32 masters."""
+    projections (an MoE layer's experts) in the compute dtype, so that
+    ``forward_hidden`` and the head cast nothing per call. Norm scales,
+    the head bias and an MoE ``router`` (which ``moe_ffn`` up-casts to f32
+    at each call) keep their dtype; the numbers are those of a cast at
+    each call. Serving only: a copy made once goes stale at the first
+    update and would cut the gradient off from the f32 masters."""
     cdtype = dtype_of(cfg.compute_dtype)
     layers = params["layers"]
     out: Params = {
         "embed": params["embed"].to(cdtype),
         "layers": {
             "attn": {n: w.to(cdtype) for n, w in layers["attn"].items()},
-            "mlp": {n: w.to(cdtype) for n, w in layers["mlp"].items()},
+            "mlp": {n: w if n == "router" else w.to(cdtype)
+                    for n, w in layers["mlp"].items()},
             "ln1": layers["ln1"], "ln2": layers["ln2"]},
         "final_norm": params["final_norm"],
         "lm_head": {"b": params["lm_head"]["b"]},
@@ -133,10 +133,11 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 def _layer(x: torch.Tensor, lp: Params, i: int, cfg: TransformerConfig, *,
-           positions: torch.Tensor, mask: torch.Tensor,
-           causal: bool) -> torch.Tensor:
+           positions: torch.Tensor, mask: torch.Tensor, causal: bool
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Layer ``i`` of the stacked params ``lp`` on ``x`` (B, S, D);
-    ``positions`` (S,)."""
+    ``positions`` (S,). Returns the new ``x`` and the MoE aux loss (None
+    for a dense layer)."""
     B, S, _ = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     cdtype = x.dtype
@@ -154,28 +155,39 @@ def _layer(x: torch.Tensor, lp: Params, i: int, cfg: TransformerConfig, *,
         causal=causal, window=layer_window(cfg, i),
         logit_softcap=cfg.attn_logit_softcap, chunk_size=cfg.attn_chunk)
     x = x + out.reshape(B, S, H * dh) @ attn["wo"][i].to(cdtype)
-    return x + _mlp(x, lp, i, cfg)
+    y, aux = _mlp(x, lp, i, cfg)
+    return x + y, aux
 
 
-def _mlp(x: torch.Tensor, lp: Params, i: int,
-         cfg: TransformerConfig) -> torch.Tensor:
+def _mlp(x: torch.Tensor, lp: Params, i: int, cfg: TransformerConfig
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Layer ``i``'s FFN on ``x`` (..., D) after its norm: SwiGLU, or
+    ``moe_ffn`` on the flattened tokens with its aux loss (else None)."""
     cdtype = x.dtype
     mlp = lp["mlp"]
     h = rms_norm(x, lp["ln2"][i], cfg.norm_eps)
+    if cfg.is_moe:
+        out, aux = moe_ffn(
+            h.reshape(-1, h.shape[-1]), mlp["router"][i], mlp["w_gate"][i],
+            mlp["w_up"][i], mlp["w_down"][i], top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor)
+        return out.reshape(h.shape), aux
     g = h @ mlp["w_gate"][i].to(cdtype)
     u = h @ mlp["w_up"][i].to(cdtype)
-    return (F.silu(g) * u) @ mlp["w_down"][i].to(cdtype)
+    return (F.silu(g) * u) @ mlp["w_down"][i].to(cdtype), None
 
 
 def forward_hidden(params: Params, cfg: TransformerConfig,
                    tokens: torch.Tensor,
                    mask: Optional[torch.Tensor] = None, *,
-                   causal: Optional[bool] = None) -> torch.Tensor:
+                   causal: Optional[bool] = None, return_aux: bool = False):
     """Final hidden states ``H`` (B, S, D) in the compute dtype, causal
     unless the config is a bidirectional encoder (or ``causal`` says
-    otherwise). (The JAX function also returns the MoE aux loss, always 0
-    for a dense trunk.)"""
-    _dense_only(cfg)
+    otherwise). With ``return_aux`` it returns ``(H, aux)`` as the JAX
+    function does: the MoE load-balance loss summed over the layers, an
+    f32 scalar (0 for a dense trunk). Padded positions are routed and take
+    expert capacity, as in the reference, whose FFN never sees the
+    mask."""
     B, S = tokens.shape
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.int32, device=tokens.device)
@@ -184,15 +196,24 @@ def forward_hidden(params: Params, cfg: TransformerConfig,
     positions = torch.arange(S, device=tokens.device)
     x = params["embed"][tokens.long()].to(dtype_of(cfg.compute_dtype))
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = None
     for i in range(cfg.n_layers):
         if remat:
-            x = checkpoint(_layer, x, params["layers"], i, cfg,
-                           positions=positions, mask=mask, causal=causal,
-                           use_reentrant=False)
+            x, layer_aux = checkpoint(
+                _layer, x, params["layers"], i, cfg, positions=positions,
+                mask=mask, causal=causal, use_reentrant=False)
         else:
-            x = _layer(x, params["layers"], i, cfg, positions=positions,
-                       mask=mask, causal=causal)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+            x, layer_aux = _layer(x, params["layers"], i, cfg,
+                                  positions=positions, mask=mask,
+                                  causal=causal)
+        if layer_aux is not None:
+            aux = layer_aux if aux is None else aux + layer_aux
+    H = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if not return_aux:
+        return H
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    return H, aux
 
 
 def lsr_encode(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
@@ -225,7 +246,8 @@ def causal_lm_logits(params: Params, cfg: TransformerConfig,
                      tokens: torch.Tensor,
                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, S, V) next-token logits of the causal trunk, softcap applied.
-    (The JAX function also returns the MoE aux loss.)"""
+    (The JAX function also returns the MoE aux loss:
+    ``forward_hidden(..., return_aux=True)`` gives it.)"""
     return _next_token_logits(
         forward_hidden(params, cfg, tokens, mask, causal=True), params, cfg)
 
@@ -254,10 +276,10 @@ def decode_step(params: Params, cfg: TransformerConfig,
     Each layer writes its key and value at ``positions`` into the stacked
     ``cache`` in place (one ``index_put_`` on the (L, B, S_max, KV, dh)
     tensor, never a copy of it), then attends over the cache with the
-    layer's window. The returned cache is the one given, updated; the
-    JAX function returns an updated copy.
+    layer's window. An MoE layer runs ``moe_ffn`` on the B rows, so its
+    capacity is that of a B-token call. The returned cache is the one
+    given, updated; the JAX function returns an updated copy.
     """
-    _dense_only(cfg)
     B = tokens.shape[0]
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     cdtype = dtype_of(cfg.compute_dtype)
@@ -280,6 +302,6 @@ def decode_step(params: Params, cfg: TransformerConfig,
                                window=layer_window(cfg, i),
                                logit_softcap=cfg.attn_logit_softcap)
         x = x + out.reshape(B, 1, H * dh) @ attn["wo"][i].to(cdtype)
-        x = x + _mlp(x, layers, i, cfg)
+        x = x + _mlp(x, layers, i, cfg)[0]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _next_token_logits(x[:, 0], params, cfg), cache

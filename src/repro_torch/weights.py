@@ -1,7 +1,7 @@
 """Carry the JAX package's parameters and train state over to the port.
 
-``params_from_jax`` takes the JAX param pytree of a dense transformer,
-already converted to numpy arrays by the caller (stacked ``(L, ...)``
+``params_from_jax`` takes the JAX param pytree of a transformer (dense
+or MoE), already converted to numpy arrays by the caller (stacked ``(L, ...)``
 layer leaves, weights laid out for ``x @ W``), and returns the port's
 params: the same tree of tensors on ``device``. ``state_from_jax`` does
 the same for a whole train state (params, the AdamW moments, the step).
@@ -30,14 +30,21 @@ def _expected_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
         "layers/attn/wk": (L, D, KV * dh),
         "layers/attn/wv": (L, D, KV * dh),
         "layers/attn/wo": (L, H * dh, D),
-        "layers/mlp/w_gate": (L, D, Fd),
-        "layers/mlp/w_up": (L, D, Fd),
-        "layers/mlp/w_down": (L, Fd, D),
         "layers/ln1": (L, D),
         "layers/ln2": (L, D),
         "final_norm": (D,),
         "lm_head/b": (V,),
     }
+    if cfg.is_moe:
+        E = cfg.n_experts
+        shapes.update({"layers/mlp/router": (L, D, E),
+                       "layers/mlp/w_gate": (L, E, D, Fd),
+                       "layers/mlp/w_up": (L, E, D, Fd),
+                       "layers/mlp/w_down": (L, E, Fd, D)})
+    else:
+        shapes.update({"layers/mlp/w_gate": (L, D, Fd),
+                       "layers/mlp/w_up": (L, D, Fd),
+                       "layers/mlp/w_down": (L, Fd, D)})
     if not cfg.tie_embeddings:
         shapes["lm_head/E"] = (V, D)
     return shapes
@@ -48,7 +55,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
     """The port's params from a numpy copy of the JAX pytree.
 
     Raises if a leaf is missing, extra or of the wrong shape for ``cfg``
-    (an MoE tree has other leaves and is refused).
+    (an MoE tree has other leaves than a dense one: either is refused for
+    the other's config).
     """
     dev = resolve_device(device)
     flat = tree_items(tree)
@@ -56,7 +64,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
     if set(flat) != set(expected):
         raise ValueError(
             f"params_from_jax: leaves {sorted(set(flat) ^ set(expected))} "
-            f"do not match a dense {cfg.name} tree")
+            f"do not match {'an MoE' if cfg.is_moe else 'a dense'} "
+            f"{cfg.name} tree")
     out: Dict[str, Any] = {}
     for path, value in flat.items():
         arr = np.asarray(value)

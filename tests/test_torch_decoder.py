@@ -1,6 +1,8 @@
 """The dense decoders (llama3.2-3b, gemma2-27b, phi3-mini) in the port
 against the JAX package, with the JAX SMOKE params carried over by
-``weights.params_from_jax`` (CPU).
+``weights.params_from_jax`` (CPU). The MoE decoders' configs, aliases and
+train CLI ids are held here too; their trunks in
+``test_torch_moe_decoder.py``.
 
 Tolerances:
 
@@ -39,8 +41,11 @@ from repro_torch.models import transformer as tfm
 from repro_torch.weights import params_from_jax
 
 DECODERS = ("llama3_2_3b", "gemma2_27b", "phi3_mini")
+MOE = ("moonshot_v1_16b", "phi3_5_moe")
 ALIASES = {"llama3.2-3b": "llama3_2_3b", "gemma2-27b": "gemma2_27b",
-           "phi3-mini-3.8b": "phi3_mini"}
+           "phi3-mini-3.8b": "phi3_mini",
+           "moonshot-v1-16b-a3b": "moonshot_v1_16b",
+           "phi3.5-moe-42b-a6.6b": "phi3_5_moe"}
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4, mean=1e-5),
        "bfloat16": dict(rtol=0.0, atol=0.1, mean=0.02)}
 # name: (S, attn_chunk) — within one chunk, and past it in 3 chunks (the
@@ -80,7 +85,7 @@ def _tokens(cfg, B=2, S=12, seed=0):
 # configs and registry
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DECODERS)
+@pytest.mark.parametrize("arch", DECODERS + MOE)
 def test_configs_match_jax(arch):
     mod, jmod = get_config(arch), jax_config(arch)
     for name in ("CONFIG", "SMOKE"):
@@ -90,6 +95,7 @@ def test_configs_match_jax(arch):
             assert getattr(cfg, field) == getattr(jcfg, field), (name, field)
         assert cfg.head_impl == "kernel"
         assert cfg.n_params == jcfg.n_params
+        assert cfg.n_active_params == jcfg.n_active_params
     assert list(mod.SHAPES) == list(jmod.SHAPES)
     for key, spec in mod.SHAPES.items():
         jspec = jmod.SHAPES[key]
@@ -111,24 +117,9 @@ def test_aliases_resolve(alias):
     assert configs.ALIASES[alias] == jax_config.__globals__["ALIASES"][alias]
 
 
-@pytest.mark.parametrize("arch_id", ["moonshot_v1_16b", "phi3_5_moe",
-                                     "moonshot-v1-16b-a3b",
-                                     "phi3.5-moe-42b-a6.6b"])
-def test_moe_ids_are_refused_naming_12b(arch_id):
-    with pytest.raises(NotImplementedError, match="12b"):
-        get_config(arch_id)
-
-
 def test_unknown_arch_raises():
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("gpt5")
-
-
-def test_moe_config_is_refused_by_the_trunk():
-    cfg = dataclasses.replace(get_config("llama3_2_3b").SMOKE, n_experts=4,
-                              top_k=2)
-    with pytest.raises(NotImplementedError, match="12b"):
-        tfm.init_params(torch.Generator().manual_seed(0), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -351,16 +342,8 @@ def test_serve_cli_serves_a_decoder_on_the_cpu(arch, capsys):
     assert "retrieval[fused]: top-10 for 6 queries" in out
 
 
-@pytest.mark.parametrize("argv", [
-    ["--arch", "phi3_5_moe"], ["--arch", "moonshot-v1-16b-a3b"]])
-def test_serve_cli_refuses_an_moe_id(argv, capsys):
-    with pytest.raises(SystemExit) as exc:
-        serve.main(argv + ["--device", "cpu"])
-    assert exc.value.code == 2
-    assert "12b" in capsys.readouterr().err
-
-
-@pytest.mark.parametrize("arch", ["llama3_2_3b", "gemma2-27b", "phi3_mini"])
+@pytest.mark.parametrize("arch", ["llama3_2_3b", "gemma2-27b", "phi3_mini",
+                                  "moonshot_v1_16b", "phi3.5-moe-42b-a6.6b"])
 def test_train_cli_refuses_a_decoder(arch, capsys, tmp_path):
     with pytest.raises(SystemExit) as exc:
         train.main(["--arch", arch, "--device", "cpu", "--steps", "1",
