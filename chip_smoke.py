@@ -1,6 +1,9 @@
 """Drive the PyTorch port's serving and training paths on one NVIDIA H100.
 
     python3 chip_smoke.py            # one card, no arguments
+    python3 chip_smoke.py --train-depth llama 8 12 16 18 20
+                                     # the train_decoder depths' peak
+                                     # memory (``train_depth``)
 
 Phases, run in this order, each printing one JSON line:
 
@@ -235,9 +238,33 @@ Phases, run in this order, each printing one JSON line:
              moonshot's 64 x 16 and 2 x 8192 and phi3.5-moe's 2 x 8192, as
              in the decoder phase.
 
+13. train_decoder — the dense and MoE decoders' training at full width,
+             bf16 params and compute, seeded random weights, the kernel
+             head: (a) K2 and K3 at B 2 x S 4096 (train_4k's length) at
+             the five decoders' (D, V, softcap): llama3.2-3b (3072,
+             128256), phi3-mini (3072, 32064), gemma2-27b (4608, 256000,
+             30), moonshot (2048, 163840) and phi3.5-moe (4096, 32064),
+             against their plain versions and a second launch on
+             ``bwd_inputs``, then timed beside their bound, their plain
+             versions and the baseline head's backward; (b) the gradient
+             check (the train phase's, with its in-run controls) on
+             llama and moonshot at 2 layers, 4 pairs x 512; (c) one
+             warm-up and 3 timed steps of ``build_lsr_train_step`` on the
+             train CLI's ``pair_loader`` at S 4096 (remat on): llama at
+             ``LLAMA_TRAIN_LAYERS`` of 28 layers (4 pairs, n_micro 2),
+             gemma2 at 2 of 46 (2 pairs), moonshot at 3 of 48 (4 pairs,
+             n_micro 2, the objective's aux term), each step's ms, peak
+             memory, loss and K1/K2/K3 launches (2 x n_micro each) with
+             their CUDA-event ms; K1, K2 and K3 against their plain
+             versions on each warm-up step's own routing; moonshot's
+             first gradients taken twice (whether the MoE backward gives
+             the same bits run to run, printed); (d) the CLI's loop
+             (``make_runner``) on llama at 2 layers writing its final
+             checkpoint with bf16 params, loaded back bit for bit.
+
 Every K1 launch of the serve, dense-serve, engine, pruned, frontier, train,
-eval (b), xlmr (its serving phases too), ckpt, example_serve, decoder and
-moe phases must take the "tma" path. Then a
+eval (b), xlmr (its serving phases too), ckpt, example_serve, decoder,
+moe and train_decoder phases must take the "tma" path. Then a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any mismatch, exception or missing launch exits non-zero before that last
 line. The script imports nothing of JAX nor of the JAX package.
@@ -3134,23 +3161,27 @@ def time_k1(torch, H, E, b, mask, *, reps, plain_reps):
     return row
 
 
-def head_library(torch, H, E, b, mask):
+def head_library(torch, H, E, b, mask, softcap=None):
     """``k1_library`` written out of place, so that autograd can take its
-    backward: the paper's PyTorch baseline as a training step runs it."""
-    z = torch.log1p(torch.relu(torch.matmul(H, E.t()) + b.to(H.dtype)))
+    backward: the paper's PyTorch baseline as a training step runs it
+    (with ``softcap``, ``cap * tanh(logits / cap)`` before the ReLU)."""
+    z = torch.matmul(H, E.t()) + b.to(H.dtype)
+    if softcap:
+        z = softcap * torch.tanh(z / softcap)
+    z = torch.log1p(torch.relu(z))
     return (z * mask[:, :, None].to(z.dtype)).amax(dim=1)
 
 
-def head_kernel_fwd_bwd(torch, H, E, b, mask, dy):
+def head_kernel_fwd_bwd(torch, H, E, b, mask, dy, softcap=None):
     """K1 forward and K2 + K3 backward through ``ops.sparton_head``."""
     from repro_torch.kernels.ops import sparton_head
 
     Hk, Ek, bk = (t.detach().requires_grad_(True) for t in (H, E, b))
-    y = sparton_head(Hk, Ek, bk, mask)
+    y = sparton_head(Hk, Ek, bk, mask, logit_softcap=softcap)
     return torch.autograd.grad(y, (Hk, Ek, bk), dy.to(y.dtype))
 
 
-def library_backward(torch, H, E, b, mask, dy, *, reps):
+def library_backward(torch, H, E, b, mask, dy, *, reps, softcap=None):
     """Backward-only times of the baseline (dH alone; dE with db) and the
     peak memory of its forward + backward. Where the batch does not fit
     the card, that is recorded and the batch halved until it fits."""
@@ -3163,8 +3194,9 @@ def library_backward(torch, H, E, b, mask, dy, *, reps):
                           for t in (H[:B], E, b))
             m, g = mask[:B], dy[:B].to(H.dtype)
             peak = peak_mb(torch, lambda: torch.autograd.grad(
-                head_library(torch, Hl, El, bl, m), (Hl, El, bl), g))
-            y = head_library(torch, Hl, El, bl, m)
+                head_library(torch, Hl, El, bl, m, softcap), (Hl, El, bl),
+                g))
+            y = head_library(torch, Hl, El, bl, m, softcap)
             dh = timed(torch, lambda: torch.autograd.grad(
                 y, (Hl,), g, retain_graph=True), reps)
             de = timed(torch, lambda: torch.autograd.grad(
@@ -3182,7 +3214,7 @@ def library_backward(torch, H, E, b, mask, dy, *, reps):
     raise SmokeFailure("the baseline head does not fit the card at batch 1")
 
 
-def bwd_bound_ms(torch, kernel, H, E, dy, y, i_max):
+def bwd_bound_ms(torch, kernel, H, E, dy, y, i_max, softcap=None):
     """The least time of K2 ("dh") or K3 ("de") for these inputs, and what
     sets it. Bytes: dy, y and i_max read once; the rows that a term with
     g != 0 reads (rows of E for K2, the distinct (b, i_max) rows of H for
@@ -3193,7 +3225,7 @@ def bwd_bound_ms(torch, kernel, H, E, dy, y, i_max):
 
     B, S, D = H.shape
     V = E.shape[0]
-    nz = bwd_factor(y, dy, None) != 0
+    nz = bwd_factor(y, dy, softcap) != 0
     nnz = int(nz.sum())
     nbytes = B * V * 12
     if kernel == "dh":
@@ -3276,29 +3308,34 @@ def sparse_product(torch, dy, y, i_max, S):
 
 
 def time_bwd(torch, H, E, b, mask, dy, y, i_max, *, reps, plain_reps,
-             library):
+             library, softcap=None):
     """K2 and K3 on one input: against their plain versions and a second
     launch, CUDA-event times of kernel and plain version, the bound, and a
     one-call yardstick: with ``library`` "head", the paper's baseline
     head's backward (dH alone; dE with db) and the head's forward +
     backward peak memory against the baseline's; with "sparse", the
     product of the routing as a sparse matrix (``torch.sparse.mm``), for
-    inputs that no baseline head gives."""
+    inputs that no baseline head gives. ``softcap`` reaches the kernels,
+    their plain versions, the bound and the baseline head."""
     from repro_torch.kernels import sparton_bwd as kb
 
     B, S, D = H.shape
-    case = bwd_compare(torch, H, E, mask, dy, y, i_max, None)
+    cap = softcap
+    case = bwd_compare(torch, H, E, mask, dy, y, i_max, cap)
     require(case["within_tol"] and case["bit_identical"],
             f"K2/K3 at {(B, S, D)}: {case}")
     rows = {}
     for kernel, fn, plain, err in (
-            ("dh", lambda: kb.sparton_backward_dh(dy, y, i_max, E, S),
-             lambda: kb.sparton_backward_dh_plain(dy, y, i_max, E, S),
+            ("dh", lambda: kb.sparton_backward_dh(dy, y, i_max, E, S,
+                                                   softcap=cap),
+             lambda: kb.sparton_backward_dh_plain(dy, y, i_max, E, S, cap),
              case["dH"]),
-            ("de", lambda: kb.sparton_backward_de(dy, y, i_max, H),
-             lambda: kb.sparton_backward_de_plain(dy, y, i_max, H),
+            ("de", lambda: kb.sparton_backward_de(dy, y, i_max, H,
+                                                   softcap=cap),
+             lambda: kb.sparton_backward_de_plain(dy, y, i_max, H, cap),
              max(case["dE"], case["db"]))):
-        bound, by, share = bwd_bound_ms(torch, kernel, H, E, dy, y, i_max)
+        bound, by, share = bwd_bound_ms(torch, kernel, H, E, dy, y, i_max,
+                                        cap)
         row = {"shape": [B, S, D, E.shape[0]], "dtype": str(H.dtype)[6:],
                "max_abs_err": err, "bit_identical": case["bit_identical"],
                "g_nonzero_share": share, "bound_ms": bound, "bound_by": by}
@@ -3319,14 +3356,15 @@ def time_bwd(torch, H, E, b, mask, dy, y, i_max, *, reps, plain_reps,
         del G, Gt, E32, H2
         torch.cuda.empty_cache()
         return rows
-    lib = library_backward(torch, H, E, b, mask, dy, reps=plain_reps)
+    lib = library_backward(torch, H, E, b, mask, dy, reps=plain_reps,
+                           softcap=cap)
     for kernel in ("dh", "de"):
         rows[kernel].update(library_ms=lib[f"{kernel}_ms"],
                             library_ms_range=lib[f"{kernel}_ms_range"],
                             library_batch=lib["batch"])
     rows["peak_mb_fwd_bwd"] = {
         "kernel": peak_mb(torch, lambda: head_kernel_fwd_bwd(
-            torch, H, E, b, mask, dy)),
+            torch, H, E, b, mask, dy, cap)),
         "library": lib["peak_mb"], "library_batch": lib["batch"],
         "library_oom_at_batch": lib["oom_at_batch"]}
     torch.cuda.empty_cache()
@@ -4728,8 +4766,9 @@ def decoder_prefill(torch, cfg, params, where, shape=None, twice=False):
 
     def keep(name, fn):
         def wrapped(*a, **kw):
-            hidden.append(fn(*a, **kw))
-            return hidden[-1]
+            out = fn(*a, **kw)       # (H, aux): the step keeps the aux
+            hidden.append(out[0])
+            return out
         return wrapped
 
     reset_launches()
@@ -5263,9 +5302,475 @@ def phase_moe(torch):
             "timing": timing, "k4": k4, "seconds": seconds}
 
 
+# --------------------------------------------------------------------------
+# 13. train_decoder: the dense and MoE decoders' training at full width
+# --------------------------------------------------------------------------
+
+# (a) K2 and K3 at the decoders' head shapes, B 2 x S 4096 (train_4k's
+# sequence length): (name, D, V, softcap). At S 4096 and V >= 128256
+# K2's routing pass keeps 8 warps' counts in shared memory and its lists
+# in device memory (at S 2048, 16 warps)
+DECODER_BWD = [("llama", 3072, 128256, None), ("phi3_mini", 3072, 32064, None),
+               ("gemma2", 4608, 256000, 30.0),
+               ("moonshot", 2048, 163840, None),
+               ("phi35", 4096, 32064, None)]
+DECODER_BWD_SHAPE = (2, 4096)
+# (b) the gradient check (GRAD_RATIO, its in-run controls) on llama and
+# moonshot at full width, 2 layers, remat off: pairs x tokens
+DECODER_GRAD_CHECK = (4, 512)
+DECODER_GRAD_LAYERS = 2
+# (c) timed steps of the CLI's step (build_lsr_train_step) on the CLI's
+# pair_loader at train_4k's S 4096, one warm-up then DECODER_TRAIN_STEPS:
+# (layers, pairs, n_micro), cut from train_4k's 128 pairs and the JAX
+# package's _N_MICRO 4 (llama) and 8 (gemma2, moonshot). The depths hold
+# the optimizer's peak (about 28 bytes a parameter at n_micro 1, 32 at 2:
+# the runner's retained state, the grads and their clipped copy, the new
+# moments, the f32 update and the new params) and the activations of a
+# remat step in 80 GB. ``--train-depth llama 8 12 16 18 20`` measured
+# llama's peak allocation at 11.1 GiB + 3.0 a layer (35.1, 47.1, 59.1,
+# 65.1 GiB), the allocator reserving 7-12 GiB more (66.1 at 16 layers,
+# 77.4 of the card's 79.2 at 18); 20 layers ran out of memory (69.2 GiB
+# allocated, 8.0 more in fragments). 16 is the deepest that keeps a
+# margin (an H100 80GB HBM3 at 700 W).
+DECODER_SEQ = 4096
+LLAMA_TRAIN_LAYERS = 16
+DECODER_TRAIN = {"llama": (LLAMA_TRAIN_LAYERS, 4, 2), "gemma2": (2, 2, 1),
+                 "moonshot": (3, 4, 2)}
+DECODER_TRAIN_STEPS = 3
+# (d) the CLI's own loop (launch.train.make_runner) on llama, full width,
+# 2 layers, writing its final checkpoint with bf16 params (~6 GB: at 20
+# layers it would be ~24 GB)
+DECODER_CKPT = {"layers": 2, "steps": 2, "pairs": 2, "seq_len": 512}
+
+
+@contextlib.contextmanager
+def first_backward(torch):
+    """While open, the kernel head's first backward (``kernels/ops``: K2
+    and K3) and the K1 forward that gave its y are copied to the host:
+    yields a dict that then holds that call's ``H, E, b, mask, softcap,
+    dy, y, i_max`` (the routing of a real train step)."""
+    from repro_torch.kernels import ops
+
+    forwards, got = {}, {}
+
+    def wrap(name, fn):
+        def forward(H, E, b, mask, **kw):
+            y, i_max = fn(H, E, b, mask, **kw)
+            if not got:
+                forwards[y.data_ptr()] = (H, E, b, mask)
+            return y, i_max
+
+        def backward(dy, y, i_max, H, E, **kw):
+            if not got:
+                _, _, b, mask = forwards.pop(y.data_ptr())
+                got.update({k: t.detach().to("cpu") for k, t in (
+                    ("H", H), ("E", E), ("b", b), ("mask", mask),
+                    ("dy", dy), ("y", y), ("i_max", i_max))})
+                got["softcap"] = kw.get("softcap")
+                forwards.clear()
+            return fn(dy, y, i_max, H, E, **kw)
+        return forward if name == "k1" else backward
+
+    with patched(wrap, k1=(ops, "sparton_forward"),
+                 k23=(ops, "sparton_backward")):
+        yield got
+
+
+@contextlib.contextmanager
+def head_events(torch):
+    """CUDA events around each call of the kernel head's forward (K1) and
+    backward (K2 then K3) in ``kernels/ops``, with no synchronise: yields
+    ``[(part, start, end), ...]``, part "k1" or "k23"."""
+    from repro_torch.kernels import ops
+
+    events = []
+
+    def wrap(name, fn):
+        def wrapped(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            events.append((name, start, end))
+            return out
+        return wrapped
+
+    with patched(wrap, k1=(ops, "sparton_forward"),
+                 k23=(ops, "sparton_backward")):
+        yield events
+
+
+def decoder_bwd_gates(torch):
+    """K2 and K3 at each ``DECODER_BWD`` shape on ``bwd_inputs`` (a shared
+    i_max, terms routed to the last position, y == 0 columns, a masked
+    row): against their plain versions (BWD_TOL) and a second launch;
+    then timed (``time_bwd``) on random bf16 H (seed 61), every position
+    kept, (y, i_max) from K1 and a cotangent of scale 1e-2, beside their
+    bound, plain versions and the baseline head's backward."""
+    B, S = DECODER_BWD_SHAPE
+    gates, timing = [], {}
+    for i, (name, D, V, cap) in enumerate(DECODER_BWD):
+        H, E, mask, dy, y, i_max = bwd_inputs(
+            torch, B, S, D, V, torch.bfloat16, 600 + i, cap, last_wins=True)
+        case = bwd_compare(torch, H, E, mask, dy, y, i_max, cap)
+        gates.append({"name": name, "shape": [B, S, D, V], "softcap": cap,
+                      **case})
+        del H, E, mask, dy, y, i_max
+        torch.cuda.empty_cache()
+        timing[name] = decoder_bwd_timing(torch, B, S, D, V, cap, 61 + i)
+    bad = [c for c in gates if not (c["within_tol"] and c["bit_identical"])]
+    require(not bad, f"train_decoder: K2/K3 differ from their plain "
+                     f"versions or between two launches: {bad[:2]}")
+    return gates, timing
+
+
+def decoder_bwd_timing(torch, B, S, D, V, cap, seed):
+    from repro_torch.kernels.sparton import sparton_forward
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    H = torch.randn((B, S, D), generator=g, device="cuda").to(torch.bfloat16)
+    E = (torch.randn((V, D), generator=g, device="cuda") * 0.2).to(
+        torch.bfloat16)
+    b = torch.randn((V,), generator=g, device="cuda") * 0.2
+    mask = torch.ones((B, S), dtype=torch.int32, device="cuda")
+    y, i_max = sparton_forward(H, E, b, mask, softcap=cap)
+    dy = torch.randn(y.shape, generator=g, device="cuda") * 1e-2
+    rows = time_bwd(torch, H, E, b, mask, dy, y, i_max, reps=3,
+                    plain_reps=1, library="head", softcap=cap)
+    del H, E, b, mask, y, i_max, dy
+    torch.cuda.empty_cache()
+    return rows
+
+
+def decoder_state(torch, cfg, seed):
+    """A fresh train state of ``cfg`` on the card (``launch.steps.
+    init_state``'s for a config cut in depth): seeded params in the
+    config's dtype, zero f32 AdamW moments, step 0."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.optimizers import adamw
+
+    params = init_params(torch.Generator(device="cuda").manual_seed(seed),
+                         cfg)
+    return {"params": params, "opt": adamw(1e-4).init(params), "step": 0}
+
+
+def moe_grads_twice(torch, cfg, params, batch, n_micro):
+    """The MoE step's gradients (``microbatch_grads`` over the step's
+    loss) twice from the same params and batch: whether they have the
+    same bits, and per leaf the largest |difference| over the leaf's
+    largest |gradient| where they do not."""
+    from repro_torch.launch.steps import lsr_loss, value_and_grad
+    from repro_torch.optim.accumulation import microbatch_grads
+    from repro_torch.tree import tree_items
+
+    grad_fn = value_and_grad(lsr_loss(cfg))
+    runs = [microbatch_grads(grad_fn, params, batch, n_micro=n_micro)
+            for _ in range(2)]
+    (l1, g1), (l2, g2) = ((loss, tree_items(g)) for loss, g in runs)
+    rel = {name: float((g1[name] - g2[name]).abs().max()
+                       / g1[name].abs().max().clamp_min(1e-30))
+           for name in g1 if not torch.equal(g1[name], g2[name])}
+    out = {"same_bits": not rel and torch.equal(l1, l2),
+           "loss_same_bits": bool(torch.equal(l1, l2)),
+           "leaves_differing": sorted(rel), "max_rel_diff":
+           max(rel.values(), default=0.0), "per_leaf_rel_diff": rel}
+    del runs, g1, g2
+    torch.cuda.empty_cache()
+    return out
+
+
+def decoder_timed_steps(torch, where, cfg, pairs, n_micro, seed,
+                        grads_twice=False):
+    """One warm-up and ``DECODER_TRAIN_STEPS`` timed steps of
+    ``build_lsr_train_step(cfg, n_micro=n_micro)`` from a fresh seeded
+    state, fed by the train CLI's ``pair_loader`` at ``pairs`` x
+    ``DECODER_SEQ``: each step's host ms (synchronised), its peak memory,
+    its loss, its K1/K2/K3 launches (2 x n_micro each) and their summed
+    CUDA-event ms (the head's share of the step); no plain version on the
+    card. With ``grads_twice`` the first batch's gradients are first
+    taken twice from the initial params (``moe_grads_twice``). Then, on
+    the warm-up step's first backward (``first_backward``), K1, K2 and K3
+    against their plain versions: the routing of a real step."""
+    from repro_torch.kernels import sparton as k1
+    from repro_torch.kernels import sparton_bwd as kb
+    from repro_torch.launch.steps import build_lsr_train_step
+    from repro_torch.launch.train import pair_loader, placer
+
+    device = torch.device("cuda")
+    out = {"config": cfg.name, "n_layers": cfg.n_layers,
+           "n_params": cfg.n_params, "pairs": pairs, "seq_len": DECODER_SEQ,
+           "n_micro": n_micro, "remat": cfg.remat,
+           "param_dtype": cfg.param_dtype,
+           "compute_dtype": cfg.compute_dtype}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = decoder_state(torch, cfg, seed)
+    out["state_gib"] = torch.cuda.memory_allocated() / 2**30
+    step = build_lsr_train_step(cfg, n_micro=n_micro, lr=2e-4)
+    place = placer(device)
+    rows = []
+    with pair_loader(cfg, batch=pairs, seq_len=DECODER_SEQ,
+                     device=device) as loader, \
+            plain_guard(k1=(k1, "sparton_forward_plain"),
+                        k2=(kb, "sparton_backward_dh_plain"),
+                        k3=(kb, "sparton_backward_de_plain")
+                        ) as plain_on_cuda:
+        batches = iter(loader)
+        batch = place(next(batches))
+        if grads_twice:
+            out["grads_twice"] = moe_grads_twice(torch, cfg, state["params"],
+                                                 batch, n_micro)
+        for i in range(1 + DECODER_TRAIN_STEPS):
+            if i:
+                batch = place(next(batches))
+            reset_launches()
+            with contextlib.ExitStack() as stack:
+                events = stack.enter_context(head_events(torch))
+                if i == 0:
+                    routing = stack.enter_context(first_backward(torch))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                loss = float(metrics["loss"])
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+            launches = read_launches()
+            head = {k: sum(s.elapsed_time(e) for name, s, e in events
+                           if name == k) for k in ("k1", "k23")}
+            rows.append({"ms": ms, "loss": loss, "launches": launches,
+                         "k1_paths": k1_on_tma(k1, f"train_decoder {where}"),
+                         "head_ms": head,
+                         "head_share": sum(head.values()) / ms,
+                         "peak_gib": torch.cuda.max_memory_allocated()
+                         / 2**30,
+                         "reserved_gib": torch.cuda.max_memory_reserved()
+                         / 2**30})
+            del events
+    want = 2 * n_micro
+    require(not plain_on_cuda, f"train_decoder {where}: plain versions ran "
+                               f"on CUDA tensors: {sorted(set(plain_on_cuda))}")
+    for r in rows:
+        require(all(r["launches"][k] == want for k in (
+            "sparton_fwd", "sparton_bwd_dh", "sparton_bwd_de")),
+            f"train_decoder {where}: K1/K2/K3 launches {r['launches']} in "
+            f"a step, expected {want} each")
+    losses = [r["loss"] for r in rows]
+    require(all(np.isfinite(losses)), f"train_decoder {where}: non-finite "
+                                      f"loss {losses}")
+    require(state["step"] == 1 + DECODER_TRAIN_STEPS,
+            f"train_decoder {where}: the step counter reads "
+            f"{state['step']}")
+    out.update(steps=rows, losses=losses,
+               step_ms=[r["ms"] for r in rows[1:]],
+               warmup_ms=rows[0]["ms"],
+               median_step_ms=sorted(r["ms"] for r in rows[1:])[
+                   DECODER_TRAIN_STEPS // 2],
+               peak_gib=max(r["peak_gib"] for r in rows),
+               head_share=[r["head_share"] for r in rows[1:]])
+    del state, batch, step
+    torch.cuda.empty_cache()
+    out["real_routing"] = real_routing_gates(torch, where, routing)
+    return out
+
+
+def real_routing_gates(torch, where, routing):
+    """K1 against its plain version on a train step's captured H (and its
+    y equal to K1's on that H, bit for bit), K2 and K3 against theirs on
+    the step's own (dy, y, i_max): ``k1_compare`` and ``bwd_compare``."""
+    from repro_torch.kernels import sparton as k1
+
+    r = {k: (t.cuda() if torch.is_tensor(t) else t)
+         for k, t in routing.items()}
+    cap = r["softcap"]
+    k1_case = k1_compare(torch, r["H"], r["E"], r["b"], r["mask"], cap)
+    same_y = torch.equal(k1.sparton_forward(r["H"], r["E"], r["b"],
+                                            r["mask"], softcap=cap)[0],
+                         r["y"])
+    bwd = bwd_compare(torch, r["H"], r["E"], r["mask"], r["dy"], r["y"],
+                      r["i_max"], cap)
+    out = {"shape": list(r["H"].shape) + [r["E"].shape[0]], "softcap": cap,
+           "g_nonzero_share": float((r["y"] > 0).float().mean()),
+           "k1_vs_plain": k1_case, "y_equals_k1_on_h": same_y, "bwd": bwd}
+    require(k1_case["path"] == "tma" and k1_case["imax_hard"] == 0
+            and k1_case["bit_identical"] and same_y,
+            f"train_decoder {where}: K1 on the step's H: {out}")
+    require(bwd["within_tol"] and bwd["bit_identical"],
+            f"train_decoder {where}: K2/K3 on the step's routing: {bwd}")
+    del r
+    torch.cuda.empty_cache()
+    return out
+
+
+def decoder_ckpt(torch, cfg):
+    """The train CLI's own loop (``launch.train.make_runner``: its
+    ``FaultTolerantRunner``, loader and async checkpointer) on ``cfg`` for
+    ``DECODER_CKPT`` steps, writing its final checkpoint with bf16 params
+    into a ``tempfile`` directory (removed after): the free disk before,
+    the checkpoint's bytes, its host copy and write seconds, then the
+    checkpoint loaded back onto the card against the runner's final
+    state, bit for bit."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import store
+    from repro_torch.launch.train import make_runner, pair_loader
+
+    device = torch.device("cuda")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_decoder_ckpt_")
+    try:
+        free = shutil.disk_usage(ckpt_dir).free
+        with pair_loader(cfg, batch=DECODER_CKPT["pairs"],
+                         seq_len=DECODER_CKPT["seq_len"],
+                         device=device) as loader, \
+                spans(host=(store, "host_state"),
+                      write=(store, "save_checkpoint")) as log:
+            runner = make_runner(cfg, decoder_state(torch, cfg, 9),
+                                 iter(loader), steps=DECODER_CKPT["steps"],
+                                 lr=2e-4, device=device, ckpt_dir=ckpt_dir)
+            state = runner.run()
+        require(not runner.errors and runner.skipped_steps == [],
+                f"train_decoder ckpt: the runner's steps raised "
+                f"{runner.errors} or were skipped {runner.skipped_steps}")
+        step_dir = Path(ckpt_dir) / f"step_{DECODER_CKPT['steps']:09d}"
+        nbytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        t0 = time.perf_counter()
+        loaded, step = store.load_checkpoint(ckpt_dir, state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    leaves = list(zip(tensor_leaves(loaded), tensor_leaves(state),
+                      strict=True))
+    same = all(a.dtype == b.dtype and a.device == b.device
+               and torch.equal(a, b) for a, b in leaves)
+    out = {"config": cfg.name, "n_layers": cfg.n_layers,
+           "steps": DECODER_CKPT["steps"], "free_disk_bytes": free,
+           "ckpt_bytes": nbytes,
+           "host_copy_s": [t1 - t0 for t0, t1 in log["host"]],
+           "write_s": [t1 - t0 for t0, t1 in log["write"]],
+           "load_s": load_s, "loaded_step": step,
+           "param_dtype": str(state["params"]["embed"].dtype)[6:],
+           "bf16_leaves": sum(a.dtype == torch.bfloat16 for a, _ in leaves),
+           "bit_identical": same}
+    require(step == DECODER_CKPT["steps"] and loaded["step"] == step
+            and same and out["bf16_leaves"] > 0,
+            f"train_decoder ckpt: the loaded checkpoint differs from the "
+            f"runner's final state: {out}")
+    del loaded, state, runner, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_decoder(torch):
+    """Decoder training at full width, bf16 params and compute, seeded
+    random weights, the kernel head: (a) K2 and K3 at the five decoders'
+    (D, V, softcap) at B 2 x S 4096 (``decoder_bwd_gates``); (b) the
+    gradient check on llama3.2-3b and moonshot-v1-16b-a3b, 2 layers;
+    (c) timed steps (``decoder_timed_steps``) of llama3.2-3b
+    (``LLAMA_TRAIN_LAYERS`` of 28 layers), gemma2-27b (2 of 46) and
+    moonshot (3 of 48) at S 4096, each with K1, K2 and K3 held against
+    their plain versions on its warm-up step's routing, moonshot's first
+    gradients taken twice (the MoE backward run to run); (d) the CLI's
+    loop on llama, 2 layers, with a bf16 checkpoint loaded back. Lines
+    ``train_decoder_kernels``, ``train_decoder_grad_check``,
+    ``train_decoder_llama``, ``..._gemma2``, ``..._moonshot``,
+    ``train_decoder_ckpt`` and ``train_decoder``."""
+    import dataclasses
+
+    from repro_torch.configs.gemma2_27b import CONFIG as GEMMA2
+    from repro_torch.configs.llama3_2_3b import CONFIG as LLAMA
+    from repro_torch.configs.moonshot_v1_16b import CONFIG as MOONSHOT
+
+    t0 = time.perf_counter()
+    gates, timing = decoder_bwd_gates(torch)
+    emit("train_decoder_kernels", cases=gates, timing=timing)
+    checked = {name: grad_check(torch, dataclasses.replace(
+        cfg, n_layers=DECODER_GRAD_LAYERS, remat=False), DECODER_GRAD_CHECK)
+        for name, cfg in (("llama", LLAMA), ("moonshot", MOONSHOT))}
+    torch.cuda.empty_cache()
+    emit("train_decoder_grad_check", shape=list(DECODER_GRAD_CHECK),
+         n_layers=DECODER_GRAD_LAYERS, **checked)
+    trained = {}
+    for name, cfg, seed in (("llama", LLAMA, 3), ("gemma2", GEMMA2, 4),
+                            ("moonshot", MOONSHOT, 5)):
+        layers, pairs, n_micro = DECODER_TRAIN[name]
+        trained[name] = decoder_timed_steps(
+            torch, name, dataclasses.replace(cfg, n_layers=layers), pairs,
+            n_micro, seed, grads_twice=cfg.is_moe)
+        emit(f"train_decoder_{name}", published_layers=cfg.n_layers,
+             **trained[name])
+    ckpt = decoder_ckpt(torch, dataclasses.replace(
+        LLAMA, n_layers=DECODER_CKPT["layers"]))
+    emit("train_decoder_ckpt", **ckpt)
+    seconds = time.perf_counter() - t0
+    emit("train_decoder", seconds=seconds,
+         moe_grads_same_bits=trained["moonshot"]["grads_twice"]["same_bits"])
+    return {"launches": {name: t["steps"][-1]["launches"]
+                         for name, t in trained.items()},
+            "k1_paths": {name: t["steps"][-1]["k1_paths"]
+                         for name, t in trained.items()},
+            "timing": timing, "seconds": seconds}
+
+
+TRAIN_DEPTH_ARCHS = {"llama": "llama3_2_3b", "gemma2": "gemma2_27b",
+                     "moonshot": "moonshot_v1_16b"}
+
+
+def train_depth(torch, argv) -> int:
+    """``python3 chip_smoke.py --train-depth ARCH L [L ...]``: the peak
+    memory and step time that set the train_decoder depths. Each depth
+    runs in a process of its own (``--one``; an out-of-memory error
+    leaves nothing behind for the next): ``decoder_timed_steps`` at full
+    width with ``DECODER_TRAIN[ARCH]``'s pairs and n_micro at S 4096,
+    every gate held. One JSON line a depth: the peak GiB allocated and
+    reserved, the state's GiB, each step's ms and the head's share, or
+    ``"fits": false`` and the out-of-memory error."""
+    import argparse
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --train-depth")
+    ap.add_argument("--train-depth", dest="arch", required=True,
+                    choices=sorted(TRAIN_DEPTH_ARCHS))
+    ap.add_argument("layers", type=int, nargs="+")
+    ap.add_argument("--one", action="store_true")
+    args = ap.parse_args(argv)
+    if not args.one:
+        phase_device(torch)
+        phase_build()
+        for layers in args.layers:
+            code = subprocess.run([sys.executable, __file__, "--train-depth",
+                                   args.arch, "--one", str(layers)]).returncode
+            if code:
+                return code
+        return 0
+    (layers,) = args.layers
+    cfg = dataclasses.replace(
+        get_config(TRAIN_DEPTH_ARCHS[args.arch]).CONFIG, n_layers=layers)
+    _, pairs, n_micro = DECODER_TRAIN[args.arch]
+    line = {"phase": "train_depth", "arch": args.arch, "n_layers": layers,
+            "pairs": pairs, "n_micro": n_micro, "seq_len": DECODER_SEQ}
+    try:
+        out = decoder_timed_steps(torch, args.arch, cfg, pairs, n_micro, 3)
+    except torch.cuda.OutOfMemoryError as e:
+        print(json.dumps({**line, "fits": False, "error": str(e)[:400]}),
+              flush=True)
+        return 0
+    print(json.dumps({
+        **line, "fits": True, "state_gib": out["state_gib"],
+        "peak_gib": out["peak_gib"],
+        "reserved_gib": max(r["reserved_gib"] for r in out["steps"]),
+        "warmup_ms": out["warmup_ms"], "step_ms": out["step_ms"],
+        "head_share": out["head_share"]}), flush=True)
+    return 0
+
+
 def kernel_rows(measured, launches, dense_launches, engine_launches,
                 train_launches, k1_paths, xlmr, eval_launches, ckpt_launches,
-                pruned, frontier, examples, decoder, moe):
+                pruned, frontier, examples, decoder, moe, train_decoder):
     """The ``{"kernels": [...]}`` line: each kernel's launches on its path
     and its numbers from the timing phase (K1 at an index batch, K2/K3 at
     the train shape, K4, K5 and K6 at the served queries; K1 also at the
@@ -5305,7 +5810,12 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
     Likewise for the moe phase: every row's ``moe_launches`` (the
     moonshot serve, each prefill and each decode comparison), K1's
     ``at_moe`` (moonshot's serve batch and 2 x 8192, phi3.5-moe's 2 x
-    8192) and K4's ``at_moe`` (moonshot's V 163840 index)."""
+    8192) and K4's ``at_moe`` (moonshot's V 163840 index). And for the
+    train_decoder phase: every row's ``train_decoder_launches`` (the last
+    timed step of llama, gemma2 and moonshot: 2 x n_micro for K1-K3, 0
+    for K4-K6), K2's and K3's ``at_train_decoder`` (the five decoders'
+    (D, V, softcap) at B 2 x S 4096, beside the baseline head's
+    backward)."""
     main_k1, bwd, k4, k5, k6 = (measured[key]
                                 for key in ("k1", "bwd", "k4", "k5", "k6"))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -5416,9 +5926,15 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
             name: n[key] for name, n in examples["serve"].items()}
         row["example_quickstart_launches"] = examples["quickstart"][key]
         row["streaming_launches"] = examples["streaming"]["launches"][key]
-        for phase, out in (("decoder", decoder), ("moe", moe)):
+        for phase, out in (("decoder", decoder), ("moe", moe),
+                           ("train_decoder", train_decoder)):
             row[f"{phase}_launches"] = {
                 where: n[key] for where, n in out["launches"].items()}
+    for row, kernel in ((rows[1], "dh"), (rows[2], "de")):
+        row["at_train_decoder"] = {
+            name: {key: r[kernel][key] for key in keys + (
+                "shape", "bound_share", "g_nonzero_share")}
+            for name, r in train_decoder["timing"].items()}
     for phase, out in (("decoder", decoder), ("moe", moe)):
         rows[0][f"at_{phase}"] = {
             name: {key: r[key] for key in keys + (
@@ -5460,7 +5976,7 @@ def ceiling_row(pruned):
 # main
 # --------------------------------------------------------------------------
 
-def main() -> int:
+def main(argv=()) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -5471,6 +5987,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv:
+        return train_depth(torch, argv)
     phase_device(torch)
     phase_build()
     phase_kernels(torch)
@@ -5518,11 +6036,14 @@ def main() -> int:
     moe = phase_moe(torch)
     k1_paths.update({f"moe_{where}": paths
                      for where, paths in moe["k1_paths"].items()})
+    train_decoder = phase_train_decoder(torch)
+    k1_paths.update({f"train_decoder_{where}": paths for where, paths
+                     in train_decoder["k1_paths"].items()})
     print(json.dumps({"kernels": kernel_rows(
         measured, served["launches"], dense_launches, engine_launches,
         trained["launches"], k1_paths, xlmr, evaluated["launches"],
         ckpt["launches"], served_pruned, frontier, examples, decoder,
-        moe)}),
+        moe, train_decoder)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5531,4 +6052,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -10,8 +10,15 @@ array a leaf, keyed by the leaf's JAX path string such as
 writes for the same tree of dicts, lists and tuples). Leaves are listed
 in JAX's order: a dict's by sorted key. A Python ``int`` leaf (the
 port's step counter) is written as a 0-d ``int32``, as the JAX state
-holds it, and read back as an ``int``. A leaf whose dtype numpy cannot
-hold (bfloat16) is refused, naming the leaf: nothing is cast.
+holds it, and read back as an ``int``. A bfloat16 leaf (every decoder's
+published CONFIG holds bf16 params) is stored as the JAX package stores
+it: its raw 2-byte values, nothing cast, under an npy header whose
+``descr`` is ``'<V2'`` (ml_dtypes' bfloat16 as numpy writes it), so its
+npz entry equals the JAX one byte for byte. ``np.load`` returns such an
+entry as a ``|V2`` void array; ``load_checkpoint`` views it as bf16 where
+the template's leaf is a bf16 tensor (the same bits, no copy) and raises
+against any other template. (The JAX package's own ``load_checkpoint``
+hands the void array back as it is.)
 
 Writes go to ``step_XXXXXXXXX.tmp`` and are published by ``os.replace``
 (atomic on POSIX), so a killed writer never leaves a checkpoint that
@@ -29,6 +36,7 @@ import os
 import queue
 import shutil
 import threading
+import zipfile
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -38,6 +46,8 @@ Tree = Any
 
 _MANIFEST = "manifest.json"
 _ARRAYS = "arrays.npz"
+_BF16_HOST = np.dtype("V2")   # a bf16 leaf's raw 2-byte values on the host
+_BF16_DESCR = "<V2"           # its npy header's descr, as the JAX package's
 
 
 def _items(tree: Tree, path: str = "") -> List[Tuple[str, Any]]:
@@ -81,10 +91,14 @@ def _rebuild(template: Tree, leaves: Dict[str, Any], path: str = "") -> Tree:
 
 
 def _to_host(key: str, leaf: Any) -> np.ndarray:
-    """A leaf as the numpy array the npz holds."""
+    """A leaf as the numpy array the npz holds (a bf16 tensor as its raw
+    2-byte values, ``_BF16_HOST``)."""
     if isinstance(leaf, torch.Tensor):
+        host = leaf.detach().to("cpu", copy=True)
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy().view(_BF16_HOST)
         try:   # a copy, also of a CPU tensor: a caller may mutate it later
-            return leaf.detach().to("cpu", copy=True).numpy()
+            return host.numpy()
         except TypeError as e:
             raise TypeError(
                 f"checkpoint leaf {key}: {leaf.dtype} has no numpy dtype; "
@@ -106,14 +120,42 @@ def _leaf_shape(leaf: Any) -> Tuple[int, ...]:
     return tuple(np.shape(leaf))
 
 
-def _restore(arr: np.ndarray, leaf: Any) -> Any:
+def _restore(key: str, arr: np.ndarray, leaf: Any) -> Any:
     """``arr`` as a leaf like ``leaf``: a tensor on its device, an int, or
-    the array itself."""
+    the array itself. A bf16 leaf's raw values (``|V2``) become a bf16
+    tensor with the same bits where ``leaf`` is one, and raise
+    elsewhere."""
+    if arr.dtype == _BF16_HOST:
+        if not (isinstance(leaf, torch.Tensor)
+                and leaf.dtype == torch.bfloat16):
+            raise TypeError(
+                f"checkpoint leaf {key} holds bfloat16 values (|V2) but "
+                f"the template's leaf is "
+                f"{getattr(leaf, 'dtype', type(leaf).__name__)}")
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(leaf.device)
     if isinstance(leaf, torch.Tensor):
         return torch.from_numpy(arr).to(leaf.device)
     if isinstance(leaf, int) and not isinstance(leaf, bool):
         return int(arr)
     return arr
+
+
+def _savez(path: str, arrays: Dict[str, np.ndarray]) -> None:
+    """``np.savez(path, **arrays)``, entry for entry (a stored zip64 entry
+    ``<key>.npy`` each), but a bf16 leaf's header says ``_BF16_DESCR``."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, arr in arrays.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                if arr.dtype != _BF16_HOST:
+                    np.lib.format.write_array(f, arr)
+                    continue
+                arr = np.ascontiguousarray(arr)
+                header = np.lib.format.header_data_from_array_1_0(arr)
+                header["descr"] = _BF16_DESCR
+                np.lib.format.write_array_header_1_0(f, header)
+                f.write(arr.tobytes())
 
 
 def _process_index() -> int:
@@ -145,7 +187,7 @@ def save_checkpoint(
     os.makedirs(tmp)
 
     arrays = {key: _to_host(key, leaf) for key, leaf in _items(state)}
-    np.savez(os.path.join(tmp, _ARRAYS), **arrays)
+    _savez(os.path.join(tmp, _ARRAYS), arrays)
     manifest = {
         "step": step,
         "treedef": f"PyTreeDef({_treedef(state)})",
@@ -198,7 +240,8 @@ def load_checkpoint(
     """Restore into the shape of ``template``: each leaf's shape is
     checked (``ValueError``), a leaf the checkpoint lacks raises
     ``KeyError``, and each tensor lands on its template leaf's device in
-    the dtype it was saved in. Returns ``(state, step)``."""
+    the dtype it was saved in (a bf16 leaf as bf16, against a bf16
+    template only: ``TypeError`` otherwise). Returns ``(state, step)``."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -216,7 +259,7 @@ def load_checkpoint(
                 raise ValueError(
                     f"shape mismatch for {key}: ckpt {arr.shape} vs "
                     f"template {_leaf_shape(leaf)}")
-            restored[key] = _restore(arr, leaf)
+            restored[key] = _restore(key, arr, leaf)
     return _rebuild(template, restored), manifest["step"]
 
 

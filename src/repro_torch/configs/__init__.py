@@ -1,20 +1,19 @@
 """Config registry of the port: ``get_config("splade_bert")``,
 ``get_config("llama3.2-3b")``.
 
-``ARCHS`` are the archs the port holds: the two SPLADE encoders, which it
-serves and trains (``TRAIN_ARCHS``, the train CLI's), and the three dense
-and two MoE decoders, which it serves (the LSR prefill step, KV-cache
-decode and the serve CLI). ``ALIASES`` are the JAX package's external
-ids.
+``ARCHS`` are the archs the port holds, each served (the LSR prefill
+step, the serve CLI; KV-cache decode for a decoder) and trained (the
+LSR train step, the train CLI): the two SPLADE encoders, the three dense
+decoders and the two MoE decoders. ``ALIASES`` are the JAX package's
+external ids.
 """
 
 from __future__ import annotations
 
 import importlib
 
-TRAIN_ARCHS = ("splade_bert", "splade_xlmr")
-ARCHS = TRAIN_ARCHS + ("llama3_2_3b", "gemma2_27b", "phi3_mini",
-                       "moonshot_v1_16b", "phi3_5_moe")
+ARCHS = ("splade_bert", "splade_xlmr", "llama3_2_3b", "gemma2_27b",
+         "phi3_mini", "moonshot_v1_16b", "phi3_5_moe")
 
 # external ids (with dots and dashes) -> module names, as in the JAX package
 ALIASES = {

@@ -2,27 +2,27 @@
 top-k (``repro/launch/steps.py``, unsharded).
 
 ``build_lsr_train_step(cfg, ...)`` returns ``step(state, batch) ->
-(state, {"loss": ...})``: the encoder trunk and the config's Sparton head
-on the query and the document tokens, the SPLADE loss, its gradients
-(through K2 and K3 for ``head_impl="kernel"``, the default), averaged over
-``n_micro`` chunks, then AdamW on the f32 master params. The state is
-``{"params", "opt": {"mu", "nu"}, "step"}``, as the JAX package's.
-``build_lsr_prefill_step`` encodes ``{"tokens", "mask"}`` through the
-trunk (causal for a decoder, dense or MoE) and the config's head: the
-paper's head on a decoder backbone, K1 for ``head_impl="kernel"``.
-``build_decode_step`` takes one KV-cache step on ``{"tokens",
-"positions", "cache_k", "cache_v"}``. The train step raises on an MoE
-config (its objective adds the aux loss: decoder training, ROADMAP Queue
-1 item 12b). ``streaming_topk`` is the JAX package's tile-by-tile top-k
-over a dense candidate matrix, the counterpart of K6 built from plain
-PyTorch.
+(state, {"loss": ...})``: the trunk (a bidirectional encoder, or a dense
+or MoE causal decoder) and the config's Sparton head on the query and
+the document tokens, the SPLADE loss plus ``aux_weight * (aux_q +
+aux_d)``, the MoE trunk's load-balance loss of each side (0 for a dense
+trunk), its gradients (through K2 and K3 for ``head_impl="kernel"``, the
+default), averaged over ``n_micro`` chunks, then AdamW on the master
+params in their own dtype (f32 for the SMOKE configs, bf16 for the
+decoders' full CONFIGs). The state is ``{"params", "opt": {"mu", "nu"},
+"step"}``, as the JAX package's. ``build_lsr_prefill_step`` encodes
+``{"tokens", "mask"}`` through the trunk (causal for a decoder, dense or
+MoE) and the config's head: the paper's head on a decoder backbone, K1
+for ``head_impl="kernel"``. ``build_decode_step`` takes one KV-cache
+step on ``{"tokens", "positions", "cache_k", "cache_v"}``.
+``streaming_topk`` is the JAX package's tile-by-tile top-k over a dense
+candidate matrix, the counterpart of K6 built from plain PyTorch.
 
 Still to come: every ``mesh`` (the vocab-sharded step, the
 expert-parallel MoE and ``streaming_topk``'s ``vary_axes``: multi-GPU,
 ROADMAP Queue 1 item 10), the recsys train and serve steps with
 ``build_retrieval_step`` and the GNN step (models this port does not hold
-yet); the MarginMSE term waits for a distillation data source and the
-MoE aux loss term for decoder training (item 12b).
+yet); the MarginMSE term waits for a distillation data source.
 """
 
 from __future__ import annotations
@@ -63,19 +63,20 @@ def value_and_grad(loss_fn: Callable[[Any, Batch], torch.Tensor]
 
 
 def lsr_loss(cfg: TransformerConfig) -> Callable[[Any, Batch], torch.Tensor]:
-    """``(params, batch) -> loss``: both sides encoded with the config's
-    head, then the SPLADE objective. An MoE config raises (item 12b)."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: training an MoE trunk (the objective's "
-            "aux_weight * (aux_q + aux_d) term) is not ported yet: it "
-            "arrives with decoder training, ROADMAP Queue 1 item 12b")
+    """``(params, batch) -> loss``: both sides encoded by ``_encode_fn``
+    (the trunk and the config's head), then the SPLADE objective with
+    ``aux_weight * (aux_q + aux_d)``, as the JAX step's unsharded
+    objective. An MoE micro-batch routes its own ``rows x S`` tokens, so
+    its capacity follows the micro-batch."""
+    encode = _encode_fn(cfg, None, 1)
 
     def loss_fn(params, mb):
-        yq = tfm.lsr_encode(params, cfg, mb["q_tokens"], mb["q_mask"])
-        yd = tfm.lsr_encode(params, cfg, mb["d_tokens"], mb["d_mask"])
+        yq, aux_q = encode(params, mb["q_tokens"], mb["q_mask"])
+        yd, aux_d = encode(params, mb["d_tokens"], mb["d_mask"])
         return splade_loss(yq, yd, lambda_q=cfg.lambda_q,
-                           lambda_d=cfg.lambda_d, l1_weight=cfg.l1_weight)
+                           lambda_d=cfg.lambda_d, l1_weight=cfg.l1_weight,
+                           aux_loss=aux_q + aux_d,
+                           aux_weight=cfg.aux_weight)
     return loss_fn
 
 
@@ -88,8 +89,7 @@ def build_lsr_train_step(
 ) -> Callable[[State, Batch], Tuple[State, Dict[str, torch.Tensor]]]:
     """The step: peak ``lr`` after 1000 warm-up steps, then a cosine to
     ``total_steps``. It returns a new state and leaves the one it was
-    given as it was, so a fault-tolerant runner can retry it. An MoE
-    config raises (item 12b, ``lsr_loss``)."""
+    given as it was, so a fault-tolerant runner can retry it."""
     opt = adamw(linear_warmup_cosine(lr, 1000, total_steps))
     grad_fn = value_and_grad(lsr_loss(cfg))
 
@@ -115,21 +115,23 @@ def _no_mesh(mesh: Any, what: str) -> None:
 
 def _encode_fn(cfg: TransformerConfig, mesh: Any, n_batch: int,
                unroll: bool = False
-               ) -> Callable[[Any, torch.Tensor, torch.Tensor], torch.Tensor]:
-    """``(params, tokens, mask) -> y (B, V)``: the trunk and the config's
-    head (``head_api.make_head``). ``n_batch`` and ``unroll`` shape the JAX
-    function's sharding and layer scan; eager PyTorch has neither. (The
-    JAX function also returns the MoE aux loss, which only its train step
-    reads; serving drops it there too.)"""
+               ) -> Callable[[Any, torch.Tensor, torch.Tensor],
+                             Tuple[torch.Tensor, torch.Tensor]]:
+    """``(params, tokens, mask) -> (y (B, V), aux)``: the trunk and the
+    config's head (``head_api.make_head``), and the MoE load-balance loss
+    summed over the layers (an f32 scalar, 0 for a dense trunk), as the
+    JAX function. ``n_batch`` and ``unroll`` shape the JAX function's
+    sharding and layer scan; eager PyTorch has neither."""
     from repro_torch.core.head_api import make_head
 
     _no_mesh(mesh, "_encode_fn")
     head = make_head(cfg.head_spec())
 
     def encode(params, tokens, mask):
-        Hs = tfm.forward_hidden(params, cfg, tokens, mask)
+        Hs, aux = tfm.forward_hidden(params, cfg, tokens, mask,
+                                     return_aux=True)
         E, b = tfm.head_weights(params, cfg)
-        return head(Hs, E.to(Hs.dtype), b, mask)
+        return head(Hs, E.to(Hs.dtype), b, mask), aux
     return encode
 
 
@@ -142,7 +144,7 @@ def build_lsr_prefill_step(cfg: TransformerConfig, mesh: Any = None,
 
     @torch.no_grad()
     def serve(params, batch: Batch) -> torch.Tensor:
-        return encode(params, batch["tokens"], batch["mask"])
+        return encode(params, batch["tokens"], batch["mask"])[0]
     return serve
 
 

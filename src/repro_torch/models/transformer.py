@@ -12,10 +12,11 @@ loop is a Python loop (eager PyTorch needs no scan); with ``cfg.remat``
 and autograd on, each layer runs under ``torch.utils.checkpoint``
 (recomputed in the backward, as the JAX scan's ``jax.checkpoint``).
 
-Training runs from the f32 master params: every call casts the weights
-to the compute dtype inside autograd, so the gradients reach the
-masters (a tied ``E`` adds to the embedding gather's). The cast-once
-copy of ``compute_weights`` is for serving only.
+Training runs from the master params (f32 in the SMOKE configs, bf16
+in the decoders' published CONFIGs, as the JAX package's): every call
+casts the weights to the compute dtype inside autograd, so the gradients
+reach the masters (a tied ``E`` adds to the embedding gather's). The
+cast-once copy of ``compute_weights`` is for serving only.
 
 Heads: ``lsr_encode`` (the trunk and the Sparton head, Eq. 1) and
 ``causal_lm_logits`` / ``decode_step`` (next-token logits, a plain

@@ -5,6 +5,8 @@ or MoE), already converted to numpy arrays by the caller (stacked ``(L, ...)``
 layer leaves, weights laid out for ``x @ W``), and returns the port's
 params: the same tree of tensors on ``device``. ``state_from_jax`` does
 the same for a whole train state (params, the AdamW moments, the step).
+A bf16 leaf (the decoders' published CONFIGs hold bf16 params) is carried
+by its bits.
 With them both packages compute the same function and take the same
 steps, which is how the tests compare them. This module imports no JAX.
 """
@@ -77,8 +79,18 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
         *parents, leaf = path.split("/")
         for p in parents:
             node = node.setdefault(p, {})
-        node[leaf] = torch.from_numpy(np.array(arr)).to(dev)
+        node[leaf] = _tensor(arr).to(dev)
     return out
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A host copy of ``arr`` as a tensor; numpy's bfloat16 (ml_dtypes',
+    which JAX hands over for a bf16 leaf and ``torch.from_numpy`` refuses)
+    by its bits."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(arr).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
 
 
 def state_from_jax(state: Dict[str, Any], cfg: TransformerConfig,

@@ -2,12 +2,16 @@
 every case of ``tests/test_checkpoint.py`` on torch trees, and the two
 packages' checkpoints interchangeable bit for bit (a JAX-written train
 state loads in the port, a port-written one in JAX, with equal
-manifests). Arrays are compared exactly: the store casts nothing."""
+manifests), also with bf16 params (a decoder's published CONFIG): the
+npz entries byte for byte. Arrays are compared exactly: the store casts
+nothing."""
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
+import zipfile
 from pathlib import Path
 
 import jax
@@ -17,12 +21,19 @@ import pytest
 import torch
 
 from repro.checkpoint import store as jax_store
+from repro.configs import get_config as jax_config
 from repro.launch import steps as jax_steps
+from repro.models import transformer as jax_tfm
+from repro.optim import optimizers as jax_opt
 from repro_torch.checkpoint import store
 from repro_torch.checkpoint.store import (AsyncCheckpointer, latest_step,
                                           load_checkpoint, save_checkpoint)
+from repro_torch.configs import get_config
 from repro_torch.configs.splade_bert import SMOKE
 from repro_torch.launch import steps
+from repro_torch.launch.train import make_runner, pair_loader
+from repro_torch.models import transformer as tfm
+from repro_torch.optim import optimizers as opt
 from repro_torch.weights import state_from_jax
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -147,10 +158,14 @@ def test_int_leaf_is_int32_on_disk_and_int_again(tmp_path):
 
 
 def test_bf16_leaf_raises_naming_it(tmp_path):
+    """A bf16 leaf is stored as its raw 2-byte values, and loading it into
+    a template leaf of another dtype (here f32) raises, naming the leaf:
+    nothing is cast."""
+    save_checkpoint(str(tmp_path), 1, {"params": {
+        "w": torch.ones(2, dtype=torch.bfloat16)}})
+    assert latest_step(str(tmp_path)) == 1
     with pytest.raises(TypeError, match=r"\['params'\]/\['w'\]"):
-        save_checkpoint(str(tmp_path), 1, {"params": {
-            "w": torch.ones(2, dtype=torch.bfloat16)}})
-    assert latest_step(str(tmp_path)) is None
+        load_checkpoint(str(tmp_path), {"params": {"w": torch.zeros(2)}})
 
 
 def test_restored_tensors_land_on_the_template_device(tmp_path):
@@ -269,3 +284,126 @@ def test_treedef_string_is_jax_s(tree):
     paths = ["/".join(str(p) for p in path) for path, _ in
              jax.tree_util.tree_flatten_with_path(as_arrays)[0]]
     assert [k for k, _ in store._items(tree)] == paths
+
+
+# ---------------------------------------------------------------------------
+# bf16 params (every decoder's published CONFIG)
+# ---------------------------------------------------------------------------
+
+def _bf16_cfgs(arch):
+    over = {"param_dtype": "bfloat16"}
+    return (dataclasses.replace(jax_config(arch).SMOKE, **over),
+            dataclasses.replace(get_config(arch).SMOKE, **over))
+
+
+def _jax_bf16_state(arch):
+    """A JAX train state of the arch's SMOKE config at bf16 params: f32
+    moments made non-zero, the step counter at 5."""
+    cfg_j, _ = _bf16_cfgs(arch)
+    params = jax_tfm.init_params(jax.random.PRNGKey(0), cfg_j)
+    moments = jax.tree.map(lambda x: x + 0.125,
+                           jax_opt.adamw(1e-4).init(params))
+    return {"params": params, "opt": moments,
+            "step": jnp.array(5, jnp.int32)}
+
+
+def _port_bf16_template(arch):
+    _, cfg = _bf16_cfgs(arch)
+    params = tfm.init_params(torch.Generator().manual_seed(1), cfg)
+    return {"params": params, "opt": opt.adamw(1e-4).init(params),
+            "step": 0}
+
+
+def _npz_entries(path):
+    with zipfile.ZipFile(Path(path) / "arrays.npz") as z:
+        return {name: z.read(name) for name in z.namelist()}
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_3b", "moonshot_v1_16b"])
+def test_bf16_state_npz_entries_equal_jax_byte_for_byte(arch, tmp_path):
+    """The same bf16-param train state saved by both packages: every npz
+    entry (the ``.npy`` header and data) equal byte for byte, the bf16
+    leaves' headers saying ``'<V2'``, and equal manifests."""
+    j_state = _jax_bf16_state(arch)
+    _, cfg = _bf16_cfgs(arch)
+    t_state = state_from_jax(jax.tree.map(np.asarray, j_state), cfg, "cpu")
+    assert t_state["params"]["embed"].dtype == torch.bfloat16
+    assert t_state["opt"]["mu"]["embed"].dtype == torch.float32
+    j_path = jax_store.save_checkpoint(str(tmp_path / "jax"), 5, j_state)
+    t_path = save_checkpoint(str(tmp_path / "port"), 5, t_state)
+    j_entries, t_entries = _npz_entries(j_path), _npz_entries(t_path)
+    assert sorted(j_entries) == sorted(t_entries)
+    for name, data in j_entries.items():
+        assert t_entries[name] == data, name
+    embed = t_entries["['params']/['embed'].npy"]
+    assert b"'descr': '<V2'" in embed[:128]
+    assert _manifest(t_path) == _manifest(j_path)
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_3b", "moonshot_v1_16b"])
+def test_jax_bf16_checkpoint_resumes_in_the_port_with_the_same_bits(
+        arch, tmp_path):
+    """A JAX-written bf16-param checkpoint loads in the port as bf16 with
+    the same bits (and f32 moments). The reference's own loader hands such
+    a leaf back as a ``|V2`` void array, not as bf16; the port does not
+    copy that."""
+    j_state = _jax_bf16_state(arch)
+    jax_store.save_checkpoint(str(tmp_path), 5, j_state)
+    restored, step = load_checkpoint(str(tmp_path),
+                                     _port_bf16_template(arch))
+    assert step == 5 and restored["step"] == 5
+    n_bf16 = 0
+    for (key, got), want in zip(store._items(restored),
+                                jax.tree.leaves(j_state), strict=True):
+        want = np.asarray(want)
+        if isinstance(got, int):
+            assert got == int(want), key
+            continue
+        if want.dtype.name == "bfloat16":
+            n_bf16 += 1
+            assert got.dtype == torch.bfloat16, key
+            np.testing.assert_array_equal(
+                got.view(torch.int16).numpy(), want.view(np.int16))
+        else:
+            assert got.dtype == torch.float32, key
+            np.testing.assert_array_equal(got.numpy(), want)
+    assert n_bf16 == len(jax.tree.leaves(j_state["params"])) - 1  # b: f32
+    # the reference's load of the same file: void arrays, not bf16
+    jax_loaded, _ = jax_store.load_checkpoint(
+        str(tmp_path), jax.tree.map(jnp.zeros_like, j_state))
+    assert np.asarray(jax_loaded["params"]["embed"]).dtype == np.dtype("V2")
+
+
+def test_bf16_decoder_runner_checkpoints_and_resumes(tmp_path):
+    """``make_runner`` on the SMOKE llama at bf16 params writes its final
+    checkpoint, and a second runner resumes from it (``--resume``'s
+    ``try_resume``): the state of step 2 bit for bit, bf16 params, then
+    one more step."""
+    _, cfg = _bf16_cfgs("llama3_2_3b")
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    cpu = torch.device("cpu")
+    ckpt = str(tmp_path / "ck")
+    with pair_loader(cfg, batch=2, seq_len=8, device=cpu) as loader:
+        first = make_runner(cfg, _port_bf16_template("llama3_2_3b"),
+                            iter(loader), steps=2, lr=1e-3, device=cpu,
+                            ckpt_dir=ckpt)
+        state2 = first.run()
+    assert first.errors == [] and latest_step(ckpt) == 2
+    assert state2["params"]["embed"].dtype == torch.bfloat16
+    with pair_loader(cfg, batch=2, seq_len=8, device=cpu) as loader:
+        second = make_runner(cfg, _port_bf16_template("llama3_2_3b"),
+                             iter(loader), steps=3, lr=1e-3, device=cpu,
+                             ckpt_dir=ckpt)
+        assert second.try_resume() and second.start_step == 2
+        for (key, got), (_, want) in zip(store._items(second.state),
+                                         store._items(state2), strict=True):
+            if isinstance(want, int):
+                assert got == want, key
+            else:
+                assert got.dtype == want.dtype and torch.equal(got, want), key
+        state3 = second.run()
+    assert second.errors == [] and state3["step"] == 3
+    assert latest_step(ckpt) == 3
+    assert state3["params"]["embed"].dtype == torch.bfloat16
+    assert not torch.equal(state3["params"]["embed"],
+                           state2["params"]["embed"])

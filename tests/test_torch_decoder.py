@@ -1,8 +1,8 @@
 """The dense decoders (llama3.2-3b, gemma2-27b, phi3-mini) in the port
 against the JAX package, with the JAX SMOKE params carried over by
-``weights.params_from_jax`` (CPU). The MoE decoders' configs, aliases and
-train CLI ids are held here too; their trunks in
-``test_torch_moe_decoder.py``.
+``weights.params_from_jax`` (CPU). The MoE decoders' configs and aliases
+are held here too; their trunks in ``test_torch_moe_decoder.py``, the
+decoders' training in ``test_torch_decoder_train.py``.
 
 Tolerances:
 
@@ -36,7 +36,7 @@ from repro.launch import steps as jsteps
 from repro.models import transformer as jtfm
 from repro_torch import configs
 from repro_torch.configs import get_config
-from repro_torch.launch import serve, steps, train
+from repro_torch.launch import serve, steps
 from repro_torch.models import transformer as tfm
 from repro_torch.weights import params_from_jax
 
@@ -340,14 +340,3 @@ def test_serve_cli_serves_a_decoder_on_the_cpu(arch, capsys):
     out = capsys.readouterr().out
     assert "encoded 6/6 requests" in out
     assert "retrieval[fused]: top-10 for 6 queries" in out
-
-
-@pytest.mark.parametrize("arch", ["llama3_2_3b", "gemma2-27b", "phi3_mini",
-                                  "moonshot_v1_16b", "phi3.5-moe-42b-a6.6b"])
-def test_train_cli_refuses_a_decoder(arch, capsys, tmp_path):
-    with pytest.raises(SystemExit) as exc:
-        train.main(["--arch", arch, "--device", "cpu", "--steps", "1",
-                    "--ckpt-dir", str(tmp_path)])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "12b" in err and "splade_bert" in err
