@@ -4,6 +4,9 @@
     python3 chip_smoke.py --train-depth llama 8 12 16 18 20
                                      # the train_decoder depths' peak
                                      # memory (``train_depth``)
+    python3 chip_smoke.py --only recsys
+                                     # device, build and the recsys
+                                     # phase alone (``only_phases``)
 
 Phases, run in this order, each printing one JSON line:
 
@@ -261,6 +264,27 @@ Phases, run in this order, each printing one JSON line:
              the same bits run to run, printed); (d) the CLI's loop
              (``make_runner``) on llama at 2 layers writing its final
              checkpoint with bf16 params, loaded back bit for bit.
+
+14. recsys  — the recsys family at published width, f32 (TF32 off),
+             seeded random weights, one family at a time: DLRM (its 26
+             tables capped at ``DLRM_ROW_CAP`` = 2^21 rows, 7.04 GB of
+             96.2 GB: the one cut of scale), xDeepFM, DIEN and
+             Wide&Deep. (a) One probe step of ``build_recsys_train_step``
+             at train_batch 65536, halved until it fits (xDeepFM's CIN),
+             then 5 steps of the train CLI's loop (``make_runner`` over
+             ``recsys_loader``, Adagrad at 1e-2) with its final checkpoint
+             (14.1 GB for DLRM) in a ``tempfile`` directory: losses finite
+             and not rising, the runner's step ms, peak memory; (b)
+             ``build_recsys_serve_step`` at serve_p99 (512) and serve_bulk
+             (262144, halved until it fits): probabilities in [0, 1], CUDA
+             ms; (c) ``build_retrieval_step`` at retrieval_cand (B 1,
+             1000448 x embed_dim candidates, k 100), its ids held against
+             K6 and ``topk_rows(q @ C.T)`` on the same query vector (equal
+             but at near ties), and K6 timed there beside its byte bound
+             (D 128, 10, 18, 32). No kernel is on these paths: K1-K6 must
+             launch no time in (a), (b) or the step of (c).
+             ``python3 chip_smoke.py --only recsys`` runs the device and
+             build phases and this one alone.
 
 Every K1 launch of the serve, dense-serve, engine, pruned, frontier, train,
 eval (b), xlmr (its serving phases too), ckpt, example_serve, decoder,
@@ -5768,9 +5792,295 @@ def train_depth(torch, argv) -> int:
     return 0
 
 
+# --------------------------------------------------------------------------
+# 14. recsys: DLRM, xDeepFM, DIEN and Wide&Deep at published width
+# --------------------------------------------------------------------------
+
+# name: the config module. Every family runs its CONFIG, f32 params and
+# compute as the configs say, but DLRM's tables: their 187,838,464 padded
+# rows (96.2 GB of f32) fit on no one card, so each is capped at
+# DLRM_ROW_CAP rows (13,750,272 rows, 7.04 GB), the batches drawn from the
+# capped sizes; the one cut of scale, until row sharding (item 10)
+RECSYS = {"dlrm": "dlrm_mlperf", "xdeepfm": "xdeepfm", "dien": "dien",
+          "wide_deep": "wide_deep"}
+DLRM_ROW_CAP = 2**21
+RECSYS_STEPS = 5          # runner steps at train_batch, after one probe step
+RECSYS_SERVE_REPS = {"serve_p99": 20, "serve_bulk": 2}
+# the retrieval_cand shape: B 1 against 1,000,000 candidates padded to a
+# multiple of 512 (the JAX package's configs/specs.py:207), k 100
+RECSYS_RETRIEVAL = {"N": 1000448, "k": 100, "reps": 10}
+
+
+def recsys_config(name):
+    """The family's published CONFIG (DLRM's tables capped at
+    ``DLRM_ROW_CAP`` rows) and the rows cut, as a dict."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.recsys import padded_rows
+
+    cfg = get_config(RECSYS[name]).CONFIG
+    if name != "dlrm":
+        return cfg, None
+    capped = tuple(min(rows, DLRM_ROW_CAP) for rows in cfg.table_sizes)
+    cut = {"row_cap": DLRM_ROW_CAP,
+           "padded_rows": sum(padded_rows(r) for r in cfg.table_sizes),
+           "capped_padded_rows": sum(padded_rows(r) for r in capped),
+           "tables_capped": sum(c < r for c, r in zip(capped,
+                                                      cfg.table_sizes))}
+    return dataclasses.replace(cfg, table_sizes=capped), cut
+
+
+def recsys_batch(torch, cfg, B, seed, device):
+    """One ``recsys_batches`` draw of B rows on ``device``."""
+    from repro_torch.data.synthetic import recsys_batches
+
+    host = next(recsys_batches(batch=B, n_dense=cfg.n_dense,
+                               n_sparse=cfg.n_sparse,
+                               table_sizes=cfg.table_sizes,
+                               seq_len=cfg.seq_len, seed=seed))
+    return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+
+
+def largest_fitting(torch, fn, B, floor=1):
+    """Call ``fn(B)`` at B, B / 2, ... until it does not run out of
+    memory: ``(B, result, [every B tried])``."""
+    tried = []
+    while True:
+        tried.append(B)
+        try:
+            return B, fn(B), tried
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            require(B // 2 >= floor, f"recsys: out of memory down to B {B}")
+            B //= 2
+
+
+def recsys_train(torch, name, cfg, launches):
+    """The train CLI's loop on ``cfg`` at train_batch: one probe step of
+    ``build_recsys_train_step`` (halving the batch until it fits, every
+    batch tried printed), then ``launch.train.make_runner`` over the CLI's
+    ``recsys_loader`` for ``RECSYS_STEPS`` steps from a fresh seeded state
+    (Adagrad at the CLI's 1e-2), its final checkpoint written into a
+    ``tempfile`` directory (removed after). The runner's step seconds,
+    the peak memory over its steps, each loss (finite, the last not above
+    the first), no step raised or skipped, and K1-K6 launched no time."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.base import SHAPES_RECSYS
+    from repro_torch.launch.steps import build_recsys_train_step, new_state
+    from repro_torch.launch.train import make_runner, recsys_loader
+
+    device = torch.device("cuda")
+    g = torch.Generator(device=device).manual_seed(31)
+    state = new_state(cfg, g)
+    torch.cuda.synchronize()
+    state_gib = torch.cuda.memory_allocated() / 2**30
+    step = build_recsys_train_step(cfg)
+
+    def probe(B):
+        batch = recsys_batch(torch, cfg, B, 5, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, m = step(state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        del out, batch
+        return {"ms": ms, "loss": loss}
+
+    B, probed, tried = largest_fitting(
+        torch, probe, SHAPES_RECSYS["train_batch"].batch)
+    torch.cuda.empty_cache()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_recsys_ckpt_")
+    reset_launches()
+    try:
+        with recsys_loader(cfg, batch=B, device=device) as loader, \
+                spans(host=(store, "host_state"),
+                      write=(store, "save_checkpoint")) as log:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            runner = make_runner(cfg, state, iter(loader),
+                                 steps=RECSYS_STEPS, lr=None, device=device,
+                                 ckpt_dir=ckpt_dir)
+            del state
+            state = runner.run()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            reserved = torch.cuda.max_memory_reserved() / 2**30
+        ckpt_bytes = sum(f.stat().st_size for f in
+                         (Path(ckpt_dir) / f"step_{RECSYS_STEPS:09d}"
+                          ).iterdir())
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    launches[f"{name}_train"] = read_launches()
+    logged = [m for m in runner.metrics_log if "loss" in m]
+    losses = [float(m["loss"]) for m in logged]
+    out = {"batch": B, "batches_tried": tried, "probe": probed,
+           "state_gib": state_gib, "losses": losses,
+           "step_ms": [1e3 * m["step_time_s"] for m in logged],
+           "peak_gib": peak, "reserved_gib": reserved,
+           "ckpt_bytes": ckpt_bytes,
+           "ckpt_host_copy_s": [t1 - t0 for t0, t1 in log["host"]],
+           "ckpt_write_s": [t1 - t0 for t0, t1 in log["write"]]}
+    out["median_step_ms"] = sorted(out["step_ms"])[len(logged) // 2]
+    require(not runner.errors and runner.skipped_steps == []
+            and len(losses) == RECSYS_STEPS and state["step"] == RECSYS_STEPS,
+            f"recsys {name}: the runner's steps raised {runner.errors} or "
+            f"were skipped {runner.skipped_steps}")
+    require(all(np.isfinite(losses)) and losses[-1] <= losses[0],
+            f"recsys {name}: losses {losses} not finite or rising")
+    require(not any(launches[f"{name}_train"].values()),
+            f"recsys {name}: a kernel launched in the train step: "
+            f"{launches[f'{name}_train']}")
+    return out, state
+
+
+def recsys_serve(torch, name, cfg, params, launches):
+    """``build_recsys_serve_step`` at serve_p99 and serve_bulk (halved until
+    it fits, every batch tried printed): CUDA-event ms a call, peak MB,
+    probabilities finite and in [0, 1], on the card."""
+    from repro_torch.configs.base import SHAPES_RECSYS
+    from repro_torch.launch.steps import build_recsys_serve_step
+
+    serve = build_recsys_serve_step(cfg)
+    rows = {}
+    for shape in ("serve_p99", "serve_bulk"):
+        def run(B):
+            batch = recsys_batch(torch, cfg, B, 6, torch.device("cuda"))
+            p = serve(params, batch)
+            torch.cuda.synchronize()
+            return batch, p
+
+        reset_launches()
+        B, (batch, p), tried = largest_fitting(
+            torch, run, SHAPES_RECSYS[shape].batch)
+        launches[f"{name}_{shape}"] = read_launches()
+        ok = bool(p.is_cuda and p.shape == (B,) and torch.isfinite(p).all()
+                  and ((p >= 0) & (p <= 1)).all())
+        row = {"batch": B, "batches_tried": tried, "prob_mean": float(p.mean()),
+               "prob_range": [float(p.min()), float(p.max())],
+               "probabilities": ok}
+        del p
+        row["ms"], row["ms_range"] = timed(
+            torch, lambda: serve(params, batch), RECSYS_SERVE_REPS[shape])
+        row["peak_mb"] = peak_mb(torch, lambda: serve(params, batch))
+        require(ok, f"recsys {name} {shape}: {row}")
+        rows[shape] = row
+        del batch
+        torch.cuda.empty_cache()
+    return rows
+
+
+def recsys_retrieval(torch, name, cfg, params, launches):
+    """``build_retrieval_step`` at retrieval_cand: B 1, candidates
+    ``(RECSYS_RETRIEVAL["N"], embed_dim)`` f32 from a seeded generator, k
+    100. Its ids held against K6 (``topk_score``) and the library's
+    ``topk_rows(q @ C.T)`` on the same query vector and candidates
+    (``stream_compare``'s rule: values within K6_TOL of 1 + |value|, ids
+    equal but at near ties); the step's CUDA-event ms and peak MB; K6
+    timed on those inputs beside its bound (``time_k6``)."""
+    from repro_torch.configs.base import SHAPES_RECSYS
+    from repro_torch.kernels.topk_score import topk_rows, topk_score
+    from repro_torch.launch.steps import build_retrieval_step
+    from repro_torch.models.recsys import user_embedding
+
+    N, k, reps = (RECSYS_RETRIEVAL[key] for key in ("N", "k", "reps"))
+    shape = SHAPES_RECSYS["retrieval_cand"]
+    require(N == shape.n_candidates + (-shape.n_candidates) % 512,
+            "recsys: retrieval_cand's padded N")
+    g = torch.Generator(device="cuda").manual_seed(37)
+    batch = recsys_batch(torch, cfg, shape.batch, 7, torch.device("cuda"))
+    batch["candidates"] = torch.randn((N, cfg.embed_dim), generator=g,
+                                      device="cuda")
+    C = batch["candidates"]
+    retrieve = build_retrieval_step(cfg, None, k=k)
+    reset_launches()
+    vals, idx = retrieve(params, batch)
+    torch.cuda.synchronize()
+    launches[f"{name}_retrieval"] = read_launches()
+    require(not any(launches[f"{name}_retrieval"].values()),
+            f"recsys {name}: a kernel launched in the retrieval step: "
+            f"{launches[f'{name}_retrieval']}")
+    with torch.no_grad():
+        qv = user_embedding(params, cfg, batch)
+    vs_k6 = stream_compare(torch, qv, C, (vals, idx), topk_score(qv, C, k=k))
+    vs_library = stream_compare(torch, qv, C, (vals, idx),
+                                topk_rows(qv @ C.T, k))
+    row = {"shape": {"B": qv.shape[0], "N": N, "D": cfg.embed_dim, "k": k},
+           "on_cuda": bool(idx.is_cuda), "vs_k6": vs_k6,
+           "vs_library": vs_library}
+    require(row["on_cuda"] and vs_k6["within_tol"] and vs_library["within_tol"],
+            f"recsys {name} retrieval: {row}")
+    row["ms"], row["ms_range"] = timed(torch, lambda: retrieve(params, batch),
+                                       reps)
+    row["peak_mb"] = peak_mb(torch, lambda: retrieve(params, batch))
+    row["k6"] = time_k6(torch, qv, C, k, reps=reps)
+    del batch, C, vals, idx
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_recsys(torch):
+    """The recsys family at published width (f32, TF32 off), one family at
+    a time: (a) training through the train CLI's loop (``recsys_train``),
+    (b) the serve step at serve_p99 and serve_bulk (``recsys_serve``) and
+    (c) the retrieval step at retrieval_cand held against K6 and the
+    library (``recsys_retrieval``), on the trained params. No kernel is
+    on these paths: K1-K6 must launch no time in any of them (K6's
+    launches here are its comparisons and timing). One ``recsys_<name>``
+    line a family, then ``recsys``."""
+    t0 = time.perf_counter()
+    rows, launches = {}, {}
+    for name in RECSYS:
+        t1 = time.perf_counter()
+        cfg, cut = recsys_config(name)
+        train, state = recsys_train(torch, name, cfg, launches)
+        params = state["params"]
+        del state
+        torch.cuda.empty_cache()
+        row = {"config": cfg.name, "interaction": cfg.interaction,
+               "embed_dim": cfg.embed_dim, "n_tables": len(cfg.table_sizes),
+               "rows_cut": cut, "train": train,
+               "serve": recsys_serve(torch, name, cfg, params, launches),
+               "retrieval": recsys_retrieval(torch, name, cfg, params,
+                                             launches)}
+        del params
+        torch.cuda.empty_cache()
+        row["seconds"] = time.perf_counter() - t1
+        emit(f"recsys_{name}", **row)
+        rows[name] = row
+    seconds = time.perf_counter() - t0
+    emit("recsys", seconds=seconds,
+         batches={name: {"train": r["train"]["batch"],
+                         **{s: r["serve"][s]["batch"] for s in r["serve"]}}
+                  for name, r in rows.items()},
+         dlrm_rows_cut=rows["dlrm"]["rows_cut"])
+    return {"launches": launches,
+            "k6": {f"{name}_D{r['embed_dim']}": r["retrieval"]["k6"]
+                   for name, r in rows.items()},
+            "seconds": seconds}
+
+
+def only_phases(torch, names) -> int:
+    """``python3 chip_smoke.py --only recsys``: the device and build
+    phases, then the recsys phase alone with its gates; no kernels line
+    and no last line."""
+    if names != ["recsys"]:
+        print("chip_smoke --only: the one phase that runs alone is recsys",
+              file=sys.stderr)
+        return 2
+    phase_device(torch)
+    phase_build()
+    phase_recsys(torch)
+    return 0
+
+
 def kernel_rows(measured, launches, dense_launches, engine_launches,
                 train_launches, k1_paths, xlmr, eval_launches, ckpt_launches,
-                pruned, frontier, examples, decoder, moe, train_decoder):
+                pruned, frontier, examples, decoder, moe, train_decoder,
+                recsys):
     """The ``{"kernels": [...]}`` line: each kernel's launches on its path
     and its numbers from the timing phase (K1 at an index batch, K2/K3 at
     the train shape, K4, K5 and K6 at the served queries; K1 also at the
@@ -5927,7 +6237,8 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
         row["example_quickstart_launches"] = examples["quickstart"][key]
         row["streaming_launches"] = examples["streaming"]["launches"][key]
         for phase, out in (("decoder", decoder), ("moe", moe),
-                           ("train_decoder", train_decoder)):
+                           ("train_decoder", train_decoder),
+                           ("recsys", recsys)):
             row[f"{phase}_launches"] = {
                 where: n[key] for where, n in out["launches"].items()}
     for row, kernel in ((rows[1], "dh"), (rows[2], "de")):
@@ -5947,6 +6258,10 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
     rows[3]["ceiling"]["example_serve_launches"] = {
         name: n["impact_ceiling_topk"]
         for name, n in examples["serve"].items()}
+    rows[5]["at_recsys"] = {
+        name: {key: r[key] for key in k6_keys + (
+            "shape", "peak_mb", "library_peak_mb", "read_ms")}
+        for name, r in recsys["k6"].items()}
     rows[5]["at_retrieval_cand"] = {
         name: {key: r[key] for key in k6_keys + (
             "shape", "k6_path", "peak_mb", "library_peak_mb", "stream_ms",
@@ -5987,6 +6302,8 @@ def main(argv=()) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv and argv[0] == "--only":
+        return only_phases(torch, argv[1:])
     if argv:
         return train_depth(torch, argv)
     phase_device(torch)
@@ -6039,11 +6356,12 @@ def main(argv=()) -> int:
     train_decoder = phase_train_decoder(torch)
     k1_paths.update({f"train_decoder_{where}": paths for where, paths
                      in train_decoder["k1_paths"].items()})
+    recsys = phase_recsys(torch)
     print(json.dumps({"kernels": kernel_rows(
         measured, served["launches"], dense_launches, engine_launches,
         trained["launches"], k1_paths, xlmr, evaluated["launches"],
         ckpt["launches"], served_pruned, frontier, examples, decoder,
-        moe, train_decoder)}),
+        moe, train_decoder, recsys)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,13 @@
 """Config registry of the port: ``get_config("splade_bert")``,
 ``get_config("llama3.2-3b")``.
 
-``ARCHS`` are the archs the port holds, each served (the LSR prefill
-step, the serve CLI; KV-cache decode for a decoder) and trained (the
-LSR train step, the train CLI): the two SPLADE encoders, the three dense
-decoders and the two MoE decoders. ``ALIASES`` are the JAX package's
+``ARCHS`` are the archs the port holds. The two SPLADE encoders, the
+three dense decoders and the two MoE decoders are served (the LSR
+prefill step, the serve CLI; KV-cache decode for a decoder) and trained
+(the LSR train step, the train CLI). The four recsys archs
+(``RECSYS_ARCHS``) are trained by the train CLI (Adagrad on the CTR
+loss), served by ``launch.steps.build_recsys_serve_step`` and retrieve
+through ``build_retrieval_step``. ``ALIASES`` are the JAX package's
 external ids.
 """
 
@@ -12,8 +15,9 @@ from __future__ import annotations
 
 import importlib
 
+RECSYS_ARCHS = ("dlrm_mlperf", "xdeepfm", "dien", "wide_deep")
 ARCHS = ("splade_bert", "splade_xlmr", "llama3_2_3b", "gemma2_27b",
-         "phi3_mini", "moonshot_v1_16b", "phi3_5_moe")
+         "phi3_mini", "moonshot_v1_16b", "phi3_5_moe") + RECSYS_ARCHS
 
 # external ids (with dots and dashes) -> module names, as in the JAX package
 ALIASES = {
@@ -22,6 +26,10 @@ ALIASES = {
     "phi3-mini-3.8b": "phi3_mini",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe",
+    "dlrm-mlperf": "dlrm_mlperf",
+    "xdeepfm": "xdeepfm",
+    "dien": "dien",
+    "wide-deep": "wide_deep",
     "splade-bert": "splade_bert",
     "splade-xlmr": "splade_xlmr",
 }

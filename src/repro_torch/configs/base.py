@@ -1,11 +1,11 @@
 """Config dataclasses of the port (its own copies of ``repro/configs``).
 
-Only the transformer family is here: the port serves and trains the
-SPLADE encoders (``splade_bert``, ``splade_xlmr``) and serves the dense
-decoders (``llama3_2_3b``, ``gemma2_27b``, ``phi3_mini``) and the MoE
-decoders (``moonshot_v1_16b``, ``phi3_5_moe``). Field names and
-defaults are the JAX package's, so a config reads the same in both, with
-one exception:
+The transformer family (the SPLADE encoders ``splade_bert`` and
+``splade_xlmr``, the dense decoders ``llama3_2_3b``, ``gemma2_27b``,
+``phi3_mini`` and the MoE decoders ``moonshot_v1_16b``, ``phi3_5_moe``)
+and the recsys family (``dlrm_mlperf``, ``xdeepfm``, ``dien``,
+``wide_deep``). Field names and defaults are the JAX package's, so a
+config reads the same in both, with one exception:
 ``head_impl`` defaults to ``"kernel"``, the CUDA head, so that no entry
 point serves or trains through a plain head unless it is asked to (CPU
 tensors take the kernels' plain versions inside their wrappers).
@@ -14,17 +14,22 @@ tensors take the kernels' plain versions inside their wrappers).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
-    """One measured input shape (the LM fields of the JAX ShapeSpec)."""
+    """One measured input shape (the LM and recsys fields of the JAX
+    ShapeSpec)."""
 
     name: str
-    kind: str  # train | prefill | decode | serve
+    kind: str  # train | prefill | decode | serve | retrieval
+    # LM shapes
     seq_len: int = 0
     global_batch: int = 0
+    # recsys shapes
+    batch: int = 0
+    n_candidates: int = 0
     skip: bool = False
     skip_reason: str = ""
 
@@ -63,6 +68,7 @@ class TransformerConfig:
     lambda_d: float = 3e-4         # FLOPS weight on doc reps
     l1_weight: float = 0.0         # optional L1 on both rep sides
     aux_weight: float = 1e-2       # MoE load-balance aux weight
+    distill_weight: float = 0.0    # MarginMSE weight (needs distill batch)
     # Head backend, resolved against the head_api registry by
     # ``head_spec()``: "jax" is the JAX package's alias for the plain
     # "sparton" head.
@@ -147,3 +153,36 @@ def shapes_lm(long_ok: bool, long_skip_reason: str = "") -> Dict[str, ShapeSpec]
             skip=not long_ok, skip_reason=long_skip_reason,
         ),
     }
+
+
+@dataclasses.dataclass(frozen=True)
+class RecSysConfig:
+    name: str
+    family: str = "recsys"
+    interaction: str = "dot"  # dot | cin | augru | concat
+    n_dense: int = 0
+    n_sparse: int = 26
+    embed_dim: int = 128
+    table_sizes: Tuple[int, ...] = ()
+    bot_mlp: Tuple[int, ...] = ()
+    top_mlp: Tuple[int, ...] = ()
+    mlp: Tuple[int, ...] = ()
+    cin_layers: Tuple[int, ...] = ()
+    # DIEN
+    seq_len: int = 0
+    gru_dim: int = 0
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+
+    @property
+    def total_rows(self) -> int:
+        return sum(self.table_sizes)
+
+
+SHAPES_RECSYS: Dict[str, ShapeSpec] = {
+    "train_batch": ShapeSpec("train_batch", "train", batch=65536),
+    "serve_p99": ShapeSpec("serve_p99", "serve", batch=512),
+    "serve_bulk": ShapeSpec("serve_bulk", "serve", batch=262144),
+    "retrieval_cand": ShapeSpec("retrieval_cand", "retrieval", batch=1,
+                                n_candidates=1_000_000),
+}

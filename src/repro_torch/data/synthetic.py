@@ -1,15 +1,15 @@
-"""Deterministic synthetic LSR data (the port's copy of
-``repro/data/synthetic.py:_rng``, ``_zipf_ids``, ``lsr_pair_batches`` and
-``lsr_impact_corpus``).
+"""Deterministic synthetic LSR and recsys data (the port's copy of
+``repro/data/synthetic.py:_rng``, ``_zipf_ids``, ``lsr_pair_batches``,
+``lsr_impact_corpus`` and ``recsys_batches``).
 
-Host-side numpy: ``lsr_pair_batches`` is seeded per ``(seed, shard,
-step)``, ``lsr_impact_corpus`` by ``seed``; for the same arguments each
-gives the JAX package's arrays, bit for bit.
+Host-side numpy: ``lsr_pair_batches`` and ``recsys_batches`` are seeded
+per ``(seed, shard, step)``, ``lsr_impact_corpus`` by ``seed``; for the
+same arguments each gives the JAX package's arrays, bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Sequence
 
 import numpy as np
 
@@ -53,6 +53,42 @@ def lsr_pair_batches(
             "q_tokens": q_tok, "q_mask": q_mask,
             "d_tokens": d_tok * d_mask, "d_mask": d_mask,
         }
+        step += 1
+
+
+def recsys_batches(
+    *,
+    batch: int,
+    n_dense: int,
+    n_sparse: int,
+    table_sizes: Sequence[int],
+    seq_len: int = 0,
+    seed: int = 0,
+    shard: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """CTR click batches: ``label`` (Bernoulli 0.25, f32), ``dense``
+    (normal, f32) when ``n_dense``, and Zipf ids: ``sparse_idx`` (batch,
+    one column a table) or, for DIEN (``seq_len``), ``hist_idx`` (batch,
+    seq_len) and ``target_idx`` (batch,) into the first table."""
+    step = 0
+    while True:
+        rng = _rng(seed, shard, step)
+        out: Dict[str, np.ndarray] = {
+            "label": rng.binomial(1, 0.25, size=batch).astype(np.float32),
+        }
+        if n_dense:
+            out["dense"] = rng.normal(size=(batch, n_dense)).astype(
+                np.float32)
+        if seq_len:  # DIEN
+            rows = table_sizes[0]
+            out["hist_idx"] = _zipf_ids(rng, (batch, seq_len), rows)
+            out["target_idx"] = _zipf_ids(rng, (batch,), rows)
+        else:
+            cols = [
+                _zipf_ids(rng, (batch,), rows) for rows in table_sizes
+            ]
+            out["sparse_idx"] = np.stack(cols, axis=1)
+        yield out
         step += 1
 
 

@@ -6,12 +6,14 @@
 K3 (``kernels/sparton_bwd.py``), which compute ``g = dy * f'(y)`` and
 ``db = sum_b g`` inside the kernels. Gradients come back in the inputs'
 dtypes (``db`` in f32), as in the JAX wrapper's ``_bwd``. CPU tensors
-take each kernel's plain version.
+take each kernel's plain version. ``sparton_lm_head_kernel`` is the JAX
+package's name and positional signature for the same head (its
+``jax.custom_vjp``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -44,6 +46,37 @@ class _SpartonHead(torch.autograd.Function):
         dH, dE, db = sparton_backward(dy.float().contiguous(), y, i_max, H,
                                       E, softcap=ctx.softcap)
         return dH.to(H.dtype), dE.to(E.dtype), db, None, None, None
+
+
+def sparton_lm_head_kernel(
+    H: torch.Tensor,
+    E: torch.Tensor,
+    b: torch.Tensor,
+    mask: torch.Tensor,
+    block_b: Optional[int] = None,
+    block_s: Optional[int] = None,
+    block_v: Optional[int] = None,
+    softcap: Optional[float] = None,
+    interpret: bool = False,
+    out_dtype: Optional[torch.dtype] = None,
+    dh_blocks: Optional[Tuple[int, int, int]] = None,
+    de_blocks: Optional[Tuple[int, int, int]] = None,
+) -> torch.Tensor:
+    """The differentiable kernel head under the reference's name: K1
+    forward, K2 + K3 backward, ``y`` in ``out_dtype`` (default ``H``'s).
+    ``block_*``, ``dh_blocks`` and ``de_blocks`` are the Pallas kernels'
+    TPU tiles: the CUDA kernels pick their own, so a pin raises.
+    ``interpret`` asks the reference for the Pallas interpreter; here the
+    tensors' device decides (CPU tensors take the plain versions)."""
+    pinned = {name: value for name, value in (
+        ("block_b", block_b), ("block_s", block_s), ("block_v", block_v),
+        ("dh_blocks", dh_blocks), ("de_blocks", de_blocks))
+        if value is not None}
+    if pinned:
+        raise ValueError(
+            f"sparton_lm_head_kernel: {pinned} are TPU tiles of the JAX "
+            "package's Pallas head; the CUDA kernels pick their own tiles")
+    return _SpartonHead.apply(H, E, b, mask, softcap, out_dtype)
 
 
 def sparton_head(

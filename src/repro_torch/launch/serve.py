@@ -352,15 +352,16 @@ def print_tenants(res: Dict[str, Any]) -> None:
 
 
 def main(argv=None) -> int:
-    from repro_torch.configs import ALIASES, ARCHS, get_config
+    from repro_torch.configs import ALIASES, ARCHS, RECSYS_ARCHS, get_config
     from repro_torch.device import resolve_device
     from repro_torch.retrieval.score import INDEX_METHODS, METHODS
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="splade_bert",
                     help=f"one of {', '.join(ARCHS)} or a JAX alias "
-                         f"({', '.join(ALIASES)}); a decoder (dense or "
-                         f"MoE) serves through its causal trunk")
+                         f"({', '.join(ALIASES)}) but the recsys archs; "
+                         f"a decoder (dense or MoE) serves through its "
+                         f"causal trunk")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--corpus", type=int, default=1000)
     ap.add_argument("--topk", type=int, default=10)
@@ -444,6 +445,10 @@ def main(argv=None) -> int:
         arch = get_config(args.arch)
     except ValueError as e:
         ap.error(str(e))
+    if arch.__name__.rsplit(".", 1)[-1] in RECSYS_ARCHS:
+        ap.error(f"--arch {args.arch}: a recsys arch has no LSR head to "
+                 "serve; its serving steps are launch.steps."
+                 "build_recsys_serve_step and build_retrieval_step")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:

@@ -1,28 +1,38 @@
-"""The LSR train step, the LSR prefill and decode steps and the streaming
-top-k (``repro/launch/steps.py``, unsharded).
+"""The LSR train step, the LSR prefill and decode steps, the recsys train,
+serve and retrieval steps and the streaming top-k
+(``repro/launch/steps.py``, unsharded).
 
 ``build_lsr_train_step(cfg, ...)`` returns ``step(state, batch) ->
 (state, {"loss": ...})``: the trunk (a bidirectional encoder, or a dense
 or MoE causal decoder) and the config's Sparton head on the query and
 the document tokens, the SPLADE loss plus ``aux_weight * (aux_q +
 aux_d)``, the MoE trunk's load-balance loss of each side (0 for a dense
-trunk), its gradients (through K2 and K3 for ``head_impl="kernel"``, the
-default), averaged over ``n_micro`` chunks, then AdamW on the master
-params in their own dtype (f32 for the SMOKE configs, bf16 for the
-decoders' full CONFIGs). The state is ``{"params", "opt": {"mu", "nu"},
-"step"}``, as the JAX package's. ``build_lsr_prefill_step`` encodes
-``{"tokens", "mask"}`` through the trunk (causal for a decoder, dense or
-MoE) and the config's head: the paper's head on a decoder backbone, K1
-for ``head_impl="kernel"``. ``build_decode_step`` takes one KV-cache
-step on ``{"tokens", "positions", "cache_k", "cache_v"}``.
-``streaming_topk`` is the JAX package's tile-by-tile top-k over a dense
-candidate matrix, the counterpart of K6 built from plain PyTorch.
+trunk), plus ``distill_weight`` times the MarginMSE term when the config
+sets it and the batch holds ``neg_tokens``, ``neg_mask`` and
+``teacher_margin``, its gradients (through K2 and K3 for
+``head_impl="kernel"``, the default), averaged over ``n_micro`` chunks,
+then AdamW on the master params in their own dtype (f32 for the SMOKE
+configs, bf16 for the decoders' full CONFIGs). The state is
+``{"params", "opt": {"mu", "nu"}, "step"}``, as the JAX package's.
+``build_lsr_prefill_step`` encodes ``{"tokens", "mask"}`` through the
+trunk (causal for a decoder, dense or MoE) and the config's head: the
+paper's head on a decoder backbone, K1 for ``head_impl="kernel"``.
+``build_decode_step`` takes one KV-cache step on ``{"tokens",
+"positions", "cache_k", "cache_v"}``.
+
+``build_recsys_train_step(cfg)`` trains a recsys model on the mean BCE
+of its click logits with Adagrad (``{"params", "opt": {"acc"},
+"step"}``); ``build_recsys_serve_step`` gives click probabilities;
+``build_retrieval_step`` scores ``batch["candidates"]`` against
+``models.recsys.user_embedding`` with ``streaming_topk``, the JAX
+package's tile-by-tile top-k over a dense candidate matrix, the
+counterpart of K6 built from plain PyTorch, so that the ``(B, N)`` score
+matrix is never built.
 
 Still to come: every ``mesh`` (the vocab-sharded step, the
-expert-parallel MoE and ``streaming_topk``'s ``vary_axes``: multi-GPU,
-ROADMAP Queue 1 item 10), the recsys train and serve steps with
-``build_retrieval_step`` and the GNN step (models this port does not hold
-yet); the MarginMSE term waits for a distillation data source.
+expert-parallel MoE, the row-sharded retrieval and ``streaming_topk``'s
+``vary_axes``: multi-GPU, ROADMAP Queue 1 item 10) and the GNN step (a
+model this port does not hold yet).
 """
 
 from __future__ import annotations
@@ -32,13 +42,14 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import TransformerConfig
+from repro_torch.configs.base import RecSysConfig, TransformerConfig
 from repro_torch.kernels._common import NEG_INF
 from repro_torch.kernels.topk_score import merge_topk
-from repro_torch.losses.contrastive import splade_loss
+from repro_torch.losses.contrastive import margin_mse_loss, splade_loss
+from repro_torch.models import recsys as recsys_model
 from repro_torch.models import transformer as tfm
 from repro_torch.optim.accumulation import microbatch_grads
-from repro_torch.optim.optimizers import adamw, apply_updates
+from repro_torch.optim.optimizers import adagrad, adamw, apply_updates
 from repro_torch.optim.schedules import linear_warmup_cosine
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -66,17 +77,25 @@ def lsr_loss(cfg: TransformerConfig) -> Callable[[Any, Batch], torch.Tensor]:
     """``(params, batch) -> loss``: both sides encoded by ``_encode_fn``
     (the trunk and the config's head), then the SPLADE objective with
     ``aux_weight * (aux_q + aux_d)``, as the JAX step's unsharded
-    objective. An MoE micro-batch routes its own ``rows x S`` tokens, so
-    its capacity follows the micro-batch."""
+    objective. With ``cfg.distill_weight`` set and ``neg_tokens`` in the
+    batch, the negatives are encoded too and ``distill_weight *
+    margin_mse_loss(yq, yd, yn, teacher_margin)`` is added (their aux
+    loss is not, as in the reference). An MoE micro-batch routes its own
+    ``rows x S`` tokens, so its capacity follows the micro-batch."""
     encode = _encode_fn(cfg, None, 1)
 
     def loss_fn(params, mb):
         yq, aux_q = encode(params, mb["q_tokens"], mb["q_mask"])
         yd, aux_d = encode(params, mb["d_tokens"], mb["d_mask"])
-        return splade_loss(yq, yd, lambda_q=cfg.lambda_q,
+        loss = splade_loss(yq, yd, lambda_q=cfg.lambda_q,
                            lambda_d=cfg.lambda_d, l1_weight=cfg.l1_weight,
                            aux_loss=aux_q + aux_d,
                            aux_weight=cfg.aux_weight)
+        if cfg.distill_weight and "neg_tokens" in mb:
+            yn, _ = encode(params, mb["neg_tokens"], mb["neg_mask"])
+            loss = loss + cfg.distill_weight * margin_mse_loss(
+                yq, yd, yn, mb["teacher_margin"])
+        return loss
     return loss_fn
 
 
@@ -105,12 +124,13 @@ def build_lsr_train_step(
     return step
 
 
-def _no_mesh(mesh: Any, what: str) -> None:
+def _no_mesh(mesh: Any, what: str,
+             sharded: str = "the vocab-sharded head, the sharded cache"
+             ) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            f"{what}: a mesh (the vocab-sharded head, the sharded cache) is "
-            "not ported yet: it arrives with multi-GPU, ROADMAP Queue 1 "
-            "item 10")
+            f"{what}: a mesh ({sharded}) is not ported yet: it arrives "
+            "with multi-GPU, ROADMAP Queue 1 item 10")
 
 
 def _encode_fn(cfg: TransformerConfig, mesh: Any, n_batch: int,
@@ -165,15 +185,97 @@ def build_decode_step(cfg: TransformerConfig, mesh: Any = None
     return serve
 
 
+def bce_with_logits(logits: torch.Tensor,
+                    label: torch.Tensor) -> torch.Tensor:
+    """The mean BCE of click ``logits`` against 0/1 ``label``, written as
+    the reference writes it: ``max(x, 0) - x * y + log1p(exp(-|x|))``
+    (``max(x, 0)`` as ``relu``, whose gradient at ``x = 0`` is 0, as
+    ``jnp.maximum(x, 0)``'s is)."""
+    loss = torch.relu(logits) - logits * label \
+        + torch.log1p(torch.exp(-logits.abs()))
+    return loss.mean()
+
+
+def build_recsys_train_step(
+    cfg: RecSysConfig,
+    *,
+    lr: float = 1e-2,
+    param_specs: Any = None,
+    zero_specs: Any = None,
+) -> Callable[[State, Batch], Tuple[State, Dict[str, torch.Tensor]]]:
+    """The CTR train step: ``bce_with_logits`` of
+    ``models.recsys.forward``'s logits against ``batch["label"]``, its
+    dense gradients (a table's is table-sized, as JAX's gradient of
+    ``take`` is), then Adagrad at ``lr``. It returns a new state and
+    leaves the given one intact (a fault-tolerant runner retries a step
+    on it). ``param_specs`` and ``zero_specs`` shard the reference's step
+    over a mesh and raise here."""
+    if param_specs is not None or zero_specs is not None:
+        _no_mesh(True, "build_recsys_train_step", "row-sharded tables")
+    opt = adagrad(lr)
+    grad_fn = value_and_grad(lambda params, batch: bce_with_logits(
+        recsys_model.forward(params, cfg, batch), batch["label"]))
+
+    def step(state: State, batch: Batch):
+        loss, grads = grad_fn(state["params"], batch)
+        updates, opt_state = opt.update(grads, state["opt"],
+                                        state["params"], state["step"])
+        del grads   # table-sized: free them before the new params exist
+        params = apply_updates(state["params"], updates)
+        return ({"params": params, "opt": opt_state,
+                 "step": state["step"] + 1}, {"loss": loss})
+
+    return step
+
+
+def build_recsys_serve_step(cfg: RecSysConfig
+                            ) -> Callable[[Any, Batch], torch.Tensor]:
+    """``serve(params, batch) -> (B,)`` click probabilities (the sigmoid of
+    the logits), without autograd."""
+    @torch.no_grad()
+    def serve(params, batch: Batch) -> torch.Tensor:
+        return torch.sigmoid(recsys_model.forward(params, cfg, batch))
+    return serve
+
+
+def build_retrieval_step(cfg: RecSysConfig, mesh: Any = None, *,
+                         k: int = 100
+                         ) -> Callable[[Any, Batch],
+                                       Tuple[torch.Tensor, torch.Tensor]]:
+    """``serve(params, batch) -> (vals (B, k) f32, idx (B, k) i32)``, without
+    autograd: the query vectors of ``models.recsys.user_embedding``, then
+    ``streaming_topk`` over ``batch["candidates"]`` ``(N, embed_dim)``
+    (its default tile of 65536 rows): the ``(B, N)`` scores are never
+    built. A mesh (candidates row-sharded over devices) raises."""
+    _no_mesh(mesh, "build_retrieval_step", "row-sharded candidates")
+
+    @torch.no_grad()
+    def serve(params, batch: Batch):
+        qv = recsys_model.user_embedding(params, cfg, batch)
+        return streaming_topk(qv, batch["candidates"], k=k)
+    return serve
+
+
+def new_state(cfg: Any, generator: torch.Generator) -> State:
+    """A fresh train state for ``cfg``, random params on the generator's
+    device, step 0: a ``TransformerConfig``'s (``models.transformer``)
+    with zero AdamW moments, a ``RecSysConfig``'s (``models.recsys``)
+    with Adagrad's accumulators at 0.1, as the reference's
+    ``init_state`` lays them out."""
+    if isinstance(cfg, RecSysConfig):
+        params = recsys_model.init_params(generator, cfg)
+        opt = adagrad(1e-2)
+    else:
+        params = tfm.init_params(generator, cfg)
+        opt = adamw(1e-4)
+    return {"params": params, "opt": opt.init(params), "step": 0}
+
+
 def init_state(arch_id: str, generator: torch.Generator, *,
                smoke: bool = False) -> State:
-    """A fresh train state for a transformer arch: random params on the
-    generator's device (``models.transformer.init_params``), zero AdamW
-    moments, step 0."""
+    """``new_state`` of the arch's CONFIG (SMOKE with ``smoke``)."""
     mod = get_config(arch_id)
-    cfg = mod.SMOKE if smoke else mod.CONFIG
-    params = tfm.init_params(generator, cfg)
-    return {"params": params, "opt": adamw(1e-4).init(params), "step": 0}
+    return new_state(mod.SMOKE if smoke else mod.CONFIG, generator)
 
 
 def streaming_topk(q: torch.Tensor, C: torch.Tensor, *, k: int,

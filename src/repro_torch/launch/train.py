@@ -10,9 +10,25 @@
         --batch 16 --seq-len 256
     python -m repro_torch.launch.train --arch llama3.2-3b --steps 2 \\
         --batch 2 --seq-len 16 --device cpu
+    python -m repro_torch.launch.train --arch xdeepfm --steps 3 \\
+        --batch 16 --device cpu
+    python -m repro_torch.launch.train --arch xdeepfm --full --batch 32768
 
 Trains any arch of ``configs.ARCHS`` or its JAX alias, as the JAX CLI
-trains any ``TransformerConfig``: the SPLADE encoders, the dense decoders
+trains any ``TransformerConfig`` and ``RecSysConfig``.
+
+A recsys arch (``dlrm_mlperf``, ``xdeepfm``, ``dien``, ``wide_deep``)
+trains its SMOKE config (``--full``: the published CONFIG) on the click
+batches of ``data.synthetic.recsys_batches`` (``--batch`` rows a step),
+through the same loader, with ``launch.steps.build_recsys_train_step``:
+the mean BCE of the click logits, Adagrad at 1e-2, the rate the JAX CLI
+trains it at (it passes no ``--lr`` to that step, nor does this CLI).
+``--seq-len``, the regularizer, head and eval flags touch a
+``TransformerConfig`` only, as in the JAX CLI. DLRM's published tables
+(96.2 GB in f32) fit on no one card: ``--full`` on ``dlrm_mlperf`` waits
+for row sharding (multi-GPU, ROADMAP Queue 1 item 10).
+
+An LSR arch trains as follows: the SPLADE encoders, the dense decoders
 (llama3.2-3b, gemma2-27b, phi3-mini) and the MoE decoders
 (moonshot-v1-16b-a3b, phi3.5-moe, whose objective adds the load-balance
 term ``aux_weight * (aux_q + aux_d)``). It trains the arch's SMOKE config
@@ -40,12 +56,12 @@ nDCG@10, printed as the JAX CLI prints them (``eval @ init: ...``,
 
 The run goes through ``runtime.fault_tolerance.FaultTolerantRunner``,
 as the JAX CLI's does: an async atomic checkpoint of the whole state
-(params, AdamW moments, step) into ``--ckpt-dir`` every ``--ckpt-every``
-steps and once at the end, in the JAX package's format (a checkpoint of
-either CLI resumes in the other); ``--resume`` loads the latest and
-prints ``resumed from step N``. As in the JAX runner, a resumed run
-draws its batches from the start of a fresh stream, while the schedule
-goes on from the state's step. A step past the runner's deadline is
+(params, AdamW moments or Adagrad accumulators, step) into
+``--ckpt-dir`` every ``--ckpt-every`` steps and once at the end, in the
+JAX package's format (a checkpoint of either CLI resumes in the other);
+``--resume`` loads the latest and prints ``resumed from step N``. As in
+the JAX runner, a resumed run draws its batches from the start of a
+fresh stream, while the schedule goes on from the state's step. A step past the runner's deadline is
 retried, then skipped; a step that raises is skipped by the runner too,
 and the CLI then exits non-zero naming the first such error (a kernel
 that does not build or launch must not end in ``done``).
@@ -60,19 +76,19 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import sys
-from typing import Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.configs import ARCHS, get_config, resolve_arch
-from repro_torch.configs.base import TransformerConfig
+from repro_torch.configs.base import RecSysConfig, TransformerConfig
 from repro_torch.core.head_api import available_impls
 from repro_torch.data.loader import HostShardedLoader
-from repro_torch.data.synthetic import lsr_pair_batches
+from repro_torch.data.synthetic import lsr_pair_batches, recsys_batches
 from repro_torch.device import resolve_device
 from repro_torch.eval import MethodSpec, Qrels, evaluate_retrieval
 from repro_torch.launch.steps import (Batch, build_lsr_train_step,
-                                      init_state)
+                                      build_recsys_train_step, init_state)
 from repro_torch.runtime.fault_tolerance import (FaultTolerantRunner,
                                                 RunnerConfig)
 from repro_torch.runtime.serving import make_config_encoder
@@ -93,24 +109,45 @@ def pair_loader(cfg: TransformerConfig, *, batch: int, seq_len: int,
     return HostShardedLoader(make_iter, pin_memory=device.type == "cuda")
 
 
+def recsys_loader(cfg: RecSysConfig, *, batch: int,
+                  device: torch.device) -> HostShardedLoader:
+    """Shard 0's synthetic click batches (``recsys_batches`` over the
+    config's tables) through a ``HostShardedLoader``, pinned when they go
+    to the card."""
+    def make_iter(shard, n_shards):
+        return recsys_batches(batch=batch, n_dense=cfg.n_dense,
+                              n_sparse=cfg.n_sparse,
+                              table_sizes=cfg.table_sizes,
+                              seq_len=cfg.seq_len, shard=shard)
+
+    return HostShardedLoader(make_iter, pin_memory=device.type == "cuda")
+
+
 def placer(device: torch.device) -> Callable[[Batch], Batch]:
     """A host batch -> the same tensors on ``device``."""
     return lambda b: {k: v.to(device, non_blocking=True)
                       for k, v in b.items()}
 
 
-def make_runner(cfg: TransformerConfig, state: Dict, batches: Iterator, *,
-                steps: int, lr: float, device: torch.device, ckpt_dir: str,
-                ckpt_every: int = 0,
+def make_runner(cfg: Union[TransformerConfig, RecSysConfig], state: Dict,
+                batches: Iterator, *, steps: int, lr: Optional[float],
+                device: torch.device, ckpt_dir: str, ckpt_every: int = 0,
                 on_step: Optional[Callable[[int, Dict], Optional[Dict]]]
                 = None) -> FaultTolerantRunner:
     """The CLI's training loop: a ``FaultTolerantRunner`` over
-    ``build_lsr_train_step(cfg, lr=lr)`` from ``state`` up to step
-    ``steps``, on host ``batches`` placed on ``device``, each step's
-    metrics logged. It checkpoints into ``ckpt_dir`` every ``ckpt_every``
-    steps (0: never) and, as the JAX runner does, once at the end."""
+    ``build_lsr_train_step(cfg, lr=lr)`` (a ``RecSysConfig``:
+    ``build_recsys_train_step(cfg, lr=lr)``, its own 1e-2 when ``lr`` is
+    None) from ``state`` up to step ``steps``, on host ``batches`` placed
+    on ``device``, each step's metrics logged. It checkpoints into
+    ``ckpt_dir`` every ``ckpt_every`` steps (0: never) and, as the JAX
+    runner does, once at the end."""
+    if isinstance(cfg, RecSysConfig):
+        step = build_recsys_train_step(
+            cfg, **({} if lr is None else {"lr": lr}))
+    else:
+        step = build_lsr_train_step(cfg, lr=lr)
     return FaultTolerantRunner(
-        build_lsr_train_step(cfg, lr=lr), state, batches,
+        step, state, batches,
         config=RunnerConfig(ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
                             max_steps=steps, log_every=1),
         place_batch=placer(device), on_step=on_step)
@@ -159,8 +196,9 @@ def parser() -> argparse.ArgumentParser:
                          f"alias)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8,
-                    help="(query, doc) pairs per step")
-    ap.add_argument("--seq-len", type=int, default=32)
+                    help="(query, doc) pairs per step (recsys: click rows)")
+    ap.add_argument("--seq-len", type=int, default=32,
+                    help="query and doc tokens (LSR archs only)")
     ap.add_argument("--ckpt-dir", default="/tmp/repro_ckpt",
                     help="where checkpoints are written and resumed from")
     ap.add_argument("--ckpt-every", type=int, default=20,
@@ -170,7 +208,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--full", action="store_true",
                     help="the full (published-width) config, not SMOKE")
     ap.add_argument("--lr", type=float, default=2e-4,
-                    help="peak learning rate (1000 warm-up steps, cosine)")
+                    help="peak learning rate (1000 warm-up steps, cosine) "
+                         "of the LSR step; a recsys arch trains at 1e-2, "
+                         "as the JAX CLI trains it")
     ap.add_argument("--lambda-q", type=float, default=None,
                     help="FLOPS regularizer weight on query reps "
                          "(default: config's lambda_q)")
@@ -198,11 +238,14 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def config_from_args(args: argparse.Namespace) -> TransformerConfig:
+def config_from_args(args: argparse.Namespace
+                     ) -> Union[TransformerConfig, RecSysConfig]:
     """The arch's SMOKE or CONFIG with the flags that override its fields
-    (each only when given)."""
+    (each only when given; a ``RecSysConfig`` has none of them)."""
     mod = get_config(args.arch)
     cfg = mod.CONFIG if args.full else mod.SMOKE
+    if isinstance(cfg, RecSysConfig):
+        return cfg
     reg = {name: getattr(args, name) for name in REGULARIZERS
            if getattr(args, name) is not None}
     if reg:
@@ -225,11 +268,12 @@ def run(args: argparse.Namespace, device: torch.device) -> Dict:
     "start_step", "skipped": [step, ...]}``.
     Raises ``TrainStepError`` naming the first error when a step raised."""
     cfg = config_from_args(args)
+    recsys = isinstance(cfg, RecSysConfig)
     state = init_state(args.arch,
                        torch.Generator(device=device).manual_seed(0),
                        smoke=not args.full)
     run_eval = None
-    if args.eval_every:
+    if args.eval_every and not recsys:
         run_eval = evaluator(cfg, *held_out(
             cfg, args.eval_queries, q_len=args.seq_len,
             d_len=args.seq_len), device=device)
@@ -243,10 +287,15 @@ def run(args: argparse.Namespace, device: torch.device) -> Dict:
         print(f"eval @ step {done}: " + _metrics_line(evals[-1][1]))
         return {f"eval_{k}": v for k, v in evals[-1][1].items()}
 
-    with pair_loader(cfg, batch=args.batch, seq_len=args.seq_len,
-                     device=device) as loader:
+    if recsys:
+        loader = recsys_loader(cfg, batch=args.batch, device=device)
+    else:
+        loader = pair_loader(cfg, batch=args.batch, seq_len=args.seq_len,
+                             device=device)
+    with loader:
         runner = make_runner(
-            cfg, state, iter(loader), steps=args.steps, lr=args.lr,
+            cfg, state, iter(loader), steps=args.steps,
+            lr=None if recsys else args.lr,
             device=device, ckpt_dir=args.ckpt_dir,
             ckpt_every=args.ckpt_every,
             on_step=eval_hook if run_eval else None)
@@ -268,8 +317,8 @@ def run(args: argparse.Namespace, device: torch.device) -> Dict:
         print("eval improvement over init: " + " ".join(
             f"{k} {init_metrics[k]:.4f}->{final[k]:.4f}"
             f"({final[k] - init_metrics[k]:+.4f})" for k in final))
-    print(f"done: {args.steps} steps of {cfg.name} "
-          f"(head {cfg.head_spec().impl}) on {device}, "
+    what = ("Adagrad" if recsys else f"head {cfg.head_spec().impl}")
+    print(f"done: {args.steps} steps of {cfg.name} ({what}) on {device}, "
           f"{len(runner.skipped_steps)} skipped, "
           f"{len(runner.remesh_events)} re-mesh events")
     if runner.errors:

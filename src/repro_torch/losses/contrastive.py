@@ -23,6 +23,14 @@ def infonce_loss(q_reps: torch.Tensor, d_reps: torch.Tensor, *,
     return -logp.diagonal().mean()
 
 
+def infonce_from_scores(scores: torch.Tensor, *,
+                        temperature: float = 1.0) -> torch.Tensor:
+    """InfoNCE on a precomputed ``(Bq, Bd)`` score matrix (the positive of
+    query i is column i)."""
+    logp = F.log_softmax(scores / temperature, dim=-1)
+    return -logp.diagonal().mean()
+
+
 def flops_regularizer(reps: torch.Tensor) -> torch.Tensor:
     """SPLADE FLOPS: ``sum_v (mean_b |Y[b, v]|)^2``."""
     mean_act = reps.float().abs().mean(dim=0)

@@ -1,5 +1,6 @@
-"""AdamW and global-norm clipping (``repro/optim/optimizers.py``), with
-the JAX package's math, as pure functions over nested dicts of tensors.
+"""AdamW, Adagrad, SGD with momentum and global-norm clipping
+(``repro/optim/optimizers.py``), with the JAX package's math, as pure
+functions over trees of tensors (nested dicts and lists, ``tree``).
 
 Two places differ from ``torch.optim.AdamW`` + ``clip_grad_norm_``, so
 those are not used: the clip scale is ``min(1, max_norm / max(gn,
@@ -7,7 +8,9 @@ those are not used: the clip scale is ``min(1, max_norm / max(gn,
 (sqrt(vhat) + eps) + wd * p`` on every leaf (norm scales and the bias
 included) with ``t = step + 1``. The moments are f32; updates come back
 in f32 and the caller casts them to the params' dtype
-(``launch.steps``). Nothing is updated in place.
+(``launch.steps``). Adagrad (the recsys tables' optimizer) and SGD with
+momentum keep f32 state and return their updates cast to each param's
+dtype, as the reference's do. Nothing is updated in place.
 """
 
 from __future__ import annotations
@@ -76,16 +79,80 @@ def adamw(
             return -lr_t * delta, m2, v2
 
         out = tree_map(upd, grads, state["mu"], state["nu"], params)
-        return _pick(out, 0), {"mu": _pick(out, 1), "nu": _pick(out, 2)}
+        return (_pick(params, out, 0),
+                {"mu": _pick(params, out, 1), "nu": _pick(params, out, 2)})
 
     return Optimizer(init, update)
 
 
-def _pick(tree: Tree, i: int) -> Tree:
-    """Element ``i`` of the tuples at the leaves of ``tree``."""
-    if isinstance(tree, dict):
-        return {k: _pick(v, i) for k, v in tree.items()}
-    return tree[i]
+def adagrad(
+    lr: Union[Callable[[int], float], float],
+    *,
+    eps: float = 1e-10,
+    initial_accumulator: float = 0.1,
+) -> Optimizer:
+    """Per-element adaptive rates: ``acc += g^2`` (f32, starting at
+    ``initial_accumulator``), update ``-lr * g / (sqrt(acc) + eps)`` in
+    the param's dtype. The state is ``{"acc": tree like params}``. A dense
+    gradient reaches every row of a table: a row no id touched gets
+    ``acc + 0`` and an update of ``-0``, as in the reference."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params: Tree) -> Tree:
+        return {"acc": tree_map(
+            lambda p: torch.full_like(p, initial_accumulator,
+                                      dtype=torch.float32), params)}
+
+    def update(grads: Tree, state: Tree, params: Tree,
+               step: int) -> Tuple[Tree, Tree]:
+        lr_t = float(f32(lr_fn(step)))
+
+        def upd(g, a, p):
+            g = g.float()
+            a2 = a + g * g
+            return (-lr_t * g / (a2.sqrt() + eps)).to(p.dtype), a2
+
+        out = tree_map(upd, grads, state["acc"], params)
+        return _pick(params, out, 0), {"acc": _pick(params, out, 1)}
+
+    return Optimizer(init, update)
+
+
+def sgd_momentum(
+    lr: Union[Callable[[int], float], float],
+    *,
+    momentum: float = 0.9,
+    nesterov: bool = False,
+) -> Optimizer:
+    """Heavy-ball momentum, ``v = momentum * v + g`` (f32), the step
+    ``-lr * v`` (Nesterov: ``-lr * (g + momentum * v)``) in the param's
+    dtype. The state is ``{"v": tree like params}``."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params: Tree) -> Tree:
+        return {"v": tree_map(
+            lambda p: torch.zeros_like(p, dtype=torch.float32), params)}
+
+    def update(grads: Tree, state: Tree, params: Tree,
+               step: int) -> Tuple[Tree, Tree]:
+        lr_t = float(f32(lr_fn(step)))
+
+        def upd(g, v, p):
+            g = g.float()
+            v2 = momentum * v + g
+            d = g + momentum * v2 if nesterov else v2
+            return (-lr_t * d).to(p.dtype), v2
+
+        out = tree_map(upd, grads, state["v"], params)
+        return _pick(params, out, 0), {"v": _pick(params, out, 1)}
+
+    return Optimizer(init, update)
+
+
+def _pick(like: Tree, out: Tree, i: int) -> Tree:
+    """Element ``i`` of the tuples that ``out`` holds at the leaves of
+    ``like`` (a tree of the same shape)."""
+    return tree_map(lambda _, o: o[i], like, out)
 
 
 def apply_updates(params: Tree, updates: Tree) -> Tree:

@@ -3,8 +3,11 @@
 ``params_from_jax`` takes the JAX param pytree of a transformer (dense
 or MoE), already converted to numpy arrays by the caller (stacked ``(L, ...)``
 layer leaves, weights laid out for ``x @ W``), and returns the port's
-params: the same tree of tensors on ``device``. ``state_from_jax`` does
-the same for a whole train state (params, the AdamW moments, the step).
+params: the same tree of tensors on ``device``. ``recsys_params_from_jax``
+does the same for a recsys model (lists of tables, lists of ``{"w", "b"}``
+layers). ``state_from_jax`` carries a whole train state: params, the
+optimizer state (the AdamW moments of a transformer, the Adagrad
+accumulators of a recsys model) and the step.
 A bf16 leaf (the decoders' published CONFIGs hold bf16 params) is carried
 by its bits.
 With them both packages compute the same function and take the same
@@ -18,9 +21,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import TransformerConfig
+from repro_torch.configs.base import RecSysConfig, TransformerConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.tree import tree_items
+from repro_torch.tree import tree_items, tree_map
 
 
 def _expected_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
@@ -83,6 +86,79 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
     return out
 
 
+def _mlp_shapes(prefix: str, dims) -> Dict[str, tuple]:
+    out: Dict[str, tuple] = {}
+    for i in range(len(dims) - 1):
+        out[f"{prefix}/{i}/w"] = (dims[i], dims[i + 1])
+        out[f"{prefix}/{i}/b"] = (dims[i + 1],)
+    return out
+
+
+def _recsys_shapes(cfg: RecSysConfig) -> Dict[str, tuple]:
+    """Every leaf's path and shape in ``models.recsys.init_params``'s
+    tree for ``cfg``."""
+    from repro_torch.models.recsys import padded_rows
+
+    d, m = cfg.embed_dim, cfg.n_sparse
+
+    def tables(name, dim):
+        return {f"{name}/{i}": (padded_rows(rows), dim)
+                for i, rows in enumerate(cfg.table_sizes)}
+
+    if cfg.interaction == "dot":
+        n_f = m + 1
+        return {**tables("tables", d), **_mlp_shapes("bot_mlp", cfg.bot_mlp),
+                **_mlp_shapes("top_mlp", (d + n_f * (n_f - 1) // 2,)
+                              + tuple(cfg.top_mlp))}
+    if cfg.interaction == "cin":
+        cin, h_prev = {}, m
+        for i, h in enumerate(cfg.cin_layers):
+            cin[f"cin/{i}"] = (h_prev * m, h)
+            h_prev = h
+        return {**tables("tables", d), **tables("linear", 1), **cin,
+                **_mlp_shapes("dnn", (m * d,) + tuple(cfg.mlp)),
+                **_mlp_shapes("out", (cfg.mlp[-1] + sum(cfg.cin_layers)
+                                      + 1, 1))}
+    if cfg.interaction == "augru":
+        g = cfg.gru_dim
+        gru = {f"{name}/{k}": shape for name, d_in in (("gru1", d),
+                                                        ("augru", g))
+               for k, shape in (("w", (d_in, 3 * g)), ("u", (g, 3 * g)),
+                                ("b", (3 * g,)))}
+        return {"item_table": (padded_rows(cfg.table_sizes[0]), d), **gru,
+                **_mlp_shapes("att", (2 * g, 36, 1)),
+                **_mlp_shapes("item_proj", (d, g)),
+                **_mlp_shapes("mlp", (2 * g + d,) + tuple(cfg.mlp) + (1,))}
+    if cfg.interaction == "concat":
+        return {**tables("tables", d), **tables("wide", 1),
+                **_mlp_shapes("deep", (m * d,) + tuple(cfg.mlp) + (1,))}
+    raise ValueError(f"unknown interaction {cfg.interaction!r}")
+
+
+def recsys_params_from_jax(tree: Dict[str, Any], cfg: RecSysConfig,
+                           device: DeviceLike = None) -> Dict[str, Any]:
+    """The port's recsys params (or a tree like them, such as Adagrad's
+    accumulators) from a numpy copy of the JAX pytree: the same dicts and
+    lists, each leaf a tensor on ``device``. Raises if a leaf is missing,
+    extra or of the wrong shape for ``cfg`` (every table's padded rows,
+    every layer's widths)."""
+    dev = resolve_device(device)
+    out = tree_map(lambda a: _tensor(np.asarray(a)).to(dev), tree)
+    flat = tree_items(out)
+    expected = _recsys_shapes(cfg)
+    if set(flat) != set(expected):
+        raise ValueError(
+            f"recsys_params_from_jax: leaves "
+            f"{sorted(set(flat) ^ set(expected))} do not match a "
+            f"{cfg.interaction} {cfg.name} tree")
+    for path, value in flat.items():
+        if tuple(value.shape) != expected[path]:
+            raise ValueError(f"recsys_params_from_jax: {path} has shape "
+                             f"{tuple(value.shape)}, {cfg.name} needs "
+                             f"{expected[path]}")
+    return out
+
+
 def _tensor(arr: np.ndarray) -> torch.Tensor:
     """A host copy of ``arr`` as a tensor; numpy's bfloat16 (ml_dtypes',
     which JAX hands over for a bf16 leaf and ``torch.from_numpy`` refuses)
@@ -93,11 +169,20 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def state_from_jax(state: Dict[str, Any], cfg: TransformerConfig,
+def state_from_jax(state: Dict[str, Any], cfg: Any,
                    device: DeviceLike = None) -> Dict[str, Any]:
-    """The port's train state from a numpy copy of the JAX one
-    (``{"params", "opt": {"mu", "nu"}, "step"}``, AdamW layout): the
-    moments are trees shaped like the params, the step an int."""
+    """The port's train state from a numpy copy of the JAX one: for a
+    ``TransformerConfig`` ``{"params", "opt": {"mu", "nu"}, "step"}``
+    (AdamW layout), for a ``RecSysConfig`` ``{"params", "opt": {"acc"},
+    "step"}`` (Adagrad layout); the optimizer's trees are shaped like the
+    params, the step an int."""
+    if isinstance(cfg, RecSysConfig):
+        return {
+            "params": recsys_params_from_jax(state["params"], cfg, device),
+            "opt": {"acc": recsys_params_from_jax(state["opt"]["acc"], cfg,
+                                                  device)},
+            "step": int(np.asarray(state["step"])),
+        }
     return {
         "params": params_from_jax(state["params"], cfg, device),
         "opt": {k: params_from_jax(state["opt"][k], cfg, device)

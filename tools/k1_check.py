@@ -4,14 +4,22 @@ shapes, without the serving and training phases of ``chip_smoke.py``.
     python3 tools/k1_check.py             # build, gates, one full-width shape
     python3 tools/k1_check.py --time      # ... and time K1 at 64 x 16,
                                           # 16 x 32, 384 x 256 and 320 x 512
+    python3 tools/k1_check.py --decoder-train
+                                          # ... and K1 at the decoders'
+                                          # train shapes (B 2 x S 4096)
 
 Prints ``chip_smoke.py``'s device and build lines (ptxas's report
 included), one JSON line of gates, and with ``--time`` one JSON line per
 shape: the "tma" path beside the earlier WMMA design forced on the same
 inputs (``ms_wmma``), the plain version, the paper's PyTorch baseline
 and the bound. The inputs are seeded random bf16 hidden states with
-``splade_bert``'s widths (D 768, V 30522). Exits non-zero on any failed
-gate.
+``splade_bert``'s widths (D 768, V 30522). With ``--decoder-train``, one
+JSON line per decoder of ``DECODER_TRAIN`` at B 2 x S 4096 (train_4k's
+length, the decoders' train steps): K1 at that decoder's D, V and final
+softcap on seeded random bf16 weights, beside its plain version, the
+one-call yardstick and the paper's PyTorch baseline head (``naive``),
+each called alone (``chip_smoke.time_k1_decoder``). Exits non-zero on
+any failed gate.
 """
 
 from __future__ import annotations
@@ -28,11 +36,15 @@ import chip_smoke  # noqa: E402  (puts src/ on sys.path)
 
 SHAPES = {"index_batch": (64, 16), "query_batch": (16, 32),
           "train": (384, 256), "table1": (320, 512)}
+# the decoders whose train steps chip_smoke.py times, at their (B, S)
+DECODER_TRAIN = {"llama3_2_3b": (2, 4096), "gemma2_27b": (2, 4096),
+                 "moonshot_v1_16b": (2, 4096)}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--time", action="store_true")
+    ap.add_argument("--decoder-train", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -86,6 +98,21 @@ def main() -> int:
             print(json.dumps({"phase": "k1_time", "shape": name, **row}),
                   flush=True)
             del H
+            torch.cuda.empty_cache()
+    if args.decoder_train:
+        from repro_torch.configs import get_config
+
+        for arch, (B, S) in DECODER_TRAIN.items():
+            cfg = get_config(arch).CONFIG
+            D, V = cfg.d_model, cfg.vocab_size
+            E = (torch.randn((V, D), generator=g, device="cuda")
+                 * D ** -0.5).to(torch.bfloat16)
+            b = torch.randn((V,), generator=g, device="cuda") * 0.02
+            row = chip_smoke.time_k1_decoder(torch, E, b, B, S,
+                                             cfg.final_logit_softcap)
+            print(json.dumps({"phase": "k1_decoder_train", "arch": arch,
+                              **row}), flush=True)
+            del E, b
             torch.cuda.empty_cache()
     return 0
 
