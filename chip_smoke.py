@@ -6,7 +6,8 @@
                                      # memory (``train_depth``)
     python3 chip_smoke.py --only recsys
                                      # device, build and the recsys
-                                     # phase alone (``only_phases``)
+                                     # phase alone (``only_phases``;
+                                     # also dimenet, or both)
 
 Phases, run in this order, each printing one JSON line:
 
@@ -286,10 +287,43 @@ Phases, run in this order, each printing one JSON line:
              ``python3 chip_smoke.py --only recsys`` runs the device and
              build phases and this one alone.
 
+15. dimenet — DimeNet's full CONFIG (6 blocks, d 128, bilinear 8,
+             spherical 7, radial 6), f32 (TF32 off), seeded random
+             weights, through ``launch/steps.build_gnn_train_step`` at
+             three SHAPES_GNN shapes, ``d_feat`` as the JAX cells set it:
+             (a) molecule (128 graphs x 30 atoms, E 8192, ``d_feat`` 0):
+             exact flat triplets padded to a multiple of 512, the graph
+             MSE, 10 steps on one batch at lr 2e-3 (the loss must fall);
+             (b) full_graph_sm (2708 nodes, 10556 edges, ``d_feat`` 1433,
+             padded to N 3072, E 10752): capped triplets (K 8) in the
+             dense (E, 8) layout, the node-mask MSE, 5 steps, and
+             ``forward`` on the flat triplets equal to the dense within
+             DIMENET_TOL; (c) minibatch_lg: a 232,965-node host graph of
+             up to 114,615,892 edges (cut, and the cut printed, if a 1/16
+             probe predicts more than 60 s), 1024 seeds fanned out (15,
+             10), padded to N 169984, E 168960, ``d_feat`` 602, dense
+             (168960, 8) triplets, the seed MSE, 5 steps. At each shape:
+             the host build seconds, the real triplets, each step's
+             CUDA-event ms and the peak, losses finite, two runs of one
+             step's gradients the same bits (``sparse/segment``'s sorted
+             sums, no atomics), K1-K6 launched no time; at (a) and (b) one
+             step's loss and gradients within DIMENET_TOL of the port's
+             CPU step (or of its f64 control), the f64 steps of both
+             devices within DIMENET_F64_TOL. ogb_products is printed as
+             skipped (253 GB of gathered messages a block: multi-GPU,
+             item 10).
+             minibatch_lg's host batch (its graph most of a minute of
+             numpy) is built in a spawned process from the build phase on,
+             while the earlier phases run. ``python3 chip_smoke.py --only
+             dimenet`` runs the device and build phases and this one alone
+             (building it inline).
+
 Every K1 launch of the serve, dense-serve, engine, pruned, frontier, train,
 eval (b), xlmr (its serving phases too), ckpt, example_serve, decoder,
 moe and train_decoder phases must take the "tma" path. Then a
-``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
+``timeline`` line (each phase's seconds, against the 1200 s the script
+is given), a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
+"device": ...}``.
 Any mismatch, exception or missing launch exits non-zero before that last
 line. The script imports nothing of JAX nor of the JAX package.
 """
@@ -6063,17 +6097,460 @@ def phase_recsys(torch):
             "seconds": seconds}
 
 
+# --------------------------------------------------------------------------
+# 15. dimenet
+# --------------------------------------------------------------------------
+
+# DimeNet's full CONFIG (6 blocks, d 128, bilinear 8, spherical 7, radial
+# 6), f32 with TF32 off, at the three SHAPES_GNN shapes one card holds,
+# d_feat per shape as the JAX package's cells set it (atom types at
+# molecule, the datasets' feature widths: configs/specs.py:152)
+DIMENET_D_FEAT = {"molecule": 0, "full_graph_sm": 1433, "minibatch_lg": 602}
+DIMENET_STEPS = 5          # timed steps at each shape, after the first
+DIMENET_LEARN = (10, 2e-3)  # molecule: steps on one batch at this lr, as
+#                             examples/train_dimenet.py trains
+TRIPLET_PAD = 512          # flat triplets padded to a multiple, t_mask 0
+# the card's loss and gradients against the port's same step on the CPU,
+# and the flat layout against the dense one: f32 sums in other orders
+# (cuBLAS's blocked products, the sorted segment sums' runs against the
+# CPU's serial index_add_) through 6 blocks, relative to each leaf's
+# (each output's) largest |value|. A leaf whose f32 step is that sensitive
+# to the order (the untrained CONFIG's outputs reach ~1e3, a cora hub
+# sums ~4000 edges) passes if the card's f32 gradient is no further from
+# the f64 step than twice the CPU's f32 gradient is (its in-run control);
+# the card's f64 step equals the CPU's f64 step within DIMENET_F64_TOL
+DIMENET_TOL = 1e-4
+DIMENET_F64_TOL = 1e-9
+GRAPH_BUILD_S = 60         # minibatch_lg: the host graph's time budget
+# a full build's seconds over its 1/16 probe's: 16x the edges, and the
+# stable sort's log factor and cache misses on top (21.3x measured on the
+# H100 machine's host)
+GRAPH_PROBE_SCALE = 22.4
+OGB_SKIP = ("ogb_products needs more than one card: its padded E of "
+            "61,859,328 x K 8 x d 128 in f32 is 253 GB of gathered messages "
+            "for one block (m (E, 128) alone 31.7 GB); it waits for "
+            "multi-GPU, ROADMAP Queue 1 item 10")
+
+
+def pad512(n):
+    return n + (-n) % 512
+
+
+def dimenet_config(shape):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("dimenet").CONFIG,
+                               d_feat=DIMENET_D_FEAT[shape])
+
+
+def flat_triplets(t_in, t_out):
+    """Flat triplets padded to a multiple of ``TRIPLET_PAD`` (t_mask 0)."""
+    T = len(t_in)
+    out = {k: np.zeros(T + (-T) % TRIPLET_PAD, np.int32)
+           for k in ("t_in", "t_out", "t_mask")}
+    out["t_in"][:T], out["t_out"][:T], out["t_mask"][:T] = t_in, t_out, 1
+    return out
+
+
+def real_edge_triplets(b, n_nodes, cap):
+    """Capped triplets of the real edges only (``edge_mask`` 1, a prefix),
+    flat and densified to ``(E, cap)``, and the host seconds of each: the
+    padded tail (0 -> 0) gets none. (Over the padded arrays, as
+    ``molecule_batches`` users build them, every padded edge scans node
+    0's padded in-edges: ``build_triplets`` goes quadratic in the ~145k
+    padded edges of minibatch_lg.)"""
+    from repro_torch.sparse.triplets import build_triplets, densify_triplets
+
+    n = int(b["edge_mask"].sum())
+    require(b["edge_mask"][:n].all(), "dimenet: real edges are a prefix")
+    t0 = time.perf_counter()
+    t_in, t_out = build_triplets(b["edge_src"][:n], b["edge_dst"][:n],
+                                 n_nodes, max_per_edge=cap)
+    t1 = time.perf_counter()
+    dense, mask = densify_triplets(t_in, t_out, len(b["edge_src"]), cap)
+    t2 = time.perf_counter()
+    return (t_in, t_out), (dense, mask), {"triplets_s": t1 - t0,
+                                          "densify_s": t2 - t1}
+
+
+def molecule_host():
+    """(a) 128 molecules of 30 atoms, at most 64 edges each
+    (``molecule_batches``), exact triplets over its padded arrays (as
+    ``examples/train_dimenet.py`` builds them), flat, padded to a
+    multiple of ``TRIPLET_PAD``."""
+    from repro_torch.configs.base import SHAPES_GNN
+    from repro_torch.data.synthetic import molecule_batches
+    from repro_torch.sparse.triplets import build_triplets
+
+    spec = SHAPES_GNN["molecule"]
+    t0 = time.perf_counter()
+    b = next(molecule_batches(n_graphs=spec.n_graphs,
+                              nodes_per_graph=spec.n_nodes,
+                              edges_per_graph=spec.n_edges, seed=0))
+    t1 = time.perf_counter()
+    b.update(flat_triplets(*build_triplets(
+        b["edge_src"], b["edge_dst"], spec.n_graphs * spec.n_nodes)))
+    return b, {"molecules_s": t1 - t0,
+               "triplets_s": time.perf_counter() - t1}
+
+
+def full_graph_host(cfg):
+    """(b) cora-size: ``make_synthetic_graph(2708, 10556)`` padded to the
+    JAX cell's multiples of 512 (N 3072, E 10752; masked), positions
+    uniform in [0, 1.2 cutoff)^3 as ``molecule_batches`` draws them,
+    ``node_feat`` (N, 1433) and per-node targets normal; capped
+    triplets (K 8) of the real edges, flat and dense."""
+    from repro_torch.configs.base import SHAPES_GNN
+    from repro_torch.data.synthetic import make_synthetic_graph
+
+    spec = SHAPES_GNN["full_graph_sm"]
+    t0 = time.perf_counter()
+    src, dst = make_synthetic_graph(spec.n_nodes, spec.n_edges, seed=0)
+    N, E = pad512(spec.n_nodes), pad512(spec.n_edges)
+    rng = np.random.default_rng(41)
+    b = {k: np.zeros(E, np.int32) for k in ("edge_src", "edge_dst",
+                                             "edge_mask")}
+    b["edge_src"][:len(src)], b["edge_dst"][:len(src)] = src, dst
+    b["edge_mask"][:len(src)] = 1
+    b.update(positions=rng.uniform(0, cfg.cutoff * 1.2, size=(N, 3)).astype(
+                 np.float32),
+             node_feat=rng.normal(size=(N, cfg.d_feat)).astype(np.float32),
+             node_mask=(np.arange(N) < spec.n_nodes).astype(np.int32),
+             target=rng.normal(size=(N, cfg.n_targets)).astype(np.float32))
+    t1 = time.perf_counter()
+    flat, dense, secs = real_edge_triplets(
+        b, N, cfg.max_triplets_per_edge)
+    return b, flat, dense, {"graph_s": t1 - t0, **secs}
+
+
+def minibatch_host(cfg, spec):
+    """(c) Reddit-size: a host graph of the published 232,965 nodes and
+    114,615,892 edges (``make_synthetic_graph``, then
+    ``CSRGraph.from_edges``), cut only if a 1/16 probe predicts it would
+    take more than ``GRAPH_BUILD_S`` (``GRAPH_PROBE_SCALE`` times the
+    probe); 1024 seeds fanned out (15, 10) by
+    ``sample_subgraph``, padded to ``fanout_budget`` (N 169984, E 168960),
+    the two hops' blocks concatenated; ``node_feat`` (N, 602), positions
+    as (b), one target a seed; capped triplets (K 8) of the real edges,
+    densified to (168960, 8)."""
+    from repro_torch.data.synthetic import make_synthetic_graph
+    from repro_torch.sparse.sampler import (CSRGraph, fanout_budget,
+                                            sample_subgraph)
+
+    n, E = spec.n_nodes, spec.n_edges
+
+    def graph(n_edges):
+        t0 = time.perf_counter()
+        src, dst = make_synthetic_graph(n, n_edges, seed=0)
+        g = CSRGraph.from_edges(src, dst, n)
+        return g, time.perf_counter() - t0
+
+    _, probe_s = graph(E // 16)
+    predicted = probe_s * GRAPH_PROBE_SCALE
+    n_edges = E if predicted <= GRAPH_BUILD_S else \
+        int(E * GRAPH_BUILD_S / predicted)
+    g, graph_s = graph(n_edges)
+    out_degree = np.diff(g.indptr)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(43)
+    seeds = rng.choice(n, spec.batch_nodes, replace=False)
+    N, per_hop = fanout_budget(spec.batch_nodes, spec.fanout)
+    sub = sample_subgraph(g, seeds, spec.fanout, rng=rng, pad_nodes=N,
+                          pad_edges_per_hop=per_hop)
+    del g
+    t1 = time.perf_counter()
+    b = {"edge_src": np.concatenate([x.src for x in sub.blocks]),
+         "edge_dst": np.concatenate([x.dst for x in sub.blocks]),
+         "edge_mask": np.concatenate([x.mask for x in sub.blocks]),
+         "positions": rng.uniform(0, cfg.cutoff * 1.2, size=(N, 3)).astype(
+             np.float32),
+         "node_feat": rng.normal(size=(N, cfg.d_feat)).astype(np.float32),
+         "node_mask": sub.node_mask, "seed_ids": sub.seeds,
+         "target": rng.normal(size=(spec.batch_nodes, cfg.n_targets)
+                              ).astype(np.float32)}
+    # the sampler pads each hop behind its real edges: make them a prefix
+    order = np.argsort(-b["edge_mask"], kind="stable")
+    for k in ("edge_src", "edge_dst", "edge_mask"):
+        b[k] = b[k][order]
+    t2 = time.perf_counter()
+    _, dense, secs = real_edge_triplets(b, N, cfg.max_triplets_per_edge)
+    cut = None if n_edges == E else {
+        "edges": n_edges, "of": E, "probe_s": probe_s,
+        "predicted_full_s": predicted}
+    return b, dense, {"graph_probe_s": probe_s, "graph_s": graph_s,
+                      "sample_s": t1 - t0, "features_s": t2 - t1, **secs}, {
+        "edges_cut": cut, "min_out_degree": int(out_degree.min()),
+        "real_nodes": sub.n_nodes,
+        "real_edges": [x.n_edges for x in sub.blocks]}
+
+
+def start_minibatch_host():
+    """``minibatch_host`` in a spawned process while the earlier phases
+    run (its minute of numpy would otherwise sit in the script's time
+    limit): the pending result, for ``phase_dimenet``. The process is
+    terminated when the script exits."""
+    import atexit
+    import multiprocessing
+
+    from repro_torch.configs.base import SHAPES_GNN
+
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    atexit.register(pool.terminate)
+    return pool.apply_async(minibatch_host, (dimenet_config("minibatch_lg"),
+                                             SHAPES_GNN["minibatch_lg"]))
+
+
+def on(torch, host, device):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in host.items()}
+
+
+def leaf_errors(torch, got, want):
+    """Each leaf's largest |got - want| over its largest |want|, worst
+    first: [(path, ratio)]."""
+    from repro_torch.tree import tree_items
+
+    errs = []
+    for path, w in tree_items(want).items():
+        g = tree_items(got)[path].cpu()
+        scale = float(w.abs().max()) or 1.0
+        errs.append((path, float((g - w).abs().max()) / scale))
+    return sorted(errs, key=lambda e: -e[1])
+
+
+def same_bits_tree(torch, a, b):
+    from repro_torch.tree import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+
+def gnn_grads(torch, cfg, n_graphs, state, batch, *, cpu):
+    """One step's loss and gradients (``gnn_loss`` through
+    ``value_and_grad``) on the card twice (whether they give the same
+    bits) and, with ``cpu``, the port's same step on the CPU from the same
+    state and batch, at f32 and at f64 (both devices): the loss within
+    ``DIMENET_TOL``, each leaf within ``DIMENET_TOL`` of its largest
+    |value| or of its control (``DIMENET_TOL``'s note), the f64 steps
+    within ``DIMENET_F64_TOL``."""
+    from repro_torch.launch.steps import gnn_loss, value_and_grad
+    from repro_torch.tree import tree_map
+
+    grad_fn = value_and_grad(gnn_loss(cfg, n_graphs))
+    loss, grads = grad_fn(state["params"], batch)
+    loss2, grads2 = grad_fn(state["params"], batch)
+    out = {"loss": float(loss),
+           "two_runs_same_bits": bool(torch.equal(loss, loss2)
+                                      and same_bits_tree(torch, grads,
+                                                         grads2))}
+    del grads2
+    if not cpu:
+        return out
+
+    def f64(x):
+        return x.double() if x.is_floating_point() else x
+
+    def step_on(device, cast=lambda x: x):
+        return grad_fn(tree_map(lambda x: cast(x).to(device),
+                                state["params"]),
+                       {k: cast(v).to(device) for k, v in batch.items()})
+
+    t0 = time.perf_counter()
+    h_loss, h_grads = step_on("cpu")
+    cpu_s = time.perf_counter() - t0
+    h64_loss, h64 = step_on("cpu", f64)
+    c64_loss, c64 = step_on("cuda", f64)
+    card = dict(leaf_errors(torch, grads, h_grads))
+    card_64 = dict(leaf_errors(torch, grads, h64))
+    cpu_64 = dict(leaf_errors(torch, h_grads, h64))
+    f64_errs = leaf_errors(torch, c64, h64)
+    held = {path: card[path] <= DIMENET_TOL
+            or card_64[path] <= 2 * cpu_64[path] for path in card}
+    worst = sorted(card, key=lambda p: -card[p])[:3]
+    res = {"cpu_loss": float(h_loss), "cpu_s": cpu_s,
+           "loss_rel": abs(float(loss) - float(h_loss))
+           / max(abs(float(h_loss)), 1e-30),
+           "worst_leaves": [{"leaf": p, "card_vs_cpu": card[p],
+                             "card_vs_f64": card_64[p],
+                             "cpu_vs_f64": cpu_64[p]} for p in worst],
+           "leaves": len(card),
+           "leaves_beyond_tol": sum(v > DIMENET_TOL for v in card.values()),
+           "f64_loss_rel": abs(float(c64_loss) - float(h64_loss))
+           / max(abs(float(h64_loss)), 1e-30),
+           "f64_worst_leaf": f64_errs[0]}
+    res["within_tol"] = (res["loss_rel"] <= DIMENET_TOL and all(held.values())
+                         and res["f64_loss_rel"] <= DIMENET_F64_TOL
+                         and f64_errs[0][1] <= DIMENET_F64_TOL)
+    out["vs_cpu"] = res
+    return out
+
+
+def gnn_steps(torch, cfg, n_graphs, state, batch, n, lr):
+    """``n`` steps of ``build_gnn_train_step`` on one batch: each step's
+    CUDA-event ms (synchronised), its loss, the peak memory over them."""
+    from repro_torch.launch.steps import build_gnn_train_step
+
+    step = build_gnn_train_step(cfg, n_graphs=n_graphs, lr=lr)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    return state, {
+        "lr": lr, "losses": losses, "first_ms": ms[0], "step_ms": ms[1:],
+        "median_step_ms": sorted(ms[1:])[(n - 1) // 2],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "peak_above_inputs_gib": (torch.cuda.max_memory_allocated() - base)
+        / 2**30}
+
+
+def dimenet_shape(torch, name, cfg, host, *, n_graphs=0, cpu, steps, lr):
+    """One shape: the batch on the card once, a fresh seeded state,
+    ``gnn_grads`` (the CPU comparison with ``cpu``), then ``steps`` train
+    steps; K1-K6 must launch no time."""
+    from repro_torch.launch.steps import new_state
+
+    device = torch.device("cuda")
+    batch = on(torch, host, device)
+    state = new_state(cfg, torch.Generator(device=device).manual_seed(47))
+    reset_launches()
+    row = {"config": cfg.name, "d_feat": cfg.d_feat,
+           "nodes": int(batch["node_mask"].shape[0]),
+           "edges": int(batch["edge_src"].shape[0]),
+           "real_edges": int(host["edge_mask"].sum())}
+    if "t_in_dense" in host:
+        row["triplet_slots"] = list(host["t_in_dense"].shape)
+        row["real_triplets"] = int(host["t_mask_dense"].sum())
+    else:
+        row["triplet_slots"] = len(host["t_in"])
+        row["real_triplets"] = int(host["t_mask"].sum())
+    row["grads"] = gnn_grads(torch, cfg, n_graphs, state, batch, cpu=cpu)
+    state, row["train"] = gnn_steps(torch, cfg, n_graphs, state, batch, steps,
+                                    lr)
+    row["launches"] = read_launches()
+    losses = row["train"]["losses"]
+    require(all(np.isfinite(losses)), f"dimenet {name}: losses {losses}")
+    require(not any(row["launches"].values()),
+            f"dimenet {name}: a kernel launched: {row['launches']}")
+    require(row["grads"]["two_runs_same_bits"],
+            f"dimenet {name}: two runs of one step differ: {row['grads']}")
+    if cpu:
+        require(row["grads"]["vs_cpu"]["within_tol"],
+                f"dimenet {name}: card vs CPU {row['grads']['vs_cpu']}")
+    return row, state, batch
+
+
+def flat_vs_dense(torch, cfg, params, batch, flat):
+    """(b)'s ``forward`` on the flat capped triplets against its dense
+    layout on the same params, within ``DIMENET_TOL`` of the largest
+    |output|."""
+    from repro_torch.models.dimenet import forward
+
+    flat_batch = {k: v for k, v in batch.items() if not k.startswith("t_")}
+    flat_batch.update(on(torch, flat, batch["edge_src"].device))
+    with torch.no_grad():
+        a = forward(params, cfg, flat_batch)
+        b = forward(params, cfg, batch)
+    err = float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
+    return {"max_rel": err, "within_tol": err <= DIMENET_TOL,
+            "flat_triplets": int(flat_batch["t_mask"].sum())}
+
+
+def phase_dimenet(torch, minibatch=None):
+    """DimeNet's full CONFIG trained on the card through
+    ``build_gnn_train_step`` (f32, TF32 off, seeded init) at (a) molecule
+    (graph MSE, exact flat triplets; 10 steps at lr 2e-3 on one batch, the
+    loss must fall), (b) full_graph_sm (node-mask MSE, the dense (E, 8)
+    layout; flat equal to dense) and (c) minibatch_lg (seed MSE on a
+    fanout-sampled subgraph, dense); at (a) and (b) one step's loss and
+    gradients held against the port's CPU step, at each shape two runs of
+    one step the same bits, K1-K6 no launch. Each batch built once on the
+    host, its seconds printed (minibatch_lg's from ``minibatch``, the
+    pending result of ``start_minibatch_host``, when given, beside the
+    seconds this phase waited for it). ogb_products is printed as
+    skipped. One ``dimenet_<shape>`` line a shape, then ``dimenet``."""
+    t0 = time.perf_counter()
+    rows = {}
+
+    from repro_torch.configs.base import SHAPES_GNN
+
+    cfg = dimenet_config("molecule")
+    host, secs = molecule_host()
+    n_learn, lr = DIMENET_LEARN
+    row, state, batch = dimenet_shape(
+        torch, "molecule", cfg, host, n_graphs=SHAPES_GNN["molecule"].n_graphs,
+        cpu=True, steps=n_learn, lr=lr)
+    losses = row["train"]["losses"]
+    require(losses[-1] < losses[0], f"dimenet molecule: no learning {losses}")
+    rows["molecule"] = dict(row, host_s=secs)
+    emit("dimenet_molecule", **rows["molecule"])
+    del state, batch
+
+    cfg = dimenet_config("full_graph_sm")
+    host, flat, dense, secs = full_graph_host(cfg)
+    host["t_in_dense"], host["t_mask_dense"] = dense
+    row, state, batch = dimenet_shape(
+        torch, "full_graph_sm", cfg, host, cpu=True, steps=DIMENET_STEPS,
+        lr=1e-4)
+    row["flat_vs_dense"] = flat_vs_dense(torch, cfg, state["params"], batch,
+                                         flat_triplets(*flat))
+    require(row["flat_vs_dense"]["within_tol"],
+            f"dimenet full_graph_sm: flat vs dense {row['flat_vs_dense']}")
+    rows["full_graph_sm"] = dict(row, host_s=secs)
+    emit("dimenet_full_graph_sm", **rows["full_graph_sm"])
+    del state, batch
+
+    cfg = dimenet_config("minibatch_lg")
+    t1 = time.perf_counter()
+    host, dense, secs, sampled = (
+        minibatch_host(cfg, SHAPES_GNN["minibatch_lg"]) if minibatch is None
+        else minibatch.get())
+    secs["waited_s"] = time.perf_counter() - t1
+    host["t_in_dense"], host["t_mask_dense"] = dense
+    row, state, batch = dimenet_shape(
+        torch, "minibatch_lg", cfg, host, cpu=False, steps=DIMENET_STEPS,
+        lr=1e-4)
+    rows["minibatch_lg"] = dict(row, host_s=secs, sampled=sampled)
+    emit("dimenet_minibatch_lg", **rows["minibatch_lg"])
+    del state, batch, host
+    torch.cuda.empty_cache()
+
+    seconds = time.perf_counter() - t0
+    emit("dimenet", seconds=seconds, skipped={"ogb_products": OGB_SKIP},
+         median_step_ms={k: r["train"]["median_step_ms"]
+                         for k, r in rows.items()},
+         peak_gib={k: r["train"]["peak_gib"] for k, r in rows.items()},
+         two_runs_same_bits={k: r["grads"]["two_runs_same_bits"]
+                             for k, r in rows.items()},
+         edges_cut=rows["minibatch_lg"]["sampled"]["edges_cut"])
+    return {"seconds": seconds}
+
+
+ALONE = {"recsys": phase_recsys, "dimenet": phase_dimenet}
+
+
 def only_phases(torch, names) -> int:
-    """``python3 chip_smoke.py --only recsys``: the device and build
-    phases, then the recsys phase alone with its gates; no kernels line
-    and no last line."""
-    if names != ["recsys"]:
-        print("chip_smoke --only: the one phase that runs alone is recsys",
-              file=sys.stderr)
+    """``python3 chip_smoke.py --only recsys dimenet``: the device and
+    build phases, then each phase named (of ``ALONE``) with its gates, in
+    the order given; no kernels line and no last line."""
+    if not names or any(name not in ALONE for name in names):
+        print(f"chip_smoke --only: the phases that run alone are "
+              f"{sorted(ALONE)}", file=sys.stderr)
         return 2
     phase_device(torch)
     phase_build()
-    phase_recsys(torch)
+    for name in names:
+        ALONE[name](torch)
     return 0
 
 
@@ -6306,16 +6783,29 @@ def main(argv=()) -> int:
         return only_phases(torch, argv[1:])
     if argv:
         return train_depth(torch, argv)
-    phase_device(torch)
-    phase_build()
-    phase_kernels(torch)
-    served = phase_serve(torch)
-    served_dense = phase_serve_dense(torch, served)
-    served_engine = phase_serve_engine(torch, served)
-    served_pruned = phase_serve_pruned(torch, served)
-    frontier = phase_serve_frontier(torch, served, served_pruned)
+    timeline = {}
+
+    def clocked(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        timeline[name] = time.perf_counter() - t0
+        return out
+
+    clocked("device", phase_device, torch)
+    clocked("build", phase_build)
+    minibatch = start_minibatch_host()
+    clocked("kernels", phase_kernels, torch)
+    served = clocked("serve", phase_serve, torch)
+    served_dense = clocked("serve_dense", phase_serve_dense, torch, served)
+    served_engine = clocked("serve_engine", phase_serve_engine, torch,
+                            served)
+    served_pruned = clocked("serve_pruned", phase_serve_pruned, torch,
+                            served)
+    frontier = clocked("serve_frontier", phase_serve_frontier, torch, served,
+                       served_pruned)
     del served_pruned["engine"]
-    measured = phase_timing(torch, served, served_dense, served_engine)
+    measured = clocked("timing", phase_timing, torch, served, served_dense,
+                       served_engine)
     dense_launches = served_dense["launches"]
     engine_launches = served_engine["launches"]
     k1_paths = {"serve": served["k1_paths"],
@@ -6327,36 +6817,38 @@ def main(argv=()) -> int:
     # memory
     del served_dense, served_engine
     torch.cuda.empty_cache()
-    trained = phase_train(torch)
+    trained = clocked("train", phase_train, torch)
     k1_paths["train"] = trained["k1_paths"]
     params = served.pop("params")
     del params
     torch.cuda.empty_cache()
-    evaluated = phase_eval(torch)
+    evaluated = clocked("eval", phase_eval, torch)
     k1_paths["eval"] = evaluated["k1_paths"]
-    xlmr = phase_xlmr(torch)
+    xlmr = clocked("xlmr", phase_xlmr, torch)
     k1_paths.update({f"xlmr_{where}": paths
                      for where, paths in xlmr["k1_paths"].items()})
-    ckpt = phase_ckpt(torch)
+    ckpt = clocked("ckpt", phase_ckpt, torch)
     k1_paths.update(ckpt["k1_paths"])
-    example_serve = phase_example_serve(torch)
+    example_serve = clocked("example_serve", phase_example_serve, torch)
     k1_paths.update({f"example_serve_{name}": paths for name, paths
                      in example_serve["k1_paths"].items()})
-    quick = phase_example_quickstart(torch)
+    quick = clocked("example_quickstart", phase_example_quickstart, torch)
     k1_paths["example_quickstart"] = quick["k1_paths"]
     examples = {"serve": example_serve["launches"],
                 "quickstart": quick["launches"],
-                "streaming": phase_streaming(torch)}
-    decoder = phase_decoder(torch)
+                "streaming": clocked("streaming", phase_streaming, torch)}
+    decoder = clocked("decoder", phase_decoder, torch)
     k1_paths.update({f"decoder_{where}": paths
                      for where, paths in decoder["k1_paths"].items()})
-    moe = phase_moe(torch)
+    moe = clocked("moe", phase_moe, torch)
     k1_paths.update({f"moe_{where}": paths
                      for where, paths in moe["k1_paths"].items()})
-    train_decoder = phase_train_decoder(torch)
+    train_decoder = clocked("train_decoder", phase_train_decoder, torch)
     k1_paths.update({f"train_decoder_{where}": paths for where, paths
                      in train_decoder["k1_paths"].items()})
-    recsys = phase_recsys(torch)
+    recsys = clocked("recsys", phase_recsys, torch)
+    clocked("dimenet", phase_dimenet, torch, minibatch)
+    emit("timeline", seconds=timeline, total=sum(timeline.values()))
     print(json.dumps({"kernels": kernel_rows(
         measured, served["launches"], dense_launches, engine_launches,
         trained["launches"], k1_paths, xlmr, evaluated["launches"],

@@ -7,8 +7,10 @@ prefill step, the serve CLI; KV-cache decode for a decoder) and trained
 (the LSR train step, the train CLI). The four recsys archs
 (``RECSYS_ARCHS``) are trained by the train CLI (Adagrad on the CTR
 loss), served by ``launch.steps.build_recsys_serve_step`` and retrieve
-through ``build_retrieval_step``. ``ALIASES`` are the JAX package's
-external ids.
+through ``build_retrieval_step``. DimeNet (``dimenet``, the GNN family)
+trains through ``launch.steps.build_gnn_train_step`` and
+``examples.train_dimenet``; both CLIs refuse it, as the JAX CLI does.
+``ALIASES`` are the JAX package's external ids.
 """
 
 from __future__ import annotations
@@ -16,8 +18,10 @@ from __future__ import annotations
 import importlib
 
 RECSYS_ARCHS = ("dlrm_mlperf", "xdeepfm", "dien", "wide_deep")
+GNN_ARCHS = ("dimenet",)
 ARCHS = ("splade_bert", "splade_xlmr", "llama3_2_3b", "gemma2_27b",
-         "phi3_mini", "moonshot_v1_16b", "phi3_5_moe") + RECSYS_ARCHS
+         "phi3_mini", "moonshot_v1_16b", "phi3_5_moe") + RECSYS_ARCHS \
+    + GNN_ARCHS
 
 # external ids (with dots and dashes) -> module names, as in the JAX package
 ALIASES = {
@@ -26,6 +30,7 @@ ALIASES = {
     "phi3-mini-3.8b": "phi3_mini",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe",
+    "dimenet": "dimenet",
     "dlrm-mlperf": "dlrm_mlperf",
     "xdeepfm": "xdeepfm",
     "dien": "dien",

@@ -2,10 +2,11 @@
 
 The transformer family (the SPLADE encoders ``splade_bert`` and
 ``splade_xlmr``, the dense decoders ``llama3_2_3b``, ``gemma2_27b``,
-``phi3_mini`` and the MoE decoders ``moonshot_v1_16b``, ``phi3_5_moe``)
-and the recsys family (``dlrm_mlperf``, ``xdeepfm``, ``dien``,
-``wide_deep``). Field names and defaults are the JAX package's, so a
-config reads the same in both, with one exception:
+``phi3_mini`` and the MoE decoders ``moonshot_v1_16b``, ``phi3_5_moe``),
+the recsys family (``dlrm_mlperf``, ``xdeepfm``, ``dien``,
+``wide_deep``) and the GNN family (``dimenet``). Field names and defaults
+are the JAX package's, so a config reads the same in both, with one
+exception:
 ``head_impl`` defaults to ``"kernel"``, the CUDA head, so that no entry
 point serves or trains through a plain head unless it is asked to (CPU
 tensors take the kernels' plain versions inside their wrappers).
@@ -19,14 +20,22 @@ from typing import Dict, Optional, Tuple
 
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
-    """One measured input shape (the LM and recsys fields of the JAX
-    ShapeSpec)."""
+    """One measured input shape (the JAX ShapeSpec's fields)."""
 
     name: str
-    kind: str  # train | prefill | decode | serve | retrieval
+    # train | prefill | decode | full_graph | minibatch | batched_graphs
+    # | serve | retrieval
+    kind: str
     # LM shapes
     seq_len: int = 0
     global_batch: int = 0
+    # GNN shapes
+    n_nodes: int = 0
+    n_edges: int = 0
+    d_feat: int = 0
+    batch_nodes: int = 0
+    fanout: Tuple[int, ...] = ()
+    n_graphs: int = 0
     # recsys shapes
     batch: int = 0
     n_candidates: int = 0
@@ -156,6 +165,25 @@ def shapes_lm(long_ok: bool, long_skip_reason: str = "") -> Dict[str, ShapeSpec]
 
 
 @dataclasses.dataclass(frozen=True)
+class DimeNetConfig:
+    name: str
+    family: str = "gnn"
+    n_blocks: int = 6
+    d_hidden: int = 128
+    n_bilinear: int = 8
+    n_spherical: int = 7
+    n_radial: int = 6
+    d_feat: int = 0                 # input node features (0 => atom types)
+    n_atom_types: int = 95
+    cutoff: float = 5.0
+    envelope_exponent: int = 5
+    max_triplets_per_edge: int = 0  # 0 => exact triplets
+    n_targets: int = 1
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
 class RecSysConfig:
     name: str
     family: str = "recsys"
@@ -178,6 +206,18 @@ class RecSysConfig:
     def total_rows(self) -> int:
         return sum(self.table_sizes)
 
+
+SHAPES_GNN: Dict[str, ShapeSpec] = {
+    "full_graph_sm": ShapeSpec("full_graph_sm", "full_graph",
+                               n_nodes=2708, n_edges=10556, d_feat=1433),
+    "minibatch_lg": ShapeSpec("minibatch_lg", "minibatch",
+                              n_nodes=232965, n_edges=114615892,
+                              batch_nodes=1024, fanout=(15, 10)),
+    "ogb_products": ShapeSpec("ogb_products", "full_graph",
+                              n_nodes=2449029, n_edges=61859140, d_feat=100),
+    "molecule": ShapeSpec("molecule", "batched_graphs",
+                          n_nodes=30, n_edges=64, n_graphs=128),
+}
 
 SHAPES_RECSYS: Dict[str, ShapeSpec] = {
     "train_batch": ShapeSpec("train_batch", "train", batch=65536),

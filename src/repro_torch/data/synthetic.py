@@ -1,15 +1,16 @@
-"""Deterministic synthetic LSR and recsys data (the port's copy of
-``repro/data/synthetic.py:_rng``, ``_zipf_ids``, ``lsr_pair_batches``,
-``lsr_impact_corpus`` and ``recsys_batches``).
+"""Deterministic synthetic LSR, LM, recsys and graph data (the port's copy
+of ``repro/data/synthetic.py``: ``_rng``, ``_zipf_ids``,
+``lsr_pair_batches``, ``lsr_impact_corpus``, ``lm_token_batches``,
+``recsys_batches``, ``make_synthetic_graph`` and ``molecule_batches``).
 
-Host-side numpy: ``lsr_pair_batches`` and ``recsys_batches`` are seeded
-per ``(seed, shard, step)``, ``lsr_impact_corpus`` by ``seed``; for the
-same arguments each gives the JAX package's arrays, bit for bit.
+Host-side numpy: the batch streams are seeded per ``(seed, shard,
+step)``, ``lsr_impact_corpus`` and ``make_synthetic_graph`` by ``seed``;
+for the same arguments each gives the JAX package's arrays, bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Sequence
+from typing import Dict, Iterator, Sequence, Tuple
 
 import numpy as np
 
@@ -52,6 +53,23 @@ def lsr_pair_batches(
         yield {
             "q_tokens": q_tok, "q_mask": q_mask,
             "d_tokens": d_tok * d_mask, "d_mask": d_mask,
+        }
+        step += 1
+
+
+def lm_token_batches(
+    *, batch: int, seq_len: int, vocab: int, seed: int = 0, shard: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Zipf token rows of ``seq_len + 1``: ``tokens``, ``labels`` (the next
+    token) and a ``mask`` of ones."""
+    step = 0
+    while True:
+        rng = _rng(seed, shard, step)
+        tok = _zipf_ids(rng, (batch, seq_len + 1), vocab)
+        yield {
+            "tokens": tok[:, :-1],
+            "labels": tok[:, 1:],
+            "mask": np.ones((batch, seq_len), np.int32),
         }
         step += 1
 
@@ -158,3 +176,76 @@ def lsr_impact_corpus(
         out["queries"] = queries
         out["qrels"] = np.asarray(triples, np.float32)
     return out
+
+
+def make_synthetic_graph(
+    n_nodes: int, n_edges: int, *, seed: int = 0,
+    power_law: bool = True,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Random (src, dst) edge lists; power-law dst to mimic citation
+    hubs (the regime that makes triplet counting explode)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_nodes, size=n_edges).astype(np.int64)
+    if power_law:
+        ranks = rng.zipf(1.5, size=n_edges)
+        dst = np.clip(ranks - 1, 0, n_nodes - 1).astype(np.int64)
+        dst = (dst * 2654435761 % n_nodes).astype(np.int64)  # de-cluster
+    else:
+        dst = rng.integers(0, n_nodes, size=n_edges).astype(np.int64)
+    keep = src != dst
+    return src[keep], dst[keep]
+
+
+def molecule_batches(
+    *,
+    n_graphs: int,
+    nodes_per_graph: int,
+    edges_per_graph: int,
+    n_atom_types: int = 95,
+    cutoff: float = 5.0,
+    seed: int = 0,
+    shard: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Batched random molecules: 3-D positions, cutoff-radius edges
+    (capped at edges_per_graph), graph-level scalar targets."""
+    step = 0
+    while True:
+        rng = _rng(seed, shard, step)
+        N = n_graphs * nodes_per_graph
+        pos = rng.uniform(0, cutoff * 1.2,
+                          size=(n_graphs, nodes_per_graph, 3))
+        feats = rng.integers(0, n_atom_types, size=N).astype(np.int32)
+
+        srcs, dsts = [], []
+        for g in range(n_graphs):
+            d = np.linalg.norm(
+                pos[g][:, None] - pos[g][None], axis=-1)
+            np.fill_diagonal(d, np.inf)
+            cand = np.argwhere(d < cutoff)
+            if len(cand) > edges_per_graph:
+                sel = rng.choice(len(cand), edges_per_graph, replace=False)
+                cand = cand[sel]
+            base = g * nodes_per_graph
+            srcs.append(cand[:, 0] + base)
+            dsts.append(cand[:, 1] + base)
+        src = np.concatenate(srcs).astype(np.int32)
+        dst = np.concatenate(dsts).astype(np.int32)
+
+        E_cap = n_graphs * edges_per_graph
+        e_mask = np.zeros(E_cap, np.int32)
+        e_mask[:len(src)] = 1
+        src_p = np.zeros(E_cap, np.int32)
+        dst_p = np.zeros(E_cap, np.int32)
+        src_p[:len(src)] = src
+        dst_p[:len(dst)] = dst
+
+        yield {
+            "positions": pos.reshape(N, 3).astype(np.float32),
+            "node_feat": feats,
+            "node_mask": np.ones(N, np.int32),
+            "node_graph_id": np.repeat(
+                np.arange(n_graphs, dtype=np.int32), nodes_per_graph),
+            "edge_src": src_p, "edge_dst": dst_p, "edge_mask": e_mask,
+            "target": rng.normal(size=(n_graphs, 1)).astype(np.float32),
+        }
+        step += 1

@@ -352,14 +352,16 @@ def print_tenants(res: Dict[str, Any]) -> None:
 
 
 def main(argv=None) -> int:
-    from repro_torch.configs import ALIASES, ARCHS, RECSYS_ARCHS, get_config
+    from repro_torch.configs import (ALIASES, ARCHS, GNN_ARCHS, RECSYS_ARCHS,
+                                     get_config)
     from repro_torch.device import resolve_device
     from repro_torch.retrieval.score import INDEX_METHODS, METHODS
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="splade_bert",
                     help=f"one of {', '.join(ARCHS)} or a JAX alias "
-                         f"({', '.join(ALIASES)}) but the recsys archs; "
+                         f"({', '.join(ALIASES)}) but the recsys archs "
+                         f"and dimenet; "
                          f"a decoder (dense or MoE) serves through its "
                          f"causal trunk")
     ap.add_argument("--requests", type=int, default=64)
@@ -449,6 +451,10 @@ def main(argv=None) -> int:
         ap.error(f"--arch {args.arch}: a recsys arch has no LSR head to "
                  "serve; its serving steps are launch.steps."
                  "build_recsys_serve_step and build_retrieval_step")
+    if arch.__name__.rsplit(".", 1)[-1] in GNN_ARCHS:
+        ap.error(f"--arch {args.arch}: DimeNet (the GNN family) has no LSR "
+                 "head to serve; it trains through "
+                 "repro_torch.examples.train_dimenet")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:

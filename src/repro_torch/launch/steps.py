@@ -1,5 +1,5 @@
-"""The LSR train step, the LSR prefill and decode steps, the recsys train,
-serve and retrieval steps and the streaming top-k
+"""The LSR train step, the LSR prefill and decode steps, the GNN train
+step, the recsys train, serve and retrieval steps and the streaming top-k
 (``repro/launch/steps.py``, unsharded).
 
 ``build_lsr_train_step(cfg, ...)`` returns ``step(state, batch) ->
@@ -29,10 +29,18 @@ package's tile-by-tile top-k over a dense candidate matrix, the
 counterpart of K6 built from plain PyTorch, so that the ``(B, N)`` score
 matrix is never built.
 
+``build_gnn_train_step(cfg, n_graphs=...)`` trains DimeNet
+(``models.dimenet``) on an MSE with AdamW (``{"params", "opt": {"mu",
+"nu"}, "step"}``): against per-graph targets of ``forward_graph`` when
+``n_graphs`` is set, against the targets of ``batch["seed_ids"]``' nodes
+when the batch holds them, else over the nodes weighted by
+``node_mask``.
+
 Still to come: every ``mesh`` (the vocab-sharded step, the
-expert-parallel MoE, the row-sharded retrieval and ``streaming_topk``'s
-``vary_axes``: multi-GPU, ROADMAP Queue 1 item 10) and the GNN step (a
-model this port does not hold yet).
+expert-parallel MoE, the row-sharded retrieval, ``streaming_topk``'s
+``vary_axes`` and DimeNet's ``shard_axes``: multi-GPU, ROADMAP Queue 1
+item 10), and ``build_step`` with ``arch_config_for_cell``, which come
+with the dry run.
 """
 
 from __future__ import annotations
@@ -42,10 +50,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import RecSysConfig, TransformerConfig
+from repro_torch.configs.base import (DimeNetConfig, RecSysConfig,
+                                      TransformerConfig)
 from repro_torch.kernels._common import NEG_INF
 from repro_torch.kernels.topk_score import merge_topk
 from repro_torch.losses.contrastive import margin_mse_loss, splade_loss
+from repro_torch.models import dimenet as dimenet_model
 from repro_torch.models import recsys as recsys_model
 from repro_torch.models import transformer as tfm
 from repro_torch.optim.accumulation import microbatch_grads
@@ -228,6 +238,51 @@ def build_recsys_train_step(
     return step
 
 
+def gnn_loss(cfg: DimeNetConfig, n_graphs: int = 0
+             ) -> Callable[[Any, Batch], torch.Tensor]:
+    """``(params, batch) -> loss``, the reference's three branches: the
+    mean squared error of ``forward_graph``'s ``n_graphs`` outputs when
+    ``n_graphs`` is set; else of the outputs at ``batch["seed_ids"]``
+    when the batch holds them; else the node errors weighted by
+    ``node_mask``, summed over ``max(sum(node_mask), 1)``."""
+    def loss_fn(params, batch):
+        if n_graphs:
+            pred = dimenet_model.forward_graph(params, cfg, batch, n_graphs)
+            return torch.mean((pred - batch["target"]) ** 2)
+        pred = dimenet_model.forward(params, cfg, batch)
+        if "seed_ids" in batch:
+            pred = dimenet_model.take(pred, batch["seed_ids"])
+            return torch.mean((pred - batch["target"]) ** 2)
+        mask = batch["node_mask"]
+        err = (pred - batch["target"]) * mask.to(pred.dtype)[:, None]
+        return torch.sum(err * err) / mask.sum().clamp_min(1).to(pred.dtype)
+    return loss_fn
+
+
+def build_gnn_train_step(
+    cfg: DimeNetConfig,
+    *,
+    n_graphs: int = 0,
+    lr: float = 1e-4,
+) -> Callable[[State, Batch], Tuple[State, Dict[str, torch.Tensor]]]:
+    """DimeNet's train step: ``gnn_loss``'s gradients, then AdamW at a
+    constant ``lr``. ``n_graphs`` is the reference's ``cell.n_graphs``
+    (0: a node-level target). It returns a new state and leaves the one
+    it was given intact (a fault-tolerant runner retries a step on it)."""
+    opt = adamw(lr)
+    grad_fn = value_and_grad(gnn_loss(cfg, n_graphs))
+
+    def step(state: State, batch: Batch):
+        loss, grads = grad_fn(state["params"], batch)
+        updates, opt_state = opt.update(grads, state["opt"],
+                                        state["params"], state["step"])
+        params = apply_updates(state["params"], updates)
+        return ({"params": params, "opt": opt_state,
+                 "step": state["step"] + 1}, {"loss": loss})
+
+    return step
+
+
 def build_recsys_serve_step(cfg: RecSysConfig
                             ) -> Callable[[Any, Batch], torch.Tensor]:
     """``serve(params, batch) -> (B,)`` click probabilities (the sigmoid of
@@ -258,13 +313,16 @@ def build_retrieval_step(cfg: RecSysConfig, mesh: Any = None, *,
 
 def new_state(cfg: Any, generator: torch.Generator) -> State:
     """A fresh train state for ``cfg``, random params on the generator's
-    device, step 0: a ``TransformerConfig``'s (``models.transformer``)
-    with zero AdamW moments, a ``RecSysConfig``'s (``models.recsys``)
-    with Adagrad's accumulators at 0.1, as the reference's
-    ``init_state`` lays them out."""
+    device, step 0: a ``TransformerConfig``'s (``models.transformer``) or
+    a ``DimeNetConfig``'s (``models.dimenet``) with zero AdamW moments, a
+    ``RecSysConfig``'s (``models.recsys``) with Adagrad's accumulators at
+    0.1, as the reference's ``init_state`` lays them out."""
     if isinstance(cfg, RecSysConfig):
         params = recsys_model.init_params(generator, cfg)
         opt = adagrad(1e-2)
+    elif isinstance(cfg, DimeNetConfig):
+        params = dimenet_model.init_params(generator, cfg)
+        opt = adamw(1e-4)
     else:
         params = tfm.init_params(generator, cfg)
         opt = adamw(1e-4)

@@ -15,7 +15,10 @@
     python -m repro_torch.launch.train --arch xdeepfm --full --batch 32768
 
 Trains any arch of ``configs.ARCHS`` or its JAX alias, as the JAX CLI
-trains any ``TransformerConfig`` and ``RecSysConfig``.
+trains any ``TransformerConfig`` and ``RecSysConfig``. ``--arch dimenet``
+exits non-zero with the JAX CLI's message, "use examples/train_dimenet.py
+for the GNN family": DimeNet trains through
+``python -m repro_torch.examples.train_dimenet``.
 
 A recsys arch (``dlrm_mlperf``, ``xdeepfm``, ``dien``, ``wide_deep``)
 trains its SMOKE config (``--full``: the published CONFIG) on the click
@@ -81,7 +84,8 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs import ARCHS, get_config, resolve_arch
-from repro_torch.configs.base import RecSysConfig, TransformerConfig
+from repro_torch.configs.base import (DimeNetConfig, RecSysConfig,
+                                      TransformerConfig)
 from repro_torch.core.head_api import available_impls
 from repro_torch.data.loader import HostShardedLoader
 from repro_torch.data.synthetic import lsr_pair_batches, recsys_batches
@@ -96,6 +100,8 @@ from repro_torch.runtime.serving import make_config_encoder
 
 REGULARIZERS = ("lambda_q", "lambda_d", "l1_weight")
 EVAL_SEED = 9173      # held-out pairs: a seed no training shard draws
+# the JAX CLI's words for the GNN family, which it does not train
+GNN_REFUSAL = "use examples/train_dimenet.py for the GNN family"
 
 
 def pair_loader(cfg: TransformerConfig, *, batch: int, seq_len: int,
@@ -244,6 +250,8 @@ def config_from_args(args: argparse.Namespace
     (each only when given; a ``RecSysConfig`` has none of them)."""
     mod = get_config(args.arch)
     cfg = mod.CONFIG if args.full else mod.SMOKE
+    if isinstance(cfg, DimeNetConfig):
+        raise SystemExit(GNN_REFUSAL)
     if isinstance(cfg, RecSysConfig):
         return cfg
     reg = {name: getattr(args, name) for name in REGULARIZERS

@@ -14,9 +14,10 @@ small MLP:
 * **Wide&Deep**: a wide linear part over the ids beside a deep MLP over
   the concatenated embeddings.
 
-Lookups follow ``jnp.take``'s rule (``take_rows``): a negative id counts
-from the end of the table, and an id still outside it reads a NaN row
-and gets no gradient. A table's gradient is dense (table-sized), as
+Lookups follow ``jnp.take``'s rule (``take_rows``,
+``sparse.embedding_bag.embedding_lookup``): a negative id counts from the
+end of the table, and an id still outside it reads a NaN row and gets no
+gradient. A table's gradient is dense (table-sized), as
 JAX's gradient of ``take`` is, so an optimizer step touches every row.
 The ``retrieval_cand`` shape does not run these stacks per candidate:
 ``user_embedding`` gives one query vector per row and
@@ -31,10 +32,12 @@ from __future__ import annotations
 from typing import Any, Dict, List, Sequence
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import RecSysConfig
 from repro_torch.device import dtype_of
+from repro_torch.sparse.embedding_bag import embedding_lookup as take_rows
+from repro_torch.sparse.embedding_bag import \
+    multi_table_lookup as _lookup_all
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
@@ -77,27 +80,6 @@ def _embed_init(g: torch.Generator, rows_per_table: Sequence[int], dim: int,
                 dtype: torch.dtype) -> List[torch.Tensor]:
     return [_normal(g, (padded_rows(rows), dim), dim ** -0.5, dtype)
             for rows in rows_per_table]
-
-
-def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``jnp.take(table, idx, axis=0)``: rows of ``table`` at ``idx`` (any
-    shape), ``idx.shape + (dim,)``. An id below 0 reads row ``id + rows``;
-    an id that is then outside ``[0, rows)`` reads a NaN row, and its
-    position passes no gradient to the table (JAX's fill-or-drop)."""
-    n = table.shape[0]
-    i = idx.long()
-    i = torch.where(i < 0, i + n, i)
-    inside = (i >= 0) & (i < n)
-    rows = F.embedding(torch.where(inside, i, 0), table)
-    return torch.where(inside.unsqueeze(-1), rows, torch.nan)
-
-
-def _lookup_all(tables: List[torch.Tensor],
-                idx: torch.Tensor) -> torch.Tensor:
-    """idx (batch, n_fields) -> (batch, n_fields, dim), field f from
-    table f."""
-    return torch.stack([take_rows(t, idx[:, f]) for f, t in enumerate(tables)],
-                       dim=1)
 
 
 # ---------------------------------------------------------------------------

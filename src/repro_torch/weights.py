@@ -5,9 +5,11 @@ or MoE), already converted to numpy arrays by the caller (stacked ``(L, ...)``
 layer leaves, weights laid out for ``x @ W``), and returns the port's
 params: the same tree of tensors on ``device``. ``recsys_params_from_jax``
 does the same for a recsys model (lists of tables, lists of ``{"w", "b"}``
-layers). ``state_from_jax`` carries a whole train state: params, the
-optimizer state (the AdamW moments of a transformer, the Adagrad
-accumulators of a recsys model) and the step.
+layers), ``dimenet_params_from_jax`` for DimeNet (its list of blocks;
+``embed_nodes`` an ``(n_atom_types, d)`` table when ``d_feat == 0``, a
+``{"w", "b"}`` layer otherwise). ``state_from_jax`` carries a whole train
+state: params, the optimizer state (the AdamW moments of a transformer
+or of DimeNet, the Adagrad accumulators of a recsys model) and the step.
 A bf16 leaf (the decoders' published CONFIGs hold bf16 params) is carried
 by its bits.
 With them both packages compute the same function and take the same
@@ -21,7 +23,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import RecSysConfig, TransformerConfig
+from repro_torch.configs.base import (DimeNetConfig, RecSysConfig,
+                                      TransformerConfig)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.tree import tree_items, tree_map
 
@@ -135,6 +138,26 @@ def _recsys_shapes(cfg: RecSysConfig) -> Dict[str, tuple]:
     raise ValueError(f"unknown interaction {cfg.interaction!r}")
 
 
+def _carry_checked(tree: Any, expected: Dict[str, tuple], what: str,
+                   kind: str, device: DeviceLike) -> Any:
+    """``tree`` with every leaf a tensor on ``device``, the same dicts and
+    lists; raises if a leaf is missing, extra or not of its ``expected``
+    shape."""
+    dev = resolve_device(device)
+    out = tree_map(lambda a: _tensor(np.asarray(a)).to(dev), tree)
+    flat = tree_items(out)
+    if set(flat) != set(expected):
+        raise ValueError(
+            f"{what}: leaves {sorted(set(flat) ^ set(expected))} do not "
+            f"match a {kind} tree")
+    for path, value in flat.items():
+        if tuple(value.shape) != expected[path]:
+            raise ValueError(f"{what}: {path} has shape "
+                             f"{tuple(value.shape)}, {kind} needs "
+                             f"{expected[path]}")
+    return out
+
+
 def recsys_params_from_jax(tree: Dict[str, Any], cfg: RecSysConfig,
                            device: DeviceLike = None) -> Dict[str, Any]:
     """The port's recsys params (or a tree like them, such as Adagrad's
@@ -142,21 +165,43 @@ def recsys_params_from_jax(tree: Dict[str, Any], cfg: RecSysConfig,
     lists, each leaf a tensor on ``device``. Raises if a leaf is missing,
     extra or of the wrong shape for ``cfg`` (every table's padded rows,
     every layer's widths)."""
-    dev = resolve_device(device)
-    out = tree_map(lambda a: _tensor(np.asarray(a)).to(dev), tree)
-    flat = tree_items(out)
-    expected = _recsys_shapes(cfg)
-    if set(flat) != set(expected):
-        raise ValueError(
-            f"recsys_params_from_jax: leaves "
-            f"{sorted(set(flat) ^ set(expected))} do not match a "
-            f"{cfg.interaction} {cfg.name} tree")
-    for path, value in flat.items():
-        if tuple(value.shape) != expected[path]:
-            raise ValueError(f"recsys_params_from_jax: {path} has shape "
-                             f"{tuple(value.shape)}, {cfg.name} needs "
-                             f"{expected[path]}")
-    return out
+    return _carry_checked(tree, _recsys_shapes(cfg), "recsys_params_from_jax",
+                          f"{cfg.interaction} {cfg.name}", device)
+
+
+def _dimenet_shapes(cfg: DimeNetConfig) -> Dict[str, tuple]:
+    """Every leaf's path and shape in ``models.dimenet.init_params``'s tree
+    for ``cfg``."""
+    d, r = cfg.d_hidden, cfg.n_radial
+
+    def dense(name, din, dout):
+        return {f"{name}/w": (din, dout), f"{name}/b": (dout,)}
+
+    shapes = ({"embed_nodes": (cfg.n_atom_types, d)} if cfg.d_feat == 0
+              else dense("embed_nodes", cfg.d_feat, d))
+    shapes.update({**dense("embed_rbf", r, d), **dense("embed_msg", 3 * d, d),
+                   **dense("out_final", d, cfg.n_targets)})
+    for i in range(cfg.n_blocks):
+        blk = f"blocks/{i}"
+        shapes.update({
+            **dense(f"{blk}/rbf_gate", r, d),
+            **dense(f"{blk}/sbf_proj", cfg.n_spherical * r, cfg.n_bilinear),
+            f"{blk}/w_bilinear": (cfg.n_bilinear, d, d),
+            **dense(f"{blk}/msg_in", d, d),
+            **dense(f"{blk}/msg_out", 2 * d, d),
+            **dense(f"{blk}/out_rbf", r, d),
+            **dense(f"{blk}/out_node", d, d)})
+    return shapes
+
+
+def dimenet_params_from_jax(tree: Dict[str, Any], cfg: DimeNetConfig,
+                            device: DeviceLike = None) -> Dict[str, Any]:
+    """The port's DimeNet params (or a tree like them, such as AdamW's
+    moments) from a numpy copy of the JAX pytree, each leaf a tensor on
+    ``device``. Raises if a leaf is missing, extra or of the wrong shape
+    for ``cfg`` (its blocks, widths and ``d_feat``)."""
+    return _carry_checked(tree, _dimenet_shapes(cfg),
+                          "dimenet_params_from_jax", cfg.name, device)
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:
@@ -172,20 +217,18 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
 def state_from_jax(state: Dict[str, Any], cfg: Any,
                    device: DeviceLike = None) -> Dict[str, Any]:
     """The port's train state from a numpy copy of the JAX one: for a
-    ``TransformerConfig`` ``{"params", "opt": {"mu", "nu"}, "step"}``
-    (AdamW layout), for a ``RecSysConfig`` ``{"params", "opt": {"acc"},
-    "step"}`` (Adagrad layout); the optimizer's trees are shaped like the
-    params, the step an int."""
+    ``TransformerConfig`` or a ``DimeNetConfig`` ``{"params", "opt": {"mu",
+    "nu"}, "step"}`` (AdamW layout), for a ``RecSysConfig`` ``{"params",
+    "opt": {"acc"}, "step"}`` (Adagrad layout); the optimizer's trees are
+    shaped like the params, the step an int."""
     if isinstance(cfg, RecSysConfig):
-        return {
-            "params": recsys_params_from_jax(state["params"], cfg, device),
-            "opt": {"acc": recsys_params_from_jax(state["opt"]["acc"], cfg,
-                                                  device)},
-            "step": int(np.asarray(state["step"])),
-        }
+        carry, slots = recsys_params_from_jax, ("acc",)
+    elif isinstance(cfg, DimeNetConfig):
+        carry, slots = dimenet_params_from_jax, ("mu", "nu")
+    else:
+        carry, slots = params_from_jax, ("mu", "nu")
     return {
-        "params": params_from_jax(state["params"], cfg, device),
-        "opt": {k: params_from_jax(state["opt"][k], cfg, device)
-                for k in ("mu", "nu")},
+        "params": carry(state["params"], cfg, device),
+        "opt": {k: carry(state["opt"][k], cfg, device) for k in slots},
         "step": int(np.asarray(state["step"])),
     }

@@ -17,12 +17,18 @@ package on the same inputs (CPU).
   the JAX comparison runs at f32.
 * ``quickstart``: its sparton output and its top dims against the JAX
   head on its inputs.
+* ``train_dimenet``: its first loss from the JAX example's carried SMOKE
+  state equals the JAX example's first step on the same batch (rtol
+  1e-5, ``test_torch_gnn_train``'s LOSS_RTOL); the CLI's default 60 steps
+  on the CPU learn.
 """
 
 import argparse
 import dataclasses
 import importlib
+import importlib.util
 import warnings
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -42,7 +48,7 @@ from repro.runtime.serving import ServingLoop as JaxServingLoop
 from repro.runtime.serving import make_config_encoder as jax_encoder
 from repro_torch.configs import get_config
 from repro_torch.core import head_api, lm_head
-from repro_torch.examples import quickstart, serve_retrieval
+from repro_torch.examples import quickstart, serve_retrieval, train_dimenet
 from repro_torch.weights import params_from_jax
 
 # the modules: ``repro.core`` exports a function named ``lm_head``
@@ -349,3 +355,51 @@ def test_quickstart_runs_and_matches_the_jax_head(capsys):
 def test_quickstart_cli_runs_on_cpu(capsys):
     assert quickstart.main(["--device", "cpu"]) == 0
     assert "max |kernel - sparton|:" in capsys.readouterr().out
+
+
+# --- train_dimenet ----------------------------------------------------------
+
+def _jax_example(name):
+    """The JAX package's ``examples/<name>.py`` as a module."""
+    path = Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"jax_example_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_train_dimenet_first_loss_matches_the_jax_example(monkeypatch):
+    from repro.configs.specs import CellSpec
+    from repro.launch.steps import build_gnn_train_step
+    from repro_torch.weights import state_from_jax
+
+    ref = _jax_example("train_dimenet")
+    jstate, _ = jax_init_state("dimenet", jax.random.PRNGKey(0), smoke=True)
+    cfg = get_config("dimenet").SMOKE
+    monkeypatch.setattr(train_dimenet, "init_state", lambda *a, **k:
+                        state_from_jax(jax.tree.map(np.asarray, jstate), cfg,
+                                       CPU))
+    out = train_dimenet.run(argparse.Namespace(steps=11, device="cpu"), CPU)
+    cell = CellSpec("dimenet", "molecule", "gnn_train", {}, n_graphs=8)
+    _, m = jax.jit(build_gnn_train_step(jax_config("dimenet").SMOKE, cell,
+                                        lr=2e-3))(jstate, ref.make_batch(0))
+    assert [s for s, _ in out["losses"]] == [0, 10]
+    np.testing.assert_allclose(out["losses"][0][1], float(m["loss"]),
+                               rtol=1e-5)
+    batch = train_dimenet.make_batch(0, CPU)
+    for key, value in ref.make_batch(0).items():
+        np.testing.assert_array_equal(batch[key].numpy(), np.asarray(value))
+
+
+def test_train_dimenet_cli_learns_on_cpu(capsys):
+    assert train_dimenet.main(["--device", "cpu"]) == 0
+    printed = capsys.readouterr().out
+    assert "loss trajectory:" in printed and "done: 60 steps" in printed
+
+
+def test_train_dimenet_defaults_to_cuda(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert train_dimenet.parser().parse_args([]).device == "cuda"
+    with pytest.raises(SystemExit) as exc:
+        train_dimenet.main([])
+    assert exc.value.code == 2 and "CUDA" in capsys.readouterr().err
