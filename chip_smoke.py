@@ -136,7 +136,10 @@ Phases, run in this order, each printing one JSON line:
              from one init with the kernel head and with the paper's
              PyTorch baseline head (``naive``): at step 1000 each must beat
              its init by 0.01 on MRR@10 and nDCG@10 with a falling loss;
-             the gap between the heads is printed.
+             the gap between the heads is printed. Its 1000 small steps a
+             head are bound by the host, so each head runs in a spawned
+             process of its own from the phase's start, beside (a), (b)
+             and the other head.
 8. xlmr    — splade_xlmr (|V| 250002) at full width: the serve phase's
              path (16384 docs, 64 requests, ``auto`` resolving to K4 in
              place); then on its weights and queries the serve_engine,
@@ -154,7 +157,7 @@ Phases, run in this order, each printing one JSON line:
              there (xlmr_serve_timing); K1 (with its 146-column last tile),
              K2 and K3 (every routing list in device memory) at its V
              against their plain versions; the gradient check at 8 x 128;
-             5 timed steps of the train CLI's loop at train_420 (420 pairs x
+             4 timed steps of the train CLI's loop at train_420 (420 pairs x
              256 tokens, remat on) and 3 at train_16 with the kernel head
              and 3 with the paper's PyTorch baseline head (``naive``), each
              with its peak memory; then K1, K2 and K3 timed at train_420
@@ -203,8 +206,8 @@ Phases, run in this order, each printing one JSON line:
              layers, D 3072, V 128256) through the serve phase's path
              (16384 docs, 64 requests, ``auto`` -> K4 in place), the LSR
              prefill (``launch.steps.build_lsr_prefill_step``) at B 1 x
-             32768 with K1 held against its plain version on the trunk's
-             H, KV-cache decode (B 4, 64 positions) against
+             16384 with K1 held against its plain version on the trunk's
+             H (K1 alone is timed at 1 and 2 x 32768), KV-cache decode (B 4, 64 positions) against
              ``causal_lm_logits`` at f32 compute (DECODE_TOL; the bf16
              difference printed) and one decode step timed at the
              decode_32k cache (B 4 x 32768, 15.0 GB); then gemma2-27b at
@@ -253,7 +256,7 @@ Phases, run in this order, each printing one JSON line:
              versions and the baseline head's backward; (b) the gradient
              check (the train phase's, with its in-run controls) on
              llama and moonshot at 2 layers, 4 pairs x 512; (c) one
-             warm-up and 3 timed steps of ``build_lsr_train_step`` on the
+             warm-up and 2 timed steps of ``build_lsr_train_step`` on the
              train CLI's ``pair_loader`` at S 4096 (remat on): llama at
              ``LLAMA_TRAIN_LAYERS`` of 28 layers (4 pairs, n_micro 2),
              gemma2 at 2 of 46 (2 pairs), moonshot at 3 of 48 (4 pairs,
@@ -272,7 +275,7 @@ Phases, run in this order, each printing one JSON line:
              96.2 GB: the one cut of scale), xDeepFM, DIEN and
              Wide&Deep. (a) One probe step of ``build_recsys_train_step``
              at train_batch 65536, halved until it fits (xDeepFM's CIN),
-             then 5 steps of the train CLI's loop (``make_runner`` over
+             then 3 steps of the train CLI's loop (``make_runner`` over
              ``recsys_loader``, Adagrad at 1e-2) with its final checkpoint
              (14.1 GB for DLRM) in a ``tempfile`` directory: losses finite
              and not rising, the runner's step ms, peak memory; (b)
@@ -318,9 +321,28 @@ Phases, run in this order, each printing one JSON line:
              dimenet`` runs the device and build phases and this one alone
              (building it inline).
 
+16. dryrun — the dry run (``launch/dryrun.py``): (a) ``dryrun.main``
+             over the default 40 cells and the two SPLADE encoders' 5,
+             one ``--arch`` at a time in ``DRYRUN_WORKERS`` spawned
+             processes from the xlmr phase on, the card hidden from
+             them (the abstract pass runs on meta tensors): a line a
+             cell (kind, FLOPs by dtype, bytes, peak estimate, fits,
+             roofline seconds and bottleneck, model FLOPs, useful ratio),
+             every cell ``ok`` but the 4 skipped; (b) one step of each of
+             the seven step kinds on the card (``DRYRUN_MEASURED``, cut
+             where the published cell does not fit one card, each cut
+             estimated at its cut): the step's first call a warm-up,
+             then ``max_memory_allocated`` of the second above what was
+             allocated before its state, held within 10 % or 256 MiB of
+             the same cell's peak estimate; the step's CUDA-event ms and
+             its ratio to the roofline seconds printed; K1-K3 launched in
+             the LSR steps (K1 on "tma"), no plain version on the card,
+             the outputs finite. ``python3 chip_smoke.py --only dryrun``
+             runs the device and build phases and this one alone.
+
 Every K1 launch of the serve, dense-serve, engine, pruned, frontier, train,
 eval (b), xlmr (its serving phases too), ckpt, example_serve, decoder,
-moe and train_decoder phases must take the "tma" path. Then a
+moe, train_decoder and dryrun phases must take the "tma" path. Then a
 ``timeline`` line (each phase's seconds, against the 1200 s the script
 is given), a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": ...}``.
@@ -344,11 +366,16 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_BYTES = 3.35e12
+
+def peak_rate(kind: str) -> float:
+    """The H100 SXM data sheet's peak (dense, at the 700 W limit;
+    ``repro_torch.launch.cost_analysis``): a product kind's FLOP/s
+    (``"bf16"``, ``"tf32"``, ``"f32"``), or ``"bytes"``: HBM's bytes/s."""
+    from repro_torch.launch import cost_analysis as ca
+
+    return ca.HBM_BYTES_PER_S if kind == "bytes" else ca.PEAK_FLOPS[kind]
+
+
 K1_TOL = 1e-4     # f32 sums over D in another order (both sides f32)
 # K2/K3 against their plain versions: f32 sums over V (dH) or B (dE, db)
 # in another order, relative to the largest |value| of each output
@@ -2068,7 +2095,7 @@ def time_ceiling(torch, queries, index, k, *, reps):
     row = {"shape": {"B": B, "Q": qi.shape[1], "n_docs": n, "k": k}, **case,
            "digest": digest(*got), "postings_read": postings,
            "terms_read": terms, "bytes": nbytes,
-           "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes"}
+           "bound_ms": 1e3 * nbytes / peak_rate("bytes"), "bound_by": "bytes"}
     row["ms"], row["ms_range"] = graph_ms(
         torch, lambda: k45.fused_ceiling_index_topk(*args, **kw), reps)
     row["k4_ms"], row["k4_ms_range"] = graph_ms(
@@ -2425,10 +2452,10 @@ def time_hot_window(torch, queries, index, hot, k, *, reps):
     row = {"shape": {"B": B, "Q": qi.shape[1], "L": L, "W": W,
                      "n_docs": n, "k": k}, **case,
            "equal_in_place": equal_in_place, "digest": digest(*got),
-           "bytes": nbytes, "bound_ms": 1e3 * nbytes / PEAK_BYTES,
+           "bytes": nbytes, "bound_ms": 1e3 * nbytes / peak_rate("bytes"),
            "bound_by": "bytes", "postings_read_in_place": postings,
            "terms_read": terms, "in_place_bytes": in_place_bytes,
-           "in_place_bound_ms": 1e3 * in_place_bytes / PEAK_BYTES}
+           "in_place_bound_ms": 1e3 * in_place_bytes / peak_rate("bytes")}
     row["ms"], row["ms_range"] = graph_ms(
         torch, lambda: k45.fused_impact_topk(w, docs, **kw), reps)
     row["in_place_ms"], row["in_place_ms_range"] = graph_ms(
@@ -3106,13 +3133,15 @@ def traced(torch, run, wall_ms, n):
 
 
 def k1_bound_ms(B, S, D, V, itemsize, kept):
-    """K1's bound: the products of the ``kept`` (unmasked) positions only,
-    since a masked logit is NEG_INF whatever H·E gives; every input read
-    and every output written once."""
-    flops = 2 * kept * V * D
-    nbytes = (B * S * D + V * D) * itemsize + V * 4 + B * S * 4 + B * V * 8
-    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    """K1's bound from its cost function (``sparton.forward_cost``): the
+    products of the ``kept`` (unmasked) positions only, since a masked
+    logit is NEG_INF whatever H·E gives; every input read and every
+    output written once."""
+    from repro_torch.kernels.sparton import forward_cost
+
+    flops, nbytes = forward_cost(B, S, D, V, itemsize, kept)
+    t_ops = flops / peak_rate("bf16" if itemsize == 2 else "f32")
+    t_bytes = nbytes / peak_rate("bytes")
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -3280,20 +3309,20 @@ def bwd_bound_ms(torch, kernel, H, E, dy, y, i_max, softcap=None):
     FLOP) per term with g != 0 and column, over the f32 peak. Terms with
     g == 0 are skipped by the kernels, so they are not counted."""
     from repro_torch.kernels._common import bwd_factor
+    from repro_torch.kernels.sparton_bwd import de_cost, dh_cost
 
     B, S, D = H.shape
     V = E.shape[0]
     nz = bwd_factor(y, dy, softcap) != 0
     nnz = int(nz.sum())
-    nbytes = B * V * 12
     if kernel == "dh":
-        nbytes += int(nz.any(dim=0).sum()) * D * E.element_size()
-        nbytes += B * S * D * 4
+        flops, nbytes = dh_cost(B, S, D, V, E.element_size(), nnz,
+                                int(nz.any(dim=0).sum()))
     else:
         rows = (torch.arange(B, device=H.device)[:, None] * S + i_max)[nz]
-        nbytes += int(rows.unique().numel()) * D * H.element_size()
-        nbytes += V * D * 4 + V * 4
-    t_ops, t_bytes = 2 * nnz * D / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        flops, nbytes = de_cost(B, S, D, V, H.element_size(), nnz,
+                                int(rows.unique().numel()))
+    t_ops, t_bytes = flops / peak_rate("f32"), nbytes / peak_rate("bytes")
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", nnz / (B * V))
 
@@ -3448,9 +3477,9 @@ def time_k6(torch, q, C, k, *, reps):
     case = k6_compare(torch, q, C, k, False)
     require(case["within_tol"] and case["bit_identical"],
             f"K6 at {(B, N, D, k)}: {case}")
-    t_ops = (2 * B * N * D / PEAK_F32_FLOPS if B <= stream_rows()
-             else 3 * 2 * B * N * D / PEAK_TF32_FLOPS)
-    t_bytes = (N * D * 4 + B * D * 4 + B * k * 8) / PEAK_BYTES
+    t_ops = (2 * B * N * D / peak_rate("f32") if B <= stream_rows()
+             else 3 * 2 * B * N * D / peak_rate("tf32"))
+    t_bytes = (N * D * 4 + B * D * 4 + B * k * 8) / peak_rate("bytes")
     row = {"shape": {"B": B, "N": N, "D": D, "k": k}, **case,
            "bound_ms": 1e3 * max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -3594,7 +3623,7 @@ def time_impact(torch, queries, index, k, *, reps):
            "lanes_padded": B * Q * L, "bytes": nbytes,
            "padded_window_bytes": k45.fused_window_bytes(
                B, Q, L, "u4" if quant else "f32"),
-           "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes"}
+           "bound_ms": 1e3 * nbytes / peak_rate("bytes"), "bound_by": "bytes"}
     require(case["equal"] and case["bit_identical"] and row["equal_window"],
             f"{'K5' if quant else 'K4'} at {row['shape']}: {row}")
     row["ms"], row["ms_range"] = graph_ms(torch, lambda: entry(*args, **kw),
@@ -3986,11 +4015,11 @@ def eval_full_width(torch):
             "k1_paths": k1_paths}
 
 
-def eval_trained_vs_init(torch):
-    """(c) EVAL_TRAIN's steps of SMOKE splade_bert from one init state on
-    one data stream, once with the kernel head and once with the paper's
-    PyTorch baseline head (``naive``), each evaluated at init and at each
-    of ``eval_at`` by the train CLI's ``evaluator`` on its held-out pairs;
+def trained_head(torch, impl):
+    """(c) for one head: EVAL_TRAIN's steps of SMOKE splade_bert from the
+    shared init on the shared data stream (both drawn on the CPU from
+    seed 0: the same in any process), evaluated at init and at each of
+    ``eval_at`` by the train CLI's ``evaluator`` on its held-out pairs;
     the last is gated."""
     import dataclasses
 
@@ -4001,7 +4030,6 @@ def eval_trained_vs_init(torch):
     from repro_torch.tree import tree_map
 
     t = EVAL_TRAIN
-    # drawn on the CPU: the same init on any machine
     init = init_state("splade_bert", torch.Generator().manual_seed(0),
                       smoke=True)
     it = lsr_pair_batches(batch=t["batch"], q_len=t["q_len"],
@@ -4010,72 +4038,109 @@ def eval_trained_vs_init(torch):
                for _ in range(t["steps"])]
     corpus, qrels = cli.held_out(SMOKE, t["eval_queries"], q_len=t["q_len"],
                                  d_len=t["d_len"])
-    heads = {}
-    for impl in ("kernel", "naive"):
-        cfg = dataclasses.replace(SMOKE, head_impl=impl)
-        evaluate = cli.evaluator(cfg, corpus, qrels,
-                                 device=torch.device("cuda"))
-        step = build_lsr_train_step(cfg, n_micro=t["n_micro"], lr=t["lr"])
-        state = {"params": tree_map(lambda x: x.cuda(), init["params"]),
-                 "opt": tree_map(lambda x: x.cuda(), init["opt"]),
-                 "step": init["step"]}
-        reset_launches()
-        train_s = 0.0
-        with plain_guard(**eval_plains()) as plain_on_cuda:
-            evals = {0: evaluate(state)}
-            losses = []
-            for lo, hi in zip((0,) + t["eval_at"], t["eval_at"]):
-                t0 = time.perf_counter()
-                for b in batches[lo:hi]:
-                    state, m = step(state, b)
-                    losses.append(m["loss"])
-                torch.cuda.synchronize()
-                train_s += time.perf_counter() - t0
-                evals[hi] = evaluate(state)
-        losses = [float(x) for x in losses]
-        launches = read_launches()
-        require(not plain_on_cuda, f"eval {impl}: plain versions ran on CUDA "
-                                   f"tensors: {sorted(set(plain_on_cuda))}")
-        n_side = 2 * t["n_micro"] * t["steps"]   # a head call a side
-        want = ({"sparton_fwd": n_side + 2 * len(evals),
-                 "sparton_bwd_dh": n_side, "sparton_bwd_de": n_side}
-                if impl == "kernel" else dict.fromkeys(
-                    ("sparton_fwd", "sparton_bwd_dh", "sparton_bwd_de"), 0))
-        require({k: launches[k] for k in want} == want,
-                f"eval {impl}: launches {launches}, expected {want}")
-        delta = {at: {k: m[k] - evals[0][k] for k in m}
-                 for at, m in evals.items() if at}
-        head = 25
-        heads[impl] = {
-            "metrics": evals, "trained_minus_init": delta,
-            "loss_first": losses[0], "loss_last": losses[-1],
-            "loss_mean_first_25": float(np.mean(losses[:head])),
-            "loss_mean_last_25": float(np.mean(losses[-head:])),
-            "train_s": train_s, "steps_per_s": t["steps"] / train_s,
-            "launches": launches}
-        require(all(np.isfinite(losses)), f"eval {impl}: non-finite loss")
-        require(np.mean(losses[-head:]) < np.mean(losses[:head]),
-                f"eval {impl}: the loss did not fall: "
-                f"{heads[impl]['loss_mean_first_25']} -> "
-                f"{heads[impl]['loss_mean_last_25']}")
-        gated = delta[t["steps"]]
-        require(all(gated[k] >= MIN_TRAIN_DELTA
-                    for k in ("mrr@10", "ndcg@10")),
-                f"eval {impl}: trained minus init at step {t['steps']}: "
-                f"{gated}, below {MIN_TRAIN_DELTA}")
-        del state, step
+    cfg = dataclasses.replace(SMOKE, head_impl=impl)
+    evaluate = cli.evaluator(cfg, corpus, qrels, device=torch.device("cuda"))
+    step = build_lsr_train_step(cfg, n_micro=t["n_micro"], lr=t["lr"])
+    state = {"params": tree_map(lambda x: x.cuda(), init["params"]),
+             "opt": tree_map(lambda x: x.cuda(), init["opt"]),
+             "step": init["step"]}
+    reset_launches()
+    train_s = 0.0
+    with plain_guard(**eval_plains()) as plain_on_cuda:
+        evals = {0: evaluate(state)}
+        losses = []
+        for lo, hi in zip((0,) + t["eval_at"], t["eval_at"]):
+            t0 = time.perf_counter()
+            for b in batches[lo:hi]:
+                state, m = step(state, b)
+                losses.append(m["loss"])
+            torch.cuda.synchronize()
+            train_s += time.perf_counter() - t0
+            evals[hi] = evaluate(state)
+    losses = [float(x) for x in losses]
+    launches = read_launches()
+    require(not plain_on_cuda, f"eval {impl}: plain versions ran on CUDA "
+                               f"tensors: {sorted(set(plain_on_cuda))}")
+    n_side = 2 * t["n_micro"] * t["steps"]   # a head call a side
+    want = ({"sparton_fwd": n_side + 2 * len(evals),
+             "sparton_bwd_dh": n_side, "sparton_bwd_de": n_side}
+            if impl == "kernel" else dict.fromkeys(
+                ("sparton_fwd", "sparton_bwd_dh", "sparton_bwd_de"), 0))
+    require({k: launches[k] for k in want} == want,
+            f"eval {impl}: launches {launches}, expected {want}")
+    delta = {at: {k: m[k] - evals[0][k] for k in m}
+             for at, m in evals.items() if at}
+    head = 25
+    row = {"metrics": evals, "trained_minus_init": delta,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "loss_mean_first_25": float(np.mean(losses[:head])),
+           "loss_mean_last_25": float(np.mean(losses[-head:])),
+           "train_s": train_s, "steps_per_s": t["steps"] / train_s,
+           "launches": launches}
+    require(all(np.isfinite(losses)), f"eval {impl}: non-finite loss")
+    require(np.mean(losses[-head:]) < np.mean(losses[:head]),
+            f"eval {impl}: the loss did not fall: "
+            f"{row['loss_mean_first_25']} -> {row['loss_mean_last_25']}")
+    gated = delta[t["steps"]]
+    require(all(gated[k] >= MIN_TRAIN_DELTA for k in ("mrr@10", "ndcg@10")),
+            f"eval {impl}: trained minus init at step {t['steps']}: "
+            f"{gated}, below {MIN_TRAIN_DELTA}")
+    return row
+
+
+def trained_head_worker(impl):
+    """``trained_head`` in a spawned process, with the script's matmul
+    settings."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return trained_head(torch, impl)
+
+
+def start_trained_vs_init():
+    """(c)'s two heads, each in a spawned process of its own, started now:
+    their 1000 small steps are bound by the host (~12 steps/s), so they
+    run beside (a), (b) and each other instead of after them (not beside
+    the train phase: its card-bound steps would share the card with
+    theirs). The pending rows, for ``eval_trained_vs_init``, which
+    terminates the processes."""
+    import atexit
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(2)
+    atexit.register(pool.terminate)
+    return {"pool": pool, **{impl: pool.apply_async(trained_head_worker,
+                                                    (impl,))
+                             for impl in ("kernel", "naive")}}
+
+
+def eval_trained_vs_init(torch, pending=None):
+    """(c) EVAL_TRAIN's steps of SMOKE splade_bert from one init state on
+    one data stream, once with the kernel head and once with the paper's
+    PyTorch baseline head (``naive``): ``trained_head`` of each, run in
+    ``start_trained_vs_init``'s processes (``train_s`` is each head's
+    seconds beside the other and the rest of the phase)."""
+    pending = dict(pending or start_trained_vs_init())
+    pool = pending.pop("pool")
+    heads = {impl: r.get(900) for impl, r in pending.items()}
+    # their CUDA contexts and cached blocks leave the card with them
+    pool.terminate()
+    pool.join()
     gap = {at: {k: v - heads["naive"]["metrics"][at][k] for k, v in m.items()}
            for at, m in heads["kernel"]["metrics"].items()}
-    return {"recipe": t, "heads": heads, "kernel_minus_naive": gap}
+    return {"recipe": EVAL_TRAIN, "heads": heads, "kernel_minus_naive": gap}
 
 
 def phase_eval(torch):
     """The quality loop on the card: (a) the method matrix on the graded
     corpus, (b) the train CLI's --eval-every at full width, (c) trained
-    against init with the kernel head and with the baseline head."""
+    against init with the kernel head and with the baseline head, in
+    ``start_trained_vs_init``'s processes beside (a) and (b)."""
+    pending = start_trained_vs_init()
     graded = eval_graded(torch)
     full = eval_full_width(torch)
-    trained = eval_trained_vs_init(torch)
+    trained = eval_trained_vs_init(torch, pending)
     emit("eval", graded=graded, full_width=full, trained_vs_init=trained)
     return {"launches": {
         "graded": graded["launches"], "full_width": full["launches"],
@@ -4090,7 +4155,7 @@ def phase_eval(torch):
 # the gradient check's pairs x tokens at |V| 250002: the plain head's f32
 # logits of a side, 8 x 128 x 250002, take 1 GB
 XLMR_GRAD_CHECK = (8, 128)
-XLMR_STEPS = {"train_420": 5, "train_16": 3}
+XLMR_STEPS = {"train_420": 4, "train_16": 3}
 # K1 against its plain version at V 250002 (977 tiles of 256 vocab
 # columns, the last one 146 wide), with and without the softcap, a fully
 # masked row: (B, S, softcap)
@@ -4750,7 +4815,9 @@ def phase_streaming(torch):
 
 # (B, S) of build_lsr_prefill_step: llama at the JAX prefill_32k length,
 # its batch of 32 cut to one card's share; gemma2 past its 4096 window
-DECODER_PREFILL = {"llama": (1, 32768), "gemma2": (2, 8192)}
+# llama's prefill at 1 x 16384: its f32 attention made the 1 x 32768 one
+# ~21.5 s of the script's time (K1 alone is timed at 32768 below)
+DECODER_PREFILL = {"llama": (1, 16384), "gemma2": (2, 8192)}
 # gemma2-27b at full width, its depth cut to two local/global periods (the
 # published 46 layers would hold 55.1 GB of bf16 weights)
 GEMMA2_LAYERS = 4
@@ -4990,7 +5057,7 @@ def decode_32k_step(torch, cfg, params, shape=DECODE_32K, trace=False):
     written = bool(cache["k"][:, :, S - 1].abs().sum(dim=(2, 3)).gt(0).all())
     require(written, f"decode step at a {B} x {S} cache: the step did not "
                      f"write the cache's last position")
-    bound = 1e3 * (cache_bytes + weight_bytes) / PEAK_BYTES
+    bound = 1e3 * (cache_bytes + weight_bytes) / peak_rate("bytes")
     out = {"shape": [B, S], "ms": ms, "ms_range": spread,
            "cache_bytes": cache_bytes, "weight_bytes": weight_bytes,
            "bound_ms": bound, "bound_by": "bytes",
@@ -5071,7 +5138,7 @@ def phase_decoder(torch):
     requests, ``auto`` -> K4 in place, every K1 launch on "tma"; K4 then
     timed on its V 128256 index at the served 8 queries and all 64,
     ``time_impact``), the LSR
-    prefill at B 1 x 32768 (``decoder_prefill``), decode against the full
+    prefill at B 1 x 16384 (``decoder_prefill``), decode against the full
     forward (``decode_vs_full``) and one decode step at the decode_32k
     cache; then gemma2-27b at full width, ``GEMMA2_LAYERS`` deep (D 4608,
     V 256000, window 4096 on the even layers, softcaps 50 and 30): the
@@ -5242,7 +5309,7 @@ def time_moe_ffn(torch, cfg, params, T):
     flops = 3 * 2 * E * C * D * Fd
     nbytes = 2 * T * D * x.element_size() + sum(
         t.numel() * t.element_size() for t in w)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / peak_rate("bf16"), nbytes / peak_rate("bytes")
     buf = torch.randn((E, C, D), generator=g,
                       device="cuda").to(torch.bfloat16)
 
@@ -5394,7 +5461,7 @@ DECODER_SEQ = 4096
 LLAMA_TRAIN_LAYERS = 16
 DECODER_TRAIN = {"llama": (LLAMA_TRAIN_LAYERS, 4, 2), "gemma2": (2, 2, 1),
                  "moonshot": (3, 4, 2)}
-DECODER_TRAIN_STEPS = 3
+DECODER_TRAIN_STEPS = 2
 # (d) the CLI's own loop (launch.train.make_runner) on llama, full width,
 # 2 layers, writing its final checkpoint with bf16 params (~6 GB: at 20
 # layers it would be ~24 GB)
@@ -5838,7 +5905,7 @@ def train_depth(torch, argv) -> int:
 RECSYS = {"dlrm": "dlrm_mlperf", "xdeepfm": "xdeepfm", "dien": "dien",
           "wide_deep": "wide_deep"}
 DLRM_ROW_CAP = 2**21
-RECSYS_STEPS = 5          # runner steps at train_batch, after one probe step
+RECSYS_STEPS = 3          # runner steps at train_batch, after one probe step
 RECSYS_SERVE_REPS = {"serve_p99": 20, "serve_bulk": 2}
 # the retrieval_cand shape: B 1 against 1,000,000 candidates padded to a
 # multiple of 512 (the JAX package's configs/specs.py:207), k 100
@@ -6536,7 +6603,265 @@ def phase_dimenet(torch, minibatch=None):
     return {"seconds": seconds}
 
 
-ALONE = {"recsys": phase_recsys, "dimenet": phase_dimenet}
+# --------------------------------------------------------------------------
+# 16. the dry run
+# --------------------------------------------------------------------------
+
+# (a) dryrun.main an arch at a time (the CLI's --arch), longest first, in
+# this many spawned processes beside the card's phases from the xlmr phase
+# on (after the eval phase, whose heads run in processes of their own)
+DRYRUN_WORKERS = 3
+DRYRUN_ARCHS = ("gemma2_27b", "phi3_5_moe", "moonshot_v1_16b", "phi3_mini",
+                "llama3_2_3b", "dimenet", "splade_bert", "splade_xlmr",
+                "dlrm_mlperf", "xdeepfm", "dien", "wide_deep")
+DRYRUN_WAIT_S = 600        # the longest the phase waits for (a)
+# (b) a step of each kind on the card: (name, arch, shape, rows, seq_len);
+# rows 0 keeps the published batch. llama's prefill_32k (32 x 32768) and
+# decode_32k (128 sequences at a 32768 cache) need 118 and 492 GB
+# (their estimates), so each runs one sequence, the prefill at 4096
+DRYRUN_MEASURED = (
+    ("xlmr_train_16", "splade_xlmr", "train_16", 0, 0),
+    ("bert_table3_384", "splade_bert", "table3_384", 0, 0),
+    ("llama_prefill_1x4096", "llama3_2_3b", "prefill_32k", 1, 4096),
+    ("llama_decode_1x32768", "llama3_2_3b", "decode_32k", 1, 0),
+    ("dimenet_molecule", "dimenet", "molecule", 0, 0),
+    ("wide_deep_train_batch", "wide_deep", "train_batch", 0, 0),
+    ("wide_deep_serve_p99", "wide_deep", "serve_p99", 0, 0),
+    ("wide_deep_retrieval_cand", "wide_deep", "retrieval_cand", 0, 0),
+)
+# a measured peak against its estimate: within the larger of these
+DRYRUN_TOL = (0.10, 256 * 2**20)
+
+
+def _hide_cuda():
+    """The dry run's workers: no CUDA context of theirs on the card, one
+    CPU thread each."""
+    import os
+
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    os.environ["OMP_NUM_THREADS"] = "1"
+
+
+def dryrun_worker(argv, log):
+    """``dryrun.main(argv)`` with its lines sent to ``log``: the records
+    (``--json``), the exit code and the seconds."""
+    import tempfile
+
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/records.json"
+        with open(log, "w") as f, contextlib.redirect_stdout(f), \
+                contextlib.redirect_stderr(f):
+            rc = dryrun.main([*argv, "--json", out])
+        records = json.loads(Path(out).read_text()) if Path(out).exists() \
+            else []
+    return {"argv": argv, "rc": rc, "records": records,
+            "seconds": time.perf_counter() - t0}
+
+
+def dryrun_estimates(cells):
+    """(b)'s estimates: ``dryrun.run_cell`` of each ``DRYRUN_MEASURED``
+    cell at its cut."""
+    from repro_torch.configs.specs import cell_spec, with_rows
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for name, arch, shape, rows, seq in cells:
+        cell = cell_spec(arch, shape)
+        if rows:
+            cell = with_rows(cell, rows, seq)
+        out[name] = dryrun.run_cell(arch, shape, cell=cell, verbose=False)
+    return out
+
+
+def start_dryrun():
+    """(a) and (b)'s estimates in ``DRYRUN_WORKERS`` spawned processes
+    that cannot see the card, started now: the pending results, for
+    ``phase_dryrun``. The processes are terminated when the script
+    exits."""
+    import atexit
+    import multiprocessing
+    import tempfile
+
+    logs = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    pool = multiprocessing.get_context("spawn").Pool(
+        DRYRUN_WORKERS, initializer=_hide_cuda)
+    atexit.register(pool.terminate)
+    pending = {"pool": pool,
+               "estimates": pool.apply_async(dryrun_estimates,
+                                             (DRYRUN_MEASURED,))}
+    for arch in DRYRUN_ARCHS:
+        pending[arch] = pool.apply_async(
+            dryrun_worker, (["--arch", arch], str(logs / f"{arch}.log")))
+    return pending
+
+
+def dryrun_line(rec):
+    """A cell's printed line."""
+    if rec["status"] != "ok":
+        return {k: rec.get(k) for k in ("arch", "shape", "status", "reason",
+                                        "error")}
+    mem = rec["memory_analysis"]
+    return {"cell": f"{rec['arch']}/{rec['shape']}",
+            "kind": rec["step_kind"], "n_micro": rec["n_micro"],
+            "flops_by_dtype": rec["flops_by_dtype"],
+            "bytes": rec["hbm_bytes_per_device"],
+            "peak_estimate_bytes": mem["peak_estimate_bytes"],
+            "fits": rec["fits_one_card"],
+            "limit": rec["memory_limit_source"],
+            "compute_s": rec["compute_s"], "memory_s": rec["memory_s"],
+            "roofline_s": max(rec["compute_s"], rec["memory_s"]),
+            "bottleneck": rec["bottleneck"],
+            "model_flops": rec["model_flops_per_device"],
+            "useful_ratio": rec["useful_ratio"],
+            "kernel_costs": rec["kernel_costs"], "pass_s": rec["compile_s"]}
+
+
+def dryrun_step(torch, cfg, cell, first, base):
+    """(b) One cell's step on the card on ``first`` (its state or params,
+    allocated above ``base``): a warm-up call, then the measured one."""
+    import gc
+
+    from repro_torch.configs.specs import random_batch
+    from repro_torch.launch.steps import build_cell_step
+    from repro_torch.tree import tree_leaves
+
+    k1, _, _ = head_and_impact_modules()
+    step = build_cell_step(cfg, cell)
+    batch = random_batch(cell, cfg, torch.Generator(device="cuda")
+                         .manual_seed(1), "cuda")
+    out = step(first, batch)
+    torch.cuda.synchronize()
+    del out
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with plain_guard(**eval_plains()) as plain_on_cuda:
+        start.record()
+        out = step(first, batch)
+        end.record()
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    row = {"ms": start.elapsed_time(end), "peak_bytes": peak,
+           "launches": read_launches(),
+           "k1_paths": dict(k1.sparton_forward.path_launches),
+           "plain_on_cuda": sorted(set(plain_on_cuda)),
+           "finite": all(bool(torch.isfinite(t.float()).all())
+                         for t in tree_leaves(out)
+                         if isinstance(t, torch.Tensor)
+                         and t.is_floating_point())}
+    del out, batch
+    return row
+
+
+def phase_dryrun(torch, pending=None):
+    """(a) the dry run's records, (b) a step of each kind on the card
+    held against its estimate (see the module's docstring)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs.specs import cell_spec, with_rows
+    from repro_torch.launch.dryrun import step_inputs
+    from repro_torch.launch.steps import arch_config_for_cell
+
+    pending = dict(pending or start_dryrun())
+    pool = pending.pop("pool")
+    t0 = time.perf_counter()
+    estimates = pending.pop("estimates").get(DRYRUN_WAIT_S)
+    total = torch.cuda.get_device_properties(0).total_memory
+    measured, launches = {}, {}
+    first_of = {}   # one state or params an (arch, kind of first argument)
+    for name, arch, shape, rows, seq in DRYRUN_MEASURED:
+        cell = cell_spec(arch, shape)
+        if rows:
+            cell = with_rows(cell, rows, seq)
+        cfg = arch_config_for_cell(arch, cell)
+        key = (arch, cell.step_kind.endswith("_train"), cfg)
+        if key not in first_of:
+            first = None
+            first_of.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            first_of[key] = (step_inputs(
+                cfg, cell, torch.Generator(device="cuda").manual_seed(0),
+                "cuda"), base)
+        first, base = first_of[key]
+        row = dryrun_step(torch, cfg, cell, first, base)
+        est = estimates[name]
+        want = est["memory_analysis"]["peak_estimate_bytes"]
+        tol = max(DRYRUN_TOL[0] * want, DRYRUN_TOL[1])
+        roof = max(est["compute_s"], est["memory_s"])
+        launches[name] = row.pop("launches")
+        measured[name] = {
+            "cell": f"{arch}/{shape}", "kind": cell.step_kind,
+            "batch": {k: list(v.shape) for k, v in cell.batch.items()},
+            **row, "peak_estimate_bytes": want,
+            "peak_over_estimate": row["peak_bytes"] / want,
+            "within_tol": abs(row["peak_bytes"] - want) <= tol,
+            "roofline_ms": 1e3 * roof, "bottleneck": est["bottleneck"],
+            "ms_over_roofline": row["ms"] / (1e3 * roof),
+            "launches": launches[name]}
+        emit("dryrun_step", name=name, **measured[name])
+    del first_of, first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    runs = [pending[arch].get(max(1.0, DRYRUN_WAIT_S - (
+        time.perf_counter() - t0))) for arch in DRYRUN_ARCHS]
+    pool.terminate()
+    pool.join()
+    records = [rec for run in runs for rec in run["records"]]
+    for rec in records:
+        line = dryrun_line(rec)
+        if rec["status"] == "ok":
+            line["fits_this_card"] = line["peak_estimate_bytes"] <= total
+        emit("dryrun_cell", **line)
+    status = {s: sum(r["status"] == s for r in records)
+              for s in ("ok", "skipped", "FAILED")}
+    emit("dryrun", status=status, total_memory=total,
+         runs={" ".join(r["argv"]): {"rc": r["rc"], "seconds": r["seconds"]}
+               for r in runs},
+         measured={name: {k: m[k] for k in (
+             "kind", "peak_bytes", "peak_estimate_bytes",
+             "peak_over_estimate", "within_tol", "ms", "ms_over_roofline")}
+             for name, m in measured.items()})
+    require(all(r["rc"] == 0 for r in runs)
+            and status == {"ok": 41, "skipped": 4, "FAILED": 0},
+            f"dryrun: the matrix's records {status}, exit codes "
+            f"{[r['rc'] for r in runs]}")
+    kinds = {m["kind"] for m in measured.values()}
+    require(len(kinds) == 7, f"dryrun: step kinds measured {sorted(kinds)}")
+    for name, m in measured.items():
+        require(m["within_tol"], f"dryrun {name}: peak {m['peak_bytes']} "
+                f"against the estimate {m['peak_estimate_bytes']}")
+        require(m["finite"], f"dryrun {name}: non-finite outputs")
+        require(not m["plain_on_cuda"], f"dryrun {name}: plain versions "
+                f"ran on CUDA tensors: {m['plain_on_cuda']}")
+        n = m["launches"]
+        if m["kind"].startswith("lsr_"):
+            k1_calls = (2 * cell_spec(*m["cell"].split("/")).n_micro
+                        if m["kind"] == "lsr_train" else 1)
+            want = {"sparton_fwd": k1_calls,
+                    "sparton_bwd_dh": k1_calls if m["kind"] == "lsr_train"
+                    else 0}
+            want["sparton_bwd_de"] = want["sparton_bwd_dh"]
+            require({k: n[k] for k in want} == want
+                    and m["k1_paths"]["tma"] == k1_calls,
+                    f"dryrun {name}: launches {n}, paths {m['k1_paths']}, "
+                    f"expected {want} on tma")
+        else:
+            require(not any(n.values()), f"dryrun {name}: launches {n}")
+    return {"launches": launches,
+            "k1_paths": {name: m["k1_paths"] for name, m in measured.items()
+                         if m["kind"].startswith("lsr_")}}
+
+
+ALONE = {"recsys": phase_recsys, "dimenet": phase_dimenet,
+         "dryrun": phase_dryrun}
 
 
 def only_phases(torch, names) -> int:
@@ -6557,7 +6882,7 @@ def only_phases(torch, names) -> int:
 def kernel_rows(measured, launches, dense_launches, engine_launches,
                 train_launches, k1_paths, xlmr, eval_launches, ckpt_launches,
                 pruned, frontier, examples, decoder, moe, train_decoder,
-                recsys):
+                recsys, dryrun):
     """The ``{"kernels": [...]}`` line: each kernel's launches on its path
     and its numbers from the timing phase (K1 at an index batch, K2/K3 at
     the train shape, K4, K5 and K6 at the served queries; K1 also at the
@@ -6602,7 +6927,9 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
     timed step of llama, gemma2 and moonshot: 2 x n_micro for K1-K3, 0
     for K4-K6), K2's and K3's ``at_train_decoder`` (the five decoders'
     (D, V, softcap) at B 2 x S 4096, beside the baseline head's
-    backward)."""
+    backward). Every row's ``dryrun_launches`` counts its launches in
+    each measured step of the dryrun phase (2 x n_micro for K1-K3 in an
+    LSR train step, K1 1 in the prefill, 0 elsewhere)."""
     main_k1, bwd, k4, k5, k6 = (measured[key]
                                 for key in ("k1", "bwd", "k4", "k5", "k6"))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -6715,7 +7042,7 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
         row["streaming_launches"] = examples["streaming"]["launches"][key]
         for phase, out in (("decoder", decoder), ("moe", moe),
                            ("train_decoder", train_decoder),
-                           ("recsys", recsys)):
+                           ("recsys", recsys), ("dryrun", dryrun)):
             row[f"{phase}_launches"] = {
                 where: n[key] for where, n in out["launches"].items()}
     for row, kernel in ((rows[1], "dh"), (rows[2], "de")):
@@ -6823,6 +7150,7 @@ def main(argv=()) -> int:
     del params
     torch.cuda.empty_cache()
     evaluated = clocked("eval", phase_eval, torch)
+    dry_pending = start_dryrun()
     k1_paths["eval"] = evaluated["k1_paths"]
     xlmr = clocked("xlmr", phase_xlmr, torch)
     k1_paths.update({f"xlmr_{where}": paths
@@ -6848,12 +7176,15 @@ def main(argv=()) -> int:
                      in train_decoder["k1_paths"].items()})
     recsys = clocked("recsys", phase_recsys, torch)
     clocked("dimenet", phase_dimenet, torch, minibatch)
+    dry = clocked("dryrun", phase_dryrun, torch, dry_pending)
+    k1_paths.update({f"dryrun_{where}": paths
+                     for where, paths in dry["k1_paths"].items()})
     emit("timeline", seconds=timeline, total=sum(timeline.values()))
     print(json.dumps({"kernels": kernel_rows(
         measured, served["launches"], dense_launches, engine_launches,
         trained["launches"], k1_paths, xlmr, evaluated["launches"],
         ckpt["launches"], served_pruned, frontier, examples, decoder,
-        moe, train_decoder, recsys)}),
+        moe, train_decoder, recsys, dry)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,10 @@ loss), served by ``launch.steps.build_recsys_serve_step`` and retrieve
 through ``build_retrieval_step``. DimeNet (``dimenet``, the GNN family)
 trains through ``launch.steps.build_gnn_train_step`` and
 ``examples.train_dimenet``; both CLIs refuse it, as the JAX CLI does.
-``ALIASES`` are the JAX package's external ids.
+``ALIASES`` are the JAX package's external ids. ``ARCH_IDS`` is the
+JAX package's registry order, which the dry run's matrix
+(``all_cells``) follows: the ten assigned archs, then the paper's two
+encoders.
 """
 
 from __future__ import annotations
@@ -22,6 +25,11 @@ GNN_ARCHS = ("dimenet",)
 ARCHS = ("splade_bert", "splade_xlmr", "llama3_2_3b", "gemma2_27b",
          "phi3_mini", "moonshot_v1_16b", "phi3_5_moe") + RECSYS_ARCHS \
     + GNN_ARCHS
+
+# the JAX registry's order (``repro/configs/__init__.py``)
+ARCH_IDS = ("llama3_2_3b", "gemma2_27b", "phi3_mini", "moonshot_v1_16b",
+            "phi3_5_moe", "dimenet", "dlrm_mlperf", "xdeepfm", "dien",
+            "wide_deep", "splade_bert", "splade_xlmr")
 
 # external ids (with dots and dashes) -> module names, as in the JAX package
 ALIASES = {
@@ -54,3 +62,13 @@ def resolve_arch(arch_id: str) -> str:
 def get_config(arch_id: str):
     """The config module (``CONFIG``, ``SMOKE``, ``SHAPES``) of an arch."""
     return importlib.import_module(f"repro_torch.configs.{resolve_arch(arch_id)}")
+
+
+def all_cells(include_paper_models: bool = False):
+    """Yields ``(arch_id, shape_name, ShapeSpec)`` for the dry run's
+    matrix: the ten assigned archs' shapes (40 cells, 4 of them skipped),
+    with ``include_paper_models`` also the two SPLADE encoders' (45)."""
+    ids = ARCH_IDS if include_paper_models else ARCH_IDS[:10]
+    for arch in ids:
+        for shape_name, spec in get_config(arch).SHAPES.items():
+            yield arch, shape_name, spec

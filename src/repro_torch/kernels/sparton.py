@@ -33,7 +33,11 @@ it never gives way to another path or to the plain version.
 
 ``sparton_forward`` dispatches on the tensors' device: CPU tensors go to
 ``sparton_forward_plain``, CUDA tensors to the kernel (or a raise — there
-is no fallback).
+is no fallback), ``meta`` tensors (the dry run's abstract pass,
+``launch/dryrun.py``) to empty outputs of the kernel's shapes, allocated
+as the CUDA wrapper allocates them, with no launch. ``forward_cost``
+gives the kernel's work from the shapes; the meta branch and the plain
+version report it to a running ``launch.cost_analysis.StepCounter``.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import NEG_INF
+from repro_torch.launch import cost_analysis
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float]
              + [ctypes.c_void_p])
@@ -87,6 +92,26 @@ def sparton_forward_plain(
     return torch.log1p(raw.clamp_min(0.0)), torch.cat(args, dim=1).int()
 
 
+def forward_cost(B: int, S: int, D: int, V: int, itemsize: int,
+                 kept: Optional[int] = None) -> Tuple[int, int]:
+    """K1's work ``(flops, bytes)``: the products of the ``kept``
+    (unmasked) positions only, since a masked logit is NEG_INF whatever
+    H·E gives (every position when ``kept`` is None, as on meta tensors,
+    whose mask has no values); every input read and every output written
+    once."""
+    kept = B * S if kept is None else kept
+    flops = 2 * kept * V * D
+    nbytes = (B * S * D + V * D) * itemsize + V * 4 + B * S * 4 + B * V * 8
+    return flops, nbytes
+
+
+def _cost(H: torch.Tensor, E: torch.Tensor):
+    """``forward_cost`` of the inputs and the peak its products run at."""
+    B, S, D = H.shape
+    kind = "bf16" if H.element_size() == 2 else "f32"
+    return forward_cost(B, S, D, E.shape[0], H.element_size()) + (kind,)
+
+
 def _plan(H: torch.Tensor, E: torch.Tensor) -> str:
     """The kernel path for H and E: ``"tma"`` for bf16 with ``D % 8 ==
     0`` and both bases 16-byte aligned, ``"wmma"`` for the other bf16
@@ -101,9 +126,9 @@ def _plan(H: torch.Tensor, E: torch.Tensor) -> str:
 
 
 def _check(H, E, b, mask, softcap, force=None):
-    """The kernel's argument checks; the device comes last, so that the
-    shape checks run on meta tensors too. ``force`` is ``_launch``'s
-    ``_path``: only ``"wmma"``, and only for bf16 inputs."""
+    """The kernel's argument checks, on CUDA and meta tensors alike (the
+    device comes last). ``force`` is ``_launch``'s ``_path``: only
+    ``"wmma"``, and only for bf16 inputs."""
     if H.dim() != 3 or E.dim() != 2 or H.shape[2] != E.shape[1]:
         raise ValueError(f"sparton_forward: H {tuple(H.shape)} and E "
                          f"{tuple(E.shape)} are not (B, S, D) and (V, D)")
@@ -128,10 +153,10 @@ def _check(H, E, b, mask, softcap, force=None):
     if force is not None and (force != "wmma" or H.dtype != torch.bfloat16):
         raise ValueError(f"sparton_forward: only bf16 inputs may be sent "
                          f"to 'wmma', not {H.dtype} ones to {force!r}")
-    if not (H.is_cuda and E.device == H.device and b.device == H.device
-            and mask.device == H.device):
+    if not (H.device.type in ("cuda", "meta") and E.device == H.device
+            and b.device == H.device and mask.device == H.device):
         raise ValueError("sparton_forward: H, E, b and mask must lie on one "
-                         "CUDA device")
+                         "CUDA device (or all on meta)")
 
 
 def _launch(H, E, b, mask, softcap, *, _path=None):
@@ -147,6 +172,9 @@ def _launch(H, E, b, mask, softcap, *, _path=None):
     mask = mask.to(torch.int32).contiguous()
     y = torch.empty((B, V), dtype=torch.float32, device=H.device)
     i_max = torch.empty((B, V), dtype=torch.int32, device=H.device)
+    if H.is_meta:
+        cost_analysis.count_kernel("sparton_fwd", *_cost(H, E))
+        return y, i_max
     fn = _build.function("sparton_fwd", "sparton_fwd", _ARGTYPES)
     with torch.cuda.device(H.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -175,10 +203,12 @@ def sparton_forward(
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     on the path ``_plan`` gives, which takes H and E both f32 or both
-    bf16 and contiguous.
+    bf16 and contiguous; meta tensors get the kernel's empty outputs and
+    launch nothing.
     """
     if H.device.type == "cpu":
-        return sparton_forward_plain(H, E, b, mask, softcap)
+        with cost_analysis.plain_version("sparton_fwd", *_cost(H, E)):
+            return sparton_forward_plain(H, E, b, mask, softcap)
     return _launch(H, E, b, mask, softcap)
 
 

@@ -35,7 +35,12 @@ plain version (Alg. 3 of the paper as ``repro/core/lm_head.py`` writes
 it: per batch chunk, ``index_add_`` for dH and a gather of
 ``H[b, i_max]`` for dE), CUDA tensors to the kernel or a raise, with no
 fallback. ``sparton_backward_dh.launches`` and
-``sparton_backward_de.launches`` count kernel launches.
+``sparton_backward_de.launches`` count kernel launches. ``meta`` tensors
+(the dry run's abstract pass, ``launch/dryrun.py``) get empty outputs of
+the kernels' shapes and K2's routing scratch, allocated as the CUDA
+wrappers allocate them, with no launch. ``dh_cost`` and ``de_cost`` give
+the kernels' work from the shapes; the meta branches and the plain
+versions report it to a running ``launch.cost_analysis.StepCounter``.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import bwd_factor
+from repro_torch.launch import cost_analysis
 
 _DH_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -115,9 +121,39 @@ def sparton_backward_de_plain(
     return dE, g.sum(dim=0)
 
 
+def _bytes_read(B: int, V: int, D: int, itemsize: int, rows: int) -> int:
+    return B * V * 12 + rows * D * itemsize
+
+
+def dh_cost(B: int, S: int, D: int, V: int, itemsize: int,
+            nnz: Optional[int] = None,
+            rows: Optional[int] = None) -> Tuple[int, int]:
+    """K2's work ``(flops, bytes)``: one FMA (2 f32 FLOP) per term with
+    ``g != 0`` (``nnz``, default every one of the B·V: random init, or
+    meta tensors without values) and column; ``dy``, ``y`` and ``i_max``
+    read once, the ``rows`` of E that such a term reads (default all V)
+    once each, dH written once. Terms with ``g == 0`` are skipped by the
+    kernel, so they are not counted."""
+    nnz = B * V if nnz is None else nnz
+    rows = V if rows is None else rows
+    return 2 * nnz * D, _bytes_read(B, V, D, itemsize, rows) + B * S * D * 4
+
+
+def de_cost(B: int, S: int, D: int, V: int, itemsize: int,
+            nnz: Optional[int] = None,
+            rows: Optional[int] = None) -> Tuple[int, int]:
+    """K3's work ``(flops, bytes)``, as ``dh_cost``'s but for the distinct
+    ``(b, i_max)`` rows of H that its terms read (default ``B · min(S,
+    V)``) and dE and db written once."""
+    nnz = B * V if nnz is None else nnz
+    rows = B * min(S, V) if rows is None else rows
+    return (2 * nnz * D,
+            _bytes_read(B, V, D, itemsize, rows) + V * D * 4 + V * 4)
+
+
 def _check(what, dy, y, i_max, X, S):
-    """The kernels' argument checks; the device comes last, so that the
-    shape checks run on meta tensors too."""
+    """The kernels' argument checks, on CUDA and meta tensors alike (the
+    device comes last)."""
     if dy.dim() != 2 or y.shape != dy.shape or i_max.shape != dy.shape:
         raise ValueError(f"{what}: dy {tuple(dy.shape)}, y "
                          f"{tuple(y.shape)} and i_max {tuple(i_max.shape)} "
@@ -137,10 +173,10 @@ def _check(what, dy, y, i_max, X, S):
     if min(B, V, S, X.shape[-1]) < 1:
         raise ValueError(f"{what}: shape (B={B}, S={S}, D={X.shape[-1]}, "
                          f"V={V}) outside the kernel's range (all >= 1)")
-    if not (dy.is_cuda and y.device == dy.device
+    if not (dy.device.type in ("cuda", "meta") and y.device == dy.device
             and i_max.device == dy.device and X.device == dy.device):
         raise ValueError(f"{what}: dy, y, i_max and the weights must lie "
-                         "on one CUDA device")
+                         "on one CUDA device (or all on meta)")
 
 
 def dh_scratch(B: int, S: int, V: int, device) -> Tuple[torch.Tensor, ...]:
@@ -172,6 +208,11 @@ def _launch_dh(dy, y, i_max, E, seq_len, softcap):
     D = E.shape[1]
     dH = torch.empty((B, seq_len, D), dtype=torch.float32, device=dy.device)
     ofs, lists, gs, heavy = dh_scratch(B, seq_len, V, dy.device)
+    if dy.is_meta:
+        cost_analysis.count_kernel(
+            "sparton_bwd_dh", *dh_cost(B, seq_len, D, V, E.element_size()),
+            "f32")
+        return dH
     # 16-byte loads of 8-column pieces need D % 8 == 0 and an aligned base
     vec = int(D % 8 == 0 and E.data_ptr() % 16 == 0)
     fn = _build.function("sparton_bwd", "sparton_bwd_dh", _DH_ARGTYPES)
@@ -199,6 +240,10 @@ def _launch_de(dy, y, i_max, H, softcap):
     S, D = H.shape[1], H.shape[2]
     dE = torch.empty((V, D), dtype=torch.float32, device=dy.device)
     db = torch.empty((V,), dtype=torch.float32, device=dy.device)
+    if dy.is_meta:
+        cost_analysis.count_kernel(
+            "sparton_bwd_de", *de_cost(B, S, D, V, H.element_size()), "f32")
+        return dE, db
     # 16-byte loads of 8-column pieces need D % 8 == 0 and an aligned base
     vec = int(D % 8 == 0 and H.data_ptr() % 16 == 0)
     fn = _build.function("sparton_bwd", "sparton_bwd_de", _DE_ARGTYPES)
@@ -223,9 +268,15 @@ def sparton_backward_dh(
 ) -> torch.Tensor:
     """K2: ``dH (B, S, D)`` f32. CPU tensors take the plain version; CUDA
     tensors launch the kernel, which takes dy and y f32, i_max i32 and E
-    f32 or bf16, all contiguous."""
+    f32 or bf16, all contiguous; meta tensors launch nothing."""
     if dy.device.type == "cpu":
-        return sparton_backward_dh_plain(dy, y, i_max, E, seq_len, softcap)
+        B, V = dy.shape
+        with cost_analysis.plain_version(
+                "sparton_bwd_dh",
+                *dh_cost(B, seq_len, E.shape[-1], V, E.element_size()),
+                "f32"):
+            return sparton_backward_dh_plain(dy, y, i_max, E, seq_len,
+                                             softcap)
     return _launch_dh(dy, y, i_max, E, seq_len, softcap)
 
 
@@ -239,9 +290,14 @@ def sparton_backward_de(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: ``(dE (V, D), db (V,))`` f32. CPU tensors take the plain
     version; CUDA tensors launch the kernel, which takes dy and y f32,
-    i_max i32 and H f32 or bf16, all contiguous."""
+    i_max i32 and H f32 or bf16, all contiguous; meta tensors launch
+    nothing."""
     if dy.device.type == "cpu":
-        return sparton_backward_de_plain(dy, y, i_max, H, softcap)
+        B, S, D = H.shape
+        with cost_analysis.plain_version(
+                "sparton_bwd_de",
+                *de_cost(B, S, D, dy.shape[1], H.element_size()), "f32"):
+            return sparton_backward_de_plain(dy, y, i_max, H, softcap)
     return _launch_de(dy, y, i_max, H, softcap)
 
 

@@ -36,16 +36,21 @@ matrix is never built.
 when the batch holds them, else over the nodes weighted by
 ``node_mask``.
 
+``build_step(arch_id, cell)`` builds the step of a dry-run cell
+(``configs.specs.CellSpec``) on the config ``arch_config_for_cell``
+gives.
+
 Still to come: every ``mesh`` (the vocab-sharded step, the
 expert-parallel MoE, the row-sharded retrieval, ``streaming_topk``'s
 ``vary_axes`` and DimeNet's ``shard_axes``: multi-GPU, ROADMAP Queue 1
-item 10), and ``build_step`` with ``arch_config_for_cell``, which come
-with the dry run.
+item 10).
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple
+
+import dataclasses
 
 import torch
 
@@ -311,29 +316,77 @@ def build_retrieval_step(cfg: RecSysConfig, mesh: Any = None, *,
     return serve
 
 
-def new_state(cfg: Any, generator: torch.Generator) -> State:
-    """A fresh train state for ``cfg``, random params on the generator's
-    device, step 0: a ``TransformerConfig``'s (``models.transformer``) or
-    a ``DimeNetConfig``'s (``models.dimenet``) with zero AdamW moments, a
-    ``RecSysConfig``'s (``models.recsys``) with Adagrad's accumulators at
-    0.1, as the reference's ``init_state`` lays them out."""
-    if isinstance(cfg, RecSysConfig):
-        params = recsys_model.init_params(generator, cfg)
-        opt = adagrad(1e-2)
-    elif isinstance(cfg, DimeNetConfig):
-        params = dimenet_model.init_params(generator, cfg)
-        opt = adamw(1e-4)
-    else:
-        params = tfm.init_params(generator, cfg)
-        opt = adamw(1e-4)
+def new_state(cfg: Any, generator: torch.Generator, *,
+              device=None) -> State:
+    """A fresh train state for ``cfg``, random params on ``device``
+    (default the generator's), step 0: a ``TransformerConfig``'s
+    (``models.transformer``) or a ``DimeNetConfig``'s (``models.dimenet``)
+    with zero AdamW moments, a ``RecSysConfig``'s (``models.recsys``) with
+    Adagrad's accumulators at 0.1, as the reference's ``init_state`` lays
+    them out. ``device="meta"`` with a CPU generator gives the state's
+    shapes alone, allocating nothing (there is no meta generator)."""
+    params = init_params(cfg, generator, device=device)
+    opt = adagrad(1e-2) if isinstance(cfg, RecSysConfig) else adamw(1e-4)
     return {"params": params, "opt": opt.init(params), "step": 0}
 
 
+def init_params(cfg: Any, generator: torch.Generator, *,
+                device=None) -> Any:
+    """Random params of ``cfg``'s model (``models.recsys``,
+    ``models.dimenet`` or ``models.transformer``) on ``device`` (default
+    the generator's): what a serve step takes."""
+    if isinstance(cfg, RecSysConfig):
+        return recsys_model.init_params(generator, cfg, device)
+    if isinstance(cfg, DimeNetConfig):
+        return dimenet_model.init_params(generator, cfg, device)
+    return tfm.init_params(generator, cfg, device)
+
+
 def init_state(arch_id: str, generator: torch.Generator, *,
-               smoke: bool = False) -> State:
+               smoke: bool = False, device=None) -> State:
     """``new_state`` of the arch's CONFIG (SMOKE with ``smoke``)."""
     mod = get_config(arch_id)
-    return new_state(mod.SMOKE if smoke else mod.CONFIG, generator)
+    return new_state(mod.SMOKE if smoke else mod.CONFIG, generator,
+                     device=device)
+
+
+def arch_config_for_cell(arch_id: str, cell: Any) -> Any:
+    """The arch's CONFIG adapted to a cell: DimeNet's input width is a
+    property of the shape (atom types, or node-feature vectors)."""
+    cfg = get_config(arch_id).CONFIG
+    if isinstance(cfg, DimeNetConfig) and cfg.d_feat != cell.d_feat:
+        cfg = dataclasses.replace(cfg, d_feat=cell.d_feat)
+    return cfg
+
+
+def build_step(arch_id: str, cell: Any, mesh: Any = None) -> Callable:
+    """The step a dry-run cell runs, on ``arch_config_for_cell``'s config:
+    a train step ``(state, batch) -> (state, {"loss"})`` for the three
+    ``*_train`` kinds, else a serve function ``(params, batch)``. A mesh
+    raises (multi-GPU)."""
+    return build_cell_step(arch_config_for_cell(arch_id, cell), cell, mesh)
+
+
+def build_cell_step(cfg: Any, cell: Any, mesh: Any = None) -> Callable:
+    """``build_step`` on a given config (a SMOKE one, say)."""
+    _no_mesh(mesh, "build_step", "the production meshes")
+    kind = cell.step_kind
+    if kind == "lsr_train":
+        return build_lsr_train_step(cfg, n_micro=cell.n_micro)
+    if kind == "lsr_prefill":
+        return build_lsr_prefill_step(cfg, mesh,
+                                      cell.batch["tokens"].shape[0])
+    if kind == "decode":
+        return build_decode_step(cfg, mesh)
+    if kind == "gnn_train":
+        return build_gnn_train_step(cfg, n_graphs=cell.n_graphs)
+    if kind == "recsys_train":
+        return build_recsys_train_step(cfg)
+    if kind == "recsys_serve":
+        return build_recsys_serve_step(cfg)
+    if kind == "retrieval":
+        return build_retrieval_step(cfg, mesh)
+    raise ValueError(f"unknown step kind {kind}")
 
 
 def streaming_topk(q: torch.Tensor, C: torch.Tensor, *, k: int,

@@ -135,25 +135,32 @@ def spherical_basis(d: torch.Tensor, angle: torch.Tensor,
 
 def _normal(g: torch.Generator, shape: Sequence[int], scale: float,
             dtype: torch.dtype) -> torch.Tensor:
-    return torch.randn(tuple(shape), generator=g, device=g.device,
-                       dtype=dtype).mul_(scale)
+    return torch.randn(tuple(shape), generator=g, dtype=dtype).mul_(scale)
 
 
 def _dense(g: torch.Generator, din: int, dout: int,
            dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     return {"w": _normal(g, (din, dout), din ** -0.5, dtype),
-            "b": torch.zeros((dout,), dtype=dtype, device=g.device)}
+            "b": torch.zeros((dout,), dtype=dtype)}
 
 
 def _apply(layer: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     return x @ layer["w"] + layer["b"]
 
 
-def init_params(g: torch.Generator, cfg: DimeNetConfig) -> Params:
-    """Random params on the generator's device, the reference's tree:
-    ``embed_nodes`` (an ``(n_atom_types, d)`` table when ``d_feat == 0``,
-    else a ``{"w", "b"}`` layer), ``embed_rbf``, ``embed_msg``,
-    ``out_final`` and ``blocks``, a list of ``n_blocks`` dicts."""
+def init_params(g: torch.Generator, cfg: DimeNetConfig,
+                device=None) -> Params:
+    """Random params on ``device`` (default the generator's), the
+    reference's tree: ``embed_nodes`` (an ``(n_atom_types, d)`` table when
+    ``d_feat == 0``, else a ``{"w", "b"}`` layer), ``embed_rbf``,
+    ``embed_msg``, ``out_final`` and ``blocks``, a list of ``n_blocks``
+    dicts. ``device="meta"`` with a CPU generator gives the shapes alone
+    (the dry run's state)."""
+    with torch.device(g.device if device is None else device):
+        return _init_params(g, cfg)
+
+
+def _init_params(g: torch.Generator, cfg: DimeNetConfig) -> Params:
     dtype = dtype_of(cfg.param_dtype)
     d = cfg.d_hidden
     n_sbf = cfg.n_spherical * cfg.n_radial

@@ -113,12 +113,12 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
 
 def init_moe_params(generator: torch.Generator, n_layers: int, d_model: int,
                     d_ff: int, n_experts: int,
-                    dtype: torch.dtype = torch.float32
+                    dtype: torch.dtype = torch.float32, device=None
                     ) -> Dict[str, torch.Tensor]:
-    """Random stacked expert weights on the generator's device, in the
-    JAX package's layout and scales: ``router`` (L, D, E), ``w_gate`` and
-    ``w_up`` (L, E, D, F), ``w_down`` (L, E, F, D)."""
-    dev = generator.device
+    """Random stacked expert weights on ``device`` (default the
+    generator's), in the JAX package's layout and scales: ``router`` (L,
+    D, E), ``w_gate`` and ``w_up`` (L, E, D, F), ``w_down`` (L, E, F, D)."""
+    dev = generator.device if device is None else device
 
     def normal(shape, scale):
         return torch.randn(shape, generator=generator, device=dev,

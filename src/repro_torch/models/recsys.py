@@ -22,8 +22,9 @@ JAX's gradient of ``take`` is, so an optimizer step touches every row.
 The ``retrieval_cand`` shape does not run these stacks per candidate:
 ``user_embedding`` gives one query vector per row and
 ``launch.steps.build_retrieval_step`` streams the candidates through a
-top-k. Init draws from an explicit ``torch.Generator`` on its device; the
-numbers differ from ``jax.random``'s (tests carry weights across with
+top-k. Init draws from an explicit ``torch.Generator``, on its device
+unless ``init_params`` is given another; the numbers differ from
+``jax.random``'s (tests carry weights across with
 ``weights.state_from_jax``).
 """
 
@@ -56,14 +57,13 @@ def padded_rows(rows: int) -> int:
 
 def _normal(g: torch.Generator, shape: Sequence[int], scale: float,
             dtype: torch.dtype) -> torch.Tensor:
-    return torch.randn(tuple(shape), generator=g, device=g.device,
-                       dtype=dtype).mul_(scale)
+    return torch.randn(tuple(shape), generator=g, dtype=dtype).mul_(scale)
 
 
 def _mlp_init(g: torch.Generator, dims: Sequence[int],
               dtype: torch.dtype) -> List[Dict[str, torch.Tensor]]:
     return [{"w": _normal(g, (dims[i], dims[i + 1]), dims[i] ** -0.5, dtype),
-             "b": torch.zeros((dims[i + 1],), dtype=dtype, device=g.device)}
+             "b": torch.zeros((dims[i + 1],), dtype=dtype)}
             for i in range(len(dims) - 1)]
 
 
@@ -178,7 +178,7 @@ def _gru_init(g: torch.Generator, d_in: int, d_h: int,
               dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     return {"w": _normal(g, (d_in, 3 * d_h), d_in ** -0.5, dtype),
             "u": _normal(g, (d_h, 3 * d_h), d_h ** -0.5, dtype),
-            "b": torch.zeros((3 * d_h,), dtype=dtype, device=g.device)}
+            "b": torch.zeros((3 * d_h,), dtype=dtype)}
 
 
 def _gru_cell(p, x, h, update_gate_scale=None):
@@ -279,11 +279,15 @@ INIT_FNS = {
 }
 
 
-def init_params(generator: torch.Generator, cfg: RecSysConfig) -> Params:
-    """Random weights of ``cfg``'s family on the generator's device, in the
-    JAX package's layout (lists of tables, lists of ``{"w", "b"}``
-    layers)."""
-    return INIT_FNS[cfg.interaction](generator, cfg)
+def init_params(generator: torch.Generator, cfg: RecSysConfig,
+                device=None) -> Params:
+    """Random weights of ``cfg``'s family on ``device`` (default the
+    generator's), in the JAX package's layout (lists of tables, lists of
+    ``{"w", "b"}`` layers). ``device="meta"`` with a CPU generator gives
+    the shapes alone (the dry run's state). The family's builders create
+    their tensors on the default device this sets."""
+    with torch.device(generator.device if device is None else device):
+        return INIT_FNS[cfg.interaction](generator, cfg)
 
 
 def forward(params: Params, cfg: RecSysConfig, batch: Batch,

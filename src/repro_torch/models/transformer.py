@@ -52,13 +52,14 @@ def layer_window(cfg: TransformerConfig, i: int) -> Optional[int]:
 
 
 def init_params(generator: torch.Generator,
-                cfg: TransformerConfig) -> Params:
-    """Random weights (normal, scaled by fan-in) on the generator's
-    device, in the JAX package's layout. The numbers differ from
-    ``jax.random``'s: tests carry weights across with
+                cfg: TransformerConfig, device=None) -> Params:
+    """Random weights (normal, scaled by fan-in) on ``device`` (default the
+    generator's), in the JAX package's layout; ``device="meta"`` with a
+    CPU generator gives the shapes alone (the dry run's state). The
+    numbers differ from ``jax.random``'s: tests carry weights across with
     ``weights.params_from_jax`` instead."""
     dtype = dtype_of(cfg.param_dtype)
-    dev = generator.device
+    dev = generator.device if device is None else device
     L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
     H, KV, dh, Fd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff
 
@@ -74,7 +75,8 @@ def init_params(generator: torch.Generator,
             "wv": normal((L, D, KV * dh), sc_d),
             "wo": normal((L, H * dh, D), sc_a)}
     if cfg.is_moe:
-        mlp = init_moe_params(generator, L, D, Fd, cfg.n_experts, dtype)
+        mlp = init_moe_params(generator, L, D, Fd, cfg.n_experts, dtype,
+                              dev)
     else:
         mlp = {"w_gate": normal((L, D, Fd), sc_d),
                "w_up": normal((L, D, Fd), sc_d),

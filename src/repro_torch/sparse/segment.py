@@ -53,6 +53,8 @@ def _lowest(dtype: torch.dtype) -> float:
 
 
 CHUNK = 1024   # rows a run of a sorted sum's first level sums at most
+# the devices whose floating segment sums take the sorted sum (``segment_sum``)
+SORTED_SUM_DEVICES = ("cuda", "meta")
 
 
 class SegmentPlan(NamedTuple):
@@ -138,9 +140,11 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     with ``wrap`` a negative id first counts from the end, the rule of a
     ``jnp.take`` gather's backward; ``segment_ids`` of any shape, one id a
     row of ``data``), in one fixed order on either device: the sorted sum
-    for floating data on the card, ``index_add_``, a serial loop,
-    elsewhere."""
-    if data.is_cuda and data.dtype.is_floating_point:
+    for floating data on ``SORTED_SUM_DEVICES`` (the card, and meta
+    tensors, so that the dry run counts the card's path), ``index_add_``,
+    a serial loop, elsewhere."""
+    if (data.device.type in SORTED_SUM_DEVICES
+            and data.dtype.is_floating_point):
         return _SortedSegmentSum.apply(
             data, segment_plan(segment_ids, num_segments, wrap=wrap),
             num_segments)

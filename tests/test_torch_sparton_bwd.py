@@ -306,31 +306,39 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
 
 
 def test_non_cpu_non_cuda_tensors_raise_instead_of_falling_back():
+    """Tensors that are not all on one CUDA device (or all on meta, the
+    dry run's empty outputs) raise: a CPU weight beside meta cotangents
+    takes neither the kernel nor the plain version."""
     dy = torch.zeros((2, 16), device="meta")
     i_max = torch.zeros((2, 16), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
-        sparton_bwd.sparton_backward_dh(dy, dy, i_max,
-                                        torch.zeros((16, 8), device="meta"),
+        sparton_bwd.sparton_backward_dh(dy, dy, i_max, torch.zeros((16, 8)),
                                         4)
     with pytest.raises(ValueError, match="CUDA device"):
         sparton_bwd.sparton_backward_de(dy, dy, i_max,
-                                        torch.zeros((2, 4, 8), device="meta"))
+                                        torch.zeros((2, 4, 8)))
 
 
 @pytest.mark.parametrize("B,S", [(2, 2048), (65536, 4), (65536, 2048),
                                  (384, 256), (1, 70000)])
 def test_kernel_arguments_checked_without_a_card(B, S):
     """K2 and K3 take any S and any B: those shapes pass the wrappers'
-    checks and reach the device check, which meta tensors fail; an empty
-    one does not."""
+    checks and reach the device check, where meta tensors get the
+    kernels' empty outputs and launch nothing; an empty one does not
+    pass."""
     dy = torch.empty((B, 16), device="meta")
     i_max = torch.empty((B, 16), dtype=torch.int32, device="meta")
     E = torch.empty((16, 8), device="meta")
-    with pytest.raises(ValueError, match="CUDA device"):
-        sparton_bwd.sparton_backward_dh(dy, dy, i_max, E, S)
-    with pytest.raises(ValueError, match="CUDA device"):
-        sparton_bwd.sparton_backward_de(
-            dy, dy, i_max, torch.empty((B, S, 8), device="meta"))
+    before = (sparton_bwd.sparton_backward_dh.launches,
+              sparton_bwd.sparton_backward_de.launches)
+    dH = sparton_bwd.sparton_backward_dh(dy, dy, i_max, E, S)
+    assert dH.is_meta and tuple(dH.shape) == (B, S, 8)
+    dE, db = sparton_bwd.sparton_backward_de(
+        dy, dy, i_max, torch.empty((B, S, 8), device="meta"))
+    assert (tuple(dE.shape), tuple(db.shape)) == ((16, 8), (16,))
+    assert dE.dtype == db.dtype == dH.dtype == torch.float32
+    assert (sparton_bwd.sparton_backward_dh.launches,
+            sparton_bwd.sparton_backward_de.launches) == before
     with pytest.raises(ValueError, match="outside the kernel's range"):
         sparton_bwd.sparton_backward_dh(dy, dy, i_max, E, 0)
 

@@ -76,12 +76,26 @@ def test_path_counters_start_at_zero_and_cpu_launches_nothing():
 
 
 def test_argument_checks_run_before_the_device_check():
+    """Inputs that pass every check reach the device check: meta tensors
+    (the dry run) get the kernel's empty outputs and launch nothing; a
+    CPU tensor beside meta ones fails it."""
     H, E = _meta((4, 16, D)), _meta((V, D))
     b, mask = _meta((V,), torch.float32), _meta((4, 16), torch.int32)
+    before = (k1.sparton_forward.launches,
+              dict(k1.sparton_forward.path_launches))
+    for y, i_max in (k1.sparton_forward(H, E, b, mask),
+                     k1._launch(H, E, b, mask, None, _path="wmma")):
+        assert y.is_meta and tuple(y.shape) == (4, V)
+        assert (y.dtype, i_max.dtype) == (torch.float32, torch.int32)
+        assert tuple(i_max.shape) == (4, V)
+    assert (k1.sparton_forward.launches,
+            dict(k1.sparton_forward.path_launches)) == before
     with pytest.raises(ValueError, match="one CUDA device"):
-        k1.sparton_forward(H, E, b, mask)
+        k1.sparton_forward(H, torch.empty((V, D), dtype=torch.bfloat16),
+                           b, mask)
     with pytest.raises(ValueError, match="one CUDA device"):
-        k1._launch(H, E, b, mask, None, _path="wmma")
+        k1._launch(H, E, b, torch.ones((4, 16), dtype=torch.int32), None,
+                   _path="wmma")
     with pytest.raises(ValueError, match="are not"):
         k1.sparton_forward(_meta((4, 16, D + 8)), E, b, mask)
     with pytest.raises(ValueError, match="do not match"):

@@ -184,13 +184,18 @@ def test_requires_grad_raises_naming_the_training_slice(impl):
 @pytest.mark.parametrize("B", [3, 65535, 65536, 140000])
 def test_kernel_arguments_checked_without_a_card(B):
     """K1 takes any batch (launched in chunks of 65535 rows): it passes the
-    wrapper's checks and reaches the device check, which meta tensors
-    fail; an empty one does not."""
+    wrapper's checks and reaches the device check, where meta tensors
+    get the kernel's empty outputs and launch nothing (a CPU bias beside
+    them fails it); an empty one does not pass."""
     H = torch.empty((B, 4, 8), dtype=torch.bfloat16, device="meta")
     E = torch.empty((16, 8), dtype=torch.bfloat16, device="meta")
     b = torch.empty((16,), device="meta")
     mask = torch.empty((B, 4), dtype=torch.int32, device="meta")
+    launches = sparton_forward.launches
+    y, i_max = sparton_forward(H, E, b, mask)
+    assert tuple(y.shape) == tuple(i_max.shape) == (B, 16)
+    assert sparton_forward.launches == launches
     with pytest.raises(ValueError, match="one CUDA device"):
-        sparton_forward(H, E, b, mask)
+        sparton_forward(H, E, torch.empty((16,)), mask)
     with pytest.raises(ValueError, match="outside the kernel's range"):
         sparton_forward(H[:, :0], E, b, mask[:, :0])

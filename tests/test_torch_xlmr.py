@@ -219,20 +219,30 @@ def _meta(shape, dtype=torch.float32):
 @pytest.mark.parametrize("B,S", [(420, 256), (16, 256), (8, 128)])
 def test_head_kernels_take_xlmr_shapes_without_a_card(B, S):
     """K1, K2 and K3 at D 768 and V 250002 pass every argument check and
-    reach the device check (meta tensors); K1 plans the "tma" path."""
+    reach the device check, where meta tensors get the kernels' empty
+    outputs and launch nothing (a CPU bias beside them raises); K1 plans
+    the "tma" path."""
     D = 768
     H = _meta((B, S, D), torch.bfloat16)
     E = _meta((FULL_V, D), torch.bfloat16)
     mask = _meta((B, S), torch.int32)
     assert sparton._plan(H, E) == "tma"
+    launches = (sparton.sparton_forward.launches,
+                sparton_bwd.sparton_backward_dh.launches,
+                sparton_bwd.sparton_backward_de.launches)
+    y, i_max = sparton.sparton_forward(H, E, _meta((FULL_V,)), mask)
+    assert tuple(y.shape) == tuple(i_max.shape) == (B, FULL_V)
     with pytest.raises(ValueError, match="one CUDA device"):
-        sparton.sparton_forward(H, E, _meta((FULL_V,)), mask)
+        sparton.sparton_forward(H, E, torch.zeros(FULL_V), mask)
     dy = _meta((B, FULL_V))
     i_max = _meta((B, FULL_V), torch.int32)
-    with pytest.raises(ValueError, match="CUDA device"):
-        sparton_bwd.sparton_backward_dh(dy, dy, i_max, E, S)
-    with pytest.raises(ValueError, match="CUDA device"):
-        sparton_bwd.sparton_backward_de(dy, dy, i_max, H)
+    dH = sparton_bwd.sparton_backward_dh(dy, dy, i_max, E, S)
+    dE, db = sparton_bwd.sparton_backward_de(dy, dy, i_max, H)
+    assert tuple(dH.shape) == (B, S, D)
+    assert (tuple(dE.shape), tuple(db.shape)) == ((FULL_V, D), (FULL_V,))
+    assert (sparton.sparton_forward.launches,
+            sparton_bwd.sparton_backward_dh.launches,
+            sparton_bwd.sparton_backward_de.launches) == launches
 
 
 def test_dh_scratch_at_train_420_has_no_overflow():
