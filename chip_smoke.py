@@ -7,7 +7,8 @@
     python3 chip_smoke.py --only recsys
                                      # device, build and the recsys
                                      # phase alone (``only_phases``;
-                                     # also dimenet, or both)
+                                     # also dimenet, dryrun, sharded,
+                                     # or several)
 
 Phases, run in this order, each printing one JSON line:
 
@@ -340,9 +341,39 @@ Phases, run in this order, each printing one JSON line:
              the outputs finite. ``python3 chip_smoke.py --only dryrun``
              runs the device and build phases and this one alone.
 
+17. sharded — the vocab-sharded head and LSR training on two gloo ranks
+             sharing the card (``launch.mesh.spawn_world``; a
+             ``FileStore`` in a ``tempfile`` directory), splade_xlmr's
+             CONFIG at full width, bf16, seeded weights the same on both
+             ranks; the parent computes the references with the port's
+             unsharded steps on the same card: (a) mesh (data 1, model
+             2): ``build_lsr_prefill_step`` at 64 x 16, the two Y blocks
+             gathered within K1_TOL of the unsharded prefill's (whether
+             the bits are equal printed), K1 once a rank on "tma" at
+             V_local 125001; then one warm-up and 2 timed train_16 steps
+             of ``build_lsr_train_step`` (remat on); (b) mesh (data 2,
+             model 1): the same steps, the batch split over ``data``;
+             gates at each: step 1's loss within SHARDED_LOSS_RTOL of the
+             unsharded step's, its first moments per leaf within
+             GRAD_RATIO x the larger of the xlmr gradient check's bf16
+             controls and a control at this shape (the unsharded step with
+             the vocabulary permuted: every f32 sum over V in another
+             order, as the model mesh orders them), every parameter the same
+             bits on both ranks after each step (the moments after the
+             last), K1-K3 2 x n_micro a step on "tma", no plain version
+             on the card; (c) ``compressed_allreduce`` over ``data`` on
+             each rank's gradient share, twice (the residual carried),
+             within the int8 bound; each rank's step ms (CUDA events),
+             collectives' ms and peak memory; then K1-K3 timed at
+             train_16 on rank 1's vocab rows and on the whole
+             vocabulary. Two ranks on one card over gloo measure no
+             multi-card scaling. ``python3 chip_smoke.py --only
+             sharded`` runs the device and build phases, the xlmr
+             gradient check and this phase.
+
 Every K1 launch of the serve, dense-serve, engine, pruned, frontier, train,
 eval (b), xlmr (its serving phases too), ckpt, example_serve, decoder,
-moe, train_decoder and dryrun phases must take the "tma" path. Then a
+moe, train_decoder, dryrun and sharded phases must take the "tma" path. Then a
 ``timeline`` line (each phase's seconds, against the 1200 s the script
 is given), a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": ...}``.
@@ -4302,6 +4333,7 @@ def phase_xlmr(torch):
     torch.cuda.empty_cache()
     return {"timing": timing, "serve_launches": serve_launches,
             "train_launches": trained["launches"], "serving": serving,
+            "grad_check": checked,
             "k1_paths": {"serve": serve_paths,
                          **{f"serve_{path}": serving[path]["k1_paths"]
                             for path in ("engine", "pruned", "dense")},
@@ -6860,8 +6892,415 @@ def phase_dryrun(torch, pending=None):
                          if m["kind"].startswith("lsr_")}}
 
 
+# --------------------------------------------------------------------------
+# 17. the vocab-sharded head and LSR training over a (data, model) mesh
+# --------------------------------------------------------------------------
+
+SHARDED_RANKS = 2
+# (data, model) meshes of the two ranks: (a) the vocabulary split in two
+# (V_local 125001), (b) the batch split in two
+SHARDED_MESHES = {"model": (1, 2), "data": (2, 1)}
+SHARDED_PREFILL = (64, 16)    # the serve phase's index batch
+SHARDED_STEPS = 2             # timed train_16 steps after one warm-up
+SHARDED_LR = 2e-4
+SHARDED_LOSS_RTOL = 1e-4
+SHARDED_TIMEOUT_S = 600       # a rank that hangs is killed after this
+SHARDED_NOTE = ("two gloo ranks share one card: each collective is staged "
+                "through the host, and the ranks' kernels take turns on "
+                "the card; these numbers measure no multi-card scaling")
+
+
+def bits_over_ranks(torch, mesh, tree):
+    """Whether every leaf of ``tree`` is the same bits on every rank of
+    ``mesh``: each compared with rank 0's, broadcast."""
+    from repro_torch.collectives import broadcast
+    from repro_torch.tree import tree_leaves
+
+    ints = {4: torch.int32, 2: torch.int16, 1: torch.int8}
+    same = True
+    for leaf in tree_leaves(tree):
+        first = broadcast(leaf, mesh.axis_names, mesh)
+        same &= torch.equal(leaf.contiguous().view(ints[leaf.element_size()]),
+                            first.view(ints[leaf.element_size()]))
+    return bool(same)
+
+
+def checksum(torch, tree):
+    """Two int64 sums per leaf of its 32-bit words (one position-weighted):
+    tells the seeded states of two processes apart."""
+    from repro_torch.tree import tree_leaves
+
+    sums = []
+    for leaf in tree_leaves(tree):
+        w = leaf.contiguous().view(torch.int32).view(-1).long()
+        pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
+        sums += [int(w.sum()), int((w * pos).sum())]
+    return sums
+
+
+def sharded_prefill(torch, cfg, mesh, params, root, rank):
+    """(a) ``build_lsr_prefill_step`` with the mesh at SHARDED_PREFILL: K1
+    once, on "tma", at V_local; this rank's Y block saved for the
+    parent."""
+    from repro_torch.kernels import sparton as k1
+    from repro_torch.launch.steps import build_lsr_prefill_step
+
+    B, S = SHARDED_PREFILL
+    batch = train_batches(torch, B, S, 1, cfg.vocab_size)[0]
+    serve = build_lsr_prefill_step(cfg, mesh, B)
+    torch.cuda.synchronize()
+    reset_launches()
+    y = serve(params, {"tokens": batch["q_tokens"], "mask": batch["q_mask"]})
+    torch.cuda.synchronize()
+    launches = read_launches()
+    paths = dict(k1.sparton_forward.path_launches)
+    require(launches["sparton_fwd"] == 1 and paths["tma"] == 1,
+            f"sharded prefill, rank {rank}: K1 launches {launches}, paths "
+            f"{paths}; expected 1 on 'tma'")
+    torch.save(y.cpu(), Path(root) / f"prefill_y_{rank}.pt")
+    return {"launches": launches, "k1_paths": paths,
+            "y_block": list(y.shape)}
+
+
+def sharded_train(torch, cfg, mesh, state, batches, root, rank, name):
+    """(a)/(b) one warm-up and SHARDED_STEPS timed steps of
+    ``build_lsr_train_step`` with the mesh: each step's loss, CUDA-event
+    ms, collectives (``collectives.TALLY``, the card synchronised around
+    each in the timed steps), peak memory and K1-K3 launches (2 x n_micro
+    each, K1 on "tma"); every parameter the same bits on both ranks after
+    each step, the moments after the last; rank 0 saves the first
+    moments after step 1 for the parent."""
+    from repro_torch import collectives
+    from repro_torch.kernels import sparton as k1
+    from repro_torch.launch.steps import build_lsr_train_step
+    from repro_torch.tree import tree_items
+
+    n_micro, pairs = 1, batches[0]["q_tokens"].shape[0]
+    step = build_lsr_train_step(cfg, mesh, n_micro=n_micro, n_pairs=pairs,
+                                lr=SHARDED_LR)
+    rows = []
+    for i, batch in enumerate(batches):
+        collectives.TALLY.reset(synchronize=i > 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch)
+        end.record()
+        end.synchronize()
+        launches = read_launches()
+        paths = dict(k1.sparton_forward.path_launches)
+        tally = collectives.TALLY.summary()
+        want = 2 * n_micro
+        require(all(launches[k] == want for k in
+                    ("sparton_fwd", "sparton_bwd_dh", "sparton_bwd_de"))
+                and paths["tma"] == want,
+                f"sharded train {name}, rank {rank}, step {i + 1}: launches "
+                f"{launches}, K1 paths {paths}; expected {want} each on "
+                f"'tma'")
+        loss = float(metrics["loss"])
+        require(np.isfinite(loss), f"sharded train {name}: loss {loss}")
+        same = bits_over_ranks(torch, mesh, state["params"])
+        require(same, f"sharded train {name}, step {i + 1}: the ranks' "
+                      f"parameters differ")
+        if i == 0 and rank == 0:
+            torch.save({k: v.cpu() for k, v in
+                        tree_items(state["opt"]["mu"]).items()},
+                       Path(root) / f"mu_{name}.pt")
+        rows.append({"step": i + 1, "timed": i > 0, "loss": loss,
+                     "ms": start.elapsed_time(end),
+                     "collectives_ms": {k: v["ms"]
+                                        for k, v in tally.items()},
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "params_same_bits": same})
+    moments = bits_over_ranks(torch, mesh, state["opt"])
+    require(moments, f"sharded train {name}: the ranks' moments differ")
+    return {"n_micro": n_micro, "pairs": pairs, "steps": rows,
+            "launches": launches, "k1_paths": paths, "collectives": tally,
+            "moments_same_bits": moments}
+
+
+def sharded_compressed(torch, cfg, mesh, params, batches):
+    """(c) ``compressed_allreduce`` over ``data`` on each rank's share of
+    a step's gradients (``sharded_lsr_loss`` on the data-split batch), two
+    calls with the residual carried: within the int8 bound of the plain
+    mean of ``gradient + residual``, the same bits on both ranks."""
+    from repro_torch import collectives
+    from repro_torch.launch.steps import sharded_lsr_loss, value_and_grad
+    from repro_torch.optim.compression import _flatten, compressed_allreduce
+
+    pairs = batches[0]["q_tokens"].shape[0]
+    grad_fn = value_and_grad(sharded_lsr_loss(cfg, mesh, pairs))
+    n = mesh.shape["data"]
+    residual, calls = None, []
+    for batch in batches[:2]:
+        _, grads = grad_fn(params, batch)
+        flat, _ = _flatten(grads)
+        size = flat.numel()
+        corrected = torch.nn.functional.pad(flat, (0, (-size) % n))
+        if residual is not None:
+            corrected += residual
+        plain = collectives.pmean(corrected, "data", mesh)[:size]
+        bound = float(collectives.pmean(corrected.abs().max(), "data",
+                                        mesh)) / 127
+        del flat, corrected
+        collectives.TALLY.reset(synchronize=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, residual = compressed_allreduce(grads, residual, "data", mesh)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        got, _ = _flatten(mean)
+        err = float((got - plain).abs().max())
+        same = bits_over_ranks(torch, mesh, mean)
+        require(err <= bound * (1 + 1e-5) and same,
+                f"compressed_allreduce: max error {err} against the int8 "
+                f"bound {bound}, same bits on both ranks {same}")
+        calls.append({"elements": size, "max_abs_err": err,
+                      "int8_bound": bound, "ms": ms,
+                      "collectives": collectives.TALLY.summary(),
+                      "same_bits": same})
+        del grads, mean, got, plain
+        torch.cuda.empty_cache()
+    return calls
+
+
+def sharded_rank(rank, root):
+    """One rank of the sharded phase (a gloo world of SHARDED_RANKS on the
+    one card): splade_xlmr's seeded state on each mesh of SHARDED_MESHES,
+    (a) the prefill and train steps on (1, 2), (b) the train steps and (c)
+    ``compressed_allreduce`` on (2, 1); no plain version of K1-K3 on the
+    card."""
+    import torch
+
+    from repro_torch.configs.splade_xlmr import CONFIG, SHAPES
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import init_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shape = SHAPES["train_16"]
+    batches = train_batches(torch, shape.global_batch, shape.seq_len,
+                            1 + SHARDED_STEPS, CONFIG.vocab_size)
+    out = {}
+    with plain_guard(**eval_plains()) as plain_on_cuda:
+        for name, mesh_shape in SHARDED_MESHES.items():
+            mesh = Mesh(mesh_shape, ("data", "model"))
+            state = init_state("splade_xlmr", torch.Generator(
+                device="cuda").manual_seed(0))
+            rec = {"coords": mesh.coords, "device": str(mesh.device),
+                   "init_checksum": checksum(torch, state["params"])}
+            if name == "model":
+                rec["prefill"] = sharded_prefill(torch, CONFIG, mesh,
+                                                 state["params"], root, rank)
+            else:
+                rec["compressed"] = sharded_compressed(
+                    torch, CONFIG, mesh, state["params"], batches)
+            rec["train"] = sharded_train(torch, CONFIG, mesh, state, batches,
+                                         root, rank, name)
+            out[name] = rec
+            del state
+            torch.cuda.empty_cache()
+    require(not plain_on_cuda, f"sharded, rank {rank}: plain versions ran "
+                               f"on CUDA tensors: {sorted(set(plain_on_cuda))}")
+    return out
+
+
+def sharded_timing(torch, E, b, shape):
+    """K1, K2 and K3 at train_16 (16 x 256, padded as lsr_pair_batches
+    pads) on rank 1's vocab shard of xlmr's head weights (rows 125001 on:
+    b's base 4-byte aligned, every (B, V_local) row 500004 bytes) and on
+    the whole vocabulary, as ``xlmr_timing`` times them (random bf16 H
+    from seed 21, a cotangent of scale 1e-2, the random-init routing)."""
+    from repro_torch.kernels.sparton import sparton_forward
+
+    B, S = shape.global_batch, shape.seq_len
+    V_local = E.shape[0] // SHARDED_RANKS
+    rows = {}
+    for where, (E_, b_) in (("shard", (E[V_local:], b[V_local:])),
+                            ("whole", (E, b))):
+        g = torch.Generator(device="cuda").manual_seed(21)
+        H = torch.randn((B, S, E.shape[1]), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        lens = torch.randint(int(0.3 * S), S + 1, (B, 1), generator=g,
+                             device="cuda")
+        mask = (torch.arange(S, device="cuda") < lens).int()
+        k1_row = time_k1(torch, H, E_, b_, mask, reps=3, plain_reps=1)
+        y, i_max = sparton_forward(H, E_, b_, mask)
+        dy = torch.randn(y.shape, generator=g, device="cuda") * 1e-2
+        bwd = time_bwd(torch, H, E_, b_, mask, dy, y, i_max, reps=3,
+                       plain_reps=1, library="sparse")
+        rows[where] = {"k1": k1_row, "dh": bwd["dh"], "de": bwd["de"],
+                       "b_base_mod16": b_.data_ptr() % 16,
+                       "row_bytes": 4 * E_.shape[0]}
+        del H, y, i_max, dy
+        torch.cuda.empty_cache()
+    return rows
+
+
+def vocab_order_control(torch, cfg, state, batch, ref_mu):
+    """The unsharded step on ``state`` and ``batch`` with the vocabulary
+    in another order (the tied E's and b's rows permuted, the tokens
+    renamed to match): the same function, with every f32 sum over V (the
+    scores, the regularizers, K2's dH) in another order, as the model
+    mesh reorders them. Returns its step-1 loss and each leaf's relative
+    difference of the first moments from ``ref_mu`` (E's and b's rows put
+    back in order)."""
+    from repro_torch.launch.steps import build_lsr_train_step
+    from repro_torch.tree import tree_items
+
+    require(cfg.tie_embeddings, "vocab_order_control permutes a tied E")
+    perm = torch.randperm(cfg.vocab_size, device="cuda", generator=torch.
+                          Generator(device="cuda").manual_seed(5))
+    inv = torch.argsort(perm)
+    params = {**state["params"], "embed": state["params"]["embed"][perm],
+              "lm_head": {"b": state["params"]["lm_head"]["b"][perm]}}
+    tokens = {k: inv[v.long()].to(v.dtype) for k, v in batch.items()
+              if k.endswith("tokens")}
+    new, metrics = build_lsr_train_step(cfg, lr=SHARDED_LR)(
+        {**state, "params": params}, {**batch, **tokens})
+    mu = tree_items(new["opt"]["mu"])
+    mu["embed"], mu["lm_head/b"] = mu["embed"][inv], mu["lm_head/b"][inv]
+    per = {k: float((mu[k] - ref_mu[k]).norm()
+                    / ref_mu[k].norm().clamp_min(1e-30)) for k in ref_mu}
+    return float(metrics["loss"]), per
+
+
+def phase_sharded(torch, grad_limit=None):
+    """The vocab-sharded head and LSR training on SHARDED_RANKS gloo
+    ranks sharing the card, splade_xlmr at full width: the parent computes
+    the references with the port's unsharded steps on the same seeded
+    state, spawns the ranks (``sharded_rank``) and holds (a) the gathered
+    prefill Y to K1_TOL of the unsharded one, and on each mesh the step-1
+    loss to SHARDED_LOSS_RTOL and the first moments per leaf to the
+    gradient check's rule: GRAD_RATIO x the larger of its bf16 controls
+    (``grad_limit``, the xlmr phase's limit, measured here when the phase
+    runs alone) and of ``vocab_order_control`` at this phase's shape (the
+    order of the sums over V is what the model mesh changes: at train_16
+    InfoNCE's scores sum 250002 products each); then K1-K3 timed at
+    V_local and at the whole vocabulary (``sharded_timing``)."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs.splade_xlmr import CONFIG, SHAPES
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.launch.steps import (build_lsr_prefill_step,
+                                          build_lsr_train_step, init_state)
+    from repro_torch.tree import tree_items
+
+    t0 = time.perf_counter()
+    if grad_limit is None:
+        grad_limit = grad_check(torch, dataclasses.replace(
+            CONFIG, remat=False), XLMR_GRAD_CHECK)["bfloat16"]["limit"]
+    shape = SHAPES["train_16"]
+    state = init_state("splade_xlmr",
+                       torch.Generator(device="cuda").manual_seed(0))
+    init_sum = checksum(torch, state["params"])
+    B, S = SHARDED_PREFILL
+    pre = train_batches(torch, B, S, 1, CONFIG.vocab_size)[0]
+    y_ref = build_lsr_prefill_step(CONFIG, None, B)(
+        state["params"], {"tokens": pre["q_tokens"], "mask": pre["q_mask"]})
+    batch = train_batches(torch, shape.global_batch, shape.seq_len, 1,
+                          CONFIG.vocab_size)[0]
+    new, metrics = build_lsr_train_step(CONFIG, lr=SHARDED_LR)(state, batch)
+    ref_loss, ref_mu = float(metrics["loss"]), tree_items(new["opt"]["mu"])
+    del new
+    control_loss, control = vocab_order_control(torch, CONFIG, state, batch,
+                                                ref_mu)
+    mu_limit = max(grad_limit, GRAD_RATIO * max(control.values()))
+    E16 = state["params"]["embed"].to(torch.bfloat16)   # tied: the head's E
+    b = state["params"]["lm_head"]["b"].clone()
+    del state, batch
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as root:
+        t1 = time.perf_counter()
+        ranks = spawn_world(sharded_rank, SHARDED_RANKS, backend="gloo",
+                            root=root, args=(root,),
+                            timeout=SHARDED_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t1
+        for r, out in enumerate(ranks):
+            for name in SHARDED_MESHES:
+                require(out[name]["init_checksum"] == init_sum,
+                        f"rank {r} ({name}): the seeded state differs from "
+                        f"the parent's")
+        blocks = [torch.load(Path(root) / f"prefill_y_{r}.pt")
+                  for r in range(SHARDED_RANKS)]
+        y = torch.cat(blocks, dim=1).cuda()
+        err = (y - y_ref).abs()
+        prefill = {"shape": [B, S], "y_blocks": [list(t.shape)
+                                                 for t in blocks],
+                   "max_abs_diff": float(err.max()),
+                   "bit_identical": bool(torch.equal(y, y_ref)),
+                   "within_k1_tol": bool((err <= K1_TOL + K1_TOL
+                                          * y_ref.abs()).all())}
+        failed = [] if prefill["within_k1_tol"] else [
+            f"sharded prefill: gathered Y differs from the unsharded "
+            f"prefill by {prefill['max_abs_diff']}"]
+        del y, y_ref, blocks, err
+        gates = {}
+        for name in SHARDED_MESHES:
+            mu = torch.load(Path(root) / f"mu_{name}.pt")
+            per = {k: float((mu[k].cuda() - ref_mu[k]).norm()
+                            / ref_mu[k].norm().clamp_min(1e-30))
+                   for k in ref_mu}
+            worst = max(per, key=per.get)
+            losses = [out[name]["train"]["steps"][0]["loss"]
+                      for out in ranks]
+            rel = max(abs(l_ - ref_loss) / abs(ref_loss) for l_ in losses)
+            gates[name] = {"step1_loss": losses, "unsharded_loss": ref_loss,
+                           "loss_rel_diff": rel,
+                           "mu_rel_diff": {"max": per[worst], "leaf": worst,
+                                           "per_leaf": per},
+                           "mu_limit": mu_limit}
+            if rel > SHARDED_LOSS_RTOL:
+                failed.append(f"sharded {name}: step-1 loss {losses} vs the "
+                              f"unsharded {ref_loss}")
+            if per[worst] > mu_limit:
+                failed.append(f"sharded {name}: first moments of {worst} "
+                              f"differ by {per[worst]} (relative), above "
+                              f"{mu_limit}")
+            del mu
+    del ref_mu
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    timing = sharded_timing(torch, E16, b, shape)
+    timing_s = time.perf_counter() - t2
+    del E16, b
+    torch.cuda.empty_cache()
+    launches = {}
+    for r, out in enumerate(ranks):
+        launches[f"rank{r}_prefill"] = out["model"]["prefill"]["launches"]
+        for name in SHARDED_MESHES:
+            launches[f"rank{r}_train_{name}"] = \
+                out[name]["train"]["launches"]
+    seconds = time.perf_counter() - t0
+    emit("sharded", note=SHARDED_NOTE, ranks=SHARDED_RANKS,
+         backend="gloo", config=CONFIG.name, meshes=SHARDED_MESHES,
+         prefill=prefill, gates=gates,
+         controls={"xlmr_grad_check_limit": grad_limit,
+                   "vocab_order": {"loss": control_loss,
+                                   "loss_rel_diff": abs(control_loss
+                                                        - ref_loss)
+                                   / abs(ref_loss),
+                                   "mu_rel_diff": control},
+                   "mu_limit": mu_limit},
+         per_rank=[{name: {"coords": out[name]["coords"],
+                           "device": out[name]["device"],
+                           **{k: v for k, v in out[name].items()
+                              if k in ("prefill", "train", "compressed")}}
+                    for name in SHARDED_MESHES} for out in ranks],
+         timing=timing, seconds={"total": seconds, "references": ref_s,
+                                 "ranks": ranks_s, "timing": timing_s})
+    require(not failed, "; ".join(failed))
+    return {"launches": launches, "timing": timing, "seconds": seconds}
+
+
 ALONE = {"recsys": phase_recsys, "dimenet": phase_dimenet,
-         "dryrun": phase_dryrun}
+         "dryrun": phase_dryrun, "sharded": phase_sharded}
 
 
 def only_phases(torch, names) -> int:
@@ -6882,7 +7321,7 @@ def only_phases(torch, names) -> int:
 def kernel_rows(measured, launches, dense_launches, engine_launches,
                 train_launches, k1_paths, xlmr, eval_launches, ckpt_launches,
                 pruned, frontier, examples, decoder, moe, train_decoder,
-                recsys, dryrun):
+                recsys, dryrun, sharded):
     """The ``{"kernels": [...]}`` line: each kernel's launches on its path
     and its numbers from the timing phase (K1 at an index batch, K2/K3 at
     the train shape, K4, K5 and K6 at the served queries; K1 also at the
@@ -6929,7 +7368,11 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
     (D, V, softcap) at B 2 x S 4096, beside the baseline head's
     backward). Every row's ``dryrun_launches`` counts its launches in
     each measured step of the dryrun phase (2 x n_micro for K1-K3 in an
-    LSR train step, K1 1 in the prefill, 0 elsewhere)."""
+    LSR train step, K1 1 in the prefill, 0 elsewhere), and
+    ``sharded_launches`` in the sharded phase's runs on each rank (its
+    prefill, the last step on each mesh); K1's, K2's and K3's
+    ``at_sharded`` their numbers at train_16 on rank 1's vocab rows
+    (``shard``) and on the whole vocabulary (``whole``)."""
     main_k1, bwd, k4, k5, k6 = (measured[key]
                                 for key in ("k1", "bwd", "k4", "k5", "k6"))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -7042,9 +7485,14 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
         row["streaming_launches"] = examples["streaming"]["launches"][key]
         for phase, out in (("decoder", decoder), ("moe", moe),
                            ("train_decoder", train_decoder),
-                           ("recsys", recsys), ("dryrun", dryrun)):
+                           ("recsys", recsys), ("dryrun", dryrun),
+                           ("sharded", sharded)):
             row[f"{phase}_launches"] = {
                 where: n[key] for where, n in out["launches"].items()}
+    for row, kernel in ((rows[0], "k1"), (rows[1], "dh"), (rows[2], "de")):
+        row["at_sharded"] = {
+            where: {key: r[kernel][key] for key in keys + ("shape",)}
+            for where, r in sharded["timing"].items()}
     for row, kernel in ((rows[1], "dh"), (rows[2], "de")):
         row["at_train_decoder"] = {
             name: {key: r[kernel][key] for key in keys + (
@@ -7179,12 +7627,14 @@ def main(argv=()) -> int:
     dry = clocked("dryrun", phase_dryrun, torch, dry_pending)
     k1_paths.update({f"dryrun_{where}": paths
                      for where, paths in dry["k1_paths"].items()})
+    sharded = clocked("sharded", phase_sharded, torch,
+                      xlmr["grad_check"]["bfloat16"]["limit"])
     emit("timeline", seconds=timeline, total=sum(timeline.values()))
     print(json.dumps({"kernels": kernel_rows(
         measured, served["launches"], dense_launches, engine_launches,
         trained["launches"], k1_paths, xlmr, evaluated["launches"],
         ckpt["launches"], served_pruned, frontier, examples, decoder,
-        moe, train_decoder, recsys, dry)}),
+        moe, train_decoder, recsys, dry, sharded)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

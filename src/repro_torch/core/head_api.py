@@ -7,13 +7,13 @@ one factory.
   ``sparton`` (plain PyTorch) and ``kernel`` (the CUDA K1 forward, K2
   and K3 backward) ship registered. Every one is differentiable in
   ``H``, ``E`` and ``b``.
-* ``make_head(spec)``    — ``head(H, E, b=None, mask=None) -> Y``.
-* ``make_encoder(spec)`` — the head plus the spec's rep sparsifier.
+* ``make_head(spec, mesh=None)`` — ``head(H, E, b=None, mask=None) ->
+  Y``; with a ``launch.mesh.Mesh``, the vocab-sharded head on this rank's
+  blocks (``core/sharded.py``).
+* ``make_encoder(spec, mesh=None)`` — the head plus the spec's rep
+  sparsifier.
 * ``normalize_softcap_kwarg`` — folds the deprecated ``softcap=`` into
   ``logit_softcap``.
-
-The JAX factory's ``mesh=`` (the vocab-sharded head) waits for the
-multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -130,7 +130,7 @@ def _sparton_impl(H, E, b, mask, *, spec: HeadSpec):
     return y.to(_out_dtype(H, spec))
 
 
-def _kernel_impl(H, E, b, mask, *, spec: HeadSpec):
+def _kernel_impl(H, E, b, mask, *, spec: HeadSpec, dh_reduce=None):
     pinned = {name: getattr(spec, name)
               for name in ("block_b", "block_s", "block_v")
               if getattr(spec, name) is not None}
@@ -140,8 +140,11 @@ def _kernel_impl(H, E, b, mask, *, spec: HeadSpec):
             "Pallas head; the CUDA kernel picks its own tiles — leave "
             "block_b/block_s/block_v unset")
     return sparton_head(H, E, b, mask, logit_softcap=spec.logit_softcap,
-                        out_dtype=_out_dtype(H, spec))
+                        out_dtype=_out_dtype(H, spec), dh_reduce=dh_reduce)
 
+
+# takes ``dh_reduce``: K2's f32 dH before its cast (``make_head`` with a mesh)
+_kernel_impl.takes_dh_reduce = True
 
 register_head_impl("naive", _naive_impl)
 register_head_impl("tiled", _tiled_impl)
@@ -149,15 +152,66 @@ register_head_impl("sparton", _sparton_impl)
 register_head_impl("kernel", _kernel_impl)
 
 
-def make_head(spec: HeadSpec) -> Callable[..., torch.Tensor]:
-    """One canonical ``head(H, E, b=None, mask=None) -> Y`` callable."""
+def make_head(
+    spec: HeadSpec,
+    mesh=None,
+    *,
+    axis_name: str = "model",
+    batch_axes: Tuple[str, ...] = ("pod", "data"),
+) -> Callable[..., torch.Tensor]:
+    """One canonical ``head(H, E, b=None, mask=None) -> Y`` callable.
+
+    Without a mesh: the registered backend, called directly.
+
+    With a ``launch.mesh.Mesh``: ``H`` and ``mask`` are this rank's rows
+    of the batch (split over ``batch_axes``, the same on every rank of
+    ``axis_name``), ``E`` and ``b`` the whole head. Vocab divisibility is
+    a property of the call: when ``axis_name``'s size divides
+    ``E.shape[0]``, the backend runs on this rank's rows of ``E`` and
+    ``b`` (views, not copies) and returns its ``(B_local, V_local)``
+    block of ``Y``; ``∇H`` is summed over ``axis_name`` and the rows'
+    ``∇E``, ``∇b`` gathered over it in the backward
+    (``collectives.replicated_input``, ``collectives.shard_rows``). The
+    kernel impl (``takes_dh_reduce``) sums K2's f32 ``∇H`` before its
+    cast to H's dtype, so a bf16 ``∇H`` rounds once, as the unsharded
+    head's does (the JAX package sums the bf16 cotangents). Any
+    other call warns and runs the unsharded head, ``(B_local, V)``, on
+    every rank. Either way the spec's impl runs: the JAX package demotes
+    ``kernel`` to ``sparton`` there (``pallas_call`` has no GSPMD rule);
+    the CUDA kernels take any rows, so the card never runs a plain head
+    on this path.
+    """
     impl_fn = get_head_impl(spec.impl)
 
-    def head(H, E, b=None, mask=None):
+    if mesh is None:
+        def head(H, E, b=None, mask=None):
+            b, mask = with_defaults(H, E, b, mask)
+            return impl_fn(H, E, b, mask, spec=spec)
+        return head
+
+    from repro_torch.collectives import psum, replicated_input, shard_rows
+    from repro_torch.core.sharded import check_axes
+
+    check_axes(mesh, axis_name, batch_axes)
+    n_shard = mesh.shape[axis_name]
+
+    def sharded(H, E, b=None, mask=None):
         b, mask = with_defaults(H, E, b, mask)
+        if E.shape[0] % n_shard == 0:
+            e = shard_rows(E, axis_name, mesh)
+            b_ = shard_rows(b, axis_name, mesh)
+            if getattr(impl_fn, "takes_dh_reduce", False):
+                return impl_fn(H, e, b_, mask, spec=spec,
+                               dh_reduce=lambda g: psum(g, axis_name, mesh))
+            return impl_fn(replicated_input(H, axis_name, mesh), e, b_,
+                           mask, spec=spec)
+        warnings.warn(
+            f"make_head: vocab {E.shape[0]} not divisible by {n_shard} "
+            f"{axis_name!r} shards — running the unsharded {spec.impl!r} "
+            f"head on every {axis_name!r} rank")
         return impl_fn(H, E, b, mask, spec=spec)
 
-    return head
+    return sharded
 
 
 def make_sparsifier(spec: HeadSpec) -> Optional[Callable[..., object]]:
@@ -175,16 +229,30 @@ def make_sparsifier(spec: HeadSpec) -> Optional[Callable[..., object]]:
     return lambda y: sparsify_threshold(y, threshold, max_nnz=max_nnz)
 
 
-def make_encoder(spec: HeadSpec) -> Callable[..., object]:
+def make_encoder(
+    spec: HeadSpec,
+    mesh=None,
+    *,
+    axis_name: str = "model",
+    batch_axes: Tuple[str, ...] = ("pod", "data"),
+) -> Callable[..., object]:
     """Head + rep sparsifier: ``encode(H, E, b=None, mask=None)`` gives a
     ``SparseRep`` when the spec's rep knobs are set, else the dense
-    ``(B, V)`` tensor. The sparsifier runs on the head's device."""
-    head = make_head(spec)
+    ``(B, V)`` tensor (with a mesh, ``make_head``'s block). The
+    sparsifier runs on the head's device; with a mesh it sees whole
+    rows, the vocab blocks gathered over ``axis_name`` first, so its
+    top-k is the unsharded one."""
+    head = make_head(spec, mesh, axis_name=axis_name, batch_axes=batch_axes)
     sparsify = make_sparsifier(spec)
     if sparsify is None:
         return head
 
     def encode(H, E, b=None, mask=None):
-        return sparsify(head(H, E, b, mask))
+        y = head(H, E, b, mask)
+        if mesh is not None and y.shape[-1] != E.shape[0]:
+            from repro_torch.collectives import all_gather
+
+            y = all_gather(y, axis_name, mesh, dim=-1)
+        return sparsify(y)
 
     return encode

@@ -13,7 +13,7 @@ package's name and positional signature for the same head (its
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -34,10 +34,10 @@ class _SpartonHead(torch.autograd.Function):
     """K1 forward, K2 + K3 backward (the paper's Alg. 2 and 3)."""
 
     @staticmethod
-    def forward(ctx, H, E, b, mask, softcap, out_dtype):
+    def forward(ctx, H, E, b, mask, softcap, out_dtype, dh_reduce):
         y, i_max = sparton_forward(H, E, b, mask, softcap=softcap)
         ctx.save_for_backward(H, E, y, i_max)
-        ctx.softcap = softcap
+        ctx.softcap, ctx.dh_reduce = softcap, dh_reduce
         return y.to(out_dtype or H.dtype)
 
     @staticmethod
@@ -45,7 +45,9 @@ class _SpartonHead(torch.autograd.Function):
         H, E, y, i_max = ctx.saved_tensors
         dH, dE, db = sparton_backward(dy.float().contiguous(), y, i_max, H,
                                       E, softcap=ctx.softcap)
-        return dH.to(H.dtype), dE.to(E.dtype), db, None, None, None
+        if ctx.dh_reduce is not None:
+            dH = ctx.dh_reduce(dH)
+        return dH.to(H.dtype), dE.to(E.dtype), db, None, None, None, None
 
 
 def sparton_lm_head_kernel(
@@ -76,7 +78,7 @@ def sparton_lm_head_kernel(
         raise ValueError(
             f"sparton_lm_head_kernel: {pinned} are TPU tiles of the JAX "
             "package's Pallas head; the CUDA kernels pick their own tiles")
-    return _SpartonHead.apply(H, E, b, mask, softcap, out_dtype)
+    return _SpartonHead.apply(H, E, b, mask, softcap, out_dtype, None)
 
 
 def sparton_head(
@@ -87,8 +89,12 @@ def sparton_head(
     *,
     logit_softcap: Optional[float] = None,
     out_dtype: Optional[torch.dtype] = None,
+    dh_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Kernel-backed head with optional bias (zeros) and mask (all kept);
-    differentiable in ``H``, ``E`` and ``b``."""
+    differentiable in ``H``, ``E`` and ``b``. ``dh_reduce`` takes K2's f32
+    ``dH`` before its cast to ``H``'s dtype (the vocab-sharded head sums
+    it over ``model`` there, so that it rounds once)."""
     b, mask = with_defaults(H, E, b, mask)
-    return _SpartonHead.apply(H, E, b, mask, logit_softcap, out_dtype)
+    return _SpartonHead.apply(H, E, b, mask, logit_softcap, out_dtype,
+                              dh_reduce)

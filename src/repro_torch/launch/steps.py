@@ -40,10 +40,15 @@ when the batch holds them, else over the nodes weighted by
 (``configs.specs.CellSpec``) on the config ``arch_config_for_cell``
 gives.
 
-Still to come: every ``mesh`` (the vocab-sharded step, the
-expert-parallel MoE, the row-sharded retrieval, ``streaming_topk``'s
-``vary_axes`` and DimeNet's ``shard_axes``: multi-GPU, ROADMAP Queue 1
-item 10).
+With a ``launch.mesh.Mesh`` (``_encode_fn``, ``build_lsr_prefill_step``,
+``build_lsr_train_step``) every rank is given the whole batch and runs
+its rows of it (split over the batch axes ``launch.sharding.
+batch_axes_for`` picks) through the trunk, replicated over ``model``,
+and the vocab-sharded head (``core/sharded.py``). Still to come: the
+other meshes (the expert-parallel MoE, the sharded decode cache, the
+row-sharded retrieval, ``streaming_topk``'s ``vary_axes``, DimeNet's
+``shard_axes``, the recsys tables and the production meshes of
+``build_step``: multi-GPU, ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import dataclasses
+import warnings
 
 import torch
 
@@ -59,7 +65,9 @@ from repro_torch.configs.base import (DimeNetConfig, RecSysConfig,
                                       TransformerConfig)
 from repro_torch.kernels._common import NEG_INF
 from repro_torch.kernels.topk_score import merge_topk
-from repro_torch.losses.contrastive import margin_mse_loss, splade_loss
+from repro_torch.losses.contrastive import (gathered_infonce,
+                                            l1_regularizer, margin_mse_loss,
+                                            splade_loss)
 from repro_torch.models import dimenet as dimenet_model
 from repro_torch.models import recsys as recsys_model
 from repro_torch.models import transformer as tfm
@@ -114,22 +122,129 @@ def lsr_loss(cfg: TransformerConfig) -> Callable[[Any, Batch], torch.Tensor]:
     return loss_fn
 
 
+def sharded_lsr_loss(cfg: TransformerConfig, mesh: Any, n_pairs: int
+                     ) -> Callable[[Any, Batch], torch.Tensor]:
+    """``(params, batch) -> loss`` on a mesh: ``batch`` is the whole
+    (micro-)batch of ``n_pairs`` pairs, and this rank encodes its rows
+    (split over ``batch_axes_for(mesh, n_pairs)``). With the vocabulary
+    divisible by ``model``, the objective is composed from the sharded
+    primitives (``core/sharded.py``: InfoNCE, FLOPS, L1, MarginMSE's row
+    dots), so the reps are never gathered; otherwise the head runs
+    unsharded and the objective is the gathered one
+    (``gathered_infonce`` and the regularizers' batch means averaged over
+    the batch axes). Either way it is the unsharded ``lsr_loss`` of the
+    whole batch, the same value on every rank; the MoE aux loss is
+    averaged over the batch axes."""
+    from repro_torch.collectives import pmean
+    from repro_torch.core import sharded as sh
+    from repro_torch.launch.sharding import batch_axes_for
+
+    baxes = batch_axes_for(mesh, n_pairs)
+    encode = _encode_fn(cfg, mesh, n_pairs)
+
+    def batch_mean(x):
+        return pmean(x, baxes, mesh) if baxes else x
+
+    def cut(x):
+        return sh.local_block(mesh, (baxes or None,), x)
+
+    if cfg.vocab_size % mesh.shape["model"] == 0:
+        infonce = sh.sharded_infonce(mesh, batch_axes=baxes)
+        flops = sh.sharded_flops_reg(mesh, batch_axes=baxes)
+        l1 = sh.sharded_l1_reg(mesh, batch_axes=baxes)
+        row_dots = sh.sharded_row_dots(mesh, batch_axes=baxes)
+
+        def margin_mse(yq, yd, yn, teacher):
+            margin = row_dots(yq, yd) - row_dots(yq, yn)
+            return batch_mean(((margin - teacher) ** 2).mean())
+    else:
+        def infonce(yq, yd):
+            return gathered_infonce(yq, yd, axis_names=baxes, mesh=mesh)
+
+        def flops(y):
+            mean_act = batch_mean(y.float().abs().mean(dim=0))
+            return (mean_act * mean_act).sum()
+
+        def l1(y):
+            return batch_mean(l1_regularizer(y))
+
+        def margin_mse(yq, yd, yn, teacher):
+            return batch_mean(margin_mse_loss(yq, yd, yn, teacher))
+
+    def loss_fn(params, mb):
+        mb = {k: cut(v) for k, v in mb.items()}
+        yq, aux_q = encode(params, mb["q_tokens"], mb["q_mask"])
+        yd, aux_d = encode(params, mb["d_tokens"], mb["d_mask"])
+        loss = infonce(yq, yd)
+        loss = loss + cfg.lambda_q * flops(yq) + cfg.lambda_d * flops(yd)
+        if cfg.l1_weight:
+            loss = loss + cfg.l1_weight * (l1(yq) + l1(yd))
+        if cfg.distill_weight and "neg_tokens" in mb:
+            yn, _ = encode(params, mb["neg_tokens"], mb["neg_mask"])
+            loss = loss + cfg.distill_weight * margin_mse(
+                yq, yd, yn, mb["teacher_margin"])
+        return loss + cfg.aux_weight * batch_mean(aux_q + aux_d)
+    return loss_fn
+
+
+def reduce_grads(grads: Any, mesh: Any, baxes: Tuple[str, ...]) -> Any:
+    """The gradient of the whole batch's loss, the same bits on every rank:
+    each rank holds its share (the head's rows gathered over ``model``
+    already), the same on every rank of the axes the batch is not split
+    over (``model`` and any batch axis outside ``baxes``); one sum over
+    the world of the shares of the ranks at index 0 of those axes."""
+    from repro_torch.collectives import psum
+
+    keep = all(mesh.coords[a] == 0
+               for a in mesh.axis_names if a not in baxes)
+    with torch.no_grad():
+        return tree_map(lambda g: psum(g if keep else torch.zeros_like(g),
+                                       mesh.axis_names, mesh), grads)
+
+
 def build_lsr_train_step(
     cfg: TransformerConfig,
+    mesh: Any = None,
     *,
     n_micro: int = 1,
+    n_pairs: Optional[int] = None,
     lr: float = 2e-5,
     total_steps: int = 100_000,
 ) -> Callable[[State, Batch], Tuple[State, Dict[str, torch.Tensor]]]:
     """The step: peak ``lr`` after 1000 warm-up steps, then a cosine to
     ``total_steps``. It returns a new state and leaves the one it was
-    given as it was, so a fault-tolerant runner can retry it."""
+    given as it was, so a fault-tolerant runner can retry it.
+
+    With a ``launch.mesh.Mesh`` every rank is given the whole batch (of
+    ``n_pairs`` pairs, when given) and the same state; each micro-batch's
+    loss is ``sharded_lsr_loss``'s, the gradients are summed over the
+    batch axes (``reduce_grads``), then clipped and applied as without a
+    mesh, so every parameter leaves the step the same bits on every
+    rank."""
     opt = adamw(linear_warmup_cosine(lr, 1000, total_steps))
-    grad_fn = value_and_grad(lsr_loss(cfg))
+    if mesh is None:
+        grad_fn = value_and_grad(lsr_loss(cfg))
+    else:
+        from repro_torch.launch.sharding import batch_axes_for
+
+        sharded: Dict[int, Any] = {}
 
     def step(state: State, batch: Batch):
-        loss, grads = microbatch_grads(grad_fn, state["params"], batch,
-                                       n_micro=n_micro)
+        if mesh is None:
+            loss, grads = microbatch_grads(grad_fn, state["params"], batch,
+                                           n_micro=n_micro)
+        else:
+            pairs = batch["q_tokens"].shape[0]
+            if n_pairs is not None and pairs != n_pairs:
+                raise ValueError(f"build_lsr_train_step: a batch of {pairs} "
+                                 f"pairs, built for {n_pairs}")
+            micro = max(1, pairs // n_micro)
+            if micro not in sharded:
+                sharded[micro] = value_and_grad(
+                    sharded_lsr_loss(cfg, mesh, micro))
+            loss, grads = microbatch_grads(sharded[micro], state["params"],
+                                           batch, n_micro=n_micro)
+            grads = reduce_grads(grads, mesh, batch_axes_for(mesh, micro))
         updates, opt_state = opt.update(grads, state["opt"],
                                         state["params"], state["step"])
         params = apply_updates(state["params"], updates)
@@ -140,7 +255,7 @@ def build_lsr_train_step(
 
 
 def _no_mesh(mesh: Any, what: str,
-             sharded: str = "the vocab-sharded head, the sharded cache"
+             sharded: str = "the sharded cache, the expert-parallel MoE"
              ) -> None:
     if mesh is not None:
         raise NotImplementedError(
@@ -155,12 +270,29 @@ def _encode_fn(cfg: TransformerConfig, mesh: Any, n_batch: int,
     """``(params, tokens, mask) -> (y (B, V), aux)``: the trunk and the
     config's head (``head_api.make_head``), and the MoE load-balance loss
     summed over the layers (an f32 scalar, 0 for a dense trunk), as the
-    JAX function. ``n_batch`` and ``unroll`` shape the JAX function's
-    sharding and layer scan; eager PyTorch has neither."""
+    JAX function. ``unroll`` shapes the JAX function's layer scan; eager
+    PyTorch has none.
+
+    With a mesh, ``tokens`` and ``mask`` are this rank's rows of a batch
+    of ``n_batch`` (split over ``batch_axes_for(mesh, n_batch)``), and
+    ``y`` is this rank's block of the vocab-sharded head (``make_head``
+    with the mesh). An MoE trunk keeps its dense dispatch on the rank's
+    rows, with a warning: the expert-parallel MoE is not ported."""
     from repro_torch.core.head_api import make_head
 
-    _no_mesh(mesh, "_encode_fn")
-    head = make_head(cfg.head_spec())
+    if mesh is None:
+        head = make_head(cfg.head_spec())
+    else:
+        from repro_torch.launch.sharding import batch_axes_for
+
+        if cfg.is_moe:
+            warnings.warn(
+                f"{cfg.name}: the expert-parallel MoE is not ported "
+                "(ROADMAP item 10f): under a mesh each rank routes its own "
+                "rows through the dense dispatch, with their own capacity "
+                "and load-balance statistics")
+        head = make_head(cfg.head_spec(), mesh,
+                         batch_axes=batch_axes_for(mesh, n_batch))
 
     def encode(params, tokens, mask):
         Hs, aux = tfm.forward_hidden(params, cfg, tokens, mask,
@@ -174,12 +306,28 @@ def build_lsr_prefill_step(cfg: TransformerConfig, mesh: Any = None,
                            n_batch: int = 1, unroll: bool = False
                            ) -> Callable[[Any, Batch], torch.Tensor]:
     """``serve(params, {"tokens", "mask"}) -> y (B, V)``, without
-    autograd."""
+    autograd. With a mesh the batch is the whole one, of ``n_batch``
+    rows, and ``y`` this rank's ``(B_local, V_local)`` block
+    (``core.sharded.head_shardings``' ``"Y"`` with ``batch_axes_for(mesh,
+    n_batch)``)."""
     encode = _encode_fn(cfg, mesh, n_batch, unroll)
+    if mesh is not None:
+        from repro_torch.core.sharded import local_block
+        from repro_torch.launch.sharding import batch_spec
+
+        rows = batch_spec(mesh, n_batch, 2)
 
     @torch.no_grad()
     def serve(params, batch: Batch) -> torch.Tensor:
-        return encode(params, batch["tokens"], batch["mask"])[0]
+        tokens, mask = batch["tokens"], batch["mask"]
+        if mesh is not None:
+            if tokens.shape[0] != n_batch:
+                raise ValueError(f"build_lsr_prefill_step: a batch of "
+                                 f"{tokens.shape[0]} rows, built for "
+                                 f"{n_batch}")
+            tokens = local_block(mesh, rows, tokens)
+            mask = local_block(mesh, rows, mask)
+        return encode(params, tokens, mask)[0]
     return serve
 
 

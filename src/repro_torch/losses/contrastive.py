@@ -2,13 +2,13 @@
 over in-batch negatives plus the SPLADE sparsity regularizers.
 
 Scores are f32 products of the reps, as the JAX package's
-``preferred_element_type=f32``. The mesh-aware ``gathered_infonce``
-waits for the multi-GPU slice.
+``preferred_element_type=f32``. ``gathered_infonce`` is InfoNCE over a
+batch split across the batch axes of a ``launch.mesh.Mesh``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +21,30 @@ def infonce_loss(q_reps: torch.Tensor, d_reps: torch.Tensor, *,
     scores = (q_reps.float() @ d_reps.float().T) / temperature
     logp = F.log_softmax(scores, dim=-1)
     return -logp.diagonal().mean()
+
+
+def gathered_infonce(q_reps: torch.Tensor, d_reps: torch.Tensor, *,
+                     axis_names: Tuple[str, ...] = (),
+                     temperature: float = 1.0,
+                     mesh=None) -> torch.Tensor:
+    """InfoNCE with the negatives gathered across ``axis_names`` of
+    ``mesh``: each rank holds its ``B_local`` rows of queries and docs;
+    the docs are gathered (row-major over the axes), the positive of
+    query i sits at its global row, and the per-rank means are averaged,
+    so every rank holds ``infonce_loss`` of the whole batch. With no axes
+    it is ``infonce_loss``."""
+    if not axis_names:
+        return infonce_loss(q_reps, d_reps, temperature=temperature)
+    from repro_torch.collectives import all_gather, pmean
+    from repro_torch.launch.mesh import axis_index
+
+    bq = q_reps.shape[0]
+    d_full = all_gather(d_reps, axis_names, mesh)
+    scores = (q_reps.float() @ d_full.float().T) / temperature
+    rows = torch.arange(bq, device=q_reps.device)
+    labels = axis_index(mesh, axis_names) * bq + rows
+    local = -F.log_softmax(scores, dim=-1)[rows, labels].mean()
+    return pmean(local, axis_names, mesh)
 
 
 def infonce_from_scores(scores: torch.Tensor, *,

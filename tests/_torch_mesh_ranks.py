@@ -1,0 +1,451 @@
+"""What each rank runs in the port's multi-rank tests
+(``tests/test_torch_mesh.py``, ``test_torch_sharded.py``,
+``test_torch_sharded_train.py``, ``test_torch_compression.py``).
+
+The ranks are spawned processes (``launch.mesh.spawn_world``, gloo on the
+CPU), so this module imports neither JAX nor the JAX package: each
+function takes numpy inputs and returns numpy results. ``start_jax`` and
+``finish_jax`` run a JAX script in a subprocess with four forced host
+devices (as ``tests/test_sharded.py`` does), beside the ranks.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import hashlib
+import os
+import subprocess
+import sys
+import tempfile
+import textwrap
+from pathlib import Path
+
+import numpy as np
+
+SRC = str(Path(__file__).resolve().parents[1] / "src")
+MESHES = [(1, 4), (4, 1), (2, 2)]
+AXES = ("data", "model")
+
+
+def mesh_id(shape) -> str:
+    return "x".join(str(n) for n in shape)
+
+
+def start_jax(script: str, out: Path) -> subprocess.Popen:
+    """Start ``script`` in a subprocess with four forced CPU devices; it
+    writes its arrays to ``out`` (the environment's ``OUT``)."""
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env.update(XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               JAX_PLATFORMS="cpu", PYTHONPATH=SRC, OUT=str(out))
+    return subprocess.Popen(
+        [sys.executable, "-c", textwrap.dedent(script)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_jax(proc: subprocess.Popen, out: Path, timeout: float = 400):
+    """Wait for ``start_jax``'s subprocess; its arrays as a dict."""
+    stdout, stderr = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, \
+        f"JAX side failed:\n{stdout}\n{stderr[-4000:]}"
+    with np.load(out, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def world(fn, *args, n=4, timeout=300):
+    """``fn(rank, *args)`` on ``n`` gloo ranks on the CPU, one thread each."""
+    from repro_torch.launch.mesh import spawn_world
+
+    with tempfile.TemporaryDirectory(prefix="torch_world_") as root:
+        return spawn_world(fn, n, backend="gloo", root=root, args=args,
+                           timeout=timeout, threads=1)
+
+
+@contextlib.contextmanager
+def one_rank_mesh(root):
+    """A (1, 1) (data, model) mesh on a gloo world of this process alone
+    (its ``FileStore`` under ``root``), destroyed on exit."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import Mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{root}/store",
+                            rank=0, world_size=1)
+    try:
+        yield Mesh((1, 1), AXES, device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def to_numpy(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy() if x.dtype == torch.bfloat16 \
+            else x.detach().numpy()
+    if isinstance(x, dict):
+        return {k: to_numpy(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_numpy(v) for v in x)
+    return x
+
+
+def digest(tree) -> str:
+    """SHA-256 of every leaf's bytes, in ``tree_leaves`` order."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    h = hashlib.sha256()
+    for leaf in tree_leaves(tree):
+        h.update(leaf.detach().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def assemble(blocks, shape, spec, mesh_shape):
+    """The global array of ``shape`` from each rank's block under ``spec``
+    (a tuple of axis tuples or None per dim), rank-ordered ``blocks``; a
+    block whose place is shared by several ranks must be the same bits
+    on each."""
+    out = np.full(shape, np.nan, dtype=np.asarray(blocks[0]).dtype)
+    coords = [dict(zip(AXES, np.unravel_index(r, mesh_shape)))
+              for r in range(len(blocks))]
+    seen = {}
+    for r, block in enumerate(blocks):
+        index = []
+        for dim, axes in enumerate(spec):
+            if not axes:
+                index.append(slice(None))
+                continue
+            n, i = 1, 0
+            for a in axes:
+                n *= mesh_shape[AXES.index(a)]
+                i = i * mesh_shape[AXES.index(a)] + coords[r][a]
+            size = shape[dim] // n
+            index.append(slice(i * size, (i + 1) * size))
+        key = tuple((s.start, s.stop) for s in index)
+        if key in seen:
+            assert np.array_equal(seen[key], block, equal_nan=True), \
+                f"ranks sharing block {key} differ"
+        seen[key] = block
+        out[tuple(index)] = block
+    return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_sharded_train.py
+# ---------------------------------------------------------------------------
+
+def train_cfg(case):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(case["arch"]).SMOKE
+    return dataclasses.replace(
+        cfg, compute_dtype=case.get("dtype", "float32"),
+        head_impl=case.get("impl", "kernel"),
+        vocab_size=case["vocab"], l1_weight=case["l1"],
+        distill_weight=case["distill"])
+
+
+def torch_batch(batch):
+    import torch
+
+    return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+
+
+def train_rank(rank, cases, prefills):
+    """Each case's sharded train step (one step, lr 0.5, from the carried
+    state) and each prefill's Y block: losses, rank 0's moments, digests
+    of every rank's state, the warnings raised."""
+    import warnings
+
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.tree import tree_items
+    from repro_torch.weights import state_from_jax
+
+    out = {"cases": {}, "prefill": {}}
+    for case in cases:
+        cfg = train_cfg(case)
+        mesh = Mesh(case["mesh"], AXES, device="cpu")
+        state = state_from_jax(case["state"], cfg, "cpu")
+        step = steps.build_lsr_train_step(cfg, mesh, n_micro=case["n_micro"],
+                                          n_pairs=case["pairs"], lr=0.5)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            new, metrics = step(state, torch_batch(case["batch"]))
+        out["cases"][case["name"]] = {
+            "loss": float(metrics["loss"]),
+            "mu": to_numpy(tree_items(new["opt"]["mu"])) if rank == 0
+            else None,
+            "digest": {part: digest(new[part]) for part in ("params", "opt")},
+            "step": new["step"],
+            "warnings": sorted({str(w.message) for w in caught}),
+        }
+    for p in prefills:
+        cfg = train_cfg(p)
+        mesh = Mesh(p["mesh"], AXES, device="cpu")
+        state = state_from_jax(p["state"], cfg, "cpu")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            serve = steps.build_lsr_prefill_step(cfg, mesh, p["rows"])
+            y = serve(state["params"], torch_batch(p["batch"]))
+        out["prefill"][p["name"]] = {
+            "y": to_numpy(y), "warnings": sorted({str(w.message)
+                                                  for w in caught})}
+    return out
+
+
+def fallback_rank(rank, case):
+    """A prefill and a train step at a vocabulary the model axis does not
+    divide: the warnings, the shapes each call of the spec's impl saw,
+    and the loss."""
+    import warnings
+
+    from repro_torch.core import head_api
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.weights import state_from_jax
+
+    cfg = train_cfg(case)
+    kernel, calls = head_api.get_head_impl(cfg.head_impl), []
+
+    def counted(H, E, b, mask, *, spec):
+        calls.append((H.shape[0], E.shape[0]))
+        return kernel(H, E, b, mask, spec=spec)
+
+    head_api.register_head_impl(cfg.head_impl, counted)
+    mesh = Mesh(case["mesh"], AXES, device="cpu")
+    state = state_from_jax(case["state"], cfg, "cpu")
+    batch = torch_batch(case["batch"])
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        steps.build_lsr_prefill_step(cfg, mesh, case["pairs"])(
+            state["params"], {"tokens": batch["q_tokens"],
+                              "mask": batch["q_mask"]})
+        prefill_calls = list(calls)
+        _, m = steps.build_lsr_train_step(cfg, mesh, lr=0.5)(state, batch)
+    return {"warnings": [str(x.message) for x in caught],
+            "kernel_calls": prefill_calls, "loss": float(m["loss"])}
+
+
+def wrong_batch_rank(rank, batch):
+    """A step built for 4 pairs given a batch of another size (raises)."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import Mesh
+
+    cfg = train_cfg({"arch": "splade_bert", "vocab": 512, "l1": 0.0,
+                     "distill": 0.0})
+    mesh = Mesh((1, 2), AXES, device="cpu")
+    state = steps.new_state(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    steps.build_lsr_train_step(cfg, mesh, n_pairs=4)(state,
+                                                     torch_batch(batch))
+
+
+# ---------------------------------------------------------------------------
+# test_torch_sharded.py
+# ---------------------------------------------------------------------------
+
+SHARDED_FNS = ("make_head_sparton", "make_head_kernel", "sparton_head",
+               "similarity", "infonce", "flops", "l1", "row_dots",
+               "gathered_data", "gathered_all")
+
+
+def sharded_rank(rank, inputs):
+    """Every ``SHARDED_FNS`` entry on every mesh of ``MESHES``: this rank's
+    outputs and the gradients of its inputs (loss: the function's scalar,
+    or ``sum(out * c)`` with ``c`` the matching block of the global
+    cotangent)."""
+    import warnings
+
+    import torch
+
+    from repro_torch.core import sharded as sh
+    from repro_torch.core.head_api import HeadSpec, make_head
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.losses.contrastive import gathered_infonce
+
+    t = {k: torch.from_numpy(v) for k, v in inputs.items()}
+    out = {}
+    for shape in MESHES:
+        mesh = Mesh(shape, AXES, device="cpu")
+        ba = ("data",)
+        blk = lambda spec, x: sh.local_block(mesh, spec, x)  # noqa: E731
+        specs = sh.head_shardings(mesh, batch_axes=ba)
+        for name in SHARDED_FNS:
+            if name.startswith("make_head") or name == "sparton_head":
+                if name == "sparton_head":
+                    fn = sh.sharded_sparton_head(mesh, batch_axes=ba,
+                                                 vocab_tile=16)
+                else:
+                    impl = name.split("_")[-1]
+                    fn = make_head(HeadSpec(impl=impl, vocab_tile=16), mesh,
+                                   batch_axes=ba)
+                args = [blk(specs["H"], t["H"]).clone(), t["E"].clone(),
+                        t["b"].clone()]
+                for a in args:
+                    a.requires_grad_(True)
+                y = fn(args[0], args[1], args[2], blk(specs["mask"],
+                                                       t["mask"]))
+                loss = (y * blk(specs["Y"], t["cy"])).sum()
+            elif name.startswith("gathered"):
+                axes = ("data",) if name == "gathered_data" else AXES
+                spec = (axes, None)
+                args = [blk(spec, t["q"]).clone().requires_grad_(True),
+                        blk(spec, t["d"]).clone().requires_grad_(True)]
+                y = loss = gathered_infonce(*args, axis_names=axes,
+                                            temperature=0.5, mesh=mesh)
+            else:
+                rep = specs["Y"]
+                if name in ("flops", "l1"):
+                    args = [blk(rep, t["q"]).clone().requires_grad_(True)]
+                else:
+                    args = [blk(rep, t["q"]).clone().requires_grad_(True),
+                            blk(rep, t["d"]).clone().requires_grad_(True)]
+                if name == "similarity":
+                    y = sh.sharded_similarity(mesh, batch_axes=ba)(*args)
+                    loss = (y * blk((ba, None), t["cs"])).sum()
+                elif name == "infonce":
+                    y = loss = sh.sharded_infonce(
+                        mesh, batch_axes=ba, temperature=0.5)(*args)
+                elif name == "flops":
+                    y = loss = sh.sharded_flops_reg(mesh, batch_axes=ba)(*args)
+                elif name == "l1":
+                    y = loss = sh.sharded_l1_reg(mesh, batch_axes=ba)(*args)
+                else:
+                    y = sh.sharded_row_dots(mesh, batch_axes=ba)(*args)
+                    loss = (y * blk((ba,), t["cr"])).sum()
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                loss.backward()
+            out[(mesh_id(shape), name)] = {
+                "y": to_numpy(y), "grads": [to_numpy(a.grad) for a in args]}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_mesh.py
+# ---------------------------------------------------------------------------
+
+MESH_SHAPES = [((1, 4), AXES), ((4, 1), AXES), ((2, 2), AXES),
+               ((1, 2, 2), ("pod", "data", "model")),
+               ((2, 2, 1), ("pod", "data", "model"))]
+
+
+def mesh_tuples(axes):
+    """The axis tuples the mesh tests run each collective over."""
+    return [(a,) for a in axes] + [axes[-2:], tuple(reversed(axes[-2:])),
+                                   tuple(axes)]
+
+
+def collective_inputs(r, n_t, other):
+    """Rank ``r``'s inputs and cotangents for ``mesh_rank`` (the JAX side
+    builds the same as global arrays): ``other`` is its index over the
+    axes outside the tuple, ``n_t`` the tuple's size."""
+    f = np.float32
+    return {"x": np.arange(6, dtype=f) * (r + 1),
+            "w": np.arange(6, dtype=f) + 10 * r,
+            "w_inv": np.arange(6, dtype=f) + 10 * other,
+            "w_ag": np.arange(6 * n_t, dtype=f).reshape(2 * n_t, 3) * (r + 1),
+            "z": (np.arange(4 * n_t, dtype=f) + 100 * r).reshape(n_t, 4),
+            "w_a2a": np.arange(4 * n_t, dtype=f).reshape(1, 4 * n_t) + r,
+            "x_rep": np.arange(6, dtype=f) * (other + 1),
+            "rows": np.arange(8 * n_t, dtype=f).reshape(4 * n_t, 2),
+            "w_rows": np.full((4, 2), r + 1, dtype=f)}
+
+
+def mesh_rank(rank):
+    """Each mesh of ``MESH_SHAPES``: this rank's coordinates, indices and
+    groups, and over each tuple of ``mesh_tuples`` each collective's
+    output and its input's gradient (the loss ``sum(out * w)`` of a
+    cotangent ``w`` that differs over the tuple, or for ``psum`` and
+    ``pmean``, whose outputs are the same over it, one that does not)."""
+    import torch
+
+    from repro_torch import collectives as C
+    from repro_torch.launch import mesh as M
+
+    out = {}
+    for shape, axes in MESH_SHAPES:
+        mesh = M.Mesh(shape, axes, device="cpu")
+        rec = {"coords": [mesh.coords[a] for a in axes],
+               "device": str(mesh.device),
+               "batch_axes": M.batch_axes(mesh),
+               "n_batch_shards": M.n_batch_shards(mesh)}
+        for t in mesh_tuples(axes):
+            n_t = M.axis_size(mesh, t)
+            others = tuple(a for a in axes if a not in t)
+            other = M.axis_index(mesh, others) if others else 0
+            x = {k: torch.from_numpy(v).requires_grad_(True)
+                 for k, v in collective_inputs(rank, n_t, other).items()}
+            rec[("index", t)] = M.axis_index(mesh, t)
+            rec[("size", t)] = n_t
+            rec[("ranks", t)] = mesh.ranks(t)
+            runs = {
+                "psum": (C.psum(x["x"], t, mesh), x["w_inv"], "x"),
+                "pmean": (C.pmean(x["x"], t, mesh), x["w_inv"], "x"),
+                "all_gather": (C.all_gather(x["x"].reshape(2, 3), t, mesh),
+                               x["w_ag"], "x"),
+                "all_to_all": (C.all_to_all(x["z"], t, mesh, split_dim=0,
+                                            concat_dim=1), x["w_a2a"], "z"),
+                "replicated_input": (C.replicated_input(x["x_rep"], t, mesh),
+                                     x["w"], "x_rep"),
+                "shard_rows": (C.shard_rows(x["rows"], t, mesh),
+                               x["w_rows"], "rows"),
+            }
+            for name, (y, w, wrt) in runs.items():
+                x[wrt].grad = None
+                (y * w).sum().backward()
+                rec[(name, t)] = (y.detach().numpy().copy(),
+                                  x[wrt].grad.numpy().copy())
+            rec[("broadcast", t)] = C.broadcast(x["w"], t, mesh).numpy()
+        out[mesh_id(shape)] = rec
+    return out
+
+
+def refusals_rank(rank):
+    """The mesh builders' refusals in a world of two ranks."""
+    from repro_torch.launch import mesh
+
+    out = {}
+    for key, fn in (("production", lambda: mesh.make_production_mesh(
+            device="cpu")), ("multi_pod", lambda: mesh.make_production_mesh(
+                multi_pod=True, device="cpu")),
+            ("wrong_size", lambda: mesh.Mesh((2, 2), ("data", "model"),
+                                             device="cpu"))):
+        try:
+            fn()
+        except ValueError as e:
+            out[key] = str(e)
+    out["default_axes"] = mesh.make_mesh_for((1, 2), device="cpu").axis_names
+    return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_compression.py
+# ---------------------------------------------------------------------------
+
+def compression_rank(rank, grads_by_rank, shape, axis):
+    """``compressed_allreduce`` twice over ``axis`` of a mesh of ``shape``
+    (the residual carried): the means and residuals."""
+    import torch
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.optim.compression import compressed_allreduce
+    from repro_torch.tree import tree_map
+
+    axes = ("data", "model")[:len(shape)]
+    mesh = Mesh(shape, axes, device="cpu")
+    out, residual = [], None
+    for call in grads_by_rank:
+        g = tree_map(torch.from_numpy, call[rank])
+        mean, residual = compressed_allreduce(g, residual, axis, mesh)
+        out.append((to_numpy(mean), residual.numpy().copy()))
+    return out

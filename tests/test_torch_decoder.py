@@ -320,13 +320,24 @@ def test_decode_writes_the_cache_at_the_given_positions():
 
 
 @pytest.mark.parametrize("build", ["prefill", "decode"])
-def test_a_mesh_is_refused_naming_item_10(build):
+def test_a_mesh_is_refused_naming_item_10(build, tmp_path):
+    """Decode refuses a mesh (the sharded cache, item 10). The LSR prefill
+    takes one since the vocab-sharded head (item 10a): on a one-rank mesh
+    it gives the unsharded prefill's y."""
     cfg = get_config("llama3_2_3b").SMOKE
-    with pytest.raises(NotImplementedError, match="item 10"):
-        if build == "prefill":
-            steps.build_lsr_prefill_step(cfg, mesh=object(), n_batch=2)
-        else:
+    if build == "decode":
+        with pytest.raises(NotImplementedError, match="item 10"):
             steps.build_decode_step(cfg, mesh=object())
+        return
+    from _torch_mesh_ranks import one_rank_mesh
+
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 8)),
+             "mask": torch.ones((2, 8), dtype=torch.int32)}
+    with one_rank_mesh(tmp_path) as mesh:
+        y = steps.build_lsr_prefill_step(cfg, mesh, n_batch=2)(params, batch)
+    assert torch.equal(y, steps.build_lsr_prefill_step(cfg)(params, batch))
 
 
 # ---------------------------------------------------------------------------

@@ -343,13 +343,27 @@ def test_remat_trunk_gives_the_same_h_aux_and_grads():
 
 @pytest.mark.parametrize("build", ["prefill", "decode"])
 @pytest.mark.parametrize("arch", MOE)
-def test_a_mesh_is_refused_naming_item_10(arch, build):
+def test_a_mesh_is_refused_naming_item_10(arch, build, tmp_path):
+    """Decode refuses a mesh (the sharded cache and the expert-parallel
+    MoE, item 10). The LSR prefill takes one since the vocab-sharded head
+    (item 10a): on a one-rank mesh it warns that the expert-parallel MoE
+    waits (item 10f) and gives the unsharded prefill's y."""
     cfg = get_config(arch).SMOKE
-    with pytest.raises(NotImplementedError, match="item 10"):
-        if build == "prefill":
-            steps.build_lsr_prefill_step(cfg, mesh=object(), n_batch=2)
-        else:
+    if build == "decode":
+        with pytest.raises(NotImplementedError, match="item 10"):
             steps.build_decode_step(cfg, mesh=object())
+        return
+    from _torch_mesh_ranks import one_rank_mesh
+
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 8)),
+             "mask": torch.ones((2, 8), dtype=torch.int32)}
+    with one_rank_mesh(tmp_path) as mesh:
+        with pytest.warns(UserWarning, match="item 10f"):
+            y = steps.build_lsr_prefill_step(cfg, mesh, n_batch=2)(params,
+                                                                   batch)
+    assert torch.equal(y, steps.build_lsr_prefill_step(cfg)(params, batch))
 
 
 # ---------------------------------------------------------------------------
