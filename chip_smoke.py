@@ -8,7 +8,7 @@
                                      # device, build and the recsys
                                      # phase alone (``only_phases``;
                                      # also dimenet, dryrun, sharded,
-                                     # or several)
+                                     # sharded_engine, or several)
 
 Phases, run in this order, each printing one JSON line:
 
@@ -164,6 +164,35 @@ Phases, run in this order, each printing one JSON line:
              with its peak memory; then K1, K2 and K3 timed at train_420
              (K2 and K3 on the random-init routing and on each row's 256
              largest y).
+   sharded_engine — the doc-, term- and 2D-sharded index engines, run
+             inside xlmr (its own line in the timeline) on the 19456 live
+             rows of xlmr_serve_engine's engine and the 8 and 64 served
+             queries: (a) one process, ``retrieve`` with ``sharded`` at 2
+             and 4 shards, ``term_sharded`` at 2 and 4 (mass cuts) and
+             ``shard2d`` at 2 x 2, exact and (term, 2D) pruned at margin
+             0.5 with 256 candidates, against the unsharded index of the
+             same rows: doc-sharded the same bits as ``impact``, term and
+             2D ids equal to ``impact``'s but at near ties (term pruned
+             likewise to the unsharded ``pruned``; 2D pruned, whose cell
+             ceilings are tighter, its scores exact and its top-1
+             ``impact``'s); (b) one gloo world of 4 ranks sharing the
+             card on a (2, 2) mesh: ``sharded`` and ``term_sharded`` on
+             each axis, ``shard2d`` in both axis orders, exact and
+             pruned: each rank the one-process result bit for bit, every
+             rank the same, both orientations the same bits; (c)
+             ``CorpusEngine(shard_axis="term", n_shards=2)`` and one with
+             a 2 x 2 ``plan`` (forward rows kept), 4096 docs grown by
+             ``launch.serve.grow_engine`` (5 % tombstoned), compacted, a
+             delta of 64: ``auto``, ``fused`` and ``pruned`` ids equal to
+             a shard-free engine's ``impact`` but at near ties, ``fused``
+             K4 once (the delta), ``auto`` K4's ceiling entry once; (d)
+             the serve CLI's ``run`` with ``--method sharded``,
+             ``term_sharded`` (2 shards) and ``shard2d`` (4, 2d) on
+             splade_bert's seed-0 weights: every request served. Host ms
+             of every search (median of 10), gloo's time by collective,
+             each index's ``memory_bytes``. ``python3 chip_smoke.py
+             --only sharded_engine`` runs device, build, the xlmr serve
+             and engine phases and this one.
 9. ckpt    — checkpoint and resume, splade_xlmr at full width through the
              train CLI's own ``run`` at train_16 (16 pairs x 256): (a) 4
              steps with ``--ckpt-every 2`` (checkpoints at steps 2 and 4,
@@ -372,8 +401,9 @@ Phases, run in this order, each printing one JSON line:
              gradient check and this phase.
 
 Every K1 launch of the serve, dense-serve, engine, pruned, frontier, train,
-eval (b), xlmr (its serving phases too), ckpt, example_serve, decoder,
-moe, train_decoder, dryrun and sharded phases must take the "tma" path. Then a
+eval (b), xlmr (its serving phases too), sharded_engine, ckpt,
+example_serve, decoder, moe, train_decoder, dryrun and sharded phases must
+take the "tma" path. Then a
 ``timeline`` line (each phase's seconds, against the 1200 s the script
 is given), a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": ...}``.
@@ -4270,6 +4300,7 @@ def xlmr_serving(torch, served):
     res, k = served["res"], SERVE["topk"]
     engine = phase_serve_engine(torch, served, "xlmr_serve_engine",
                                 shared_gates=False)
+    rows = engine_rows(served, engine["engine"].builder)
     base = engine.pop("engine").builder._base
     k5 = {f"B{q.values.shape[0]}": time_impact(torch, q, base, k, reps=20)
           for q in (res["queries"], stack_rows(res["served"]))}
@@ -4289,7 +4320,7 @@ def xlmr_serving(torch, served):
     emit("xlmr_serve_timing", k5=k5, k6=k6,
          seconds=time.perf_counter() - t0)
     return {"engine": engine, "pruned": pruned, "dense": dense,
-            "k5": k5, "k6": k6}
+            "k5": k5, "k6": k6, "rows": rows}
 
 
 def phase_xlmr(torch):
@@ -4306,6 +4337,7 @@ def phase_xlmr(torch):
 
     served = phase_serve(torch, CONFIG, "xlmr_serve")
     serving = xlmr_serving(torch, served)
+    sharded_engine = phase_sharded_engine(torch, served, serving.pop("rows"))
     E, b = head_weights(served["params"], served["cfg"])
     E16, b = E.to(torch.bfloat16), b.clone()
     serve_launches, serve_paths = served["launches"], served["k1_paths"]
@@ -4333,7 +4365,7 @@ def phase_xlmr(torch):
     torch.cuda.empty_cache()
     return {"timing": timing, "serve_launches": serve_launches,
             "train_launches": trained["launches"], "serving": serving,
-            "grad_check": checked,
+            "grad_check": checked, "sharded_engine": sharded_engine,
             "k1_paths": {"serve": serve_paths,
                          **{f"serve_{path}": serving[path]["k1_paths"]
                             for path in ("engine", "pruned", "dense")},
@@ -7299,8 +7331,493 @@ def phase_sharded(torch, grad_limit=None):
     return {"launches": launches, "timing": timing, "seconds": seconds}
 
 
+# --------------------------------------------------------------------------
+# 18. the sharded index engines (doc, term and 2D) at splade_xlmr
+# --------------------------------------------------------------------------
+
+SE_SHARDS = (2, 4)             # one-process shard counts
+SE_PRUNE = {"prune_margin": 0.5, "candidates": 256}
+SE_INDEXES = {  # name: (kind, shards or grid); each searched exact and pruned
+    "sharded_2": ("sharded", 2), "sharded_4": ("sharded", 4),
+    "term_2": ("term_sharded", 2), "term_4": ("term_sharded", 4),
+    "grid_2x2": ("shard2d", (2, 2))}
+SE_RANKS = 4                   # one gloo world on a (2, 2) mesh, one card
+SE_MESH = ((2, 2), ("data", "model"))
+SE_WORLD = {  # case: (index, axis or 2D order, pruned)
+    **{f"sharded_{ax}": ("sharded_2", ax, False) for ax in SE_MESH[1]},
+    **{f"term_{ax}{tag}": ("term_2", ax, p) for ax in SE_MESH[1]
+       for tag, p in (("", False), ("_pruned", True))},
+    **{f"grid_{'_'.join(o)}{tag}": ("grid_2x2", o, p)
+       for o in (("doc", "term"), ("term", "doc"))
+       for tag, p in (("", False), ("_pruned", True))}}
+SE_ENGINE = {"corpus": 4096, "batch": 64, "remove_frac": 0.05}
+SE_CLI = {"corpus": 4096, "requests": 64, "index_batch": 64, "topk": 10,
+          "runs": {"sharded": {"shards": 2}, "term_sharded": {"shards": 2},
+                   "shard2d": {"shards": 4, "shard_axis": "2d"}}}
+SE_REPS = 10                   # host-ms samples a search (median printed)
+SE_TIMEOUT_S = 300             # a rank that hangs is killed after this
+SE_NOTE = ("four gloo ranks share one card: each collective is staged "
+           "through the host and the ranks take turns on the card; these "
+           "numbers measure no multi-card scaling")
+
+
+def se_ms(torch, fn, device):
+    """``host_ms`` of ``fn`` (median of SE_REPS, synchronised) for an index
+    on the card; ``(None, None)`` elsewhere, after one call."""
+    if torch.device(device).type != "cuda":
+        fn()
+        return None, None
+    return host_ms(torch, fn, n=SE_REPS)
+
+
+def engine_rows(served, builder):
+    """The xlmr engine's live base rows (compacted: every slot alive) and
+    the serve phase's 8 and 64 served queries, as host numpy."""
+    from repro_torch.retrieval.sparse_rep import device_get, stack_rows
+
+    n = builder._base_n
+    require(bool(builder._alive[:n].all()),
+            "the xlmr engine's base holds tombstoned rows")
+    v = builder._values[:n].copy()
+    rows = {"dv": v, "di": builder._indices[:n].copy(),
+            "dn": (v > 0).sum(axis=1).astype(np.int32)}
+    res = served["res"]
+    for tag, rep in (("q8", device_get(res["queries"])),
+                     ("q64", stack_rows(res["served"]))):
+        rows[tag + "v"], rows[tag + "i"], rows[tag + "n"] = (
+            np.asarray(rep.values), np.asarray(rep.indices),
+            np.asarray(rep.nnz))
+    return rows
+
+
+def se_rep(rows, tag):
+    from repro_torch.retrieval.sparse_rep import SparseRep
+
+    return SparseRep(rows[tag + "v"], rows[tag + "i"], rows[tag + "n"])
+
+
+def se_build(name, docs, vocab, device):
+    """The index of ``SE_INDEXES[name]`` on ``device`` (term and 2D with
+    their forward rows, for the pruned composition)."""
+    from repro_torch.retrieval.engine import (shard2d_index, shard_index,
+                                              term_shard_index)
+
+    kind, n = SE_INDEXES[name]
+    if kind == "sharded":
+        return shard_index(docs, vocab, n, device=device)
+    if kind == "term_sharded":
+        return term_shard_index(docs, vocab, n, keep_forward=True,
+                                device=device)
+    return shard2d_index(docs, vocab, *n, keep_forward=True, device=device)
+
+
+def se_one_process(torch, rows, vocab, device="cuda"):
+    """Each index of SE_INDEXES searched in this one process (``retrieve``,
+    its sharded method; term and 2D also pruned at SE_PRUNE), at B 8 and
+    64, against the unsharded index of the same rows: doc-sharded the same
+    bits as ``impact``; term and 2D exact ids equal to ``impact``'s but at
+    near ties, scores within SCORE_TOL; term pruned held so to the
+    unsharded ``pruned`` at the same margin and candidates (a term's
+    ceiling is its whole list's there too). A 2D cell's ceilings are its
+    chunk's (tighter than the whole list's), so 2D pruned keeps other
+    candidates at a margin: each score it returns must be its doc's exact
+    score and its top-1 ``impact``'s but at a near tie. Each search's host
+    ms (median of SE_REPS, synchronised) and each index's
+    ``memory_bytes``."""
+    from repro_torch.retrieval.index import build_inverted_index
+    from repro_torch.retrieval.score import impact_scores, retrieve
+
+    docs, k = se_rep(rows, "d"), SERVE["topk"]
+    qs = {f"B{rows[t + 'v'].shape[0]}": se_rep(rows, t)
+          for t in ("q8", "q64")}
+    plain = build_inverted_index(docs, vocab, device=device)
+    fwd = build_inverted_index(docs, vocab, keep_forward=True, device=device)
+    want, scores = {}, {}
+    for b, q in qs.items():
+        scores[b] = impact_scores(q, plain)
+        want[b] = {"exact": retrieve(q, plain, k, method="impact"),
+                   "pruned": retrieve(q, fwd, k, method="pruned",
+                                      **SE_PRUNE)}
+    out = {"unsharded_memory_bytes": plain.memory_bytes(),
+           "unsharded_forward_memory_bytes": fwd.memory_bytes(),
+           "indexes": {}, "results": {}}
+    failed = []
+    for name, (method, _) in SE_INDEXES.items():
+        index = se_build(name, docs, vocab, device)
+        row = {"memory_bytes": index.memory_bytes(), "stats": index.stats(),
+               "searches": {}}
+        for mode in (("exact", "pruned") if method != "sharded"
+                     else ("exact",)):
+            kw = SE_PRUNE if mode == "pruned" else {}
+            for b, q in qs.items():
+                def search(q=q, kw=kw):
+                    return retrieve(q, index, k, method=method, **kw)
+                v, i = search()
+                grid_pruned = method == "shard2d" and mode == "pruned"
+                v_w, i_w = want[b]["exact" if grid_pruned else mode]
+                hard, differ = ids_beyond_near_ties(torch, scores[b], i, i_w)
+                err = float((v - v_w).abs().max())
+                bits = bool(torch.equal(v, v_w) and torch.equal(i, i_w))
+                exact = scores[b].gather(1, i.long())
+                rescored = float((v - exact).abs().max())
+                ms, spread = se_ms(torch, search, device)
+                row["searches"][f"{mode}_{b}"] = {
+                    "ids_differ": differ, "beyond_near_ties": hard,
+                    "max_abs_err": err, "same_bits": bits,
+                    "max_abs_err_vs_exact_scores": rescored,
+                    "host_ms": ms, "host_ms_range": spread}
+                out["results"][(name, mode, b)] = (v.cpu(), i.cpu())
+                tol = SCORE_TOL * (1 + float(v_w.abs().max()))
+                if method == "sharded" and not bits:
+                    failed.append(f"{name} {b}: not the same bits as impact "
+                                  f"(ids differ at {differ}, {err})")
+                elif grid_pruned:
+                    top1, _ = ids_beyond_near_ties(torch, scores[b],
+                                                   i[:, :1], i_w[:, :1])
+                    if top1 or rescored > tol:
+                        failed.append(f"{name} pruned {b}: top-1 beyond a "
+                                      f"near tie on {top1} rows, scores "
+                                      f"{rescored} from the exact ones")
+                elif hard or err > tol:
+                    failed.append(f"{name} {mode} {b}: ids beyond near ties "
+                                  f"{hard}, scores off by {err}")
+        out["indexes"][name] = row
+        del index
+    require(not failed, "; ".join(failed))
+    return out
+
+
+def se_rank(rank, rows_path, vocab, device):
+    """One rank of the sharded_engine phase's world (SE_RANKS gloo ranks on
+    the one card, a SE_MESH mesh): each SE_WORLD case at B 8 and 64, its
+    results, its host ms (median of SE_REPS, synchronised) and its
+    collectives (``collectives.TALLY`` over one call)."""
+    import torch
+
+    from repro_torch import collectives
+    from repro_torch.kernels import impact_score as k45
+    from repro_torch.kernels import sparton as k1
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.retrieval.engine import (ShardPlan, sharded_retrieve,
+                                              term_sharded_retrieve)
+    from repro_torch.retrieval.score import retrieve
+
+    rows = dict(np.load(rows_path))
+    docs, k = se_rep(rows, "d"), SERVE["topk"]
+    qs = {f"B{rows[t + 'v'].shape[0]}": se_rep(rows, t)
+          for t in ("q8", "q64")}
+    mesh = Mesh(*SE_MESH, device=device)
+    indexes = {name: se_build(name, docs, vocab, mesh.device)
+               for name in {c[0] for c in SE_WORLD.values()}}
+    out = {"coords": mesh.coords, "device": str(mesh.device), "cases": {}}
+    with plain_guard(k1=(k1, "sparton_forward_plain"),
+                     **k45_plains(k45)) as plain_on_cuda:
+        for case, (name, axis, pruned) in SE_WORLD.items():
+            index, kw = indexes[name], (SE_PRUNE if pruned else {})
+            if name.startswith("grid"):
+                plan = ShardPlan(2, 2, axis_order=axis)
+                fn = lambda q: retrieve(q, index, k, method="shard2d",  # noqa: E731
+                                        mesh=mesh, plan=plan, **kw)
+            elif name.startswith("term"):
+                fn = lambda q: term_sharded_retrieve(  # noqa: E731
+                    q, index, k, mesh=mesh, axis_name=axis, **kw)
+            else:
+                fn = lambda q: sharded_retrieve(  # noqa: E731
+                    q, index, k, mesh=mesh, axis_name=axis)
+            for b, q in qs.items():
+                collectives.TALLY.reset(synchronize=True)
+                v, i = fn(q)
+                tally = collectives.TALLY.summary()
+                ms, spread = se_ms(torch, lambda: fn(q), device)
+                out["cases"][(case, b)] = {
+                    "v": v.cpu().numpy(), "i": i.cpu().numpy(),
+                    "host_ms": ms, "host_ms_range": spread,
+                    "collectives": tally}
+    require(not plain_on_cuda, f"sharded_engine, rank {rank}: plain "
+                               f"versions ran on CUDA tensors")
+    return out
+
+
+def se_world(torch, rows, vocab, one, device="cuda"):
+    """SE_RANKS gloo ranks sharing the card (``se_rank``), each held to the
+    one-process result of its index (``one``): ids equal and, every psum
+    here adding two partials, the same bits; every rank the same result;
+    both 2D orientations the same bits. Returns the per-rank numbers."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_world
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_se_") as tmp:
+        rows_path = Path(tmp) / "rows.npz"
+        np.savez(rows_path, **rows)
+        t0 = time.perf_counter()
+        ranks = spawn_world(se_rank, SE_RANKS, backend="gloo",
+                            root=Path(tmp) / "world",
+                            args=(str(rows_path), vocab, device),
+                            timeout=SE_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+    failed = []
+    for (case, b), first in ranks[0]["cases"].items():
+        name, axis, pruned = SE_WORLD[case]
+        v1, i1 = (t.numpy() for t in one[(name, "pruned" if pruned
+                                           else "exact", b)])
+        for r, rank in enumerate(ranks):
+            got = rank["cases"][(case, b)]
+            if not (np.array_equal(got["v"], first["v"])
+                    and np.array_equal(got["i"], first["i"])):
+                failed.append(f"{case} {b}: rank {r} differs from rank 0")
+            if not (np.array_equal(got["i"], i1)
+                    and np.array_equal(got["v"], v1)):
+                failed.append(f"{case} {b}: rank {r} is not the one-process "
+                              f"result bit for bit")
+    for tag in ("", "_pruned"):
+        for b in ("B8", "B64"):
+            a, c = (ranks[0]["cases"][(f"grid_{o}{tag}", b)]
+                    for o in ("doc_term", "term_doc"))
+            if not (np.array_equal(a["v"], c["v"])
+                    and np.array_equal(a["i"], c["i"])):
+                failed.append(f"grid{tag} {b}: the two orientations differ")
+    require(not failed, "; ".join(failed))
+    return {"seconds": seconds, "per_rank": [
+        {"coords": rank["coords"], "device": rank["device"],
+         "cases": {f"{case}|{b}": {key: c[key] for key in (
+             "host_ms", "host_ms_range", "collectives")}
+             for (case, b), c in rank["cases"].items()}}
+        for rank in ranks]}
+
+
+def se_exact_scores(torch, builder, queries, device):
+    """``(B, n_slots)`` exact scores of every slot of ``builder``'s rows
+    (the query's dense weights gathered at each row's ids)."""
+    from repro_torch.retrieval.engine.pruning import query_dense
+
+    q = query_dense(queries, builder.vocab_size, device)
+    vals = torch.from_numpy(builder._values).to(device)
+    ids = torch.from_numpy(builder._indices).to(device).long()
+    return (q[:, ids] * vals).sum(dim=2)
+
+
+def se_engines(torch, served, rows, device="cuda"):
+    """``CorpusEngine(shard_axis="term", n_shards=2)`` and one with a 2 x 2
+    ``plan`` at splade_xlmr, beside a shard-free engine fed the same adds
+    and removes: each grown by ``launch.serve.grow_engine`` (SE_ENGINE: one
+    batch of 64 at a time, 5 % tombstoned), compacted, one more batch as
+    the delta, each with its forward rows. The first engine encodes (K1);
+    the others are handed the same reps for the same tokens. Each sharded
+    engine searched with ``auto``, ``fused`` and ``pruned`` at B 8 and 64:
+    ids equal to the shard-free engine's ``impact`` search but at near
+    ties, no tombstoned id, ``fused`` launching K4 once (in place, on the
+    delta), ``auto`` K4's ceiling entry once (the delta's pruned path),
+    ``pruned`` none."""
+    from repro_torch.kernels import impact_score as k45
+    from repro_torch.launch.serve import SEED, grow_engine
+    from repro_torch.retrieval.engine import (Shard2DIndex, ShardPlan,
+                                              TermShardedIndex)
+    from repro_torch.runtime.serving import (BatchedEncoder, BatchPolicy,
+                                             CorpusEngine,
+                                             make_config_encoder)
+
+    cfg, k = served["cfg"], SERVE["topk"]
+    encode = make_config_encoder(served["params"], cfg)
+    memo, calls = {}, []
+
+    def encode_once(tokens, mask):
+        key = (tuple(tokens.shape), tokens.numpy().tobytes(),
+               mask.numpy().tobytes())
+        if key not in memo:
+            calls.append(tuple(tokens.shape))
+            memo[key] = encode(tokens, mask)
+        return memo[key]
+
+    kinds = {"shard_free": {}, "term": {"shard_axis": "term", "n_shards": 2},
+             "grid": {"plan": ShardPlan(2, 2)}}
+    engines, grown = {}, {}
+    for name, kw in kinds.items():
+        eng = CorpusEngine(BatchedEncoder(
+            encode_once, policy=BatchPolicy(max_batch=SE_ENGINE["batch"])),
+            cfg.vocab_size, keep_forward=True, device=device, **kw)
+        rng = np.random.default_rng(SEED)
+        t0 = time.perf_counter()
+        grow_engine(eng, cfg.vocab_size, SE_ENGINE["corpus"],
+                    batch=SE_ENGINE["batch"], rng=rng,
+                    remove_frac=SE_ENGINE["remove_frac"])
+        gone = set(range(SE_ENGINE["corpus"])) - set(eng.builder._slot)
+        eng.flush(force_compact=True)
+        eng.add_docs([rng.integers(1, cfg.vocab_size, size=16)
+                      .astype(np.int32) for _ in range(SE_ENGINE["batch"])])
+        eng.flush()
+        engines[name] = eng
+        grown[name] = {"seconds": time.perf_counter() - t0,
+                       "stats": eng.stats()}
+    for name, cls in (("term", TermShardedIndex), ("grid", Shard2DIndex)):
+        st = grown[name]["stats"]
+        require(isinstance(engines[name].builder._base, cls)
+                and st["n_dead"] == 0
+                and st["delta_docs"] == SE_ENGINE["batch"]
+                and st == {**grown["shard_free"]["stats"],
+                           **{key: st[key] for key in (
+                               "term_shards", "doc_shards",
+                               "grid_term_shards", "generation")}},
+                f"sharded_engine {name}: segments {st} against the "
+                f"shard-free engine's {grown['shard_free']['stats']}")
+    ref = engines["shard_free"].builder
+    qs = {f"B{rows[t + 'v'].shape[0]}": se_rep(rows, t)
+          for t in ("q8", "q64")}
+    out, failed, total = {}, [], {}
+    want_launches = {
+        "auto": {"impact_topk": 0, "impact_ceiling_topk": 1},
+        "fused": {"impact_topk": 1, "impact_index_topk": 1,
+                  "impact_ceiling_topk": 0},
+        "pruned": {"impact_topk": 0, "impact_ceiling_topk": 0}}
+    for b, q in qs.items():
+        scores = se_exact_scores(torch, ref, q, device)
+        _, ext_w = engines["shard_free"].search(q, k, method="impact")
+        slot_w = torch.from_numpy(np.vectorize(
+            lambda e: ref._slot.get(int(e), 0))(ext_w)).to(device)
+        for name in ("term", "grid"):
+            eng = engines[name]
+            for method, want in want_launches.items():
+                reset_k45(k45)
+                vals, ext = eng.search(q, k, method=method)
+                launched = k45_launches(k45)
+                for key, n in launched.items():
+                    total[key] = total.get(key, 0) + n
+                ms, spread = se_ms(
+                    torch, lambda: eng.search(q, k, method=method), device)
+                ok = (np.isfinite(vals).all() and (ext >= 0).all()
+                      and not gone & set(ext.ravel().tolist()))
+                slot = torch.from_numpy(np.vectorize(
+                    lambda e: ref._slot.get(int(e), 0))(ext)).to(device)
+                hard, differ = ids_beyond_near_ties(torch, scores, slot,
+                                                    slot_w)
+                out[f"{name}_{method}_{b}"] = {
+                    "resolved": eng.builder.resolved_method(method),
+                    "launches": launched, "ids_differ": differ,
+                    "beyond_near_ties": hard, "host_ms": ms,
+                    "host_ms_range": spread}
+                if not ok or hard:
+                    failed.append(f"engine {name} {method} {b}: padding, "
+                                  f"tombstoned or non-finite results, or "
+                                  f"{hard} ids beyond near ties")
+                if any(launched[key] != n for key, n in want.items()):
+                    failed.append(f"engine {name} {method} {b}: launched "
+                                  f"{launched}, expected {want}")
+    require(not failed, "; ".join(failed))
+    return {"grown": grown, "searches": out, "encode_calls": len(calls),
+            "removed": len(gone), "search_launches": total}
+
+
+def se_cli(torch):
+    """The serve CLI's ``run`` once with each sharded method of SE_CLI on
+    splade_bert's CONFIG with the serve phase's weights (seed 0): every
+    request served, the method as asked, finite scores."""
+    import dataclasses
+
+    from repro_torch.configs.splade_bert import CONFIG
+    from repro_torch.launch.serve import run
+    from repro_torch.models.transformer import init_params
+    from repro_torch.runtime.serving import (FailedResult, ShedResult,
+                                             make_config_encoder)
+
+    cfg = dataclasses.replace(CONFIG, rep_topk=SERVE["rep_topk"])
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    encode = make_config_encoder(params, cfg)
+    out = {}
+    for method, kw in SE_CLI["runs"].items():
+        t0 = time.perf_counter()
+        res = run(encode, cfg.vocab_size, corpus=SE_CLI["corpus"],
+                  requests=SE_CLI["requests"], topk=SE_CLI["topk"],
+                  method=method, index_batch=SE_CLI["index_batch"],
+                  device=torch.device("cuda"), **kw)
+        unserved = [r for r in res["outcomes"].values()
+                    if isinstance(r, (ShedResult, FailedResult))]
+        require(not unserved and res["method"] == method
+                and bool(torch.isfinite(res["vals"]).all())
+                and tuple(res["vals"].shape) == (8, SE_CLI["topk"]),
+                f"serve CLI --method {method}: {len(unserved)} unserved, "
+                f"resolved {res['method']!r}")
+        out[method] = {"args": kw, "served": len(res["served"]),
+                       "lines": res["shard_lines"], "index_s": res["index_s"],
+                       "serve_s": res["serve_s"],
+                       "retrieve_ms": 1e3 * res["retrieve_s"],
+                       "seconds": time.perf_counter() - t0}
+    return out
+
+
+def phase_sharded_engine(torch, served=None, rows=None):
+    """The doc-, term- and 2D-sharded engines at splade_xlmr's V on the
+    xlmr engine's 19456 live rows and the served queries (``engine_rows``;
+    run alone, the xlmr serve and engine phases make them first): one
+    process (``se_one_process``), one gloo world of SE_RANKS ranks sharing
+    the card (``se_world``), the sharded ``CorpusEngine``s
+    (``se_engines``) and the serve CLI's sharded methods at splade_bert
+    (``se_cli``); no plain version on the card."""
+    from repro_torch.kernels import impact_score as k45
+    from repro_torch.kernels import sparton as k1
+
+    t0 = time.perf_counter()
+    if served is None:
+        from repro_torch.configs.splade_xlmr import CONFIG
+
+        served = phase_serve(torch, CONFIG, "xlmr_serve")
+        engine = phase_serve_engine(torch, served, "xlmr_serve_engine",
+                                    shared_gates=False)
+        rows = engine_rows(served, engine["engine"].builder)
+        del engine
+        torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    vocab = served["cfg"].vocab_size
+    seconds, launches = {}, {}
+    with plain_guard(k1=(k1, "sparton_forward_plain"),
+                     **k45_plains(k45)) as plain_on_cuda:
+        t1 = time.perf_counter()
+        reset_launches()
+        one = se_one_process(torch, rows, vocab)
+        launches["one_process"] = read_launches()
+        seconds["one_process"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        world = se_world(torch, rows, vocab, one.pop("results"))
+        seconds["world"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        reset_launches()
+        engines = se_engines(torch, served, rows)
+        # K4's and K5's launches: the gated searches' (not their timing)
+        launches["engines"] = {**read_launches(),
+                               **engines["search_launches"]}
+        k1_paths = {"engines": k1_on_tma(k1, "sharded_engine engines")}
+        require(launches["engines"]["sparton_fwd"]
+                == engines["encode_calls"],
+                f"sharded_engine: K1 launched "
+                f"{launches['engines']['sparton_fwd']} times for "
+                f"{engines['encode_calls']} encode batches")
+        seconds["engines"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        reset_launches()
+        cli = se_cli(torch)
+        launches["cli"] = read_launches()
+        k1_paths["cli"] = k1_on_tma(k1, "sharded_engine cli")
+        seconds["cli"] = time.perf_counter() - t1
+    require(not plain_on_cuda, f"sharded_engine: plain versions ran on "
+                               f"CUDA tensors: {sorted(set(plain_on_cuda))}")
+    require(all(n["impact_q_topk"] == n["topk_score"] == 0
+                for n in launches.values())
+            and launches["one_process"]["impact_topk"] == 0,
+            f"sharded_engine: K5, K6 or a one-process K4 launched: "
+            f"{launches}")
+    seconds["total"] = time.perf_counter() - t_start
+    seconds["with_prerequisites"] = time.perf_counter() - t0
+    emit("sharded_engine", note=SE_NOTE, config=served["cfg"].name,
+         docs=int(rows["dv"].shape[0]), width=int(rows["dv"].shape[1]),
+         prune=SE_PRUNE, mesh=list(SE_MESH[0]), ranks=SE_RANKS,
+         backend="gloo", one_process=one, world=world, engines=engines,
+         cli=cli, launches=launches, k1_paths=k1_paths, seconds=seconds)
+    return {"launches": launches, "k1_paths": k1_paths,
+            "seconds": seconds["total"]}
+
+
 ALONE = {"recsys": phase_recsys, "dimenet": phase_dimenet,
-         "dryrun": phase_dryrun, "sharded": phase_sharded}
+         "dryrun": phase_dryrun, "sharded": phase_sharded,
+         "sharded_engine": phase_sharded_engine}
 
 
 def only_phases(torch, names) -> int:
@@ -7321,7 +7838,7 @@ def only_phases(torch, names) -> int:
 def kernel_rows(measured, launches, dense_launches, engine_launches,
                 train_launches, k1_paths, xlmr, eval_launches, ckpt_launches,
                 pruned, frontier, examples, decoder, moe, train_decoder,
-                recsys, dryrun, sharded):
+                recsys, dryrun, sharded, sharded_engine):
     """The ``{"kernels": [...]}`` line: each kernel's launches on its path
     and its numbers from the timing phase (K1 at an index batch, K2/K3 at
     the train shape, K4, K5 and K6 at the served queries; K1 also at the
@@ -7370,7 +7887,10 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
     each measured step of the dryrun phase (2 x n_micro for K1-K3 in an
     LSR train step, K1 1 in the prefill, 0 elsewhere), and
     ``sharded_launches`` in the sharded phase's runs on each rank (its
-    prefill, the last step on each mesh); K1's, K2's and K3's
+    prefill, the last step on each mesh), ``sharded_engine_launches`` in
+    the sharded_engine phase's one-process searches, engines and CLI runs
+    (K1 the engines' and the CLI's encode batches, K4 the engines' delta
+    searches); K1's, K2's and K3's
     ``at_sharded`` their numbers at train_16 on rank 1's vocab rows
     (``shard``) and on the whole vocabulary (``whole``)."""
     main_k1, bwd, k4, k5, k6 = (measured[key]
@@ -7486,7 +8006,8 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
         for phase, out in (("decoder", decoder), ("moe", moe),
                            ("train_decoder", train_decoder),
                            ("recsys", recsys), ("dryrun", dryrun),
-                           ("sharded", sharded)):
+                           ("sharded", sharded),
+                           ("sharded_engine", sharded_engine)):
             row[f"{phase}_launches"] = {
                 where: n[key] for where, n in out["launches"].items()}
     for row, kernel in ((rows[0], "k1"), (rows[1], "dh"), (rows[2], "de")):
@@ -7601,8 +8122,13 @@ def main(argv=()) -> int:
     dry_pending = start_dryrun()
     k1_paths["eval"] = evaluated["k1_paths"]
     xlmr = clocked("xlmr", phase_xlmr, torch)
+    # the sharded_engine phase runs inside xlmr, on its weights and rows
+    timeline["sharded_engine"] = xlmr["sharded_engine"]["seconds"]
+    timeline["xlmr"] -= timeline["sharded_engine"]
     k1_paths.update({f"xlmr_{where}": paths
                      for where, paths in xlmr["k1_paths"].items()})
+    k1_paths.update({f"sharded_engine_{where}": paths for where, paths
+                     in xlmr["sharded_engine"]["k1_paths"].items()})
     ckpt = clocked("ckpt", phase_ckpt, torch)
     k1_paths.update(ckpt["k1_paths"])
     example_serve = clocked("example_serve", phase_example_serve, torch)
@@ -7634,7 +8160,8 @@ def main(argv=()) -> int:
         measured, served["launches"], dense_launches, engine_launches,
         trained["launches"], k1_paths, xlmr, evaluated["launches"],
         ckpt["launches"], served_pruned, frontier, examples, decoder,
-        moe, train_decoder, recsys, dry, sharded)}),
+        moe, train_decoder, recsys, dry, sharded,
+        xlmr["sharded_engine"])}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,9 +27,9 @@ engine preserves across mutations — see ``qrels.py``.
 
 ``DEFAULT_METHODS`` is the JAX package's: ``exact``, ``pruned`` (the
 builder's forward rows, the two-tier scorer at margin 0) and
-``quantized``. A spec with ``doc_shards > 0`` raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 10 (multi-GPU); it
-does not fall back to another method.
+``quantized``. A spec with ``doc_shards > 0`` searches a doc-range
+``ShardedIndex`` instead of a builder (``engine.sharded_index``), and the
+builder's ``term_shards`` / ``plan`` give the term-sharded and 2D bases.
 """
 
 from __future__ import annotations
@@ -43,7 +43,9 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.eval.metrics import METRIC_NAMES, compute_metrics
 from repro_torch.eval.qrels import Qrels
-from repro_torch.retrieval.engine.builder import MULTI_GPU, IndexBuilder
+from repro_torch.retrieval.engine.builder import IndexBuilder
+from repro_torch.retrieval.engine.sharded_index import shard_index
+from repro_torch.retrieval.score import retrieve
 from repro_torch.retrieval.sparse_rep import (SparseRep, sparsify_topk,
                                               stack_rows)
 
@@ -53,9 +55,12 @@ class MethodSpec:
     """One evaluated retrieval configuration.
 
     ``engine`` kwargs feed ``IndexBuilder`` (``quantize=True``,
-    ``keep_forward=True``); ``search`` kwargs feed ``IndexBuilder.search``
-    (``method=``, ``q_width=``, ``prune_margin=``, ``candidates=``). ``doc_shards > 0`` (a doc-range sharded index in the
-    JAX package) is not ported yet and raises.
+    ``keep_forward=True``, ``term_shards=n``, ``plan=``); ``search`` kwargs
+    feed ``IndexBuilder.search`` (``method=``, ``q_width=``,
+    ``prune_margin=``, ``candidates=``). ``doc_shards > 0`` instead builds
+    a doc-range ``ShardedIndex`` and searches it with ``sharded`` (the
+    builder has no doc-sharded mode: doc sharding is a serving-mesh
+    choice).
     """
     name: str
     engine: Mapping[str, Any] = dataclasses.field(default_factory=dict)
@@ -140,10 +145,15 @@ def _search_one(spec: MethodSpec, doc_reps: SparseRep,
                 ) -> np.ndarray:
     """External-id ``(B, k)`` ranking for one method config."""
     if spec.doc_shards:
-        raise NotImplementedError(
-            f"MethodSpec({spec.name!r}, doc_shards={spec.doc_shards}) is "
-            f"not ported yet: the doc-sharded index arrives with "
-            f"{MULTI_GPU}")
+        sidx = shard_index(doc_reps, vocab, spec.doc_shards,
+                           device=resolve_device(device))
+        _, idx = retrieve(q_reps, sidx, k, method="sharded",
+                          **dict(spec.search))
+        idx = idx.cpu().numpy()
+        ext = np.full(idx.shape, -1, np.int64)
+        ok = idx >= 0
+        ext[ok] = doc_ids[np.clip(idx, 0, doc_ids.shape[0] - 1)][ok]
+        return ext
     builder = IndexBuilder(vocab, device=resolve_device(device),
                            **dict(spec.engine))
     builder.add(doc_reps, ids=doc_ids)

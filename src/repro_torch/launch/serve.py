@@ -8,11 +8,19 @@ The pipeline of ``repro/launch/serve.py``, end to end:
               (``--method quantized`` compresses it, ``--method pruned``
               keeps its forward rows); with ``--rep-topk 0`` keep the
               dense reps as an ``(N, V)`` f32 corpus on the device
-              instead. With ``--engine`` the corpus grows online
+              instead. ``--method sharded|term_sharded|shard2d`` shards
+              the index over ``--shards`` doc ranges, vocab ranges or a
+              (doc × term) grid (``--shard-axis`` picks the axis of
+              ``sharded``: ``auto`` lets ``plan_placement`` size the grid
+              from the built index's posting bytes against its O(V)
+              directory). With ``--engine`` the corpus grows online
               through a ``CorpusEngine``: one ``add_docs`` + ``flush`` per
               batch, ``--remove-frac`` of it tombstoned at the end, the
-              base segment compressed with ``--quantize``, or the
-              segments' forward rows kept with ``--prune-margin``.
+              base segment compressed with ``--quantize``, the segments'
+              forward rows kept with ``--prune-margin``, or the base
+              partitioned by ``--shard-axis term|2d|auto`` over
+              ``--shards`` (``auto`` plans from the requested corpus size
+              and rep budget).
 2. serve    — stream queries (4–24 tokens) through the deadline/size
               micro-batching loop; results are popped with ``take``.
               ``--deadline-ms`` gives every request an SLO (the loop may
@@ -42,8 +50,9 @@ It runs the config's SMOKE size with seeded random weights on
 ``--device`` (default ``cuda``; ``--device cpu`` runs the kernels' plain
 versions). ``run`` and ``run_tenants`` are the same pipelines for any
 encode fn and config; ``chip_smoke.py`` drives them at full width. The
-JAX entry point's sharding flags (``--shards``, ``--shard-axis``) arrive
-with multi-GPU (ROADMAP Queue 1 item 10).
+sharded indexes are searched in this one process (every shard in turn,
+the reference's single-device path); ``retrieve(..., mesh=)`` spreads
+them over the ranks of a ``torch.distributed`` world.
 """
 
 from __future__ import annotations
@@ -62,15 +71,28 @@ N_QUERIES = 8   # served queries that go on to retrieval
 SEED = 0        # the synthetic corpus and requests
 
 
-def index_corpus(encode: Callable, vocab_size: int, n_docs: int, *,
-                 batch: int, rng: np.random.Generator, device,
-                 keep_forward: bool = False):
-    """Encode ``n_docs`` random docs in batches. Sparse reps are indexed
-    (an ``InvertedIndex``, with its forward rows when ``keep_forward``);
-    dense reps are written, batch by batch, into one ``(n_docs, V)`` f32
-    tensor on ``device``, the layout the streaming kernel reads in
-    place."""
-    from repro_torch.retrieval.index import build_inverted_index
+SHARDED = ("sharded", "term_sharded", "shard2d")
+
+
+def _grid_plan(n_shards: int):
+    """The most balanced (doc x term) factorization of an explicit
+    ``--shard-axis 2d``: the largest doc divisor <= sqrt(n), the term axis
+    the rest (a prime count degenerates to 1 x n)."""
+    from repro_torch.retrieval import ShardPlan
+
+    d = max(f for f in range(1, int(n_shards ** 0.5) + 1)
+            if n_shards % f == 0)
+    return ShardPlan(doc_shards=d, term_shards=n_shards // d,
+                     reason=f"--shard-axis 2d: balanced factorization "
+                            f"of {n_shards} devices")
+
+
+def encode_corpus(encode: Callable, vocab_size: int, n_docs: int, *,
+                  batch: int, rng: np.random.Generator, device):
+    """Encode ``n_docs`` random docs in batches: sparse reps stacked into
+    one ``(n_docs, K)`` host ``SparseRep``; dense reps written, batch by
+    batch, into one ``(n_docs, V)`` f32 tensor on ``device``, the layout
+    the streaming kernel reads in place."""
     from repro_torch.retrieval.sparse_rep import SparseRep, stack_rows
 
     parts, dense = [], None
@@ -86,10 +108,84 @@ def index_corpus(encode: Callable, vocab_size: int, n_docs: int, *,
             dense = torch.empty((n_docs, vocab_size), dtype=torch.float32,
                                 device=device)
         dense[lo:lo + n] = reps
-    if dense is not None:
-        return dense
-    return build_inverted_index(stack_rows(parts), vocab_size,
-                                keep_forward=keep_forward, device=device)
+    return dense if dense is not None else stack_rows(parts)
+
+
+def index_corpus(encode: Callable, vocab_size: int, n_docs: int, *,
+                 batch: int, rng: np.random.Generator, device,
+                 keep_forward: bool = False):
+    """``encode_corpus``, the sparse reps then indexed (an
+    ``InvertedIndex``, with its forward rows when ``keep_forward``)."""
+    from repro_torch.retrieval.index import build_inverted_index
+
+    reps = encode_corpus(encode, vocab_size, n_docs, batch=batch, rng=rng,
+                         device=device)
+    if isinstance(reps, torch.Tensor):
+        return reps
+    return build_inverted_index(reps, vocab_size, keep_forward=keep_forward,
+                                device=device)
+
+
+def shard_corpus(reps, index, vocab_size: int, method: str, shards: int,
+                 shard_axis: str, device):
+    """The sharded index of ``method`` over ``shards``: doc ranges
+    (``sharded``), vocab ranges (``term_sharded``) or the grid of
+    ``_grid_plan`` (``shard2d``); for ``sharded`` ``shard_axis`` picks the
+    axis, ``auto`` by ``plan_placement`` on ``index``'s stats. Returns
+    ``(corpus, method, lines)``, ``lines`` the reference's printed ones."""
+    from repro_torch.retrieval import (CorpusStats, plan_placement,
+                                       shard2d_index, shard_index,
+                                       term_shard_index)
+
+    plan, lines = None, []
+    axis = {"term_sharded": "term", "shard2d": "2d"}.get(method, shard_axis)
+    if axis == "auto":
+        plan = plan_placement(CorpusStats.from_index(index), shards)
+        axis = plan.axis
+        lines.append(f"auto shard plan -> {plan.describe()}: {plan.reason}")
+    if axis == "2d":
+        plan = plan or _grid_plan(shards)
+        corpus = shard2d_index(reps, vocab_size, plan.doc_shards,
+                               plan.term_shards, device=device)
+        lines.append(f"2d-sharded index: {plan.doc_shards} doc chunks x "
+                     f"{plan.term_shards} vocab ranges (psum over terms, "
+                     f"top-k merge over docs)")
+        return corpus, "shard2d", lines
+    if axis == "term":
+        corpus = term_shard_index(reps, vocab_size, shards, device=device)
+        lines.append(f"term-sharded index: {shards} shards x "
+                     f"{corpus.local_vocab} vocab terms (partial-sum merge)")
+        return corpus, "term_sharded", lines
+    corpus = shard_index(reps, vocab_size, shards, device=device)
+    lines.append(f"sharded index: {shards} shards x "
+                 f"{corpus.docs_per_shard} docs")
+    return corpus, "sharded", lines
+
+
+def engine_plan(shard_axis: str, shards: int, corpus: int, rep_topk: int,
+                vocab_size: int, quantize: bool):
+    """An ``--engine`` base's placement: ``(CorpusEngine kwargs, lines)``.
+    ``auto`` plans from estimated stats (no corpus exists before the
+    build: the requested doc count and the sparsifier's budget bound the
+    posting mass), ``2d`` takes ``_grid_plan``, ``term`` the vocab ranges;
+    a quantized base stays one index."""
+    from repro_torch.retrieval import CorpusStats, plan_placement
+
+    if shard_axis == "auto" and not quantize:
+        est = CorpusStats(posting_bytes=8 * corpus * min(16, rep_topk),
+                          vocab_size=vocab_size, n_docs=corpus)
+        plan = plan_placement(est, shards)
+        return {"plan": plan}, [f"auto shard plan (estimated stats) -> "
+                                f"{plan.describe()}: {plan.reason}"]
+    if shard_axis == "auto":
+        return {}, ["auto shard axis with --quantize: the base is "
+                    "compressed, not partitioned -> doc (single-index "
+                    "base)"]
+    if shard_axis == "2d":
+        plan = _grid_plan(shards)
+        return {"plan": plan}, [f"2d shard plan -> {plan.describe()}"]
+    return {"shard_axis": "term" if shard_axis == "term" else "doc",
+            "n_shards": shards}, []
 
 
 def grow_engine(engine, vocab_size: int, n_docs: int, *, batch: int,
@@ -148,7 +244,8 @@ def run(encode: Callable, vocab_size: int, *, corpus: int, requests: int,
         topk: int, method: str, index_batch: int, device, engine=None,
         remove_frac: float = 0.0, prune_margin: Optional[float] = None,
         continuous: bool = False, deadline_ms: Optional[float] = None,
-        max_queue: int = 1024, cache_mb: float = 0.0) -> Dict[str, Any]:
+        max_queue: int = 1024, cache_mb: float = 0.0, shards: int = 2,
+        shard_axis: str = "doc") -> Dict[str, Any]:
     """Index, serve, retrieve. Returns what each stage produced and took
     (host seconds, each stage ending in a device synchronisation); its
     ``"index"`` is the ``InvertedIndex`` (a ``QuantizedIndex`` for
@@ -157,12 +254,16 @@ def run(encode: Callable, vocab_size: int, *, corpus: int, requests: int,
     corpus, and with an ``engine`` (a ``CorpusEngine``, grown here by
     ``grow_engine``; ``corpus=0`` serves it as it is) the engine, searched
     with ``method``, or with ``method="pruned"`` at ``prune_margin`` when
-    that is given. The loop takes ``continuous``, ``deadline_ms`` and
-    ``max_queue`` (``serve_requests``). With ``cache_mb > 0`` the engine is
+    that is given. A sharded ``method`` searches ``shard_corpus``'s index
+    over ``shards`` (``shard_axis`` for ``sharded``; the raw index in
+    ``"raw_index"``, the method it resolved to in ``"method"``, the printed
+    lines in ``"shard_lines"``). The loop takes ``continuous``,
+    ``deadline_ms`` and ``max_queue`` (``serve_requests``). With ``cache_mb > 0`` the engine is
     searched through a ``CachedEngine`` (``"cached"``; ``fused`` unless
     pruned) twice: ``"passes"`` holds each pass's ``(vals, ids,
     seconds)``, ``"vals"``/``"idx"`` the second's."""
     from repro_torch.retrieval.engine.quantize import quantize_index
+    from repro_torch.retrieval.index import build_inverted_index
     from repro_torch.retrieval.score import resolve_method, retrieve
     from repro_torch.retrieval.sparse_rep import SparseRep, stack_rows
     from repro_torch.runtime.serving import FailedResult, ShedResult
@@ -174,6 +275,13 @@ def run(encode: Callable, vocab_size: int, *, corpus: int, requests: int,
         grow_engine(engine, vocab_size, corpus, batch=index_batch, rng=rng,
                     remove_frac=remove_frac)
         index = engine
+    elif method in SHARDED:
+        reps = encode_corpus(encode, vocab_size, corpus, batch=index_batch,
+                             rng=rng, device=device)
+        raw = build_inverted_index(reps, vocab_size, device=device)
+        index, method, out["shard_lines"] = shard_corpus(
+            reps, raw, vocab_size, method, shards, shard_axis, device)
+        out["raw_index"] = raw
     else:
         index = index_corpus(encode, vocab_size, corpus, batch=index_batch,
                              rng=rng, device=device,
@@ -373,6 +481,23 @@ def main(argv=None) -> int:
                          "corpus")
     ap.add_argument("--method", default="auto", choices=METHODS,
                     help="retrieval path (repro_torch.retrieval.retrieve)")
+    ap.add_argument("--shards", type=int, default=2,
+                    help="--method sharded/term_sharded/shard2d or an "
+                         "--engine base: the shard count (scored in this "
+                         "one process)")
+    ap.add_argument("--shard-axis", default="doc",
+                    choices=("auto", "doc", "term", "2d"),
+                    help="sharding axis for --method sharded or an "
+                         "--engine base: doc = contiguous doc ranges "
+                         "(all_gather + re-top-k merge), term = vocab "
+                         "ranges with whole posting lists (partial-sum "
+                         "psum merge; the huge-|V| regime), 2d = the (doc "
+                         "x term) grid composing both, auto = "
+                         "plan_placement picks the (doc_shards, "
+                         "term_shards, replicas) grid from posting bytes "
+                         "against the O(V) directory (a frozen build sizes "
+                         "the real index; --engine plans from the "
+                         "requested corpus size and rep budget)")
     ap.add_argument("--head-impl", default=None,
                     help="override the config's head backend (naive, "
                          "tiled, sparton or kernel; default kernel)")
@@ -426,6 +551,12 @@ def main(argv=None) -> int:
     if args.method in INDEX_METHODS and args.rep_topk <= 0:
         ap.error(f"--method {args.method} needs SparseRep queries and an "
                  "index; pass a positive --rep-topk")
+    if args.shard_axis in ("term", "2d") and args.quantize:
+        ap.error(f"--shard-axis {args.shard_axis} and --quantize are "
+                 "exclusive (the base segment is either partitioned or "
+                 "compressed)")
+    if args.shards < 1:
+        ap.error("--shards must be >= 1")
     if ((args.quantize or args.prune_margin is not None or args.remove_frac)
             and not args.engine):
         ap.error("--quantize/--prune-margin/--remove-frac need --engine")
@@ -487,23 +618,35 @@ def main(argv=None) -> int:
         from repro_torch.runtime.serving import (BatchedEncoder, BatchPolicy,
                                                  CorpusEngine)
 
+        placement, lines = engine_plan(args.shard_axis, args.shards,
+                                       args.corpus, args.rep_topk,
+                                       cfg.vocab_size, args.quantize)
+        for line in lines:
+            print(line)
         engine = CorpusEngine(
             BatchedEncoder(encode,
                            policy=BatchPolicy(max_batch=args.index_batch)),
             cfg.vocab_size, quantize=args.quantize,
-            keep_forward=args.prune_margin is not None, device=device)
+            keep_forward=args.prune_margin is not None, device=device,
+            **placement)
     res = run(encode, cfg.vocab_size, corpus=args.corpus,
               requests=args.requests, topk=args.topk, method=args.method,
               index_batch=args.index_batch, device=device, engine=engine,
               remove_frac=args.remove_frac, prune_margin=args.prune_margin,
               continuous=args.continuous, deadline_ms=args.deadline_ms,
-              max_queue=args.max_queue, cache_mb=args.cache_mb)
+              max_queue=args.max_queue, cache_mb=args.cache_mb,
+              shards=args.shards, shard_axis=args.shard_axis)
     corpus = res["index"]
     if engine is not None:
         st = engine.stats()
+        shards = (f", term shards: {st['term_shards']}"
+                  if st["term_shards"] else "")
+        if st["doc_shards"]:
+            shards = (f", grid: {st['doc_shards']}x"
+                      f"{st['grid_term_shards']} (doc x term)")
         print(f"engine-indexed {st['n_alive']} live docs ({st['n_dead']} "
               f"tombstoned, {st['n_compactions']} compactions, quantized "
-              f"base: {st['quantized_base']}) in "
+              f"base: {st['quantized_base']}{shards}) in "
               f"{res['index_s'] * 1e3:.1f} ms")
     elif isinstance(corpus, torch.Tensor):
         print(f"indexed {corpus.shape[0]} docs dense in "
@@ -517,7 +660,10 @@ def main(argv=None) -> int:
               f"terms, {st['memory_bytes'] / 2**20:.2f} MiB (dense (N, V) "
               f"would be {args.corpus * cfg.vocab_size * 4 / 2**20:.2f} "
               f"MiB)")
-        if raw is not corpus:
+        if "shard_lines" in res:
+            for line in res["shard_lines"]:
+                print(line)
+        elif raw is not corpus:
             print(f"quantized index: {corpus.memory_bytes() / 2**20:.2f} "
                   f"MiB (1/{raw.memory_bytes() / corpus.memory_bytes():.2f} "
                   f"of raw)")

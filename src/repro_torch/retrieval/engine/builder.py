@@ -35,11 +35,19 @@ rows, so ``auto`` resolves each to the two-tier ``pruned`` method (K4's
 ceiling entry); ``method="pruned"`` scores the delta with ``impact``. Every
 mutation that can change what ``search`` returns bumps ``generation``.
 
+``term_shards=n`` serves the base as a ``TermShardedIndex`` over ``n``
+vocab ranges; ``plan=`` (a ``ShardPlan``) carries the topology instead: its
+term axis sets the ranges, and a grid of both axes serves the base as a
+``Shard2DIndex`` (a doc-only plan keeps the one-index base: doc sharding is
+the serving mesh's concern). The delta stays a raw ``InvertedIndex``: the
+``pruned``, ``quantized`` and sharded methods score it with ``impact``,
+and ``fused`` with K4; ``pruned`` and ``fused`` on a sharded base go to the
+base's sharded method (its own two-tier composition; margin 0 is its exact
+path). A sharded base and ``quantize`` are exclusive.
+
 The segments live on ``device`` (default ``cuda``); the row store and the
-builds are host numpy, as in the JAX package. Term-sharded and 2D bases
-(``term_shards``, ``plan``) are not ported yet and raise, naming the
-ROADMAP item that brings them. Not thread-safe; callers serialize, as the
-serving loop does.
+builds are host numpy, as in the JAX package. Not thread-safe; callers
+serialize, as the serving loop does.
 """
 
 from __future__ import annotations
@@ -55,11 +63,15 @@ from repro_torch.kernels.topk_score import merge_topk
 from repro_torch.retrieval import score
 from repro_torch.retrieval.engine.quantize import (QuantizedIndex,
                                                    quantize_index)
+from repro_torch.retrieval.engine.shard2d import Shard2DIndex, shard2d_index
+from repro_torch.retrieval.engine.term_sharded import (TermShardedIndex,
+                                                       term_shard_index)
 from repro_torch.retrieval.index import InvertedIndex, build_inverted_index
 from repro_torch.retrieval.sparse_rep import (SparseRep, device_get,
                                               truncate_width)
 
-MULTI_GPU = "ROADMAP Queue 1 item 10 (multi-GPU)"
+# the methods a raw delta cannot serve: it is searched with "impact"
+BASE_ONLY = ("pruned", "quantized", "sharded", "term_sharded", "shard2d")
 
 
 def _host_rows(reps: SparseRep) -> Tuple[np.ndarray, np.ndarray]:
@@ -78,10 +90,24 @@ class IndexBuilder:
                  keep_forward: bool = False, merge_frac: float = 0.25,
                  compact_dead_frac: float = 0.25, term_shards: int = 0,
                  plan=None, device: DeviceLike = None):
-        if plan is not None or term_shards:
-            raise NotImplementedError(
-                "plan= and term_shards= are not ported yet: sharded bases "
-                f"arrive with {MULTI_GPU}")
+        # the plan's term axis sets term_shards; a grid of both axes makes
+        # the base a Shard2DIndex
+        self._grid = None
+        if plan is not None:
+            if term_shards:
+                raise ValueError(
+                    "pass either plan= or term_shards=, not both — "
+                    "the plan carries the shard topology")
+            if plan.doc_shards > 1 and plan.term_shards > 1:
+                self._grid = (plan.doc_shards, plan.term_shards)
+            else:
+                term_shards = plan.term_shards if plan.term_shards > 1 else 0
+        if (term_shards or self._grid) and quantize:
+            raise ValueError(
+                "sharded plans and quantize are exclusive — the base "
+                "segment is either partitioned or compressed")
+        self.plan = plan
+        self.term_shards = term_shards
         self.vocab_size = vocab_size
         self.quantize = quantize
         self.keep_forward = keep_forward
@@ -96,8 +122,10 @@ class IndexBuilder:
         self._slot: Dict[int, int] = {}              # external -> slot
         self._next_ext = 0
 
-        self._base: Union[InvertedIndex, QuantizedIndex, None] = None
-        self._base_raw: Optional[InvertedIndex] = None
+        self._base: Union[InvertedIndex, QuantizedIndex, TermShardedIndex,
+                          Shard2DIndex, None] = None
+        self._base_raw: Union[InvertedIndex, TermShardedIndex, Shard2DIndex,
+                              None] = None
         self._base_n = 0          # slots [0, _base_n) live in the base
         self._delta: Optional[InvertedIndex] = None
         self._delta_dirty = False      # adds/removes touching the tail
@@ -125,7 +153,7 @@ class IndexBuilder:
                 or (self._base is None and self.n_slots > 0))
 
     def stats(self) -> Dict[str, float]:
-        """The JAX builder's stats (its shard counts are 0 here)."""
+        """The JAX builder's stats."""
         return {
             "n_slots": self.n_slots,
             "n_alive": self.n_alive,
@@ -135,9 +163,9 @@ class IndexBuilder:
             "n_compactions": self.n_compactions,
             "quantized_base": bool(self.quantize
                                    and self._base is not None),
-            "term_shards": 0,
-            "doc_shards": 0,
-            "grid_term_shards": 0,
+            "term_shards": self.term_shards,
+            "doc_shards": self._grid[0] if self._grid else 0,
+            "grid_term_shards": self._grid[1] if self._grid else 0,
             "generation": self.generation,
         }
 
@@ -226,9 +254,23 @@ class IndexBuilder:
     def _pack_base(self, values: np.ndarray, indices: np.ndarray) -> None:
         rep = SparseRep(values, indices,
                         (values > 0).sum(axis=1).astype(np.int32))
-        raw = build_inverted_index(rep, self.vocab_size,
+        if self._grid is not None:
+            d, t = self._grid
+            # compaction can leave fewer live rows than planned chunks:
+            # clamp rather than refuse to serve
+            raw = shard2d_index(rep, self.vocab_size, min(d, values.shape[0]),
+                                t, keep_forward=self.keep_forward,
+                                device=self.device)
+        elif self.term_shards:
+            # postings_doc holds global slot ids on every shard, so the
+            # tombstone flush zeroes them as on a one-index base
+            raw = term_shard_index(rep, self.vocab_size, self.term_shards,
                                    keep_forward=self.keep_forward,
                                    device=self.device)
+        else:
+            raw = build_inverted_index(rep, self.vocab_size,
+                                       keep_forward=self.keep_forward,
+                                       device=self.device)
         self._base_raw = raw
         self._base = quantize_index(raw) if self.quantize else raw
 
@@ -276,13 +318,21 @@ class IndexBuilder:
 
         if self._base_removals and self._base_raw is not None:
             raw = self._base_raw
-            dead = torch.as_tensor(np.asarray(self._base_removals, np.int64),
-                                   device=raw.device)
-            zeroed = torch.isin(raw.postings_doc.long(), dead)
-            kw = {"postings_val": torch.where(zeroed, 0.0, raw.postings_val)}
-            if raw.doc_values is not None:
-                kw["doc_values"] = raw.doc_values.index_fill(0, dead, 0.0)
-            self._base_raw = dataclasses.replace(raw, **kw)
+            if isinstance(raw, Shard2DIndex):
+                # the cells hold chunk-local doc ids: the index remaps
+                self._base_raw = raw.zero_docs(self._base_removals)
+            else:
+                # a one-index or term-sharded base: global slot ids
+                dead = torch.as_tensor(
+                    np.asarray(self._base_removals, np.int64),
+                    device=raw.device)
+                zeroed = torch.isin(raw.postings_doc.long(), dead)
+                kw = {"postings_val": torch.where(zeroed, 0.0,
+                                                  raw.postings_val)}
+                if raw.doc_values is not None:
+                    kw["doc_values"] = raw.doc_values.index_fill(0, dead,
+                                                                 0.0)
+                self._base_raw = dataclasses.replace(raw, **kw)
             self._base = (quantize_index(self._base_raw) if self.quantize
                           else self._base_raw)
             self._base_removals = []
@@ -308,11 +358,25 @@ class IndexBuilder:
 
     # -- search ----------------------------------------------------------
 
+    def _base_method(self, method: str) -> str:
+        """The method the base segment is scored with (before ``auto``
+        resolves): a term-sharded or 2D base serves ``pruned`` through its
+        own two-tier composition and ``fused`` through its exact path (no
+        kernel reads a sharded index), so both go to its sharded
+        method."""
+        if method in ("pruned", "fused"):
+            if self._grid is not None:
+                return "shard2d"
+            if self.term_shards:
+                return "term_sharded"
+        return method
+
     def resolved_method(self, method: str = "auto") -> str:
         """The method ``search(method=...)`` scores the base segment with
         (the delta's if there is no base)."""
         if self._base is not None:
-            return score.resolve_method(method, self._base)
+            return score.resolve_method(self._base_method(method),
+                                        self._base)
         if method != "auto":
             return score.resolve_method(method, None)
         if self._delta is not None:
@@ -381,12 +445,12 @@ class IndexBuilder:
                                   dict(kw))
             if out is None:
                 out = score.retrieve(queries, self._base, k_base,
-                                     method=method, **kw)
+                                     method=self._base_method(method), **kw)
             parts.append(out)
         if self._delta is not None:
             # the delta is always a raw InvertedIndex: the base-only
             # methods fall back to exact impact scoring
-            dm = "impact" if method in ("pruned", "quantized") else method
+            dm = "impact" if method in BASE_ONLY else method
             dv, di = score.retrieve(queries, self._delta,
                                     min(k, self._delta.n_docs), method=dm)
             parts.append((dv, di + self._base_n))

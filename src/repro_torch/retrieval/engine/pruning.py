@@ -155,6 +155,26 @@ def select_and_rescore(ub_top: torch.Tensor, cand: torch.Tensor,
     return vals, idx, frontier
 
 
+def select_and_rescore_dense(ub: torch.Tensor, queries: SparseRep,
+                             doc_values: torch.Tensor,
+                             doc_indices: torch.Tensor, vocab_size: int,
+                             k: int, candidates: int, prune_margin: float
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Tier 2 from dense ``(B, n_docs)`` ceilings ``ub``, the reference's
+    ``select_and_rescore(ub, ...)``: the stable top ``C + 1`` of ``ub``
+    (``topk_rows``, ties to the lowest id), then ``select_and_rescore``.
+    The term-sharded and 2D engines' pruned compositions, whose ceilings
+    are sums of per-shard partials, go through it; the single index's
+    pruned path keeps K4's ceiling entry. Returns ``(vals, idx,
+    exact_frontier)``."""
+    n_docs = ub.shape[1]
+    ub_top, cand = topk_rows(ub, min(candidates + 1, n_docs))
+    return select_and_rescore(ub_top, cand, queries, doc_values,
+                              doc_indices, vocab_size, n_docs, k,
+                              candidates, prune_margin)
+
+
 def pruned_retrieve(queries: SparseRep, index: InvertedIndex, k: int = 10,
                     *, prune_margin: float = 0.0,
                     candidates: Optional[int] = None,

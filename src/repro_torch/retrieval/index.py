@@ -20,8 +20,9 @@ The engine extensions of the JAX index:
   built from, kept with ``keep_forward=True``: the pruned scorer rescores
   its candidates from them.
 
-Vocab-range (term) shards arrive with multi-GPU (ROADMAP Queue 1 item
-10) and raise until then.
+``vocab_range=(lo, hi)`` builds a term shard: the terms of ``[lo, hi)``
+only, remapped to ``t - lo``, with global doc ids (the term-sharded and
+2D engines, ``engine/term_sharded``, ``engine/shard2d``).
 """
 
 from __future__ import annotations
@@ -111,6 +112,7 @@ def _posting_percentiles(lens: np.ndarray) -> Tuple[float, ...]:
 def build_inverted_index(reps: SparseRep, vocab_size: int, *,
                          keep_forward: bool = False,
                          with_upper_bounds: bool = True,
+                         stopword_warn_frac: float = STOPWORD_WARN_FRAC,
                          vocab_range: Optional[Tuple[int, int]] = None,
                          device: DeviceLike = None) -> InvertedIndex:
     """Build the index from a batched ``(N, K)`` corpus rep.
@@ -119,16 +121,17 @@ def build_inverted_index(reps: SparseRep, vocab_size: int, *,
     stably sorted by term so each posting list is in doc order. An empty
     corpus still yields one zero-impact posting, so the scorers' shapes
     never degenerate. Warns, with the posting-length percentiles, when
-    the longest list covers more than ``STOPWORD_WARN_FRAC`` of the docs.
+    the longest list covers more than ``stopword_warn_frac`` of the docs.
     ``with_upper_bounds`` stores each term's largest impact
     (``term_ubs``); ``keep_forward=True`` also stores the ``(N, K)``
-    forward rows, which the pruned scorer rescores from. ``vocab_range``
-    (a term shard) is not ported yet and raises.
+    forward rows, which the pruned scorer rescores from.
+
+    ``vocab_range=(lo, hi)`` builds a term shard: only the terms of ``[lo,
+    hi)``, remapped to local ids ``t - lo``, and ``vocab_size`` ``hi -
+    lo``; doc ids stay global (every term shard scores the whole corpus).
+    It excludes ``keep_forward``: forward rows carry global term ids (the
+    term-sharded index stores them once).
     """
-    if vocab_range is not None:
-        raise NotImplementedError(
-            "vocab_range is not ported yet: term shards arrive with "
-            "multi-GPU, ROADMAP Queue 1 item 10")
     dev = resolve_device(device)
     host = device_get(reps)
     k = host.width
@@ -144,6 +147,19 @@ def build_inverted_index(reps: SparseRep, vocab_size: int, *,
     vals = v[active]
     docs = np.broadcast_to(np.arange(n_docs, dtype=np.int32)[:, None],
                            i.shape)[active]
+    if vocab_range is not None:
+        lo, hi = vocab_range
+        if not 0 <= lo < hi <= vocab_size:
+            raise ValueError(
+                f"vocab_range {vocab_range} outside [0, {vocab_size})")
+        if keep_forward:
+            raise ValueError(
+                "vocab_range is incompatible with keep_forward — forward "
+                "rows carry global term ids (store them once on the "
+                "term-sharded index instead)")
+        sel = (terms >= lo) & (terms < hi)
+        terms, vals, docs = terms[sel] - lo, vals[sel], docs[sel]
+        vocab_size = hi - lo
 
     order = np.argsort(terms, kind="stable")
     terms, vals, docs = terms[order], vals[order], docs[order]
@@ -159,10 +175,10 @@ def build_inverted_index(reps: SparseRep, vocab_size: int, *,
 
     pct = _posting_percentiles(lens)
     max_postings = max(int(lens.max(initial=0)), 1)
-    if n_docs and max_postings > STOPWORD_WARN_FRAC * n_docs:
+    if n_docs and max_postings > stopword_warn_frac * n_docs:
         warnings.warn(
             f"build_inverted_index: longest posting list covers "
-            f"{max_postings}/{n_docs} docs (> {STOPWORD_WARN_FRAC:.0%} "
+            f"{max_postings}/{n_docs} docs (> {stopword_warn_frac:.0%} "
             f"of the corpus) — a stopword-like term pads every query "
             f"gather to ~N. Posting-length percentiles (active terms): "
             f"p50={pct[0]:.0f} p90={pct[1]:.0f} p99={pct[2]:.0f} "

@@ -1,6 +1,6 @@
 """Retrieval scoring behind one ``retrieve()`` (``repro/retrieval/score.py``).
 
-Methods ported so far:
+The methods:
 
     index corpora (queries must be ``SparseRep``s)
     "impact"    ``InvertedIndex``: gather the query terms' posting windows,
@@ -20,6 +20,21 @@ Methods ported so far:
                 keeping the best ``C + 1`` ceilings, then an exact
                 rescoring of the candidates from the forward rows (plain
                 PyTorch); ``prune_margin`` and ``candidates`` tune it
+    "sharded"   ``ShardedIndex`` (``engine/sharded_index``): each doc shard
+                scored as ``impact`` scores it, the per-shard winners
+                merged by a stable top-k (an ``all_gather`` under a mesh)
+    "term_sharded"  ``TermShardedIndex`` (``engine/term_sharded``): each
+                vocab range's partial sums, added (a ``psum`` under a
+                mesh), then one top-k; with ``prune_margin`` > 0 the
+                two-tier composition over the summed shard ceilings
+    "shard2d"   ``Shard2DIndex`` (``engine/shard2d``): the (doc × term)
+                grid, partials summed over the term axis into exact chunk
+                scores, then the doc axis merges per-chunk winners; with
+                ``prune_margin`` > 0 the two-tier composition
+                The sharded methods take ``mesh=`` (a ``launch.mesh.Mesh``;
+                None scores every shard in this process) and ``plan=`` (a
+                ``ShardPlan``, held to the built grid; for ``shard2d`` its
+                ``axis_order`` maps the grid onto the mesh's axes)
 
     dense corpora (an (N, V) tensor; ``SparseRep`` queries are densified)
     "dense"     ``q @ C^T`` and a top-k (plain PyTorch, as the JAX package
@@ -29,8 +44,9 @@ Methods ported so far:
                 contiguous f32 corpus is read in place, another one cast
                 to it once per call (as the reference casts)
 
-    "auto"      an ``InvertedIndex`` with upper bounds and forward rows
-                (an engine build): "pruned"; another index: "fused" from
+    "auto"      a sharded index: its sharded method; an ``InvertedIndex``
+                with upper bounds and forward rows (an engine build):
+                "pruned"; another index: "fused" from
                 ``AUTO_FUSED_N`` docs, else "impact" (``InvertedIndex``)
                 or "quantized" (``QuantizedIndex``); a dense corpus:
                 "streaming" from ``AUTO_STREAMING_N`` rows, else "dense"
@@ -39,12 +55,11 @@ All return ``(vals (B, k) f32, idx (B, k) i32)`` with ties to the lowest
 doc id, ``k`` clamped to the corpus size, and identical ids on inputs
 without near-ties. A query id outside ``[0, V)`` reads the term the
 reference's gather reads (a negative id plus V, then clamped to ``[0, V -
-1]``; ``kernels/impact_score.term_rows``). The JAX package's other
-methods raise ``NotImplementedError`` naming the ROADMAP item that brings
-them. Only ``pruned`` takes tuning keyword arguments (``prune_margin``,
-``candidates``); the JAX package's others (Pallas blocks, ``interpret``)
-are TPU knobs. A keyword the resolved method does not accept raises
-instead of being ignored (``METHOD_KWARGS``).
+1]``; ``kernels/impact_score.term_rows``). The pruned and sharded
+methods take keyword arguments (``prune_margin``, ``candidates``,
+``mesh``, ``plan``); the JAX package's others (Pallas blocks,
+``interpret``) are TPU knobs. A keyword the resolved method does not
+accept raises instead of being ignored (``METHOD_KWARGS``).
 """
 
 from __future__ import annotations
@@ -60,23 +75,32 @@ from repro_torch.retrieval.engine.pruning import pruned_retrieve
 from repro_torch.retrieval.engine.quantize import (QuantizedIndex,
                                                    fused_quantized_retrieve,
                                                    quantized_retrieve)
+from repro_torch.retrieval.engine.shard2d import (Shard2DIndex,
+                                                  shard2d_retrieve)
+from repro_torch.retrieval.engine.sharded_index import (ShardedIndex,
+                                                        sharded_retrieve)
+from repro_torch.retrieval.engine.term_sharded import (TermShardedIndex,
+                                                       term_sharded_retrieve)
 from repro_torch.retrieval.index import InvertedIndex
 from repro_torch.retrieval.sparse_rep import SparseRep, query_columns
 
-METHODS = ("auto", "impact", "quantized", "fused", "pruned", "dense",
-           "streaming")
+METHODS = ("auto", "impact", "quantized", "fused", "pruned", "sharded",
+           "term_sharded", "shard2d", "dense", "streaming")
 # methods that need an index corpus (not a dense matrix)
-INDEX_METHODS = ("impact", "quantized", "fused", "pruned")
+INDEX_METHODS = ("impact", "quantized", "fused", "pruned", "sharded",
+                 "term_sharded", "shard2d")
 # the tuning kwargs each method accepts (the JAX package's Pallas blocks
-# and ``interpret`` are TPU knobs)
+# and ``interpret`` are TPU knobs); the shard topology rides in ``plan``,
+# the ranks in ``mesh``
 METHOD_KWARGS = {m: frozenset() for m in METHODS if m != "auto"}
 METHOD_KWARGS["pruned"] = frozenset({"prune_margin", "candidates"})
-# the JAX package's other methods, and the ROADMAP item that ports each
-NOT_PORTED = {
-    "sharded": "ROADMAP Queue 1 item 10 (multi-GPU, slice 4)",
-    "term_sharded": "ROADMAP Queue 1 item 10 (multi-GPU, slice 4)",
-    "shard2d": "ROADMAP Queue 1 item 10 (multi-GPU, slice 4)",
-}
+METHOD_KWARGS["sharded"] = frozenset({"mesh", "plan"})
+METHOD_KWARGS["term_sharded"] = METHOD_KWARGS["shard2d"] = frozenset(
+    {"mesh", "plan", "prune_margin", "candidates"})
+# each sharded index type and its method
+SHARDED_METHODS = {ShardedIndex: "sharded",
+                   TermShardedIndex: "term_sharded",
+                   Shard2DIndex: "shard2d"}
 # corpora at or above this many rows route "auto" to a kernel that keeps
 # only the top-k (the streaming scorer for dense corpora, the fused impact
 # scorer for indexes): below it the dense (B, N) score matrix is a
@@ -124,10 +148,6 @@ def dense_retrieve(q: torch.Tensor, C: torch.Tensor, k: int
 
 
 def resolve_method(method: str, corpus) -> str:
-    if method in NOT_PORTED:
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet: it arrives with "
-            f"{NOT_PORTED[method]}")
     if method not in METHODS:
         raise ValueError(f"unknown retrieval method {method!r}; one of "
                          f"{list(METHODS)}")
@@ -135,6 +155,8 @@ def resolve_method(method: str, corpus) -> str:
         return method
     if isinstance(corpus, QuantizedIndex):
         return "fused" if corpus.n_docs >= AUTO_FUSED_N else "quantized"
+    if type(corpus) in SHARDED_METHODS:
+        return SHARDED_METHODS[type(corpus)]
     if isinstance(corpus, InvertedIndex):
         # an engine build (upper bounds + forward rows) serves the two-tier
         # pruned path; a bare index only the exact ones
@@ -158,11 +180,56 @@ def _check_kwargs(method: str, passed: dict) -> None:
             "); refusing to silently ignore a tuning knob")
 
 
+def _check_plan(plan, method: str, doc_shards: int, term_shards: int
+                ) -> None:
+    """A ``plan=`` must describe the index it rides with: the grid the
+    planner chose must be the grid that was built."""
+    if (plan.doc_shards, plan.term_shards) != (doc_shards, term_shards):
+        raise ValueError(
+            f"method={method!r}: plan grid "
+            f"{plan.doc_shards}x{plan.term_shards} (doc x term) does "
+            f"not match the built index "
+            f"{doc_shards}x{term_shards} — rebuild from the plan or "
+            f"re-plan from the corpus stats")
+
+
+def _sharded(queries, corpus, k: int, method: str, tuning: dict):
+    """The sharded methods: the corpus type, the plan held to the grid,
+    and margin 0 (or none) routed to the exact path (the same ids, no
+    candidate budget to size)."""
+    want = {"sharded": (ShardedIndex, "engine.sharded_index.shard_index"),
+            "term_sharded": (TermShardedIndex,
+                             "engine.term_sharded.term_shard_index"),
+            "shard2d": (Shard2DIndex, "engine.shard2d.shard2d_index")}
+    cls, builder = want[method]
+    if not isinstance(corpus, cls):
+        raise ValueError(f"method={method!r} needs a {cls.__name__} corpus "
+                         f"— build one with {builder}")
+    mesh, plan = tuning.get("mesh"), tuning.get("plan")
+    if method == "sharded":
+        if plan is not None:
+            _check_plan(plan, method, corpus.n_shards, 1)
+        return sharded_retrieve(queries, corpus, k, mesh=mesh)
+    margin = tuning.get("prune_margin") or 0.0
+    margin = margin if margin > 0 else None
+    if method == "term_sharded":
+        if plan is not None:
+            _check_plan(plan, method, 1, corpus.n_shards)
+        return term_sharded_retrieve(queries, corpus, k, mesh=mesh,
+                                     prune_margin=margin,
+                                     candidates=tuning.get("candidates"))
+    if plan is not None:
+        _check_plan(plan, method, corpus.doc_shards, corpus.term_shards)
+    return shard2d_retrieve(queries, corpus, k, mesh=mesh, plan=plan,
+                            prune_margin=margin,
+                            candidates=tuning.get("candidates"))
+
+
 def retrieve(queries, corpus, k: int = 10, *, method: str = "auto",
              **tuning) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k retrieval of ``queries`` (``SparseRep`` or dense ``(B, V)``)
-    from ``corpus`` (an ``InvertedIndex``, a ``QuantizedIndex`` or a dense
-    ``(N, V)`` tensor).
+    from ``corpus`` (an ``InvertedIndex``, a ``QuantizedIndex``, a sharded
+    index or a dense ``(N, V)`` tensor).
 
     ``k`` is clamped to the corpus size; results lie on the corpus's
     device. See the module docstring for the methods.
@@ -175,6 +242,8 @@ def retrieve(queries, corpus, k: int = 10, *, method: str = "auto",
                 f"method={method!r} needs SparseRep queries — sparsify "
                 "with retrieval.sparse_rep.sparsify_topk/threshold (an "
                 "explicit budget, not a silent one)")
+        if method in SHARDED_METHODS.values():
+            return _sharded(queries, corpus, k, method, tuning)
         if method == "fused" and isinstance(corpus, QuantizedIndex):
             return fused_quantized_retrieve(queries, corpus, k)
         if method == "quantized":

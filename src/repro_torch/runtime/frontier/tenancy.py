@@ -117,8 +117,8 @@ class TenantPool:
                    **engine_kw) -> TenantState:
         """Provision a tenant: engine, (shared-cache) frontend, its own
         loop and ladder. ``engine_kw`` goes to ``CorpusEngine``
-        (``quantize``, ``keep_forward``, ``device``: ``cuda`` unless
-        given)."""
+        (``quantize``, ``keep_forward``, the shard knobs, ``device``:
+        ``cuda`` unless given)."""
         if name in self._tenants:
             raise ValueError(f"tenant {name!r} already exists")
         engine = CorpusEngine(self.encoder, vocab_size, **engine_kw)

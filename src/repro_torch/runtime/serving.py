@@ -635,9 +635,15 @@ class CorpusEngine:
     keep their forward rows and ``"auto"`` searches them with the two-tier
     ``"pruned"`` method (``prune_margin=`` and ``candidates=`` pass
     through ``search``). The segments live on ``device`` (default
-    ``cuda``). ``shard_axis="doc"`` leaves the base one index, as in the
-    JAX package; a term-sharded or planned base (``shard_axis="term"``,
-    ``plan``) is not ported yet and raises.
+    ``cuda``).
+
+    ``shard_axis``/``n_shards`` pick the base segment's partitioning:
+    ``"doc"`` leaves the base one index (doc sharding is a serving-mesh
+    choice, not a builder one), ``"term"`` serves it as a
+    ``TermShardedIndex`` over ``n_shards`` vocab ranges. ``plan=`` (a
+    ``ShardPlan`` from ``engine.shard2d.plan_placement``) supersedes both:
+    its term axis sets the vocab ranges, and a grid of both axes serves the
+    base as a ``Shard2DIndex``.
     """
 
     def __init__(self, encoder: BatchedEncoder, vocab_size: int, *,
@@ -647,15 +653,24 @@ class CorpusEngine:
                  device=None):
         from repro_torch.retrieval.engine import IndexBuilder
 
-        if shard_axis not in ("doc", "term"):
-            raise ValueError(f"shard_axis must be 'doc' or 'term', got "
-                             f"{shard_axis!r}")
+        if plan is not None:
+            if shard_axis != "doc" or n_shards != 1:
+                raise ValueError(
+                    "pass either plan= or shard_axis/n_shards, not both — "
+                    "the plan carries the shard topology")
+            self.builder_kwargs = {"plan": plan}
+        else:
+            if shard_axis not in ("doc", "term"):
+                raise ValueError(f"shard_axis must be 'doc' or 'term', got "
+                                 f"{shard_axis!r}")
+            self.builder_kwargs = {
+                "term_shards": n_shards if shard_axis == "term" else 0}
         self.encoder = encoder
+        self.plan = plan
         self.builder = IndexBuilder(
             vocab_size, quantize=quantize, keep_forward=keep_forward,
             merge_frac=merge_frac, compact_dead_frac=compact_dead_frac,
-            term_shards=n_shards if shard_axis == "term" else 0, plan=plan,
-            device=device)
+            device=device, **self.builder_kwargs)
         self._next_uid = 0
 
     def add_docs(self, docs: Sequence[np.ndarray],

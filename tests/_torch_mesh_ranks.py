@@ -449,3 +449,112 @@ def compression_rank(rank, grads_by_rank, shape, axis):
         mean, residual = compressed_allreduce(g, residual, axis, mesh)
         out.append((to_numpy(mean), residual.numpy().copy()))
     return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_sharded_index.py
+# ---------------------------------------------------------------------------
+
+# the meshes of the sharded engines' world, with their axis names
+SHARD_MESHES = [((4,), ("x",)), ((2, 2), ("x", "y")), ((1, 4), ("x", "y"))]
+PRUNE = {"prune_margin": 0.5, "candidates": 24}
+
+
+def shard_cases(n_docs):
+    """Each mesh path of the sharded engines: a dict a case (literals only,
+    for the JAX script). ``same_bits``: the mesh result must be the port's
+    one-process result bit for bit (no psum, or a psum of two partials);
+    ``error``: a piece of the ``ValueError`` both sides raise."""
+    cases = []
+
+    def add(shape, axes, kind, name, **kw):
+        cases.append({"name": f"{mesh_id(shape)}|{name}", "mesh": shape,
+                      "axes": axes, "kind": kind, "kw": {}, "build": {},
+                      "same_bits": True, **kw})
+
+    def grid(shape, axes, d, t, order, *, pruned=False, tag="", **kw):
+        psum_ranks = shape[list(order).index("term")]
+        add(shape, axes, "grid", f"grid{d}x{t}|{'_'.join(order)}{tag}"
+            + ("_pruned" if pruned else ""), grid=(d, t), order=order,
+            kw=dict(PRUNE) if pruned else {}, same_bits=psum_ranks <= 2,
+            **kw)
+
+    # (4,): each index over the one axis; a shard count of 3 refused
+    add((4,), ("x",), "sharded", "sharded4", shards=4)
+    add((4,), ("x",), "term", "term4", shards=4, same_bits=False)
+    add((4,), ("x",), "term", "term4_pruned", shards=4, kw=dict(PRUNE),
+        same_bits=False)
+    for kind in ("sharded", "term"):
+        add((4,), ("x",), kind, f"{kind}3", shards=3,
+            error="n_shards=3 must equal mesh axis 'x' size 4")
+    # (2, 2): the 1D indexes on each axis, the grid in both orders
+    for ax in ("x", "y"):
+        add((2, 2), ("x", "y"), "sharded", f"sharded2_{ax}", shards=2,
+            kw={"axis_name": ax})
+        add((2, 2), ("x", "y"), "term", f"term2_{ax}", shards=2,
+            kw={"axis_name": ax})
+        add((2, 2), ("x", "y"), "term", f"term2_{ax}_pruned", shards=2,
+            kw={"axis_name": ax, **PRUNE})
+    for order in (("doc", "term"), ("term", "doc")):
+        for pruned in (False, True):
+            grid((2, 2), ("x", "y"), 2, 2, order, pruned=pruned)
+    grid((2, 2), ("x", "y"), 2, 2, ("doc", "term"), tag="_uneven",
+         build={"doc_boundaries": (0, 17, n_docs)})
+    add((2, 2), ("x", "y"), "grid", "grid3x2", grid=(3, 2),
+        order=("doc", "term"),
+        error="shard2d_retrieve: n_shards=3 must equal mesh axis 'x' size 2")
+    # (1, 4): the wide axis
+    add((1, 4), ("x", "y"), "sharded", "sharded4_y", shards=4,
+        kw={"axis_name": "y"})
+    add((1, 4), ("x", "y"), "term", "term4_y", shards=4,
+        kw={"axis_name": "y"}, same_bits=False)
+    grid((1, 4), ("x", "y"), 1, 4, ("doc", "term"))
+    grid((1, 4), ("x", "y"), 1, 4, ("doc", "term"), pruned=True)
+    grid((1, 4), ("x", "y"), 4, 1, ("term", "doc"))
+    return cases
+
+
+def sharded_index_rank(rank, x, cases, vocab, k):
+    """Each case of ``shard_cases`` on this rank: the index built from the
+    numpy rows, searched under the case's mesh and in this one process
+    (``one_v``, ``one_i``), or the ``ValueError`` raised."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.retrieval.engine import (shard2d, sharded_index,
+                                              term_sharded)
+    from repro_torch.retrieval.engine.shard2d import ShardPlan
+    from repro_torch.retrieval.sparse_rep import SparseRep
+
+    docs = SparseRep(x["dv"], x["di"], x["dn"])
+    q = SparseRep(x["qv"], x["qi"], x["qn"])
+    meshes, out = {}, {}
+    for case in cases:
+        shape = tuple(case["mesh"])
+        if shape not in meshes:
+            meshes[shape] = Mesh(shape, case["axes"], device="cpu")
+        mesh, kw = meshes[shape], dict(case["kw"])
+        if case["kind"] == "sharded":
+            idx = sharded_index.shard_index(docs, vocab, case["shards"],
+                                            device="cpu")
+            fn = sharded_index.sharded_retrieve
+        elif case["kind"] == "term":
+            idx = term_sharded.term_shard_index(
+                docs, vocab, case["shards"], keep_forward=True, device="cpu")
+            fn = term_sharded.term_sharded_retrieve
+        else:
+            idx = shard2d.shard2d_index(docs, vocab, *case["grid"],
+                                        keep_forward=True, device="cpu",
+                                        **dict(case["build"]))
+            kw["plan"] = ShardPlan(*case["grid"],
+                                   axis_order=tuple(case["order"]))
+            fn = shard2d.shard2d_retrieve
+        try:
+            v, i = fn(q, idx, k, mesh=mesh, **kw)
+        except ValueError as e:
+            out[case["name"]] = {"error": str(e)}
+            continue
+        kw.pop("axis_name", None)
+        kw.pop("plan", None)
+        one_v, one_i = fn(q, idx, k, **kw)
+        out[case["name"]] = {"v": v.numpy(), "i": i.numpy(),
+                             "one_v": one_v.numpy(), "one_i": one_i.numpy()}
+    return out

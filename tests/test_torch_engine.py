@@ -29,7 +29,8 @@ from repro.runtime import serving as jserving
 from repro_torch.configs.splade_bert import SMOKE
 from repro_torch.launch import serve
 from repro_torch.retrieval import score
-from repro_torch.retrieval.engine import IndexBuilder, QuantizedIndex
+from repro_torch.retrieval.engine import (IndexBuilder, QuantizedIndex,
+                                          ShardPlan)
 from repro_torch.retrieval.index import build_inverted_index
 from repro_torch.retrieval.sparse_rep import sparsify_threshold, sparsify_topk
 from repro_torch.runtime.serving import (BatchedEncoder, BatchPolicy,
@@ -243,21 +244,33 @@ def test_search_kwargs_raise_naming_the_resolved_method():
     assert b.port.resolved_method("fused") == "fused"
 
 
-def test_unported_builder_options_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        IndexBuilder(64, term_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        IndexBuilder(64, plan=object(), device="cpu")
-    rep = _reps(np.eye(4, 8, dtype=np.float32))[0]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        build_inverted_index(rep, 8, vocab_range=(0, 4), device="cpu")
+def test_sharded_builder_options_refuse_as_jax():
+    """The sharded builder options, refused before the sharded engines were
+    ported: the reference's ``ValueError`` for each bad combination."""
+    def message(fn, *args, **kw):
+        with pytest.raises(ValueError) as err:
+            fn(*args, **kw)
+        return str(err.value)
+
+    plan, j_plan = ShardPlan(1, 2), jr.ShardPlan(1, 2)
+    assert message(IndexBuilder, 64, term_shards=2, plan=plan,
+                   device="cpu") == message(jr.IndexBuilder, 64,
+                                            term_shards=2, plan=j_plan)
+    assert message(IndexBuilder, 64, term_shards=2, quantize=True,
+                   device="cpu") == message(jr.IndexBuilder, 64,
+                                            term_shards=2, quantize=True)
+    rep, rep_j = _reps(np.eye(4, 8, dtype=np.float32))
+    for kw in ({"vocab_range": (0, 9)}, {"vocab_range": (0, 4),
+                                         "keep_forward": True}):
+        assert message(build_inverted_index, rep, 8, device="cpu", **kw) \
+            == message(jr.build_inverted_index, rep_j, 8, **kw)
     enc = BatchedEncoder(lambda t, m: None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        CorpusEngine(enc, 8, shard_axis="term", n_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        CorpusEngine(enc, 8, plan=object(), device="cpu")
-    with pytest.raises(ValueError, match="shard_axis"):
-        CorpusEngine(enc, 8, shard_axis="rows", device="cpu")
+    enc_j = jserving.BatchedEncoder(lambda t, m: None)
+    assert message(CorpusEngine, enc, 8, shard_axis="rows", device="cpu") \
+        == message(jserving.CorpusEngine, enc_j, 8, shard_axis="rows")
+    assert message(CorpusEngine, enc, 8, n_shards=2, plan=plan,
+                   device="cpu") == message(jserving.CorpusEngine, enc_j, 8,
+                                            n_shards=2, plan=j_plan)
 
 
 def test_forward_rows_build_and_search_pruned():

@@ -301,16 +301,27 @@ def test_encode_reps_pads_every_chunk_and_drops_the_padding():
         np.testing.assert_array_equal(a, np.asarray(b))
 
 
-@pytest.mark.parametrize("spec,match", [
-    (teval.MethodSpec("doc_sharded", doc_shards=3), "item 10"),
-])
-def test_specs_not_ported_yet_raise(spec, match):
-    corpus = synthetic.lsr_impact_corpus(n_docs=16, vocab=64, doc_nnz=8,
-                                         n_queries=2, q_nnz=6, graded=2)
-    with pytest.raises(NotImplementedError, match=match):
-        teval.evaluate_retrieval(
-            None, corpus, teval.Qrels.from_triples(corpus["qrels"]),
-            methods=(teval.MethodSpec("exact"), spec), device="cpu")
+def test_doc_sharded_spec_metrics_equal_jax():
+    """``MethodSpec(doc_shards=3)``, refused before the doc-sharded index
+    was ported: a ``ShardedIndex`` searched with ``sharded``, each metric
+    within 1e-6 of JAX's and of ``exact``'s."""
+    kw = dict(n_docs=16, vocab=64, doc_nnz=8, n_queries=2, q_nnz=6,
+              graded=2)
+    out = {}
+    for mod, data, extra in ((teval, synthetic, {"device": "cpu"}),
+                             (jeval, jax_data, {})):
+        corpus = data.lsr_impact_corpus(**kw)
+        out[mod.__name__] = mod.evaluate_retrieval(
+            None, corpus, mod.Qrels.from_triples(corpus["qrels"]),
+            methods=(mod.MethodSpec("exact"),
+                     mod.MethodSpec("doc_sharded", doc_shards=3)), **extra)
+    got, want = out["repro_torch.eval"], out["repro.eval"]
+    for name in ("exact", "doc_sharded"):
+        np.testing.assert_allclose(list(got[name].values()),
+                                   list(want[name].values()), rtol=0,
+                                   atol=ATOL)
+    np.testing.assert_allclose(list(got["doc_sharded"].values()),
+                               list(got["exact"].values()), rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize("margin", [0.0, 0.5])

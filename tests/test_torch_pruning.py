@@ -121,10 +121,24 @@ def test_memory_bytes_counts_the_upper_bounds_as_jax():
     assert bare.memory_bytes() == want.memory_bytes() - 4 * 1000
 
 
-def test_vocab_range_raises_naming_multi_gpu():
+def test_vocab_range_refuses_as_jax():
+    """``vocab_range``, refused before term shards were ported: the
+    reference's ``ValueError`` outside ``[0, V)`` and with
+    ``keep_forward``; a range inside builds the reference's shard."""
     rep = sparsify_topk(torch.eye(4, 8), 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        build_inverted_index(rep, 8, vocab_range=(0, 4), device="cpu")
+    rep_j = jr.sparsify_topk(jnp.eye(4, 8), 2)
+    for kw in ({"vocab_range": (4, 9)}, {"vocab_range": (3, 3)},
+               {"vocab_range": (0, 4), "keep_forward": True}):
+        with pytest.raises(ValueError) as got:
+            build_inverted_index(rep, 8, device="cpu", **kw)
+        with pytest.raises(ValueError) as want:
+            jr.build_inverted_index(rep_j, 8, **kw)
+        assert str(got.value) == str(want.value)
+    got = build_inverted_index(rep, 8, vocab_range=(2, 6), device="cpu")
+    want = jr.build_inverted_index(rep_j, 8, vocab_range=(2, 6))
+    assert got.stats() == want.stats()
+    np.testing.assert_array_equal(got.postings_doc.numpy(),
+                                  np.asarray(want.postings_doc))
 
 
 # ---------------------------------------------------------------------------

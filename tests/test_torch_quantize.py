@@ -361,7 +361,7 @@ def test_quantized_method_checks_its_corpus_and_kwargs():
         score.retrieve(q, quant, 3, method="impact")
     with pytest.raises(ValueError, match="does not accept block_n"):
         score.retrieve(q, quant, 3, method="fused", block_n=64)
-    assert "quantized" not in score.NOT_PORTED
+    assert "quantized" in score.METHODS
     assert score.METHOD_KWARGS["quantized"] == frozenset()
 
 

@@ -173,7 +173,7 @@ def test_retrieve_rejects_stray_kwargs_and_unported_methods(corpus):
     v_i, i_i = score.retrieve(q, eng, 3, method="impact")
     assert torch.equal(i_p, i_i)
     torch.testing.assert_close(v_p, v_i, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs a ShardedIndex corpus"):
         score.retrieve(q, idx, 3, method="sharded")
     with pytest.raises(ValueError, match="unknown retrieval method"):
         score.retrieve(q, idx, 3, method="bm25")
@@ -307,4 +307,4 @@ def test_mismatched_query_and_corpus_kinds_raise_as_in_jax(corpus):
         port = _message(score.retrieve, q, idx, 3, method=method)
         assert "needs a dense (N, V) corpus matrix; got InvertedIndex" in port
         assert port == _message(jr.retrieve, jq, jidx, 3, method=method)
-    assert not {"dense", "streaming"} & set(score.NOT_PORTED)
+    assert {"dense", "streaming"} <= set(score.METHODS)
