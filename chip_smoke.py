@@ -8,7 +8,8 @@
                                      # device, build and the recsys
                                      # phase alone (``only_phases``;
                                      # also dimenet, dryrun, sharded,
-                                     # sharded_engine, or several)
+                                     # sharded_engine, sharded_dimenet,
+                                     # or several)
 
 Phases, run in this order, each printing one JSON line:
 
@@ -193,6 +194,23 @@ Phases, run in this order, each printing one JSON line:
              each index's ``memory_bytes``. ``python3 chip_smoke.py
              --only sharded_engine`` runs device, build, the xlmr serve
              and engine phases and this one.
+   sharded_dimenet — DimeNet's row-sharded path (``sparse/distributed``;
+             ``build_gnn_train_step(shard_axes=, mesh=)``) at its CONFIG
+             (d 128, 6 blocks, K 8, f32, TF32 off), run in
+             sharded_engine's gloo world after its cases (its own line in
+             the timeline): (a) full_graph_sm relabelled for the 2
+             ``model`` shards (``sd_balanced``: no request dropped) and
+             molecule's flat triplets over both axes, the sharded loss
+             and gradients against the one-process step within
+             DIMENET_TOL of each leaf (or its f64 control), every dropped
+             count 0; (b) full_graph_sm in the reference's layout over
+             both axes: each take's and sum's dropped count and the
+             difference from the one-process step printed; (c) 2 steps a
+             case, every rank the same state bits after each, the first
+             step taken twice the same bits; host ms a step a rank,
+             gloo's ms by collective; ogb_products printed as skipped.
+             ``python3 chip_smoke.py --only sharded_dimenet`` runs
+             device, build and this phase in a world of its own.
 9. ckpt    — checkpoint and resume, splade_xlmr at full width through the
              train CLI's own ``run`` at train_16 (16 pairs x 256): (a) 4
              steps with ``--ckpt-every 2`` (checkpoints at steps 2 and 4,
@@ -4337,7 +4355,8 @@ def phase_xlmr(torch):
 
     served = phase_serve(torch, CONFIG, "xlmr_serve")
     serving = xlmr_serving(torch, served)
-    sharded_engine = phase_sharded_engine(torch, served, serving.pop("rows"))
+    sharded_engine = phase_sharded_engine(torch, served, serving.pop("rows"),
+                                          dimenet=True)
     E, b = head_weights(served["params"], served["cfg"])
     E16, b = E.to(torch.bfloat16), b.clone()
     serve_launches, serve_paths = served["launches"], served["k1_paths"]
@@ -7487,7 +7506,7 @@ def se_one_process(torch, rows, vocab, device="cuda"):
     return out
 
 
-def se_rank(rank, rows_path, vocab, device):
+def se_rank(rank, rows_path, vocab, device, dimenet=None):
     """One rank of the sharded_engine phase's world (SE_RANKS gloo ranks on
     the one card, a SE_MESH mesh): each SE_WORLD case at B 8 and 64, its
     results, its host ms (median of SE_REPS, synchronised) and its
@@ -7535,14 +7554,18 @@ def se_rank(rank, rows_path, vocab, device):
                     "collectives": tally}
     require(not plain_on_cuda, f"sharded_engine, rank {rank}: plain "
                                f"versions ran on CUDA tensors")
+    if dimenet is not None:   # the sharded_dimenet phase, in this world
+        out["sharded_dimenet"] = sd_rank(torch, rank, mesh, *dimenet)
     return out
 
 
-def se_world(torch, rows, vocab, one, device="cuda"):
+def se_world(torch, rows, vocab, one, device="cuda", dimenet=None):
     """SE_RANKS gloo ranks sharing the card (``se_rank``), each held to the
     one-process result of its index (``one``): ids equal and, every psum
     here adding two partials, the same bits; every rank the same result;
-    both 2D orientations the same bits. Returns the per-rank numbers."""
+    both 2D orientations the same bits. Returns the per-rank numbers
+    (with ``dimenet``, ``sd_rank``'s arguments, each rank's
+    sharded_dimenet record under ``sharded_dimenet``)."""
     import tempfile
 
     from repro_torch.launch.mesh import spawn_world
@@ -7553,7 +7576,7 @@ def se_world(torch, rows, vocab, one, device="cuda"):
         t0 = time.perf_counter()
         ranks = spawn_world(se_rank, SE_RANKS, backend="gloo",
                             root=Path(tmp) / "world",
-                            args=(str(rows_path), vocab, device),
+                            args=(str(rows_path), vocab, device, dimenet),
                             timeout=SE_TIMEOUT_S)
         seconds = time.perf_counter() - t0
     failed = []
@@ -7578,7 +7601,9 @@ def se_world(torch, rows, vocab, one, device="cuda"):
                     and np.array_equal(a["i"], c["i"])):
                 failed.append(f"grid{tag} {b}: the two orientations differ")
     require(not failed, "; ".join(failed))
-    return {"seconds": seconds, "per_rank": [
+    dimenet_ranks = [rank.pop("sharded_dimenet", None) for rank in ranks]
+    return {"seconds": seconds, "sharded_dimenet": dimenet_ranks,
+            "per_rank": [
         {"coords": rank["coords"], "device": rank["device"],
          "cases": {f"{case}|{b}": {key: c[key] for key in (
              "host_ms", "host_ms_range", "collectives")}
@@ -7744,14 +7769,17 @@ def se_cli(torch):
     return out
 
 
-def phase_sharded_engine(torch, served=None, rows=None):
+def phase_sharded_engine(torch, served=None, rows=None, dimenet=False):
     """The doc-, term- and 2D-sharded engines at splade_xlmr's V on the
     xlmr engine's 19456 live rows and the served queries (``engine_rows``;
     run alone, the xlmr serve and engine phases make them first): one
     process (``se_one_process``), one gloo world of SE_RANKS ranks sharing
     the card (``se_world``), the sharded ``CorpusEngine``s
     (``se_engines``) and the serve CLI's sharded methods at splade_bert
-    (``se_cli``); no plain version on the card."""
+    (``se_cli``); no plain version on the card. With ``dimenet`` the
+    world's ranks then run the sharded_dimenet phase (``sd_rank``), whose
+    seconds are returned apart (``sharded_dimenet``) and not in this
+    phase's."""
     from repro_torch.kernels import impact_score as k45
     from repro_torch.kernels import sparton as k1
 
@@ -7776,7 +7804,12 @@ def phase_sharded_engine(torch, served=None, rows=None):
         launches["one_process"] = read_launches()
         seconds["one_process"] = time.perf_counter() - t1
         t1 = time.perf_counter()
-        world = se_world(torch, rows, vocab, one.pop("results"))
+        with sd_hosted(torch) if dimenet else contextlib.nullcontext(
+                (None, None)) as (sd_args, sd_host):
+            world = se_world(torch, rows, vocab, one.pop("results"),
+                             dimenet=sd_args)
+        sd_ranks = world.pop("sharded_dimenet")
+        sharded_dimenet = sd_check(sd_ranks, sd_host) if dimenet else None
         seconds["world"] = time.perf_counter() - t1
         t1 = time.perf_counter()
         reset_launches()
@@ -7806,18 +7839,325 @@ def phase_sharded_engine(torch, served=None, rows=None):
             f"{launches}")
     seconds["total"] = time.perf_counter() - t_start
     seconds["with_prerequisites"] = time.perf_counter() - t0
+    if dimenet:   # the world's DimeNet part is the sharded_dimenet phase's
+        for key in ("world", "total", "with_prerequisites"):
+            seconds[key] -= sharded_dimenet["seconds"]
     emit("sharded_engine", note=SE_NOTE, config=served["cfg"].name,
          docs=int(rows["dv"].shape[0]), width=int(rows["dv"].shape[1]),
          prune=SE_PRUNE, mesh=list(SE_MESH[0]), ranks=SE_RANKS,
          backend="gloo", one_process=one, world=world, engines=engines,
          cli=cli, launches=launches, k1_paths=k1_paths, seconds=seconds)
     return {"launches": launches, "k1_paths": k1_paths,
-            "seconds": seconds["total"]}
+            "seconds": seconds["total"], "sharded_dimenet": sharded_dimenet}
+
+
+# --------------------------------------------------------------------------
+# 19. DimeNet's row-sharded path over a mesh (sparse/distributed)
+# --------------------------------------------------------------------------
+
+SD_STEPS = 2              # sharded train steps a case, after its gradients
+SD_LR = 1e-4
+# name: (shape, layout, shard axes of SE_MESH, gate). (a) "balanced":
+# full_graph_sm relabelled for the 2 shards of ``model`` (``sd_balanced``):
+# no take or sum drops a request, so the sharded step must equal the
+# one-process step (the ``data`` axis holds a second replica). Over both
+# axes no layout of this graph drops nothing: its hub's 4157 in-edges
+# exceed the 4 x 918 request slots its owner has in the edge-to-node sum.
+# "flat": molecule's flat triplets (whole tables gathered, sums
+# psum_scattered: nothing to drop) over both axes. (b) "reference":
+# full_graph_sm as the reference lays it out (graph order, padded triplet
+# slots on edge 0) over both axes: the drops and the difference from the
+# one-process step are printed
+SD_CASES = {
+    "full_graph_sm_balanced": ("full_graph_sm", "balanced", ("model",), "a"),
+    "molecule_flat": ("molecule", "flat", ("data", "model"), "a"),
+    "full_graph_sm_reference": ("full_graph_sm", "reference",
+                                ("data", "model"), "b"),
+}
+SD_OGB_SKIP = ("ogb_products: this world's 4 ranks share one card's 80 GB, "
+               "and one block's gathered messages alone are 253 GB in f32 "
+               "(its E 61,859,328 x K 8 x d 128): sharded, it still needs "
+               "cards of its own")
+
+
+def sd_balanced(b, dense, n, seed=53):
+    """A copy of a full graph ``b`` (its dense triplets ``dense``) laid out
+    for ``n`` shards: nodes go to owners of N / n each, in decreasing
+    in-degree, each to the owner with the fewest in-edges so far, in a
+    random order inside its block; edges in a random order; padded triplet
+    slots on random edges (a masked slot adds nothing, wherever it
+    points)."""
+    rng = np.random.default_rng(seed)
+    N, E = len(b["node_mask"]), len(b["edge_src"])
+    degree = np.bincount(b["edge_dst"], minlength=N)
+    cap = N // n
+    load, count = np.zeros(n), np.zeros(n, np.int64)
+    owner = np.empty(N, np.int64)
+    for v in np.argsort(-degree, kind="stable"):
+        o = min((o for o in range(n) if count[o] < cap),
+                key=lambda o: load[o])
+        owner[v], load[o], count[o] = o, load[o] + degree[v], count[o] + 1
+    new = np.empty(N, np.int64)            # node v becomes node new[v]
+    for o in range(n):
+        nodes = np.flatnonzero(owner == o)
+        rng.shuffle(nodes)
+        new[nodes] = o * cap + np.arange(cap)
+    order = rng.permutation(E)              # edge i is the old order[i]
+    out = {k: v[np.argsort(new)] for k, v in b.items()
+           if k in ("positions", "node_feat", "node_mask", "target")}
+    out.update(edge_src=new[b["edge_src"][order]].astype(np.int32),
+               edge_dst=new[b["edge_dst"][order]].astype(np.int32),
+               edge_mask=b["edge_mask"][order])
+    t_in, mask = (x[order] for x in dense)
+    t_in = np.argsort(order)[t_in]
+    out["t_in_dense"] = np.where(mask > 0, t_in, rng.integers(
+        0, E, t_in.shape)).astype(np.int32)
+    out["t_mask_dense"] = mask
+    return out
+
+
+@contextlib.contextmanager
+def sd_hosted(torch):
+    """Each SD_CASES batch built on the host and saved in a temporary npz:
+    yields ``(sd_rank's arguments, the host's record)``; the arguments
+    carry each case's config and ``n_graphs`` (0: a node-level loss)."""
+    import tempfile
+
+    from repro_torch.configs.base import SHAPES_GNN
+
+    t0 = time.perf_counter()
+    cfgs = {name: (dimenet_config(shape), SHAPES_GNN[shape].n_graphs)
+            for name, (shape, *_) in SD_CASES.items()}
+    graph, _, dense, secs = full_graph_host(
+        cfgs["full_graph_sm_reference"][0])
+    mol, mol_secs = molecule_host()
+    batches = {
+        "full_graph_sm_balanced": sd_balanced(
+            graph, dense, sd_shards(SD_CASES["full_graph_sm_balanced"][2])),
+        "molecule_flat": mol,
+        "full_graph_sm_reference": dict(graph, t_in_dense=dense[0],
+                                        t_mask_dense=dense[1])}
+    host = {"host_s": time.perf_counter() - t0, "graph_s": secs,
+            "molecule_s": mol_secs}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sd_") as tmp:
+        path = Path(tmp) / "batches.npz"
+        np.savez(path, **{f"{name}|{k}": v for name, b in batches.items()
+                          for k, v in b.items()})
+        host["host_s"] = time.perf_counter() - t0
+        yield (str(path), cfgs), host
+
+
+def sd_shards(axes):
+    """The ranks of SE_MESH over ``axes``."""
+    return int(np.prod([dict(zip(SE_MESH[1], SE_MESH[0]))[a] for a in axes]))
+
+
+def sd_sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def sd_vs_one(torch, cfg, n_graphs, params, whole, loss, grads):
+    """The one-process step (``gnn_loss`` on the whole batch, this rank's
+    device) at f32 and f64 against the sharded ``loss`` and ``grads``: the
+    loss's relative difference, each leaf's largest difference over its
+    largest |value| (worst first), and whether each is held as
+    ``DIMENET_TOL``'s note holds the card to the CPU (within the
+    tolerance, or no further from the f64 step than twice the one-process
+    f32 step is)."""
+    from repro_torch.launch.steps import gnn_loss, value_and_grad
+    from repro_torch.tree import tree_map
+
+    grad_fn = value_and_grad(gnn_loss(cfg, n_graphs))
+    one_loss, one = grad_fn(params, whole)
+
+    def f64(x):
+        return x.double() if x.is_floating_point() else x
+
+    _, g64 = grad_fn(tree_map(f64, params),
+                     {k: f64(v) for k, v in whole.items()})
+    host = lambda t: tree_map(lambda x: x.cpu(), t)  # noqa: E731
+    one, g64 = host(one), host(g64)
+    errs = leaf_errors(torch, grads, one)
+    vs64, one64 = (dict(leaf_errors(torch, g, g64)) for g in (grads, one))
+    held = {p: e <= DIMENET_TOL or vs64[p] <= 2 * one64[p] for p, e in errs}
+    loss_rel = abs(float(loss) - float(one_loss)) / max(
+        abs(float(one_loss)), 1e-30)
+    return {"loss": float(loss), "one_process_loss": float(one_loss),
+            "loss_rel": loss_rel,
+            "worst_leaves": [{"leaf": p, "vs_one_process": e,
+                              "vs_f64": vs64[p], "one_process_vs_f64":
+                              one64[p]} for p, e in errs[:3]],
+            "leaves_beyond_tol": sum(e > DIMENET_TOL for _, e in errs),
+            "within_tol": loss_rel <= DIMENET_TOL and all(held.values())}
+
+
+def sd_rank(torch, rank, mesh, path, cfgs):
+    """One rank's sharded_dimenet: for each SD_CASES case, this rank's
+    blocks of the batch (``gnn_batch_block``) and a seeded state (the same
+    on every rank); the loss and the gradients of ``gnn_loss`` over the
+    case's axes, summed over them as the step sums them, with each take's
+    and sum's dropped count (``DROPS``) and gloo's time by collective
+    (``TALLY``); on rank 0 these against the one-process step
+    (``sd_vs_one``); then SD_STEPS steps of ``build_gnn_train_step`` over
+    the mesh, the first taken twice (whether the two give the same bits),
+    each step's host ms (synchronised) and whether every rank holds the
+    same state bits after it. K1-K6 must launch no time."""
+    from repro_torch import collectives
+    from repro_torch.launch.steps import (build_gnn_train_step,
+                                          gnn_batch_block, gnn_loss,
+                                          new_state, value_and_grad)
+    from repro_torch.sparse.distributed import DROPS
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    reset_launches()
+    device = mesh.device
+    with np.load(path) as z:
+        host = {k: z[k] for k in z.files}
+    out = {"cases": {}}
+    for name, (shape, layout, axes, gate) in SD_CASES.items():
+        cfg, n_graphs = cfgs[name]
+        whole = {k.split("|")[1]: torch.from_numpy(v).to(device)
+                 for k, v in host.items() if k.split("|")[0] == name}
+        blk = gnn_batch_block(whole, mesh, axes, n_graphs=n_graphs)
+        state = new_state(cfg, torch.Generator(device=device).manual_seed(47))
+        rec = {"shape": shape, "layout": layout, "axes": list(axes),
+               "gate": gate}
+        sd_sync(torch, device)
+        collectives.TALLY.reset(synchronize=True)
+        DROPS.reset()
+        t1 = time.perf_counter()
+        loss, grads = value_and_grad(gnn_loss(
+            cfg, n_graphs, shard_axes=axes, mesh=mesh))(state["params"], blk)
+        with torch.no_grad():
+            grads = tree_map(lambda g: collectives.psum(g, axes, mesh),
+                             grads)
+        sd_sync(torch, device)
+        rec["grads_ms"] = 1e3 * (time.perf_counter() - t1)
+        rec["drops"] = DROPS.summary()
+        DROPS.reset(on=False)
+        rec["collectives"] = collectives.TALLY.summary()
+        collectives.TALLY.reset()
+        if rank == 0:
+            rec["vs_one_process"] = sd_vs_one(
+                torch, cfg, n_graphs, state["params"], whole, loss, grads)
+        del grads
+        step = build_gnn_train_step(cfg, n_graphs=n_graphs, lr=SD_LR,
+                                    shard_axes=axes, mesh=mesh)
+        rec.update(step_ms=[], losses=[], same_bits_over_ranks=[])
+        for i in range(SD_STEPS):
+            sd_sync(torch, device)
+            t1 = time.perf_counter()
+            new, m = step(state, blk)
+            sd_sync(torch, device)
+            rec["step_ms"].append(1e3 * (time.perf_counter() - t1))
+            rec["losses"].append(float(m["loss"]))
+            kept = {"params": new["params"], "opt": new["opt"]}
+            if i == 0:
+                again, _ = step(state, blk)
+                rec["two_runs_same_bits"] = same_bits_tree(
+                    torch, kept, {"params": again["params"],
+                                  "opt": again["opt"]})
+                del again
+            rec["same_bits_over_ranks"].append(
+                bits_over_ranks(torch, mesh, kept))
+            state = new
+        out["cases"][name] = rec
+        del state, new, kept, whole, blk
+    out["launches"] = read_launches()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def sd_check(ranks, host):
+    """The gates of sharded_dimenet over every rank's ``sd_rank`` record:
+    (a) the drop-free cases drop nothing and equal the one-process step;
+    (b) the reference's layout: printed; (c) each step the same state bits
+    on every rank, two runs of a step the same bits; every loss finite,
+    every rank the same dropped counts, no kernel launched. Emits the
+    phase's line; its seconds: the host's batches, the ranks' work (the
+    slowest rank's) and this check."""
+    t0 = time.perf_counter()
+    failed = []
+    first = ranks[0]["cases"]
+    for name, rec in first.items():
+        counts = [n for _, n in rec["drops"]]
+        if any([n for _, n in r["cases"][name]["drops"]] != counts
+               for r in ranks):
+            failed.append(f"{name}: the ranks count other drops")
+        if rec["gate"] == "a":
+            if any(counts):
+                failed.append(f"{name}: requests dropped: {counts}")
+            if not rec["vs_one_process"]["within_tol"]:
+                failed.append(f"{name}: sharded vs one process "
+                              f"{rec['vs_one_process']}")
+        for r, rank in enumerate(ranks):
+            got = rank["cases"][name]
+            if not (all(got["same_bits_over_ranks"])
+                    and got["two_runs_same_bits"]):
+                failed.append(f"{name}: rank {r}: state bits differ over "
+                              f"ranks or runs")
+            if not all(np.isfinite(got["losses"])):
+                failed.append(f"{name}: rank {r}: losses {got['losses']}")
+    if any(any(rank["launches"].values()) for rank in ranks):
+        failed.append(f"a kernel launched: "
+                      f"{[rank['launches'] for rank in ranks]}")
+    require(not failed, "sharded_dimenet: " + "; ".join(failed))
+    seconds = (host["host_s"] + max(r["seconds"] for r in ranks)
+               + time.perf_counter() - t0)
+    cases = {}
+    for name, rec in first.items():
+        cases[name] = {
+            **{k: rec[k] for k in ("shape", "layout", "axes", "gate",
+                                   "losses", "two_runs_same_bits")},
+            "shards": sd_shards(rec["axes"]),
+            "drops": rec["drops"], "dropped": sum(n for _, n in rec["drops"]),
+            "vs_one_process": rec["vs_one_process"],
+            "per_rank": [{"grads_ms": r["cases"][name]["grads_ms"],
+                          "step_ms": r["cases"][name]["step_ms"],
+                          "collectives": r["cases"][name]["collectives"]}
+                         for r in ranks]}
+    emit("sharded_dimenet", note=SE_NOTE, mesh=list(SE_MESH[0]),
+         axes=list(SE_MESH[1]), ranks=len(ranks), backend="gloo",
+         config="dimenet", steps=SD_STEPS, lr=SD_LR, cases=cases,
+         skipped={"ogb_products": SD_OGB_SKIP}, host=host,
+         seconds=seconds,
+         rank_seconds=[r["seconds"] for r in ranks])
+    return {"seconds": seconds}
+
+
+def sd_alone_rank(rank, path, cfgs, device):
+    import torch
+
+    from repro_torch.launch.mesh import Mesh
+
+    return sd_rank(torch, rank, Mesh(*SE_MESH, device=device), path, cfgs)
+
+
+def phase_sharded_dimenet(torch, device="cuda"):
+    """DimeNet's row-sharded path at its full CONFIG (f32, TF32 off) in a
+    gloo world of SE_RANKS ranks sharing the card on SE_MESH: the cases of
+    SD_CASES (``sd_rank``), gated by ``sd_check``. In the whole script it
+    runs in the sharded_engine phase's world (no second spawn); alone
+    (``--only sharded_dimenet``) in a world of its own."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_world
+
+    with sd_hosted(torch) as ((path, cfgs), host), \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_sd_") as tmp:
+        ranks = spawn_world(sd_alone_rank, SE_RANKS, backend="gloo",
+                            root=Path(tmp) / "world",
+                            args=(path, cfgs, device),
+                            timeout=SE_TIMEOUT_S)
+    return sd_check(ranks, host)
 
 
 ALONE = {"recsys": phase_recsys, "dimenet": phase_dimenet,
          "dryrun": phase_dryrun, "sharded": phase_sharded,
-         "sharded_engine": phase_sharded_engine}
+         "sharded_engine": phase_sharded_engine,
+         "sharded_dimenet": phase_sharded_dimenet}
 
 
 def only_phases(torch, names) -> int:
@@ -8122,9 +8462,13 @@ def main(argv=()) -> int:
     dry_pending = start_dryrun()
     k1_paths["eval"] = evaluated["k1_paths"]
     xlmr = clocked("xlmr", phase_xlmr, torch)
-    # the sharded_engine phase runs inside xlmr, on its weights and rows
+    # the sharded_engine phase runs inside xlmr, on its weights and rows,
+    # and the sharded_dimenet phase inside sharded_engine's gloo world
     timeline["sharded_engine"] = xlmr["sharded_engine"]["seconds"]
-    timeline["xlmr"] -= timeline["sharded_engine"]
+    timeline["sharded_dimenet"] = \
+        xlmr["sharded_engine"]["sharded_dimenet"]["seconds"]
+    timeline["xlmr"] -= (timeline["sharded_engine"]
+                         + timeline["sharded_dimenet"])
     k1_paths.update({f"xlmr_{where}": paths
                      for where, paths in xlmr["k1_paths"].items()})
     k1_paths.update({f"sharded_engine_{where}": paths for where, paths

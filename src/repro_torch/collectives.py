@@ -21,6 +21,14 @@ holds; a value that differs over an axis has one per rank. So:
 * ``shard_rows`` — this rank's block of a replicated tensor along
   ``dim`` (a view), the backward gathering every rank's block of the
   cotangent: the gradient of the whole tensor on every rank.
+* ``all_gather_invariant`` — the same gather, for an output that stays
+  replicated over ``axes`` (a loss computed on every rank from the whole
+  tensor): one cotangent, so the backward keeps this rank's block of it
+  and sums nothing (the transpose of ``shard_rows``).
+* ``psum_scatter`` — the sum over ``axes``, of which each rank keeps its
+  block along ``dim`` (``jax.lax.psum_scatter(..., tiled=True)``, written
+  as an all-reduce and a slice); the backward gathers the blocks'
+  cotangents.
 * ``all_to_all`` — the tiled exchange, and its transpose as backward.
 
 ``torch.distributed.nn``'s ``all_reduce`` sums cotangents in its backward
@@ -145,6 +153,29 @@ class _AllGather(torch.autograd.Function):
                 None, None, None)
 
 
+class _AllGatherInvariant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_block(g, ctx.mesh, ctx.axes, ctx.dim).contiguous(),
+                None, None, None)
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _block(_sum(x, mesh, axes), mesh, axes, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
 class _ShardRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes, dim):
@@ -210,6 +241,21 @@ def all_gather(x: torch.Tensor, axes: Axes, mesh: Mesh, *,
     """Every rank's ``x`` over ``axes``, tiled along ``dim`` in the
     row-major order of ``axes`` (``jax.lax.all_gather(..., tiled=True)``)."""
     return _AllGather.apply(x, mesh, as_axes(axes), dim)
+
+
+def all_gather_invariant(x: torch.Tensor, axes: Axes, mesh: Mesh, *,
+                         dim: int = 0) -> torch.Tensor:
+    """``all_gather`` for an output replicated over ``axes``: the backward
+    takes this rank's block of the one cotangent."""
+    return _AllGatherInvariant.apply(x, mesh, as_axes(axes), dim)
+
+
+def psum_scatter(x: torch.Tensor, axes: Axes, mesh: Mesh, *,
+                 dim: int = 0) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``x`` over ``axes``
+    (``jax.lax.psum_scatter(x, axes, scatter_dimension=dim,
+    tiled=True)``)."""
+    return _PsumScatter.apply(x, mesh, as_axes(axes), dim)
 
 
 def shard_rows(x: torch.Tensor, axes: Axes, mesh: Mesh, *,

@@ -44,11 +44,15 @@ With a ``launch.mesh.Mesh`` (``_encode_fn``, ``build_lsr_prefill_step``,
 ``build_lsr_train_step``) every rank is given the whole batch and runs
 its rows of it (split over the batch axes ``launch.sharding.
 batch_axes_for`` picks) through the trunk, replicated over ``model``,
-and the vocab-sharded head (``core/sharded.py``). Still to come: the
-other meshes (the expert-parallel MoE, the sharded decode cache, the
-row-sharded retrieval, ``streaming_topk``'s ``vary_axes``, DimeNet's
-``shard_axes``, the recsys tables and the production meshes of
-``build_step``: multi-GPU, ROADMAP Queue 1 item 10).
+and the vocab-sharded head (``core/sharded.py``).
+``build_gnn_train_step(cfg, shard_axes=, mesh=)`` runs DimeNet's
+row-sharded path: every rank is given its row blocks of the batch
+(``gnn_batch_block``), the loss is the whole batch's on every rank, and
+the gradients are summed over the axes once, so every rank's state is
+the same bytes. Still to come: the other meshes (the expert-parallel
+MoE, the sharded decode cache, the row-sharded retrieval,
+``streaming_topk``'s ``vary_axes``, the recsys tables and the production
+meshes of ``build_step``: multi-GPU, ROADMAP Queue 1 items 10d-10g).
 """
 
 from __future__ import annotations
@@ -391,24 +395,74 @@ def build_recsys_train_step(
     return step
 
 
-def gnn_loss(cfg: DimeNetConfig, n_graphs: int = 0
+GNN_NODE_KEYS = ("positions", "node_feat", "node_mask", "node_graph_id")
+GNN_EDGE_KEYS = ("edge_src", "edge_dst", "edge_mask", "t_in_dense",
+                 "t_mask_dense")
+GNN_TRIPLET_KEYS = ("t_in", "t_out", "t_mask")
+
+
+def gnn_batch_block(batch: Dict[str, Any], mesh: Any,
+                    shard_axes: Tuple[str, ...], *,
+                    n_graphs: int = 0) -> Dict[str, Any]:
+    """This rank's row block, over ``shard_axes``, of each node-, edge- and
+    triplet-leading array of a whole DimeNet batch (``GNN_*_KEYS``, and a
+    node-level ``target``: no ``n_graphs``, no ``seed_ids``), the others
+    (``seed_ids``, a graph or seed ``target``) whole: what
+    ``build_gnn_train_step(shard_axes=, mesh=)`` takes. Tensors or numpy
+    arrays; a row count the shards do not divide raises ``ValueError``."""
+    from repro_torch.launch.mesh import as_axes, axis_index, axis_size
+
+    axes = as_axes(shard_axes)
+    n, i = axis_size(mesh, axes), axis_index(mesh, axes)
+    node_target = not n_graphs and "seed_ids" not in batch
+    out = {}
+    for key, v in batch.items():
+        if key in GNN_NODE_KEYS + GNN_EDGE_KEYS + GNN_TRIPLET_KEYS \
+                or (key == "target" and node_target):
+            if v.shape[0] % n:
+                raise ValueError(
+                    f"gnn_batch_block: {key} has {v.shape[0]} rows, which "
+                    f"{n} shards over {axes} do not divide")
+            size = v.shape[0] // n
+            v = v[i * size:(i + 1) * size]
+        out[key] = v
+    return out
+
+
+def gnn_loss(cfg: DimeNetConfig, n_graphs: int = 0, *,
+             shard_axes: Optional[Tuple[str, ...]] = None, mesh: Any = None
              ) -> Callable[[Any, Batch], torch.Tensor]:
     """``(params, batch) -> loss``, the reference's three branches: the
     mean squared error of ``forward_graph``'s ``n_graphs`` outputs when
     ``n_graphs`` is set; else of the outputs at ``batch["seed_ids"]``
     when the batch holds them; else the node errors weighted by
-    ``node_mask``, summed over ``max(sum(node_mask), 1)``."""
+    ``node_mask``, summed over ``max(sum(node_mask), 1)``. With
+    ``shard_axes`` and ``mesh`` the batch is this rank's blocks
+    (``gnn_batch_block``) and the loss the whole batch's, the same on
+    every rank: the graph outputs are summed over the axes, the node
+    outputs gathered before the seeds are taken, the node errors and the
+    mask summed over the axes."""
+    from repro_torch.collectives import all_gather_invariant, psum
+
+    axes = dimenet_model.resolve_shard_axes(shard_axes, mesh, "gnn_loss")
+
     def loss_fn(params, batch):
         if n_graphs:
-            pred = dimenet_model.forward_graph(params, cfg, batch, n_graphs)
+            pred = dimenet_model.forward_graph(params, cfg, batch, n_graphs,
+                                               axes, mesh=mesh)
             return torch.mean((pred - batch["target"]) ** 2)
-        pred = dimenet_model.forward(params, cfg, batch)
+        pred = dimenet_model.forward(params, cfg, batch, axes, mesh=mesh)
         if "seed_ids" in batch:
+            if axes:
+                pred = all_gather_invariant(pred, axes, mesh)
             pred = dimenet_model.take(pred, batch["seed_ids"])
             return torch.mean((pred - batch["target"]) ** 2)
         mask = batch["node_mask"]
         err = (pred - batch["target"]) * mask.to(pred.dtype)[:, None]
-        return torch.sum(err * err) / mask.sum().clamp_min(1).to(pred.dtype)
+        num, den = torch.sum(err * err), mask.sum()
+        if axes:
+            num, den = psum(num, axes, mesh), psum(den, axes, mesh)
+        return num / den.clamp_min(1).to(pred.dtype)
     return loss_fn
 
 
@@ -417,16 +471,31 @@ def build_gnn_train_step(
     *,
     n_graphs: int = 0,
     lr: float = 1e-4,
+    shard_axes: Optional[Tuple[str, ...]] = None,
+    mesh: Any = None,
 ) -> Callable[[State, Batch], Tuple[State, Dict[str, torch.Tensor]]]:
     """DimeNet's train step: ``gnn_loss``'s gradients, then AdamW at a
     constant ``lr``. ``n_graphs`` is the reference's ``cell.n_graphs``
     (0: a node-level target). It returns a new state and leaves the one
-    it was given intact (a fault-tolerant runner retries a step on it)."""
+    it was given intact (a fault-tolerant runner retries a step on it).
+    With ``shard_axes`` and ``mesh`` (the reference's ``shard_axes``
+    path) each rank is given its blocks of the batch
+    (``gnn_batch_block``) and holds the whole state; each rank's gradient
+    share is summed over the axes once (``reduce_grads``' all-reduce), so
+    every rank takes the same step."""
+    from repro_torch.collectives import psum
+
+    axes = dimenet_model.resolve_shard_axes(shard_axes, mesh,
+                                            "build_gnn_train_step")
     opt = adamw(lr)
-    grad_fn = value_and_grad(gnn_loss(cfg, n_graphs))
+    grad_fn = value_and_grad(gnn_loss(cfg, n_graphs, shard_axes=axes,
+                                      mesh=mesh))
 
     def step(state: State, batch: Batch):
         loss, grads = grad_fn(state["params"], batch)
+        if axes:
+            with torch.no_grad():
+                grads = tree_map(lambda g: psum(g, axes, mesh), grads)
         updates, opt_state = opt.update(grads, state["opt"],
                                         state["params"], state["step"])
         params = apply_updates(state["params"], updates)

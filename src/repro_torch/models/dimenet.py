@@ -31,26 +31,48 @@ their messages are ``silu(b)``, and triplets over them carry a mask of 1
 when ``build_triplets`` made them; the masks zero only the bases and the
 node aggregation. Init draws from an explicit ``torch.Generator``; the
 numbers differ from ``jax.random``'s (tests carry weights across with
-``weights.state_from_jax``). ``shard_axes`` (the reference's row-sharded
-path over a mesh) raises: it arrives with multi-GPU, ROADMAP Queue 1
-item 10.
+``weights.state_from_jax``).
+
+``shard_axes`` with ``mesh=`` (a ``launch.mesh.Mesh``) runs the
+reference's row-sharded path on this rank's blocks: the caller passes
+this rank's row block of every node-leading array (``positions``,
+``node_feat``, ``node_mask``, ``node_graph_id``), edge-leading array
+(``edge_*``, ``t_in_dense``, ``t_mask_dense``) and triplet-leading array
+(``t_in``, ``t_out``, ``t_mask``), the ids in them global, as a
+``shard_map`` body sees them (``launch.steps.gnn_batch_block`` cuts
+them), and gets this rank's block of the node outputs. The dense layout
+gathers and scatters rows through ``sparse.distributed`` (all-to-all,
+capacity-capped: a request past an owner's capacity reads a zero row or
+adds nothing, and, as in the reference, the dropped counts are not
+returned; ``sparse.distributed.DROPS`` records them). The flat layout,
+which the reference only marks with sharding constraints, gathers a
+whole table (``collectives.all_gather``) before each take and keeps its
+block of each segment sum (``collectives.psum_scatter``): the unsharded
+arithmetic. ``forward_graph`` sums its blocks' readout over the axes.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.collectives import all_gather, psum, psum_scatter
 from repro_torch.configs.base import DimeNetConfig
 from repro_torch.device import dtype_of
+from repro_torch.launch.mesh import Mesh, as_axes, axis_size
+from repro_torch.sparse.distributed import (distributed_segment_sum_local,
+                                            distributed_take_local)
 from repro_torch.sparse.embedding_bag import embedding_lookup
 from repro_torch.sparse.segment import segment_sum
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
+# take(table, idx) and scatter(vals, idx, rows of this rank's output)
+Take = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+Scatter = Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor]
 
 
 def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -78,13 +100,6 @@ def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``jnp.clip(x, lo, hi)`` = ``minimum(maximum(x, lo), hi)``, so x gets
     half the gradient at either bound."""
     return minimum(maximum(x, lo), hi)
-
-
-def _no_shard(shard_axes: Optional[Tuple[str, ...]], what: str) -> None:
-    if shard_axes is not None:
-        raise NotImplementedError(
-            f"{what}: shard_axes (the row-sharded path over a mesh) is not "
-            "ported yet: it arrives with multi-GPU, ROADMAP Queue 1 item 10")
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +203,52 @@ def _init_params(g: torch.Generator, cfg: DimeNetConfig) -> Params:
 
 
 # ---------------------------------------------------------------------------
+# row access: one device, or this rank's blocks over a mesh
+# ---------------------------------------------------------------------------
+
+def resolve_shard_axes(shard_axes: Optional[Tuple[str, ...]],
+                       mesh: Optional[Mesh], what: str) -> Tuple[str, ...]:
+    """The axes the rows are blocked over (``()``: unsharded, as for
+    ``None``); ``shard_axes`` without a ``mesh`` raises ``ValueError``."""
+    if not shard_axes:
+        return ()
+    if mesh is None:
+        raise ValueError(f"{what}: shard_axes={tuple(shard_axes)} needs the "
+                         "mesh= whose axes they name")
+    return as_axes(shard_axes)
+
+
+def _all_to_all_rows(axes: Tuple[str, ...],
+                     mesh: Mesh) -> Tuple[Take, Scatter]:
+    """The dense layout's row access: ``sparse.distributed``'s take and
+    segment sum, their dropped counts discarded as the reference
+    discards them."""
+    def take_rows(table, idx):
+        out, _ = distributed_take_local(table, idx.reshape(-1),
+                                        axis_names=axes, mesh=mesh)
+        return out.reshape(tuple(idx.shape) + (table.shape[1],))
+
+    def scatter_rows(vals, idx, rows):
+        return distributed_segment_sum_local(vals, idx, rows,
+                                             axis_names=axes, mesh=mesh)[0]
+    return take_rows, scatter_rows
+
+
+def _gathered_rows(axes: Tuple[str, ...],
+                   mesh: Mesh) -> Tuple[Take, Scatter]:
+    """The flat layout's row access: the whole table gathered before a
+    take, this rank's block kept of a segment sum over all rows."""
+    n = axis_size(mesh, axes)
+
+    def take_rows(table, idx):
+        return take(all_gather(table, axes, mesh), idx)
+
+    def scatter_rows(vals, idx, rows):
+        return psum_scatter(segment_sum(vals, idx, rows * n), axes, mesh)
+    return take_rows, scatter_rows
+
+
+# ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
@@ -201,21 +262,22 @@ def _angle(v_in: torch.Tensor, v_out: torch.Tensor,
     return torch.arccos(clip(cosang, -1.0 + 1e-7, 1.0 - 1e-7))
 
 
-def _geometry(batch: Batch) -> Tuple[torch.Tensor, torch.Tensor,
-                                     torch.Tensor]:
+def _geometry(batch: Batch, take_rows: Take = take
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Edge distances + triplet (in-edge distance, angle)."""
     pos = batch["positions"]
-    vec = take(pos, batch["edge_src"]) - take(pos, batch["edge_dst"])
+    vec = take_rows(pos, batch["edge_src"]) - take_rows(pos,
+                                                        batch["edge_dst"])
     dist = _norm(vec)
     t_in, t_out = batch["t_in"], batch["t_out"]
-    v_in = take(vec, t_in)                     # k - j (in-edge k->j)
-    v_out = -take(vec, t_out)                  # i - j (out-edge j->i)
-    d_in = take(dist, t_in)
+    v_in = take_rows(vec, t_in)                # k - j (in-edge k->j)
+    v_out = -take_rows(vec, t_out)             # i - j (out-edge j->i)
+    d_in = take_rows(dist, t_in)
     return dist, d_in, _angle(v_in, v_out, d_in * _norm(v_out))
 
 
 def _embed(params: Params, cfg: DimeNetConfig, batch: Batch,
-           rbf: torch.Tensor) -> torch.Tensor:
+           rbf: torch.Tensor, take_rows: Take = take) -> torch.Tensor:
     """The first edge messages m (E, d), from the node embedding."""
     if cfg.d_feat == 0:
         h = take(params["embed_nodes"], batch["node_feat"])
@@ -223,8 +285,8 @@ def _embed(params: Params, cfg: DimeNetConfig, batch: Batch,
         h = F.silu(_apply(params["embed_nodes"], batch["node_feat"]))
     rbf_e = F.silu(_apply(params["embed_rbf"], rbf))
     return F.silu(_apply(params["embed_msg"], torch.cat(
-        [take(h, batch["edge_src"]), take(h, batch["edge_dst"]), rbf_e],
-        dim=-1)))
+        [take_rows(h, batch["edge_src"]), take_rows(h, batch["edge_dst"]),
+         rbf_e], dim=-1)))
 
 
 def _bilinear(z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -235,34 +297,44 @@ def _bilinear(z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _update(blk: Params, m: torch.Tensor, agg: torch.Tensor,
             rbf: torch.Tensor, e_mask: torch.Tensor, dst: torch.Tensor,
-            node_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+            node_out: torch.Tensor, scatter_rows: Scatter = segment_sum
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A block's message update from its triplet aggregate, and its
     output to the nodes."""
     gate = F.silu(_apply(blk["rbf_gate"], rbf))
     upd = F.silu(_apply(blk["msg_out"], torch.cat([m * gate, agg], dim=-1)))
     m = m + upd
     contrib = m * F.silu(_apply(blk["out_rbf"], rbf))
-    node_agg = segment_sum(contrib * e_mask[:, None], dst, node_out.shape[0])
+    node_agg = scatter_rows(contrib * e_mask[:, None], dst,
+                            node_out.shape[0])
     return m, node_out + F.silu(_apply(blk["out_node"], node_agg))
 
 
 def forward_dense_triplets(
     params: Params, cfg: DimeNetConfig, batch: Batch,
-    shard_axes: Optional[Tuple[str, ...]] = None,
+    shard_axes: Optional[Tuple[str, ...]] = None, *,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """Node outputs (N, n_targets) from the dense ``(E, K)`` triplet layout
     (``t_in_dense``, ``t_mask_dense``; short rows masked): the aggregation
-    of triplets to edges is a local sum over K, no segment scatter."""
-    _no_shard(shard_axes, "forward_dense_triplets")
+    of triplets to edges is a local sum over K, no segment scatter. With
+    ``shard_axes`` every row access across blocks (positions and node
+    embeddings by ``edge_src``/``edge_dst``, edge rows by ``t_in_dense``,
+    the edge-to-node sum) goes through ``sparse.distributed``; blocks run
+    un-rematted, as in the reference (remat re-ran the exchanges)."""
+    axes = resolve_shard_axes(shard_axes, mesh, "forward_dense_triplets")
+    take_rows, scatter_rows = (_all_to_all_rows(axes, mesh) if axes
+                               else (take, segment_sum))
     src, dst = batch["edge_src"], batch["edge_dst"]
     e_mask = batch["edge_mask"].float()
     tk_mask = batch["t_mask_dense"].float()                   # (E, K)
     t_in = batch["t_in_dense"]                                # (E, K)
     E, K = t_in.shape
 
-    vec = take(batch["positions"], src) - take(batch["positions"], dst)
+    vec = (take_rows(batch["positions"], src)
+           - take_rows(batch["positions"], dst))
     dist = _norm(vec)                                         # (E,)
-    vec_in = take(vec, t_in)                                  # (E, K, 3)
+    vec_in = take_rows(vec, t_in)                             # (E, K, 3)
     d_in = _norm(vec_in)
     angle = _angle(vec_in, -vec[:, None, :], d_in * dist[:, None])
 
@@ -270,57 +342,69 @@ def forward_dense_triplets(
     sbf = spherical_basis(d_in.reshape(-1), angle.reshape(-1), cfg)
     sbf = sbf.reshape(E, K, -1) * tk_mask[..., None]          # (E, K, nsbf)
 
-    m = _embed(params, cfg, batch, rbf)
+    m = _embed(params, cfg, batch, rbf, take_rows)
     node_out = torch.zeros((batch["node_mask"].shape[0], cfg.d_hidden),
                            dtype=m.dtype, device=m.device)
     for blk in params["blocks"]:
         x_kj = F.silu(_apply(blk["msg_in"], m))               # (E, d)
-        x_t = take(x_kj, t_in)                                # (E, K, d)
+        x_t = take_rows(x_kj, t_in)                           # (E, K, d)
         s = _apply(blk["sbf_proj"], sbf) * tk_mask[..., None]  # (E, K, b)
         # the K-sum first: (E, b, K) @ (E, K, d) -> (E, b, d)
         agg = _bilinear(s.transpose(1, 2) @ x_t, blk["w_bilinear"])
-        m, node_out = _update(blk, m, agg, rbf, e_mask, dst, node_out)
+        m, node_out = _update(blk, m, agg, rbf, e_mask, dst, node_out,
+                              scatter_rows)
     return _apply(params["out_final"], node_out)
 
 
 def forward(
     params: Params, cfg: DimeNetConfig, batch: Batch,
-    shard_axes: Optional[Tuple[str, ...]] = None,
+    shard_axes: Optional[Tuple[str, ...]] = None, *,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """Node-level outputs (N, n_targets) from flat triplets (``t_in``,
     ``t_out``, ``t_mask``); a batch with ``t_in_dense`` goes to
-    ``forward_dense_triplets``."""
-    _no_shard(shard_axes, "forward")
+    ``forward_dense_triplets``. With ``shard_axes`` the rows of every
+    table are gathered over the axes before a take, and each segment sum
+    keeps this rank's block of the whole sum."""
+    axes = resolve_shard_axes(shard_axes, mesh, "forward")
     if "t_in_dense" in batch:
-        return forward_dense_triplets(params, cfg, batch)
+        return forward_dense_triplets(params, cfg, batch, axes, mesh=mesh)
+    take_rows, scatter_rows = (_gathered_rows(axes, mesh) if axes
+                               else (take, segment_sum))
     dst = batch["edge_dst"]
     e_mask = batch["edge_mask"].float()
     t_mask = batch["t_mask"].float()
     n_edges = dst.shape[0]
 
-    dist, d_in, angle = _geometry(batch)
+    dist, d_in, angle = _geometry(batch, take_rows)
     rbf = radial_basis(dist, cfg) * e_mask[:, None]
     sbf = spherical_basis(d_in, angle, cfg) * t_mask[:, None]
 
-    m = _embed(params, cfg, batch, rbf)
+    m = _embed(params, cfg, batch, rbf, take_rows)
     node_out = torch.zeros((batch["node_mask"].shape[0], cfg.d_hidden),
                            dtype=m.dtype, device=m.device)
     t_in, t_out = batch["t_in"], batch["t_out"]
     for blk in params["blocks"]:
         x_kj = F.silu(_apply(blk["msg_in"], m))               # (E, d)
-        x_t = take(x_kj, t_in)                                # (T, d)
+        x_t = take_rows(x_kj, t_in)                           # (T, d)
         s = _apply(blk["sbf_proj"], sbf)                      # (T, b)
         xt2 = _bilinear(s[:, :, None] * x_t[:, None, :], blk["w_bilinear"])
-        agg = segment_sum(xt2 * t_mask[:, None], t_out, n_edges)
-        m, node_out = _update(blk, m, agg, rbf, e_mask, dst, node_out)
+        agg = scatter_rows(xt2 * t_mask[:, None], t_out, n_edges)
+        m, node_out = _update(blk, m, agg, rbf, e_mask, dst, node_out,
+                              scatter_rows)
     return _apply(params["out_final"], node_out)              # (N, n_targets)
 
 
 def forward_graph(
     params: Params, cfg: DimeNetConfig, batch: Batch, n_graphs: int,
-    shard_axes: Optional[Tuple[str, ...]] = None,
+    shard_axes: Optional[Tuple[str, ...]] = None, *,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
-    """Graph-level readout: node outputs summed per ``node_graph_id``."""
-    node_out = forward(params, cfg, batch, shard_axes=shard_axes)
+    """Graph-level readout: node outputs summed per ``node_graph_id`` (with
+    ``shard_axes``, this rank's nodes summed, then summed over the axes:
+    every rank holds all ``n_graphs`` outputs)."""
+    axes = resolve_shard_axes(shard_axes, mesh, "forward_graph")
+    node_out = forward(params, cfg, batch, axes, mesh=mesh)
     node_out = node_out * batch["node_mask"].to(node_out.dtype)[:, None]
-    return segment_sum(node_out, batch["node_graph_id"], n_graphs)
+    out = segment_sum(node_out, batch["node_graph_id"], n_graphs)
+    return psum(out, axes, mesh) if axes else out

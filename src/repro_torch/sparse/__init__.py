@@ -1,3 +1,4 @@
-"""The message-passing substrate of the port (``repro/sparse``, single
-device): segment reductions, embedding lookups and bags, DimeNet's
-triplets and the fanout sampler."""
+"""The message-passing substrate of the port (``repro/sparse``): segment
+reductions, embedding lookups and bags, DimeNet's triplets and the
+fanout sampler on one device; the all-to-all take and segment sum of
+row-sharded tables over a mesh (``distributed``)."""

@@ -558,3 +558,193 @@ def sharded_index_rank(rank, x, cases, vocab, k):
         out[case["name"]] = {"v": v.numpy(), "i": i.numpy(),
                              "one_v": one_v.numpy(), "one_i": one_i.numpy()}
     return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_distributed.py
+# ---------------------------------------------------------------------------
+
+# (mesh shape, mesh axes, the axes the rows are blocked over)
+DIST_MESHES = [((4,), ("x",), ("x",)), ((2, 2), ("x", "y"), ("x", "y")),
+               ((2, 2), ("x", "y"), ("y", "x")),
+               ((1, 2), ("x", "y"), ("x", "y"))]
+DIST_CASES = ("uniform", "graph_order", "out_of_range", "small_r")
+DIST_ROWS, DIST_D = 16, 3       # table rows a shard, row width
+
+
+def dist_id(mesh):
+    shape, _, shard = mesh
+    return f"{mesh_id(shape)}|{'.'.join(shard)}"
+
+
+def dist_inputs(case, n):
+    """The global arrays of a case over ``n`` shards (integers in f32, so
+    every sum is exact): ``table`` (n * DIST_ROWS, d), ``idx`` (n * R,)
+    and the take's cotangent ``w_take`` (n * R, d); ``vals`` (n * R, d)
+    scattered by ``idx`` into n * DIST_ROWS rows, its cotangent
+    ``w_sum``. ``uniform``: ids uniform (nothing drops); ``graph_order``:
+    most of a shard's ids in its own block and a third 0 (padding), as a
+    molecule batch in graph order asks (heavy drops); ``out_of_range``:
+    ids from -2 blocks to 2 blocks past the end; ``small_r``: 3 ids a
+    shard, fewer than 4 n."""
+    rng = np.random.default_rng(DIST_CASES.index(case) * 10 + n)
+    rows, R = n * DIST_ROWS, 3 if case == "small_r" else 64
+    if case == "graph_order":
+        idx = np.concatenate([
+            np.where(rng.random(R) < 0.35, 0,
+                     np.where(rng.random(R) < 0.8,
+                              s * DIST_ROWS + rng.integers(0, DIST_ROWS, R),
+                              rng.integers(0, rows, R)))
+            for s in range(n)])
+    elif case == "out_of_range":
+        idx = rng.integers(-2 * DIST_ROWS, rows + 2 * DIST_ROWS, n * R)
+    else:
+        idx = rng.integers(0, rows, n * R)
+    f = np.float32
+    return {"table": rng.integers(-8, 8, (rows, DIST_D)).astype(f),
+            "idx": idx.astype(np.int32),
+            "w_take": rng.integers(-4, 5, (n * R, DIST_D)).astype(f),
+            "vals": rng.integers(-8, 8, (n * R, DIST_D)).astype(f),
+            "w_sum": rng.integers(-4, 5, (rows, DIST_D)).astype(f)}
+
+
+def distributed_rank(rank, meshes):
+    """Each case of ``DIST_CASES`` on each mesh of ``meshes`` (those of
+    this world's size): this rank's blocks of the take's rows, the segment
+    sum's output, the dropped counts and the gradients of ``sum(out *
+    w)`` (``w`` this rank's block of the global cotangent)."""
+    import torch
+
+    from repro_torch.launch.mesh import Mesh, axis_index, axis_size
+    from repro_torch.sparse import distributed as D
+
+    out = {}
+    for shape, axes, shard in meshes:
+        mesh = Mesh(shape, axes, device="cpu")
+        n, i = axis_size(mesh, shard), axis_index(mesh, shard)
+        for case in DIST_CASES:
+            x = dist_inputs(case, n)
+            blk = {k: torch.from_numpy(
+                v[i * (len(v) // n):(i + 1) * (len(v) // n)].copy())
+                for k, v in x.items()}
+            table = blk["table"].requires_grad_(True)
+            rows, dropped = D.make_distributed_take(mesh, shard)(
+                table, blk["idx"])
+            (rows * blk["w_take"]).sum().backward()
+            vals = blk["vals"].requires_grad_(True)
+            summed, s_dropped = D.distributed_segment_sum_local(
+                vals, blk["idx"], DIST_ROWS, axis_names=shard, mesh=mesh)
+            (summed * blk["w_sum"]).sum().backward()
+            out[(dist_id((shape, axes, shard)), case)] = {
+                "take": rows.detach().numpy(), "take_dropped": int(dropped),
+                "take_grad": table.grad.numpy(),
+                "sum": summed.detach().numpy(), "sum_dropped": int(s_dropped),
+                "sum_grad": vals.grad.numpy()}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_dimenet_sharded.py
+# ---------------------------------------------------------------------------
+
+def _gnn(name, mesh, layout, order, loss, *, width="SMOKE", d_feat=0,
+         step=False):
+    axes = ("x", "y")[:len(mesh)]
+    return {"name": name, "mesh": mesh, "axes": axes, "width": width,
+            "layout": layout, "order": order, "loss": loss,
+            "d_feat": d_feat, "step": step}
+
+
+# order "graph": molecules in graph order, padded triplet slots on edge 0
+# (the reference's layout: heavy drops in the dense layout); "uniform":
+# node and edge ids shuffled, padded slots on random edges (no drops)
+GNN_CASES = [
+    _gnn("dense_graph_2x2", (2, 2), "dense", "graph", "graph", step=True),
+    _gnn("dense_seed_1x2", (1, 2), "dense", "graph", "seed"),
+    _gnn("dense_node_4", (4,), "dense", "uniform", "node", d_feat=6),
+    _gnn("flat_graph_2x2", (2, 2), "flat", "graph", "graph"),
+    _gnn("flat_node_4", (4,), "flat", "graph", "node", d_feat=6),
+    _gnn("flat_seed_1x2", (1, 2), "flat", "graph", "seed"),
+    _gnn("dense_config_4", (4,), "dense", "uniform", "graph",
+         width="CONFIG"),
+    _gnn("dense_config_2x2", (2, 2), "dense", "uniform", "node",
+         width="CONFIG"),
+    _gnn("flat_config_2x2", (2, 2), "flat", "graph", "graph",
+         width="CONFIG"),
+]
+GNN_GRAPHS = 8          # molecules a batch (the graph loss's n_graphs)
+GNN_LR = 1e-3
+
+
+def gnn_cfg(case):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(getattr(get_config("dimenet"), case["width"]),
+                               d_feat=case["d_feat"])
+
+
+def gnn_rank(rank, cases, batches, params, states):
+    """Each case of ``cases`` (those of this world's size) on this rank:
+    its block of the node outputs, the graph outputs, the loss and the
+    gradients (summed over the axes, as the step sums them) of the
+    sharded path, the dropped counts of its takes and sums, and the same
+    of the unsharded path on the whole batch; for a ``step`` case one
+    sharded train step (lr ``GNN_LR``) from the carried state: its loss,
+    the digest of the state and, on rank 0, the state."""
+    import torch
+
+    from repro_torch.collectives import psum
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import dimenet
+    from repro_torch.sparse import distributed as D
+    from repro_torch.tree import tree_items, tree_map
+    from repro_torch.weights import dimenet_params_from_jax, state_from_jax
+
+    meshes, out = {}, {}
+    for case in cases:
+        shape, axes = tuple(case["mesh"]), tuple(case["axes"])
+        if shape not in meshes:
+            meshes[shape] = Mesh(shape, axes, device="cpu")
+        mesh, cfg = meshes[shape], gnn_cfg(case)
+        n_graphs = GNN_GRAPHS if case["loss"] == "graph" else 0
+        p = dimenet_params_from_jax(params[case["name"]], cfg, "cpu")
+        whole = torch_batch(batches[case["name"]])
+        blk = steps.gnn_batch_block(whole, mesh, axes, n_graphs=n_graphs)
+        rec = {}
+        for tag, b, kw in (("sharded", blk, {"shard_axes": axes,
+                                              "mesh": mesh}),
+                           ("one", whole, {})):
+            D.DROPS.reset()
+            with torch.no_grad():
+                node = dimenet.forward(p, cfg, b, kw.get("shard_axes"),
+                                       mesh=kw.get("mesh"))
+                graph = dimenet.forward_graph(
+                    p, cfg, b, GNN_GRAPHS, kw.get("shard_axes"),
+                    mesh=kw.get("mesh"))
+            drops = D.DROPS.summary()
+            D.DROPS.reset(on=False)
+            loss, grads = steps.value_and_grad(
+                steps.gnn_loss(cfg, n_graphs, **kw))(p, b)
+            if tag == "sharded":
+                grads = tree_map(lambda g: psum(g, axes, mesh), grads)
+            rec[tag] = {"node": node.numpy(), "graph": graph.numpy(),
+                        "loss": float(loss), "drops": drops,
+                        "grads": to_numpy(tree_items(grads))}
+        if case["step"]:
+            state = state_from_jax(states[case["name"]], cfg, "cpu")
+            new, m = steps.build_gnn_train_step(
+                cfg, n_graphs=n_graphs, lr=GNN_LR, shard_axes=axes,
+                mesh=mesh)(state, blk)
+            rec["step"] = {
+                "loss": float(m["loss"]), "step_count": new["step"],
+                "digest": digest({"params": new["params"], "opt": new["opt"]}),
+                "state": to_numpy({"params": tree_items(new["params"]),
+                                   "mu": tree_items(new["opt"]["mu"]),
+                                   "nu": tree_items(new["opt"]["nu"])})
+                if rank == 0 else None}
+        out[case["name"]] = rec
+    return out
+

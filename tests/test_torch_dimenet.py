@@ -4,7 +4,9 @@ configs field for field, the bases, the reference's tie rule for
 ``d_feat > 0``), ``forward_dense_triplets`` and ``forward_graph`` at
 SMOKE and at CONFIG width on small molecules, the dense triplet layout
 equal to the flat one, translation and rotation invariance, padded edges
-as in the reference, and ``shard_axes`` refused. The JAX params are
+as in the reference, and ``shard_axes`` refused without a mesh or on row
+counts the shards do not divide (the sharded path itself:
+``test_torch_dimenet_sharded.py``). The JAX params are
 carried across with ``weights.dimenet_params_from_jax``.
 
 Tolerances (f32; the two packages sum in other orders): outputs and
@@ -286,11 +288,40 @@ def test_translation_and_rotation_invariance():
                                out.numpy(), atol=1e-3, rtol=1e-3)
 
 
-def test_shard_axes_raises_naming_item_10():
+@pytest.mark.parametrize("fn", ["forward", "forward_dense_triplets",
+                                "forward_graph", "gnn_loss",
+                                "build_gnn_train_step"])
+def test_shard_axes_without_a_mesh_raises(fn):
+    from repro_torch.launch import steps
+
     cfg, _, _, p = _params("SMOKE")
-    tb, _ = _both(_molecules())
-    for fn in (dimenet.forward, dimenet.forward_dense_triplets):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            fn(p, cfg, tb, shard_axes=("data",))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        dimenet.forward_graph(p, cfg, tb, 4, shard_axes=())
+    tb, _ = _both(_dense(_molecules(), 4))
+    calls = {
+        "forward": lambda: dimenet.forward(p, cfg, tb, ("data",)),
+        "forward_dense_triplets": lambda: dimenet.forward_dense_triplets(
+            p, cfg, tb, ("data",)),
+        "forward_graph": lambda: dimenet.forward_graph(p, cfg, tb, 4,
+                                                       ("data",)),
+        "gnn_loss": lambda: steps.gnn_loss(cfg, shard_axes=("data",)),
+        "build_gnn_train_step": lambda: steps.build_gnn_train_step(
+            cfg, shard_axes=("data",))}
+    with pytest.raises(ValueError, match="needs the mesh="):
+        calls[fn]()
+
+
+@pytest.mark.parametrize("shards", [3, 5, 7])
+@pytest.mark.parametrize("layout", ["dense", "flat"])
+def test_rows_the_shards_do_not_divide_raise(shards, layout):
+    from types import SimpleNamespace
+
+    from repro_torch.launch import steps
+
+    b = _molecules()
+    b["t_in"], b["t_out"], b["t_mask"] = (v[:64] for v in (
+        b["t_in"], b["t_out"], b["t_mask"]))
+    if layout == "dense":
+        b = _dense(b, 4)
+    mesh = SimpleNamespace(axis_names=("data",), shape={"data": shards},
+                           coords={"data": 0})
+    with pytest.raises(ValueError, match=f"{shards} shards over"):
+        steps.gnn_batch_block(b, mesh, ("data",), n_graphs=4)
