@@ -159,7 +159,7 @@ Phases, run in this order, each printing one JSON line:
              there (xlmr_serve_timing); K1 (with its 146-column last tile),
              K2 and K3 (every routing list in device memory) at its V
              against their plain versions; the gradient check at 8 x 128;
-             4 timed steps of the train CLI's loop at train_420 (420 pairs x
+             3 timed steps of the train CLI's loop at train_420 (420 pairs x
              256 tokens, remat on) and 3 at train_16 with the kernel head
              and 3 with the paper's PyTorch baseline head (``naive``), each
              with its peak memory; then K1, K2 and K3 timed at train_420
@@ -272,8 +272,8 @@ Phases, run in this order, each printing one JSON line:
 
 12. moe     — the MoE decoders' serving paths at full width, bf16, seeded
              random weights, the kernel head: moonshot-v1-16b-a3b at full
-             width and depth (48 layers, D 2048, 64 experts top-6, V
-             163840 tied: 55.4 GB of weights) through the serve phase's
+             width, 24 of its 48 layers (D 2048, 64 experts top-6, V
+             163840 tied: 27.7 GB of weights) through the serve phase's
              path (16384 docs, 64 requests, ``auto`` -> K4 in place; K4
              then timed on its index at B 8 and 64; three encode batches
              traced with torch.profiler), the LSR prefill at B 2
@@ -397,21 +397,36 @@ Phases, run in this order, each printing one JSON line:
              2): ``build_lsr_prefill_step`` at 64 x 16, the two Y blocks
              gathered within K1_TOL of the unsharded prefill's (whether
              the bits are equal printed), K1 once a rank on "tma" at
-             V_local 125001; then one warm-up and 2 timed train_16 steps
-             of ``build_lsr_train_step`` (remat on); (b) mesh (data 2,
-             model 1): the same steps, the batch split over ``data``;
-             gates at each: step 1's loss within SHARDED_LOSS_RTOL of the
-             unsharded step's, its first moments per leaf within
+             V_local 125001; then one train_16 step of
+             ``build_lsr_train_step`` (remat on), every rank holding the
+             whole state; (b) mesh (data 2, model 1): the same step, the
+             batch split over ``data``;
+             gates at each: the loss within SHARDED_LOSS_RTOL of the
+             unsharded step's, the first moments per leaf within
              GRAD_RATIO x the larger of the xlmr gradient check's bf16
              controls and a control at this shape (the unsharded step with
              the vocabulary permuted: every f32 sum over V in another
-             order, as the model mesh orders them), every parameter the same
-             bits on both ranks after each step (the moments after the
-             last), K1-K3 2 x n_micro a step on "tma", no plain version
-             on the card; (c) ``compressed_allreduce`` over ``data`` on
-             each rank's gradient share, twice (the residual carried),
-             within the int8 bound; each rank's step ms (CUDA events),
-             collectives' ms and peak memory; then K1-K3 timed at
+             order, as the model mesh orders them), the parameters and
+             the moments the same bits on both ranks, K1-K3 2 x n_micro
+             on "tma", no plain version on the card; (c)
+             ``compressed_allreduce`` over ``data`` on each rank's
+             gradient share, twice (the residual carried), within the
+             int8 bound; (d) on each mesh one warm-up and SHARDED_STEPS
+             timed steps of ``build_lsr_train_step(param_specs=,
+             zero_specs=)``, the specs from
+             ``state_shardings(transformer_param_specs(...))`` and the
+             state cut from the same seeded one by ``shard_state``: each
+             rank's state bytes equal to the specs' count (1.83 GB at
+             (1, 2), 2.45 GB at (2, 1), beside the replicated 3.67 GB),
+             step 1's loss within SHARDED_LOSS_RTOL of the unsharded
+             step's, the params and the first moments after step 1
+             gathered by ``gather_state`` against (a)/(b)'s (each leaf's
+             update and each leaf's moments within (b)'s moment limit;
+             whether the bits are equal printed), every block the same
+             bits on the ranks that hold it after each step, K1-K3 2 x
+             n_micro a step on "tma" at V 125001 and 250002; each rank's
+             step ms (CUDA events), collectives' ms and bytes and peak
+             memory beside (a)/(b)'s; then K1-K3 timed at
              train_16 on rank 1's vocab rows and on the whole
              vocabulary. Two ranks on one card over gloo measure no
              multi-card scaling. ``python3 chip_smoke.py --only
@@ -4234,7 +4249,7 @@ def phase_eval(torch):
 # the gradient check's pairs x tokens at |V| 250002: the plain head's f32
 # logits of a side, 8 x 128 x 250002, take 1 GB
 XLMR_GRAD_CHECK = (8, 128)
-XLMR_STEPS = {"train_420": 4, "train_16": 3}
+XLMR_STEPS = {"train_420": 3, "train_16": 3}
 # K1 against its plain version at V 250002 (977 tiles of 256 vocab
 # columns, the last one 146 wide), with and without the softcap, a fully
 # masked row: (B, S, softcap)
@@ -5295,8 +5310,11 @@ def phase_decoder(torch):
 # tokens (moonshot's capacity C 1920 an expert, phi3.5-moe's 2560)
 MOE_PREFILL = (2, 8192)
 # phi3.5-moe at full width, 8 of its 32 layers: the 32 hold 83.7 GB of
-# bf16 weights, past one card; moonshot's 48 hold 55.4 GB and run whole
+# bf16 weights, past one card. moonshot at 24 of its 48 layers (27.7 GB;
+# the 48 hold 55.4 GB and fit): the whole script's timeline has no room
+# for the 48-layer serve of 16384 docs (50 s)
 PHI35_LAYERS = 8
+MOONSHOT_LAYERS = 24
 # decode against causal_lm_logits at f32 on views of the first layers (a
 # 48-layer f32 copy of moonshot would take 111 GB): B 4 at positions
 # 0-63, as llama's in the decoder phase
@@ -5436,8 +5454,9 @@ def moe_trunk(torch, cfg, params, where, *, decode_cache):
 
 def phase_moe(torch):
     """The MoE decoders' serving paths at full width, seeded random
-    weights, bf16, the kernel head. moonshot-v1-16b-a3b at full width and
-    depth (48 layers, D 2048, 64 experts top-6, V 163840 tied): the serve
+    weights, bf16, the kernel head. moonshot-v1-16b-a3b at full width,
+    ``MOONSHOT_LAYERS`` of its 48 layers (D 2048, 64 experts top-6, V
+    163840 tied): the serve
     phase's path (``phase_serve``: 16384 docs, 64 requests, ``auto`` -> K4
     in place, every K1 launch on "tma"; K4 then timed on its index at the
     served 8 queries and all 64; three encode batches traced,
@@ -5451,13 +5470,15 @@ def phase_moe(torch):
     ``moe_moonshot``, ``moe_phi35`` and ``moe``."""
     import dataclasses
 
-    from repro_torch.configs.moonshot_v1_16b import CONFIG as MOONSHOT
+    from repro_torch.configs import moonshot_v1_16b
     from repro_torch.configs.phi3_5_moe import CONFIG as PHI35
     from repro_torch.models.transformer import head_weights, init_params
     from repro_torch.retrieval.sparse_rep import stack_rows
     from repro_torch.runtime.serving import make_config_encoder
     from repro_torch.tree import tree_leaves
 
+    MOONSHOT = dataclasses.replace(moonshot_v1_16b.CONFIG,
+                                   n_layers=MOONSHOT_LAYERS)
     t0 = time.perf_counter()
     reset_launches()
     served = phase_serve(torch, MOONSHOT, "moe_serve")
@@ -5473,7 +5494,9 @@ def phase_moe(torch):
         torch, make_config_encoder(params, served["cfg"]), MOONSHOT, n=3)
     moonshot = moe_trunk(torch, MOONSHOT, params, "moonshot",
                          decode_cache=True)
-    emit("moe_moonshot", config=MOONSHOT.name, n_params=MOONSHOT.n_params,
+    emit("moe_moonshot", config=MOONSHOT.name, n_layers=MOONSHOT.n_layers,
+         published_layers=moonshot_v1_16b.CONFIG.n_layers,
+         n_params=MOONSHOT.n_params,
          n_active_params=MOONSHOT.n_active_params,
          weight_bytes=sum(t.nbytes for t in tree_leaves(params)),
          encode_trace=encode_trace, **moonshot)
@@ -6952,7 +6975,7 @@ SHARDED_RANKS = 2
 # (V_local 125001), (b) the batch split in two
 SHARDED_MESHES = {"model": (1, 2), "data": (2, 1)}
 SHARDED_PREFILL = (64, 16)    # the serve phase's index batch
-SHARDED_STEPS = 2             # timed train_16 steps after one warm-up
+SHARDED_STEPS = 1             # (d)'s timed train_16 steps after a warm-up
 SHARDED_LR = 2e-4
 SHARDED_LOSS_RTOL = 1e-4
 SHARDED_TIMEOUT_S = 600       # a rank that hangs is killed after this
@@ -7013,22 +7036,124 @@ def sharded_prefill(torch, cfg, mesh, params, root, rank):
             "y_block": list(y.shape)}
 
 
-def sharded_train(torch, cfg, mesh, state, batches, root, rank, name):
-    """(a)/(b) one warm-up and SHARDED_STEPS timed steps of
-    ``build_lsr_train_step`` with the mesh: each step's loss, CUDA-event
-    ms, collectives (``collectives.TALLY``, the card synchronised around
-    each in the timed steps), peak memory and K1-K3 launches (2 x n_micro
-    each, K1 on "tma"); every parameter the same bits on both ranks after
-    each step, the moments after the last; rank 0 saves the first
-    moments after step 1 for the parent."""
+def sharded_train(torch, cfg, mesh, state, batch, root, rank, name):
+    """(a)/(b) one step of ``build_lsr_train_step`` with the mesh, every
+    rank holding the whole state: its loss, CUDA-event ms, collectives
+    (``collectives.TALLY``), peak memory and K1-K3 launches (2 x n_micro
+    each, K1 on "tma"); the parameters and the moments the same bits on
+    both ranks; rank 0 saves the first moments for the parent. Returns
+    the record and the state after the step."""
     from repro_torch import collectives
     from repro_torch.kernels import sparton as k1
     from repro_torch.launch.steps import build_lsr_train_step
     from repro_torch.tree import tree_items
 
-    n_micro, pairs = 1, batches[0]["q_tokens"].shape[0]
+    n_micro, pairs = 1, batch["q_tokens"].shape[0]
     step = build_lsr_train_step(cfg, mesh, n_micro=n_micro, n_pairs=pairs,
                                 lr=SHARDED_LR)
+    collectives.TALLY.reset(synchronize=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, metrics = step(state, batch)
+    end.record()
+    end.synchronize()
+    launches = read_launches()
+    paths = dict(k1.sparton_forward.path_launches)
+    tally = collectives.TALLY.summary()
+    want = 2 * n_micro
+    require(all(launches[k] == want for k in
+                ("sparton_fwd", "sparton_bwd_dh", "sparton_bwd_de"))
+            and paths["tma"] == want,
+            f"sharded train {name}, rank {rank}: launches {launches}, K1 "
+            f"paths {paths}; expected {want} each on 'tma'")
+    loss = float(metrics["loss"])
+    require(np.isfinite(loss), f"sharded train {name}: loss {loss}")
+    same = bits_over_ranks(torch, mesh, state["params"])
+    require(same, f"sharded train {name}: the ranks' parameters differ")
+    moments = bits_over_ranks(torch, mesh, state["opt"])
+    require(moments, f"sharded train {name}: the ranks' moments differ")
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in
+                    tree_items(state["opt"]["mu"]).items()},
+                   Path(root) / f"mu_{name}.pt")
+    row = {"step": 1, "timed": False, "loss": loss,
+           "ms": start.elapsed_time(end),
+           "collectives_ms": {k: v["ms"] for k, v in tally.items()},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "params_same_bits": same}
+    return {"n_micro": n_micro, "pairs": pairs, "steps": [row],
+            "launches": launches, "k1_paths": paths, "collectives": tally,
+            "moments_same_bits": moments}, state
+
+
+def holders_agree(torch, mesh, specs, tree):
+    """Whether every rank that holds a block of a leaf of ``tree`` (held by
+    the spec tree ``specs``) holds the same bits: two int64 sums of each
+    block's 32-bit words (one position-weighted), broadcast from the
+    first rank of the axes its spec does not name, one broadcast for
+    each set of such axes."""
+    from repro_torch.collectives import broadcast
+    from repro_torch.launch.sharding import map_specs, spec_axes
+
+    groups = {}
+
+    def add(spec, leaf):
+        axes = tuple(a for a in mesh.axis_names
+                     if a not in spec_axes(spec) and mesh.shape[a] > 1)
+        if axes:
+            w = leaf.contiguous().view(torch.int32).view(-1).long()
+            pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
+            groups.setdefault(axes, []).append(
+                torch.stack([w.sum(), (w * pos).sum()]))
+    map_specs(add, specs, tree)
+    same = True
+    for axes, sums in groups.items():
+        mine = torch.stack(sums)
+        same &= torch.equal(mine, broadcast(mine, axes, mesh))
+    return bool(same)
+
+
+def sharded_zero(torch, cfg, mesh, state0, replicated, batches, rank, name):
+    """(d) ``build_lsr_train_step(param_specs=, zero_specs=)`` on the state
+    held by ``state_shardings(transformer_param_specs(cfg, mesh), ...)``
+    (cut from the seeded ``state0`` by ``shard_state``): one warm-up and
+    SHARDED_STEPS timed steps on ``batches``, the first (a)/(b)'s. Gates
+    on the rank: its state bytes equal to the specs' count, K1-K3 2 x
+    n_micro a step on "tma", every block the same bits on the ranks that
+    hold it after each step. Returns each step's loss, CUDA-event ms,
+    collectives and peak; the state bytes beside the replicated state's;
+    and, after step 1, the params and the first moments gathered by
+    ``gather_state`` against ``replicated`` ((a)/(b)'s state after their
+    step on the same batch): each leaf's update (new minus initial
+    params) relative to the replicated update's and each leaf's moments
+    relative to the replicated ones, in norm, and whether the bits are
+    equal. A gradient summed twice or scaled moves the moments, though
+    not Adam's update."""
+    from repro_torch import collectives
+    from repro_torch.kernels import sparton as k1
+    from repro_torch.launch import sharding
+    from repro_torch.launch.steps import build_lsr_train_step
+    from repro_torch.tree import tree_leaves
+
+    specs = sharding.state_shardings(
+        sharding.transformer_param_specs(cfg, mesh), state0["params"],
+        "adamw", mesh)
+    state = sharding.shard_state(mesh, specs, state0)
+    held = sum(t.nbytes for t in tree_leaves(state)
+               if isinstance(t, torch.Tensor))
+    counted = sharding.state_nbytes(mesh, specs, state0)
+    whole = sum(t.nbytes for t in tree_leaves(state0)
+                if isinstance(t, torch.Tensor))
+    require(held == counted, f"sharded zero {name}, rank {rank}: the state "
+                             f"holds {held} bytes, the specs count {counted}")
+    n_micro, pairs = 1, batches[0]["q_tokens"].shape[0]
+    step = build_lsr_train_step(cfg, mesh, n_micro=n_micro, n_pairs=pairs,
+                                lr=SHARDED_LR, param_specs=specs["params"],
+                                zero_specs=specs["opt"]["mu"])
     rows = []
     for i, batch in enumerate(batches):
         collectives.TALLY.reset(synchronize=i > 0)
@@ -7045,32 +7170,72 @@ def sharded_train(torch, cfg, mesh, state, batches, root, rank, name):
         paths = dict(k1.sparton_forward.path_launches)
         tally = collectives.TALLY.summary()
         want = 2 * n_micro
+        if i == 0:
+            against = against_replicated(torch, mesh, specs, state, state0,
+                                         replicated)
         require(all(launches[k] == want for k in
                     ("sparton_fwd", "sparton_bwd_dh", "sparton_bwd_de"))
                 and paths["tma"] == want,
-                f"sharded train {name}, rank {rank}, step {i + 1}: launches "
+                f"sharded zero {name}, rank {rank}, step {i + 1}: launches "
                 f"{launches}, K1 paths {paths}; expected {want} each on "
                 f"'tma'")
         loss = float(metrics["loss"])
-        require(np.isfinite(loss), f"sharded train {name}: loss {loss}")
-        same = bits_over_ranks(torch, mesh, state["params"])
-        require(same, f"sharded train {name}, step {i + 1}: the ranks' "
-                      f"parameters differ")
-        if i == 0 and rank == 0:
-            torch.save({k: v.cpu() for k, v in
-                        tree_items(state["opt"]["mu"]).items()},
-                       Path(root) / f"mu_{name}.pt")
+        require(np.isfinite(loss), f"sharded zero {name}: loss {loss}")
+        same = holders_agree(
+            torch, mesh, {k: specs[k] for k in ("params", "opt")},
+            {k: state[k] for k in ("params", "opt")})
+        require(same, f"sharded zero {name}, step {i + 1}: ranks holding "
+                      f"the same block differ")
         rows.append({"step": i + 1, "timed": i > 0, "loss": loss,
                      "ms": start.elapsed_time(end),
-                     "collectives_ms": {k: v["ms"]
-                                        for k, v in tally.items()},
+                     "collectives": tally,
                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                     "params_same_bits": same})
-    moments = bits_over_ranks(torch, mesh, state["opt"])
-    require(moments, f"sharded train {name}: the ranks' moments differ")
+                     "blocks_same_bits": same})
     return {"n_micro": n_micro, "pairs": pairs, "steps": rows,
-            "launches": launches, "k1_paths": paths, "collectives": tally,
-            "moments_same_bits": moments}
+            "launches": launches, "k1_paths": paths,
+            "v_head": cfg.vocab_size // mesh.shape["model"]
+            if cfg.vocab_size % mesh.shape["model"] == 0
+            else cfg.vocab_size,
+            "state_bytes": held, "spec_bytes": counted,
+            "replicated_bytes": whole, "state_gb": held / 1e9,
+            "replicated_gb": whole / 1e9, **against}
+
+
+def against_replicated(torch, mesh, specs, state, state0, replicated):
+    """``sharded_zero``'s comparison: the params and the first moments of
+    ``state`` (held by ``specs``) gathered, against ``replicated``'s after
+    the same step from ``state0``: each leaf's update relative to the
+    replicated update's and each leaf's moments relative to the
+    replicated ones, in norm, the worst of each, and whether all the bits
+    are equal."""
+    from repro_torch.launch import sharding
+    from repro_torch.tree import tree_items
+
+    def rel(got, want):
+        return {k: float((g - want[k]).norm()
+                         / want[k].norm().clamp_min(1e-30))
+                for k, g in got.items()}
+
+    def equal(got, want):
+        return all(torch.equal(g, want[k]) for k, g in got.items())
+
+    p0 = tree_items(state0["params"])
+    params = tree_items(sharding.gather_state(mesh, specs["params"],
+                                              state["params"]))
+    ref = tree_items(replicated["params"])
+    update = rel({k: p - p0[k] for k, p in params.items()},
+                 {k: r - p0[k] for k, r in ref.items()})
+    mu = tree_items(sharding.gather_state(mesh, specs["opt"]["mu"],
+                                          state["opt"]["mu"]))
+    ref_mu = tree_items(replicated["opt"]["mu"])
+    moments = rel(mu, ref_mu)
+    up, mw = max(update, key=update.get), max(moments, key=moments.get)
+    return {"update_rel_diff": {"max": update[up], "leaf": up,
+                                "per_leaf": update},
+            "mu_rel_diff": {"max": moments[mw], "leaf": mw,
+                            "per_leaf": moments},
+            "params_bit_equal_replicated": equal(params, ref),
+            "mu_bit_equal_replicated": equal(mu, ref_mu)}
 
 
 def sharded_compressed(torch, cfg, mesh, params, batches):
@@ -7122,8 +7287,9 @@ def sharded_rank(rank, root):
     """One rank of the sharded phase (a gloo world of SHARDED_RANKS on the
     one card): splade_xlmr's seeded state on each mesh of SHARDED_MESHES,
     (a) the prefill and train steps on (1, 2), (b) the train steps and (c)
-    ``compressed_allreduce`` on (2, 1); no plain version of K1-K3 on the
-    card."""
+    ``compressed_allreduce`` on (2, 1), (d) on each mesh the train steps
+    on the state held by the specs (``sharded_zero``); no plain version of
+    K1-K3 on the card."""
     import torch
 
     from repro_torch.configs.splade_xlmr import CONFIG, SHAPES
@@ -7149,10 +7315,14 @@ def sharded_rank(rank, root):
             else:
                 rec["compressed"] = sharded_compressed(
                     torch, CONFIG, mesh, state["params"], batches)
-            rec["train"] = sharded_train(torch, CONFIG, mesh, state, batches,
-                                         root, rank, name)
+            rec["train"], final = sharded_train(torch, CONFIG, mesh, state,
+                                                batches[0], root, rank, name)
+            rec["zero"] = sharded_zero(torch, CONFIG, mesh, state, final,
+                                       batches, rank, name)
+            rec["zero"]["replicated_peak_gib"] = max(
+                r["peak_gib"] for r in rec["train"]["steps"])
             out[name] = rec
-            del state
+            del state, final
             torch.cuda.empty_cache()
     require(not plain_on_cuda, f"sharded, rank {rank}: plain versions ran "
                                f"on CUDA tensors: {sorted(set(plain_on_cuda))}")
@@ -7230,7 +7400,11 @@ def phase_sharded(torch, grad_limit=None):
     (``grad_limit``, the xlmr phase's limit, measured here when the phase
     runs alone) and of ``vocab_order_control`` at this phase's shape (the
     order of the sums over V is what the model mesh changes: at train_16
-    InfoNCE's scores sum 250002 products each); then K1-K3 timed at
+    InfoNCE's scores sum 250002 products each); (d) on each mesh the
+    step on the state held by the specs: step 1's loss to
+    SHARDED_LOSS_RTOL, each leaf's update and first moments after step 1
+    to the same limit as the moments against (a)/(b)'s
+    (``sharded_zero``); then K1-K3 timed at
     V_local and at the whole vocabulary (``sharded_timing``)."""
     import dataclasses
     import tempfile
@@ -7315,6 +7489,39 @@ def phase_sharded(torch, grad_limit=None):
                               f"differ by {per[worst]} (relative), above "
                               f"{mu_limit}")
             del mu
+            zero = [out[name]["zero"] for out in ranks]
+            z_losses = [z["steps"][0]["loss"] for z in zero]
+            z_rel = max(abs(l_ - ref_loss) / abs(ref_loss) for l_ in z_losses)
+            z_upd = max(z["update_rel_diff"]["max"] for z in zero)
+            z_mu = max(z["mu_rel_diff"]["max"] for z in zero)
+            gates[f"zero_{name}"] = {
+                "step1_loss": z_losses, "loss_rel_diff": z_rel,
+                "update_rel_diff_max": z_upd,
+                "update_rel_diff_leaf": zero[0]["update_rel_diff"]["leaf"],
+                "mu_rel_diff_max": z_mu,
+                "mu_rel_diff_leaf": zero[0]["mu_rel_diff"]["leaf"],
+                "params_bit_equal_replicated": [
+                    z["params_bit_equal_replicated"] for z in zero],
+                "mu_bit_equal_replicated": [
+                    z["mu_bit_equal_replicated"] for z in zero],
+                "state_gb": [z["state_gb"] for z in zero],
+                "replicated_gb": zero[0]["replicated_gb"],
+                "peak_gib": [max(r["peak_gib"] for r in z["steps"])
+                             for z in zero],
+                "replicated_peak_gib": [z["replicated_peak_gib"]
+                                        for z in zero],
+                "limit": mu_limit}
+            if z_rel > SHARDED_LOSS_RTOL:
+                failed.append(f"sharded zero {name}: step-1 loss {z_losses} "
+                              f"vs the unsharded {ref_loss}")
+            if z_upd > mu_limit:
+                failed.append(f"sharded zero {name}: the params' update "
+                              f"differs from the replicated step's by "
+                              f"{z_upd} (relative), above {mu_limit}")
+            if z_mu > mu_limit:
+                failed.append(f"sharded zero {name}: the first moments "
+                              f"differ from the replicated step's by "
+                              f"{z_mu} (relative), above {mu_limit}")
     del ref_mu
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
@@ -7328,6 +7535,7 @@ def phase_sharded(torch, grad_limit=None):
         for name in SHARDED_MESHES:
             launches[f"rank{r}_train_{name}"] = \
                 out[name]["train"]["launches"]
+            launches[f"rank{r}_zero_{name}"] = out[name]["zero"]["launches"]
     seconds = time.perf_counter() - t0
     emit("sharded", note=SHARDED_NOTE, ranks=SHARDED_RANKS,
          backend="gloo", config=CONFIG.name, meshes=SHARDED_MESHES,
@@ -7342,7 +7550,8 @@ def phase_sharded(torch, grad_limit=None):
          per_rank=[{name: {"coords": out[name]["coords"],
                            "device": out[name]["device"],
                            **{k: v for k, v in out[name].items()
-                              if k in ("prefill", "train", "compressed")}}
+                              if k in ("prefill", "train", "compressed",
+                                       "zero")}}
                     for name in SHARDED_MESHES} for out in ranks],
          timing=timing, seconds={"total": seconds, "references": ref_s,
                                  "ranks": ranks_s, "timing": timing_s})

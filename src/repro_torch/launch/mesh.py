@@ -15,6 +15,8 @@ Production meshes: ``(16, 16)`` = 256 ranks, axes ``(data, model)``;
 ``(2, 16, 16)`` = 512 ranks, axes ``(pod, data, model)``. ``pod`` and
 ``data`` carry data parallelism, ``model`` the vocabulary sharding of
 the Sparton head. A mesh of the wrong size for the world raises.
+``AbstractMesh`` is a mesh's shape without a world, for the spec
+functions of ``launch.sharding``.
 
 To start a world: ``python -m torch.distributed.run --nproc-per-node N
 script.py`` (each process then calls ``init_process_group(backend)``),
@@ -135,6 +137,27 @@ class Mesh:
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank={self.rank}, coords={self.coords}, "
                 f"device={self.device})")
+
+
+class AbstractMesh:
+    """A mesh's shape alone (``jax.sharding.AbstractMesh``): ``shape`` over
+    ``axis_names``, no world, no rank. What the spec functions of
+    ``launch.sharding`` read; the production ``(16, 16)`` and ``(2, 16,
+    16)`` meshes can be described on any host."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        shape, names = tuple(int(n) for n in shape), tuple(axis_names)
+        if len(shape) != len(names) or len(set(names)) != len(names):
+            raise ValueError(f"AbstractMesh: shape {shape} and axes {names} "
+                             "do not match one to one")
+        self.axis_names = names
+        self.shape: Dict[str, int] = dict(zip(names, shape))
+        self.size = 1
+        for n in shape:
+            self.size *= n
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
 
 
 def axis_size(mesh: Mesh, axes: Axes) -> int:

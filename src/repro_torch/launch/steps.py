@@ -44,15 +44,22 @@ With a ``launch.mesh.Mesh`` (``_encode_fn``, ``build_lsr_prefill_step``,
 ``build_lsr_train_step``) every rank is given the whole batch and runs
 its rows of it (split over the batch axes ``launch.sharding.
 batch_axes_for`` picks) through the trunk, replicated over ``model``,
-and the vocab-sharded head (``core/sharded.py``).
+and the vocab-sharded head (``core/sharded.py``). By default every rank
+holds the whole state; ``build_lsr_train_step(cfg, mesh, param_specs=,
+zero_specs=)`` holds it by ``launch.sharding``'s specs (a state cut by
+``shard_state``): each rank keeps its block of each parameter and its
+ZeRO block of each moment, gathers the parameters that ``model`` splits
+on use, sums the gradients over the batch axes into its ZeRO blocks,
+runs AdamW there and gathers the update back into its param blocks.
 ``build_gnn_train_step(cfg, shard_axes=, mesh=)`` runs DimeNet's
 row-sharded path: every rank is given its row blocks of the batch
 (``gnn_batch_block``), the loss is the whole batch's on every rank, and
 the gradients are summed over the axes once, so every rank's state is
-the same bytes. Still to come: the other meshes (the expert-parallel
-MoE, the sharded decode cache, the row-sharded retrieval,
-``streaming_topk``'s ``vary_axes``, the recsys tables and the production
-meshes of ``build_step``: multi-GPU, ROADMAP Queue 1 items 10d-10g).
+the same bytes. Still to come: the other meshes (the recsys tables and
+their specs, the row-sharded retrieval and ``streaming_topk``'s
+``vary_axes``: 10e; the expert-parallel MoE: 10f; the sharded decode
+cache and the production meshes of ``build_step``: 10g; multi-GPU,
+ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -191,19 +198,13 @@ def sharded_lsr_loss(cfg: TransformerConfig, mesh: Any, n_pairs: int
     return loss_fn
 
 
-def reduce_grads(grads: Any, mesh: Any, baxes: Tuple[str, ...]) -> Any:
-    """The gradient of the whole batch's loss, the same bits on every rank:
-    each rank holds its share (the head's rows gathered over ``model``
-    already), the same on every rank of the axes the batch is not split
-    over (``model`` and any batch axis outside ``baxes``); one sum over
-    the world of the shares of the ranks at index 0 of those axes."""
-    from repro_torch.collectives import psum
-
-    keep = all(mesh.coords[a] == 0
-               for a in mesh.axis_names if a not in baxes)
-    with torch.no_grad():
-        return tree_map(lambda g: psum(g if keep else torch.zeros_like(g),
-                                       mesh.axis_names, mesh), grads)
+def _micro_pairs(batch: Batch, n_pairs: Optional[int], n_micro: int) -> int:
+    """A micro-batch's pairs (a batch of other than ``n_pairs`` raises)."""
+    pairs = batch["q_tokens"].shape[0]
+    if n_pairs is not None and pairs != n_pairs:
+        raise ValueError(f"build_lsr_train_step: a batch of {pairs} "
+                         f"pairs, built for {n_pairs}")
+    return max(1, pairs // n_micro)
 
 
 def build_lsr_train_step(
@@ -214,43 +215,145 @@ def build_lsr_train_step(
     n_pairs: Optional[int] = None,
     lr: float = 2e-5,
     total_steps: int = 100_000,
+    param_specs: Any = None,
+    zero_specs: Any = None,
 ) -> Callable[[State, Batch], Tuple[State, Dict[str, torch.Tensor]]]:
     """The step: peak ``lr`` after 1000 warm-up steps, then a cosine to
     ``total_steps``. It returns a new state and leaves the one it was
     given as it was, so a fault-tolerant runner can retry it.
 
     With a ``launch.mesh.Mesh`` every rank is given the whole batch (of
-    ``n_pairs`` pairs, when given) and the same state; each micro-batch's
-    loss is ``sharded_lsr_loss``'s, the gradients are summed over the
-    batch axes (``reduce_grads``), then clipped and applied as without a
-    mesh, so every parameter leaves the step the same bits on every
-    rank."""
-    opt = adamw(linear_warmup_cosine(lr, 1000, total_steps))
-    if mesh is None:
-        grad_fn = value_and_grad(lsr_loss(cfg))
-    else:
-        from repro_torch.launch.sharding import batch_axes_for
-
-        sharded: Dict[int, Any] = {}
+    ``n_pairs`` pairs, when given) and runs ``_mesh_step``: by default
+    every rank holds the whole state and every parameter leaves the step
+    the same bits on every rank; ``param_specs`` or ``zero_specs`` (spec
+    trees like the params, ``launch.sharding``'s) hold the state by them
+    instead. Either alone means what it means in the reference: no
+    ``param_specs``, params whole; no ``zero_specs``, the moments at the
+    param specs."""
+    schedule = linear_warmup_cosine(lr, 1000, total_steps)
+    if mesh is not None:
+        return _mesh_step(cfg, mesh, schedule, n_micro=n_micro,
+                          n_pairs=n_pairs, param_specs=param_specs,
+                          zero_specs=zero_specs)
+    if param_specs is not None or zero_specs is not None:
+        raise ValueError("build_lsr_train_step: param_specs and "
+                         "zero_specs place the state on a mesh; give "
+                         "the mesh")
+    opt = adamw(schedule)
+    grad_fn = value_and_grad(lsr_loss(cfg))
 
     def step(state: State, batch: Batch):
-        if mesh is None:
-            loss, grads = microbatch_grads(grad_fn, state["params"], batch,
-                                           n_micro=n_micro)
-        else:
-            pairs = batch["q_tokens"].shape[0]
-            if n_pairs is not None and pairs != n_pairs:
-                raise ValueError(f"build_lsr_train_step: a batch of {pairs} "
-                                 f"pairs, built for {n_pairs}")
-            micro = max(1, pairs // n_micro)
-            if micro not in sharded:
-                sharded[micro] = value_and_grad(
-                    sharded_lsr_loss(cfg, mesh, micro))
-            loss, grads = microbatch_grads(sharded[micro], state["params"],
-                                           batch, n_micro=n_micro)
-            grads = reduce_grads(grads, mesh, batch_axes_for(mesh, micro))
+        loss, grads = microbatch_grads(grad_fn, state["params"], batch,
+                                       n_micro=n_micro)
         updates, opt_state = opt.update(grads, state["opt"],
                                         state["params"], state["step"])
+        params = apply_updates(state["params"], updates)
+        return ({"params": params, "opt": opt_state,
+                 "step": state["step"] + 1}, {"loss": loss})
+
+    return step
+
+
+def _mesh_step(cfg: TransformerConfig, mesh: Any, schedule: Callable, *,
+               n_micro: int, n_pairs: Optional[int], param_specs: Any,
+               zero_specs: Any
+               ) -> Callable[[State, Batch],
+                             Tuple[State, Dict[str, torch.Tensor]]]:
+    """The LSR step over a mesh on a state held by specs (the reference's
+    ZeRO-2 under GSPMD, its collectives written out; no specs: the whole
+    state on every rank). The state's params are this rank's blocks under
+    ``param_specs``, its moments its blocks under ``zero_specs``
+    (``launch.sharding.shard_state``). Each micro-batch: every leaf that a
+    param spec splits (over ``model``: a spec that splits a parameter
+    over a batch axis raises) is gathered on use with
+    ``all_gather_invariant``, whose backward keeps this rank's block of
+    the one cotangent (the tied E's head part arrives through the head's
+    ``shard_rows``, gathered over ``model``, so it is counted once), and
+    the loss is ``sharded_lsr_loss``'s. The gradients are summed over the
+    batch axes into this rank's ZeRO blocks (``zero_reducer``): each
+    micro-batch's as it comes where a ZeRO spec splits a leaf over a
+    batch axis (the f32 accumulator then lives at the ZeRO block), else
+    once, after the micro-batches are accumulated. AdamW runs on those
+    blocks (the params cut to them, the clip's norm that of the whole
+    gradient); the update is cast to the param dtype there and gathered
+    into the param blocks. Every rank that holds a block holds the same
+    bits."""
+    from repro_torch.collectives import all_gather, all_gather_invariant
+    from repro_torch.core.sharded import local_block
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.launch.sharding import (batch_axes_for, map_specs,
+                                             replicated, spec_axes,
+                                             zero_extra)
+    from repro_torch.optim.accumulation import zero_reducer
+
+    baxes = batch_axes(mesh)
+    plan: Dict[str, Any] = {}
+    grad_fns: Dict[int, Any] = {}
+
+    def check(pspec, zspec):
+        split = [a for a in spec_axes(pspec) if a in baxes]
+        if split:
+            raise ValueError(f"build_lsr_train_step: a param spec {pspec} "
+                             f"splits a parameter over the batch axes "
+                             f"{split}; only non-batch axes (model) may")
+        return zero_extra(pspec, zspec)
+
+    def resolve(params):
+        if not plan:
+            pspecs = (param_specs if param_specs is not None else
+                      tree_map(lambda p: replicated(p.ndim), params))
+            zspecs = zero_specs if zero_specs is not None else pspecs
+            plan.update(pspecs=pspecs, zspecs=zspecs,
+                        extra=map_specs(check, pspecs, zspecs))
+            zero_axes: set = set()
+            map_specs(lambda ex: zero_axes.update(spec_axes(ex)),
+                      plan["extra"])
+            plan["per_micro"] = bool(zero_axes & set(baxes))
+            plan["opt"] = adamw(
+                schedule, mesh=mesh, block_axes=map_specs(spec_axes, zspecs),
+                shard_fn=lambda ps: map_specs(
+                    lambda ex, p: local_block(mesh, ex, p), plan["extra"],
+                    ps))
+        return plan
+
+    def gather_on_use(blocks):
+        def gather(pspec, x):
+            for dim, axes in enumerate(pspec):
+                if axes:
+                    x = all_gather_invariant(x, axes, mesh, dim=dim)
+            return x
+        return map_specs(gather, plan["pspecs"], blocks)
+
+    def to_param_block(extra, u, p):
+        u = u.to(p.dtype)
+        for dim, axes in enumerate(extra):
+            if axes:
+                u = all_gather(u, axes, mesh, dim=dim)
+        return u
+
+    def step(state: State, batch: Batch):
+        resolve(state["params"])
+        micro = _micro_pairs(batch, n_pairs, n_micro)
+        if micro not in grad_fns:
+            loss_fn = sharded_lsr_loss(cfg, mesh, micro)
+            grad_fns[micro] = (
+                value_and_grad(lambda blocks, mb: loss_fn(
+                    gather_on_use(blocks), mb)),
+                zero_reducer(mesh, plan["pspecs"], plan["zspecs"],
+                             batch_axes_for(mesh, micro)))
+        grad_fn, reduce = grad_fns[micro]
+        per_micro = plan["per_micro"]
+        loss, grads = microbatch_grads(grad_fn, state["params"], batch,
+                                       n_micro=n_micro,
+                                       reduce=reduce if per_micro else None)
+        if not per_micro:
+            grads = reduce(grads)
+        updates, opt_state = plan["opt"].update(
+            grads, state["opt"], state["params"], state["step"])
+        del grads
+        with torch.no_grad():
+            updates = map_specs(to_param_block, plan["extra"], updates,
+                                state["params"])
         params = apply_updates(state["params"], updates)
         return ({"params": params, "opt": opt_state,
                  "step": state["step"] + 1}, {"loss": loss})
@@ -481,8 +584,8 @@ def build_gnn_train_step(
     With ``shard_axes`` and ``mesh`` (the reference's ``shard_axes``
     path) each rank is given its blocks of the batch
     (``gnn_batch_block``) and holds the whole state; each rank's gradient
-    share is summed over the axes once (``reduce_grads``' all-reduce), so
-    every rank takes the same step."""
+    share is summed over the axes once (one all-reduce), so every rank
+    takes the same step."""
     from repro_torch.collectives import psum
 
     axes = dimenet_model.resolve_shard_axes(shard_axes, mesh,
@@ -534,17 +637,29 @@ def build_retrieval_step(cfg: RecSysConfig, mesh: Any = None, *,
 
 
 def new_state(cfg: Any, generator: torch.Generator, *,
-              device=None) -> State:
+              device=None, mesh: Any = None, specs: Any = None) -> State:
     """A fresh train state for ``cfg``, random params on ``device``
     (default the generator's), step 0: a ``TransformerConfig``'s
     (``models.transformer``) or a ``DimeNetConfig``'s (``models.dimenet``)
     with zero AdamW moments, a ``RecSysConfig``'s (``models.recsys``) with
     Adagrad's accumulators at 0.1, as the reference's ``init_state`` lays
     them out. ``device="meta"`` with a CPU generator gives the state's
-    shapes alone, allocating nothing (there is no meta generator)."""
+    shapes alone, allocating nothing (there is no meta generator). With
+    ``mesh`` and ``specs`` (``launch.sharding.state_shardings``' tree) it
+    is this rank's blocks of that state (``shard_state``): every rank
+    draws the same global state from the same seed. One of the two
+    without the other raises."""
+    if (mesh is None) != (specs is None):
+        raise ValueError("new_state: mesh and specs go together (the specs "
+                         "place the state on the mesh)")
     params = init_params(cfg, generator, device=device)
     opt = adagrad(1e-2) if isinstance(cfg, RecSysConfig) else adamw(1e-4)
-    return {"params": params, "opt": opt.init(params), "step": 0}
+    state = {"params": params, "opt": opt.init(params), "step": 0}
+    if specs is None:
+        return state
+    from repro_torch.launch.sharding import shard_state
+
+    return shard_state(mesh, specs, state)
 
 
 def init_params(cfg: Any, generator: torch.Generator, *,
@@ -560,11 +675,12 @@ def init_params(cfg: Any, generator: torch.Generator, *,
 
 
 def init_state(arch_id: str, generator: torch.Generator, *,
-               smoke: bool = False, device=None) -> State:
+               smoke: bool = False, device=None, mesh: Any = None,
+               specs: Any = None) -> State:
     """``new_state`` of the arch's CONFIG (SMOKE with ``smoke``)."""
     mod = get_config(arch_id)
     return new_state(mod.SMOKE if smoke else mod.CONFIG, generator,
-                     device=device)
+                     device=device, mesh=mesh, specs=specs)
 
 
 def arch_config_for_cell(arch_id: str, cell: Any) -> Any:

@@ -11,11 +11,16 @@ in f32 and the caller casts them to the params' dtype
 (``launch.steps``). Adagrad (the recsys tables' optimizer) and SGD with
 momentum keep f32 state and return their updates cast to each param's
 dtype, as the reference's do. Nothing is updated in place.
+
+Over a mesh with ZeRO (``launch.steps.build_lsr_train_step(zero_specs=)``)
+each rank holds blocks: ``adamw(shard_fn=, mesh=, block_axes=)`` cuts the
+params to the moments' blocks (the reference's ``shard_fn``) and clips
+by the norm of the whole gradient, each distinct block counted once.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -31,17 +36,50 @@ class Optimizer(NamedTuple):
     update: Callable[[Tree, Tree, Tree, int], Tuple[Tree, Tree]]
 
 
-def clip_by_global_norm(grads: Tree,
-                        max_norm: float) -> Tuple[Tree, torch.Tensor]:
+def clip_by_global_norm(grads: Tree, max_norm: float, *, mesh: Any = None,
+                        block_axes: Tree = None
+                        ) -> Tuple[Tree, torch.Tensor]:
     """Scale every leaf by ``min(1, max_norm / max(gn, 1e-12))``, with
-    ``gn`` the f32 norm over all leaves. Returns ``(grads, gn)``."""
-    sq = [(g.float() * g.float()).sum() for g in tree_leaves(grads)]
-    total = sq[0]
-    for s in sq[1:]:
-        total = total + s
+    ``gn`` the f32 norm over all leaves. Returns ``(grads, gn)``.
+
+    With ``mesh`` each leaf is this rank's block, and ``block_axes`` a
+    tree like ``grads`` of the axes over which each leaf's blocks differ
+    (those its ZeRO spec names; the blocks are the same over the
+    others): each rank sums its blocks' squares by those axes, one
+    all-reduce over each distinct set of axes, so every block counts
+    once and every rank gets the same norm."""
+    if mesh is None:
+        sq = [(g.float() * g.float()).sum() for g in tree_leaves(grads)]
+        total = sq[0]
+        for s in sq[1:]:
+            total = total + s
+    else:
+        total = _blocks_sum_sq(grads, mesh, block_axes)
     gn = total.sqrt()
     scale = (max_norm / gn.clamp_min(1e-12)).clamp_max(1.0)
     return tree_map(lambda g: g * scale, grads), gn
+
+
+def _blocks_sum_sq(grads: Tree, mesh: Any, block_axes: Tree
+                   ) -> torch.Tensor:
+    """The f32 sum of squares of the whole gradient from each rank's
+    blocks (``clip_by_global_norm`` over a mesh). The leaves are added in
+    ``tree_leaves``' order, as without a mesh, so with no axes the sum is
+    the unsharded clip's, bit for bit."""
+    from repro_torch.collectives import psum
+
+    keys = tree_map(lambda g, axes: "/".join(
+        a for a in mesh.axis_names if a in axes), grads, block_axes)
+    groups: Dict[str, torch.Tensor] = {}
+    for g, key in zip(tree_leaves(grads), tree_leaves(keys)):
+        s = (g.float() * g.float()).sum()
+        groups[key] = s if key not in groups else groups[key] + s
+    total = None
+    with torch.no_grad():
+        for key, s in groups.items():
+            part = psum(s, tuple(key.split("/")), mesh) if key else s
+            total = part if total is None else total + part
+    return total
 
 
 def adamw(
@@ -52,7 +90,15 @@ def adamw(
     eps: float = 1e-8,
     weight_decay: float = 0.01,
     max_grad_norm: Optional[float] = 1.0,
+    shard_fn: Optional[Callable[[Tree], Tree]] = None,
+    mesh: Any = None,
+    block_axes: Tree = None,
 ) -> Optimizer:
+    """``shard_fn`` (the reference's ZeRO constraint): the gradients and
+    moments are this rank's ZeRO blocks, and ``shard_fn(params)`` cuts the
+    params to the same blocks, so every f32 temporary of the update lives
+    there; ``mesh`` and ``block_axes`` make the clip's norm that of the
+    whole gradient (``clip_by_global_norm``)."""
     lr_fn = lr if callable(lr) else (lambda _: lr)
 
     def init(params: Tree) -> Tree:
@@ -63,7 +109,10 @@ def adamw(
     def update(grads: Tree, state: Tree, params: Tree,
                step: int) -> Tuple[Tree, Tree]:
         if max_grad_norm is not None:
-            grads, _ = clip_by_global_norm(grads, max_grad_norm)
+            grads, _ = clip_by_global_norm(grads, max_grad_norm, mesh=mesh,
+                                           block_axes=block_axes)
+        if shard_fn is not None:
+            params = shard_fn(params)
         # the scalars in f32, as the JAX step computes them
         t = f32(step) + 1.0
         lr_t = float(f32(lr_fn(step)))

@@ -146,7 +146,7 @@ def train_cfg(case):
         cfg, compute_dtype=case.get("dtype", "float32"),
         head_impl=case.get("impl", "kernel"),
         vocab_size=case["vocab"], l1_weight=case["l1"],
-        distill_weight=case["distill"])
+        distill_weight=case["distill"], **case.get("fields", {}))
 
 
 def torch_batch(batch):
@@ -748,3 +748,191 @@ def gnn_rank(rank, cases, batches, params, states):
         out[case["name"]] = rec
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# test_torch_zero_train.py
+# ---------------------------------------------------------------------------
+
+def zero_rank(rank, cases):
+    """Each case of ``cases`` (those of this world's size) on this rank:
+    ``build_lsr_train_step(param_specs=, zero_specs=)`` (its specs from
+    ``state_shardings(transformer_param_specs(cfg, mesh), ...)``, either
+    left out as the case says) for two steps (lr 0.5) from the carried
+    state cut by ``shard_state``, then the replicated mesh step from
+    the same state. Returns the losses, this rank's state bytes beside
+    the specs' count, each leaf's block digest after each step (with the
+    axes its spec names), the warnings raised and, on rank 0, the state
+    after each step (``gather_state``); the replicated step's losses and
+    (rank 0) states likewise."""
+    import warnings
+
+    import torch
+
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.tree import tree_items, tree_leaves, tree_map
+    from repro_torch.weights import state_from_jax
+
+    out = {}
+    for case in cases:
+        cfg = train_cfg(case)
+        mesh = Mesh(case["mesh"], AXES, device="cpu")
+        glob = state_from_jax(case["state"], cfg, "cpu")
+        full = S.transformer_param_specs(cfg, mesh)
+        sh = S.state_shardings(full, glob["params"], "adamw", mesh)
+        pspecs = full if "params" in case["specs"] else None
+        zspecs = sh["opt"]["mu"] if "zero" in case["specs"] else None
+        held_p = pspecs or tree_map(lambda p: S.replicated(p.ndim),
+                                    glob["params"])
+        held_z = zspecs or held_p
+        specs = {"params": held_p, "opt": {"mu": held_z, "nu": held_z},
+                 "step": ()}
+        state = S.shard_state(mesh, specs, glob)
+        rec = {"nbytes": sum(t.nbytes for t in tree_leaves(state)
+                             if isinstance(t, torch.Tensor)),
+               "spec_nbytes": S.state_nbytes(mesh, specs, glob),
+               "coords": dict(mesh.coords), "losses": [], "blocks": [],
+               "states": [], "axes": {}}
+        S.map_specs(lambda spec, name: rec["axes"].setdefault(
+            name, S.spec_axes(spec)), specs, _names(specs))
+        step = steps.build_lsr_train_step(
+            cfg, mesh, n_micro=case["n_micro"], n_pairs=case["pairs"],
+            lr=0.5, param_specs=pspecs, zero_specs=zspecs)
+        batch = torch_batch(case["batch"])
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for _ in range(2):
+                state, metrics = step(state, batch)
+                rec["losses"].append(float(metrics["loss"]))
+                body = {"params": state["params"], "opt": state["opt"]}
+                rec["blocks"].append({k: digest(v) for k, v in
+                                      tree_items(body).items()})
+                whole = S.gather_state(mesh, specs, state)
+                if rank == 0:
+                    rec["states"].append(to_numpy(tree_items(
+                        {"params": whole["params"], "opt": whole["opt"]})))
+            rec["step"] = state["step"]
+            repl = steps.build_lsr_train_step(
+                cfg, mesh, n_micro=case["n_micro"], n_pairs=case["pairs"],
+                lr=0.5)
+            r_state, rec["replicated"] = glob, ([], [])
+            for _ in range(2):
+                r_state, metrics = repl(r_state, batch)
+                rec["replicated"][0].append(float(metrics["loss"]))
+                if rank == 0:
+                    rec["replicated"][1].append(to_numpy(tree_items(
+                        {"params": r_state["params"],
+                         "opt": r_state["opt"]})))
+        rec["warnings"] = sorted({str(w.message) for w in caught})
+        rec["new_state_is_shard_state"] = _built_state_is_cut(
+            case, cfg, mesh, specs)
+        out[case["name"]] = rec
+    return out
+
+
+def _built_state_is_cut(case, cfg, mesh, specs):
+    """Whether ``new_state(cfg, ..., mesh=, specs=)`` and ``init_state(arch,
+    ..., smoke=True, mesh=, specs=)`` give, leaf for leaf and bit for bit,
+    ``shard_state`` of the global state drawn from the same seed."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch import steps
+    from repro_torch.tree import tree_items
+
+    def seed():
+        return torch.Generator().manual_seed(7)
+
+    def same(a, b):
+        a, b = tree_items(a), tree_items(b)
+        return a.keys() == b.keys() and all(
+            torch.equal(v, b[k]) if isinstance(v, torch.Tensor)
+            else v == b[k] for k, v in a.items())
+
+    built = same(steps.new_state(cfg, seed(), mesh=mesh, specs=specs),
+                 S.shard_state(mesh, specs, steps.new_state(cfg, seed())))
+    smoke = steps.init_state(case["arch"], seed(), smoke=True)
+    smoke_specs = S.state_shardings(
+        S.transformer_param_specs(get_config(case["arch"]).SMOKE,
+                                  mesh), smoke["params"], "adamw", mesh)
+    return built and same(
+        steps.init_state(case["arch"], seed(), smoke=True, mesh=mesh,
+                         specs=smoke_specs),
+        S.shard_state(mesh, smoke_specs, smoke))
+
+
+def _names(tree, prefix=""):
+    """A tree like ``tree`` (nested dicts and lists; a spec tuple is a
+    leaf) of each leaf's ``tree_items`` name."""
+    if isinstance(tree, dict):
+        return {k: _names(v, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_names(v, f"{prefix}{i}/") for i, v in enumerate(tree)]
+    return prefix[:-1]
+
+
+def zero_refusals_rank(rank, state):
+    """The spec'd step's refusals in a (2, 2) world: a param spec over a
+    batch axis, a ZeRO spec that does not refine the param spec, a
+    dimension split over batch and model axes at once, no mesh, a spec
+    that splits a dimension unevenly, and ``new_state`` given a mesh
+    without specs or specs without a mesh."""
+    import torch
+
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.weights import state_from_jax
+
+    cfg = train_cfg({"arch": "splade_xlmr", "vocab": 1024, "l1": 0.0,
+                     "distill": 0.0})
+    mesh = Mesh((2, 2), AXES, device="cpu")
+    glob = state_from_jax(state, cfg, "cpu")
+    full = S.transformer_param_specs(cfg, mesh)
+    batch = {"q_tokens": torch.zeros((4, 8), dtype=torch.int32),
+             "q_mask": torch.ones((4, 8), dtype=torch.int32),
+             "d_tokens": torch.zeros((4, 8), dtype=torch.int32),
+             "d_mask": torch.ones((4, 8), dtype=torch.int32)}
+
+    def with_leaf(tree, leaf_spec):
+        return {**tree, "final_norm": leaf_spec}
+
+    cases = {
+        "batch_axis_param": dict(param_specs=with_leaf(full, (("data",),))),
+        "not_refining": dict(param_specs=full, zero_specs={
+            **full, "embed": (None, ("data",))}),
+        "mixed_axes": dict(param_specs=S.map_specs(
+            lambda s: S.replicated(len(s)), full),
+            zero_specs=with_leaf(S.map_specs(
+                lambda s: S.replicated(len(s)), full),
+                (("model", "data"),))),
+    }
+    out = {}
+    for name, kw in cases.items():
+        state = S.shard_state(mesh, {"params": kw["param_specs"],
+                                     "opt": {"mu": kw["param_specs"],
+                                             "nu": kw["param_specs"]},
+                                     "step": ()}, glob)
+        try:
+            steps.build_lsr_train_step(cfg, mesh, lr=0.5, **kw)(state, batch)
+        except ValueError as e:
+            out[name] = str(e)
+    try:
+        S.shard_state(mesh, {"x": (("model",),)}, {"x": torch.zeros(3)})
+    except ValueError as e:
+        out["uneven"] = str(e)
+    try:
+        steps.build_lsr_train_step(cfg, None, param_specs=full)
+    except ValueError as e:
+        out["no_mesh"] = str(e)
+    specs = S.state_shardings(full, glob["params"], "adamw", mesh)
+    for name, kw in {"state_mesh_alone": dict(mesh=mesh),
+                     "state_specs_alone": dict(specs=specs)}.items():
+        try:
+            steps.new_state(cfg, torch.Generator().manual_seed(0), **kw)
+        except ValueError as e:
+            out[name] = str(e)
+    return out

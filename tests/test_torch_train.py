@@ -117,6 +117,25 @@ def test_clip_by_global_norm_matches_jax(max_norm):
     _assert_trees(got, ref, rtol=1e-6, atol=1e-7)
 
 
+def test_clip_on_blocks_without_axes_is_the_unsharded_clip():
+    """Over a mesh with no leaf split the norm is the unsharded one bit for
+    bit: the leaves added in ``tree_leaves``' order, not the dict's (here
+    the two orders round 2^24 + 3 + 3 differently)."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.tree import tree_items
+
+    grads = {"b": torch.tensor([4096.0]),
+             "a": {"w": torch.ones(3), "v": torch.ones(3)}}
+    axes = {"b": (), "a": {"w": (), "v": ()}}
+    want, want_gn = opt.clip_by_global_norm(grads, 1.0)
+    got, gn = opt.clip_by_global_norm(
+        grads, 1.0, mesh=AbstractMesh((2, 2), ("data", "model")),
+        block_axes=axes)
+    assert torch.equal(gn, want_gn)
+    for k, v in tree_items(want).items():
+        assert torch.equal(tree_items(got)[k], v), k
+
+
 def test_adamw_three_steps_from_carried_state_match_jax():
     """Three updates from a state with non-zero moments, at step 5, with
     clipping and weight decay on every leaf."""
