@@ -9,7 +9,7 @@
                                      # phase alone (``only_phases``;
                                      # also dimenet, dryrun, sharded,
                                      # sharded_engine, sharded_dimenet,
-                                     # or several)
+                                     # sharded_recsys, or several)
 
 Phases, run in this order, each printing one JSON line:
 
@@ -211,6 +211,28 @@ Phases, run in this order, each printing one JSON line:
              gloo's ms by collective; ogb_products printed as skipped.
              ``python3 chip_smoke.py --only sharded_dimenet`` runs
              device, build and this phase in a world of its own.
+   sharded_recsys — the recsys steps over a mesh
+             (``sparse/sharded_embedding``; ``build_recsys_train_step(
+             mesh=, param_specs=, zero_specs=)``, ``build_recsys_serve_step
+             (cfg, mesh, param_specs)``, ``build_retrieval_step(cfg,
+             mesh)``) at DLRM's CONFIG (embed 128, 26 tables capped at
+             DLRM_ROW_CAP, f32, TF32 off) on sharded_engine's (2, 2)
+             world after sharded_dimenet (its own line in the timeline):
+             the one-process references taken on the card before the
+             world spawns (the step at train_batch 65536, the serve step
+             at serve_p99, the retrieval step and K6, the check, at
+             retrieval_cand B 1, 8 and 64); each rank's state built by
+             ``new_state(mesh=, specs=)`` (its bytes the specs' count,
+             3.877 GB), the serve probabilities within SR_PROB_TOL, the
+             retrieval ids equal to the one-process step's and K6's but
+             at near ties, one train step (gloo's ms and bytes by
+             collective) whose loss is within SR_LOSS_RTOL and whose
+             probe rows and MLP leaves are within SR_UPDATE_TOL of the
+             one process's, every block the same bits on its holders,
+             a second step timed; the published DLRM's bytes a rank
+             (meta count) at (2, 2) and (2, 4). ``python3 chip_smoke.py
+             --only sharded_recsys`` runs device, build and this part in
+             a world of its own.
 9. ckpt    — checkpoint and resume, splade_xlmr at full width through the
              train CLI's own ``run`` at train_16 (16 pairs x 256): (a) 4
              steps with ``--ckpt-every 2`` (checkpoints at steps 2 and 4,
@@ -4371,7 +4393,7 @@ def phase_xlmr(torch):
     served = phase_serve(torch, CONFIG, "xlmr_serve")
     serving = xlmr_serving(torch, served)
     sharded_engine = phase_sharded_engine(torch, served, serving.pop("rows"),
-                                          dimenet=True)
+                                          dimenet=True, recsys=True)
     E, b = head_weights(served["params"], served["cfg"])
     E16, b = E.to(torch.bfloat16), b.clone()
     serve_launches, serve_paths = served["launches"], served["k1_paths"]
@@ -7715,11 +7737,13 @@ def se_one_process(torch, rows, vocab, device="cuda"):
     return out
 
 
-def se_rank(rank, rows_path, vocab, device, dimenet=None):
+def se_rank(rank, rows_path, vocab, device, dimenet=None, recsys=None):
     """One rank of the sharded_engine phase's world (SE_RANKS gloo ranks on
     the one card, a SE_MESH mesh): each SE_WORLD case at B 8 and 64, its
     results, its host ms (median of SE_REPS, synchronised) and its
-    collectives (``collectives.TALLY`` over one call)."""
+    collectives (``collectives.TALLY`` over one call); then, given their
+    arguments, the sharded_dimenet part (``sd_rank``) and the
+    sharded_recsys part (``sr_rank``)."""
     import torch
 
     from repro_torch import collectives
@@ -7765,16 +7789,20 @@ def se_rank(rank, rows_path, vocab, device, dimenet=None):
                                f"versions ran on CUDA tensors")
     if dimenet is not None:   # the sharded_dimenet phase, in this world
         out["sharded_dimenet"] = sd_rank(torch, rank, mesh, *dimenet)
+    if recsys is not None:    # the sharded_recsys part, in this world
+        out["sharded_recsys"] = sr_rank(torch, rank, mesh, *recsys)
     return out
 
 
-def se_world(torch, rows, vocab, one, device="cuda", dimenet=None):
+def se_world(torch, rows, vocab, one, device="cuda", dimenet=None,
+             recsys=None):
     """SE_RANKS gloo ranks sharing the card (``se_rank``), each held to the
     one-process result of its index (``one``): ids equal and, every psum
     here adding two partials, the same bits; every rank the same result;
     both 2D orientations the same bits. Returns the per-rank numbers
     (with ``dimenet``, ``sd_rank``'s arguments, each rank's
-    sharded_dimenet record under ``sharded_dimenet``)."""
+    sharded_dimenet record under ``sharded_dimenet``; with ``recsys``,
+    ``sr_rank``'s, its sharded_recsys record under ``sharded_recsys``)."""
     import tempfile
 
     from repro_torch.launch.mesh import spawn_world
@@ -7785,7 +7813,8 @@ def se_world(torch, rows, vocab, one, device="cuda", dimenet=None):
         t0 = time.perf_counter()
         ranks = spawn_world(se_rank, SE_RANKS, backend="gloo",
                             root=Path(tmp) / "world",
-                            args=(str(rows_path), vocab, device, dimenet),
+                            args=(str(rows_path), vocab, device, dimenet,
+                                  recsys),
                             timeout=SE_TIMEOUT_S)
         seconds = time.perf_counter() - t0
     failed = []
@@ -7811,7 +7840,9 @@ def se_world(torch, rows, vocab, one, device="cuda", dimenet=None):
                 failed.append(f"grid{tag} {b}: the two orientations differ")
     require(not failed, "; ".join(failed))
     dimenet_ranks = [rank.pop("sharded_dimenet", None) for rank in ranks]
+    recsys_ranks = [rank.pop("sharded_recsys", None) for rank in ranks]
     return {"seconds": seconds, "sharded_dimenet": dimenet_ranks,
+            "sharded_recsys": recsys_ranks,
             "per_rank": [
         {"coords": rank["coords"], "device": rank["device"],
          "cases": {f"{case}|{b}": {key: c[key] for key in (
@@ -7978,7 +8009,8 @@ def se_cli(torch):
     return out
 
 
-def phase_sharded_engine(torch, served=None, rows=None, dimenet=False):
+def phase_sharded_engine(torch, served=None, rows=None, dimenet=False,
+                         recsys=False):
     """The doc-, term- and 2D-sharded engines at splade_xlmr's V on the
     xlmr engine's 19456 live rows and the served queries (``engine_rows``;
     run alone, the xlmr serve and engine phases make them first): one
@@ -7986,9 +8018,11 @@ def phase_sharded_engine(torch, served=None, rows=None, dimenet=False):
     the card (``se_world``), the sharded ``CorpusEngine``s
     (``se_engines``) and the serve CLI's sharded methods at splade_bert
     (``se_cli``); no plain version on the card. With ``dimenet`` the
-    world's ranks then run the sharded_dimenet phase (``sd_rank``), whose
-    seconds are returned apart (``sharded_dimenet``) and not in this
-    phase's."""
+    world's ranks then run the sharded_dimenet phase (``sd_rank``), and
+    with ``recsys`` the sharded_recsys part (``sr_rank``, its one-process
+    references taken before the world spawns), whose seconds are
+    returned apart (``sharded_dimenet``, ``sharded_recsys``) and not in
+    this phase's."""
     from repro_torch.kernels import impact_score as k45
     from repro_torch.kernels import sparton as k1
 
@@ -8014,11 +8048,15 @@ def phase_sharded_engine(torch, served=None, rows=None, dimenet=False):
         seconds["one_process"] = time.perf_counter() - t1
         t1 = time.perf_counter()
         with sd_hosted(torch) if dimenet else contextlib.nullcontext(
-                (None, None)) as (sd_args, sd_host):
+                (None, None)) as (sd_args, sd_host), \
+                sr_hosted(torch) if recsys else contextlib.nullcontext(
+                    (None, None)) as (sr_args, sr_host):
             world = se_world(torch, rows, vocab, one.pop("results"),
-                             dimenet=sd_args)
+                             dimenet=sd_args, recsys=sr_args)
         sd_ranks = world.pop("sharded_dimenet")
         sharded_dimenet = sd_check(sd_ranks, sd_host) if dimenet else None
+        sr_ranks = world.pop("sharded_recsys")
+        sharded_recsys = sr_check(sr_ranks, sr_host) if recsys else None
         seconds["world"] = time.perf_counter() - t1
         t1 = time.perf_counter()
         reset_launches()
@@ -8048,16 +8086,17 @@ def phase_sharded_engine(torch, served=None, rows=None, dimenet=False):
             f"{launches}")
     seconds["total"] = time.perf_counter() - t_start
     seconds["with_prerequisites"] = time.perf_counter() - t0
-    if dimenet:   # the world's DimeNet part is the sharded_dimenet phase's
+    for part in (sharded_dimenet, sharded_recsys):
         for key in ("world", "total", "with_prerequisites"):
-            seconds[key] -= sharded_dimenet["seconds"]
+            seconds[key] -= part["seconds"] if part else 0
     emit("sharded_engine", note=SE_NOTE, config=served["cfg"].name,
          docs=int(rows["dv"].shape[0]), width=int(rows["dv"].shape[1]),
          prune=SE_PRUNE, mesh=list(SE_MESH[0]), ranks=SE_RANKS,
          backend="gloo", one_process=one, world=world, engines=engines,
          cli=cli, launches=launches, k1_paths=k1_paths, seconds=seconds)
     return {"launches": launches, "k1_paths": k1_paths,
-            "seconds": seconds["total"], "sharded_dimenet": sharded_dimenet}
+            "seconds": seconds["total"], "sharded_dimenet": sharded_dimenet,
+            "sharded_recsys": sharded_recsys}
 
 
 # --------------------------------------------------------------------------
@@ -8363,10 +8402,426 @@ def phase_sharded_dimenet(torch, device="cuda"):
     return sd_check(ranks, host)
 
 
+# --------------------------------------------------------------------------
+# 20. the recsys steps over a mesh (sparse/sharded_embedding)
+# --------------------------------------------------------------------------
+
+SR_CONFIG = "dlrm"          # recsys_config's DLRM: tables capped at 2**21
+SR_SEED = 43                # the state's seed, the same in every process
+SR_TRAIN = 65536            # train_batch rows in all (32768 a data rank)
+SR_SERVE = 512              # serve_p99
+SR_RETRIEVAL = (1, 8, 64)   # query rows at retrieval_cand (B 1 published)
+SR_PROBES = 256             # rows of each table compared after step 1
+SR_LOSS_RTOL = 1e-5
+# each leaf's largest difference from the one-process step after step 1,
+# over the largest move the one-process step made in it (its update, or
+# its accumulator's growth): the mesh sums the batch's gradient in
+# other groupings (two data shares, psums) and F.embedding's backward
+# adds repeated ids with atomics (not the same bits run to run), so the
+# gradients differ in their last bits; Adagrad's update moves at most
+# 3.2 lr per unit of gradient
+SR_UPDATE_TOL = 1e-3
+SR_PROB_TOL = 1e-5          # serve probabilities, absolute
+SR_PUBLISHED = ((2, 2), (2, 4))   # meshes of the published DLRM's count
+SR_TIMEOUT_S = 300
+
+
+def sr_candidates(torch, cfg, device):
+    """retrieval_cand's seeded ``(N, embed_dim)`` f32 candidates."""
+    g = torch.Generator(device=device).manual_seed(37)
+    return torch.randn((RECSYS_RETRIEVAL["N"], cfg.embed_dim), generator=g,
+                       device=device)
+
+
+def sr_counts(cfg):
+    """The state specs of SE_MESH (``state_shardings(recsys_param_specs(
+    ...), ..., "adagrad")``, which read only the mesh's shape: the ranks
+    are given them, and build no meta tensors, whose first use imports
+    ``torch._dynamo`` for ~10 s a process) and the state's bytes a rank
+    by the specs (``state_nbytes`` on ``AbstractMesh``es over meta
+    tensors): DLRM as the card runs it at SE_MESH and whole, and the
+    published DLRM at SR_PUBLISHED."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.steps import init_params
+
+    def count(c, shape):
+        meta = init_params(c, torch.Generator(), device="meta")
+        state = {"params": meta, "opt": {"acc": meta}, "step": 0}
+        mesh = AbstractMesh(shape, SE_MESH[1])
+        specs = S.state_shardings(S.recsys_param_specs(c, mesh), meta,
+                                  "adagrad", mesh)
+        return S.state_nbytes(mesh, specs, state), specs
+
+    published = get_config(RECSYS[SR_CONFIG]).CONFIG
+    rank, specs = count(cfg, SE_MESH[0])
+    return {"rank": rank, "whole": count(cfg, (1, 1))[0],
+            "published_whole": count(published, (1, 1))[0],
+            "published_rank": {"x".join(map(str, m)): count(published, m)[0]
+                               for m in SR_PUBLISHED}}, specs
+
+
+def sr_probes(cfg, batch):
+    """Each table's probe rows: up to SR_PROBES of the batch's distinct ids
+    in its field, evenly spaced in id order (so every block of a large
+    table is read), and its first and last rows."""
+    ids = batch["sparse_idx"].cpu().numpy()
+    out = {}
+    for f, rows in enumerate(cfg.table_sizes):
+        seen = np.unique(ids[:, f])
+        pick = seen[np.linspace(0, len(seen) - 1,
+                                min(SR_PROBES, len(seen))).astype(int)]
+        out[f] = np.unique(np.concatenate([pick, [0, rows - 1]]))
+    return out
+
+
+@contextlib.contextmanager
+def sr_hosted(torch, device="cuda"):
+    """The one-process references, taken on the card before the world
+    spawns (the step needs ~35 GB, which the ranks' blocks would crowd):
+    DLRM's state from SR_SEED, the serve step at SR_SERVE, the retrieval
+    step and K6 (the check) at each SR_RETRIEVAL batch, then one step
+    of ``build_recsys_train_step`` at SR_TRAIN. Saved to a temporary npz
+    (the loss, each table's probe rows and every MLP leaf before and
+    after, the probabilities, the ids and values); yields ``(sr_rank's
+    arguments, the host's record)``."""
+    import tempfile
+
+    from repro_torch.kernels.topk_score import topk_score
+    from repro_torch.launch.steps import (build_recsys_serve_step,
+                                          build_recsys_train_step,
+                                          build_retrieval_step, new_state)
+    from repro_torch.models.recsys import user_embedding
+    from repro_torch.tree import tree_items
+
+    t0 = time.perf_counter()
+    dev, k = torch.device(device), RECSYS_RETRIEVAL["k"]
+    cfg, cut = recsys_config(SR_CONFIG)
+    counts, specs = sr_counts(cfg)
+    host = {"rows_cut": cut, "counts": counts,
+            "counts_s": time.perf_counter() - t0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = new_state(cfg, torch.Generator(device=dev).manual_seed(SR_SEED))
+    params = state["params"]
+    out = {"serve": build_recsys_serve_step(cfg)(params, recsys_batch(
+        torch, cfg, SR_SERVE, 6, dev)).cpu().numpy()}
+    reset_launches()
+    for B in SR_RETRIEVAL:
+        batch = recsys_batch(torch, cfg, B, 7, dev)
+        batch["candidates"] = sr_candidates(torch, cfg, dev)
+        v, i = build_retrieval_step(cfg, k=k)(params, batch)
+        with torch.no_grad():
+            vk, ik = topk_score(user_embedding(params, cfg, batch),
+                                batch["candidates"], k=k)
+        out.update({f"B{B}|v": v.cpu().numpy(), f"B{B}|i": i.cpu().numpy(),
+                    f"B{B}|k6_v": vk.cpu().numpy(),
+                    f"B{B}|k6_i": ik.cpu().numpy()})
+        del batch
+    host["check_launches"] = read_launches()
+    require(dev.type != "cuda" or host["check_launches"]["topk_score"]
+            == len(SR_RETRIEVAL), f"sharded_recsys: K6 launched "
+            f"{host['check_launches']} for {len(SR_RETRIEVAL)} checks")
+    host["references_s"] = time.perf_counter() - t0
+    batch = recsys_batch(torch, cfg, SR_TRAIN, 5, dev)
+    step = build_recsys_train_step(cfg)
+    step(state, batch)                      # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    new, m = step(state, batch)
+    torch.cuda.synchronize()
+    host.update(one_process_ms=1e3 * (time.perf_counter() - t1),
+                one_process_peak_gib=torch.cuda.max_memory_allocated()
+                / 2**30, loss=float(m["loss"]))
+    out["loss"] = np.float64(host["loss"])
+    probes = sr_probes(cfg, batch)
+    for part, tree in (("old", params), ("new", new["params"]),
+                       ("acc", new["opt"]["acc"])):
+        for name, leaf in tree_items(tree).items():
+            if name.startswith("tables/"):
+                f = int(name.split("/")[1])
+                out[f"probe|{f}"] = probes[f]
+                leaf = leaf[torch.from_numpy(probes[f]).to(dev)]
+            out[f"{part}|{name}"] = leaf.cpu().numpy()
+    del state, params, new, batch, m
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sr_") as tmp:
+        path = Path(tmp) / "one_process.npz"
+        np.savez(path, **out)
+        host.update(host_s=time.perf_counter() - t0, one=out)
+        yield (str(path), specs), host
+
+
+def sr_block_rows(torch, mesh, spec, rows):
+    """``[lo, hi)``: the global rows of this rank's block under ``spec``'s
+    dimension 0."""
+    from repro_torch.launch.mesh import axis_index, axis_size
+
+    axes = spec[0]
+    if not axes:
+        return 0, rows
+    n = rows // axis_size(mesh, axes)
+    lo = axis_index(mesh, axes) * n
+    return lo, lo + n
+
+
+def sr_rank(torch, rank, mesh, path, specs):
+    """One rank's sharded_recsys on SE_MESH: DLRM's state built by
+    ``new_state(mesh=, specs=)`` from SR_SEED (``specs``: ``sr_counts``'
+    state specs) and its bytes; the serve step and the retrieval
+    step (its candidates cut by ``candidate_block``) held against the
+    one-process results (rank 0: ``stream_compare`` against the step's
+    and K6's ids); one step of ``build_recsys_train_step(mesh=,
+    param_specs=, zero_specs=)`` with gloo's time by collective
+    (``TALLY``, synchronised), this rank's probe rows and (rank 0) the
+    MLPs and their gathered accumulators after it, every block the same
+    bits on the ranks holding it; then a second step timed. K1-K6 must
+    launch no time."""
+    from repro_torch import collectives
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.steps import (build_recsys_serve_step,
+                                          build_recsys_train_step,
+                                          build_retrieval_step, new_state)
+    from repro_torch.models.recsys import padded_rows, user_embedding
+    from repro_torch.tree import tree_items, tree_leaves
+
+    t0 = time.perf_counter()
+    dev, k = mesh.device, RECSYS_RETRIEVAL["k"]
+    torch.cuda.empty_cache()
+    marks = {"cuda": time.perf_counter()}
+    reset_launches()
+    one = dict(np.load(path))
+    cfg, _ = recsys_config(SR_CONFIG)
+    ps = specs["params"]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t1 = time.perf_counter()
+    state = new_state(cfg, torch.Generator(device=dev).manual_seed(SR_SEED),
+                      mesh=mesh, specs=specs)
+    torch.cuda.synchronize(dev)
+    rec = {"coords": dict(mesh.coords), "build_s": time.perf_counter() - t1,
+           "nbytes": sum(t.nbytes for t in tree_leaves(state)
+                         if isinstance(t, torch.Tensor)),
+           "build_peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    params = state["params"]
+    marks["build"] = time.perf_counter()
+
+    serve = build_recsys_serve_step(cfg, mesh, ps)
+    sb = recsys_batch(torch, cfg, SR_SERVE, 6, dev)
+    p = serve(params, sb)
+    rec["serve"] = {"max_abs_err": float(np.abs(
+        p.cpu().numpy() - one["serve"]).max()),
+        "finite": bool(torch.isfinite(p).all())}
+    rec["serve"]["host_ms"], rec["serve"]["host_ms_range"] = host_ms(
+        torch, lambda: serve(params, sb), n=5)
+    marks["serve"] = time.perf_counter()
+    retrieve = build_retrieval_step(cfg, mesh, k=k, param_specs=ps)
+    rec["retrieval"] = {}
+    for B in SR_RETRIEVAL:
+        qb = recsys_batch(torch, cfg, B, 7, dev)
+        C = sr_candidates(torch, cfg, dev)
+        qb["candidates"] = S.candidate_block(mesh, C).clone()
+        if rank:
+            del C
+        v, i = retrieve(params, qb)
+        row = {"rows_local": int(qb["candidates"].shape[0])}
+        if rank == 0:
+            with torch.no_grad():
+                qv = user_embedding(params, cfg, qb)
+            want = {src: tuple(torch.from_numpy(one[f"B{B}|{key}"]).to(dev)
+                               for key in keys)
+                    for src, keys in (("one_process", ("v", "i")),
+                                      ("k6", ("k6_v", "k6_i")))}
+            row.update({f"vs_{src}": stream_compare(torch, qv, C, (v, i), w)
+                        for src, w in want.items()})
+            del C
+        row["host_ms"], row["host_ms_range"] = host_ms(
+            torch, lambda: retrieve(params, qb), n=5)
+        rec["retrieval"][f"B{B}"] = row
+        del qb
+    marks["retrieval"] = time.perf_counter()
+
+    step = build_recsys_train_step(cfg, mesh=mesh, param_specs=ps,
+                                   zero_specs=specs["opt"]["acc"])
+    batch = recsys_batch(torch, cfg, SR_TRAIN, 5, dev)
+    body = {"params": specs["params"], "opt": specs["opt"]}
+    torch.cuda.synchronize(dev)
+    collectives.TALLY.reset(synchronize=True)
+    t1 = time.perf_counter()
+    new, m = step(state, batch)
+    torch.cuda.synchronize(dev)
+    rec["step1_ms"] = 1e3 * (time.perf_counter() - t1)
+    rec["collectives"] = collectives.TALLY.summary()
+    collectives.TALLY.reset()
+    rec["losses"] = [float(m["loss"])]
+    marks["step1"] = time.perf_counter()
+    rec["probes"] = {}
+    for part, tree, sp in (("new", new["params"], ps),
+                           ("acc", new["opt"]["acc"], specs["opt"]["acc"])):
+        for f, leaf in enumerate(tree["tables"]):
+            lo, hi = sr_block_rows(torch, mesh, sp["tables"][f],
+                                   padded_rows(cfg.table_sizes[f]))
+            ids = one[f"probe|{f}"]
+            mine = ids[(ids >= lo) & (ids < hi)]
+            rec["probes"][f"{part}|tables/{f}"] = (mine, leaf[
+                torch.from_numpy(mine - lo).to(dev)].cpu().numpy())
+    mlp = ("bot_mlp", "top_mlp")
+    acc = S.gather_state(mesh, {n: specs["opt"]["acc"][n] for n in mlp},
+                         {n: new["opt"]["acc"][n] for n in mlp})
+    if rank == 0:
+        rec["mlp"] = {**{f"new|{n}": v.cpu().numpy() for n, v in tree_items(
+            {n: new["params"][n] for n in mlp}).items()},
+            **{f"acc|{n}": v.cpu().numpy() for n, v in tree_items(
+                acc).items()}}
+    del acc
+    rec["same_bits"] = [holders_agree(torch, mesh, body, {
+        "params": new["params"], "opt": new["opt"]})]
+    del state, params
+    marks["step1_checks"] = time.perf_counter()
+    torch.cuda.synchronize(dev)
+    collectives.TALLY.reset()
+    t1 = time.perf_counter()
+    new2, m = step(new, batch)
+    torch.cuda.synchronize(dev)
+    rec["step2_ms"] = 1e3 * (time.perf_counter() - t1)
+    rec["step2_collectives"] = collectives.TALLY.summary()
+    rec["losses"].append(float(m["loss"]))
+    rec["same_bits"].append(holders_agree(torch, mesh, body, {
+        "params": new2["params"], "opt": new2["opt"]}))
+    rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    rec["launches"] = read_launches()
+    del new, new2, batch
+    torch.cuda.empty_cache()
+    marks["step2"] = time.perf_counter()
+    rec["seconds"] = marks["step2"] - t0
+    rec["split_s"] = {key: t - last for (key, t), last in zip(
+        marks.items(), [t0] + list(marks.values())[:-1])}
+    return rec
+
+
+def sr_moved(got, want, old):
+    """A leaf's largest difference from the one-process value over the
+    largest move the one-process step made in it."""
+    scale = float(np.abs(want - old).max())
+    return float(np.abs(got - want).max()) / max(scale, 1e-30)
+
+
+def sr_check(ranks, host):
+    """The gates of sharded_recsys over every rank's ``sr_rank`` record:
+    each rank's state bytes the specs' count; step 1's loss within
+    SR_LOSS_RTOL of the one-process step's and every probe row and MLP
+    leaf after it within SR_UPDATE_TOL (``sr_moved``); the serve
+    probabilities within SR_PROB_TOL; the retrieval ids equal to the
+    one-process step's and K6's but at near ties; every block the same
+    bits on its holders after each step; the losses finite; no kernel
+    launched on a rank. Emits the part's line; its seconds: the host's
+    references, the ranks' work (the slowest rank's) and this check."""
+    t0 = time.perf_counter()
+    one, counts, failed = host.pop("one"), host["counts"], []
+    loss = float(one["loss"])
+    for r, rank in enumerate(ranks):
+        if rank["nbytes"] != counts["rank"]:
+            failed.append(f"rank {r}: holds {rank['nbytes']} bytes, the "
+                          f"specs {counts['rank']}")
+        rel = abs(rank["losses"][0] - loss) / abs(loss)
+        if rel > SR_LOSS_RTOL or not np.isfinite(rank["losses"]).all():
+            failed.append(f"rank {r}: losses {rank['losses']} against the "
+                          f"one-process {loss}")
+        if not all(rank["same_bits"]):
+            failed.append(f"rank {r}: a block differs from its holders'")
+        if any(rank["launches"].values()):
+            failed.append(f"rank {r}: a kernel launched {rank['launches']}")
+        if not (rank["serve"]["finite"]
+                and rank["serve"]["max_abs_err"] <= SR_PROB_TOL):
+            failed.append(f"rank {r}: serve {rank['serve']}")
+    for b, row in ranks[0]["retrieval"].items():
+        for src in ("one_process", "k6"):
+            if not row[f"vs_{src}"]["within_tol"]:
+                failed.append(f"retrieval {b} vs {src}: {row[f'vs_{src}']}")
+    moved = {}
+    for key, want in one.items():
+        part, _, name = key.partition("|")
+        if part not in ("new", "acc"):
+            continue
+        old = one[f"old|{name}"] if part == "new" else np.float32(0.1)
+        if name.startswith("tables/"):
+            rows = {}
+            for rank in ranks:
+                ids, got = rank["probes"][key]
+                rows.update(zip(ids.tolist(), got))
+            ids = one[f"probe|{name.split('/')[1]}"]
+            if set(rows) != set(ids.tolist()):
+                failed.append(f"{key}: probe rows missing")
+                continue
+            got = np.stack([rows[i] for i in ids.tolist()])
+        else:
+            got = ranks[0]["mlp"][key]
+        moved[key] = sr_moved(got, want, old)
+    worst = sorted(moved.items(), key=lambda kv: -kv[1])
+    if not worst or worst[0][1] > SR_UPDATE_TOL:
+        failed.append(f"updates beyond {SR_UPDATE_TOL}: {worst[:3]}")
+    require(not failed, "sharded_recsys: " + "; ".join(failed))
+    seconds = (host["host_s"] + max(r["seconds"] for r in ranks)
+               + time.perf_counter() - t0)
+    launches = {"ranks": {key: sum(r["launches"][key] for r in ranks)
+                          for key in ranks[0]["launches"]},
+                "check": host["check_launches"]}
+    first = ranks[0]
+    emit("sharded_recsys", note=SE_NOTE, config=RECSYS[SR_CONFIG],
+         mesh=list(SE_MESH[0]), axes=list(SE_MESH[1]), ranks=len(ranks),
+         backend="gloo", train_batch=SR_TRAIN, serve_batch=SR_SERVE,
+         rows_cut=host["rows_cut"], state_bytes=counts,
+         one_process={k: host[k] for k in ("loss", "one_process_ms",
+                                           "one_process_peak_gib")},
+         loss_rel=abs(first["losses"][0] - loss) / abs(loss),
+         losses=first["losses"], worst_moved=worst[:5],
+         leaves_compared=len(moved), update_tol=SR_UPDATE_TOL,
+         retrieval=first["retrieval"],
+         per_rank=[{key: r[key] for key in (
+             "coords", "nbytes", "build_s", "build_peak_gib", "step1_ms",
+             "step2_ms", "peak_gib", "collectives", "step2_collectives",
+             "serve", "seconds", "split_s")} for r in ranks],
+         launches=launches, seconds=seconds,
+         host_s={key: host[key] for key in ("counts_s", "references_s",
+                                            "host_s")})
+    return {"seconds": seconds, "launches": launches}
+
+
+def sr_alone_rank(rank, path, specs, device):
+    import torch
+
+    from repro_torch.launch.mesh import Mesh
+
+    return sr_rank(torch, rank, Mesh(*SE_MESH, device=device), path, specs)
+
+
+def phase_sharded_recsys(torch, device="cuda"):
+    """The recsys steps over SE_MESH at DLRM's published width (tables
+    capped at DLRM_ROW_CAP) in a gloo world of SE_RANKS ranks sharing
+    the card (``sr_rank``), held to the one-process references of
+    ``sr_hosted`` by ``sr_check``. In the whole script it runs in the
+    sharded_engine phase's world after sharded_dimenet; alone (``--only
+    sharded_recsys``) in a world of its own."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_world
+
+    with sr_hosted(torch, device) as ((path, specs), host), \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_sr_") as tmp:
+        ranks = spawn_world(sr_alone_rank, SE_RANKS, backend="gloo",
+                            root=Path(tmp) / "world",
+                            args=(path, specs, device), timeout=SR_TIMEOUT_S)
+    return sr_check(ranks, host)
+
+
 ALONE = {"recsys": phase_recsys, "dimenet": phase_dimenet,
          "dryrun": phase_dryrun, "sharded": phase_sharded,
          "sharded_engine": phase_sharded_engine,
-         "sharded_dimenet": phase_sharded_dimenet}
+         "sharded_dimenet": phase_sharded_dimenet,
+         "sharded_recsys": phase_sharded_recsys}
 
 
 def only_phases(torch, names) -> int:
@@ -8439,7 +8894,9 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
     prefill, the last step on each mesh), ``sharded_engine_launches`` in
     the sharded_engine phase's one-process searches, engines and CLI runs
     (K1 the engines' and the CLI's encode batches, K4 the engines' delta
-    searches); K1's, K2's and K3's
+    searches), ``sharded_recsys_launches`` on the ranks of the
+    sharded_recsys part (``ranks``, summed: none) and in its one-process
+    check (``check``: K6 once a retrieval batch); K1's, K2's and K3's
     ``at_sharded`` their numbers at train_16 on rank 1's vocab rows
     (``shard``) and on the whole vocabulary (``whole``)."""
     main_k1, bwd, k4, k5, k6 = (measured[key]
@@ -8556,7 +9013,9 @@ def kernel_rows(measured, launches, dense_launches, engine_launches,
                            ("train_decoder", train_decoder),
                            ("recsys", recsys), ("dryrun", dryrun),
                            ("sharded", sharded),
-                           ("sharded_engine", sharded_engine)):
+                           ("sharded_engine", sharded_engine),
+                           ("sharded_recsys",
+                            sharded_engine["sharded_recsys"])):
             row[f"{phase}_launches"] = {
                 where: n[key] for where, n in out["launches"].items()}
     for row, kernel in ((rows[0], "k1"), (rows[1], "dh"), (rows[2], "de")):
@@ -8676,8 +9135,11 @@ def main(argv=()) -> int:
     timeline["sharded_engine"] = xlmr["sharded_engine"]["seconds"]
     timeline["sharded_dimenet"] = \
         xlmr["sharded_engine"]["sharded_dimenet"]["seconds"]
+    timeline["sharded_recsys"] = \
+        xlmr["sharded_engine"]["sharded_recsys"]["seconds"]
     timeline["xlmr"] -= (timeline["sharded_engine"]
-                         + timeline["sharded_dimenet"])
+                         + timeline["sharded_dimenet"]
+                         + timeline["sharded_recsys"])
     k1_paths.update({f"xlmr_{where}": paths
                      for where, paths in xlmr["k1_paths"].items()})
     k1_paths.update({f"sharded_engine_{where}": paths for where, paths

@@ -8,8 +8,12 @@ the three ~40M-row tables are what force row-sharding
 
 The port's copy of ``repro/configs/dlrm_mlperf.py``: the same numbers.
 Padded to ``models.recsys.ROW_PAD``, the tables hold 187,838,464 rows,
-96.2 GB in f32: more than one card holds, so the full CONFIG trains only
-once the tables can be row-sharded (multi-GPU, ROADMAP Queue 1 item 10).
+96.2 GB in f32: more than one card holds. The full CONFIG trains with
+its tables row-sharded over a mesh (``launch.sharding.
+recsys_param_specs``, ``sparse.sharded_embedding``,
+``launch.steps.build_recsys_train_step(mesh=, ...)``): 48.44 GB of
+state a rank of a (2, 2) mesh, 24.30 GB of a (2, 4) one, so with the
+step's two states at its peak it needs eight 80 GB cards.
 """
 
 from repro_torch.configs.base import RecSysConfig, SHAPES_RECSYS

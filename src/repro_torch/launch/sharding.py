@@ -83,6 +83,18 @@ def map_specs(fn: Callable[..., Any], specs: Tree, *trees: Tree) -> Tree:
     return fn(specs, *trees)
 
 
+def spec_items(specs: Tree, prefix: str = "") -> Dict[str, Spec]:
+    """``{"a/b": spec}`` for every spec of a spec tree, named as
+    ``tree.tree_items`` names the leaves of the tree it describes."""
+    if isinstance(specs, (dict, list)):
+        items = specs.items() if isinstance(specs, dict) else enumerate(specs)
+        out: Dict[str, Spec] = {}
+        for key, value in items:
+            out.update(spec_items(value, f"{prefix}{key}/"))
+        return out
+    return {prefix[:-1]: specs}
+
+
 def replicated(ndim: int) -> Spec:
     return (None,) * ndim
 
@@ -306,6 +318,18 @@ def batch_shardings(mesh: Any, batch_specs: Dict[str, Any],
         else:
             out[name] = batch_spec(mesh, x.shape[0], len(x.shape))
     return out
+
+
+def candidate_block(mesh: Any, candidates: Any) -> Any:
+    """This rank's row block of a global ``(N, D)`` candidate matrix, its
+    rows split over every axis of the mesh (row-major in the mesh's
+    order, the reference's ``P(axes, None)``; a view, the rows must split
+    evenly): what ``build_retrieval_step(cfg, mesh)`` takes as
+    ``batch["candidates"]``, the query inputs whole."""
+    from repro_torch.core.sharded import local_block
+
+    block_shape(mesh, (tuple(mesh.axis_names), None), candidates.shape)
+    return local_block(mesh, (tuple(mesh.axis_names), None), candidates)
 
 
 # ---------------------------------------------------------------------------

@@ -55,11 +55,17 @@ runs AdamW there and gathers the update back into its param blocks.
 row-sharded path: every rank is given its row blocks of the batch
 (``gnn_batch_block``), the loss is the whole batch's on every rank, and
 the gradients are summed over the axes once, so every rank's state is
-the same bytes. Still to come: the other meshes (the recsys tables and
-their specs, the row-sharded retrieval and ``streaming_topk``'s
-``vary_axes``: 10e; the expert-parallel MoE: 10f; the sharded decode
-cache and the production meshes of ``build_step``: 10g; multi-GPU,
-ROADMAP Queue 1).
+the same bytes. ``build_recsys_train_step(cfg, mesh=, param_specs=,
+zero_specs=)`` trains the recsys models on a state held by
+``recsys_param_specs``: every rank is given the whole batch and runs its
+rows of it, each table is looked up by its spec
+(``sparse.sharded_embedding.row_sharded_take``: whole, over ``model``,
+or over ``model`` and the batch axes), and Adagrad runs on the ZeRO
+blocks; ``build_recsys_serve_step(cfg, mesh, param_specs)`` serves on
+such params, and ``build_retrieval_step(cfg, mesh)`` streams each rank's
+row block of the candidates and merges the ranks' winners. Still to
+come: the expert-parallel MoE (10f); the sharded decode cache and the
+production meshes of ``build_step`` (10g; multi-GPU, ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -367,7 +373,7 @@ def _no_mesh(mesh: Any, what: str,
     if mesh is not None:
         raise NotImplementedError(
             f"{what}: a mesh ({sharded}) is not ported yet: it arrives "
-            "with multi-GPU, ROADMAP Queue 1 item 10")
+            "with multi-GPU, ROADMAP Queue 1 item 10g")
 
 
 def _encode_fn(cfg: TransformerConfig, mesh: Any, n_batch: int,
@@ -472,16 +478,23 @@ def build_recsys_train_step(
     lr: float = 1e-2,
     param_specs: Any = None,
     zero_specs: Any = None,
+    mesh: Any = None,
 ) -> Callable[[State, Batch], Tuple[State, Dict[str, torch.Tensor]]]:
     """The CTR train step: ``bce_with_logits`` of
     ``models.recsys.forward``'s logits against ``batch["label"]``, its
     dense gradients (a table's is table-sized, as JAX's gradient of
     ``take`` is), then Adagrad at ``lr``. It returns a new state and
     leaves the given one intact (a fault-tolerant runner retries a step
-    on it). ``param_specs`` and ``zero_specs`` shard the reference's step
-    over a mesh and raise here."""
+    on it). With a ``launch.mesh.Mesh`` the state is held by
+    ``param_specs`` and ``zero_specs`` (``_recsys_mesh_step``); either
+    without a mesh raises."""
+    if mesh is not None:
+        return _recsys_mesh_step(cfg, mesh, adagrad(lr), param_specs,
+                                 zero_specs)
     if param_specs is not None or zero_specs is not None:
-        _no_mesh(True, "build_recsys_train_step", "row-sharded tables")
+        raise ValueError("build_recsys_train_step: param_specs and "
+                         "zero_specs place the state on a mesh; give the "
+                         "mesh")
     opt = adagrad(lr)
     grad_fn = value_and_grad(lambda params, batch: bce_with_logits(
         recsys_model.forward(params, cfg, batch), batch["label"]))
@@ -491,6 +504,120 @@ def build_recsys_train_step(
         updates, opt_state = opt.update(grads, state["opt"],
                                         state["params"], state["step"])
         del grads   # table-sized: free them before the new params exist
+        params = apply_updates(state["params"], updates)
+        return ({"params": params, "opt": opt_state,
+                 "step": state["step"] + 1}, {"loss": loss})
+
+    return step
+
+
+def _recsys_specs(params: Any, param_specs: Any) -> Any:
+    """``param_specs`` (whole leaves when None), checked: only a table may
+    be split, and only by its rows."""
+    from repro_torch.launch.sharding import replicated, spec_items
+
+    specs = (param_specs if param_specs is not None else
+             tree_map(lambda p: replicated(p.ndim), params))
+    for name, spec in spec_items(specs).items():
+        table = name.split("/")[0] in ("tables", "linear", "wide",
+                                       "item_table")
+        if any(spec[1:]) or (spec and spec[0] and not table):
+            raise ValueError(f"recsys mesh step: the spec {spec} of {name} "
+                             "splits more than a table's rows")
+    return specs
+
+
+def _recsys_lookup(mesh: Any, param_specs: Any,
+                   batch_axes: Tuple[str, ...]) -> Callable:
+    """``models.recsys``' ``lookup(path, table, idx)`` on this rank's table
+    blocks: ``take_rows`` for a whole table, else ``row_sharded_take``
+    over its spec's axes, ``idx`` this rank's rows of a batch split over
+    ``batch_axes`` (``()``: the whole ids on every rank)."""
+    from repro_torch.launch.sharding import spec_items
+    from repro_torch.sparse.sharded_embedding import row_sharded_take
+
+    specs = spec_items(param_specs)
+
+    def lookup(path, table, idx):
+        axes = specs[path][0]
+        if not axes:
+            return recsys_model.take_rows(table, idx)
+        return row_sharded_take(table, idx, axes=axes, mesh=mesh,
+                                batch_axes=batch_axes)
+    return lookup
+
+
+def _batch_rows(mesh: Any, batch: Batch) -> Tuple[Batch, Tuple[str, ...]]:
+    """This rank's rows of a whole recsys batch (each entry's dim 0 over
+    ``batch_axes_for(mesh, B)``) and those axes."""
+    from repro_torch.core.sharded import local_block
+    from repro_torch.launch.sharding import batch_axes_for
+
+    n = next(iter(batch.values())).shape[0]
+    split = batch_axes_for(mesh, n)
+    return ({k: local_block(mesh, (split or None,), v)
+             for k, v in batch.items()}, split)
+
+
+def _recsys_mesh_step(cfg: RecSysConfig, mesh: Any, opt: Any,
+                      param_specs: Any, zero_specs: Any
+                      ) -> Callable[[State, Batch],
+                                    Tuple[State, Dict[str, torch.Tensor]]]:
+    """The recsys step over a mesh on a state held by specs (the
+    reference's step under GSPMD on ``recsys_param_specs``, its
+    collectives written out; no ``param_specs``: every leaf whole; no
+    ``zero_specs``: the accumulators at the param specs). The state's
+    params are this rank's blocks, its accumulators its ZeRO blocks
+    (``launch.sharding.shard_state``). Every rank is given the whole
+    batch and runs its rows (split over ``batch_axes_for``); each table
+    is looked up by its spec (``_recsys_lookup``); the loss is the BCE
+    mean over the whole batch, the same on every rank. The ranks of
+    ``model`` run the same MLPs on the same rows, so nothing is summed
+    over ``model`` but the lookups' partials. The gradients go to this
+    rank's ZeRO blocks (``zero_reducer``; a table split over batch axes
+    already holds the whole batch's gradient on its block), Adagrad runs
+    there, and the update is gathered into the param blocks. Every rank
+    that holds a block holds the same bits."""
+    from repro_torch.collectives import all_gather, pmean
+    from repro_torch.launch.sharding import map_specs, zero_extra
+    from repro_torch.optim.accumulation import zero_reducer
+
+    plan: Dict[str, Any] = {}
+    grad_fns: Dict[Tuple[str, ...], Any] = {}
+
+    def resolve(params, split):
+        if not plan:
+            pspecs = _recsys_specs(params, param_specs)
+            zspecs = zero_specs if zero_specs is not None else pspecs
+            plan.update(pspecs=pspecs, zspecs=zspecs,
+                        extra=map_specs(zero_extra, pspecs, zspecs))
+        if split not in grad_fns:
+            lookup = _recsys_lookup(mesh, plan["pspecs"], split)
+
+            def loss_fn(blocks, rows):
+                loss = bce_with_logits(recsys_model.forward(
+                    blocks, cfg, rows, lookup=lookup), rows["label"])
+                return pmean(loss, split, mesh) if split else loss
+            grad_fns[split] = (value_and_grad(loss_fn), zero_reducer(
+                mesh, plan["pspecs"], plan["zspecs"], split))
+        return grad_fns[split]
+
+    def to_param_block(extra, u):
+        for dim, axes in enumerate(extra):
+            if axes:
+                u = all_gather(u, axes, mesh, dim=dim)
+        return u
+
+    def step(state: State, batch: Batch):
+        rows, split = _batch_rows(mesh, batch)
+        grad_fn, reduce = resolve(state["params"], split)
+        loss, grads = grad_fn(state["params"], rows)
+        grads = reduce(grads)
+        updates, opt_state = opt.update(grads, state["opt"],
+                                        state["params"], state["step"])
+        del grads
+        with torch.no_grad():
+            updates = map_specs(to_param_block, plan["extra"], updates)
         params = apply_updates(state["params"], updates)
         return ({"params": params, "opt": opt_state,
                  "step": state["step"] + 1}, {"loss": loss})
@@ -608,32 +735,90 @@ def build_gnn_train_step(
     return step
 
 
-def build_recsys_serve_step(cfg: RecSysConfig
+def build_recsys_serve_step(cfg: RecSysConfig, mesh: Any = None,
+                            param_specs: Any = None
                             ) -> Callable[[Any, Batch], torch.Tensor]:
     """``serve(params, batch) -> (B,)`` click probabilities (the sigmoid of
-    the logits), without autograd."""
+    the logits), without autograd. With a mesh, ``params`` are this
+    rank's blocks under ``param_specs`` (every leaf whole when None) and
+    ``batch`` the whole batch: each rank runs its rows (split over
+    ``batch_axes_for``), its tables looked up by their specs, and every
+    rank returns the whole batch's probabilities."""
+    if mesh is None:
+        if param_specs is not None:
+            raise ValueError("build_recsys_serve_step: param_specs place "
+                             "the params on a mesh; give the mesh")
+
+        @torch.no_grad()
+        def serve(params, batch: Batch) -> torch.Tensor:
+            return torch.sigmoid(recsys_model.forward(params, cfg, batch))
+        return serve
+
+    from repro_torch.collectives import all_gather
+
     @torch.no_grad()
-    def serve(params, batch: Batch) -> torch.Tensor:
-        return torch.sigmoid(recsys_model.forward(params, cfg, batch))
-    return serve
+    def serve_mesh(params, batch: Batch) -> torch.Tensor:
+        rows, split = _batch_rows(mesh, batch)
+        lookup = _recsys_lookup(mesh, _recsys_specs(params, param_specs),
+                                split)
+        p = torch.sigmoid(recsys_model.forward(params, cfg, rows,
+                                               lookup=lookup))
+        return all_gather(p, split, mesh) if split else p
+    return serve_mesh
 
 
 def build_retrieval_step(cfg: RecSysConfig, mesh: Any = None, *,
-                         k: int = 100
+                         k: int = 100, param_specs: Any = None
                          ) -> Callable[[Any, Batch],
                                        Tuple[torch.Tensor, torch.Tensor]]:
     """``serve(params, batch) -> (vals (B, k) f32, idx (B, k) i32)``, without
     autograd: the query vectors of ``models.recsys.user_embedding``, then
     ``streaming_topk`` over ``batch["candidates"]`` ``(N, embed_dim)``
     (its default tile of 65536 rows): the ``(B, N)`` scores are never
-    built. A mesh (candidates row-sharded over devices) raises."""
-    _no_mesh(mesh, "build_retrieval_step", "row-sharded candidates")
+    built.
+
+    With a mesh (the reference's sharded body), the query inputs are whole
+    on every rank, ``batch["candidates"]`` this rank's row block over
+    every axis of the mesh (``launch.sharding.candidate_block``),
+    ``params`` this rank's blocks
+    under ``param_specs`` (every leaf whole when None; the tables that
+    ``user_embedding`` reads are looked up by their specs on the whole
+    ids). Each rank streams its block (``tile=min(65536, rows_local)``),
+    adds its row offset to the ids (to the padding ids of a block shorter
+    than k too, as the reference does), the ``(B, k)`` winners of every
+    rank are gathered in rank order, which is id order, and re-top-k'd
+    by ``merge_topk``: ties go to the lowest id. Every rank returns the
+    same result."""
+    if mesh is None:
+        if param_specs is not None:
+            raise ValueError("build_retrieval_step: param_specs place the "
+                             "params on a mesh; give the mesh")
+
+        @torch.no_grad()
+        def serve(params, batch: Batch):
+            qv = recsys_model.user_embedding(params, cfg, batch)
+            return streaming_topk(qv, batch["candidates"], k=k)
+        return serve
+
+    from repro_torch.collectives import all_gather
+    from repro_torch.launch.mesh import axis_index
+
+    axes = tuple(mesh.axis_names)
 
     @torch.no_grad()
-    def serve(params, batch: Batch):
-        qv = recsys_model.user_embedding(params, cfg, batch)
-        return streaming_topk(qv, batch["candidates"], k=k)
-    return serve
+    def serve_mesh(params, batch: Batch):
+        lookup = _recsys_lookup(mesh, _recsys_specs(params, param_specs), ())
+        qv = recsys_model.user_embedding(params, cfg, batch, lookup=lookup)
+        cand = batch["candidates"]
+        rows_local = cand.shape[0]
+        vals, idx = streaming_topk(qv, cand, k=k,
+                                   tile=min(65536, rows_local),
+                                   vary_axes=axes)
+        idx = idx + axis_index(mesh, axes) * rows_local
+        all_v = all_gather(vals, axes, mesh, dim=1)
+        all_i = all_gather(idx, axes, mesh, dim=1)
+        return merge_topk(all_v[:, :0], all_i[:, :0], all_v, all_i, k)
+    return serve_mesh
 
 
 def new_state(cfg: Any, generator: torch.Generator, *,
@@ -647,19 +832,27 @@ def new_state(cfg: Any, generator: torch.Generator, *,
     shapes alone, allocating nothing (there is no meta generator). With
     ``mesh`` and ``specs`` (``launch.sharding.state_shardings``' tree) it
     is this rank's blocks of that state (``shard_state``): every rank
-    draws the same global state from the same seed. One of the two
-    without the other raises."""
+    draws the same global params from the same seed, cuts its blocks and
+    fills the optimizer's slots at its blocks (no global slot is built).
+    One of the two without the other raises."""
     if (mesh is None) != (specs is None):
         raise ValueError("new_state: mesh and specs go together (the specs "
                          "place the state on the mesh)")
     params = init_params(cfg, generator, device=device)
     opt = adagrad(1e-2) if isinstance(cfg, RecSysConfig) else adamw(1e-4)
-    state = {"params": params, "opt": opt.init(params), "step": 0}
     if specs is None:
-        return state
-    from repro_torch.launch.sharding import shard_state
+        return {"params": params, "opt": opt.init(params), "step": 0}
+    from repro_torch.launch.sharding import (map_specs, shard_state,
+                                             zero_extra)
 
-    return shard_state(mesh, specs, state)
+    params = shard_state(mesh, specs["params"], params)
+
+    def cut(pspec, zspec, x):   # a slot's fill at the param block
+        return shard_state(mesh, zero_extra(pspec, zspec), x)
+    opt_state = {slot: map_specs(cut, specs["params"], specs["opt"][slot],
+                                 tree)
+                 for slot, tree in opt.init(params).items()}
+    return {"params": params, "opt": opt_state, "step": 0}
 
 
 def init_params(cfg: Any, generator: torch.Generator, *,
@@ -736,15 +929,13 @@ def streaming_topk(q: torch.Tensor, C: torch.Tensor, *, k: int,
     and only the tile in hand is cast to f32 (bf16 inputs give f32
     results). The products are f32 under the caller's matmul precision
     (on the card, cuBLAS f32 only while TF32 is off). It runs on the
-    device of ``q`` and ``C``. ``vary_axes`` marks the carry of a
-    ``shard_map`` over sharded candidates in the JAX package; sharded
-    candidates arrive with multi-GPU and it raises until then.
+    device of ``q`` and ``C``. ``vary_axes`` (the mesh axes over which the
+    candidates are sharded, ``build_retrieval_step(cfg, mesh)``) marks the
+    scan's carry as varying over them inside the JAX package's
+    ``shard_map``; PyTorch has no varying-value types to mark, so it is
+    taken and changes nothing.
     """
-    if vary_axes is not None:
-        raise NotImplementedError(
-            "streaming_topk: vary_axes (a shard_map over sharded "
-            "candidates) is not ported yet: it arrives with multi-GPU, "
-            "ROADMAP Queue 1 item 10")
+    del vary_axes
     if tile < 1:
         raise ValueError(f"streaming_topk: tile must be >= 1, got {tile}")
     B = q.shape[0]

@@ -28,8 +28,10 @@ the mean BCE of the click logits, Adagrad at 1e-2, the rate the JAX CLI
 trains it at (it passes no ``--lr`` to that step, nor does this CLI).
 ``--seq-len``, the regularizer, head and eval flags touch a
 ``TransformerConfig`` only, as in the JAX CLI. DLRM's published tables
-(96.2 GB in f32) fit on no one card: ``--full`` on ``dlrm_mlperf`` waits
-for row sharding (multi-GPU, ROADMAP Queue 1 item 10).
+(96.2 GB in f32) fit on no one card, and this CLI runs one process:
+they train row-sharded in a world of ranks, through
+``build_recsys_train_step(cfg, mesh=, param_specs=, zero_specs=)``
+(48.44 GB of state a rank of a (2, 2) mesh).
 
 An LSR arch trains as follows: the SPLADE encoders, the dense decoders
 (llama3.2-3b, gemma2-27b, phi3-mini) and the MoE decoders

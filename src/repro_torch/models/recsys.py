@@ -17,8 +17,14 @@ small MLP:
 Lookups follow ``jnp.take``'s rule (``take_rows``,
 ``sparse.embedding_bag.embedding_lookup``): a negative id counts from the
 end of the table, and an id still outside it reads a NaN row and gets no
-gradient. A table's gradient is dense (table-sized), as
-JAX's gradient of ``take`` is, so an optimizer step touches every row.
+gradient. Every table lookup goes through one function, ``lookup(path,
+table, idx)``, that ``forward``, ``user_embedding`` and the family
+forwards take (default ``take_rows``): ``path`` names the table in the
+params tree (``"tables/3"``, ``"linear/0"``, ``"item_table"``), so that
+the mesh steps of ``launch.steps`` look each table up by its spec
+(``sparse.sharded_embedding.row_sharded_take``) on this rank's block.
+A table's gradient is dense (table-sized), as JAX's gradient of ``take``
+is, so an optimizer step touches every row.
 The ``retrieval_cand`` shape does not run these stacks per candidate:
 ``user_embedding`` gives one query vector per row and
 ``launch.steps.build_retrieval_step`` streams the candidates through a
@@ -30,7 +36,7 @@ unless ``init_params`` is given another; the numbers differ from
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -42,6 +48,8 @@ from repro_torch.sparse.embedding_bag import \
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
+# lookup(path, table, idx) -> rows: ``take_rows``' contract
+Lookup = Callable[[str, torch.Tensor, torch.Tensor], torch.Tensor]
 
 ROW_PAD = 4096  # table rows padded for 512-device row sharding
 
@@ -76,6 +84,21 @@ def _mlp_apply(layers, x: torch.Tensor, *,
     return x
 
 
+def _default_lookup(path: str, table: torch.Tensor,
+                    idx: torch.Tensor) -> torch.Tensor:
+    return take_rows(table, idx)
+
+
+def _lookup_fields(lookup: Optional[Lookup], params: Params, name: str,
+                   idx: torch.Tensor) -> torch.Tensor:
+    """One id per field, one table per field (``params[name]``, a list of
+    ``(rows_f, dim)``) through ``lookup``: ``(batch, n_fields, dim)``;
+    with the default, ``_lookup_all``'s."""
+    lookup = lookup or _default_lookup
+    return torch.stack([lookup(f"{name}/{f}", t, idx[:, f])
+                        for f, t in enumerate(params[name])], dim=1)
+
+
 def _embed_init(g: torch.Generator, rows_per_table: Sequence[int], dim: int,
                 dtype: torch.dtype) -> List[torch.Tensor]:
     return [_normal(g, (padded_rows(rows), dim), dim ** -0.5, dtype)
@@ -100,10 +123,11 @@ def init_dlrm(g: torch.Generator, cfg: RecSysConfig) -> Params:
 
 
 def dlrm_forward(params: Params, cfg: RecSysConfig, dense: torch.Tensor,
-                 sparse_idx: torch.Tensor) -> torch.Tensor:
+                 sparse_idx: torch.Tensor, *,
+                 lookup: Optional[Lookup] = None) -> torch.Tensor:
     """dense (B, n_dense) f32, sparse_idx (B, n_sparse) -> (B,) logit."""
     x_bot = _mlp_apply(params["bot_mlp"], dense, final_act=True)  # (B, d)
-    emb = _lookup_all(params["tables"], sparse_idx)               # (B, F, d)
+    emb = _lookup_fields(lookup, params, "tables", sparse_idx)    # (B, F, d)
     feats = torch.cat([x_bot[:, None, :], emb], dim=1)            # (B, F+1, d)
     inter = torch.bmm(feats, feats.transpose(1, 2))         # (B, F+1, F+1)
     # the upper triangle without the diagonal, row-major as
@@ -138,7 +162,8 @@ def init_xdeepfm(g: torch.Generator, cfg: RecSysConfig) -> Params:
 
 
 def xdeepfm_forward(params: Params, cfg: RecSysConfig,
-                    sparse_idx: torch.Tensor) -> torch.Tensor:
+                    sparse_idx: torch.Tensor, *,
+                    lookup: Optional[Lookup] = None) -> torch.Tensor:
     """sparse_idx (B, m) -> (B,) logit.
 
     CIN: ``x^k[b, h, d] = sum_{i,j} W^k[i*m + j, h] x^{k-1}[b, i, d]
@@ -149,8 +174,8 @@ def xdeepfm_forward(params: Params, cfg: RecSysConfig,
     B 65536 and m 39)."""
     B = sparse_idx.shape[0]
     m, d = cfg.n_sparse, cfg.embed_dim
-    x0 = _lookup_all(params["tables"], sparse_idx)          # (B, m, d)
-    lin = _lookup_all(params["linear"], sparse_idx)         # (B, m, 1)
+    x0 = _lookup_fields(lookup, params, "tables", sparse_idx)   # (B, m, d)
+    lin = _lookup_fields(lookup, params, "linear", sparse_idx)  # (B, m, 1)
     lin_term = lin.sum(dim=(1, 2))[:, None]                 # (B, 1)
 
     x0_t = x0.transpose(1, 2)                               # (B, d, m)
@@ -211,15 +236,18 @@ def init_dien(g: torch.Generator, cfg: RecSysConfig) -> Params:
 
 
 def dien_forward(params: Params, cfg: RecSysConfig, hist_idx: torch.Tensor,
-                 target_idx: torch.Tensor, unroll: int = 1) -> torch.Tensor:
+                 target_idx: torch.Tensor, unroll: int = 1, *,
+                 lookup: Optional[Lookup] = None) -> torch.Tensor:
     """hist_idx (B, T) behaviour ids, target_idx (B,) -> (B,) logit.
 
     The reference's two ``lax.scan``s are loops over T; ``unroll`` (the
     scans' unroll factor in the reference, for cost probes) changes
     nothing here."""
     B, T = hist_idx.shape
-    hist = take_rows(params["item_table"], hist_idx)         # (B, T, d)
-    tgt = take_rows(params["item_table"], target_idx)        # (B, d)
+    lookup = lookup or _default_lookup
+    table = params["item_table"]
+    hist = lookup("item_table", table, hist_idx)             # (B, T, d)
+    tgt = lookup("item_table", table, target_idx)            # (B, d)
     tgt_h = _mlp_apply(params["item_proj"], tgt)             # (B, g)
 
     # interest extraction: a GRU over the sequence
@@ -258,11 +286,12 @@ def init_wide_deep(g: torch.Generator, cfg: RecSysConfig) -> Params:
 
 
 def wide_deep_forward(params: Params, cfg: RecSysConfig,
-                      sparse_idx: torch.Tensor) -> torch.Tensor:
+                      sparse_idx: torch.Tensor, *,
+                      lookup: Optional[Lookup] = None) -> torch.Tensor:
     B = sparse_idx.shape[0]
     m, d = cfg.n_sparse, cfg.embed_dim
-    emb = _lookup_all(params["tables"], sparse_idx)    # (B, m, d)
-    wide = _lookup_all(params["wide"], sparse_idx)     # (B, m, 1)
+    emb = _lookup_fields(lookup, params, "tables", sparse_idx)   # (B, m, d)
+    wide = _lookup_fields(lookup, params, "wide", sparse_idx)    # (B, m, 1)
     deep = _mlp_apply(params["deep"], emb.reshape(B, m * d))
     return deep[:, 0] + wide.sum(dim=(1, 2))
 
@@ -291,29 +320,39 @@ def init_params(generator: torch.Generator, cfg: RecSysConfig,
 
 
 def forward(params: Params, cfg: RecSysConfig, batch: Batch,
-            unroll: int = 1) -> torch.Tensor:
+            unroll: int = 1, *, lookup: Optional[Lookup] = None
+            ) -> torch.Tensor:
     """The (B,) logits; ``batch`` holds the family's inputs (``dense`` and
-    ``sparse_idx``, ``sparse_idx``, or ``hist_idx`` and ``target_idx``)."""
+    ``sparse_idx``, ``sparse_idx``, or ``hist_idx`` and ``target_idx``).
+    ``lookup(path, table, idx)`` reads every table (default
+    ``take_rows``)."""
     if cfg.interaction == "dot":
-        return dlrm_forward(params, cfg, batch["dense"], batch["sparse_idx"])
+        return dlrm_forward(params, cfg, batch["dense"], batch["sparse_idx"],
+                            lookup=lookup)
     if cfg.interaction == "cin":
-        return xdeepfm_forward(params, cfg, batch["sparse_idx"])
+        return xdeepfm_forward(params, cfg, batch["sparse_idx"],
+                               lookup=lookup)
     if cfg.interaction == "augru":
         return dien_forward(params, cfg, batch["hist_idx"],
-                            batch["target_idx"], unroll=unroll)
+                            batch["target_idx"], unroll=unroll, lookup=lookup)
     if cfg.interaction == "concat":
-        return wide_deep_forward(params, cfg, batch["sparse_idx"])
+        return wide_deep_forward(params, cfg, batch["sparse_idx"],
+                                 lookup=lookup)
     raise ValueError(f"unknown interaction {cfg.interaction!r}")
 
 
-def user_embedding(params: Params, cfg: RecSysConfig,
-                   batch: Batch) -> torch.Tensor:
+def user_embedding(params: Params, cfg: RecSysConfig, batch: Batch, *,
+                   lookup: Optional[Lookup] = None) -> torch.Tensor:
     """The (B, embed_dim) query vector of the ``retrieval_cand`` shape:
     DLRM's bottom MLP, DIEN's mean behaviour embedding, else the mean of
-    the field embeddings. The candidates are scored by a top-k over them,
-    never through the interaction stack."""
+    the field embeddings (``lookup`` as in ``forward``). The candidates
+    are scored by a top-k over them, never through the interaction
+    stack."""
     if cfg.interaction == "dot":
         return _mlp_apply(params["bot_mlp"], batch["dense"], final_act=True)
     if cfg.interaction == "augru":
-        return take_rows(params["item_table"], batch["hist_idx"]).mean(dim=1)
-    return _lookup_all(params["tables"], batch["sparse_idx"]).mean(dim=1)
+        lookup = lookup or _default_lookup
+        return lookup("item_table", params["item_table"],
+                      batch["hist_idx"]).mean(dim=1)
+    return _lookup_fields(lookup, params, "tables",
+                          batch["sparse_idx"]).mean(dim=1)

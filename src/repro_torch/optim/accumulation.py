@@ -69,16 +69,22 @@ def zero_reducer(mesh: Any, param_specs: Tree, zero_specs: Tree,
     ``psum``'d (a leaf whose ZeRO spec adds no batch axis is all
     ``psum``). A batch axis that does not split the batch holds the same
     share on each of its ranks: only its rank 0 contributes. A dimension
-    whose extra axes mix batch and non-batch axes raises."""
+    whose extra axes mix batch and non-batch axes raises.
+
+    A batch axis that the param spec itself names (a recsys table split
+    over ``("model", "data")``) is one over which the leaf's lookups have
+    already gathered the batch (``sparse.sharded_embedding.
+    row_sharded_take``): its block holds the gradient of every row, so
+    nothing is summed or dropped over that axis."""
     from repro_torch.collectives import psum, psum_scatter
     from repro_torch.core.sharded import local_block
     from repro_torch.launch.mesh import batch_axes
-    from repro_torch.launch.sharding import map_specs, zero_extra
+    from repro_torch.launch.sharding import map_specs, spec_axes, zero_extra
 
     baxes = batch_axes(mesh)
-    keep = all(mesh.coords[a] == 0 for a in baxes if a not in split_axes)
 
     def leaf(pspec, zspec, g):
+        held = set(spec_axes(pspec))
         extra = zero_extra(pspec, zspec)
         cuts, scatters = [], []
         for dim, axes in enumerate(extra):
@@ -90,7 +96,8 @@ def zero_reducer(mesh: Any, param_specs: Tree, zero_specs: Tree,
                                  f"over batch and other axes {axes} at once")
             elif axes:
                 cuts.append((dim, axes))
-        if not keep:
+        if any(mesh.coords[a] for a in baxes
+               if a not in split_axes and a not in held):
             g = torch.zeros_like(g)
         for dim, axes in cuts:
             g = local_block(mesh, (None,) * dim + (axes,), g)
@@ -98,7 +105,7 @@ def zero_reducer(mesh: Any, param_specs: Tree, zero_specs: Tree,
         for dim, axes in scatters:
             g = psum_scatter(g, axes, mesh, dim=dim)
             summed.update(axes)
-        rest = tuple(a for a in baxes if a not in summed)
+        rest = tuple(a for a in baxes if a not in summed and a not in held)
         return psum(g, rest, mesh) if rest else g.contiguous()
 
     def reduce(grads: Tree) -> Tree:

@@ -936,3 +936,197 @@ def zero_refusals_rank(rank, state):
         except ValueError as e:
             out[name] = str(e)
     return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_sharded_embedding.py
+# ---------------------------------------------------------------------------
+
+EMB_AXES = {"model": "model", "model_data": ("model", "data")}
+
+
+def embedding_rank(rank, table, cases, planted):
+    """``make_sharded_lookup`` on this rank's block of ``table`` for each
+    case ``(mesh, axis key, ids, cotangent)``: the output and the
+    gradient of ``sum(out * cotangent)`` gathered over the axes; then, on
+    the (2, 2) mesh, ``row_sharded_take`` on the ``planted`` ids (whole
+    on every rank, and this rank's rows of them split over ``data``):
+    the output (the batch's rows gathered back) and the table's gradient
+    of ``sum(out * 1)`` over the rows that are not NaN (a block split over
+    ``model`` alone holds this rank's share of it: summed over ``data``,
+    as the train step's ``zero_reducer`` sums it)."""
+    import torch
+
+    from repro_torch.collectives import all_gather, all_gather_invariant, psum
+    from repro_torch.core.sharded import local_block
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.sparse import sharded_embedding as se
+
+    full = torch.from_numpy(table)
+
+    def run(fn, block, axes, shares=()):
+        block = block.clone().requires_grad_(True)
+        out, weight = fn(block)
+        (torch.nan_to_num(out) * weight).sum().backward()
+        with torch.no_grad():
+            grad = psum(block.grad, shares, mesh) if shares else block.grad
+            grad = all_gather(grad, axes, mesh)
+        return out.detach().numpy(), grad.numpy()
+
+    out = {}
+    meshes = {}
+    for name, (shape, key, ids, cot) in cases.items():
+        if shape not in meshes:
+            meshes[shape] = Mesh(shape, AXES, device="cpu")
+        mesh = meshes[shape]
+        axes = EMB_AXES[key]
+        spec = se.table_sharding(mesh, axes)
+        lookup = se.make_sharded_lookup(mesh, axes)
+        out[name] = run(lambda b: (lookup(b, torch.from_numpy(ids)),
+                                   torch.from_numpy(cot)),
+                        local_block(mesh, spec, full), spec[0])
+    mesh = meshes[(2, 2)]
+    ids = torch.from_numpy(planted)
+    for key, axes in EMB_AXES.items():
+        block = local_block(mesh, se.table_sharding(mesh, axes), full)
+        axes = se.table_sharding(mesh, axes)[0]
+        out[f"take_whole_{key}"] = run(
+            lambda b: (se.row_sharded_take(b, ids, axes=axes, mesh=mesh),
+                       torch.ones(())), block, axes)
+        rows = local_block(mesh, (("data",), None), ids)
+
+        def split(b):
+            got = se.row_sharded_take(b, rows, axes=axes, mesh=mesh,
+                                      batch_axes=("data",))
+            return all_gather_invariant(got, "data", mesh), torch.ones(())
+        out[f"take_split_{key}"] = run(
+            split, block, axes, () if "data" in axes else ("data",))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_recsys_mesh.py
+# ---------------------------------------------------------------------------
+
+# each family's SMOKE widths with one table padded to at least 1M rows that
+# the four ranks divide (its rows over ``("model", "data")``), one between
+# 131072 and 1M rows (over ``model``) and the rest whole; DIEN's one table
+# is the large one
+RECSYS_MESH_SIZES = {"dlrm_mlperf": (100, 140000, 1000001, 30),
+                     "xdeepfm": (50, 140000, 1000001, 80, 40),
+                     "dien": (1000001,),
+                     "wide_deep": (200, 140000, 1000001, 30)}
+
+
+def recsys_mesh_cfg(arch):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch).SMOKE,
+                               table_sizes=RECSYS_MESH_SIZES[arch])
+
+
+def recsys_probe(leaf, probes):
+    """A leaf as the recsys mesh tests compare it: whole, or at the rows
+    ``probes`` lists for it (a large table)."""
+    return leaf[probes] if probes is not None else leaf
+
+
+def recsys_mesh_rank(rank, path):
+    """Each family of the pickled cases at ``path`` on each mesh of
+    MESHES: its JAX init carried by ``weights.recsys_params_from_jax``
+    and cut by ``shard_state`` under ``state_shardings(recsys_param_
+    specs(...))``, one ``build_recsys_train_step(mesh=, param_specs=,
+    zero_specs=)`` step on the train batch (and, at (2, 2), on the
+    planted batch): the losses, this rank's state bytes beside the specs'
+    count, each leaf's block digest with the axes its spec names, whether
+    ``new_state(mesh=, specs=)`` is ``shard_state`` of the global state,
+    and on rank 0 the gathered state (large tables at their probe rows;
+    whether every other row kept its bits). Then the serve step on the
+    served batch and the retrieval step on each candidate case."""
+    import pickle
+
+    import torch
+
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.optim.optimizers import adagrad
+    from repro_torch.tree import tree_items
+    from repro_torch.weights import recsys_params_from_jax
+
+    with open(path, "rb") as f:
+        cases = pickle.load(f)
+    out = {}
+    for arch, case in cases.items():
+        cfg = recsys_mesh_cfg(arch)
+        params = recsys_params_from_jax(case["params"], cfg, "cpu")
+        glob = {"params": params, "opt": adagrad(case["lr"]).init(params),
+                "step": 0}
+        init = {k: v.numpy() for k, v in tree_items(
+            {"params": glob["params"], "opt": glob["opt"]}).items()}
+        for shape in MESHES:
+            mesh = Mesh(shape, AXES, device="cpu")
+            ps = S.recsys_param_specs(cfg, mesh)
+            specs = S.state_shardings(ps, params, "adagrad", mesh)
+            step = steps.build_recsys_train_step(
+                cfg, lr=case["lr"], mesh=mesh, param_specs=ps,
+                zero_specs=specs["opt"]["acc"])
+            rec = {"coords": dict(mesh.coords),
+                   "spec_nbytes": S.state_nbytes(mesh, specs, glob),
+                   "axes": {k: S.spec_axes(v) for k, v in
+                            S.spec_items({"params": specs["params"],
+                                          "opt": specs["opt"]}).items()}}
+            built = steps.new_state(cfg, torch.Generator().manual_seed(3),
+                                    mesh=mesh, specs=specs)
+            drawn = S.shard_state(mesh, specs, steps.new_state(
+                cfg, torch.Generator().manual_seed(3)))
+            rec["new_state_is_shard_state"] = all(
+                torch.equal(a, drawn_leaf) for a, drawn_leaf in zip(
+                    tree_items(built).values(), tree_items(drawn).values())
+                if isinstance(a, torch.Tensor))
+            del built, drawn
+            for kind in ("train", "planted"):
+                if kind == "planted" and shape != (2, 2):
+                    continue
+                state = S.shard_state(mesh, specs, glob)
+                if kind == "train":
+                    rec["nbytes"] = sum(
+                        t.nbytes for t in tree_items(state).values()
+                        if isinstance(t, torch.Tensor))
+                new, m = step(state, torch_batch(case[kind]))
+                body = {"params": new["params"], "opt": new["opt"]}
+                res = {"loss": float(m["loss"]), "step": new["step"],
+                       "blocks": {k: digest(v) for k, v in
+                                  tree_items(body).items()}}
+                whole = S.gather_state(mesh, specs, new)
+                if rank == 0:
+                    got = {k: v.numpy() for k, v in tree_items(
+                        {"params": whole["params"],
+                         "opt": whole["opt"]}).items()}
+                    res["state"] = {k: recsys_probe(v, case["probes"][k])
+                                    for k, v in got.items()}
+                    res["rest_kept"] = all(
+                        np.array_equal(np.delete(v, case["probes"][k], 0),
+                                       np.delete(init[k],
+                                                 case["probes"][k], 0))
+                        for k, v in got.items()
+                        if case["probes"][k] is not None)
+                rec[kind] = res
+                del state, new, whole
+            state = S.shard_state(mesh, specs, glob)
+            serve = steps.build_recsys_serve_step(cfg, mesh, ps)
+            rec["serve"] = serve(state["params"],
+                                 torch_batch(case["serve"])).numpy()
+            rec["retrieval"] = {}
+            for name, ret in case["retrieval"].items():
+                batch = torch_batch(ret["batch"])
+                batch["candidates"] = S.candidate_block(
+                    mesh, torch.from_numpy(ret["candidates"]))
+                v, i = steps.build_retrieval_step(
+                    cfg, mesh, k=ret["k"], param_specs=ps)(
+                        state["params"], batch)
+                rec["retrieval"][name] = (v.numpy(), i.numpy())
+            out[(arch, shape)] = rec
+    return out

@@ -477,8 +477,10 @@ def test_retrieval_ties_go_to_the_lowest_id():
 
 
 def test_retrieval_step_refuses_a_mesh():
+    """Specs without a mesh are refused: they place the params on one
+    (the steps over a mesh: ``tests/test_torch_recsys_mesh.py``)."""
     cfg = get_config("dlrm_mlperf").SMOKE
-    with pytest.raises(NotImplementedError, match="item 10"):
-        steps.build_retrieval_step(cfg, object())
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="give the mesh"):
+        steps.build_retrieval_step(cfg, param_specs={})
+    with pytest.raises(ValueError, match="give the mesh"):
         steps.build_recsys_train_step(cfg, param_specs={})

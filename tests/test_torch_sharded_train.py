@@ -302,10 +302,16 @@ def test_an_moe_config_under_a_mesh_says_the_expert_parallel_path_waits(runs):
 @pytest.mark.parametrize("build", ["decode", "recsys_train", "retrieval",
                                    "build_step"])
 def test_the_other_steps_still_refuse_a_mesh_naming_item_10(build):
+    """Decode and ``build_step`` refuse a mesh, naming item 10g; the recsys
+    steps take one (``tests/test_torch_recsys_mesh.py``) and refuse
+    specs without it."""
     from repro_torch.configs import get_config
     from repro_torch.configs.specs import cell_spec
 
-    with pytest.raises(NotImplementedError, match="item 10"):
+    refusal = ((ValueError, "give the mesh")
+               if build in ("recsys_train", "retrieval")
+               else (NotImplementedError, "item 10g"))
+    with pytest.raises(refusal[0], match=refusal[1]):
         if build == "decode":
             steps.build_decode_step(get_config("llama3_2_3b").SMOKE,
                                     mesh=object())
@@ -314,7 +320,7 @@ def test_the_other_steps_still_refuse_a_mesh_naming_item_10(build):
                                           param_specs=object())
         elif build == "retrieval":
             steps.build_retrieval_step(get_config("xdeepfm").SMOKE,
-                                       mesh=object())
+                                       param_specs=object())
         else:
             steps.build_step("splade_xlmr",
                              cell_spec("splade_xlmr", "train_16"),
